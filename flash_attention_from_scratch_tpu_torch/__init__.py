@@ -1,0 +1,37 @@
+"""PyTorch + CUDA port of flash_attention_from_scratch_tpu for NVIDIA Hopper.
+
+Mirrors the JAX package's layout (``ops/``, ``models/``, ``serving/``,
+``utils/``, ``csrc/``). Each TPU kernel on the ported path is a CUDA kernel
+written for ``sm_90a`` beside a plain PyTorch version of the same function:
+a wrapper launches the kernel for a CUDA tensor and runs the plain version
+only for a CPU tensor. Entry points default to ``device="cuda"`` and raise
+when no card is present.
+"""
+
+from .models.decode import (
+    PagedKVCache, decode_step, greedy_token, init_cache, prefill,
+)
+from .models.llama import (
+    LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, forward, init_params,
+    params_from_jax,
+)
+from .ops.configs import (
+    DType, KernelConfig, calc_causal_attn_flop, calc_self_attn_flop,
+)
+from .ops.flash_forward import flash_forward, flash_forward_with_lse
+from .ops.paged_attention import paged_decode_attention
+from .ops.reference import reference_attention, reference_pair
+from .serving.generate import GenerationServer
+from .serving.runtime import Batch, PagedEngine
+from .utils.testing import adaptive_tolerance_check, error_stats, make_qkv
+
+__all__ = [
+    "DType", "KernelConfig", "calc_self_attn_flop", "calc_causal_attn_flop",
+    "reference_attention", "reference_pair",
+    "flash_forward", "flash_forward_with_lse", "paged_decode_attention",
+    "LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B", "init_params",
+    "params_from_jax", "forward",
+    "PagedKVCache", "init_cache", "prefill", "decode_step", "greedy_token",
+    "PagedEngine", "Batch", "GenerationServer",
+    "adaptive_tolerance_check", "error_stats", "make_qkv",
+]

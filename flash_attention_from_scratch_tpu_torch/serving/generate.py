@@ -1,0 +1,235 @@
+"""Continuous-batching generation: native scheduler + the port's kernels.
+
+Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
+``GenerationServer`` for greedy decoding, one token per decode step and a
+dense KV cache. Requests enter the native scheduler
+(``serving.runtime.PagedEngine``); each step admits what fits, prefills
+newly admitted prompts through the flash forward kernel, and advances every
+running sequence one token through the paged decode kernel. The decode
+batch is padded to ``max_batch``; padding rows write their K/V to a reserved
+scratch page.
+
+Token bookkeeping matches the scheduler's accounting: after ``step()`` a
+sequence's length counts its prompt plus committed tokens; the token
+generated this step writes K/V at position ``length - 1``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..models.decode import decode_step, greedy_token, init_cache, prefill
+from ..models.llama import LlamaConfig
+from ..utils.device import resolve_device
+from .runtime import PagedEngine
+
+__all__ = ["GenerationServer"]
+
+PROMPT_QUANTUM = 128  # prompts are right-padded to a multiple of this
+
+
+def _pad_to_multiple(tokens: list[int], quantum: int = PROMPT_QUANTUM) -> np.ndarray:
+    n = len(tokens)
+    out = np.zeros(n + (-n) % quantum, np.int64)
+    out[:n] = tokens
+    return out
+
+
+@dataclasses.dataclass
+class _SeqState:
+    prompt: list[int]
+    generated: list[int]
+    max_new: int = 0
+    prefilled: bool = False
+    stop: frozenset = frozenset()
+    # Wall clock: submit -> first token -> finished.
+    submit_t: float = 0.0
+    first_t: float = 0.0
+    done_t: float = 0.0
+
+
+class GenerationServer:
+    """Greedy continuous-batching generation over a paged KV cache.
+
+    ``num_pages`` is the total pool; one page is reserved as the scratch
+    target for decode-batch padding rows, the rest belong to the scheduler.
+    ``params`` must live on ``device`` (default: the card; without one the
+    constructor raises). Options of the JAX server that are not ported yet
+    raise ``NotImplementedError``.
+    """
+
+    def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
+                 page_size: int, max_batch: int,
+                 pages_per_seq: int | None = None, mode: str = "dense",
+                 temperature: float = 0.0, chunk: int = 1,
+                 attn_int8: bool = False, mesh=None,
+                 prefill_chunk_tokens: int = 0, spec_k: int = 0,
+                 prefix_cache: bool = False, lora=None, device="cuda"):
+        unported = {"temperature > 0 (sampling)": temperature > 0,
+                    "chunk > 1 (multi-token decode loop)": chunk > 1,
+                    "spec_k (speculative decoding)": spec_k,
+                    "prefix_cache": prefix_cache,
+                    "prefill_chunk_tokens (chunked prefill)": prefill_chunk_tokens,
+                    "lora": lora is not None,
+                    "mesh (tensor-parallel serving)": mesh is not None,
+                    "attn_int8": attn_int8}
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (see ROADMAP.md, Queue 1)")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"server on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.pages_per_seq = pages_per_seq or (num_pages - 1)
+        self.engine = PagedEngine(num_pages - 1, page_size, max_batch,
+                                  max_pages_per_seq=self.pages_per_seq)
+        self.scratch_page = num_pages - 1  # never handed out by the engine
+        self.max_batch = max_batch
+        self.page_size = page_size
+        self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
+        self.seqs: dict[int, _SeqState] = {}
+        self.steps = 0
+        self.decode_steps = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
+        self._stopped: list[int] = []
+
+    def submit(self, seq_id: int, prompt: list[int], max_new_tokens: int,
+               stop=()):
+        """Queue a request. ``stop``: token ids that end the sequence early
+        (kept in the generation, the EOS convention)."""
+        self.engine.add_request(seq_id, len(prompt), max_new_tokens)
+        self.seqs[seq_id] = _SeqState(prompt=list(prompt), generated=[],
+                                      max_new=max_new_tokens,
+                                      stop=frozenset(stop),
+                                      submit_t=time.perf_counter())
+
+    @property
+    def has_work(self) -> bool:
+        return self.engine.waiting > 0 or self.engine.running > 0
+
+    def _tensor(self, x, dtype=torch.int64):
+        return torch.as_tensor(x, dtype=dtype).to(self.device)
+
+    def step(self) -> list[int]:
+        """One scheduler + model step; returns sequence ids finished now."""
+        batch = self.engine.step()
+        if len(batch.ids) == 0:
+            return []
+        self.steps += 1
+        self._stopped = []
+
+        # Prefill newly admitted sequences, and preempted ones the scheduler
+        # readmitted (recompute preemption resets them to length == prompt;
+        # greedy decoding regenerates the same tokens).
+        decode_rows, pending = [], []
+        for row, sid in enumerate(batch.ids.tolist()):
+            st = self.seqs[sid]
+            if st.prefilled and batch.lengths[row] == len(st.prompt):
+                st.prefilled = False  # was preempted: its pages are gone
+                st.generated = []
+            if not st.prefilled:
+                logits, self.cache = prefill(
+                    self.params, self._tensor(_pad_to_multiple(st.prompt))[None],
+                    self.cfg, self.cache, self._tensor(batch.page_tables[row]),
+                    prompt_len=len(st.prompt))
+                self.prefill_tokens += len(st.prompt)
+                pending.append((sid, greedy_token(logits)))
+                st.prefilled = True
+            else:
+                decode_rows.append(row)
+        if pending:
+            # One device-to-host copy for all first tokens of this step.
+            toks = torch.stack([t for _, t in pending]).tolist()
+            for (sid, _), tok in zip(pending, toks):
+                self._append(sid, int(tok))
+
+        if decode_rows:
+            self._decode_one(batch, decode_rows)
+        return self._finish_stamp(self._stopped + self.engine.commit())
+
+    def _finish_stamp(self, sids: list[int]) -> list[int]:
+        now = time.perf_counter()
+        for sid in sids:
+            self.seqs[sid].done_t = now
+        return sids
+
+    def _append(self, sid: int, tok: int) -> bool:
+        """Record one generated token; finish the sequence on a stop token.
+
+        Returns True when the sequence just stopped: its engine pages are
+        freed at once, so callers must write no more tokens or K/V for it.
+        """
+        st = self.seqs[sid]
+        st.generated.append(tok)
+        if len(st.generated) == 1:
+            st.first_t = time.perf_counter()
+        if tok in st.stop:
+            self.engine.finish(sid)
+            self._stopped.append(sid)
+            return True
+        return False
+
+    def _gather_batch(self, batch, decode_rows):
+        """Row-gather the decode batch and pad it to ``max_batch``.
+
+        Padding rows are length-1 dummies whose only page is the reserved
+        scratch page.
+        """
+        rows = np.asarray(decode_rows)
+        tokens = np.array(
+            [self.seqs[batch.ids[r]].generated[-1] for r in decode_rows],
+            np.int64)
+        lengths = batch.lengths[rows]
+        tables = batch.page_tables[rows]
+        pad = self.max_batch - len(rows)
+        if pad:
+            tokens = np.concatenate([tokens, np.zeros(pad, np.int64)])
+            lengths = np.concatenate([lengths, np.ones(pad, np.int32)])
+            pad_tables = np.full((pad, tables.shape[1]), -1, np.int32)
+            pad_tables[:, 0] = self.scratch_page
+            tables = np.concatenate([tables, pad_tables], axis=0)
+        return tokens, lengths, tables
+
+    def _decode_one(self, batch, decode_rows):
+        """One greedy token for every decoding row."""
+        tokens, lengths, tables = self._gather_batch(batch, decode_rows)
+        logits, self.cache = decode_step(
+            self.params, self._tensor(tokens), self.cfg, self.cache,
+            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32))
+        sids = [int(batch.ids[r]) for r in decode_rows]
+        self.decode_steps += 1
+        toks = greedy_token(logits[:len(sids)]).tolist()
+        for sid, tok in zip(sids, toks):
+            self._append(sid, int(tok))
+        self.decode_tokens += len(decode_rows)
+
+    def run(self, max_steps: int = 10_000) -> dict[int, list[int]]:
+        """Drive until every submitted request finishes; returns generations."""
+        for _ in range(max_steps):
+            if not self.has_work:
+                break
+            self.step()
+        else:
+            raise RuntimeError(f"did not drain within {max_steps} steps")
+        return {sid: st.generated for sid, st in self.seqs.items()}
+
+    def stats(self) -> dict:
+        """Serving counters."""
+        return {
+            "steps": self.steps,
+            "decode_steps": self.decode_steps,
+            "decode_tokens": self.decode_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "running": self.engine.running,
+            "waiting": self.engine.waiting,
+            "free_pages": self.engine.free_pages,
+            "preemptions": int(self.engine.preempt_count),
+        }
