@@ -14,15 +14,14 @@ return that same object.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from ..ops.paged_attention import paged_decode_attention
 from ..utils.device import resolve_device
 from .llama import (
-    LlamaConfig, _attention, _mlp, _o_proj, _qkv, apply_rope, rms_norm,
-    rope_inv_freq, rope_tables,
+    LlamaConfig, _attention, _embed, _lm_logits, _qkv, _residual_tail,
+    apply_rope, rms_norm, rope_inv_freq, rope_tables,
 )
 
 __all__ = ["PagedKVCache", "init_cache", "prefill", "decode_step",
@@ -60,33 +59,6 @@ def init_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
     return PagedKVCache(
         [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
         [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)])
-
-
-def _embed(params, tokens, cfg: LlamaConfig):
-    x = params["embed"][tokens]
-    if cfg.embed_scale:
-        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
-    return x
-
-
-def _lm_logits(params, h, cfg: LlamaConfig):
-    """The lm_head product in the model dtype, then fp32 logits."""
-    logits = (h @ params["lm_head"]).float()
-    if cfg.final_softcap:
-        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
-
-
-def _residual_tail(cfg: LlamaConfig, layer, x, out):
-    """Attention-output projection + MLP, with optional sandwich norms."""
-    h = _o_proj(layer, out)
-    if cfg.post_norms:
-        h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
-    x = x + h
-    h = _mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
-    if cfg.post_norms:
-        h = rms_norm(h, layer["mlp_post_norm"], cfg.norm_eps)
-    return x + h
 
 
 def _write_prompt_layer(cache: PagedKVCache, li: int, k, v, page_table,

@@ -258,6 +258,33 @@ def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
     return out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head), k, v
 
 
+def _embed(params, tokens, cfg: LlamaConfig):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
+    return x
+
+
+def _lm_logits(params, h, cfg: LlamaConfig):
+    """The lm_head product in the model dtype, then fp32 logits."""
+    logits = (h @ params["lm_head"]).float()
+    if cfg.final_softcap:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+def _residual_tail(cfg: LlamaConfig, layer, x, out):
+    """Attention-output projection + MLP, with optional sandwich norms."""
+    h = _o_proj(layer, out)
+    if cfg.post_norms:
+        h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
+    x = x + h
+    h = _mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
+    if cfg.post_norms:
+        h = rms_norm(h, layer["mlp_post_norm"], cfg.norm_eps)
+    return x + h
+
+
 def forward(params, tokens, cfg: LlamaConfig):
     """tokens (batch, seq) int -> logits (batch, seq, vocab) fp32.
 
@@ -265,23 +292,11 @@ def forward(params, tokens, cfg: LlamaConfig):
     multiple of the kernel's tile (64); pad on the right, causality keeps
     the real rows exact.
     """
-    x = params["embed"][tokens]
-    if cfg.embed_scale:
-        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
+    x = _embed(params, tokens, cfg)
     cos, sin = rope_tables(tokens.shape[1], cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
         out, _, _ = _attention(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps),
                                cfg, cos, sin, li)
-        h = _o_proj(layer, out)
-        if cfg.post_norms:
-            h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
-        x = x + h
-        h = _mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
-        if cfg.post_norms:
-            h = rms_norm(h, layer["mlp_post_norm"], cfg.norm_eps)
-        x = x + h
+        x = _residual_tail(cfg, layer, x, out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
-    if cfg.final_softcap:
-        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    return _lm_logits(params, x, cfg)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["ErrorStats", "error_stats", "adaptive_tolerance_check",
-           "make_qkv"]
+           "sliced_tolerance_check", "row_bands", "make_qkv"]
 
 
 @dataclasses.dataclass
@@ -71,6 +71,48 @@ def adaptive_tolerance_check(out, ref_native, ref_fp32, factor: float = 2.0):
     order_floor = factor * eps32 * ref_mag * math.sqrt(n_acc)
     bound = max(factor * baseline_err, ulp_floor, order_floor, 1e-6)
     return kernel_err <= bound, kernel_err, baseline_err
+
+
+def sliced_tolerance_check(out, ref_native, ref_fp32, lead: int,
+                           factor: float = 2.0):
+    """:func:`adaptive_tolerance_check` on each slice of the ``lead`` leading
+    axes on its own.
+
+    One bound over a whole tensor is set by its largest values: the ulp
+    floor of a row that is a single V row (a length-1 sequence, causal row
+    0) is far above the error a long row's small average may show. Slicing
+    by sequence, or by (batch, head, row band), gives each part its own
+    baseline and floor.
+
+    Returns (ok, worst ratio of error to bound, index of the worst slice).
+    """
+    out32 = out.float()
+    native32 = ref_native.float().to(out32.device)
+    fp32 = ref_fp32.float().to(out32.device)
+
+    def slice_max(x):
+        return x.abs().reshape(*x.shape[:lead], -1).amax(-1)
+
+    kernel_err = slice_max(out32 - native32)
+    baseline_err = slice_max(native32 - fp32)
+    ref_mag = slice_max(fp32)
+    eps = torch.finfo(ref_native.dtype).eps
+    eps32 = torch.finfo(torch.float32).eps
+    n_acc = out.shape[-2] if out.ndim - lead >= 2 else 1
+    bound = torch.stack([
+        factor * baseline_err, factor * eps * ref_mag,
+        factor * eps32 * math.sqrt(n_acc) * ref_mag,
+        torch.full_like(ref_mag, 1e-6)]).amax(0)
+    ratio = kernel_err / bound
+    worst = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()),
+                                                     tuple(ratio.shape)))
+    return bool((ratio <= 1).all()), float(ratio.max()), worst
+
+
+def row_bands(x, band: int = 64):
+    """(..., seq, d) -> (..., seq // band, band, d): attention rows in
+    bands, for :func:`sliced_tolerance_check`."""
+    return x.unflatten(-2, (-1, band))
 
 
 def make_qkv(batch: int, heads: int, seq_q: int, d_head: int = 128, *,

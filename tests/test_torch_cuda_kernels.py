@@ -7,7 +7,9 @@ repo's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerance: the adaptive tolerance rule against the plain version in bf16
-(native) and fp32; the LSE within 1e-3.
+(native) and in fp32 on the same bf16-rounded inputs, held in each
+(batch, head, 64-row band) of a flash output and each sequence of a paged
+one on its own; the LSE within 1e-3.
 """
 
 import dataclasses
@@ -25,7 +27,7 @@ from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
     KERNEL as PAGED, paged_decode_attention, paged_decode_attention_plain,
 )
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
-    adaptive_tolerance_check, make_qkv,
+    make_qkv, row_bands, sliced_tolerance_check,
 )
 
 pytestmark = pytest.mark.cuda
@@ -57,8 +59,9 @@ def test_flash_kernel_matches_plain(cuda, sq, kw):
     ref32, lse32 = flash_forward_plain(
         q.float(), k.float(), v.float(),
         dataclasses.replace(cfg, dtype=DType.FP32), sinks)
-    ok, err, base = adaptive_tolerance_check(out, ref16, ref32)
-    assert ok, (err, base)
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(out), row_bands(ref16), row_bands(ref32), lead=3)
+    assert ok, (ratio, where)
     assert float((lse - lse32).abs().max()) <= 1e-3
 
 
@@ -80,6 +83,9 @@ def test_paged_kernel_matches_plain(cuda, heads, kv_heads):
             k[:, page, :rows] = torch.randn(kv_heads, rows, 128, device=cuda)
             v[:, page, :rows] = torch.randn(kv_heads, rows, 128, device=cuda)
     q = torch.randn(5, heads, 128, device=cuda)
+    # fp32 copies of the bf16 values: the baseline is rounding inside the
+    # function, not of its inputs.
+    q, k, v = (x.bfloat16().float() for x in (q, k, v))
     for kw in (dict(), dict(window=64), dict(softcap=20.0)):
         before = _build.launch_counts[PAGED]
         out = paged_decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
@@ -92,8 +98,8 @@ def test_paged_kernel_matches_plain(cuda, heads, kv_heads):
         ref32 = paged_decode_attention_plain(q, k, v, lengths, tables,
                                              scale=128 ** -0.5, **kw)
         assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
-        ok, err, base = adaptive_tolerance_check(out, ref16, ref32)
-        assert ok, (kw, err, base)
+        ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+        assert ok, (kw, ratio, where)
 
 
 def test_kernels_refuse_other_dtypes(cuda):

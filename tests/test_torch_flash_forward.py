@@ -3,15 +3,16 @@
 Same seeded numpy inputs in bf16 go to the port's ``flash_forward`` /
 ``flash_forward_with_lse`` and to the JAX package's Pallas kernel in
 interpret mode. Tolerance: the output passes the adaptive tolerance rule
-(error vs the JAX kernel at most 2x the JAX kernel's own bf16-vs-fp32
-error, with an ulp floor); the LSE (fp32 softmax statistics of the same
-fp32 scores) agrees within 1e-3. The JAX kernel runs with
+with both references from the JAX side: the port's error vs the JAX kernel
+is at most 2x the JAX kernel's own error vs the JAX ``reference_attention``
+in fp32 on the same bf16-rounded inputs, with an ulp floor. The rule holds
+in each (batch, head, 64-row band) on its own, so a large row elsewhere
+cannot lift the bound of a band of small averages. The LSE (fp32 softmax
+statistics of the same fp32 scores) agrees within 1e-3. The JAX kernel runs with
 ``scale_q=False``: its default rounds ``Q * scale * log2(e)`` to bf16 before
 QK^T, which moves its LSE by up to ~1.3e-3; the port, like the JAX
 kernel's ``scale_q=False`` path, scales the fp32 scores.
 """
-
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,12 +26,15 @@ from flash_attention_from_scratch_tpu.ops.flash_forward import (
     flash_forward as jax_flash_forward,
     flash_forward_with_lse as jax_flash_forward_with_lse,
 )
+from flash_attention_from_scratch_tpu.ops.reference import (
+    reference_attention as jax_reference,
+)
 from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-    flash_forward, flash_forward_plain, flash_forward_with_lse,
+    flash_forward, flash_forward_with_lse,
 )
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
-    adaptive_tolerance_check, make_qkv,
+    make_qkv, row_bands, sliced_tolerance_check,
 )
 
 # name: (batch, heads, kv_heads, seq_q, seq_kv, mask/score options, sinks)
@@ -65,6 +69,19 @@ def _jax(name, with_lse):
     return np.asarray(jax_flash_forward(*args, cfg, sinks=s), np.float32), None
 
 
+def _jax_fp32(name):
+    """The JAX reference in fp32 on the bf16-rounded inputs, with an
+    explicit q_offset (its default aligns causal masks bottom-right)."""
+    (q, k, v), kw, sinks = _inputs(name)
+    args = [jnp.asarray(x, jnp.bfloat16).astype(jnp.float32) for x in (q, k, v)]
+    causal = kw.get("causal", False)
+    out = jax_reference(
+        *args, causal=causal, q_offset=kw.get("q_offset", 0) if causal else None,
+        window=kw.get("window", 0), softcap=kw.get("attn_softcap", 0.0),
+        sinks=None if sinks is None else jnp.asarray(sinks))
+    return torch.from_numpy(np.array(out))
+
+
 def _port(name):
     (q, k, v), kw, sinks = _inputs(name)
     cfg = KernelConfig(**kw)
@@ -72,30 +89,31 @@ def _port(name):
     s = None if sinks is None else torch.from_numpy(sinks)
     out, lse = flash_forward_with_lse(*args, cfg, sinks=s)
     out_only = flash_forward(*args, cfg, sinks=s)
-    ref32, _ = flash_forward_plain(*[x.float() for x in args],
-                                   dataclasses.replace(cfg, dtype=DType.FP32), s)
-    return out, lse, out_only, ref32
+    return out, lse, out_only
+
+
+def _check(name, out, jax_out):
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(out), row_bands(torch.from_numpy(jax_out).bfloat16()),
+        row_bands(_jax_fp32(name)), lead=3)
+    assert ok, (name, ratio, where)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_flash_forward_with_lse_matches_jax(name):
     jax_out, jax_lse = _jax(name, with_lse=True)
-    out, lse, out_only, ref32 = _port(name)
+    out, lse, out_only = _port(name)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert torch.equal(out, out_only)
-    ok, err, base = adaptive_tolerance_check(
-        out, torch.from_numpy(jax_out).bfloat16(), ref32)
-    assert ok, (name, err, base)
+    _check(name, out, jax_out)
     np.testing.assert_allclose(lse.numpy(), jax_lse, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("name", ["causal_gqa", "sinks"])
 def test_flash_forward_matches_jax(name):
     jax_out, _ = _jax(name, with_lse=False)
-    _, _, out, ref32 = _port(name)
-    ok, err, base = adaptive_tolerance_check(
-        out, torch.from_numpy(jax_out).bfloat16(), ref32)
-    assert ok, (name, err, base)
+    _, _, out = _port(name)
+    _check(name, out, jax_out)
 
 
 def _bf16(*shape):

@@ -20,7 +20,7 @@ from flash_attention_from_scratch_tpu_torch.ops.reference import (
     reference_attention, reference_pair,
 )
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
-    adaptive_tolerance_check, error_stats, make_qkv,
+    adaptive_tolerance_check, error_stats, make_qkv, sliced_tolerance_check,
 )
 
 CASES = {
@@ -73,3 +73,22 @@ def test_tolerance_rule_matches_jax(noise):
                                    torch.from_numpy(ref32))
     assert got[0] == want[0]
     np.testing.assert_allclose(got[1:], want[1:], rtol=1e-6)
+
+
+def test_sliced_rule_holds_each_slice():
+    """A slice of large values must not lift the bound of a slice of small
+    ones: an error that one rule over the whole tensor lets pass fails in
+    its own slice, and each slice alone gets the whole-tensor verdict."""
+    rng = np.random.default_rng(6)
+    ref32 = torch.from_numpy(rng.standard_normal((3, 64, 128)).astype(np.float32))
+    ref32[1] *= 0.02  # the long-sequence average beside single V rows
+    ref16 = ref32.bfloat16()
+    out = ref16.clone()
+    out[1, 5, 7] += 0.01
+    assert adaptive_tolerance_check(out, ref16, ref32)[0]
+    ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+    assert not ok and where == (1,) and ratio > 1
+    for i in range(3):
+        alone = adaptive_tolerance_check(out[i], ref16[i], ref32[i])[0]
+        assert sliced_tolerance_check(out[i:i + 1], ref16[i:i + 1],
+                                      ref32[i:i + 1], lead=1)[0] == alone
