@@ -1,32 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve, measure.
+"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve, train, measure.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases: (1) print the card's name and power limit; (2) build every kernel
-from ``flash_attention_from_scratch_tpu_torch/csrc`` with nvcc for sm_90a;
-(3) hold each kernel against its plain PyTorch version on the card, in bf16,
-by the adaptive tolerance rule in each sequence or 64-row band on its own;
-(4) serve Llama-3-8B at full width and depth (random bf16 weights from a
-seed) through ``GenerationServer``: 8 requests, 32 greedy tokens each, with
-the launch counts of both kernels checked and two requests teacher-forced
-through the full-recompute ``forward``; (5) profile a few decode steps of
-the same server (device time by kernel, the card's busy share); (6) time
-each kernel at the serving run's shapes beside its bound, its plain version
-and the library call. Prints ``serve``, ``profile`` and ``kernels`` JSON
-lines and, last, one JSON object with ``"ok": true``. Any failure raises,
-so the exit code is not 0. Without a CUDA device it exits with code 2
-before it does anything.
+from ``flash_attention_from_scratch_tpu_torch/csrc`` with nvcc for sm_90a,
+in parallel; (3) hold each kernel against its plain PyTorch version on the
+card, in bf16, by the adaptive tolerance rule in each sequence or 64-row
+band on its own: the flash forward (K1), paged decode (K4/K5), and the
+flash backward, fused (K2) and split (K3), each also at the training run's
+shape and strided layout, plus autograd with sinks against autograd of the
+reference; (4) serve Llama-3-8B at full width and depth
+(random bf16 weights from a seed) through ``GenerationServer``: 8 requests,
+32 greedy tokens each, with the launch counts of both kernels checked and
+two requests teacher-forced through the full-recompute ``forward``; (5)
+profile a few decode steps of the same server (device time by kernel, the
+card's busy share); (6) train Llama-3-8B at full width and 8 layers (AdamW,
+batch 2 x 2048 tokens) for 3 steps with the fused backward, checking the
+loss falls and the launch counts, profile one more step, then take one step
+in PyTorch's deterministic mode, which runs the split backward, with its
+counts checked, the loss after it falling, and K2 and K3 held against the
+plain backward on every layer's recorded attention inputs; (7) time
+each kernel at its path's shapes beside its bound, its plain version and
+the library call. Prints ``serve``, ``profile``, ``train`` and ``kernels``
+JSON lines and, last, one JSON object with ``"ok": true``. Any failure
+raises, so the exit code is not 0. Without a CUDA device it exits with
+code 2 before it does anything.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -39,6 +52,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FLASH_CASE_SEQS = (512, 2048, 4096)
 HEADS, KV_HEADS, D = 32, 8, 128
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 3
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -74,7 +88,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
-                         "paged_runtime.cpp"])
+                         "flash_backward.cu", "paged_runtime.cpp"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -84,11 +98,32 @@ def phase_build() -> None:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
 
 
-def _cuda_qkv(sq, skv, seed):
+def _as_model_rows(x, strided):
+    """x (b, h, s, d); with ``strided``, the same values laid out as the
+    model hands them to the kernels: a transposed view of contiguous
+    (b, s, h, d) rows."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2) if strided else x
+
+
+def _cuda_qkv(sq, skv, seed, batch=1, strided=False):
     from flash_attention_from_scratch_tpu_torch.utils.testing import make_qkv
 
-    q, k, v = make_qkv(1, HEADS, sq, D, kv_heads=KV_HEADS, seq_kv=skv, seed=seed)
-    return [torch.from_numpy(x).to("cuda", torch.bfloat16) for x in (q, k, v)]
+    q, k, v = make_qkv(batch, HEADS, sq, D, kv_heads=KV_HEADS, seq_kv=skv,
+                       seed=seed)
+    return [_as_model_rows(torch.from_numpy(x).to("cuda", torch.bfloat16), strided)
+            for x in (q, k, v)]
+
+
+def _cuda_normal(shape, seed, strided=False):
+    return _as_model_rows(torch.from_numpy(np.random.default_rng(
+        seed).standard_normal(shape).astype(np.float32)).to(
+            "cuda", torch.bfloat16), strided)
+
+
+# The training run's attention: causal, b 2, 32/8 heads, s 2048, with q,
+# k, v and dO as transposed views (``_as_model_rows``).
+TRAIN_CASE = (f"train shape b{TRAIN_BATCH} s{TRAIN_SEQ} strided", TRAIN_SEQ,
+              TRAIN_SEQ, dict(causal=True), dict(batch=TRAIN_BATCH, strided=True))
 
 
 def phase_flash_cases() -> float:
@@ -101,19 +136,21 @@ def phase_flash_cases() -> float:
 
     cases = []
     for s in FLASH_CASE_SEQS:
-        cases += [(f"causal s{s}", s, s, dict(causal=True), False),
-                  (f"full s{s}", s, s, dict(), False)]
+        cases += [(f"causal s{s}", s, s, dict(causal=True), {}),
+                  (f"full s{s}", s, s, dict(), {})]
     cases += [
-        ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), False),
-        ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), False),
-        ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), False),
-        ("sinks s1024", 1024, 1024, dict(causal=True), True),
+        ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
+        ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
+        ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
+        ("sinks s1024", 1024, 1024, dict(causal=True), dict(sinks=True)),
+        TRAIN_CASE,
     ]
     worst = 0.0
-    for i, (name, sq, skv, kw, with_sinks) in enumerate(cases):
-        q, k, v = _cuda_qkv(sq, skv, seed=i)
+    for i, (name, sq, skv, kw, extra) in enumerate(cases):
+        q, k, v = _cuda_qkv(sq, skv, seed=i, batch=extra.get("batch", 1),
+                            strided=extra.get("strided", False))
         sinks = (torch.from_numpy(np.random.default_rng(100 + i).standard_normal(
-            HEADS).astype(np.float32) * 2).cuda() if with_sinks else None)
+            HEADS).astype(np.float32) * 2).cuda() if extra.get("sinks") else None)
         cfg = KernelConfig(**kw)
         out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
         torch.cuda.synchronize()
@@ -137,11 +174,120 @@ def phase_flash_cases() -> float:
 
 
 def _fp32(cfg):
-    import dataclasses
-
     from flash_attention_from_scratch_tpu_torch.ops.configs import DType
 
     return dataclasses.replace(cfg, dtype=DType.FP32)
+
+
+BACKWARD_CASES = (
+    ("causal s512", 512, 512, dict(causal=True), {}),
+    ("causal s2048", 2048, 2048, dict(causal=True), {}),
+    ("full s1024", 1024, 1024, dict(), {}),
+    ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
+    ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
+    ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
+    TRAIN_CASE,
+)
+
+
+def _check_grads(what, got, ref16, ref32):
+    """dq by (batch, head, 64-row band), dk/dv by (batch, kv_head, band):
+    the sliced rule on each. Returns (max |kernel - plain|, worst ratio)."""
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        row_bands, sliced_tolerance_check)
+
+    err = ratio_max = 0.0
+    for name, g, r16, r32 in zip(("dq", "dk", "dv"), got, ref16, ref32):
+        ok, ratio, where = sliced_tolerance_check(
+            row_bands(g), row_bands(r16), row_bands(r32), lead=3)
+        if not ok or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what} {name}: err/bound {ratio:.3f} in "
+                                 f"(batch, head, band) {where}")
+        err = max(err, float((g.float() - r16.float()).abs().max()))
+        ratio_max = max(ratio_max, ratio)
+    return err, ratio_max
+
+
+def phase_backward_cases() -> dict:
+    """K2 and K3 vs their plain version, on K1's O and LSE; then autograd
+    through ``flash_attention`` with sinks vs autograd of the reference.
+    Returns {kernel: max |kernel - plain|}."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_FUSED, flash_backward, flash_backward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    worst = {"fused": 0.0, "split": 0.0}
+    for i, (name, sq, skv, kw, extra) in enumerate(BACKWARD_CASES):
+        layout = dict(strided=extra.get("strided", False))
+        q, k, v = _cuda_qkv(sq, skv, seed=200 + i, batch=extra.get("batch", 1),
+                            **layout)
+        do = _cuda_normal(q.shape, seed=300 + i, **layout)
+        cfg = KernelConfig(**kw)
+        o, lse = flash_forward_with_lse(q, k, v, cfg)
+        ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+        ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                     lse, do.float(), _fp32(cfg))
+        for mode in ("fused", "split"):
+            got = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
+            again = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
+            torch.cuda.synchronize()
+            err, ratio = _check_grads(f"flash_backward {mode} {name}", got,
+                                      ref16, ref32)
+            # dK/dV sum in a fixed order in both; dQ only in the split pair.
+            same = [torch.equal(a, b) for a, b in zip(got, again)]
+            if not all(same[1:]) or (mode == "split" and not same[0]):
+                raise AssertionError(f"flash_backward {mode} {name}: a rerun "
+                                     f"differs (dq, dk, dv equal: {same})")
+            worst[mode] = max(worst[mode], err)
+            print(f"flash_backward {mode} {name}: max|kernel-plain| {err:.3e}, "
+                  f"worst err/bound {ratio:.3f}, rerun dq equal {same[0]} ok",
+                  flush=True)
+        del q, k, v, do, o, lse, ref16, ref32, got, again
+    _backward_sinks_case()
+    return {KERNEL_FUSED: worst["fused"], "split": worst["split"]}
+
+
+def _backward_sinks_case() -> None:
+    """flash_attention with sinks (causal, s 1024) through autograd vs
+    autograd of reference_attention in bf16 and fp32. d(sink) per head
+    within the JAX package's rule: 2x the bf16-vs-fp32 baseline, or 2% of
+    the gradient's scale (D is rebuilt from the saved bf16 O, which the
+    reference never rounds)."""
+    from flash_attention_from_scratch_tpu_torch.ops.autodiff import flash_attention
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.reference import (
+        reference_attention)
+
+    q, k, v = _cuda_qkv(1024, 1024, seed=400)
+    do = _cuda_normal(q.shape, seed=401)
+    sinks = torch.from_numpy(np.random.default_rng(402).standard_normal(
+        HEADS).astype(np.float32)).cuda()
+
+    def grads(fn, dtype):
+        leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        z = sinks.clone().requires_grad_()
+        return torch.autograd.grad(fn(*leaves, z), (*leaves, z), do.to(dtype))
+
+    got = grads(lambda q, k, v, z: flash_attention(
+        q, k, v, KernelConfig(causal=True), z), torch.bfloat16)
+    torch.cuda.synchronize()
+    refs = [grads(lambda q, k, v, z: reference_attention(
+        q, k, v, causal=True, q_offset=0, sinks=z), dt)
+        for dt in (torch.bfloat16, torch.float32)]
+    err, ratio = _check_grads("flash_attention sinks", got[:3], refs[0][:3],
+                              refs[1][:3])
+    z_err = (got[3] - refs[0][3]).abs()
+    z_bound = torch.maximum(2 * (refs[0][3] - refs[1][3]).abs(),
+                            0.02 * refs[1][3].abs().max().expand(HEADS))
+    ok = bool((z_err <= z_bound).all())
+    print(f"flash_attention sinks s1024: max|kernel-ref| {err:.3e}, worst "
+          f"err/bound {ratio:.3f}; d(sinks) worst err/bound "
+          f"{float((z_err / z_bound).max()):.3f} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("flash_attention sink gradient disagrees")
 
 
 def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
@@ -249,6 +395,7 @@ def phase_serve(smi: str) -> dict:
     """Serve LLAMA3_8B at full width and depth; check counts and tokens."""
     from flash_attention_from_scratch_tpu_torch import (
         LLAMA3_8B, GenerationServer, init_params)
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
@@ -261,7 +408,7 @@ def phase_serve(smi: str) -> dict:
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ)
     torch.cuda.synchronize()
-    print(f"serve: LLAMA3_8B params {sum(p.numel() for p in _leaves(params)) / 1e9:.2f} B, "
+    print(f"serve: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} B, "
           f"KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -349,42 +496,226 @@ def phase_profile(server, prompts, steps: int = 4) -> None:
     traces ``steps`` decode-only steps: device time per step by kernel, and
     the device's busy share of the wall time.
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for sid, prompt in prompts.items():
         server.submit(1000 + sid, prompt, steps + 1)
     server.step()  # the prefills
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            server.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    prof = _profile(lambda: [server.step() for _ in range(steps)], top=8)
     print(json.dumps({"profile": {
-        "decode_steps": steps, "wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": busy_ms / steps,
-        "device_busy_share": busy_ms / wall_ms,
-        "launches_per_step": sum(e.count for e in kernels) / steps,
+        "decode_steps": steps, "wall_ms_per_step": prof["wall_ms"] / steps,
+        "device_ms_per_step": prof["device_ms"] / steps,
+        "device_busy_share": prof["device_busy_share"],
+        "launches_per_step": prof["launches"] / steps,
+        "device_ms_per_step_by_class": {
+            k: ms / steps for k, ms in prof["device_ms_by_class"].items()},
         "top_kernels_ms_per_step": {
-            e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top},
+            k: ms / steps for k, ms in prof["top_kernels_ms"].items()},
     }}), flush=True)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward and backward): 6 * matmul
+    params * tokens, plus causal attention at 3.5x its forward (the forward
+    and a backward of 2.5x). The formula of the JAX package's
+    ``tools/bench_train.py::train_flops``."""
+    n_params = cfg.vocab_size * cfg.dim + cfg.n_layers * (
+        cfg.dim * cfg.n_heads * cfg.d_head * 2
+        + cfg.dim * cfg.n_kv_heads * cfg.d_head * 2
+        + 3 * cfg.dim * cfg.hidden_dim)
+    attn_fwd = 2 * 2 * seq * seq * cfg.d_head * cfg.n_heads * batch / 2
+    return 6 * n_params * batch * seq + attn_fwd * 3.5 * cfg.n_layers
+
+
+# Kernel classes of a profile, by substrings of the kernel's name; the rest
+# is elementwise work, reductions and copies.
+KERNEL_CLASSES = (
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+    ("flash forward (K1)", ("flash_forward_kernel",)),
+    ("flash backward (K2/K3)", ("flash_backward_",)),
+    ("paged decode (K4/K5)", ("paged_decode_kernel",)),
+    ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
+)
+
+
+def _kernel_class(name: str) -> str:
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "elementwise, reductions, copies"
+
+
+def _profile(fn, top: int = 10) -> dict:
+    """Device time by kernel and the device's busy share over one call of
+    ``fn``, from torch.profiler. GPU ranges of user annotations (such as
+    the optimizer's step) span kernels and are left out of the sums."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms > 1.01 * wall_ms:
+        raise AssertionError(f"profile: {busy_ms} ms of kernels in {wall_ms} ms")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    by_class: dict = {}
+    for e in kernels:
+        label = _kernel_class(e.key)
+        by_class[label] = by_class.get(label, 0.0) + e.self_device_time_total / 1e3
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "launches": sum(e.count for e in kernels), "device_ms_by_class": by_class,
+            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                               for e in ranked}}
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic mode, which picks the split backward (K3).
+    Without ``CUBLAS_WORKSPACE_CONFIG`` cuBLAS would refuse it; warn_only
+    lets the matmuls run, and their warnings are not printed."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Deterministic behavior")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def _check_model_backward(seen) -> dict:
+    """K2 and K3 against the plain backward on each layer's attention
+    inputs as a training step handed them over (strided q/k/v/dO, the
+    model's activations). dO is first scaled by a power of two to a max
+    of about 1: the gradients scale exactly with it, and the rule's 1e-6
+    floor would otherwise pass gradients this small (a mean loss over
+    4096 tokens) whatever they were. Returns {mode: worst err/bound}."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        flash_backward, flash_backward_plain)
+
+    worst = {"fused": 0.0, "split": 0.0}
+    for i, (*tensors, cfg) in enumerate(seen):
+        layer = len(seen) - 1 - i  # the backward runs the last layer first
+        q, k, v, o, lse, do = (t.detach() for t in tensors)
+        do = do * 2.0 ** -math.floor(math.log2(float(do.abs().max())))
+        ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+        ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                     lse, do.float(), _fp32(cfg))
+        for mode in ("fused", "split"):
+            got = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
+            _, ratio = _check_grads(f"train layer {layer} {mode}", got, ref16, ref32)
+            worst[mode] = max(worst[mode], ratio)
+        del ref16, ref32, got
+    print(f"train: K2 and K3 vs plain on the {len(seen)} layers' recorded "
+          f"attention inputs, worst err/bound {worst} ok", flush=True)
+    return worst
+
+
+def phase_train(smi: str) -> dict:
+    """Train LLAMA3_8B at full width, 8 layers: 3 AdamW steps on one batch
+    with the fused backward (K2), launch counts and a falling loss checked;
+    one more step profiled; then one step in deterministic mode, which runs
+    the split backward (K3), with the loss after it checked and K2/K3 held
+    against the plain backward on its recorded attention inputs. Returns
+    the launch counts of both runs."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, init_params, loss_fn, make_optimizer, make_train_step)
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops import _build, autodiff
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = make_optimizer(params)
+    step = make_train_step(cfg, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in param_leaves(params))
+    print(f"train: LLAMA3_8B x {TRAIN_LAYERS} layers, params {n_params / 1e9:.3f} B, "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()  # counts start at 0 just before the main path
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(params, tokens)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    counts = dict(_build.launch_counts)  # read just after the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layers * TRAIN_STEPS
+    print(f"train: losses {losses}, step s {[round(x, 4) for x in step_s]}, "
+          f"launches {counts}; expected {K1} {want}, {KERNEL_FUSED} {want}",
+          flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses} are not finite and falling")
+    if counts.get(K1, 0) != want or counts.get(KERNEL_FUSED, 0) != want \
+            or counts.get(KERNEL_DKV, 0) or counts.get(KERNEL_DQ, 0):
+        raise AssertionError("a kernel of the training path ran the wrong number of times")
+
+    prof = _profile(lambda: step(params, tokens))
+
+    # The split backward (K3), which deterministic mode selects: one step,
+    # keeping each layer's attention-backward inputs.
+    seen = []
+    real_backward = autodiff.flash_backward
+
+    def recording(*args, **kw):
+        seen.append(args)
+        return real_backward(*args, **kw)
+
+    autodiff.flash_backward = recording
+    _build.launch_counts.clear()
+    t = time.perf_counter()
+    try:
+        with _deterministic():
+            split_loss = float(step(params, tokens))
+        torch.cuda.synchronize()
+    finally:
+        autodiff.flash_backward = real_backward
+    split_s = time.perf_counter() - t
+    split_counts = dict(_build.launch_counts)
+    with torch.no_grad():
+        after_loss = float(loss_fn(params, tokens, cfg))
+    print(f"train split: loss {split_loss}, then {after_loss}; step s {split_s:.4f}, "
+          f"launches {split_counts}; expected {K1}, {KERNEL_DKV}, {KERNEL_DQ} "
+          f"{cfg.n_layers} each", flush=True)
+    if not np.isfinite(after_loss) or not after_loss < split_loss < losses[0]:
+        raise AssertionError(f"split-backward losses {losses[0]}, {split_loss}, "
+                             f"{after_loss} are not finite and falling")
+    if any(split_counts.get(n, 0) != cfg.n_layers for n in (K1, KERNEL_DKV, KERNEL_DQ)) \
+            or split_counts.get(KERNEL_FUSED, 0):
+        raise AssertionError("a kernel of the split training path ran the wrong "
+                             "number of times")
+    model_err = _check_model_backward(seen)
+    del seen
+
+    step_ms = 1e3 * float(np.median(step_s[1:]))
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    print(json.dumps({"train": {
+        "model": "LLAMA3_8B", "layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
+        "train_tok_s": tokens_per_step / (step_ms / 1e3),
+        "model_tflop_s": flops / (step_ms / 1e3) / 1e12,
+        "model_tflop_per_step": flops / 1e12,
+        "peak_mem_gb": peak_gb, "launches": counts,
+        "split_step_ms": 1e3 * split_s, "split_launches": split_counts,
+        "split_loss": split_loss, "loss_after_split": after_loss,
+        "layers_backward_worst_err_bound": model_err,
+        "profile": prof, "gpu": smi,
+    }}), flush=True)
+    return {"fused": counts, "split": split_counts}
 
 
 def _padded(n: int) -> int:
@@ -444,6 +775,54 @@ def time_paged() -> dict:
                      f"{HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
 
 
+def time_backward() -> tuple[dict, dict]:
+    """K2 and K3 at the training run's attention shape, one layer: causal,
+    b 2, 32/8 heads, s 2048. Each time is of the whole ``flash_backward``
+    call (D = rowsum(dO * O), the dQ workspace and its cast included).
+    Library: PyTorch SDPA's backward, K/V repeated to 32 heads, timed as
+    forward + ``torch.autograd.grad`` minus the same forward."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        flash_backward, flash_backward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    cfg = KernelConfig(causal=True)
+    q, k, v = _cuda_qkv(s, s, seed=70, batch=b)
+    do = _cuda_normal(q.shape, seed=71)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    fused_ms = _time_ms(lambda: flash_backward(q, k, v, o, lse, do, cfg, fused=True))
+    split_ms = _time_ms(lambda: flash_backward(q, k, v, o, lse, do, cfg, fused=False))
+    plain_ms = _time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do, cfg),
+                        iters=3, warmup=1)
+
+    group = HEADS // KV_HEADS
+    qg = q.clone().requires_grad_()
+    kg = k.repeat_interleave(group, 1).requires_grad_()
+    vg = v.repeat_interleave(group, 1).requires_grad_()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True)
+
+    fwd_ms = _time_ms(sdpa)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
+
+    # Five tile products per visible (q, kv) pair, 2 * d operations each:
+    # S, dP, dV, dK, dQ (2.5x the forward's two). The softmax and dS
+    # elementwise work runs on the CUDA cores beside the tensor cores.
+    flops = 5 * 2 * D * (s * (s + 1) // 2) * HEADS * b
+    # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
+    nbytes = 2 * (4 * b * HEADS * s * D + 4 * b * KV_HEADS * s * D) + 4 * b * HEADS * s
+    bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+    shape = (f"causal, b {b}, {HEADS}/{KV_HEADS} heads, s {s}, d {D}, bf16 "
+             "(one layer of the training run)")
+    common = {"plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+              "bound_by": "operations", "shape": shape}
+    return {"ms": fused_ms, **common}, {"ms": split_ms, **common}
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only",
@@ -457,12 +836,17 @@ def main(argv=None) -> int:
     phase_build()
     flash_err = phase_flash_cases()
     paged_err = phase_paged_cases()
+    backward_err = phase_backward_cases()
     served = phase_serve(smi)
     counts = served["counts"]
     phase_profile(served["server"], served["prompts"])
-    del served  # frees the 16 GB of weights before the timing phase
+    del served  # frees the 16 GB of weights before training
+    torch.cuda.empty_cache()
+    trained = phase_train(smi)
     torch.cuda.empty_cache()
 
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
@@ -475,6 +859,22 @@ def main(argv=None) -> int:
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
          "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
          "launches": counts.get(KP, 0), "max_abs_err": paged_err, **time_paged()},
+    ]
+    fused_t, split_t = time_backward()
+    split = trained["split"]
+    kernels += [
+        {"name": KERNEL_FUSED, "route": "cuda", "source": pkg + "flash_backward.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:278",
+         "launches": trained["fused"].get(KERNEL_FUSED, 0),
+         "max_abs_err": backward_err[KERNEL_FUSED], **fused_t},
+        {"name": "flash_backward_split", "route": "cuda",
+         "source": pkg + "flash_backward.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:118",
+         "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:198",
+         "launches": split.get(KERNEL_DKV, 0) + split.get(KERNEL_DQ, 0),
+         "launches_by_entry": {n: split.get(n, 0) for n in (KERNEL_DKV, KERNEL_DQ)},
+         "launches_path": "one training step in deterministic mode",
+         "max_abs_err": backward_err["split"], **split_t},
     ]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)

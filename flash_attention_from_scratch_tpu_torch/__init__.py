@@ -13,11 +13,14 @@ from .models.decode import (
 )
 from .models.llama import (
     LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, forward, init_params,
-    params_from_jax,
+    loss_fn, params_from_jax,
 )
+from .models.train import make_optimizer, make_train_step
+from .ops.autodiff import flash_attention
 from .ops.configs import (
     DType, KernelConfig, calc_causal_attn_flop, calc_self_attn_flop,
 )
+from .ops.flash_backward import flash_backward
 from .ops.flash_forward import flash_forward, flash_forward_with_lse
 from .ops.paged_attention import paged_decode_attention
 from .ops.reference import reference_attention, reference_pair
@@ -28,9 +31,11 @@ from .utils.testing import adaptive_tolerance_check, error_stats, make_qkv
 __all__ = [
     "DType", "KernelConfig", "calc_self_attn_flop", "calc_causal_attn_flop",
     "reference_attention", "reference_pair",
-    "flash_forward", "flash_forward_with_lse", "paged_decode_attention",
+    "flash_forward", "flash_forward_with_lse", "flash_backward",
+    "flash_attention", "paged_decode_attention",
     "LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B", "init_params",
-    "params_from_jax", "forward",
+    "params_from_jax", "forward", "loss_fn", "make_optimizer",
+    "make_train_step",
     "PagedKVCache", "init_cache", "prefill", "decode_step", "greedy_token",
     "PagedEngine", "Batch", "GenerationServer",
     "adaptive_tolerance_check", "error_stats", "make_qkv",

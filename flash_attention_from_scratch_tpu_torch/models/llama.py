@@ -2,7 +2,8 @@
 
 Counterpart of ``flash_attention_from_scratch_tpu/models/llama.py``:
 RMSNorm, RoPE (with the Llama-3.1 frequency scaling), GQA attention through
-``ops.flash_forward``, and the SwiGLU (or tanh-GeLU) MLP. Parameters are a
+``ops.flash_forward`` (``ops.flash_attention`` when autograd needs its
+gradient), the SwiGLU (or tanh-GeLU) MLP and the next-token loss. Parameters are a
 plain dict with the JAX package's tree and layout: every projection is
 (in, out) and applied as ``x @ w``, so weights copy across unchanged
 (:func:`params_from_jax`). The large matrix products are plain ``x @ w``.
@@ -16,13 +17,15 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.autodiff import flash_attention
 from ..ops.configs import DType, KernelConfig
 from ..ops.flash_forward import flash_forward
 from ..utils.device import resolve_device
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B",
-           "init_params", "params_from_jax", "forward", "rms_norm",
+           "init_params", "params_from_jax", "forward", "loss_fn", "rms_norm",
            "rope_inv_freq", "rope_tables", "apply_rope"]
 
 
@@ -243,7 +246,10 @@ def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
     """Causal attention of layer ``li`` over x (b, s, dim).
 
     Returns (output before wo (b, s, n_heads * d_head), k, v), with k and v
-    (b, kv_heads, s, d_head) after RoPE: prefill writes them to pages.
+    (b, kv_heads, s, d_head) after RoPE: prefill writes them to pages. When
+    autograd needs the gradient (grad enabled and an input requires it) the
+    attention is :func:`flash_attention` (forward and backward kernels);
+    otherwise the forward kernel alone.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(layer, x)
@@ -254,7 +260,12 @@ def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
     k = apply_rope(k, cos, sin)
     if cfg.attn_scale:
         q = (q.float() * _q_scale_ratio(cfg)).to(q.dtype)
-    out = flash_forward(q, k, v, cfg.attn_config(li), sinks=layer.get("attn_sinks"))
+    sinks = layer.get("attn_sinks")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, sinks)):
+        out = flash_attention(q, k, v, cfg.attn_config(li), sinks)
+    else:
+        out = flash_forward(q, k, v, cfg.attn_config(li), sinks=sinks)
     return out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head), k, v
 
 
@@ -285,18 +296,41 @@ def _residual_tail(cfg: LlamaConfig, layer, x, out):
     return x + h
 
 
-def forward(params, tokens, cfg: LlamaConfig):
+def _layer(layer, x, cfg: LlamaConfig, cos, sin, li: int):
+    out, _, _ = _attention(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                           cfg, cos, sin, li)
+    return _residual_tail(cfg, layer, x, out)
+
+
+def forward(params, tokens, cfg: LlamaConfig, remat: bool = False):
     """tokens (batch, seq) int -> logits (batch, seq, vocab) fp32.
 
-    The full-recompute oracle of the serving path. ``seq`` must be a
-    multiple of the kernel's tile (64); pad on the right, causality keeps
-    the real rows exact.
+    The full-recompute oracle of the serving path and the training forward.
+    ``seq`` must be a multiple of the kernel's tile (64); pad on the right,
+    causality keeps the real rows exact. ``remat=True`` checkpoints each
+    layer (``torch.utils.checkpoint``): the backward recomputes a layer's
+    activations instead of keeping them, one more forward for
+    O(seq * hidden) instead of O(layers * seq * hidden) saved memory.
     """
     x = _embed(params, tokens, cfg)
     cos, sin = rope_tables(tokens.shape[1], cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
-        out, _, _ = _attention(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                               cfg, cos, sin, li)
-        x = _residual_tail(cfg, layer, x, out)
+        if remat:
+            x = checkpoint(_layer, layer, x, cfg, cos, sin, li,
+                           use_reentrant=False)
+        else:
+            x = _layer(layer, x, cfg, cos, sin, li)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x, cfg)
+
+
+def loss_fn(params, tokens, cfg: LlamaConfig, remat: bool = False):
+    """Next-token cross-entropy, the mean over all positions (fp32).
+
+    ``tokens`` (batch, seq + 1): the model reads the first ``seq`` and
+    predicts the last ``seq``.
+    """
+    logits = forward(params, tokens[:, :-1], cfg, remat=remat)
+    targets = tokens[:, 1:]
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))

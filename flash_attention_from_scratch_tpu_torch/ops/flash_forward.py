@@ -83,13 +83,19 @@ def _strides(x):
     return [_I64(s) for s in x.stride()[:3]]
 
 
+def _kernel_layout(t) -> bool:
+    """Does t have the layout the kernels read: d contiguous, rows 16-byte
+    aligned?"""
+    return (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K1)")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
                              f"d_head axis; strides {t.stride()}")
     b, h, sq, _ = q.shape

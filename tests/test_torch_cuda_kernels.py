@@ -8,8 +8,12 @@ repo's conftest):
 
 Tolerance: the adaptive tolerance rule against the plain version in bf16
 (native) and in fp32 on the same bf16-rounded inputs, held in each
-(batch, head, 64-row band) of a flash output and each sequence of a paged
-one on its own; the LSE within 1e-3.
+(batch, head, 64-row band) of a flash output or gradient and each sequence
+of a paged one on its own; the LSE within 1e-3. The training step compares
+the parameter gradients of the fused and the split backward kernels with
+those of the plain backward: all three run the same bf16 arithmetic and
+differ in summation order only, so they agree within 1e-2 of each leaf's
+largest gradient (about one bf16 ulp).
 """
 
 import dataclasses
@@ -18,8 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from flash_attention_from_scratch_tpu_torch.models import llama, train
 from flash_attention_from_scratch_tpu_torch.ops import _build
 from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+    KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain,
+)
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
     KERNEL as FLASH, flash_forward_plain, flash_forward_with_lse,
 )
@@ -111,3 +119,92 @@ def test_kernels_refuse_other_dtypes(cuda):
         paged_decode_attention(torch.zeros((1, 2, 128), device=cuda), pages,
                                pages, torch.ones(1, dtype=torch.int32, device=cuda),
                                torch.zeros((1, 2), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("sq,kw", [
+    (256, dict()), (256, dict(causal=True)),
+    (128, dict(causal=True, q_offset=128)), (256, dict(causal=True, window=100)),
+    (128, dict(causal=True, q_offset=128, window=70)),
+    (256, dict(causal=True, attn_softcap=30.0))])
+def test_flash_backward_kernels_match_plain(cuda, fused, sq, kw):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, sq, kv_heads=2, seq_kv=256, seed=3))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cfg = KernelConfig(**kw)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    names = [KERNEL_FUSED] if fused else [KERNEL_DKV, KERNEL_DQ]
+    before = {n: _build.launch_counts[n] for n in names}
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[n] == before[n] + 1 for n in names)
+    ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+    ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                 do.float(), dataclasses.replace(cfg, dtype=DType.FP32))
+    for name, g, r16, r32 in zip(("dq", "dk", "dv"), got, ref16, ref32):
+        ok, ratio, where = sliced_tolerance_check(
+            row_bands(g), row_bands(r16), row_bands(r32), lead=3)
+        assert ok, (name, ratio, where)
+
+
+def test_flash_backward_takes_strided_inputs(cuda):
+    """The model's q/k/v/dO are transposed views of (b, s, h, d) rows."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rows = [torch.randn(2, 256, h, 128, device=cuda, generator=gen).bfloat16()
+            for h in (8, 2, 2, 8)]
+    q, k, v, do = (x.transpose(1, 2) for x in rows)
+    cfg = KernelConfig(causal=True)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+    ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                 do.float(), dataclasses.replace(cfg, dtype=DType.FP32))
+    for fused in (True, False):
+        got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+        for name, g, r16, r32 in zip(("dq", "dk", "dv"), got, ref16, ref32):
+            ok, ratio, where = sliced_tolerance_check(
+                row_bands(g), row_bands(r16), row_bands(r32), lead=3)
+            assert ok, (fused, name, ratio, where)
+
+
+def test_train_step_on_the_kernels(cuda, monkeypatch):
+    from flash_attention_from_scratch_tpu_torch.ops import autodiff
+
+    cfg = llama.LlamaConfig(vocab_size=256, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_head=128, hidden_dim=512)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 257))).to(cuda)
+
+    def grads():
+        params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+        train.make_optimizer(params)  # marks the leaves as requiring grad
+        llama.loss_fn(params, tokens, cfg).backward()
+        return [p.grad for p in train.param_leaves(params)]
+
+    before = {n: _build.launch_counts[n] for n in (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
+    fused = grads()
+    # Deterministic mode selects the split kernels; cuBLAS only warns.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        split = grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [_build.launch_counts[n] - before[n] for n in before] == [cfg.n_layers] * 3
+    monkeypatch.setattr(autodiff, "flash_backward",
+                        lambda *args, **kw: flash_backward_plain(*args))
+    plain = grads()
+    for g, s, w in zip(fused, split, plain):
+        for got in (g, s):
+            assert bool(torch.isfinite(got).all())
+            assert float((got.float() - w.float()).abs().max()) <= 1e-2 * float(
+                w.float().abs().max())
+    monkeypatch.undo()
+
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    step = train.make_train_step(cfg, train.make_optimizer(params, lr=1e-3))
+    before = {n: _build.launch_counts[n] for n in (FLASH, KERNEL_FUSED)}
+    losses = [float(step(params, tokens)) for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+    for n in (FLASH, KERNEL_FUSED):
+        assert _build.launch_counts[n] == before[n] + 3 * cfg.n_layers
