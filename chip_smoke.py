@@ -9,25 +9,35 @@ Phases: (1) print the card's name and power limit; (2) build every kernel
 from ``flash_attention_from_scratch_tpu_torch/csrc`` with nvcc for sm_90a,
 in parallel; (3) hold each kernel against its plain PyTorch version on the
 card, in bf16, by the adaptive tolerance rule in each sequence or 64-row
-band on its own: the flash forward (K1), paged decode (K4/K5), and the
-flash backward, fused (K2) and split (K3), each also at the training run's
-shape and strided layout, plus autograd with sinks against autograd of the
-reference; (4) serve Llama-3-8B at full width and depth
-(random bf16 weights from a seed) through ``GenerationServer``: 8 requests,
-32 greedy tokens each, with the launch counts of both kernels checked and
-two requests teacher-forced through the full-recompute ``forward``; (5)
-profile a few decode steps of the same server (device time by kernel, the
-card's busy share); (6) train Llama-3-8B at full width and 8 layers (AdamW,
-batch 2 x 2048 tokens) for 3 steps with the fused backward, checking the
-loss falls and the launch counts, profile one more step, then take one step
-in PyTorch's deterministic mode, which runs the split backward, with its
-counts checked, the loss after it falling, and K2 and K3 held against the
-plain backward on every layer's recorded attention inputs; (7) time
-each kernel at its path's shapes beside its bound, its plain version and
-the library call. Prints ``serve``, ``profile``, ``train`` and ``kernels``
-JSON lines and, last, one JSON object with ``"ok": true``. Any failure
-raises, so the exit code is not 0. Without a CUDA device it exits with
-code 2 before it does anything.
+band on its own: the flash forward (K1), paged decode (K4/K5) on dense,
+int8, fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
+shape of Llama-3-8B at decode and prefill rows (K8/K9 also within one bf16
+ulp of the plain int32 path), and the flash backward, fused (K2) and split
+(K3), each also at the training run's shape and strided layout, plus
+autograd with sinks against autograd of the reference; (4) serve
+Llama-3-8B at full width and depth (random bf16 weights from a seed)
+through ``GenerationServer``: 8 requests, 32 greedy tokens each, with the
+launch counts of both kernels checked and two requests teacher-forced
+through the full-recompute ``forward``; (5) profile a few decode steps of
+the same server (device time by kernel, the card's busy share); (6) train
+Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
+steps with the fused backward, checking the loss falls and the launch
+counts, profile one more step, then take one step in PyTorch's
+deterministic mode, which runs the split backward, with its counts
+checked, the loss after it falling, and K2 and K3 held against the plain
+backward on every layer's recorded attention inputs; (7) serve quantized
+Llama-3-8B at full width (``init_quantized_params`` from a seed), runs A-D
+of ``QUANT_RUNS``: A int8 weights (K6) and int8 KV, B W4A8 (K9) and int8
+KV, both at full depth with 16 requests of 1024 tokens; C W8A8 (K8) and
+fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
+each checks every token, finite logits, each kernel's launch count and two
+requests teacher-forced through ``forward``, and run A's decode steps are
+profiled; (8) time each kernel at its path's shapes beside its bound, its
+plain version and the library call (K4/K5 also per page format). Prints
+``serve``, ``profile``, ``train``, ``serve_quant`` and ``kernels`` JSON
+lines and, last, one JSON object with ``"ok": true``. Any failure raises,
+so the exit code is not 0. Without a CUDA device it exits with code 2
+before it does anything.
 """
 
 from __future__ import annotations
@@ -88,7 +98,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
-                         "flash_backward.cu", "paged_runtime.cpp"])
+                         "flash_backward.cu", "quant_matmul.cu",
+                         "paged_runtime.cpp"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -368,10 +379,10 @@ TEACHER_FORCED = (513, 2048)  # prompt lengths checked against forward()
 SLACK = 0.05  # a served token's logit may sit this far below the row max
 
 
-def _teacher_forced_check(params, cfg, prompt, generated):
-    """Each served token must be a top-scoring choice of the full-recompute
-    model: its logit within SLACK of the row max (random bf16 weights tie
-    within an ulp, so exact argmax equality is too strict)."""
+def _teacher_forced_gaps(params, cfg, prompt, generated):
+    """Teacher-force ``generated`` through the full-recompute ``forward``:
+    per served token, the row max minus the served token's logit, and each
+    row's standard deviation over the vocabulary."""
     from flash_attention_from_scratch_tpu_torch import forward
 
     toks = list(prompt) + list(generated[:-1])
@@ -384,6 +395,14 @@ def _teacher_forced_check(params, cfg, prompt, generated):
         raise AssertionError("non-finite logits in the full-recompute forward")
     gen = torch.tensor(generated, device="cuda")
     gaps = rows.max(-1).values - rows.gather(1, gen[:, None])[:, 0]
+    return gaps, rows.std(-1)
+
+
+def _teacher_forced_check(params, cfg, prompt, generated):
+    """Each served token must be a top-scoring choice of the full-recompute
+    model: its logit within SLACK of the row max (random bf16 weights tie
+    within an ulp, so exact argmax equality is too strict)."""
+    gaps, _ = _teacher_forced_gaps(params, cfg, prompt, generated)
     worst = float(gaps.max())
     if worst > SLACK:
         raise AssertionError(f"served token {int(gaps.argmax())} of a "
@@ -391,29 +410,14 @@ def _teacher_forced_check(params, cfg, prompt, generated):
     return worst
 
 
-def phase_serve(smi: str) -> dict:
-    """Serve LLAMA3_8B at full width and depth; check counts and tokens."""
-    from flash_attention_from_scratch_tpu_torch import (
-        LLAMA3_8B, GenerationServer, init_params)
-    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+def _drive(server, prompts, new_tokens: int) -> dict:
+    """Serve ``prompts`` to the end, the launch counts set to 0 just before
+    and read just after. Every logit the server picks from must be finite:
+    the non-finite ones are summed on the card and read once at the end.
+    Steps that prefill count as prefill time, the others as decode time."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
-    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
-    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
     from flash_attention_from_scratch_tpu_torch.serving import generate
 
-    cfg = LLAMA3_8B
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
-                              page_size=SERVE_PAGE_SIZE, max_batch=8,
-                              pages_per_seq=SERVE_PAGES_PER_SEQ)
-    torch.cuda.synchronize()
-    print(f"serve: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} B, "
-          f"KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    # Every logit the server picks from must be finite; summed on the card
-    # and read once after the run.
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
     plain_greedy = generate.greedy_token
 
@@ -422,14 +426,11 @@ def phase_serve(smi: str) -> dict:
         return plain_greedy(logits)
 
     generate.greedy_token = greedy_checked
-    rng = np.random.default_rng(0)
-    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
-               for i, n in enumerate(SERVE_PROMPT_LENS)}
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     t_start = time.perf_counter()
     for sid, prompt in prompts.items():
-        server.submit(sid, prompt, SERVE_NEW_TOKENS)
+        server.submit(sid, prompt, new_tokens)
     prefill_s = decode_s = 0.0
     decode_tokens = 0
     try:
@@ -449,6 +450,39 @@ def phase_serve(smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     counts = dict(_build.launch_counts)  # read just after the main path
+    return {"prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_tokens": decode_tokens, "wall_s": wall, "counts": counts,
+            "nonfinite": int(nonfinite),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve(smi: str) -> dict:
+    """Serve LLAMA3_8B at full width and depth; check counts and tokens."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, GenerationServer, init_params)
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = LLAMA3_8B
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
+                              page_size=SERVE_PAGE_SIZE, max_batch=8,
+                              pages_per_seq=SERVE_PAGES_PER_SEQ)
+    torch.cuda.synchronize()
+    print(f"serve: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} B, "
+          f"KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(SERVE_PROMPT_LENS)}
+    run = _drive(server, prompts, SERVE_NEW_TOKENS)
+    prefill_s, decode_s = run["prefill_s"], run["decode_s"]
+    decode_tokens, wall = run["decode_tokens"], run["wall_s"]
+    nonfinite = run["nonfinite"]
+    counts = run["counts"]
     stats = server.stats()
 
     got = {sid: st.generated for sid, st in server.seqs.items()}
@@ -482,14 +516,14 @@ def phase_serve(smi: str) -> dict:
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
         "wall_s": wall, "steps": stats["steps"],
         "decode_steps": stats["decode_steps"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": run["peak_mem_gb"],
         "launches": counts, "gpu": smi,
     }
     print(json.dumps({"serve": serve}), flush=True)
     return {"server": server, "prompts": prompts, "counts": counts}
 
 
-def phase_profile(server, prompts, steps: int = 4) -> None:
+def phase_profile(server, prompts, steps: int = 4, run: str = "bf16") -> None:
     """Where a full-width decode step's time goes, from torch.profiler.
 
     Serves the same prompts again (after the counted main-path run) and
@@ -501,7 +535,7 @@ def phase_profile(server, prompts, steps: int = 4) -> None:
     server.step()  # the prefills
     prof = _profile(lambda: [server.step() for _ in range(steps)], top=8)
     print(json.dumps({"profile": {
-        "decode_steps": steps, "wall_ms_per_step": prof["wall_ms"] / steps,
+        "run": run, "decode_steps": steps, "wall_ms_per_step": prof["wall_ms"] / steps,
         "device_ms_per_step": prof["device_ms"] / steps,
         "device_busy_share": prof["device_busy_share"],
         "launches_per_step": prof["launches"] / steps,
@@ -529,6 +563,7 @@ def train_flops(cfg, batch: int, seq: int) -> float:
 # is elementwise work, reductions and copies.
 KERNEL_CLASSES = (
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+    ("quantized matmul (K6-K9)", ("quant_matmul_",)),
     ("flash forward (K1)", ("flash_forward_kernel",)),
     ("flash backward (K2/K3)", ("flash_backward_",)),
     ("paged decode (K4/K5)", ("paged_decode_kernel",)),
@@ -823,6 +858,414 @@ def time_backward() -> tuple[dict, dict]:
     return {"ms": fused_ms, **common}, {"ms": split_ms, **common}
 
 
+# ---------------------------------------------------------------------------
+# Quantized serving: K6-K9 and the quantized page formats of K4/K5.
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+# Llama-3-8B's projection shapes (K, N), and each one's count per layer.
+LAYER_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+                ("wo", 4096, 4096), ("w_gate", 4096, 14336),
+                ("w_up", 4096, 14336), ("w_down", 14336, 4096))
+LM_HEAD_SHAPE = (4096, 128256)
+# (weight mode, activation-quantized) of K6, K7, K8, K9.
+QMM_RECIPES = (("int8", False), ("int4", False), ("int8", True), ("int4", True))
+# Serve runs: weights, activations, KV pages, layers, requests.
+QUANT_RUNS = {
+    "A": dict(wmode="int8", act="bf16", kv="int8", layers=32, requests=16),
+    "B": dict(wmode="int4", act="int8", kv="int8", layers=32, requests=16),
+    "C": dict(wmode="int8", act="int8", kv="fp8", layers=4, requests=4),
+    "D": dict(wmode="int4", act="bf16", kv="int4", layers=4, requests=4),
+}
+QUANT_PROMPT, QUANT_PAGE, QUANT_NEW = 1024, 128, 32
+# A served token's logit may sit this many row standard deviations below the
+# full-recompute row max: the served path reads quantized K/V (and, for a8,
+# quantized activations at every projection), the recompute reads K/V
+# unquantized. A wrong kernel puts served tokens several row standard
+# deviations below the max (the max of 128256 normal logits sits ~4.5 above
+# the mean).
+QUANT_SLACK_STD = 0.25
+
+
+def _random_qweight(k, n, mode, act_quant, gen):
+    """init_quantized_params' recipe for one (K, N) weight, with every
+    column's scale multiplied by its own draw from [0.5, 1.5): a kernel that
+    applies a scale to the wrong column then disagrees with its plain
+    version."""
+    from flash_attention_from_scratch_tpu_torch.models.llama import (
+        random_quantized_weight)
+
+    wq = random_quantized_weight((k, n), mode, "int8" if act_quant else "bf16",
+                                 gen, device="cuda")
+    wq.scales.mul_(0.5 + torch.rand(n, generator=gen, device="cuda"))
+    return wq
+
+
+def _check_qmm(got, x, wq, act_quant):
+    """The adaptive rule in each 64-row band against the plain version (cast
+    to bf16, and in fp32); for a8 also the plain int32 path within one bf16
+    ulp of each value. Returns (ok, worst err/bound, worst ulps, max err)."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        quant_matmul_plain)
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        row_bands, sliced_tolerance_check)
+
+    plain = quant_matmul_plain(x, wq, act_quant)
+    ref32 = quant_matmul_plain(x, wq, act_quant, out_dtype=torch.float32)
+    pad = -x.shape[0] % 64
+
+    def bands(t):
+        return row_bands(torch.nn.functional.pad(t.float(), (0, 0, 0, pad))[None], 64)
+
+    ok, ratio, _ = sliced_tolerance_check(bands(got), bands(plain).bfloat16(),
+                                          bands(ref32), lead=2)
+    err = (got.float() - plain.float()).abs()
+    ulps = 0.0
+    if act_quant:
+        ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(1e-30))) - 7)
+        ulps = float((err / ulp).max())
+        ok = ok and ulps <= 1.0
+    return ok and bool(torch.isfinite(got).all()), ratio, ulps, float(err.max())
+
+
+def phase_quant_matmul_cases() -> dict:
+    """K6-K9 vs their plain version at every weight shape of Llama-3-8B, at
+    decode m = 16 and prefill m = 1024, and at m = 1000 (no tile multiple)
+    on w_down. Returns {kernel: max |kernel - plain|}."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        KERNELS, quant_matmul)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {}
+    shapes = [(k, n) for _, k, n in LAYER_SHAPES[:2]] + [
+        (4096, 14336), (14336, 4096), LM_HEAD_SHAPE]
+    for mode, act_quant in QMM_RECIPES:
+        name = KERNELS[(mode, act_quant)]
+        cases = [(m, k, n) for k, n in shapes for m in (16, 1024)] + [(1000, 14336, 4096)]
+        line = []
+        for m, k, n in cases:
+            wq = _random_qweight(k, n, mode, act_quant, gen)
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            got = quant_matmul(x, wq, act_quant=act_quant)
+            torch.cuda.synchronize()
+            ok, ratio, ulps, err = _check_qmm(got, x, wq, act_quant)
+            worst[name] = max(worst.get(name, 0.0), err)
+            line.append(f"m{m} {k}x{n} {ratio:.3f}" + (f"/{ulps:.2f}ulp" if act_quant else ""))
+            if not ok:
+                raise AssertionError(f"{name} m {m} K {k} N {n}: err/bound {ratio}, "
+                                     f"ulps {ulps}: disagrees with its plain version")
+            del wq, x, got
+        print(f"{name}: worst err/bound per case: {', '.join(line)}; max|kernel-plain| "
+              f"{worst[name]:.3e} ok", flush=True)
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _quantized_pool(kp, vp, mode):
+    """A bf16 pool (NaN where no sequence owns a slot) as quantized pages:
+    NaN slots quantize as 0, then fp8 pages get the e4m3 NaN byte there."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv_pages
+
+    out = []
+    for p in (kp, vp):
+        vals, scales = quantize_kv_pages(torch.nan_to_num(p), mode)
+        if mode == "fp8":
+            vals.view(torch.uint8)[torch.isnan(p)] = 0x7F
+        out += [vals, scales]
+    return out
+
+
+def _run_a_pool():
+    """One layer of run A's first decode step: 16 sequences of 1025 tokens,
+    page 128, 32/8 heads. Returns (lengths, k_pages, v_pages, lengths
+    tensor, page tables, q)."""
+    lengths = [QUANT_PROMPT + 1] * 16
+    pages_per_seq = -(-(QUANT_PROMPT + QUANT_NEW) // QUANT_PAGE)
+    kp, vp, lens, tables = make_paged_pool(lengths, QUANT_PAGE, 16 * pages_per_seq + 1,
+                                           seed=62, pages_per_seq=pages_per_seq)
+    q = torch.from_numpy(np.random.default_rng(63).standard_normal(
+        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    return lengths, kp, vp, lens, tables, q
+
+
+def phase_quant_paged_cases() -> float:
+    """K4/K5 on int8, fp8 and int4 pages vs the plain version, with a window
+    and a softcap: on the same ragged, shuffled pool as the dense cases
+    (page 64), and on run A's pool at the serve runs' page size (128; int4
+    pages hold 64 byte rows, so the high nibbles start at slot 64). The
+    run-A window (600) starts at page 3, so whole pages lie below it."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        sliced_tolerance_check)
+
+    lengths = [1, 17, 64, 65, 1000, 0, 2047, 3001, 4000]
+    kp, vp, lens, tables = make_paged_pool(lengths, 64, 320, seed=17,
+                                           pages_per_seq=64)
+    q = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    pools = (("page 64", 1000, (lengths, kp, vp, lens, tables, q)),
+             (f"page {QUANT_PAGE} (run A)", 600, _run_a_pool()))
+    worst = 0.0
+    for pool, window, (lengths, kp, vp, lens, tables, q) in pools:
+        for mode in ("int8", "fp8", "int4"):
+            qk, ks, qv, vs = _quantized_pool(kp, vp, mode)
+            for name, kw in (("plain", {}), (f"window {window}", dict(window=window)),
+                             ("softcap 30", dict(softcap=30.0))):
+                kw = dict(kw, mode=mode, k_scales=ks, v_scales=vs)
+                out = paged_decode_attention(q, qk, qv, lens, tables, **kw)
+                torch.cuda.synchronize()
+                ref16 = paged_decode_attention_plain(q, qk, qv, lens, tables,
+                                                     scale=D ** -0.5, **kw)
+                ref32 = paged_decode_attention_plain(q.float(), qk, qv, lens, tables,
+                                                     scale=D ** -0.5, **kw)
+                ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+                err = float((out.float() - ref16.float()).abs().max())
+                worst = max(worst, err)
+                good = (ok and bool(torch.isfinite(out).all()) and (
+                    0 not in lengths or float(out[lengths.index(0)].abs().max()) == 0.0))
+                print(f"paged_decode_attention {pool} {mode} {name}: max|kernel-plain| "
+                      f"{err:.3e}, worst err/bound {ratio:.3f} at length "
+                      f"{lengths[where[0]]} {'ok' if good else 'FAIL'}", flush=True)
+                if not good:
+                    raise AssertionError(f"paged_decode_attention {pool} {mode} {name} "
+                                         "disagrees with its plain version")
+    return worst
+
+
+def _param_bytes(params) -> int:
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import QuantizedWeight
+
+    def walk(x):
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if isinstance(x, list):
+            return sum(walk(v) for v in x)
+        if isinstance(x, QuantizedWeight):
+            return walk(x.values) + walk(x.scales)
+        return x.numel() * x.element_size()
+
+    return walk(params)
+
+
+def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
+    """One quantized serve run of LLAMA3_8B at full width (QUANT_RUNS): the
+    launch counts of its quantized kernel, K1 and K4/K5, every token and
+    finite logits, and two requests teacher-forced through ``forward``."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, GenerationServer, init_quantized_params)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    spec = QUANT_RUNS[run]
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=spec["layers"])
+    kernel = KERNELS[(spec["wmode"], spec["act"] == "int8")]
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   spec["wmode"], act=spec["act"])
+    pages_per_seq = -(-(QUANT_PROMPT + QUANT_NEW) // QUANT_PAGE)
+    # Each request's pages, one page of admission headroom (the scheduler
+    # admits a prompt only with a page to spare) and the scratch page.
+    server = GenerationServer(params, cfg, num_pages=spec["requests"] * pages_per_seq + 2,
+                              page_size=QUANT_PAGE, max_batch=spec["requests"],
+                              pages_per_seq=pages_per_seq, mode=spec["kv"])
+    torch.cuda.synchronize()
+    weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
+    print(f"serve {run}: {spec}, weights {weight_gb:.2f} GB, KV pool {kv_gb:.3f} GB, "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
+               for i in range(spec["requests"])}
+    result = _drive(server, prompts, QUANT_NEW)
+    counts, stats = result["counts"], server.stats()
+    got = {sid: st.generated for sid, st in server.seqs.items()}
+    if any(len(g) != QUANT_NEW for g in got.values()):
+        raise AssertionError(f"serve {run}: token counts {[len(g) for g in got.values()]}")
+    if result["nonfinite"] or stats["preemptions"]:
+        raise AssertionError(f"serve {run}: {result['nonfinite']} non-finite logits, "
+                             f"{stats['preemptions']} preemptions")
+    calls = len(prompts) + stats["decode_steps"]  # prefills + decode steps
+    want = {kernel: (7 * cfg.n_layers + 1) * calls, K1: cfg.n_layers * len(prompts),
+            KP: cfg.n_layers * stats["decode_steps"]}
+    print(f"serve {run}: launches {counts}; expected {want} ((7 x {cfg.n_layers} + 1) "
+          f"x ({len(prompts)} prefills + {stats['decode_steps']} decode steps))", flush=True)
+    if counts != want:
+        raise AssertionError(f"serve {run}: a kernel of the path ran the wrong number of times")
+
+    worst = 0.0
+    for sid in (0, 1):
+        gaps, std = _teacher_forced_gaps(params, cfg, prompts[sid], got[sid])
+        rel = float((gaps / std).max())
+        worst = max(worst, rel)
+        print(f"serve {run}: teacher-forced request {sid}: worst gap {float(gaps.max()):.4f} "
+              f"= {rel:.4f} row std (row std {float(std.mean()):.3f}), limit "
+              f"{QUANT_SLACK_STD}", flush=True)
+        if rel > QUANT_SLACK_STD:
+            raise AssertionError(f"serve {run}: a served token sits {rel} row std "
+                                 "below the full-recompute max")
+    ttft = sorted(st.first_t - st.submit_t for st in server.seqs.values())
+    line = {
+        "run": run, "model": "LLAMA3_8B", **spec, "prompt_tokens": QUANT_PROMPT,
+        "new_tokens_per_request": QUANT_NEW, "page_size": QUANT_PAGE,
+        "prefill_tok_s": stats["prefill_tokens"] / result["prefill_s"],
+        "decode_tok_s": result["decode_tokens"] / result["decode_s"],
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "wall_s": result["wall_s"], "decode_steps": stats["decode_steps"],
+        "weight_gb": weight_gb, "kv_cache_gb": kv_gb,
+        "peak_mem_gb": result["peak_mem_gb"], "launches": counts,
+        "teacher_forced_worst_gap_std": worst, "gpu": smi,
+    }
+    print(json.dumps({"serve_quant": line}), flush=True)
+    if profile:
+        phase_profile(server, prompts, run=run)
+    return {"kernel": kernel, "launches": counts[kernel]}
+
+
+def _device_ms(fn, calls: int) -> dict:
+    """Device time of one call of ``fn`` from torch.profiler, the mean over
+    ``calls`` calls after one warm-up: "all" kernels it launches, and the
+    "kernel" share of the quantized matmul's own (``quant_matmul_*``).
+    Device time, not a host clock: at decode the host enqueues these small
+    launches more slowly than the card runs them."""
+    fn()
+    prof = _profile(lambda: [fn() for _ in range(calls)], top=10_000)
+    own = sum(ms for name, ms in prof["top_kernels_ms"].items()
+              if "quant_matmul_" in name)
+    return {"all": prof["device_ms"] / calls, "kernel": own / calls}
+
+
+def _shape_work(m, k, n, wq, out_bytes=2):
+    """Bytes (weight values + scales, x, out, each once) and operations."""
+    x_bytes = m * k * (1 if wq.act == "int8" else 2)
+    return (wq.values.numel() + 4 * n + x_bytes + out_bytes * m * n, 2 * m * k * n)
+
+
+def time_quant_matmul(mode: str, act_quant: bool) -> dict:
+    """One recipe at a decode step's matmuls (m = 16: 7 x 32 projections,
+    timed over 4 distinct layers so each weight streams from memory, plus
+    the lm_head) and at one 1024-row prefill layer, as device time summed
+    over the kernels each call launches (for a8 the activation quantization
+    included; ``kernel_only_ms`` counts K6-K9's own kernels). Library: cuBLAS
+    ``x @ w`` on the dequantized bf16 weight (the same function up to
+    rounding) for weight-only; ``torch._int_mm`` plus the scale epilogue
+    for a8, where its shape rules allow."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        quant_matmul, quant_matmul_plain, quantize_activations)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    layers = [[(name, _random_qweight(k, n, mode, act_quant, gen)) for name, k, n in LAYER_SHAPES]
+              for _ in range(4)]
+    lm = _random_qweight(*LM_HEAD_SHAPE, mode, act_quant, gen)
+    peak = PEAK_INT8_OPS if act_quant else PEAK_BF16_FLOPS
+
+    def inputs(m):
+        ks = {k for _, k, _ in LAYER_SHAPES} | {LM_HEAD_SHAPE[0]}
+        return {k: torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+                for k in ks}
+
+    def run_layer(fn, xs, ws):
+        return [fn(xs[w.k_dim], w) for _, w in ws]
+
+    def kernel(x, w):
+        return quant_matmul(x, w, act_quant=act_quant)
+
+    def plain(x, w):
+        return quant_matmul_plain(x, w, act_quant)
+
+    # The library's operands for one layer: the unscaled int8 values, or the
+    # dequantized bf16 weight.
+    lib_ws = [w.stored_columns(torch.int8) if act_quant else w.dequantize()
+              for _, w in layers[0]]
+
+    def library(x, w_lib, scales):
+        if not act_quant:
+            return x @ w_lib
+        xq, xs = quantize_activations(x)
+        return (torch._int_mm(xq, w_lib).float() * xs * scales).to(x.dtype)
+
+    def lib_layer(xs):
+        return [library(xs[w.shape[0]], w, q.scales)
+                for w, (_, q) in zip(lib_ws, layers[0])]
+
+    out = {}
+    for phase, m in (("decode", 16), ("prefill", 1024)):
+        xs = inputs(m)
+        reps = 32 if phase == "decode" else 1
+        if phase == "decode":
+            per_layer = _device_ms(lambda: [run_layer(kernel, xs, ws) for ws in layers],
+                                   calls=5)
+            per_layer = {k: v / len(layers) for k, v in per_layer.items()}
+            lm_t = _device_ms(lambda: kernel(xs[LM_HEAD_SHAPE[0]], lm), calls=5)
+        else:
+            per_layer = _device_ms(lambda: run_layer(kernel, xs, layers[0]), calls=3)
+            lm_t = {"all": 0.0, "kernel": 0.0}
+        ms, kernel_only = (reps * per_layer[k] + lm_t[k] for k in ("all", "kernel"))
+        plain_ms = reps * _device_ms(lambda: run_layer(plain, xs, layers[0]),
+                                     calls=1)["all"]
+        if phase == "decode":
+            plain_ms += _device_ms(lambda: plain(xs[LM_HEAD_SHAPE[0]], lm), calls=1)["all"]
+        nbytes = ops = 0
+        for _, w in layers[0]:
+            b, o = _shape_work(m, w.k_dim, w.shape[1], w)
+            nbytes, ops = nbytes + reps * b, ops + reps * o
+        if phase == "decode":
+            b, o = _shape_work(m, *LM_HEAD_SHAPE, lm)
+            nbytes, ops = nbytes + b, ops + o
+        bound_b, bound_o = nbytes / PEAK_BYTES_PER_S, ops / peak
+        lib_note = ("torch._int_mm + the scale epilogue" if act_quant else
+                    "cuBLAS x @ w on the dequantized bf16 weight")
+        try:
+            lib_ms = reps * _device_ms(lambda: lib_layer(xs), calls=5)["all"]
+            if phase == "decode":
+                lm_lib = lm.stored_columns(torch.int8) if act_quant else lm.dequantize()
+                lib_ms += _device_ms(lambda: library(xs[LM_HEAD_SHAPE[0]], lm_lib,
+                                                     lm.scales), calls=5)["all"]
+                del lm_lib
+        except RuntimeError as e:  # torch._int_mm's shape rules
+            lib_ms, lib_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+        out[phase] = {
+            "ms": ms, "kernel_only_ms": kernel_only, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_note": lib_note,
+            "bound_ms": 1e3 * max(bound_b, bound_o),
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "shape": (f"one decode step: m 16, 7 x 32 projections + lm_head, "
+                      f"{nbytes / 1e9:.3f} GB" if phase == "decode" else
+                      "one prefill layer: m 1024, the 7 projections"),
+        }
+        del xs
+    del layers, lm, lib_ws
+    torch.cuda.empty_cache()
+    return {**out["decode"], "prefill": out["prefill"]}
+
+
+def time_paged_formats() -> dict:
+    """K4/K5 per page format at run A's first decode step: 16 sequences of
+    1025 tokens, page 128, 32/8 heads."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    lengths, kp, vp, lens, tables, q = _run_a_pool()
+    used_pages = sum(-(-n // QUANT_PAGE) for n in lengths)
+    out = {}
+    for mode, elem in (("dense", 2.0), ("int8", 1.0), ("fp8", 1.0), ("int4", 0.5)):
+        if mode == "dense":
+            k, v, kw = kp, vp, {}
+        else:
+            k, ks, v, vs = _quantized_pool(kp, vp, mode)
+            kw = dict(mode=mode, k_scales=ks, v_scales=vs)
+        ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw),
+                      iters=50, warmup=5)
+        plain_ms = _time_ms(lambda: paged_decode_attention_plain(
+            q, k, v, lens, tables, scale=D ** -0.5, **kw), iters=3, warmup=1)
+        nbytes = (sum(lengths) * KV_HEADS * D * 2 * elem + 2 * q.numel() * 2
+                  + (2 * 4 * KV_HEADS * used_pages if mode != "dense" else 0))
+        out[mode] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes"}
+    return {"shape": f"lengths 16 x {QUANT_PROMPT + 1}, page {QUANT_PAGE}, "
+                     f"{HEADS}/{KV_HEADS} heads, d {D} (one layer)", **out}
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only",
@@ -835,7 +1278,8 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     flash_err = phase_flash_cases()
-    paged_err = phase_paged_cases()
+    paged_err = max(phase_paged_cases(), phase_quant_paged_cases())
+    qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
     served = phase_serve(smi)
     counts = served["counts"]
@@ -844,11 +1288,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     trained = phase_train(smi)
     torch.cuda.empty_cache()
+    quant_runs = {}
+    for run in QUANT_RUNS:
+        quant_runs[run] = phase_serve_quant(run, smi, profile=run == "A")
+        torch.cuda.empty_cache()
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
     pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
     kernels = [
@@ -858,7 +1307,8 @@ def main(argv=None) -> int:
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
          "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
-         "launches": counts.get(KP, 0), "max_abs_err": paged_err, **time_paged()},
+         "launches": counts.get(KP, 0), "max_abs_err": paged_err, **time_paged(),
+         "by_format": time_paged_formats()},
     ]
     fused_t, split_t = time_backward()
     split = trained["split"]
@@ -876,6 +1326,21 @@ def main(argv=None) -> int:
          "launches_path": "one training step in deterministic mode",
          "max_abs_err": backward_err["split"], **split_t},
     ]
+    tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
+                 ("int4", True): 206}
+    by_kernel = {r["kernel"]: (name, r["launches"]) for name, r in quant_runs.items()}
+    for mode, act_quant in QMM_RECIPES:
+        name = KERNELS[(mode, act_quant)]
+        run, launches = by_kernel[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": pkg + "quant_matmul.cu",
+            "replaces": "flash_attention_from_scratch_tpu/ops/quant_matmul.py:"
+                        f"{tpu_lines[(mode, act_quant)]}",
+            "launches": launches, "launches_path": f"serve run {run}",
+            "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant)})
+        if name == KERNELS[("int8", False)]:
+            kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
+                                            "quant_matmul.py:247")
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

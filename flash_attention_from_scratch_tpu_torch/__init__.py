@@ -13,7 +13,7 @@ from .models.decode import (
 )
 from .models.llama import (
     LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, forward, init_params,
-    loss_fn, params_from_jax,
+    init_quantized_params, loss_fn, params_from_jax, quantize_params,
 )
 from .models.train import make_optimizer, make_train_step
 from .ops.autodiff import flash_attention
@@ -23,6 +23,14 @@ from .ops.configs import (
 from .ops.flash_backward import flash_backward
 from .ops.flash_forward import flash_forward, flash_forward_with_lse
 from .ops.paged_attention import paged_decode_attention
+from .ops.quant import (
+    KVQuantMode, QTensor, dequantize, quantize_kv, quantize_kv_pages,
+    unpack_int4, unpack_int4_halves,
+)
+from .ops.quant_matmul import (
+    QuantizedWeight, concat_weights, quant_matmul, quantize_activations,
+    quantize_weight,
+)
 from .ops.reference import reference_attention, reference_pair
 from .serving.generate import GenerationServer
 from .serving.runtime import Batch, PagedEngine
@@ -33,8 +41,13 @@ __all__ = [
     "reference_attention", "reference_pair",
     "flash_forward", "flash_forward_with_lse", "flash_backward",
     "flash_attention", "paged_decode_attention",
+    "KVQuantMode", "QTensor", "quantize_kv", "quantize_kv_pages",
+    "unpack_int4_halves", "unpack_int4", "dequantize",
+    "QuantizedWeight", "quantize_weight", "concat_weights",
+    "quantize_activations", "quant_matmul",
     "LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B", "init_params",
-    "params_from_jax", "forward", "loss_fn", "make_optimizer",
+    "params_from_jax", "quantize_params", "init_quantized_params",
+    "forward", "loss_fn", "make_optimizer",
     "make_train_step",
     "PagedKVCache", "init_cache", "prefill", "decode_step", "greedy_token",
     "PagedEngine", "Batch", "GenerationServer",

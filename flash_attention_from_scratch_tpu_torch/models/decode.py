@@ -1,10 +1,16 @@
 """Llama decode path over the paged KV cache.
 
-Counterpart of ``flash_attention_from_scratch_tpu/models/decode.py`` for a
-dense cache: :func:`prefill` runs each prompt through the flash forward
-kernel and scatters its K/V into pages; :func:`decode_step` writes each new
-token's K/V into its page and then runs the paged decode kernel for the
-whole batch.
+Counterpart of ``flash_attention_from_scratch_tpu/models/decode.py``:
+:func:`prefill` runs each prompt through the flash forward kernel and
+scatters its K/V into pages; :func:`decode_step` writes each new token's K/V
+into its page and then runs the paged decode kernel for the whole batch.
+
+The cache is dense (the model's dtype) or quantized: int8, fp8 e4m3 or
+int4 packed along the tokens of a page, with fp32 scales per (kv_head,
+page). A sequence's scale per KV head is calibrated on its prompt at
+prefill and stored on every page it fills; each decode step quantizes the
+new token with the scale on the sequence's first page and stamps it on the
+page it writes, so earlier tokens are never quantized again.
 
 Unlike the JAX package, whose arrays are immutable, the pages are written in
 place: ``prefill`` and ``decode_step`` mutate the cache they are given and
@@ -18,6 +24,7 @@ import dataclasses
 import torch
 
 from ..ops.paged_attention import paged_decode_attention
+from ..ops.quant import QMAX, KVQuantMode, div_const, pack_int4
 from ..utils.device import resolve_device
 from .llama import (
     LlamaConfig, _attention, _embed, _lm_logits, _qkv, _residual_tail,
@@ -35,30 +42,94 @@ def _not_ported(what: str):
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """Per-layer paged KV pools, each (kv_heads, num_pages, page_size, d)."""
+    """Per-layer paged KV pools (+ per-(head, page) scales when quantized).
+
+    Pools are (kv_heads, num_pages, rows, d) with rows = page_size, or
+    page_size // 2 for int4; scales are (kv_heads, num_pages) fp32 (empty
+    lists when dense: nothing reads them).
+    """
 
     k_pages: list
     v_pages: list
+    k_scales: list
+    v_scales: list
+    mode: str = "dense"
 
     @property
     def page_size(self) -> int:
-        return self.k_pages[0].shape[2]
+        rows = self.k_pages[0].shape[2]
+        return rows * 2 if self.mode == KVQuantMode.INT4 else rows
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_pages[0].shape[1]
+
+    def layer_scales(self, li: int):
+        """(k_scales, v_scales) of layer ``li``; (None, None) when dense."""
+        if self.mode == "dense":
+            return None, None
+        return self.k_scales[li], self.v_scales[li]
 
     def nbytes(self) -> int:
         return sum(x.numel() * x.element_size()
-                   for x in self.k_pages + self.v_pages)
+                   for x in self.k_pages + self.v_pages
+                   + self.k_scales + self.v_scales)
+
+
+_STORE = {KVQuantMode.INT8: torch.int8, KVQuantMode.INT4: torch.int8,
+          KVQuantMode.FP8: torch.float8_e4m3fn}
 
 
 def init_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                mode: str = "dense", device="cuda") -> PagedKVCache:
-    if mode != "dense":
-        raise _not_ported(f"cache mode {mode!r}")
+    if mode == "dense":
+        store, rows = cfg.dtype.torch_dtype, page_size
+    elif mode in _STORE:
+        store = _STORE[mode]
+        rows = page_size // 2 if mode == KVQuantMode.INT4 else page_size
+    else:
+        raise ValueError(f"unknown cache mode {mode!r}")
     dev = resolve_device(device)
-    shape = (cfg.n_kv_heads, num_pages, page_size, cfg.d_head)
-    dt = cfg.dtype.torch_dtype
+    shape = (cfg.n_kv_heads, num_pages, rows, cfg.d_head)
+
+    def pools(make, want=True):
+        return [make() for _ in range(cfg.n_layers)] if want else []
+
+    quant = mode != "dense"
     return PagedKVCache(
-        [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
-        [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)])
+        pools(lambda: torch.zeros(shape, dtype=store, device=dev)),
+        pools(lambda: torch.zeros(shape, dtype=store, device=dev)),
+        pools(lambda: torch.ones(shape[:2], dtype=torch.float32, device=dev), quant),
+        pools(lambda: torch.ones(shape[:2], dtype=torch.float32, device=dev), quant),
+        mode=mode)
+
+
+def _quantize_rows(x, scale, mode: str):
+    """Quantize (..., d) rows by a broadcastable symmetric scale (x / scale,
+    the JAX writers' division). int4 returns unpacked values in [-7, 7]; the
+    writers pack them for the page layout."""
+    xf = x.float() / scale
+    if mode == KVQuantMode.INT8:
+        return torch.clamp(torch.round(xf), -127, 127).to(torch.int8)
+    if mode == KVQuantMode.INT4:
+        return torch.clamp(torch.round(xf), -7, 7).to(torch.int8)
+    if mode == KVQuantMode.FP8:
+        # Decode reuses the prefill scale, so values can pass the e4m3 range;
+        # clamp rather than rely on the cast's behaviour out of range.
+        return torch.clamp(xf, -448.0, 448.0).to(torch.float8_e4m3fn)
+    return x
+
+
+def _head_scale(x, mode: str):
+    """Per-KV-head symmetric scale of a (kv_heads, ..., d) tensor."""
+    absmax = x.float().abs().amax(dim=tuple(range(1, x.ndim)))
+    return torch.clamp_min(div_const(absmax, QMAX[mode]), 1e-12)
+
+
+def _raw(t):
+    """fp8 tensors as their bytes, for indexed writes (fp8 indexing kernels
+    are not in every PyTorch build); other tensors as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def _write_prompt_layer(cache: PagedKVCache, li: int, k, v, page_table,
@@ -68,16 +139,29 @@ def _write_prompt_layer(cache: PagedKVCache, li: int, k, v, page_table,
     The prompt is zero-padded to whole pages; the tail slots of the last
     page belong to this sequence and are overwritten by decode writes
     before attention can see them (lengths mask the rest). Only the first
-    ceil(prompt_len / page_size) table entries are read.
+    ceil(prompt_len / page_size) table entries are read. A quantized cache
+    calibrates one scale per KV head on the prompt and stores it on every
+    page written; int4 pairs token t with token t + page_size/2 of the same
+    page into one byte row.
     """
     ps = cache.page_size
     n_used = -(-prompt_len // ps)
     pages = page_table[:n_used].long()
-    for pool, vals in ((cache.k_pages[li], k), (cache.v_pages[li], v)):
+    quant = cache.mode != "dense"
+    ks, vs = cache.layer_scales(li)
+    for pool, scales, vals in ((cache.k_pages[li], ks, k),
+                               (cache.v_pages[li], vs, v)):
         kvh, _, d = vals.shape
+        if quant:
+            sc = _head_scale(vals, cache.mode)  # (kv_heads,)
+            vals = _quantize_rows(vals, sc[:, None, None], cache.mode)
+            scales[:, pages] = sc[:, None].expand(kvh, n_used)
         padded = vals.new_zeros((kvh, n_used * ps, d))
         padded[:, :prompt_len] = vals
-        pool[:, pages] = padded.view(kvh, n_used, ps, d)
+        by_page = padded.view(kvh, n_used, ps, d)
+        if cache.mode == KVQuantMode.INT4:
+            by_page = pack_int4(by_page[:, :, : ps // 2], by_page[:, :, ps // 2:])
+        _raw(pool)[:, pages] = _raw(by_page)
 
 
 def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
@@ -143,6 +227,7 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
 
     page_of_pos = page_tables.long().gather(1, (pos // ps)[:, None])[:, 0]
     slot_of_pos = pos % ps
+    first_page = page_tables[:, 0].long()  # owner of each sequence's scale
 
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
@@ -153,17 +238,49 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
                        cos, sin)[:, :, 0]  # (b, kv_heads, d)
         v = v.view(batch, cfg.n_kv_heads, cfg.d_head)
         # Write before attend: the new token must be in its page.
-        cache.k_pages[li][:, page_of_pos, slot_of_pos] = k.transpose(0, 1)
-        cache.v_pages[li][:, page_of_pos, slot_of_pos] = v.transpose(0, 1)
+        _write_decode_rows(cache, li, k, v, page_of_pos, slot_of_pos,
+                           first_page)
+        ks, vs = cache.layer_scales(li)
         out = paged_decode_attention(
             q.contiguous(), cache.k_pages[li], cache.v_pages[li], lengths,
-            page_tables, window=cfg.layer_window(li), softcap=cfg.attn_softcap,
-            scale=cfg.attn_scale or None)  # (b, H, d)
+            page_tables, mode=cache.mode, k_scales=ks, v_scales=vs,
+            window=cfg.layer_window(li),
+            softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)  # (b, H, d)
         out = out.reshape(batch, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
         x = _residual_tail(cfg, layer, x, out)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x[:, 0], cfg), cache
+
+
+def _write_decode_rows(cache: PagedKVCache, li: int, k, v, page_of_pos,
+                       slot_of_pos, first_page):
+    """Write each sequence's new K/V row (batch, kv_heads, d) in place.
+
+    Quantized: the row takes the scale on its sequence's first page, and
+    the page it lands on is stamped with that scale (a page handed out
+    again keeps a stale scale until then). int4 rewrites one nibble of the
+    byte row: the low nibble for slots below page_size/2, else the high.
+    Padding rows of a decode batch all write the same scratch slot with the
+    same values, so duplicate indices there are harmless.
+    """
+    half = cache.page_size // 2
+    ks, vs = cache.layer_scales(li)
+    for pool, scales, vals in ((cache.k_pages[li], ks, k),
+                               (cache.v_pages[li], vs, v)):
+        if cache.mode != "dense":
+            seq_scale = scales[:, first_page]  # (kv_heads, batch)
+            vals = _quantize_rows(vals, seq_scale.T[:, :, None], cache.mode)
+            scales[:, page_of_pos] = seq_scale
+        vals = vals.transpose(0, 1)  # (kv_heads, batch, d)
+        if cache.mode != KVQuantMode.INT4:
+            _raw(pool)[:, page_of_pos, slot_of_pos] = _raw(vals)
+            continue
+        byte_row = slot_of_pos % half
+        is_hi = (slot_of_pos >= half)[None, :, None]
+        old = pool[:, page_of_pos, byte_row]
+        pool[:, page_of_pos, byte_row] = torch.where(
+            is_hi, pack_int4(old, vals), pack_int4(vals, old >> 4))
 
 
 def greedy_token(logits):

@@ -6,7 +6,10 @@ RMSNorm, RoPE (with the Llama-3.1 frequency scaling), GQA attention through
 gradient), the SwiGLU (or tanh-GeLU) MLP and the next-token loss. Parameters are a
 plain dict with the JAX package's tree and layout: every projection is
 (in, out) and applied as ``x @ w``, so weights copy across unchanged
-(:func:`params_from_jax`). The large matrix products are plain ``x @ w``.
+(:func:`params_from_jax`). A projection is either a dense tensor, applied
+as a plain ``x @ w``, or a :class:`~..ops.quant_matmul.QuantizedWeight`
+(:func:`quantize_params`, :func:`init_quantized_params`), applied through
+the quantized matmul kernels (:func:`_mm`).
 """
 
 from __future__ import annotations
@@ -22,11 +25,24 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.autodiff import flash_attention
 from ..ops.configs import DType, KernelConfig
 from ..ops.flash_forward import flash_forward
+from ..ops.quant_matmul import QuantizedWeight, quant_matmul, quantize_weight
 from ..utils.device import resolve_device
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B",
            "init_params", "params_from_jax", "forward", "loss_fn", "rms_norm",
-           "rope_inv_freq", "rope_tables", "apply_rope"]
+           "rope_inv_freq", "rope_tables", "apply_rope", "quantize_params",
+           "init_quantized_params"]
+
+
+def _mm(x, w):
+    """Dense or quantized matmul, dispatched by the weight's type.
+
+    A :class:`QuantizedWeight` carries its recipe: ``act="int8"`` quantizes
+    the activations too (W8A8 / W4A8), otherwise weight-only.
+    """
+    if isinstance(w, QuantizedWeight):
+        return quant_matmul(x, w, act_quant=w.act == "int8")
+    return x @ w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,12 +163,17 @@ _FROM_NUMPY_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                      "float16": torch.float16}
 
 
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 def params_from_jax(tree, device="cuda"):
     """The JAX package's parameter tree as the port's parameters.
 
     Leaves may be numpy or JAX arrays; they keep their dtype. bf16 goes
     through float32 (exact both ways), because ``torch.from_numpy`` does not
-    take numpy's bf16.
+    take numpy's bf16. A JAX ``QuantizedWeight`` (recognised by its fields)
+    becomes the port's :class:`QuantizedWeight` with the same int8 values,
+    fp32 scales, mode, original dtype and recipe.
     """
     dev = resolve_device(device)
 
@@ -161,12 +182,88 @@ def params_from_jax(tree, device="cuda"):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
+        if all(hasattr(x, a) for a in ("values", "scales", "mode", "act")):
+            return QuantizedWeight(
+                torch.from_numpy(np.array(x.values, np.int8)).to(dev),
+                torch.from_numpy(np.array(x.scales, np.float32)).to(dev),
+                x.mode, _FROM_NUMPY_DTYPE[np.dtype(x.orig_dtype).name], x.act)
         dt = _FROM_NUMPY_DTYPE.get(str(x.dtype))
         if dt is None:
             raise ValueError(f"unsupported parameter dtype {x.dtype}")
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dt)
 
     return conv(tree)
+
+
+def quantize_params(params, mode: str = "int8", quantize_lm_head: bool = True,
+                    act: str = "bf16") -> dict:
+    """Quantize every projection (and the lm_head) per output channel.
+
+    Norms and the embedding stay dense. ``act="int8"`` selects the W8A8 /
+    W4A8 recipe. Returns a new tree; the model dispatches through ``_mm``.
+    """
+    out = dict(params)
+    if quantize_lm_head:
+        out["lm_head"] = quantize_weight(params["lm_head"], mode, act)
+    out["layers"] = [
+        {k: (quantize_weight(v, mode, act) if k in _QUANT_KEYS else v)
+         for k, v in layer.items()}
+        for layer in params["layers"]]
+    return out
+
+
+def random_quantized_weight(shape, mode: str, act: str, generator: torch.Generator,
+                            dtype=torch.bfloat16, device="cuda") -> QuantizedWeight:
+    """A random (K, N) weight, already quantized: stored bytes uniform in
+    [-127, 127] (int4: two nibbles per byte, so -8 occurs), and every column
+    scaled by 1 / (qmax * sqrt(K)). The JAX package's recipe; the draws come
+    from ``generator`` (on ``device``), so they are not the JAX package's
+    numbers."""
+    k, n = shape
+    rows, qmax = (k // 2, 7.0) if mode == "int4" else (k, 127.0)
+    vals = torch.randint(-127, 128, (rows, n), generator=generator,
+                         dtype=torch.int8, device=device)
+    scale = torch.full((n,), 1.0 / (qmax * math.sqrt(k)), dtype=torch.float32,
+                       device=device)
+    return QuantizedWeight(vals, scale, mode, dtype, act)
+
+
+def init_quantized_params(cfg: LlamaConfig, generator: torch.Generator,
+                          mode: str = "int8", quantize_lm_head: bool = True,
+                          act: str = "bf16", device="cuda") -> dict:
+    """Random already-quantized parameters, without the dense model first:
+    every projection from ``random_quantized_weight``."""
+    dev = resolve_device(device)
+    dt = cfg.dtype.torch_dtype
+
+    def qw(shape):
+        return random_quantized_weight(shape, mode, act, generator, dt, dev)
+
+    def ones(n):
+        return torch.ones(n, dtype=dt, device=dev)
+
+    q_dim = cfg.n_heads * cfg.d_head
+    kv_dim = cfg.n_kv_heads * cfg.d_head
+    params = {
+        "embed": _dense_init(generator, (cfg.vocab_size, cfg.dim), dt, dev),
+        "final_norm": ones(cfg.dim),
+        "lm_head": (qw((cfg.dim, cfg.vocab_size)) if quantize_lm_head else
+                    _dense_init(generator, (cfg.dim, cfg.vocab_size), dt, dev)),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(cfg.dim),
+            "wq": qw((cfg.dim, q_dim)),
+            "wk": qw((cfg.dim, kv_dim)),
+            "wv": qw((cfg.dim, kv_dim)),
+            "wo": qw((q_dim, cfg.dim)),
+            "mlp_norm": ones(cfg.dim),
+            "w_gate": qw((cfg.dim, cfg.hidden_dim)),
+            "w_up": qw((cfg.dim, cfg.hidden_dim)),
+            "w_down": qw((cfg.hidden_dim, cfg.dim)),
+        })
+    return params
 
 
 def rms_norm(x, weight, eps):
@@ -217,7 +314,7 @@ def apply_rope(x, cos, sin):
 
 def _qkv(layer, x):
     """x -> (q, k, v) rows, plus the Qwen2-style biases when present."""
-    q, k, v = x @ layer["wq"], x @ layer["wk"], x @ layer["wv"]
+    q, k, v = _mm(x, layer["wq"]), _mm(x, layer["wk"]), _mm(x, layer["wv"])
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     return q, k, v
@@ -229,17 +326,17 @@ def _q_scale_ratio(cfg: LlamaConfig) -> float:
 
 
 def _o_proj(layer, out):
-    y = out @ layer["wo"]
+    y = _mm(out, layer["wo"])
     return y + layer["bo"] if "bo" in layer else y
 
 
 def _mlp(layer, x, cfg: LlamaConfig):
-    g, up = x @ layer["w_gate"], x @ layer["w_up"]
+    g, up = _mm(x, layer["w_gate"]), _mm(x, layer["w_up"])
     if cfg.mlp_act == "gelu":
         gate = F.gelu(g.float(), approximate="tanh")
     else:
         gate = F.silu(g.float())
-    return (gate.to(x.dtype) * up) @ layer["w_down"]
+    return _mm(gate.to(x.dtype) * up, layer["w_down"])
 
 
 def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
@@ -278,7 +375,7 @@ def _embed(params, tokens, cfg: LlamaConfig):
 
 def _lm_logits(params, h, cfg: LlamaConfig):
     """The lm_head product in the model dtype, then fp32 logits."""
-    logits = (h @ params["lm_head"]).float()
+    logits = _mm(h, params["lm_head"]).float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -328,8 +425,15 @@ def loss_fn(params, tokens, cfg: LlamaConfig, remat: bool = False):
     """Next-token cross-entropy, the mean over all positions (fp32).
 
     ``tokens`` (batch, seq + 1): the model reads the first ``seq`` and
-    predicts the last ``seq``.
+    predicts the last ``seq``. Quantized parameters do not train (nor does
+    the JAX package train them): they raise ``NotImplementedError``.
     """
+    if any(isinstance(w, QuantizedWeight)
+           for w in [params["lm_head"]] + [v for layer in params["layers"]
+                                           for v in layer.values()]):
+        raise NotImplementedError(
+            "training with quantized weights: neither package trains a "
+            "QuantizedWeight")
     logits = forward(params, tokens[:, :-1], cfg, remat=remat)
     targets = tokens[:, 1:]
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),

@@ -1,0 +1,230 @@
+"""Quantized matmuls: int8 / packed-int4 weights, bf16 or int8 activations.
+
+Counterpart of ``flash_attention_from_scratch_tpu/ops/quant_matmul.py``.
+Weights are per-output-channel symmetric: ``values`` (K, N) int8, or
+(K/2, N) for int4 half-split along K (byte (k, n) packs W[k, n] in the low
+nibble and W[k + K/2, n] in the high nibble), plus ``scales`` (N,) fp32.
+Four TPU kernels compute the products, and each has a Hopper kernel in
+``csrc/quant_matmul.cu``:
+
+- K6 ``_qmm_kernel_int8`` (and its loop order ``_nlast``): x @ int8 W;
+- K7 ``_qmm_kernel_int4``: x @ int4 W;
+- K8 ``_qmm_kernel_int8_a8``: W8A8, int8 x int8 -> exact int32, then
+  ``acc * xs[row] * s[col]``;
+- K9 ``_qmm_kernel_int4_a8``: W4A8, the same with int4 W.
+
+The weight-only kernels accumulate ``x @ W`` in fp32 and scale each column
+at the end. The a8 recipe quantizes activations per row in plain PyTorch
+(:func:`quantize_activations`) before the kernel, as the JAX package does in
+plain jnp. For a CPU tensor the wrapper runs :func:`quant_matmul_plain`; for
+a CUDA tensor it launches the kernel or raises, whatever the shape (the
+kernel masks its own ragged edges; there is no plain fallback on the card).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from . import _build
+from .quant import div_const, pack_int4, unpack_int4_halves
+
+__all__ = ["QuantizedWeight", "quantize_weight", "concat_weights",
+           "quantize_activations", "quant_matmul", "quant_matmul_plain",
+           "KERNELS"]
+
+_QMAX = {"int8": 127.0, "int4": 7.0}
+SOURCE = "quant_matmul.cu"
+# Kernel name per (weight mode, activation-quantized): the launch counters.
+KERNELS = {("int8", False): "quant_matmul_int8",       # K6
+           ("int4", False): "quant_matmul_int4",       # K7
+           ("int8", True): "quant_matmul_int8_a8",     # K8
+           ("int4", True): "quant_matmul_int4_a8"}     # K9
+
+_I32, _PTR = ctypes.c_int, ctypes.c_void_p
+
+
+@dataclasses.dataclass
+class QuantizedWeight:
+    """values (K, N) int8 (int4: (K/2, N) packed) + per-column scales (N,).
+
+    ``act`` records the matmul recipe: "bf16" = weight-only, "int8" = also
+    quantize activations per row and multiply int8 x int8 (W8A8 / W4A8).
+    """
+
+    values: torch.Tensor
+    scales: torch.Tensor
+    mode: str
+    orig_dtype: torch.dtype = torch.bfloat16
+    act: str = "bf16"
+
+    @property
+    def k_dim(self) -> int:
+        return self.values.shape[0] * (2 if self.mode == "int4" else 1)
+
+    @property
+    def shape(self):
+        return (self.k_dim, self.values.shape[1])
+
+    def stored_columns(self, dtype=torch.float32):
+        """The (K, N) unscaled values (int4 halves unpacked) in ``dtype``."""
+        if self.mode == "int4":
+            lo, hi = unpack_int4_halves(self.values, dtype)
+            return torch.cat([lo, hi], dim=0)
+        return self.values.to(dtype)
+
+    def dequantize(self):
+        return (self.stored_columns() * self.scales[None, :].float()).to(
+            self.orig_dtype)
+
+
+def quantize_weight(w, mode: str = "int8", act: str = "bf16") -> QuantizedWeight:
+    """Symmetric per-output-channel quantization of a (K, N) weight."""
+    if mode not in _QMAX:
+        raise ValueError(f"unknown weight quant mode {mode!r}")
+    wf = w.float()
+    scale = torch.clamp_min(div_const(wf.abs().amax(dim=0), _QMAX[mode]), 1e-12)
+    q = torch.round(wf / scale[None, :])
+    if mode == "int8":
+        vals = torch.clamp(q, -127, 127).to(torch.int8)
+    else:
+        q = torch.clamp(q, -7, 7)
+        k = q.shape[0]
+        vals = pack_int4(q[: k // 2], q[k // 2:])
+    return QuantizedWeight(vals, scale, mode, w.dtype, act)
+
+
+def concat_weights(ws) -> QuantizedWeight:
+    """Concatenate quantized weights along N (output channels); exact, since
+    the scales are per output channel."""
+    modes = {w.mode for w in ws}
+    ks = {w.k_dim for w in ws}
+    if len(modes) != 1 or len(ks) != 1:
+        raise ValueError(f"cannot concat: modes={modes} k_dims={ks}")
+    return QuantizedWeight(torch.cat([w.values for w in ws], dim=1),
+                           torch.cat([w.scales for w in ws], dim=0),
+                           ws[0].mode, ws[0].orig_dtype, ws[0].act)
+
+
+def quantize_activations(x, *, qmax: float = 127.0):
+    """Per-row symmetric int8 quantization of (..., K) activations.
+
+    Returns ``(x_q int8, scales fp32 (..., 1))``.
+    """
+    xf = x.float()
+    scales = torch.clamp_min(div_const(xf.abs().amax(dim=-1, keepdim=True), qmax),
+                             1e-12)
+    x_q = torch.clamp(torch.round(xf / scales), -qmax, qmax).to(torch.int8)
+    return x_q, scales
+
+
+def quant_matmul_plain(x2, wq: QuantizedWeight, act_quant: bool = False,
+                       out_dtype=None):
+    """Plain PyTorch version on 2-D ``x2`` (m, K).
+
+    Weight-only: the weight dequantized in fp32, an fp32 product, one cast.
+    a8: the exact integer product (in float64, exact below 2**53), then
+    ``acc * xs * s`` in fp32 in that order, then the cast. ``out_dtype``
+    (default: x2's dtype) is the fp32 result's cast; pass torch.float32 for
+    the uncast product.
+    """
+    out_dtype = out_dtype or x2.dtype
+    if act_quant:
+        x_q, xs = quantize_activations(x2)
+        acc = x_q.double() @ wq.stored_columns(torch.float64)
+        out = acc.float() * xs * wq.scales[None, :].float()
+        return out.to(out_dtype)
+    deq = wq.stored_columns() * wq.scales[None, :].float()
+    return (x2.float() @ deq).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    lib.fa_quant_matmul.restype = _I32
+    lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 7 + [_PTR]
+    return lib
+
+
+def _splits(m_tiles: int, n_tiles: int, k_tiles: int, sms: int) -> int:
+    """Split the K walk when the output tiles alone leave SMs idle (decode's
+    small m): enough CTAs for two per SM, each split a contiguous range."""
+    want = max(1, (2 * sms) // (m_tiles * n_tiles))
+    want = min(want, k_tiles, 16)
+    per = -(-k_tiles // want)
+    return -(-k_tiles // per)
+
+
+def _launch(x2, wq: QuantizedWeight, act_quant: bool):
+    m, k = x2.shape
+    n = wq.values.shape[1]
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernels take bf16 activations, got {x2.dtype}")
+    if wq.values.dtype != torch.int8 or not wq.values.is_cuda \
+            or not wq.scales.is_cuda:
+        raise ValueError("quantized values must be int8 tensors on the card")
+    if n % 16 or k % 32:
+        raise ValueError(f"the CUDA kernels take N % 16 == 0 and K % 32 == 0, "
+                         f"got K {k}, N {n}")
+    w4 = wq.mode == "int4"
+    values = wq.values.contiguous()
+    scales = wq.scales.float().contiguous()
+    if act_quant:
+        x_op, xs = quantize_activations(x2)
+        xs = xs.contiguous()
+    else:
+        x_op, xs = x2.contiguous(), scales  # xs unused
+    mi = 1 if m <= 16 else 4
+    bm, bn, bk = 16 * mi, 64, 64  # bk in K rows of the dequantized weight
+    k_rows = k // 2 if w4 else k  # stored rows
+    k_tile_rows = bk // 2 if w4 else bk
+    k_tiles = -(-k_rows // k_tile_rows)
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    splits = _splits(-(-m // bm), -(-n // bn), k_tiles, sms)
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    ws = (torch.empty((splits, m, n), device=x2.device,
+                      dtype=torch.int32 if act_quant else torch.float32)
+          if splits > 1 else out)
+    lib = _lib()
+    rc = lib.fa_quant_matmul(
+        x_op.data_ptr(), xs.data_ptr(), values.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), m, n, k, int(w4), int(act_quant), mi,
+        splits, torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(lib, rc, "quant_matmul")
+    _build.launch_counts[KERNELS[(wq.mode, act_quant)]] += 1
+    return out
+
+
+def quant_matmul(x, wq: QuantizedWeight, *, act_quant: bool = False,
+                 n_inner: bool | None = None, block_m: int = 256,
+                 block_k: int = 512, block_n: int | None = None):
+    """``x @ W`` with W stored int8/int4; (..., K) -> (..., N) in x's dtype.
+
+    ``act_quant=True`` quantizes x per row to int8 and multiplies int8 x
+    int8 with exact int32 sums (W8A8 / W4A8). ``n_inner`` and the
+    ``block_*`` sizes are the TPU kernel's loop order and tiles: accepted,
+    and the Hopper kernel picks its own (the function is the same).
+    """
+    del n_inner, block_m, block_k, block_n
+    if wq.mode not in _QMAX:
+        raise ValueError(f"unknown weight quant mode {wq.mode!r}")
+    k, n = wq.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K {x.shape[-1]}, the weight {k}")
+    lead = x.shape[:-1]
+    m = 1
+    for dim in lead:
+        m *= dim
+    if m == 0:
+        return x.new_zeros((*lead, n))
+    x2 = x.reshape(m, k)
+    if x.device.type == "cpu":
+        out = quant_matmul_plain(x2, wq, act_quant)
+    elif x.device.type == "cuda":
+        out = _launch(x2, wq, act_quant)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return out.reshape(*lead, n)

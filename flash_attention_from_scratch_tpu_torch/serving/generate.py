@@ -1,8 +1,9 @@
 """Continuous-batching generation: native scheduler + the port's kernels.
 
 Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
-``GenerationServer`` for greedy decoding, one token per decode step and a
-dense KV cache. Requests enter the native scheduler
+``GenerationServer`` for greedy decoding, one token per decode step, over a
+dense or quantized (int8, fp8, int4) KV cache; the parameters may hold
+quantized weights (``models.llama.quantize_params``). Requests enter the native scheduler
 (``serving.runtime.PagedEngine``); each step admits what fits, prefills
 newly admitted prompts through the flash forward kernel, and advances every
 running sequence one token through the paged decode kernel. The decode
@@ -58,18 +59,22 @@ class GenerationServer:
     ``num_pages`` is the total pool; one page is reserved as the scratch
     target for decode-batch padding rows, the rest belong to the scheduler.
     ``params`` must live on ``device`` (default: the card; without one the
-    constructor raises). Options of the JAX server that are not ported yet
-    raise ``NotImplementedError``.
+    constructor raises). ``mode`` is the KV cache format: "dense", "int8",
+    "fp8" or "int4". Options of the JAX server that are not ported yet
+    raise ``NotImplementedError``; ``seed`` only seeds sampling, which is
+    one of them.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
                  page_size: int, max_batch: int,
                  pages_per_seq: int | None = None, mode: str = "dense",
-                 temperature: float = 0.0, chunk: int = 1,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 chunk: int = 1,
                  attn_int8: bool = False, mesh=None,
                  prefill_chunk_tokens: int = 0, spec_k: int = 0,
                  prefix_cache: bool = False, lora=None, device="cuda"):
         unported = {"temperature > 0 (sampling)": temperature > 0,
+                     "top_k > 0 (sampling)": top_k > 0,
                     "chunk > 1 (multi-token decode loop)": chunk > 1,
                     "spec_k (speculative decoding)": spec_k,
                     "prefix_cache": prefix_cache,

@@ -9,7 +9,11 @@ repo's conftest):
 Tolerance: the adaptive tolerance rule against the plain version in bf16
 (native) and in fp32 on the same bf16-rounded inputs, held in each
 (batch, head, 64-row band) of a flash output or gradient and each sequence
-of a paged one on its own; the LSE within 1e-3. The training step compares
+of a paged one on its own; the LSE within 1e-3. The quantized matmuls: the
+weight-only kernels (K6, K7) by the same rule in each 16-row band against
+the plain version cast to bf16 and in fp32; the a8 kernels (K8, K9) within
+one bf16 ulp of each value of the plain version, whose integer sums are
+exact as the kernel's are. The training step compares
 the parameter gradients of the fused and the split backward kernels with
 those of the plain backward: all three run the same bf16 arithmetic and
 differ in summation order only, so they agree within 1e-2 of each leaf's
@@ -33,6 +37,10 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
     KERNEL as PAGED, paged_decode_attention, paged_decode_attention_plain,
+)
+from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv_pages
+from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+    KERNELS as QMM, QuantizedWeight, quant_matmul, quant_matmul_plain,
 )
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     make_qkv, row_bands, sliced_tolerance_check,
@@ -108,6 +116,89 @@ def test_paged_kernel_matches_plain(cuda, heads, kv_heads):
         assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
         ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
         assert ok, (kw, ratio, where)
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def check_quant_matmul(got, x, wq, act_quant):
+    """The rule of the module docstring; returns the worst err/bound (a8:
+    the worst error in ulps)."""
+    plain = quant_matmul_plain(x, wq, act_quant)
+    if act_quant:
+        ratio = float(((got.float() - plain.float()).abs() / _bf16_ulp(plain.float())).max())
+        return ratio <= 1.0, ratio
+    ref32 = quant_matmul_plain(x, wq, act_quant, out_dtype=torch.float32)
+    pad = -x.shape[0] % 16
+
+    def bands(t):
+        return row_bands(torch.nn.functional.pad(t.float(), (0, 0, 0, pad))[None], 16)
+
+    ok, ratio, _ = sliced_tolerance_check(bands(got), bands(plain).bfloat16(),
+                                          bands(ref32), lead=2)
+    return ok, ratio
+
+
+@pytest.mark.parametrize("m", [1, 16, 100])
+@pytest.mark.parametrize("k,n", [(512, 320), (544, 336)])
+@pytest.mark.parametrize("mode,act_quant", [("int8", False), ("int4", False),
+                                            ("int8", True), ("int4", True)],
+                         ids=["K6", "K7", "K8", "K9"])
+def test_quant_matmul_kernels_match_plain(cuda, mode, act_quant, k, n, m):
+    """Ragged m, N and K (no tile multiple); stored bytes over the whole
+    int8 range, so int4 nibbles of -8 occur; m 1 and 16 split the K walk."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rows = k // 2 if mode == "int4" else k
+    wq = QuantizedWeight(
+        torch.randint(-128, 128, (rows, n), generator=gen, device=cuda, dtype=torch.int8),
+        torch.rand(n, generator=gen, device=cuda) / k, mode, torch.bfloat16,
+        "int8" if act_quant else "bf16")
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    name = QMM[(mode, act_quant)]
+    before = _build.launch_counts[name]
+    got = quant_matmul(x, wq, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    ok, ratio = check_quant_matmul(got, x, wq, act_quant)
+    assert ok, ratio
+    assert torch.equal(got, quant_matmul(x, wq, act_quant=act_quant))  # reproducible
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
+def test_quantized_paged_kernel_matches_plain(cuda, mode):
+    rng = np.random.default_rng(9)
+    heads, kv_heads, ps, num_pages = 8, 2, 16, 64
+    lengths = torch.tensor([0, 1, 31, 200, 500], dtype=torch.int32, device=cuda)
+    pool = torch.randn(kv_heads, num_pages, ps, 128, device=cuda)
+    tables = torch.full((5, 32), -1, dtype=torch.int32, device=cuda)
+    perm, nxt = rng.permutation(num_pages), 0
+    owned = torch.zeros(kv_heads, num_pages, ps, 128, dtype=torch.bool, device=cuda)
+    for b, n in enumerate(lengths.tolist()):
+        for i in range(-(-n // ps)):
+            page = int(perm[nxt])
+            nxt += 1
+            tables[b, i] = page
+            owned[:, page, :min(ps, n - i * ps)] = True
+    kp, ks = quantize_kv_pages(pool, mode)
+    vp, vs = quantize_kv_pages(pool.flip(-1) * 3, mode)
+    if mode == "fp8":  # slots no sequence owns hold the e4m3 NaN byte
+        for p in (kp, vp):
+            p.view(torch.uint8)[~owned] = 0x7F
+    q = torch.randn(5, heads, 128, device=cuda).bfloat16()
+    kw0 = dict(mode=mode, k_scales=ks, v_scales=vs, scale=128 ** -0.5)
+    for kw in (dict(), dict(window=64), dict(softcap=20.0)):
+        before = _build.launch_counts[PAGED]
+        out = paged_decode_attention(q, kp, vp, lengths, tables, **kw0, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[PAGED] == before + 1
+        ref16 = paged_decode_attention_plain(q, kp, vp, lengths, tables, **kw0, **kw)
+        ref32 = paged_decode_attention_plain(q.float(), kp, vp, lengths, tables,
+                                             **kw0, **kw)
+        assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
+        ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+        assert ok, (mode, kw, ratio, where)
 
 
 def test_kernels_refuse_other_dtypes(cuda):

@@ -6,7 +6,10 @@ ids and counters, preemption included. The server runs on the CPU (plain
 kernel versions) in bf16 with the JAX parameters, and every served token is
 teacher-forced through the JAX ``forward``: its logit must lie within 0.05
 of the row max (tests/test_generate.py's rule; random-model bf16 logits tie
-within an ulp, so exact argmax equality is too strict).
+within an ulp, so exact argmax equality is too strict). Quantized serving
+(int8 weights with an int8 cache; W4A8 weights with an int4 cache) runs
+both servers on the same quantized fp32 model, where logits do not tie, and
+the served tokens must be equal.
 """
 
 import jax
@@ -19,11 +22,22 @@ from flash_attention_from_scratch_tpu.models.llama import (
     LlamaConfig as JaxLlamaConfig, forward as jax_forward,
     init_params as jax_init_params,
 )
+from flash_attention_from_scratch_tpu.models.llama import (
+    quantize_params as jax_quantize_params,
+)
+from flash_attention_from_scratch_tpu.ops.configs import DType as JaxDType
+from flash_attention_from_scratch_tpu.serving.generate import (
+    GenerationServer as JaxGenerationServer,
+)
 from flash_attention_from_scratch_tpu.serving.runtime import (
     PagedEngine as JaxPagedEngine,
 )
 from flash_attention_from_scratch_tpu_torch.models.llama import (
     LlamaConfig, params_from_jax,
+)
+from flash_attention_from_scratch_tpu_torch.ops.configs import DType
+from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+    QuantizedWeight,
 )
 from flash_attention_from_scratch_tpu_torch.serving.generate import (
     GenerationServer,
@@ -110,10 +124,36 @@ def test_server_stop_token(jax_params):
     assert server.engine.free_pages == 31
 
 
+@pytest.mark.parametrize("wmode,act,kv_mode", [("int8", "bf16", "int8"),
+                                               ("int4", "int8", "int4")],
+                         ids=["int8-weights-int8-cache", "W4A8-int4-cache"])
+def test_quantized_server_matches_jax_server(wmode, act, kv_mode):
+    """Both servers on the same quantized fp32 model (the JAX package's
+    ``quantize_params``, carried over by ``params_from_jax``) give the same
+    greedy tokens for every request."""
+    jcfg = JaxLlamaConfig(**SHAPE, block_q=128, block_kv=128, dtype=JaxDType.FP32)
+    cfg = LlamaConfig(**SHAPE, dtype=DType.FP32)
+    jparams = jax_quantize_params(jax_init_params(jcfg, jax.random.PRNGKey(1)),
+                                  wmode, act=act)
+    params = params_from_jax(jax.device_get(jparams), device="cpu")
+    assert isinstance(params["layers"][0]["w_up"], QuantizedWeight)
+    kw = dict(num_pages=32, page_size=64, max_batch=4, pages_per_seq=8,
+              mode=kv_mode, seed=3)  # seed: accepted, greedy ignores it
+    servers = [JaxGenerationServer(jparams, jcfg, **kw),
+               GenerationServer(params, cfg, device="cpu", **kw)]
+    for server in servers:
+        for sid, prompt in PROMPTS.items():
+            server.submit(sid, prompt, 5)
+    want, got = (server.run() for server in servers)
+    assert got == want
+    assert servers[1].cache.mode == kv_mode
+    assert all(len(toks) == 5 for toks in got.values())
+
+
 @pytest.mark.parametrize("option", [
     dict(temperature=0.7), dict(chunk=4), dict(spec_k=2),
     dict(prefix_cache=True), dict(prefill_chunk_tokens=128), dict(lora={}),
-    dict(mesh=object()), dict(attn_int8=True), dict(mode="int8")])
+    dict(mesh=object()), dict(attn_int8=True), dict(top_k=5)])
 def test_server_unported_options_raise(option):
     params = {"embed": torch.zeros((4, 4))}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
