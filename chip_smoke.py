@@ -32,12 +32,21 @@ KV, both at full depth with 16 requests of 1024 tokens; C W8A8 (K8) and
 fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
 each checks every token, finite logits, each kernel's launch count and two
 requests teacher-forced through ``forward``, and run A's decode steps are
-profiled; (8) time each kernel at its path's shapes beside its bound, its
-plain version and the library call (K4/K5 also per page format). Prints
-``serve``, ``profile``, ``train``, ``serve_quant`` and ``kernels`` JSON
-lines and, last, one JSON object with ``"ok": true``. Any failure raises,
-so the exit code is not 0. Without a CUDA device it exits with code 2
-before it does anything.
+profiled; (8) drive the attention bench tools, the path of quantized
+prefill attention (K10) and of the K/V-ring forward (K11):
+``tools/bench_quant.py`` at its default shapes with its numerics check,
+and ``tools/bench_attention.py --fori``, each with its kernel's launches
+counted, then hold K10 (every variant) and K11 (depth 2) against their
+plain versions on the tools' own inputs at those shapes; (9) time each kernel at its path's shapes beside its bound, its
+plain version and the library call (K4/K5 also per page format; K10 per
+variant and K11 per ring depth at b 4, s 4096). Phase (3) also holds K11
+at ring depths 1-3 on every K1 case, and K10 for every variant (int8
+compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
+windows, a softcap and strided Q, against its plain version. Prints
+``serve``, ``profile``, ``train``, ``serve_quant``, ``bench_quant``,
+``bench_attention`` and ``kernels`` JSON lines and, last, one JSON object
+with ``"ok": true``. Any failure raises, so the exit code is not 0.
+Without a CUDA device it exits with code 2 before it does anything.
 """
 
 from __future__ import annotations
@@ -46,13 +55,16 @@ import contextlib
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 import warnings
 
 import numpy as np
 import torch
+
+# Without the package beside this script, fail here, before printing anything.
+from flash_attention_from_scratch_tpu_torch.dispatch import median_runtime, sync
+from flash_attention_from_scratch_tpu_torch.tools import bench_attention, bench_quant
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3 bandwidth. The bound of a kernel is the larger of its
@@ -65,27 +77,30 @@ HEADS, KV_HEADS, D = 32, 8, 128
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 3
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events over ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def _time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+    """Median milliseconds per call (``dispatch.median_runtime``)."""
+    return 1e3 * median_runtime(fn, warmup=warmup, iters=iters)
+
+
+def _attn_ops(seq: int, heads: int, batch: int, causal: bool, window: int = 0) -> int:
+    """Tensor-core operations of an attention forward: the two tile
+    products, S = Q K^T and P V, 2 * d each per visible (q, kv) pair. The
+    softmax's elementwise work runs on the CUDA cores beside them."""
+    if not causal:
+        pairs = seq * seq
+    elif window and window < seq:
+        pairs = window * seq - window * (window - 1) // 2
+    else:
+        pairs = seq * (seq + 1) // 2
+    return 4 * D * pairs * heads * batch
 
 
 def phase_device() -> str:
+    from flash_attention_from_scratch_tpu_torch.utils.chip import device_kind
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = device_kind()
     print(smi, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}, count "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
@@ -99,6 +114,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
                          "flash_backward.cu", "quant_matmul.cu",
+                         "flash_quant.cu", "flash_forward_fori.cu",
                          "paged_runtime.cpp"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
@@ -137,51 +153,68 @@ TRAIN_CASE = (f"train shape b{TRAIN_BATCH} s{TRAIN_SEQ} strided", TRAIN_SEQ,
               TRAIN_SEQ, dict(causal=True), dict(batch=TRAIN_BATCH, strided=True))
 
 
-def phase_flash_cases() -> float:
-    """K1 vs its plain version: every case passes the tolerance rule."""
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
-    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-        flash_forward_plain, flash_forward_with_lse)
-    from flash_attention_from_scratch_tpu_torch.utils.testing import (
-        row_bands, sliced_tolerance_check)
+FLASH_CASES = [(f"{kind} s{s}", s, s, kw, {})
+               for s in FLASH_CASE_SEQS
+               for kind, kw in (("causal", dict(causal=True)), ("full", {}))] + [
+    ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
+    ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
+    ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
+    ("sinks s1024", 1024, 1024, dict(causal=True), dict(sinks=True)),
+    TRAIN_CASE,
+]
+FORI_DEPTHS = (1, 2, 3)  # K11 ring depths the cases and timings cover
 
-    cases = []
-    for s in FLASH_CASE_SEQS:
-        cases += [(f"causal s{s}", s, s, dict(causal=True), {}),
-                  (f"full s{s}", s, s, dict(), {})]
-    cases += [
-        ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
-        ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
-        ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
-        ("sinks s1024", 1024, 1024, dict(causal=True), dict(sinks=True)),
-        TRAIN_CASE,
-    ]
-    worst = 0.0
-    for i, (name, sq, skv, kw, extra) in enumerate(cases):
+
+def _flash_cases(loops: dict) -> dict:
+    """Each forward kernel of ``loops`` ({label: KernelConfig fields that
+    pick it}) vs the plain version on every case of FLASH_CASES, by the
+    tolerance rule in each (batch, head, 64-row band); each call must
+    launch its kernel once. Returns {label: (max |kernel - plain|, worst
+    err/bound)}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL, KERNEL_FORI, flash_forward_plain, flash_forward_with_lse)
+
+    worst = {label: (0.0, 0.0) for label in loops}
+    for i, (name, sq, skv, kw, extra) in enumerate(FLASH_CASES):
         q, k, v = _cuda_qkv(sq, skv, seed=i, batch=extra.get("batch", 1),
                             strided=extra.get("strided", False))
         sinks = (torch.from_numpy(np.random.default_rng(100 + i).standard_normal(
             HEADS).astype(np.float32) * 2).cuda() if extra.get("sinks") else None)
-        cfg = KernelConfig(**kw)
-        out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
-        torch.cuda.synchronize()
-        ref16, _ = flash_forward_plain(q, k, v, cfg, sinks)
+        base = KernelConfig(**kw)
+        ref16, _ = flash_forward_plain(q, k, v, base, sinks)
         ref32, lse32 = flash_forward_plain(q.float(), k.float(), v.float(),
-                                           _fp32(cfg), sinks)
-        # The rule in each (batch, head, 64-row band) on its own.
-        ok, ratio, where = sliced_tolerance_check(
-            row_bands(out), row_bands(ref16), row_bands(ref32), lead=3)
-        lse_err = float((lse - lse32).abs().max())
-        err = float((out.float() - ref16.float()).abs().max())
-        worst = max(worst, err)
-        print(f"flash_forward {name}: max|kernel-plain| {err:.3e}, worst "
-              f"err/bound {ratio:.3f} in (batch, head, band) {where}, lse err "
-              f"{lse_err:.3e} {'ok' if ok and lse_err <= 1e-3 else 'FAIL'}",
-              flush=True)
-        if not (ok and lse_err <= 1e-3) or not torch.isfinite(out).all():
-            raise AssertionError(f"flash_forward {name} disagrees with its plain version")
-        torch.cuda.synchronize()
+                                           _fp32(base), sinks)
+        for label, loop in loops.items():
+            cfg = dataclasses.replace(base, **loop)
+            kernel = KERNEL_FORI if cfg.kv_loop == KVLoop.FORI else KERNEL
+            before = _build.launch_counts[kernel]
+            out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+            sync()
+            launched = _build.launch_counts[kernel] - before
+            lse_err = float((lse - lse32).abs().max())
+            got = _hold(f"{label} {name}", out, ref16, ref32, launched,
+                        good=lse_err <= 1e-3, note=f", lse err {lse_err:.3e}")
+            worst[label] = tuple(map(max, worst[label], got))
+        del q, k, v, ref16, ref32
     return worst
+
+
+def phase_flash_cases() -> tuple[float, float]:
+    """K1 vs its plain version: every case passes the tolerance rule.
+    Returns (max |kernel - plain|, worst err/bound)."""
+    return _flash_cases({"flash_forward": {}})["flash_forward"]
+
+
+def phase_fori_cases() -> tuple[float, float]:
+    """K11 at ring depths 1, 2 and 3 on K1's cases, by the same rule.
+    Returns (max |kernel - plain|, worst err/bound) over the depths."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KVLoop
+
+    worst = _flash_cases({f"flash_forward_fori nb{n}": dict(
+        kv_loop=KVLoop.FORI, num_kv_buffers=n) for n in FORI_DEPTHS})
+    return tuple(max(w[i] for w in worst.values()) for i in (0, 1))
 
 
 def _fp32(cfg):
@@ -243,7 +276,7 @@ def phase_backward_cases() -> dict:
         for mode in ("fused", "split"):
             got = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
             again = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
-            torch.cuda.synchronize()
+            sync()
             err, ratio = _check_grads(f"flash_backward {mode} {name}", got,
                                       ref16, ref32)
             # dK/dV sum in a fixed order in both; dQ only in the split pair.
@@ -283,7 +316,7 @@ def _backward_sinks_case() -> None:
 
     got = grads(lambda q, k, v, z: flash_attention(
         q, k, v, KernelConfig(causal=True), z), torch.bfloat16)
-    torch.cuda.synchronize()
+    sync()
     refs = [grads(lambda q, k, v, z: reference_attention(
         q, k, v, causal=True, q_offset=0, sinks=z), dt)
         for dt in (torch.bfloat16, torch.float32)]
@@ -350,7 +383,7 @@ def phase_paged_cases() -> float:
     for name, kw in (("dense", {}), ("window 1000", dict(window=1000)),
                      ("softcap 30", dict(softcap=30.0))):
         out = paged_decode_attention(q, kp, vp, lens, tables, **kw)
-        torch.cuda.synchronize()
+        sync()
         scale = D ** -0.5
         ref16 = paged_decode_attention_plain(q, kp, vp, lens, tables,
                                              scale=scale, **kw)
@@ -368,7 +401,7 @@ def phase_paged_cases() -> float:
         if not good:
             raise AssertionError(
                 f"paged_decode_attention {name} disagrees with its plain version")
-        torch.cuda.synchronize()
+        sync()
     return worst
 
 
@@ -447,7 +480,7 @@ def _drive(server, prompts, new_tokens: int) -> dict:
                 decode_tokens += after["decode_tokens"] - before["decode_tokens"]
     finally:
         generate.greedy_token = plain_greedy
-    torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t_start
     counts = dict(_build.launch_counts)  # read just after the main path
     return {"prefill_s": prefill_s, "decode_s": decode_s,
@@ -470,7 +503,7 @@ def phase_serve(smi: str) -> dict:
     server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ)
-    torch.cuda.synchronize()
+    sync()
     print(f"serve: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} B, "
           f"KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -585,11 +618,11 @@ def _profile(fn, top: int = 10) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = 1e3 * (time.perf_counter() - t)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
@@ -672,7 +705,7 @@ def phase_train(smi: str) -> dict:
     step = make_train_step(cfg, opt)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
-    torch.cuda.synchronize()
+    sync()
     n_params = sum(p.numel() for p in param_leaves(params))
     print(f"train: LLAMA3_8B x {TRAIN_LAYERS} layers, params {n_params / 1e9:.3f} B, "
           f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
@@ -683,7 +716,7 @@ def phase_train(smi: str) -> dict:
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
         losses.append(float(step(params, tokens)))
-        torch.cuda.synchronize()
+        sync()
         step_s.append(time.perf_counter() - t)
     counts = dict(_build.launch_counts)  # read just after the main path
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -714,7 +747,7 @@ def phase_train(smi: str) -> dict:
     try:
         with _deterministic():
             split_loss = float(step(params, tokens))
-        torch.cuda.synchronize()
+        sync()
     finally:
         autodiff.flash_backward = real_backward
     split_s = time.perf_counter() - t
@@ -762,8 +795,7 @@ def _padded(n: int) -> int:
 
 def time_flash() -> dict:
     """K1 at the serving run's prefill shapes: one layer, all 8 prompts."""
-    from flash_attention_from_scratch_tpu_torch.ops.configs import (
-        KernelConfig, calc_causal_attn_flop)
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
 
@@ -777,9 +809,9 @@ def time_flash() -> dict:
             q, k, v, is_causal=True, enable_gqa=True))
         plain_ms += _time_ms(lambda: flash_forward_plain(q, k, v, cfg), iters=3,
                              warmup=1)
-        flops = calc_causal_attn_flop(s, D, HEADS, 1)
+        ops = _attn_ops(s, HEADS, 1, causal=True)
         nbytes = 2 * (2 * s * HEADS * D + 2 * s * KV_HEADS * D)  # q, o, k, v
-        bound_ms += 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        bound_ms += 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
         del q, k, v
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": "operations",
@@ -799,8 +831,7 @@ def time_paged() -> dict:
         pages_per_seq=SERVE_PAGES_PER_SEQ)
     q = torch.from_numpy(np.random.default_rng(61).standard_normal(
         (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
-    ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables),
-                  iters=50, warmup=5)
+    ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
     plain_ms = _time_ms(lambda: paged_decode_attention_plain(
         q, kp, vp, lens, tables, scale=D ** -0.5), iters=3, warmup=1)
     nbytes = sum(lengths) * KV_HEADS * D * 2 * 2 + 2 * q.numel() * 2
@@ -946,7 +977,7 @@ def phase_quant_matmul_cases() -> dict:
             wq = _random_qweight(k, n, mode, act_quant, gen)
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
             got = quant_matmul(x, wq, act_quant=act_quant)
-            torch.cuda.synchronize()
+            sync()
             ok, ratio, ulps, err = _check_qmm(got, x, wq, act_quant)
             worst[name] = max(worst.get(name, 0.0), err)
             line.append(f"m{m} {k}x{n} {ratio:.3f}" + (f"/{ulps:.2f}ulp" if act_quant else ""))
@@ -1013,7 +1044,7 @@ def phase_quant_paged_cases() -> float:
                              ("softcap 30", dict(softcap=30.0))):
                 kw = dict(kw, mode=mode, k_scales=ks, v_scales=vs)
                 out = paged_decode_attention(q, qk, qv, lens, tables, **kw)
-                torch.cuda.synchronize()
+                sync()
                 ref16 = paged_decode_attention_plain(q, qk, qv, lens, tables,
                                                      scale=D ** -0.5, **kw)
                 ref32 = paged_decode_attention_plain(q.float(), qk, qv, lens, tables,
@@ -1069,7 +1100,7 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     server = GenerationServer(params, cfg, num_pages=spec["requests"] * pages_per_seq + 2,
                               page_size=QUANT_PAGE, max_batch=spec["requests"],
                               pages_per_seq=pages_per_seq, mode=spec["kv"])
-    torch.cuda.synchronize()
+    sync()
     weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
     print(f"serve {run}: {spec}, weights {weight_gb:.2f} GB, KV pool {kv_gb:.3f} GB, "
           f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1254,8 +1285,7 @@ def time_paged_formats() -> dict:
         else:
             k, ks, v, vs = _quantized_pool(kp, vp, mode)
             kw = dict(mode=mode, k_scales=ks, v_scales=vs)
-        ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw),
-                      iters=50, warmup=5)
+        ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw))
         plain_ms = _time_ms(lambda: paged_decode_attention_plain(
             q, k, v, lens, tables, scale=D ** -0.5, **kw), iters=3, warmup=1)
         nbytes = (sum(lengths) * KV_HEADS * D * 2 * elem + 2 * q.numel() * 2
@@ -1266,18 +1296,290 @@ def time_paged_formats() -> dict:
                      f"{HEADS}/{KV_HEADS} heads, d {D} (one layer)", **out}
 
 
+# ---------------------------------------------------------------------------
+# Quantized prefill attention (K10), the K/V-ring forward (K11) and the
+# bench tools that drive them.
+
+# variant: (K/V mode, Q kind, int8_compute): the bench tool's four and
+# bf16 Q over int4 K/V.
+QUANT_VARIANTS = bench_quant.CHECK_VARIANTS
+QUANT_CASE_SEQS, QUANT_CASE_BATCH = (1024, 2048), 2
+PERF_BATCH, PERF_SEQ = 4, 4096  # the K10 and K11 timing shape
+
+
+def _quant_qkv(variant, seq, seed, batch, strided=False):
+    """Seeded bf16 Q, K, V (32/8 heads) quantized as ``variant`` gives them;
+    with ``strided``, Q (its values, when quantized) as a transposed view
+    of (b, s, h, d) rows."""
+    qq, kq, vq = bench_quant.quantize_inputs(*_cuda_qkv(seq, seq, seed, batch=batch),
+                                             variant)
+    if strided:
+        if QUANT_VARIANTS[variant][1] == "bf16":
+            qq = _as_model_rows(qq, True)
+        else:
+            qq.values = _as_model_rows(qq.values, True)
+    return qq, kq, vq
+
+
+def _dequantized(x, dtype):
+    """A QTensor's values times its scales in ``dtype`` (a dense tensor
+    cast to it)."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant import QTensor, dequantize
+
+    if isinstance(x, QTensor):
+        return dequantize(dataclasses.replace(x, orig_dtype=dtype))
+    return x.to(dtype)
+
+
+def _per_batch(fn, *xs):
+    """``fn`` on one batch element of the dense tensors ``xs`` at a time,
+    concatenated: a plain version's scores at the tools' shapes would need
+    tens of GB at once."""
+    return torch.cat([fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])])
+
+
+def _hold(label, out, native, ref32, launched, good=True, note="") -> tuple[float, float]:
+    """The tolerance rule in each (batch, head, 64-row band) on its own; the
+    call must have launched its kernel once and given finite values, and
+    ``good`` must hold (``note`` says what it checked). Returns (max
+    |kernel - plain|, worst err/bound); raises on a failure."""
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        row_bands, sliced_tolerance_check)
+
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(out), row_bands(native), row_bands(ref32), lead=3)
+    err = float((out.float() - native.float()).abs().max())
+    good = good and ok and launched == 1 and bool(torch.isfinite(out).all())
+    print(f"{label}: max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f} in "
+          f"(batch, head, band) {where}{note}, {launched} launch "
+          f"{'ok' if good else 'FAIL'}",
+          flush=True)
+    if not good:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err, ratio
+
+
+def _flash_quant_case(label, qq, kq, vq, cfg, i8c) -> tuple[float, float]:
+    """K10 on (qq, kq, vq) vs its plain version (for int8c its int8-compute
+    path, which rounds P as the kernel does) and reference attention in fp32
+    on the inputs dequantized in fp32; the output keeps Q's strides."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+        KERNEL, flash_forward_quantized, flash_forward_quantized_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.quant import QTensor
+    from flash_attention_from_scratch_tpu_torch.ops.reference import reference_attention
+
+    before = _build.launch_counts[KERNEL]
+    out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+    sync()
+    launched = _build.launch_counts[KERNEL] - before
+    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=D ** -0.5,
+                                           int8_compute=i8c)
+    ref32 = _per_batch(lambda *x: reference_attention(
+        *x, causal=cfg.causal, q_offset=0 if cfg.causal else None, window=cfg.window,
+        softcap=cfg.attn_softcap), *(_dequantized(x, torch.float32) for x in (qq, kq, vq)))
+    q_vals = qq.values if isinstance(qq, QTensor) else qq
+    return _hold(f"flash_quant {label}", out, native, ref32, launched,
+                 good=out.stride() == q_vals.stride())
+
+
+def phase_flash_quant_cases() -> tuple[float, float]:
+    """K10 vs its plain version for every variant, non-causal and causal at
+    s 1024 and 2048, plus windows, a softcap and strided Q: b 2, 32/8 heads.
+    Returns (max |kernel - plain|, worst err/bound)."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+
+    cases = [(f"{variant} {'causal' if causal else 'full'} s{seq}", variant, seq,
+              dict(causal=causal), False)
+             for seq in QUANT_CASE_SEQS for variant in QUANT_VARIANTS
+             for causal in (False, True)]
+    cases += [("int8c window 512 s2048", "int8c", 2048, dict(causal=True, window=512), False),
+              ("int8kv window 300 s2048", "int8kv", 2048, dict(causal=True, window=300), False),
+              ("fp8 softcap 50 s2048", "fp8", 2048, dict(causal=True, attn_softcap=50.0), False),
+              ("int8kv strided q s2048", "int8kv", 2048, dict(causal=True), True),
+              ("int8c strided q s2048", "int8c", 2048, {}, True)]
+    worst = (0.0, 0.0)
+    for i, (name, variant, seq, kw, strided) in enumerate(cases):
+        qq, kq, vq = _quant_qkv(variant, seq, seed=500 + i, batch=QUANT_CASE_BATCH,
+                                strided=strided)
+        got = _flash_quant_case(name, qq, kq, vq, KernelConfig(**kw),
+                                QUANT_VARIANTS[variant][2])
+        worst = tuple(map(max, worst, got))
+        del qq, kq, vq
+    return worst
+
+
+def phase_bench_tool_cases() -> dict:
+    """Each kernel of the tools' path vs its plain version on the tools' own
+    inputs (``bench_inputs``) at their default lengths, as the tools call
+    them: K10 for every variant of ``bench_quant`` (non-causal; 16/16
+    heads, b 16 at s 2048 and 4096, b 8 at s 8192), K11 at ring depth 2
+    (``bench_attention --fori``: non-causal, 16/16 heads, b 16, s 512-4096),
+    its plain versions run one batch element at a time. Returns {kernel:
+    (max |kernel - plain|, worst err/bound)}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL_FORI, flash_forward, flash_forward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
+
+    worst = {KQ: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0)}
+    for seq in bench_quant.DEFAULT_SEQ_LENS:
+        q, k, v = bench_quant.bench_inputs(seq)
+        for variant, (_, _, i8c) in bench_quant.VARIANTS.items():
+            qq, kq, vq = bench_quant.quantize_inputs(q, k, v, variant)
+            got = _flash_quant_case(
+                f"bench_quant {variant} b{q.shape[0]} h{q.shape[1]} s{seq}",
+                qq, kq, vq, KernelConfig(), i8c)
+            worst[KQ] = tuple(map(max, worst[KQ], got))
+            del qq, kq, vq
+        del q, k, v
+        torch.cuda.empty_cache()
+    cfg = KernelConfig(kv_loop=KVLoop.FORI)  # the tool's default depth, 2
+    for seq in bench_attention.DEFAULT_SEQ_LENS:
+        q, k, v = bench_attention.bench_inputs(seq)
+        before = _build.launch_counts[KERNEL_FORI]
+        out = flash_forward(q, k, v, cfg)
+        sync()
+        launched = _build.launch_counts[KERNEL_FORI] - before
+        native = _per_batch(lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v)
+        ref32 = _per_batch(lambda *x: flash_forward_plain(*x, _fp32(cfg))[0],
+                           q.float(), k.float(), v.float())
+        got = _hold(f"bench_attention --fori nb{cfg.num_kv_buffers} b{q.shape[0]} "
+                    f"h{q.shape[1]} s{seq}", out, native, ref32, launched)
+        worst[KERNEL_FORI] = tuple(map(max, worst[KERNEL_FORI], got))
+        del q, k, v, out, native, ref32
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _attn_bytes(q, k, v, out) -> int:
+    """Bytes of the inputs (values and scales) and the output, each once."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant import QTensor
+
+    total = out.numel() * out.element_size()
+    for x in (q, k, v):
+        for t in ((x.values, x.scales) if isinstance(x, QTensor) else (x,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def time_flash_quant() -> dict:
+    """K10 per variant, non-causal, at b 4, s 4096, 32/8 heads, d 128:
+    time, bound (the two products' operations at the bf16 rate, or the
+    int8 rate for int8c, against bytes), the plain version, and SDPA on the
+    dequantized bf16 tensors. The top-level numbers are sums over the five
+    variants."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import (
+        KernelConfig, calc_self_attn_flop)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+        flash_forward_quantized, flash_forward_quantized_plain)
+
+    cfg = KernelConfig()
+    ops = _attn_ops(PERF_SEQ, HEADS, PERF_BATCH, causal=False)
+    flops = calc_self_attn_flop(PERF_SEQ, D, HEADS, PERF_BATCH)  # the tools' model
+    by_variant = {}
+    for i, (variant, (_, _, i8c)) in enumerate(QUANT_VARIANTS.items()):
+        qq, kq, vq = _quant_qkv(variant, PERF_SEQ, seed=80 + i, batch=PERF_BATCH)
+        out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+        ms = _time_ms(lambda: flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
+        plain_ms = _time_ms(lambda: flash_forward_quantized_plain(
+            qq, kq, vq, cfg, scale=D ** -0.5, int8_compute=i8c), iters=1, warmup=1)
+        dq, dk, dv = (_dequantized(x, torch.bfloat16) for x in (qq, kq, vq))
+        lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            dq, dk, dv, enable_gqa=True))
+        bound_o = ops / (PEAK_INT8_OPS if i8c else PEAK_BF16_FLOPS)
+        bound_b = _attn_bytes(qq, kq, vq, out) / PEAK_BYTES_PER_S
+        by_variant[variant] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": 1e3 * max(bound_o, bound_b),
+            "bound_by": "operations" if bound_o >= bound_b else "bytes",
+            "tflops": flops / ms / 1e9}
+        del qq, kq, vq, out, dq, dk, dv
+    total = {key: sum(r[key] for r in by_variant.values())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {**total, "bound_by": "operations", "by_variant": by_variant,
+            "shape": f"sum over the variants {list(QUANT_VARIANTS)}: non-causal, "
+                     f"b {PERF_BATCH}, {HEADS}/{KV_HEADS} heads, s {PERF_SEQ}, d {D}; "
+                     "library: SDPA on the dequantized bf16 tensors"}
+
+
+def time_fori() -> dict:
+    """K11 at ring depths 1-3, non-causal and causal, with K1 and SDPA at
+    the same shape (b 4, s 4096, 32/8 heads, d 128, bf16). The top-level
+    numbers are the default depth's (2), summed over the two masks; the
+    plain version runs one batch element at a time (its scores would need
+    8.6 GB at once)."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward, flash_forward_plain)
+
+    q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=90, batch=PERF_BATCH)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v in bf16
+    by_mask = {}
+    for causal in (False, True):
+        cfg = KernelConfig(causal=causal)
+        ops = _attn_ops(PERF_SEQ, HEADS, PERF_BATCH, causal)
+        row = {f"nb{n}_ms": _time_ms(lambda: flash_forward(q, k, v, dataclasses.replace(
+            cfg, kv_loop=KVLoop.FORI, num_kv_buffers=n))) for n in FORI_DEPTHS}
+        row["flash_forward_k1_ms"] = _time_ms(lambda: flash_forward(q, k, v, cfg))
+        row["library_ms"] = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        row["plain_ms"] = _time_ms(lambda: _per_batch(
+            lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v), iters=1, warmup=1)
+        row["bound_ms"] = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        by_mask["causal" if causal else "full"] = row
+    total = {key: sum(r[src] for r in by_mask.values()) for key, src in (
+        ("ms", "nb2_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
+        ("bound_ms", "bound_ms"))}
+    del q, k, v
+    return {**total, "bound_by": "operations", "by_mask": by_mask,
+            "shape": f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
+                     f"{HEADS}/{KV_HEADS} heads, s {PERF_SEQ}, d {D}, bf16"}
+
+
+def phase_bench_tools(smi: str) -> dict:
+    """The slice's main path: ``tools/bench_quant.py`` (every variant at its
+    default shapes, then its numerics check) and ``tools/bench_attention.py
+    --fori`` at its defaults, each with the launch counts set to 0 just
+    before and read just after. K10 must have run, and K11 without K1.
+    Returns {kernel: launches}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
+
+    _build.launch_counts.clear()  # counts start at 0 just before the path
+    rows = bench_quant.bench_quant(bench_quant.DEFAULT_SEQ_LENS)
+    numerics = bench_quant.numerics_check()
+    quant_counts = dict(_build.launch_counts)  # read just after
+    print(json.dumps({"bench_quant": {"rows": rows, "numerics": numerics,
+                                      "launches": quant_counts, "gpu": smi}}), flush=True)
+    if quant_counts.get(KQ, 0) == 0 or not all(r["adaptive_ok"] for r in numerics):
+        raise AssertionError(f"bench_quant: launches {quant_counts}, numerics {numerics}")
+
+    _build.launch_counts.clear()
+    results = bench_attention.bench(bench_attention.DEFAULT_SEQ_LENS, fori=True)
+    fori_counts = dict(_build.launch_counts)
+    print(json.dumps({"bench_attention": {"args": "--fori", "results": {
+        name: {str(s): r for s, r in per_seq.items()} for name, per_seq in results.items()},
+        "launches": fori_counts, "gpu": smi}}), flush=True)
+    if fori_counts.get(KERNEL_FORI, 0) == 0 or fori_counts.get(K1, 0):
+        raise AssertionError(f"bench_attention --fori: launches {fori_counts}")
+    return {KQ: quant_counts[KQ], KERNEL_FORI: fori_counts[KERNEL_FORI]}
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only",
               file=sys.stderr)
         return 2
-    # Without the package beside this script, fail before printing anything.
-    import flash_attention_from_scratch_tpu_torch  # noqa: F401
-
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    flash_err = phase_flash_cases()
+    flash_err, flash_ratio = phase_flash_cases()
+    fori_err, fori_ratio = phase_fori_cases()
+    quant_err, quant_ratio = phase_flash_quant_cases()
     paged_err = max(phase_paged_cases(), phase_quant_paged_cases())
     qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
@@ -1292,10 +1594,15 @@ def main(argv=None) -> int:
     for run in QUANT_RUNS:
         quant_runs[run] = phase_serve_quant(run, smi, profile=run == "A")
         torch.cuda.empty_cache()
+    tools = phase_bench_tools(smi)
+    torch.cuda.empty_cache()
+    tool_cases = phase_bench_tool_cases()
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
-    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
@@ -1303,7 +1610,8 @@ def main(argv=None) -> int:
     kernels = [
         {"name": K1, "route": "cuda", "source": pkg + "flash_forward.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:284",
-         "launches": counts.get(K1, 0), "max_abs_err": flash_err, **time_flash()},
+         "launches": counts.get(K1, 0), "max_abs_err": flash_err,
+         "worst_err_bound": flash_ratio, **time_flash()},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
          "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
@@ -1341,6 +1649,22 @@ def main(argv=None) -> int:
         if name == KERNELS[("int8", False)]:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
                                             "quant_matmul.py:247")
+    kernels += [
+        {"name": KQ, "route": "cuda", "source": pkg + "flash_quant.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",
+         "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:46",
+         "launches": tools[KQ],
+         "launches_path": "tools/bench_quant.py: bench_quant and numerics_check "
+                          "at their defaults",
+         "max_abs_err": max(quant_err, tool_cases[KQ][0]),
+         "worst_err_bound": max(quant_ratio, tool_cases[KQ][1]), **time_flash_quant()},
+        {"name": KERNEL_FORI, "route": "cuda", "source": pkg + "flash_forward_fori.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:578",
+         "launches": tools[KERNEL_FORI],
+         "launches_path": "tools/bench_attention.py --fori at its defaults",
+         "max_abs_err": max(fori_err, tool_cases[KERNEL_FORI][0]),
+         "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]), **time_fori()},
+    ]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

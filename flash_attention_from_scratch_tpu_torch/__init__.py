@@ -18,10 +18,11 @@ from .models.llama import (
 from .models.train import make_optimizer, make_train_step
 from .ops.autodiff import flash_attention
 from .ops.configs import (
-    DType, KernelConfig, calc_causal_attn_flop, calc_self_attn_flop,
+    DType, KernelConfig, KVLoop, calc_causal_attn_flop, calc_self_attn_flop,
 )
 from .ops.flash_backward import flash_backward
 from .ops.flash_forward import flash_forward, flash_forward_with_lse
+from .ops.flash_quant import flash_forward_quantized
 from .ops.paged_attention import paged_decode_attention
 from .ops.quant import (
     KVQuantMode, QTensor, dequantize, quantize_kv, quantize_kv_pages,
@@ -37,9 +38,10 @@ from .serving.runtime import Batch, PagedEngine
 from .utils.testing import adaptive_tolerance_check, error_stats, make_qkv
 
 __all__ = [
-    "DType", "KernelConfig", "calc_self_attn_flop", "calc_causal_attn_flop",
-    "reference_attention", "reference_pair",
-    "flash_forward", "flash_forward_with_lse", "flash_backward",
+    "DType", "KernelConfig", "KVLoop", "calc_self_attn_flop",
+    "calc_causal_attn_flop", "reference_attention", "reference_pair",
+    "flash_forward", "flash_forward_with_lse", "flash_forward_quantized",
+    "flash_backward",
     "flash_attention", "paged_decode_attention",
     "KVQuantMode", "QTensor", "quantize_kv", "quantize_kv_pages",
     "unpack_int4_halves", "unpack_int4", "dequantize",

@@ -4,7 +4,8 @@ Each source in ``csrc/`` becomes a shared library with a plain C interface,
 loaded with ``ctypes``: ``*.cu`` through ``nvcc`` for ``sm_90a``, ``*.cpp``
 through ``g++``. Libraries are built at first use into
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of
-their source, so an edited source is rebuilt and an unchanged one is not.
+their source and the ``csrc/`` headers it includes, so an edited source or
+header is rebuilt and an unchanged one is not.
 Several sources build in parallel (:func:`build`).
 
 Every kernel entry point returns ``cudaGetLastError()`` after its launch;
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -48,10 +50,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _source_hash(src: str) -> str:
+    """sha256 over a source and, recursively, the local headers it
+    includes (``#include "..."``, resolved beside the including file)."""
+    digest, seen = hashlib.sha256(), set()
+
+    def add(path: str) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(text)
+        for inc in _LOCAL_INCLUDE.findall(text):
+            add(os.path.join(os.path.dirname(path), inc.decode()))
+
+    add(src)
+    return digest.hexdigest()[:16]
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(_CSRC, name)
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    tag = _source_hash(src)
     stem = os.path.splitext(name)[0]
     return src, os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
 

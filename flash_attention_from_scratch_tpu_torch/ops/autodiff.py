@@ -1,4 +1,5 @@
-"""Differentiable flash attention: kernel forward (K1) and backward (K2/K3).
+"""Differentiable flash attention: kernel forward (K1, or K11 for a config
+with ``kv_loop=KVLoop.FORI``) and backward (K2/K3).
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/autodiff.py``. The
 forward saves only (O, LSE); the backward recomputes S and P tile by tile

@@ -1,9 +1,10 @@
 """Attention configuration and the analytical FLOP model.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/configs.py``, cut to
-what changes outputs or validation. The TPU tiling knobs there (block sizes,
-head packing, split counts, VMEM limits) have no counterpart: the Hopper
-kernels' tile sizes are constants of the kernels (``csrc/*.cu``).
+what changes outputs or validation, and the choice of the KV loop. The TPU
+tiling knobs there (block sizes, head packing, split counts, VMEM limits)
+have no counterpart: the Hopper kernels' tile sizes are constants of the
+kernels (``csrc/*.cu``).
 """
 
 from __future__ import annotations
@@ -13,8 +14,12 @@ import enum
 
 import torch
 
-__all__ = ["DType", "KernelConfig", "calc_self_attn_flop",
-           "calc_causal_attn_flop"]
+__all__ = ["DType", "KVLoop", "KernelConfig", "MAX_KV_BUFFERS",
+           "calc_self_attn_flop", "calc_causal_attn_flop"]
+
+# The deepest K/V copy ring the FORI kernel is built for
+# (``csrc/flash_forward_fori.cu``).
+MAX_KV_BUFFERS = 4
 
 
 class DType(enum.Enum):
@@ -36,16 +41,32 @@ class DType(enum.Enum):
             raise ValueError(f"unsupported dtype: {dt}") from None
 
 
+class KVLoop(enum.Enum):
+    """Which forward kernel walks the KV tiles.
+
+    GRID: K1 (``csrc/flash_forward.cu``), whose K/V tiles stream through a
+    two-stage ``cp.async`` pipeline. FORI: K11 (``csrc/flash_forward_fori.cu``),
+    which drives its own K/V copies through a ring of ``num_kv_buffers``
+    slots, each completed on its own ``mbarrier``; 1 is synchronous (the
+    ladder's ``1_base`` rung). Both compute the same function.
+    """
+
+    GRID = "grid"
+    FORI = "fori"
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """What the attention computes: mask, scale, softcap and types.
+    """What the attention computes: mask, scale, softcap and types; and
+    which forward kernel computes it.
 
     ``q_offset``: Q row i sits at global position ``q_offset + i`` and, under
     the causal mask, sees KV columns ``[0, q_offset + i]`` (top-left
     alignment shifted by the offset). ``window``: Q position p sees KV
     positions ``(p - window, p]``; 0 disables. ``attn_softcap``: scores
     become ``cap * tanh(s / cap)`` after scaling; 0 disables. ``scale``:
-    None means ``1 / sqrt(d_head)``.
+    None means ``1 / sqrt(d_head)``. ``kv_loop`` and ``num_kv_buffers``
+    (1 to ``MAX_KV_BUFFERS``; read by FORI only): see :class:`KVLoop`.
     """
 
     d_head: int = 128
@@ -55,8 +76,18 @@ class KernelConfig:
     window: int = 0
     attn_softcap: float = 0.0
     scale: float | None = None
+    kv_loop: KVLoop = KVLoop.GRID
+    num_kv_buffers: int = 2
 
     def __post_init__(self):
+        if not isinstance(self.kv_loop, KVLoop):
+            raise ValueError(f"kv_loop must be a KVLoop, got {self.kv_loop!r}")
+        if self.num_kv_buffers < 1:
+            raise ValueError("num_kv_buffers must be >= 1 (1 = synchronous copies)")
+        if self.num_kv_buffers > MAX_KV_BUFFERS:
+            raise ValueError(
+                f"num_kv_buffers must be <= {MAX_KV_BUFFERS}, the deepest ring "
+                f"the FORI kernel is built for; got {self.num_kv_buffers}")
         if self.q_offset < 0:
             raise ValueError(f"q_offset must be >= 0: {self.q_offset}")
         if self.q_offset and not self.causal:

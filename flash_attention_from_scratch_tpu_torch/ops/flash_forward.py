@@ -1,12 +1,14 @@
-"""Flash-attention forward: the wrapper of the Hopper kernel K1.
+"""Flash-attention forward: the wrapper of the Hopper kernels K1 and K11.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_forward.py``
 ``flash_forward`` / ``flash_forward_with_lse``. For a CUDA tensor the wrapper
-launches ``csrc/flash_forward.cu``; for a CPU tensor it runs the plain
-version, :func:`flash_forward_plain`. The JAX package's row-band causal
-dispatch (``ops/causal_decomp.py``) has no counterpart: its output is that of
-a causal kernel that skips the tiles above the diagonal, which this kernel
-does.
+launches ``csrc/flash_forward.cu`` (K1), or ``csrc/flash_forward_fori.cu``
+(K11, the K/V copy ring) when ``cfg.kv_loop`` is ``KVLoop.FORI``; for a CPU
+tensor it runs the plain version, :func:`flash_forward_plain`, the same
+function for both. The JAX package's row-band causal dispatch
+(``ops/causal_decomp.py``) has no counterpart: its output is that of a
+causal kernel that skips the tiles above the diagonal, which both kernels
+do.
 """
 
 from __future__ import annotations
@@ -17,16 +19,18 @@ import functools
 import torch
 
 from . import _build
-from .configs import DType, KernelConfig
+from .configs import DType, KernelConfig, KVLoop
 from .reference import reference_attention
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
-           "KERNEL", "SEQ_QUANTUM", "D_HEAD"]
+           "KERNEL", "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
-SEQ_QUANTUM = 64  # the kernel's Q and KV tile height
-D_HEAD = 128      # the kernel's head width
+KERNEL_FORI = "flash_forward_fori"
+SOURCE_FORI = "flash_forward_fori.cu"
+SEQ_QUANTUM = 64  # both kernels' Q and KV tile height
+D_HEAD = 128      # both kernels' head width
 
 _I64, _I32, _F32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -70,12 +74,22 @@ def flash_forward_plain(q, k, v, cfg: KernelConfig, sinks=None):
         softcap=cfg.attn_softcap, sinks=sinks, return_lse=True)
 
 
+_ARGTYPES = [_PTR] * 6 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.fa_flash_forward.restype = _I32
-    lib.fa_flash_forward.argtypes = ([_PTR] * 6 + [_I64] * 12 + [_I32] * 8
-                                     + [_F32, _F32, _PTR])
+    lib.fa_flash_forward.argtypes = _ARGTYPES + [_PTR]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fori_lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_FORI)
+    lib.fa_flash_forward_fori.restype = _I32
+    lib.fa_flash_forward_fori.argtypes = _ARGTYPES + [_I32, _PTR]
     return lib
 
 
@@ -104,17 +118,21 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     sinks32 = sinks.float().contiguous() if sinks is not None else None
-    lib = _lib()
-    rc = lib.fa_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             sinks32.data_ptr() if sinks32 is not None else None,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             b, h, kvh, sq, skv, int(cfg.causal), cfg.q_offset, cfg.window,
-            float(cfg.softmax_scale), float(cfg.attn_softcap),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "flash_forward")
-    _build.launch_counts[KERNEL] += 1
+            float(cfg.softmax_scale), float(cfg.attn_softcap))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if cfg.kv_loop == KVLoop.FORI:
+        lib, name = _fori_lib(), KERNEL_FORI
+        rc = lib.fa_flash_forward_fori(*args, cfg.num_kv_buffers, stream)
+    else:
+        lib, name = _lib(), KERNEL
+        rc = lib.fa_flash_forward(*args, stream)
+    _build.check(lib, rc, name)
+    _build.launch_counts[name] += 1
     return out, lse
 
 

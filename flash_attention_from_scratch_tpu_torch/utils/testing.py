@@ -15,8 +15,14 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["ErrorStats", "error_stats", "adaptive_tolerance_check",
-           "sliced_tolerance_check", "row_bands", "make_qkv"]
+__all__ = ["BATCH_SIZE_FOR_SEQ_LEN", "BENCHMARK_N_HEADS", "ErrorStats",
+           "error_stats", "adaptive_tolerance_check", "sliced_tolerance_check",
+           "row_bands", "make_qkv"]
+
+# The benchmark shapes of the JAX package's bench tools: batch shrinks as seq
+# grows so the total work stays bounded.
+BATCH_SIZE_FOR_SEQ_LEN = {512: 16, 1024: 16, 2048: 16, 4096: 16, 8192: 8, 16384: 4}
+BENCHMARK_N_HEADS = 16
 
 
 @dataclasses.dataclass

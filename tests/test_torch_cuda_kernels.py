@@ -28,20 +28,29 @@ import torch
 
 from flash_attention_from_scratch_tpu_torch.models import llama, train
 from flash_attention_from_scratch_tpu_torch.ops import _build
-from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+from flash_attention_from_scratch_tpu_torch.ops.configs import (
+    MAX_KV_BUFFERS, DType, KernelConfig, KVLoop,
+)
 from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
     KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-    KERNEL as FLASH, flash_forward_plain, flash_forward_with_lse,
+    KERNEL as FLASH, KERNEL_FORI as FORI, flash_forward_plain, flash_forward_with_lse,
+)
+from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+    KERNEL as FLASH_QUANT, flash_forward_quantized, flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
     KERNEL as PAGED, paged_decode_attention, paged_decode_attention_plain,
 )
-from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv_pages
+from flash_attention_from_scratch_tpu_torch.ops.quant import (
+    QTensor, dequantize, quantize_kv, quantize_kv_pages,
+)
+from flash_attention_from_scratch_tpu_torch.ops.reference import reference_attention
 from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
     KERNELS as QMM, QuantizedWeight, quant_matmul, quant_matmul_plain,
 )
+from flash_attention_from_scratch_tpu_torch.tools import bench_quant
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     make_qkv, row_bands, sliced_tolerance_check,
 )
@@ -57,20 +66,34 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sq,kw", [
+FLASH_CASES = [
     (256, dict()), (128, dict()), (256, dict(causal=True)),
     (256, dict(causal=True, window=100)), (128, dict(causal=True, q_offset=128)),
     (128, dict(causal=True, q_offset=128, window=70)),
-    (256, dict(causal=True, attn_softcap=30.0))])
+    (256, dict(causal=True, attn_softcap=30.0))]
+
+
+@pytest.mark.parametrize("sq,kw", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, sq, kw):
+    check_flash_kernel(cuda, sq, KernelConfig(**kw), FLASH)
+
+
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+@pytest.mark.parametrize("sq,kw", FLASH_CASES)
+def test_fori_kernel_matches_plain(cuda, sq, kw, nbuf):
+    """K11 at every ring depth it is built for, on K1's cases."""
+    cfg = KernelConfig(kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
+    check_flash_kernel(cuda, sq, cfg, FORI)
+
+
+def check_flash_kernel(cuda, sq, cfg, kernel):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
                make_qkv(2, 8, sq, kv_heads=2, seq_kv=256, seed=1))
     sinks = torch.linspace(-2, 2, 8, device=cuda)
-    cfg = KernelConfig(**kw)
-    before = _build.launch_counts[FLASH]
+    before = _build.launch_counts[kernel]
     out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
     torch.cuda.synchronize()
-    assert _build.launch_counts[FLASH] == before + 1
+    assert _build.launch_counts[kernel] == before + 1
     ref16, _ = flash_forward_plain(q, k, v, cfg, sinks)
     ref32, lse32 = flash_forward_plain(
         q.float(), k.float(), v.float(),
@@ -116,6 +139,56 @@ def test_paged_kernel_matches_plain(cuda, heads, kv_heads):
         assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
         ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
         assert ok, (kw, ratio, where)
+
+
+# variant: (K/V mode, Q kind, int8_compute): the bench tool's and fp8 Q
+# over int4 K/V.
+QUANT_VARIANTS = {**bench_quant.CHECK_VARIANTS, "fp8q_int4kv": ("int4", "fp8", False)}
+
+
+@pytest.mark.parametrize("variant,kw,strided", [
+    *[(variant, dict(causal=causal), False) for variant in QUANT_VARIANTS
+      for causal in (False, True)],
+    ("int8c", dict(causal=True, window=200), False),
+    ("int8kv", dict(causal=True, window=100), False),
+    ("fp8", dict(causal=True, attn_softcap=20.0), False),
+    ("int8kv", dict(causal=True), True), ("int8c", {}, True)])
+def test_flash_quant_kernel_matches_plain(cuda, variant, kw, strided):
+    """K10 vs its plain version (b 2, 8 Q / 2 KV heads, s 384: three
+    int8-compute groups): the adaptive rule per (batch, head, 64-row band)
+    against the plain version and reference attention in fp32 on the
+    inputs dequantized in fp32; ``strided`` hands Q over as a transposed
+    view, whose strides the output keeps."""
+    kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 384, kv_heads=2, seed=8))
+    qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
+    if strided:
+        rows = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+        qq = rows(qq) if q_kind == "bf16" else QTensor(rows(qq.values), qq.scales, q_kind)
+    kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
+    cfg = KernelConfig(**kw)
+    before = _build.launch_counts[FLASH_QUANT]
+    out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[FLASH_QUANT] == before + 1
+    q_vals = qq.values if isinstance(qq, QTensor) else qq
+    assert out.dtype == torch.bfloat16 and out.stride() == q_vals.stride()
+    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=128 ** -0.5,
+                                           int8_compute=i8c)
+
+    def fp32(x):
+        if isinstance(x, QTensor):
+            return dequantize(dataclasses.replace(x, orig_dtype=torch.float32))
+        return x.float()
+
+    ref32 = reference_attention(*(fp32(x) for x in (qq, kq, vq)), causal=cfg.causal,
+                                q_offset=0 if cfg.causal else None, window=cfg.window,
+                                softcap=cfg.attn_softcap)
+    assert bool(torch.isfinite(out).all())
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(out), row_bands(native), row_bands(ref32), lead=3)
+    assert ok, (variant, kw, ratio, where)
 
 
 def _bf16_ulp(x):
