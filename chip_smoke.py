@@ -19,7 +19,10 @@ Llama-3-8B at full width and depth (random bf16 weights from a seed)
 through ``GenerationServer``: 8 requests, 32 greedy tokens each, with the
 launch counts of both kernels checked and two requests teacher-forced
 through the full-recompute ``forward``; (5) profile a few decode steps of
-the same server (device time by kernel, the card's busy share); (6) train
+the same server (device time by kernel, the card's busy share), then serve
+again on the same weights with speculative decoding (``spec_k=3``: prompts
+that repeat a 37-token phrase, drafts by prompt lookup, verify steps on the
+multi-token K4/K5; ``serve_spec`` line); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
 steps with the fused backward, checking the loss falls and the launch
 counts, profile one more step, then take one step in PyTorch's
@@ -30,20 +33,26 @@ Llama-3-8B at full width (``init_quantized_params`` from a seed), runs A-D
 of ``QUANT_RUNS``: A int8 weights (K6) and int8 KV, B W4A8 (K9) and int8
 KV, both at full depth with 16 requests of 1024 tokens; C W8A8 (K8) and
 fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
-each checks every token, finite logits, each kernel's launch count and two
-requests teacher-forced through ``forward``, and run A's decode steps are
+**E** run A with int8-compute attention (``attn_int8``) and **F** int8
+KV, ``attn_int8`` and ``spec_k=3`` at 4 layers with 4 requests; each checks
+every token, finite logits, each kernel's launch count and two requests
+teacher-forced through ``forward``, and run A's decode steps are
 profiled; (8) drive the attention bench tools, the path of quantized
 prefill attention (K10) and of the K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
 counted, then hold K10 (every variant) and K11 (depth 2) against their
 plain versions on the tools' own inputs at those shapes; (9) time each kernel at its path's shapes beside its bound, its
-plain version and the library call (K4/K5 also per page format; K10 per
-variant and K11 per ring depth at b 4, s 4096). Phase (3) also holds K11
+plain version and the library call (K4/K5 also per page format, with
+t = 4 query tokens at the speculative run's first verify step and with
+int8 compute at run E's step, each beside the single-token call; K10 per
+variant and K11 per ring depth at b 4, s 4096). Phase (3) also holds
+K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
+a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-3 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
-``serve``, ``profile``, ``train``, ``serve_quant``, ``bench_quant``,
+``serve``, ``profile``, ``serve_spec``, ``train``, ``serve_quant``, ``bench_quant``,
 ``bench_attention`` and ``kernels`` JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
@@ -75,6 +84,8 @@ PEAK_BYTES_PER_S = 3.35e12
 FLASH_CASE_SEQS = (512, 2048, 4096)
 HEADS, KV_HEADS, D = 32, 8, 128
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 3
+SPEC_K = 3  # the speculative runs' draft length: verify calls at t = 4
+PAGED_TOKENS = (2, 4, 8)  # multi-token q cases: t = spec_k + 1 for spec_k 1, 3, 7
 
 
 def _time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -121,6 +132,8 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"build {name}: {line.strip()}", flush=True)
+            elif "entry function" in line:  # the template arguments name it
+                print(f"build {name}: {line.strip()[:150]}", flush=True)
     print(f"build: {sorted(logs)} in {secs:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
 
@@ -452,13 +465,18 @@ def _drive(server, prompts, new_tokens: int) -> dict:
     from flash_attention_from_scratch_tpu_torch.serving import generate
 
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
-    plain_greedy = generate.greedy_token
+    plain_greedy, plain_accept = generate.greedy_token, generate.spec_accept_sample
 
     def greedy_checked(logits):
         nonfinite.add_((~torch.isfinite(logits)).sum())
         return plain_greedy(logits)
 
+    def accept_checked(logits, *args, **kw):
+        nonfinite.add_((~torch.isfinite(logits)).sum())
+        return plain_accept(logits, *args, **kw)
+
     generate.greedy_token = greedy_checked
+    generate.spec_accept_sample = accept_checked
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     t_start = time.perf_counter()
@@ -479,7 +497,7 @@ def _drive(server, prompts, new_tokens: int) -> dict:
                 decode_s += dt
                 decode_tokens += after["decode_tokens"] - before["decode_tokens"]
     finally:
-        generate.greedy_token = plain_greedy
+        generate.greedy_token, generate.spec_accept_sample = plain_greedy, plain_accept
     sync()
     wall = time.perf_counter() - t_start
     counts = dict(_build.launch_counts)  # read just after the main path
@@ -577,6 +595,85 @@ def phase_profile(server, prompts, steps: int = 4, run: str = "bf16") -> None:
         "top_kernels_ms_per_step": {
             k: ms / steps for k, ms in prof["top_kernels_ms"].items()},
     }}), flush=True)
+
+
+SPEC_PHRASE = 37  # tokens of the phrase a speculative run's prompts repeat
+
+
+def _phrase_prompts(lengths, vocab: int, seed: int) -> dict:
+    """One prompt per length, each a random 37-token phrase repeated up to
+    that length, so prompt lookup finds drafts."""
+    rng = np.random.default_rng(seed)
+    prompts = {}
+    for i, n in enumerate(lengths):
+        phrase = rng.integers(0, vocab, SPEC_PHRASE).tolist()
+        prompts[i] = (phrase * (n // SPEC_PHRASE + 1))[:n]
+    return prompts
+
+
+def _spec_line(stats, run) -> dict:
+    """The speculative counters of a run, and its tokens per verify step."""
+    verify = stats["verify_steps"]
+    return {"verify_steps": verify, "decode_steps": stats["decode_steps"],
+            "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
+            "spec_acceptance_rate": stats["spec_acceptance_rate"],
+            "tokens_per_verify_step": (run["decode_tokens"] / verify) if verify else None}
+
+
+def phase_serve_spec(params, smi: str) -> dict:
+    """Speculative serving of LLAMA3_8B at full width and depth on phase
+    (4)'s bf16 parameters: spec_k = 3, 8 requests of phrase-repeating
+    prompts at SERVE_PROMPT_LENS, 32 greedy tokens each. Checks the token
+    counts, finite logits, that drafts were proposed, the launch counts
+    (K1 per prefill, the multi-token K4/K5 per verify step and layer, the
+    single-token one per plain decode step) and two requests teacher-forced
+    through ``forward``. The acceptance rate of a random-weight model is
+    reported, not asserted."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, GenerationServer
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        KERNEL as KP, KERNEL_MULTI)
+
+    cfg = LLAMA3_8B
+    server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
+                              page_size=SERVE_PAGE_SIZE, max_batch=8,
+                              pages_per_seq=SERVE_PAGES_PER_SEQ, spec_k=SPEC_K)
+    prompts = _phrase_prompts(SERVE_PROMPT_LENS, cfg.vocab_size, seed=1)
+    run = _drive(server, prompts, SERVE_NEW_TOKENS)
+    counts, stats = run["counts"], server.stats()
+    got = {sid: st.generated for sid, st in server.seqs.items()}
+    if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
+        raise AssertionError(f"serve_spec: token counts {[len(g) for g in got.values()]}")
+    if run["nonfinite"] or stats["preemptions"]:
+        raise AssertionError(f"serve_spec: {run['nonfinite']} non-finite logits, "
+                             f"{stats['preemptions']} preemptions")
+    if stats["verify_steps"] == 0 or stats["spec_proposed"] == 0:
+        raise AssertionError(f"serve_spec: nothing was speculated: {stats}")
+    want = {K1: cfg.n_layers * len(prompts),
+            KERNEL_MULTI: cfg.n_layers * stats["verify_steps"]}
+    if stats["decode_steps"]:
+        want[KP] = cfg.n_layers * stats["decode_steps"]
+    print(f"serve_spec: launches {counts}; expected {want} ({cfg.n_layers} layers x "
+          f"{stats['verify_steps']} verify + {stats['decode_steps']} decode steps)",
+          flush=True)
+    if counts != want:
+        raise AssertionError("serve_spec: a kernel of the path ran the wrong number of times")
+    for n in TEACHER_FORCED:
+        sid = SERVE_PROMPT_LENS.index(n)
+        gap = _teacher_forced_check(params, cfg, prompts[sid], got[sid])
+        print(f"serve_spec: teacher-forced prompt {n}: {len(got[sid])} tokens, worst gap "
+              f"{gap:.4f} <= {SLACK} ok", flush=True)
+    line = {
+        "model": "LLAMA3_8B", "layers": cfg.n_layers, "requests": len(prompts),
+        "spec_k": SPEC_K, "prompt_tokens": stats["prefill_tokens"],
+        "new_tokens_per_request": SERVE_NEW_TOKENS,
+        "decode_tok_s": run["decode_tokens"] / run["decode_s"],
+        "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
+        "wall_s": run["wall_s"], **_spec_line(stats, run),
+        "peak_mem_gb": run["peak_mem_gb"], "launches": counts, "gpu": smi,
+    }
+    print(json.dumps({"serve_spec": line}), flush=True)
+    return {"counts": counts, "verify_lengths": [n + 1 + SPEC_K for n in SERVE_PROMPT_LENS]}
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
@@ -900,12 +997,17 @@ LAYER_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
 LM_HEAD_SHAPE = (4096, 128256)
 # (weight mode, activation-quantized) of K6, K7, K8, K9.
 QMM_RECIPES = (("int8", False), ("int4", False), ("int8", True), ("int4", True))
-# Serve runs: weights, activations, KV pages, layers, requests.
+# Serve runs: weights, activations, KV pages, layers, requests; E and F
+# also int8-compute attention, F speculative decoding too.
 QUANT_RUNS = {
     "A": dict(wmode="int8", act="bf16", kv="int8", layers=32, requests=16),
     "B": dict(wmode="int4", act="int8", kv="int8", layers=32, requests=16),
     "C": dict(wmode="int8", act="int8", kv="fp8", layers=4, requests=4),
     "D": dict(wmode="int4", act="bf16", kv="int4", layers=4, requests=4),
+    "E": dict(wmode="int8", act="bf16", kv="int8", layers=32, requests=16,
+              attn_int8=True),
+    "F": dict(wmode="int8", act="bf16", kv="int8", layers=4, requests=4,
+              attn_int8=True, spec_k=SPEC_K),
 }
 QUANT_PROMPT, QUANT_PAGE, QUANT_NEW = 1024, 128, 32
 # A served token's logit may sit this many row standard deviations below the
@@ -1063,6 +1165,88 @@ def phase_quant_paged_cases() -> float:
     return worst
 
 
+def _hold_paged(label, out, native, ref32, lengths, launched) -> tuple[float, float]:
+    """The tolerance rule in each (sequence, token) on its own; finite
+    values, zeros for a length-0 row, one launch. Returns (max |kernel -
+    plain|, worst err/bound); raises on a failure."""
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        sliced_tolerance_check)
+
+    def by_token(x):
+        return x.transpose(1, 2) if x.ndim == 4 else x[:, None]
+
+    ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(native),
+                                              by_token(ref32), lead=2)
+    err = float((out.float() - native.float()).abs().max())
+    good = (ok and launched == 1 and bool(torch.isfinite(out).all()) and (
+        0 not in lengths or float(out[lengths.index(0)].abs().max()) == 0.0))
+    print(f"{label}: max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f} at "
+          f"(length, token) ({lengths[where[0]]}, {where[1]}), {launched} launch "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    if not good:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err, ratio
+
+
+def _paged_call(q, k, v, lens, tables, i8c, kw):
+    """One kernel call and its references: (out, launches, native, fp32).
+    The native reference is the plain version on the same inputs (with
+    int8_compute when the kernel has it), the fp32 one the plain version
+    with q in fp32 (and dense pages in fp32), without int8_compute."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        kernel_name, paged_decode_attention, paged_decode_attention_plain)
+
+    name = kernel_name(q.shape[2] if q.ndim == 4 else 1, i8c)
+    before = _build.launch_counts[name]
+    out = paged_decode_attention(q, k, v, lens, tables, int8_compute=i8c, **kw)
+    sync()
+    launched = _build.launch_counts[name] - before
+    native = paged_decode_attention_plain(q, k, v, lens, tables, int8_compute=i8c, **kw)
+    pages32 = (k.float(), v.float()) if k.dtype == torch.bfloat16 else (k, v)
+    ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw)
+    return out, launched, native, ref32
+
+
+def phase_paged_multi_cases() -> tuple[float, float]:
+    """K4/K5's multi-token q (t = 2, 4, 8 on dense, int8, fp8 and int4
+    pages, each with a window and with a softcap) and int8_compute (int8
+    pages, t = 1 and 4: plain, window, softcap) vs the plain version in
+    each (sequence, token), on the ragged page-64 pool of the dense cases
+    (lengths 0 to 4000) and on run A's page-128 pool. Returns (max |kernel -
+    plain|, worst err/bound)."""
+    lengths = [1, 17, 64, 65, 1000, 0, 2047, 3001, 4000]
+    pools = (("page 64", 1000, (lengths, *make_paged_pool(lengths, 64, 320, seed=27,
+                                                          pages_per_seq=64))),
+             (f"page {QUANT_PAGE} (run A)", 600, _run_a_pool()[:5]))
+    worst = (0.0, 0.0)
+    for pool, window, (lengths, kp, vp, lens, tables) in pools:
+        formats = {"dense": (kp, vp, {})}
+        for mode in ("int8", "fp8", "int4"):
+            qk, ks, qv, vs = _quantized_pool(kp, vp, mode)
+            formats[mode] = (qk, qv, dict(mode=mode, k_scales=ks, v_scales=vs))
+        options = {"plain": {}, f"window {window}": dict(window=window),
+                   "softcap 30": dict(softcap=30.0)}
+        cases = [(mode, t, False, opt) for mode in formats for t in PAGED_TOKENS
+                 for opt in list(options)[1:]]
+        cases += [("int8", t, True, opt) for t in (1, SPEC_K + 1) for opt in options]
+        rng = np.random.default_rng(29)
+        for mode, t, i8c, opt in cases:
+            k, v, kw = formats[mode]
+            shape = (len(lengths), HEADS) + ((t,) if t > 1 else ()) + (D,)
+            q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+            kw = dict(kw, scale=D ** -0.5, **options[opt])
+            out, launched, native, ref32 = _paged_call(q, k, v, lens, tables, i8c, kw)
+            label = (f"paged_decode_attention {pool} {'int8c' if i8c else mode} t{t} "
+                     f"{opt}")
+            worst = tuple(map(max, worst, _hold_paged(label, out, native, ref32,
+                                                      lengths, launched)))
+        del formats
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _param_bytes(params) -> int:
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import QuantizedWeight
 
@@ -1080,15 +1264,19 @@ def _param_bytes(params) -> int:
 
 def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     """One quantized serve run of LLAMA3_8B at full width (QUANT_RUNS): the
-    launch counts of its quantized kernel, K1 and K4/K5, every token and
-    finite logits, and two requests teacher-forced through ``forward``."""
+    launch counts of its quantized kernel, K1 and K4/K5 (the int8-compute
+    and multi-token entries for runs E and F), every token and finite
+    logits, and two requests teacher-forced through ``forward``. A
+    speculative run's prompts repeat a phrase, and it must have verified
+    drafts."""
     from flash_attention_from_scratch_tpu_torch import (
         LLAMA3_8B, GenerationServer, init_quantized_params)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
-    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import kernel_name
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
     spec = QUANT_RUNS[run]
+    i8c, spec_k = spec.get("attn_int8", False), spec.get("spec_k", 0)
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=spec["layers"])
     kernel = KERNELS[(spec["wmode"], spec["act"] == "int8")]
     t0 = time.perf_counter()
@@ -1099,15 +1287,19 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     # admits a prompt only with a page to spare) and the scratch page.
     server = GenerationServer(params, cfg, num_pages=spec["requests"] * pages_per_seq + 2,
                               page_size=QUANT_PAGE, max_batch=spec["requests"],
-                              pages_per_seq=pages_per_seq, mode=spec["kv"])
+                              pages_per_seq=pages_per_seq, mode=spec["kv"],
+                              attn_int8=i8c, spec_k=spec_k)
     sync()
     weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
     print(f"serve {run}: {spec}, weights {weight_gb:.2f} GB, KV pool {kv_gb:.3f} GB, "
           f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rng = np.random.default_rng(0)
-    prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
-               for i in range(spec["requests"])}
+    if spec_k:
+        prompts = _phrase_prompts([QUANT_PROMPT] * spec["requests"], cfg.vocab_size, 2)
+    else:
+        rng = np.random.default_rng(0)
+        prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
+                   for i in range(spec["requests"])}
     result = _drive(server, prompts, QUANT_NEW)
     counts, stats = result["counts"], server.stats()
     got = {sid: st.generated for sid, st in server.seqs.items()}
@@ -1116,11 +1308,17 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     if result["nonfinite"] or stats["preemptions"]:
         raise AssertionError(f"serve {run}: {result['nonfinite']} non-finite logits, "
                              f"{stats['preemptions']} preemptions")
-    calls = len(prompts) + stats["decode_steps"]  # prefills + decode steps
-    want = {kernel: (7 * cfg.n_layers + 1) * calls, K1: cfg.n_layers * len(prompts),
-            KP: cfg.n_layers * stats["decode_steps"]}
+    if spec_k and (stats["verify_steps"] == 0 or stats["spec_proposed"] == 0):
+        raise AssertionError(f"serve {run}: nothing was speculated: {stats}")
+    steps = stats["decode_steps"] + stats["verify_steps"]
+    calls = len(prompts) + steps  # prefills + decode and verify steps
+    want = {kernel: (7 * cfg.n_layers + 1) * calls, K1: cfg.n_layers * len(prompts)}
+    for t, n in ((1, stats["decode_steps"]), (spec_k + 1, stats["verify_steps"])):
+        if n:
+            want[kernel_name(t, i8c)] = cfg.n_layers * n
     print(f"serve {run}: launches {counts}; expected {want} ((7 x {cfg.n_layers} + 1) "
-          f"x ({len(prompts)} prefills + {stats['decode_steps']} decode steps))", flush=True)
+          f"x ({len(prompts)} prefills + {stats['decode_steps']} decode + "
+          f"{stats['verify_steps']} verify steps))", flush=True)
     if counts != want:
         raise AssertionError(f"serve {run}: a kernel of the path ran the wrong number of times")
 
@@ -1143,6 +1341,7 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
         "decode_tok_s": result["decode_tokens"] / result["decode_s"],
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
         "wall_s": result["wall_s"], "decode_steps": stats["decode_steps"],
+        **(_spec_line(stats, result) if spec_k else {}),
         "weight_gb": weight_gb, "kv_cache_gb": kv_gb,
         "peak_mem_gb": result["peak_mem_gb"], "launches": counts,
         "teacher_forced_worst_gap_std": worst, "gpu": smi,
@@ -1150,7 +1349,7 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     print(json.dumps({"serve_quant": line}), flush=True)
     if profile:
         phase_profile(server, prompts, run=run)
-    return {"kernel": kernel, "launches": counts[kernel]}
+    return {"kernel": kernel, "launches": counts[kernel], "counts": counts}
 
 
 def _device_ms(fn, calls: int) -> dict:
@@ -1294,6 +1493,56 @@ def time_paged_formats() -> dict:
                      "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes"}
     return {"shape": f"lengths 16 x {QUANT_PROMPT + 1}, page {QUANT_PAGE}, "
                      f"{HEADS}/{KV_HEADS} heads, d {D} (one layer)", **out}
+
+
+def _time_paged_pair(q, k, v, lens, tables, kw, i8c, lengths, nbytes, shape) -> dict:
+    """K4/K5 on ``q`` (int8_compute when ``i8c``) beside the single-token
+    call without int8_compute at the same lengths (the last token of a
+    multi-token q): times, the byte bound, the plain version's time and the
+    call's worst err/bound against the plain version."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    q1 = q[:, :, -1].contiguous() if q.ndim == 4 else q
+    ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables,
+                                                 int8_compute=i8c, **kw))
+    single_ms = _time_ms(lambda: paged_decode_attention(q1, k, v, lens, tables, **kw))
+    plain_ms = _time_ms(lambda: paged_decode_attention_plain(
+        q, k, v, lens, tables, int8_compute=i8c, **kw), iters=3, warmup=1)
+    out, launched, native, ref32 = _paged_call(q, k, v, lens, tables, i8c, kw)
+    _, ratio = _hold_paged(f"timed {shape}", out, native, ref32, lengths, launched)
+    return {"ms": ms, "single_token_ms": single_ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": None, "worst_err_bound": ratio, "shape": shape}
+
+
+def time_paged_verify(lengths) -> dict:
+    """K4/K5 with t = 4 query tokens at the speculative run's first verify
+    step (``lengths``: prompt + 1 + spec_k, page 64, 32/8 heads, bf16 pages,
+    one layer) beside the single-token call at the same lengths. Bytes: K/V
+    once, q and out (t rows each)."""
+    kp, vp, lens, tables = make_paged_pool(lengths, SERVE_PAGE_SIZE, SERVE_PAGES,
+                                           seed=64, pages_per_seq=SERVE_PAGES_PER_SEQ)
+    q = torch.from_numpy(np.random.default_rng(65).standard_normal(
+        (len(lengths), HEADS, SPEC_K + 1, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    nbytes = sum(lengths) * KV_HEADS * D * 2 * 2 + 2 * q.numel() * 2
+    return _time_paged_pair(q, kp, vp, lens, tables, dict(scale=D ** -0.5), False,
+                            lengths, nbytes, f"verify t {SPEC_K + 1}: lengths {lengths}, "
+                            f"page {SERVE_PAGE_SIZE}, {HEADS}/{KV_HEADS} heads, bf16")
+
+
+def time_paged_int8c() -> dict:
+    """K4/K5 with int8_compute at run E's first decode step (run A's pool:
+    16 x 1025 tokens, int8 pages, page 128) beside the int8-page call
+    without it."""
+    lengths, kp, vp, lens, tables, q = _run_a_pool()
+    qk, ks, qv, vs = _quantized_pool(kp, vp, "int8")
+    used_pages = sum(-(-n // QUANT_PAGE) for n in lengths)
+    nbytes = sum(lengths) * KV_HEADS * D * 2 + 2 * 4 * KV_HEADS * used_pages + 2 * q.numel() * 2
+    kw = dict(mode="int8", k_scales=ks, v_scales=vs, scale=D ** -0.5)
+    return _time_paged_pair(q, qk, qv, lens, tables, kw, True, lengths, nbytes,
+                            f"int8c: lengths 16 x {QUANT_PROMPT + 1}, page {QUANT_PAGE}, "
+                            f"{HEADS}/{KV_HEADS} heads, int8 pages")
 
 
 # ---------------------------------------------------------------------------
@@ -1581,11 +1830,13 @@ def main(argv=None) -> int:
     fori_err, fori_ratio = phase_fori_cases()
     quant_err, quant_ratio = phase_flash_quant_cases()
     paged_err = max(phase_paged_cases(), phase_quant_paged_cases())
+    multi_err, multi_ratio = phase_paged_multi_cases()
     qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
     served = phase_serve(smi)
     counts = served["counts"]
     phase_profile(served["server"], served["prompts"])
+    spec = phase_serve_spec(served["server"].params, smi)  # the same weights
     del served  # frees the 16 GB of weights before training
     torch.cuda.empty_cache()
     trained = phase_train(smi)
@@ -1603,7 +1854,8 @@ def main(argv=None) -> int:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL as K1, KERNEL_FORI)
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
-    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        KERNEL as KP, KERNEL_INT8C, KERNEL_MULTI, KERNEL_MULTI_INT8C)
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
     pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
@@ -1615,8 +1867,17 @@ def main(argv=None) -> int:
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
          "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
-         "launches": counts.get(KP, 0), "max_abs_err": paged_err, **time_paged(),
-         "by_format": time_paged_formats()},
+         "launches": counts.get(KP, 0), "max_abs_err": max(paged_err, multi_err),
+         "worst_err_bound_multi_int8c": multi_ratio, **time_paged(),
+         "launches_by_entry": {
+             KP: counts.get(KP, 0), KERNEL_MULTI: spec["counts"].get(KERNEL_MULTI, 0),
+             KERNEL_INT8C: quant_runs["E"]["counts"].get(KERNEL_INT8C, 0),
+             KERNEL_MULTI_INT8C: quant_runs["F"]["counts"].get(KERNEL_MULTI_INT8C, 0)},
+         "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
+                          "multi_int8c: run F",
+         "by_format": time_paged_formats(),
+         "verify_t4": time_paged_verify(spec["verify_lengths"]),
+         "int8c": time_paged_int8c()},
     ]
     fused_t, split_t = time_backward()
     split = trained["split"]
@@ -1636,7 +1897,9 @@ def main(argv=None) -> int:
     ]
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
                  ("int4", True): 206}
-    by_kernel = {r["kernel"]: (name, r["launches"]) for name, r in quant_runs.items()}
+    by_kernel = {}  # each kernel's launches from the first run that takes it
+    for name, r in quant_runs.items():
+        by_kernel.setdefault(r["kernel"], (name, r["launches"]))
     for mode, act_quant in QMM_RECIPES:
         name = KERNELS[(mode, act_quant)]
         run, launches = by_kernel[name]

@@ -10,6 +10,7 @@ when no card is present.
 
 from .models.decode import (
     PagedKVCache, decode_step, greedy_token, init_cache, prefill,
+    spec_accept_sample, verify_step,
 )
 from .models.llama import (
     LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, forward, init_params,
@@ -51,7 +52,8 @@ __all__ = [
     "params_from_jax", "quantize_params", "init_quantized_params",
     "forward", "loss_fn", "make_optimizer",
     "make_train_step",
-    "PagedKVCache", "init_cache", "prefill", "decode_step", "greedy_token",
+    "PagedKVCache", "init_cache", "prefill", "decode_step", "verify_step",
+    "spec_accept_sample", "greedy_token",
     "PagedEngine", "Batch", "GenerationServer",
     "adaptive_tolerance_check", "error_stats", "make_qkv",
 ]

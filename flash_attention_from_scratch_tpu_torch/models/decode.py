@@ -3,7 +3,10 @@
 Counterpart of ``flash_attention_from_scratch_tpu/models/decode.py``:
 :func:`prefill` runs each prompt through the flash forward kernel and
 scatters its K/V into pages; :func:`decode_step` writes each new token's K/V
-into its page and then runs the paged decode kernel for the whole batch.
+into its page and then runs the paged decode kernel for the whole batch;
+:func:`verify_step` does the same for t tokens per sequence in one pass
+(speculative verify), and :func:`spec_accept_sample` accepts drafts
+greedily.
 
 The cache is dense (the model's dtype) or quantized: int8, fp8 e4m3 or
 int4 packed along the tokens of a page, with fp32 scales per (kv_head,
@@ -32,7 +35,7 @@ from .llama import (
 )
 
 __all__ = ["PagedKVCache", "init_cache", "prefill", "decode_step",
-           "greedy_token"]
+           "verify_step", "spec_accept_sample", "greedy_token"]
 
 
 def _not_ported(what: str):
@@ -204,83 +207,173 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
       tokens: (batch,) int: the most recent token of each sequence.
       lengths: (batch,) int32: sequence length *including* these tokens.
       page_tables: (batch, pages_per_seq) int32, -1 padded.
+      attn_int8: int8-compute attention (``int8_compute`` in the paged
+        kernel); the cache must be int8.
 
     Each token's K/V is written to its page before attention, so the paged
     kernel sees the current token. Writes the pages in place and returns
     (logits (batch, vocab) fp32, cache).
     """
+    logits, cache = _step(params, tokens[:, None], cfg, cache, lengths,
+                          page_tables, lora, mesh, attn_int8)
+    return logits[:, 0], cache
+
+
+def verify_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
+                lengths, page_tables, *, attn_int8: bool = False, lora=None,
+                mesh=None):
+    """Score t tokens per sequence in one forward pass (speculative verify).
+
+    The multi-token form of :func:`decode_step`: token j of a row's t
+    inputs sits at position ``lengths - t + j`` (``lengths`` includes the t
+    tokens; the scheduler has allocated their slots). All t tokens' K/V are
+    written to their pages, then the paged kernel runs with t query tokens
+    (a causal mask within the new tokens).
+
+    Args:
+      tokens: (batch, t) int: [previous committed token, draft_1..t-1].
+
+    Writes the pages in place and returns (logits (batch, t, vocab) fp32,
+    cache): logits[:, j] is the next-token distribution after token j, so
+    row j verifies draft j + 1 and the last row gives the bonus or
+    correction token. Unlike the JAX ``verify_step``, which indexes the
+    embedding table directly, the embedding goes through ``_embed``, so
+    ``cfg.embed_scale`` applies as in :func:`decode_step`.
+    """
+    return _step(params, tokens, cfg, cache, lengths, page_tables, lora, mesh,
+                 attn_int8)
+
+
+def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
+          page_tables, lora, mesh, attn_int8: bool):
+    """The body of :func:`decode_step` and :func:`verify_step`: tokens
+    (batch, t) at positions lengths - t + j."""
     if lora is not None:
         raise _not_ported("LoRA serving")
     if mesh is not None:
         raise _not_ported("tensor-parallel serving")
-    if attn_int8:
-        raise _not_ported("int8-compute attention")
-    batch = tokens.shape[0]
+    if attn_int8 and cache.mode != KVQuantMode.INT8:
+        raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
+    batch, t = tokens.shape
     ps = cache.page_size
-    x = _embed(params, tokens, cfg)[:, None, :]  # (batch, 1, dim)
-    pos = lengths.long() - 1  # position of the current token
+    x = _embed(params, tokens, cfg)  # (batch, t, dim)
+    pos = (lengths.long()[:, None] - t
+           + torch.arange(t, device=x.device)[None, :])  # (batch, t)
 
-    # Per-sequence rope rows from fp32 positions, broadcast over heads.
-    angles = pos.float()[:, None] * rope_inv_freq(cfg, x.device)[None, :]
-    cos = torch.cos(angles)[:, None, None, :]  # (batch, 1, 1, d/2)
-    sin = torch.sin(angles)[:, None, None, :]
+    # Per-token rope rows from fp32 positions, broadcast over heads.
+    angles = pos.float()[..., None] * rope_inv_freq(cfg, x.device)[None, None, :]
+    cos = torch.cos(angles)[:, None]  # (batch, 1, t, d/2)
+    sin = torch.sin(angles)[:, None]
 
-    page_of_pos = page_tables.long().gather(1, (pos // ps)[:, None])[:, 0]
-    slot_of_pos = pos % ps
+    page_of = page_tables.long().gather(1, pos // ps)  # (batch, t)
+    slot_of = pos % ps
     first_page = page_tables[:, 0].long()  # owner of each sequence's scale
 
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h)
-        q = apply_rope(q.view(batch, 1, cfg.n_heads, cfg.d_head).transpose(1, 2),
-                       cos, sin)[:, :, 0]  # (b, H, d)
-        k = apply_rope(k.view(batch, 1, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
-                       cos, sin)[:, :, 0]  # (b, kv_heads, d)
-        v = v.view(batch, cfg.n_kv_heads, cfg.d_head)
-        # Write before attend: the new token must be in its page.
-        _write_decode_rows(cache, li, k, v, page_of_pos, slot_of_pos,
-                           first_page)
+        q = apply_rope(q.view(batch, t, cfg.n_heads, cfg.d_head).transpose(1, 2),
+                       cos, sin)  # (b, H, t, d)
+        k = apply_rope(k.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
+                       cos, sin)  # (b, kv_heads, t, d)
+        v = v.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+        # Write before attend: the new tokens must be in their pages.
+        _write_rows(cache, li, k, v, page_of, slot_of, first_page)
         ks, vs = cache.layer_scales(li)
+        q = q.contiguous() if t > 1 else q[:, :, 0].contiguous()
         out = paged_decode_attention(
-            q.contiguous(), cache.k_pages[li], cache.v_pages[li], lengths,
-            page_tables, mode=cache.mode, k_scales=ks, v_scales=vs,
+            q, cache.k_pages[li], cache.v_pages[li], lengths, page_tables,
+            mode=cache.mode, k_scales=ks, v_scales=vs, int8_compute=attn_int8,
             window=cfg.layer_window(li),
-            softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)  # (b, H, d)
-        out = out.reshape(batch, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
+            softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
+        out = out.view(batch, cfg.n_heads, t, cfg.d_head).transpose(1, 2)
+        out = out.reshape(batch, t, cfg.n_heads * cfg.d_head).to(x.dtype)
         x = _residual_tail(cfg, layer, x, out)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x[:, 0], cfg), cache
+    return _lm_logits(params, x, cfg), cache
 
 
-def _write_decode_rows(cache: PagedKVCache, li: int, k, v, page_of_pos,
-                       slot_of_pos, first_page):
-    """Write each sequence's new K/V row (batch, kv_heads, d) in place.
+def _write_rows(cache: PagedKVCache, li: int, k, v, page_of, slot_of,
+                first_page):
+    """Write each sequence's new K/V rows (batch, kv_heads, t, d) in place,
+    token j at (page_of[b, j], slot_of[b, j]).
 
-    Quantized: the row takes the scale on its sequence's first page, and
-    the page it lands on is stamped with that scale (a page handed out
-    again keeps a stale scale until then). int4 rewrites one nibble of the
-    byte row: the low nibble for slots below page_size/2, else the high.
-    Padding rows of a decode batch all write the same scratch slot with the
-    same values, so duplicate indices there are harmless.
+    Quantized: the rows take the scale on their sequence's first page, and
+    each page written is stamped with that scale (a page handed out again
+    keeps a stale scale until then). int4 sets one nibble of a byte row:
+    the low nibble for slots below page_size/2, else the high. Slots s and
+    s + page_size/2 share a byte row, and with t > page_size/2 both can be
+    written in one call; so each row writes the whole byte, its own nibble
+    and its partner's (the token page_size/2 later or earlier, when it is
+    in the call) or else the byte's old nibble: both writers of a byte then
+    write the same value and no nibble is lost. Padding rows of a batch all
+    write the same scratch slots with the same values, so duplicate indices
+    there are harmless.
     """
+    t = k.shape[2]
     half = cache.page_size // 2
+    pages, slots = page_of.reshape(-1), slot_of.reshape(-1)
     ks, vs = cache.layer_scales(li)
     for pool, scales, vals in ((cache.k_pages[li], ks, k),
                                (cache.v_pages[li], vs, v)):
         if cache.mode != "dense":
             seq_scale = scales[:, first_page]  # (kv_heads, batch)
-            vals = _quantize_rows(vals, seq_scale.T[:, :, None], cache.mode)
-            scales[:, page_of_pos] = seq_scale
-        vals = vals.transpose(0, 1)  # (kv_heads, batch, d)
+            vals = _quantize_rows(vals, seq_scale.T[:, :, None, None], cache.mode)
+            scales[:, pages] = seq_scale.repeat_interleave(t, dim=1)
+        vals = vals.transpose(0, 1)  # (kv_heads, batch, t, d)
         if cache.mode != KVQuantMode.INT4:
-            _raw(pool)[:, page_of_pos, slot_of_pos] = _raw(vals)
+            _raw(pool)[:, pages, slots] = _raw(vals.flatten(1, 2))
             continue
-        byte_row = slot_of_pos % half
-        is_hi = (slot_of_pos >= half)[None, :, None]
-        old = pool[:, page_of_pos, byte_row]
-        pool[:, page_of_pos, byte_row] = torch.where(
-            is_hi, pack_int4(old, vals), pack_int4(vals, old >> 4))
+        is_hi = (slot_of >= half)[None, :, :, None]
+        j = torch.arange(t, device=slot_of.device)[None, :]
+        partner = torch.where(slot_of >= half, j - half, j + half)  # (batch, t)
+        has = ((partner >= 0) & (partner < t))[None, :, :, None]
+        pvals = vals.gather(2, partner.clamp(0, t - 1)[None, :, :, None].expand_as(vals))
+        byte_rows = slots % half
+        old = pool[:, pages, byte_rows].view(vals.shape)
+        lo = torch.where(is_hi, torch.where(has, pvals, old), vals)
+        hi = torch.where(is_hi, vals, torch.where(has, pvals, old >> 4))
+        pool[:, pages, byte_rows] = pack_int4(lo, hi).flatten(1, 2)
+
+
+def spec_accept_sample(logits, drafts, draft_lens, temperature: float = 0.0):
+    """Greedy speculative acceptance (the JAX ``spec_accept_sample`` at
+    ``temperature <= 0``).
+
+    Args:
+      logits: (batch, t, vocab) fp32 from :func:`verify_step`, t = k + 1.
+      drafts: (batch, k) int, zero-padded past ``draft_lens``.
+      draft_lens: (batch,) int: real draft tokens per row (padding slots
+        are never accepted).
+
+    Draft j + 1 is accepted while it equals the argmax of row j; the first
+    refused row, or row k after a fully accepted draft, contributes its
+    argmax. Returns (tokens (batch, t), n_emit (batch,)): row i emits
+    tokens[i, :n_emit[i]], the accepted drafts and then that token.
+    ``temperature > 0`` (sampled acceptance) raises ``NotImplementedError``:
+    its draws come from ``jax.random``, which the port cannot reproduce.
+    """
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "sampled speculative acceptance (temperature > 0) is not ported yet "
+            "(ROADMAP Queue 1 item 6, the samplers)")
+    batch, t, _ = logits.shape
+    k = t - 1
+    preds = torch.argmax(logits, dim=-1)  # (batch, t)
+    drafts = drafts.to(preds.device, preds.dtype)
+    steps = torch.arange(k, device=preds.device)[None, :]
+    match = (preds[:, :k] == drafts) & (steps < draft_lens.to(preds.device)[:, None])
+    # First refusal per row (k when the whole draft is accepted).
+    refused = torch.cat([~match, torch.ones((batch, 1), dtype=torch.bool,
+                                            device=preds.device)], dim=1)
+    n_acc = torch.argmax(refused.to(torch.int8), dim=1)
+    tail = preds.gather(1, n_acc[:, None])
+    pos = torch.arange(t, device=preds.device)[None, :]
+    padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    toks = torch.where(pos < n_acc[:, None], padded, 0)
+    toks = torch.where(pos == n_acc[:, None], tail, toks)
+    return toks, n_acc + 1
 
 
 def greedy_token(logits):

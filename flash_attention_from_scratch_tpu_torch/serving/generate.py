@@ -1,14 +1,16 @@
 """Continuous-batching generation: native scheduler + the port's kernels.
 
 Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
-``GenerationServer`` for greedy decoding, one token per decode step, over a
-dense or quantized (int8, fp8, int4) KV cache; the parameters may hold
-quantized weights (``models.llama.quantize_params``). Requests enter the native scheduler
+``GenerationServer`` for greedy decoding over a dense or quantized (int8,
+fp8, int4) KV cache; the parameters may hold quantized weights
+(``models.llama.quantize_params``). Requests enter the native scheduler
 (``serving.runtime.PagedEngine``); each step admits what fits, prefills
 newly admitted prompts through the flash forward kernel, and advances every
-running sequence one token through the paged decode kernel. The decode
-batch is padded to ``max_batch``; padding rows write their K/V to a reserved
-scratch page.
+running sequence through the paged decode kernel: one token, or with
+``spec_k`` a prompt-lookup draft of up to ``spec_k`` tokens verified in one
+multi-token pass (``models.decode.verify_step``). ``attn_int8`` runs the
+paged kernel in int8 compute on an int8 cache. The decode batch is padded
+to ``max_batch``; padding rows write their K/V to a reserved scratch page.
 
 Token bookkeeping matches the scheduler's accounting: after ``step()`` a
 sequence's length counts its prompt plus committed tokens; the token
@@ -23,7 +25,10 @@ import time
 import numpy as np
 import torch
 
-from ..models.decode import decode_step, greedy_token, init_cache, prefill
+from ..models.decode import (
+    decode_step, greedy_token, init_cache, prefill, spec_accept_sample,
+    verify_step,
+)
 from ..models.llama import LlamaConfig
 from ..utils.device import resolve_device
 from .runtime import PagedEngine
@@ -31,6 +36,20 @@ from .runtime import PagedEngine
 __all__ = ["GenerationServer"]
 
 PROMPT_QUANTUM = 128  # prompts are right-padded to a multiple of this
+
+
+def _prompt_lookup_draft(ctx: list[int], k: int, ngram: int = 2) -> list[int]:
+    """Draft up to k tokens by continuing the latest earlier occurrence of
+    the context's final ``ngram``: prompt-lookup decoding, no draft model.
+    Returns [] when the n-gram never occurred before (the verify step then
+    decodes one token)."""
+    if len(ctx) <= ngram:
+        return []
+    key = ctx[-ngram:]
+    for i in range(len(ctx) - ngram - 1, -1, -1):
+        if ctx[i:i + ngram] == key:
+            return list(ctx[i + ngram:i + ngram + k])
+    return []
 
 
 def _pad_to_multiple(tokens: list[int], quantum: int = PROMPT_QUANTUM) -> np.ndarray:
@@ -60,9 +79,12 @@ class GenerationServer:
     target for decode-batch padding rows, the rest belong to the scheduler.
     ``params`` must live on ``device`` (default: the card; without one the
     constructor raises). ``mode`` is the KV cache format: "dense", "int8",
-    "fp8" or "int4". Options of the JAX server that are not ported yet
-    raise ``NotImplementedError``; ``seed`` only seeds sampling, which is
-    one of them.
+    "fp8" or "int4". ``spec_k`` (1 to page_size - 1) drafts that many tokens
+    by prompt lookup and verifies them in one pass whenever the whole batch
+    is decoding and nothing waits; ``attn_int8`` (int8 cache only) runs the
+    paged kernel's int8 compute. Options of the JAX server that are not
+    ported yet raise ``NotImplementedError``; ``seed`` only seeds sampling,
+    which is one of them.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
@@ -73,15 +95,22 @@ class GenerationServer:
                  attn_int8: bool = False, mesh=None,
                  prefill_chunk_tokens: int = 0, spec_k: int = 0,
                  prefix_cache: bool = False, lora=None, device="cuda"):
+        if attn_int8 and mode != "int8":
+            raise ValueError(f"attn_int8 requires an int8 KV cache; mode={mode!r}")
+        if spec_k:
+            if chunk > 1:
+                raise ValueError("spec_k and chunk>1 are exclusive decode strategies")
+            if not 1 <= spec_k + 1 <= page_size:
+                # Padding rows park their t = spec_k + 1 tokens in the single
+                # scratch page.
+                raise ValueError(f"spec_k must be in [1, page_size - 1]; got {spec_k}")
         unported = {"temperature > 0 (sampling)": temperature > 0,
-                     "top_k > 0 (sampling)": top_k > 0,
+                    "top_k > 0 (sampling)": top_k > 0,
                     "chunk > 1 (multi-token decode loop)": chunk > 1,
-                    "spec_k (speculative decoding)": spec_k,
                     "prefix_cache": prefix_cache,
                     "prefill_chunk_tokens (chunked prefill)": prefill_chunk_tokens,
                     "lora": lora is not None,
-                    "mesh (tensor-parallel serving)": mesh is not None,
-                    "attn_int8": attn_int8}
+                    "mesh (tensor-parallel serving)": mesh is not None}
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(
@@ -99,9 +128,14 @@ class GenerationServer:
         self.max_batch = max_batch
         self.page_size = page_size
         self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
+        self.attn_int8 = attn_int8
+        self.spec_k = spec_k
+        self.spec_proposed = 0  # drafted tokens offered to the verifier
+        self.spec_accepted = 0  # drafted tokens accepted
         self.seqs: dict[int, _SeqState] = {}
         self.steps = 0
-        self.decode_steps = 0
+        self.decode_steps = 0  # single-token decode passes
+        self.verify_steps = 0  # multi-token verify passes
         self.decode_tokens = 0
         self.prefill_tokens = 0
         self._stopped: list[int] = []
@@ -157,6 +191,10 @@ class GenerationServer:
                 self._append(sid, int(tok))
 
         if decode_rows:
+            if (self.spec_k > 0 and self.engine.waiting == 0
+                    and len(decode_rows) == len(batch.ids)
+                    and self.engine.grow_batch(self.spec_k)):
+                return self._decode_speculative(batch, decode_rows)
             self._decode_one(batch, decode_rows)
         return self._finish_stamp(self._stopped + self.engine.commit())
 
@@ -182,11 +220,11 @@ class GenerationServer:
             return True
         return False
 
-    def _gather_batch(self, batch, decode_rows):
+    def _gather_batch(self, batch, decode_rows, pad_length: int):
         """Row-gather the decode batch and pad it to ``max_batch``.
 
-        Padding rows are length-1 dummies whose only page is the reserved
-        scratch page.
+        Padding rows are dummies of length ``pad_length`` whose only page is
+        the reserved scratch page.
         """
         rows = np.asarray(decode_rows)
         tokens = np.array(
@@ -197,18 +235,75 @@ class GenerationServer:
         pad = self.max_batch - len(rows)
         if pad:
             tokens = np.concatenate([tokens, np.zeros(pad, np.int64)])
-            lengths = np.concatenate([lengths, np.ones(pad, np.int32)])
+            lengths = np.concatenate([lengths, np.full(pad, pad_length, np.int32)])
             pad_tables = np.full((pad, tables.shape[1]), -1, np.int32)
             pad_tables[:, 0] = self.scratch_page
             tables = np.concatenate([tables, pad_tables], axis=0)
         return tokens, lengths, tables
 
+    def _decode_speculative(self, batch, decode_rows) -> list[int]:
+        """One verify_step scoring spec_k drafted tokens per sequence.
+
+        Each row drafts by prompt lookup; the t = spec_k + 1 inputs [last
+        token, draft] go through one multi-token pass, and the draft is
+        accepted greedily up to the first token where the model disagrees,
+        which contributes the correction (a fully accepted draft gets a
+        bonus token from the last row). Every step commits at least one
+        token. ``grow_batch`` has reserved the extra slots (all or nothing,
+        no preemption); each sequence then commits what it accepted.
+        """
+        k = self.spec_k
+        t = k + 1
+        sids = [int(batch.ids[r]) for r in decode_rows]
+        drafts = []
+        inputs = np.zeros((self.max_batch, t), np.int64)
+        draft_lens = np.zeros(self.max_batch, np.int64)
+        for i, sid in enumerate(sids):
+            st = self.seqs[sid]
+            ctx = st.prompt + st.generated
+            d = _prompt_lookup_draft(ctx, k)
+            drafts.append(d)
+            inputs[i, 0] = ctx[-1]
+            inputs[i, 1:1 + len(d)] = d
+            draft_lens[i] = len(d)
+        # Padding rows: t tokens at positions 0..k of the scratch page.
+        _, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
+        lengths = lengths + k  # the t inputs end at position lengths0 + k - 1
+        logits, self.cache = verify_step(
+            self.params, self._tensor(inputs), self.cfg, self.cache,
+            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32),
+            attn_int8=self.attn_int8)
+        self.verify_steps += 1
+        toks, n_emit = spec_accept_sample(
+            logits, self._tensor(inputs[:, 1:]), self._tensor(draft_lens))
+        # One device-to-host copy for the whole batch.
+        toks, n_emit = toks.tolist(), n_emit.tolist()
+
+        finished: list[int] = []
+        for i, sid in enumerate(sids):
+            st = self.seqs[sid]
+            out_toks = toks[i][:n_emit[i]]
+            self.spec_proposed += len(drafts[i])
+            self.spec_accepted += len(out_toks) - 1
+            out_toks = out_toks[:st.max_new - len(st.generated)]
+            n_commit, stopped = 0, False
+            for tok in out_toks:
+                n_commit += 1
+                self.decode_tokens += 1
+                if self._append(sid, int(tok)):
+                    stopped = True  # _append recorded it in self._stopped
+                    break
+            if not stopped and self.engine.commit_n(sid, n_commit):
+                finished.append(sid)  # budget reached
+        return self._finish_stamp(self._stopped + finished)
+
     def _decode_one(self, batch, decode_rows):
         """One greedy token for every decoding row."""
-        tokens, lengths, tables = self._gather_batch(batch, decode_rows)
+        tokens, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
         logits, self.cache = decode_step(
             self.params, self._tensor(tokens), self.cfg, self.cache,
-            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32))
+            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32),
+            attn_int8=self.attn_int8)
         sids = [int(batch.ids[r]) for r in decode_rows]
         self.decode_steps += 1
         toks = greedy_token(logits[:len(sids)]).tolist()
@@ -231,10 +326,15 @@ class GenerationServer:
         return {
             "steps": self.steps,
             "decode_steps": self.decode_steps,
+            "verify_steps": self.verify_steps,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
             "running": self.engine.running,
             "waiting": self.engine.waiting,
             "free_pages": self.engine.free_pages,
             "preemptions": int(self.engine.preempt_count),
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                     if self.spec_proposed else 0.0),
         }

@@ -3,9 +3,10 @@
 Counterpart of ``flash_attention_from_scratch_tpu/serving/runtime.py`` over
 the port's own copy of the same C++ source, built with ``g++`` into the
 build directory (``ops/_build.py``). Bound here: admission, allocation,
-commit, early finish and the counters the serving path reads. The prefix
-cache and speculative-decoding entry points of the same library are not
-bound yet (see ROADMAP.md, Queue 1).
+commit, early finish, the speculative-decoding pair (``grow_batch``,
+``commit_n``) and the counters the serving path reads. The prefix-cache
+entry points of the same library are not bound yet (see ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ def _lib() -> ctypes.CDLL:
     lib.fa_engine_preempt_count.argtypes = [vp]
     lib.fa_engine_finish.restype = i32
     lib.fa_engine_finish.argtypes = [vp, i64]
+    lib.fa_engine_grow_batch.restype = i32
+    lib.fa_engine_grow_batch.argtypes = [vp, i32]
+    lib.fa_engine_commit_n.restype = i32
+    lib.fa_engine_commit_n.argtypes = [vp, i64, i32]
     return lib
 
 
@@ -114,6 +119,20 @@ class PagedEngine:
         buf = (ctypes.c_int64 * cap)()
         n = self._lib.fa_engine_commit_tokens(self._h, buf, cap)
         return [buf[i] for i in range(min(n, cap))]
+
+    def grow_batch(self, n: int) -> bool:
+        """Reserve slots for n more tokens per running sequence (speculative
+        draft headroom). All or nothing, and never preempts: False means the
+        pool cannot cover it and the caller decodes one token instead."""
+        return self._lib.fa_engine_grow_batch(self._h, n) == 0
+
+    def commit_n(self, seq_id: int, n: int) -> bool:
+        """Commit n accepted tokens of one sequence; True if it finished
+        (budget reached, pages freed)."""
+        rc = self._lib.fa_engine_commit_n(self._h, seq_id, n)
+        if rc < 0:
+            raise KeyError(f"unknown or idle sequence {seq_id}")
+        return rc == 1
 
     @property
     def running(self) -> int:

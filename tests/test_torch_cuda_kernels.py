@@ -9,7 +9,10 @@ repo's conftest):
 Tolerance: the adaptive tolerance rule against the plain version in bf16
 (native) and in fp32 on the same bf16-rounded inputs, held in each
 (batch, head, 64-row band) of a flash output or gradient and each sequence
-of a paged one on its own; the LSE within 1e-3. The quantized matmuls: the
+of a paged one on its own (each (sequence, token) with multi-token
+queries); the LSE within 1e-3. With ``int8_compute`` the native reference
+is the plain int8-compute version and the fp32 one the plain version
+without it on the same pages, q in fp32. The quantized matmuls: the
 weight-only kernels (K6, K7) by the same rule in each 16-row band against
 the plain version cast to bf16 and in fp32; the a8 kernels (K8, K9) within
 one bf16 ulp of each value of the plain version, whose integer sums are
@@ -41,7 +44,7 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
     KERNEL as FLASH_QUANT, flash_forward_quantized, flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-    KERNEL as PAGED, paged_decode_attention, paged_decode_attention_plain,
+    KERNEL as PAGED, kernel_name, paged_decode_attention, paged_decode_attention_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.quant import (
     QTensor, dequantize, quantize_kv, quantize_kv_pages,
@@ -272,6 +275,68 @@ def test_quantized_paged_kernel_matches_plain(cuda, mode):
         assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
         ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
         assert ok, (mode, kw, ratio, where)
+
+
+def _paged_pool(cuda, kv_heads, lengths, mode, seed, ps=16, num_pages=96):
+    """A pool with shuffled pages and tables; slots no sequence owns hold
+    NaN (dense) or the e4m3 NaN byte (fp8). Returns (k, v, keyword
+    arguments for the page format)."""
+    rng = np.random.default_rng(seed)
+    tables = torch.full((len(lengths), 40), -1, dtype=torch.int32, device=cuda)
+    owned = torch.zeros(kv_heads, num_pages, ps, 128, dtype=torch.bool, device=cuda)
+    perm, nxt = rng.permutation(num_pages), 0
+    for b, n in enumerate(lengths):
+        for i in range(-(-n // ps)):
+            page = int(perm[nxt])
+            nxt += 1
+            tables[b, i] = page
+            owned[:, page, :min(ps, n - i * ps)] = True
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    k, v = (torch.randn(kv_heads, num_pages, ps, 128, device=cuda, generator=gen)
+            for _ in range(2))
+    if mode == "dense":
+        k, v = (torch.where(owned, x, float("nan")).bfloat16() for x in (k, v))
+        return k, v, tables, {}
+    kp, ks = quantize_kv_pages(k, mode)
+    vp, vs = quantize_kv_pages(v * 2, mode)
+    if mode == "fp8":
+        for p in (kp, vp):
+            p.view(torch.uint8)[~owned] = 0x7F
+    return kp, vp, tables, dict(mode=mode, k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.parametrize("heads,kv_heads", [(8, 2), (4, 4), (32, 8)])
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["dense", "int8", "fp8", "int4", "int8c"])
+def test_paged_kernel_multi_token_and_int8c(cuda, mode, t, heads, kv_heads):
+    """t query tokens (rows in blocks of up to 8 per CTA: 32 heads over 8
+    KV heads at t = 8 is 4 blocks) and int8 compute, plain, with a window
+    and with a softcap; lengths 0, below t (rows that see no token give
+    zeros), t and long ones."""
+    i8c = mode == "int8c"
+    lengths = [0, 1, t, 37, 300, 611]
+    kp, vp, tables, kw0 = _paged_pool(cuda, kv_heads, lengths, "int8" if i8c else mode,
+                                      seed=10 + t)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    shape = (len(lengths), heads) + ((t,) if t > 1 else ()) + (128,)
+    q = torch.randn(shape, device=cuda).bfloat16()
+    kw0 = dict(kw0, scale=128 ** -0.5)
+    name = kernel_name(t, i8c)
+    for kw in (dict(), dict(window=100), dict(softcap=20.0)):
+        before = _build.launch_counts[name]
+        out = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c, **kw0, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1
+        native = paged_decode_attention_plain(q, kp, vp, lens, tables, int8_compute=i8c,
+                                              **kw0, **kw)
+        pages32 = (kp.float(), vp.float()) if mode == "dense" else (kp, vp)
+        ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw0, **kw)
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        assert float(out[0].abs().max()) == 0.0
+        by_token = (lambda x: x.transpose(1, 2)) if t > 1 else (lambda x: x[:, None])
+        ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(native),
+                                                  by_token(ref32), lead=2)
+        assert ok, (mode, t, kw, ratio, where)
 
 
 def test_kernels_refuse_other_dtypes(cuda):

@@ -39,7 +39,7 @@ from flash_attention_from_scratch_tpu.ops.reference import (
     reference_attention as jax_reference,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-    paged_decode_attention,
+    paged_decode_attention, quantize_q_rows,
 )
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     sliced_tolerance_check,
@@ -56,13 +56,13 @@ CASES = {
 }
 
 
-def _pool(kv_heads, lengths, seed):
+def _pool(kv_heads, lengths, seed, num_pages=NUM_PAGES, pages_per_seq=PAGES_PER_SEQ):
     """NaN-poisoned pool with shuffled page ids and -1 padded tables."""
     rng = np.random.default_rng(seed)
-    perm = rng.permutation(NUM_PAGES)
-    k = np.full((kv_heads, NUM_PAGES, PAGE, D), np.nan, np.float32)
+    perm = rng.permutation(num_pages)
+    k = np.full((kv_heads, num_pages, PAGE, D), np.nan, np.float32)
     v = np.full_like(k, np.nan)
-    tables = -np.ones((len(lengths), PAGES_PER_SEQ), np.int32)
+    tables = -np.ones((len(lengths), pages_per_seq), np.int32)
     nxt = 0
     for b, n in enumerate(lengths):
         for i in range(-(-n // PAGE)):
@@ -94,8 +94,12 @@ def _jax_fp32(name):
 
 
 def _reference(q, k, v, lens, tables, kw):
-    """The JAX reference in fp32 on each sequence's gathered token rows."""
-    out = np.zeros_like(q)
+    """The JAX reference in fp32 on each sequence's gathered token rows; q
+    (batch, heads, d) or (batch, heads, t, d), token j at position n - t + j
+    (an explicit ``q_offset = n - t``)."""
+    q4 = q[:, :, None] if q.ndim == 3 else q
+    t = q4.shape[2]
+    out = np.zeros_like(q4)
     for b, n in enumerate(lens.tolist()):
         if n == 0:
             continue
@@ -103,32 +107,34 @@ def _reference(q, k, v, lens, tables, kw):
         kb = k[:, pages].reshape(k.shape[0], -1, D)[None, :, :n]
         vb = v[:, pages].reshape(v.shape[0], -1, D)[None, :, :n]
         out[b] = np.asarray(jax_reference(
-            jnp.asarray(q[b][None, :, None]), jnp.asarray(kb), jnp.asarray(vb),
-            causal=True, q_offset=n - 1, window=kw.get("window", 0),
-            softcap=kw.get("softcap", 0.0)))[0, :, 0]
-    return torch.from_numpy(out)
+            jnp.asarray(q4[b][None]), jnp.asarray(kb), jnp.asarray(vb),
+            causal=True, q_offset=n - t, window=kw.get("window", 0),
+            softcap=kw.get("softcap", 0.0)))[0]
+    return torch.from_numpy(out[:, :, 0] if q.ndim == 3 else out)
 
 
-def _run(name, variant, monkeypatch):
-    q, k, v, lens, tables, kw = _inputs(name)
-    lengths = lens.tolist()
-
+def _jax_paged(variant, monkeypatch, q, kp, vp, lens, tables, **kw):
+    """The JAX kernel in interpret mode, K4 (``_full_kernel``) or K5
+    (``_loop_kernel``), as fp32 numpy."""
     if variant == "K5":
         monkeypatch.setattr(jax_pa, "_FULL_VARIANT_VMEM_CAP", 0)
     jax_pa._build_decode_call.cache_clear()
     try:
-        jax_out = jax_pa.paged_decode_attention(
-            jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
-            jnp.asarray(v, jnp.bfloat16), jnp.asarray(lens), jnp.asarray(tables),
-            **kw)
-        jax_out = np.asarray(jax_out, np.float32)
+        out = jax_pa.paged_decode_attention(q, kp, vp, jnp.asarray(lens),
+                                            jnp.asarray(tables), **kw)
+        return np.asarray(out, np.float32)
     finally:
         jax_pa._build_decode_call.cache_clear()
 
+
+def _run(name, variant, monkeypatch):
+    q, k, v, lens, tables, kw = _inputs(name)
+    jax_out = _jax_paged(variant, monkeypatch, *(jnp.asarray(x, jnp.bfloat16)
+                                                 for x in (q, k, v)), lens, tables, **kw)
     out = paged_decode_attention(
         *[torch.from_numpy(x).bfloat16() for x in (q, k, v)],
         torch.from_numpy(lens), torch.from_numpy(tables), **kw)
-    return out, jax_out, lengths
+    return out, jax_out, lens.tolist()
 
 
 @pytest.mark.parametrize("variant", ["K4", "K5"])
@@ -168,14 +174,11 @@ def _poison_quantized(vals, nan, mode, rng):
     return (lo | (hi << 4)).astype(np.uint8).view(np.int8)
 
 
-@functools.lru_cache(maxsize=None)
-def _quantized_inputs(mode, option):
-    """(q, k/v stored pages as numpy, k/v scales, lens, tables, options,
-    fp32 reference output)."""
-    heads, kv_heads = 8, 2
-    k, v, lens, tables = _pool(kv_heads, QLENGTHS, seed=31)
-    rng = np.random.default_rng(32)
-    q = rng.standard_normal((len(QLENGTHS), heads, D)).astype(np.float32)
+def _quantize_pool(k, v, mode, rng):
+    """A NaN-poisoned pool as JAX-quantized pages (``quantize_kv_pages``),
+    every slot no sequence owns poisoned after quantization. Returns (k/v
+    stored pages, k/v scales, k/v dequantized in fp32: value x its page's
+    scale)."""
     stored, scales, deq = [], [], []
     for x in (k, v):
         nan = np.isnan(x)
@@ -189,6 +192,18 @@ def _quantized_inputs(mode, option):
         deq.append(dq * np.asarray(sc)[:, :, None, None])
         stored.append(_poison_quantized(vals, nan, mode, rng))
         scales.append(np.array(sc))
+    return stored, scales, deq
+
+
+@functools.lru_cache(maxsize=None)
+def _quantized_inputs(mode, option):
+    """(q, k/v stored pages as numpy, k/v scales, lens, tables, options,
+    fp32 reference output)."""
+    heads, kv_heads = 8, 2
+    k, v, lens, tables = _pool(kv_heads, QLENGTHS, seed=31)
+    rng = np.random.default_rng(32)
+    q = rng.standard_normal((len(QLENGTHS), heads, D)).astype(np.float32)
+    stored, scales, deq = _quantize_pool(k, v, mode, rng)
     kw = QCASES[option]
     qr = np.asarray(jnp.asarray(q, jnp.bfloat16), np.float32)
     ref = _reference(qr, deq[0], deq[1], lens, tables, kw)
@@ -196,11 +211,15 @@ def _quantized_inputs(mode, option):
 
 
 def _to_jax(pages, mode):
+    if mode == "dense":
+        return jnp.asarray(pages, jnp.bfloat16)
     x = jnp.asarray(pages)
     return jax.lax.bitcast_convert_type(x, jnp.float8_e4m3fn) if mode == "fp8" else x
 
 
 def _to_torch(pages, mode):
+    if mode == "dense":
+        return torch.from_numpy(pages).bfloat16()
     x = torch.from_numpy(pages.copy())
     return x.view(torch.float8_e4m3fn) if mode == "fp8" else x
 
@@ -210,16 +229,10 @@ def _to_torch(pages, mode):
 @pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
 def test_quantized_pages_match_jax(mode, option, variant, monkeypatch):
     q, (kp, vp), (ks, vs), lens, tables, kw, ref = _quantized_inputs(mode, option)
-    if variant == "K5":
-        monkeypatch.setattr(jax_pa, "_FULL_VARIANT_VMEM_CAP", 0)
-    jax_pa._build_decode_call.cache_clear()
-    try:
-        jax_out = np.asarray(jax_pa.paged_decode_attention(
-            jnp.asarray(q, jnp.bfloat16), _to_jax(kp, mode), _to_jax(vp, mode),
-            jnp.asarray(lens), jnp.asarray(tables), mode=mode,
-            k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), **kw), np.float32)
-    finally:
-        jax_pa._build_decode_call.cache_clear()
+    jax_out = _jax_paged(variant, monkeypatch, jnp.asarray(q, jnp.bfloat16),
+                         _to_jax(kp, mode), _to_jax(vp, mode), lens, tables,
+                         mode=mode, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
+                         **kw)
     out = paged_decode_attention(
         torch.from_numpy(q).bfloat16(), _to_torch(kp, mode), _to_torch(vp, mode),
         torch.from_numpy(lens), torch.from_numpy(tables), mode=mode,
@@ -248,23 +261,97 @@ def test_gqa_row_order():
 
 
 def test_unported_options_raise():
-    """Still unported: int8-compute attention and multi-token q; and a
-    quantized mode needs its scales."""
+    """A quantized mode needs its scales; an unknown page format, a negative
+    window and heads not divisible by kv_heads raise."""
     q = torch.zeros((1, 4, D), dtype=torch.bfloat16)
     pages = torch.zeros((2, 4, PAGE, D), dtype=torch.bfloat16)
     lens, tables = torch.ones(1, dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32)
-    qpages, scales = torch.zeros((2, 4, PAGE, D), dtype=torch.int8), torch.ones((2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged_decode_attention(q, qpages, qpages, lens, tables, mode="int8",
-                               k_scales=scales, v_scales=scales, int8_compute=True)
+    qpages = torch.zeros((2, 4, PAGE, D), dtype=torch.int8)
     for mode in ("int8", "int4", "fp8"):
         with pytest.raises(ValueError, match="k_scales"):
             paged_decode_attention(q, qpages, qpages, lens, tables, mode=mode)
     with pytest.raises(ValueError):
         paged_decode_attention(q, pages, pages, lens, tables, mode="int2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged_decode_attention(q[:, :, None], pages, pages, lens, tables)
     with pytest.raises(ValueError):
         paged_decode_attention(q, pages, pages, lens, tables, window=-1)
     with pytest.raises(ValueError):
         paged_decode_attention(q[:, :3], pages, pages, lens, tables)
+
+
+# ---------------------------------------------------------------------------
+# Multi-token q (speculative verify) and int8_compute: the helpers here, the
+# JAX-kernel cases in tests/test_torch_paged_attention_verify.py.
+
+# Two pages per sequence keep the JAX K4 calls short (its interpret time
+# grows with the page table); at length 60 the window of 20 still leaves a
+# whole page below every token's window.
+MT_PAGES, MT_PAGES_PER_SEQ = 24, 2
+MT_KW = dict(window=20, softcap=3.0)
+
+
+def _mt_lengths(t):
+    """Ragged lengths, the t new tokens included: one equals t (token 0
+    then sees position 0 only), one is 0."""
+    return (t, 17, 0, 60, 33)
+
+
+@functools.lru_cache(maxsize=None)
+def _mt_case(mode, lengths, heads, kv_heads, t, seed):
+    """A small NaN-poisoned pool and seeded q, (batch, heads, d) for t = 1
+    else (batch, heads, t, d). Returns (q, k/v stored pages (dense: fp32
+    with NaN), k/v scales (None when dense), lens, tables, the fp32 values
+    the kernel reads (dense: bf16-rounded; else dequantized), the
+    unquantized bf16-rounded values)."""
+    k, v, lens, tables = _pool(kv_heads, list(lengths), seed, MT_PAGES, MT_PAGES_PER_SEQ)
+    rng = np.random.default_rng(seed + 1)
+    shape = (len(lengths), heads) + ((t,) if t > 1 else ()) + (D,)
+    q = rng.standard_normal(shape).astype(np.float32)
+    dense = [np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32) for x in (k, v)]
+    if mode == "dense":
+        return q, (k, v), (None, None), lens, tables, dense, dense
+    stored, scales, deq = _quantize_pool(k, v, mode, rng)
+    return q, tuple(stored), tuple(scales), lens, tables, deq, dense
+
+
+def _port_call(q, pages, scales, lens, tables, mode, **kw):
+    quant = {} if mode == "dense" else dict(
+        mode=mode, k_scales=torch.from_numpy(scales[0]), v_scales=torch.from_numpy(scales[1]))
+    return paged_decode_attention(
+        torch.from_numpy(q).bfloat16(), *(_to_torch(p, mode) for p in pages),
+        torch.from_numpy(lens), torch.from_numpy(tables), **quant, **kw)
+
+
+def _jax_call(variant, monkeypatch, q, pages, scales, lens, tables, mode, **kw):
+    quant = {} if mode == "dense" else dict(
+        mode=mode, k_scales=jnp.asarray(scales[0]), v_scales=jnp.asarray(scales[1]))
+    return _jax_paged(variant, monkeypatch, jnp.asarray(q, jnp.bfloat16),
+                      *(_to_jax(p, mode) for p in pages), lens, tables, **quant, **kw)
+
+
+def _bf16(x):
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def _by_token(x):
+    """(batch, heads, t, d) -> (batch, t, heads, d): the sliced rule then
+    holds in each (sequence, token) with lead=2."""
+    return x.transpose(1, 2) if x.ndim == 4 else x[:, None]
+
+
+def test_quantize_q_rows_matches_jax():
+    """q's int8 bytes and scales equal the JAX ``_quantize_q_rows`` under
+    ``jax.jit``, over rows of very different scales and a zero row."""
+    rng = np.random.default_rng(61)
+    q = (rng.standard_normal((256, D)) * rng.uniform(1e-3, 1e3, (256, 1))).astype(np.float32)
+    q[7] = 0.0
+    want_q, want_s = jax.jit(jax_pa._quantize_q_rows)(jnp.asarray(q, jnp.bfloat16))
+    got_q, got_s = quantize_q_rows(torch.from_numpy(q).bfloat16())
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+@pytest.mark.parametrize("mode", ["dense", "fp8", "int4"])
+def test_int8_compute_needs_int8_pages(mode):
+    q, pages, scales, lens, tables, _, _ = _mt_case(mode, (5, 17), 8, 2, 1, 71)
+    with pytest.raises(ValueError, match="int8_compute"):
+        _port_call(q, pages, scales, lens, tables, mode, int8_compute=True)

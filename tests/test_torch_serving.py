@@ -9,7 +9,9 @@ of the row max (tests/test_generate.py's rule; random-model bf16 logits tie
 within an ulp, so exact argmax equality is too strict). Quantized serving
 (int8 weights with an int8 cache; W4A8 weights with an int4 cache) runs
 both servers on the same quantized fp32 model, where logits do not tie, and
-the served tokens must be equal.
+the served tokens must be equal; so does int8-compute attention
+(``attn_int8``), against the JAX server on its per-page kernel (K5), whose
+rounding of P the port's plain version follows.
 """
 
 import jax
@@ -25,6 +27,7 @@ from flash_attention_from_scratch_tpu.models.llama import (
 from flash_attention_from_scratch_tpu.models.llama import (
     quantize_params as jax_quantize_params,
 )
+import flash_attention_from_scratch_tpu.ops.paged_attention as jax_pa
 from flash_attention_from_scratch_tpu.ops.configs import DType as JaxDType
 from flash_attention_from_scratch_tpu.serving.generate import (
     GenerationServer as JaxGenerationServer,
@@ -51,17 +54,22 @@ CFG = LlamaConfig(**SHAPE)
 PROMPTS = {1: list(range(10, 30)), 2: list(range(40, 45)), 3: list(range(7, 40))}
 SLACK = 0.05
 
-# (engine args, requests (id, prompt_len, max_new), early finishes {step: id})
+# (engine args, requests (id, prompt_len, max_new), early finishes {step:
+# id}, speculative steps {step: n}: grow_batch(n), then commit_n of a
+# different count per sequence in place of commit)
 STREAMS = {
-    "preemption": ((6, 4, 4), [(1, 4, 12), (2, 4, 12)], {}),
-    "admission": ((8, 16, 8), [(i, 17, 8) for i in range(5)], {}),
-    "early_finish": ((32, 8, 4), [(10, 30, 6), (11, 9, 6), (12, 3, 2)], {2: 10}),
+    "preemption": ((6, 4, 4), [(1, 4, 12), (2, 4, 12)], {}, {}),
+    "admission": ((8, 16, 8), [(i, 17, 8) for i in range(5)], {}, {}),
+    "early_finish": ((32, 8, 4), [(10, 30, 6), (11, 9, 6), (12, 3, 2)], {2: 10}, {}),
+    "speculative": ((9, 4, 4), [(1, 5, 14), (2, 9, 14), (3, 3, 9)], {},
+                    {1: 3, 2: 2, 3: 3, 5: 3, 6: 3, 8: 2}),
 }
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_engine_matches_jax_engine(name):
-    args, requests, finishes = STREAMS[name]
+    args, requests, finishes, spec = STREAMS[name]
+    grown = []
     engines = [PagedEngine(*args), JaxPagedEngine(*args)]
     for eng in engines:
         for req in requests:
@@ -74,6 +82,15 @@ def test_engine_matches_jax_engine(name):
         if step in finishes:
             for eng in engines:
                 eng.finish(finishes[step])
+        if step in spec:
+            ok = [eng.grow_batch(spec[step]) for eng in engines]
+            assert ok[0] == ok[1]
+            grown.append(ok[0])
+            if ok[0]:
+                for sid in got.ids.tolist():
+                    n = 1 + (sid + step) % (spec[step] + 1)
+                    assert engines[0].commit_n(sid, n) == engines[1].commit_n(sid, n)
+                continue
         assert engines[0].commit() == engines[1].commit()
         for attr in ("running", "waiting", "free_pages", "preempt_count"):
             assert getattr(engines[0], attr) == getattr(engines[1], attr), attr
@@ -81,6 +98,8 @@ def test_engine_matches_jax_engine(name):
             break
     if name == "preemption":
         assert engines[0].preempt_count >= 1
+    if name == "speculative":  # grow_batch both granted and refused
+        assert True in grown and False in grown, grown
     assert engines[0].free_pages == args[0]
 
 
@@ -150,10 +169,54 @@ def test_quantized_server_matches_jax_server(wmode, act, kv_mode):
     assert all(len(toks) == 5 for toks in got.values())
 
 
+def test_attn_int8_server_matches_jax_server(monkeypatch):
+    """int8-compute attention (int8 weights, int8 cache, fp32 model): the
+    port's tokens equal the JAX server's on K5 (``_FULL_VARIANT_VMEM_CAP``
+    0, its per-page rounding of P), and every token lies within 0.5 of the
+    JAX ``forward``'s row max (tests/test_generate.py's attn_int8 slack)."""
+    jcfg = JaxLlamaConfig(**SHAPE, block_q=128, block_kv=128, dtype=JaxDType.FP32)
+    cfg = LlamaConfig(**SHAPE, dtype=DType.FP32)
+    jparams = jax_quantize_params(jax_init_params(jcfg, jax.random.PRNGKey(2)), "int8")
+    params = params_from_jax(jax.device_get(jparams), device="cpu")
+    kw = dict(num_pages=32, page_size=64, max_batch=2, pages_per_seq=8, mode="int8",
+              attn_int8=True)
+    prompts = {1: PROMPTS[1], 2: PROMPTS[2]}
+    monkeypatch.setattr(jax_pa, "_FULL_VARIANT_VMEM_CAP", 0)
+    jax_pa._build_decode_call.cache_clear()
+    jax.clear_caches()
+    try:
+        servers = [JaxGenerationServer(jparams, jcfg, **kw),
+                   GenerationServer(params, cfg, device="cpu", **kw)]
+        for server in servers:
+            for sid, prompt in prompts.items():
+                server.submit(sid, prompt, 5)
+        want, got = (server.run() for server in servers)
+    finally:
+        jax_pa._build_decode_call.cache_clear()
+        jax.clear_caches()
+    assert got == want
+    for sid, prompt in prompts.items():
+        toks = np.zeros((1, 128), np.int32)
+        seq = prompt + got[sid][:-1]
+        toks[0, :len(seq)] = seq
+        logits = np.asarray(jax_forward(jparams, jnp.asarray(toks), jcfg)[0])
+        for i, tok in enumerate(got[sid]):
+            row = logits[len(prompt) - 1 + i]
+            assert row.max() - row[tok] <= 0.5, (sid, i, tok, row.argmax())
+
+
+@pytest.mark.parametrize("mode", ["dense", "fp8", "int4"])
+def test_attn_int8_needs_an_int8_cache(mode):
+    with pytest.raises(ValueError, match="attn_int8"):
+        GenerationServer({"embed": torch.zeros((4, 4))}, CFG, num_pages=8,
+                         page_size=64, max_batch=2, mode=mode, attn_int8=True,
+                         device="cpu")
+
+
 @pytest.mark.parametrize("option", [
-    dict(temperature=0.7), dict(chunk=4), dict(spec_k=2),
+    dict(temperature=0.7), dict(chunk=4),
     dict(prefix_cache=True), dict(prefill_chunk_tokens=128), dict(lora={}),
-    dict(mesh=object()), dict(attn_int8=True), dict(top_k=5)])
+    dict(mesh=object()), dict(top_k=5)])
 def test_server_unported_options_raise(option):
     params = {"embed": torch.zeros((4, 4))}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
