@@ -11,8 +11,8 @@ in parallel; (3) hold each kernel against its plain PyTorch version on the
 card, in bf16, by the adaptive tolerance rule in each sequence or 64-row
 band on its own: the flash forward (K1), paged decode (K4/K5) on dense,
 int8, fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
-shape of Llama-3-8B at decode and prefill rows (K8/K9 also within one bf16
-ulp of the plain int32 path), and the flash backward, fused (K2) and split
+shape of Llama-3-8B at 16, 32, 64 and 1024 rows and K6/K7 at 1000 (K8/K9
+also within one bf16 ulp of the plain int32 path), and the flash backward, fused (K2) and split
 (K3), each also at the training run's shape and strided layout, plus
 autograd with sinks against autograd of the reference; (4) serve
 Llama-3-8B at full width and depth (random bf16 weights from a seed)
@@ -43,7 +43,8 @@ prefill attention (K10) and of the K/V-ring forward (K11):
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
 counted, then hold K10 (every variant) and K11 (depth 2) against their
 plain versions on the tools' own inputs at those shapes; (9) time each kernel at its path's shapes beside its bound, its
-plain version and the library call (K4/K5 also per page format, with
+plain version and the library call, with K6-K9's registers and spills
+from the build (K4/K5 also per page format, with
 t = 4 query tokens at the speculative run's first verify step and with
 int8 compute at run E's step, each beside the single-token call; K10 per
 variant and K11 per ring depth at b 4, s 4096). Phase (3) also holds
@@ -119,7 +120,21 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def _ptxas_by_kernel(log: str) -> dict:
+    """{mangled kernel name: its registers and spills} from ``nvcc
+    -Xptxas=-v`` output."""
+    found, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            found[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            found[name].append(line.split(":", 1)[-1].strip())
+    return {n: "; ".join(v) for n, v in found.items()}
+
+
+def phase_build() -> dict:
+    """Build every source; returns {source: compiler output}."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -136,6 +151,7 @@ def phase_build() -> None:
                 print(f"build {name}: {line.strip()[:150]}", flush=True)
     print(f"build: {sorted(logs)} in {secs:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    return logs
 
 
 def _as_model_rows(x, strided):
@@ -1062,8 +1078,9 @@ def _check_qmm(got, x, wq, act_quant):
 
 def phase_quant_matmul_cases() -> dict:
     """K6-K9 vs their plain version at every weight shape of Llama-3-8B, at
-    decode m = 16 and prefill m = 1024, and at m = 1000 (no tile multiple)
-    on w_down. Returns {kernel: max |kernel - plain|}."""
+    decode m = 16, the verify steps' m = 32, m = 64 and prefill m = 1024,
+    and at m = 1000 (no tile multiple): on every shape for K6/K7, on w_down
+    for K8/K9. Returns {kernel: max |kernel - plain|}."""
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
         KERNELS, quant_matmul)
 
@@ -1073,7 +1090,9 @@ def phase_quant_matmul_cases() -> dict:
         (4096, 14336), (14336, 4096), LM_HEAD_SHAPE]
     for mode, act_quant in QMM_RECIPES:
         name = KERNELS[(mode, act_quant)]
-        cases = [(m, k, n) for k, n in shapes for m in (16, 1024)] + [(1000, 14336, 4096)]
+        cases = [(m, k, n) for k, n in shapes for m in (16, 32, 64, 1024)]
+        cases += ([(1000, k, n) for k, n in shapes] if not act_quant
+                  else [(1000, 14336, 4096)])
         line = []
         for m, k, n in cases:
             wq = _random_qweight(k, n, mode, act_quant, gen)
@@ -1365,13 +1384,26 @@ def _device_ms(fn, calls: int) -> dict:
     return {"all": prof["device_ms"] / calls, "kernel": own / calls}
 
 
+def _host_us_per_call(fn, calls: int = 200) -> float:
+    """Wall microseconds per call of ``fn``, called back to back. Where the
+    call's kernels are shorter than the host's work for it (decode's small
+    weights), this is the host's cost of a call, which the card waits on."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
 def _shape_work(m, k, n, wq, out_bytes=2):
     """Bytes (weight values + scales, x, out, each once) and operations."""
     x_bytes = m * k * (1 if wq.act == "int8" else 2)
     return (wq.values.numel() + 4 * n + x_bytes + out_bytes * m * n, 2 * m * k * n)
 
 
-def time_quant_matmul(mode: str, act_quant: bool) -> dict:
+def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
     """One recipe at a decode step's matmuls (m = 16: 7 x 32 projections,
     timed over 4 distinct layers so each weight streams from memory, plus
     the lm_head) and at one 1024-row prefill layer, as device time summed
@@ -1379,9 +1411,13 @@ def time_quant_matmul(mode: str, act_quant: bool) -> dict:
     included; ``kernel_only_ms`` counts K6-K9's own kernels). Library: cuBLAS
     ``x @ w`` on the dequantized bf16 weight (the same function up to
     rounding) for weight-only; ``torch._int_mm`` plus the scale epilogue
-    for a8, where its shape rules allow."""
+    for a8, where its shape rules allow, timed in the same call, with the
+    kernel's factor to it. At decode also the host's cost of one wrapper
+    call and of one library call (``_host_us_per_call`` on w_k, whose
+    kernel is the shortest). ``ptxas``: the build's registers and spills
+    per mangled kernel name; the recipe's own kernels go into the result."""
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
-        quant_matmul, quant_matmul_plain, quantize_activations)
+        KERNELS, quant_matmul, quant_matmul_plain, quantize_activations)
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     layers = [[(name, _random_qweight(k, n, mode, act_quant, gen)) for name, k, n in LAYER_SHAPES]
@@ -1454,9 +1490,20 @@ def time_quant_matmul(mode: str, act_quant: bool) -> dict:
                 del lm_lib
         except RuntimeError as e:  # torch._int_mm's shape rules
             lib_ms, lib_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+        if phase == "decode":
+            (_, wk), wk_lib = next((nw, w) for nw, w in zip(layers[0], lib_ws)
+                                   if nw[0] == "wk")
+            host = {"host_us_per_call": _host_us_per_call(lambda: kernel(xs[wk.k_dim], wk))}
+            if lib_ms is not None:
+                host["library_host_us_per_call"] = _host_us_per_call(
+                    lambda: library(xs[wk.k_dim], wk_lib, wk.scales))
+        else:
+            host = {}
         out[phase] = {
+            **host,
             "ms": ms, "kernel_only_ms": kernel_only, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_note": lib_note,
+            "library_factor": ms / lib_ms if lib_ms else None,
             "bound_ms": 1e3 * max(bound_b, bound_o),
             "bound_by": "bytes" if bound_b >= bound_o else "operations",
             "shape": (f"one decode step: m 16, 7 x 32 projections + lm_head, "
@@ -1466,7 +1513,14 @@ def time_quant_matmul(mode: str, act_quant: bool) -> dict:
         del xs
     del layers, lm, lib_ws
     torch.cuda.empty_cache()
-    return {**out["decode"], "prefill": out["prefill"]}
+    # The kernel templates of this recipe: K6/K7 quant_matmul_wonly_kernel<W4,
+    # BT>, K8/K9 quant_matmul_a8_kernel<W4, MI> (Itanium-mangled bool W4).
+    own = "quant_matmul_a8_kernel" if act_quant else "quant_matmul_wonly_kernel"
+    w4 = f"ILb{int(mode == 'int4')}E"
+    regs = {name: v for name, v in ptxas.items() if own + w4 in name}
+    for name, v in regs.items():
+        print(f"ptxas {KERNELS[(mode, act_quant)]}: {name}: {v}", flush=True)
+    return {**out["decode"], "prefill": out["prefill"], "ptxas": regs}
 
 
 def time_paged_formats() -> dict:
@@ -1825,7 +1879,7 @@ def main(argv=None) -> int:
         return 2
     t0 = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    ptxas = _ptxas_by_kernel(phase_build().get("quant_matmul.cu", ""))
     flash_err, flash_ratio = phase_flash_cases()
     fori_err, fori_ratio = phase_fori_cases()
     quant_err, quant_ratio = phase_flash_quant_cases()
@@ -1908,7 +1962,7 @@ def main(argv=None) -> int:
             "replaces": "flash_attention_from_scratch_tpu/ops/quant_matmul.py:"
                         f"{tpu_lines[(mode, act_quant)]}",
             "launches": launches, "launches_path": f"serve run {run}",
-            "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant)})
+            "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant, ptxas)})
         if name == KERNELS[("int8", False)]:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
                                             "quant_matmul.py:247")

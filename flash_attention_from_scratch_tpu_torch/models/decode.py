@@ -43,6 +43,14 @@ def _not_ported(what: str):
         f"{what} is not ported yet (see ROADMAP.md, Queue 1)")
 
 
+def check_no_sinks(cfg: LlamaConfig) -> None:
+    """Serving refuses attention sinks: the paged kernel has no sink term
+    (nor has the JAX one), so decode would drop what prefill applied."""
+    if cfg.attn_sinks:
+        raise ValueError("serving a config with attn_sinks=True is not supported: "
+                         "the paged decode kernel has no sink term (ROADMAP Queue 3)")
+
+
 @dataclasses.dataclass
 class PagedKVCache:
     """Per-layer paged KV pools (+ per-(head, page) scales when quantized).
@@ -176,8 +184,10 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     it; ``prompt_len`` is the true length: only its K/V rows go to pages
     and the returned logits are row ``prompt_len - 1``. ``page_table``:
     (pages_per_seq,) int, -1 padded. Writes the pages in place and returns
-    (logits (vocab,) fp32, cache).
+    (logits (vocab,) fp32, cache). A config with attention sinks raises
+    ``ValueError`` (:func:`check_no_sinks`).
     """
+    check_no_sinks(cfg)
     if lora is not None:
         raise _not_ported("LoRA serving")
     if mesh is not None:
@@ -248,6 +258,7 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
           page_tables, lora, mesh, attn_int8: bool):
     """The body of :func:`decode_step` and :func:`verify_step`: tokens
     (batch, t) at positions lengths - t + j."""
+    check_no_sinks(cfg)
     if lora is not None:
         raise _not_ported("LoRA serving")
     if mesh is not None:

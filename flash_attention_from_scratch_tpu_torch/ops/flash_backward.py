@@ -18,7 +18,7 @@ import torch
 
 from . import _build
 from .configs import KernelConfig
-from .flash_forward import _default_cfg, _kernel_layout, _strides, _validate
+from .flash_forward import D_HEAD, _default_cfg, _kernel_layout, _strides, _validate
 
 __all__ = ["flash_backward", "flash_backward_plain", "fused_choice",
            "KERNEL_FUSED", "KERNEL_DKV", "KERNEL_DQ"]
@@ -129,6 +129,9 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernels take bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K2/K3)")
+    if q.shape[3] != D_HEAD:
+        raise ValueError(f"the CUDA kernels' tiles are {D_HEAD} wide, got d_head "
+                         f"{q.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "

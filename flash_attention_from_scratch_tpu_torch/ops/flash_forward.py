@@ -48,9 +48,8 @@ def _validate(cfg: KernelConfig, q, k, v, sinks):
             f"GQA requires q_heads % kv_heads == 0: {q.shape[1]} vs {k.shape[1]}")
     if q.shape[3] != cfg.d_head:
         raise ValueError(f"d_head mismatch: config {cfg.d_head}, tensors {q.shape[3]}")
-    if q.shape[3] != D_HEAD:
-        raise ValueError(f"d_head must be {D_HEAD}, got {q.shape[3]} "
-                         "(other head widths: ROADMAP Queue 2, K1)")
+    if q.shape[3] % D_HEAD:
+        raise ValueError(f"d_head must be a multiple of {D_HEAD}, got {q.shape[3]}")
     if q.dtype != cfg.dtype.torch_dtype or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtype mismatch: config {cfg.dtype}, tensors "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -108,6 +107,9 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K1)")
+    if q.shape[3] != D_HEAD:
+        raise ValueError(f"the CUDA kernels' tiles are {D_HEAD} wide, got d_head "
+                         f"{q.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "

@@ -144,6 +144,9 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
     if not q_quant and q_vals.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes a bf16 or quantized Q, got "
                          f"{q_vals.dtype} (ROADMAP Queue 2, K10)")
+    if q_vals.shape[3] != D_HEAD:
+        raise ValueError(f"the CUDA kernel's tiles are {D_HEAD} wide, got d_head "
+                         f"{q_vals.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
     for name, t in (("q", q_vals), ("k", k.values), ("v", v.values)):
         if (t.stride(3) != 1 or t.data_ptr() % 16
                 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
@@ -201,8 +204,9 @@ def _validate(q, k: QTensor, v: QTensor, cfg: KernelConfig, int8_compute: bool):
                          f"{tuple(k.values.shape)} ({k.mode})")
     if h % kvh:
         raise ValueError(f"GQA requires q_heads % kv_heads == 0: {h} vs {kvh}")
-    if d != cfg.d_head or d != D_HEAD:
-        raise ValueError(f"d_head must be {D_HEAD} (config {cfg.d_head}), got {d}")
+    if d != cfg.d_head or d % D_HEAD:
+        raise ValueError(f"d_head must be a multiple of {D_HEAD} (config "
+                         f"{cfg.d_head}), got {d}")
     if sq % SEQ_QUANTUM or skv % SEQ_QUANTUM:
         raise ValueError(f"seq ({sq}, {skv}) not a multiple of {SEQ_QUANTUM}")
     if tuple(k.scales.shape) != (b, kvh):

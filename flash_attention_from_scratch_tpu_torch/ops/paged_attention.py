@@ -218,6 +218,9 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
         raise ValueError(f"the CUDA kernel takes bf16 q and {page_dtype} pages for "
                          f"mode {mode!r}, got {q.dtype}/{k_pages.dtype}/"
                          f"{v_pages.dtype} (other types: ROADMAP Queue 2, K4/K5)")
+    if q.shape[-1] != D_HEAD:
+        raise ValueError(f"the CUDA kernel's tiles are {D_HEAD} wide, got d_head "
+                         f"{q.shape[-1]} (256-wide tiles: ROADMAP Queue 2)")
     batch, heads = q.shape[:2]
     q_tokens = q.shape[2] if q.ndim == 4 else 1
     kv_heads, num_pages, rows, _ = k_pages.shape
@@ -297,9 +300,9 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *,
     if mode != "dense" and tuple(k_scales.shape) != tuple(k_pages.shape[:2]):
         raise ValueError(f"k_scales/v_scales must be (kv_heads, num_pages) = "
                          f"{tuple(k_pages.shape[:2])}, got {tuple(k_scales.shape)}")
-    if d != k_pages.shape[3] or d != D_HEAD:
-        raise ValueError(f"d_head must be {D_HEAD} in q and pages, got "
-                         f"{d} and {k_pages.shape[3]}")
+    if d != k_pages.shape[3] or d % D_HEAD:
+        raise ValueError(f"d_head must be a multiple of {D_HEAD}, the same in q "
+                         f"and pages, got {d} and {k_pages.shape[3]}")
     if tuple(lengths.shape) != (batch,) or page_tables.ndim != 2 \
             or page_tables.shape[0] != batch:
         raise ValueError(f"lengths {tuple(lengths.shape)} / page_tables "

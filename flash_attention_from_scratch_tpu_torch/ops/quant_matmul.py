@@ -14,11 +14,13 @@ Four TPU kernels compute the products, and each has a Hopper kernel in
 - K9 ``_qmm_kernel_int4_a8``: W4A8, the same with int4 W.
 
 The weight-only kernels accumulate ``x @ W`` in fp32 and scale each column
-at the end. The a8 recipe quantizes activations per row in plain PyTorch
-(:func:`quantize_activations`) before the kernel, as the JAX package does in
-plain jnp. For a CPU tensor the wrapper runs :func:`quant_matmul_plain`; for
-a CUDA tensor it launches the kernel or raises, whatever the shape (the
-kernel masks its own ragged edges; there is no plain fallback on the card).
+at the end; on the card K6 and K7 are one wgmma kernel that dequantizes the
+weight in registers, launched as :func:`plan` says. The a8 recipe quantizes
+activations per row in plain PyTorch (:func:`quantize_activations`) before
+the kernel, as the JAX package does in plain jnp. For a CPU tensor the
+wrapper runs :func:`quant_matmul_plain`; for a CUDA tensor it launches the
+kernel or raises, whatever the shape (the kernel masks its own ragged edges;
+there is no plain fallback on the card).
 """
 
 from __future__ import annotations
@@ -144,18 +146,78 @@ def quant_matmul_plain(x2, wq: QuantizedWeight, act_quant: bool = False,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.fa_quant_matmul.restype = _I32
-    lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 7 + [_PTR]
+    lib.fa_quant_matmul_wonly.restype = _I32
+    lib.fa_quant_matmul_wonly.argtypes = [_PTR] * 5 + [_I32] * 6 + [_PTR]
+    lib.fa_quant_matmul_a8.restype = _I32
+    lib.fa_quant_matmul_a8.argtypes = [_PTR] * 6 + [_I32] * 6 + [_PTR]
     return lib
 
 
 def _splits(m_tiles: int, n_tiles: int, k_tiles: int, sms: int) -> int:
-    """Split the K walk when the output tiles alone leave SMs idle (decode's
-    small m): enough CTAs for two per SM, each split a contiguous range."""
+    """K8/K9: split the K walk when the output tiles alone leave SMs idle
+    (decode's small m): enough CTAs for two per SM, each split a contiguous
+    range."""
     want = max(1, (2 * sms) // (m_tiles * n_tiles))
     want = min(want, k_tiles, 16)
     per = -(-k_tiles // want)
     return -(-k_tiles // per)
+
+
+# K6/K7's CTA geometry, as csrc/quant_matmul.cu's WTile has it (the kernel
+# sizes its own ring from it; tests/test_torch_quant_matmul_plan.py holds
+# these to the source). The plan needs it to count CTAs; a mismatch would
+# cost speed, never correctness, since the kernel cuts the K walk itself.
+WONLY_COLS = 128       # weight columns per consumer warpgroup (WBN)
+WONLY_ROWS = 64        # stored weight rows per K tile (WROWS)
+TOKEN_TILES = (16, 32, 64, 128)
+MAX_SPLITS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """K6/K7's launch: ``bt`` tokens and ``cols`` weight columns per CTA
+    (``cols / 128`` consumer warpgroups), ``per_sm`` CTAs resident on an SM,
+    the K walk of ``k_tiles`` stored-row tiles cut into ``splits`` ranges of
+    ``per`` tiles; ``ctas`` CTAs in all."""
+
+    design: str   # "decode" (bt <= 32: the weight stream) or "prefill"
+    bt: int
+    cols: int
+    per_sm: int
+    k_tiles: int
+    splits: int
+    per: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, w4: bool, sms: int = 132) -> Plan:
+    """K6/K7's launch plan for x (m, K) @ W (K, N) on ``sms`` SMs.
+
+    The token tile is the least of ``TOKEN_TILES`` that holds m (128 past
+    it, with two warpgroups a CTA and one CTA an SM; below, one warpgroup
+    and two CTAs an SM). When the output tiles alone are fewer than
+    the CTAs the SMs hold at once, the K walk is split into as many ranges
+    as fill them in one wave (at most ``MAX_SPLITS``, every range at least
+    one tile), so that each CTA streams a long contiguous run of weight rows
+    and none waits for a second wave.
+    """
+    bt = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
+    nwg = 2 if bt == 128 else 1
+    per_sm = 1 if nwg == 2 else 2
+    k_tiles = -(-(k // 2 if w4 else k) // WONLY_ROWS)
+    tiles = -(-m // bt) * -(-n // (nwg * WONLY_COLS))
+    want = max(1, min(k_tiles, MAX_SPLITS, (per_sm * sms) // tiles))
+    per = -(-k_tiles // want)
+    splits = -(-k_tiles // per)
+    return Plan("decode" if bt <= 32 else "prefill", bt, nwg * WONLY_COLS, per_sm,
+                k_tiles, splits, per, tiles * splits)
+
+
+def _aligned(t):
+    """t contiguous and 16-byte aligned (TMA and the vector stores)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x2, wq: QuantizedWeight, act_quant: bool):
@@ -170,29 +232,31 @@ def _launch(x2, wq: QuantizedWeight, act_quant: bool):
         raise ValueError(f"the CUDA kernels take N % 16 == 0 and K % 32 == 0, "
                          f"got K {k}, N {n}")
     w4 = wq.mode == "int4"
-    values = wq.values.contiguous()
-    scales = wq.scales.float().contiguous()
+    values = _aligned(wq.values)
+    scales = _aligned(wq.scales.float())
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    lib = _lib()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
     if act_quant:
         x_op, xs = quantize_activations(x2)
-        xs = xs.contiguous()
+        mi = 1 if m <= 16 else 4
+        k_tiles = -(-(k // 2 if w4 else k) // (32 if w4 else 64))
+        splits = _splits(-(-m // (16 * mi)), -(-n // 64), k_tiles, sms)
+        ws = (torch.empty((splits, m, n), device=x2.device, dtype=torch.int32)
+              if splits > 1 else out)
+        rc = lib.fa_quant_matmul_a8(
+            x_op.contiguous().data_ptr(), xs.contiguous().data_ptr(), values.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, k, int(w4), mi,
+            splits, stream)
     else:
-        x_op, xs = x2.contiguous(), scales  # xs unused
-    mi = 1 if m <= 16 else 4
-    bm, bn, bk = 16 * mi, 64, 64  # bk in K rows of the dequantized weight
-    k_rows = k // 2 if w4 else k  # stored rows
-    k_tile_rows = bk // 2 if w4 else bk
-    k_tiles = -(-k_rows // k_tile_rows)
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    splits = _splits(-(-m // bm), -(-n // bn), k_tiles, sms)
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    ws = (torch.empty((splits, m, n), device=x2.device,
-                      dtype=torch.int32 if act_quant else torch.float32)
-          if splits > 1 else out)
-    lib = _lib()
-    rc = lib.fa_quant_matmul(
-        x_op.data_ptr(), xs.data_ptr(), values.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), m, n, k, int(w4), int(act_quant), mi,
-        splits, torch.cuda.current_stream(x2.device).cuda_stream)
+        p = plan(m, n, k, w4, sms)
+        x_op = _aligned(x2)
+        ws = (torch.empty((p.splits, m, n), device=x2.device, dtype=torch.float32)
+              if p.splits > 1 else out)
+        rc = lib.fa_quant_matmul_wonly(
+            x_op.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), m, n, k, int(w4), p.bt, p.splits, stream)
     _build.check(lib, rc, "quant_matmul")
     _build.launch_counts[KERNELS[(wq.mode, act_quant)]] += 1
     return out

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..models.decode import (
-    decode_step, greedy_token, init_cache, prefill, spec_accept_sample,
-    verify_step,
+    check_no_sinks, decode_step, greedy_token, init_cache, prefill,
+    spec_accept_sample, verify_step,
 )
 from ..models.llama import LlamaConfig
 from ..utils.device import resolve_device
@@ -84,7 +84,8 @@ class GenerationServer:
     is decoding and nothing waits; ``attn_int8`` (int8 cache only) runs the
     paged kernel's int8 compute. Options of the JAX server that are not
     ported yet raise ``NotImplementedError``; ``seed`` only seeds sampling,
-    which is one of them.
+    which is one of them. A config with attention sinks, and a ``chunk``
+    outside [1, page_size], raise ``ValueError``.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
@@ -97,6 +98,11 @@ class GenerationServer:
                  prefix_cache: bool = False, lora=None, device="cuda"):
         if attn_int8 and mode != "int8":
             raise ValueError(f"attn_int8 requires an int8 KV cache; mode={mode!r}")
+        check_no_sinks(cfg)
+        if not 1 <= chunk <= page_size:
+            # Padding rows park their chunk KV in the single scratch page,
+            # so a chunk may not outgrow it.
+            raise ValueError(f"chunk must be in [1, page_size]; got {chunk}")
         if spec_k:
             if chunk > 1:
                 raise ValueError("spec_k and chunk>1 are exclusive decode strategies")
@@ -321,8 +327,17 @@ class GenerationServer:
             raise RuntimeError(f"did not drain within {max_steps} steps")
         return {sid: st.generated for sid, st in self.seqs.items()}
 
+    def throughput(self) -> float:
+        """Decode tokens per wall-second for the run this call performs."""
+        start_tokens = self.decode_tokens
+        t0 = time.perf_counter()
+        self.run()
+        dt = time.perf_counter() - t0
+        return (self.decode_tokens - start_tokens) / dt if dt > 0 else 0.0
+
     def stats(self) -> dict:
-        """Serving counters."""
+        """Serving counters; ``prefix_hit_pages`` is 0 (no prefix cache
+        yet)."""
         return {
             "steps": self.steps,
             "decode_steps": self.decode_steps,
@@ -337,4 +352,5 @@ class GenerationServer:
             "spec_accepted": self.spec_accepted,
             "spec_acceptance_rate": (self.spec_accepted / self.spec_proposed
                                      if self.spec_proposed else 0.0),
+            "prefix_hit_pages": 0,
         }

@@ -216,14 +216,25 @@ def check_quant_matmul(got, x, wq, act_quant):
     return ok, ratio
 
 
-@pytest.mark.parametrize("m", [1, 16, 100])
-@pytest.mark.parametrize("k,n", [(512, 320), (544, 336)])
-@pytest.mark.parametrize("mode,act_quant", [("int8", False), ("int4", False),
-                                            ("int8", True), ("int4", True)],
-                         ids=["K6", "K7", "K8", "K9"])
+QMM_RAGGED = [(512, 320), (544, 336)]  # (K, N): K 544 and N 336 no tile multiple
+QMM_LLAMA = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+QMM_CASES = (
+    [(mode, False, k, n, m) for mode in ("int8", "int4") for k, n in QMM_RAGGED
+     for m in (1, 16, 17, 32, 64, 100, 1024)]
+    + [(mode, False, k, n, m) for mode in ("int8", "int4") for k, n in QMM_LLAMA
+       for m in (16, 1024)]
+    + [(mode, True, k, n, m) for mode in ("int8", "int4") for k, n in QMM_RAGGED
+       for m in (1, 16, 100)])
+
+
+@pytest.mark.parametrize(
+    "mode,act_quant,k,n,m", QMM_CASES,
+    ids=[f"{QMM[(mo, a)]}-{k}x{n}-m{m}" for mo, a, k, n, m in QMM_CASES])
 def test_quant_matmul_kernels_match_plain(cuda, mode, act_quant, k, n, m):
-    """Ragged m, N and K (no tile multiple); stored bytes over the whole
-    int8 range, so int4 nibbles of -8 occur; m 1 and 16 split the K walk."""
+    """Ragged m, N and K (no tile multiple) and every Llama-3-8B weight
+    shape of K6/K7 at decode and prefill rows; stored bytes over the whole
+    int8 range, so -128 and int4 nibbles of -8 occur; small m splits the K
+    walk. One launch count per call, and a second call gives the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     rows = k // 2 if mode == "int4" else k
     wq = QuantizedWeight(
@@ -240,6 +251,49 @@ def test_quant_matmul_kernels_match_plain(cuda, mode, act_quant, k, n, m):
     ok, ratio = check_quant_matmul(got, x, wq, act_quant)
     assert ok, ratio
     assert torch.equal(got, quant_matmul(x, wq, act_quant=act_quant))  # reproducible
+
+
+@pytest.mark.parametrize("m", [1, 16, 32, 64, 100, 256])
+@pytest.mark.parametrize("mode", ["int8", "int4"], ids=["K6", "K7"])
+def test_weight_only_kernels_dequantize_every_byte_exactly(cuda, mode, m):
+    """One-hot rows of x pick single weight rows, so out[i] = W[pick[i]] * s
+    is exact in bf16 (|W| <= 128, power-of-two scales): every stored byte,
+    -128 and each int4 nibble of -8 included, its nibble half, its column
+    and that column's scale must come out bit for bit, at every token tile
+    and through the split K walk of small m. N 336 is no tile multiple."""
+    k, n = 256, 336
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rows = k // 2 if mode == "int4" else k
+    values = torch.randint(-128, 128, (rows, n), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    scales = torch.exp2(torch.randint(-6, 3, (n,), generator=gen, device=cuda).float())
+    wq = QuantizedWeight(values, scales, mode, torch.bfloat16, "bf16")
+    pick = torch.randperm(k, generator=gen, device=cuda)[:m]
+    x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda), pick] = 1
+    got = quant_matmul(x, wq)
+    want = (wq.stored_columns() * scales)[pick].bfloat16()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"], ids=["K6", "K7"])
+def test_weight_only_kernels_key_weight_maps_by_shape(cuda, mode):
+    """The wrapper keeps each weight's tensor map; weights that share their
+    first byte but not their shape, or their shape but not their bytes,
+    must each be read as what they are."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    k = 512
+    rows = k // 2 if mode == "int4" else k
+    buf = torch.randint(-128, 128, (rows * 336,), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    x = torch.randn(16, k, generator=gen, device=cuda).bfloat16()
+    for n in (336, 320, 336):
+        wq = QuantizedWeight(buf[:rows * n].view(rows, n),
+                             torch.rand(n, generator=gen, device=cuda) / k,
+                             mode, torch.bfloat16, "bf16")
+        ok, ratio = check_quant_matmul(quant_matmul(x, wq), x, wq, False)
+        assert ok, (n, ratio)
+        buf.neg_()  # the same address and shape now hold other bytes
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
@@ -347,6 +401,25 @@ def test_kernels_refuse_other_dtypes(cuda):
     with pytest.raises(ValueError):
         paged_decode_attention(torch.zeros((1, 2, 128), device=cuda), pages,
                                pages, torch.ones(1, dtype=torch.int32, device=cuda),
+                               torch.zeros((1, 2), dtype=torch.int32, device=cuda))
+
+
+def test_kernels_refuse_other_head_widths(cuda):
+    """d 256 runs on the CPU (the plain versions); the kernels' tiles are
+    128 wide, so their wrappers raise on the card."""
+    q = torch.zeros((1, 2, 128, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128 wide"):
+        flash_forward_with_lse(q, q, q, KernelConfig(d_head=256))
+    with pytest.raises(ValueError, match="128 wide"):
+        flash_backward(q, q, q, q, torch.zeros((1, 2, 128), device=cuda), q,
+                       KernelConfig(d_head=256))
+    kq = quantize_kv(q, "int8")
+    with pytest.raises(ValueError, match="128 wide"):
+        flash_forward_quantized(q, kq, kq, KernelConfig(d_head=256))
+    pages = torch.zeros((2, 2, 16, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128 wide"):
+        paged_decode_attention(q[:, :, 0], pages, pages,
+                               torch.ones(1, dtype=torch.int32, device=cuda),
                                torch.zeros((1, 2), dtype=torch.int32, device=cuda))
 
 
