@@ -47,10 +47,11 @@ plain version and the library call, with K6-K9's registers and spills
 from the build (K4/K5 also per page format, with
 t = 4 query tokens at the speculative run's first verify step and with
 int8 compute at run E's step, each beside the single-token call; K10 per
-variant and K11 per ring depth at b 4, s 4096). Phase (3) also holds
+variant and K11 per ring depth at b 4, s 4096, with their registers
+and spills from the build). Phase (3) also holds
 K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
 a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
-at ring depths 1-3 on every K1 case, and K10 for every variant (int8
+at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
 ``serve``, ``profile``, ``serve_spec``, ``train``, ``serve_quant``, ``bench_quant``,
@@ -65,6 +66,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 import warnings
@@ -189,9 +191,13 @@ FLASH_CASES = [(f"{kind} s{s}", s, s, kw, {})
     ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
     ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
     ("sinks s1024", 1024, 1024, dict(causal=True), dict(sinks=True)),
+    # Ragged for K11's 128-row Q tiles and 128-key slots: the last Q tile's
+    # second warpgroup past seq_q, the last KV tile half zero-filled.
+    ("ragged s192/320 q_offset 128 window 70", 192, 320,
+     dict(causal=True, q_offset=128, window=70), {}),
     TRAIN_CASE,
 ]
-FORI_DEPTHS = (1, 2, 3)  # K11 ring depths the cases and timings cover
+FORI_DEPTHS = (1, 2, 3, 4)  # K11 ring depths the cases and timings cover
 
 
 def _flash_cases(loops: dict) -> dict:
@@ -237,7 +243,7 @@ def phase_flash_cases() -> tuple[float, float]:
 
 
 def phase_fori_cases() -> tuple[float, float]:
-    """K11 at ring depths 1, 2 and 3 on K1's cases, by the same rule.
+    """K11 at every ring depth (1-4) on K1's cases, by the same rule.
     Returns (max |kernel - plain|, worst err/bound) over the depths."""
     from flash_attention_from_scratch_tpu_torch.ops.configs import KVLoop
 
@@ -1767,12 +1773,27 @@ def _attn_bytes(q, k, v, out) -> int:
     return total
 
 
-def time_flash_quant() -> dict:
+def _kernel_ptxas(ptxas: dict, kernels: tuple) -> dict:
+    """{kernel and its mangled template arguments: registers and spills} of
+    the kernels named in ``kernels`` (empty when this run built nothing)."""
+    pattern = re.compile(r"\d(" + "|".join(kernels) + r")(I(?:Li\d+E)+E)?")
+    found = {}
+    for name, v in ptxas.items():
+        m = pattern.search(name)
+        if m:
+            found[m.group(1) + (m.group(2) or "")] = v
+    return found
+
+
+def time_flash_quant(ptxas: dict | None = None) -> dict:
     """K10 per variant, non-causal, at b 4, s 4096, 32/8 heads, d 128:
     time, bound (the two products' operations at the bf16 rate, or the
-    int8 rate for int8c, against bytes), the plain version, and SDPA on the
+    int8 rate for int8c, against bytes), its share (bound / time) and the
+    products' TFLOP/s (TOP/s for int8c), the plain version, and SDPA on the
     dequantized bf16 tensors. The top-level numbers are sums over the five
-    variants."""
+    variants. ``ptxas``: the build's registers and spills of
+    ``flash_quant.cu``'s kernels (``flash_quant_kernelILi<Q>ELi<KV>``: Q 0
+    bf16, 1 int8, 2 fp8; KV 1 int8, 2 fp8, 3 int4)."""
     from flash_attention_from_scratch_tpu_torch.ops.configs import (
         KernelConfig, calc_self_attn_flop)
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
@@ -1793,26 +1814,30 @@ def time_flash_quant() -> dict:
             dq, dk, dv, enable_gqa=True))
         bound_o = ops / (PEAK_INT8_OPS if i8c else PEAK_BF16_FLOPS)
         bound_b = _attn_bytes(qq, kq, vq, out) / PEAK_BYTES_PER_S
+        bound_ms = 1e3 * max(bound_o, bound_b)
         by_variant[variant] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": 1e3 * max(bound_o, bound_b),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if bound_o >= bound_b else "bytes",
+            "bound_share": bound_ms / ms, "product_tflops": ops / ms / 1e9,
             "tflops": flops / ms / 1e9}
         del qq, kq, vq, out, dq, dk, dv
     total = {key: sum(r[key] for r in by_variant.values())
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {**total, "bound_by": "operations", "by_variant": by_variant,
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_quant_kernel", "flash_quant_i8_kernel")),
             "shape": f"sum over the variants {list(QUANT_VARIANTS)}: non-causal, "
                      f"b {PERF_BATCH}, {HEADS}/{KV_HEADS} heads, s {PERF_SEQ}, d {D}; "
                      "library: SDPA on the dequantized bf16 tensors"}
 
 
-def time_fori() -> dict:
-    """K11 at ring depths 1-3, non-causal and causal, with K1 and SDPA at
-    the same shape (b 4, s 4096, 32/8 heads, d 128, bf16). The top-level
-    numbers are the default depth's (2), summed over the two masks; the
-    plain version runs one batch element at a time (its scores would need
-    8.6 GB at once)."""
+def time_fori(ptxas: dict | None = None) -> dict:
+    """K11 at ring depths 1-4, non-causal and causal, with K1 and SDPA at
+    the same shape (b 4, s 4096, 32/8 heads, d 128, bf16), each depth's
+    share of the bound (bound / time) and TFLOP/s of the two products. The
+    top-level numbers are the default depth's (2), summed over the two
+    masks; the plain version runs one batch element at a time (its scores
+    would need 8.6 GB at once). ``ptxas``: the build's registers and
+    spills of ``flash_forward_fori.cu``'s kernels (``ILi<depth>``)."""
     from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
@@ -1831,12 +1856,16 @@ def time_fori() -> dict:
         row["plain_ms"] = _time_ms(lambda: _per_batch(
             lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v), iters=1, warmup=1)
         row["bound_ms"] = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        for n in FORI_DEPTHS:
+            row[f"nb{n}_bound_share"] = row["bound_ms"] / row[f"nb{n}_ms"]
+            row[f"nb{n}_tflops"] = ops / row[f"nb{n}_ms"] / 1e9
         by_mask["causal" if causal else "full"] = row
     total = {key: sum(r[src] for r in by_mask.values()) for key, src in (
         ("ms", "nb2_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
         ("bound_ms", "bound_ms"))}
     del q, k, v
     return {**total, "bound_by": "operations", "by_mask": by_mask,
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_fori_kernel",)),
             "shape": f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
                      f"{HEADS}/{KV_HEADS} heads, s {PERF_SEQ}, d {D}, bf16"}
 
@@ -1879,7 +1908,8 @@ def main(argv=None) -> int:
         return 2
     t0 = time.perf_counter()
     smi = phase_device()
-    ptxas = _ptxas_by_kernel(phase_build().get("quant_matmul.cu", ""))
+    logs = phase_build()
+    ptxas = _ptxas_by_kernel(logs.get("quant_matmul.cu", ""))
     flash_err, flash_ratio = phase_flash_cases()
     fori_err, fori_ratio = phase_fori_cases()
     quant_err, quant_ratio = phase_flash_quant_cases()
@@ -1974,13 +2004,15 @@ def main(argv=None) -> int:
          "launches_path": "tools/bench_quant.py: bench_quant and numerics_check "
                           "at their defaults",
          "max_abs_err": max(quant_err, tool_cases[KQ][0]),
-         "worst_err_bound": max(quant_ratio, tool_cases[KQ][1]), **time_flash_quant()},
+         "worst_err_bound": max(quant_ratio, tool_cases[KQ][1]),
+         **time_flash_quant(_ptxas_by_kernel(logs.get("flash_quant.cu", "")))},
         {"name": KERNEL_FORI, "route": "cuda", "source": pkg + "flash_forward_fori.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:578",
          "launches": tools[KERNEL_FORI],
          "launches_path": "tools/bench_attention.py --fori at its defaults",
          "max_abs_err": max(fori_err, tool_cases[KERNEL_FORI][0]),
-         "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]), **time_fori()},
+         "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]),
+         **time_fori(_ptxas_by_kernel(logs.get("flash_forward_fori.cu", "")))},
     ]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)

@@ -3,461 +3,586 @@
 // quantized (int8 or fp8, one scale per (batch, Q head)); bf16 output.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_quant.py
-// _quant_kernel, with its int8-compute update _attend_i8. Two kernels:
+// _quant_kernel, with its int8-compute update _attend_i8. Two kernels on the
+// CTA of flash_wgmma.cuh (a producer warpgroup and two consumer warpgroups
+// of 64 Q rows, 128 Q rows of one (Q head, batch) per CTA, heaviest causal
+// tiles first); both read K and V as stored, through TMA, and write no
+// dequantized K/V to device memory:
 //
-//   flash_quant_kernel<QT, KV> (the upcast modes): each K/V tile is upcast to
-//     bf16 once, in shared memory, and the math is K1's (flash_tile.cuh's
-//     attend_tile): mma.sync m16n8k16 bf16 with fp32 sums, an fp32
-//     online softmax in the exp2 domain, P cast to bf16 before PV. int8 and
-//     fp8-e4m3 values convert to bf16 exactly; int4 is half-split along d
-//     (byte j holds column j in its low nibble, column j + 64 in its high)
-//     and sign-extended four bytes at a time. The K scale (and Q's) folds
-//     into the softmax scale, the V scale into the final normalisation,
-//     as at flash_quant.py:155-159 and :273.
+//   flash_quant_kernel<QT, KV> (the upcast modes): one producer thread
+//     brings each 128-key tile's raw K and V bytes by TMA into one of two
+//     raw slots; the producer warpgroup converts them into a ring of two
+//     bf16 K/V slots (128-byte swizzled, the layout the consumers' wgmma
+//     reads) while the consumers run the previous tile and the next raw
+//     tile is in flight, then arrives on the slot's full barrier. The
+//     conversions are exact: int8 through the fp32 magic number 2^23 + u
+//     (as K6's dequantization in quant_matmul.cu), fp8-e4m3 through
+//     cvt.rn.f16x2.e4m3x2 (every e4m3 value is exact in fp16 and in bf16),
+//     int4 (half-split along d: byte j holds column j in its low nibble and
+//     column j + 64 in its high) by the bf16 bits 0x4300 | (n ^ 8) minus
+//     136, the low nibbles into the box of columns 0-63 and the high ones
+//     into the box of columns 64-127. An int8 or fp8 Q is upcast the same
+//     way once per CTA. The consumers run flash_wgmma.cuh's bf16 tile math
+//     (consume_bf16). The K scale (and Q's) folds into the softmax scale,
+//     the V scale into the final normalisation, as at flash_quant.py:155-159
+//     and :273.
 //   flash_quant_i8_kernel (int8_compute: int8 Q, K and V): both products on
-//     mma.sync m16n8k32 s8 with exact int32 sums. Each 128-column KV tile is
-//     one P quantization group, as the JAX kernel at block_kv=128 quantizes
-//     P: s = Q_i8 K_i8^T (int32), m = max(s) * c over the group,
-//     P = exp2(s * c - m) rounded to int8 at the constant 127, l = the int32
-//     row sum of that P, acc = P_i8 V_i8 (int32); groups merge online in
-//     fp32 and O = acc / l * v_scale. The P operand's A fragment holds, per
-//     thread, columns {2t, 2t+1, 8+2t, 9+2t} of each 16-column chunk (the S
-//     accumulator's own columns, so P never leaves registers); V is
-//     transposed into (d, kv) rows in shared memory with a 4x4 byte
-//     transpose in registers (__byte_perm, as K8/K9 do in quant_matmul.cu)
-//     that puts the kv rows in that same order, so the product over k is
-//     unchanged.
-//
-// One CTA per (64 Q rows, Q head, batch), 4 warps of 16 rows; Q head h reads
-// KV head h / group. Causal walks stop at the diagonal tile (top-left
-// aligned) and windowed walks start at the first visible tile; raw K/V
-// tiles stream through a two-stage cp.async ring.
+//     wgmma m64n128k32 s8 with exact int32 sums. Each 128-key tile is one P
+//     quantization group, as the JAX kernel at block_kv=128 quantizes P:
+//     s = Q_i8 K_i8^T (int32; 127 * 127 * 128 < 2^31), m = max(s) * c over
+//     the group, P = exp2(s * c - m) rounded to int8 at the constant 127,
+//     l = the integer row sum of that P, acc = P_i8 V_i8 (int32); groups
+//     merge online in fp32 and O = acc / l * v_scale. Q and K arrive by TMA
+//     (128-byte rows, swizzled) and feed S's wgmma as they are. 8-bit wgmma
+//     takes no transposed operand, so the producer warpgroup transposes
+//     each raw V tile into (d, kv) rows (4x4 byte transposes in registers,
+//     __byte_perm) with the kv order permuted within each 16-key chunk:
+//     position 4 t + i holds key {2t, 2t+1, 8+2t, 9+2t}[i], the columns a
+//     thread holds of S's accumulator, so P's int8 A fragments are S's own
+//     registers and the product over k is unchanged.
 //
 // What bounds it on the H100: at prefill lengths the two products are far
 // above the ~295 operations-per-byte balance point, so tensor-core
 // operations bound it: 989 TFLOP/s for the bf16 products of the upcast
-// modes, 1979 TOP/s for int8_compute. This first version runs mma.sync
-// (not wgmma) and converts each tile once in shared memory; native fp8
-// wgmma, TMA and a producer warp are later work.
+// modes, 1979 TOP/s for int8_compute.
 
-#include <cuda_fp8.h>
+#include <cuda_fp16.h>
 
-#include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
-
-constexpr int BK8 = 128;       // keys per KV tile = P group, int8_compute
-constexpr int ROW8 = D + 16;   // padded int8 shared row, in bytes
 
 enum { Q_BF16 = 0, Q_INT8 = 1, Q_FP8 = 2 };
 enum { KV_INT8 = 1, KV_FP8 = 2, KV_INT4 = 3 };
 
+constexpr int BKQ = 128;  // keys per tile, both kernels; the P group of int8_compute
+constexpr int PRODUCER_BAR = 1;  // named barrier of the producer warpgroup
+
+// Stored bytes of one K/V row: 128 (int8, fp8) or 64 (int4).
+__host__ __device__ constexpr int row_bytes(int kv) { return kv == KV_INT4 ? D / 2 : D; }
+
+// The launch geometry of the upcast kernel (ops/flash_quant.py::plan
+// mirrors it): the bf16 Q tile, two bf16 K/V slots and two raw K/V slots;
+// a quantized Q's raw bytes pass through raw slot 1 before its first tile.
+template <int QT, int KV>
+struct UpcastTile {
+  static constexpr int SLOTS = 2;
+  static constexpr int RAW_SLOTS = 2;
+  static constexpr int Q_BYTES = bf16_tile_bytes(BQ);
+  static constexpr int Q_RAW = QT == Q_BF16 ? 0 : BQ * D;
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BKQ);
+  static constexpr int RAW = 2 * BKQ * row_bytes(KV);  // raw K, then raw V
+  static constexpr int SMEM = Q_BYTES + SLOTS * SLOT + RAW_SLOTS * RAW + ALIGN_SLACK;
+  static_assert(Q_RAW <= RAW, "a raw slot holds the raw Q tile");
+  static_assert(SMEM <= SMEM_LIMIT, "the ring does not fit a CTA's shared memory");
+};
+
+// The int8-compute kernel's: the int8 Q tile, four slots of the int8 K
+// tile and the transposed V tile, two raw V slots.
+struct I8Tile {
+  static constexpr int SLOTS = 4;
+  static constexpr int RAW_SLOTS = 2;
+  static constexpr int Q_BYTES = BQ * D;
+  static constexpr int SLOT = 2 * BKQ * D;  // K (kv, d), then V^T (d, kv')
+  static constexpr int RAW = BKQ * D;
+  static constexpr int SMEM = Q_BYTES + SLOTS * SLOT + RAW_SLOTS * RAW + ALIGN_SLACK;
+  static_assert(SMEM <= SMEM_LIMIT, "the ring does not fit a CTA's shared memory");
+};
+
 struct Params {
-  const uint8_t* q;
-  const uint8_t* k;
-  const uint8_t* v;
   bf16* o;
   const float* qs;  // (batch, heads), or null for bf16 Q
   const float* ks;  // (batch, kv_heads)
   const float* vs;  // (batch, kv_heads)
-  long long q_sb, q_sh, q_ss;  // byte strides; d is contiguous
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;  // element strides
   int heads, kv_heads, group, seq_q, seq_kv;
   int causal, window;
   float scale, softcap;
 };
 
-// c += a (16x32 s8, row) * b (32x8 s8, col), exact int32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---------------------------------------------------------------------------
+// Exact conversions to bf16x2 words.
+
+// int8 bytes 0, 1 (lo) and 2, 3 (hi) of w.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;  // u = v + 128 per byte
+  const float magic = 8388736.0f;      // 2^23 + 128
+  lo = bf16x2_upper(byte_value<0>(u, magic), byte_value<1>(u, magic));
+  hi = bf16x2_upper(byte_value<2>(u, magic), byte_value<3>(u, magic));
 }
 
-// Four packed bytes -> their low (hi = false) or high nibbles as four
-// sign-extended int8 bytes: (v ^ 8) - 8 per byte, -8 included.
-__device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
-  uint32_t v = (hi ? (w >> 4) : w) & 0x0F0F0F0Fu;
-  return __vsub4(v ^ 0x08080808u, 0x08080808u);
+// Two e4m3 bytes (the low 16 bits of w) -> bf16x2, through fp16 (exact).
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16(uint32_t w) {
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(static_cast<unsigned short>(w)));
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+  return pack_bf16(f.x, f.y);
 }
 
-// Byte i of w as a float: int8, or fp8 e4m3 (exact in bf16 either way).
+// Two signed nibbles (bits 0-3 and 16-19 of t) -> bf16x2: the bf16 bits
+// 0x4300 | (n ^ 8) are 128 + (v + 8), minus 136.
+__device__ __forceinline__ uint32_t nibbles_to_bf16(uint32_t t) {
+  const uint32_t x = (t & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 bias = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                                 __ushort_as_bfloat16(0x4308));
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x), bias);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// 16 raw int8 or fp8 bytes -> 16 bf16 values (8 words).
 template <bool FP8>
-__device__ __forceinline__ float byte_value(uint32_t w, int i) {
-  const uint32_t b = (w >> (8 * i)) & 0xFFu;
-  if constexpr (FP8) {
-    __nv_fp8_e4m3 v;
-    v.__x = static_cast<__nv_fp8_storage_t>(b);
-    return static_cast<float>(v);
-  } else {
-    return static_cast<float>(static_cast<int8_t>(b));
-  }
-}
-
-// 16 int8 or fp8 bytes -> 16 bf16 values at dst (16-byte aligned).
-template <bool FP8>
-__device__ __forceinline__ void store_bf16x16(bf16* dst, uint4 raw) {
+__device__ __forceinline__ void bytes16_to_bf16(const uint4& raw, uint32_t (&o)[8]) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  uint32_t o[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    o[2 * i] = pack_bf16(byte_value<FP8>(w[i], 0), byte_value<FP8>(w[i], 1));
-    o[2 * i + 1] = pack_bf16(byte_value<FP8>(w[i], 2), byte_value<FP8>(w[i], 3));
-  }
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-// Stored bytes of one K/V row: 128 (int8, fp8) or 64 (int4).
-template <int KV>
-__host__ __device__ constexpr int row_bytes() { return KV == KV_INT4 ? D / 2 : D; }
-
-// A raw BK-row K or V tile into shared memory (unpadded rows).
-template <int KV>
-__device__ __forceinline__ void load_raw(uint8_t* dst, const uint8_t* g, long long row_stride,
-                                         int tid) {
-  constexpr int RB = row_bytes<KV>(), CH = RB / 16;
-#pragma unroll
-  for (int c = tid; c < BK * CH; c += NTHREADS) {
-    const int r = c / CH, ch = c % CH;
-    cp_async16(dst + r * RB + ch * 16, g + r * row_stride + ch * 16);
+    if constexpr (FP8) {
+      o[2 * i] = e4m3x2_to_bf16(w[i]);
+      o[2 * i + 1] = e4m3x2_to_bf16(w[i] >> 16);
+    } else {
+      int8x4_to_bf16(w[i], o[2 * i], o[2 * i + 1]);
+    }
   }
 }
 
-// A raw tile -> bf16 rows (LDS apart) for the mma fragments.
-template <int KV>
-__device__ __forceinline__ void convert_tile(bf16* dst, const uint8_t* raw, int tid) {
+// One 16-byte unit u of a raw tile (rows of row_bytes(KV) bytes, unit u at
+// byte 16 u) -> its bf16 values in the swizzled (ROWS x D) tile at dst.
+// int8 and fp8: 16 columns of a row; int4: 16 bytes of a row, whose low
+// nibbles are 16 columns of the first box and high nibbles the same 16
+// columns of the second.
+template <int KV, int ROWS>
+__device__ __forceinline__ void convert_unit(uint8_t* dst, int u, const uint4& raw16) {
   if constexpr (KV == KV_INT4) {
-    // Byte j of a row: column j (low nibble) and column j + 64 (high).
+    const int r = u >> 2, c = (u & 3) * 16;
+    const uint32_t w[4] = {raw16.x, raw16.y, raw16.z, raw16.w};
+    uint32_t lo[8], hi[8];
 #pragma unroll
-    for (int c = tid; c < BK * 4; c += NTHREADS) {
-      const int r = c >> 2, j = (c & 3) * 16;
-      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * (D / 2) + j);
-      store_bf16x16<false>(dst + r * LDS + j,
-                           make_uint4(nibbles(w.x, false), nibbles(w.y, false),
-                                      nibbles(w.z, false), nibbles(w.w, false)));
-      store_bf16x16<false>(dst + r * LDS + D / 2 + j,
-                           make_uint4(nibbles(w.x, true), nibbles(w.y, true),
-                                      nibbles(w.z, true), nibbles(w.w, true)));
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t t01 = __byte_perm(w[i], 0, 0x4140), t23 = __byte_perm(w[i], 0, 0x4342);
+      lo[2 * i] = nibbles_to_bf16(t01);
+      lo[2 * i + 1] = nibbles_to_bf16(t23);
+      hi[2 * i] = nibbles_to_bf16(t01 >> 4);
+      hi[2 * i + 1] = nibbles_to_bf16(t23 >> 4);
     }
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c)) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 8)) =
+        make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 64)) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 72)) =
+        make_uint4(hi[4], hi[5], hi[6], hi[7]);
   } else {
-#pragma unroll
-    for (int c = tid; c < BK * 8; c += NTHREADS) {
-      const int r = c >> 3, j = (c & 7) * 16;
-      store_bf16x16<KV == KV_FP8>(dst + r * LDS + j,
-                                  *reinterpret_cast<const uint4*>(raw + r * D + j));
-    }
+    const int r = u >> 3, c = (u & 7) * 16;
+    uint32_t o[8];
+    bytes16_to_bf16<KV == KV_FP8>(raw16, o);
+    // The row's threads for columns 64-127 store their second chunk first,
+    // so that each store of 8 threads covers the 8 chunk positions (the
+    // boxes are a multiple of 128 bytes apart).
+    const uint4 lo = make_uint4(o[0], o[1], o[2], o[3]), hi = make_uint4(o[4], o[5], o[6], o[7]);
+    const bool flip = c >= BOX_COLS;
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + (flip ? 8 : 0))) =
+        flip ? hi : lo;
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + (flip ? 0 : 8))) =
+        flip ? lo : hi;
   }
 }
 
-// The CTA's Q tile as bf16 rows: copied (bf16) or upcast (int8, fp8).
-template <int QT>
-__device__ __forceinline__ void load_q(bf16* q_s, const uint8_t* g, long long row_stride,
-                                       int tid) {
-  if constexpr (QT == Q_BF16) {
+// TILES raw (ROWS x row_bytes(KV)) tiles, raw_stride bytes apart, -> as
+// many swizzled bf16 (ROWS x D) tiles, bf16_tile_bytes(ROWS) apart; the 128
+// threads of the producer warpgroup, thread pt. Every load is issued
+// before the first store, so that the loads' latency overlaps.
+template <int KV, int ROWS, int TILES>
+__device__ __forceinline__ void convert_tiles(uint8_t* dst, const uint8_t* raw, int raw_stride,
+                                              int pt) {
+  constexpr int UNITS = ROWS * row_bytes(KV) / 16 / 128;  // a thread's units a tile
+  uint4 in[TILES][UNITS];
 #pragma unroll
-    for (int i = 0; i < (BQ * D / 8) / NTHREADS; ++i) {
-      const int c = tid + i * NTHREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
-      cp_async16(q_s + r * LDS + col, g + r * row_stride + col * 2);
-    }
-  } else {
+  for (int t = 0; t < TILES; ++t)
 #pragma unroll
-    for (int c = tid; c < BQ * 8; c += NTHREADS) {
-      const int r = c >> 3, j = (c & 7) * 16;
-      store_bf16x16<QT == Q_FP8>(q_s + r * LDS + j,
-                                 *reinterpret_cast<const uint4*>(g + r * row_stride + j));
-    }
-  }
+    for (int it = 0; it < UNITS; ++it)
+      in[t][it] = *reinterpret_cast<const uint4*>(raw + t * raw_stride + (it * 128 + pt) * 16);
+#pragma unroll
+  for (int t = 0; t < TILES; ++t)
+#pragma unroll
+    for (int it = 0; it < UNITS; ++it)
+      convert_unit<KV, ROWS>(dst + t * bf16_tile_bytes(ROWS), it * 128 + pt, in[t][it]);
 }
+
+// The position geometry every kernel here shares.
+struct Cta {
+  int h, b, hk, q0, first, n;
+
+  __device__ __forceinline__ Cta(const Params& p) {
+    const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+    h = blockIdx.y;
+    b = blockIdx.z;
+    hk = h / p.group;
+    q0 = q_tile * BQ;
+    int last;
+    cta_tiles(p.causal, p.window, q0, min(BQ, p.seq_q - q0), p.seq_kv, BKQ, first, last);
+    n = max(last - first + 1, 0);
+  }
+
+  // Consumer warpgroup cw's rows (top-left aligned: position = index).
+  __device__ __forceinline__ RowGroup rows(const Params& p, int cw) const {
+    const int r0 = q0 + cw * WG_ROWS;
+    return RowGroup{r0, min(max(p.seq_q - r0, 0), WG_ROWS)};
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The upcast modes.
 
 template <int QT, int KV>
-__global__ void __launch_bounds__(NTHREADS)
-flash_quant_kernel(const Params p) {
-  constexpr int RAW = BK * row_bytes<KV>();  // bytes of one raw tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + BQ * LDS;
-  bf16* v_s = k_s + BK * LDS;
-  uint8_t* raw = reinterpret_cast<uint8_t*>(v_s + BK * LDS);  // 2 stages x (K, V)
+__global__ void __launch_bounds__(THREADS, 1)
+flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = UpcastTile<QT, KV>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, q_raw_full, raw_full[T::RAW_SLOTS], full[T::SLOTS],
+      empty[T::SLOTS];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* ring = q_s + T::Q_BYTES;
+  uint8_t* raw = ring + T::SLOTS * T::SLOT;  // slot r: raw K, then raw V
+  uint8_t* q_raw = raw + T::RAW;             // raw slot 1, before its first tile
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const int q0 = q_tile * BQ;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const Cta cta(p);
 
-  const uint8_t* q_g = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const uint8_t* k_g = p.k + b * p.k_sb + hk * p.k_sh;
-  const uint8_t* v_g = p.v + b * p.v_sb + hk * p.v_sh;
-  // The K (and Q) scale folds into the softmax scale, V's into the output.
-  float eff = p.scale * p.ks[b * p.kv_heads + hk];
-  if (QT != Q_BF16) eff *= p.qs[b * p.heads + h];
-  const float v_scale = p.vs[b * p.kv_heads + hk];
-
-  int first, last;
-  kv_tiles(p.causal, p.window, q0, p.seq_kv, BK, first, last);
-
-  load_q<QT>(q_s, q_g, p.q_ss, tid);
-  if (first <= last) {
-    load_raw<KV>(raw, k_g + first * BK * p.k_ss, p.k_ss, tid);
-    load_raw<KV>(raw + RAW, v_g + first * BK * p.v_ss, p.v_ss, tid);
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_raw_full, 1);
+    for (int r = 0; r < T::RAW_SLOTS; ++r) mbar_init(&raw_full[r], 1);
+    for (int s = 0; s < T::SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_ARRIVALS);
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qa[D / 16][4];
-  load_q_fragments(qa, q_s, warp, lane);
+  if (wg == 0) {  // producer: thread 0 copies, the warpgroup converts
+    const int pt = tid;
+    auto issue_raw = [&](int i) {
+      const int kv0 = (cta.first + i) * BKQ, r = i % T::RAW_SLOTS;
+      uint8_t* dst = raw + r * T::RAW;
+      mbar_arrive_expect_tx(&raw_full[r], T::RAW);
+      tma_load_4d(dst, &tm_k, 0, kv0, cta.hk, cta.b, &raw_full[r]);
+      tma_load_4d(dst + T::RAW / 2, &tm_v, 0, kv0, cta.hk, cta.b, &raw_full[r]);
+    };
+    if (pt == 0) {
+      if constexpr (QT == Q_BF16) {
+        mbar_arrive_expect_tx(&q_full, T::Q_BYTES);
+        tma_load_4d(q_s, &tm_q, 0, cta.q0, cta.h, cta.b, &q_full);
+        tma_load_4d(q_s + bf16_box_bytes(BQ), &tm_q, BOX_COLS, cta.q0, cta.h, cta.b, &q_full);
+      } else {
+        mbar_arrive_expect_tx(&q_raw_full, T::Q_RAW);
+        tma_load_4d(q_raw, &tm_q, 0, cta.q0, cta.h, cta.b, &q_raw_full);
+      }
+      if (cta.n > 0) issue_raw(0);
+    }
+    if constexpr (QT != Q_BF16) {  // upcast Q once
+      mbar_wait(&q_raw_full, 0);
+      convert_tiles<QT == Q_FP8 ? KV_FP8 : KV_INT8, BQ, 1>(q_s, q_raw, 0, pt);
+      fence_proxy_async();
+      named_bar_sync(PRODUCER_BAR, 128);  // raw slot 1 is free again
+      if (pt == 0) mbar_arrive(&q_full);
+    }
+    if (pt == 0 && cta.n > 1) issue_raw(1);
+    for (int i = 0; i < cta.n; ++i) {
+      const int s = i % T::SLOTS, r = i % T::RAW_SLOTS;
+      mbar_wait(&raw_full[r], (i / T::RAW_SLOTS) & 1);
+      if (i >= T::SLOTS) mbar_wait(&empty[s], (i / T::SLOTS - 1) & 1);
+      uint8_t* slot = ring + s * T::SLOT;
+      const uint8_t* src = raw + r * T::RAW;
+      convert_tiles<KV, BKQ, 2>(slot, src, T::RAW / 2, pt);  // K, then V
+      fence_proxy_async();
+      named_bar_sync(PRODUCER_BAR, 128);  // the raw slot is read, the bf16 slot written
+      if (pt == 0) {
+        mbar_arrive(&full[s]);
+        if (i + T::RAW_SLOTS < cta.n) issue_raw(i + T::RAW_SLOTS);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;
+  // The K (and Q) scale folds into the softmax scale, V's into the output.
+  float eff = p.scale * p.ks[cta.b * p.kv_heads + cta.hk];
+  if (QT != Q_BF16) eff *= p.qs[cta.b * p.heads + cta.h];
+  const float v_scale = p.vs[cta.b * p.kv_heads + cta.hk];
   RowState st;
   st.init();
+  mbar_wait(&q_full, 0);
+  consume_bf16<BKQ, T::SLOTS>(st, cta.rows(p, cw), full, empty, ring, T::SLOT,
+                              smem_addr(q_s) + cw * WG_ROWS * 128, bf16_box_bytes(BQ),
+                              cta.first, cta.n,
+                              TileMath{p.causal, p.window, p.seq_kv, eff, p.softcap});
+  const int lane = tid & 31;
+  store_rows(st, cta.q0 + cw * WG_ROWS + ((tid >> 5) & 3) * 16 + (lane >> 2), p.seq_q,
+             p.o + cta.b * p.o_sb + cta.h * p.o_sh, p.o_ss, v_scale, -INFINITY, nullptr);
+}
 
-  for (int j = first; j <= last; ++j) {
-    const int stage = (j - first) & 1;
-    if (j + 1 <= last) {
-      uint8_t* nxt = raw + (stage ^ 1) * 2 * RAW;
-      load_raw<KV>(nxt, k_g + (long long)(j + 1) * BK * p.k_ss, p.k_ss, tid);
-      load_raw<KV>(nxt + RAW, v_g + (long long)(j + 1) * BK * p.v_ss, p.v_ss, tid);
+// ---------------------------------------------------------------------------
+// int8_compute.
+
+// Byte offset of (row r, byte c) in a 128-byte-swizzled tile of 128-byte
+// rows.
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
+}
+
+// The raw V tile (kv rows of 128 d bytes, swizzled by TMA) -> V^T (d rows
+// of 128 kv' bytes, swizzled): kv' = 16 c + 4 t + i holds kv row
+// 16 c + {2t, 2t+1, 8+2t, 9+2t}[i]. Thread pt: d columns 4 dg .. 4 dg + 3
+// and one t.
+__device__ __forceinline__ void transpose_v(uint8_t* vt, const uint8_t* vr, int pt) {
+  const int t = pt & 3, dg = pt >> 2;
+  // A thread writes its 4 d rows starting at row `rot`, so that the rows
+  // of one store across a warp (4 dg + (k + rot) % 4, dg = 8 w .. 8 w + 7)
+  // fall in 8 different swizzle phases: 32 stores on 32 banks.
+  const int rot = (dg >> 1) & 3;
+#pragma unroll
+  for (int ch = 0; ch < BKQ / 16; ++ch) {
+    const int r0 = ch * 16 + 2 * t;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0, 4 * dg));
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 1, 4 * dg));
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 8, 4 * dg));
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 9, 4 * dg));
+    const uint32_t t01l = __byte_perm(w0, w1, 0x5140);
+    const uint32_t t23l = __byte_perm(w2, w3, 0x5140);
+    const uint32_t t01h = __byte_perm(w0, w1, 0x7362);
+    const uint32_t t23h = __byte_perm(w2, w3, 0x7362);
+    uint32_t o[4] = {__byte_perm(t01l, t23l, 0x5410), __byte_perm(t01l, t23l, 0x7632),
+                     __byte_perm(t01h, t23h, 0x5410), __byte_perm(t01h, t23h, 0x7632)};
+    if (rot & 1) {
+      const uint32_t x = o[0];
+      o[0] = o[1], o[1] = o[2], o[2] = o[3], o[3] = x;
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed; tile j + 1 may be in flight
-    __syncthreads();
-    convert_tile<KV>(k_s, raw + stage * 2 * RAW, tid);
-    convert_tile<KV>(v_s, raw + stage * 2 * RAW + RAW, tid);
-    __syncthreads();
-    attend_tile(st, qa, k_s, v_s, warp, lane, j * BK, p.causal, q0, p.window, eff, p.softcap);
-    __syncthreads();  // k_s/v_s and this raw stage are rewritten next
-  }
-
-  // Finalise: O = acc / l * v_scale.
-  store_rows(st, warp, lane, q0, p.o + b * p.o_sb + h * p.o_sh, p.o_ss, v_scale, -INFINITY,
-             nullptr);
-}
-
-// A raw BK8-row int8 tile into padded shared rows (ROW8 bytes apart).
-__device__ __forceinline__ void load_i8_rows(uint8_t* dst, const uint8_t* g, int rows,
-                                             long long row_stride, int tid) {
-  for (int c = tid; c < rows * 8; c += NTHREADS) {
-    const int r = c >> 3, ch = c & 7;
-    cp_async16(dst + r * ROW8 + ch * 16, g + r * row_stride + ch * 16);
+    if (rot & 2) {
+      uint32_t x = o[0];
+      o[0] = o[2], o[2] = x;
+      x = o[1];
+      o[1] = o[3], o[3] = x;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)  // o[k] is d row 4 dg + (k + rot) % 4
+      *reinterpret_cast<uint32_t*>(vt + sw128_offset(4 * dg + ((k + rot) & 3), ch * 16 + 4 * t)) =
+          o[k];
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_quant_i8_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* q_s = smem;                    // BQ x ROW8
-  uint8_t* k_raw = q_s + BQ * ROW8;       // 2 stages x BK8 x ROW8
-  uint8_t* v_raw = k_raw + 2 * BK8 * ROW8;
-  uint8_t* vt = v_raw + 2 * BK8 * ROW8;   // (d, kv) rows: D x ROW8
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const int q0 = q_tile * BQ;
-
-  const uint8_t* q_g = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const uint8_t* k_g = p.k + b * p.k_sb + hk * p.k_sh;
-  const uint8_t* v_g = p.v + b * p.v_sb + hk * p.v_sh;
-  // c: the total log2-domain scale (sm_scale * k_scale * q_scale * log2 e).
-  const float c = p.scale * p.ks[b * p.kv_heads + hk] * p.qs[b * p.heads + h] * LOG2E;
-  const float v_scale = p.vs[b * p.kv_heads + hk];
-
-  int first, last;
-  kv_tiles(p.causal, p.window, q0, p.seq_kv, BK8, first, last);
-
-  load_i8_rows(q_s, q_g, BQ, p.q_ss, tid);
-  if (first <= last) {
-    load_i8_rows(k_raw, k_g + (long long)first * BK8 * p.k_ss, BK8, p.k_ss, tid);
-    load_i8_rows(v_raw, v_g + (long long)first * BK8 * p.v_ss, BK8, p.v_ss, tid);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // This warp's 16 Q rows as s8 A fragments, one per 32-wide d step.
-  uint32_t qa[D / 32][4];
+// One 128-key group of int8_compute for this warpgroup's 64 rows: S =
+// Q K^T, the P quantization, the online merge and O = O alpha +
+// (P_i8 V_i8) w.
+__device__ __forceinline__ void attend_i8(RowState& st, unsigned q_addr, unsigned k_addr,
+                                          unsigned vt_addr, int row0, int kv0, bool masked,
+                                          const TileMath& tm, float c) {
+  // The words 0x4B400000 + v are the fp32 values 1.5 * 2^23 + v for the
+  // integers |v| < 2^22 (|s| <= 127 * 127 * 128, 0 <= P <= 127): the exact
+  // conversions without the quarter-rate I2F and F2I.
+  constexpr int MAGIC_BITS = 0x4B400000;
+  constexpr float MAGIC = 12582912.0f;
+  const int q = threadIdx.x & 3;
+  int si[BKQ / 2];
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 32; ++kk)
-    ldmatrix_x4(qa[kk], q_s + (warp * 16 + (lane & 15)) * ROW8 + kk * 32 + (lane >> 4) * 16);
+    wgmma_ss_s8_n128(si, sw128_desc(q_addr + kk * 32), sw128_desc(k_addr + kk * 32), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
 
-  RowState st;
-  st.init();
-  const int row0 = q0 + warp * 16 + g;
-  const int j4 = lane >> 3;  // which 8x8 matrix this lane addresses in ldmatrix_x4
-
-  for (int j = first; j <= last; ++j) {
-    const int stage = (j - first) & 1;
-    if (j + 1 <= last) {
-      load_i8_rows(k_raw + (stage ^ 1) * BK8 * ROW8, k_g + (long long)(j + 1) * BK8 * p.k_ss,
-                   BK8, p.k_ss, tid);
-      load_i8_rows(v_raw + (stage ^ 1) * BK8 * ROW8, v_g + (long long)(j + 1) * BK8 * p.v_ss,
-                   BK8, p.v_ss, tid);
+  // The group's masked scores and their row max, times c.
+  float sf[BKQ / 2];
+  float mg[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BKQ / 2; ++j) {
+    float x = __int_as_float(si[j] + MAGIC_BITS) - MAGIC;
+    if (masked) {
+      const int qpos = row0 + ((j >> 1) & 1) * 8, kpos = kv0 + (j >> 2) * 8 + 2 * q + (j & 1);
+      if (!visible(tm.causal, tm.window, tm.seq_kv, qpos, kpos)) x = MASK_VALUE;
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // V (kv, d) -> vt (d, kv'): kv' = 16 c + 4 t4 + i holds kv row
-    // 16 c + {2 t4, 2 t4 + 1, 8 + 2 t4, 9 + 2 t4}[i], the order of P's
-    // A-fragment bytes below. Thread: d columns 4 dg..4 dg+3, one t4.
-    {
-      const uint8_t* vr = v_raw + stage * BK8 * ROW8;
-      const int t4 = tid & 3, dg = tid >> 2;
+    sf[j] = x;
+    mg[(j >> 1) & 1] = fmaxf(mg[(j >> 1) & 1], x);
+  }
 #pragma unroll
-      for (int ch = 0; ch < BK8 / 16; ++ch) {
-        const int r0 = ch * 16 + 2 * t4;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vr + r0 * ROW8 + 4 * dg);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vr + (r0 + 1) * ROW8 + 4 * dg);
-        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vr + (r0 + 8) * ROW8 + 4 * dg);
-        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vr + (r0 + 9) * ROW8 + 4 * dg);
-        const uint32_t t01l = __byte_perm(w0, w1, 0x5140);
-        const uint32_t t23l = __byte_perm(w2, w3, 0x5140);
-        const uint32_t t01h = __byte_perm(w0, w1, 0x7362);
-        const uint32_t t23h = __byte_perm(w2, w3, 0x7362);
-        const uint32_t o[4] = {__byte_perm(t01l, t23l, 0x5410), __byte_perm(t01l, t23l, 0x7632),
-                               __byte_perm(t01h, t23h, 0x5410), __byte_perm(t01h, t23h, 0x7632)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<uint32_t*>(vt + (4 * dg + i) * ROW8 + ch * 16 + 4 * t4) = o[i];
-      }
-    }
-    __syncthreads();
-
-    // S = Q K^T (int32) for this warp's 16 rows x 128 keys.
-    const uint8_t* kr = k_raw + stage * BK8 * ROW8;
-    int s[BK8 / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK8 / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0;
-#pragma unroll
-    for (int np = 0; np < BK8 / 16; ++np) {
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kr + (np * 16 + (j4 >> 1) * 8 + (lane & 7)) * ROW8 + kk * 32 +
-                            (j4 & 1) * 16);
-        mma_s8(s[2 * np], qa[kk], kf[0], kf[1]);
-        mma_s8(s[2 * np + 1], qa[kk], kf[2], kf[3]);
-      }
-    }
-
-    // The group's masked float scores and their row max, times c.
-    const int kv0 = j * BK8;
-    const bool edge = tile_needs_mask(p.causal, p.window, q0, kv0, BK8);
-    float sf[BK8 / 8][4];
-    float mg[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BK8 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = static_cast<float>(s[n][e]);
-        if (edge) {
-          if (!visible(row0 + (e >> 1) * 8, kv0 + n * 8 + 2 * t + (e & 1), p.window))
-            x = MASK_VALUE;
-        }
-        sf[n][e] = x;
-        mg[e >> 1] = fmaxf(mg[e >> 1], x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mg[r] = fmaxf(mg[r], __shfl_xor_sync(0xffffffff, mg[r], 1));
-      mg[r] = fmaxf(mg[r], __shfl_xor_sync(0xffffffff, mg[r], 2));
-      mg[r] *= c;
-    }
-
-    // P = exp2(s c - m) rounded to int8 at 127, packed as s8 A fragments:
-    // for key step kk, registers 0/1 (rows g / g + 8) hold columns
-    // {2t, 2t+1} of 8-column blocks 4kk and 4kk+1, registers 2/3 those of
-    // blocks 4kk+2 and 4kk+3.
-    uint32_t pa[BK8 / 32][4];
-#pragma unroll
-    for (int kk = 0; kk < BK8 / 32; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
-    int lsum[2] = {0, 0};
-#pragma unroll
-    for (int n = 0; n < BK8 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pq = __float2int_rn(exp2f(sf[n][e] * c - mg[e >> 1]) * 127.f);
-        lsum[e >> 1] += pq;
-        const int reg = ((n >> 1) & 1) * 2 + (e >> 1), pos = (n & 1) * 2 + (e & 1);
-        pa[n >> 2][reg] |= static_cast<uint32_t>(pq) << (8 * pos);
-      }
-    }
-
-    // Merge the group online: m_new = max(m, m_g), the running sums by
-    // exp2(m - m_new), the group's by exp2(m_g - m_new).
-    float alpha[2], w[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(st.m[r], mg[r]);
-      alpha[r] = exp2f(st.m[r] - m_new);
-      w[r] = exp2f(mg[r] - m_new);
-      st.m[r] = m_new;
-      st.l[r] = st.l[r] * alpha[r] + static_cast<float>(lsum[r]) * w[r];
-    }
-
-    // O = O alpha + (P_i8 V_i8) w, two 8-wide d blocks at a time.
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-      for (int kk = 0; kk < BK8 / 32; ++kk) {
-        uint32_t vf[4];
-        ldmatrix_x4(vf, vt + (np * 16 + (j4 >> 1) * 8 + (lane & 7)) * ROW8 + kk * 32 +
-                            (j4 & 1) * 16);
-        mma_s8(acc[0], pa[kk], vf[0], vf[1]);
-        mma_s8(acc[1], pa[kk], vf[2], vf[3]);
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          st.o[2 * np + q][e] =
-              st.o[2 * np + q][e] * alpha[e >> 1] + static_cast<float>(acc[q][e]) * w[e >> 1];
-    }
-    __syncthreads();  // vt and this raw stage are rewritten next
+  for (int r = 0; r < 2; ++r) {
+    mg[r] = fmaxf(mg[r], __shfl_xor_sync(0xffffffff, mg[r], 1));
+    mg[r] = fmaxf(mg[r], __shfl_xor_sync(0xffffffff, mg[r], 2));
+    mg[r] *= c;
   }
 
-  // Finalise: O = acc / l * v_scale.
-  store_rows(st, warp, lane, q0, p.o + b * p.o_sb + h * p.o_sh, p.o_ss, v_scale, -INFINITY,
-             nullptr);
+  // P = exp2(s c - m) * 127 rounded to the nearest integer (ties to even)
+  // as the low byte of the word of MAGIC + P, and the integer row sums
+  // (the words' sum less 32 MAGIC_BITS, mod 2^32).
+  uint32_t pw[BKQ / 2];
+  uint32_t lw[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < BKQ / 2; ++j) {
+    pw[j] = __float_as_uint(fmaf(fast_exp2(fmaf(sf[j], c, -mg[(j >> 1) & 1])), 127.f, MAGIC));
+    lw[(j >> 1) & 1] += pw[j];
+  }
+  int lsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lsum[r] = static_cast<int>(lw[r] - (BKQ / 4) * static_cast<uint32_t>(MAGIC_BITS));
+
+  // P as s8 A fragments: for key step kk (32 keys), register 2 hh + (row
+  // half) holds in byte 2 (j & 1) + (e & 1) accumulator block
+  // j = 4 kk + 2 hh + (j & 1), element e of that row half; V^T's kv' order
+  // matches.
+  uint32_t pa[BKQ / 32][4];
+#pragma unroll
+  for (int kk = 0; kk < BKQ / 32; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i0 = 4 * (4 * kk + 2 * (r >> 1)) + 2 * (r & 1), i1 = i0 + 4;
+      pa[kk][r] = __byte_perm(__byte_perm(pw[i0], pw[i0 + 1], 0x0040),
+                              __byte_perm(pw[i1], pw[i1 + 1], 0x0040), 0x5410);
+    }
+
+  // Merge the group online: m_new = max(m, m_g), the running sums by
+  // exp2(m - m_new), the group's by exp2(m_g - m_new).
+  float alpha[2], w[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(st.m[r], mg[r]);
+    alpha[r] = fast_exp2(st.m[r] - m_new);
+    w[r] = fast_exp2(mg[r] - m_new);
+    st.m[r] = m_new;
+    st.l[r] = st.l[r] * alpha[r] + static_cast<float>(lsum[r]) * w[r];
+  }
+
+  // O = O alpha + (P_i8 V_i8) w.
+  int acc[D / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKQ / 32; ++kk)
+    wgmma_s8_n128(acc, pa[kk], sw128_desc(vt_addr + kk * 32), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  // acc w as (MAGIC + acc) w - MAGIC w: the rounding of MAGIC w moves each
+  // term by at most half a unit of acc, far below the bf16 output's.
+  const float off[2] = {-MAGIC * w[0], -MAGIC * w[1]};
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) {
+    const int r = (j >> 1) & 1;
+    st.o[j] = fmaf(st.o[j], alpha[r], fmaf(__int_as_float(acc[j] + MAGIC_BITS), w[r], off[r]));
+  }
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+flash_quant_i8_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = I8Tile;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[T::SLOTS], empty[T::SLOTS],
+      raw_full[T::RAW_SLOTS];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* ring = q_s + T::Q_BYTES;  // slot s: K, then V^T
+  uint8_t* raw = ring + T::SLOTS * T::SLOT;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const Cta cta(p);
+
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < T::SLOTS; ++s) {
+      mbar_init(&full[s], 2);  // the K copy's arrival, then the transpose's
+      mbar_init(&empty[s], CONSUMER_ARRIVALS);
+    }
+    for (int r = 0; r < T::RAW_SLOTS; ++r) mbar_init(&raw_full[r], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: thread 0 copies, the warpgroup transposes V
+    const int pt = tid;
+    // Tile j's K into its slot (once the slot is free) and its raw V.
+    auto issue = [&](int j) {
+      const int s = j % T::SLOTS, r = j % T::RAW_SLOTS;
+      const int kv0 = (cta.first + j) * BKQ;
+      if (j >= T::SLOTS) mbar_wait(&empty[s], (j / T::SLOTS - 1) & 1);
+      mbar_arrive_expect_tx(&full[s], BKQ * D);
+      tma_load_4d(ring + s * T::SLOT, &tm_k, 0, kv0, cta.hk, cta.b, &full[s]);
+      mbar_arrive_expect_tx(&raw_full[r], T::RAW);
+      tma_load_4d(raw + r * T::RAW, &tm_v, 0, kv0, cta.hk, cta.b, &raw_full[r]);
+    };
+    if (pt == 0) {
+      mbar_arrive_expect_tx(&q_full, T::Q_BYTES);
+      tma_load_4d(q_s, &tm_q, 0, cta.q0, cta.h, cta.b, &q_full);
+      for (int j = 0; j < T::RAW_SLOTS && j < cta.n; ++j) issue(j);
+    }
+    for (int i = 0; i < cta.n; ++i) {
+      const int s = i % T::SLOTS, r = i % T::RAW_SLOTS;
+      mbar_wait(&raw_full[r], (i / T::RAW_SLOTS) & 1);
+      if (i >= T::SLOTS) mbar_wait(&empty[s], (i / T::SLOTS - 1) & 1);
+      transpose_v(ring + s * T::SLOT + BKQ * D, raw + r * T::RAW, pt);
+      fence_proxy_async();
+      named_bar_sync(PRODUCER_BAR, 128);  // the raw slot is read, V^T written
+      if (pt == 0) {
+        mbar_arrive(&full[s]);
+        if (i + T::RAW_SLOTS < cta.n) issue(i + T::RAW_SLOTS);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;
+  // c: the total log2-domain scale (sm_scale * k_scale * q_scale * log2 e).
+  const float c = p.scale * p.ks[cta.b * p.kv_heads + cta.hk] * p.qs[cta.b * p.heads + cta.h] *
+                  LOG2E;
+  const float v_scale = p.vs[cta.b * p.kv_heads + cta.hk];
+  const RowGroup rg = cta.rows(p, cw);
+  const int lane = tid & 31, wq = (tid >> 5) & 3;
+  const int row0 = rg.q_min + wq * 16 + (lane >> 2);
+  const unsigned q_addr = smem_addr(q_s) + cw * WG_ROWS * 128;
+  const TileMath tm{p.causal, p.window, p.seq_kv, 0.f, 0.f};
+  RowState st;
+  st.init();
+  mbar_wait(&q_full, 0);
+  walk_tiles<T::SLOTS>(rg, tm, BKQ, cta.first, cta.n, full, empty, [&](int i) {
+    const unsigned k_addr = smem_addr(ring + (i % T::SLOTS) * T::SLOT);
+    const int kv0 = (cta.first + i) * BKQ;
+    attend_i8(st, q_addr, k_addr, k_addr + BKQ * D, row0, kv0,
+              rg.needs_mask(p.causal, p.window, kv0, BKQ, p.seq_kv), tm, c);
+  });
+  store_rows(st, cta.q0 + cw * WG_ROWS + wq * 16 + (lane >> 2), p.seq_q,
+             p.o + cta.b * p.o_sb + cta.h * p.o_sh, p.o_ss, v_scale, -INFINITY, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
 template <typename Kernel>
-int launch(Kernel kernel, int smem, const Params& p, int batch, cudaStream_t stream) {
+int launch(Kernel kernel, int smem, const Maps& m, const Params& p, int batch,
+           cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.seq_q / BQ, p.heads, batch);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  dim3 grid((p.seq_q + BQ - 1) / BQ, p.heads, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(m.q, m.k, m.v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QT, int KV>
-int launch_upcast(const Params& p, int batch, cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * LDS * static_cast<int>(sizeof(bf16)) +
-                   4 * BK * row_bytes<KV>();
-  return launch(flash_quant_kernel<QT, KV>, smem, p, batch, stream);
-}
-
 template <int QT>
-int launch_kv(int kv_mode, const Params& p, int batch, cudaStream_t stream) {
+int launch_kv(int kv_mode, const Maps& m, const Params& p, int batch, cudaStream_t stream) {
   switch (kv_mode) {
-    case KV_INT8: return launch_upcast<QT, KV_INT8>(p, batch, stream);
-    case KV_FP8: return launch_upcast<QT, KV_FP8>(p, batch, stream);
-    case KV_INT4: return launch_upcast<QT, KV_INT4>(p, batch, stream);
+    case KV_INT8:
+      return launch(flash_quant_kernel<QT, KV_INT8>, UpcastTile<QT, KV_INT8>::SMEM, m, p, batch,
+                    stream);
+    case KV_FP8:
+      return launch(flash_quant_kernel<QT, KV_FP8>, UpcastTile<QT, KV_FP8>::SMEM, m, p, batch,
+                    stream);
+    case KV_INT4:
+      return launch(flash_quant_kernel<QT, KV_INT4>, UpcastTile<QT, KV_INT4>::SMEM, m, p, batch,
+                    stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -472,11 +597,13 @@ const char* fa_error_string(int code) {
 
 // q (b, heads, seq_q, 128): bf16 (q_type 0), int8 (1) or fp8 e4m3 (2);
 // k/v (b, kv_heads, seq_kv, 128) int8 (kv_mode 1) or fp8 (2), or
-// (b, kv_heads, seq_kv, 64) packed int4 (3); q/k/v strides in bytes (rows
-// 16-byte aligned, d contiguous). qs (b, heads) fp32 (read for q_type 1, 2),
-// ks/vs (b, kv_heads) fp32. o (b, heads, seq_q, 128) bf16, element strides.
-// int8c (q_type 1, kv_mode 1 only): both products in int8. seq_q % 64 == 0,
-// seq_kv % 64 == 0 (% 128 for int8c). Returns cudaGetLastError().
+// (b, kv_heads, seq_kv, 64) packed int4 (3); q/k/v strides in bytes
+// (multiples of 16, d contiguous, bases 16-byte aligned). qs (b, heads)
+// fp32 (read for q_type 1, 2), ks/vs (b, kv_heads) fp32. o (b, heads,
+// seq_q, 128) bf16, element strides. int8c (q_type 1, kv_mode 1 only): both
+// products in int8. seq_q and seq_kv are multiples of 128. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels
+// do not take or a tensor map that cannot be encoded.
 int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const void* qs,
                    const void* ks, const void* vs,
                    long long q_sb, long long q_sh, long long q_ss,
@@ -486,17 +613,14 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
                    int batch, int heads, int kv_heads, int seq_q, int seq_kv,
                    int q_type, int kv_mode, int int8c, int causal, int window,
                    float scale, float softcap, void* stream) {
+  if (seq_q % BKQ || seq_kv % BKQ || q_type < Q_BF16 || q_type > Q_FP8 ||
+      kv_mode < KV_INT8 || kv_mode > KV_INT4 || (int8c && (q_type != Q_INT8 || kv_mode != KV_INT8)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const uint8_t*>(q);
-  p.k = static_cast<const uint8_t*>(k);
-  p.v = static_cast<const uint8_t*>(v);
   p.o = static_cast<bf16*>(o);
   p.qs = static_cast<const float*>(qs);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.heads = heads;
   p.kv_heads = kv_heads;
@@ -507,18 +631,30 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
   p.window = window;
   p.scale = scale;
   p.softcap = softcap;
+  // Q: bf16 as two swizzled 64-column boxes, or its raw bytes (swizzled
+  // as int8c's wgmma reads them, plain for the upcast). K/V: raw rows,
+  // swizzled for int8c (K feeds wgmma, V the transpose), plain for the
+  // upcast.
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const int kv_row = row_bytes(kv_mode);
+  Maps m;
+  const bool q_ok =
+      q_type == Q_BF16
+          ? encode_bhsd(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, heads, seq_q, D, q_sb,
+                        q_sh, q_ss, BQ, BOX_COLS, true)
+          : encode_bhsd(&m.q, u8, q, batch, heads, seq_q, D, q_sb, q_sh, q_ss, BQ, D, int8c);
+  if (!q_ok ||
+      !encode_bhsd(&m.k, u8, k, batch, kv_heads, seq_kv, kv_row, k_sb, k_sh, k_ss, BKQ, kv_row,
+                   int8c) ||
+      !encode_bhsd(&m.v, u8, v, batch, kv_heads, seq_kv, kv_row, v_sb, v_sh, v_ss, BKQ, kv_row,
+                   int8c))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8c) {
-    if (q_type != Q_INT8 || kv_mode != KV_INT8 || seq_kv % BK8)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = BQ * ROW8 + 4 * BK8 * ROW8 + D * ROW8;
-    return launch(flash_quant_i8_kernel, smem, p, batch, s);
-  }
+  if (int8c) return launch(flash_quant_i8_kernel, I8Tile::SMEM, m, p, batch, s);
   switch (q_type) {
-    case Q_BF16: return launch_kv<Q_BF16>(kv_mode, p, batch, s);
-    case Q_INT8: return launch_kv<Q_INT8>(kv_mode, p, batch, s);
-    case Q_FP8: return launch_kv<Q_FP8>(kv_mode, p, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case Q_BF16: return launch_kv<Q_BF16>(kv_mode, m, p, batch, s);
+    case Q_INT8: return launch_kv<Q_INT8>(kv_mode, m, p, batch, s);
+    default: return launch_kv<Q_FP8>(kv_mode, m, p, batch, s);
   }
 }
 

@@ -3,17 +3,19 @@
 Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_forward.py``
 ``flash_forward`` / ``flash_forward_with_lse``. For a CUDA tensor the wrapper
 launches ``csrc/flash_forward.cu`` (K1), or ``csrc/flash_forward_fori.cu``
-(K11, the K/V copy ring) when ``cfg.kv_loop`` is ``KVLoop.FORI``; for a CPU
-tensor it runs the plain version, :func:`flash_forward_plain`, the same
-function for both. The JAX package's row-band causal dispatch
-(``ops/causal_decomp.py``) has no counterpart: its output is that of a
-causal kernel that skips the tiles above the diagonal, which both kernels
-do.
+(K11, the K/V copy ring on the wgmma + TMA main loop of
+``csrc/flash_wgmma.cuh``; its launch is :func:`fori_plan`) when
+``cfg.kv_loop`` is ``KVLoop.FORI``; for a CPU tensor it runs the plain
+version, :func:`flash_forward_plain`, the same function for both. The JAX
+package's row-band causal dispatch (``ops/causal_decomp.py``) has no
+counterpart: its output is that of a causal kernel that skips the tiles
+above the diagonal, which both kernels do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -23,14 +25,66 @@ from .configs import DType, KernelConfig, KVLoop
 from .reference import reference_attention
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
-           "KERNEL", "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD"]
+           "fori_plan", "TilePlan", "KERNEL", "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
 KERNEL_FORI = "flash_forward_fori"
 SOURCE_FORI = "flash_forward_fori.cu"
-SEQ_QUANTUM = 64  # both kernels' Q and KV tile height
+SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
 D_HEAD = 128      # both kernels' head width
+
+# The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K11
+# and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q
+# rows each.
+WG_ROWS = 64
+CONSUMER_WGS = 2
+TILE_ROWS = CONSUMER_WGS * WG_ROWS   # Q rows per CTA
+TILE_THREADS = (CONSUMER_WGS + 1) * 128
+SMEM_LIMIT = 232448   # shared memory an H100 block may use
+ALIGN_SLACK = 1024    # swizzled tiles start at a 1024-byte boundary
+MAX_GRID_YZ = 65535   # CUDA's limit on the grid's y (heads) and z (batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """A launch of the wgmma attention main loop: ``rows`` Q rows per CTA,
+    ``keys`` keys per ring slot, ``slots`` K/V slots, ``smem`` bytes of
+    dynamic shared memory, ``grid`` (Q tiles, heads, batch) and ``kv_tiles``
+    the KV tiles of the whole walk (the zero-filled tail of the last one
+    masked)."""
+    rows: int
+    keys: int
+    slots: int
+    smem: int
+    grid: tuple
+    kv_tiles: int
+    threads: int = TILE_THREADS
+
+
+def bf16_tile_bytes(rows: int) -> int:
+    """Bytes of a bf16 (rows, d_head) tile in shared memory."""
+    return rows * D_HEAD * 2
+
+
+def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
+              seq_kv: int) -> TilePlan:
+    """K11's launch (``ForiTile<NB>`` in ``csrc/flash_forward_fori.cu``): a
+    ring of ``num_kv_buffers`` slots of BK keys (the K tile, then the V tile,
+    bf16), BK 128 at depths 1-3 and 64 at depth 4, beside the bf16 Q tile."""
+    keys = 64 if num_kv_buffers == 4 else 128
+    return TilePlan(
+        rows=TILE_ROWS, keys=keys, slots=num_kv_buffers,
+        smem=(bf16_tile_bytes(TILE_ROWS) + num_kv_buffers * 2 * bf16_tile_bytes(keys)
+              + ALIGN_SLACK),
+        grid=(-(-seq_q // TILE_ROWS), heads, batch), kv_tiles=-(-seq_kv // keys))
+
+
+def check_grid(plan: TilePlan) -> None:
+    """Raise ValueError where CUDA cannot launch the plan's grid."""
+    if max(plan.grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"heads and batch must be at most {MAX_GRID_YZ}: grid "
+                         f"{plan.grid}")
 
 _I64, _I32, _F32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -128,6 +182,7 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
             float(cfg.softmax_scale), float(cfg.attn_softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if cfg.kv_loop == KVLoop.FORI:
+        check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv))
         lib, name = _fori_lib(), KERNEL_FORI
         rc = lib.fa_flash_forward_fori(*args, cfg.num_kv_buffers, stream)
     else:

@@ -8,8 +8,9 @@ Q's) folds into the softmax scale and the V scale into the output
 normalization, so no dequantized K/V is written. ``int8_compute`` runs both
 products in int8 with P quantized at the constant 127 per group of
 ``I8_P_GROUP`` KV columns. For a CUDA tensor the wrapper launches
-``csrc/flash_quant.cu``; for a CPU tensor it runs the plain version,
-:func:`flash_forward_quantized_plain`.
+``csrc/flash_quant.cu`` (on the wgmma + TMA main loop of
+``csrc/flash_wgmma.cuh``; its launch is :func:`plan`); for a CPU tensor it
+runs the plain version, :func:`flash_forward_quantized_plain`.
 
 Two behaviours of the JAX kernel are refused instead of copied: it ignores
 ``cfg.q_offset`` (its causal mask is top-left aligned whatever the offset)
@@ -26,15 +27,16 @@ import torch
 
 from . import _build
 from .configs import DType, KernelConfig
+from .flash_forward import ALIGN_SLACK, TILE_ROWS, TilePlan, bf16_tile_bytes, check_grid
 from .quant import QTensor, unpack_int4
 from .reference import MASK_VALUE, reference_attention
 
-__all__ = ["flash_forward_quantized", "flash_forward_quantized_plain", "KERNEL",
+__all__ = ["flash_forward_quantized", "flash_forward_quantized_plain", "plan", "KERNEL",
            "SEQ_QUANTUM", "I8_P_GROUP"]
 
 KERNEL = "flash_quant"
 SOURCE = "flash_quant.cu"
-SEQ_QUANTUM = 128  # seq_q and seq_kv must be multiples (the int8 KV tile)
+SEQ_QUANTUM = 128  # seq_q and seq_kv must be multiples (the KV tile)
 I8_P_GROUP = 128   # KV columns that share one P quantization max (int8_compute)
 D_HEAD = 128
 LOG2E = math.log2(math.e)
@@ -137,6 +139,29 @@ def _byte_strides(x):
     return [_I64(s * x.element_size()) for s in x.stride()[:3]]
 
 
+def plan(kv_mode: str, int8_compute: bool, batch: int, heads: int, seq_q: int,
+         seq_kv: int) -> TilePlan:
+    """K10's launch on the wgmma main loop (``UpcastTile`` and ``I8Tile`` in
+    ``csrc/flash_quant.cu``), tiles of SEQ_QUANTUM keys. Upcast modes: the
+    bf16 Q tile, two bf16 K/V slots and two raw K/V slots (a quantized Q's
+    raw bytes pass through the second before its first tile).
+    ``int8_compute``: the int8 Q tile, four slots of the int8 K tile and the
+    transposed V tile, and two raw V slots."""
+    keys = SEQ_QUANTUM
+    if int8_compute:
+        slots = 4
+        smem = (TILE_ROWS * D_HEAD + slots * 2 * keys * D_HEAD + 2 * keys * D_HEAD
+                + ALIGN_SLACK)
+    else:
+        slots = 2
+        row = D_HEAD // 2 if kv_mode == "int4" else D_HEAD
+        smem = (bf16_tile_bytes(TILE_ROWS) + slots * 2 * bf16_tile_bytes(keys)
+                + 2 * (2 * keys * row) + ALIGN_SLACK)
+    return TilePlan(rows=TILE_ROWS, keys=keys, slots=slots, smem=smem,
+                    grid=(-(-seq_q // TILE_ROWS), heads, batch),
+                    kv_tiles=-(-seq_kv // keys))
+
+
 def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
             int8_compute: bool):
     q_quant = isinstance(q, QTensor)
@@ -154,6 +179,7 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
                              f"rows; strides {t.stride()}")
     b, h, sq, _ = q_vals.shape
     kvh, skv = k.values.shape[1], k.seq_len
+    check_grid(plan(k.mode, int8_compute, b, h, sq, skv))
     out = torch.empty_like(q_vals, dtype=torch.bfloat16)  # keeps q's strides
     f32 = dict(device=q_vals.device, dtype=torch.float32)
     ks, vs = k.scales.to(**f32).contiguous(), v.scales.to(**f32).contiguous()

@@ -24,6 +24,9 @@ largest gradient (about one bf16 ulp).
 """
 
 import dataclasses
+import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -38,10 +41,12 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
     KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-    KERNEL as FLASH, KERNEL_FORI as FORI, flash_forward_plain, flash_forward_with_lse,
+    KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE_FORI, flash_forward_plain,
+    flash_forward_with_lse,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
-    KERNEL as FLASH_QUANT, flash_forward_quantized, flash_forward_quantized_plain,
+    KERNEL as FLASH_QUANT, SOURCE as SOURCE_QUANT, flash_forward_quantized,
+    flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
     KERNEL as PAGED, kernel_name, paged_decode_attention, paged_decode_attention_plain,
@@ -81,17 +86,28 @@ def test_flash_kernel_matches_plain(cuda, sq, kw):
     check_flash_kernel(cuda, sq, KernelConfig(**kw), FLASH)
 
 
+# K1's cases, then the shapes K11's 128-row CTAs and 128-key slots make
+# ragged: the second consumer warpgroup of the last Q tile past seq_q, the
+# last KV tile half zero-filled (``seq_kv`` is popped from the options).
+FORI_CASES = FLASH_CASES + [
+    (192, dict(seq_kv=320)), (192, dict(causal=True, seq_kv=320)),
+    (192, dict(causal=True, q_offset=128, window=70, seq_kv=320))]
+
+
 @pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
-@pytest.mark.parametrize("sq,kw", FLASH_CASES)
+@pytest.mark.parametrize("sq,kw", FORI_CASES)
 def test_fori_kernel_matches_plain(cuda, sq, kw, nbuf):
-    """K11 at every ring depth it is built for, on K1's cases."""
+    """K11 at every ring depth it is built for, on K1's cases and the
+    ragged ones."""
+    kw = dict(kw)
+    skv = kw.pop("seq_kv", 256)
     cfg = KernelConfig(kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
-    check_flash_kernel(cuda, sq, cfg, FORI)
+    check_flash_kernel(cuda, sq, cfg, FORI, seq_kv=skv)
 
 
-def check_flash_kernel(cuda, sq, cfg, kernel):
+def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
-               make_qkv(2, 8, sq, kv_heads=2, seq_kv=256, seed=1))
+               make_qkv(2, 8, sq, kv_heads=2, seq_kv=seq_kv, seed=1))
     sinks = torch.linspace(-2, 2, 8, device=cuda)
     before = _build.launch_counts[kernel]
     out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
@@ -155,22 +171,32 @@ QUANT_VARIANTS = {**bench_quant.CHECK_VARIANTS, "fp8q_int4kv": ("int4", "fp8", F
     ("int8c", dict(causal=True, window=200), False),
     ("int8kv", dict(causal=True, window=100), False),
     ("fp8", dict(causal=True, attn_softcap=20.0), False),
-    ("int8kv", dict(causal=True), True), ("int8c", {}, True)])
+    ("int8kv", dict(causal=True), True), ("int8c", {}, True),
+    # s 640 (five 128-key groups, an odd count of 128-row Q tiles), causal,
+    # 32 Q / 8 KV heads (``seq`` and ``heads`` are popped from the options).
+    *[(variant, dict(causal=True, seq=640, heads=(32, 8)), False)
+      for variant in QUANT_VARIANTS]])
 def test_flash_quant_kernel_matches_plain(cuda, variant, kw, strided):
     """K10 vs its plain version (b 2, 8 Q / 2 KV heads, s 384: three
-    int8-compute groups): the adaptive rule per (batch, head, 64-row band)
-    against the plain version and reference attention in fp32 on the
-    inputs dequantized in fp32; ``strided`` hands Q over as a transposed
-    view, whose strides the output keeps."""
+    int8-compute groups, unless the case says otherwise): the adaptive rule
+    per (batch, head, 64-row band) against the plain version and reference
+    attention in fp32 on the inputs dequantized in fp32; ``strided`` hands
+    Q over as a transposed view, whose strides the output keeps."""
     kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
+    kw = dict(kw)
+    seq, (heads, kv_heads) = kw.pop("seq", 384), kw.pop("heads", (8, 2))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
-               make_qkv(2, 8, 384, kv_heads=2, seed=8))
+               make_qkv(2, heads, seq, kv_heads=kv_heads, seed=8))
     qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
     if strided:
         rows = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
         qq = rows(qq) if q_kind == "bf16" else QTensor(rows(qq.values), qq.scales, q_kind)
     kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
-    cfg = KernelConfig(**kw)
+    check_flash_quant(qq, kq, vq, KernelConfig(**kw), i8c, (variant, kw))
+
+
+def check_flash_quant(qq, kq, vq, cfg, i8c, what):
+    """K10 once on (qq, kq, vq) by the rule of the test above."""
     before = _build.launch_counts[FLASH_QUANT]
     out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
     torch.cuda.synchronize()
@@ -191,7 +217,76 @@ def test_flash_quant_kernel_matches_plain(cuda, variant, kw, strided):
     assert bool(torch.isfinite(out).all())
     ok, ratio, where = sliced_tolerance_check(
         row_bands(out), row_bands(native), row_bands(ref32), lead=3)
-    assert ok, (variant, kw, ratio, where)
+    assert ok, (what, ratio, where)
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_int8c_kernel_pairs_p_with_its_v_rows(cuda, causal):
+    """int8_compute with a one-hot V (key i holds 127 at column i mod 128):
+    output column c is the weight of the keys i = c mod 128 alone, so a P
+    register paired with the wrong V row of its 16-key chunk (the kernel
+    permutes V's key order to match P's accumulator columns) moves weight
+    between columns and fails the rule against the plain int8 path."""
+    q, k, _ = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 384, kv_heads=2, seed=12))
+    onehot = torch.zeros((2, 2, 384, 128), dtype=torch.int8, device=cuda)
+    keys = torch.arange(384, device=cuda)
+    onehot[:, :, keys, keys % 128] = 127
+    vq = QTensor(onehot, torch.full((2, 2), 1 / 127, device=cuda), "int8")
+    qq, kq = quantize_kv(q, "int8"), quantize_kv(k, "int8")
+    out = check_flash_quant(qq, kq, vq, KernelConfig(causal=causal), True, "one-hot V")
+    # Every key's weight lands in its own column: the row sums are 1.
+    assert float((out.float().sum(-1) - 1).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+def test_fori_kernel_is_deterministic(cuda, nbuf):
+    """K11 has no atomics and a fixed order: two calls agree bit for bit
+    (a slot refilled before both warpgroups finished with it would not)."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 1024, kv_heads=2, seq_kv=1088, seed=13))
+    for kw in (dict(), dict(causal=True, q_offset=64)):
+        cfg = KernelConfig(kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
+        first, lse = flash_forward_with_lse(q, k, v, cfg)
+        second, lse2 = flash_forward_with_lse(q, k, v, cfg)
+        assert torch.equal(first, second) and torch.equal(lse, lse2), kw
+
+
+@pytest.mark.parametrize("variant", list(QUANT_VARIANTS))
+def test_flash_quant_kernel_is_deterministic(cuda, variant):
+    kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 1024, kv_heads=2, seed=14))
+    qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
+    kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
+    for cfg in (KernelConfig(), KernelConfig(causal=True)):
+        first = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+        assert torch.equal(first, flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
+
+
+def _sass_by_function(source):
+    """{kernel symbol: its SASS} of the built library of ``source``."""
+    path = _build.load(source)._name
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def test_attention_kernels_run_on_wgmma(cuda):
+    """K11 and K10's upcast kernels issue bf16 wgmma (HGMMA), K10's int8
+    compute kernel int8 wgmma (IGMMA); none keeps an mma.sync (HMMA/IMMA)."""
+    fori = _sass_by_function(SOURCE_FORI)
+    assert len([n for n in fori if "flash_forward_fori_kernel" in n]) == MAX_KV_BUFFERS
+    quant = _sass_by_function(SOURCE_QUANT)
+    assert len([n for n in quant if "flash_quant_kernel" in n]) == 9
+    for name, sass in {**fori, **quant}.items():
+        want = "IGMMA" if "flash_quant_i8_kernel" in name else "HGMMA"
+        assert want in sass, name
+        assert "HMMA" not in sass and "IMMA" not in sass, name
+    assert any("flash_quant_i8_kernel" in n for n in quant)
 
 
 def _bf16_ulp(x):

@@ -53,8 +53,8 @@ def _bytes(x):
     return x.view(np.uint8) if str(x.dtype).startswith("float8") else x
 
 
-def _inputs(heads=4, kv_heads=2, seed=21):
-    return make_qkv(1, heads, 256, kv_heads=kv_heads, seed=seed)
+def _inputs(heads=4, kv_heads=2, seed=21, seq=256):
+    return make_qkv(1, heads, seq, kv_heads=kv_heads, seed=seed)
 
 
 def _quantized(x, kind, side):
@@ -93,12 +93,16 @@ CASES.update({
     "int8-qfp8-gqa4": ("int8", "fp8", dict(causal=True), 8, 2),
     "int4-qbf16-mha": ("int4", "bf16", {}, 2, 2),
 })
+# s 640: five 128-key tiles (an odd count of the CUDA kernel's 128-row Q
+# tiles), causal, 4 Q heads on one KV head.
+CASES.update({f"{mode}-q{qk}-s640-gqa4": (mode, qk, dict(causal=True), 4, 1, 640)
+              for mode, qk in (("int8", "bf16"), ("fp8", "int8"), ("int4", "fp8"))})
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_flash_forward_quantized_matches_jax(name):
-    mode, qk, kw, heads, kv_heads = CASES[name]
-    q, k, v = _inputs(heads, kv_heads)
+    mode, qk, kw, heads, kv_heads, *seq = CASES[name]
+    q, k, v = _inputs(heads, kv_heads, seq=seq[0] if seq else 256)
     jq, jk, jv = _quantized(q, qk, "jax"), _quantized(k, mode, "jax"), _quantized(v, mode, "jax")
     jcfg = JaxKernelConfig(block_q=128, block_kv=128, scale_q=False,
                            optimized_softmax=not kw.get("window"), **kw)
@@ -117,10 +121,13 @@ def test_flash_forward_quantized_matches_jax(name):
     assert ok, (name, ratio, where)
 
 
-@pytest.mark.parametrize("kw", [{}, dict(causal=True), dict(causal=True, window=100)],
-                         ids=["full", "causal", "window"])
+@pytest.mark.parametrize("kw", [{}, dict(causal=True), dict(causal=True, window=100),
+                                dict(causal=True, seq=640, heads=(4, 1))],
+                         ids=["full", "causal", "window", "s640-gqa4"])
 def test_int8_compute_matches_jax(kw):
-    q, k, v = _inputs()
+    kw = dict(kw)
+    seq, (heads, kv_heads) = kw.pop("seq", 256), kw.pop("heads", (4, 2))
+    q, k, v = _inputs(heads, kv_heads, seq=seq)
     jq, jk, jv = (_quantized(x, "int8", "jax") for x in (q, k, v))
     jcfg = JaxKernelConfig(block_q=128, block_kv=I8_P_GROUP, scale_q=False,
                            optimized_softmax=not kw.get("window"), **kw)
