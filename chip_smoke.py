@@ -13,7 +13,8 @@ band on its own: the flash forward (K1), paged decode (K4/K5) on dense,
 int8, fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
 shape of Llama-3-8B at 16, 32, 64 and 1024 rows and K6/K7 at 1000 (K8/K9
 also within one bf16 ulp of the plain int32 path), and the flash backward, fused (K2) and split
-(K3), each also at the training run's shape and strided layout, plus
+(K3), each also at the training run's shape and strided layout and on
+ragged tiles, rerun to hold dK/dV (and K3's dQ) bit for bit, plus
 autograd with sinks against autograd of the reference; (4) serve
 Llama-3-8B at full width and depth (random bf16 weights from a seed)
 through ``GenerationServer``: 8 requests, 32 greedy tokens each, with the
@@ -24,11 +25,11 @@ again on the same weights with speculative decoding (``spec_k=3``: prompts
 that repeat a 37-token phrase, drafts by prompt lookup, verify steps on the
 multi-token K4/K5; ``serve_spec`` line); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
-steps with the fused backward, checking the loss falls and the launch
-counts, profile one more step, then take one step in PyTorch's
-deterministic mode, which runs the split backward, with its counts
-checked, the loss after it falling, and K2 and K3 held against the plain
-backward on every layer's recorded attention inputs; (7) serve quantized
+steps with the default backward (the split K3, the faster), checking the
+loss falls and the launch counts, profile one more step, then take one
+step on the fused backward (K2), with its counts checked, the loss after
+it falling, and K2 and K3 held against the plain backward on every
+layer's recorded attention inputs; (7) serve quantized
 Llama-3-8B at full width (``init_quantized_params`` from a seed), runs A-D
 of ``QUANT_RUNS``: A int8 weights (K6) and int8 KV, B W4A8 (K9) and int8
 KV, both at full depth with 16 requests of 1024 tokens; C W8A8 (K8) and
@@ -48,7 +49,9 @@ from the build (K4/K5 also per page format, with
 t = 4 query tokens at the speculative run's first verify step and with
 int8 compute at run E's step, each beside the single-token call; K10 per
 variant and K11 per ring depth at b 4, s 4096, with their registers
-and spills from the build). Phase (3) also holds
+and spills from the build; K2 and K3 at four shapes, as the whole call
+and as their kernels' device time, with their registers and spills).
+Phase (3) also holds
 K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
 a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
@@ -62,14 +65,12 @@ Without a CUDA device it exits with code 2 before it does anything.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
 import re
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -265,6 +266,10 @@ BACKWARD_CASES = (
     ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
     ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
     ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
+    # Ragged against 128-row tiles (192 and 320 are odd multiples of 64),
+    # with a window that starts mid-tile.
+    ("ragged s192/320 q_offset 128 window 70", 192, 320,
+     dict(causal=True, q_offset=128, window=70), {}),
     TRAIN_CASE,
 )
 
@@ -760,20 +765,6 @@ def _profile(fn, top: int = 10) -> dict:
             "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                for e in ranked}}
 
-@contextlib.contextmanager
-def _deterministic():
-    """PyTorch's deterministic mode, which picks the split backward (K3).
-    Without ``CUBLAS_WORKSPACE_CONFIG`` cuBLAS would refuse it; warn_only
-    lets the matmuls run, and their warnings are not printed."""
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message="Deterministic behavior")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            yield
-        finally:
-            torch.use_deterministic_algorithms(False)
-
-
 def _check_model_backward(seen) -> dict:
     """K2 and K3 against the plain backward on each layer's attention
     inputs as a training step handed them over (strided q/k/v/dO, the
@@ -804,20 +795,28 @@ def _check_model_backward(seen) -> dict:
 
 def phase_train(smi: str) -> dict:
     """Train LLAMA3_8B at full width, 8 layers: 3 AdamW steps on one batch
-    with the fused backward (K2), launch counts and a falling loss checked;
-    one more step profiled; then one step in deterministic mode, which runs
-    the split backward (K3), with the loss after it checked and K2/K3 held
-    against the plain backward on its recorded attention inputs. Returns
-    the launch counts of both runs."""
+    with the default backward (``fused_choice``: K3), launch counts and a
+    falling loss checked; one more step profiled; then one step on the
+    other backward (K2: autograd's ``flash_backward`` called with
+    ``fused=True``), with its counts and the loss after it checked and
+    K2/K3 held against the plain backward on its recorded attention
+    inputs. Returns the launch counts of both runs, by backward."""
     from flash_attention_from_scratch_tpu_torch import (
         LLAMA3_8B, init_params, loss_fn, make_optimizer, make_train_step)
     from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
     from flash_attention_from_scratch_tpu_torch.ops import _build, autodiff
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
+    kernels = {True: (KERNEL_FUSED,), False: (KERNEL_DKV, KERNEL_DQ)}
+    default = fused_choice(causal=True)  # the model's attention is causal
+
+    def expected(fused, steps):
+        return {n: steps * cfg.n_layers if n in (K1,) + kernels[fused] else 0
+                for n in (K1, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
+
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     opt = make_optimizer(params)
@@ -839,49 +838,46 @@ def phase_train(smi: str) -> dict:
         step_s.append(time.perf_counter() - t)
     counts = dict(_build.launch_counts)  # read just after the main path
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = cfg.n_layers * TRAIN_STEPS
+    want = expected(default, TRAIN_STEPS)
     print(f"train: losses {losses}, step s {[round(x, 4) for x in step_s]}, "
-          f"launches {counts}; expected {K1} {want}, {KERNEL_FUSED} {want}",
-          flush=True)
+          f"launches {counts}; expected {want}", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses {losses} are not finite and falling")
-    if counts.get(K1, 0) != want or counts.get(KERNEL_FUSED, 0) != want \
-            or counts.get(KERNEL_DKV, 0) or counts.get(KERNEL_DQ, 0):
+    if any(counts.get(n, 0) != c for n, c in want.items()):
         raise AssertionError("a kernel of the training path ran the wrong number of times")
 
     prof = _profile(lambda: step(params, tokens))
 
-    # The split backward (K3), which deterministic mode selects: one step,
-    # keeping each layer's attention-backward inputs.
+    # One step on the other backward, keeping each layer's attention-backward
+    # inputs.
     seen = []
     real_backward = autodiff.flash_backward
 
     def recording(*args, **kw):
         seen.append(args)
-        return real_backward(*args, **kw)
+        return real_backward(*args, **kw, fused=not default)
 
     autodiff.flash_backward = recording
     _build.launch_counts.clear()
     t = time.perf_counter()
     try:
-        with _deterministic():
-            split_loss = float(step(params, tokens))
+        other_loss = float(step(params, tokens))
         sync()
     finally:
         autodiff.flash_backward = real_backward
-    split_s = time.perf_counter() - t
-    split_counts = dict(_build.launch_counts)
+    other_s = time.perf_counter() - t
+    other_counts = dict(_build.launch_counts)
     with torch.no_grad():
         after_loss = float(loss_fn(params, tokens, cfg))
-    print(f"train split: loss {split_loss}, then {after_loss}; step s {split_s:.4f}, "
-          f"launches {split_counts}; expected {K1}, {KERNEL_DKV}, {KERNEL_DQ} "
-          f"{cfg.n_layers} each", flush=True)
-    if not np.isfinite(after_loss) or not after_loss < split_loss < losses[0]:
-        raise AssertionError(f"split-backward losses {losses[0]}, {split_loss}, "
+    other = "fused" if not default else "split"
+    want = expected(not default, 1)
+    print(f"train {other}: loss {other_loss}, then {after_loss}; step s {other_s:.4f}, "
+          f"launches {other_counts}; expected {want}", flush=True)
+    if not np.isfinite(after_loss) or not after_loss < other_loss < losses[0]:
+        raise AssertionError(f"{other}-backward losses {losses[0]}, {other_loss}, "
                              f"{after_loss} are not finite and falling")
-    if any(split_counts.get(n, 0) != cfg.n_layers for n in (K1, KERNEL_DKV, KERNEL_DQ)) \
-            or split_counts.get(KERNEL_FUSED, 0):
-        raise AssertionError("a kernel of the split training path ran the wrong "
+    if any(other_counts.get(n, 0) != c for n, c in want.items()):
+        raise AssertionError(f"a kernel of the {other} training step ran the wrong "
                              "number of times")
     model_err = _check_model_backward(seen)
     del seen
@@ -892,17 +888,18 @@ def phase_train(smi: str) -> dict:
     print(json.dumps({"train": {
         "model": "LLAMA3_8B", "layers": cfg.n_layers, "params": n_params,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "backward": "fused" if default else "split",
         "losses": losses, "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
         "train_tok_s": tokens_per_step / (step_ms / 1e3),
         "model_tflop_s": flops / (step_ms / 1e3) / 1e12,
         "model_tflop_per_step": flops / 1e12,
         "peak_mem_gb": peak_gb, "launches": counts,
-        "split_step_ms": 1e3 * split_s, "split_launches": split_counts,
-        "split_loss": split_loss, "loss_after_split": after_loss,
+        f"{other}_step_ms": 1e3 * other_s, f"{other}_launches": other_counts,
+        f"{other}_loss": other_loss, f"loss_after_{other}": after_loss,
         "layers_backward_worst_err_bound": model_err,
         "profile": prof, "gpu": smi,
     }}), flush=True)
-    return {"fused": counts, "split": split_counts}
+    return {"fused" if default else "split": counts, other: other_counts}
 
 
 def _padded(n: int) -> int:
@@ -960,52 +957,78 @@ def time_paged() -> dict:
                      f"{HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
 
 
-def time_backward() -> tuple[dict, dict]:
-    """K2 and K3 at the training run's attention shape, one layer: causal,
-    b 2, 32/8 heads, s 2048. Each time is of the whole ``flash_backward``
-    call (D = rowsum(dO * O), the dQ workspace and its cast included).
-    Library: PyTorch SDPA's backward, K/V repeated to 32 heads, timed as
-    forward + ``torch.autograd.grad`` minus the same forward."""
+# K2/K3's timed shapes, b 2, 32/8 heads: (label, seq, causal). The first is
+# the training run's (one layer); the plain version is timed there only.
+BACKWARD_TIMED = (("train", TRAIN_SEQ, True), ("causal s1024", 1024, True),
+                  ("causal s4096", 4096, True), ("full s2048", 2048, False))
+
+
+def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
+    """K2 and K3 at ``BACKWARD_TIMED``'s shapes: each as the whole
+    ``flash_backward`` call and as its kernels' launch alone (D = rowsum(dO
+    * O) computed beforehand; K2's launch still zeroes and casts its dQ
+    workspace), both by CUDA events, beside SDPA's backward (K/V repeated
+    to 32 heads, timed as forward + ``torch.autograd.grad`` minus the same
+    forward), the bound, its share (bound / call time) and TFLOP/s (five
+    tile products, 2 * d operations each per visible (q, kv) pair: S, dP,
+    dV, dK, dQ). The top-level numbers are the training shape's.
+    ``ptxas``: the build's registers and spills of ``flash_backward.cu``'s
+    kernels. (torch.profiler dropped some of these kernels' records, and
+    once all of them, so it times nothing here.)"""
     from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
-    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-        flash_backward, flash_backward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops import flash_backward as fb
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward_with_lse)
 
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    cfg = KernelConfig(causal=True)
-    q, k, v = _cuda_qkv(s, s, seed=70, batch=b)
-    do = _cuda_normal(q.shape, seed=71)
-    o, lse = flash_forward_with_lse(q, k, v, cfg)
-    fused_ms = _time_ms(lambda: flash_backward(q, k, v, o, lse, do, cfg, fused=True))
-    split_ms = _time_ms(lambda: flash_backward(q, k, v, o, lse, do, cfg, fused=False))
-    plain_ms = _time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do, cfg),
-                        iters=3, warmup=1)
+    b, group = TRAIN_BATCH, HEADS // KV_HEADS
+    by_shape = {"fused": {}, "split": {}}
+    common = {}
+    for i, (label, s, causal) in enumerate(BACKWARD_TIMED):
+        cfg = KernelConfig(causal=causal)
+        q, k, v = _cuda_qkv(s, s, seed=70 + i, batch=b)
+        do = _cuda_normal(q.shape, seed=80 + i)
+        o, lse = flash_forward_with_lse(q, k, v, cfg)
+        qg = q.clone().requires_grad_()
+        kg = k.repeat_interleave(group, 1).requires_grad_()
+        vg = v.repeat_interleave(group, 1).requires_grad_()
 
-    group = HEADS // KV_HEADS
-    qg = q.clone().requires_grad_()
-    kg = k.repeat_interleave(group, 1).requires_grad_()
-    vg = v.repeat_interleave(group, 1).requires_grad_()
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal)
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True)
-
-    fwd_ms = _time_ms(sdpa)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
-
-    # Five tile products per visible (q, kv) pair, 2 * d operations each:
-    # S, dP, dV, dK, dQ (2.5x the forward's two). The softmax and dS
-    # elementwise work runs on the CUDA cores beside the tensor cores.
-    flops = 5 * 2 * D * (s * (s + 1) // 2) * HEADS * b
-    # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
-    nbytes = 2 * (4 * b * HEADS * s * D + 4 * b * KV_HEADS * s * D) + 4 * b * HEADS * s
-    bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
-    shape = (f"causal, b {b}, {HEADS}/{KV_HEADS} heads, s {s}, d {D}, bf16 "
-             "(one layer of the training run)")
-    common = {"plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-              "bound_by": "operations", "shape": shape}
-    return {"ms": fused_ms, **common}, {"ms": split_ms, **common}
+        fwd_ms = _time_ms(sdpa)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
+        flops = 5 * 2 * D * _attn_ops(s, HEADS, b, causal) // (4 * D)
+        # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
+        nbytes = 2 * (4 * b * HEADS * s * D + 4 * b * KV_HEADS * s * D) + 4 * b * HEADS * s
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        dsum = fb._row_sums(o, do)
+        for mode in ("fused", "split"):
+            fused = mode == "fused"
+            ms = _time_ms(lambda: fb.flash_backward(q, k, v, o, lse, do, cfg, fused=fused))
+            kernel_ms = _time_ms(lambda: fb._launch(q, k, v, lse, dsum, do, cfg,
+                                                    cfg.softmax_scale, fused))
+            by_shape[mode][label] = {
+                "ms": ms, "kernel_ms": kernel_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                "tflops": flops / ms / 1e9, "kernel_tflops": flops / kernel_ms / 1e9}
+        if label == "train":
+            common = {"plain_ms": _time_ms(lambda: fb.flash_backward_plain(
+                          q, k, v, o, lse, do, cfg), iters=3, warmup=1),
+                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "operations",
+                      "shape": (f"causal, b {b}, {HEADS}/{KV_HEADS} heads, s {s}, d {D}, "
+                                "bf16 (one layer of the training run)")}
+        del q, k, v, do, o, lse, qg, kg, vg, dsum
+    ptx = _kernel_ptxas(ptxas or {}, ("flash_backward_dkv_kernel", "flash_backward_dq_kernel"))
+    out = []
+    for mode in ("fused", "split"):
+        train = by_shape[mode]["train"]
+        out.append({"ms": train["ms"], **common, "kernel_ms": train["kernel_ms"],
+                    "bound_share": train["bound_share"], "tflops": train["tflops"],
+                    "by_shape": by_shape[mode],
+                    "ptxas": {n: v for n, v in ptx.items()
+                              if ("Lb1E" in n) == (mode == "fused")}})
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1776,7 +1799,7 @@ def _attn_bytes(q, k, v, out) -> int:
 def _kernel_ptxas(ptxas: dict, kernels: tuple) -> dict:
     """{kernel and its mangled template arguments: registers and spills} of
     the kernels named in ``kernels`` (empty when this run built nothing)."""
-    pattern = re.compile(r"\d(" + "|".join(kernels) + r")(I(?:Li\d+E)+E)?")
+    pattern = re.compile(r"\d(" + "|".join(kernels) + r")(I(?:L[ib]\d+E)+E)?")
     found = {}
     for name, v in ptxas.items():
         m = pattern.search(name)
@@ -1934,7 +1957,7 @@ def main(argv=None) -> int:
     tool_cases = phase_bench_tool_cases()
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL as K1, KERNEL_FORI)
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
@@ -1963,12 +1986,15 @@ def main(argv=None) -> int:
          "verify_t4": time_paged_verify(spec["verify_lengths"]),
          "int8c": time_paged_int8c()},
     ]
-    fused_t, split_t = time_backward()
+    fused_t, split_t = time_backward(_ptxas_by_kernel(logs.get("flash_backward.cu", "")))
     split = trained["split"]
+    paths = {True: "one training step with fused=True",
+             False: f"{TRAIN_STEPS} training steps (the default backward)"}
     kernels += [
         {"name": KERNEL_FUSED, "route": "cuda", "source": pkg + "flash_backward.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:278",
          "launches": trained["fused"].get(KERNEL_FUSED, 0),
+         "launches_path": paths[not fused_choice(causal=True)],
          "max_abs_err": backward_err[KERNEL_FUSED], **fused_t},
         {"name": "flash_backward_split", "route": "cuda",
          "source": pkg + "flash_backward.cu",
@@ -1976,7 +2002,7 @@ def main(argv=None) -> int:
          "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:198",
          "launches": split.get(KERNEL_DKV, 0) + split.get(KERNEL_DQ, 0),
          "launches_by_entry": {n: split.get(n, 0) for n in (KERNEL_DKV, KERNEL_DQ)},
-         "launches_path": "one training step in deterministic mode",
+         "launches_path": paths[fused_choice(causal=True)],
          "max_abs_err": backward_err["split"], **split_t},
     ]
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,

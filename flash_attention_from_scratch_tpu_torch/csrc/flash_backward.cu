@@ -1,4 +1,4 @@
-// Flash-attention backward (FA2) for Hopper, bf16, d_head 128.
+// Flash-attention backward (FA2) for Hopper, bf16, d_head 128, on wgmma + TMA.
 //
 // Replaces the TPU kernels of flash_attention_from_scratch_tpu/ops/
 // flash_backward.py: _fused_kernel (K2, entry fa_flash_backward_fused) and
@@ -13,506 +13,645 @@
 // rounded to bf16 before their products, as the TPU kernels do. Causal masks
 // with a q_offset and a sliding window zero P; tiles no row can see are
 // skipped. GQA is summed in-kernel: a KV tile's CTA walks every Q head of its
-// group. Sinks need nothing here: the forward's LSE already holds their term.
+// group, so dK and dV need no atomics. Sinks need nothing here: the
+// forward's LSE already holds their term.
 //
-// What bounds it on the H100: five tile products per (Q, KV) pair, about 2.5x
-// the forward's operations, at the training shapes (2048 rows, 32 heads) far
-// above the card's ~295 FLOP/byte balance point, so the bound is tensor-core
-// operations (989 TFLOP/s bf16). This first version uses mma.sync m16n8k16
-// (not Hopper's full-rate wgmma). Its design:
-//   - dK/dV kernel (fused and split): one CTA per (64 KV rows, KV head,
-//     batch), 4 warps of 16 KV rows each. The TPU kernel carries whole-
-//     sequence dK/dV scratch across a sequential grid; here blocks run in
-//     parallel, so each CTA owns one KV tile and keeps its dK and dV in fp32
-//     registers (64 + 64 a thread) while it loops over the visible Q tiles of
-//     every head of the group. The VMEM limit that picks fused vs split on
-//     the TPU has no counterpart.
-//   - Work happens in transposed score space, as on the TPU: a warp's S^T
-//     fragments are re-packed in registers as the A operand of P^T dO and
-//     dS^T Q, so P never leaves registers; Q, dO and K feed the B operands
-//     through ldmatrix(.trans) from shared memory.
-//   - Fused dQ: dS^T goes to shared memory, each warp reads back 16 Q rows of
-//     dS (ldmatrix.trans) and multiplies them by the K tile, and the partial
-//     dQ goes by fp32 atomicAdd into a zeroed (b, h, s_q, d) workspace. That
-//     replaces the TPU kernel's sequential-grid dQ scratch. The order of the
-//     additions changes from run to run, so dQ is not bitwise reproducible.
-//   - Split dQ (K3): one CTA per (64 Q rows, Q head, batch) walks the visible
-//     KV tiles and sums dQ in registers: deterministic, at the cost of
-//     recomputing S and dP a second time.
-//   - Shared-memory rows are padded (272 and 144 bytes) so ldmatrix reads are
-//     free of bank conflicts; the tiles walked in the inner loop (Q/dO/LSE/D,
-//     or K/V) are double-buffered with cp.async.
-// A wgmma + TMA version is later work.
+// What bounds it on the H100: five tile products per (Q, KV) pair, 2.5x the
+// forward's operations, at the training shapes far above the card's ~295
+// FLOP/byte balance point, so the bound is tensor-core operations (989
+// TFLOP/s bf16). Every product runs on wgmma with bf16 operands and fp32
+// sums, every tile arrives by TMA (128-byte-swizzled boxes of 64 bf16
+// columns from 4-D tensor maps over the (b, h, s, d) views, encoded per
+// call, so strided views go through as they are) into mbarrier rings. The
+// tile walk and masks are those of flash_wgmma.cuh.
+//
+// Registers set the shapes. A consumer that keeps dK and dV (two m64n128
+// fp32 accumulators, 128 registers) and the scores S^T and dP^T of a Q tile
+// at once needs about 200 registers, the dQ kernel's about 170. An SM's
+// registers are four files of 16,384, one per quarter of its warps, and
+// ptxas sizes a CTA for its fullest file: with a ninth warp (two consumer
+// warpgroups and a producer warp, 288 threads) three warps share one, so a
+// thread gets 168 registers whatever setmaxnreg grants, and the dK/dV
+// kernel spilled 2.4-3.0 KB. So a CTA is NC consumer warpgroups and nothing
+// else (NC * 128 threads, up to 255 registers, no spill); its thread 0
+// issues every copy between its own tiles (refill below). With NC = 1 two
+// CTAs share an SM where their shared memory fits. The launches (measured
+// on the H100): K3's two kernels take NC = 1, two CTAs an SM; K2 takes
+// NC = 2, which halves its dQ additions (a partial covers 128 keys).
+//   - dK/dV kernel (K3's first half; K2 with kDQ): one CTA per (NC * 64 KV
+//     rows, KV head, batch), a warpgroup per 64 KV rows holding its dK and
+//     dV in registers over the walk of (head of the group, visible Q tile)
+//     pairs, heaviest causal KV tiles first. Per pair, in transposed score
+//     space: S^T = K Q^T and dP^T = V dO^T (SS: K or V and Q or dO from
+//     shared memory, K-major), P^T and dS^T in registers, then dV += P^T dO
+//     and dK += dS^T Q with P^T and dS^T repacked as A fragments and dO or
+//     Q read MN-major (the transpose bit), as the forward's P V reads V.
+//     Q, dO, LSE and D rows arrive per pair through a ring of slots. A
+//     warpgroup whose 64 KV rows lie past seq_kv (the ragged last tile)
+//     computes and stores nothing.
+//   - K2's dQ: dS^T goes to a swizzled shared buffer (with two warpgroups,
+//     two alternating), the consumer warps meet at a named barrier, and
+//     each warpgroup computes dQ's partial dS K over all the CTA's keys for
+//     its share of dQ's columns, 64 at a time (SS with both operands
+//     MN-major: dS^T as stored, K as loaded), then adds it to a zeroed fp32
+//     (b, h, s_q, d) workspace by TMA reduce-add from a swizzled stage a
+//     warp (16-byte atomic adds from registers, the first form, took a
+//     third of the kernel's time). The order of the additions changes from
+//     run to run, so K2's dQ is not bitwise reproducible; its dK and dV
+//     are.
+//   - dQ kernel (K3's second half): the forward's walk with dQ for O: one
+//     CTA (one warpgroup) per (64 Q rows, Q head, batch), 128-key K/V
+//     slots through a ring of one (the other CTA on the SM runs while a
+//     copy lands), per tile S = Q K^T and dP = dO V^T
+//     (SS), P and dS in registers, dQ += dS K (A from registers, K
+//     MN-major); dQ sums in registers in a fixed order.
+// Each product starts with scale-d 0 rather than zeroed registers, and no
+// register of a product in flight is written (ptxas would serialize the
+// wgmmas, C7512).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+constexpr int DQ_BAR = 1;        // named barrier of K2's consumer warps
+constexpr int SM_SMEM = 233472;  // an SM's shared memory (1 KB of it reserved per CTA)
 
-constexpr int D = 128;        // head width
-constexpr int BQ = 64;        // Q rows per tile
-constexpr int BK = 64;        // KV rows per tile
-constexpr int NWARPS = 4;     // 16 rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDS = D + 8;    // padded row of a Q/dO/K/V tile, in elements
-constexpr int LDT = BQ + 8;   // padded row of the dS^T tile (KV rows x Q cols)
-constexpr float LOG2E = 1.4426950408889634f;
+// CTAs an SM holds: two of one consumer warpgroup where their shared memory
+// fits (two warps on each register file at 255 registers), else one.
+__host__ __device__ constexpr int per_sm(int nc, int smem) {
+  return nc == 1 && 2 * (smem + 1024) <= SM_SMEM ? 2 : 1;
+}
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
   const float* lse;   // (batch, heads, seq_q), natural log
   const float* dsum;  // (batch, heads, seq_q), D = rowsum(dO * O)
   float* dq_acc;      // fused: (batch, heads, seq_q, D) fp32, zeroed
   bf16* dq;           // split dQ kernel: (batch, heads, seq_q, D)
   bf16* dk;           // (batch, kv_heads, seq_kv, D)
   bf16* dv;
-  long long q_sb, q_sh, q_ss;  // input strides in elements; d is contiguous
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;  // of dO
   int heads, kv_heads, group, seq_q, seq_kv;
   int causal, q_offset, window;
   float scale, softcap;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
+// A warp's 16 rows x 64 columns of K2's dQ partial, fp32, as the two
+// swizzled 16 x 32 boxes that a TMA reduce-add reads.
+constexpr int WARP_STAGE = 16 * 64 * 4;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// The dK/dV kernel's geometry: NC consumer warpgroups of 64 KV rows, a ring
+// of NS slots of 64 Q rows (Q, then dO, then their LSE and D rows; 64 is
+// wgmma's M, which K2's dQ product takes in Q rows), with kDQ NC dS^T
+// buffers (BKV x 64 bf16; two warpgroups alternate two) and a dQ stage
+// for each warp.
+// ops/flash_backward.py::plan mirrors it.
+template <int NC, int NS, bool kDQ>
+struct DkvTile {
+  static constexpr int BKV = NC * WG_ROWS;                 // KV rows per CTA
+  static constexpr int BQ = WG_ROWS;                       // Q rows per slot
+  static constexpr int THREADS = NC * 128;
+  static constexpr int KV_BYTES = bf16_tile_bytes(BKV);    // the K tile; the V tile
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BQ);     // Q, then dO
+  static constexpr int STATS = 2 * BQ * 4;                 // LSE, then D (fp32)
+  static constexpr int DS_BYTES = kDQ ? BKV * BQ * 2 : 0;  // one dS^T buffer
+  static constexpr int DS_BUFS = NC;
+  static constexpr int STAGE = kDQ ? NC * 4 * WARP_STAGE : 0;  // dQ partials, a stage a warp
+  static constexpr int SMEM =
+      2 * KV_BYTES + NS * (SLOT + STATS) + DS_BUFS * DS_BYTES + STAGE + ALIGN_SLACK;
+  static constexpr int PER_SM = per_sm(NC, SMEM);
+  static_assert(SMEM <= SMEM_LIMIT, "the dK/dV tiles do not fit a CTA's shared memory");
+};
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// The dQ kernel's geometry: one consumer warpgroup of 64 Q rows (the Q and
+// dO tiles) and a ring of NS slots of 128 keys (K, then V; the last tile
+// of an odd multiple of 64 keys is half zeros, masked). On the H100 two
+// warpgroups of 64 rows a CTA, or 64-key slots, measured slower.
+template <int NS>
+struct DqTile {
+  static constexpr int BQ = WG_ROWS;  // Q rows per CTA
+  static constexpr int BK = 128;      // keys per slot
+  static constexpr int THREADS = 128;
+  static constexpr int Q_BYTES = bf16_tile_bytes(BQ);    // the Q tile; the dO tile
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BK);   // K, then V
+  static constexpr int SMEM = 2 * Q_BYTES + NS * SLOT + ALIGN_SLACK;
+  static constexpr int PER_SM = per_sm(1, SMEM);
+  static_assert(SMEM <= SMEM_LIMIT, "the dQ ring does not fit a CTA's shared memory");
+};
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
+// The launches (ops/flash_backward.py::plan mirrors them): the dK/dV
+// kernel's (consumer warpgroups, ring slots, with dQ) for K2 and for K3's
+// first half, and the dQ kernel's ring slots.
+#define FUSED_TILE 2, 3, true
+#define DKV_TILE 1, 2, false
+#define DQ_SLOTS 1
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragment of k-step kk from accumulator fragments x[n][4] of a 16-row
-// warp tile (n = 8-column block): columns 16kk..16kk+15 as bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (*x)[4], int kk) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
-// Copy a 64 x 128 tile (row stride in elements) into padded shared memory.
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g,
-                                          long long row_stride, int tid) {
-#pragma unroll
-  for (int i = 0; i < (BK * D / 8) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    int r = c >> 4, col = (c & 15) * 8;
-    cp_async16(smem + r * LDS + col, g + r * row_stride + col);
-  }
-}
-
-// 16 Q or KV rows x 64 columns of a warp: acc[n] += A(16 x 128) B^T, with A
-// the warp's rows of tile a (row-major, padded) and B the 64 rows of tile b.
-__device__ __forceinline__ void rows_times_tile_t(float (&acc)[8][4], const bf16* a,
-                                                  const bf16* b, int row0, int lane) {
-  const int m = lane >> 3;
-  const bf16* ab = a + (row0 + (m & 1) * 8 + (lane & 7)) * LDS + (m >> 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; kk += 2) {
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, ab + kk * 16);
-    ldmatrix_x4(a1, ab + (kk + 1) * 16);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + (n * 8 + (lane & 7)) * LDS + (lane >> 3) * 8 + kk * 16);
-      mma_bf16(acc[n], a0, bf[0], bf[1]);
-      mma_bf16(acc[n], a1, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[n] (16 x 128) += A (16 x 64, A fragments a[kk]) * tile (64 x 128):
-// the tile's rows are the contraction axis (ldmatrix.trans).
-__device__ __forceinline__ void frag_times_tile(float (&acc)[D / 8][4],
-                                                const uint32_t (&a)[4],
-                                                const bf16* tile, int kk, int lane) {
-  const int m = lane >> 3;
-  const bf16* tb = tile + (kk * 16 + (m & 1) * 8 + (lane & 7)) * LDS + (m >> 1) * 8;
-#pragma unroll
-  for (int n = 0; n < D / 8; n += 2) {
-    uint32_t bf[4];
-    ldmatrix_x4_trans(bf, tb + n * 8);
-    mma_bf16(acc[n], a, bf[0], bf[1]);
-    mma_bf16(acc[n + 1], a, bf[2], bf[3]);
-  }
-}
-
-__device__ __forceinline__ bool keep(const Params& p, int qpos, int kpos) {
-  return kpos <= qpos && (!p.window || qpos - kpos < p.window);
-}
-
-// Does any (q, kv) pair of Q rows [q_min, q_min + BQ) x KV rows [kv0, kv0 + BK)
-// fall outside the mask? (Tiles with none skip the mask arithmetic.)
-__device__ __forceinline__ bool edge_tile(const Params& p, int q_min, int kv0) {
-  const int q_max = q_min + BQ - 1;
-  return p.causal && (kv0 + BK - 1 > q_min || (p.window && kv0 <= q_max - p.window));
-}
-
-// P (or P^T) and dS * scale (or dS^T) of one score element, in place:
-// x holds the raw score on entry and P on exit, dp holds dP and then dS*scale.
-__device__ __forceinline__ void grad_element(const Params& p, float& x, float& dp,
-                                             float lse2, float dsum, bool visible) {
-  float pe, slope = 1.f;
-  if (p.softcap > 0.f) {
-    const float th = tanhf(x * p.scale / p.softcap);
-    slope = 1.f - th * th;
-    pe = exp2f(th * (p.softcap * LOG2E) - lse2);
-  } else {
-    pe = exp2f(x * (p.scale * LOG2E) - lse2);
-  }
-  if (!visible) pe = 0.f;
-  x = pe;
-  dp = pe * (dp - dsum) * slope * p.scale;
-}
-
-// dK/dV for one (KV tile, KV head, batch); with kDQ also the dQ partials.
-template <bool kDQ>
-__global__ void __launch_bounds__(NTHREADS)
-flash_backward_dkv_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + BK * LDS;
-  bf16* q_s = v_s + BK * LDS;        // 2 stages
-  bf16* do_s = q_s + 2 * BQ * LDS;   // 2 stages
-  bf16* ds_s = do_s + 2 * BQ * LDS;  // dS^T, BK x LDT (fused only)
-  float* lse_s = reinterpret_cast<float*>(ds_s + BK * LDT);  // 2 stages
-  float* dsum_s = lse_s + 2 * BQ;                             // 2 stages
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  // The tile index is the slowest grid axis, so blocks start in tile order:
-  // low KV tiles see the most causal rows and start first.
-  const int kv0 = blockIdx.z * BK;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int kvw = warp * 16;        // this warp's KV rows within the tile
-
-  // Visible Q tiles [qf, ql]: causal rows from the diagonal on, clipped by
-  // the window (the TPU kernel's _block_visible).
-  int qf = 0, ql = p.seq_q / BQ - 1;
+// ---------------------------------------------------------------------------
+// The dK/dV walk. Its CTA owns keys kv0 .. kv_end - 1 and visits the Q tiles
+// [qf, ql] (bq rows each) that some of its keys are visible to: causal rows
+// from the first whose last row reaches kv0, to the last whose first row
+// lies within the window of kv_end - 1 (the TPU kernel's _block_visible).
+__device__ __forceinline__ void dkv_q_tiles(const Params& p, int kv0, int kv_end, int bq,
+                                            int& qf, int& ql) {
+  qf = 0;
+  ql = p.seq_q / bq - 1;
   if (p.causal) {
-    const int lo = kv0 - p.q_offset - (BQ - 1);
-    if (lo > 0) qf = (lo + BQ - 1) / BQ;
+    const int lo = kv0 - p.q_offset - (bq - 1);
+    if (lo > 0) qf = (lo + bq - 1) / bq;
     if (p.window) {
-      const int hi = kv0 + BK - 2 + p.window - p.q_offset;
-      ql = hi < 0 ? -1 : min(ql, hi / BQ);
+      const int hi = p.window + kv_end - 2 - p.q_offset;
+      ql = hi < 0 ? -1 : min(ql, hi / bq);
     }
   }
-  const int nq = ql >= qf ? ql - qf + 1 : 0;
-  const int n_iter = nq * p.group;  // (head of the group, Q tile) pairs
+}
 
-  auto load_pair = [&](int it, int stage) {
-    const int h = hk * p.group + it / nq;
-    const int q0 = (qf + it % nq) * BQ;
-    load_tile(q_s + stage * BQ * LDS, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
-              p.q_ss, tid);
-    load_tile(do_s + stage * BQ * LDS,
-              p.dout + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss, tid);
+// One consumer warpgroup's 64 keys from k_lo, against the Q rows at
+// positions p_lo .. p_lo + bq - 1 (RowGroup's tests with the roles of rows
+// and keys exchanged).
+struct KeyGroup {
+  int k_lo;
+
+  __device__ __forceinline__ bool sees(int causal, int window, int p_lo, int bq) const {
+    return !causal ||
+           (k_lo <= p_lo + bq - 1 && (!window || p_lo - (k_lo + WG_ROWS - 1) < window));
+  }
+
+  __device__ __forceinline__ bool needs_mask(int causal, int window, int p_lo, int bq) const {
+    return causal && (k_lo + WG_ROWS - 1 > p_lo || (window && p_lo + bq - 1 - k_lo >= window));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The gradient of one block of scores, in place on the accumulators of S and
+// dP as wgmma left them: s becomes P, dp becomes dS * scale. With kT the
+// block is transposed (rows are keys, columns Q rows; the LSE and D of each
+// column come from shared memory, col_stats: LSE then D, bq apart), else
+// rows are Q rows (LSE * log2e and D of this thread's two rows in
+// row_lse2, row_dsum) and columns keys. row_pos and col_pos: the position
+// of this thread's first row and of column 0. The softcap and the mask are
+// tested once a tile (the branch in grad_tile), not once a score. (P first,
+// while dP's product still runs, then dS while dV's runs, measured slower
+// on the H100 and spilled K2.)
+struct GradMath {
+  int causal, window, seq_kv;
+  float scale, softcap;
+};
+
+struct BlockStats {
+  const float* col_stats;
+  int bq;
+  float row_lse2[2], row_dsum[2];
+};
+
+template <int N, bool kT, bool CAP, bool MASK>
+__device__ __forceinline__ void grad_block(float (&s)[N], float (&dp)[N], const GradMath& gm,
+                                           const BlockStats& bs, int row_pos, int col_pos) {
+  const int q = threadIdx.x & 3;
+  const float c_log2 = gm.scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int col = 8 * j + 2 * q;
+    float2 lse2 = make_float2(0.f, 0.f), dsum = lse2;
+    if constexpr (kT) {
+      const float2 l = *reinterpret_cast<const float2*>(bs.col_stats + col);
+      lse2 = make_float2(l.x * LOG2E, l.y * LOG2E);
+      dsum = *reinterpret_cast<const float2*>(bs.col_stats + bs.bq + col);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, c = e & 1;
+      const float l2 = kT ? (c ? lse2.y : lse2.x) : bs.row_lse2[r];
+      const float dd = kT ? (c ? dsum.y : dsum.x) : bs.row_dsum[r];
+      const float x = s[4 * j + e];
+      float pe, ds_scale = gm.scale;
+      if constexpr (CAP) {
+        const float th = tanhf(x * (gm.scale / gm.softcap));
+        ds_scale *= 1.f - th * th;
+        pe = fast_exp2(fmaf(th, gm.softcap * LOG2E, -l2));
+      } else {
+        pe = fast_exp2(fmaf(x, c_log2, -l2));
+      }
+      if constexpr (MASK) {
+        const int rp = row_pos + 8 * r, cp = col_pos + col + c;
+        if (!(kT ? visible(gm.causal, gm.window, gm.seq_kv, cp, rp)
+                 : visible(gm.causal, gm.window, gm.seq_kv, rp, cp)))
+          pe = 0.f;
+      }
+      s[4 * j + e] = pe;
+      dp[4 * j + e] = pe * (dp[4 * j + e] - dd) * ds_scale;
+    }
+  }
+}
+
+template <int N, bool kT>
+__device__ __forceinline__ void grad_tile(float (&s)[N], float (&dp)[N], const GradMath& gm,
+                                          bool masked, const BlockStats& bs, int row_pos,
+                                          int col_pos) {
+  if (gm.softcap > 0.f) {
+    if (masked) grad_block<N, kT, true, true>(s, dp, gm, bs, row_pos, col_pos);
+    else grad_block<N, kT, true, false>(s, dp, gm, bs, row_pos, col_pos);
+  } else {
+    if (masked) grad_block<N, kT, false, true>(s, dp, gm, bs, row_pos, col_pos);
+    else grad_block<N, kT, false, false>(s, dp, gm, bs, row_pos, col_pos);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2's dQ: dS^T into a swizzled (BKV x 64) bf16 buffer, the partial dS K,
+// and its 16-byte atomic adds.
+
+// This thread's dS^T fragments (da: A fragments of its warp's 16 KV rows,
+// rows krow and krow + 8 of the buffer) into the buffer.
+__device__ __forceinline__ void store_ds_t(uint8_t* buf, int bkv, const uint32_t (&da)[4][4],
+                                           int krow) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<uint32_t*>(
+          buf + bf16_tile_offset(bkv, krow + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * q)) =
+          da[kk][r];
+}
+
+// This warp's 16 rows of an m64n64 accumulator into its stage: columns
+// 0-31 and 32-63 as two boxes of 16 rows of 128 bytes, 128-byte swizzled.
+__device__ __forceinline__ void stage_dq(uint8_t* stage, const float (&acc)[BOX_COLS / 2]) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BOX_COLS / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (lane >> 2) + 8 * h, c = 8 * (j & 3) + 2 * q;
+      *reinterpret_cast<float2*>(stage + (j >> 2) * (WARP_STAGE / 2) + r * 128 +
+                                 (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+// Issue 64 columns of dQ's partial = dS K (one wgmma group): A = dS read
+// MN-major from the dS^T buffer (BKV rows of 64 Q columns), B = K read
+// MN-major from box col0 / 64 of the K tile (BKV rows), columns col0 ..
+// col0 + 63.
+template <int BKV>
+__device__ __forceinline__ void issue_dq(float (&acc)[BOX_COLS / 2], unsigned ds_addr,
+                                         unsigned k_addr, int col0) {
+  const unsigned kb = k_addr + (col0 / BOX_COLS) * bf16_box_bytes(BKV);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_ss_n64<1, 1>(acc, sw128_mn_desc(ds_addr + kk * 2048, bf16_box_bytes(BKV)),
+                       sw128_mn_desc(kb + kk * 2048, bf16_box_bytes(BKV)), kk > 0);
+  wgmma_commit();
+}
+
+// ---------------------------------------------------------------------------
+// The ring. Thread 0 issues every copy, so that a CTA is consumer
+// warpgroups only (NC * 128 threads): a ninth warp would put three warps
+// on one of the SM's four register files, and ptxas then sizes the CTA
+// for 168 registers a thread. After step i of the walk it refills the slot
+// of step i - (NC - 1) with step i - (NC - 1) + NS once every consumer warp
+// has released it: with one warpgroup that is its own slot (it waits only
+// for its other warps); with two, the slot the other warpgroup released
+// one step earlier, so that the two need not finish a step together.
+template <int NC, int NS, typename Load>
+__device__ __forceinline__ void refill(int tid, int i, int n, uint64_t* empty, Load&& load) {
+  const int j = i - (NC - 1);
+  if (tid == 0 && j >= 0 && j + NS < n) {
+    mbar_wait(&empty[j % NS], (j / NS) & 1);
+    load(j + NS);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV for one (NC * 64 KV rows, KV head, batch); with kDQ also dQ's
+// partials.
+template <int NC, int NS, bool kDQ>
+__global__ void __launch_bounds__(DkvTile<NC, NS, kDQ>::THREADS, DkvTile<NC, NS, kDQ>::PER_SM)
+flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_dq, const Params p) {
+  using T = DkvTile<NC, NS, kDQ>;
+  constexpr int BKV = T::BKV, BQ = T::BQ;
+  constexpr int N_DQ = D / NC;  // dQ columns of one warpgroup's partial
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[NS], empty[NS];
+  uint8_t* k_s = align_1024(smem_raw);
+  uint8_t* v_s = k_s + T::KV_BYTES;
+  uint8_t* ring = v_s + T::KV_BYTES;             // NS slots: Q, then dO
+  uint8_t* ds_s = ring + NS * T::SLOT;           // DS_BUFS dS^T buffers (kDQ)
+  uint8_t* stage_s = ds_s + T::DS_BUFS * T::DS_BYTES;  // a dQ stage a warp (kDQ)
+  float* stats = reinterpret_cast<float*>(stage_s + T::STAGE);  // NS x (LSE, D)
+
+  const int tid = threadIdx.x;
+  // The KV tile is the slowest grid axis, so blocks start in tile order:
+  // low KV tiles see the most causal rows and start first.
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int kv0 = blockIdx.z * BKV;
+  int qf, ql;
+  dkv_q_tiles(p, kv0, min(kv0 + BKV, p.seq_kv), BQ, qf, ql);
+  const int nq = max(ql - qf + 1, 0);
+  const int n = nq * p.group;  // (head of the group, Q tile) pairs
+
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Pair i's Q and dO tiles and LSE and D rows into slot i % NS.
+  auto load_pair = [&](int i) {
+    const int s = i % NS;
+    const int h = hk * p.group + i / nq, q0 = (qf + i % nq) * BQ;
+    uint8_t* slot = ring + s * T::SLOT;
+    uint8_t* do_slot = slot + bf16_tile_bytes(BQ);
+    mbar_arrive_expect_tx(&full[s], T::SLOT + T::STATS);
+    tma_load_4d(slot, &tm_q, 0, q0, h, b, &full[s]);
+    tma_load_4d(slot + bf16_box_bytes(BQ), &tm_q, BOX_COLS, q0, h, b, &full[s]);
+    tma_load_4d(do_slot, &tm_do, 0, q0, h, b, &full[s]);
+    tma_load_4d(do_slot + bf16_box_bytes(BQ), &tm_do, BOX_COLS, q0, h, b, &full[s]);
     const long long row = ((long long)b * p.heads + h) * p.seq_q + q0;
-    if (tid < BQ / 4) {
-      cp_async16(lse_s + stage * BQ + tid * 4, p.lse + row + tid * 4);
-    } else if (tid < BQ / 2) {
-      const int c = (tid - BQ / 4) * 4;
-      cp_async16(dsum_s + stage * BQ + c, p.dsum + row + c);
-    }
+    float* st = stats + s * 2 * BQ;
+    bulk_load(st, p.lse + row, BQ * 4, &full[s]);
+    bulk_load(st + BQ, p.dsum + row, BQ * 4, &full[s]);
   };
-
-  load_tile(k_s, p.k + b * p.k_sb + hk * p.k_sh + kv0 * p.k_ss, p.k_ss, tid);
-  load_tile(v_s, p.v + b * p.v_sb + hk * p.v_sh + kv0 * p.v_ss, p.v_ss, tid);
-  if (n_iter > 0) load_pair(0, 0);
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) load_pair(it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this pair's tiles have landed; the next may be in flight
-    __syncthreads();
-
-    const int h = hk * p.group + it / nq;
-    const int q0 = (qf + it % nq) * BQ;
-    const bf16* qs = q_s + stage * BQ * LDS;
-    const bf16* dos = do_s + stage * BQ * LDS;
-    const float* lse_t = lse_s + stage * BQ;
-    const float* dsum_t = dsum_s + stage * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 KV rows x 64 Q columns.
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    rows_times_tile_t(st, k_s, qs, kvw, lane);
-    rows_times_tile_t(dpt, v_s, dos, kvw, lane);
-
-    // P^T and dS^T * scale; element e sits at KV row g + (e >> 1) * 8 and
-    // Q column n * 8 + 2t + (e & 1).
-    const int q_min = p.q_offset + q0;
-    const bool edge = edge_tile(p, q_min, kv0);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const bool vis = !edge || keep(p, q_min + col, kv0 + kvw + g + (e >> 1) * 8);
-        grad_element(p, st[n][e], dpt[n][e], lse_t[col] * LOG2E, dsum_t[col], vis);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, contracting the 64 Q rows.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pack_a(pa, st, kk);
-      pack_a(da, dpt, kk);
-      frag_times_tile(dv_acc, pa, dos, kk, lane);
-      frag_times_tile(dk_acc, da, qs, kk, lane);
-    }
-
-    if (kDQ) {
-      // dS^T to shared memory, then each warp takes 16 Q rows of dS.
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          *reinterpret_cast<uint32_t*>(ds_s + (kvw + g + r * 8) * LDT + n * 8 + 2 * t) =
-              pack_bf16(dpt[n][2 * r], dpt[n][2 * r + 1]);
-        }
-      }
-      __syncthreads();
-      const int qw = warp * 16, m = lane >> 3;
-      float* dq_g = p.dq_acc + (((long long)b * p.heads + h) * p.seq_q + q0 + qw) * D;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float acc[8][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          uint32_t a[4];  // dS rows qw.., KV columns 16kk..: dS^T read transposed
-          ldmatrix_x4_trans(a, ds_s + (kk * 16 + (m >> 1) * 8 + (lane & 7)) * LDT
-                                   + qw + (m & 1) * 8);
-          const bf16* kb = k_s + (kk * 16 + (m & 1) * 8 + (lane & 7)) * LDS
-                           + (m >> 1) * 8 + half * (D / 2);
-#pragma unroll
-          for (int n = 0; n < 8; n += 2) {
-            uint32_t kf[4];
-            ldmatrix_x4_trans(kf, kb + n * 8);
-            mma_bf16(acc[n], a, kf[0], kf[1]);
-            mma_bf16(acc[n + 1], a, kf[2], kf[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float* dst = dq_g + (g + r * 8) * D + half * (D / 2) + n * 8 + 2 * t;
-            atomicAdd(dst, acc[n][2 * r]);
-            atomicAdd(dst + 1, acc[n][2 * r + 1]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // this stage (and the dS^T tile) is refilled next
+  if (tid == 0 && n > 0) {  // thread 0 issues every copy: K, V, the first slots
+    mbar_arrive_expect_tx(&kv_full, 2 * T::KV_BYTES);
+    tma_load_4d(k_s, &tm_k, 0, kv0, hk, b, &kv_full);
+    tma_load_4d(k_s + bf16_box_bytes(BKV), &tm_k, BOX_COLS, kv0, hk, b, &kv_full);
+    tma_load_4d(v_s, &tm_v, 0, kv0, hk, b, &kv_full);
+    tma_load_4d(v_s + bf16_box_bytes(BKV), &tm_v, BOX_COLS, kv0, hk, b, &kv_full);
+    for (int i = 0; i < min(NS, n); ++i) load_pair(i);
   }
-  cp_async_wait<0>();
 
-  // dK and dV of this warp's 16 KV rows, cast to bf16.
-  const long long out_row = ((long long)b * p.kv_heads + hk) * p.seq_kv + kv0 + kvw;
+  const int cw = tid / 128, warp = (tid >> 5) & 3, lane = tid & 31;
+  const KeyGroup kg{kv0 + cw * WG_ROWS};
+  const bool active = kg.k_lo < p.seq_kv;  // the ragged last tile's second half is not
+  const int krow = cw * WG_ROWS + warp * 16 + (lane >> 2);  // this thread's first row in the CTA
+  const GradMath gm{p.causal, p.window, p.seq_kv, p.scale, p.softcap};
+  const unsigned k_addr = smem_addr(k_s), v_addr = smem_addr(v_s);
+  const unsigned kw_addr = k_addr + cw * WG_ROWS * 128, vw_addr = v_addr + cw * WG_ROWS * 128;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n > 0) mbar_wait(&kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % NS;
+    mbar_wait(&full[s], (i / NS) & 1);
+    const int h = hk * p.group + i / nq, q0 = (qf + i % nq) * BQ;
+    const int p_lo = p.q_offset + q0;  // position of the tile's first Q row
+    const unsigned q_addr = smem_addr(ring + s * T::SLOT);
+    const unsigned do_addr = q_addr + bf16_tile_bytes(BQ);
+    uint8_t* ds = ds_s + (i % T::DS_BUFS) * T::DS_BYTES;
+    if (active && kg.sees(p.causal, p.window, p_lo, BQ)) {
+      float st[BQ / 2], dpt[BQ / 2];
+      issue_qk<BQ>(st, kw_addr, bf16_box_bytes(BKV), q_addr);    // S^T = K Q^T
+      issue_qk<BQ>(dpt, vw_addr, bf16_box_bytes(BKV), do_addr);  // dP^T = V dO^T
+      wgmma_wait<0>();
+      grad_tile<BQ / 2, true>(st, dpt, gm, kg.needs_mask(p.causal, p.window, p_lo, BQ),
+                              BlockStats{stats + s * 2 * BQ, BQ, {0.f, 0.f}, {0.f, 0.f}},
+                              kv0 + krow, p_lo);
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      pack_p<BQ>(st, pa);
+      issue_pv<BQ>(dv, pa, do_addr);  // dV += P^T dO
+      pack_p<BQ>(dpt, da);
+      if constexpr (kDQ) store_ds_t(ds, BKV, da, krow);
+      issue_pv<BQ>(dk, da, q_addr);  // dK += dS^T Q
+    } else if constexpr (kDQ) {
+      // Keys this pair cannot see (or past seq_kv) add nothing to dQ.
+      uint4* rows = reinterpret_cast<uint4*>(ds + cw * WG_ROWS * 128);
+#pragma unroll
+      for (int c = 0; c < WG_ROWS * 128 / 16 / 128; ++c)
+        rows[(tid & 127) + c * 128] = make_uint4(0, 0, 0, 0);
+    }
+    if constexpr (kDQ) {
+      fence_proxy_async();  // dS^T's stores, before wgmma reads them
+      named_bar_sync(DQ_BAR, NC * 128);
+      // This warp's 16 rows of the partial: first rows of dQ's 2-D view.
+      const int dq_row = (int)(((long long)b * p.heads + h) * p.seq_q + q0 + warp * 16);
+      uint8_t* stage = stage_s + (tid >> 5) * WARP_STAGE;
+#pragma unroll
+      for (int c = 0; c < N_DQ / BOX_COLS; ++c) {  // 64 columns at a time
+        float dq[BOX_COLS / 2];
+        issue_dq<BKV>(dq, smem_addr(ds), k_addr, cw * N_DQ + c * BOX_COLS);
+        wgmma_wait<0>();
+        if (lane == 0) bulk_wait<0>();  // the stage's last reduce has read it
+        __syncwarp();
+        stage_dq(stage, dq);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          const int col = cw * N_DQ + c * BOX_COLS;
+          tma_reduce_add_2d(&tm_dq, stage, col, dq_row);
+          tma_reduce_add_2d(&tm_dq, stage + WARP_STAGE / 2, col + BOX_COLS / 2, dq_row);
+          bulk_commit();
+        }
+      }
+    } else {
+      wgmma_wait<0>();
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+    refill<NC, NS>(tid, i, n, empty, load_pair);
+  }
+
+  if (kDQ && lane == 0) bulk_wait<0, true>();  // the adds have completed
+  // dK and dV of this thread's rows, cast to bf16.
+  if (!active) return;
+  const int q = lane & 3;
+  const long long out_row = ((long long)b * p.kv_heads + hk) * p.seq_kv + kv0 + krow;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dk_row = p.dk + (out_row + g + r * 8) * D;
-    bf16* dv_row = p.dv + (out_row + g + r * 8) * D;
+    bf16* dk_row = p.dk + (out_row + 8 * r) * D;
+    bf16* dv_row = p.dv + (out_row + 8 * r) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j + 2 * q) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j + 2 * q) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// dQ for one (Q tile, Q head, batch), summed in registers over the KV tiles.
-__global__ void __launch_bounds__(NTHREADS)
-flash_backward_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + BQ * LDS;
-  bf16* k_s = do_s + BQ * LDS;     // 2 stages
-  bf16* v_s = k_s + 2 * BK * LDS;  // 2 stages
+// dQ for one (64 Q rows, Q head, batch), summed in registers over the
+// visible KV tiles.
+template <int NS>
+__global__ void __launch_bounds__(DqTile<NS>::THREADS, DqTile<NS>::PER_SM)
+flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = DqTile<NS>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[NS], empty[NS];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + T::Q_BYTES;
+  uint8_t* ring = do_s + T::Q_BYTES;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_tile = gridDim.z - 1 - blockIdx.z;  // heaviest causal tiles first
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
-  const int q0 = q_tile * BQ, qw = warp * 16;
-
-  const bf16* k_g = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* v_g = p.v + b * p.v_sb + hk * p.v_sh;
-
-  // Visible KV tiles [first, last], as in the forward kernel.
+  const int q0 = q_tile * T::BQ;
   const int q_min = p.q_offset + q0;
-  int first = 0, last = p.seq_kv / BK - 1;
-  if (p.causal) {
-    last = min(last, (q_min + BQ - 1) / BK);
-    if (p.window) first = max(0, q_min - p.window + 1) / BK;
+  int first, last;
+  cta_tiles(p.causal, p.window, q_min, T::BQ, p.seq_kv, T::BK, first, last);
+  const int n = max(last - first + 1, 0);
+
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // KV tile i's K and V tiles into slot i % NS.
+  auto load_kv = [&](int i) {
+    const int s = i % NS;
+    uint8_t* slot = ring + s * T::SLOT;
+    const int kv0 = (first + i) * T::BK;
+    mbar_arrive_expect_tx(&full[s], T::SLOT);
+    tma_load_4d(slot, &tm_k, 0, kv0, hk, b, &full[s]);
+    tma_load_4d(slot + bf16_box_bytes(T::BK), &tm_k, BOX_COLS, kv0, hk, b, &full[s]);
+    uint8_t* vs = slot + bf16_tile_bytes(T::BK);
+    tma_load_4d(vs, &tm_v, 0, kv0, hk, b, &full[s]);
+    tma_load_4d(vs + bf16_box_bytes(T::BK), &tm_v, BOX_COLS, kv0, hk, b, &full[s]);
+  };
+  if (tid == 0) {  // thread 0 issues every copy: Q, dO, the first slots
+    mbar_arrive_expect_tx(&q_full, 2 * T::Q_BYTES);
+    tma_load_4d(q_s, &tm_q, 0, q0, h, b, &q_full);
+    tma_load_4d(q_s + bf16_box_bytes(T::BQ), &tm_q, BOX_COLS, q0, h, b, &q_full);
+    tma_load_4d(do_s, &tm_do, 0, q0, h, b, &q_full);
+    tma_load_4d(do_s + bf16_box_bytes(T::BQ), &tm_do, BOX_COLS, q0, h, b, &q_full);
+    for (int i = 0; i < min(NS, n); ++i) load_kv(i);
   }
 
-  load_tile(q_s, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss, tid);
-  load_tile(do_s, p.dout + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss, tid);
-  if (first <= last) {
-    load_tile(k_s, k_g + (long long)first * BK * p.k_ss, p.k_ss, tid);
-    load_tile(v_s, v_g + (long long)first * BK * p.v_ss, p.v_ss, tid);
+  const int lane = tid & 31;
+  const RowGroup rg{q_min, T::BQ};
+  const int row = q0 + (tid >> 5) * 16 + (lane >> 2);  // this thread's rows: row, row + 8
+  const long long bh_row = ((long long)b * p.heads + h) * p.seq_q;
+  const BlockStats bs{nullptr, 0,
+                      {p.lse[bh_row + row] * LOG2E, p.lse[bh_row + row + 8] * LOG2E},
+                      {p.dsum[bh_row + row], p.dsum[bh_row + row + 8]}};
+  const GradMath gm{p.causal, p.window, p.seq_kv, p.scale, p.softcap};
+  const unsigned q_addr = smem_addr(q_s), do_addr = smem_addr(do_s);
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % NS;
+    mbar_wait(&full[s], (i / NS) & 1);
+    const int kv0 = (first + i) * T::BK;
+    if (rg.sees(p.causal, p.window, kv0, T::BK)) {
+      const unsigned k_addr = smem_addr(ring + s * T::SLOT);
+      const unsigned v_addr = k_addr + bf16_tile_bytes(T::BK);
+      float sc[T::BK / 2], dp[T::BK / 2];
+      issue_qk<T::BK>(sc, q_addr, bf16_box_bytes(T::BQ), k_addr);  // S = Q K^T
+      issue_qk<T::BK>(dp, do_addr, bf16_box_bytes(T::BQ), v_addr);  // dP = dO V^T
+      wgmma_wait<0>();
+      grad_tile<T::BK / 2, false>(sc, dp, gm,
+                                  rg.needs_mask(p.causal, p.window, kv0, T::BK, p.seq_kv), bs,
+                                  p.q_offset + row, kv0);
+      uint32_t da[T::BK / 16][4];
+      pack_p<T::BK>(dp, da);
+      issue_pv<T::BK>(dq, da, k_addr);  // dQ += dS K
+      wgmma_wait<0>();
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+    refill<1, NS>(tid, i, n, empty, load_kv);
   }
-  cp_async_commit();
 
-  // Row statistics of this thread's rows g and g + 8.
-  const long long row = ((long long)b * p.heads + h) * p.seq_q + q0 + qw + g;
-  const float lse2[2] = {p.lse[row] * LOG2E, p.lse[row + 8] * LOG2E};
-  const float dsum[2] = {p.dsum[row], p.dsum[row + 8]};
-  const int row0 = q_min + qw + g;  // global position of row g
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  for (int j = first; j <= last; ++j) {
-    const int stage = (j - first) & 1;
-    if (j + 1 <= last) {
-      const int nxt = stage ^ 1;
-      load_tile(k_s + nxt * BK * LDS, k_g + (long long)(j + 1) * BK * p.k_ss, p.k_ss, tid);
-      load_tile(v_s + nxt * BK * LDS, v_g + (long long)(j + 1) * BK * p.v_ss, p.v_ss, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* ks = k_s + stage * BK * LDS;
-    const bf16* vs = v_s + stage * BK * LDS;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 Q rows x 64 keys.
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    rows_times_tile_t(s, q_s, ks, qw, lane);
-    rows_times_tile_t(dp, do_s, vs, qw, lane);
-
-    const int kv0 = j * BK;
-    const bool edge = edge_tile(p, q_min, kv0);
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool vis = !edge || keep(p, row0 + r * 8, kv0 + n * 8 + 2 * t + (e & 1));
-        grad_element(p, s[n][e], dp[n][e], lse2[r], dsum[r], vis);
-      }
-    }
-
-    // dQ += dS K, contracting the 64 keys.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      pack_a(da, dp, kk);
-      frag_times_tile(dq_acc, da, ks, kk, lane);
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
-  }
-  cp_async_wait<0>();
-
+  const int q = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dq_row = p.dq + (row + r * 8) * D;
+    bf16* dq_row = p.dq + (bh_row + row + 8 * r) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dq_row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dq_acc[n][2 * r], dq_acc[n][2 * r + 1]);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j + 2 * q) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
 }
 
-constexpr int DKV_SMEM = (2 * BK + 4 * BQ) * LDS * static_cast<int>(sizeof(bf16)) +
-                         BK * LDT * static_cast<int>(sizeof(bf16)) +
-                         4 * BQ * static_cast<int>(sizeof(float));
-constexpr int DQ_SMEM = (2 * BQ + 4 * BK) * LDS * static_cast<int>(sizeof(bf16));
+// ---------------------------------------------------------------------------
+// Host side.
 
-Params make_params(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* dsum, void* dq, void* dk, void* dv,
-                   const long long* s, int heads, int kv_heads, int seq_q,
-                   int seq_kv, int causal, int q_offset, int window, float scale,
-                   float softcap) {
+struct Maps {
+  CUtensorMap q, dout, k, v, dq;
+};
+
+// Tensor maps of q, dO (boxes of q_rows) and k, v (boxes of kv_rows) over
+// their (b, h, s, d) views; s: their element strides (q, k, v, dO).
+bool encode_maps(Maps& m, const void* q, const void* k, const void* v, const void* dout,
+                 const long long (&s)[12], int batch, const Params& p, int q_rows,
+                 int kv_rows) {
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode_bhsd(&m.q, bf, q, batch, p.heads, p.seq_q, D, s[0] * 2, s[1] * 2, s[2] * 2,
+                     q_rows, BOX_COLS, true) &&
+         encode_bhsd(&m.k, bf, k, batch, p.kv_heads, p.seq_kv, D, s[3] * 2, s[4] * 2,
+                     s[5] * 2, kv_rows, BOX_COLS, true) &&
+         encode_bhsd(&m.v, bf, v, batch, p.kv_heads, p.seq_kv, D, s[6] * 2, s[7] * 2,
+                     s[8] * 2, kv_rows, BOX_COLS, true) &&
+         encode_bhsd(&m.dout, bf, dout, batch, p.heads, p.seq_q, D, s[9] * 2, s[10] * 2,
+                     s[11] * 2, q_rows, BOX_COLS, true);
+}
+
+template <int NC, int NS, bool kDQ>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const long long (&s)[12], int batch, const Params& p, cudaStream_t stream) {
+  using T = DkvTile<NC, NS, kDQ>;
+  Maps m = {};
+  // K2's dQ workspace as (batch * heads * seq_q, D) fp32 rows, boxes of a
+  // warp's 16 rows x 32 columns.
+  if (!encode_maps(m, q, k, v, dout, s, batch, p, T::BQ, T::BKV) ||
+      (kDQ && !encode_2d(&m.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.dq_acc,
+                         (long long)batch * p.heads * p.seq_q, D, 16, BOX_COLS / 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_backward_dkv_kernel<NC, NS, kDQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.kv_heads, batch, (p.seq_kv + T::BKV - 1) / T::BKV);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(m.q, m.dout, m.k, m.v, m.dq, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NS>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const long long (&s)[12], int batch, const Params& p, cudaStream_t stream) {
+  using T = DqTile<NS>;
+  Maps m = {};
+  if (!encode_maps(m, q, k, v, dout, s, batch, p, T::BQ, T::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_backward_dq_kernel<NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.seq_q / T::BQ, p.heads, batch);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(m.q, m.dout, m.k, m.v, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Params make_params(const void* lse, const void* dsum, void* dq, void* dk, void* dv, int heads,
+                   int kv_heads, int seq_q, int seq_kv, int causal, int q_offset, int window,
+                   float scale, float softcap) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.dsum = static_cast<const float*>(dsum);
   p.dq_acc = static_cast<float*>(dq);
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  p.q_sb = s[0]; p.q_sh = s[1]; p.q_ss = s[2];
-  p.k_sb = s[3]; p.k_sh = s[4]; p.k_ss = s[5];
-  p.v_sb = s[6]; p.v_sh = s[7]; p.v_ss = s[8];
-  p.o_sb = s[9]; p.o_sh = s[10]; p.o_ss = s[11];
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.group = heads / kv_heads;
@@ -526,18 +665,6 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   return p;
 }
 
-template <bool kDQ>
-int launch_dkv(const Params& p, int batch, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_backward_dkv_kernel<kDQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DKV_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.kv_heads, batch, p.seq_kv / BK);
-  flash_backward_dkv_kernel<kDQ>
-      <<<grid, NTHREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -548,9 +675,11 @@ const char* fa_error_string(int code) {
 
 // Common arguments of the three entry points. q, dout (b, heads, seq_q, 128)
 // and k, v (b, kv_heads, seq_kv, 128) are bf16 with the given element strides
-// (d contiguous, rows 16-byte aligned); lse and dsum are (b, heads, seq_q)
-// fp32 contiguous. Outputs are contiguous. seq_q and seq_kv are multiples of
-// 64. Each returns cudaGetLastError() after its launch.
+// (d contiguous, strides multiples of 8 elements, base 16-byte aligned); lse
+// and dsum are (b, heads, seq_q) fp32 contiguous, 16-byte aligned. Outputs
+// are contiguous. seq_q and seq_kv are multiples of 64. Each returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue when a
+// tensor map cannot be encoded.
 #define FA_BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *dout,                 \
       const void *lse, const void *dsum, void *dq, void *dk, void *dv,          \
@@ -563,31 +692,26 @@ const char* fa_error_string(int code) {
 #define FA_BWD_PARAMS                                                            \
   const long long s[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,                   \
                            v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};                  \
-  const Params p = make_params(q, k, v, dout, lse, dsum, dq, dk, dv, s, heads,   \
-                               kv_heads, seq_q, seq_kv, causal, q_offset,       \
-                               window, scale, softcap)
+  const Params p = make_params(lse, dsum, dq, dk, dv, heads, kv_heads, seq_q,    \
+                               seq_kv, causal, q_offset, window, scale, softcap); \
+  cudaStream_t st = static_cast<cudaStream_t>(stream)
 
 // K2: dK, dV (bf16) and dQ added into dq, a zeroed fp32 workspace.
 int fa_flash_backward_fused(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  return launch_dkv<true>(p, batch, stream);
+  return launch_dkv<FUSED_TILE>(q, k, v, dout, s, batch, p, st);
 }
 
 // K3, first half: dK and dV only (dq is unused).
 int fa_flash_backward_dkv(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  return launch_dkv<false>(p, batch, stream);
+  return launch_dkv<DKV_TILE>(q, k, v, dout, s, batch, p, st);
 }
 
 // K3, second half: dQ (bf16) into dq (dk and dv are unused).
 int fa_flash_backward_dq(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_backward_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(heads, batch, seq_q / BQ);
-  flash_backward_dq_kernel<<<grid, NTHREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq<DQ_SLOTS>(q, k, v, dout, s, batch, p, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The attention main loop for Hopper, d_head 128, shared by K11
 // (flash_forward_fori.cu) and K10's bf16 upcast modes (flash_quant.cu); K10's
-// int8-compute kernel shares its CTA, walk, masks and finalisation.
+// int8-compute kernel shares its CTA, walk, masks and finalisation, and the
+// backward (flash_backward.cu) its walk, masks and tile products.
 //
 // A CTA is one producer warpgroup and two consumer warpgroups of 64 Q rows
 // each, BQ = 128 Q rows of one (Q head, batch). The producer fills a ring of

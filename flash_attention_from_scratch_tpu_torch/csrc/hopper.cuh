@@ -1,8 +1,8 @@
 // Hopper primitives shared by the port's wgmma + TMA kernels
 // (quant_matmul.cu's K6/K7, flash_forward_fori.cu's K11, flash_quant.cu's
-// K10): mbarriers, TMA loads and tensor-map encoding, wgmma operand
-// descriptors and instructions, and exact small-integer conversions to
-// bf16.
+// K10, flash_backward.cu's K2/K3): mbarriers, TMA and bulk loads and
+// tensor-map encoding, wgmma operand descriptors and instructions, and
+// exact small-integer conversions to bf16.
 //
 // Everything here is for sm_90a: wgmma exists only there.
 
@@ -101,6 +101,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// A plain copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+        "r"(smem_addr(bar)) : "memory");
+}
+
+// Adds a box of shared memory (laid out as a TMA load of the map would
+// write it) into the tensor at coordinates (c0, c1), as a bulk group of
+// this thread: commit it with bulk_commit, and before the shared memory is
+// written again wait for it to be read with bulk_wait.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups have yet to read their
+// shared memory (N = 0 with FULL: until they have completed).
+template <int N, bool FULL = false>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (FULL) asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+  else asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma operand descriptors, 128-byte swizzle. A swizzle atom is 8 rows of
 // 128 bytes (1024 bytes, 1024-byte aligned) whose 16-byte chunks are
@@ -147,7 +180,8 @@ __device__ __forceinline__ void wgmma_wait() {
 // in flight make ptxas serialize them).
 //   wgmma_nN: A from registers (a[0..3]: the m16n8k16 A fragment of the
 //     warp's 16 rows), B by descriptor; TRANS_B 1 for an MN-major B.
-//   wgmma_ss_nN: A and B by K-major descriptors.
+//   wgmma_ss_nN: A and B by descriptors, K-major unless TRANS_A / TRANS_B
+//     is 1 (an MN-major A or B, bf16 only).
 //   wgmma_ss_s8_n128 / wgmma_s8_n128: int8 (K 32), exact int32 sums; A's
 //     register fragment holds 4 consecutive k per register
 //     (a[0]: row g, k 4q..4q+3; a[1]: row g + 8; a[2], a[3]: k + 16).
@@ -237,6 +271,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
 }
 
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
   asm volatile(
@@ -247,7 +282,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -256,9 +291,10 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
   asm volatile(
@@ -273,7 +309,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -290,7 +326,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,

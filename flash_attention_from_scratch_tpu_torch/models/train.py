@@ -48,10 +48,10 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
     """Returns ``step(params, tokens) -> loss``, the loss before the update.
 
     ``params`` must be the tree ``optimizer`` was made over; ``tokens``
-    (batch, seq + 1). ``remat=True`` checkpoints each layer. While
-    PyTorch's deterministic mode is on (``torch.use_deterministic_algorithms``)
-    the attention backward runs the split kernels (K3), whose sums have a
-    fixed order; otherwise the fused kernel (K2), whose dQ sums by atomics.
+    (batch, seq + 1). ``remat=True`` checkpoints each layer. The model's
+    causal attention backward runs the split kernels (K3), the faster on
+    the card, whose sums have a fixed order
+    (``ops/flash_backward.py::fused_choice``).
     """
 
     def step(params, tokens):

@@ -48,7 +48,8 @@ def flash_attention(q, k, v, cfg: KernelConfig | None = None, sinks=None):
     backward.
 
     ``sinks`` ((heads,) fp32, optional): per-head sink logits, a learned
-    parameter differentiated with q, k and v. The backward runs K2, or K3
-    while PyTorch's deterministic mode is on (see :func:`flash_backward`).
+    parameter differentiated with q, k and v. The backward runs the kernel
+    :func:`~.flash_backward.fused_choice` picks: K3 with the causal mask or
+    in PyTorch's deterministic mode, else K2.
     """
     return _FlashAttention.apply(q, k, v, sinks, cfg)

@@ -4,8 +4,9 @@ Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_backward.py``
 ``flash_backward``. For CUDA tensors the wrapper launches
 ``csrc/flash_backward.cu``: K2, the fused kernel (one shared recompute for
 dQ, dK and dV; dQ summed by fp32 atomics), or K3, the split pair (a dK/dV
-kernel and a dQ kernel, each summing in a fixed order). For CPU tensors it
-runs the plain version, :func:`flash_backward_plain`.
+kernel and a dQ kernel, each summing in a fixed order), all on wgmma with
+TMA copies; their launches are :func:`plan`. For CPU tensors it runs the
+plain version, :func:`flash_backward_plain`.
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ import torch
 
 from . import _build
 from .configs import KernelConfig
-from .flash_forward import D_HEAD, _default_cfg, _kernel_layout, _strides, _validate
+from .flash_forward import (
+    ALIGN_SLACK, D_HEAD, WG_ROWS, TilePlan, _default_cfg, _kernel_layout, _strides,
+    _validate, bf16_tile_bytes, check_grid,
+)
 
-__all__ = ["flash_backward", "flash_backward_plain", "fused_choice",
-           "KERNEL_FUSED", "KERNEL_DKV", "KERNEL_DQ"]
+__all__ = ["flash_backward", "flash_backward_plain", "fused_choice", "plan",
+           "dkv_q_tiles", "KERNEL_FUSED", "KERNEL_DKV", "KERNEL_DQ"]
 
 KERNEL_FUSED = "flash_backward_fused"
 KERNEL_DKV = "flash_backward_dkv"
@@ -30,6 +34,80 @@ SOURCE = "flash_backward.cu"
 LOG2E = math.log2(math.e)
 
 _I64, _I32, _F32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+# The launches of csrc/flash_backward.cu (its FUSED_TILE, DKV_TILE and
+# DQ_SLOTS): a CTA is consumer warpgroups of 64 rows only (its thread 0
+# issues the copies). (consumer warpgroups, ring slots) of the dK/dV
+# kernel, for K2 and for K3's first half, over slots of 64 Q rows; the
+# ring slots of the dQ kernel (one warpgroup of 64 Q rows) of 128 keys.
+FUSED_TILE = (2, 3)
+DKV_TILE = (1, 2)
+DQ_SLOTS = 1
+DKV_Q_ROWS = 64
+DQ_KEYS = 128
+SM_SMEM = 233472  # an SM's shared memory, 1 KB of it reserved per CTA
+
+
+def per_sm(warpgroups: int, smem: int) -> int:
+    """CTAs an SM holds (``per_sm`` in the source, its launch bound): two of
+    one warpgroup where their shared memory fits, else one."""
+    return 2 if warpgroups == 1 and 2 * (smem + 1024) <= SM_SMEM else 1
+
+
+def _dkv_plan(fused: bool, batch: int, kv_heads: int, seq_kv: int) -> TilePlan:
+    nc, slots = FUSED_TILE if fused else DKV_TILE
+    bkv, bq = nc * WG_ROWS, DKV_Q_ROWS
+    stats = 2 * bq * 4  # a slot's LSE and D rows, fp32
+    # K2: dS^T buffers, one a warpgroup; a stage of 16 x 64 fp32 dQ a warp.
+    ds = nc * (bkv * bq * 2 + 4 * 16 * 64 * 4) if fused else 0
+    tiles = -(-seq_kv // bkv)
+    return TilePlan(rows=bq, keys=bkv, slots=slots,
+                    smem=(2 * bf16_tile_bytes(bkv) + slots * (2 * bf16_tile_bytes(bq) + stats)
+                          + ds + ALIGN_SLACK),
+                    grid=(kv_heads, batch, tiles), kv_tiles=tiles, threads=nc * 128)
+
+
+def _dq_plan(batch: int, heads: int, seq_q: int, seq_kv: int) -> TilePlan:
+    return TilePlan(rows=WG_ROWS, keys=DQ_KEYS, slots=DQ_SLOTS,
+                    smem=(2 * bf16_tile_bytes(WG_ROWS)
+                          + DQ_SLOTS * 2 * bf16_tile_bytes(DQ_KEYS) + ALIGN_SLACK),
+                    grid=(seq_q // WG_ROWS, heads, batch), kv_tiles=-(-seq_kv // DQ_KEYS),
+                    threads=128)
+
+
+def plan(fused: bool, batch: int, heads: int, kv_heads: int, seq_q: int,
+         seq_kv: int) -> tuple:
+    """The launches of one backward call: K2's, or K3's dK/dV then dQ.
+
+    A dK/dV launch (``DkvTile`` in the source) has a CTA per (``keys`` KV
+    rows, KV head, batch), grid (kv_heads, batch, KV tiles), walking Q tiles
+    of ``rows`` rows through a ring of ``slots`` slots (Q and dO bf16, their
+    LSE and D fp32; K2 adds a dS^T buffer a warpgroup and a dQ stage a
+    warp). The dQ launch
+    (``DqTile``) has a CTA per (``rows`` Q rows, head, batch), grid (Q
+    tiles, heads, batch), walking ``keys``-key K/V slots, as the forward's
+    main loop."""
+    if fused:
+        return (_dkv_plan(True, batch, kv_heads, seq_kv),)
+    return (_dkv_plan(False, batch, kv_heads, seq_kv),
+            _dq_plan(batch, heads, seq_q, seq_kv))
+
+
+def dkv_q_tiles(cfg: KernelConfig, kv0: int, kv_end: int, bq: int,
+                seq_q: int) -> range:
+    """The Q tiles (``bq`` rows each) that the dK/dV walk of the CTA owning
+    keys ``kv0 .. kv_end - 1`` visits (``dkv_q_tiles`` in the source): with
+    the causal mask, from the first tile whose last row reaches ``kv0`` to
+    the last whose first row lies within the window of ``kv_end - 1``."""
+    first, last = 0, seq_q // bq - 1
+    if cfg.causal:
+        lo = kv0 - cfg.q_offset - (bq - 1)
+        if lo > 0:
+            first = -(-lo // bq)
+        if cfg.window:
+            hi = cfg.window + kv_end - 2 - cfg.q_offset
+            last = -1 if hi < 0 else min(last, hi // bq)
+    return range(first, last + 1)
 
 
 def _validate_backward(cfg: KernelConfig, q, k, v, o, lse, do):
@@ -46,8 +124,9 @@ def _validate_backward(cfg: KernelConfig, q, k, v, o, lse, do):
 
 
 def _row_sums(o, do):
-    """D = rowsum(dO * O) in fp32, (batch, heads, seq_q)."""
-    return (do.float() * o.float()).sum(-1)
+    """D = rowsum(dO * O) in fp32, (batch, heads, seq_q) (O is cast inside
+    the product, not copied first)."""
+    return (do.float() * o).sum(-1)
 
 
 def _visible(sq: int, skv: int, cfg: KernelConfig, device):
@@ -118,8 +197,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _aligned(x):
-    """x contiguous, starting on a 16-byte boundary (the kernels read row
-    statistics 16 bytes at a time)."""
+    """x contiguous, starting on a 16-byte boundary (the kernels copy row
+    statistics in 16-byte units)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -140,6 +219,8 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
         do = do.contiguous()
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
+    for launch in plan(fused, b, h, kvh, sq, skv):
+        check_grid(launch)
     lse, dsum = _aligned(lse), _aligned(dsum)
     dk = torch.empty((b, kvh, skv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -166,13 +247,18 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
     return dq, dk, dv
 
 
-def fused_choice(fused: bool | None = None) -> bool:
-    """Whether :func:`flash_backward` runs K2: ``fused`` when given, else
-    K2 unless PyTorch's deterministic mode is on
-    (``torch.use_deterministic_algorithms``), which selects K3."""
+def fused_choice(fused: bool | None = None, causal: bool = True) -> bool:
+    """Whether :func:`flash_backward` runs K2: ``fused`` when given; else
+    K3 while PyTorch's deterministic mode is on
+    (``torch.use_deterministic_algorithms``: K3's sums have a fixed order,
+    K2 adds dQ in no fixed order), and otherwise the faster of the two: on
+    an H100 (``chip_smoke.py::time_backward``: b 2, 32/8 heads, d 128,
+    bf16) K3 with the causal mask (s 1024, 2048, the training run's, and
+    4096), K2 without it (s 2048).
+    """
     if fused is not None:
         return fused
-    return not torch.are_deterministic_algorithms_enabled()
+    return not causal and not torch.are_deterministic_algorithms_enabled()
 
 
 def flash_backward(q, k, v, o, lse, do, cfg: KernelConfig | None = None, *,
@@ -185,15 +271,16 @@ def flash_backward(q, k, v, o, lse, do, cfg: KernelConfig | None = None, *,
     ``do`` is cast to q's dtype. ``scale`` defaults to the config's softmax
     scale.
 
-    ``fused=True`` (the default on every length) runs K2, which shares one
-    recompute between dQ, dK and dV and adds dQ by fp32 atomics, so dQ's
-    summation order changes from run to run. ``fused=False`` runs K3, the
-    split dK/dV and dQ kernels, whose sums have a fixed order; it is also
-    the default while PyTorch's deterministic mode is on (:func:`fused_choice`).
-    The TPU's rule for choosing (``fused_backward_fits``: whole-sequence
-    dK/dV scratch in VMEM) does not apply on Hopper, where each CTA keeps
-    dK/dV for one 64-row KV tile only. ``bands`` (the TPU's banded
-    backward, a measured loss there) is not ported.
+    ``fused=True`` runs K2, which shares one recompute between dQ, dK and
+    dV and adds dQ by fp32 atomics, so dQ's summation order changes from
+    run to run. ``fused=False`` runs K3, the split dK/dV and dQ kernels,
+    whose sums have a fixed order; it is the default with the causal mask,
+    where it is the faster on the card, and in PyTorch's deterministic mode
+    (:func:`fused_choice`). The TPU's rule for choosing
+    (``fused_backward_fits``: whole-sequence dK/dV scratch in VMEM) does
+    not apply on Hopper, where each CTA keeps dK/dV for its own 64 or 128
+    KV rows only. ``bands`` (the TPU's banded backward, a measured loss
+    there) is not ported.
     """
     if bands is not None:
         raise NotImplementedError(
@@ -207,4 +294,4 @@ def flash_backward(q, k, v, o, lse, do, cfg: KernelConfig | None = None, *,
         raise ValueError(f"unsupported device {q.device}")
     do = do.to(q.dtype)
     return _launch(q, k, v, lse, _row_sums(o, do), do, cfg, scale,
-                   fused=fused_choice(fused))
+                   fused=fused_choice(fused, cfg.causal))

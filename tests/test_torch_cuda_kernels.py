@@ -17,10 +17,10 @@ weight-only kernels (K6, K7) by the same rule in each 16-row band against
 the plain version cast to bf16 and in fp32; the a8 kernels (K8, K9) within
 one bf16 ulp of each value of the plain version, whose integer sums are
 exact as the kernel's are. The training step compares
-the parameter gradients of the fused and the split backward kernels with
-those of the plain backward: all three run the same bf16 arithmetic and
-differ in summation order only, so they agree within 1e-2 of each leaf's
-largest gradient (about one bf16 ulp).
+the parameter gradients of the split (the default) and the fused backward
+kernels with those of the plain backward: all three run the same bf16
+arithmetic and differ in summation order only, so they agree within 1e-2
+of each leaf's largest gradient (about one bf16 ulp).
 """
 
 import dataclasses
@@ -38,7 +38,8 @@ from flash_attention_from_scratch_tpu_torch.ops.configs import (
     MAX_KV_BUFFERS, DType, KernelConfig, KVLoop,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-    KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain,
+    KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, SOURCE as BACKWARD_SOURCE, flash_backward,
+    flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
     KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE_FORI, flash_forward_plain,
@@ -287,6 +288,33 @@ def test_attention_kernels_run_on_wgmma(cuda):
         assert want in sass, name
         assert "HMMA" not in sass and "IMMA" not in sass, name
     assert any("flash_quant_i8_kernel" in n for n in quant)
+
+
+def _resource_usage(source):
+    """{kernel symbol: its registers, stack and local bytes} of the built
+    library of ``source`` (``cuobjdump -res-usage``): local memory is where
+    ptxas spills."""
+    path = _build.load(source)._name
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-res-usage", path], capture_output=True, text=True,
+                         check=True).stdout
+    return {m[0]: dict(reg=int(m[1]), stack=int(m[2]), local=int(m[3])) for m in re.findall(
+        r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", out)}
+
+
+def test_backward_kernels_run_on_wgmma_without_spills(cuda):
+    """K2's and K3's kernels (the dK/dV kernel with and without dQ, the dQ
+    kernel) issue bf16 wgmma (HGMMA) and no mma.sync (HMMA), and spill
+    nothing: no local memory, no stack."""
+    sass = _sass_by_function(BACKWARD_SOURCE)
+    usage = _resource_usage(BACKWARD_SOURCE)
+    names = [n for n in sass if "flash_backward_" in n]
+    assert len(names) == 3, list(sass)
+    assert len([n for n in names if "flash_backward_dkv_kernel" in n]) == 2
+    for name in names:
+        assert "HGMMA" in sass[name], name
+        assert "HMMA" not in sass[name], name
+        assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
 
 
 def _bf16_ulp(x):
@@ -546,6 +574,85 @@ def test_flash_backward_kernels_match_plain(cuda, fused, sq, kw):
         assert ok, (name, ratio, where)
 
 
+def _backward_inputs(cuda, sq, skv, heads, kv_heads, cfg, seed):
+    rng = np.random.default_rng(seed + 1)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, heads, sq, kv_heads=kv_heads, seq_kv=skv, seed=seed))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    return q, k, v, do
+
+
+def _check_backward(got, q, k, v, o, lse, do, cfg, what):
+    ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+    ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                 do.float(), dataclasses.replace(cfg, dtype=DType.FP32))
+    for name, g, r16, r32 in zip(("dq", "dk", "dv"), got, ref16, ref32):
+        assert g.shape == r16.shape and bool(torch.isfinite(g).all()), (what, name)
+        ok, ratio, where = sliced_tolerance_check(
+            row_bands(g), row_bands(r16), row_bands(r32), lead=3)
+        assert ok, (what, name, ratio, where)
+    return ref16
+
+
+# Ragged against the dK/dV kernel's 128-key CTAs and the dQ kernel's 128-row
+# CTAs (seq 192 and 320 are odd multiples of 64), and a GQA group of 1.
+BACKWARD_EDGE_CASES = [
+    (192, 320, 8, 2, dict(causal=True, q_offset=128, window=70)),
+    (320, 320, 8, 2, dict()),
+    (320, 320, 8, 2, dict(causal=True, window=100)),
+    (256, 256, 4, 4, dict(causal=True)),
+    (192, 192, 4, 4, dict(causal=True, attn_softcap=30.0)),
+]
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("sq,skv,heads,kv_heads,kw", BACKWARD_EDGE_CASES)
+def test_flash_backward_ragged_and_mha(cuda, fused, sq, skv, heads, kv_heads, kw):
+    """The sliced rule on ragged tiles (no row past seq_kv or seq_q stored,
+    keys past seq_kv masked) and with one Q head per KV head; a second call
+    gives the same dK and dV bit for bit in both modes, and the same dQ in
+    the split pair (K2's dQ is summed by atomics)."""
+    cfg = KernelConfig(**kw)
+    q, k, v, do = _backward_inputs(cuda, sq, skv, heads, kv_heads, cfg, seed=8)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    again = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    torch.cuda.synchronize()
+    _check_backward(got, q, k, v, o, lse, do, cfg, (fused, sq, skv, kw))
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    if not fused:
+        assert torch.equal(got[0], again[0])
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_flash_backward_reads_each_box_in_place(cuda, fused):
+    """One-hot rows make each MN-major operand's columns land in known
+    gradient columns: dV = P^T dO in dO's columns (0-31), dK = dS^T Q in
+    Q's (80-111), dQ = dS K in K's (32-63). A swapped or misplaced
+    64-column box, or a wrong leading offset, moves them."""
+    cfg = KernelConfig(causal=True)
+    sq = skv = 256
+    rows = torch.arange(sq, device=cuda)
+
+    def one_hot(heads, col):
+        x = torch.zeros((2, heads, sq, 128), device=cuda, dtype=torch.bfloat16)
+        x[:, :, rows, col] = 1.0
+        return x
+
+    q, k, do = one_hot(8, 80 + rows % 32), one_hot(2, 32 + rows % 32), one_hot(8, rows % 32)
+    v = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 2, skv, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    ref = _check_backward(got, q, k, v, o, lse, do, cfg, fused)
+    for name, g, r, cols in zip(("dq", "dk", "dv"), got, ref, (range(32, 64), range(80, 112),
+                                                               range(0, 32))):
+        support = g.float().abs().amax(dim=(0, 1, 2)) > 0
+        assert torch.equal(support, r.float().abs().amax(dim=(0, 1, 2)) > 0), name
+        assert set(torch.nonzero(support).flatten().tolist()) <= set(cols), name
+
+
 def test_flash_backward_takes_strided_inputs(cuda):
     """The model's q/k/v/dO are transposed views of (b, s, h, d) rows."""
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -580,14 +687,18 @@ def test_train_step_on_the_kernels(cuda, monkeypatch):
         return [p.grad for p in train.param_leaves(params)]
 
     before = {n: _build.launch_counts[n] for n in (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
-    fused = grads()
-    # Deterministic mode selects the split kernels; cuBLAS only warns.
+    split = grads()  # the default, the split kernels
+    # Deterministic mode keeps them; cuBLAS only warns.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        split = grads()
+        grads()
     finally:
         torch.use_deterministic_algorithms(False)
-    assert [_build.launch_counts[n] - before[n] for n in before] == [cfg.n_layers] * 3
+    monkeypatch.setattr(autodiff, "flash_backward",
+                        lambda *args, **kw: flash_backward(*args, fused=True))
+    fused = grads()
+    assert [_build.launch_counts[n] - before[n] for n in before] == [
+        cfg.n_layers, 2 * cfg.n_layers, 2 * cfg.n_layers]
     monkeypatch.setattr(autodiff, "flash_backward",
                         lambda *args, **kw: flash_backward_plain(*args))
     plain = grads()
@@ -600,8 +711,8 @@ def test_train_step_on_the_kernels(cuda, monkeypatch):
 
     params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
     step = train.make_train_step(cfg, train.make_optimizer(params, lr=1e-3))
-    before = {n: _build.launch_counts[n] for n in (FLASH, KERNEL_FUSED)}
+    before = {n: _build.launch_counts[n] for n in (FLASH, KERNEL_DKV, KERNEL_DQ)}
     losses = [float(step(params, tokens)) for _ in range(3)]
     assert losses[-1] < losses[0], losses
-    for n in (FLASH, KERNEL_FUSED):
+    for n in (FLASH, KERNEL_DKV, KERNEL_DQ):
         assert _build.launch_counts[n] == before[n] + 3 * cfg.n_layers

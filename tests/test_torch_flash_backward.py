@@ -219,14 +219,19 @@ def test_flash_backward_rejects(name):
 
 
 def test_fused_choice_follows_deterministic_mode():
-    """K2 by default; K3 while deterministic mode is on; an explicit
+    """K3 while deterministic mode is on; otherwise the faster by
+    measurement, K3 with the causal mask and K2 without; an explicit
     ``fused`` wins either way."""
     was = torch.are_deterministic_algorithms_enabled()
     try:
         torch.use_deterministic_algorithms(False)
-        assert [fused_choice(f) for f in (None, True, False)] == [True, True, False]
-        torch.use_deterministic_algorithms(True)
         assert [fused_choice(f) for f in (None, True, False)] == [False, True, False]
+        assert [fused_choice(f, causal=False) for f in (None, True, False)] == [
+            True, True, False]
+        torch.use_deterministic_algorithms(True)
+        for causal in (True, False):
+            assert [fused_choice(f, causal) for f in (None, True, False)] == [
+                False, True, False]
     finally:
         torch.use_deterministic_algorithms(was)
 

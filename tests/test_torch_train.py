@@ -153,9 +153,9 @@ def test_make_optimizer_marks_leaves_and_updates_in_place():
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_grad_path_runs_the_attention_backward(deterministic, monkeypatch):
     """With grads on, attention goes through flash_attention and its
-    backward, fused (K2) unless PyTorch's deterministic mode asks for the
-    split kernels (K3); without, through flash_forward alone (the serving
-    path)."""
+    backward, the split kernels (K3) for the model's causal attention, by
+    default and in PyTorch's deterministic mode (``fused_choice``);
+    without, through flash_forward alone (the serving path)."""
     from flash_attention_from_scratch_tpu_torch.ops import autodiff
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         fused_choice)
@@ -164,7 +164,7 @@ def test_grad_path_runs_the_attention_backward(deterministic, monkeypatch):
     real = autodiff.flash_backward
 
     def spy(*args, **kw):
-        calls.append(fused_choice(kw.get("fused")))
+        calls.append(fused_choice(kw.get("fused"), args[6].causal))
         return real(*args, **kw)
 
     monkeypatch.setattr(autodiff, "flash_backward", spy)
@@ -183,4 +183,4 @@ def test_grad_path_runs_the_attention_backward(deterministic, monkeypatch):
         llama.loss_fn(params, tokens, cfg).backward()
     finally:
         torch.use_deterministic_algorithms(was)
-    assert calls == [not deterministic] * SHAPE["n_layers"]
+    assert calls == [False] * SHAPE["n_layers"]
