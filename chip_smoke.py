@@ -9,8 +9,9 @@ Phases: (1) print the card's name and power limit; (2) build every kernel
 from ``flash_attention_from_scratch_tpu_torch/csrc`` with nvcc for sm_90a,
 in parallel; (3) hold each kernel against its plain PyTorch version on the
 card, in bf16, by the adaptive tolerance rule in each sequence or 64-row
-band on its own: the flash forward (K1), paged decode (K4/K5) on dense,
-int8, fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
+band on its own: the flash forward (K1), paged decode (K4/K5: its split
+kernel and merge, at one split and at the plan's count) on dense, int8,
+fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
 shape of Llama-3-8B at 16, 32, 64 and 1024 rows and K6/K7 at 1000 (K8/K9
 also within one bf16 ulp of the plain int32 path), and the flash backward, fused (K2) and split
 (K3), each also at the training run's shape and strided layout and on
@@ -18,7 +19,7 @@ ragged tiles, rerun to hold dK/dV (and K3's dQ) bit for bit, plus
 autograd with sinks against autograd of the reference; (4) serve
 Llama-3-8B at full width and depth (random bf16 weights from a seed)
 through ``GenerationServer``: 8 requests, 32 greedy tokens each, with the
-launch counts of both kernels checked and two requests teacher-forced
+launch counts of K1, K4/K5 and its merge checked and two requests teacher-forced
 through the full-recompute ``forward``; (5) profile a few decode steps of
 the same server (device time by kernel, the card's busy share), then serve
 again on the same weights with speculative decoding (``spec_k=3``: prompts
@@ -45,9 +46,12 @@ and ``tools/bench_attention.py --fori``, each with its kernel's launches
 counted, then hold K10 (every variant) and K11 (depth 2) against their
 plain versions on the tools' own inputs at those shapes; (9) time each kernel at its path's shapes beside its bound, its
 plain version and the library call, with K6-K9's registers and spills
-from the build (K4/K5 also per page format, with
-t = 4 query tokens at the speculative run's first verify step and with
-int8 compute at run E's step, each beside the single-token call; K10 per
+from the build (K1 also launched as a plain grid, with its registers and
+spills; K4/K5 by CUDA-graph replay, as the card runs it faster than the
+host enqueues it, with its split count and its merge's share, also per
+page format, with t = 4 query tokens at the speculative run's first
+verify step and with int8 compute at run E's step, each beside the
+single-token call; K10 per
 variant and K11 per ring depth at b 4, s 4096, with their registers
 and spills from the build; K2 and K3 at four shapes, as the whole call
 and as their kernels' device time, with their registers and spills).
@@ -95,6 +99,36 @@ PAGED_TOKENS = (2, 4, 8)  # multi-token q cases: t = spec_k + 1 for spec_k 1, 3,
 def _time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     """Median milliseconds per call (``dispatch.median_runtime``)."""
     return 1e3 * median_runtime(fn, warmup=warmup, iters=iters)
+
+
+def _graph_ms(fn, calls: int = 20, iters: int = 5) -> float:
+    """Median milliseconds per call of ``fn`` on the card, with the host out
+    of the way: ``calls`` calls captured in one CUDA graph, replayed between
+    two CUDA events. For kernels that the card runs faster than the host
+    enqueues their wrapper's calls, where ``_time_ms`` times the host."""
+    fn()  # allocations, builds and one-time set-up happen outside the graph
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[iters // 2]
 
 
 def _attn_ops(seq: int, heads: int, batch: int, causal: bool, window: int = 0) -> int:
@@ -406,8 +440,13 @@ def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
             torch.from_numpy(tables).to(**to))
 
 
+# K4/K5's split counts in the kernel cases: 1 (no merge) and the plan's (0).
+PAGED_SPLITS = (1, 0)
+
+
 def phase_paged_cases() -> float:
-    """K4/K5 vs its plain version on a ragged, shuffled, NaN-poisoned pool."""
+    """K4/K5 vs its plain version on a ragged, shuffled, NaN-poisoned pool,
+    at split counts 1 and the plan's."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
     from flash_attention_from_scratch_tpu_torch.utils.testing import (
@@ -422,26 +461,27 @@ def phase_paged_cases() -> float:
     worst = 0.0
     for name, kw in (("dense", {}), ("window 1000", dict(window=1000)),
                      ("softcap 30", dict(softcap=30.0))):
-        out = paged_decode_attention(q, kp, vp, lens, tables, **kw)
-        sync()
         scale = D ** -0.5
         ref16 = paged_decode_attention_plain(q, kp, vp, lens, tables,
                                              scale=scale, **kw)
         ref32 = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
                                              lens, tables, scale=scale, **kw)
-        # The rule for each sequence on its own.
-        ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
-        zero_row = float(out[lengths.index(0)].float().abs().max())
-        err = float((out.float() - ref16.float()).abs().max())
-        worst = max(worst, err)
-        good = ok and zero_row == 0.0 and bool(torch.isfinite(out).all())
-        print(f"paged_decode_attention {name}: max|kernel-plain| {err:.3e}, "
-              f"worst err/bound {ratio:.3f} at length {lengths[where[0]]}, "
-              f"length-0 row {zero_row} {'ok' if good else 'FAIL'}", flush=True)
-        if not good:
-            raise AssertionError(
-                f"paged_decode_attention {name} disagrees with its plain version")
-        sync()
+        for splits in PAGED_SPLITS:
+            out = paged_decode_attention(q, kp, vp, lens, tables, splits=splits, **kw)
+            sync()
+            # The rule for each sequence on its own.
+            ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+            zero_row = float(out[lengths.index(0)].float().abs().max())
+            err = float((out.float() - ref16.float()).abs().max())
+            worst = max(worst, err)
+            good = ok and zero_row == 0.0 and bool(torch.isfinite(out).all())
+            print(f"paged_decode_attention {name} splits {splits or 'plan'}: "
+                  f"max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f} at length "
+                  f"{lengths[where[0]]}, length-0 row {zero_row} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            if not good:
+                raise AssertionError(
+                    f"paged_decode_attention {name} disagrees with its plain version")
     return worst
 
 
@@ -534,6 +574,29 @@ def _drive(server, prompts, new_tokens: int) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
+                 mode: str = "dense", i8c: bool = False, spec_k: int = 0) -> dict:
+    """``want`` (launches by kernel) plus the merge kernel's: one per K4/K5
+    call, as every K4/K5 call of the serving runs has more than one split
+    (checked here at the largest batch; the plan's count only grows as the
+    batch shrinks)."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, plan)
+    from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
+
+    calls = 0
+    for t in {1, spec_k + 1}:
+        n = want.get(kernel_name(t, i8c), 0)
+        if not n:
+            continue
+        p = plan(max_batch, KV_HEADS, HEADS // KV_HEADS * t, pages_per_seq, page_size,
+                 MODE_INT8C if i8c else MODES[mode][0], sm_count(torch.device("cuda")))
+        if p.splits == 1:
+            raise AssertionError(f"one split at the serving shape: {p}")
+        calls += n
+    return {**want, KERNEL_MERGE: calls} if calls else want
+
+
 def phase_serve(smi: str) -> dict:
     """Serve LLAMA3_8B at full width and depth; check counts and tokens."""
     from flash_attention_from_scratch_tpu_torch import (
@@ -570,12 +633,12 @@ def phase_serve(smi: str) -> dict:
         raise AssertionError(f"{int(nonfinite)} non-finite logits while serving")
     if stats["preemptions"] != 0:
         raise AssertionError(f"{stats['preemptions']} preemptions")
-    want_k1 = cfg.n_layers * len(prompts)
-    want_kp = cfg.n_layers * stats["decode_steps"]
-    print(f"serve: launches {counts}; expected {K1} {want_k1}, {KP} "
-          f"{cfg.n_layers} x {stats['decode_steps']} decode steps = {want_kp}",
-          flush=True)
-    if counts.get(K1, 0) != want_k1 or counts.get(KP, 0) != want_kp:
+    want = _with_merges({K1: cfg.n_layers * len(prompts),
+                         KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                        SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+    print(f"serve: launches {counts}; expected {want} ({cfg.n_layers} layers x "
+          f"{len(prompts)} prompts, {stats['decode_steps']} decode steps)", flush=True)
+    if counts != want:
         raise AssertionError("a kernel of the main path ran the wrong number of times")
 
     for n in TEACHER_FORCED:
@@ -680,6 +743,7 @@ def phase_serve_spec(params, smi: str) -> dict:
             KERNEL_MULTI: cfg.n_layers * stats["verify_steps"]}
     if stats["decode_steps"]:
         want[KP] = cfg.n_layers * stats["decode_steps"]
+    want = _with_merges(want, 8, SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE, spec_k=SPEC_K)
     print(f"serve_spec: launches {counts}; expected {want} ({cfg.n_layers} layers x "
           f"{stats['verify_steps']} verify + {stats['decode_steps']} decode steps)",
           flush=True)
@@ -723,7 +787,7 @@ KERNEL_CLASSES = (
     ("quantized matmul (K6-K9)", ("quant_matmul_",)),
     ("flash forward (K1)", ("flash_forward_kernel",)),
     ("flash backward (K2/K3)", ("flash_backward_",)),
-    ("paged decode (K4/K5)", ("paged_decode_kernel",)),
+    ("paged decode (K4/K5)", ("paged_decode_kernel", "paged_decode_merge_kernel")),
     ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
 )
 
@@ -909,18 +973,23 @@ def _padded(n: int) -> int:
     return n + (-n) % PROMPT_QUANTUM
 
 
-def time_flash() -> dict:
-    """K1 at the serving run's prefill shapes: one layer, all 8 prompts."""
+def time_flash(ptxas: dict | None = None) -> dict:
+    """K1 at the serving run's prefill shapes: one layer, all 8 prompts;
+    beside it (``grid_ms``) the same kernel launched as a plain grid, one
+    CTA per work item, in place of its persistent CTAs. ``ptxas``: the
+    build's registers and spills of ``flash_forward.cu``'s kernel."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
     from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
 
     cfg = KernelConfig(causal=True)
-    ms = plain_ms = lib_ms = bound_ms = 0.0
+    ms = grid_ms = plain_ms = lib_ms = bound_ms = 0.0
     for i, n in enumerate(SERVE_PROMPT_LENS):
         s = _padded(n)
         q, k, v = _cuda_qkv(s, s, seed=50 + i)
         ms += _time_ms(lambda: flash_forward(q, k, v, cfg))
+        grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
         lib_ms += _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
         plain_ms += _time_ms(lambda: flash_forward_plain(q, k, v, cfg), iters=3,
@@ -930,14 +999,42 @@ def time_flash() -> dict:
         bound_ms += 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
         del q, k, v
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": "operations",
+            "bound_ms": bound_ms, "bound_by": "operations", "grid_ms": grid_ms,
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_kernel",)),
             "shape": "sum over the 8 padded prompts "
                      f"{[_padded(n) for n in SERVE_PROMPT_LENS]}: causal, "
                      f"b 1, {HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
 
 
+def _time_merge(q, kp, lens, tables) -> tuple[int, float]:
+    """The plan's split count for a dense single-token call, and the merge
+    kernel's time alone at that count (on a workspace the split kernel
+    filled)."""
+    from flash_attention_from_scratch_tpu_torch.ops import paged_attention as pa
+    from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
+
+    batch, heads = q.shape[:2]
+    rows = heads // KV_HEADS
+    p = pa.plan(batch, KV_HEADS, rows, tables.shape[1], kp.shape[2], 0,
+                sm_count(q.device))
+    if p.splits == 1:
+        return 1, 0.0
+    ws_o = torch.zeros((batch * KV_HEADS, p.splits, rows, D), device="cuda")
+    ws_ml = torch.zeros((batch * KV_HEADS, p.splits, rows, 2), device="cuda")
+    out = torch.empty_like(q)
+    lib, stream = pa._lib(), torch.cuda.current_stream().cuda_stream
+    merge = lambda: lib.fa_paged_decode_merge(  # noqa: E731
+        ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), batch, heads, KV_HEADS, 1,
+        p.splits, stream)
+    return p.splits, _graph_ms(merge)
+
+
 def time_paged() -> dict:
-    """K4/K5 at the serving run's first decode step: 8 sequences."""
+    """K4/K5 at the serving run's first decode step: 8 sequences; the
+    whole call (split kernel and merge; ``_graph_ms``, as the card runs it
+    faster than the host enqueues it: ``eager_call_ms`` is the back-to-back
+    eager call), the plan's split count, the merge kernel's time alone and
+    its share of the call, and the call at one split (no merge)."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
 
@@ -947,12 +1044,18 @@ def time_paged() -> dict:
         pages_per_seq=SERVE_PAGES_PER_SEQ)
     q = torch.from_numpy(np.random.default_rng(61).standard_normal(
         (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
-    ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
+    ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
+    call_ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
+    one_split_ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables,
+                                                            splits=1))
+    splits, merge_ms = _time_merge(q, kp, lens, tables)
     plain_ms = _time_ms(lambda: paged_decode_attention_plain(
         q, kp, vp, lens, tables, scale=D ** -0.5), iters=3, warmup=1)
     nbytes = sum(lengths) * KV_HEADS * D * 2 * 2 + 2 * q.numel() * 2
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            "splits": splits, "merge_ms": merge_ms, "merge_share": merge_ms / ms,
+            "one_split_ms": one_split_ms, "eager_call_ms": call_ms,
             "shape": f"first decode step: lengths {lengths}, page {SERVE_PAGE_SIZE}, "
                      f"{HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
 
@@ -1193,23 +1296,26 @@ def phase_quant_paged_cases() -> float:
             for name, kw in (("plain", {}), (f"window {window}", dict(window=window)),
                              ("softcap 30", dict(softcap=30.0))):
                 kw = dict(kw, mode=mode, k_scales=ks, v_scales=vs)
-                out = paged_decode_attention(q, qk, qv, lens, tables, **kw)
-                sync()
                 ref16 = paged_decode_attention_plain(q, qk, qv, lens, tables,
                                                      scale=D ** -0.5, **kw)
                 ref32 = paged_decode_attention_plain(q.float(), qk, qv, lens, tables,
                                                      scale=D ** -0.5, **kw)
-                ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
-                err = float((out.float() - ref16.float()).abs().max())
-                worst = max(worst, err)
-                good = (ok and bool(torch.isfinite(out).all()) and (
-                    0 not in lengths or float(out[lengths.index(0)].abs().max()) == 0.0))
-                print(f"paged_decode_attention {pool} {mode} {name}: max|kernel-plain| "
-                      f"{err:.3e}, worst err/bound {ratio:.3f} at length "
-                      f"{lengths[where[0]]} {'ok' if good else 'FAIL'}", flush=True)
-                if not good:
-                    raise AssertionError(f"paged_decode_attention {pool} {mode} {name} "
-                                         "disagrees with its plain version")
+                for splits in PAGED_SPLITS:
+                    out = paged_decode_attention(q, qk, qv, lens, tables, splits=splits,
+                                                 **kw)
+                    sync()
+                    ok, ratio, where = sliced_tolerance_check(out, ref16, ref32, lead=1)
+                    err = float((out.float() - ref16.float()).abs().max())
+                    worst = max(worst, err)
+                    good = (ok and bool(torch.isfinite(out).all()) and (
+                        0 not in lengths or float(out[lengths.index(0)].abs().max()) == 0.0))
+                    print(f"paged_decode_attention {pool} {mode} {name} splits "
+                          f"{splits or 'plan'}: max|kernel-plain| {err:.3e}, worst "
+                          f"err/bound {ratio:.3f} at length {lengths[where[0]]} "
+                          f"{'ok' if good else 'FAIL'}", flush=True)
+                    if not good:
+                        raise AssertionError(f"paged_decode_attention {pool} {mode} {name} "
+                                             "disagrees with its plain version")
     return worst
 
 
@@ -1236,24 +1342,32 @@ def _hold_paged(label, out, native, ref32, lengths, launched) -> tuple[float, fl
     return err, ratio
 
 
-def _paged_call(q, k, v, lens, tables, i8c, kw):
-    """One kernel call and its references: (out, launches, native, fp32).
-    The native reference is the plain version on the same inputs (with
-    int8_compute when the kernel has it), the fp32 one the plain version
-    with q in fp32 (and dense pages in fp32), without int8_compute."""
-    from flash_attention_from_scratch_tpu_torch.ops import _build
+def _paged_refs(q, k, v, lens, tables, i8c, kw):
+    """The references of a K4/K5 call: (native, fp32). The native one is the
+    plain version on the same inputs (with int8_compute when the kernel has
+    it), the fp32 one the plain version with q in fp32 (and dense pages in
+    fp32), without int8_compute."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-        kernel_name, paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention_plain)
 
-    name = kernel_name(q.shape[2] if q.ndim == 4 else 1, i8c)
-    before = _build.launch_counts[name]
-    out = paged_decode_attention(q, k, v, lens, tables, int8_compute=i8c, **kw)
-    sync()
-    launched = _build.launch_counts[name] - before
     native = paged_decode_attention_plain(q, k, v, lens, tables, int8_compute=i8c, **kw)
     pages32 = (k.float(), v.float()) if k.dtype == torch.bfloat16 else (k, v)
     ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw)
-    return out, launched, native, ref32
+    return native, ref32
+
+
+def _paged_kernel(q, k, v, lens, tables, i8c, kw, splits=0):
+    """One K4/K5 call: (out, launches of its split kernel)."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        kernel_name, paged_decode_attention)
+
+    name = kernel_name(q.shape[2] if q.ndim == 4 else 1, i8c)
+    before = _build.launch_counts[name]
+    out = paged_decode_attention(q, k, v, lens, tables, int8_compute=i8c, splits=splits,
+                                 **kw)
+    sync()
+    return out, _build.launch_counts[name] - before
 
 
 def phase_paged_multi_cases() -> tuple[float, float]:
@@ -1261,8 +1375,8 @@ def phase_paged_multi_cases() -> tuple[float, float]:
     pages, each with a window and with a softcap) and int8_compute (int8
     pages, t = 1 and 4: plain, window, softcap) vs the plain version in
     each (sequence, token), on the ragged page-64 pool of the dense cases
-    (lengths 0 to 4000) and on run A's page-128 pool. Returns (max |kernel -
-    plain|, worst err/bound)."""
+    (lengths 0 to 4000) and on run A's page-128 pool, at split counts 1
+    and the plan's. Returns (max |kernel - plain|, worst err/bound)."""
     lengths = [1, 17, 64, 65, 1000, 0, 2047, 3001, 4000]
     pools = (("page 64", 1000, (lengths, *make_paged_pool(lengths, 64, 320, seed=27,
                                                           pages_per_seq=64))),
@@ -1285,11 +1399,13 @@ def phase_paged_multi_cases() -> tuple[float, float]:
             q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
                 "cuda", torch.bfloat16)
             kw = dict(kw, scale=D ** -0.5, **options[opt])
-            out, launched, native, ref32 = _paged_call(q, k, v, lens, tables, i8c, kw)
-            label = (f"paged_decode_attention {pool} {'int8c' if i8c else mode} t{t} "
-                     f"{opt}")
-            worst = tuple(map(max, worst, _hold_paged(label, out, native, ref32,
-                                                      lengths, launched)))
+            native, ref32 = _paged_refs(q, k, v, lens, tables, i8c, kw)
+            for splits in PAGED_SPLITS:
+                out, launched = _paged_kernel(q, k, v, lens, tables, i8c, kw, splits)
+                label = (f"paged_decode_attention {pool} {'int8c' if i8c else mode} t{t} "
+                         f"{opt} splits {splits or 'plan'}")
+                worst = tuple(map(max, worst, _hold_paged(label, out, native, ref32,
+                                                          lengths, launched)))
         del formats
     torch.cuda.empty_cache()
     return worst
@@ -1364,6 +1480,8 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
     for t, n in ((1, stats["decode_steps"]), (spec_k + 1, stats["verify_steps"])):
         if n:
             want[kernel_name(t, i8c)] = cfg.n_layers * n
+    want = _with_merges(want, spec["requests"], pages_per_seq, QUANT_PAGE, spec["kv"], i8c,
+                        spec_k)
     print(f"serve {run}: launches {counts}; expected {want} ((7 x {cfg.n_layers} + 1) "
           f"x ({len(prompts)} prefills + {stats['decode_steps']} decode + "
           f"{stats['verify_steps']} verify steps))", flush=True)
@@ -1554,7 +1672,7 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
 
 def time_paged_formats() -> dict:
     """K4/K5 per page format at run A's first decode step: 16 sequences of
-    1025 tokens, page 128, 32/8 heads."""
+    1025 tokens, page 128, 32/8 heads (``_graph_ms``)."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
 
@@ -1567,7 +1685,7 @@ def time_paged_formats() -> dict:
         else:
             k, ks, v, vs = _quantized_pool(kp, vp, mode)
             kw = dict(mode=mode, k_scales=ks, v_scales=vs)
-        ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw))
+        ms = _graph_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw))
         plain_ms = _time_ms(lambda: paged_decode_attention_plain(
             q, k, v, lens, tables, scale=D ** -0.5, **kw), iters=3, warmup=1)
         nbytes = (sum(lengths) * KV_HEADS * D * 2 * elem + 2 * q.numel() * 2
@@ -1581,22 +1699,95 @@ def time_paged_formats() -> dict:
 def _time_paged_pair(q, k, v, lens, tables, kw, i8c, lengths, nbytes, shape) -> dict:
     """K4/K5 on ``q`` (int8_compute when ``i8c``) beside the single-token
     call without int8_compute at the same lengths (the last token of a
-    multi-token q): times, the byte bound, the plain version's time and the
-    call's worst err/bound against the plain version."""
+    multi-token q): times (``_graph_ms``), the byte bound, the plain
+    version's time and the call's worst err/bound against the plain
+    version."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
 
     q1 = q[:, :, -1].contiguous() if q.ndim == 4 else q
-    ms = _time_ms(lambda: paged_decode_attention(q, k, v, lens, tables,
-                                                 int8_compute=i8c, **kw))
-    single_ms = _time_ms(lambda: paged_decode_attention(q1, k, v, lens, tables, **kw))
+    ms = _graph_ms(lambda: paged_decode_attention(q, k, v, lens, tables,
+                                                  int8_compute=i8c, **kw))
+    single_ms = _graph_ms(lambda: paged_decode_attention(q1, k, v, lens, tables, **kw))
     plain_ms = _time_ms(lambda: paged_decode_attention_plain(
         q, k, v, lens, tables, int8_compute=i8c, **kw), iters=3, warmup=1)
-    out, launched, native, ref32 = _paged_call(q, k, v, lens, tables, i8c, kw)
-    _, ratio = _hold_paged(f"timed {shape}", out, native, ref32, lengths, launched)
+    out, launched = _paged_kernel(q, k, v, lens, tables, i8c, kw)
+    _, ratio = _hold_paged(f"timed {shape}", out, *_paged_refs(q, k, v, lens, tables, i8c, kw),
+                           lengths, launched)
     return {"ms": ms, "single_token_ms": single_ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
             "library_ms": None, "worst_err_bound": ratio, "shape": shape}
+
+
+def time_paged_turns() -> dict:
+    """K4/K5 by graph replay at the shapes of ``time_paged``,
+    ``time_paged_verify`` (the speculative run's first verify step),
+    ``time_paged_formats`` and ``time_paged_int8c``, through the public
+    ``paged_decode_attention`` alone, so that this function times any
+    tree's package: from a tree's root, ``python3 -c "import runpy; g =
+    runpy.run_path('<this file>'); g['phase_device']();
+    print(g['time_paged_turns']())"``, in turns with the parent's. Returns
+    {call: ms}."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention)
+
+    def q_of(batch, t, seed):
+        shape = (batch, HEADS) + ((t,) if t > 1 else ()) + (D,)
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+
+    out = {}
+    for name, t, seed in (("bf16_step", 1, 60), (f"verify_t{SPEC_K + 1}", SPEC_K + 1, 64)):
+        lengths = [n + t for n in SERVE_PROMPT_LENS]
+        kp, vp, lens, tables = make_paged_pool(lengths, SERVE_PAGE_SIZE, SERVE_PAGES,
+                                               seed=seed, pages_per_seq=SERVE_PAGES_PER_SEQ)
+        q = q_of(len(lengths), t, seed + 1)
+        out[name] = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
+    _, kp, vp, lens, tables, q = _run_a_pool()
+    out["run_a_dense"] = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
+    for mode in ("int8", "fp8", "int4"):
+        k, ks, v, vs = _quantized_pool(kp, vp, mode)
+        kw = dict(mode=mode, k_scales=ks, v_scales=vs)
+        out[f"run_a_{mode}"] = _graph_ms(lambda: paged_decode_attention(q, k, v, lens, tables,
+                                                                        **kw))
+        if mode == "int8":
+            out["run_a_int8c"] = _graph_ms(lambda: paged_decode_attention(
+                q, k, v, lens, tables, int8_compute=True, **kw))
+    return out
+
+
+def time_paged_splits() -> dict:
+    """K4/K5 by graph replay at forced split counts: the bf16 run's first
+    decode step and verify call (dense pages, page 64) and run A's pool
+    (page 128) on dense and int8 pages, the counts ``plan``'s floors
+    (``MIN_SPLIT_TOKENS``) were chosen from. Returns {call: {splits: ms}}."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention)
+
+    out = {}
+    for name, t, seed in (("bf16_step", 1, 60), (f"verify_t{SPEC_K + 1}", SPEC_K + 1, 64)):
+        lengths = [n + t for n in SERVE_PROMPT_LENS]
+        kp, vp, lens, tables = make_paged_pool(lengths, SERVE_PAGE_SIZE, SERVE_PAGES,
+                                               seed=seed, pages_per_seq=SERVE_PAGES_PER_SEQ)
+        q = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+            (len(lengths), HEADS) + ((t,) if t > 1 else ()) + (D,)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+        k8, ks, v8, vs = _quantized_pool(kp, vp, "int8")
+        out[name] = {n: _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables,
+                                                                 splits=n))
+                     for n in (1, 2, 4, 8, 16)}
+        out[name + "_int8"] = {n: _graph_ms(lambda: paged_decode_attention(
+            q, k8, v8, lens, tables, mode="int8", k_scales=ks, v_scales=vs, splits=n))
+            for n in (2, 4, 8, 16)}
+    _, kp, vp, lens, tables, q = _run_a_pool()
+    k8, ks, v8, vs = _quantized_pool(kp, vp, "int8")
+    out["run_a_dense"] = {n: _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables,
+                                                                      splits=n))
+                          for n in (1, 2, 3, 5, 9)}
+    out["run_a_int8"] = {n: _graph_ms(lambda: paged_decode_attention(
+        q, k8, v8, lens, tables, mode="int8", k_scales=ks, v_scales=vs, splits=n))
+        for n in (1, 2, 3, 5, 9)}
+    return out
 
 
 def time_paged_verify(lengths) -> dict:
@@ -1962,7 +2153,7 @@ def main(argv=None) -> int:
         KERNEL as K1, KERNEL_FORI)
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-        KERNEL as KP, KERNEL_INT8C, KERNEL_MULTI, KERNEL_MULTI_INT8C)
+        KERNEL as KP, KERNEL_INT8C, KERNEL_MERGE, KERNEL_MULTI, KERNEL_MULTI_INT8C)
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
     pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
@@ -1970,7 +2161,8 @@ def main(argv=None) -> int:
         {"name": K1, "route": "cuda", "source": pkg + "flash_forward.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:284",
          "launches": counts.get(K1, 0), "max_abs_err": flash_err,
-         "worst_err_bound": flash_ratio, **time_flash()},
+         "worst_err_bound": flash_ratio,
+         **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
          "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
@@ -1982,6 +2174,9 @@ def main(argv=None) -> int:
              KERNEL_MULTI_INT8C: quant_runs["F"]["counts"].get(KERNEL_MULTI_INT8C, 0)},
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
                           "multi_int8c: run F",
+         "merge": {"name": KERNEL_MERGE, "source": pkg + "paged_attention.cu",
+                   "launches": counts.get(KERNEL_MERGE, 0),
+                   "launches_path": "bf16 serving (one a K4/K5 call)"},
          "by_format": time_paged_formats(),
          "verify_t4": time_paged_verify(spec["verify_lengths"]),
          "int8c": time_paged_int8c()},

@@ -1,4 +1,5 @@
-// Flash-attention forward (FA2) for Hopper, bf16, d_head 128.
+// Flash-attention forward for Hopper, bf16, d_head 128: K1, persistent, on
+// the wgmma + TMA main loop of flash_wgmma.cuh.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_forward.py
 // _grid_kernel (and, through the causal early exit below, the row-band
@@ -10,301 +11,197 @@
 //
 // What bounds it on the H100: at the prompt lengths it serves (256..4096 rows,
 // 32 heads) attention is far above the card's ~295 FLOP/byte balance point, so
-// the bound is tensor-core operations (989 TFLOP/s bf16). This first version
-// uses mma.sync m16n8k16 (the Ampere-style warp-level tensor-core path), which
-// cannot reach Hopper's wgmma rate; its design keeps the tensor cores fed as
-// far as that path allows:
-//   - one CTA per (64 Q rows, Q head, batch), 4 warps of 16 rows each; the
-//     heaviest causal tiles are scheduled first;
-//   - Q, K and V tiles of 64 x 128 bf16 in shared memory, rows padded to 272
-//     bytes so ldmatrix reads are free of bank conflicts; K/V double-buffered
-//     with cp.async so the next tile streams in during this tile's math;
-//   - S and O accumulate in fp32 registers; P never leaves registers (the S
-//     accumulator fragments are the A operand of the PV product);
+// the bound is tensor-core operations (989 TFLOP/s bf16). The design:
+//   - the CTA, the tile math and the finalisation are flash_wgmma.cuh's: one
+//     producer warpgroup, two consumer warpgroups of 64 Q rows (128 Q rows
+//     a work item), S = Q K^T and O += P V on wgmma, Q/K/V by TMA from 4-D
+//     tensor maps over the (b, h, s, d) views (strided views as they are;
+//     rows past seq read as zeros), through a ring of 2 slots of 128 keys
+//     (K11's measured best depth; the TPU grid kernel's automatic
+//     double-buffered pipeline);
+//   - persistent: at most one CTA per SM. The work items are the (Q tile,
+//     head, batch) triples, under the causal mask heaviest Q tile first
+//     (the last Q tile sees the most keys), heads before batch so that
+//     neighbouring items share their GQA K/V; without it (equal items) Q
+//     tiles first, so that the CTAs at work share one head's K/V in L2;
+//     CTA c of G takes, in round r, item r G + c on even
+//     rounds and r G + G - 1 - c on odd ones (a snake, no counter to reset:
+//     a CTA's load is at most the largest item plus the mean, as each
+//     round's items weigh no more than the last round's);
+//   - Q is double-buffered: the producer loads the next item's Q tile and
+//     its first K/V tiles while the consumers finish the current item, so one
+//     item's epilogue overlaps the next one's loads. The K/V ring runs on
+//     through the items (one ring position per tile);
 //   - causal walks stop at the diagonal tile and windowed walks start at the
-//     first visible tile, so masked tiles cost nothing; interior tiles skip
-//     the mask arithmetic.
-// A wgmma + TMA producer/consumer version is later work.
+//     first visible tile (cta_tiles), so masked tiles are never loaded.
+// ops/flash_forward.py::grid_plan mirrors the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <algorithm>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int D = 128;        // head width
-constexpr int BQ = 64;        // Q rows per CTA
-constexpr int BK = 64;        // keys per KV tile
-constexpr int NWARPS = 4;     // 16 Q rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDS = D + 8;    // padded shared-memory row, in elements
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float MASK_VALUE = -1e30f;  // finite, as in the JAX kernel
+// The launch geometry (ops/flash_forward.py::grid_plan mirrors it).
+struct GridTile {
+  static constexpr int NB = 2;          // K/V ring slots
+  static constexpr int BK = 128;        // keys per slot
+  static constexpr int Q_BUFS = 2;      // Q tiles: the current item's and the next
+  static constexpr int Q_BYTES = bf16_tile_bytes(BQ);
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BK);  // the K tile, then the V tile
+  static constexpr int SMEM = Q_BUFS * Q_BYTES + NB * SLOT + ALIGN_SLACK;
+  static_assert(SMEM <= SMEM_LIMIT, "the ring does not fit a CTA's shared memory");
+};
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   float* lse;          // (batch, heads, seq_q) or null
   const float* sinks;  // (heads,) or null
-  long long q_sb, q_sh, q_ss;  // strides in elements; d is contiguous
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  int heads, group, seq_q, seq_kv;
+  long long o_sb, o_sh, o_ss;  // element strides; d is contiguous
+  int batch, heads, group, seq_q, seq_kv;
   int causal, q_offset, window;
   float scale, softcap;
+  int q_tiles, items;  // Q tiles of BQ rows; q_tiles * heads * batch items
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
+// Work item w. Causal: Q tile (heaviest first), then head, then batch.
+// Otherwise every item weighs the same, and items run Q tile first, then
+// head, then batch, so that the CTAs at work share their K/V in L2 (the
+// causal order runs one Q tile of every (batch, head) at once).
+struct Item {
+  int q_tile, h, b;
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a 64 x 128 tile (row stride in elements) into padded shared memory.
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g,
-                                          long long row_stride, int tid) {
-#pragma unroll
-  for (int i = 0; i < (BK * D / 8) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    int r = c >> 4, col = (c & 15) * 8;
-    cp_async16(smem + r * LDS + col, g + r * row_stride + col);
+__device__ __forceinline__ Item item_at(const Params& p, int w) {
+  if (!p.causal) {
+    const int hb = w / p.q_tiles;
+    return Item{w - hb * p.q_tiles, hb % p.heads, hb / p.heads};
   }
+  const int per_tile = p.heads * p.batch;
+  const int r = w / per_tile, hb = w - r * per_tile;
+  return Item{p.q_tiles - 1 - r, hb % p.heads, hb / p.heads};
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_forward_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + BQ * LDS;   // 2 stages
-  bf16* v_s = k_s + 2 * BK * LDS;  // 2 stages
+// The item CTA c of G takes in round k (>= p.items: none).
+__device__ __forceinline__ int item_index(int k, int c, int G) {
+  return k * G + ((k & 1) ? G - 1 - c : c);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const int q0 = q_tile * BQ;
+// An item's visible KV tiles: n of them from `first`.
+__device__ __forceinline__ void item_tiles(const Params& p, const Item& it, int& first, int& n) {
+  const int q0 = it.q_tile * BQ;
+  int last;
+  cta_tiles(p.causal, p.window, p.q_offset + q0, min(BQ, p.seq_q - q0), p.seq_kv,
+            GridTile::BK, first, last);
+  n = max(last - first + 1, 0);
+}
 
-  const bf16* q_g = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const bf16* k_g = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* v_g = p.v + b * p.v_sb + hk * p.v_sh;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_forward_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = GridTile;
+  constexpr int BK = T::BK, NB = T::NB, QB = T::Q_BUFS;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full[QB], q_empty[QB], full[NB], empty[NB];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* ring = q_s + QB * T::Q_BYTES;
 
-  // Visible KV tiles [first, last]: the causal walk ends at the diagonal,
-  // a window starts it at the first tile any row of this Q tile can see.
-  const int q_min = p.q_offset + q0, q_max = q_min + BQ - 1;
-  int first = 0, last = p.seq_kv / BK - 1;
-  if (p.causal) {
-    last = min(last, q_max / BK);
-    if (p.window) first = max(0, q_min - p.window + 1) / BK;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int c = blockIdx.x, G = gridDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < QB; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], CONSUMER_ARRIVALS);
+    }
+    for (int s = 0; s < NB; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_ARRIVALS);
+    }
+    mbar_init_fence();
   }
-
-  load_tile(q_s, q_g, p.q_ss, tid);
-  if (first <= last) {
-    load_tile(k_s, k_g + (long long)first * BK * p.k_ss, p.k_ss, tid);
-    load_tile(v_s, v_g + (long long)first * BK * p.v_ss, p.v_ss, tid);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  // This warp's 16 Q rows as mma A fragments, one per 16-wide d step.
-  uint32_t qa[D / 16][4];
-  {
-    const int m = lane >> 3;
-    const bf16* base = q_s + (warp * 16 + (m & 1) * 8 + (lane & 7)) * LDS + (m >> 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qa[kk], base + kk * 16);
-  }
-
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  const float c_log2 = p.scale * LOG2E;
-  const int row0 = p.q_offset + q0 + warp * 16 + g;  // global position of row g
-
-  for (int j = first; j <= last; ++j) {
-    const int stage = (j - first) & 1;
-    if (j + 1 <= last) {
-      const int nxt = stage ^ 1;
-      load_tile(k_s + nxt * BK * LDS, k_g + (long long)(j + 1) * BK * p.k_ss, p.k_ss, tid);
-      load_tile(v_s + nxt * BK * LDS, v_g + (long long)(j + 1) * BK * p.v_ss, p.v_ss, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed; tile j + 1 may be in flight
-    __syncthreads();
-
-    const bf16* ks = k_s + stage * BK * LDS;
-    const bf16* vs = v_s + stage * BK * LDS;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-      const bf16* kb = ks + (n * 8 + (lane & 7)) * LDS + (lane >> 3) * 8;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kb + kk * 16);
-        mma_bf16(s[n], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[n], qa[kk + 1], kf[2], kf[3]);
-      }
-    }
-
-    // Scale (and softcap) into the log2 domain; mask edge tiles.
-    const int kv0 = j * BK;
-    const bool edge = p.causal &&
-        (kv0 + BK - 1 > q_min || (p.window && kv0 <= q_max - p.window));
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e];
-        if (p.softcap > 0.f) {
-          x = tanhf(x * p.scale / p.softcap) * (p.softcap * LOG2E);
-        } else {
-          x *= c_log2;
+  if (wg == 0) {  // producer: one thread issues every copy
+    if (tid == 0) {
+      int pos = 0;  // ring position of the next K/V tile
+      for (int k = 0;; ++k) {
+        const int w = item_index(k, c, G);
+        if (w >= p.items) break;
+        const Item it = item_at(p, w);
+        const int hk = it.h / p.group, q0 = it.q_tile * BQ;
+        const int qb = k % QB;
+        if (k >= QB) mbar_wait(&q_empty[qb], (k / QB - 1) & 1);
+        uint8_t* qs = q_s + qb * T::Q_BYTES;
+        mbar_arrive_expect_tx(&q_full[qb], T::Q_BYTES);
+        tma_load_4d(qs, &tm_q, 0, q0, it.h, it.b, &q_full[qb]);
+        tma_load_4d(qs + bf16_box_bytes(BQ), &tm_q, BOX_COLS, q0, it.h, it.b, &q_full[qb]);
+        int first, n;
+        item_tiles(p, it, first, n);
+        for (int i = 0; i < n; ++i, ++pos) {
+          const int s = pos % NB;
+          if (pos >= NB) mbar_wait(&empty[s], (pos / NB - 1) & 1);
+          uint8_t* slot = ring + s * T::SLOT;
+          const int kv0 = (first + i) * BK;
+          mbar_arrive_expect_tx(&full[s], T::SLOT);
+          tma_load_4d(slot, &tm_k, 0, kv0, hk, it.b, &full[s]);
+          tma_load_4d(slot + bf16_box_bytes(BK), &tm_k, BOX_COLS, kv0, hk, it.b, &full[s]);
+          uint8_t* vs = slot + bf16_tile_bytes(BK);
+          tma_load_4d(vs, &tm_v, 0, kv0, hk, it.b, &full[s]);
+          tma_load_4d(vs + bf16_box_bytes(BK), &tm_v, BOX_COLS, kv0, hk, it.b, &full[s]);
         }
-        if (edge) {
-          const int qpos = row0 + (e >> 1) * 8;
-          const int kpos = kv0 + n * 8 + 2 * t + (e & 1);
-          const bool keep = kpos <= qpos && (!p.window || qpos - kpos < p.window);
-          if (!keep) x = MASK_VALUE;
-        }
-        s[n][e] = x;
       }
     }
-
-    // Online softmax: row max over the quad that shares each row.
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[n][e] - m_run[e >> 1]);
-        s[n][e] = pe;
-        rs[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S fragments of key steps 2kk, 2kk+1 are P's A fragment.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int m = lane >> 3;
-      const bf16* vb = vs + (kk * 16 + (m & 1) * 8 + (lane & 7)) * LDS + (m >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + n * 8);
-        mma_bf16(o_acc[n], pa, vf[0], vf[1]);
-        mma_bf16(o_acc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+    return;
   }
 
-  // Finalise: full row sums, sink merge, normalise, write O and LSE.
-  const float z = p.sinks ? p.sinks[h] * LOG2E : -INFINITY;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffff, l, 1);
-    l += __shfl_xor_sync(0xffffffff, l, 2);
-    float m = m_run[r];
-    float scale_o = 1.f;
-    if (p.sinks) {
-      const float m_tot = fmaxf(m, z);
-      scale_o = exp2f(m - m_tot);
-      l = l * scale_o + exp2f(z - m_tot);
-      m = m_tot;
+  int pos = 0;  // ring position of the item's first K/V tile
+  for (int k = 0;; ++k) {
+    const int w = item_index(k, c, G);
+    if (w >= p.items) break;
+    int first, n;
+    const int qb = k % QB;
+    {
+      const Item it = item_at(p, w);
+      item_tiles(p, it, first, n);
+      const int r0 = it.q_tile * BQ + (wg - 1) * WG_ROWS;
+      const RowGroup rg{p.q_offset + r0, min(max(p.seq_q - r0, 0), WG_ROWS)};
+      RowState st;
+      st.init();
+      mbar_wait(&q_full[qb], (k / QB) & 1);
+      consume_bf16<BK, NB>(st, rg, full, empty, ring, T::SLOT,
+                           smem_addr(q_s + qb * T::Q_BYTES) + (wg - 1) * WG_ROWS * 128,
+                           bf16_box_bytes(BQ), first, n,
+                           TileMath{p.causal, p.window, p.seq_kv, p.scale, p.softcap}, pos);
+      // Every product that read this Q tile has completed: release it.
+      if ((tid & 31) == 0) mbar_arrive(&q_empty[qb]);
+
+      // Finalise: sink merge, normalise, write O and LSE. The item is
+      // decoded again from an opaque copy of k, so that nothing of it stays
+      // in a register across the walk (the consumer's 168 are full).
+      int k2;
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(k2) : "r"(k));
+      const Item fin = item_at(p, item_index(k2, c, G));
+      store_rows(st, fin.q_tile * BQ + (wg - 1) * WG_ROWS + ((tid >> 5) & 3) * 16 +
+                         ((tid & 31) >> 2),
+                 p.seq_q, p.o + fin.b * p.o_sb + fin.h * p.o_sh, p.o_ss, 1.f,
+                 p.sinks ? p.sinks[fin.h] * LOG2E : -INFINITY,
+                 p.lse ? p.lse + ((long long)fin.b * p.heads + fin.h) * p.seq_q : nullptr);
     }
-    const float inv = l > 0.f ? scale_o / l : 0.f;
-    const int row = q0 + warp * 16 + g + r * 8;
-    bf16* o_row = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(o_row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
-    }
-    if (p.lse && t == 0) {
-      p.lse[((long long)b * p.heads + h) * p.seq_q + row] =
-          l > 0.f ? (m + log2f(l)) / LOG2E : -INFINITY;
-    }
+    pos += n;
   }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
 }
 
 }  // namespace
@@ -315,30 +212,24 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (b, heads, seq_q, 128), k/v (b, kv_heads, seq_kv, 128), o like q: bf16 with
-// the given element strides (d contiguous, rows 16-byte aligned). lse is
-// (b, heads, seq_q) fp32 contiguous or null; sinks (heads,) fp32 or null.
-// seq_q and seq_kv are multiples of 64. Returns cudaGetLastError().
-int fa_flash_forward(const void* q, const void* k, const void* v, void* o,
-                     void* lse, const void* sinks,
-                     long long q_sb, long long q_sh, long long q_ss,
-                     long long k_sb, long long k_sh, long long k_ss,
-                     long long v_sb, long long v_sh, long long v_ss,
-                     long long o_sb, long long o_sh, long long o_ss,
-                     int batch, int heads, int kv_heads, int seq_q, int seq_kv,
-                     int causal, int q_offset, int window, float scale,
-                     float softcap, void* stream) {
+// fa_flash_forward with the number of CTAs given: ctas <= 0 launches one CTA
+// per work item (a plain grid, the hardware's own schedule), else
+// min(ctas, items) persistent CTAs.
+int fa_flash_forward_ctas(const void* q, const void* k, const void* v, void* o,
+                          void* lse, const void* sinks,
+                          long long q_sb, long long q_sh, long long q_ss,
+                          long long k_sb, long long k_sh, long long k_ss,
+                          long long v_sb, long long v_sh, long long v_ss,
+                          long long o_sb, long long o_sh, long long o_ss,
+                          int batch, int heads, int kv_heads, int seq_q, int seq_kv,
+                          int causal, int q_offset, int window, float scale,
+                          float softcap, int ctas, void* stream) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
   p.sinks = static_cast<const float*>(sinks);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.batch = batch;
   p.heads = heads;
   p.group = heads / kv_heads;
   p.seq_q = seq_q;
@@ -348,13 +239,50 @@ int fa_flash_forward(const void* q, const void* k, const void* v, void* o,
   p.window = window;
   p.scale = scale;
   p.softcap = softcap;
-  const int smem = (BQ + 4 * BK) * LDS * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  p.q_tiles = (seq_q + BQ - 1) / BQ;
+  const long long items = (long long)p.q_tiles * heads * batch;
+  if (items <= 0 || items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.items = static_cast<int>(items);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_bhsd(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, heads, seq_q, D,
+                   q_sb * 2, q_sh * 2, q_ss * 2, BQ, BOX_COLS, true) ||
+      !encode_bhsd(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, batch, kv_heads, seq_kv, D,
+                   k_sb * 2, k_sh * 2, k_ss * 2, GridTile::BK, BOX_COLS, true) ||
+      !encode_bhsd(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, batch, kv_heads, seq_kv, D,
+                   v_sb * 2, v_sh * 2, v_ss * 2, GridTile::BK, BOX_COLS, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_forward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         GridTile::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(seq_q / BQ, heads, batch);
-  flash_forward_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const int grid = ctas > 0 ? std::min(ctas, p.items) : p.items;
+  flash_forward_kernel<<<grid, THREADS, GridTile::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q (b, heads, seq_q, 128), k/v (b, kv_heads, seq_kv, 128), o like q: bf16 with
+// the given element strides (d contiguous, strides multiples of 8 elements,
+// base 16-byte aligned). lse is (b, heads, seq_q) fp32 contiguous or null;
+// sinks (heads,) fp32 or null. seq_q and seq_kv are multiples of 64. One
+// persistent CTA per SM (fewer when there are fewer work items). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue when a tensor map cannot be
+// encoded.
+int fa_flash_forward(const void* q, const void* k, const void* v, void* o,
+                     void* lse, const void* sinks,
+                     long long q_sb, long long q_sh, long long q_ss,
+                     long long k_sb, long long k_sh, long long k_ss,
+                     long long v_sb, long long v_sh, long long v_ss,
+                     long long o_sb, long long o_sh, long long o_ss,
+                     int batch, int heads, int kv_heads, int seq_q, int seq_kv,
+                     int causal, int q_offset, int window, float scale,
+                     float softcap, void* stream) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  return fa_flash_forward_ctas(q, k, v, o, lse, sinks, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                               v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, batch, heads, kv_heads,
+                               seq_q, seq_kv, causal, q_offset, window, scale, softcap, sms,
+                               stream);
 }
 
 }  // extern "C"

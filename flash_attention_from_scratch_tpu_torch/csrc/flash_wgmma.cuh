@@ -1,7 +1,8 @@
-// The attention main loop for Hopper, d_head 128, shared by K11
-// (flash_forward_fori.cu) and K10's bf16 upcast modes (flash_quant.cu); K10's
-// int8-compute kernel shares its CTA, walk, masks and finalisation, and the
-// backward (flash_backward.cu) its walk, masks and tile products.
+// The attention main loop for Hopper, d_head 128, shared by K1
+// (flash_forward.cu), K11 (flash_forward_fori.cu) and K10's bf16 upcast
+// modes (flash_quant.cu); K10's int8-compute kernel shares its CTA, walk,
+// masks and finalisation, and the backward (flash_backward.cu) its walk,
+// masks and tile products.
 //
 // A CTA is one producer warpgroup and two consumer warpgroups of 64 Q rows
 // each, BQ = 128 Q rows of one (Q head, batch). The producer fills a ring of
@@ -278,30 +279,33 @@ __device__ __forceinline__ void store_rows(const RowState& st, int row, int seq_
 // keys each) through a ring of NB slots: each tile is waited on its full
 // barrier, run by `tile(i)` where the warpgroup sees some of it (returning
 // once its last product has completed), and released on its empty barrier,
-// in order.
+// in order. Tile i sits at ring position pos0 + i (slot (pos0 + i) % NB):
+// a persistent CTA's walks follow each other through one ring.
 template <int NB, typename Tile>
 __device__ __forceinline__ void walk_tiles(const RowGroup& rg, const TileMath& tm, int bk,
                                            int first, int n, uint64_t* full, uint64_t* empty,
-                                           Tile&& tile) {
+                                           Tile&& tile, int pos0 = 0) {
   for (int i = 0; i < n; ++i) {
-    mbar_wait(&full[i % NB], (i / NB) & 1);
+    const int j = pos0 + i;
+    mbar_wait(&full[j % NB], (j / NB) & 1);
     if (rg.sees(tm.causal, tm.window, (first + i) * bk, bk)) tile(i);
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[i % NB]);
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[j % NB]);
   }
 }
 
 // The consumer side of the bf16 main loop: a warpgroup's walk (slot s at
-// ring + s * slot_bytes: the K tile, then the V tile), each seen tile
-// running S = Q K^T, the softmax, O rescaled, then O += P V.
+// ring + s * slot_bytes: the K tile, then the V tile; the walk's first tile
+// at ring position pos0), each seen tile running S = Q K^T, the softmax, O
+// rescaled, then O += P V.
 template <int BK, int NB>
 __device__ __forceinline__ void consume_bf16(RowState& st, const RowGroup& rg,
                                              uint64_t* full, uint64_t* empty,
                                              const uint8_t* ring, int slot_bytes,
                                              unsigned q_addr, int q_box, int first, int n,
-                                             const TileMath& tm) {
+                                             const TileMath& tm, int pos0 = 0) {
   const int row0 = rg.q_min + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
   walk_tiles<NB>(rg, tm, BK, first, n, full, empty, [&](int i) {
-    const unsigned k_addr = smem_addr(ring + (i % NB) * slot_bytes);
+    const unsigned k_addr = smem_addr(ring + ((pos0 + i) % NB) * slot_bytes);
     const int kv0 = (first + i) * BK;
     float s[BK / 2];
     issue_qk<BK>(s, q_addr, q_box, k_addr);
@@ -314,7 +318,7 @@ __device__ __forceinline__ void consume_bf16(RowState& st, const RowGroup& rg,
     pack_p<BK>(s, pa);
     issue_pv<BK>(st.o, pa, k_addr + bf16_tile_bytes(BK));
     wgmma_wait<0>();
-  });
+  }, pos0);
 }
 
 }  // namespace

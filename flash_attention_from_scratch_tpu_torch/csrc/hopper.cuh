@@ -1,8 +1,9 @@
 // Hopper primitives shared by the port's wgmma + TMA kernels
-// (quant_matmul.cu's K6/K7, flash_forward_fori.cu's K11, flash_quant.cu's
-// K10, flash_backward.cu's K2/K3): mbarriers, TMA and bulk loads and
-// tensor-map encoding, wgmma operand descriptors and instructions, and
-// exact small-integer conversions to bf16.
+// (quant_matmul.cu's K6/K7, flash_forward.cu's K1, flash_forward_fori.cu's
+// K11, flash_quant.cu's K10, flash_backward.cu's K2/K3) and the paged
+// decode kernels' rings (paged_attention.cu): mbarriers, TMA and bulk
+// loads and tensor-map encoding, wgmma operand descriptors and
+// instructions, and exact small-integer conversions to bf16.
 //
 // Everything here is for sm_90a: wgmma exists only there.
 

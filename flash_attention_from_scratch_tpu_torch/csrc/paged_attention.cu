@@ -1,12 +1,14 @@
 // Paged decode attention for Hopper: 1..t query tokens per sequence over a
 // paged KV cache, bf16 queries, d_head 128; pages dense bf16, int8, fp8
 // (e4m3) or int4 packed along the tokens of a page; optionally int8
-// compute on int8 pages.
+// compute on int8 pages. A split-KV kernel over pages streamed through a
+// ring of shared-memory slots, its products on the tensor cores, and a
+// merge kernel.
 //
 // Replaces the TPU kernels flash_attention_from_scratch_tpu/ops/
 // paged_attention.py _full_kernel (whole window per sequence) and _loop_kernel
 // (online softmax per page). Both compute the same function; on Hopper it is
-// one kernel. The rows of KV head hk are its group's Q heads times the t
+// one kernel pair. The rows of KV head hk are its group's Q heads times the t
 // query tokens, row r = g * t + j (Q head hk * group + g, token j), the JAX
 // kernels' order. Token j sits at position length - t + j and attends
 // softmax(scale * q K^T) V over tokens [lo_j, limit_j), limit_j = length -
@@ -22,79 +24,136 @@
 //
 // int8 compute (mode INT8C, int8 pages; the TPU kernels' int8_compute): each
 // Q row is quantized in the kernel, q_i8 = rint(q / s_q) with s_q = max(max
-// |q|, 1e-12) * (1/127); S is the exact int32 dot q_i8 . k_i8 (__dp4a over a
-// lane's 8 bytes, then the half-warp's integer shuffle sum) times s_q *
-// scale * log2(e) * the page's K scale; P = exp2(S - m) is rounded at the
-// constant scale 127 against the running max m of the half-warp that rounds
-// it (never above the row's final max, so the rounding error of a weight is
-// at most what rounding against the final max gives); each product of an
-// int8 P and an int8 V value is exact, scaled by the page's V scale / 127
-// and summed in fp32; the denominator sums the unrounded P.
+// |q|, 1e-12) * (1/127); S is the exact integer dot q_i8 . k_i8 (int8
+// values are exact in bf16, their products exact in the tensor cores' fp32
+// sums, and a dot of 128 of them stays below 2^24) times s_q * scale *
+// log2(e) * the page's K scale; P = exp2(S - m) is rounded at the constant
+// scale 127 against the running max m of the warp that rounds it, within
+// its split (never above the row's final max, so the rounding error of a
+// weight is at most what rounding against the final max gives; the warps'
+// and the splits' partial sums are rescaled exactly as fp32 weights); the
+// products of the int8 P and the int8 V values are exact integers, scaled
+// by the page's V scale / 127 and summed in fp32; the denominator sums the
+// unrounded P.
 //
 // What bounds it on the H100: each call reads every cached K/V byte of the
 // window once and does 4 FLOPs per byte pair and row, far below the card's
 // ~295 FLOP/byte balance point, so the bound is memory: K/V bytes / 3.35
-// TB/s. The design:
-//   - one CTA per (sequence, KV head, block of RB rows); a block's Q rows
-//     stay in registers, so each K/V row is read once for the RB rows. With
-//     more than 8 rows (group x tokens: Llama-3-8B's group 4 at t = 4 gives
-//     16), the blocks are separate CTAs (gridDim.z) that read the same
-//     pages at about the same time, mostly from L2: K/V is read from the
-//     memory system once per 8-row block, the verify call's cost above the
-//     single-token bound;
-//   - a K or V row is split over 16 lanes, 8 values each (16 bytes of bf16,
-//     8 of int8/fp8, 8 nibble-bytes of int4): each half-warp owns one token
-//     at a time and each warp keeps 8 tokens (4 per half) of loads in flight
-//     before it does any math; the upcast to fp32 happens in registers;
-//   - an fp32 online softmax per half-warp and row, merged across the CTA
-//     through shared memory at the end;
-//   - pages past the length (page-table padding -1) and below the lowest
-//     window start of the rows are never read, so slots that were never
-//     written (an fp8 byte there can be a NaN pattern) cannot reach the sum:
-//     the TPU kernel's select on V rows.
-// With one CTA per (sequence, KV head, row block), a batch of 8 at 8 KV heads
-// and one block fills 64 of the 132 SMs; splitting the KV walk across CTAs
-// (flash-decoding) is later work.
+// TB/s. The design (flash-decoding, the H100 role of K5's online softmax):
+//   - the KV walk is split: the grid is (sequence, KV head, split x row
+//     block); split s owns page-table columns [s * pages_per_split, (s + 1)
+//     * pages_per_split), clipped on the card to [the first page any row of
+//     the sequence can see, the sequence's last page], so that no -1 padding
+//     of the table and no page below every row's window is read; a split
+//     left with no page (a short sequence's later ones) writes "nothing
+//     seen" for its rows and ends at once. The split count
+//     (ops/paged_attention.py::plan) is a function of shapes only, so the
+//     host reads no device value and a call can be captured in a graph;
+//   - pages arrive in chunks of up to 64 tokens (an int4 page whole: its
+//     rows hold two tokens half a page apart), K and V contiguous within a
+//     page of one KV head, by copies one thread issues into a ring of slots,
+//     each completing on its full mbarrier, so tens of KB are in flight per
+//     SM: dense pages by TMA boxes (128-byte swizzle), straight into the
+//     tile the products read; quantized pages by cp.async.bulk as raw
+//     bytes, which the CTA's threads convert, 64 tokens at a time, into a
+//     swizzled bf16 tile (int8, int4 and e4m3 values are exact in bf16);
+//     two CTAs fit an SM (registers: 256 threads and two CTAs an SM leave
+//     128 a thread);
+//   - all rows of a (sequence, KV head) share one CTA and one copy of each
+//     page, up to 16 rows, the M of mma.sync: a verify call's 4 heads x 4
+//     tokens, or a decode step's 4 rows and 12 zero rows, whose products
+//     cost less than CUDA cores' dot products and shuffles; beyond 16 rows
+//     (32 at t = 8) the rows go in blocks of 16, one CTA each, which read
+//     the same pages. Warp w takes a tile's tokens 8w .. 8w + 7: S (16 x 8)
+//     = Q K^T on m16n8k16 (K's fragments by ldmatrix), the online softmax of
+//     its own tokens in registers (each row's max over the quad that shares
+//     it), then O (16 x 128) += P V on m16n8k8 (P's fp32 accumulator
+//     repacked as the bf16 A fragment, V's by ldmatrix.trans); the warps'
+//     partials are merged through shared memory at the end;
+//   - whole chunks arrive, slots past the length (or in a window's gap)
+//     included, and they may hold anything (an fp8 byte there can be a NaN
+//     pattern): a score whose position the row cannot see is replaced by
+//     -inf (a select, not arithmetic), and V's fragment halves at or past
+//     the length are zeroed, so such slots cannot reach the sum (0 x NaN is
+//     NaN on the tensor cores too; the TPU kernels' select on V rows);
+//   - with more than one split each CTA writes its partial (O in fp32,
+//     relative to its max m, with its sum l) to a workspace, and
+//     paged_decode_merge_kernel combines the splits in a fixed order, out =
+//     sum_s exp2(m_s - M) O_s / sum_s exp2(m_s - M) l_s (M the largest m_s;
+//     zeros where the sums are 0), so the output is the same bit for bit on
+//     every call; with one split the first kernel writes out itself.
 
-#include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int D = 128;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int U = 4;  // tokens per half-warp per iteration
+constexpr int MMA_ROWS = 16;          // rows a CTA: the M of mma.sync
+constexpr int TILE_TOKENS = 64;       // tokens of a product tile (8 a warp)
+constexpr int RING_BYTES = 98304;     // dense pages: the TMA ring's budget a CTA
+constexpr int RAW_RING_BYTES = 65536;  // quantized pages: the raw ring's budget
+constexpr int STAGE_BYTES = 2 * TILE_TOKENS * D * 2;  // quantized: the bf16 K, V tile
+constexpr int MIN_SLOTS = 2;
+constexpr int MAX_SLOTS = 8;
+constexpr int Q_TILE_BYTES = MMA_ROWS * D * 2;
+constexpr int ALIGN_SLACK = 1024;     // swizzled tiles start 1024-aligned
+// The merge's scratch (reusing the tiles): acc, m and l of every warp's 16
+// rows, rows MERGE_STRIDE floats apart so that a half-warp's 8-byte stores
+// fall in distinct banks.
+constexpr int MERGE_STRIDE = D + 8;
+constexpr int MERGE_BYTES = NWARPS * MMA_ROWS * (MERGE_STRIDE + 2) * 4;
+constexpr int SMEM_LIMIT = 232448;    // shared memory a block may use
+constexpr int STATIC_RESERVE = 1024;  // of it kept for the kernel's static arrays
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Page formats (the wrapper's mode argument); INT8C: int8 pages, int8 compute.
 constexpr int DENSE = 0, INT8 = 1, FP8 = 2, INT4 = 3, INT8C = 4;
 
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
+// Stored rows of a page and bytes of one K (or V) page of one KV head.
+__host__ __device__ inline int stored_rows(int store, int page_size) {
+  return store == INT4 ? page_size / 2 : page_size;
+}
+__host__ __device__ inline int page_bytes(int store, int page_size) {
+  return stored_rows(store, page_size) * D * (store == DENSE ? 2 : 1);
 }
 
-// 8 stored values of one row (raw.x, raw.y) -> fp32. int4: the low or
-// high nibble of each byte, sign-extended.
-template <int MODE>
-__device__ __forceinline__ void unpack8q(const uint4& raw, bool hi, float (&f)[8]) {
+// Tokens of a ring slot's chunk: a page of up to TILE_TOKENS, else runs of
+// TILE_TOKENS consecutive tokens (contiguous within the page; the page
+// size a multiple of it); an int4 page, whose stored rows hold two tokens
+// half a page apart, stays whole. 0: a page size the kernel does not take.
+__host__ __device__ inline int chunk_tokens(int store, int page_size) {
+  if (store == INT4 || page_size <= TILE_TOKENS) return page_size;
+  return page_size % TILE_TOKENS == 0 ? TILE_TOKENS : 0;
+}
+
+// Slots of a ring of `budget` bytes for chunks of `slot_bytes` (K and V)
+// each, and the CTA's dynamic shared memory (ops/paged_attention.py::plan
+// mirrors both).
+inline int ring_slots(int budget, int slot_bytes) {
+  return std::max(MIN_SLOTS, std::min(MAX_SLOTS, budget / slot_bytes));
+}
+inline int smem_bytes(bool raw, int slots, int slot_bytes) {
+  return ALIGN_SLACK + Q_TILE_BYTES +
+         std::max((raw ? STAGE_BYTES : 0) + slots * slot_bytes, MERGE_BYTES);
+}
+
+// 8 stored values of one row -> fp32. int4: the low or high nibble of each
+// byte, sign-extended.
+template <int STORE>
+__device__ __forceinline__ void unpack8q(const uint2& raw, bool hi, float (&f)[8]) {
   const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    if constexpr (MODE == INT8) {
+    if constexpr (STORE == INT8) {
       f[i] = static_cast<float>(static_cast<int8_t>(b[i]));
-    } else if constexpr (MODE == FP8) {
+    } else if constexpr (STORE == FP8) {
       __nv_fp8_e4m3 v;
       v.__x = b[i];
       f[i] = static_cast<float>(v);
@@ -105,284 +164,463 @@ __device__ __forceinline__ void unpack8q(const uint4& raw, bool hi, float (&f)[8
   }
 }
 
-template <int MODE>
-__device__ __forceinline__ void unpack_row(const uint4& raw, bool hi, float (&f)[8]) {
-  if constexpr (MODE == DENSE) {
-    unpack8(raw, f);
-  } else {
-    unpack8q<MODE>(raw, hi, f);
+// exp2 on the special-function unit (ex2.approx.ftz: about 2 ulp; 0 for
+// -inf).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Byte offset of bf16 element (r, c) of a (rows x D) tile stored as two
+// 128-byte-swizzled boxes of 64 columns (as TMA writes them).
+__device__ __forceinline__ int sw_offset(int rows, int r, int c) {
+  return (c >> 6) * rows * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8 bf16, row) * b (8x8 bf16, col), fp32.
+__device__ __forceinline__ void mma_1688(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct Params {
+  const bf16* q;
+  const uint8_t* k_pages;
+  const uint8_t* v_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* lengths;
+  const int* page_tables;
+  bf16* out;
+  float* ws_o;   // (batch * kv_heads, splits, rows, D) fp32, or null for one split
+  float* ws_ml;  // (batch * kv_heads, splits, rows, 2) fp32: m (log2 domain), l
+  int kv_heads, num_pages, page_size, pages_per_seq, q_tokens, rows_total;
+  int splits, pages_per_split, slots;
+  float scale, softcap;
+  int window;
+};
+
+// A CTA whose split sees no page ends at once: its rows [r_begin, r_end)
+// get m = -inf and l = 0 (the merge skips them) or, with one split, zeros.
+__device__ __forceinline__ void empty_split(const Params& p, int pair, int split, int r_begin,
+                                            int r_end) {
+  const long long row_base = (long long)pair * p.rows_total;
+  for (int idx = threadIdx.x; idx < (r_end - r_begin) * D; idx += blockDim.x) {
+    const int r = r_begin + idx / D, c = idx % D;
+    if (!p.ws_o) {
+      p.out[(row_base + r) * D + c] = __float2bfloat16(0.f);
+    } else if (c == 0) {
+      const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
+      p.ws_ml[2 * pr] = -INFINITY;
+      p.ws_ml[2 * pr + 1] = 0.f;
+    }
   }
 }
 
-// Half-warp sums: lanes 0-15 and 16-31 each reduce over their own 16.
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-  return x;
+// Raw tokens [t0, t0 + ntok) of a quantized chunk (its K bytes, then its V
+// bytes `cbytes` on; int4: a whole page of `half` stored rows) as a
+// swizzled bf16 tile of TILE_TOKENS rows (K, then V STAGE_BYTES / 2 on).
+template <int STORE>
+__device__ __forceinline__ void convert_tile(const uint8_t* raw, int cbytes, int half, int t0,
+                                             int ntok, uint8_t* stage) {
+  for (int idx = threadIdx.x; idx < 2 * ntok * (D / 8); idx += NTHREADS) {
+    const int kv = idx / (ntok * (D / 8)), rem = idx % (ntok * (D / 8));
+    const int tok = rem / (D / 8), c = (rem % (D / 8)) * 8;
+    const int tk = t0 + tok;
+    const bool hi = STORE == INT4 && tk >= half;
+    const int row = hi ? tk - half : tk;
+    float f[8];
+    unpack8q<STORE>(*reinterpret_cast<const uint2*>(raw + kv * cbytes + row * D + c), hi, f);
+    *reinterpret_cast<uint4*>(stage + kv * (STAGE_BYTES / 2) + sw_offset(TILE_TOKENS, tok, c)) =
+        make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
+                   pack_bf16x2(f[6], f[7]));
+  }
 }
 
-__device__ __forceinline__ int half_sum(int x) {
+// What a thread holds of its warp's partial: O (rows g, g + 8 of the 16;
+// columns 8 j + 2 qd, + 1), each row's running max (log2 domain) and its
+// partial sum over the quad's columns.
+struct Partial {
+  float o[D / 8][4];
+  float m[2], l[2];
+};
+
+// One tile of the warp's 8 tokens (tok0 .. tok0 + 7 of a tile of `rows`
+// rows; positions pos0 ..), K and V swizzled bf16 at ks and vs: S = Q K^T,
+// the scores' scale, softcap and mask, the online softmax and O += P V.
+// k_fac multiplies the raw dot (the K scale; with int8 compute also s_q *
+// scale * log2(e) of each row, q_fac), v_fac P before PV (the V scale).
+template <bool I8C>
+__device__ __forceinline__ void tile_products(Partial& st, unsigned q_addr, const uint8_t* ks,
+                                              const uint8_t* vs, int rows, int tok0, int pos0,
+                                              const int (&lim)[2], int win, int len,
+                                              const float (&q_fac)[2], float k_fac, float v_fac,
+                                              const Params& p) {
+  const int lane = threadIdx.x & 31, qd = lane & 3;
+  // S = Q K^T: rows g, g + 8; tokens 2 qd, 2 qd + 1 of the warp's 8.
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-  return x;
+  for (int kp = 0; kp < D / 32; ++kp) {  // k-steps 2 kp and 2 kp + 1
+    uint32_t kf[4], qa[4], qb[4];
+    ldsm_x4(kf, smem_addr(ks + sw_offset(rows, tok0 + (lane & 7), (4 * kp + (lane >> 3)) * 8)));
+    const int mq = lane >> 3, qr = (mq & 1) * 8 + (lane & 7);
+    ldsm_x4(qa, q_addr + sw_offset(MMA_ROWS, qr, (4 * kp + (mq >> 1)) * 8));
+    ldsm_x4(qb, q_addr + sw_offset(MMA_ROWS, qr, (4 * kp + 2 + (mq >> 1)) * 8));
+    mma_16816(s, qa, kf[0], kf[1]);
+    mma_16816(s, qb, kf[2], kf[3]);
+  }
+  // Scores in the log2 domain; a select on each position (a slot the row
+  // cannot see never reaches the sum, whatever its bytes hold).
+  const float cap_log2 = p.softcap * LOG2E;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int tok = pos0 + 2 * qd + (e & 1), lm = lim[e >> 1];
+    float x;
+    if constexpr (I8C) {
+      x = s[e] * q_fac[e >> 1] * k_fac;  // the exact integer dot, scaled
+      if (p.softcap > 0.f) x = tanhf(x / cap_log2) * cap_log2;
+    } else {
+      x = s[e] * k_fac;
+      x = p.softcap > 0.f ? tanhf(x * p.scale / p.softcap) * cap_log2 : x * p.scale * LOG2E;
+    }
+    s[e] = tok < lm && tok >= lm - win ? x : -INFINITY;
+  }
+  // The online softmax of each row over the warp's tokens.
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = fmaxf(s[2 * rr], s[2 * rr + 1]);
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    if (mx > st.m[rr]) {
+      const float alpha = fast_exp2(st.m[rr] - mx);  // 0 from -inf
+      st.m[rr] = mx;
+      st.l[rr] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        st.o[j][2 * rr] *= alpha;
+        st.o[j][2 * rr + 1] *= alpha;
+      }
+    }
+    const float mu = st.m[rr] == -INFINITY ? 0.f : st.m[rr];
+    s[2 * rr] = fast_exp2(s[2 * rr] - mu);
+    s[2 * rr + 1] = fast_exp2(s[2 * rr + 1] - mu);
+    st.l[rr] += s[2 * rr] + s[2 * rr + 1];
+  }
+  // P as the bf16 A fragment: with int8 compute the rounded integers
+  // (exact), O divided by the V factor around the product so that it adds
+  // the exact integer products times that factor; else P times the factor.
+  // A zero V factor (an all-zero page) adds nothing.
+  if (v_fac == 0.f) return;
+  uint32_t a0, a1;
+  if constexpr (I8C) {
+    a0 = pack_bf16x2(rintf(s[0] * 127.f), rintf(s[1] * 127.f));
+    a1 = pack_bf16x2(rintf(s[2] * 127.f), rintf(s[3] * 127.f));
+    const float inv = 1.f / v_fac;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.o[j][e] *= inv;
+  } else {
+    a0 = pack_bf16x2(s[0] * v_fac, s[1] * v_fac);
+    a1 = pack_bf16x2(s[2] * v_fac, s[3] * v_fac);
+  }
+  // O += P V over the warp's 8 tokens; V's halves past the length zeroed.
+  const uint32_t keep = (pos0 + 2 * qd < len ? 0x0000FFFFu : 0u) |
+                        (pos0 + 2 * qd + 1 < len ? 0xFFFF0000u : 0u);
+#pragma unroll
+  for (int jj = 0; jj < D / 32; ++jj) {
+    uint32_t vf[4];
+    ldsm_x4_t(vf, smem_addr(vs + sw_offset(rows, tok0 + (lane & 7), (4 * jj + (lane >> 3)) * 8)));
+#pragma unroll
+    for (int m4 = 0; m4 < 4; ++m4) mma_1688(st.o[4 * jj + m4], a0, a1, vf[m4] & keep);
+  }
+  if constexpr (I8C) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.o[j][e] *= v_fac;
+  }
 }
 
-template <int RB, int MODE>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_kernel(const bf16* __restrict__ q, const void* __restrict__ k_pages,
-                    const void* __restrict__ v_pages, const float* __restrict__ k_scales,
-                    const float* __restrict__ v_scales, const int* __restrict__ lengths,
-                    const int* __restrict__ page_tables, bf16* __restrict__ out,
-                    int kv_heads, int num_pages, int page_size, int pages_per_seq,
-                    int q_tokens, int rows_total, float scale, float softcap, int window) {
+template <int MODE>
+__global__ void __launch_bounds__(NTHREADS, 2)
+paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const Params p) {
   constexpr bool I8C = MODE == INT8C;
   constexpr int STORE = I8C ? INT8 : MODE;  // how the pages are stored
-  __shared__ float sm_m[NWARPS][RB];
-  __shared__ float sm_l[NWARPS][RB];
-  __shared__ float sm_acc[NWARPS][RB][D];
+  constexpr bool RAW = STORE != DENSE;      // raw bytes, converted into a bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_SLOTS];
+  __shared__ float q_fac_s[MMA_ROWS];  // int8 compute: s_q * scale * log2(e) a row
+  uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* stage = q_s + Q_TILE_BYTES;  // quantized pages' bf16 tile
+  uint8_t* ring = stage + (RAW ? STAGE_BYTES : 0);
 
-  const int b = blockIdx.x, hk = blockIdx.y, r0 = blockIdx.z * RB;
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int split = blockIdx.z % p.splits, rblock = blockIdx.z / p.splits;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int half = lane >> 4, hl = lane & 15;
-  const int len = lengths[b];
-  // The lowest window start of all t tokens: tokens below it are never read.
-  const int start = window ? max(len - (q_tokens - 1) - window, 0) : 0;
-  const long long row_base = ((long long)b * kv_heads + hk) * rows_total;
-  const float c_log2 = scale * LOG2E;
-  const float cap_log2 = softcap * LOG2E;
+  const int g = lane >> 2, qd = lane & 3;  // fragment row / column pair
+  const int ps = p.page_size, len = p.lengths[b];
+  const int t = p.q_tokens;
+  // The lowest window start of all t tokens: pages below it are never read.
+  const int start = p.window ? max(len - (t - 1) - p.window, 0) : 0;
+  const int pair = b * p.kv_heads + hk;
+  const long long row_base = (long long)pair * p.rows_total;
 
-  // Row ri of the block is row r0 + ri = g * t + j of this KV head: it sees
-  // tokens [lim[ri] - win, lim[ri]) (tokens are >= 0, so no clamp at 0).
-  // Rows past rows_total see none.
-  const int win = window > 0 ? window : (1 << 30);
-  int lim[RB];
-#pragma unroll
-  for (int ri = 0; ri < RB; ++ri) {
-    const int r = r0 + ri;
-    lim[ri] = r < rows_total ? len - (q_tokens - 1) + r % q_tokens : 0;
+  // This split's page-table columns, clipped to the pages a row can see,
+  // walked in chunks of ct tokens (cpp a page).
+  const int c_begin = max(split * p.pages_per_split, start / ps);
+  const int c_end = min(min((split + 1) * p.pages_per_split, p.pages_per_seq),
+                        (len + ps - 1) / ps);
+  const int ct = chunk_tokens(STORE, ps), cpp = ps / ct;
+  const int n = max(min((c_end - c_begin) * cpp, (len - c_begin * ps + ct - 1) / ct), 0);
+  const int* pt = p.page_tables + (long long)b * p.pages_per_seq;
+  const int pbytes = page_bytes(STORE, ps);
+  const int cbytes = page_bytes(STORE, ct);  // the K (or V) chunk
+  const int slot_bytes = 2 * cbytes;
+  const int r_end = min((rblock + 1) * MMA_ROWS, p.rows_total);  // past this CTA's rows
+  if (n == 0) {
+    empty_split(p, pair, split, rblock * MMA_ROWS, r_end);
+    return;
   }
 
-  // Q rows: lane hl holds dims [8*hl, 8*hl + 8); fp32, or for int8 compute
-  // the row's 8 int8 values packed in two words and s_q * scale * log2(e).
-  float qf[I8C ? 1 : RB][8];
-  int2 qi[I8C ? RB : 1];
-  float qsc[I8C ? RB : 1];
-#pragma unroll
-  for (int ri = 0; ri < RB; ++ri) {
-    const int r = r0 + ri;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r < rows_total) {
-      raw = *reinterpret_cast<const uint4*>(q + (row_base + r) * D + hl * 8);
-    }
-    if constexpr (I8C) {
-      float f[8];
-      unpack8(raw, f);
-      float amax = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
-      const float s_q = fmaxf(amax, 1e-12f) * (1.0f / 127.0f);
-      uint32_t w[2] = {0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int v = __float2int_rn(__fdiv_rn(f[i], s_q));
-        w[i / 4] |= (static_cast<uint32_t>(v) & 0xFFu) << (8 * (i % 4));
-      }
-      qi[ri] = make_int2(static_cast<int>(w[0]), static_cast<int>(w[1]));
-      qsc[ri] = s_q * c_log2;
+  // One thread issues the copies of the split's chunk i into slot i % slots,
+  // the first ones before anything else.
+  auto issue = [&](int i) {
+    const int page = pt[c_begin + i / cpp];
+    uint8_t* dst = ring + (i % p.slots) * slot_bytes;
+    uint64_t* bar = &full[i % p.slots];
+    mbar_arrive_expect_tx(bar, slot_bytes);
+    if constexpr (RAW) {
+      const long long off = ((long long)hk * p.num_pages + page) * pbytes + (i % cpp) * cbytes;
+      bulk_load(dst, p.k_pages + off, cbytes, bar);
+      bulk_load(dst + cbytes, p.v_pages + off, cbytes, bar);
     } else {
-      unpack8(raw, qf[ri]);
+      const int row0 = (i % cpp) * ct;
+      tma_load_4d(dst, &tm_k, 0, row0, page, hk, bar);
+      tma_load_4d(dst + ct * 128, &tm_k, 64, row0, page, hk, bar);
+      tma_load_4d(dst + cbytes, &tm_v, 0, row0, page, hk, bar);
+      tma_load_4d(dst + cbytes + ct * 128, &tm_v, 64, row0, page, hk, bar);
     }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < p.slots; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int i = 0; i < min(n, p.slots); ++i) issue(i);
   }
-  float m_run[RB], l_run[RB], acc[RB][8];
+  // The Q tile: rows rblock * 16 .. + 15 of this KV head (16 threads a row,
+  // 8 values each), zeros past the last row, swizzled as the K/V tiles
+  // are; with int8 compute each row quantized (its abs-max over the
+  // half-warp that holds it) and stored as its int8 values.
+  {
+    const int r = tid / (D / 8), c = (tid % (D / 8)) * 8;
+    const int row = rblock * MMA_ROWS + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row < r_end) v = *reinterpret_cast<const uint4*>(p.q + (row_base + row) * D + c);
+    if constexpr (I8C) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      float f[8], amax = 0.f;
 #pragma unroll
-  for (int ri = 0; ri < RB; ++ri) {
-    m_run[ri] = -INFINITY;
-    l_run[ri] = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(h[i]);
+        f[2 * i] = x.x;
+        f[2 * i + 1] = x.y;
+        amax = fmaxf(amax, fmaxf(fabsf(x.x), fabsf(x.y)));
+      }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[ri][i] = 0.f;
+      for (int off = 8; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
+      const float s_q = fmaxf(amax, 1e-12f) * (1.0f / 127.0f);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = pack_bf16x2(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+      if (c == 0) q_fac_s[r] = s_q * p.scale * LOG2E;
+    }
+    *reinterpret_cast<uint4*>(q_s + sw_offset(MMA_ROWS, r, c)) = v;
   }
+  __syncthreads();
 
-  const int* pt = page_tables + (long long)b * pages_per_seq;
-  // Stored rows of a page: int4 packs two tokens per row.
-  const int rows = STORE == INT4 ? page_size / 2 : page_size;
-  const long long head_rows = (long long)hk * num_pages * rows;
-  const int elem_bytes = STORE == DENSE ? 2 : 1;
-  const uint8_t* kb = static_cast<const uint8_t*>(k_pages);
-  const uint8_t* vb = static_cast<const uint8_t*>(v_pages);
-
-  // Warp w covers tokens [c0, c0 + 2U): half 0 the first U, half 1 the next.
-  // Both halves run the same iterations, so the shuffles below never diverge.
-  for (int c0 = start + warp * 2 * U; c0 < len; c0 += NWARPS * 2 * U) {
-    uint4 kr[U], vr[U];
-    bool valid[U], hi[U];
-    float ksc[U], vsc[U];
+  // This lane's fragment rows g and g + 8 (rows past the last see nothing):
+  // row r sees tokens [lim - win, lim).
+  const int win = p.window > 0 ? p.window : (1 << 30);
+  int lim[2];
+  float q_fac[2] = {1.f, 1.f};
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int tok = c0 + half * U + u;
-      valid[u] = tok < len;
-      kr[u] = make_uint4(0, 0, 0, 0);
-      vr[u] = make_uint4(0, 0, 0, 0);
-      ksc[u] = vsc[u] = 1.f;
-      hi[u] = false;
-      if (valid[u]) {
-        const int page = pt[tok / page_size];
-        const int slot = tok % page_size;
-        hi[u] = STORE == INT4 && slot >= rows;
-        const long long off =
-            ((head_rows + (long long)page * rows + (hi[u] ? slot - rows : slot)) * D + hl * 8) *
-            elem_bytes;
-        if constexpr (STORE == DENSE) {
-          kr[u] = *reinterpret_cast<const uint4*>(kb + off);
-          vr[u] = *reinterpret_cast<const uint4*>(vb + off);
-        } else {
-          const uint2 k2 = *reinterpret_cast<const uint2*>(kb + off);
-          const uint2 v2 = *reinterpret_cast<const uint2*>(vb + off);
-          kr[u] = make_uint4(k2.x, k2.y, 0, 0);
-          vr[u] = make_uint4(v2.x, v2.y, 0, 0);
-          ksc[u] = k_scales[(long long)hk * num_pages + page];
-          vsc[u] = v_scales[(long long)hk * num_pages + page];
-        }
-      }
-    }
-    float sc[RB][U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int tok = c0 + half * U + u;
-      float kf[8];
-      if constexpr (!I8C) unpack_row<STORE>(kr[u], hi[u], kf);
-#pragma unroll
-      for (int ri = 0; ri < RB; ++ri) {
-        float x;
-        if constexpr (I8C) {
-          int dot = __dp4a(static_cast<int>(kr[u].x), qi[ri].x, 0);
-          dot = half_sum(__dp4a(static_cast<int>(kr[u].y), qi[ri].y, dot));
-          x = static_cast<float>(dot) * qsc[ri] * ksc[u];  // log2 domain
-          if (softcap > 0.f) x = tanhf(x / cap_log2) * cap_log2;
-        } else {
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) dot = fmaf(qf[ri][i], kf[i], dot);
-          dot = half_sum(dot) * ksc[u];
-          x = softcap > 0.f ? tanhf(dot * scale / softcap) * cap_log2 : dot * c_log2;
-        }
-        sc[ri][u] = valid[u] && tok < lim[ri] && tok >= lim[ri] - win ? x : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (!valid[u]) continue;
-      float vf[8];
-      unpack_row<STORE>(vr[u], hi[u], vf);
-      const float vs = I8C ? vsc[u] * (1.0f / 127.0f) : vsc[u];
-#pragma unroll
-      for (int ri = 0; ri < RB; ++ri) {
-        // Rescale row ri to this batch's max once, at its first token.
-        if (u == 0) {
-          float mx = sc[ri][0];
-#pragma unroll
-          for (int w = 1; w < U; ++w) mx = fmaxf(mx, sc[ri][w]);
-          const float m_new = fmaxf(m_run[ri], mx);
-          if (m_new != -INFINITY) {
-            const float alpha = exp2f(m_run[ri] - m_new);
-            m_run[ri] = m_new;
-            l_run[ri] *= alpha;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[ri][i] *= alpha;
-          }
-        }
-        if (sc[ri][u] == -INFINITY) continue;
-        const float pe = exp2f(sc[ri][u] - m_run[ri]);
-        l_run[ri] += pe;
-        if constexpr (I8C) {
-          const float p8 = rintf(pe * 127.f);  // exact integer 0..127
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[ri][i] = fmaf(p8 * vf[i], vs, acc[ri][i]);
-        } else {
-          const float pv = pe * vs;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[ri][i] = fmaf(pv, vf[i], acc[ri][i]);
-        }
-      }
-    }
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = rblock * MMA_ROWS + g + 8 * rr;
+    lim[rr] = r < p.rows_total ? len - (t - 1) + r % t : 0;
+    if constexpr (I8C) q_fac[rr] = q_fac_s[g + 8 * rr];
   }
+  Partial st;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) st.o[j][0] = st.o[j][1] = st.o[j][2] = st.o[j][3] = 0.f;
+  st.m[0] = st.m[1] = -INFINITY;
+  st.l[0] = st.l[1] = 0.f;
+  const unsigned q_addr = smem_addr(q_s);
+  const int tok0 = warp * 8;  // the warp's tokens of a tile
 
-  // Merge the two halves of the warp, then the warps through shared memory.
-#pragma unroll
-  for (int ri = 0; ri < RB; ++ri) {
-    const float m_o = __shfl_xor_sync(FULL, m_run[ri], 16);
-    const float l_o = __shfl_xor_sync(FULL, l_run[ri], 16);
-    const float m_tot = fmaxf(m_run[ri], m_o);
-    const float a = m_tot == -INFINITY ? 0.f : exp2f(m_run[ri] - m_tot);
-    const float ao = m_tot == -INFINITY ? 0.f : exp2f(m_o - m_tot);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float acc_o = __shfl_xor_sync(FULL, acc[ri][i], 16);
-      acc[ri][i] = acc[ri][i] * a + acc_o * ao;
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(&full[i % p.slots], (i / p.slots) & 1);
+    const int col = c_begin + i / cpp;
+    const int pos0 = col * ps + (i % cpp) * ct;  // position of the chunk's first token
+    const uint8_t* slot = ring + (i % p.slots) * slot_bytes;
+    if constexpr (RAW) {
+      const float k_fac = p.k_scales[(long long)hk * p.num_pages + pt[col]];
+      const float v_fac = p.v_scales[(long long)hk * p.num_pages + pt[col]] *
+                          (I8C ? 1.0f / 127.0f : 1.0f);
+      // The chunk in tiles of up to 64 tokens (one tile, but for an int4
+      // page of more than 64), the tiles past the length skipped.
+      for (int t0 = 0; t0 < ct && pos0 + t0 < len; t0 += TILE_TOKENS) {
+        const int ntok = min(TILE_TOKENS, ct - t0);
+        convert_tile<STORE>(slot, cbytes, ps / 2, t0, ntok, stage);
+        __syncthreads();
+        if (tok0 < ntok)
+          tile_products<I8C>(st, q_addr, stage, stage + STAGE_BYTES / 2, TILE_TOKENS, tok0,
+                             pos0 + t0 + tok0, lim, win, len, q_fac, k_fac, v_fac, p);
+        __syncthreads();  // the tile is read: the next conversion may write it
+      }
+    } else {
+      if (tok0 < ct)
+        tile_products<false>(st, q_addr, slot, slot + cbytes, ct, tok0, pos0 + tok0, lim, win,
+                             len, q_fac, 1.f, 1.f, p);
+      __syncthreads();  // every warp is done with the slot
     }
-    if (lane == 0) {
-      sm_m[warp][ri] = m_tot;
-      sm_l[warp][ri] = l_run[ri] * a + l_o * ao;
-    }
-    if (half == 0) {
+    if (tid == 0 && i + p.slots < n) issue(i + p.slots);
+  }
+  __syncthreads();  // the tiles' memory becomes the merge's scratch
+
+  // Each warp's partial (O, m, l) of the CTA's real rows (a padded row of
+  // the tile is skipped), then the rows' merge over the warps.
+  float* sm_acc = reinterpret_cast<float*>(stage);          // [NWARPS][16][MERGE_STRIDE]
+  float* sm_m = sm_acc + NWARPS * MMA_ROWS * MERGE_STRIDE;  // [NWARPS][16]
+  float* sm_l = sm_m + NWARPS * MMA_ROWS;                   // [NWARPS][16]
+  const int rows_here = r_end - rblock * MMA_ROWS;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sm_acc[warp][ri][hl * 8 + i] = acc[ri][i];
+  for (int rr = 0; rr < 2; ++rr) {
+    float lq = st.l[rr];
+    lq += __shfl_xor_sync(FULL, lq, 1);
+    lq += __shfl_xor_sync(FULL, lq, 2);
+    const int r = g + 8 * rr;
+    if (r >= rows_here) continue;
+    float* row = sm_acc + (warp * MMA_ROWS + r) * MERGE_STRIDE + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(st.o[j][2 * rr], st.o[j][2 * rr + 1]);
+    if (qd == 0) {
+      sm_m[warp * MMA_ROWS + r] = st.m[rr];
+      sm_l[warp * MMA_ROWS + r] = lq;
     }
   }
   __syncthreads();
 
-  for (int idx = tid; idx < RB * D; idx += NTHREADS) {
-    const int ri = idx / D, col = idx % D;
-    if (r0 + ri >= rows_total) continue;
+  for (int idx = tid; idx < rows_here * D; idx += NTHREADS) {
+    const int rl = idx / D, c = idx % D;
+    const int r = rblock * MMA_ROWS + rl;
     float m_tot = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) m_tot = fmaxf(m_tot, sm_m[w][ri]);
-    float l = 0.f, o = 0.f;
+    for (int w = 0; w < NWARPS; ++w) m_tot = fmaxf(m_tot, sm_m[w * MMA_ROWS + rl]);
+    float lt = 0.f, ot = 0.f;
     if (m_tot != -INFINITY) {
-#pragma unroll
       for (int w = 0; w < NWARPS; ++w) {
-        const float wt = exp2f(sm_m[w][ri] - m_tot);
-        l += sm_l[w][ri] * wt;
-        o += sm_acc[w][ri][col] * wt;
+        const float mw = sm_m[w * MMA_ROWS + rl];
+        if (mw == -INFINITY) continue;
+        const float wt = fast_exp2(mw - m_tot);
+        lt += sm_l[w * MMA_ROWS + rl] * wt;
+        ot += sm_acc[(w * MMA_ROWS + rl) * MERGE_STRIDE + c] * wt;
       }
     }
-    out[(row_base + r0 + ri) * D + col] = __float2bfloat16(l > 0.f ? o / l : 0.f);
+    if (!p.ws_o) {
+      p.out[(row_base + r) * D + c] = __float2bfloat16(lt > 0.f ? ot / lt : 0.f);
+    } else {
+      const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
+      p.ws_o[pr * D + c] = ot;
+      if (c == 0) {
+        p.ws_ml[2 * pr] = m_tot;
+        p.ws_ml[2 * pr + 1] = lt;
+      }
+    }
   }
 }
 
-struct Args {
-  const void *q, *kp, *vp, *ks, *vs, *lengths, *pt;
-  void* out;
-  int batch, kv_heads, num_pages, page_size, pages_per_seq, q_tokens, rows;
-  float scale, softcap;
-  int window;
-  cudaStream_t stream;
-};
+// The merge: one CTA of D threads per (sequence, KV head, row); the splits
+// in order 0, 1, ...
+__global__ void __launch_bounds__(D)
+paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+                          bf16* __restrict__ out, int splits, int rows_total) {
+  const long long pr = blockIdx.x;  // pair * rows_total + r
+  const long long pair = pr / rows_total, r = pr % rows_total;
+  const int c = threadIdx.x;
+  const long long first = pair * splits * rows_total + r;  // split 0's (pair, r)
+  float m_tot = -INFINITY;
+  for (int s = 0; s < splits; ++s) m_tot = fmaxf(m_tot, ws_ml[2 * (first + s * rows_total)]);
+  float l = 0.f, o = 0.f;
+  if (m_tot != -INFINITY) {
+    for (int s = 0; s < splits; ++s) {
+      const long long at = first + (long long)s * rows_total;
+      const float m = ws_ml[2 * at];
+      if (m == -INFINITY) continue;
+      const float wt = exp2f(m - m_tot);
+      l += ws_ml[2 * at + 1] * wt;
+      o += ws_o[at * D + c] * wt;
+    }
+  }
+  out[pr * D + c] = __float2bfloat16(l > 0.f ? o / l : 0.f);
+}
 
-template <int RB, int MODE>
-int launch(const Args& a) {
-  dim3 grid(a.batch, a.kv_heads, (a.rows + RB - 1) / RB);
-  paged_decode_kernel<RB, MODE><<<grid, NTHREADS, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), a.kp, a.vp, static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.lengths),
-      static_cast<const int*>(a.pt), static_cast<bf16*>(a.out), a.kv_heads,
-      a.num_pages, a.page_size, a.pages_per_seq, a.q_tokens, a.rows, a.scale,
-      a.softcap, a.window);
+template <int MODE>
+int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t stream) {
+  // Dense pages: the pool as (kv_heads, num_pages, page_size, 128) bf16,
+  // boxes of 64 columns x one chunk of slots in one page of one KV head.
+  CUtensorMap tm_k{}, tm_v{};
+  if constexpr (MODE == DENSE) {
+    const int ct = chunk_tokens(DENSE, p.page_size);
+    const long long row = D * 2, page = row * p.page_size, head = page * p.num_pages;
+    if (!encode_bhsd(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.k_pages, p.kv_heads,
+                     p.num_pages, p.page_size, D, head, page, row, ct, 64, true) ||
+        !encode_bhsd(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.v_pages, p.kv_heads,
+                     p.num_pages, p.page_size, D, head, page, row, ct, 64, true))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = paged_decode_kernel<MODE>;
+  // Once per kernel (every ring fits the limit): nothing but the launch
+  // itself on the path of a call, which a CUDA graph may capture.
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT - STATIC_RESERVE);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  dim3 grid(batch, p.kv_heads, p.splits * row_blocks);
+  kernel<<<grid, NTHREADS, smem, stream>>>(tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int RB>
-int launch_mode(int mode, const Args& a) {
-  switch (mode) {
-    case DENSE: return launch<RB, DENSE>(a);
-    case INT8: return launch<RB, INT8>(a);
-    case FP8: return launch<RB, FP8>(a);
-    case INT4: return launch<RB, INT4>(a);
-    case INT8C: return launch<RB, INT8C>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -393,31 +631,103 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (batch, heads, q_tokens, 128) bf16 contiguous (q_tokens 1: (batch,
-// heads, 128)); k/v pages (kv_heads, num_pages, rows, 128) contiguous: bf16
-// (mode 0), int8 (1, and 4 = int8 compute), fp8 e4m3 (2), or int4 packed
-// along tokens (3, rows = page_size / 2); k/v scales (kv_heads, num_pages)
-// fp32 (read for modes 1-4); lengths (batch,) int32, the q tokens included;
-// page_tables (batch, pages_per_seq) int32, -1 padded; out like q. Any
-// heads divisible by kv_heads and any q_tokens >= 1: the (heads / kv_heads)
-// x q_tokens rows of a KV head go in blocks of up to 8 rows, one CTA each.
-// Returns cudaGetLastError().
+// The split kernel. q (batch, heads, q_tokens, 128) bf16 contiguous
+// (q_tokens 1: (batch, heads, 128)); k/v pages (kv_heads, num_pages, rows,
+// 128) contiguous: bf16 (mode 0), int8 (1, and 4 = int8 compute), fp8 e4m3
+// (2), or int4 packed along tokens (3, rows = page_size / 2); k/v scales
+// (kv_heads, num_pages) fp32 (read for modes 1-4); lengths (batch,) int32,
+// the q tokens included; page_tables (batch, pages_per_seq) int32, -1
+// padded. Any heads divisible by kv_heads and any q_tokens >= 1; page_size
+// up to 64 or a multiple of 64 (int4: any even size), a multiple of 8 for
+// dense pages. `splits` splits of `pages_per_split` page-table columns
+// (splits * pages_per_split >= pages_per_seq). With one split, out (like
+// q) is written here and ws_o, ws_ml are not read; with more, each split's
+// partial goes to ws_o (batch * kv_heads, splits, rows, 128) and ws_ml
+// (..., 2) fp32, and fa_paged_decode_merge writes out. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
+int fa_paged_decode_split(const void* q, const void* k_pages, const void* v_pages,
+                          const void* k_scales, const void* v_scales,
+                          const void* lengths, const void* page_tables, void* out,
+                          int batch, int heads, int kv_heads, int num_pages,
+                          int page_size, int pages_per_seq, int q_tokens, float scale,
+                          float softcap, int window, int mode, int splits,
+                          int pages_per_split, void* ws_o, void* ws_ml, void* stream) {
+  const int store = mode == INT8C ? INT8 : mode;
+  if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || page_size < 1 ||
+      mode < DENSE || mode > INT8C || chunk_tokens(store, page_size) == 0 ||
+      (store == INT4 && page_size % 2) || (store == DENSE && page_size % 8) || splits < 1 ||
+      pages_per_split < 1 || (long long)splits * pages_per_split < pages_per_seq ||
+      (splits > 1 && !(ws_o && ws_ml)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = heads / kv_heads * q_tokens;
+  const int row_blocks = (rows + MMA_ROWS - 1) / MMA_ROWS;
+  const bool raw = store != DENSE;
+  const int slot_bytes = 2 * page_bytes(store, chunk_tokens(store, page_size));
+  const int slots = ring_slots(raw ? RAW_RING_BYTES : RING_BYTES, slot_bytes);
+  const int smem = smem_bytes(raw, slots, slot_bytes);
+  if (smem > SMEM_LIMIT - STATIC_RESERVE || (long long)splits * row_blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = static_cast<const bf16*>(q);
+  p.k_pages = static_cast<const uint8_t*>(k_pages);
+  p.v_pages = static_cast<const uint8_t*>(v_pages);
+  p.k_scales = static_cast<const float*>(k_scales);
+  p.v_scales = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.page_tables = static_cast<const int*>(page_tables);
+  p.out = static_cast<bf16*>(out);
+  p.ws_o = splits > 1 ? static_cast<float*>(ws_o) : nullptr;
+  p.ws_ml = splits > 1 ? static_cast<float*>(ws_ml) : nullptr;
+  p.kv_heads = kv_heads;
+  p.num_pages = num_pages;
+  p.page_size = page_size;
+  p.pages_per_seq = pages_per_seq;
+  p.q_tokens = q_tokens;
+  p.rows_total = rows;
+  p.splits = splits;
+  p.pages_per_split = pages_per_split;
+  p.slots = slots;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case DENSE: return launch<DENSE>(p, batch, row_blocks, smem, s);
+    case INT8: return launch<INT8>(p, batch, row_blocks, smem, s);
+    case FP8: return launch<FP8>(p, batch, row_blocks, smem, s);
+    case INT4: return launch<INT4>(p, batch, row_blocks, smem, s);
+    default: return launch<INT8C>(p, batch, row_blocks, smem, s);
+  }
+}
+
+// The merge of fa_paged_decode_split's partials into out (like q).
+int fa_paged_decode_merge(const void* ws_o, const void* ws_ml, void* out, int batch,
+                          int heads, int kv_heads, int q_tokens, int splits, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = heads / kv_heads * q_tokens;
+  const long long blocks = (long long)batch * kv_heads * rows;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  paged_decode_merge_kernel<<<static_cast<unsigned>(blocks), D, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ws_o), static_cast<const float*>(ws_ml),
+      static_cast<bf16*>(out), splits, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One split (the whole walk in one CTA per (sequence, KV head, row block)):
+// the split kernel's arguments without the plan's, out written directly.
 int fa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                     const void* k_scales, const void* v_scales,
                     const void* lengths, const void* page_tables, void* out,
                     int batch, int heads, int kv_heads, int num_pages,
                     int page_size, int pages_per_seq, int q_tokens, float scale,
                     float softcap, int window, int mode, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = heads / kv_heads * q_tokens;
-  const Args a{q, k_pages, v_pages, k_scales, v_scales, lengths, page_tables, out,
-               batch, kv_heads, num_pages, page_size, pages_per_seq, q_tokens, rows,
-               scale, softcap, window, static_cast<cudaStream_t>(stream)};
-  if (rows > 4) return launch_mode<8>(mode, a);
-  if (rows > 2) return launch_mode<4>(mode, a);
-  if (rows > 1) return launch_mode<2>(mode, a);
-  return launch_mode<1>(mode, a);
+  return fa_paged_decode_split(q, k_pages, v_pages, k_scales, v_scales, lengths, page_tables,
+                               out, batch, heads, kv_heads, num_pages, page_size,
+                               pages_per_seq, q_tokens, scale, softcap, window, mode, 1,
+                               std::max(pages_per_seq, 1), nullptr, nullptr, stream);
 }
 
 }  // extern "C"

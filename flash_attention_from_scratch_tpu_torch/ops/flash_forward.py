@@ -1,10 +1,12 @@
 """Flash-attention forward: the wrapper of the Hopper kernels K1 and K11.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_forward.py``
-``flash_forward`` / ``flash_forward_with_lse``. For a CUDA tensor the wrapper
-launches ``csrc/flash_forward.cu`` (K1), or ``csrc/flash_forward_fori.cu``
-(K11, the K/V copy ring on the wgmma + TMA main loop of
-``csrc/flash_wgmma.cuh``; its launch is :func:`fori_plan`) when
+``flash_forward`` / ``flash_forward_with_lse``. Both kernels run the wgmma
++ TMA main loop of ``csrc/flash_wgmma.cuh``. For a CUDA tensor the wrapper
+launches ``csrc/flash_forward.cu`` (K1: persistent CTAs over a work list of
+(Q tile, head, batch) items, heaviest first; its launch is
+:func:`grid_plan`), or ``csrc/flash_forward_fori.cu`` (K11, the K/V copy
+ring of ``num_kv_buffers`` slots; its launch is :func:`fori_plan`) when
 ``cfg.kv_loop`` is ``KVLoop.FORI``; for a CPU tensor it runs the plain
 version, :func:`flash_forward_plain`, the same function for both. The JAX
 package's row-band causal dispatch (``ops/causal_decomp.py``) has no
@@ -23,9 +25,11 @@ import torch
 from . import _build
 from .configs import DType, KernelConfig, KVLoop
 from .reference import reference_attention
+from ..utils.device import sm_count
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
-           "fori_plan", "TilePlan", "KERNEL", "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD"]
+           "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL", "KERNEL_FORI",
+           "SEQ_QUANTUM", "D_HEAD"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
@@ -34,8 +38,8 @@ SOURCE_FORI = "flash_forward_fori.cu"
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
 D_HEAD = 128      # both kernels' head width
 
-# The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K11
-# and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q
+# The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K1,
+# K11 and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q
 # rows each.
 WG_ROWS = 64
 CONSUMER_WGS = 2
@@ -78,6 +82,87 @@ def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
         smem=(bf16_tile_bytes(TILE_ROWS) + num_kv_buffers * 2 * bf16_tile_bytes(keys)
               + ALIGN_SLACK),
         grid=(-(-seq_q // TILE_ROWS), heads, batch), kv_tiles=-(-seq_kv // keys))
+
+
+# K1's ring (``GridTile`` in csrc/flash_forward.cu): 2 slots of 128 keys, and
+# two Q tiles (the current work item's and the next one's).
+GRID_KEYS, GRID_SLOTS, GRID_Q_BUFS = 128, 2, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """K1's launch: ``ctas`` persistent CTAs (at most one an SM) over
+    ``n_items`` work items, each a (Q tile, head, batch) triple of
+    ``rows`` Q rows (:meth:`item`: causal, the heaviest Q tile first, then
+    head, then batch; otherwise Q tile fastest, so that the CTAs at work
+    share one head's K/V). CTA c takes, in round r, item ``r * ctas + c``
+    on even rounds and ``r * ctas + ctas - 1 - c`` on odd ones (a snake).
+    ``smem`` bytes of dynamic shared memory: two Q tiles and ``slots``
+    K/V slots of ``keys`` keys."""
+    rows: int
+    keys: int
+    slots: int
+    smem: int
+    ctas: int
+    n_items: int
+    q_tiles: int
+    heads: int
+    batch: int
+    seq_q: int
+    seq_kv: int
+    causal: bool
+    window: int
+    q_offset: int
+    threads: int = TILE_THREADS
+
+    def item(self, w: int) -> tuple[int, int, int]:
+        """(Q tile, head, batch) of item ``w`` (``item_at`` in the kernel)."""
+        if not self.causal:
+            hb, q_tile = divmod(w, self.q_tiles)
+            return q_tile, hb % self.heads, hb // self.heads
+        per_tile = self.heads * self.batch
+        r, hb = divmod(w, per_tile)
+        return self.q_tiles - 1 - r, hb % self.heads, hb // self.heads
+
+    def tiles(self, q_tile: int) -> int:
+        """KV tiles the kernel loads for a Q tile (``cta_tiles``): a causal
+        walk ends at the diagonal, a window starts at the first key a row
+        of the tile can see."""
+        q0 = q_tile * self.rows
+        q_min = self.q_offset + q0
+        q_rows = min(self.rows, self.seq_q - q0)
+        first, last = 0, -(-self.seq_kv // self.keys) - 1
+        if self.causal:
+            last = min(last, (q_min + q_rows - 1) // self.keys)
+            if self.window:
+                first = max(0, q_min - self.window + 1) // self.keys
+        return max(last - first + 1, 0)
+
+    def cta_items(self, c: int) -> list[int]:
+        """The items CTA ``c`` takes, in order."""
+        out, r = [], 0
+        while r * self.ctas < self.n_items:
+            w = r * self.ctas + (self.ctas - 1 - c if r % 2 else c)
+            if w < self.n_items:
+                out.append(w)
+            r += 1
+        return out
+
+
+@functools.lru_cache(maxsize=1024)
+def grid_plan(batch: int, heads: int, seq_q: int, seq_kv: int, causal: bool,
+              window: int, q_offset: int, sm_count: int) -> GridPlan:
+    """K1's launch (``GridTile`` and ``fa_flash_forward_ctas`` in
+    ``csrc/flash_forward.cu``): min(items, sm_count) persistent CTAs."""
+    q_tiles = -(-seq_q // TILE_ROWS)
+    n_items = q_tiles * heads * batch
+    return GridPlan(
+        rows=TILE_ROWS, keys=GRID_KEYS, slots=GRID_SLOTS,
+        smem=(GRID_Q_BUFS * bf16_tile_bytes(TILE_ROWS)
+              + GRID_SLOTS * 2 * bf16_tile_bytes(GRID_KEYS) + ALIGN_SLACK),
+        ctas=min(n_items, sm_count), n_items=n_items, q_tiles=q_tiles, heads=heads,
+        batch=batch, seq_q=seq_q, seq_kv=seq_kv, causal=bool(causal),
+        window=window if causal else 0, q_offset=q_offset)
 
 
 def check_grid(plan: TilePlan) -> None:
@@ -133,8 +218,8 @@ _ARGTYPES = [_PTR] * 6 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32]
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.fa_flash_forward.restype = _I32
-    lib.fa_flash_forward.argtypes = _ARGTYPES + [_PTR]
+    lib.fa_flash_forward_ctas.restype = _I32
+    lib.fa_flash_forward_ctas.argtypes = _ARGTYPES + [_I32, _PTR]
     return lib
 
 
@@ -157,7 +242,9 @@ def _kernel_layout(t) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
+def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None = None):
+    """Launch K1 or K11. ``ctas`` (K1 only): 0 launches one CTA per work
+    item (a plain grid) in place of :func:`grid_plan`'s persistent CTAs."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K1)")
@@ -186,8 +273,11 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
         lib, name = _fori_lib(), KERNEL_FORI
         rc = lib.fa_flash_forward_fori(*args, cfg.num_kv_buffers, stream)
     else:
+        if ctas is None:
+            ctas = grid_plan(b, h, sq, skv, cfg.causal, cfg.window, cfg.q_offset,
+                             sm_count(q.device)).ctas
         lib, name = _lib(), KERNEL
-        rc = lib.fa_flash_forward(*args, stream)
+        rc = lib.fa_flash_forward_ctas(*args, ctas, stream)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
     return out, lse

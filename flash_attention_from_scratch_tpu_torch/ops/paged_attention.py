@@ -1,11 +1,16 @@
-"""Paged decode attention: the wrapper of the Hopper kernel for K4/K5.
+"""Paged decode attention: the wrapper of the Hopper kernels for K4/K5.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/paged_attention.py``
 ``paged_decode_attention``, whose two TPU kernels (``_full_kernel``, the
 whole window at once, and ``_loop_kernel``, an online softmax per page)
-compute the same function; on Hopper it is one kernel,
-``csrc/paged_attention.cu``. For a CPU tensor the wrapper runs the plain
-version, :func:`paged_decode_attention_plain`.
+compute the same function; on Hopper it is one split-KV kernel and a merge
+kernel, ``csrc/paged_attention.cu``: split s of :func:`plan` walks its
+range of page-table columns and writes its partial (O, m, l), and the merge
+combines the splits in order (one split: no merge). The split count is a
+function of shapes alone, so a call reads no device value on the host. For
+a CPU tensor the wrapper runs the plain version,
+:func:`paged_decode_attention_plain` (or, with ``splits`` given, the plain
+split-and-merge version, :func:`paged_decode_attention_split_plain`).
 
 Page formats: dense (the query's dtype), int8, fp8 (``torch.float8_e4m3fn``)
 and int4 packed along the tokens of a page (``(kv_heads, num_pages,
@@ -32,6 +37,7 @@ folding every page's V scale into it, so the two JAX variants differ.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -39,17 +45,20 @@ import torch
 
 from . import _build
 from .quant import div_const, unpack_int4_halves
+from ..utils.device import sm_count
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+           "paged_decode_attention_split_plain", "plan", "PagedPlan",
            "quantize_q_rows", "kernel_name", "KERNEL", "KERNEL_MULTI",
-           "KERNEL_INT8C", "KERNEL_MULTI_INT8C"]
+           "KERNEL_INT8C", "KERNEL_MULTI_INT8C", "KERNEL_MERGE"]
 
-# Launch counts, one name per path: single-token or multi-token q, with or
-# without int8_compute.
+# Launch counts, one name per path of the split kernel: single-token or
+# multi-token q, with or without int8_compute; and the merge kernel's.
 KERNEL = "paged_decode_attention"
 KERNEL_MULTI = "paged_decode_attention_multi"
 KERNEL_INT8C = "paged_decode_attention_int8c"
 KERNEL_MULTI_INT8C = "paged_decode_attention_multi_int8c"
+KERNEL_MERGE = "paged_decode_merge"
 SOURCE = "paged_attention.cu"
 D_HEAD = 128
 LOG2E = math.log2(math.e)
@@ -59,6 +68,101 @@ MODES = {"dense": (0, None), "int8": (1, torch.int8),
 MODE_INT8C = 4  # int8 pages, int8_compute
 
 _I32, _F32, _PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+# The split kernel's geometry (csrc/paged_attention.cu; plan() mirrors it):
+# a CTA holds a tile of 16 rows (the M of mma.sync); pages arrive in chunks
+# of up to 64 tokens (an int4 page whole) through a ring of 2-8 slots (the
+# K chunk, then the V chunk): dense ones by TMA straight into the tiles the
+# products read (RING_BYTES), quantized ones as raw bytes (RAW_RING_BYTES)
+# converted into a bf16 tile (STAGE_BYTES); the Q tile and the tiles
+# 1024-aligned; the warps' merge scratch reuses the tiles.
+MMA_ROWS = 16
+TILE_TOKENS = 64
+RING_BYTES = 98304
+RAW_RING_BYTES = 65536
+STAGE_BYTES = 2 * TILE_TOKENS * D_HEAD * 2
+MIN_SLOTS, MAX_SLOTS = 2, 8
+Q_TILE_BYTES = MMA_ROWS * D_HEAD * 2
+ALIGN_SLACK = 1024
+MERGE_STRIDE = D_HEAD + 8  # floats between the merge scratch's rows
+MERGE_BYTES = 8 * MMA_ROWS * (MERGE_STRIDE + 2) * 4  # 8 warps
+SMEM_LIMIT = 232448      # shared memory an H100 block may use
+STATIC_RESERVE = 1024    # of it kept for the kernel's static arrays
+SM_SMEM = 233472         # shared memory of one H100 SM
+CTA_RESERVED = 1024      # of it reserved for each resident CTA
+CTAS_PER_SM = 2          # the kernel's launch bound (128 registers a thread)
+WAVES = 2                # CTA slots the split count aims to fill, in waves
+# Table tokens a split covers, at least: a CTA's fixed cost (its Q rows, its
+# merge, its partial's writes) against its walk.
+MIN_SPLIT_TOKENS = {"dense": 1024, "quantized": 512}
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """A launch of the split kernel: ``row_blocks`` CTAs of up to 16 rows
+    over a (sequence, KV head)'s rows, chunks of ``chunk_tokens`` tokens
+    through a ring of ``slots`` slots of ``slot_bytes`` (a chunk's K and V),
+    ``smem`` bytes of dynamic shared memory, ``ctas_per_sm`` resident CTAs
+    an SM, and ``splits`` splits of ``pages_per_split`` page-table columns;
+    ``grid`` (batch, kv_heads, splits x row_blocks)."""
+    row_blocks: int
+    chunk_tokens: int
+    slot_bytes: int
+    slots: int
+    smem: int
+    ctas_per_sm: int
+    splits: int
+    pages_per_split: int
+    grid: tuple
+
+    def columns(self, split: int, pages_per_seq: int) -> range:
+        """The page-table columns split ``split`` owns (before the kernel
+        clips them to the pages its sequence's rows can see)."""
+        return range(split * self.pages_per_split,
+                     min((split + 1) * self.pages_per_split, pages_per_seq))
+
+
+def chunk_tokens(mode: int, page_size: int) -> int:
+    """Tokens of a ring slot's chunk (``chunk_tokens`` in the kernel): a page
+    of up to 64 tokens, else runs of 64 (the page size a multiple of 64); an
+    int4 page whole; 0 for a page size the kernel does not take."""
+    if mode == MODES["int4"][0] or page_size <= TILE_TOKENS:
+        return page_size
+    return TILE_TOKENS if page_size % TILE_TOKENS == 0 else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(batch: int, kv_heads: int, rows: int, pages_per_seq: int, page_size: int,
+         mode: int, sm_count: int, splits: int = 0) -> PagedPlan:
+    """The split kernel's launch for ``rows`` rows a KV head (group x t) and
+    the kernel's ``mode`` number (0 dense, 1 int8, 2 fp8, 3 int4, 4 int8
+    compute): a function of shapes only, never of lengths or page ids.
+    ``splits`` > 0 forces the split count (capped at the columns); 0 takes
+    enough splits to fill ``WAVES`` waves of the card's CTA slots (the
+    (sequence, KV head, row block) CTAs alone are far fewer at decode, and
+    the splits of short sequences see no page and end at once), but no
+    fewer than ``MIN_SPLIT_TOKENS`` table tokens a split."""
+    store = MODES["int8"][0] if mode == MODE_INT8C else mode
+    dense = store == MODES["dense"][0]
+    row_blocks = -(-rows // MMA_ROWS)
+    tokens = chunk_tokens(store, page_size)
+    stored = tokens // 2 if store == MODES["int4"][0] else tokens
+    slot_bytes = 2 * stored * D_HEAD * (2 if dense else 1)
+    budget = RING_BYTES if dense else RAW_RING_BYTES
+    slots = max(MIN_SLOTS, min(MAX_SLOTS, budget // max(slot_bytes, 1)))
+    smem = ALIGN_SLACK + Q_TILE_BYTES + max((0 if dense else STAGE_BYTES)
+                                            + slots * slot_bytes, MERGE_BYTES)
+    ctas_per_sm = max(1, min(CTAS_PER_SM, SM_SMEM // (smem + STATIC_RESERVE + CTA_RESERVED)))
+    cols = max(pages_per_seq, 1)
+    if splits <= 0:
+        splits = min(-(-WAVES * ctas_per_sm * sm_count // (batch * kv_heads * row_blocks)),
+                     max(1, cols * page_size
+                         // MIN_SPLIT_TOKENS["dense" if dense else "quantized"]))
+    per = -(-cols // max(1, min(splits, cols)))
+    splits = -(-cols // per)
+    return PagedPlan(row_blocks=row_blocks, chunk_tokens=tokens, slot_bytes=slot_bytes,
+                     slots=slots, smem=smem, ctas_per_sm=ctas_per_sm, splits=splits,
+                     pages_per_split=per, grid=(batch, kv_heads, splits * row_blocks))
 
 
 def kernel_name(q_tokens: int, int8_compute: bool) -> str:
@@ -71,9 +175,11 @@ def kernel_name(q_tokens: int, int8_compute: bool) -> str:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.fa_paged_decode.restype = _I32
-    lib.fa_paged_decode.argtypes = ([_PTR] * 8 + [_I32] * 7 + [_F32, _F32, _I32, _I32]
-                                    + [_PTR])
+    lib.fa_paged_decode_split.restype = _I32
+    lib.fa_paged_decode_split.argtypes = ([_PTR] * 8 + [_I32] * 7 + [_F32, _F32]
+                                          + [_I32] * 4 + [_PTR] * 3)
+    lib.fa_paged_decode_merge.restype = _I32
+    lib.fa_paged_decode_merge.argtypes = [_PTR] * 3 + [_I32] * 5 + [_PTR]
     return lib
 
 
@@ -170,16 +276,27 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
 def _int8_compute_plain(qb, k_pages, v_pages, k_scales, v_scales, idx, pos0,
                         limit, page_size, scale, window, softcap):
     """One sequence's int8-compute attention, the JAX ``_loop_kernel``'s
-    arithmetic page by page in page order (pages ``idx``, the first at
-    token ``pos0``): q rows quantized by :func:`quantize_q_rows`; S = the
-    exact int32 dot x q_scale x scale x log2(e) x the page's K scale, then
-    the softcap and the mask; P = exp2(S - m) against the running max m
-    after this page, rounded to int8 at the constant scale 127; each page's
-    int32 P.V dot times its V scale / 127; l the fp32 sum of the unrounded
-    P. The online rescale by alpha = exp2(m_old - m_new) is written in its
-    closed form: page i's terms are scaled once by exp2(m_i - m_last).
-    Integer products are exact in fp32 (|sums| < 2^24). Returns (kv_heads,
-    rows, d) fp32."""
+    arithmetic page by page in page order (:func:`_int8_compute_partials`),
+    normalised. Returns (kv_heads, rows, d) fp32."""
+    acc, l_sum, _ = _int8_compute_partials(qb, k_pages, v_pages, k_scales, v_scales, idx,
+                                           pos0, limit, page_size, scale, window, softcap)
+    return torch.where(l_sum > 0, acc / l_sum.clamp_min(1e-30), 0.0)
+
+
+def _int8_compute_partials(qb, k_pages, v_pages, k_scales, v_scales, idx, pos0,
+                           limit, page_size, scale, window, softcap):
+    """The JAX ``_loop_kernel``'s int8-compute arithmetic page by page in
+    page order (pages ``idx``, the first at token ``pos0``): q rows
+    quantized by :func:`quantize_q_rows`; S = the exact int32 dot x q_scale
+    x scale x log2(e) x the page's K scale, then the softcap and the mask;
+    P = exp2(S - m) against the running max m after this page, rounded to
+    int8 at the constant scale 127; each page's int32 P.V dot times its V
+    scale / 127; l the fp32 sum of the unrounded P. The online rescale by
+    alpha = exp2(m_old - m_new) is written in its closed form: page i's
+    terms are scaled once by exp2(m_i - m_last). Integer products are exact
+    in fp32 (|sums| < 2^24). Returns (acc (kv_heads, rows, d), l (kv_heads,
+    rows, 1), m_last (kv_heads, rows, 1), -inf for a row that saw no
+    token), acc and l relative to exp2(m_last)."""
     q_i8, q_scale = quantize_q_rows(qb)  # (kvh, R, d), (kvh, R, 1)
     k = _stored(k_pages, idx).float()  # (kvh, n, ps, d) raw int8 values
     v = _stored(v_pages, idx).float()
@@ -206,11 +323,85 @@ def _int8_compute_plain(qb, k_pages, v_pages, k_scales, v_scales, idx, pos0,
     w = torch.where(m_run == float("-inf"), 0.0, torch.exp2(m_safe - m_last))
     acc = (pv * w[..., None]).sum(2)
     l_sum = (p.sum(-1) * w).sum(-1, keepdim=True)
-    return torch.where(l_sum > 0, acc / l_sum.clamp_min(1e-30), 0.0)
+    return acc, l_sum, m_run[..., -1:]
+
+
+def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, page_tables, *,
+                                       pages_per_split: int, scale: float,
+                                       window: int = 0, softcap: float = 0.0,
+                                       mode: str = "dense", k_scales=None,
+                                       v_scales=None, int8_compute: bool = False):
+    """Plain PyTorch version of the split kernel and its merge: split s
+    takes page-table columns [s * pages_per_split, (s + 1) *
+    pages_per_split), clipped to the pages its sequence's rows can see, and
+    gives each row its partial (O, m, l) in fp32 and the log2 domain (m =
+    -inf, l = 0 where the row sees none of the split's tokens; with
+    ``int8_compute``, :func:`_int8_compute_partials` on the split's pages);
+    the merge takes out = sum_s exp2(m_s - M) O_s / sum_s exp2(m_s - M) l_s
+    in split order (M the largest m_s; zeros where the sums are 0). The
+    same arguments and result as :func:`paged_decode_attention_plain`."""
+    single = q.ndim == 3
+    q4 = q[:, :, None] if single else q
+    batch, heads, t, d = q4.shape
+    kv_heads = k_pages.shape[0]
+    page_size = k_pages.shape[2] * (2 if mode == "int4" else 1)
+    group = heads // kv_heads
+    cols = page_tables.shape[1]
+    splits = -(-max(cols, 1) // pages_per_split)
+    out = torch.zeros_like(q4)
+    lengths_l = [int(x) for x in lengths.tolist()]
+    tables = page_tables.tolist()
+    neg_inf = float("-inf")
+    for b in range(batch):
+        n = lengths_l[b]
+        start = max(n - (t - 1) - window, 0) if window else 0
+        qb = q4[b].float().reshape(kv_heads, group * t, d)
+        j = torch.arange(group * t, device=q.device)[:, None] % t
+        limit = n - (t - 1) + j  # (R, 1)
+        parts = []  # (O, m, l) per split
+        for s in range(splits):
+            c0 = max(s * pages_per_split, start // page_size)
+            c1 = min((s + 1) * pages_per_split, cols, -(-n // page_size))
+            if c1 <= c0:
+                parts.append((torch.zeros(kv_heads, group * t, d, device=q.device),
+                              torch.full((kv_heads, group * t, 1), neg_inf, device=q.device),
+                              torch.zeros(kv_heads, group * t, 1, device=q.device)))
+                continue
+            idx = torch.as_tensor(tables[b][c0:c1], device=k_pages.device)
+            if int8_compute:
+                acc, l_s, m_s = _int8_compute_partials(
+                    qb, k_pages, v_pages, k_scales, v_scales, idx, c0 * page_size, limit,
+                    page_size, scale, window, softcap)
+                parts.append((acc, m_s, l_s))
+                continue
+            k = _page_values(k_pages, k_scales, idx, mode)
+            v = _page_values(v_pages, v_scales, idx, mode)
+            pos = c0 * page_size + torch.arange(k.shape[1], device=q.device)[None, :]
+            keep = (pos < limit) & (pos < n)
+            if window:
+                keep &= pos >= limit - window
+            sc = torch.matmul(qb, k.transpose(-1, -2)) * scale
+            if softcap:
+                sc = torch.tanh(sc / softcap) * softcap
+            sc = (sc * LOG2E).masked_fill(~keep, neg_inf)
+            m_s = sc.amax(-1, keepdim=True)
+            p = torch.exp2(sc - torch.where(m_s == neg_inf, 0.0, m_s))
+            # A select, not a product: slots the rows cannot see hold anything.
+            o_s = torch.matmul(p, torch.where(keep.any(0)[:, None], v, 0.0))
+            parts.append((o_s, m_s, p.sum(-1, keepdim=True)))
+        m_all = torch.stack([m for _, m, _ in parts])  # (splits, kvh, R, 1)
+        m_max = m_all.amax(0)
+        w = torch.where(m_all == neg_inf, 0.0,
+                        torch.exp2(m_all - torch.where(m_max == neg_inf, 0.0, m_max)))
+        o = sum(w[i] * parts[i][0] for i in range(splits))
+        l_sum = sum(w[i] * parts[i][2] for i in range(splits))
+        o = torch.where(l_sum > 0, o / l_sum.clamp_min(1e-30), 0.0)
+        out[b] = o.reshape(heads, t, d).to(q.dtype)
+    return out[:, :, 0] if single else out
 
 
 def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
-            mode, k_scales, v_scales, int8_compute):
+            mode, k_scales, v_scales, int8_compute, splits):
     mode_id, page_dtype = MODES[mode]
     page_dtype = page_dtype or torch.bfloat16
     if q.dtype != torch.bfloat16 or k_pages.dtype != page_dtype \
@@ -228,6 +419,10 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if (not chunk_tokens(mode_id, page_size) or (mode == "dense" and page_size % 8)
+            or (mode == "int4" and page_size % 2)):
+        raise ValueError(f"the CUDA kernel takes pages of up to 64 tokens or a multiple of "
+                         f"64 (dense: a multiple of 8; int4: even), got {page_size}")
     if mode == "dense":
         k_scales = v_scales = q  # not read by the kernel
     else:
@@ -236,24 +431,40 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     page_tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    mode_num = MODE_INT8C if int8_compute else mode_id
+    rows = heads // kv_heads * q_tokens
+    pl = plan(batch, kv_heads, rows, page_tables.shape[1], page_size, mode_num,
+              sm_count(q.device), splits)
+    ws_o = ws_ml = None
+    if pl.splits > 1:
+        # Each split's partial: O (pairs, splits, rows, d), then m and l
+        # (pairs, splits, rows, 2), fp32, in one allocation.
+        n_o = batch * kv_heads * pl.splits * rows * D_HEAD
+        ws = torch.empty(n_o + 2 * n_o // D_HEAD, dtype=torch.float32, device=q.device)
+        ws_o, ws_ml = ws.data_ptr(), ws.data_ptr() + 4 * n_o
     lib = _lib()
-    rc = lib.fa_paged_decode(
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.fa_paged_decode_split(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(),
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
             batch, heads, kv_heads, num_pages, page_size,
             page_tables.shape[1], q_tokens, float(scale), float(softcap),
-            int(window), MODE_INT8C if int8_compute else mode_id,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(window), mode_num, pl.splits, pl.pages_per_split, ws_o, ws_ml, stream)
     _build.check(lib, rc, "paged_decode_attention")
     _build.launch_counts[kernel_name(q_tokens, int8_compute)] += 1
+    if pl.splits > 1:
+        rc = lib.fa_paged_decode_merge(ws_o, ws_ml, out.data_ptr(), batch, heads, kv_heads,
+                                       q_tokens, pl.splits, stream)
+        _build.check(lib, rc, KERNEL_MERGE)
+        _build.launch_counts[KERNEL_MERGE] += 1
     return out
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *,
                            mode: str = "dense", k_scales=None, v_scales=None,
                            scale: float | None = None, int8_compute: bool = False,
-                           window: int = 0, softcap: float = 0.0):
+                           window: int = 0, softcap: float = 0.0, splits: int = 0):
     """softmax(q K^T * scale) V for 1..t query tokens over a paged KV cache.
 
     Args:
@@ -277,6 +488,9 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *,
       window: each query token sees only the last ``window`` positions up
         to its own; 0 disables.
       softcap: Gemma-2 logit softcap on the scaled scores; 0 disables.
+      splits: the KV walk's split count (capped at the page-table columns);
+        0 takes :func:`plan`'s. On the CPU a non-zero count runs the plain
+        split-and-merge version. The result is the same function.
 
     Returns q's shape in q's dtype.
     """
@@ -309,14 +523,20 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *,
                          f"{tuple(page_tables.shape)} do not match batch {batch}")
     if window < 0:
         raise ValueError(f"window must be >= 0: {window}")
+    if splits < 0:
+        raise ValueError(f"splits must be >= 0: {splits}")
     if scale is None:
         scale = d ** -0.5
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(
-            q, k_pages, v_pages, lengths, page_tables, scale=scale,
-            window=window, softcap=softcap, mode=mode, k_scales=k_scales,
-            v_scales=v_scales, int8_compute=int8_compute)
+        kw = dict(scale=scale, window=window, softcap=softcap, mode=mode,
+                  k_scales=k_scales, v_scales=v_scales, int8_compute=int8_compute)
+        if splits:
+            cols = page_tables.shape[1]
+            per = -(-max(cols, 1) // min(splits, max(cols, 1)))
+            return paged_decode_attention_split_plain(
+                q, k_pages, v_pages, lengths, page_tables, pages_per_split=per, **kw)
+        return paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_tables, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k_pages, v_pages, lengths, page_tables, scale, window,
-                   softcap, mode, k_scales, v_scales, int8_compute)
+                   softcap, mode, k_scales, v_scales, int8_compute, splits)

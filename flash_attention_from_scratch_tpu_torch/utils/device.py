@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device) -> torch.device:
@@ -16,3 +18,14 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "versions of the kernels on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device ``device``."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

@@ -42,15 +42,16 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
     flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-    KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE_FORI, flash_forward_plain,
-    flash_forward_with_lse,
+    KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE as FLASH_SOURCE, SOURCE_FORI,
+    flash_forward_plain, flash_forward_with_lse,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
     KERNEL as FLASH_QUANT, SOURCE as SOURCE_QUANT, flash_forward_quantized,
     flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-    KERNEL as PAGED, kernel_name, paged_decode_attention, paged_decode_attention_plain,
+    KERNEL as PAGED, KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, paged_decode_attention,
+    paged_decode_attention_plain, plan,
 )
 from flash_attention_from_scratch_tpu_torch.ops.quant import (
     QTensor, dequantize, quantize_kv, quantize_kv_pages,
@@ -60,6 +61,7 @@ from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
     KERNELS as QMM, QuantizedWeight, quant_matmul, quant_matmul_plain,
 )
 from flash_attention_from_scratch_tpu_torch.tools import bench_quant
+from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     make_qkv, row_bands, sliced_tolerance_check,
 )
@@ -82,17 +84,45 @@ FLASH_CASES = [
     (256, dict(causal=True, attn_softcap=30.0))]
 
 
-@pytest.mark.parametrize("sq,kw", FLASH_CASES)
-def test_flash_kernel_matches_plain(cuda, sq, kw):
-    check_flash_kernel(cuda, sq, KernelConfig(**kw), FLASH)
-
-
-# K1's cases, then the shapes K11's 128-row CTAs and 128-key slots make
+# The shapes the main loop's 128-row work items and 128-key slots make
 # ragged: the second consumer warpgroup of the last Q tile past seq_q, the
 # last KV tile half zero-filled (``seq_kv`` is popped from the options).
-FORI_CASES = FLASH_CASES + [
+RAGGED_CASES = [
     (192, dict(seq_kv=320)), (192, dict(causal=True, seq_kv=320)),
     (192, dict(causal=True, q_offset=128, window=70, seq_kv=320))]
+
+# K1's own: rows 79-191 see no key (positions past the 64 keys plus the
+# window), so with the sinks their output is 0 and their LSE the sink's;
+# strided (b, s, h, d) views as training passes them; many work items a
+# persistent CTA (b 2 x 8 heads x 16 Q tiles over 132 SMs).
+K1_CASES = FLASH_CASES + RAGGED_CASES + [
+    (128, dict(causal=True, q_offset=64, window=16, seq_kv=64)),
+    (256, dict(causal=True, strided=True)), (192, dict(strided=True, seq_kv=320)),
+    (2048, dict(causal=True)), (2048, dict(causal=True, window=300, strided=True))]
+
+
+@pytest.mark.parametrize("sq,kw", K1_CASES)
+def test_flash_kernel_matches_plain(cuda, sq, kw):
+    """K1 (persistent, on the wgmma main loop) with sinks and the LSE."""
+    kw = dict(kw)
+    skv, strided = kw.pop("seq_kv", 256), kw.pop("strided", False)
+    check_flash_kernel(cuda, sq, KernelConfig(**kw), FLASH, seq_kv=skv, strided=strided)
+
+
+def test_flash_kernel_plain_grid_matches_persistent(cuda):
+    """One CTA per work item (``ctas=0``) gives K1's persistent output bit
+    for bit: the schedule moves work, not arithmetic."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
+
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 1024, kv_heads=2, seed=4))
+    cfg = KernelConfig(causal=True)
+    out, lse = ff._launch(q, k, v, cfg, None, True)
+    grid_out, grid_lse = ff._launch(q, k, v, cfg, None, True, ctas=0)
+    assert torch.equal(out, grid_out) and torch.equal(lse, grid_lse)
+
+
+FORI_CASES = FLASH_CASES + RAGGED_CASES
 
 
 @pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
@@ -106,9 +136,11 @@ def test_fori_kernel_matches_plain(cuda, sq, kw, nbuf):
     check_flash_kernel(cuda, sq, cfg, FORI, seq_kv=skv)
 
 
-def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256):
+def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256, strided=False):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
                make_qkv(2, 8, sq, kv_heads=2, seq_kv=seq_kv, seed=1))
+    if strided:  # (b, h, s, d) views of contiguous (b, s, h, d) rows
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
     sinks = torch.linspace(-2, 2, 8, device=cuda)
     before = _build.launch_counts[kernel]
     out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
@@ -277,17 +309,22 @@ def _sass_by_function(source):
 
 
 def test_attention_kernels_run_on_wgmma(cuda):
-    """K11 and K10's upcast kernels issue bf16 wgmma (HGMMA), K10's int8
-    compute kernel int8 wgmma (IGMMA); none keeps an mma.sync (HMMA/IMMA)."""
+    """K1, K11 and K10's upcast kernels issue bf16 wgmma (HGMMA), K10's int8
+    compute kernel int8 wgmma (IGMMA); none keeps an mma.sync (HMMA/IMMA).
+    K1 spills nothing (no local memory, no stack)."""
+    k1 = _sass_by_function(FLASH_SOURCE)
+    assert [n for n in k1 if "flash_forward_kernel" in n], list(k1)
     fori = _sass_by_function(SOURCE_FORI)
     assert len([n for n in fori if "flash_forward_fori_kernel" in n]) == MAX_KV_BUFFERS
     quant = _sass_by_function(SOURCE_QUANT)
     assert len([n for n in quant if "flash_quant_kernel" in n]) == 9
-    for name, sass in {**fori, **quant}.items():
+    for name, sass in {**k1, **fori, **quant}.items():
         want = "IGMMA" if "flash_quant_i8_kernel" in name else "HGMMA"
         assert want in sass, name
         assert "HMMA" not in sass and "IMMA" not in sass, name
     assert any("flash_quant_i8_kernel" in n for n in quant)
+    for name, use in _resource_usage(FLASH_SOURCE).items():
+        assert use["local"] == 0 and use["stack"] == 0, (name, use)
 
 
 def _resource_usage(source):
@@ -482,14 +519,18 @@ def _paged_pool(cuda, kv_heads, lengths, mode, seed, ps=16, num_pages=96):
     return kp, vp, tables, dict(mode=mode, k_scales=ks, v_scales=vs)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 8, 0], ids=["splits1", "splits2", "splits8", "plan"])
 @pytest.mark.parametrize("heads,kv_heads", [(8, 2), (4, 4), (32, 8)])
 @pytest.mark.parametrize("t", [1, 2, 4, 8])
 @pytest.mark.parametrize("mode", ["dense", "int8", "fp8", "int4", "int8c"])
-def test_paged_kernel_multi_token_and_int8c(cuda, mode, t, heads, kv_heads):
-    """t query tokens (rows in blocks of up to 8 per CTA: 32 heads over 8
-    KV heads at t = 8 is 4 blocks) and int8 compute, plain, with a window
-    and with a softcap; lengths 0, below t (rows that see no token give
-    zeros), t and long ones."""
+def test_paged_kernel_multi_token_and_int8c(cuda, mode, t, heads, kv_heads, splits):
+    """t query tokens (the rows of a KV head in 16-row tiles, one CTA each:
+    32 heads over 8 KV heads at t = 4 is one tile of 16 rows, at t = 8 two)
+    and int8 compute, plain, with a window and with a softcap, at split
+    counts 1 (no merge), 2, 8 and the plan's (1 for these 640-token
+    tables), on
+    a pool whose unowned slots hold NaN; lengths 0, below t (rows that see
+    no token give zeros), t and long ones."""
     i8c = mode == "int8c"
     lengths = [0, 1, t, 37, 300, 611]
     kp, vp, tables, kw0 = _paged_pool(cuda, kv_heads, lengths, "int8" if i8c else mode,
@@ -499,11 +540,16 @@ def test_paged_kernel_multi_token_and_int8c(cuda, mode, t, heads, kv_heads):
     q = torch.randn(shape, device=cuda).bfloat16()
     kw0 = dict(kw0, scale=128 ** -0.5)
     name = kernel_name(t, i8c)
+    mode_num = MODE_INT8C if i8c else MODES[mode][0]
+    merged = plan(len(lengths), kv_heads, heads // kv_heads * t, tables.shape[1], 16,
+                  mode_num, sm_count(q.device), splits).splits > 1
     for kw in (dict(), dict(window=100), dict(softcap=20.0)):
-        before = _build.launch_counts[name]
-        out = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c, **kw0, **kw)
+        before, merges = _build.launch_counts[name], _build.launch_counts[KERNEL_MERGE]
+        out = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                     splits=splits, **kw0, **kw)
         torch.cuda.synchronize()
         assert _build.launch_counts[name] == before + 1
+        assert _build.launch_counts[KERNEL_MERGE] == merges + merged
         native = paged_decode_attention_plain(q, kp, vp, lens, tables, int8_compute=i8c,
                                               **kw0, **kw)
         pages32 = (kp.float(), vp.float()) if mode == "dense" else (kp, vp)
@@ -514,6 +560,25 @@ def test_paged_kernel_multi_token_and_int8c(cuda, mode, t, heads, kv_heads):
         ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(native),
                                                   by_token(ref32), lead=2)
         assert ok, (mode, t, kw, ratio, where)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("mode", ["dense", "int8", "fp8", "int4", "int8c"])
+def test_paged_kernel_is_deterministic(cuda, mode, t):
+    """The merge adds the splits in a fixed order: repeated calls agree bit
+    for bit, at the plan's split count and at 2."""
+    i8c = mode == "int8c"
+    lengths = [0, 5, 300, 611]
+    kp, vp, tables, kw0 = _paged_pool(cuda, 8, lengths, "int8" if i8c else mode, seed=40)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), 32) + ((t,) if t > 1 else ()) + (128,),
+                    device=cuda).bfloat16()
+    for splits in (0, 2):
+        first = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                       splits=splits, **kw0)
+        for _ in range(3):
+            assert torch.equal(first, paged_decode_attention(
+                q, kp, vp, lens, tables, int8_compute=i8c, splits=splits, **kw0))
 
 
 def test_kernels_refuse_other_dtypes(cuda):

@@ -125,3 +125,93 @@ def test_check_grid_refuses_what_cuda_cannot_launch():
         ff.check_grid(ff.fori_plan(2, ff.MAX_GRID_YZ + 1, 8, 64, 64))
     with pytest.raises(ValueError, match="at most"):
         ff.check_grid(fq.plan("int8", False, 1, ff.MAX_GRID_YZ + 1, 128, 128))
+
+
+# ---------------------------------------------------------------------------
+# K1's persistent launch (``ops/flash_forward.py::grid_plan``).
+
+GRID = (CSRC / ff.SOURCE).read_text()
+H100_SMS = 132
+# (batch, heads, seq_q, seq_kv, causal, window, q_offset): the serving run's
+# prefill prompts (b 1, 32 heads, padded to 128), training's shape, ragged
+# and windowed ones, and one with fewer items than SMs.
+GRID_SHAPES = [(1, 32, s, s, True, 0, 0) for s in (256, 640, 1024, 1536, 2048, 2560,
+                                                      3072, 4096)] + [
+    (2, 32, 2048, 2048, True, 0, 0), (4, 32, 4096, 4096, False, 0, 0),
+    (2, 8, 192, 320, True, 70, 128), (3, 4, 1088, 1088, True, 300, 0),
+    (1, 2, 64, 64, True, 0, 0), (2, 16, 512, 1024, True, 0, 512)]
+
+
+def test_grid_plan_mirrors_the_kernel():
+    """``GridTile``: 2 slots of 128 keys and 2 Q tiles, sized from the same
+    constants; at most one CTA an SM."""
+    tile = re.search(r"struct GridTile \{(.*?)\};", GRID, re.S).group(1)
+    assert _int(tile, r"\bNB = (\d+);") == ff.GRID_SLOTS
+    assert _int(tile, r"\bBK = (\d+);") == ff.GRID_KEYS
+    assert _int(tile, r"\bQ_BUFS = (\d+);") == ff.GRID_Q_BUFS
+    assert re.search(r"SMEM = Q_BUFS \* Q_BYTES \+ NB \* SLOT \+ ALIGN_SLACK;", tile)
+    assert re.search(r"SLOT = 2 \* bf16_tile_bytes\(BK\);", tile)
+    assert '#include "flash_wgmma.cuh"' in GRID
+    assert "__launch_bounds__(THREADS, 1)" in GRID
+    assert re.search(r"ctas > 0 \? std::min\(ctas, p\.items\) : p\.items", GRID)
+    # The item order (item_at): causal by Q tile, heaviest first; else Q
+    # tile fastest.
+    assert "return Item{w - hb * p.q_tiles, hb % p.heads, hb / p.heads};" in GRID
+    assert "return Item{p.q_tiles - 1 - r, hb % p.heads, hb / p.heads};" in GRID
+    for shape in GRID_SHAPES:
+        p = ff.grid_plan(*shape, H100_SMS)
+        assert p.smem == 2 * ff.TILE_ROWS * 128 * 2 + 2 * 2 * 128 * 128 * 2 + ff.ALIGN_SLACK
+        assert p.smem + STATIC_BARRIERS <= ff.SMEM_LIMIT
+        assert p.ctas == min(p.n_items, H100_SMS) and p.threads == ff.TILE_THREADS
+
+
+def test_k1_has_no_warp_level_body():
+    """K1 runs the wgmma main loop: no mma.sync, ldmatrix or cp.async of its
+    own."""
+    for body in ("mma.sync", "ldmatrix", "cp.async.cg", "cp_async"):
+        assert body not in GRID, body
+    assert "consume_bf16<" in GRID and "store_rows(" in GRID
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_grid_plan_takes_every_item_once(shape):
+    """Every (Q tile, head, batch) item is taken by exactly one CTA, and
+    every CTA takes one."""
+    p = ff.grid_plan(*shape, H100_SMS)
+    batch, heads = shape[:2]
+    taken = [w for c in range(p.ctas) for w in p.cta_items(c)]
+    assert sorted(taken) == list(range(p.n_items))
+    items = {p.item(w) for w in taken}
+    assert items == {(qt, h, b) for qt in range(p.q_tiles) for h in range(heads)
+                     for b in range(batch)}
+    assert all(p.cta_items(c) for c in range(p.ctas))
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_grid_plan_is_heaviest_first_and_balanced(shape):
+    """Items come heaviest first (non-increasing KV tiles; a window's tiles
+    differ by at most one beyond its start), and no CTA's load (KV tiles)
+    exceeds the largest item plus the mean over the CTAs."""
+    p = ff.grid_plan(*shape, H100_SMS)
+    if not p.causal:  # equal items, Q tile fastest: neighbours share K/V
+        assert [p.item(w) for w in range(p.q_tiles)] == [(qt, 0, 0)
+                                                        for qt in range(p.q_tiles)]
+    work = [p.tiles(p.item(w)[0]) for w in range(p.n_items)]
+    slack = 1 if p.window else 0
+    assert all(a + slack >= b for a, b in zip(work, work[1:])), work
+    loads = [sum(work[w] for w in p.cta_items(c)) for c in range(p.ctas)]
+    assert max(loads) <= max(work) + slack * len(p.cta_items(0)) + sum(work) / p.ctas
+
+
+def test_grid_plan_walks_the_kernels_tiles():
+    """The KV tiles an item loads: all of them without the causal mask, up to
+    the diagonal with it, from the window's first visible tile with one."""
+    full = ff.grid_plan(1, 1, 512, 512, False, 0, 0, H100_SMS)
+    assert [full.tiles(qt) for qt in range(4)] == [4, 4, 4, 4]
+    causal = ff.grid_plan(1, 1, 512, 512, True, 0, 0, H100_SMS)
+    assert [causal.tiles(qt) for qt in range(4)] == [1, 2, 3, 4]
+    window = ff.grid_plan(1, 1, 512, 512, True, 130, 0, H100_SMS)
+    assert [window.tiles(qt) for qt in range(4)] == [1, 2, 3, 3]
+    offset = ff.grid_plan(1, 1, 192, 320, True, 70, 128, H100_SMS)
+    assert [offset.tiles(qt) for qt in range(2)] == [2, 2]
+    assert ff.grid_plan(1, 1, 512, 512, False, 130, 0, H100_SMS).window == 0
