@@ -13,7 +13,9 @@ band on its own: the flash forward (K1), paged decode (K4/K5: its split
 kernel and merge, at one split and at the plan's count) on dense, int8,
 fp8 and int4 pages, the quantized matmuls (K6-K9) at every weight
 shape of Llama-3-8B at 16, 32, 64 and 1024 rows and K6/K7 at 1000 (K8/K9
-also within one bf16 ulp of the plain int32 path), and the flash backward, fused (K2) and split
+also within one bf16 ulp of the plain int32 path, and their activation
+quantization kernel bit-equal to the plain quantization), and the flash
+backward, fused (K2) and split
 (K3), each also at the training run's shape and strided layout and on
 ragged tiles, rerun to hold dK/dV (and K3's dQ) bit for bit, plus
 autograd with sinks against autograd of the reference; (4) serve
@@ -38,8 +40,8 @@ fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
 **E** run A with int8-compute attention (``attn_int8``) and **F** int8
 KV, ``attn_int8`` and ``spec_k=3`` at 4 layers with 4 requests; each checks
 every token, finite logits, each kernel's launch count and two requests
-teacher-forced through ``forward``, and run A's decode steps are
-profiled; (8) drive the attention bench tools, the path of quantized
+teacher-forced through ``forward``, and run A's and run B's decode steps
+are profiled; (8) drive the attention bench tools, the path of quantized
 prefill attention (K10) and of the K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
@@ -785,6 +787,7 @@ def train_flops(cfg, batch: int, seq: int) -> float:
 KERNEL_CLASSES = (
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("quantized matmul (K6-K9)", ("quant_matmul_",)),
+    ("activation quantization (K8/K9)", ("quantize_rows",)),
     ("flash forward (K1)", ("flash_forward_kernel",)),
     ("flash backward (K2/K3)", ("flash_backward_",)),
     ("paged decode (K4/K5)", ("paged_decode_kernel", "paged_decode_merge_kernel")),
@@ -1208,11 +1211,29 @@ def _check_qmm(got, x, wq, act_quant):
     return ok and bool(torch.isfinite(got).all()), ratio, ulps, float(err.max())
 
 
+def _check_quantize_rows(x) -> None:
+    """K8/K9's activation quantization kernel against the plain version on
+    the same x: the same int8 bytes and fp32 scales, bit for bit."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        quantize_activations, quantize_rows)
+
+    got_q, got_s = quantize_rows(x)
+    want_q, want_s = quantize_activations(x)
+    sync()
+    if not (torch.equal(got_q, want_q) and torch.equal(got_s, want_s)):
+        raise AssertionError(f"quantize_rows at {tuple(x.shape)}: "
+                             f"{int((got_q != want_q).sum())} bytes and "
+                             f"{int((got_s != want_s).sum())} scales differ from the plain "
+                             "quantization")
+
+
 def phase_quant_matmul_cases() -> dict:
     """K6-K9 vs their plain version at every weight shape of Llama-3-8B, at
     decode m = 16, the verify steps' m = 32, m = 64 and prefill m = 1024,
     and at m = 1000 (no tile multiple): on every shape for K6/K7, on w_down
-    for K8/K9. Returns {kernel: max |kernel - plain|}."""
+    for K8/K9. K8/K9's activation quantization kernel (``quantize_rows``)
+    is held bit-equal to the plain quantization on each of their inputs and
+    at m = 1 on both K values. Returns {kernel: max |kernel - plain|}."""
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
         KERNELS, quant_matmul)
 
@@ -1229,6 +1250,8 @@ def phase_quant_matmul_cases() -> dict:
         for m, k, n in cases:
             wq = _random_qweight(k, n, mode, act_quant, gen)
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            if act_quant:
+                _check_quantize_rows(x)
             got = quant_matmul(x, wq, act_quant=act_quant)
             sync()
             ok, ratio, ulps, err = _check_qmm(got, x, wq, act_quant)
@@ -1241,6 +1264,10 @@ def phase_quant_matmul_cases() -> dict:
         print(f"{name}: worst err/bound per case: {', '.join(line)}; max|kernel-plain| "
               f"{worst[name]:.3e} ok", flush=True)
         torch.cuda.empty_cache()
+    for k in (4096, 14336):
+        _check_quantize_rows(torch.randn(1, k, generator=gen, device="cuda").bfloat16())
+    print("quantize_rows: bit-equal to the plain quantization on every K8/K9 case "
+          "and at m 1", flush=True)
     return worst
 
 
@@ -1520,15 +1547,32 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
 
 def _device_ms(fn, calls: int) -> dict:
     """Device time of one call of ``fn`` from torch.profiler, the mean over
-    ``calls`` calls after one warm-up: "all" kernels it launches, and the
-    "kernel" share of the quantized matmul's own (``quant_matmul_*``).
-    Device time, not a host clock: at decode the host enqueues these small
-    launches more slowly than the card runs them."""
+    ``calls`` calls after one warm-up: "all" kernels it launches, the
+    "kernel" share of the quantized matmul's own (``quant_matmul_*``: the
+    product and its split-K finalize) and the "quantize" share of K8/K9's
+    activation quantization kernel (``quantize_rows_kernel``). Device time,
+    not a host clock: at decode the host enqueues these small launches more
+    slowly than the card runs them. torch.profiler now and then records no
+    kernel in a window (once three windows of K7's lm_head call in a row):
+    an empty window is traced again, and after three the calls are timed by
+    CUDA-graph replay (``_graph_ms``: the kernels and the gaps between
+    them), with no share by kernel (None)."""
     fn()
-    prof = _profile(lambda: [fn() for _ in range(calls)], top=10_000)
+    for _ in range(3):
+        prof = _profile(lambda: [fn() for _ in range(calls)], top=10_000)
+        if prof["device_ms"] > 0:
+            break
+    else:
+        ms = _graph_ms(fn, calls=calls)
+        print(f"torch.profiler recorded no kernel in three windows: {ms:.4f} ms a call "
+              "by CUDA-graph replay, no share by kernel", flush=True)
+        return {"all": ms, "kernel": None, "quantize": None}
     own = sum(ms for name, ms in prof["top_kernels_ms"].items()
               if "quant_matmul_" in name)
-    return {"all": prof["device_ms"] / calls, "kernel": own / calls}
+    quant = sum(ms for name, ms in prof["top_kernels_ms"].items()
+                if "quantize_rows" in name)
+    return {"all": prof["device_ms"] / calls, "kernel": own / calls,
+            "quantize": quant / calls}
 
 
 def _host_us_per_call(fn, calls: int = 200) -> float:
@@ -1555,14 +1599,17 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
     timed over 4 distinct layers so each weight streams from memory, plus
     the lm_head) and at one 1024-row prefill layer, as device time summed
     over the kernels each call launches (for a8 the activation quantization
-    included; ``kernel_only_ms`` counts K6-K9's own kernels). Library: cuBLAS
-    ``x @ w`` on the dequantized bf16 weight (the same function up to
-    rounding) for weight-only; ``torch._int_mm`` plus the scale epilogue
-    for a8, where its shape rules allow, timed in the same call, with the
-    kernel's factor to it. At decode also the host's cost of one wrapper
-    call and of one library call (``_host_us_per_call`` on w_k, whose
-    kernel is the shortest). ``ptxas``: the build's registers and spills
-    per mangled kernel name; the recipe's own kernels go into the result."""
+    included; ``kernel_only_ms`` counts K6-K9's own kernels, the product and
+    its split-K finalize; ``quantize_ms`` K8/K9's ``quantize_rows``).
+    Library: cuBLAS ``x @ w`` on the dequantized bf16 weight (the same
+    function up to rounding) for weight-only; for a8 ``torch._int_mm`` after
+    the plain quantization, plus the scale epilogue, with x zero-padded to 32
+    rows at decode (``_int_mm`` takes m > 16 only), timed in the same call,
+    with the kernel's factor to it. At decode also the host's cost of one
+    wrapper call and of one library call (``_host_us_per_call`` on w_k,
+    whose kernel is the shortest). ``ptxas``: the build's registers and
+    spills per mangled kernel name; the recipe's own kernels go into the
+    result."""
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
         KERNELS, quant_matmul, quant_matmul_plain, quantize_activations)
 
@@ -1595,7 +1642,10 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
         if not act_quant:
             return x @ w_lib
         xq, xs = quantize_activations(x)
-        return (torch._int_mm(xq, w_lib).float() * xs * scales).to(x.dtype)
+        rows = xq.shape[0]
+        if rows <= 16:  # torch._int_mm refuses m <= 16: zero rows up to 32
+            xq = torch.cat([xq, xq.new_zeros(32 - rows, xq.shape[1])])
+        return (torch._int_mm(xq, w_lib)[:rows].float() * xs * scales).to(x.dtype)
 
     def lib_layer(xs):
         return [library(xs[w.shape[0]], w, q.scales)
@@ -1608,12 +1658,15 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
         if phase == "decode":
             per_layer = _device_ms(lambda: [run_layer(kernel, xs, ws) for ws in layers],
                                    calls=5)
-            per_layer = {k: v / len(layers) for k, v in per_layer.items()}
+            per_layer = {k: None if v is None else v / len(layers)
+                         for k, v in per_layer.items()}
             lm_t = _device_ms(lambda: kernel(xs[LM_HEAD_SHAPE[0]], lm), calls=5)
         else:
             per_layer = _device_ms(lambda: run_layer(kernel, xs, layers[0]), calls=3)
-            lm_t = {"all": 0.0, "kernel": 0.0}
-        ms, kernel_only = (reps * per_layer[k] + lm_t[k] for k in ("all", "kernel"))
+            lm_t = {"all": 0.0, "kernel": 0.0, "quantize": 0.0}
+        ms, kernel_only, quantize = (
+            None if per_layer[k] is None or lm_t[k] is None else reps * per_layer[k] + lm_t[k]
+            for k in ("all", "kernel", "quantize"))
         plain_ms = reps * _device_ms(lambda: run_layer(plain, xs, layers[0]),
                                      calls=1)["all"]
         if phase == "decode":
@@ -1626,8 +1679,10 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
             b, o = _shape_work(m, *LM_HEAD_SHAPE, lm)
             nbytes, ops = nbytes + b, ops + o
         bound_b, bound_o = nbytes / PEAK_BYTES_PER_S, ops / peak
-        lib_note = ("torch._int_mm + the scale epilogue" if act_quant else
-                    "cuBLAS x @ w on the dequantized bf16 weight")
+        lib_note = ("quantize_activations + torch._int_mm + the scale epilogue"
+                    + (" (x zero-padded to 32 rows: _int_mm refuses m <= 16)"
+                       if m <= 16 else "")
+                    if act_quant else "cuBLAS x @ w on the dequantized bf16 weight")
         try:
             lib_ms = reps * _device_ms(lambda: lib_layer(xs), calls=5)["all"]
             if phase == "decode":
@@ -1648,7 +1703,8 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
             host = {}
         out[phase] = {
             **host,
-            "ms": ms, "kernel_only_ms": kernel_only, "plain_ms": plain_ms,
+            "ms": ms, "kernel_only_ms": kernel_only,
+            **({"quantize_ms": quantize} if act_quant else {}), "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_note": lib_note,
             "library_factor": ms / lib_ms if lib_ms else None,
             "bound_ms": 1e3 * max(bound_b, bound_o),
@@ -1660,11 +1716,10 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
         del xs
     del layers, lm, lib_ws
     torch.cuda.empty_cache()
-    # The kernel templates of this recipe: K6/K7 quant_matmul_wonly_kernel<W4,
-    # BT>, K8/K9 quant_matmul_a8_kernel<W4, MI> (Itanium-mangled bool W4).
-    own = "quant_matmul_a8_kernel" if act_quant else "quant_matmul_wonly_kernel"
-    w4 = f"ILb{int(mode == 'int4')}E"
-    regs = {name: v for name, v in ptxas.items() if own + w4 in name}
+    # The kernel template of this recipe: quant_matmul_kernel<W4, A8, BT>
+    # (Itanium-mangled bools W4, A8).
+    own = f"quant_matmul_kernelILb{int(mode == 'int4')}ELb{int(act_quant)}E"
+    regs = {name: v for name, v in ptxas.items() if own in name}
     for name, v in regs.items():
         print(f"ptxas {KERNELS[(mode, act_quant)]}: {name}: {v}", flush=True)
     return {**out["decode"], "prefill": out["prefill"], "ptxas": regs}
@@ -2141,7 +2196,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     quant_runs = {}
     for run in QUANT_RUNS:
-        quant_runs[run] = phase_serve_quant(run, smi, profile=run == "A")
+        quant_runs[run] = phase_serve_quant(run, smi, profile=run in ("A", "B"))
         torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()

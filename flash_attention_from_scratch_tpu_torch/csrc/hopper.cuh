@@ -1,5 +1,5 @@
 // Hopper primitives shared by the port's wgmma + TMA kernels
-// (quant_matmul.cu's K6/K7, flash_forward.cu's K1, flash_forward_fori.cu's
+// (quant_matmul.cu's K6-K9, flash_forward.cu's K1, flash_forward_fori.cu's
 // K11, flash_quant.cu's K10, flash_backward.cu's K2/K3) and the paged
 // decode kernels' rings (paged_attention.cu): mbarriers, TMA and bulk
 // loads and tensor-map encoding, wgmma operand descriptors and
@@ -183,8 +183,8 @@ __device__ __forceinline__ void wgmma_wait() {
 //     warp's 16 rows), B by descriptor; TRANS_B 1 for an MN-major B.
 //   wgmma_ss_nN: A and B by descriptors, K-major unless TRANS_A / TRANS_B
 //     is 1 (an MN-major A or B, bf16 only).
-//   wgmma_ss_s8_n128 / wgmma_s8_n128: int8 (K 32), exact int32 sums; A's
-//     register fragment holds 4 consecutive k per register
+//   wgmma_ss_s8_n128 / wgmma_s8_nN (N 16, 32, 64, 128): int8 (K 32), exact
+//     int32 sums; A's register fragment holds 4 consecutive k per register
 //     (a[0]: row g, k 4q..4q+3; a[1]: row g + 8; a[2], a[3]: k + 16).
 
 template <int TRANS_B = 0>
@@ -362,6 +362,57 @@ __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t desc_a, 
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[4], uint64_t desc,

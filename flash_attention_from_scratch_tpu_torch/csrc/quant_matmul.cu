@@ -14,87 +14,71 @@
 //      nibbles with & 0xF0 / ^ 8 and removes a +8 * rowsum bias because
 //      Mosaic cannot shift int8; here the nibbles are sign-extended into int8
 //      fragments, and the int32 sum is exact either way.
+// and, as the first kernel of a K8/K9 call, the JAX package's per-row
+// activation quantization (quantize_activations, plain jnp there), which
+// quantize_rows_kernel computes in one launch.
 //
 // What bounds them on the H100: at decode (M = 16) every weight byte is read
 // once for 2 * 16 operations, far below the card's ~295 FLOP/byte balance:
 // the bound is the weight stream, bytes / 3.35 TB/s. At prefill (M = 1024)
 // it is the tensor cores, 2 M K N / 989 TFLOP/s (bf16) or / 1979 (int8).
 //
-// K6 and K7 (quant_matmul_wonly_kernel) compute the transposed product
-// out^T (N, M) = W^T (N, K) x^T (K, M) with wgmma: the weight, dequantized
-// in registers, is the A operand, x the B operand in shared memory, so the
-// tokens are the product's N dimension (BT = 16, 32, 64 or 128 tokens per
-// CTA) and one design serves decode and prefill. A CTA is one producer warp
-// and one consumer warpgroup per 128 weight columns (two m64 row tiles):
-// two warpgroups at BT 128, which share each x box and so halve the x bytes
-// read per product from L2, one below. The producer keeps a ring of raw
-// bytes in flight by TMA, as deep as the CTAs an SM holds leave room for
-// (2-D boxes with 128-byte swizzle, zero-filled past M, N and K, so ragged
-// edges need no masking in the main loop): per stage and warpgroup 64 stored weight rows x 128
-// columns, and the matching 64-wide x box (int4: two, the low half's K
-// range and the high half's). Each consumer thread reads the 4 bytes of its
-// 4 columns at 4 K rows, converts them to bf16 in registers (the fp32 magic
-// number 2^23 + u, exact for the whole int8 range and every nibble, then the
-// upper half of each fp32 word, which is the bf16 value), and feeds them to
-// wgmma as its A fragments: no converted tile goes through shared memory.
+// All four are one kernel, quant_matmul_kernel<W4, A8, BT>. It computes the
+// transposed product out^T (N, M) = W^T (N, K) x^T (K, M) with wgmma: the
+// weight, built in registers, is the A operand, x the B operand in shared
+// memory, so the tokens are the product's N dimension (BT = 16, 32, 64 or
+// 128 tokens per CTA) and one design serves decode and prefill. A CTA is one
+// producer warp and one consumer warpgroup per 128 weight columns (two m64
+// row tiles): two warpgroups at BT 128, which share each x box and so halve
+// the x bytes read per product from L2, one below. The producer keeps a ring
+// of raw bytes in flight by TMA, as deep as the CTAs an SM holds leave room
+// for (2-D boxes with 128-byte swizzle, zero-filled past M, N and K, so
+// ragged edges need no masking in the main loop): per stage and warpgroup
+// the stored weight rows of one x box row, and that x box (int4: two, the
+// low half's K range and the high half's). An x box row is 128 bytes: 64
+// bf16 (K6/K7: 64 stored rows a stage) or 128 int8 (K8/K9: 128 stored rows,
+// two 64-row weight boxes), since the 128-byte-swizzle descriptor takes
+// K-major rows 128 bytes wide, and 8-bit wgmma takes its shared operand only
+// K-major (the transpose bits are for 16-bit types): x (M, K) is K-major, W
+// (K, N) is not, so W enters as register fragments.
+//
+// K6/K7: each consumer thread reads the 4 bytes of its 4 columns at 4 K
+// rows, converts them to bf16 in registers (the fp32 magic number 2^23 + u,
+// exact for the whole int8 range and every nibble, then the upper half of
+// each fp32 word, which is the bf16 value), and feeds them to bf16 wgmma
+// (m64nBTk16) as its A fragments, with fp32 sums.
+// K8/K9: the s8 A fragment holds 4 consecutive K of one row in a register,
+// so a thread reads its 4 columns at 8 K rows (4 consecutive, twice) and
+// transposes each 4 x 4 block of bytes with __byte_perm (int4: the nibbles
+// of each half sign-extended first); no conversion, s8 wgmma (m64nBTk32) at
+// the int8 rate, exact int32 sums. Lanes q and q + 2 of a quad read rows 8
+// apart, which the swizzle puts on the same banks: lanes q >= 2 read the
+// rows of each 4 in another order and undo it in the transpose's selectors,
+// so each load is free of bank conflicts.
 // The 4 columns of a thread are rows g and g + 8 of both row tiles, so the
 // epilogue writes each token's 4 columns as 8 contiguous bytes into a
-// staging tile, and the global stores are 16-byte and coalesced. The
-// wrapper picks BT and a split of the K walk (ops/quant_matmul.py::plan) so
-// that the CTAs fill the 132 SMs in whole waves; a split writes fp32
-// partial sums and quant_matmul_finalize adds them in a fixed order, so
-// results are reproducible run to run.
+// staging tile, and the global stores are 16-byte and coalesced; K8/K9 scale
+// (float(acc) * xs[tok]) * s[col] in that order, as the plain version and
+// the JAX kernel do. The wrapper picks BT and a split of the K walk
+// (ops/quant_matmul.py::plan) so that the CTAs fill the 132 SMs in whole
+// waves; a split writes partial sums (fp32, K8/K9 int32) and
+// quant_matmul_finalize adds them in a fixed order, so results are
+// reproducible run to run (K8/K9's are exact, the plain version's bits).
 //
-// K8 and K9 (quant_matmul_a8_kernel) stay on mma.sync m16n8k16 s8: a CTA
-// computes a BM x 64 output tile (BM = 16 for M <= 16, else 64) with 4
-// warps of 16 columns each, walking K in tiles of 64 rows through a 4-stage
-// cp.async ring; each stage's raw weight tile is transposed to (n, k) int8
-// with a 4x4 byte transpose in registers; split-K sums stay exact int32.
-// Both need N % 16 == 0 and K % 32 == 0; the wrapper checks.
+// quantize_rows_kernel: one CTA a row, read once into registers (rows up
+// to 16384 values; a longer row's rest twice): the row's absmax in fp32,
+// the scale absmax * fp32(1/127) floored at 1e-12, then rint(x / scale) (a
+// true IEEE division, half to even) clamped to +-127: the bytes and scales
+// of ops/quant_matmul.py::quantize_activations, bit for bit. It stays a
+// kernel of its own: inside the product every CTA of a row's split walk
+// would re-read the whole row.
 
 #include <mutex>
+#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// K8, K9: int8 activations (mma.sync s8)
-
-constexpr int NTHREADS = 128;
-constexpr int BN = 64;
-constexpr int BK = 64;  // dequantized K rows per stage
-constexpr int STAGES = 4;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(smem)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Four packed bytes -> their low (hi = false) or high nibbles as four
 // sign-extended int8 bytes: (v ^ 8) - 8 per byte, -8 included.
@@ -103,165 +87,82 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
   return __vsub4(v ^ 0x08080808u, 0x08080808u);
 }
 
-template <bool W4, int MI>
-struct Tile {
-  static constexpr int BM = 16 * MI;
-  // Shared-memory row strides in bytes, padded so ldmatrix rows of one
-  // 8x8 matrix fall in distinct banks.
-  static constexpr int XROW = 64 + 16;
-  static constexpr int WRAW_ROWS = W4 ? BK / 2 : BK;  // stored rows per stage
-  static constexpr int WRAW = WRAW_ROWS * BN;
-  static constexpr int CROW = BK + 16;  // transposed (n, k) tile
-  static constexpr int CONV = BN * CROW;
-  static constexpr int SMEM = STAGES * (BM * XROW + WRAW) + CONV;
-};
+// ---------------------------------------------------------------------------
+// Activation quantization (the first kernel of a K8/K9 call)
 
-template <bool W4, int MI>
-__global__ void __launch_bounds__(NTHREADS)
-quant_matmul_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
-                       const int8_t* __restrict__ w, const float* __restrict__ scales,
-                       bf16* __restrict__ out, int* __restrict__ ws, int M, int N, int K,
-                       int k_tiles_per_split) {
-  using T = Tile<W4, MI>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* xs_s = smem;
-  uint8_t* raw_s = smem + STAGES * T::BM * T::XROW;
-  uint8_t* conv_s = raw_s + STAGES * T::WRAW;
+constexpr int QR_THREADS = 256;
+constexpr int QR_HELD = 8;  // 16-byte chunks a thread keeps from the first read
+// fp32(1 / 127): the scale is absmax times it, as XLA compiles absmax / 127
+// under jit and ops/quant.py::div_const copies.
+constexpr float INV_QMAX = 1.0f / 127.0f;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * T::BM;
-  const int k_rows = W4 ? K / 2 : K;  // stored weight rows
-  const int k_tiles = (k_rows + T::WRAW_ROWS - 1) / T::WRAW_ROWS;
-  const int t0 = blockIdx.z * k_tiles_per_split;
-  const int t1 = min(k_tiles, t0 + k_tiles_per_split);
-  const int nt = max(t1 - t0, 0);
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
-  auto load_stage = [&](int stage, int t) {
-    // x tile: BM rows x 64 K columns (int4: 32 from each half of K).
-    uint8_t* xd = xs_s + stage * T::BM * T::XROW;
-    for (int c = tid; c < T::BM * 4; c += NTHREADS) {
-      const int r = c / 4, ch = c % 4;
-      int gcol;
-      bool valid;
-      if constexpr (W4) {
-        const int half = ch / 2, within = (ch % 2) * 16;
-        const int p = t * T::WRAW_ROWS + within;
-        gcol = half * (K / 2) + p;
-        valid = p < K / 2;
-      } else {
-        gcol = t * BK + ch * 16;
-        valid = gcol < K;
-      }
-      valid = valid && row0 + r < M;
-      const int8_t* src = valid ? x + (long long)(row0 + r) * K + gcol : x;
-      cp_async16(xd + r * T::XROW + ch * 16, src, valid);
-    }
-    // Raw weight tile: WRAW_ROWS stored rows x 64 columns.
-    uint8_t* wd = raw_s + stage * T::WRAW;
-    for (int c = tid; c < T::WRAW_ROWS * 4; c += NTHREADS) {
-      const int r = c >> 2, ch = c & 3;
-      const int grow = t * T::WRAW_ROWS + r, gcol = col0 + ch * 16;
-      const bool valid = grow < k_rows && gcol < N;
-      const int8_t* src = valid ? w + (long long)grow * N + gcol : w;
-      cp_async16(wd + r * BN + ch * 16, src, valid);
-    }
-  };
-
-  // Raw stage -> (n, k) int8 in 4x4 byte blocks: 16 x 16 blocks.
-  auto convert = [&](int stage) {
-    const uint32_t* raw = reinterpret_cast<const uint32_t*>(raw_s + stage * T::WRAW);
-    for (int blk = tid; blk < (BK / 4) * (BN / 4); blk += NTHREADS) {
-      const int bk = blk / (BN / 4), bn = blk % (BN / 4);
-      uint32_t wv[4];
+__device__ __forceinline__ float absmax8(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float m = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (W4) {
-          const bool hi = bk >= BK / 8;
-          const int prow = 4 * (hi ? bk - BK / 8 : bk) + i;
-          wv[i] = nibbles(raw[prow * (BN / 4) + bn], hi);
-        } else {
-          wv[i] = raw[(4 * bk + i) * (BN / 4) + bn];
-        }
-      }
-      const uint32_t t01l = __byte_perm(wv[0], wv[1], 0x5140);
-      const uint32_t t23l = __byte_perm(wv[2], wv[3], 0x5140);
-      const uint32_t t01h = __byte_perm(wv[0], wv[1], 0x7362);
-      const uint32_t t23h = __byte_perm(wv[2], wv[3], 0x7362);
-      const uint32_t o[4] = {__byte_perm(t01l, t23l, 0x5410), __byte_perm(t01l, t23l, 0x7632),
-                             __byte_perm(t01h, t23h, 0x5410), __byte_perm(t01h, t23h, 0x7632)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(conv_s + (4 * bn + j) * T::CROW + 4 * bk) = o[j];
-    }
-  };
-
-  int acc[MI][2][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nt) load_stage(s, t0 + s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nt; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage i landed; every warp is done with stage i - 1
-    const int nxt = i + STAGES - 1;
-    if (nxt < nt) load_stage(nxt % STAGES, t0 + nxt);
-    cp_async_commit();
-    convert(i % STAGES);
-    __syncthreads();
-    const uint8_t* xt = xs_s + (i % STAGES) * T::BM * T::XROW;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t b[4];
-      const int j = lane >> 3;
-      ldmatrix_x4(b, conv_s + (warp * 16 + (j >> 1) * 8 + (lane & 7)) * T::CROW +
-                         kk * 32 + (j & 1) * 16);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xt + (mi * 16 + (lane & 15)) * T::XROW + kk * 32 + (lane >> 4) * 16);
-        mma_s8(acc[mi][0], a, b[0], b[1]);
-        mma_s8(acc[mi][1], a, b[2], b[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: c0, c1 at (row g, cols 2q, 2q+1); c2, c3 at row g + 8.
-  const bool split = gridDim.z > 1;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const int col = col0 + warp * 16 + ni * 8 + (lane & 3) * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + mi * 16 + (lane >> 2) + h * 8;
-        if (row >= M) continue;
-        const long long at = (long long)row * N + col;
-        const int c0 = acc[mi][ni][2 * h], c1 = acc[mi][ni][2 * h + 1];
-        if (split) {
-          int* p = ws + (long long)blockIdx.z * M * N + at;
-          p[0] = c0;
-          p[1] = c1;
-        } else {
-          const float v0 = static_cast<float>(c0) * xs[row] * scales[col];
-          const float v1 = static_cast<float>(c1) * xs[row] * scales[col + 1];
-          *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
+  for (int i = 0; i < 4; ++i) m = fmaxf(m, fmaxf(fabsf(bf16_lo(w[i])), fabsf(bf16_hi(w[i]))));
+  return m;
 }
 
+// rint(v / scale) clamped to +-127, as int8 bytes: 8 bf16 in, 8 bytes out.
+__device__ __forceinline__ uint2 quantize8(uint4 v, float scale) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float f = (i & 1) ? bf16_hi(w[i >> 1]) : bf16_lo(w[i >> 1]);
+    const float r = fminf(fmaxf(rintf(__fdiv_rn(f, scale)), -127.f), 127.f);
+    out[i >> 2] |= (static_cast<uint32_t>(__float2int_rn(r)) & 0xFFu) << (8 * (i & 3));
+  }
+  return make_uint2(out[0], out[1]);
+}
+
+// x (M, K) bf16 -> xq (M, K) int8 and xs (M,) fp32, one CTA a row. A row of
+// up to QR_THREADS * QR_HELD * 8 values (16384) is read once and kept in
+// registers; the rest of a longer row is read again. Finite inputs; K % 8
+// == 0, rows 16-byte aligned.
+__global__ void __launch_bounds__(QR_THREADS)
+quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ xs, int K) {
+  const long long base = static_cast<long long>(blockIdx.x) * K;
+  const uint4* src = reinterpret_cast<const uint4*>(x + base);
+  uint2* dst = reinterpret_cast<uint2*>(xq + base);
+  const int chunks = K / 8, tid = threadIdx.x;
+  uint4 held[QR_HELD];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < QR_HELD; ++i) {
+    const int c = tid + i * QR_THREADS;
+    held[i] = c < chunks ? src[c] : make_uint4(0u, 0u, 0u, 0u);
+    amax = fmaxf(amax, absmax8(held[i]));
+  }
+  for (int c = tid + QR_HELD * QR_THREADS; c < chunks; c += QR_THREADS)
+    amax = fmaxf(amax, absmax8(src[c]));
+#pragma unroll
+  for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+  __shared__ float part[QR_THREADS / 32];
+  if ((tid & 31) == 0) part[tid >> 5] = amax;
+  __syncthreads();
+  amax = part[0];
+#pragma unroll
+  for (int i = 1; i < QR_THREADS / 32; ++i) amax = fmaxf(amax, part[i]);
+  const float scale = fmaxf(amax * INV_QMAX, 1e-12f);
+  if (tid == 0) xs[blockIdx.x] = scale;
+#pragma unroll
+  for (int i = 0; i < QR_HELD; ++i) {
+    const int c = tid + i * QR_THREADS;
+    if (c < chunks) dst[c] = quantize8(held[i], scale);
+  }
+  for (int c = tid + QR_HELD * QR_THREADS; c < chunks; c += QR_THREADS)
+    dst[c] = quantize8(src[c], scale);
+}
+
+// ---------------------------------------------------------------------------
 // Split-K: sum the partials of every split in order, then scale and cast.
+
 template <bool A8>
 __global__ void quant_matmul_finalize(const void* __restrict__ ws, const float* __restrict__ xs,
                                       const float* __restrict__ scales, bf16* __restrict__ out,
@@ -299,38 +200,13 @@ int finalize(bool a8, const void* ws, const void* xs, const void* scales, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool W4, int MI>
-int launch_a8(const void* x, const void* xs, const void* w, const void* scales, void* out,
-              void* ws, int M, int N, int K, int splits, cudaStream_t stream) {
-  using T = Tile<W4, MI>;
-  auto kernel = quant_matmul_a8_kernel<W4, MI>;
-  static bool attr_set = false;  // once per instantiation
-  cudaError_t err;
-  if (!attr_set) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
-  const int k_rows = W4 ? K / 2 : K;
-  const int k_tiles = (k_rows + T::WRAW_ROWS - 1) / T::WRAW_ROWS;
-  const int per = (k_tiles + splits - 1) / splits;
-  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM, splits);
-  kernel<<<grid, NTHREADS, T::SMEM, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w), static_cast<const float*>(scales),
-      static_cast<bf16*>(out), static_cast<int*>(ws), M, N, K, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return finalize(true, ws, xs, scales, out, M, N, splits, stream);
-}
-
 // ---------------------------------------------------------------------------
-// K6, K7: bf16 activations (wgmma, the weight dequantized in registers)
+// K6-K9: wgmma with the weight as register A fragments
 
 constexpr int WBN = 128;                 // weight columns per CTA
-constexpr int WROWS = 64;                // stored weight rows per stage
+constexpr int WROWS = 64;                // stored weight rows per TMA box
 constexpr int WTILE = WROWS * WBN;       // bytes of one raw weight box
-constexpr int XK = 64;                   // K columns per x box (128 bytes)
+constexpr int XROW = 128;                // bytes of an x box row (the swizzle's width)
 constexpr int MAX_STAGES = 8;
 constexpr int SM_SMEM = 233472;          // shared memory of an SM (228 KB)
 constexpr int SMEM_LIMIT = 232448;       // shared memory a block may use
@@ -348,11 +224,19 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BT / 2], const uint32_t (&
   else wgmma_n128(d, a, desc);
 }
 
+template <int BT>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BT / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (BT == 16) wgmma_s8_n16(d, a, desc, 1);
+  else if constexpr (BT == 32) wgmma_s8_n32(d, a, desc, 1);
+  else if constexpr (BT == 64) wgmma_s8_n64(d, a, desc, 1);
+  else wgmma_s8_n128(d, a, desc, 1);
+}
 
-// A fragments of both row tiles for one 16-wide K step. wv: the 4 bytes of
-// this thread's columns c..c+3 at K rows 2q, 2q+1, 2q+8, 2q+9 of the step
-// (int4: the low nibbles for half 0, the high ones for half 1). Row tile t
-// takes columns c+2t (fragment row g) and c+2t+1 (row g+8).
+// bf16 A fragments of both row tiles for one 16-wide K step. wv: the 4
+// bytes of this thread's columns c..c+3 at K rows 2q, 2q+1, 2q+8, 2q+9 of
+// the step (int4: the low nibbles for half 0, the high ones for half 1).
+// Row tile t takes columns c+2t (fragment row g) and c+2t+1 (row g+8).
 template <bool W4>
 __device__ __forceinline__ void dequant_fragments(const uint32_t (&wv)[4], int half,
                                                   uint32_t (&a)[2][4]) {
@@ -388,7 +272,33 @@ __device__ __forceinline__ void dequant_fragments(const uint32_t (&wv)[4], int h
   }
 }
 
-template <bool W4, int BT>
+// s8 A fragments of both row tiles for one 32-wide K step. wv: the 4 bytes
+// of this thread's columns c..c+3 at K rows 4q..4q+3, then 16+4q..16+4q+3
+// of the step, in the order the lane read them: rows (2, 3, 0, 1) where
+// the lane swaps (sel_a, sel_b put them back); int4: the low nibbles for
+// half 0, the high ones for half 1. A 4 x 4 byte transpose turns the rows
+// into columns: register 2p of row tile t is column c+2t (fragment row g),
+// 2p+1 column c+2t+1 (row g+8).
+template <bool W4>
+__device__ __forceinline__ void s8_fragments(const uint32_t (&wv)[8], int half, uint32_t sel_a,
+                                             uint32_t sel_b, uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {  // K rows 4q.., then 16 + 4q..
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = W4 ? nibbles(wv[4 * p + i], half) : wv[4 * p + i];
+    // Bytes of the first two rows read, then of the last two, for columns
+    // 0, 1 (lo) and 2, 3 (hi); then all four rows into one word a column.
+    const uint32_t l0 = __byte_perm(w[0], w[1], 0x5140), l1 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t h0 = __byte_perm(w[0], w[1], 0x7362), h1 = __byte_perm(w[2], w[3], 0x7362);
+    a[0][2 * p] = __byte_perm(l0, l1, sel_a);
+    a[0][2 * p + 1] = __byte_perm(l0, l1, sel_b);
+    a[1][2 * p] = __byte_perm(h0, h1, sel_a);
+    a[1][2 * p + 1] = __byte_perm(h0, h1, sel_b);
+  }
+}
+
+template <bool W4, bool A8, int BT>
 struct WTile {
   // Consumer warpgroups, each 128 weight columns: two at BT 128, sharing
   // each x box (half the x bytes per product), else one.
@@ -397,9 +307,12 @@ struct WTile {
   static constexpr int THREADS = NWG * 128 + 32;  // + the producer warp
   // CTAs an SM holds (ops/quant_matmul.py::plan splits the K walk for it).
   static constexpr int PER_SM = NWG == 2 ? 1 : 2;
+  // Stored weight rows per stage: the K values of one x box row.
+  static constexpr int ROWS = A8 ? XROW : XROW / 2;
+  static constexpr int WBOX = ROWS * WBN;     // weight bytes per stage and warpgroup
   static constexpr int NX = W4 ? 2 : 1;       // x boxes per stage
-  static constexpr int XBOX = BT * XK * 2;    // bytes of one x box
-  static constexpr int STAGE = NWG * WTILE + NX * XBOX;
+  static constexpr int XBOX = BT * XROW;      // bytes of one x box
+  static constexpr int STAGE = NWG * WBOX + NX * XBOX;
   static constexpr int OROW = COLS + 8;       // staging row, bf16 elements
   // The ring is as deep as PER_SM CTAs on one SM allow (each less its
   // reserved 1 KB, its barriers and the 1 KB alignment slack), at most
@@ -410,16 +323,17 @@ struct WTile {
   static constexpr int RING = cmax(STAGES * STAGE, BT * OROW * 2);
   static constexpr int SMEM = RING + 1024;  // dynamic: + the alignment slack
   static_assert(STAGES >= 2 && RING <= BUDGET, "the ring does not fit PER_SM CTAs an SM");
+  static_assert(ROWS % WROWS == 0, "a stage is whole weight boxes");
 };
 
-template <bool W4, int BT>
-__global__ void __launch_bounds__(WTile<W4, BT>::THREADS, WTile<W4, BT>::PER_SM)
-quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
-                          const __grid_constant__ CUtensorMap tm_x,
-                          const float* __restrict__ scales, bf16* __restrict__ out,
-                          float* __restrict__ ws, int M, int N, int K,
-                          int k_tiles_per_split) {
-  using T = WTile<W4, BT>;
+template <bool W4, bool A8, int BT>
+__global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
+quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
+                    const float* __restrict__ scales, bf16* __restrict__ out,
+                    void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
+  using T = WTile<W4, A8, BT>;
+  using Acc = std::conditional_t<A8, int, float>;
   constexpr int stages = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
@@ -429,7 +343,7 @@ quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tok0 = blockIdx.x * BT, col0 = blockIdx.y * T::COLS;
   const int k_rows = W4 ? K / 2 : K;  // stored weight rows
-  const int k_tiles = (k_rows + WROWS - 1) / WROWS;
+  const int k_tiles = (k_rows + T::ROWS - 1) / T::ROWS;
   const int t0 = blockIdx.z * k_tiles_per_split;
   const int nt = max(min(k_tiles, t0 + k_tiles_per_split) - t0, 0);
 
@@ -448,13 +362,15 @@ quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
         const int s = i % stages;
         if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
         uint8_t* st = ring + s * T::STAGE;
-        const int r = (t0 + i) * WROWS;
+        const int r = (t0 + i) * T::ROWS;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
         for (int wg = 0; wg < T::NWG; ++wg)
-          tma_load_2d(st + wg * WTILE, &tm_w, col0 + wg * WBN, r, &full[s]);
-        uint8_t* xs = st + T::NWG * WTILE;
-        tma_load_2d(xs, &tm_x, r, tok0, &full[s]);
-        if constexpr (W4) tma_load_2d(xs + T::XBOX, &tm_x, K / 2 + r, tok0, &full[s]);
+          for (int b = 0; b < T::ROWS / WROWS; ++b)  // boxes past K read as zeros
+            tma_load_2d(st + wg * T::WBOX + b * WTILE, &tm_w, col0 + wg * WBN, r + b * WROWS,
+                        &full[s]);
+        uint8_t* xb = st + T::NWG * T::WBOX;
+        tma_load_2d(xb, &tm_x, r, tok0, &full[s]);
+        if constexpr (W4) tma_load_2d(xb + T::XBOX, &tm_x, K / 2 + r, tok0, &full[s]);
       }
     }
     return;
@@ -466,37 +382,74 @@ quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
   const int g = lane >> 2, q = lane & 3;
   const int wg = warp >> 2;
   const int c = wg * WBN + (warp & 3) * 32 + g * 4;  // of the CTA's COLS
-  float acc[2][BT / 2];
+  const int cw = c - wg * WBN;  // the column within this warpgroup's box
+  Acc acc[2][BT / 2];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int i = 0; i < BT / 2; ++i) acc[t][i] = 0.f;
+    for (int i = 0; i < BT / 2; ++i) acc[t][i] = 0;
+
+  // K8/K9: the box offsets of rows 4q + (j ^ swap), j < 4, at this thread's
+  // columns. The box's 16-byte chunks are swizzled by the row's low 3 bits
+  // (rows 16 apart share them), and a lane's 4 columns are half a 32-byte
+  // chunk pair, which bits 1-2 of the row pick: lanes q >= 2 read rows
+  // (2, 3, 0, 1) where the others read (0, 1, 2, 3), so the four lanes of a
+  // quad meet four distinct pairs, each bank once; sel_a and sel_b take the
+  // rows back in order.
+  const int swap = A8 && q >= 2 ? 2 : 0;
+  const uint32_t sel_a = swap ? 0x1054u : 0x5410u, sel_b = swap ? 0x3276u : 0x7632u;
+  int off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 4 * q + (j ^ swap);
+    off[j] = r * WBN + ((((cw >> 4) ^ (r & 7)) << 4) | (cw & 15));
+  }
 
   for (int i = 0; i < nt; ++i) {
     const int s = i % stages;
     mbar_wait(&full[s], (i / stages) & 1);
-    const uint8_t* wt = ring + s * T::STAGE + wg * WTILE;
-    const unsigned xt = smem_addr(ring + s * T::STAGE + T::NWG * WTILE);
-    const int cw = c - wg * WBN;  // the column within this warpgroup's box
+    const uint8_t* wt = ring + s * T::STAGE + wg * T::WBOX;
+    const unsigned xt = smem_addr(ring + s * T::STAGE + T::NWG * T::WBOX);
+    if constexpr (A8) {
 #pragma unroll
-    for (int ks = 0; ks < WROWS / 16; ++ks) {
-      uint32_t wv[4];
+      for (int ks = 0; ks < T::ROWS / 32; ++ks) {
+        uint32_t wv[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ks * 16 + 2 * q + (j & 1) + (j >> 1) * 8;
-        // The box's 16-byte chunks are swizzled by the row's low 3 bits.
-        wv[j] = *reinterpret_cast<const uint32_t*>(
-            wt + r * WBN + ((((cw >> 4) ^ (r & 7)) << 4) | (cw & 15)));
+        for (int j = 0; j < 8; ++j)
+          wv[j] = *reinterpret_cast<const uint32_t*>(wt + (ks * 32 + (j >> 2) * 16) * WBN +
+                                                     off[j & 3]);
+#pragma unroll
+        for (int h = 0; h < T::NX; ++h) {
+          uint32_t a[2][4];
+          s8_fragments<W4>(wv, h, sel_a, sel_b, a);
+          const uint64_t desc = sw128_desc(xt + h * T::XBOX + ks * 32);
+          wgmma_fence();
+          wgmma_tile<BT>(acc[0], a[0], desc);
+          wgmma_tile<BT>(acc[1], a[1], desc);
+          wgmma_commit();
+        }
       }
+    } else {
 #pragma unroll
-      for (int h = 0; h < T::NX; ++h) {
-        uint32_t a[2][4];
-        dequant_fragments<W4>(wv, h, a);
-        const uint64_t desc = sw128_desc(xt + h * T::XBOX + ks * 32);
-        wgmma_fence();
-        wgmma_tile<BT>(acc[0], a[0], desc);
-        wgmma_tile<BT>(acc[1], a[1], desc);
-        wgmma_commit();
+      for (int ks = 0; ks < T::ROWS / 16; ++ks) {
+        uint32_t wv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ks * 16 + 2 * q + (j & 1) + (j >> 1) * 8;
+          // The box's 16-byte chunks are swizzled by the row's low 3 bits.
+          wv[j] = *reinterpret_cast<const uint32_t*>(
+              wt + r * WBN + ((((cw >> 4) ^ (r & 7)) << 4) | (cw & 15)));
+        }
+#pragma unroll
+        for (int h = 0; h < T::NX; ++h) {
+          uint32_t a[2][4];
+          dequant_fragments<W4>(wv, h, a);
+          const uint64_t desc = sw128_desc(xt + h * T::XBOX + ks * 32);
+          wgmma_fence();
+          wgmma_tile<BT>(acc[0], a[0], desc);
+          wgmma_tile<BT>(acc[1], a[1], desc);
+          wgmma_commit();
+        }
       }
     }
     wgmma_wait<0>();
@@ -505,17 +458,23 @@ quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
 
   const int col = col0 + c;  // N % 16 == 0: c..c+3 are all in or all out
   const bool col_ok = col < N;
-  if (gridDim.z > 1) {  // fp32 partial sums, unscaled
-    float* p = ws + (long long)blockIdx.z * M * N;
+  if (gridDim.z > 1) {  // partial sums, unscaled
+    Acc* p = static_cast<Acc*>(ws) + (long long)blockIdx.z * M * N;
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int tok = tok0 + 8 * j + 2 * q + e;
-        if (col_ok && tok < M)
-          *reinterpret_cast<float4*>(p + (long long)tok * N + col) =
-              make_float4(acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
-                          acc[1][4 * j + 2 + e]);
+        if (col_ok && tok < M) {
+          Acc* dst = p + (long long)tok * N + col;
+          if constexpr (A8)
+            *reinterpret_cast<int4*>(dst) = make_int4(acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                                                      acc[1][4 * j + e], acc[1][4 * j + 2 + e]);
+          else
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
+                acc[1][4 * j + 2 + e]);
+        }
       }
     return;
   }
@@ -529,14 +488,22 @@ quant_matmul_wonly_kernel(const __grid_constant__ CUtensorMap tm_w,
   for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const __nv_bfloat162 lo =
-          __floats2bfloat162_rn(acc[0][4 * j + e] * sc.x, acc[0][4 * j + 2 + e] * sc.y);
-      const __nv_bfloat162 hi =
-          __floats2bfloat162_rn(acc[1][4 * j + e] * sc.z, acc[1][4 * j + 2 + e] * sc.w);
-      uint2 v;
-      v.x = *reinterpret_cast<const uint32_t*>(&lo);
-      v.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(stage_out + (8 * j + 2 * q + e) * T::OROW + c) = v;
+      const int tl = 8 * j + 2 * q + e;
+      float v[4] = {static_cast<float>(acc[0][4 * j + e]),
+                    static_cast<float>(acc[0][4 * j + 2 + e]),
+                    static_cast<float>(acc[1][4 * j + e]),
+                    static_cast<float>(acc[1][4 * j + 2 + e])};
+      if constexpr (A8) {  // (acc * xs[tok]) * s[col], in that order
+        const float xv = tok0 + tl < M ? xs[tok0 + tl] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] *= xv;
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0] * sc.x, v[1] * sc.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2] * sc.z, v[3] * sc.w);
+      uint2 pk;
+      pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+      pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(stage_out + tl * T::OROW + c) = pk;
     }
   asm volatile("bar.sync 1, %0;\n" ::"n"(T::NWG * 128) : "memory");
   for (int id = tid; id < BT * (T::COLS / 8); id += T::NWG * 128) {
@@ -576,11 +543,11 @@ bool weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
   return true;
 }
 
-template <bool W4, int BT>
-int launch_wonly(const void* x, const void* w, const void* scales, void* out, void* ws, int M,
-                 int N, int K, int splits, cudaStream_t stream) {
-  using T = WTile<W4, BT>;
-  auto kernel = quant_matmul_wonly_kernel<W4, BT>;
+template <bool W4, bool A8, int BT>
+int launch(const void* x, const void* xs, const void* w, const void* scales, void* out, void* ws,
+           int M, int N, int K, int splits, cudaStream_t stream) {
+  using T = WTile<W4, A8, BT>;
+  auto kernel = quant_matmul_kernel<W4, A8, BT>;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
     const cudaError_t err =
@@ -590,31 +557,35 @@ int launch_wonly(const void* x, const void* w, const void* scales, void* out, vo
   }
   const int k_rows = W4 ? K / 2 : K;
   CUtensorMap tm_w, tm_x;
-  if (!weight_map(&tm_w, w, k_rows, N) ||
-      !encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BT, XK))
+  const bool x_ok =
+      A8 ? encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, M, K, BT, XROW)
+         : encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BT, XROW / 2);
+  if (!weight_map(&tm_w, w, k_rows, N) || !x_ok)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int k_tiles = (k_rows + WROWS - 1) / WROWS;
+  const int k_tiles = (k_rows + T::ROWS - 1) / T::ROWS;
   const int per = (k_tiles + splits - 1) / splits;
   dim3 grid((M + BT - 1) / BT, (N + T::COLS - 1) / T::COLS, splits);
-  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tm_w, tm_x, static_cast<const float*>(scales),
-                                                static_cast<bf16*>(out),
-                                                static_cast<float*>(ws), M, N, K, per);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
+      tm_w, tm_x, static_cast<const float*>(xs), static_cast<const float*>(scales),
+      static_cast<bf16*>(out), ws, M, N, K, per);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return finalize(false, ws, nullptr, scales, out, M, N, splits, stream);
+  return finalize(A8, ws, xs, scales, out, M, N, splits, stream);
 }
 
-template <bool W4>
-int launch_wonly_bt(int bt, const void* x, const void* w, const void* scales, void* out,
-                    void* ws, int M, int N, int K, int splits, cudaStream_t s) {
+template <bool W4, bool A8>
+int launch_bt(int bt, const void* x, const void* xs, const void* w, const void* scales,
+              void* out, void* ws, int M, int N, int K, int splits, cudaStream_t s) {
   switch (bt) {
-    case 16: return launch_wonly<W4, 16>(x, w, scales, out, ws, M, N, K, splits, s);
-    case 32: return launch_wonly<W4, 32>(x, w, scales, out, ws, M, N, K, splits, s);
-    case 64: return launch_wonly<W4, 64>(x, w, scales, out, ws, M, N, K, splits, s);
-    case 128: return launch_wonly<W4, 128>(x, w, scales, out, ws, M, N, K, splits, s);
+    case 16: return launch<W4, A8, 16>(x, xs, w, scales, out, ws, M, N, K, splits, s);
+    case 32: return launch<W4, A8, 32>(x, xs, w, scales, out, ws, M, N, K, splits, s);
+    case 64: return launch<W4, A8, 64>(x, xs, w, scales, out, ws, M, N, K, splits, s);
+    case 128: return launch<W4, A8, 128>(x, xs, w, scales, out, ws, M, N, K, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -624,41 +595,37 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K6/K7: x (M, K) bf16 contiguous; w (K, N) int8, or (K/2, N) packed int4
-// (w4 = 1); scales (N,) fp32; out (M, N) bf16; ws (splits, M, N) fp32 when
-// splits > 1. bt: tokens per CTA (16, 32, 64, 128); splits: ranges of the
-// K walk. Pointers 16-byte aligned, N % 16 == 0, K % 32 == 0. Returns
-// cudaGetLastError().
-int fa_quant_matmul_wonly(const void* x, const void* w, const void* scales, void* out,
-                          void* ws, int M, int N, int K, int w4, int bt, int splits,
-                          void* stream) {
+// K6-K9: x (M, K) contiguous, bf16 (a8 = 0) or int8 (a8 = 1, with xs (M,)
+// fp32 per-row activation scales; else xs is unused); w (K, N) int8, or
+// (K/2, N) packed int4 (w4 = 1); scales (N,) fp32; out (M, N) bf16; ws
+// (splits, M, N) fp32 (a8: int32) when splits > 1. bt: tokens per CTA (16,
+// 32, 64, 128); splits: ranges of the K walk. x, w, scales, out and ws
+// 16-byte aligned, N % 16 == 0, K % 32 == 0. Returns cudaGetLastError().
+int fa_quant_matmul(const void* x, const void* xs, const void* w, const void* scales, void* out,
+                    void* ws, int M, int N, int K, int w4, int a8, int bt, int splits,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = !(reinterpret_cast<uintptr_t>(x) % 16 ||
-                         reinterpret_cast<uintptr_t>(w) % 16 ||
-                         reinterpret_cast<uintptr_t>(scales) % 16 ||
-                         reinterpret_cast<uintptr_t>(out) % 16 ||
-                         reinterpret_cast<uintptr_t>(ws) % 16);
-  if (N % 16 || K % 32 || splits < 1 || !aligned)
+  const bool aligned =
+      aligned16(x) && aligned16(w) && aligned16(scales) && aligned16(out) && aligned16(ws);
+  if (N % 16 || K % 32 || splits < 1 || !aligned || (a8 && !xs))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (w4) return launch_wonly_bt<true>(bt, x, w, scales, out, ws, M, N, K, splits, s);
-  return launch_wonly_bt<false>(bt, x, w, scales, out, ws, M, N, K, splits, s);
+  if (a8) {
+    if (w4) return launch_bt<true, true>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
+    return launch_bt<false, true>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
+  }
+  if (w4) return launch_bt<true, false>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
+  return launch_bt<false, false>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
 }
 
-// K8/K9: x (M, K) int8 contiguous; xs (M,) fp32 per-row activation scales;
-// w (K, N) int8, or (K/2, N) packed int4 (w4 = 1); scales (N,) fp32; out
-// (M, N) bf16; ws (splits, M, N) int32 when splits > 1. mi: 1 (M <= 16) or
-// 4 (64-row tiles). N % 16 == 0, K % 32 == 0. Returns cudaGetLastError().
-int fa_quant_matmul_a8(const void* x, const void* xs, const void* w, const void* scales,
-                       void* out, void* ws, int M, int N, int K, int w4, int mi, int splits,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N % 16 || K % 32 || splits < 1 || (mi != 1 && mi != 4))
+// The activation quantization of K8/K9: x (M, K) bf16 contiguous -> xq (M,
+// K) int8, xs (M,) fp32. x 16-byte aligned, xq 8-byte aligned, K % 8 == 0.
+// Returns cudaGetLastError().
+int fa_quantize_rows(const void* x, void* xq, void* xs, int M, int K, void* stream) {
+  if (K % 8 || M < 1 || !aligned16(x) || reinterpret_cast<uintptr_t>(xq) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (w4)
-    return mi == 1 ? launch_a8<true, 1>(x, xs, w, scales, out, ws, M, N, K, splits, s)
-                   : launch_a8<true, 4>(x, xs, w, scales, out, ws, M, N, K, splits, s);
-  return mi == 1 ? launch_a8<false, 1>(x, xs, w, scales, out, ws, M, N, K, splits, s)
-                 : launch_a8<false, 4>(x, xs, w, scales, out, ws, M, N, K, splits, s);
+  quantize_rows_kernel<<<M, QR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

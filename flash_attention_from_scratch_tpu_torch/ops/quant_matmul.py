@@ -14,13 +14,15 @@ Four TPU kernels compute the products, and each has a Hopper kernel in
 - K9 ``_qmm_kernel_int4_a8``: W4A8, the same with int4 W.
 
 The weight-only kernels accumulate ``x @ W`` in fp32 and scale each column
-at the end; on the card K6 and K7 are one wgmma kernel that dequantizes the
-weight in registers, launched as :func:`plan` says. The a8 recipe quantizes
-activations per row in plain PyTorch (:func:`quantize_activations`) before
-the kernel, as the JAX package does in plain jnp. For a CPU tensor the
-wrapper runs :func:`quant_matmul_plain`; for a CUDA tensor it launches the
-kernel or raises, whatever the shape (the kernel masks its own ragged edges;
-there is no plain fallback on the card).
+at the end; the a8 recipe quantizes activations per row
+(:func:`quantize_activations`, plain jnp in the JAX package) and sums int8
+products exactly in int32. On the card all four are one wgmma kernel with
+the weight built in registers (dequantized to bf16 for K6/K7, byte-
+transposed int8 for K8/K9), launched as :func:`plan` says; a K8/K9 call
+first quantizes x with one kernel of its own (:func:`quantize_rows`). For a
+CPU tensor the wrapper runs :func:`quant_matmul_plain`; for a CUDA tensor it
+launches the kernels or raises, whatever the shape (the kernel masks its own
+ragged edges; there is no plain fallback on the card).
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ import functools
 import torch
 
 from . import _build
+from ..utils.device import sm_count
 from .quant import div_const, pack_int4, unpack_int4_halves
 
 __all__ = ["QuantizedWeight", "quantize_weight", "concat_weights",
-           "quantize_activations", "quant_matmul", "quant_matmul_plain",
-           "KERNELS"]
+           "quantize_activations", "quantize_rows", "quant_matmul",
+           "quant_matmul_plain", "KERNELS"]
 
 _QMAX = {"int8": 127.0, "int4": 7.0}
 SOURCE = "quant_matmul.cu"
@@ -146,39 +149,32 @@ def quant_matmul_plain(x2, wq: QuantizedWeight, act_quant: bool = False,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.fa_quant_matmul_wonly.restype = _I32
-    lib.fa_quant_matmul_wonly.argtypes = [_PTR] * 5 + [_I32] * 6 + [_PTR]
-    lib.fa_quant_matmul_a8.restype = _I32
-    lib.fa_quant_matmul_a8.argtypes = [_PTR] * 6 + [_I32] * 6 + [_PTR]
+    lib.fa_quant_matmul.restype = _I32
+    lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 7 + [_PTR]
+    lib.fa_quantize_rows.restype = _I32
+    lib.fa_quantize_rows.argtypes = [_PTR] * 3 + [_I32] * 2 + [_PTR]
     return lib
 
 
-def _splits(m_tiles: int, n_tiles: int, k_tiles: int, sms: int) -> int:
-    """K8/K9: split the K walk when the output tiles alone leave SMs idle
-    (decode's small m): enough CTAs for two per SM, each split a contiguous
-    range."""
-    want = max(1, (2 * sms) // (m_tiles * n_tiles))
-    want = min(want, k_tiles, 16)
-    per = -(-k_tiles // want)
-    return -(-k_tiles // per)
-
-
-# K6/K7's CTA geometry, as csrc/quant_matmul.cu's WTile has it (the kernel
-# sizes its own ring from it; tests/test_torch_quant_matmul_plan.py holds
-# these to the source). The plan needs it to count CTAs; a mismatch would
-# cost speed, never correctness, since the kernel cuts the K walk itself.
-WONLY_COLS = 128       # weight columns per consumer warpgroup (WBN)
-WONLY_ROWS = 64        # stored weight rows per K tile (WROWS)
+# The kernel's CTA geometry, as csrc/quant_matmul.cu's WTile has it (the
+# kernel sizes its own ring from it; tests/test_torch_quant_matmul_plan.py
+# holds these to the source). The plan needs it to count CTAs; a mismatch
+# would cost speed, never correctness, since the kernel cuts the K walk
+# itself.
+TILE_COLS = 128        # weight columns per consumer warpgroup (WBN)
+# Stored weight rows per K tile (a stage): the K values of one 128-byte x
+# box row (XROW), 64 bf16 for K6/K7, 128 int8 for K8/K9.
+STAGE_ROWS = {False: 64, True: 128}
 TOKEN_TILES = (16, 32, 64, 128)
 MAX_SPLITS = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """K6/K7's launch: ``bt`` tokens and ``cols`` weight columns per CTA
-    (``cols / 128`` consumer warpgroups), ``per_sm`` CTAs resident on an SM,
-    the K walk of ``k_tiles`` stored-row tiles cut into ``splits`` ranges of
-    ``per`` tiles; ``ctas`` CTAs in all."""
+    """A launch: ``bt`` tokens and ``cols`` weight columns per CTA (``cols /
+    128`` consumer warpgroups), ``per_sm`` CTAs resident on an SM, the K walk
+    of ``k_tiles`` stored-row tiles cut into ``splits`` ranges of ``per``
+    tiles; ``ctas`` CTAs in all."""
 
     design: str   # "decode" (bt <= 32: the weight stream) or "prefill"
     bt: int
@@ -191,8 +187,9 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(m: int, n: int, k: int, w4: bool, sms: int = 132) -> Plan:
-    """K6/K7's launch plan for x (m, K) @ W (K, N) on ``sms`` SMs.
+def plan(m: int, n: int, k: int, w4: bool, sms: int = 132, a8: bool = False) -> Plan:
+    """The launch plan of x (m, K) @ W (K, N) on ``sms`` SMs: K6/K7, or
+    K8/K9 with ``a8`` (whose K tiles are twice as deep).
 
     The token tile is the least of ``TOKEN_TILES`` that holds m (128 past
     it, with two warpgroups a CTA and one CTA an SM; below, one warpgroup
@@ -205,12 +202,12 @@ def plan(m: int, n: int, k: int, w4: bool, sms: int = 132) -> Plan:
     bt = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
     nwg = 2 if bt == 128 else 1
     per_sm = 1 if nwg == 2 else 2
-    k_tiles = -(-(k // 2 if w4 else k) // WONLY_ROWS)
-    tiles = -(-m // bt) * -(-n // (nwg * WONLY_COLS))
+    k_tiles = -(-(k // 2 if w4 else k) // STAGE_ROWS[a8])
+    tiles = -(-m // bt) * -(-n // (nwg * TILE_COLS))
     want = max(1, min(k_tiles, MAX_SPLITS, (per_sm * sms) // tiles))
     per = -(-k_tiles // want)
     splits = -(-k_tiles // per)
-    return Plan("decode" if bt <= 32 else "prefill", bt, nwg * WONLY_COLS, per_sm,
+    return Plan("decode" if bt <= 32 else "prefill", bt, nwg * TILE_COLS, per_sm,
                 k_tiles, splits, per, tiles * splits)
 
 
@@ -218,6 +215,31 @@ def _aligned(t):
     """t contiguous and 16-byte aligned (TMA and the vector stores)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def quantize_rows(x2):
+    """:func:`quantize_activations` of a 2-D bf16 ``x2`` (m, K): on a CUDA
+    tensor one launch of the kernel (the first of a K8/K9 call, whose launch
+    count covers it), the same bytes and scales bit for bit; on a CPU tensor
+    the plain version."""
+    if x2.device.type == "cpu":
+        return quantize_activations(x2)
+    if x2.dtype != torch.bfloat16 or x2.shape[1] % 8:
+        raise ValueError(f"quantize_rows takes bf16 rows of K % 8 == 0, got "
+                         f"{x2.dtype}, K {x2.shape[1]}")
+    return _quantize_rows(x2, _lib(), torch.cuda.current_stream(x2.device).cuda_stream)
+
+
+def _quantize_rows(x2, lib, stream):
+    m, k = x2.shape
+    x_op = _aligned(x2)
+    x_q = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
+    if m:
+        rc = lib.fa_quantize_rows(x_op.data_ptr(), x_q.data_ptr(), xs.data_ptr(), m, k,
+                                  stream)
+        _build.check(lib, rc, "quantize_rows")
+    return x_q, xs
 
 
 def _launch(x2, wq: QuantizedWeight, act_quant: bool):
@@ -235,28 +257,19 @@ def _launch(x2, wq: QuantizedWeight, act_quant: bool):
     values = _aligned(wq.values)
     scales = _aligned(wq.scales.float())
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    p = plan(m, n, k, w4, sm_count(x2.device), act_quant)
     lib = _lib()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     if act_quant:
-        x_op, xs = quantize_activations(x2)
-        mi = 1 if m <= 16 else 4
-        k_tiles = -(-(k // 2 if w4 else k) // (32 if w4 else 64))
-        splits = _splits(-(-m // (16 * mi)), -(-n // 64), k_tiles, sms)
-        ws = (torch.empty((splits, m, n), device=x2.device, dtype=torch.int32)
-              if splits > 1 else out)
-        rc = lib.fa_quant_matmul_a8(
-            x_op.contiguous().data_ptr(), xs.contiguous().data_ptr(), values.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, k, int(w4), mi,
-            splits, stream)
+        x_op, xs = _quantize_rows(x2, lib, stream)
+        xs_ptr, ws_dtype = xs.data_ptr(), torch.int32
     else:
-        p = plan(m, n, k, w4, sms)
-        x_op = _aligned(x2)
-        ws = (torch.empty((p.splits, m, n), device=x2.device, dtype=torch.float32)
-              if p.splits > 1 else out)
-        rc = lib.fa_quant_matmul_wonly(
-            x_op.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), m, n, k, int(w4), p.bt, p.splits, stream)
+        x_op, xs_ptr, ws_dtype = _aligned(x2), None, torch.float32
+    ws = (torch.empty((p.splits, m, n), device=x2.device, dtype=ws_dtype)
+          if p.splits > 1 else out)
+    rc = lib.fa_quant_matmul(
+        x_op.data_ptr(), xs_ptr, values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), m, n, k, int(w4), int(act_quant), p.bt, p.splits, stream)
     _build.check(lib, rc, "quant_matmul")
     _build.launch_counts[KERNELS[(wq.mode, act_quant)]] += 1
     return out

@@ -16,7 +16,8 @@ without it on the same pages, q in fp32. The quantized matmuls: the
 weight-only kernels (K6, K7) by the same rule in each 16-row band against
 the plain version cast to bf16 and in fp32; the a8 kernels (K8, K9) within
 one bf16 ulp of each value of the plain version, whose integer sums are
-exact as the kernel's are. The training step compares
+exact as the kernel's are (on one-hot rows bit for bit), and their
+activation quantization kernel bit for bit. The training step compares
 the parameter gradients of the split (the default) and the fused backward
 kernels with those of the plain backward: all three run the same bf16
 arithmetic and differ in summation order only, so they agree within 1e-2
@@ -58,7 +59,8 @@ from flash_attention_from_scratch_tpu_torch.ops.quant import (
 )
 from flash_attention_from_scratch_tpu_torch.ops.reference import reference_attention
 from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
-    KERNELS as QMM, QuantizedWeight, quant_matmul, quant_matmul_plain,
+    KERNELS as QMM, SOURCE as QMM_SOURCE, QuantizedWeight, quant_matmul, quant_matmul_plain,
+    quantize_activations, quantize_rows,
 )
 from flash_attention_from_scratch_tpu_torch.tools import bench_quant
 from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
@@ -384,7 +386,9 @@ QMM_CASES = (
     + [(mode, False, k, n, m) for mode in ("int8", "int4") for k, n in QMM_LLAMA
        for m in (16, 1024)]
     + [(mode, True, k, n, m) for mode in ("int8", "int4") for k, n in QMM_RAGGED
-       for m in (1, 16, 100)])
+       for m in (1, 16, 100)]
+    + [(mode, True, k, n, m) for mode in ("int8", "int4") for k, n in QMM_LLAMA
+       for m in (16, 32, 64, 1024)])
 
 
 @pytest.mark.parametrize(
@@ -392,9 +396,10 @@ QMM_CASES = (
     ids=[f"{QMM[(mo, a)]}-{k}x{n}-m{m}" for mo, a, k, n, m in QMM_CASES])
 def test_quant_matmul_kernels_match_plain(cuda, mode, act_quant, k, n, m):
     """Ragged m, N and K (no tile multiple) and every Llama-3-8B weight
-    shape of K6/K7 at decode and prefill rows; stored bytes over the whole
-    int8 range, so -128 and int4 nibbles of -8 occur; small m splits the K
-    walk. One launch count per call, and a second call gives the same bits."""
+    shape, K6/K7 at decode and prefill rows, K8/K9 also at the verify steps'
+    32 and at 64; stored bytes over the whole int8 range, so -128 and int4
+    nibbles of -8 occur; small m splits the K walk. One launch count per
+    call, and a second call gives the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     rows = k // 2 if mode == "int4" else k
     wq = QuantizedWeight(
@@ -434,6 +439,83 @@ def test_weight_only_kernels_dequantize_every_byte_exactly(cuda, mode, m):
     got = quant_matmul(x, wq)
     want = (wq.stored_columns() * scales)[pick].bfloat16()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 16, 32, 64, 100, 256])
+@pytest.mark.parametrize("mode", ["int8", "int4"], ids=["K8", "K9"])
+def test_a8_kernels_multiply_every_byte_exactly(cuda, mode, m):
+    """One-hot rows of x (+-1) quantize to +-127 at one K row each, so
+    out[i] = (127 W[pick[i]] * xs) * s: every stored byte, -128 and each
+    int4 nibble of -8 included, its nibble half, its column and that
+    column's scale must give the plain version's bits, at every token tile
+    and through the split K walk of small m (K 1024: 8 int8 K tiles, 4
+    int4). N 336 is no tile multiple."""
+    k, n = 1024, 336
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    rows = k // 2 if mode == "int4" else k
+    values = torch.randint(-128, 128, (rows, n), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    scales = torch.rand(n, generator=gen, device=cuda) / k
+    wq = QuantizedWeight(values, scales, mode, torch.bfloat16, "int8")
+    pick = torch.randperm(k, generator=gen, device=cuda)[:m]
+    sign = torch.randint(0, 2, (m,), generator=gen, device=cuda).float() * 2 - 1
+    x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda), pick] = sign.bfloat16()
+    got = quant_matmul(x, wq, act_quant=True)
+    want = quant_matmul_plain(x, wq, act_quant=True)
+    assert torch.equal(got, want)
+    x_q, xs = quantize_activations(x)
+    exact = (x_q.float() @ wq.stored_columns()) * xs * scales
+    assert torch.equal(want, exact.bfloat16())
+
+
+def _activation_rows(m, k, gen, device):
+    """Normal rows, with (for m > 2) an all-zero row (the 1e-12 floor), a
+    row whose values divide to exact halves (absmax 127 * 2^-3: the scale is
+    2^-3) and a row with one value 1e4x the rest."""
+    x = torch.randn(m, k, generator=gen, device=device)
+    if m > 2:
+        x[0] = 0.0
+        ties = torch.randint(-127, 127, (k,), generator=gen, device=device) + 0.5
+        ties[0] = 127.0
+        x[1] = ties / 8
+        x[2, k // 3] *= 1e4
+    return x.bfloat16()
+
+
+@pytest.mark.parametrize("k", [4096, 14336, 20480])
+@pytest.mark.parametrize("m", [1, 16, 1024])
+def test_quantize_rows_kernel_equals_the_plain_quantization(cuda, m, k):
+    """K8/K9's activation quantization kernel gives the bytes and scales of
+    the plain version (itself the JAX package's, tests/
+    test_torch_quant_matmul.py) bit for bit, at decode and prefill rows and
+    Llama-3-8B's two K values, on a strided (sliced) x too; K 20480 is
+    longer than the kernel keeps in registers, so part of it is read
+    twice."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = _activation_rows(m, k, gen, cuda)
+    for xin in (x, torch.cat([x, x], dim=1)[:, k:]):
+        got_q, got_s = quantize_rows(xin)
+        want_q, want_s = quantize_activations(xin)
+        assert got_q.dtype == torch.int8 and got_s.shape == (m, 1)
+        assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
+def test_quant_matmul_kernels_run_on_wgmma_without_spills(cuda):
+    """K6-K9 are one template, quant_matmul_kernel<W4, A8, BT>: the
+    weight-only instances issue bf16 wgmma (HGMMA), the a8 ones int8 wgmma
+    (IGMMA), none an mma.sync (HMMA/IMMA); the a8 ones spill nothing."""
+    sass = _sass_by_function(QMM_SOURCE)
+    usage = _resource_usage(QMM_SOURCE)
+    names = [n for n in sass if "quant_matmul_kernel" in n]
+    assert len(names) == 16, list(sass)  # W4 x A8 x 4 token tiles
+    a8 = [n for n in names if re.search(r"quant_matmul_kernelILb[01]ELb1E", n)]
+    assert len(a8) == 8, names
+    for name in names:
+        assert ("IGMMA" if name in a8 else "HGMMA") in sass[name], name
+        assert "HMMA" not in sass[name] and "IMMA" not in sass[name], name
+    for name in a8:
+        assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"], ids=["K6", "K7"])

@@ -1,8 +1,9 @@
 """The port's quantized matmul (plain path on the CPU) vs the JAX package.
 
 Weights and activations are seeded numpy arrays handed to both packages.
-``quantize_weight``, ``quantize_activations`` and ``concat_weights`` must
-give the same bytes and scales. The products are held against the JAX
+``quantize_weight``, ``quantize_activations`` (on rows that test each step
+of its arithmetic: the scale floor, exact ties, an outlier, K 32 and 14336)
+and ``concat_weights`` must give the same bytes and scales. The products are held against the JAX
 ``quant_matmul`` run through its Pallas kernels in interpret mode (K6, K7,
 K8, K9), under ``jax.jit`` as the model runs them:
 
@@ -66,13 +67,57 @@ def test_quantize_weight_bytes_match_jax(mode, act):
                                   np.asarray(jwq.dequantize(), np.float32))
 
 
-def test_quantize_activations_match_jax():
-    x, _ = _inputs(24, 512, 8, seed=1)
-    x[2] *= 1e-4
+def _activation_rows(case):
+    """Rows that test each step of the per-row quantization's arithmetic
+    (the card's ``quantize_rows`` kernel is held to this oracle bit for
+    bit)."""
+    rng = np.random.default_rng(1)
+    if case == "mixed":  # one row 1e-4 the others' size
+        x, _ = _inputs(24, 512, 8, seed=1)
+        x[2] *= 1e-4
+        return x
+    if case == "zero_row":  # absmax 0: the 1e-12 scale floor
+        x = rng.standard_normal((4, 256)).astype(np.float32)
+        x[1] = 0.0
+        return x
+    if case == "ties":
+        # absmax 127 * 2^e gives the scale 2^e exactly (127 * fp32(1/127) is
+        # 1 - 2^-28, which rounds to 1), so x = (n + 1/2) 2^e divides to
+        # exact halves: half to even (rint), not away from zero (round).
+        rows = []
+        for e in (0, -3, 4):
+            r = (rng.integers(-127, 127, 256) + 0.5) * 2.0 ** e
+            r[0] = 127 * 2.0 ** e
+            rows.append(r)
+        return np.stack(rows).astype(np.float32)
+    if case == "outlier":  # one value 1e4x the rest of its row
+        x = rng.standard_normal((4, 512)).astype(np.float32)
+        x[np.arange(4), [7, 100, 300, 511]] *= 1e4
+        return x
+    k = {"k32": 32, "k14336": 14336}[case]
+    return rng.standard_normal((3, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["mixed", "zero_row", "ties", "outlier", "k32", "k14336"])
+def test_quantize_activations_match_jax(case):
+    x = _activation_rows(case)
     xq, xs = qm.quantize_activations(_bf16(x))
     jxq, jxs = jax.jit(jax_qm.quantize_activations)(jnp.asarray(x, jnp.bfloat16))
     np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
     np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
+    xb = _bf16(x).float().numpy()
+    if case == "zero_row":
+        assert xs[1, 0] == np.float32(1e-12) and not xq[1].any()
+    if case == "ties":
+        assert np.array_equal(xs.numpy()[:, 0], np.float32([1.0, 0.125, 16.0]))
+        half = xb / xs.numpy()
+        assert (np.abs(half) % 1 == 0.5).sum() > 700
+        np.testing.assert_array_equal(xq.numpy(), np.rint(half))  # half to even
+    if case == "outlier":
+        assert np.abs(xq.numpy()).max(axis=1).tolist() == [127] * 4
+    # The CPU path of the kernel's wrapper is this plain version.
+    got = qm.quantize_rows(_bf16(x))
+    assert torch.equal(got[0], xq) and torch.equal(got[1], xs)
 
 
 def test_concat_weights_matches_jax():
