@@ -20,13 +20,23 @@ backward, fused (K2) and split
 ragged tiles, rerun to hold dK/dV (and K3's dQ) bit for bit, plus
 autograd with sinks against autograd of the reference; (4) serve
 Llama-3-8B at full width and depth (random bf16 weights from a seed)
-through ``GenerationServer``: 8 requests, 32 greedy tokens each, with the
-launch counts of K1, K4/K5 and its merge checked and two requests teacher-forced
-through the full-recompute ``forward``; (5) profile a few decode steps of
-the same server (device time by kernel, the card's busy share), then serve
-again on the same weights with speculative decoding (``spec_k=3``: prompts
-that repeat a 37-token phrase, drafts by prompt lookup, verify steps on the
-multi-token K4/K5; ``serve_spec`` line); (6) train
+through ``GenerationServer``, whose every decode and verify step is a
+CUDA-graph replay (``models/step_graphs.py``; a warm-up run of short
+prompts captures the graphs first): 8 requests, 32 greedy tokens each,
+with the launch counts of K1, K4/K5 and its merge checked (counted on
+replay) and two requests teacher-forced through the full-recompute
+``forward``; hold a replayed step against the eager step on two copies of
+the cache, bit for bit (``graph_case``: t = 1 and 4 here, runs A and B at
+t = 1 below); (5) profile a few decode steps of every serving run (device
+time by kernel, host calls, the card's busy share), serve again on the
+same weights with speculative decoding (``spec_k=3``: prompts that repeat
+a 37-token phrase, drafts by prompt lookup, verify steps on the
+multi-token K4/K5; ``serve_spec`` line), then on the same weights fused
+(``fuse_projections``) with ``chunk=8`` (greedy decode loops, one graph
+each) and ``prefill_chunk_tokens=1024`` (``serve_chunk`` line: K1 per
+prefill chunk, every request teacher-forced), and hold
+``prefill_chunked`` to ``prefill`` on a 4000-token prompt against the
+model in fp32 (``prefill_chunked_case``); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
 steps with the default backward (the split K3, the faster), checking the
 loss falls and the launch counts, profile one more step, then take one
@@ -40,8 +50,8 @@ fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
 **E** run A with int8-compute attention (``attn_int8``) and **F** int8
 KV, ``attn_int8`` and ``spec_k=3`` at 4 layers with 4 requests; each checks
 every token, finite logits, each kernel's launch count and two requests
-teacher-forced through ``forward``, and run A's and run B's decode steps
-are profiled; (8) drive the attention bench tools, the path of quantized
+teacher-forced through ``forward``, each run's decode steps are profiled,
+and run A's and run B's replayed step is held to the eager one; (8) drive the attention bench tools, the path of quantized
 prefill attention (K10) and of the K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
@@ -63,14 +73,15 @@ a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
-``serve``, ``profile``, ``serve_spec``, ``train``, ``serve_quant``, ``bench_quant``,
-``bench_attention`` and ``kernels`` JSON lines and, last, one JSON object
+``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``train``, ``serve_quant``,
+``bench_quant``, ``bench_attention`` and ``kernels`` JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,6 +244,11 @@ FLASH_CASES = [(f"{kind} s{s}", s, s, kw, {})
     ("ragged s192/320 q_offset 128 window 70", 192, 320,
      dict(causal=True, q_offset=128, window=70), {}),
     TRAIN_CASE,
+] + [
+    # Every call of chunked prefill with a prefix (``prefill_chunked``,
+    # 1024-token chunks, the tail padded to 128 rows) on SERVE_PROMPT_LENS.
+    (f"chunk q_offset {o} s{sq}/{o + sq}", sq, o + sq, dict(causal=True, q_offset=o), {})
+    for o, sq in ((1024, 512), (1024, 1024), (2048, 512), (2048, 1024), (3072, 1024))
 ]
 FORI_DEPTHS = (1, 2, 3, 4)  # K11 ring depths the cases and timings cover
 
@@ -498,7 +514,7 @@ def _teacher_forced_gaps(params, cfg, prompt, generated):
     """Teacher-force ``generated`` through the full-recompute ``forward``:
     per served token, the row max minus the served token's logit, and each
     row's standard deviation over the vocabulary."""
-    from flash_attention_from_scratch_tpu_torch import forward
+    from flash_attention_from_scratch_tpu_torch.models.llama import forward
 
     toks = list(prompt) + list(generated[:-1])
     pad = len(toks) + (-len(toks)) % 64
@@ -525,10 +541,31 @@ def _teacher_forced_check(params, cfg, prompt, generated):
     return worst
 
 
+def _warm_graphs(server, vocab: int, new_tokens: int) -> float:
+    """Serve ``max_batch`` short prompts with the main run's budget, so that
+    the server captures every decode graph the main run replays (the JAX
+    server compiles its steps at first use just so); returns the wall
+    seconds. Not part of the main path: the counts are set to 0 after."""
+    rng = np.random.default_rng(99)
+    t = time.perf_counter()
+    for i in range(server.max_batch):
+        server.submit(-1 - i, rng.integers(0, vocab, 64).tolist(), new_tokens)
+    while server.has_work:
+        server.step()
+    sync()
+    return time.perf_counter() - t
+
+
+# GenerationServer.stats() counters that accumulate over a server's life.
+RUN_COUNTERS = ("steps", "decode_steps", "decode_loops", "verify_steps", "decode_tokens",
+                "prefill_tokens", "preemptions", "spec_proposed", "spec_accepted")
+
+
 def _drive(server, prompts, new_tokens: int) -> dict:
     """Serve ``prompts`` to the end, the launch counts set to 0 just before
     and read just after. Every logit the server picks from must be finite:
-    the non-finite ones are summed on the card and read once at the end.
+    the non-finite ones are summed on the card and read once at the end
+    (those the decode loops pick from on the card, by the server's graphs).
     Steps that prefill count as prefill time, the others as decode time."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.serving import generate
@@ -546,6 +583,9 @@ def _drive(server, prompts, new_tokens: int) -> dict:
 
     generate.greedy_token = greedy_checked
     generate.spec_accept_sample = accept_checked
+    graph_nonfinite = server.graphs.nonfinite_logits()
+    replays = server.graphs.replays
+    stats0 = server.stats()
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     t_start = time.perf_counter()
@@ -570,10 +610,102 @@ def _drive(server, prompts, new_tokens: int) -> dict:
     sync()
     wall = time.perf_counter() - t_start
     counts = dict(_build.launch_counts)  # read just after the main path
-    return {"prefill_s": prefill_s, "decode_s": decode_s,
+    stats = server.stats()  # the counters of this run alone
+    for key in RUN_COUNTERS:
+        stats[key] -= stats0[key]
+    stats["spec_acceptance_rate"] = (stats["spec_accepted"] / stats["spec_proposed"]
+                                     if stats["spec_proposed"] else 0.0)
+    return {"prefill_s": prefill_s, "decode_s": decode_s, "stats": stats,
             "decode_tokens": decode_tokens, "wall_s": wall, "counts": counts,
-            "nonfinite": int(nonfinite),
+            "nonfinite": int(nonfinite) + server.graphs.nonfinite_logits() - graph_nonfinite,
+            "replays": server.graphs.replays - replays,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _clone_cache(cache):
+    return dataclasses.replace(
+        cache, k_pages=[p.clone() for p in cache.k_pages],
+        v_pages=[p.clone() for p in cache.v_pages],
+        k_scales=[p.clone() for p in cache.k_scales],
+        v_scales=[p.clone() for p in cache.v_scales])
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def graph_case(label, server, lengths, t: int) -> dict:
+    """Two replayed steps (``StepGraphs.verify_step``) and two eager
+    ``_step``s on two copies of the server's cache: each sequence's own
+    pages, t new tokens at the end of ``lengths``, then t more at the end
+    of ``lengths + t``. The first call captures (a side-stream warm-up that
+    runs the eager step on the replayed copy, the capture, the replay); the
+    second, on new tokens and lengths, only replays, so a page it fails to
+    write or a length, position or plan frozen at capture shows. Logits of
+    both calls, every page and every scale must be equal bit for bit (so
+    the greedy tokens are too); prints the largest logit difference either
+    way."""
+    from flash_attention_from_scratch_tpu_torch.models.decode import _step
+    from flash_attention_from_scratch_tpu_torch.models.step_graphs import StepGraphs
+
+    cfg, ps = server.cfg, server.page_size
+    batch = len(lengths)
+    need = [-(-(n + t) // ps) for n in lengths]  # pages up to the second call's tokens
+    per = max(need)
+    if batch * per >= server.cache.num_pages or per > server.pages_per_seq:
+        raise ValueError(f"graph case {label}: {batch} x {per} pages do not fit")
+    tables = torch.full((batch, server.pages_per_seq), -1, dtype=torch.int32)
+    for b, n in enumerate(need):
+        tables[b, :n] = torch.arange(b * per, b * per + n)
+    eager, replayed = _clone_cache(server.cache), _clone_cache(server.cache)
+    graphs = StepGraphs(server.params, cfg, replayed, attn_int8=server.attn_int8)
+    calls = []
+    for call in range(2):
+        tokens = torch.from_numpy(np.random.default_rng(7 + call).integers(
+            0, cfg.vocab_size, (batch, t)))
+        lens = torch.tensor(lengths, dtype=torch.int32) + call * t
+        got = graphs.verify_step(tokens, lens, tables).clone()
+        want, _ = _step(server.params, tokens.cuda(), cfg, eager, lens.cuda(),
+                        tables.cuda(), None, None, server.attn_int8)
+        calls.append({"max_logit_diff": float((got - want).abs().max()),
+                      "logits_bitwise": _same_bits(got, want),
+                      "tokens_equal": torch.equal(got.argmax(-1), want.argmax(-1))})
+    pools = {name: all(_same_bits(a, b) for a, b in zip(getattr(replayed, name),
+                                                         getattr(eager, name)))
+             for name in ("k_pages", "v_pages", "k_scales", "v_scales")}
+    line = {"case": label, "batch": batch, "t": t, "cache": server.cache.mode,
+            "attn_int8": server.attn_int8, "captures": graphs.graphs,
+            "replays": graphs.replays,
+            "max_logit_diff": max(c["max_logit_diff"] for c in calls),
+            "logits_bitwise": all(c["logits_bitwise"] for c in calls),
+            "tokens_equal": all(c["tokens_equal"] for c in calls),
+            "calls": calls, "pages_bitwise": pools}
+    print(f"graph_case: {json.dumps(line)}", flush=True)
+    del graphs, eager, replayed
+    if (line["captures"], line["replays"]) != (1, 2):
+        raise AssertionError(f"graph case {label}: {line['captures']} captures, "
+                             f"{line['replays']} replays, not 1 and 2")
+    if not (line["logits_bitwise"] and line["tokens_equal"] and all(pools.values())):
+        raise AssertionError(f"graph case {label}: the replayed step differs from the "
+                             "eager one")
+    return line
+
+
+def _graph_fields(server, run: dict, prof: dict) -> dict:
+    """What a serve line says of the compiled step: captures, replays in
+    the main run, host calls and the card's busy share a decode step in the
+    profiled window (``device_busy_share``, one window's device time over
+    its wall time). ``device_ms_profiled_over_counted_wall_ms`` is a ratio
+    across two windows: the profiled window's device ms a step over the
+    counted run's wall ms a step (the profiler's tracing slows the host, so
+    the counted run's own share is not measured)."""
+    steps = run["stats"]["decode_steps"] + run["stats"]["verify_steps"]
+    wall_ms = 1e3 * run["decode_s"] / steps if steps else float("nan")
+    return {"graphs": server.graphs.graphs, "replays": run["replays"],
+            "host_calls_per_step": prof["host_calls_per_step"],
+            "device_busy_share": prof["device_busy_share"],
+            "decode_wall_ms_per_step": wall_ms,
+            "device_ms_profiled_over_counted_wall_ms": prof["device_ms_per_step"] / wall_ms}
 
 
 def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
@@ -621,14 +753,15 @@ def phase_serve(smi: str) -> dict:
     rng = np.random.default_rng(0)
     prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
                for i, n in enumerate(SERVE_PROMPT_LENS)}
+    capture_s = _warm_graphs(server, cfg.vocab_size, SERVE_NEW_TOKENS)
     run = _drive(server, prompts, SERVE_NEW_TOKENS)
     prefill_s, decode_s = run["prefill_s"], run["decode_s"]
     decode_tokens, wall = run["decode_tokens"], run["wall_s"]
     nonfinite = run["nonfinite"]
     counts = run["counts"]
-    stats = server.stats()
+    stats = run["stats"]
 
-    got = {sid: st.generated for sid, st in server.seqs.items()}
+    got = {sid: server.seqs[sid].generated for sid in prompts}
     if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
         raise AssertionError(f"token counts {[len(g) for g in got.values()]}")
     if int(nonfinite) != 0:
@@ -649,7 +782,11 @@ def phase_serve(smi: str) -> dict:
         print(f"serve: teacher-forced prompt {n}: {len(got[sid])} tokens, worst gap {gap:.4f} "
               f"<= {SLACK} ok", flush=True)
 
-    ttft = sorted(st.first_t - st.submit_t for st in server.seqs.values())
+    cases = [graph_case(f"bf16 t{t}", server,
+                        [min(n, 2000) + t for n in SERVE_PROMPT_LENS], t) for t in (1, 4)]
+    prof = phase_profile(server, prompts)
+    ttft = sorted(st.first_t - st.submit_t for sid, st in server.seqs.items()
+                  if sid in prompts)
     serve = {
         "model": "LLAMA3_8B", "layers": cfg.n_layers, "requests": len(prompts),
         "prompt_tokens": stats["prefill_tokens"],
@@ -659,34 +796,48 @@ def phase_serve(smi: str) -> dict:
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
         "wall_s": wall, "steps": stats["steps"],
         "decode_steps": stats["decode_steps"],
-        "peak_mem_gb": run["peak_mem_gb"],
+        "peak_mem_gb": run["peak_mem_gb"], **_graph_fields(server, run, prof),
+        "warm_up_s": capture_s, "graph_cases": cases,
         "launches": counts, "gpu": smi,
     }
     print(json.dumps({"serve": serve}), flush=True)
     return {"server": server, "prompts": prompts, "counts": counts}
 
 
-def phase_profile(server, prompts, steps: int = 4, run: str = "bf16") -> None:
+def phase_profile(server, prompts, steps: int = 4, run: str = "bf16") -> dict:
     """Where a full-width decode step's time goes, from torch.profiler.
 
     Serves the same prompts again (after the counted main-path run) and
-    traces ``steps`` decode-only steps: device time per step by kernel, and
-    the device's busy share of the wall time.
+    traces ``steps`` server steps after the prefills (each a decode or
+    verify step, or with ``chunk`` a decode loop of ``chunk`` steps): device
+    time by kernel and host calls (graph replays, kernel launches, copies)
+    per model step, and the device's busy share of the wall time. Prints
+    the ``profile`` line and returns it.
     """
     for sid, prompt in prompts.items():
-        server.submit(1000 + sid, prompt, steps + 1)
+        server.submit(1000 + sid, prompt, steps * server.chunk + 1)
     server.step()  # the prefills
+    before = server.stats()
     prof = _profile(lambda: [server.step() for _ in range(steps)], top=8)
-    print(json.dumps({"profile": {
-        "run": run, "decode_steps": steps, "wall_ms_per_step": prof["wall_ms"] / steps,
-        "device_ms_per_step": prof["device_ms"] / steps,
+    after = server.stats()
+    n = sum(after[k] - before[k] for k in ("decode_steps", "verify_steps"))
+    while server.has_work:
+        server.step()
+    line = {
+        "run": run, "server_steps": steps, "model_steps": n,
+        "wall_ms_per_step": prof["wall_ms"] / n,
+        "device_ms_per_step": prof["device_ms"] / n,
         "device_busy_share": prof["device_busy_share"],
-        "launches_per_step": prof["launches"] / steps,
+        "launches_per_step": prof["launches"] / n,
+        "host_calls_per_step": prof["host_calls"] / n,
+        "host_calls_by_kind_per_step": {k: c / n for k, c in prof["host_calls_by_kind"].items()},
         "device_ms_per_step_by_class": {
-            k: ms / steps for k, ms in prof["device_ms_by_class"].items()},
+            k: ms / n for k, ms in prof["device_ms_by_class"].items()},
         "top_kernels_ms_per_step": {
-            k: ms / steps for k, ms in prof["top_kernels_ms"].items()},
-    }}), flush=True)
+            k: ms / n for k, ms in prof["top_kernels_ms"].items()},
+    }
+    print(json.dumps({"profile": line}), flush=True)
+    return line
 
 
 SPEC_PHRASE = 37  # tokens of the phrase a speculative run's prompts repeat
@@ -731,9 +882,10 @@ def phase_serve_spec(params, smi: str) -> dict:
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ, spec_k=SPEC_K)
     prompts = _phrase_prompts(SERVE_PROMPT_LENS, cfg.vocab_size, seed=1)
+    capture_s = _warm_graphs(server, cfg.vocab_size, SERVE_NEW_TOKENS)
     run = _drive(server, prompts, SERVE_NEW_TOKENS)
-    counts, stats = run["counts"], server.stats()
-    got = {sid: st.generated for sid, st in server.seqs.items()}
+    counts, stats = run["counts"], run["stats"]
+    got = {sid: server.seqs[sid].generated for sid in prompts}
     if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
         raise AssertionError(f"serve_spec: token counts {[len(g) for g in got.values()]}")
     if run["nonfinite"] or stats["preemptions"]:
@@ -756,17 +908,172 @@ def phase_serve_spec(params, smi: str) -> dict:
         gap = _teacher_forced_check(params, cfg, prompts[sid], got[sid])
         print(f"serve_spec: teacher-forced prompt {n}: {len(got[sid])} tokens, worst gap "
               f"{gap:.4f} <= {SLACK} ok", flush=True)
+    prof = phase_profile(server, prompts, run="spec")
     line = {
         "model": "LLAMA3_8B", "layers": cfg.n_layers, "requests": len(prompts),
-        "spec_k": SPEC_K, "prompt_tokens": stats["prefill_tokens"],
+        "spec_k": SPEC_K, "prompt_tokens": sum(map(len, prompts.values())),
         "new_tokens_per_request": SERVE_NEW_TOKENS,
         "decode_tok_s": run["decode_tokens"] / run["decode_s"],
         "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
         "wall_s": run["wall_s"], **_spec_line(stats, run),
-        "peak_mem_gb": run["peak_mem_gb"], "launches": counts, "gpu": smi,
+        "peak_mem_gb": run["peak_mem_gb"], **_graph_fields(server, run, prof),
+        "warm_up_s": capture_s, "launches": counts, "gpu": smi,
     }
     print(json.dumps({"serve_spec": line}), flush=True)
     return {"counts": counts, "verify_lengths": [n + 1 + SPEC_K for n in SERVE_PROMPT_LENS]}
+
+
+CHUNK, PREFILL_CHUNK = 8, 1024  # serve_chunk: decode loop length, prefill chunk
+
+
+def _fuse_in_place(params) -> None:
+    """``fuse_projections`` one layer at a time, each unfused layer dropped
+    as soon as its fused one exists: 16 GB of bf16 weights never sit on the
+    card twice."""
+    from flash_attention_from_scratch_tpu_torch import fuse_projections
+
+    for i, layer in enumerate(params["layers"]):
+        params["layers"][i] = fuse_projections({"layers": [layer]})["layers"][0]
+    del layer
+    torch.cuda.empty_cache()
+
+
+def phase_serve_chunk(params, smi: str) -> dict:
+    """LLAMA3_8B at full width and depth on fused projections
+    (``fuse_projections`` of phase (4)'s weights), served as the JAX
+    package's serving bench runs it: ``chunk=8`` (greedy decode loops,
+    each one CUDA graph) and ``prefill_chunk_tokens=1024`` at page 64, the
+    8 prompts of SERVE_PROMPT_LENS, 32 greedy tokens each. Checks the token
+    counts, finite logits, K1's launches (32 per prefill chunk), K4/K5's
+    and its merge's (counted on replay: one per layer and model step),
+    and every request teacher-forced through ``forward``."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, GenerationServer
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = LLAMA3_8B
+    server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
+                              page_size=SERVE_PAGE_SIZE, max_batch=8,
+                              pages_per_seq=SERVE_PAGES_PER_SEQ, chunk=CHUNK,
+                              prefill_chunk_tokens=PREFILL_CHUNK)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(SERVE_PROMPT_LENS)}
+    capture_s = _warm_graphs(server, cfg.vocab_size, SERVE_NEW_TOKENS)
+    run = _drive(server, prompts, SERVE_NEW_TOKENS)
+    counts, stats = run["counts"], run["stats"]
+    got = {sid: server.seqs[sid].generated for sid in prompts}
+    if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
+        raise AssertionError(f"serve_chunk: token counts {[len(g) for g in got.values()]}")
+    if run["nonfinite"] or stats["preemptions"]:
+        raise AssertionError(f"serve_chunk: {run['nonfinite']} non-finite logits, "
+                             f"{stats['preemptions']} preemptions")
+    if stats["decode_loops"] == 0:
+        raise AssertionError(f"serve_chunk: no decode loop ran: {stats}")
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in SERVE_PROMPT_LENS)
+    want = _with_merges({K1: cfg.n_layers * chunks,
+                         KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                        SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+    print(f"serve_chunk: launches {counts}; expected {want} ({cfg.n_layers} layers x "
+          f"{chunks} prefill chunks, {stats['decode_steps']} decode steps in "
+          f"{stats['decode_loops']} loops)", flush=True)
+    if counts != want:
+        raise AssertionError("serve_chunk: a kernel of the path ran the wrong number of times")
+    worst = 0.0
+    for sid, prompt in prompts.items():
+        worst = max(worst, _teacher_forced_check(params, cfg, prompt, got[sid]))
+    print(f"serve_chunk: teacher-forced every request: worst gap {worst:.4f} <= {SLACK} ok",
+          flush=True)
+    prof = phase_profile(server, prompts, run="chunk")
+    ttft = sorted(server.seqs[sid].first_t - server.seqs[sid].submit_t for sid in prompts)
+    line = {
+        "model": "LLAMA3_8B", "layers": cfg.n_layers, "fused": True,
+        "requests": len(prompts), "chunk": CHUNK, "prefill_chunk_tokens": PREFILL_CHUNK,
+        "page_size": SERVE_PAGE_SIZE, "prompt_tokens": stats["prefill_tokens"],
+        "new_tokens_per_request": SERVE_NEW_TOKENS,
+        "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
+        "decode_tok_s": run["decode_tokens"] / run["decode_s"],
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "wall_s": run["wall_s"], "decode_steps": stats["decode_steps"],
+        "decode_loops": stats["decode_loops"], "prefill_chunks": chunks,
+        "teacher_forced_worst_gap": worst, "peak_mem_gb": run["peak_mem_gb"],
+        **_graph_fields(server, run, prof), "warm_up_s": capture_s,
+        "launches": counts, "gpu": smi,
+    }
+    print(json.dumps({"serve_chunk": line}), flush=True)
+    return {"counts": counts}
+
+
+class _Fp32Reference:
+    """The model in fp32 on its bf16 weights, for a reference: every
+    projection as an fp32 product, the attention by the plain version in
+    fp32, the embedding rows in fp32 (``models.llama``'s ``_mm`` and
+    ``flash_forward``, ``models.decode``'s ``_embed``, replaced inside the
+    ``with``). Use with an fp32 ``LlamaConfig`` (fp32 pages)."""
+
+    def __enter__(self):
+        from flash_attention_from_scratch_tpu_torch.models import decode, llama
+        from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+            flash_forward_plain)
+
+        self.saved = (llama._mm, llama.flash_forward, decode._embed)
+        llama._mm = lambda x, w: x.float() @ w.float()
+        llama.flash_forward = lambda q, k, v, cfg, sinks=None: flash_forward_plain(
+            q, k, v, cfg, sinks)[0]
+        decode._embed = lambda params, tokens, cfg: params["embed"][tokens].float()
+        return self
+
+    def __exit__(self, *exc):
+        from flash_attention_from_scratch_tpu_torch.models import decode, llama
+
+        llama._mm, llama.flash_forward, decode._embed = self.saved
+
+
+PREFILL_CASE_LEN = 4000
+
+
+def prefill_chunked_case(params) -> dict:
+    """One 4000-token prompt at full width and depth, dense cache at page
+    64: ``prefill_chunked`` (1024-token chunks, K1 with q_offset over
+    [prefix | chunk]) against ``prefill`` (one K1 call a layer), the
+    reference the same model in fp32 (``_Fp32Reference``): the logits by
+    the adaptive rule, every layer's K and V pages by it in each 64-row
+    band (page) on its own."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, DType
+    from flash_attention_from_scratch_tpu_torch.models.decode import (
+        init_cache, prefill, prefill_chunked)
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        adaptive_tolerance_check, sliced_tolerance_check)
+
+    cfg = LLAMA3_8B
+    n_pages = -(-PREFILL_CASE_LEN // SERVE_PAGE_SIZE)
+    toks = torch.zeros((1, PREFILL_CASE_LEN + (-PREFILL_CASE_LEN) % 128), dtype=torch.long)
+    toks[0, :PREFILL_CASE_LEN] = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, PREFILL_CASE_LEN))
+    toks, table = toks.cuda(), torch.arange(n_pages, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, fn, c in (("chunked", prefill_chunked, cfg), ("one_shot", prefill, cfg),
+                        ("fp32", prefill, dataclasses.replace(cfg, dtype=DType.FP32))):
+        kw = dict(chunk_tokens=PREFILL_CHUNK) if fn is prefill_chunked else {}
+        cache = init_cache(c, n_pages, SERVE_PAGE_SIZE)
+        with _Fp32Reference() if name == "fp32" else contextlib.nullcontext():
+            logits, cache = fn(params, toks, c, cache, table,
+                               prompt_len=PREFILL_CASE_LEN, **kw)
+        pages = torch.stack([torch.stack(p) for p in (cache.k_pages, cache.v_pages)])
+        out[name] = (logits, pages)  # pages (2, layers, kvh, pages, 64, d)
+        del cache
+    ok, err, bound = adaptive_tolerance_check(out["chunked"][0], out["one_shot"][0],
+                                              out["fp32"][0])
+    pages_ok, ratio, where = sliced_tolerance_check(
+        *(out[k][1].flatten(0, 1) for k in ("chunked", "one_shot", "fp32")), lead=3)
+    line = {"prompt": PREFILL_CASE_LEN, "chunk_tokens": PREFILL_CHUNK,
+            "logit_err": err, "logit_bound": bound,
+            "logit_max_diff": float((out["chunked"][0] - out["one_shot"][0]).abs().max()),
+            "pages_worst_err_bound": ratio, "pages_worst_at": where}
+    print(f"prefill_chunked_case: {json.dumps(line)}", flush=True)
+    if not (ok and pages_ok):
+        raise AssertionError("prefill_chunked disagrees with prefill beyond the rule")
+    return line
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
@@ -795,6 +1102,14 @@ KERNEL_CLASSES = (
 )
 
 
+# CUDA calls the host makes to put work on the card, as torch.profiler
+# records them: a graph replay, a kernel launch (PyTorch's or a ctypes
+# wrapper's), a copy or a fill.
+HOST_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+              "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+              "cudaMemsetAsync")
+
+
 def _kernel_class(name: str) -> str:
     for label, keys in KERNEL_CLASSES:
         if any(k in name for k in keys):
@@ -821,6 +1136,8 @@ def _profile(fn, top: int = 10) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms > 1.01 * wall_ms:
         raise AssertionError(f"profile: {busy_ms} ms of kernels in {wall_ms} ms")
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key in HOST_CALLS}
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     by_class: dict = {}
     for e in kernels:
@@ -829,6 +1146,7 @@ def _profile(fn, top: int = 10) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "launches": sum(e.count for e in kernels), "device_ms_by_class": by_class,
+            "host_calls": sum(host.values()), "host_calls_by_kind": host,
             "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                for e in ranked}}
 
@@ -1453,7 +1771,7 @@ def _param_bytes(params) -> int:
     return walk(params)
 
 
-def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
+def phase_serve_quant(run: str, smi: str, graph_check: bool = False) -> dict:
     """One quantized serve run of LLAMA3_8B at full width (QUANT_RUNS): the
     launch counts of its quantized kernel, K1 and K4/K5 (the int8-compute
     and multi-token entries for runs E and F), every token and finite
@@ -1491,9 +1809,10 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
         rng = np.random.default_rng(0)
         prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
                    for i in range(spec["requests"])}
+    capture_s = _warm_graphs(server, cfg.vocab_size, QUANT_NEW)
     result = _drive(server, prompts, QUANT_NEW)
-    counts, stats = result["counts"], server.stats()
-    got = {sid: st.generated for sid, st in server.seqs.items()}
+    counts, stats = result["counts"], result["stats"]
+    got = {sid: server.seqs[sid].generated for sid in prompts}
     if any(len(g) != QUANT_NEW for g in got.values()):
         raise AssertionError(f"serve {run}: token counts {[len(g) for g in got.values()]}")
     if result["nonfinite"] or stats["preemptions"]:
@@ -1526,7 +1845,10 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
         if rel > QUANT_SLACK_STD:
             raise AssertionError(f"serve {run}: a served token sits {rel} row std "
                                  "below the full-recompute max")
-    ttft = sorted(st.first_t - st.submit_t for st in server.seqs.values())
+    cases = ([graph_case(f"run {run} t1", server, [QUANT_PROMPT + 17] * spec["requests"], 1)]
+             if graph_check else [])
+    prof = phase_profile(server, prompts, run=run)
+    ttft = sorted(server.seqs[sid].first_t - server.seqs[sid].submit_t for sid in prompts)
     line = {
         "run": run, "model": "LLAMA3_8B", **spec, "prompt_tokens": QUANT_PROMPT,
         "new_tokens_per_request": QUANT_NEW, "page_size": QUANT_PAGE,
@@ -1536,12 +1858,11 @@ def phase_serve_quant(run: str, smi: str, profile: bool = False) -> dict:
         "wall_s": result["wall_s"], "decode_steps": stats["decode_steps"],
         **(_spec_line(stats, result) if spec_k else {}),
         "weight_gb": weight_gb, "kv_cache_gb": kv_gb,
-        "peak_mem_gb": result["peak_mem_gb"], "launches": counts,
+        "peak_mem_gb": result["peak_mem_gb"], **_graph_fields(server, result, prof),
+        "warm_up_s": capture_s, "graph_cases": cases, "launches": counts,
         "teacher_forced_worst_gap_std": worst, "gpu": smi,
     }
     print(json.dumps({"serve_quant": line}), flush=True)
-    if profile:
-        phase_profile(server, prompts, run=run)
     return {"kernel": kernel, "launches": counts[kernel], "counts": counts}
 
 
@@ -2170,6 +2491,25 @@ def phase_bench_tools(smi: str) -> dict:
     return {KQ: quant_counts[KQ], KERNEL_FORI: fori_counts[KERNEL_FORI]}
 
 
+def serving_turn() -> None:
+    """The serving runs alone, to time this tree against another in one
+    call (parent, change, change, parent): bf16 serving (graph cases and
+    profile), ``serve_chunk`` on the fused weights, quantized runs A and B.
+    Run: ``python3 -c "import chip_smoke; chip_smoke.serving_turn()"``."""
+    smi = phase_device()
+    phase_build()
+    served = phase_serve(smi)
+    params = served["server"].params
+    del served
+    _fuse_in_place(params)
+    phase_serve_chunk(params, smi)
+    del params
+    torch.cuda.empty_cache()
+    for run in ("A", "B"):
+        phase_serve_quant(run, smi)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only",
@@ -2188,15 +2528,19 @@ def main(argv=None) -> int:
     backward_err = phase_backward_cases()
     served = phase_serve(smi)
     counts = served["counts"]
-    phase_profile(served["server"], served["prompts"])
-    spec = phase_serve_spec(served["server"].params, smi)  # the same weights
-    del served  # frees the 16 GB of weights before training
+    params = served["server"].params
+    spec = phase_serve_spec(params, smi)  # the same weights
+    del served
+    _fuse_in_place(params)
+    chunked = phase_serve_chunk(params, smi)
+    chunk_case = prefill_chunked_case(params)
+    del params  # frees the 16 GB of weights before training
     torch.cuda.empty_cache()
     trained = phase_train(smi)
     torch.cuda.empty_cache()
     quant_runs = {}
     for run in QUANT_RUNS:
-        quant_runs[run] = phase_serve_quant(run, smi, profile=run in ("A", "B"))
+        quant_runs[run] = phase_serve_quant(run, smi, graph_check=run in ("A", "B"))
         torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
@@ -2217,6 +2561,8 @@ def main(argv=None) -> int:
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:284",
          "launches": counts.get(K1, 0), "max_abs_err": flash_err,
          "worst_err_bound": flash_ratio,
+         "launches_serve_chunk": chunked["counts"].get(K1, 0),
+         "prefill_chunked_case": chunk_case,
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
@@ -2227,8 +2573,9 @@ def main(argv=None) -> int:
              KP: counts.get(KP, 0), KERNEL_MULTI: spec["counts"].get(KERNEL_MULTI, 0),
              KERNEL_INT8C: quant_runs["E"]["counts"].get(KERNEL_INT8C, 0),
              KERNEL_MULTI_INT8C: quant_runs["F"]["counts"].get(KERNEL_MULTI_INT8C, 0)},
+         "launches_serve_chunk": chunked["counts"].get(KP, 0),
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
-                          "multi_int8c: run F",
+                          "multi_int8c: run F; every count by CUDA-graph replay",
          "merge": {"name": KERNEL_MERGE, "source": pkg + "paged_attention.cu",
                    "launches": counts.get(KERNEL_MERGE, 0),
                    "launches_path": "bf16 serving (one a K4/K5 call)"},

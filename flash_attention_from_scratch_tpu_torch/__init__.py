@@ -6,16 +6,21 @@ written for ``sm_90a`` beside a plain PyTorch version of the same function:
 a wrapper launches the kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor. Entry points default to ``device="cuda"`` and raise
 when no card is present.
+
+As in the JAX package, ``forward`` is the attention forward
+(``flash_forward``); the model's forward is ``models.llama.forward``.
 """
 
 from .models.decode import (
-    PagedKVCache, decode_step, greedy_token, init_cache, prefill,
-    spec_accept_sample, verify_step,
+    PagedKVCache, decode_loop, decode_step, greedy_token, init_cache, prefill,
+    prefill_chunked, spec_accept_sample, verify_step,
 )
 from .models.llama import (
-    LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, forward, init_params,
-    init_quantized_params, loss_fn, params_from_jax, quantize_params,
+    LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, fuse_projections,
+    init_params, init_quantized_params, loss_fn, params_from_jax,
+    quantize_params,
 )
+from .models.step_graphs import StepGraphs
 from .models.train import make_optimizer, make_train_step
 from .ops.autodiff import flash_attention
 from .ops.configs import (
@@ -23,6 +28,7 @@ from .ops.configs import (
 )
 from .ops.flash_backward import flash_backward
 from .ops.flash_forward import flash_forward, flash_forward_with_lse
+from .ops.flash_forward import flash_forward as forward
 from .ops.flash_quant import flash_forward_quantized
 from .ops.paged_attention import paged_decode_attention
 from .ops.quant import (
@@ -50,10 +56,11 @@ __all__ = [
     "quantize_activations", "quant_matmul",
     "LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B", "init_params",
     "params_from_jax", "quantize_params", "init_quantized_params",
-    "forward", "loss_fn", "make_optimizer",
+    "fuse_projections", "forward", "loss_fn", "make_optimizer",
     "make_train_step",
-    "PagedKVCache", "init_cache", "prefill", "decode_step", "verify_step",
-    "spec_accept_sample", "greedy_token",
+    "PagedKVCache", "init_cache", "prefill", "prefill_chunked", "decode_step",
+    "verify_step", "decode_loop", "spec_accept_sample", "greedy_token",
+    "StepGraphs",
     "PagedEngine", "Batch", "GenerationServer",
     "adaptive_tolerance_check", "error_stats", "make_qkv",
 ]

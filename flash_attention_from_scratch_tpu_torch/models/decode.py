@@ -2,11 +2,15 @@
 
 Counterpart of ``flash_attention_from_scratch_tpu/models/decode.py``:
 :func:`prefill` runs each prompt through the flash forward kernel and
-scatters its K/V into pages; :func:`decode_step` writes each new token's K/V
-into its page and then runs the paged decode kernel for the whole batch;
-:func:`verify_step` does the same for t tokens per sequence in one pass
-(speculative verify), and :func:`spec_accept_sample` accepts drafts
-greedily.
+scatters its K/V into pages, and :func:`prefill_chunked` does so a chunk at
+a time, each chunk attending to the pages of the ones before it;
+:func:`decode_step` writes each new token's K/V into its page and then
+runs the paged decode kernel for the whole batch; :func:`verify_step` does
+the same for t tokens per sequence in one pass (speculative verify), and
+:func:`spec_accept_sample` accepts drafts greedily; :func:`decode_loop`
+runs several greedy decode steps, each feeding its argmax to the next.
+These functions run eagerly; ``models/step_graphs.py`` captures the decode
+steps and the loop as CUDA graphs (the JAX package's ``jax.jit``).
 
 The cache is dense (the model's dtype) or quantized: int8, fp8 e4m3 or
 int4 packed along the tokens of a page, with fp32 scales per (kv_head,
@@ -26,16 +30,20 @@ import dataclasses
 
 import torch
 
+import torch.nn.functional as F
+
+from ..ops.flash_forward import flash_forward
 from ..ops.paged_attention import paged_decode_attention
-from ..ops.quant import QMAX, KVQuantMode, div_const, pack_int4
+from ..ops.quant import QMAX, KVQuantMode, div_const, pack_int4, unpack_int4_halves
 from ..utils.device import resolve_device
 from .llama import (
-    LlamaConfig, _attention, _embed, _lm_logits, _qkv, _residual_tail,
-    apply_rope, rms_norm, rope_inv_freq, rope_tables,
+    LlamaConfig, _attention, _embed, _lm_logits, _q_scale_ratio, _qkv,
+    _residual_tail, apply_rope, rms_norm, rope_inv_freq, rope_tables,
 )
 
-__all__ = ["PagedKVCache", "init_cache", "prefill", "decode_step",
-           "verify_step", "spec_accept_sample", "greedy_token"]
+__all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
+           "decode_step", "verify_step", "decode_loop", "spec_accept_sample",
+           "greedy_token"]
 
 
 def _not_ported(what: str):
@@ -144,27 +152,34 @@ def _raw(t):
 
 
 def _write_prompt_layer(cache: PagedKVCache, li: int, k, v, page_table,
-                        prompt_len: int):
+                        prompt_len: int, page0: int = 0):
     """Scatter one prompt's K/V (kv_heads, prompt_len, d) into its pages.
 
-    The prompt is zero-padded to whole pages; the tail slots of the last
-    page belong to this sequence and are overwritten by decode writes
-    before attention can see them (lengths mask the rest). Only the first
-    ceil(prompt_len / page_size) table entries are read. A quantized cache
-    calibrates one scale per KV head on the prompt and stores it on every
-    page written; int4 pairs token t with token t + page_size/2 of the same
-    page into one byte row.
+    ``page0``: the first page-table slot written (chunked prefill writes
+    chunk c from slot c * chunk_tokens / page_size; ``prompt_len`` is then
+    the chunk's row count). The rows are zero-padded to whole pages; the
+    tail slots of the last page belong to this sequence and are overwritten
+    by decode writes before attention can see them (lengths mask the rest).
+    Only table entries [page0, page0 + ceil(prompt_len / page_size)) are
+    read. A quantized cache calibrates one scale per KV head on the rows
+    written at page0 == 0; later chunks take the scale on the sequence's
+    first page, as decode does. Every page written is stamped with the
+    scale. int4 pairs token t with token t + page_size/2 of the same page
+    into one byte row.
     """
     ps = cache.page_size
     n_used = -(-prompt_len // ps)
-    pages = page_table[:n_used].long()
+    pages = page_table[page0:page0 + n_used].long()
     quant = cache.mode != "dense"
     ks, vs = cache.layer_scales(li)
     for pool, scales, vals in ((cache.k_pages[li], ks, k),
                                (cache.v_pages[li], vs, v)):
         kvh, _, d = vals.shape
         if quant:
-            sc = _head_scale(vals, cache.mode)  # (kv_heads,)
+            if page0 == 0:
+                sc = _head_scale(vals, cache.mode)  # (kv_heads,)
+            else:
+                sc = scales[:, page_table[:1].long()][:, 0]
             vals = _quantize_rows(vals, sc[:, None, None], cache.mode)
             scales[:, pages] = sc[:, None].expand(kvh, n_used)
         padded = vals.new_zeros((kvh, n_used * ps, d))
@@ -195,7 +210,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     s = tokens.shape[1]
     prompt_len = prompt_len or s
     x = _embed(params, tokens, cfg)  # (1, s, dim)
-    cos, sin = rope_tables(s, cfg, device=x.device)
+    cos, sin = rope_tables(s, cfg.d_head, cfg.rope_theta, cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         out, k, v = _attention(layer, h, cfg, cos, sin, li)
@@ -206,6 +221,124 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
                             v[0, :, :prompt_len], page_table, prompt_len)
     x = rms_norm(x[:, prompt_len - 1], params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x, cfg)[0], cache
+
+
+def _gather_prefix(cache: PagedKVCache, li: int, page_table, start: int,
+                   compute_dtype):
+    """The first ``start`` cached tokens of a sequence as dense K/V.
+
+    Chunked prefill attends each chunk to [prefix | chunk]; the prefix comes
+    from the pages earlier chunks wrote, dequantized as decode reads them
+    (a quantized cache rounds once, at write time). Returns (k, v), each
+    (kv_heads, start, d_head) in ``compute_dtype``.
+    """
+    ps = cache.page_size
+    n = -(-start // ps)
+    idx = page_table[:n].long()
+    ks, vs = cache.layer_scales(li)
+
+    def read(pool, scales):
+        got = pool[:, idx]  # (kv_heads, n, rows, d)
+        if cache.mode == KVQuantMode.INT4:
+            lo, hi = unpack_int4_halves(got, compute_dtype)
+            got = torch.cat([lo, hi], dim=2)  # the page's tokens in order
+        elif cache.mode != "dense":
+            got = got.to(compute_dtype)
+        if cache.mode != "dense":
+            got = got * scales[:, idx][:, :, None, None].to(compute_dtype)
+        kvh, _, _, d = got.shape
+        return got.reshape(kvh, n * ps, d)[:, :start].to(compute_dtype)
+
+    return read(cache.k_pages[li], ks), read(cache.v_pages[li], vs)
+
+
+def _prefill_one_chunk(params, tokens_chunk, cfg: LlamaConfig,
+                       cache: PagedKVCache, page_table, start: int,
+                       write_len: int, want_logit_row: int):
+    """One chunk of :func:`prefill_chunked`.
+
+    tokens_chunk: (1, chunk_len), rows [0, write_len) real. Each layer
+    writes the chunk's K/V to its pages first, then attends causally over
+    [prefix | chunk] with ``q_offset = start`` (the flash forward kernel,
+    K1), the prefix read back from the pages. Returns (logits (vocab,) fp32
+    at ``want_logit_row``, or zeros when it is negative; cache).
+    """
+    x = _embed(params, tokens_chunk, cfg)  # (1, c, dim)
+    c = tokens_chunk.shape[1]
+    compute_dtype = cfg.dtype.torch_dtype
+    cos, sin = rope_tables(start + c, cfg.d_head, cfg.rope_theta, cfg,
+                           device=x.device)
+    cos, sin = cos[start:], sin[start:]
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg)
+        q = apply_rope(q.view(1, c, cfg.n_heads, cfg.d_head).transpose(1, 2), cos, sin)
+        k = apply_rope(k.view(1, c, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
+                       cos, sin)
+        v = v.view(1, c, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+        if cfg.attn_scale:
+            q = (q.float() * _q_scale_ratio(cfg)).to(q.dtype)
+        # The chunk's K/V go to the pages first, so that the prefix later
+        # chunks read back is what decode will read.
+        _write_prompt_layer(cache, li, k[0, :, :write_len], v[0, :, :write_len],
+                            page_table, write_len, page0=start // cache.page_size)
+        if start:
+            k_pref, v_pref = _gather_prefix(cache, li, page_table, start,
+                                            compute_dtype)
+            k = torch.cat([k_pref[None], k.to(compute_dtype)], dim=2)
+            v = torch.cat([v_pref[None], v.to(compute_dtype)], dim=2)
+        attn = dataclasses.replace(cfg.attn_config(li), q_offset=start)
+        out = flash_forward(q, k, v, attn)
+        out = out.transpose(1, 2).reshape(1, c, cfg.n_heads * cfg.d_head)
+        x = _residual_tail(cfg, layer, x, out)
+    if want_logit_row < 0:
+        return torch.zeros(cfg.vocab_size, dtype=torch.float32, device=x.device), cache
+    x = rms_norm(x[:, want_logit_row], params["final_norm"], cfg.norm_eps)
+    return _lm_logits(params, x, cfg)[0], cache
+
+
+def prefill_chunked(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
+                    page_table, prompt_len: int | None = None,
+                    chunk_tokens: int = 1024, start_tokens: int = 0):
+    """:func:`prefill` in chunks of ``chunk_tokens``: activation memory
+    bounded by the chunk, not the prompt.
+
+    Each chunk attends causally over [cached prefix | chunk] (``q_offset``),
+    writes its K/V pages, and only the chunk holding ``prompt_len - 1``
+    computes logits. The function of :func:`prefill` for a dense cache; a
+    quantized cache calibrates its scales on the first chunk (decode
+    inherits them the same way), so later chunks round with chunk 0's
+    scale. ``chunk_tokens`` must be a multiple of 128 and of the page size
+    (chunks write whole pages); ``start_tokens`` skips chunks whose pages
+    already hold the prompt's K/V (a multiple of ``chunk_tokens``, below
+    ``prompt_len``). Each violation raises ``ValueError``, as in the JAX
+    package. Writes the pages in place and returns (logits (vocab,) fp32,
+    cache).
+    """
+    check_no_sinks(cfg)
+    ps = cache.page_size
+    if chunk_tokens % 128 or chunk_tokens % ps:
+        raise ValueError(
+            f"chunk_tokens ({chunk_tokens}) must be a multiple of 128 and "
+            f"of page_size ({ps})")
+    if start_tokens % chunk_tokens:
+        raise ValueError(
+            f"start_tokens ({start_tokens}) must be a multiple of "
+            f"chunk_tokens ({chunk_tokens})")
+    s = tokens.shape[1]
+    prompt_len = prompt_len or s
+    if not start_tokens < prompt_len:
+        raise ValueError(f"start_tokens ({start_tokens}) must leave at "
+                         f"least the last prompt token to compute")
+    for start in range(start_tokens, prompt_len, chunk_tokens):
+        write_len = min(prompt_len - start, chunk_tokens)
+        last = start + chunk_tokens >= prompt_len
+        chunk = tokens[:, start:min(start + chunk_tokens, s)]
+        chunk = F.pad(chunk, (0, -chunk.shape[1] % 128))  # the tail to the quantum
+        logits, cache = _prefill_one_chunk(
+            params, chunk, cfg, cache, page_table, start, write_len,
+            (prompt_len - 1 - start) if last else -1)
+    return logits, cache
 
 
 def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
@@ -254,6 +387,51 @@ def verify_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
                  attn_int8)
 
 
+def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
+                lengths, page_tables, steps: int, *, row_keys=None, pos0=None,
+                temperature: float = 0.0, top_k: int = 0, mesh=None,
+                attn_int8: bool = False, lora=None, adapter_ids=None):
+    """``steps`` greedy decode steps, each feeding its argmax to the next.
+
+    Args:
+      tokens: (batch,) int: the last committed token of each sequence.
+      lengths: (batch,) int32: committed length of each sequence, *excluding*
+        the tokens this call generates (unlike :func:`decode_step`, whose
+        lengths include the token being decoded).
+      page_tables: (batch, pages_per_seq) int32 covering ``lengths +
+        steps``: the pages for the whole chunk are allocated beforehand.
+
+    Token selection stays on the device: no host round trip between
+    steps. Sampling (``temperature > 0``, ``top_k`` or ``row_keys``, with
+    ``pos0``) is not ported yet and raises ``NotImplementedError`` (ROADMAP
+    Queue 1, the samplers). Writes the pages in place and returns
+    (tokens (batch, steps), cache, lengths + steps).
+    """
+    del pos0, adapter_ids  # read by the samplers and LoRA, neither ported
+    if temperature > 0.0 or top_k or row_keys is not None:
+        raise _not_ported("sampling in decode_loop (temperature > 0, top_k, "
+                          "row_keys; the samplers)")
+
+    def step(toks, lens):
+        return decode_step(params, toks, cfg, cache, lens, page_tables,
+                           lora=lora, mesh=mesh, attn_int8=attn_int8)[0]
+
+    out, lengths = greedy_loop(step, tokens, lengths, steps)
+    return out, cache, lengths
+
+
+def greedy_loop(step, tokens, lengths, steps: int):
+    """The body of :func:`decode_loop` over ``step(tokens, lengths) ->
+    logits``: each step's lengths one longer, its argmax the next tokens.
+    Returns (tokens (batch, steps), lengths + steps)."""
+    out = []
+    for _ in range(steps):
+        lengths = lengths + 1
+        tokens = greedy_token(step(tokens, lengths))
+        out.append(tokens)
+    return torch.stack(out, dim=1), lengths
+
+
 def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
           page_tables, lora, mesh, attn_int8: bool):
     """The body of :func:`decode_step` and :func:`verify_step`: tokens
@@ -282,7 +460,7 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
 
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h)
+        q, k, v = _qkv(layer, h, cfg)
         q = apply_rope(q.view(batch, t, cfg.n_heads, cfg.d_head).transpose(1, 2),
                        cos, sin)  # (b, H, t, d)
         k = apply_rope(k.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),

@@ -25,13 +25,15 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.autodiff import flash_attention
 from ..ops.configs import DType, KernelConfig
 from ..ops.flash_forward import flash_forward
-from ..ops.quant_matmul import QuantizedWeight, quant_matmul, quantize_weight
+from ..ops.quant_matmul import (
+    QuantizedWeight, concat_weights, quant_matmul, quantize_weight,
+)
 from ..utils.device import resolve_device
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B",
            "init_params", "params_from_jax", "forward", "loss_fn", "rms_norm",
            "rope_inv_freq", "rope_tables", "apply_rope", "quantize_params",
-           "init_quantized_params"]
+           "init_quantized_params", "fuse_projections"]
 
 
 def _mm(x, w):
@@ -296,9 +298,18 @@ def rope_inv_freq(cfg: LlamaConfig, device=None):
                        torch.where(wavelen > low_len, scaled, blended))
 
 
-def rope_tables(seq_len: int, cfg: LlamaConfig, device=None):
-    """Rotary cos/sin tables, fp32, shape (seq_len, d_head // 2)."""
-    inv_freq = rope_inv_freq(cfg, device)
+def rope_tables(seq_len: int, d_head: int, theta: float, cfg=None, *,
+                device=None):
+    """Rotary cos/sin tables, fp32, shape (seq_len, d_head // 2).
+
+    Pass ``cfg`` to honour its RoPE scaling (its ``d_head`` and
+    ``rope_theta`` then hold); the bare (d_head, theta) form is unscaled.
+    """
+    if cfg is not None:
+        inv_freq = rope_inv_freq(cfg, device)
+    else:
+        inv_freq = 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                                 device=device) / d_head))
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)
     angles = pos[:, None] * inv_freq[None, :]
     return torch.cos(angles), torch.sin(angles)
@@ -312,8 +323,47 @@ def apply_rope(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
-def _qkv(layer, x):
-    """x -> (q, k, v) rows, plus the Qwen2-style biases when present."""
+def fuse_projections(params) -> dict:
+    """Each layer's Q/K/V and gate/up projections as one weight each.
+
+    A layer's 7 weight matmuls become 4 (``wqkv``, ``wo``, ``w_gate_up``,
+    ``w_down``): fewer, longer weight streams, and for an a8 model one
+    activation quantization in place of three (and of two). Exact for dense
+    weights (columns concatenated) and quantized ones (per-column scales
+    concatenated, :func:`~..ops.quant_matmul.concat_weights`). The model
+    uses the fused entries when present; unfused trees keep working.
+    Biases on Q/K/V (Qwen2-style) raise ``NotImplementedError``, as in the
+    JAX package.
+    """
+    def cat(ws):
+        if isinstance(ws[0], QuantizedWeight):
+            return concat_weights(ws)
+        return torch.cat(ws, dim=1)
+
+    if any("bq" in layer for layer in params["layers"]):
+        raise NotImplementedError(
+            "fuse_projections with QKV biases (Qwen2-style) would need a "
+            "fused bias path through _qkv; keep projections unfused")
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        fused = {k: v for k, v in layer.items()
+                 if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+        fused["wqkv"] = cat([layer["wq"], layer["wk"], layer["wv"]])
+        fused["w_gate_up"] = cat([layer["w_gate"], layer["w_up"]])
+        out["layers"].append(fused)
+    return out
+
+
+def _qkv(layer, x, cfg: LlamaConfig):
+    """x -> (q, k, v) rows, through the fused weight when present, plus the
+    Qwen2-style biases when present (unfused only)."""
+    if "wqkv" in layer:
+        qkv = _mm(x, layer["wqkv"])
+        q_dim = cfg.n_heads * cfg.d_head
+        kv_dim = cfg.n_kv_heads * cfg.d_head
+        return (qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim],
+                qkv[..., q_dim + kv_dim:])
     q, k, v = _mm(x, layer["wq"]), _mm(x, layer["wk"]), _mm(x, layer["wv"])
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
@@ -331,7 +381,12 @@ def _o_proj(layer, out):
 
 
 def _mlp(layer, x, cfg: LlamaConfig):
-    g, up = _mm(x, layer["w_gate"]), _mm(x, layer["w_up"])
+    if "w_gate_up" in layer:
+        gu = _mm(x, layer["w_gate_up"])
+        h = gu.shape[-1] // 2
+        g, up = gu[..., :h], gu[..., h:]
+    else:
+        g, up = _mm(x, layer["w_gate"]), _mm(x, layer["w_up"])
     if cfg.mlp_act == "gelu":
         gate = F.gelu(g.float(), approximate="tanh")
     else:
@@ -349,7 +404,7 @@ def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
     otherwise the forward kernel alone.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(layer, x)
+    q, k, v = _qkv(layer, x, cfg)
     q = q.view(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
     k = k.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     v = v.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
@@ -410,7 +465,8 @@ def forward(params, tokens, cfg: LlamaConfig, remat: bool = False):
     O(seq * hidden) instead of O(layers * seq * hidden) saved memory.
     """
     x = _embed(params, tokens, cfg)
-    cos, sin = rope_tables(tokens.shape[1], cfg, device=x.device)
+    cos, sin = rope_tables(tokens.shape[1], cfg.d_head, cfg.rope_theta, cfg,
+                           device=x.device)
     for li, layer in enumerate(params["layers"]):
         if remat:
             x = checkpoint(_layer, layer, x, cfg, cos, sin, li,

@@ -1,0 +1,152 @@
+"""Captured decode steps: the port's form of the JAX package's ``jax.jit``.
+
+The JAX package jits ``decode_step``, ``verify_step`` and ``decode_loop``
+with the cache donated (``jax.jit(..., donate_argnames=("cache",))`` in its
+``models/decode.py``), so a whole step is one dispatch. The PyTorch
+counterpart for a step of fixed shapes is a ``torch.cuda.CUDAGraph``:
+:class:`StepGraphs` captures the eager step (``models/decode.py::_step``)
+once per (batch, t, pages per sequence) and the greedy loop once per step
+count, over static token, length and page-table buffers. The graphs write
+the cache's pools in place (the donation) and share one memory pool. A call
+copies its inputs into the static buffers, replays the graph and returns
+its static outputs, which the next call of the same shape overwrites.
+
+Capture needs the kernels' libraries built and their one-time set-up done,
+so each shape's first call runs the eager step once on a side stream (with
+the call's own inputs: the replay that follows writes the same pages with
+the same values), then captures. A capture that fails raises; nothing
+falls back to eager. Launches are counted per replay: the kernels' wrappers
+count on the host, once, at capture (``ops/_build.py::launch_counts``), so
+each graph keeps the counts its capture added and adds them again on every
+replay; the warm-up's and the capture's own counts are taken back.
+
+Every graph also adds the number of non-finite logits it computed to one
+device counter (:meth:`StepGraphs.nonfinite_logits`): a served token of the
+greedy loop is picked on the card, from logits no caller sees.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from ..ops import _build
+from ..ops.quant import KVQuantMode
+from .decode import PagedKVCache, _step, check_no_sinks, greedy_loop
+from .llama import LlamaConfig
+
+__all__ = ["StepGraphs"]
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    inputs: dict       # name -> static device tensor the graph reads
+    outputs: tuple     # static device tensors the graph writes
+    launches: collections.Counter  # kernel launches of one replay
+
+
+class StepGraphs:
+    """CUDA graphs of the decode step and the greedy decode loop of one
+    model over one paged cache.
+
+    ``params``, ``cfg`` and ``cache`` are fixed for the object's life: the
+    graphs hold the addresses of the weights and of the cache's pools.
+    ``attn_int8`` selects the paged kernel's int8 compute (int8 cache
+    only). ``graphs`` counts the captures made and ``replays`` the replays.
+    """
+
+    def __init__(self, params, cfg: LlamaConfig, cache: PagedKVCache, *,
+                 attn_int8: bool = False):
+        check_no_sinks(cfg)
+        if attn_int8 and cache.mode != KVQuantMode.INT8:
+            raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
+        self.device = cache.k_pages[0].device
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need the cache on the card, not {self.device}")
+        self.params, self.cfg, self.cache = params, cfg, cache
+        self.attn_int8 = attn_int8
+        self._pool = torch.cuda.graph_pool_handle()
+        self._graphs: dict = {}
+        self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.replays = 0
+
+    @property
+    def graphs(self) -> int:
+        return len(self._graphs)
+
+    def nonfinite_logits(self) -> int:
+        """Non-finite logits the replays have computed so far (a host read)."""
+        return int(self._nonfinite)
+
+    def _logits(self, tokens, lengths, page_tables):
+        logits, _ = _step(self.params, tokens, self.cfg, self.cache, lengths,
+                          page_tables, None, None, self.attn_int8)
+        self._nonfinite.add_((~torch.isfinite(logits)).sum())
+        return logits
+
+    def _capture(self, body, inputs: dict) -> _Graph:
+        static = {name: x.to(self.device, copy=True) for name, x in inputs.items()}
+        counted = collections.Counter(_build.launch_counts)
+        nonfinite = self._nonfinite.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            body(**static)  # builds, plans, tensor maps, cuBLAS set-up
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._nonfinite.copy_(nonfinite)
+        _restore(counted)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            outputs = body(**static)
+        launches = _build.launch_counts - counted
+        _restore(counted)
+        return _Graph(graph, static, outputs, launches)
+
+    def _replay(self, key, body, inputs: dict) -> tuple:
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(body, inputs)
+        for name, x in inputs.items():
+            g.inputs[name].copy_(x)
+        g.graph.replay()
+        _build.launch_counts.update(g.launches)
+        self.replays += 1
+        return g.outputs
+
+    def verify_step(self, tokens, lengths, page_tables):
+        """:func:`~.decode.verify_step` by replay: tokens (batch, t) at
+        positions lengths - t + j; returns logits (batch, t, vocab) fp32
+        (a static buffer)."""
+        key = ("step",) + tuple(tokens.shape) + (page_tables.shape[1],)
+        return self._replay(key, lambda tokens, lengths, page_tables: (
+            self._logits(tokens, lengths, page_tables),),
+            {"tokens": tokens, "lengths": lengths, "page_tables": page_tables})[0]
+
+    def decode_step(self, tokens, lengths, page_tables):
+        """:func:`~.decode.decode_step` by replay: tokens (batch,), lengths
+        including them; returns logits (batch, vocab) fp32 (a view of a
+        static buffer)."""
+        return self.verify_step(tokens[:, None], lengths, page_tables)[:, 0]
+
+    def decode_loop(self, tokens, lengths, page_tables, steps: int):
+        """Greedy :func:`~.decode.decode_loop` by replay: ``steps`` decode
+        steps in one graph, each step's argmax the next step's token on the
+        card. ``lengths`` are the committed lengths, excluding the tokens
+        generated here. Returns (tokens (batch, steps), lengths + steps),
+        static buffers."""
+        def body(tokens, lengths, page_tables):
+            return greedy_loop(lambda toks, lens: self._logits(
+                toks[:, None], lens, page_tables)[:, 0], tokens, lengths, steps)
+
+        key = ("loop", steps, tokens.shape[0], page_tables.shape[1])
+        return self._replay(key, body, {"tokens": tokens, "lengths": lengths,
+                                        "page_tables": page_tables})
+
+
+def _restore(counts: collections.Counter) -> None:
+    """Set the launch counts back to ``counts`` (the same Counter object)."""
+    _build.launch_counts.clear()
+    _build.launch_counts.update(counts)

@@ -1,10 +1,11 @@
 """Attention configuration and the analytical FLOP model.
 
-Counterpart of ``flash_attention_from_scratch_tpu/ops/configs.py``, cut to
-what changes outputs or validation, and the choice of the KV loop. The TPU
-tiling knobs there (block sizes, head packing, split counts, VMEM limits)
-have no counterpart: the Hopper kernels' tile sizes are constants of the
-kernels (``csrc/*.cu``).
+Counterpart of ``flash_attention_from_scratch_tpu/ops/configs.py``. The
+config takes every field of the JAX one. The TPU tiling and schedule knobs
+there (block sizes, softmax variants, head packing, split counts, VMEM
+limits) are hints the Hopper kernels ignore, validated as the JAX package
+validates them: the kernels' tile sizes are their own constants
+(``csrc/*.cu``), and every knob computes the same function.
 """
 
 from __future__ import annotations
@@ -32,6 +33,12 @@ class DType(enum.Enum):
     @property
     def torch_dtype(self) -> torch.dtype:
         return self.value
+
+    @property
+    def min_tile(self) -> tuple[int, int]:
+        """The TPU's smallest (sublane, lane) tile of this type: what the JAX
+        config's ``q_splits`` check divides by."""
+        return (8, 128) if self is DType.FP32 else (16, 128)
 
     @classmethod
     def from_torch(cls, dt: torch.dtype) -> "DType":
@@ -65,29 +72,70 @@ class KernelConfig:
     alignment shifted by the offset). ``window``: Q position p sees KV
     positions ``(p - window, p]``; 0 disables. ``attn_softcap``: scores
     become ``cap * tanh(s / cap)`` after scaling; 0 disables. ``scale``:
-    None means ``1 / sqrt(d_head)``. ``kv_loop`` and ``num_kv_buffers``
-    (1 to ``MAX_KV_BUFFERS``; read by FORI only): see :class:`KVLoop`.
+    None means ``1 / sqrt(d_head)``. ``out_dtype``: the output's type (None:
+    ``dtype``). ``kv_loop`` and ``num_kv_buffers`` (1 to ``MAX_KV_BUFFERS``;
+    read by FORI only): see :class:`KVLoop`.
+
+    The TPU knobs (``block_q`` to ``mask_elide``, ``vmem_limit_mb``) are
+    hints: the Hopper kernels ignore them, and the JAX checks on them hold.
+    ``scale_q`` stays a no-op: the port scales the fp32 scores, the exact
+    function. ``optimized_softmax`` defaults to False here (True in JAX,
+    whose first-block specialization refuses a window), so a window needs
+    no opt-out. ``decompose`` (the row-band causal dispatch) raises
+    ``NotImplementedError``: ``causal_forward_banded`` is not ported yet
+    (ROADMAP Queue 1).
     """
 
+    block_q: int = 512
+    block_kv: int = 1024
     d_head: int = 128
     dtype: DType = DType.BF16
+    out_dtype: DType | None = None
+    use_exp2: bool = True
+    optimized_softmax: bool = False
+    cast_p_to_dtype: bool = True
+    fused_scale: bool = False
+    mxu_row_sum: bool = False
+    scale_q: bool = True
+    kv_splits: int = 1
+    q_splits: int = 1
+    head_pack: int = 1
+    fold_batch: bool = False
+    kv_loop: KVLoop = KVLoop.GRID
+    reverse_kv: bool = False
+    num_kv_buffers: int = 2
     causal: bool = False
     q_offset: int = 0
     window: int = 0
+    decompose: bool = False
+    mask_elide: bool = False
     attn_softcap: float = 0.0
+    vmem_limit_mb: int = 64
     scale: float | None = None
-    kv_loop: KVLoop = KVLoop.GRID
-    num_kv_buffers: int = 2
 
     def __post_init__(self):
         if not isinstance(self.kv_loop, KVLoop):
             raise ValueError(f"kv_loop must be a KVLoop, got {self.kv_loop!r}")
+        if self.block_q % 8 != 0 or self.block_kv % 128 != 0:
+            raise ValueError(
+                f"block_q must be a multiple of 8 (sublane) and block_kv of 128 "
+                f"(lane): got ({self.block_q}, {self.block_kv})")
         if self.num_kv_buffers < 1:
             raise ValueError("num_kv_buffers must be >= 1 (1 = synchronous copies)")
         if self.num_kv_buffers > MAX_KV_BUFFERS:
             raise ValueError(
                 f"num_kv_buffers must be <= {MAX_KV_BUFFERS}, the deepest ring "
                 f"the FORI kernel is built for; got {self.num_kv_buffers}")
+        if self.scale_q and self.fused_scale:
+            raise ValueError("scale_q and fused_scale are exclusive scale paths")
+        if self.causal and self.reverse_kv:
+            raise ValueError(
+                "causal + reverse_kv unsupported: the first processed KV block "
+                "must be fully visible for the online-softmax init")
+        if self.decompose and not self.causal:
+            raise ValueError(
+                "decompose requires causal masking (non-causal shapes are "
+                "already one whole-KV single-shot call)")
         if self.q_offset < 0:
             raise ValueError(f"q_offset must be >= 0: {self.q_offset}")
         if self.q_offset and not self.causal:
@@ -96,8 +144,44 @@ class KernelConfig:
             raise ValueError(f"window must be >= 0: {self.window}")
         if self.window and not self.causal:
             raise ValueError("window only applies to causal masking")
+        if self.window and self.optimized_softmax:
+            raise ValueError(
+                "window + optimized_softmax unsupported: the first-block "
+                "softmax specialization assumes KV block 0 is visible, but "
+                "a window can hide it")
         if self.attn_softcap < 0:
             raise ValueError(f"attn_softcap must be >= 0: {self.attn_softcap}")
+        if self.attn_softcap and self.fused_scale:
+            raise ValueError(
+                "attn_softcap needs the scaled scores materialized; "
+                "fused_scale defers the scale into the exp pass")
+        if self.kv_splits < 1:
+            raise ValueError("kv_splits must be >= 1")
+        if self.kv_splits > 1 and (
+                self.block_kv % self.kv_splits
+                or (self.block_kv // self.kv_splits) % 128):
+            raise ValueError(
+                f"kv_splits {self.kv_splits} must divide block_kv {self.block_kv} "
+                "into lane-aligned (multiple-of-128) sub-tiles")
+        if self.q_splits < 1:
+            raise ValueError("q_splits must be >= 1")
+        if self.q_splits > 1:
+            sub = self.block_q // self.q_splits
+            if self.block_q % self.q_splits or sub % self.dtype.min_tile[0]:
+                raise ValueError(
+                    f"q_splits {self.q_splits} must divide block_q "
+                    f"{self.block_q} into sublane-aligned (multiple-of-"
+                    f"{self.dtype.min_tile[0]}) sub-tiles")
+        if self.head_pack < 1:
+            raise ValueError("head_pack must be >= 1")
+        if self.decompose:
+            raise NotImplementedError(
+                "decompose (the row-band causal dispatch) waits on "
+                "causal_forward_banded, not ported yet (ROADMAP Queue 1)")
+
+    @property
+    def resolved_out_dtype(self) -> DType:
+        return self.out_dtype if self.out_dtype is not None else self.dtype
 
     @property
     def softmax_scale(self) -> float:

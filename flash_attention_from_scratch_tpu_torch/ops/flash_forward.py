@@ -287,34 +287,42 @@ def _default_cfg(q) -> KernelConfig:
     return KernelConfig(d_head=q.shape[-1], dtype=DType.from_torch(q.dtype))
 
 
+def _resolve(q, cfg: KernelConfig | None, scale: float | None) -> KernelConfig:
+    """The call's config: ``scale``, when given, overrides ``cfg.scale``."""
+    cfg = cfg or _default_cfg(q)
+    return cfg if scale is None else dataclasses.replace(cfg, scale=scale)
+
+
+def _forward(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
+    _validate(cfg, q, k, v, sinks)
+    if q.device.type == "cpu":
+        out, lse = flash_forward_plain(q, k, v, cfg, sinks)
+    elif q.device.type == "cuda":
+        out, lse = _launch(q, k, v, cfg, sinks, want_lse)
+    else:
+        raise ValueError(f"unsupported device {q.device}")
+    return out.to(cfg.resolved_out_dtype.torch_dtype), lse
+
+
 def flash_forward_with_lse(q, k, v, cfg: KernelConfig | None = None,
-                           sinks=None):
+                           sinks=None, *, scale: float | None = None):
     """Forward pass that also returns the per-row log-sum-exp.
 
     ``lse`` is (batch, heads, seq_q) fp32, the natural log of the sum of
-    exp(scaled scores) over each row, sink term included.
+    exp(scaled scores) over each row, sink term included. ``scale``
+    overrides ``cfg.scale``.
     """
-    cfg = cfg or _default_cfg(q)
-    _validate(cfg, q, k, v, sinks)
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, cfg, sinks)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k, v, cfg, sinks, want_lse=True)
+    return _forward(q, k, v, _resolve(q, cfg, scale), sinks, want_lse=True)
 
 
-def flash_forward(q, k, v, cfg: KernelConfig | None = None, sinks=None):
+def flash_forward(q, k, v, cfg: KernelConfig | None = None, sinks=None, *,
+                  scale: float | None = None):
     """softmax(Q K^T * scale) V. Inputs (batch, heads, seq, d_head).
 
     K/V may have fewer heads than Q (GQA: Q head h reads KV head
     h // (heads // kv_heads)). ``sinks`` ((heads,) fp32): per-head logits
-    that join the softmax denominator only. The output has q's shape,
-    dtype and strides.
+    that join the softmax denominator only. ``scale`` overrides
+    ``cfg.scale``. The output has q's shape and strides, in
+    ``cfg.out_dtype`` (default q's dtype).
     """
-    cfg = cfg or _default_cfg(q)
-    _validate(cfg, q, k, v, sinks)
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, cfg, sinks)[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k, v, cfg, sinks, want_lse=False)[0]
+    return _forward(q, k, v, _resolve(q, cfg, scale), sinks, want_lse=False)[0]

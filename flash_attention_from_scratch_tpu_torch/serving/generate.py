@@ -3,14 +3,22 @@
 Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
 ``GenerationServer`` for greedy decoding over a dense or quantized (int8,
 fp8, int4) KV cache; the parameters may hold quantized weights
-(``models.llama.quantize_params``). Requests enter the native scheduler
+(``models.llama.quantize_params``) and fused projections
+(``models.llama.fuse_projections``). Requests enter the native scheduler
 (``serving.runtime.PagedEngine``); each step admits what fits, prefills
-newly admitted prompts through the flash forward kernel, and advances every
-running sequence through the paged decode kernel: one token, or with
-``spec_k`` a prompt-lookup draft of up to ``spec_k`` tokens verified in one
-multi-token pass (``models.decode.verify_step``). ``attn_int8`` runs the
-paged kernel in int8 compute on an int8 cache. The decode batch is padded
-to ``max_batch``; padding rows write their K/V to a reserved scratch page.
+newly admitted prompts through the flash forward kernel (whole, or in
+chunks of ``prefill_chunk_tokens`` through ``models.decode.prefill_chunked``),
+and advances every running sequence through the paged decode kernel: one
+token, ``chunk`` greedy tokens in one ``decode_loop`` while the batch
+cannot change, or with ``spec_k`` a prompt-lookup draft of up to
+``spec_k`` tokens verified in one multi-token pass
+(``models.decode.verify_step``). ``attn_int8`` runs the paged kernel in
+int8 compute on an int8 cache. The decode batch is padded to
+``max_batch``; padding rows write their K/V to a reserved scratch page.
+
+On the card every decode step, verify step and decode loop is a CUDA-graph
+replay (``models.step_graphs.StepGraphs``, the counterpart of the JAX
+server's jitted steps); on the CPU (``device="cpu"``) they run eagerly.
 
 Token bookkeeping matches the scheduler's accounting: after ``step()`` a
 sequence's length counts its prompt plus committed tokens; the token
@@ -26,10 +34,11 @@ import numpy as np
 import torch
 
 from ..models.decode import (
-    check_no_sinks, decode_step, greedy_token, init_cache, prefill,
-    spec_accept_sample, verify_step,
+    check_no_sinks, decode_loop, greedy_token, init_cache, prefill,
+    prefill_chunked, spec_accept_sample, verify_step,
 )
 from ..models.llama import LlamaConfig
+from ..models.step_graphs import StepGraphs
 from ..utils.device import resolve_device
 from .runtime import PagedEngine
 
@@ -82,10 +91,16 @@ class GenerationServer:
     "fp8" or "int4". ``spec_k`` (1 to page_size - 1) drafts that many tokens
     by prompt lookup and verifies them in one pass whenever the whole batch
     is decoding and nothing waits; ``attn_int8`` (int8 cache only) runs the
-    paged kernel's int8 compute. Options of the JAX server that are not
-    ported yet raise ``NotImplementedError``; ``seed`` only seeds sampling,
-    which is one of them. A config with attention sinks, and a ``chunk``
-    outside [1, page_size], raise ``ValueError``.
+    paged kernel's int8 compute. ``chunk`` (1 to page_size) decodes up to
+    that many tokens per step in one greedy ``decode_loop`` while the batch
+    cannot change (exclusive with ``spec_k``); ``prefill_chunk_tokens`` (a
+    multiple of 128 and of page_size) prefills prompts in chunks of that
+    many tokens. Options of the JAX server that are not ported yet raise
+    ``NotImplementedError``; ``seed`` only seeds sampling, which is one of
+    them. A config with attention sinks, and the checks of the JAX server
+    on ``chunk``, ``spec_k`` and ``prefill_chunk_tokens``, raise
+    ``ValueError``. On the card ``graphs`` is the server's
+    :class:`~..models.step_graphs.StepGraphs` (None on the CPU).
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
@@ -103,6 +118,14 @@ class GenerationServer:
             # Padding rows park their chunk KV in the single scratch page,
             # so a chunk may not outgrow it.
             raise ValueError(f"chunk must be in [1, page_size]; got {chunk}")
+        if prefill_chunk_tokens and (prefill_chunk_tokens % 128
+                                     or prefill_chunk_tokens % page_size):
+            raise ValueError(
+                f"prefill_chunk_tokens ({prefill_chunk_tokens}) must be a "
+                f"multiple of 128 and of page_size ({page_size})")
+        if prefill_chunk_tokens and mesh is not None:
+            raise ValueError("prefill_chunk_tokens + mesh not supported yet "
+                             "(chunked prefill is single-chip)")
         if spec_k:
             if chunk > 1:
                 raise ValueError("spec_k and chunk>1 are exclusive decode strategies")
@@ -112,9 +135,7 @@ class GenerationServer:
                 raise ValueError(f"spec_k must be in [1, page_size - 1]; got {spec_k}")
         unported = {"temperature > 0 (sampling)": temperature > 0,
                     "top_k > 0 (sampling)": top_k > 0,
-                    "chunk > 1 (multi-token decode loop)": chunk > 1,
                     "prefix_cache": prefix_cache,
-                    "prefill_chunk_tokens (chunked prefill)": prefill_chunk_tokens,
                     "lora": lora is not None,
                     "mesh (tensor-parallel serving)": mesh is not None}
         for what, asked in unported.items():
@@ -135,12 +156,17 @@ class GenerationServer:
         self.page_size = page_size
         self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
         self.attn_int8 = attn_int8
+        self.graphs = (StepGraphs(params, cfg, self.cache, attn_int8=attn_int8)
+                       if self.device.type == "cuda" else None)
+        self.chunk = chunk
+        self.prefill_chunk_tokens = prefill_chunk_tokens
         self.spec_k = spec_k
         self.spec_proposed = 0  # drafted tokens offered to the verifier
         self.spec_accepted = 0  # drafted tokens accepted
         self.seqs: dict[int, _SeqState] = {}
         self.steps = 0
-        self.decode_steps = 0  # single-token decode passes
+        self.decode_steps = 0  # single-token decode passes, loops' included
+        self.decode_loops = 0  # decode_loop calls (chunk > 1)
         self.verify_steps = 0  # multi-token verify passes
         self.decode_tokens = 0
         self.prefill_tokens = 0
@@ -181,10 +207,17 @@ class GenerationServer:
                 st.prefilled = False  # was preempted: its pages are gone
                 st.generated = []
             if not st.prefilled:
-                logits, self.cache = prefill(
-                    self.params, self._tensor(_pad_to_multiple(st.prompt))[None],
-                    self.cfg, self.cache, self._tensor(batch.page_tables[row]),
-                    prompt_len=len(st.prompt))
+                tokens = self._tensor(_pad_to_multiple(st.prompt))[None]
+                table = self._tensor(batch.page_tables[row])
+                if self.prefill_chunk_tokens:
+                    logits, self.cache = prefill_chunked(
+                        self.params, tokens, self.cfg, self.cache, table,
+                        prompt_len=len(st.prompt),
+                        chunk_tokens=self.prefill_chunk_tokens)
+                else:
+                    logits, self.cache = prefill(
+                        self.params, tokens, self.cfg, self.cache, table,
+                        prompt_len=len(st.prompt))
                 self.prefill_tokens += len(st.prompt)
                 pending.append((sid, greedy_token(logits)))
                 st.prefilled = True
@@ -201,7 +234,12 @@ class GenerationServer:
                     and len(decode_rows) == len(batch.ids)
                     and self.engine.grow_batch(self.spec_k)):
                 return self._decode_speculative(batch, decode_rows)
-            self._decode_one(batch, decode_rows)
+            n = self._chunk_len(batch, decode_rows)
+            if n > 1:
+                batch = self._advance_chunk(batch, n)
+                self._decode_chunk(batch, decode_rows, n)
+            else:
+                self._decode_one(batch, decode_rows)
         return self._finish_stamp(self._stopped + self.engine.commit())
 
     def _finish_stamp(self, sids: list[int]) -> list[int]:
@@ -226,17 +264,58 @@ class GenerationServer:
             return True
         return False
 
-    def _gather_batch(self, batch, decode_rows, pad_length: int):
+    def _chunk_len(self, batch, decode_rows) -> int:
+        """Tokens to decode this step while the batch provably cannot
+        change: nothing waits, every row is past prefill, no row reaches
+        its budget inside the chunk, and the free pages cover the chunk's
+        growth (no preemption). Rounded down to a power of two, so that
+        the loops captured are {2, 4, 8, ...}; 1 otherwise."""
+        if (self.chunk <= 1 or self.engine.waiting > 0
+                or len(decode_rows) != len(batch.ids)):
+            return 1
+        n = min([self.chunk] + [
+            self.seqs[int(batch.ids[r])].max_new
+            - len(self.seqs[int(batch.ids[r])].generated) for r in decode_rows])
+        if n <= 1:
+            return 1
+        n = 1 << (n.bit_length() - 1)
+        ps = self.page_size
+        # step() allocated through lengths + 1; the n - 1 advance steps
+        # extend coverage to lengths + n.
+        crossings = sum(-(-(int(batch.lengths[r]) + n) // ps)
+                        - -(-(int(batch.lengths[r]) + 1) // ps)
+                        for r in decode_rows)
+        return n if crossings <= self.engine.free_pages else 1
+
+    def _advance_chunk(self, batch, n: int):
+        """Run the scheduler n - 1 tokens ahead; returns the last batch,
+        whose page tables cover every slot the chunk writes. No sequence
+        can finish and none can join inside the chunk (``_chunk_len``)."""
+        ids0 = batch.ids.copy()
+        for _ in range(n - 1):
+            if self.engine.commit():
+                raise RuntimeError("a sequence finished inside a decode chunk")
+            batch = self.engine.step()
+            if not np.array_equal(batch.ids, ids0):
+                raise RuntimeError("the batch changed inside a decode chunk")
+        self.steps += n - 1
+        return batch
+
+    def _gather_batch(self, batch, decode_rows, pad_length: int,
+                      length_offset: int = 0):
         """Row-gather the decode batch and pad it to ``max_batch``.
 
         Padding rows are dummies of length ``pad_length`` whose only page is
-        the reserved scratch page.
+        the reserved scratch page (0 for a chunk, whose padding rows grow
+        through it: chunk <= page_size). ``length_offset`` is added to the
+        real rows' lengths. Returns numpy (tokens, lengths int32, tables
+        int32).
         """
         rows = np.asarray(decode_rows)
         tokens = np.array(
             [self.seqs[batch.ids[r]].generated[-1] for r in decode_rows],
             np.int64)
-        lengths = batch.lengths[rows]
+        lengths = batch.lengths[rows] + np.int32(length_offset)
         tables = batch.page_tables[rows]
         pad = self.max_batch - len(rows)
         if pad:
@@ -246,6 +325,17 @@ class GenerationServer:
             pad_tables[:, 0] = self.scratch_page
             tables = np.concatenate([tables, pad_tables], axis=0)
         return tokens, lengths, tables
+
+    def _verify(self, tokens, lengths, tables):
+        """logits (max_batch, t, vocab) of ``verify_step`` on numpy tokens
+        (max_batch, t): a graph replay on the card, eager on the CPU."""
+        tokens, lengths, tables = (torch.from_numpy(a) for a in (tokens, lengths, tables))
+        if self.graphs is not None:
+            return self.graphs.verify_step(tokens, lengths, tables)
+        logits, self.cache = verify_step(
+            self.params, tokens, self.cfg, self.cache, lengths, tables,
+            attn_int8=self.attn_int8)
+        return logits
 
     def _decode_speculative(self, batch, decode_rows) -> list[int]:
         """One verify_step scoring spec_k drafted tokens per sequence.
@@ -274,11 +364,8 @@ class GenerationServer:
             draft_lens[i] = len(d)
         # Padding rows: t tokens at positions 0..k of the scratch page.
         _, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
-        lengths = lengths + k  # the t inputs end at position lengths0 + k - 1
-        logits, self.cache = verify_step(
-            self.params, self._tensor(inputs), self.cfg, self.cache,
-            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32),
-            attn_int8=self.attn_int8)
+        lengths = lengths + np.int32(k)  # the t inputs end at position lengths0 + k - 1
+        logits = self._verify(inputs, lengths, tables)
         self.verify_steps += 1
         toks, n_emit = spec_accept_sample(
             logits, self._tensor(inputs[:, 1:]), self._tensor(draft_lens))
@@ -303,13 +390,35 @@ class GenerationServer:
                 finished.append(sid)  # budget reached
         return self._finish_stamp(self._stopped + finished)
 
+    def _decode_chunk(self, batch, decode_rows, n: int):
+        """One greedy ``decode_loop`` of n tokens for every row: a graph
+        replay on the card, eager on the CPU. Tokens after a row's stop
+        token are dropped."""
+        # decode_loop takes committed lengths; the scheduler has already
+        # allocated all n new slots, so batch.lengths is n ahead.
+        tokens, lengths, tables = self._gather_batch(
+            batch, decode_rows, pad_length=0, length_offset=-n)
+        tokens, lengths, tables = (torch.from_numpy(a) for a in (tokens, lengths, tables))
+        if self.graphs is not None:
+            out, _ = self.graphs.decode_loop(tokens, lengths, tables, n)
+        else:
+            out, self.cache, _ = decode_loop(
+                self.params, tokens, self.cfg, self.cache, lengths, tables, n,
+                attn_int8=self.attn_int8)
+        self.decode_loops += 1
+        self.decode_steps += n
+        out = out[:len(decode_rows)].tolist()  # one device-to-host copy
+        for i, r in enumerate(decode_rows):
+            sid = int(batch.ids[r])
+            for tok in out[i]:
+                self.decode_tokens += 1
+                if self._append(sid, int(tok)):
+                    break
+
     def _decode_one(self, batch, decode_rows):
         """One greedy token for every decoding row."""
         tokens, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
-        logits, self.cache = decode_step(
-            self.params, self._tensor(tokens), self.cfg, self.cache,
-            self._tensor(lengths, torch.int32), self._tensor(tables, torch.int32),
-            attn_int8=self.attn_int8)
+        logits = self._verify(tokens[:, None], lengths, tables)[:, 0]
         sids = [int(batch.ids[r]) for r in decode_rows]
         self.decode_steps += 1
         toks = greedy_token(logits[:len(sids)]).tolist()
@@ -341,6 +450,7 @@ class GenerationServer:
         return {
             "steps": self.steps,
             "decode_steps": self.decode_steps,
+            "decode_loops": self.decode_loops,
             "verify_steps": self.verify_steps,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,

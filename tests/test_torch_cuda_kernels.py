@@ -17,13 +17,19 @@ weight-only kernels (K6, K7) by the same rule in each 16-row band against
 the plain version cast to bf16 and in fp32; the a8 kernels (K8, K9) within
 one bf16 ulp of each value of the plain version, whose integer sums are
 exact as the kernel's are (on one-hot rows bit for bit), and their
-activation quantization kernel bit for bit. The training step compares
+activation quantization kernel bit for bit. The compiled step (CUDA-graph
+replays of ``models/step_graphs.py``) equals the eager step bit for bit,
+logits and pages, and counts the eager step's launches on every replay;
+``prefill_chunked`` (K1 with ``q_offset`` over [prefix | chunk]) is held to
+``prefill`` by the adaptive rule against the same model in fp32. The
+training step compares
 the parameter gradients of the split (the default) and the fused backward
 kernels with those of the plain backward: all three run the same bf16
 arithmetic and differ in summation order only, so they agree within 1e-2
 of each leaf's largest gradient (about one bf16 ulp).
 """
 
+import collections
 import dataclasses
 import os
 import re
@@ -33,7 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from flash_attention_from_scratch_tpu_torch.models import llama, train
+from flash_attention_from_scratch_tpu_torch.models import decode, llama, train
+from flash_attention_from_scratch_tpu_torch.models.step_graphs import StepGraphs
 from flash_attention_from_scratch_tpu_torch.ops import _build
 from flash_attention_from_scratch_tpu_torch.ops.configs import (
     MAX_KV_BUFFERS, DType, KernelConfig, KVLoop,
@@ -863,3 +870,178 @@ def test_train_step_on_the_kernels(cuda, monkeypatch):
     assert losses[-1] < losses[0], losses
     for n in (FLASH, KERNEL_DKV, KERNEL_DQ):
         assert _build.launch_counts[n] == before[n] + 3 * cfg.n_layers
+
+
+# The compiled step: a small model of full head width on the card, its
+# weights dense or quantized, each with a cache format.
+GRAPH_CFG = llama.LlamaConfig(vocab_size=2048, dim=1024, n_layers=2, n_heads=8,
+                              n_kv_heads=2, d_head=128, hidden_dim=2048)
+GRAPH_RECIPES = {"dense": (None, "dense"), "int8": (("int8", "bf16"), "int8"),
+                 "int4": (("int4", "bf16"), "int4"), "a8": (("int8", "int8"), "fp8")}
+GRAPH_LENGTHS = (100, 300, 37)
+GRAPH_PAGES_PER_SEQ = 8
+
+
+def _graph_model(cuda, recipe):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    weights, mode = GRAPH_RECIPES[recipe]
+    if weights is None:
+        params = llama.init_params(GRAPH_CFG, gen, cuda)
+    else:
+        params = llama.init_quantized_params(GRAPH_CFG, gen, weights[0], act=weights[1],
+                                             device=cuda)
+    batch = len(GRAPH_LENGTHS)
+    cache = decode.init_cache(GRAPH_CFG, batch * GRAPH_PAGES_PER_SEQ + 1, 64, mode, cuda)
+    tables = torch.arange(batch * GRAPH_PAGES_PER_SEQ, dtype=torch.int32,
+                          device=cuda).view(batch, -1)
+    rng = np.random.default_rng(1)
+    for b, n in enumerate(GRAPH_LENGTHS):
+        toks = torch.zeros((1, 512), dtype=torch.long, device=cuda)
+        toks[0, :n] = torch.from_numpy(rng.integers(0, GRAPH_CFG.vocab_size, n))
+        decode.prefill(params, toks, GRAPH_CFG, cache, tables[b], prompt_len=n)
+    return params, cache, tables
+
+
+def _clone(cache):
+    return dataclasses.replace(
+        cache, **{name: [p.clone() for p in getattr(cache, name)]
+                  for name in ("k_pages", "v_pages", "k_scales", "v_scales")})
+
+
+def _bits(x):
+    return x.contiguous().view(torch.uint8)
+
+
+def _same_pools(a, b):
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        for x, y in zip(getattr(a, name), getattr(b, name)):
+            assert torch.equal(_bits(x), _bits(y)), name
+
+
+def _step_inputs(t, seed, grown):
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, GRAPH_CFG.vocab_size, (len(GRAPH_LENGTHS), t)))
+    return tokens, torch.tensor([n + grown for n in GRAPH_LENGTHS], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("recipe", list(GRAPH_RECIPES))
+def test_replayed_step_equals_eager_step(cuda, recipe, t):
+    """Two steps of t tokens (the first call captures, the second only
+    replays) against the eager ``_step`` on a copy of the cache: logits and
+    every page and scale bit for bit, int8 compute too on an int8 cache."""
+    params, cache, tables = _graph_model(cuda, recipe)
+    for attn_int8 in {False, cache.mode == "int8"}:
+        replayed, eager = _clone(cache), _clone(cache)
+        graphs = StepGraphs(params, GRAPH_CFG, replayed, attn_int8=attn_int8)
+        for call in range(2):
+            tokens, lengths = _step_inputs(t, seed=call, grown=(call + 1) * t)
+            got = graphs.verify_step(tokens, lengths, tables.cpu())
+            want, _ = decode._step(params, tokens.to(cuda), GRAPH_CFG, eager,
+                                   lengths.to(cuda), tables, None, None, attn_int8)
+            assert torch.equal(_bits(got), _bits(want)), (recipe, t, attn_int8, call)
+        _same_pools(replayed, eager)
+        assert graphs.graphs == 1 and graphs.replays == 2
+        assert graphs.nonfinite_logits() == 0
+
+
+@pytest.mark.parametrize("recipe", list(GRAPH_RECIPES))
+def test_replay_counts_the_eager_launches(cuda, recipe):
+    """A replay adds to the launch counts what the eager step launches:
+    the capture and its warm-up add nothing of their own."""
+    params, cache, tables = _graph_model(cuda, recipe)
+    tokens, lengths = _step_inputs(1, seed=3, grown=1)
+    before = collections.Counter(_build.launch_counts)
+    decode.decode_step(params, tokens[:, 0].to(cuda), GRAPH_CFG, _clone(cache),
+                       lengths.to(cuda), tables)
+    eager = _build.launch_counts - before
+    assert eager  # the step launched the paged kernel (and the quantized matmuls)
+    graphs = StepGraphs(params, GRAPH_CFG, _clone(cache))
+    for n in (1, 2):
+        graphs.decode_step(tokens[:, 0], lengths, tables.cpu())
+        assert _build.launch_counts - before == collections.Counter(
+            {k: (n + 1) * c for k, c in eager.items()})
+
+
+@pytest.mark.parametrize("recipe", list(GRAPH_RECIPES))
+def test_graph_decode_loop_equals_replayed_steps(cuda, recipe):
+    """``StepGraphs.decode_loop(steps=4)`` (one graph of four steps) gives the
+    tokens and pages of four replayed decode steps fed their own argmax,
+    and of the eager ``decode_loop``."""
+    params, cache, tables = _graph_model(cuda, recipe)
+    first, lengths = _step_inputs(1, seed=4, grown=0)
+    first = first[:, 0]
+    loop_cache, step_cache, eager_cache = _clone(cache), _clone(cache), _clone(cache)
+    out, lens = StepGraphs(params, GRAPH_CFG, loop_cache).decode_loop(
+        first, lengths, tables.cpu(), 4)
+    stepper = StepGraphs(params, GRAPH_CFG, step_cache)
+    toks, lens_s = first, lengths
+    for i in range(4):
+        lens_s = lens_s + 1
+        toks = stepper.decode_step(toks, lens_s, tables.cpu()).argmax(-1).cpu()
+        assert torch.equal(toks, out[:, i].cpu()), (recipe, i)
+    assert torch.equal(lens.cpu(), lens_s)
+    _same_pools(loop_cache, step_cache)
+    eager_out, _, _ = decode.decode_loop(params, first.to(cuda), GRAPH_CFG, eager_cache,
+                                         lengths.to(cuda), tables, 4)
+    assert torch.equal(eager_out, out)
+    _same_pools(loop_cache, eager_cache)
+
+
+def test_server_replays_every_decode(cuda):
+    """On the card the server replays a graph for every decode step and
+    loop; with ``chunk=4`` and ``prefill_chunk_tokens=128`` it serves the
+    tokens of the plain server (greedy, bit-equal steps)."""
+    params, _, _ = _graph_model(cuda, "dense")
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+
+    prompts = {i: list(range(3 * i, 3 * i + n)) for i, n in enumerate((20, 300, 131))}
+    runs = []
+    for kw in ({}, dict(chunk=4, prefill_chunk_tokens=128)):
+        server = GenerationServer(params, GRAPH_CFG, num_pages=32, page_size=64,
+                                  max_batch=4, pages_per_seq=8, **kw)
+        for sid, prompt in prompts.items():
+            server.submit(sid, prompt, 11)
+        runs.append(server.run())
+        stats = server.stats()
+        if kw:  # a replay a loop, and one a step outside loops
+            assert 0 < stats["decode_loops"] <= server.graphs.replays < stats["decode_steps"]
+        else:
+            assert server.graphs.replays == stats["decode_steps"] > 0
+    assert runs[0] == runs[1]
+
+
+def test_prefill_chunked_on_k1_matches_prefill(cuda, monkeypatch):
+    """Two layers of Llama-3-8B at full width, a 2000-token prompt in
+    512-token chunks (K1 with q_offset over [prefix | chunk]) against one
+    ``prefill``: the logits by the adaptive rule against the same model in
+    fp32 (every projection an fp32 product, the plain attention), every
+    layer's K and V pages by the rule in each 64-row page."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import flash_forward_plain
+    from flash_attention_from_scratch_tpu_torch.utils.testing import adaptive_tolerance_check
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(2), cuda)
+    n = 2000
+    toks = torch.zeros((1, 2048), dtype=torch.long, device=cuda)
+    toks[0, :n] = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, n))
+    table = torch.arange(32, dtype=torch.int32, device=cuda)
+
+    def run(fn, c, **kw):
+        cache = decode.init_cache(c, 32, 64, device=cuda)
+        logits, cache = fn(params, toks, c, cache, table, prompt_len=n, **kw)
+        return logits, torch.stack([torch.stack(p) for p in (cache.k_pages, cache.v_pages)])
+
+    chunked = run(decode.prefill_chunked, cfg, chunk_tokens=512)
+    one_shot = run(decode.prefill, cfg)
+    monkeypatch.setattr(llama, "_mm", lambda x, w: x.float() @ w.float())
+    monkeypatch.setattr(llama, "flash_forward", lambda q, k, v, c, sinks=None:
+                        flash_forward_plain(q, k, v, c, sinks)[0])
+    monkeypatch.setattr(decode, "_embed",
+                        lambda p, tokens, c: p["embed"][tokens].float())
+    fp32 = run(decode.prefill, dataclasses.replace(cfg, dtype=DType.FP32))
+    ok, err, base = adaptive_tolerance_check(chunked[0], one_shot[0], fp32[0])
+    assert ok, (err, base)
+    ok, ratio, where = sliced_tolerance_check(
+        *(x[1].flatten(0, 1) for x in (chunked, one_shot, fp32)), lead=3)
+    assert ok, (ratio, where)

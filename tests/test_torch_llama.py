@@ -238,7 +238,7 @@ def test_rope_tables_match_jax(preset):
                                np.asarray(jax_llama.rope_inv_freq(jcfg)),
                                rtol=1e-6, atol=0)
     jcos, jsin = jax_llama.rope_tables(64, jcfg.d_head, jcfg.rope_theta, cfg=jcfg)
-    cos, sin = llama.rope_tables(64, cfg)
+    cos, sin = llama.rope_tables(64, cfg.d_head, cfg.rope_theta, cfg)
     np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6, rtol=0)
     np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6, rtol=0)
 

@@ -214,14 +214,30 @@ def test_attn_int8_needs_an_int8_cache(mode):
 
 
 @pytest.mark.parametrize("option", [
-    dict(temperature=0.7), dict(chunk=4),
-    dict(prefix_cache=True), dict(prefill_chunk_tokens=128), dict(lora={}),
+    dict(temperature=0.7), dict(prefix_cache=True), dict(lora={}),
     dict(mesh=object()), dict(top_k=5)])
 def test_server_unported_options_raise(option):
     params = {"embed": torch.zeros((4, 4))}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationServer(params, CFG, num_pages=8, page_size=64, max_batch=2,
                          device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [dict(chunk=4), dict(prefill_chunk_tokens=128)],
+                         ids=["chunk", "prefill_chunk_tokens"])
+def test_server_ported_options_serve(jax_params, option):
+    """``chunk`` and ``prefill_chunk_tokens`` now serve: every request gets
+    its tokens, as many as without the option."""
+    params = params_from_jax(jax.device_get(jax_params), device="cpu")
+    kw = dict(num_pages=32, page_size=64, max_batch=4, pages_per_seq=8, device="cpu")
+    servers = [GenerationServer(params, CFG, **kw),
+               GenerationServer(params, CFG, **kw, **option)]
+    for server in servers:
+        for sid, prompt in PROMPTS.items():
+            server.submit(sid, prompt, 6)
+    plain, got = (server.run() for server in servers)
+    assert {sid: len(t) for sid, t in got.items()} == {sid: 6 for sid in PROMPTS}
+    assert servers[1].stats()["decode_tokens"] == servers[0].stats()["decode_tokens"]
 
 
 def test_server_default_device_is_the_card(monkeypatch):

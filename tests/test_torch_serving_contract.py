@@ -4,7 +4,8 @@
 tokens per wall-second: both servers decode the same number of tokens (the
 rate itself is a host-clock number and is not compared). ``stats()`` has
 ``prefix_hit_pages`` (0: neither server has a prefix cache here). ``chunk``
-outside [1, page_size] raises ``ValueError`` in both. Attention sinks:
+outside [1, page_size] raises ``ValueError`` in both, and a chunk inside it
+serves. Attention sinks:
 the paged kernel has no sink term in either package, so the port refuses
 a sink config in ``prefill``, ``decode_step``, ``verify_step`` and the
 server; ``forward`` and training keep their sinks.
@@ -69,8 +70,7 @@ def test_throughput_and_stats_match_jax(servers):
 
 @pytest.mark.parametrize("chunk", [0, -1, 65])
 def test_chunk_outside_page_raises_as_in_jax(chunk):
-    """chunk outside [1, page_size] is a ValueError in both servers, ahead of
-    the port's NotImplementedError for the unported chunk > 1."""
+    """chunk outside [1, page_size] is a ValueError in both servers."""
     jparams = {"embed": jax.numpy.zeros((4, 4))}
     with pytest.raises(ValueError, match="chunk"):
         JaxGenerationServer(jparams, JCFG, num_pages=8, page_size=64, max_batch=2,
@@ -80,10 +80,23 @@ def test_chunk_outside_page_raises_as_in_jax(chunk):
                          page_size=64, max_batch=2, chunk=chunk, device="cpu")
 
 
-def test_chunk_in_range_is_still_unported():
-    with pytest.raises(NotImplementedError, match="chunk"):
-        GenerationServer({"embed": torch.zeros((4, 4))}, CFG, num_pages=8,
-                         page_size=64, max_batch=2, chunk=64, device="cpu")
+def test_chunk_in_range_serves():
+    """chunk = page_size, the largest allowed: the same decode tokens and
+    the same counters as the JAX server with that chunk."""
+    jparams = jax_init_params(JCFG, jax.random.PRNGKey(0))
+    params = params_from_jax(jax.device_get(jparams), device="cpu")
+    pair = (JaxGenerationServer(jparams, JCFG, chunk=64, **SERVE),
+            GenerationServer(params, CFG, device="cpu", chunk=64, **SERVE))
+    stats = []
+    for server in pair:
+        for sid, prompt in PROMPTS.items():
+            server.submit(sid, prompt, 9)
+        server.run()
+        stats.append(server.stats())
+    want, got = stats
+    for key in ("decode_tokens", "steps", "free_pages", "preemptions"):
+        assert got[key] == want[key], key
+    assert got["decode_loops"] >= 1
 
 
 @pytest.fixture(scope="module")

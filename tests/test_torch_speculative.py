@@ -209,6 +209,24 @@ def test_spec_server_matches_jax_server():
     assert stats["decode_tokens"] == 2 * 7
 
 
+def test_spec_server_with_padding_rows_matches_jax_server():
+    """Two requests in a batch of four: the padding rows verify their t
+    tokens at positions 0..spec_k of the scratch page, and the tokens are
+    the JAX server's."""
+    jcfg, cfg = _configs()
+    jparams = jax_llama.init_params(jcfg, jax.random.PRNGKey(2))
+    params = llama.params_from_jax(jax.device_get(jparams), device="cpu")
+    kw = dict(SERVE, max_batch=4, spec_k=3)
+    servers = [jax_generate.GenerationServer(jparams, jcfg, **kw),
+               generate.GenerationServer(params, cfg, device="cpu", **kw)]
+    for server in servers:
+        server.submit(1, REPEAT, 8)
+        server.submit(2, list(range(40, 60)), 8)
+    want, got = (server.run() for server in servers)
+    assert got == want
+    assert servers[1].stats()["verify_steps"] > 0
+
+
 @pytest.fixture(scope="module")
 def bf16_params():
     jcfg, _ = _configs("BF16")
