@@ -18,7 +18,9 @@ quantization kernel bit-equal to the plain quantization), and the flash
 backward, fused (K2) and split
 (K3), each also at the training run's shape and strided layout and on
 ragged tiles, rerun to hold dK/dV (and K3's dQ) bit for bit, plus
-autograd with sinks against autograd of the reference; (4) serve
+autograd with sinks against autograd of the reference, and the samplers
+against the CPU (``sampler_case``: the noise source's integers bit for bit,
+``sample_token`` token for token, 20,000 draws by their frequencies); (4) serve
 Llama-3-8B at full width and depth (random bf16 weights from a seed)
 through ``GenerationServer``, whose every decode and verify step is a
 CUDA-graph replay (``models/step_graphs.py``; a warm-up run of short
@@ -34,7 +36,13 @@ a 37-token phrase, drafts by prompt lookup, verify steps on the
 multi-token K4/K5; ``serve_spec`` line), then on the same weights fused
 (``fuse_projections``) with ``chunk=8`` (greedy decode loops, one graph
 each) and ``prefill_chunk_tokens=1024`` (``serve_chunk`` line: K1 per
-prefill chunk, every request teacher-forced), and hold
+prefill chunk, every request teacher-forced), then sampled (``serve_sample``:
+temperature 0.8, top-k 50, the pick inside the graphs, at chunk 1 and 8,
+whose tokens must be equal, two requests' tokens in the top 50 of their
+full-recompute logits; greedy and sampled chunk-8 runs in turns), then
+with the prefix cache (``serve_prefix``: 8 requests sharing a published
+2,048-token prefix, 256 pages claimed, K1 counted per suffix chunk,
+prefill and TTFT in turns with and without the cache), and hold
 ``prefill_chunked`` to ``prefill`` on a 4000-token prompt against the
 model in fp32 (``prefill_chunked_case``); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
@@ -56,7 +64,11 @@ prefill attention (K10) and of the K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
 counted, then hold K10 (every variant) and K11 (depth 2) against their
-plain versions on the tools' own inputs at those shapes; (9) time each kernel at its path's shapes beside its bound, its
+plain versions on the tools' own inputs at those shapes, and run the
+serving bench tools each in its own process (``tools/bench_decode.py`` at
+Llama-3-8B, int8 weights and KV, per step and ``--scan``;
+``tools/bench_serving.py`` at its defaults and with the prefix cache),
+reading back their JSON lines; (9) time each kernel at its path's shapes beside its bound, its
 plain version and the library call, with K6-K9's registers and spills
 from the build (K1 also launched as a plain grid, with its registers and
 spills; K4/K5 by CUDA-graph replay, as the card runs it faster than the
@@ -73,8 +85,10 @@ a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
-``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``train``, ``serve_quant``,
-``bench_quant``, ``bench_attention`` and ``kernels`` JSON lines and, last, one JSON object
+``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
+``serve_prefix``, ``train``, ``serve_quant``, ``bench_quant``,
+``bench_attention``, ``bench_decode``, ``bench_serving`` and ``kernels``
+JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
 """
@@ -249,6 +263,13 @@ FLASH_CASES = [(f"{kind} s{s}", s, s, kw, {})
     # 1024-token chunks, the tail padded to 128 rows) on SERVE_PROMPT_LENS.
     (f"chunk q_offset {o} s{sq}/{o + sq}", sq, o + sq, dict(causal=True, q_offset=o), {})
     for o, sq in ((1024, 512), (1024, 1024), (2048, 512), (2048, 1024), (3072, 1024))
+] + [
+    # The prefix cache's suffix chunks (``serve_prefix``: 128-token chunks
+    # at q_offset 2048-2944 after the 2,048 shared tokens, and one chunk of
+    # the tail padded to 128 rows at prefill_chunk_tokens=1024; the
+    # bench_serving tool's 128-token prefix: one chunk at q_offset 128).
+    (f"prefix q_offset {o} s{sq}/{o + sq}", sq, o + sq, dict(causal=True, q_offset=o), {})
+    for o, sq in ((2048, 128), (2944, 128), (2048, 384), (2048, 896), (128, 128))
 ]
 FORI_DEPTHS = (1, 2, 3, 4)  # K11 ring depths the cases and timings cover
 
@@ -558,31 +579,32 @@ def _warm_graphs(server, vocab: int, new_tokens: int) -> float:
 
 # GenerationServer.stats() counters that accumulate over a server's life.
 RUN_COUNTERS = ("steps", "decode_steps", "decode_loops", "verify_steps", "decode_tokens",
-                "prefill_tokens", "preemptions", "spec_proposed", "spec_accepted")
+                "prefill_tokens", "preemptions", "spec_proposed", "spec_accepted",
+                "prefix_hit_pages")
 
 
 def _drive(server, prompts, new_tokens: int) -> dict:
     """Serve ``prompts`` to the end, the launch counts set to 0 just before
     and read just after. Every logit the server picks from must be finite:
     the non-finite ones are summed on the card and read once at the end
-    (those the decode loops pick from on the card, by the server's graphs).
+    (those the host-side pick sees, the prefill's, by wrapping
+    ``generate``'s ``pick_keyed``; those the graphs pick from on the card,
+    every decode step, verify step and loop, by the server's graphs).
     Steps that prefill count as prefill time, the others as decode time."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.serving import generate
 
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
-    plain_greedy, plain_accept = generate.greedy_token, generate.spec_accept_sample
+    plain = {name: getattr(generate, name) for name in ("pick_keyed",)}
 
-    def greedy_checked(logits):
-        nonfinite.add_((~torch.isfinite(logits)).sum())
-        return plain_greedy(logits)
+    def checked(fn):
+        def pick(logits, *args, **kw):
+            nonfinite.add_((~torch.isfinite(logits)).sum())
+            return fn(logits, *args, **kw)
+        return pick
 
-    def accept_checked(logits, *args, **kw):
-        nonfinite.add_((~torch.isfinite(logits)).sum())
-        return plain_accept(logits, *args, **kw)
-
-    generate.greedy_token = greedy_checked
-    generate.spec_accept_sample = accept_checked
+    for name, fn in plain.items():  # the host-side pick: prefill
+        setattr(generate, name, checked(fn))
     graph_nonfinite = server.graphs.nonfinite_logits()
     replays = server.graphs.replays
     stats0 = server.stats()
@@ -606,7 +628,8 @@ def _drive(server, prompts, new_tokens: int) -> dict:
                 decode_s += dt
                 decode_tokens += after["decode_tokens"] - before["decode_tokens"]
     finally:
-        generate.greedy_token, generate.spec_accept_sample = plain_greedy, plain_accept
+        for name, fn in plain.items():
+            setattr(generate, name, fn)
     sync()
     wall = time.perf_counter() - t_start
     counts = dict(_build.launch_counts)  # read just after the main path
@@ -1074,6 +1097,347 @@ def prefill_chunked_case(params) -> dict:
     if not (ok and pages_ok):
         raise AssertionError("prefill_chunked disagrees with prefill beyond the rule")
     return line
+
+
+SAMPLE_VOCAB, SAMPLE_BATCH = 128256, 16  # sampler_case: Llama-3's vocabulary
+SAMPLE_DRAWS, SAMPLE_FREQ_BOUND = 20_000, 0.015
+TEMPERATURE, TOP_K = 0.8, 50  # serve_sample
+
+
+def sampler_case() -> dict:
+    """The samplers on the card against the CPU: the noise source's
+    integers for a (16 x 128,256) block in each of its three streams bit
+    for bit, ``sample_token`` on the same logits (ties included) and noise
+    token for token (greedy, temperature 0.8 with top-50 and without), and
+    20,000 sampled draws of a fixed 16-token distribution within 0.015 of
+    each softmax probability. Times one batch-16 sampled pick (noise, top-k
+    filter, argmax) and the greedy argmax by CUDA events."""
+    from flash_attention_from_scratch_tpu_torch.models.decode import (
+        STREAM_SAMPLE, noise_bits, row_keys, sample_noise, sample_token)
+
+    keys = row_keys(0, torch.arange(SAMPLE_BATCH) - 3)
+    pos = torch.arange(SAMPLE_BATCH) * 5
+    for stream in (0, 1, 2):
+        want = noise_bits(keys, pos, stream, SAMPLE_VOCAB)
+        got = noise_bits(keys.cuda(), pos.cuda(), stream, SAMPLE_VOCAB)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"sampler_case: stream {stream}'s bits differ on the card")
+    logits = torch.from_numpy(np.round(np.random.default_rng(11).standard_normal(
+        (SAMPLE_BATCH, SAMPLE_VOCAB)).astype(np.float32) * 8) / 8)
+    _, gumbel = sample_noise(keys, pos, STREAM_SAMPLE, SAMPLE_VOCAB)
+    for temperature, top_k in ((0.0, 0), (TEMPERATURE, TOP_K), (TEMPERATURE, 0)):
+        want = sample_token(logits, gumbel, temperature, top_k)
+        got = sample_token(logits.cuda(), gumbel.cuda(), temperature, top_k)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"sampler_case: sample_token differs on the card at "
+                                 f"temperature {temperature}, top_k {top_k}")
+    small = torch.from_numpy(np.random.default_rng(12).standard_normal(16).astype(
+        np.float32)).cuda()
+    _, g = sample_noise(row_keys(1, torch.zeros(SAMPLE_DRAWS, dtype=torch.int64)).cuda(),
+                        torch.arange(SAMPLE_DRAWS, device="cuda"), STREAM_SAMPLE, 16)
+    toks = sample_token(small.expand(SAMPLE_DRAWS, 16), g, 1.0, 0)
+    freq = torch.bincount(toks, minlength=16).double() / SAMPLE_DRAWS
+    worst = float((freq - torch.softmax(small.double(), -1)).abs().max())
+    if worst >= SAMPLE_FREQ_BOUND:
+        raise AssertionError(f"sampler_case: a frequency is {worst} from its probability")
+    lg, kc, pc = logits.cuda(), keys.cuda(), pos.cuda()
+    pick_ms = 1e3 * median_runtime(lambda: sample_token(
+        lg, sample_noise(kc, pc, STREAM_SAMPLE, SAMPLE_VOCAB)[1], TEMPERATURE, TOP_K))
+    noise_ms = 1e3 * median_runtime(lambda: sample_noise(kc, pc, STREAM_SAMPLE, SAMPLE_VOCAB))
+    line = {"batch": SAMPLE_BATCH, "vocab": SAMPLE_VOCAB, "bits_bitwise": True,
+            "sample_token_equal": True, "draws": SAMPLE_DRAWS,
+            "worst_freq_err": worst, "freq_bound": SAMPLE_FREQ_BOUND,
+            "sampled_pick_ms": pick_ms, "noise_ms": noise_ms,
+            "greedy_pick_ms": 1e3 * median_runtime(lambda: lg.argmax(-1))}
+    print(f"sampler_case: {json.dumps(line)}", flush=True)
+    return line
+
+
+def _teacher_forced_topk(params, cfg, prompt, generated, sid: int) -> tuple[float, float]:
+    """Holds the sampled tokens of sequence ``sid`` (seed 0, TEMPERATURE,
+    TOP_K) to its full-recompute logits. Returns (the worst k-th largest
+    logit minus the token's logit, the worst row max of the sampling score
+    minus the token's score), the score being what the server's pick
+    maximizes: ``top_k_filter(logits) / TEMPERATURE`` plus the Gumbels of
+    (row_keys(0, sid), position i) for token i. The first may reach SLACK
+    and the second SLACK / TEMPERATURE (the served and recomputed bf16
+    logits differ in their last bits; a tie at the k-th value is 0): a
+    server that drew with another temperature, key or position, or
+    greedily, fails the second."""
+    from flash_attention_from_scratch_tpu_torch.models.decode import (
+        STREAM_SAMPLE, row_keys, sample_noise, top_k_filter)
+    from flash_attention_from_scratch_tpu_torch.models.llama import forward
+
+    toks = list(prompt) + list(generated[:-1])
+    arr = torch.zeros((1, len(toks) + (-len(toks)) % 64), dtype=torch.int64, device="cuda")
+    arr[0, :len(toks)] = torch.tensor(toks, device="cuda")
+    rows = forward(params, arr, cfg)[0][len(prompt) - 1:len(prompt) - 1 + len(generated)]
+    if not torch.isfinite(rows).all():
+        raise AssertionError("non-finite logits in the full-recompute forward")
+    rows = rows.float()
+    gen = torch.tensor(generated, device="cuda")[:, None]
+    kth = torch.topk(rows, TOP_K, dim=-1).values[:, -1]
+    got = rows.gather(1, gen)[:, 0]
+    n = len(generated)
+    _, gumbel = sample_noise(row_keys(0, torch.full((n,), sid)).cuda(),
+                             torch.arange(n, device="cuda"), STREAM_SAMPLE, cfg.vocab_size)
+    best = (top_k_filter(rows, TOP_K) / TEMPERATURE + gumbel).max(-1).values
+    served = (rows / TEMPERATURE + gumbel).gather(1, gen)[:, 0]
+    return float((kth - got).max()), float((best - served).max())
+
+
+def _serve_run(label, server, prompts, smi, extra=None) -> dict:
+    """One counted serving run (``_drive``) and its line's common fields."""
+    run = _drive(server, prompts, SERVE_NEW_TOKENS)
+    stats = run["stats"]
+    got = {sid: list(server.seqs[sid].generated) for sid in prompts}
+    if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
+        raise AssertionError(f"{label}: token counts {[len(g) for g in got.values()]}")
+    if run["nonfinite"] or stats["preemptions"]:
+        raise AssertionError(f"{label}: {run['nonfinite']} non-finite logits, "
+                             f"{stats['preemptions']} preemptions")
+    ttft = sorted(server.seqs[sid].first_t - server.seqs[sid].submit_t for sid in prompts)
+    for sid in prompts:
+        del server.seqs[sid]  # the next run reuses the ids
+    return {"run": run, "tokens": got, "line": {
+        "decode_tok_s": (run["decode_tokens"] / run["decode_s"]) if run["decode_s"] else None,
+        "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+        "wall_s": run["wall_s"], "decode_steps": stats["decode_steps"],
+        "decode_loops": stats["decode_loops"], "replays": run["replays"],
+        "prefix_hit_pages": stats["prefix_hit_pages"], **(extra or {}), "gpu": smi}}
+
+
+def phase_serve_sample(params, smi: str) -> dict:
+    """Sampled serving of LLAMA3_8B at full width and depth on the fused
+    weights of ``serve_chunk``: the 8 prompts of SERVE_PROMPT_LENS, 32
+    tokens each at temperature 0.8, top-k 50, seed 0, whole-prompt prefill,
+    served at chunk 1 (a sampled decode graph a step, the pick inside) and
+    at chunk 8 (sampled loop graphs). Checks that the two give the same
+    tokens, no non-finite logit, the launch counts of K1 and K4/K5 (and its
+    merge) in each, and that every token of two requests lies in the top
+    50 of its full-recompute logits and is the best-scoring draw of its
+    key and position there (``_teacher_forced_topk``). Then times chunk 8
+    greedy against sampled, alternated (sampled, greedy, sampled, greedy;
+    the first sampled run is the checked one; its tokens must differ from
+    the greedy turn's), and profiles a sampled step and loop."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, GenerationServer
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = LLAMA3_8B
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(SERVE_PROMPT_LENS)}
+
+    def server(chunk, temperature):
+        s = GenerationServer(params, cfg, num_pages=SERVE_PAGES, page_size=SERVE_PAGE_SIZE,
+                             max_batch=8, pages_per_seq=SERVE_PAGES_PER_SEQ, chunk=chunk,
+                             temperature=temperature, top_k=TOP_K, seed=0)
+        return s, _warm_graphs(s, cfg.vocab_size, SERVE_NEW_TOKENS)
+
+    lines, tokens, counts = {}, {}, {}
+    for chunk in (1, CHUNK):
+        s, warm = server(chunk, TEMPERATURE)
+        out = _serve_run(f"serve_sample chunk {chunk}", s, prompts, smi,
+                         {"chunk": chunk, "warm_up_s": warm})
+        stats = out["run"]["stats"]
+        want = _with_merges({K1: cfg.n_layers * len(prompts),
+                             KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                            SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+        counts[chunk] = out["run"]["counts"]
+        print(f"serve_sample: chunk {chunk} launches {counts[chunk]}; expected {want}",
+              flush=True)
+        if counts[chunk] != want:
+            raise AssertionError(f"serve_sample chunk {chunk}: a kernel of the path ran "
+                                 "the wrong number of times")
+        if chunk == CHUNK and stats["decode_loops"] == 0:
+            raise AssertionError("serve_sample: no sampled decode loop ran")
+        tokens[chunk] = out["tokens"]
+        prof = phase_profile(s, prompts, run=f"sample chunk {chunk}")
+        lines[chunk] = {**out["line"], **_graph_fields(s, out["run"], prof),
+                        "device_ms_per_step_by_class": prof["device_ms_per_step_by_class"]}
+        if chunk == CHUNK:
+            sampled8 = s
+        else:
+            del s
+    if tokens[1] != tokens[CHUNK]:
+        diff = [sid for sid in prompts if tokens[1][sid] != tokens[CHUNK][sid]]
+        raise AssertionError(f"serve_sample: chunk 1 and chunk {CHUNK} differ for {diff}")
+    worst = score_worst = 0.0
+    for n in TEACHER_FORCED:
+        sid = SERVE_PROMPT_LENS.index(n)
+        gap, score_gap = _teacher_forced_topk(params, cfg, prompts[sid], tokens[1][sid], sid)
+        worst, score_worst = max(worst, gap), max(score_worst, score_gap)
+    print(f"serve_sample: teacher-forced top-{TOP_K}: worst gap below the k-th logit "
+          f"{worst:.4f} <= {SLACK}; worst score below the row's best "
+          f"{score_worst:.4f} <= {SLACK / TEMPERATURE}", flush=True)
+    if worst > SLACK:
+        raise AssertionError(f"serve_sample: a token lies {worst} below its top {TOP_K}")
+    if score_worst > SLACK / TEMPERATURE:
+        raise AssertionError(f"serve_sample: a token's sampling score lies {score_worst} "
+                             "below its row's best: not the draw of its key and position")
+    greedy8, _ = server(CHUNK, 0.0)
+    turns, greedy_tokens = [], None
+    for name, s in (("greedy", greedy8), ("sampled", sampled8), ("greedy", greedy8)):
+        out = _serve_run(f"serve_sample {name} turn", s, prompts, smi)
+        turns.append((name, out["line"]["decode_tok_s"]))
+        if name == "greedy" and greedy_tokens is None:
+            greedy_tokens = out["tokens"]
+    del greedy8, sampled8
+    differ = sum(a != b for sid in prompts
+                 for a, b in zip(tokens[CHUNK][sid], greedy_tokens[sid]))
+    print(f"serve_sample: {differ} of {len(prompts) * SERVE_NEW_TOKENS} sampled tokens "
+          "differ from the greedy turn's", flush=True)
+    if differ == 0:
+        raise AssertionError("serve_sample: the sampled server served the greedy tokens")
+    line = {"model": "LLAMA3_8B", "layers": cfg.n_layers, "fused": True,
+            "requests": len(prompts), "temperature": TEMPERATURE, "top_k": TOP_K,
+            "seed": 0, "new_tokens_per_request": SERVE_NEW_TOKENS,
+            "tokens_equal_chunk_1_8": True, "teacher_forced_topk_worst_gap": worst,
+            "teacher_forced_score_worst_gap": score_worst,
+            "score_gap_bound": SLACK / TEMPERATURE, "tokens_differing_from_greedy": differ,
+            "runs": {str(c): l for c, l in lines.items()},
+            "chunk8_decode_tok_s_turns": [("sampled", lines[CHUNK]["decode_tok_s"])] + turns,
+            "launches": counts[1], "launches_chunk8": counts[CHUNK], "gpu": smi}
+    print(json.dumps({"serve_sample": line}), flush=True)
+    return {"counts": counts}
+
+
+PREFIX_SHARED, PREFIX_TAILS = 2048, (256, 1024, 384, 896, 512, 768, 640, 300)
+
+
+def phase_serve_prefix(params, smi: str) -> dict:
+    """The prefix cache at full width and depth (bf16, the fused weights):
+    one request publishes a 2,048-token prefix (32 pages of 64), then 8
+    requests share it with distinct 256-1,024-token tails, 32 greedy
+    tokens each. Checks 8 x 32 = 256 pages claimed (the pool evicts
+    nothing), K1's launches (32 a suffix chunk of 128 tokens actually
+    computed; K4/K5 and its merge a decode step) and two requests
+    teacher-forced through ``forward``. Then times prefill tokens/s and
+    TTFT without the cache, with it, and with it at
+    ``prefill_chunk_tokens=1024`` (one suffix chunk a request), on new
+    tails each run (the shared prefix alone is published for them): one
+    untimed run of each server that has not yet prefilled such prompts,
+    then in turns without, with, with 1024, with 1024, with, without."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, GenerationServer
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = LLAMA3_8B
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_SHARED).tolist()
+    publisher = shared + rng.integers(0, cfg.vocab_size, 100).tolist()
+
+    def new_prompts():  # the same tail lengths, new tokens
+        return {i: shared + rng.integers(0, cfg.vocab_size, n).tolist()
+                for i, n in enumerate(PREFIX_TAILS)}
+
+    servers = {}
+    for name, kw in (("none", {}), ("cache", dict(prefix_cache=True)),
+                     ("cache_1024", dict(prefix_cache=True, prefill_chunk_tokens=1024))):
+        s = GenerationServer(params, cfg, num_pages=SERVE_PAGES, page_size=SERVE_PAGE_SIZE,
+                             max_batch=8, pages_per_seq=SERVE_PAGES_PER_SEQ, **kw)
+        warm = _warm_graphs(s, cfg.vocab_size, SERVE_NEW_TOKENS)
+        s.submit(-100, publisher, 1)
+        while s.has_work:  # prefilled and published before the counted run
+            s.step()
+        servers[name] = (s, warm)
+    s, warm = servers["cache"]
+    prompts = new_prompts()
+    out = _serve_run("serve_prefix", s, prompts, smi, {"cache": True, "warm_up_s": warm})
+    stats, counts = out["run"]["stats"], out["run"]["counts"]
+    hits = stats["prefix_hit_pages"]
+    pages = PREFIX_SHARED // SERVE_PAGE_SIZE
+    if hits != len(prompts) * pages:
+        raise AssertionError(f"serve_prefix: {hits} pages claimed, not "
+                             f"{len(prompts)} x {pages}")
+    chunk = s._pc_chunk
+    suffix_chunks = sum(-(-n // chunk) for n in PREFIX_TAILS)
+    want = _with_merges({K1: cfg.n_layers * suffix_chunks,
+                         KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                        SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+    print(f"serve_prefix: launches {counts}; expected {want} ({cfg.n_layers} layers x "
+          f"{suffix_chunks} suffix chunks of {chunk} tokens)", flush=True)
+    if counts != want:
+        raise AssertionError("serve_prefix: a kernel of the path ran the wrong number of times")
+    worst = max(_teacher_forced_check(params, cfg, prompts[sid], out["tokens"][sid])
+                for sid in (0, 1))
+    print(f"serve_prefix: teacher-forced two requests: worst gap {worst:.4f} <= {SLACK} ok",
+          flush=True)
+    turns = []
+    for name in ("none", "cache_1024", "none", "cache", "cache_1024", "cache_1024",
+                 "cache", "none"):
+        r = _serve_run("serve_prefix turn", servers[name][0], new_prompts(), smi)["line"]
+        if r["prefix_hit_pages"] != (len(prompts) * pages if name != "none" else 0):
+            raise AssertionError(f"serve_prefix: a turn claimed {r['prefix_hit_pages']} pages")
+        turns.append({"server": name, "prefill_tok_s": r["prefill_tok_s"],
+                      "ttft_p50_s": r["ttft_p50_s"], "prefix_hit_pages": r["prefix_hit_pages"]})
+    del servers, s
+    line = {"model": "LLAMA3_8B", "layers": cfg.n_layers, "fused": True,
+            "shared_prefix": PREFIX_SHARED, "tails": list(PREFIX_TAILS),
+            "page_size": SERVE_PAGE_SIZE, "suffix_chunk_tokens": chunk,
+            "prefix_hit_pages": hits, "suffix_chunks": suffix_chunks,
+            "teacher_forced_worst_gap": worst, **out["line"],
+            "untimed_first_runs": turns[:2], "turns": turns[2:],
+            "launches": counts}
+    print(json.dumps({"serve_prefix": line}), flush=True)
+    return {"counts": counts}
+
+
+SERVING_TOOLS = (
+    ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8")),
+    ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8", "--scan")),
+    ("bench_serving", ("--model", "8b")),
+    ("bench_serving", ("--model", "8b", "--prefix-cache", "--shared-prefix", "128")),
+)
+# The keys of the JAX tools' result lines, which the port's tools print.
+TOOL_KEYS = {
+    "bench_decode": ("metric", "value", "unit", "ms_per_step", "batch", "context",
+                     "tokens_per_s_per_seq", "hbm_roofline_tokens_per_s",
+                     "pct_of_roofline", "hbm_bound_ms", "mxu_bound_ms",
+                     "binding_constraint", "pct_of_bound", "param_gb", "cache_gb", "device"),
+    "bench_serving": ("metric", "value", "unit", "requests", "prompt_len", "new_tokens",
+                      "chunk", "spec_k", "spec_proposed", "spec_accepted",
+                      "prefix_hits_pages", "max_batch", "scheduler_steps", "preemptions",
+                      "wall_s", "ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50",
+                      "tpot_ms_p99", "total_new_tokens", "device"),
+}
+
+
+def phase_serving_tools(smi: str) -> list:
+    """The port's serving bench tools as a user runs them, each in its own
+    process (``python -m flash_attention_from_scratch_tpu_torch.tools...``,
+    from this checkout): bench_decode at the JAX package's north-star
+    decode shape (8b, int8 weights, int8 KV, batch 16, context 1024) per
+    step and with --scan, bench_serving at its defaults and with the prefix
+    cache over a 128-token shared prefix. Each must exit 0 and print a JSON
+    line with the JAX tool's keys (the prefix run with pages claimed)."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for tool, args in SERVING_TOOLS:
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", f"flash_attention_from_scratch_tpu_torch.tools.{tool}",
+               *args]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        took = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"{tool} {' '.join(args)} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        missing = [k for k in TOOL_KEYS[tool] if k not in line]
+        if missing or not line["value"] > 0:
+            raise AssertionError(f"{tool} {' '.join(args)}: missing {missing} in {line}")
+        if "--prefix-cache" in args and not line["prefix_hits_pages"] > 0:
+            raise AssertionError(f"bench_serving --prefix-cache claimed no page: {line}")
+        print(json.dumps({tool: {"args": " ".join(args), "process_s": took, **line,
+                                 "gpu": smi}}), flush=True)
+        results.append(line)
+    return results
 
 
 def train_flops(cfg, batch: int, seq: int) -> float:
@@ -2494,7 +2858,8 @@ def phase_bench_tools(smi: str) -> dict:
 def serving_turn() -> None:
     """The serving runs alone, to time this tree against another in one
     call (parent, change, change, parent): bf16 serving (graph cases and
-    profile), ``serve_chunk`` on the fused weights, quantized runs A and B.
+    profile), ``serve_chunk``, ``serve_sample`` and ``serve_prefix`` on the
+    fused weights, quantized runs A and B.
     Run: ``python3 -c "import chip_smoke; chip_smoke.serving_turn()"``."""
     smi = phase_device()
     phase_build()
@@ -2503,6 +2868,8 @@ def serving_turn() -> None:
     del served
     _fuse_in_place(params)
     phase_serve_chunk(params, smi)
+    phase_serve_sample(params, smi)
+    phase_serve_prefix(params, smi)
     del params
     torch.cuda.empty_cache()
     for run in ("A", "B"):
@@ -2526,6 +2893,7 @@ def main(argv=None) -> int:
     multi_err, multi_ratio = phase_paged_multi_cases()
     qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
+    sampled_pick = sampler_case()
     served = phase_serve(smi)
     counts = served["counts"]
     params = served["server"].params
@@ -2533,6 +2901,8 @@ def main(argv=None) -> int:
     del served
     _fuse_in_place(params)
     chunked = phase_serve_chunk(params, smi)
+    sampled = phase_serve_sample(params, smi)
+    prefixed = phase_serve_prefix(params, smi)
     chunk_case = prefill_chunked_case(params)
     del params  # frees the 16 GB of weights before training
     torch.cuda.empty_cache()
@@ -2545,6 +2915,8 @@ def main(argv=None) -> int:
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
+    torch.cuda.empty_cache()
+    phase_serving_tools(smi)
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
@@ -2562,6 +2934,8 @@ def main(argv=None) -> int:
          "launches": counts.get(K1, 0), "max_abs_err": flash_err,
          "worst_err_bound": flash_ratio,
          "launches_serve_chunk": chunked["counts"].get(K1, 0),
+         "launches_serve_sample": sampled["counts"][1].get(K1, 0),
+         "launches_serve_prefix": prefixed["counts"].get(K1, 0),
          "prefill_chunked_case": chunk_case,
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
@@ -2574,8 +2948,14 @@ def main(argv=None) -> int:
              KERNEL_INT8C: quant_runs["E"]["counts"].get(KERNEL_INT8C, 0),
              KERNEL_MULTI_INT8C: quant_runs["F"]["counts"].get(KERNEL_MULTI_INT8C, 0)},
          "launches_serve_chunk": chunked["counts"].get(KP, 0),
+         "launches_serve_sample": {str(c): n.get(KP, 0)
+                                   for c, n in sampled["counts"].items()},
+         "launches_serve_prefix": prefixed["counts"].get(KP, 0),
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
-                          "multi_int8c: run F; every count by CUDA-graph replay",
+                          "multi_int8c: run F; serve_sample at chunk 1 and 8 (the "
+                          "pick in the graphs), serve_prefix; every count by "
+                          "CUDA-graph replay",
+         "sampled_pick": sampled_pick,
          "merge": {"name": KERNEL_MERGE, "source": pkg + "paged_attention.cu",
                    "launches": counts.get(KERNEL_MERGE, 0),
                    "launches_path": "bf16 serving (one a K4/K5 call)"},

@@ -13,7 +13,8 @@ As in the JAX package, ``forward`` is the attention forward
 
 from .models.decode import (
     PagedKVCache, decode_loop, decode_step, greedy_token, init_cache, prefill,
-    prefill_chunked, spec_accept_sample, verify_step,
+    prefill_chunked, row_keys, sample_noise, sample_token, spec_accept_sample,
+    verify_step,
 )
 from .models.llama import (
     LLAMA3_8B, LLAMA31_8B, MISTRAL_7B, LlamaConfig, fuse_projections,
@@ -60,7 +61,7 @@ __all__ = [
     "make_train_step",
     "PagedKVCache", "init_cache", "prefill", "prefill_chunked", "decode_step",
     "verify_step", "decode_loop", "spec_accept_sample", "greedy_token",
-    "StepGraphs",
+    "sample_token", "sample_noise", "row_keys", "StepGraphs",
     "PagedEngine", "Batch", "GenerationServer",
     "adaptive_tolerance_check", "error_stats", "make_qkv",
 ]

@@ -7,10 +7,19 @@ a time, each chunk attending to the pages of the ones before it;
 :func:`decode_step` writes each new token's K/V into its page and then
 runs the paged decode kernel for the whole batch; :func:`verify_step` does
 the same for t tokens per sequence in one pass (speculative verify), and
-:func:`spec_accept_sample` accepts drafts greedily; :func:`decode_loop`
-runs several greedy decode steps, each feeding its argmax to the next.
+:func:`spec_accept_sample` accepts drafts, greedily or by the
+delta-proposal rule (:func:`pick_keyed`: the server's pick of a decode
+or verify step); :func:`decode_loop` runs several decode steps, each
+feeding its pick (the argmax, or :func:`sample_token`) to the next.
 These functions run eagerly; ``models/step_graphs.py`` captures the decode
 steps and the loop as CUDA graphs (the JAX package's ``jax.jit``).
+
+Sampling draws its noise from :func:`sample_noise`, a counter-based hash of
+(sequence key, position, stream, index) in integer tensor ops: the same
+bits on the CPU and on the card, no ``torch.Generator``, nothing read on the
+host, so it is captured in a CUDA graph like any other op. torch cannot
+reproduce ``jax.random``: the port samples from the JAX package's
+distributions, not with its draws.
 
 The cache is dense (the model's dtype) or quantized: int8, fp8 e4m3 or
 int4 packed along the tokens of a page, with fp32 scales per (kv_head,
@@ -43,7 +52,8 @@ from .llama import (
 
 __all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
            "decode_step", "verify_step", "decode_loop", "spec_accept_sample",
-           "greedy_token"]
+           "greedy_token", "sample_token", "pick_keyed", "sample_noise", "noise_bits",
+           "row_keys"]
 
 
 def _not_ported(what: str):
@@ -391,7 +401,7 @@ def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
                 lengths, page_tables, steps: int, *, row_keys=None, pos0=None,
                 temperature: float = 0.0, top_k: int = 0, mesh=None,
                 attn_int8: bool = False, lora=None, adapter_ids=None):
-    """``steps`` greedy decode steps, each feeding its argmax to the next.
+    """``steps`` decode steps, each feeding its pick to the next.
 
     Args:
       tokens: (batch,) int: the last committed token of each sequence.
@@ -400,34 +410,53 @@ def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
         lengths include the token being decoded).
       page_tables: (batch, pages_per_seq) int32 covering ``lengths +
         steps``: the pages for the whole chunk are allocated beforehand.
+      row_keys: optional (batch,) int64 sequence keys (:func:`row_keys`, the
+        port's form of the JAX ``fold_in(key, sid)``).
+      pos0: (batch,) int: generated-token count of each row at the call's
+        start; step i samples row r at position ``pos0[r] + i``.
 
-    Token selection stays on the device: no host round trip between
-    steps. Sampling (``temperature > 0``, ``top_k`` or ``row_keys``, with
-    ``pos0``) is not ported yet and raises ``NotImplementedError`` (ROADMAP
-    Queue 1, the samplers). Writes the pages in place and returns
-    (tokens (batch, steps), cache, lengths + steps).
+    Token selection stays on the device: no host round trip between steps.
+    Greedy at ``temperature <= 0`` or without ``row_keys`` (as in the JAX
+    package); else :func:`sample_token` on the Gumbels of (row key,
+    position), so a loop of n steps picks what n single steps would.
+    Sampling without ``pos0`` raises ``ValueError``. Writes the pages in
+    place and returns (tokens (batch, steps), cache, lengths + steps).
     """
-    del pos0, adapter_ids  # read by the samplers and LoRA, neither ported
-    if temperature > 0.0 or top_k or row_keys is not None:
-        raise _not_ported("sampling in decode_loop (temperature > 0, top_k, "
-                          "row_keys; the samplers)")
+    del adapter_ids  # read by LoRA, not ported
+    if temperature > 0.0 and row_keys is not None and pos0 is None:
+        raise ValueError("sampling in decode_loop needs pos0 beside row_keys")
 
     def step(toks, lens):
         return decode_step(params, toks, cfg, cache, lens, page_tables,
                            lora=lora, mesh=mesh, attn_int8=attn_int8)[0]
 
-    out, lengths = greedy_loop(step, tokens, lengths, steps)
+    out, lengths = pick_loop(
+        step, loop_pick(row_keys, pos0, temperature, top_k), tokens, lengths, steps)
     return out, cache, lengths
 
 
-def greedy_loop(step, tokens, lengths, steps: int):
+def loop_pick(row_keys, pos0, temperature: float, top_k: int):
+    """The pick of step i of a decode loop, ``pick(logits, i) -> tokens``:
+    the argmax at ``temperature <= 0`` or without ``row_keys``, else
+    :func:`sample_token` on the Gumbels of (row_keys, pos0 + i)."""
+    if temperature <= 0.0 or row_keys is None:
+        return lambda logits, i: greedy_token(logits)
+
+    def pick(logits, i):
+        _, gumbel = sample_noise(row_keys, pos0 + i, STREAM_SAMPLE, logits.shape[-1])
+        return sample_token(logits, gumbel, temperature, top_k)
+
+    return pick
+
+
+def pick_loop(step, pick, tokens, lengths, steps: int):
     """The body of :func:`decode_loop` over ``step(tokens, lengths) ->
-    logits``: each step's lengths one longer, its argmax the next tokens.
-    Returns (tokens (batch, steps), lengths + steps)."""
+    logits``: each step's lengths one longer, ``pick(logits, i)`` the next
+    tokens. Returns (tokens (batch, steps), lengths + steps)."""
     out = []
-    for _ in range(steps):
+    for i in range(steps):
         lengths = lengths + 1
-        tokens = greedy_token(step(tokens, lengths))
+        tokens = pick(step(tokens, lengths), i)
         out.append(tokens)
     return torch.stack(out, dim=1), lengths
 
@@ -526,45 +555,200 @@ def _write_rows(cache: PagedKVCache, li: int, k, v, page_of, slot_of,
         pool[:, pages, byte_rows] = pack_int4(lo, hi).flatten(1, 2)
 
 
-def spec_accept_sample(logits, drafts, draft_lens, temperature: float = 0.0):
-    """Greedy speculative acceptance (the JAX ``spec_accept_sample`` at
-    ``temperature <= 0``).
+def spec_accept_sample(logits, drafts, draft_lens, temperature: float = 0.0,
+                       top_k: int = 0, *, uniforms=None, gumbel=None):
+    """Speculative acceptance: greedy, or the JAX package's delta-proposal
+    sampling, which keeps the target distribution exactly.
 
     Args:
       logits: (batch, t, vocab) fp32 from :func:`verify_step`, t = k + 1.
       drafts: (batch, k) int, zero-padded past ``draft_lens``.
       draft_lens: (batch,) int: real draft tokens per row (padding slots
         are never accepted).
+      temperature, top_k: the shaping of :func:`sample_token` (the top-k
+        filter first, then logits / max(temperature, 1e-6)).
+      uniforms: (batch, k) in (0, 1): draft j + 1 is accepted while
+        ``uniforms[:, j] < p_j(d_{j+1})``, the JAX rule (its uniforms are
+        ``jax.random.uniform(fold_in(key, 0), (k,))``), so that under the
+        JAX package's noise this function gives its tokens. None (the
+        server's rule, :func:`pick_keyed`): accepted while it is the
+        Gumbel-max sample of row j under ``gumbel[:, j]``, an event of the
+        same probability p_j(d_{j+1}).
+      gumbel: Gumbel noise of the emitted token, (batch, vocab) (the JAX
+        ``fold_in(key, 1)`` draw) or (batch, t, vocab), of which row
+        ``n_acc`` is taken. Without ``uniforms`` it must be (batch, t,
+        vocab): with each row's Gumbels the ones :func:`sample_token` would
+        use at that position, a step emits exactly the tokens plain
+        sampling would (the correction is the sample itself whenever that
+        is not the refused draft).
 
-    Draft j + 1 is accepted while it equals the argmax of row j; the first
-    refused row, or row k after a fully accepted draft, contributes its
-    argmax. Returns (tokens (batch, t), n_emit (batch,)): row i emits
-    tokens[i, :n_emit[i]], the accepted drafts and then that token.
-    ``temperature > 0`` (sampled acceptance) raises ``NotImplementedError``:
-    its draws come from ``jax.random``, which the port cannot reproduce.
+    Greedy at ``temperature <= 0`` (no noise read): draft j + 1 is accepted
+    while it equals the argmax of row j. Sampled: after the first refusal
+    the emitted token is drawn from row n_acc's distribution with the
+    refused draft masked out (the residual), only where a real draft token
+    was refused (``n_acc < draft_lens``); after a fully accepted draft it
+    is drawn from row n_acc's plain distribution (the bonus). Returns
+    (tokens (batch, t), n_emit (batch,)): row i emits tokens[i, :n_emit[i]],
+    the accepted drafts and then that token.
     """
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampled speculative acceptance (temperature > 0) is not ported yet "
-            "(ROADMAP Queue 1 item 6, the samplers)")
-    batch, t, _ = logits.shape
+    batch, t, vocab = logits.shape
     k = t - 1
-    preds = torch.argmax(logits, dim=-1)  # (batch, t)
-    drafts = drafts.to(preds.device, preds.dtype)
-    steps = torch.arange(k, device=preds.device)[None, :]
-    match = (preds[:, :k] == drafts) & (steps < draft_lens.to(preds.device)[:, None])
+    dev = logits.device
+    drafts = drafts.to(dev, torch.int64)
+    draft_lens = draft_lens.to(dev)
+    logits = top_k_filter(logits, top_k)
+    if temperature <= 0.0:
+        preds = torch.argmax(logits, dim=-1)  # (batch, t)
+        match = preds[:, :k] == drafts
+    else:
+        if gumbel is None or (uniforms is None and gumbel.dim() != 3):
+            raise ValueError("sampled acceptance needs gumbel (batch, t, vocab), "
+                             "or uniforms and gumbel")
+        scaled = logits / max(temperature, 1e-6)
+        if uniforms is not None:
+            p_draft = torch.softmax(scaled[:, :k], dim=-1).gather(
+                -1, drafts[..., None])[..., 0]  # (batch, k)
+            match = uniforms.to(dev) < p_draft
+        else:
+            match = torch.argmax(scaled[:, :k] + gumbel[:, :k], dim=-1) == drafts
+    steps = torch.arange(k, device=dev)[None, :]
+    match = match & (steps < draft_lens[:, None])
     # First refusal per row (k when the whole draft is accepted).
-    refused = torch.cat([~match, torch.ones((batch, 1), dtype=torch.bool,
-                                            device=preds.device)], dim=1)
+    refused = torch.cat([~match, torch.ones((batch, 1), dtype=torch.bool, device=dev)],
+                        dim=1)
     n_acc = torch.argmax(refused.to(torch.int8), dim=1)
-    tail = preds.gather(1, n_acc[:, None])
-    pos = torch.arange(t, device=preds.device)[None, :]
-    padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    padded = torch.cat([drafts, drafts.new_zeros((batch, 1))], dim=1)
+    if temperature <= 0.0:
+        tail = preds.gather(1, n_acc[:, None])
+    else:
+        row = logits.gather(1, n_acc[:, None, None].expand(batch, 1, vocab))[:, 0]
+        refused_draft = padded.gather(1, n_acc[:, None])  # (batch, 1)
+        was_rejected = (n_acc < draft_lens)[:, None]
+        onehot = torch.arange(vocab, device=dev)[None, :] == refused_draft
+        residual = row.masked_fill(was_rejected & onehot, float("-inf"))
+        if gumbel.dim() == 3:
+            gumbel = gumbel.gather(1, n_acc[:, None, None].expand(batch, 1, vocab))[:, 0]
+        tail = torch.argmax(residual / max(temperature, 1e-6) + gumbel, dim=-1)[:, None]
+    pos = torch.arange(t, device=dev)[None, :]
     toks = torch.where(pos < n_acc[:, None], padded, 0)
     toks = torch.where(pos == n_acc[:, None], tail, toks)
     return toks, n_acc + 1
 
 
+def pick_keyed(logits, drafts, draft_lens, row_keys, pos0, temperature: float,
+               top_k: int):
+    """The server's pick in a decode step (t = 1, no drafts) or a verify
+    step: :func:`spec_accept_sample` with row j of each sequence drawn from
+    the Gumbels of (row key, pos0 + j) on stream 0, the ones
+    :func:`sample_token` uses at that position, so a token does not depend
+    on the step that drew it; greedy at ``temperature <= 0`` (no noise
+    made). ``logits`` (batch, t, vocab), ``drafts`` (batch, t - 1),
+    ``draft_lens``, ``row_keys`` and ``pos0`` (batch,), all on one device.
+    Returns (tokens (batch, t), n_emit (batch,))."""
+    gumbel = None
+    if temperature > 0.0:
+        pos = pos0[:, None] + torch.arange(logits.shape[1], device=pos0.device)[None, :]
+        _, gumbel = sample_noise(row_keys[:, None], pos, STREAM_SAMPLE, logits.shape[-1])
+    return spec_accept_sample(logits, drafts, draft_lens, temperature, top_k,
+                              gumbel=gumbel)
+
+
 def greedy_token(logits):
     """Argmax over the last axis."""
     return torch.argmax(logits, dim=-1)
+
+
+def top_k_filter(logits, top_k: int):
+    """The JAX package's top-k filter: logits below the k-th largest of
+    their row become -inf; ties at the k-th value stay (by value, not by
+    the index set ``torch.topk`` returns). ``top_k`` 0: unchanged."""
+    if not top_k:
+        return logits
+    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def sample_token(logits, gumbel, temperature: float = 1.0, top_k: int = 0):
+    """Temperature / top-k sampling of ``logits`` (..., vocab) fp32 with the
+    Gumbel noise ``gumbel`` (the same shape; :func:`sample_noise`).
+
+    The top-k filter first (:func:`top_k_filter`), then
+    ``argmax(logits / max(temperature, 1e-6) + gumbel)``: the Gumbel-max
+    draw, which is what ``jax.random.categorical(key, x)`` computes
+    (``argmax(gumbel(key, x.shape) + x)``). So with JAX's Gumbels passed in
+    the token equals the JAX ``sample_token``'s. ``temperature <= 0`` is
+    the greedy argmax (the noise is not read).
+    """
+    logits = top_k_filter(logits, top_k)
+    if temperature <= 0.0:
+        return greedy_token(logits)
+    return torch.argmax(logits / max(temperature, 1e-6) + gumbel, dim=-1)
+
+
+# The noise stream of every sampled token (sample_noise's ``stream`` keeps
+# other draws at one (sequence, position) apart). Speculative steps draw
+# from it too (pick_keyed: their acceptance is coupled to the plain
+# sample), so the server has no other stream.
+STREAM_SAMPLE = 0
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x in [0, 2**32) and a 32-bit constant c, by
+    16-bit halves of c: every intermediate stays below 2**49, so int64
+    tensors never overflow and the CPU and the card agree bit for bit."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32) in which
+    every output bit depends on every input bit. Takes int64 tensors (or
+    Python ints) holding 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def row_keys(seed: int, seq_ids):
+    """The 32-bit key of each sequence (int64 tensor of ``seq_ids``' shape)
+    under ``seed``: the port's form of the JAX ``fold_in(PRNGKey(seed),
+    sid)``. Both 32-bit halves of seed and id enter (ids may be negative)."""
+    sid = torch.as_tensor(seq_ids, dtype=torch.int64)
+    s = _mix32(_mix32(((seed >> 32) & _M32) ^ 0x243F6A88) ^ (seed & _M32))
+    return _mix32(_mix32(s ^ ((sid >> 32) & _M32)) ^ (sid & _M32))
+
+
+def noise_bits(keys, positions, stream: int, n: int):
+    """32-bit hash values (int64, in [0, 2**32)), shape (*batch, n): a pure
+    function of (key, position, stream, index < n), with ``keys`` and
+    ``positions`` int64 tensors broadcast to one shape ``batch``. Each
+    (key, position, stream) gives a counter base; index i hashes base +
+    i * 0x9E3779B9 (a Weyl sequence) through two finalizer rounds."""
+    keys = torch.as_tensor(keys, dtype=torch.int64)
+    pos = torch.as_tensor(positions, dtype=torch.int64, device=keys.device)
+    base = _mix32(keys ^ _mix32((pos & _M32) ^ _mix32(stream + 1)))
+    salt = _mix32(base ^ 0x5BD1E995)
+    idx = _mul32(torch.arange(n, dtype=torch.int64, device=keys.device), 0x9E3779B9)
+    x = _mix32((base[..., None] + idx) & _M32)
+    return _mix32(x ^ salt[..., None])
+
+
+def sample_noise(keys, positions, stream: int, n: int):
+    """(uniforms, gumbels), each fp32 (*batch, n), from :func:`noise_bits`:
+    ``u = (2 * (bits >> 9) + 1) / 2**24`` lies in (0, 1) (23 random bits,
+    exact in fp32), and the Gumbel is ``-log(-log u)``.
+
+    A pure function of (key, position, stream, index): no
+    ``torch.Generator``, no host read, capturable in a CUDA graph. Keys come
+    from :func:`row_keys`; the positions a server uses are the generated
+    token's index in its sequence (JAX's ``fold_in(fold_in(key, sid),
+    pos)``), so a preempted sequence replays its draws. torch cannot
+    reproduce ``jax.random``: these draws follow the JAX package's
+    distributions, not its numbers.
+    """
+    bits = noise_bits(keys, positions, stream, n)
+    u = ((bits >> 9) * 2 + 1).to(torch.float32) * (2.0 ** -24)
+    return u, -torch.log(-torch.log(u))

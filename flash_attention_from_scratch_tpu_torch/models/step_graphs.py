@@ -5,9 +5,14 @@ with the cache donated (``jax.jit(..., donate_argnames=("cache",))`` in its
 ``models/decode.py``), so a whole step is one dispatch. The PyTorch
 counterpart for a step of fixed shapes is a ``torch.cuda.CUDAGraph``:
 :class:`StepGraphs` captures the eager step (``models/decode.py::_step``)
-once per (batch, t, pages per sequence) and the greedy loop once per step
-count, over static token, length and page-table buffers. The graphs write
-the cache's pools in place (the donation) and share one memory pool. A call
+once per (batch, t, pages per sequence) and the decode loop once per step
+count, over static token, length and page-table buffers. The server's
+steps and loops also take each row's key and position as static buffers
+and pick their tokens inside the graph (``models/decode.py::pick_keyed``
+and ``loop_pick``: greedy, or sampled on the noise of ``sample_noise``);
+temperature and top-k are fixed per object.
+The graphs write the cache's pools in place (the donation) and share one
+memory pool. A call
 copies its inputs into the static buffers, replays the graph and returns
 its static outputs, which the next call of the same shape overwrites.
 
@@ -21,8 +26,8 @@ each graph keeps the counts its capture added and adds them again on every
 replay; the warm-up's and the capture's own counts are taken back.
 
 Every graph also adds the number of non-finite logits it computed to one
-device counter (:meth:`StepGraphs.nonfinite_logits`): a served token of the
-greedy loop is picked on the card, from logits no caller sees.
+device counter (:meth:`StepGraphs.nonfinite_logits`): a served token of
+``pick_step`` or a loop is picked on the card, from logits no caller sees.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import torch
 
 from ..ops import _build
 from ..ops.quant import KVQuantMode
-from .decode import PagedKVCache, _step, check_no_sinks, greedy_loop
+from .decode import (
+    PagedKVCache, _step, check_no_sinks, loop_pick, pick_keyed, pick_loop,
+)
 from .llama import LlamaConfig
 
 __all__ = ["StepGraphs"]
@@ -49,17 +56,20 @@ class _Graph:
 
 
 class StepGraphs:
-    """CUDA graphs of the decode step and the greedy decode loop of one
-    model over one paged cache.
+    """CUDA graphs of the decode step, the verify step and the decode loop
+    of one model over one paged cache.
 
     ``params``, ``cfg`` and ``cache`` are fixed for the object's life: the
     graphs hold the addresses of the weights and of the cache's pools.
     ``attn_int8`` selects the paged kernel's int8 compute (int8 cache
-    only). ``graphs`` counts the captures made and ``replays`` the replays.
+    only). ``temperature`` and ``top_k`` shape every pick the graphs make
+    (greedy at ``temperature <= 0``). ``graphs`` counts the captures made
+    and ``replays`` the replays.
     """
 
     def __init__(self, params, cfg: LlamaConfig, cache: PagedKVCache, *,
-                 attn_int8: bool = False):
+                 attn_int8: bool = False, temperature: float = 0.0,
+                 top_k: int = 0):
         check_no_sinks(cfg)
         if attn_int8 and cache.mode != KVQuantMode.INT8:
             raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
@@ -68,6 +78,7 @@ class StepGraphs:
             raise ValueError(f"CUDA graphs need the cache on the card, not {self.device}")
         self.params, self.cfg, self.cache = params, cfg, cache
         self.attn_int8 = attn_int8
+        self.temperature, self.top_k = temperature, top_k
         self._pool = torch.cuda.graph_pool_handle()
         self._graphs: dict = {}
         self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -131,19 +142,41 @@ class StepGraphs:
         static buffer)."""
         return self.verify_step(tokens[:, None], lengths, page_tables)[:, 0]
 
-    def decode_loop(self, tokens, lengths, page_tables, steps: int):
-        """Greedy :func:`~.decode.decode_loop` by replay: ``steps`` decode
-        steps in one graph, each step's argmax the next step's token on the
-        card. ``lengths`` are the committed lengths, excluding the tokens
-        generated here. Returns (tokens (batch, steps), lengths + steps),
+    def pick_step(self, tokens, lengths, page_tables, draft_lens, row_keys, pos0):
+        """A decode (t = 1) or verify step by replay with the server's pick
+        inside the graph: :func:`~.decode.pick_keyed` on the step's logits,
+        the drafts ``tokens[:, 1:]`` (``draft_lens`` real ones a row) and
+        each row's key and position (each (batch,)); greedy at
+        ``temperature <= 0``. Returns (tokens (batch, t), n_emit (batch,)),
         static buffers."""
-        def body(tokens, lengths, page_tables):
-            return greedy_loop(lambda toks, lens: self._logits(
-                toks[:, None], lens, page_tables)[:, 0], tokens, lengths, steps)
+        def body(tokens, lengths, page_tables, draft_lens, row_keys, pos0):
+            return pick_keyed(self._logits(tokens, lengths, page_tables), tokens[:, 1:],
+                              draft_lens, row_keys, pos0, self.temperature, self.top_k)
 
-        key = ("loop", steps, tokens.shape[0], page_tables.shape[1])
-        return self._replay(key, body, {"tokens": tokens, "lengths": lengths,
-                                        "page_tables": page_tables})
+        key = ("pick",) + tuple(tokens.shape) + (page_tables.shape[1],)
+        return self._replay(key, body, {
+            "tokens": tokens, "lengths": lengths, "page_tables": page_tables,
+            "draft_lens": draft_lens, "row_keys": row_keys, "pos0": pos0})
+
+    def decode_loop(self, tokens, lengths, page_tables, steps: int, *,
+                    row_keys=None, pos0=None):
+        """:func:`~.decode.decode_loop` by replay: ``steps`` decode steps in
+        one graph, each step's pick the next step's token on the card
+        (greedy, or with ``row_keys`` and ``pos0`` sampled at positions
+        pos0 + i). ``lengths`` are the committed lengths, excluding the
+        tokens generated here. Returns (tokens (batch, steps), lengths +
+        steps), static buffers."""
+        inputs = {"tokens": tokens, "lengths": lengths, "page_tables": page_tables}
+        if row_keys is not None:
+            inputs.update(row_keys=row_keys, pos0=pos0)
+
+        def body(tokens, lengths, page_tables, row_keys=None, pos0=None):
+            pick = loop_pick(row_keys, pos0, self.temperature, self.top_k)
+            return pick_loop(lambda toks, lens: self._logits(
+                toks[:, None], lens, page_tables)[:, 0], pick, tokens, lengths, steps)
+
+        key = ("loop", steps, tokens.shape[0], page_tables.shape[1], row_keys is not None)
+        return self._replay(key, body, inputs)
 
 
 def _restore(counts: collections.Counter) -> None:

@@ -1,24 +1,34 @@
 """Continuous-batching generation: native scheduler + the port's kernels.
 
 Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
-``GenerationServer`` for greedy decoding over a dense or quantized (int8,
-fp8, int4) KV cache; the parameters may hold quantized weights
-(``models.llama.quantize_params``) and fused projections
-(``models.llama.fuse_projections``). Requests enter the native scheduler
-(``serving.runtime.PagedEngine``); each step admits what fits, prefills
-newly admitted prompts through the flash forward kernel (whole, or in
-chunks of ``prefill_chunk_tokens`` through ``models.decode.prefill_chunked``),
-and advances every running sequence through the paged decode kernel: one
-token, ``chunk`` greedy tokens in one ``decode_loop`` while the batch
-cannot change, or with ``spec_k`` a prompt-lookup draft of up to
-``spec_k`` tokens verified in one multi-token pass
-(``models.decode.verify_step``). ``attn_int8`` runs the paged kernel in
-int8 compute on an int8 cache. The decode batch is padded to
-``max_batch``; padding rows write their K/V to a reserved scratch page.
+``GenerationServer`` for greedy or sampled (temperature, top-k) decoding
+over a dense or quantized (int8, fp8, int4) KV cache; the parameters may
+hold quantized weights (``models.llama.quantize_params``) and fused
+projections (``models.llama.fuse_projections``). Requests enter the native
+scheduler (``serving.runtime.PagedEngine``); each step admits what fits,
+prefills newly admitted prompts through the flash forward kernel (whole,
+in chunks of ``prefill_chunk_tokens`` through
+``models.decode.prefill_chunked``, or with ``prefix_cache`` only the
+suffix past the pages another prompt published), and advances every
+running sequence through the paged decode kernel: one token, ``chunk``
+tokens in one ``decode_loop`` while the batch cannot change, or with
+``spec_k`` a prompt-lookup draft of up to ``spec_k`` tokens verified in
+one multi-token pass (``models.decode.verify_step``). ``attn_int8`` runs
+the paged kernel in int8 compute on an int8 cache. The decode batch is
+padded to ``max_batch``; padding rows write their K/V to a reserved
+scratch page.
 
 On the card every decode step, verify step and decode loop is a CUDA-graph
 replay (``models.step_graphs.StepGraphs``, the counterpart of the JAX
 server's jitted steps); on the CPU (``device="cpu"``) they run eagerly.
+
+Sampled tokens are keyed on (seed, sequence id, position = the token's
+index in the generation), as in the JAX server: a preempted sequence
+replays its draws, and a token does not depend on the path that drew it
+(the prefill's pick, a step, a loop of n steps, a padded batch, or a
+speculative step, whose acceptance is coupled to the same draw). The noise
+is ``models.decode.sample_noise``: the JAX server's distributions, not
+its ``jax.random`` draws.
 
 Token bookkeeping matches the scheduler's accounting: after ``step()`` a
 sequence's length counts its prompt plus committed tokens; the token
@@ -28,14 +38,16 @@ generated this step writes K/V at position ``length - 1``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
 import time
 
 import numpy as np
 import torch
 
 from ..models.decode import (
-    check_no_sinks, decode_loop, greedy_token, init_cache, prefill,
-    prefill_chunked, spec_accept_sample, verify_step,
+    check_no_sinks, decode_loop, init_cache, pick_keyed, prefill,
+    prefill_chunked, row_keys, verify_step,
 )
 from ..models.llama import LlamaConfig
 from ..models.step_graphs import StepGraphs
@@ -61,6 +73,21 @@ def _prompt_lookup_draft(ctx: list[int], k: int, ngram: int = 2) -> list[int]:
     return []
 
 
+def _page_hashes(prompt: list[int], page_size: int) -> list[int]:
+    """Chained 64-bit content hashes of the prompt's full pages (the JAX
+    package's): hash i covers tokens [0, (i + 1) * page_size), each 8-byte
+    blake2b digest of the int64 tokens feeding the next, so one page's
+    match implies the whole prefix matches (the key scheme of
+    ``fa_engine_add_request_cached``)."""
+    out: list[int] = []
+    digest = b""
+    for i in range(len(prompt) // page_size):
+        blk = np.asarray(prompt[i * page_size:(i + 1) * page_size], np.int64).tobytes()
+        digest = hashlib.blake2b(digest + blk, digest_size=8).digest()
+        out.append(int.from_bytes(digest, "little"))
+    return out
+
+
 def _pad_to_multiple(tokens: list[int], quantum: int = PROMPT_QUANTUM) -> np.ndarray:
     n = len(tokens)
     out = np.zeros(n + (-n) % quantum, np.int64)
@@ -75,6 +102,7 @@ class _SeqState:
     max_new: int = 0
     prefilled: bool = False
     stop: frozenset = frozenset()
+    key: int = 0  # the sampling key of (seed, sequence id): decode.row_keys
     # Wall clock: submit -> first token -> finished.
     submit_t: float = 0.0
     first_t: float = 0.0
@@ -82,7 +110,7 @@ class _SeqState:
 
 
 class GenerationServer:
-    """Greedy continuous-batching generation over a paged KV cache.
+    """Continuous-batching generation over a paged KV cache.
 
     ``num_pages`` is the total pool; one page is reserved as the scratch
     target for decode-batch padding rows, the rest belong to the scheduler.
@@ -92,15 +120,21 @@ class GenerationServer:
     by prompt lookup and verifies them in one pass whenever the whole batch
     is decoding and nothing waits; ``attn_int8`` (int8 cache only) runs the
     paged kernel's int8 compute. ``chunk`` (1 to page_size) decodes up to
-    that many tokens per step in one greedy ``decode_loop`` while the batch
+    that many tokens per step in one ``decode_loop`` while the batch
     cannot change (exclusive with ``spec_k``); ``prefill_chunk_tokens`` (a
     multiple of 128 and of page_size) prefills prompts in chunks of that
-    many tokens. Options of the JAX server that are not ported yet raise
-    ``NotImplementedError``; ``seed`` only seeds sampling, which is one of
-    them. A config with attention sinks, and the checks of the JAX server
-    on ``chunk``, ``spec_k`` and ``prefill_chunk_tokens``, raise
-    ``ValueError``. On the card ``graphs`` is the server's
-    :class:`~..models.step_graphs.StepGraphs` (None on the CPU).
+    many tokens. ``temperature > 0`` samples (``top_k`` filters first;
+    greedy at 0), keyed on ``seed``; on the card the pick runs inside each
+    step's, loop's and verify step's graph. ``prefix_cache`` shares full
+    prompt pages by content hash (``_page_hashes``): a prompt prefills
+    only past the pages it found published, in chunks of
+    ``prefill_chunk_tokens`` or lcm(128, page_size), and publishes its own
+    after. ``lora`` and ``mesh`` are not ported yet and raise
+    ``NotImplementedError``. A config with attention sinks, and the checks
+    of the JAX server on ``chunk``, ``spec_k``, ``prefill_chunk_tokens``
+    and ``prefix_cache`` with ``mesh``, raise ``ValueError``. On the card
+    ``graphs`` is the server's :class:`~..models.step_graphs.StepGraphs`
+    (None on the CPU).
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
@@ -133,10 +167,10 @@ class GenerationServer:
                 # Padding rows park their t = spec_k + 1 tokens in the single
                 # scratch page.
                 raise ValueError(f"spec_k must be in [1, page_size - 1]; got {spec_k}")
-        unported = {"temperature > 0 (sampling)": temperature > 0,
-                    "top_k > 0 (sampling)": top_k > 0,
-                    "prefix_cache": prefix_cache,
-                    "lora": lora is not None,
+        if prefix_cache and mesh is not None:
+            raise ValueError("prefix_cache + mesh not supported yet "
+                             "(suffix prefill is single-chip chunked)")
+        unported = {"lora": lora is not None,
                     "mesh (tensor-parallel serving)": mesh is not None}
         for what, asked in unported.items():
             if asked:
@@ -156,11 +190,17 @@ class GenerationServer:
         self.page_size = page_size
         self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
         self.attn_int8 = attn_int8
-        self.graphs = (StepGraphs(params, cfg, self.cache, attn_int8=attn_int8)
+        self.temperature, self.top_k, self.seed = temperature, top_k, seed
+        self.graphs = (StepGraphs(params, cfg, self.cache, attn_int8=attn_int8,
+                                  temperature=temperature, top_k=top_k)
                        if self.device.type == "cuda" else None)
         self.chunk = chunk
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.spec_k = spec_k
+        self.prefix_cache = prefix_cache
+        # Suffix prefill runs in chunks aligned to the flash tile and to the
+        # page size, so cached page boundaries are chunk boundaries.
+        self._pc_chunk = prefill_chunk_tokens or math.lcm(128, page_size)
         self.spec_proposed = 0  # drafted tokens offered to the verifier
         self.spec_accepted = 0  # drafted tokens accepted
         self.seqs: dict[int, _SeqState] = {}
@@ -176,10 +216,15 @@ class GenerationServer:
                stop=()):
         """Queue a request. ``stop``: token ids that end the sequence early
         (kept in the generation, the EOS convention)."""
-        self.engine.add_request(seq_id, len(prompt), max_new_tokens)
+        if self.prefix_cache:
+            self.engine.add_request_cached(seq_id, len(prompt), max_new_tokens,
+                                           _page_hashes(prompt, self.page_size))
+        else:
+            self.engine.add_request(seq_id, len(prompt), max_new_tokens)
         self.seqs[seq_id] = _SeqState(prompt=list(prompt), generated=[],
                                       max_new=max_new_tokens,
                                       stop=frozenset(stop),
+                                      key=int(row_keys(self.seed, seq_id)),
                                       submit_t=time.perf_counter())
 
     @property
@@ -188,6 +233,17 @@ class GenerationServer:
 
     def _tensor(self, x, dtype=torch.int64):
         return torch.as_tensor(x, dtype=dtype).to(self.device)
+
+    def _keys(self, sids: list[int]):
+        """(row keys, positions) int64 on the CPU of ``sids``, padded to
+        ``max_batch`` rows (key and position 0): each sequence's key under
+        the seed and its next token's index in its generation."""
+        pad = self.max_batch - len(sids)
+        keys = torch.tensor([self.seqs[s].key for s in sids] + [0] * pad,
+                            dtype=torch.int64)
+        pos = torch.tensor([len(self.seqs[s].generated) for s in sids] + [0] * pad,
+                           dtype=torch.int64)
+        return keys, pos
 
     def step(self) -> list[int]:
         """One scheduler + model step; returns sequence ids finished now."""
@@ -199,7 +255,7 @@ class GenerationServer:
 
         # Prefill newly admitted sequences, and preempted ones the scheduler
         # readmitted (recompute preemption resets them to length == prompt;
-        # greedy decoding regenerates the same tokens).
+        # greedy and keyed sampling regenerate the same tokens).
         decode_rows, pending = [], []
         for row, sid in enumerate(batch.ids.tolist()):
             st = self.seqs[sid]
@@ -209,7 +265,19 @@ class GenerationServer:
             if not st.prefilled:
                 tokens = self._tensor(_pad_to_multiple(st.prompt))[None]
                 table = self._tensor(batch.page_tables[row])
-                if self.prefill_chunk_tokens:
+                if self.prefix_cache:
+                    # Skip the chunks the cached pages cover; their K/V were
+                    # written by the prompt that published them.
+                    chunk = self._pc_chunk
+                    start = min(self.engine.cached_pages(sid) * self.page_size,
+                                (len(st.prompt) - 1) // chunk * chunk)
+                    start -= start % chunk
+                    logits, self.cache = prefill_chunked(
+                        self.params, tokens, self.cfg, self.cache, table,
+                        prompt_len=len(st.prompt), chunk_tokens=chunk,
+                        start_tokens=start)
+                    self.engine.publish(sid)
+                elif self.prefill_chunk_tokens:
                     logits, self.cache = prefill_chunked(
                         self.params, tokens, self.cfg, self.cache, table,
                         prompt_len=len(st.prompt),
@@ -219,7 +287,13 @@ class GenerationServer:
                         self.params, tokens, self.cfg, self.cache, table,
                         prompt_len=len(st.prompt))
                 self.prefill_tokens += len(st.prompt)
-                pending.append((sid, greedy_token(logits)))
+                # Key and position made on the device: a copy from the host
+                # would wait for this prefill before the next one launches.
+                key, pos = (torch.full((1,), x, dtype=torch.int64, device=self.device)
+                            for x in (st.key, len(st.generated)))
+                tok, _ = pick_keyed(logits[None, None], tokens[:, :0], torch.zeros_like(pos),
+                                    key, pos, self.temperature, self.top_k)
+                pending.append((sid, tok[0, 0]))
                 st.prefilled = True
             else:
                 decode_rows.append(row)
@@ -326,27 +400,37 @@ class GenerationServer:
             tables = np.concatenate([tables, pad_tables], axis=0)
         return tokens, lengths, tables
 
-    def _verify(self, tokens, lengths, tables):
-        """logits (max_batch, t, vocab) of ``verify_step`` on numpy tokens
-        (max_batch, t): a graph replay on the card, eager on the CPU."""
-        tokens, lengths, tables = (torch.from_numpy(a) for a in (tokens, lengths, tables))
+    def _pick_step(self, sids, tokens, lengths, tables, draft_lens):
+        """A decode (t = 1) or verify step on numpy inputs of ``max_batch``
+        rows (tokens (max_batch, t), the drafts ``tokens[:, 1:]``) with its
+        pick (``pick_keyed``: row j of each sequence at position
+        len(generated) + j): one graph replay on the card, the pick inside;
+        eager on the CPU. Returns (tokens (max_batch, t), n_emit)."""
+        keys, pos0 = self._keys(sids)
+        tokens, lengths, tables, draft_lens = (
+            torch.from_numpy(a) for a in (tokens, lengths, tables, draft_lens))
         if self.graphs is not None:
-            return self.graphs.verify_step(tokens, lengths, tables)
+            return self.graphs.pick_step(tokens, lengths, tables, draft_lens, keys, pos0)
         logits, self.cache = verify_step(
             self.params, tokens, self.cfg, self.cache, lengths, tables,
             attn_int8=self.attn_int8)
-        return logits
+        return pick_keyed(logits, tokens[:, 1:], draft_lens, keys, pos0,
+                          self.temperature, self.top_k)
 
     def _decode_speculative(self, batch, decode_rows) -> list[int]:
         """One verify_step scoring spec_k drafted tokens per sequence.
 
         Each row drafts by prompt lookup; the t = spec_k + 1 inputs [last
         token, draft] go through one multi-token pass, and the draft is
-        accepted greedily up to the first token where the model disagrees,
-        which contributes the correction (a fully accepted draft gets a
-        bonus token from the last row). Every step commits at least one
-        token. ``grow_batch`` has reserved the extra slots (all or nothing,
-        no preemption); each sequence then commits what it accepted.
+        accepted up to the first token the model refuses (greedy: where it
+        disagrees), which contributes the correction (a fully accepted
+        draft gets a bonus token from the last row). Sampled acceptance
+        draws each row j at the position its token takes, so a step emits
+        the tokens plain sampling would (``pick_keyed``); on the card it
+        runs inside the verify graph (``_pick_step``). Every step
+        commits at least one token. ``grow_batch`` has reserved the extra
+        slots (all or nothing, no preemption); each sequence then commits
+        what it accepted.
         """
         k = self.spec_k
         t = k + 1
@@ -365,11 +449,9 @@ class GenerationServer:
         # Padding rows: t tokens at positions 0..k of the scratch page.
         _, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
         lengths = lengths + np.int32(k)  # the t inputs end at position lengths0 + k - 1
-        logits = self._verify(inputs, lengths, tables)
         self.verify_steps += 1
-        toks, n_emit = spec_accept_sample(
-            logits, self._tensor(inputs[:, 1:]), self._tensor(draft_lens))
-        # One device-to-host copy for the whole batch.
+        toks, n_emit = self._pick_step(sids, inputs, lengths, tables, draft_lens)
+        # One device-to-host copy each for the whole batch.
         toks, n_emit = toks.tolist(), n_emit.tolist()
 
         finished: list[int] = []
@@ -391,20 +473,24 @@ class GenerationServer:
         return self._finish_stamp(self._stopped + finished)
 
     def _decode_chunk(self, batch, decode_rows, n: int):
-        """One greedy ``decode_loop`` of n tokens for every row: a graph
-        replay on the card, eager on the CPU. Tokens after a row's stop
-        token are dropped."""
+        """One ``decode_loop`` of n tokens for every row (greedy, or sampled
+        at positions len(generated) + i): a graph replay on the card, eager
+        on the CPU. Tokens after a row's stop token are dropped."""
         # decode_loop takes committed lengths; the scheduler has already
         # allocated all n new slots, so batch.lengths is n ahead.
         tokens, lengths, tables = self._gather_batch(
             batch, decode_rows, pad_length=0, length_offset=-n)
         tokens, lengths, tables = (torch.from_numpy(a) for a in (tokens, lengths, tables))
+        sids = [int(batch.ids[r]) for r in decode_rows]
+        keys, pos0 = self._keys(sids)
         if self.graphs is not None:
-            out, _ = self.graphs.decode_loop(tokens, lengths, tables, n)
+            out, _ = self.graphs.decode_loop(tokens, lengths, tables, n,
+                                             row_keys=keys, pos0=pos0)
         else:
             out, self.cache, _ = decode_loop(
                 self.params, tokens, self.cfg, self.cache, lengths, tables, n,
-                attn_int8=self.attn_int8)
+                row_keys=keys, pos0=pos0, temperature=self.temperature,
+                top_k=self.top_k, attn_int8=self.attn_int8)
         self.decode_loops += 1
         self.decode_steps += n
         out = out[:len(decode_rows)].tolist()  # one device-to-host copy
@@ -416,12 +502,13 @@ class GenerationServer:
                     break
 
     def _decode_one(self, batch, decode_rows):
-        """One greedy token for every decoding row."""
+        """One token for every decoding row (a ``_pick_step`` of t = 1)."""
         tokens, lengths, tables = self._gather_batch(batch, decode_rows, pad_length=1)
-        logits = self._verify(tokens[:, None], lengths, tables)[:, 0]
         sids = [int(batch.ids[r]) for r in decode_rows]
         self.decode_steps += 1
-        toks = greedy_token(logits[:len(sids)]).tolist()
+        toks, _ = self._pick_step(sids, tokens[:, None], lengths, tables,
+                                  np.zeros(self.max_batch, np.int64))
+        toks = toks[:len(sids), 0].tolist()  # one device-to-host copy
         for sid, tok in zip(sids, toks):
             self._append(sid, int(tok))
         self.decode_tokens += len(decode_rows)
@@ -445,8 +532,8 @@ class GenerationServer:
         return (self.decode_tokens - start_tokens) / dt if dt > 0 else 0.0
 
     def stats(self) -> dict:
-        """Serving counters; ``prefix_hit_pages`` is 0 (no prefix cache
-        yet)."""
+        """Serving counters; ``prefix_hit_pages`` counts the prompt pages
+        served from the prefix cache (0 without it)."""
         return {
             "steps": self.steps,
             "decode_steps": self.decode_steps,
@@ -462,5 +549,6 @@ class GenerationServer:
             "spec_accepted": self.spec_accepted,
             "spec_acceptance_rate": (self.spec_accepted / self.spec_proposed
                                      if self.spec_proposed else 0.0),
-            "prefix_hit_pages": 0,
+            "prefix_hit_pages": (int(self.engine.prefix_hits)
+                                 if self.prefix_cache else 0),
         }

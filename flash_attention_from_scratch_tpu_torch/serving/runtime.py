@@ -4,9 +4,9 @@ Counterpart of ``flash_attention_from_scratch_tpu/serving/runtime.py`` over
 the port's own copy of the same C++ source, built with ``g++`` into the
 build directory (``ops/_build.py``). Bound here: admission, allocation,
 commit, early finish, the speculative-decoding pair (``grow_batch``,
-``commit_n``) and the counters the serving path reads. The prefix-cache
-entry points of the same library are not bound yet (see ROADMAP.md,
-Queue 1).
+``commit_n``), the prefix cache (``add_request_cached``, ``cached_pages``,
+``publish``, ``prefix_hits``, ``lru_pages``) and the counters the serving
+path reads.
 """
 
 from __future__ import annotations
@@ -50,6 +50,16 @@ def _lib() -> ctypes.CDLL:
     lib.fa_engine_grow_batch.argtypes = [vp, i32]
     lib.fa_engine_commit_n.restype = i32
     lib.fa_engine_commit_n.argtypes = [vp, i64, i32]
+    lib.fa_engine_add_request_cached.restype = i32
+    lib.fa_engine_add_request_cached.argtypes = [vp, i64, i32, i32,
+                                                 ctypes.POINTER(ctypes.c_uint64), i32]
+    for name in ("fa_engine_cached_pages", "fa_engine_publish"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = [vp, i64]
+    lib.fa_engine_prefix_hits.restype = i64
+    lib.fa_engine_prefix_hits.argtypes = [vp]
+    lib.fa_engine_lru_size.restype = i32
+    lib.fa_engine_lru_size.argtypes = [vp]
     return lib
 
 
@@ -119,6 +129,43 @@ class PagedEngine:
         buf = (ctypes.c_int64 * cap)()
         n = self._lib.fa_engine_commit_tokens(self._h, buf, cap)
         return [buf[i] for i in range(min(n, cap))]
+
+    def add_request_cached(self, seq_id: int, prompt_len: int,
+                           max_new_tokens: int, hashes):
+        """:meth:`add_request` with the chained hashes of the prompt's full
+        pages (``serving.generate._page_hashes``): at admission the engine
+        claims the longest published prefix (:meth:`cached_pages`); after
+        prefilling the rest, call :meth:`publish`."""
+        n = len(hashes)
+        arr = (ctypes.c_uint64 * max(n, 1))(*[h & (2 ** 64 - 1) for h in hashes])
+        if self._lib.fa_engine_add_request_cached(self._h, seq_id, prompt_len,
+                                                  max_new_tokens, arr, n) != 0:
+            raise ValueError(f"request {seq_id} rejected: duplicate id, or "
+                             f"{prompt_len}+{max_new_tokens} tokens cannot fit")
+
+    def cached_pages(self, seq_id: int) -> int:
+        """Leading prompt pages served from the prefix cache at the
+        sequence's latest admission."""
+        n = self._lib.fa_engine_cached_pages(self._h, seq_id)
+        if n < 0:
+            raise KeyError(f"unknown sequence {seq_id}")
+        return n
+
+    def publish(self, seq_id: int):
+        """Publish a freshly prefilled sequence's full prompt pages into the
+        prefix cache (once, after the pages hold their final K/V)."""
+        if self._lib.fa_engine_publish(self._h, seq_id) != 0:
+            raise KeyError(f"unknown sequence {seq_id}")
+
+    @property
+    def prefix_hits(self) -> int:
+        """Prompt pages claimed from the prefix cache so far."""
+        return self._lib.fa_engine_prefix_hits(self._h)
+
+    @property
+    def lru_pages(self) -> int:
+        """Retired cached pages parked for reuse or eviction."""
+        return self._lib.fa_engine_lru_size(self._h)
 
     def grow_batch(self, n: int) -> bool:
         """Reserve slots for n more tokens per running sequence (speculative

@@ -1,10 +1,10 @@
 """The card's identity and a measured matmul ceiling.
 
-Counterpart of ``flash_attention_from_scratch_tpu/utils/chip.py``. The
-published peaks of the card a kernel is held against live beside each
-measurement (``chip_smoke.py``); this module names the card and measures
-the rate a large bf16 ``torch.matmul`` (cuBLAS) sustains on it, the
-yardstick ``tools/bench_quant.py`` divides by.
+Counterpart of ``flash_attention_from_scratch_tpu/utils/chip.py``: the
+card's name and power limit, the published peaks of an NVIDIA H100 SXM
+(``tools/bench_decode.py``'s roofline), and the rate a large bf16
+``torch.matmul`` (cuBLAS) sustains on the card, the yardstick
+``tools/bench_quant.py`` divides by.
 """
 
 from __future__ import annotations
@@ -16,7 +16,26 @@ import torch
 
 from ..dispatch import median_runtime
 
-__all__ = ["device_kind", "measured_matmul_tflops"]
+__all__ = ["device_kind", "measured_matmul_tflops", "chip_sol_tflops",
+           "chip_int8_tops", "hbm_gbps"]
+
+
+def chip_sol_tflops() -> float:
+    """Dense bf16 tensor-core peak of an NVIDIA H100 SXM at its full 700 W
+    power limit, in TFLOP/s (NVIDIA's data sheet): 989."""
+    return 989.0
+
+
+def chip_int8_tops() -> float:
+    """Dense int8 tensor-core peak of an NVIDIA H100 SXM at 700 W, in TOP/s
+    (NVIDIA's data sheet): 1979."""
+    return 1979.0
+
+
+def hbm_gbps() -> float:
+    """HBM3 bandwidth of an NVIDIA H100 SXM (80 GB), in GB/s (NVIDIA's data
+    sheet): 3350."""
+    return 3350.0
 
 
 def device_kind() -> str:

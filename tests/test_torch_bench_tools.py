@@ -5,13 +5,26 @@ the CPU and must pass the adaptive 2x rule for every variant (the same rule
 the tool applies on the card). The timing paths measure the card only:
 without one they raise. Every tool's ``--help`` exits 0, and the JAX
 tool's options that drive the TPU alone exit with a pointer to ROADMAP.
+The serving tools: ``bench_decode``'s parameter counts equal the JAX
+tool's on the same parameters, and ``bench_serving``'s run function drains
+a tiny CPU run and prints every key of the JAX tool's JSON line.
 """
 
+import ast
+import json
+import pathlib
+
+import jax
 import pytest
 import torch
 
+from flash_attention_from_scratch_tpu.models import llama as jax_llama
+from flash_attention_from_scratch_tpu.tools import bench_decode as jax_bench_decode
 from flash_attention_from_scratch_tpu_torch import dispatch
-from flash_attention_from_scratch_tpu_torch.tools import bench_attention, bench_quant
+from flash_attention_from_scratch_tpu_torch.models import llama
+from flash_attention_from_scratch_tpu_torch.tools import (
+    bench_attention, bench_decode, bench_quant, bench_serving,
+)
 
 
 def test_numerics_check_on_the_cpu():
@@ -68,3 +81,103 @@ def test_timing_raises_without_a_card(monkeypatch):
         bench_quant.main(["--seq-lens", "256"])
     with pytest.raises(RuntimeError):
         bench_attention.main(["--fori"])
+
+
+TINY = dict(vocab_size=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1, d_head=128,
+            hidden_dim=256)
+
+
+def _jax_json_keys(tool: str) -> set:
+    """The keys of the result line the JAX tool prints (the largest dict
+    literal it hands ``json.dumps``; ``--trace``'s summary is another),
+    read from its source."""
+    src = pathlib.Path(jax_bench_decode.__file__).with_name(f"{tool}.py").read_text()
+    dicts = [{k.value for k in node.args[0].keys if isinstance(k, ast.Constant)}
+             for node in ast.walk(ast.parse(src))
+             if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "dumps"
+             and node.args and isinstance(node.args[0], ast.Dict)]
+    return max(dicts, key=len)
+
+
+@pytest.mark.parametrize("recipe", ["bf16", "int8", "int4 fused"])
+def test_bench_decode_param_counts_match_jax(recipe):
+    """``_param_bytes`` and ``_dense_matmul_params`` of the same tiny
+    parameters (bf16, int8, int4 with fused projections) equal the JAX
+    tool's."""
+    jcfg = jax_llama.LlamaConfig(**TINY)
+    key = jax.random.PRNGKey(0)
+    mode = recipe.split()[0]
+    jparams = (jax_llama.init_params(jcfg, key) if mode == "bf16"
+               else jax_llama.init_quantized_params(jcfg, key, mode))
+    if "fused" in recipe:
+        jparams = jax_llama.fuse_projections(jparams)
+    params = llama.params_from_jax(jax.device_get(jparams), device="cpu")
+    assert bench_decode._param_bytes(params) == jax_bench_decode._param_bytes(jparams)
+    assert (bench_decode._dense_matmul_params(params)
+            == jax_bench_decode._dense_matmul_params(jparams))
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_bench_decode_step_bytes_gather_the_embedding(batch):
+    """The roofline's weight bytes a step: the JAX tool's parameter bytes
+    less the embedding table, plus the batch's gathered rows of it."""
+    jcfg = jax_llama.LlamaConfig(**TINY)
+    jparams = jax_llama.init_quantized_params(jcfg, jax.random.PRNGKey(0), "int8")
+    params = llama.params_from_jax(jax.device_get(jparams), device="cpu")
+    row = jcfg.dim * params["embed"].element_size()
+    assert (bench_decode.weight_bytes_per_step(params, batch)
+            == jax_bench_decode._param_bytes(jparams) - (jcfg.vocab_size - batch) * row)
+
+
+def test_bench_decode_matmul_rows():
+    """The tensor-core bound pads m to the port's row tiles: the quantized
+    kernels' token tile, 64-row tiles for cuBLAS."""
+    assert [bench_decode.matmul_rows(m, True) for m in (1, 16, 17, 100, 200)] == [
+        16, 16, 32, 128, 256]
+    assert [bench_decode.matmul_rows(m, False) for m in (1, 16, 65)] == [64, 64, 128]
+    assert set(bench_decode.MODELS) == set(jax_bench_decode.MODELS)
+
+
+def _serving_args(*extra):
+    return bench_serving.parser().parse_args(
+        ["--requests", "3", "--prompt", "80", "--new", "5", "--max-batch", "2",
+         "--page-size", "64", "--chunk", "4", *extra])
+
+
+@pytest.mark.parametrize("extra", [(), ("--prefix-cache", "--shared-prefix", "64"),
+                                   ("--temperature", "0.8", "--top-k", "20", "--kv", "dense",
+                                    "--weights", "bf16")],
+                         ids=["default", "prefix_cache", "sampled"])
+def test_bench_serving_runs_on_the_cpu(extra):
+    """The run function drains a tiny CPU run and prints one JSON line with
+    every key of the JAX tool's (and its device, the CPU)."""
+    lines = []
+    line = bench_serving.run(_serving_args(*extra), device="cpu",
+                             cfg=llama.LlamaConfig(**TINY), log=lines.append)
+    assert lines and json.loads(lines[0]) == line
+    assert _jax_json_keys("bench_serving") <= set(line)
+    assert line["total_new_tokens"] == 15 and line["device"] == "cpu"
+    assert (line["prefix_hits_pages"] > 0) == ("--prefix-cache" in extra)
+    assert line["ttft_ms_p50"] > 0 and line["tpot_ms_p99"] >= 0
+
+
+def test_bench_decode_prints_the_jax_keys():
+    """bench_decode's JSON line has every key of the JAX tool's (read from
+    the source: the tool times the card only)."""
+    src = pathlib.Path(bench_decode.__file__).read_text()
+    for key in _jax_json_keys("bench_decode"):
+        assert f'"{key}":' in src, key
+
+
+def test_serving_tools_need_a_card(monkeypatch, capsys):
+    for tool in (bench_decode, bench_serving):
+        with pytest.raises(SystemExit) as exc:
+            tool.main(["--help"])
+        assert exc.value.code == 0 and "usage" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        bench_decode.main(["--trace", "trace_dir"])
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError):
+        bench_decode.main(["--model", "tiny"])
+    with pytest.raises(RuntimeError):
+        bench_serving.main(["--model", "tiny"])

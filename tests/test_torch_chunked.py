@@ -216,12 +216,37 @@ def test_decode_loop_matches_jax_and_decode_steps(models):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(temperature=0.8), dict(top_k=5),
-                                dict(row_keys=object())],
+@pytest.mark.parametrize("kw", [dict(temperature=0.8), dict(temperature=0.8, top_k=5),
+                                dict(temperature=1.3)],
                          ids=["temperature", "top_k", "row_keys"])
 def test_decode_loop_sampling_is_not_ported(models, kw):
-    cache = decode.init_cache(CFG, 8, PAGE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.decode_loop(models[1], torch.zeros(2, dtype=torch.long), CFG, cache,
-                           torch.tensor([3, 4], dtype=torch.int32),
-                           torch.from_numpy(LOOP_TABLES), STEPS, **kw)
+    """Sampling in ``decode_loop`` (``temperature``, ``top_k``, keyed by
+    ``row_keys`` and ``pos0``), once refused, now samples: the loop's
+    tokens are those of ``steps`` single decode steps each picking by
+    ``sample_token`` on the Gumbels of (row key, pos0 + i), pages included;
+    and they are not the greedy loop's."""
+    params = models[1]
+    keys = decode.row_keys(7, torch.tensor([3, 11]))
+    pos0 = torch.tensor([0, 5])
+    first, lengths = torch.tensor([5, 9]), torch.tensor([20, 9], dtype=torch.int32)
+    tables = torch.from_numpy(LOOP_TABLES)
+    caches = [decode.init_cache(CFG, 8, PAGE, device="cpu") for _ in range(3)]
+    out, _, lens = decode.decode_loop(params, first, CFG, caches[0], lengths, tables,
+                                      STEPS, row_keys=keys, pos0=pos0, **kw)
+    greedy, _, _ = decode.decode_loop(params, first, CFG, caches[2], lengths, tables,
+                                      STEPS)
+    toks, lens_s = first, lengths
+    for i in range(STEPS):
+        lens_s = lens_s + 1
+        logits, _ = decode.decode_step(params, toks, CFG, caches[1], lens_s, tables)
+        _, gumbel = decode.sample_noise(keys, pos0 + i, 0, CFG.vocab_size)
+        toks = decode.sample_token(logits, gumbel, kw["temperature"], kw.get("top_k", 0))
+        assert torch.equal(toks, out[:, i]), i
+    assert torch.equal(lens, lens_s)
+    for a, b in zip(caches[0].k_pages + caches[0].v_pages,
+                    caches[1].k_pages + caches[1].v_pages):
+        assert torch.equal(a, b)
+    assert not torch.equal(out, greedy)
+    with pytest.raises(ValueError, match="pos0"):
+        decode.decode_loop(params, first, CFG, caches[0], lengths, tables, STEPS,
+                           row_keys=keys, **kw)

@@ -1045,3 +1045,152 @@ def test_prefill_chunked_on_k1_matches_prefill(cuda, monkeypatch):
     ok, ratio, where = sliced_tolerance_check(
         *(x[1].flatten(0, 1) for x in (chunked, one_shot, fp32)), lead=3)
     assert ok, (ratio, where)
+
+
+SAMPLE_VOCAB = 128256  # Llama-3's vocabulary
+
+
+def test_noise_bits_on_the_card_equal_the_cpu(cuda):
+    """The noise source's integers, (batch 16) x 128,256 in every stream,
+    bit for bit on the card and on the CPU."""
+    keys = decode.row_keys(0, torch.arange(16) - 4)
+    pos = torch.arange(16) * 3
+    for stream in (0, 1, 2):
+        want = decode.noise_bits(keys, pos, stream, SAMPLE_VOCAB)
+        got = decode.noise_bits(keys.to(cuda), pos.to(cuda), stream, SAMPLE_VOCAB)
+        assert torch.equal(got.cpu(), want), stream
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_sample_token_on_the_card_equals_the_cpu(cuda, temperature, top_k):
+    """The same logits (ties included) and the same noise give the same
+    tokens on the card as on the CPU."""
+    logits = torch.from_numpy(np.round(np.random.default_rng(2).standard_normal(
+        (16, SAMPLE_VOCAB)).astype(np.float32) * 8) / 8)
+    _, gumbel = decode.sample_noise(decode.row_keys(1, torch.arange(16)),
+                                    torch.arange(16), 0, SAMPLE_VOCAB)
+    want = decode.sample_token(logits, gumbel, temperature, top_k)
+    got = decode.sample_token(logits.to(cuda), gumbel.to(cuda), temperature, top_k)
+    assert torch.equal(got.cpu(), want)
+
+
+def _keys_at(seed):
+    return (decode.row_keys(seed, torch.arange(len(GRAPH_LENGTHS))),
+            torch.tensor([0, 7, 3]))
+
+
+def test_sampled_graphs_equal_eager_picks(cuda):
+    """A sampled decode step (``pick_step`` at t = 1) picks inside its graph
+    what the eager step and ``sample_token`` pick (two calls, the second
+    only replays); a sampled loop of four steps equals four sampled step
+    replays (tokens and pages); a sampled verify step accepts in its graph
+    what the eager step and ``pick_keyed`` accept."""
+    params, cache, tables = _graph_model(cuda, "dense")
+    kw = dict(temperature=0.8, top_k=20)
+    keys, pos = _keys_at(3)
+    no_drafts = torch.zeros(len(GRAPH_LENGTHS), dtype=torch.int64)
+    replayed, eager = _clone(cache), _clone(cache)
+    graphs = StepGraphs(params, GRAPH_CFG, replayed, **kw)
+    for call in range(2):
+        tokens, lengths = _step_inputs(1, seed=call, grown=call + 1)
+        got, n_emit = graphs.pick_step(tokens, lengths, tables.cpu(), no_drafts, keys,
+                                       pos + call)
+        logits, _ = decode.decode_step(params, tokens[:, 0].to(cuda), GRAPH_CFG, eager,
+                                       lengths.to(cuda), tables)
+        _, g = decode.sample_noise(keys.to(cuda), (pos + call).to(cuda), 0,
+                                   GRAPH_CFG.vocab_size)
+        assert torch.equal(got[:, 0], decode.sample_token(logits, g, **kw)), call
+        assert n_emit.tolist() == [1] * len(GRAPH_LENGTHS)
+    assert graphs.graphs == 1 and graphs.replays == 2
+    _same_pools(replayed, eager)
+
+    first, lengths = _step_inputs(1, seed=4, grown=0)
+    loop_cache, step_cache = _clone(cache), _clone(cache)
+    out, _ = StepGraphs(params, GRAPH_CFG, loop_cache, **kw).decode_loop(
+        first[:, 0], lengths, tables.cpu(), 4, row_keys=keys, pos0=pos)
+    stepper = StepGraphs(params, GRAPH_CFG, step_cache, **kw)
+    toks, lens = first, lengths
+    for i in range(4):
+        lens = lens + 1
+        toks = stepper.pick_step(toks, lens, tables.cpu(), no_drafts, keys,
+                                 pos + i)[0].cpu()
+        assert torch.equal(toks[:, 0], out[:, i].cpu()), i
+    _same_pools(loop_cache, step_cache)
+
+    tokens, lengths = _step_inputs(4, seed=5, grown=4)
+    draft_lens = torch.tensor([3, 1, 0])
+    replayed, eager = _clone(cache), _clone(cache)
+    got = StepGraphs(params, GRAPH_CFG, replayed, **kw).pick_step(
+        tokens, lengths, tables.cpu(), draft_lens, keys, pos)
+    logits, _ = decode.verify_step(params, tokens.to(cuda), GRAPH_CFG, eager,
+                                   lengths.to(cuda), tables)
+    want = decode.pick_keyed(logits, tokens[:, 1:].to(cuda), draft_lens.to(cuda),
+                             keys.to(cuda), pos.to(cuda), kw["temperature"], kw["top_k"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _same_pools(replayed, eager)
+
+
+def test_sampled_server_replays_every_pick(cuda):
+    """Sampled serving on the card: every decode step, loop and verify step
+    a graph replay, and the same tokens at chunk 1 and chunk 4."""
+    params, _, _ = _graph_model(cuda, "dense")
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+
+    prompts = {i: list(range(3 * i, 3 * i + n)) for i, n in enumerate((20, 300, 131))}
+    runs = []
+    for kw in ({}, dict(chunk=4), dict(spec_k=3)):
+        server = GenerationServer(params, GRAPH_CFG, num_pages=32, page_size=64,
+                                  max_batch=4, pages_per_seq=8, temperature=0.8,
+                                  top_k=50, seed=1, **kw)
+        for sid, prompt in prompts.items():
+            server.submit(sid, prompt, 11)
+        runs.append(server.run())
+        stats = server.stats()
+        if kw.get("chunk"):  # a replay a loop, and one a step outside loops
+            assert 0 < stats["decode_loops"] <= server.graphs.replays < stats["decode_steps"]
+        else:
+            assert server.graphs.replays == stats["decode_steps"] + stats["verify_steps"] > 0
+        assert server.graphs.nonfinite_logits() == 0
+    assert runs[0] == runs[1]
+    assert {sid: len(t) for sid, t in runs[2].items()} == {sid: 11 for sid in prompts}
+
+
+def test_prefix_server_on_the_card(cuda):
+    """A prefix-cached server on the card: a publisher, then three prompts
+    sharing its first 192 tokens claim 3 pages each and serve every token."""
+    params, _, _ = _graph_model(cuda, "dense")
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+
+    shared = list(range(5, 197))
+    server = GenerationServer(params, GRAPH_CFG, num_pages=40, page_size=64,
+                              max_batch=3, pages_per_seq=8, prefix_cache=True)
+    server.submit(0, shared + [1, 2], 3)
+    server.run()
+    for sid, n in ((1, 20), (2, 70), (3, 1)):
+        server.submit(sid, shared + list(range(300, 300 + n)), 6)
+    got = server.run()
+    assert server.stats()["prefix_hit_pages"] == 9
+    assert all(len(got[sid]) == 6 for sid in (1, 2, 3))
+
+
+def test_frontend_serves_on_the_card(cuda):
+    """``ServingFrontend`` on the card: its step-loop thread captures and
+    replays the server's graphs (no other thread touches CUDA) and a
+    request gets the tokens a plain ``run()`` serves for it."""
+    params, _, _ = _graph_model(cuda, "dense")
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+    from flash_attention_from_scratch_tpu_torch.serving.http_server import ServingFrontend
+
+    kw = dict(num_pages=32, page_size=64, max_batch=2, pages_per_seq=8, chunk=4,
+              temperature=0.8, top_k=50, seed=2)
+    fe = ServingFrontend(GenerationServer(params, GRAPH_CFG, **kw))
+    try:
+        sid, toks = fe.generate(list(range(7, 90)), 9, timeout=300)
+    finally:
+        fe.shutdown()
+    assert not fe._loop.is_alive() and fe._fatal is None
+    assert fe.server.graphs.replays > 0
+    server = GenerationServer(params, GRAPH_CFG, **kw)
+    server.submit(sid, list(range(7, 90)), 9)
+    assert server.run()[sid] == toks

@@ -216,11 +216,23 @@ def test_attn_int8_needs_an_int8_cache(mode):
 @pytest.mark.parametrize("option", [
     dict(temperature=0.7), dict(prefix_cache=True), dict(lora={}),
     dict(mesh=object()), dict(top_k=5)])
-def test_server_unported_options_raise(option):
-    params = {"embed": torch.zeros((4, 4))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationServer(params, CFG, num_pages=8, page_size=64, max_batch=2,
-                         device="cpu", **option)
+def test_server_unported_options_raise(jax_params, option):
+    """``lora`` and ``mesh`` are not ported and raise. ``temperature``,
+    ``prefix_cache`` and ``top_k`` are: each serves every request all its
+    tokens, in-vocabulary."""
+    if "lora" in option or "mesh" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GenerationServer({"embed": torch.zeros((4, 4))}, CFG, num_pages=8,
+                             page_size=64, max_batch=2, device="cpu", **option)
+        return
+    params = params_from_jax(jax.device_get(jax_params), device="cpu")
+    server = GenerationServer(params, CFG, num_pages=32, page_size=64, max_batch=4,
+                              pages_per_seq=8, device="cpu", **option)
+    for sid, prompt in PROMPTS.items():
+        server.submit(sid, prompt, 6)
+    got = server.run()
+    assert {sid: len(t) for sid, t in got.items()} == {sid: 6 for sid in PROMPTS}
+    assert all(0 <= tok < SHAPE["vocab_size"] for t in got.values() for tok in t)
 
 
 @pytest.mark.parametrize("option", [dict(chunk=4), dict(prefill_chunk_tokens=128)],

@@ -179,9 +179,17 @@ def test_spec_accept_sample_matches_jax():
     np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
     np.testing.assert_array_equal(got_toks.numpy(), np.asarray(want_toks))
     assert int(got_n.max()) == t and int(got_n.min()) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.spec_accept_sample(torch.from_numpy(logits), torch.from_numpy(drafts),
-                                  torch.from_numpy(draft_lens), temperature=0.8)
+    # Sampled acceptance, once refused, now runs: rows emit their accepted
+    # drafts and then one in-vocabulary token.
+    gumbel = decode.sample_noise(decode.row_keys(0, torch.arange(batch))[:, None],
+                                 torch.arange(t)[None, :], 0, vocab)[1]
+    toks, n_emit = decode.spec_accept_sample(
+        torch.from_numpy(logits), torch.from_numpy(drafts), torch.from_numpy(draft_lens),
+        temperature=0.8, gumbel=gumbel)
+    assert ((n_emit >= 1) & (n_emit <= torch.from_numpy(draft_lens) + 1)).all()
+    for i, n in enumerate(n_emit.tolist()):
+        assert toks[i, :n - 1].tolist() == drafts[i, :n - 1].tolist()
+        assert 0 <= int(toks[i, n - 1]) < vocab
 
 
 SERVE = dict(num_pages=32, page_size=64, pages_per_seq=8)
