@@ -44,7 +44,15 @@ with the prefix cache (``serve_prefix``: 8 requests sharing a published
 2,048-token prefix, 256 pages claimed, K1 counted per suffix chunk,
 prefill and TTFT in turns with and without the cache), and hold
 ``prefill_chunked`` to ``prefill`` on a 4000-token prompt against the
-model in fp32 (``prefill_chunked_case``); (6) train
+model in fp32 (``prefill_chunked_case``), then serve with 4 LoRA adapters
+of rank 16 (``serve_lora``: the 8 prompts on adapters -1, 0, 1, 2, 3, 0, 1,
+-1, at chunk 1 and 8, whose tokens must be equal, every adapter row
+teacher-forced through ``forward`` on its adapter's merged weights within
+0.1 of the row max and the base rows on the base weights, an adapter row
+serving other tokens than the server without adapters, a LoRA step and
+loop replayed against the eager ones, the adapters' kernels a class of
+their own in the profile, chunk 8 with and without adapters in turns);
+(6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
 steps with the default backward (the split K3, the faster), checking the
 loss falls and the launch counts, profile one more step, then take one
@@ -59,8 +67,12 @@ fp8 KV, D int4 weights (K7) and int4 KV, both at 4 layers with 4 requests;
 KV, ``attn_int8`` and ``spec_k=3`` at 4 layers with 4 requests; each checks
 every token, finite logits, each kernel's launch count and two requests
 teacher-forced through ``forward``, each run's decode steps are profiled,
-and run A's and run B's replayed step is held to the eager one; (8) drive the attention bench tools, the path of quantized
-prefill attention (K10) and of the K/V-ring forward (K11):
+and run A's and run B's replayed step is held to the eager one; then run
+A at 4 layers with 2 LoRA adapters at chunk 8 (``serve_lora_quant``:
+LoRA over the int8 base inside the loop graphs, teacher-forced on each
+adapter's merged weights as run A is held); (8) drive the attention
+bench tools, the path of quantized prefill attention (K10) and of the
+K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
 counted, then hold K10 (every variant) and K11 (depth 2) against their
@@ -68,7 +80,8 @@ plain versions on the tools' own inputs at those shapes, and run the
 serving bench tools each in its own process (``tools/bench_decode.py`` at
 Llama-3-8B, int8 weights and KV, per step and ``--scan``;
 ``tools/bench_serving.py`` at its defaults and with the prefix cache),
-reading back their JSON lines; (9) time each kernel at its path's shapes beside its bound, its
+reading back their JSON lines, and call ``entry()``'s forward and
+``forward_timed`` once (``entry``); (9) time each kernel at its path's shapes beside its bound, its
 plain version and the library call, with K6-K9's registers and spills
 from the build (K1 also launched as a plain grid, with its registers and
 spills; K4/K5 by CUDA-graph replay, as the card runs it faster than the
@@ -80,13 +93,18 @@ variant and K11 per ring depth at b 4, s 4096, with their registers
 and spills from the build; K2 and K3 at four shapes, as the whole call
 and as their kernels' device time, with their registers and spills).
 Phase (3) also holds
+the row-band forward (``KernelConfig(decompose=True)``: one K1 launch a
+512-row band) to the plain monolithic version at b 1, 32/8 heads, s 4096
+and 8192 causal, a window of 1024, q 2048 at q_offset 2048 and with sinks
+(its LSE too), each timed against one monolithic K1 call by CUDA-graph
+replay (``banded_case``), and
 K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
 a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
-``serve_prefix``, ``train``, ``serve_quant``, ``bench_quant``,
+``serve_prefix``, ``serve_lora``, ``train``, ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving`` and ``kernels``
 JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
@@ -324,6 +342,115 @@ def phase_fori_cases() -> tuple[float, float]:
     worst = _flash_cases({f"flash_forward_fori nb{n}": dict(
         kv_loop=KVLoop.FORI, num_kv_buffers=n) for n in FORI_DEPTHS})
     return tuple(max(w[i] for w in worst.values()) for i in (0, 1))
+
+
+# The row-band forward's cases (banded_case): b 1, 32/8 heads; (label, seq_q,
+# options; ``sinks`` adds per-head sinks).
+BANDED_CASES = (("causal s4096", 4096, {}), ("causal s8192", 8192, {}),
+                ("window 1024 s4096", 4096, dict(window=1024)),
+                ("q_offset 2048 s2048/4096", 2048, dict(q_offset=2048)),
+                ("sinks s4096", 4096, dict(sinks=True)))
+
+
+def _plain_by_heads(q, k, v, cfg, sinks, group: int = 8):
+    """The plain forward (out, lse) 8 query heads (and their KV heads) at a
+    time: 32 heads' fp32 scores at s 8192 would take 8.6 GB at once."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import flash_forward_plain
+
+    ratio = q.shape[1] // k.shape[1]
+    parts = [flash_forward_plain(q[:, h:h + group], k[:, h // ratio:(h + group) // ratio],
+                                 v[:, h // ratio:(h + group) // ratio], cfg,
+                                 None if sinks is None else sinks[h:h + group])
+             for h in range(0, q.shape[1], group)]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
+def banded_case() -> list:
+    """``flash_forward_with_lse`` with ``KernelConfig(decompose=True)`` (the
+    row-band dispatch over K1) on the card at BANDED_CASES: one K1 launch a
+    band (band_count's 512-row bands), the output by the tolerance rule in
+    each (batch, head, 64-row band) against the plain monolithic version in
+    bf16 and fp32, the LSE within 1e-3 (with the sinks folded in after the
+    bands). Times the banded call against one monolithic K1 call on the
+    same inputs by CUDA-graph replay, in turns (banded, monolithic,
+    monolithic, banded); beside them the bound of the monolithic call's
+    work. The default stays the monolithic call."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.causal_decomp import band_count
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL, flash_forward_with_lse)
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        row_bands, sliced_tolerance_check)
+
+    lines = []
+    for i, (label, sq, kw) in enumerate(BANDED_CASES):
+        kw = dict(kw)
+        with_sinks = kw.pop("sinks", False)
+        cfg = KernelConfig(causal=True, decompose=True, **kw)
+        mono = dataclasses.replace(cfg, decompose=False)
+        skv = sq + cfg.q_offset
+        q, k, v = _cuda_qkv(skv, skv, seed=200 + i)
+        q = q[:, :, cfg.q_offset:].contiguous()
+        sinks = (torch.linspace(-2, 2, HEADS, device="cuda") if with_sinks else None)
+        before = _build.launch_counts[KERNEL]
+        out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+        sync()
+        launches = _build.launch_counts[KERNEL] - before
+        ref16, _ = _plain_by_heads(q, k, v, mono, sinks)
+        ref32, lse32 = _plain_by_heads(q.float(), k.float(), v.float(), _fp32(mono), sinks)
+        ok, ratio, where = sliced_tolerance_check(
+            row_bands(out), row_bands(ref16), row_bands(ref32), lead=3)
+        lse_err = float((lse - lse32).abs().max())
+        del ref16, ref32, lse32
+        run = {"banded": lambda: flash_forward_with_lse(q, k, v, cfg, sinks=sinks),
+               "monolithic": lambda: flash_forward_with_lse(q, k, v, mono, sinks=sinks)}
+        turns = [(name, _graph_ms(run[name], calls=5))
+                 for name in ("banded", "monolithic", "monolithic", "banded")]
+        pos = np.arange(cfg.q_offset, skv)
+        pairs = int(np.minimum(pos + 1, cfg.window or skv).sum())
+        nbytes = 2 * (2 * sq * HEADS * D + 2 * skv * KV_HEADS * D) + 4 * sq * HEADS
+        line = {"case": label, "bands": band_count(sq), "k1_launches": launches,
+                "worst_err_bound": ratio, "worst_at": where, "lse_err": lse_err,
+                "ms_turns": turns,
+                "banded_ms": min(t for n, t in turns if n == "banded"),
+                "monolithic_ms": min(t for n, t in turns if n == "monolithic"),
+                "bound_ms": 1e3 * max(4 * D * pairs * HEADS / PEAK_BF16_FLOPS,
+                                      nbytes / PEAK_BYTES_PER_S)}
+        print(f"banded_case: {json.dumps(line)}", flush=True)
+        if not (ok and launches == band_count(sq) and lse_err <= 1e-3
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"banded_case {label}: the banded forward disagrees with the "
+                                 f"plain version or launched K1 {launches} times")
+        lines.append(line)
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return lines
+
+
+def phase_entry() -> dict:
+    """``entry()``'s function (the 2-layer model's forward) once on the card,
+    finite logits of its shape; ``forward_timed`` on ``generate_qkv``'s
+    benchmark shape at s 2048 (b 16, 16 heads, causal) returns a positive
+    time."""
+    from flash_attention_from_scratch_tpu_torch.dispatch import forward_timed
+    from flash_attention_from_scratch_tpu_torch.entry import entry
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.utils.testing import generate_qkv
+
+    fn, args = entry()
+    logits = fn(*args)
+    sync()
+    q, k, v = generate_qkv(2048)
+    out, secs = forward_timed(q, k, v, KernelConfig(causal=True))
+    line = {"logits_shape": list(logits.shape), "finite": bool(torch.isfinite(logits).all()),
+            "forward_timed_ms": 1e3 * secs, "forward_timed_shape": list(q.shape),
+            "out_finite": bool(torch.isfinite(out).all())}
+    print(f"entry: {json.dumps(line)}", flush=True)
+    if not (line["finite"] and line["out_finite"] and tuple(logits.shape) == (2, 256, 512)
+            and secs > 0):
+        raise AssertionError(f"entry: {line}")
+    return line
 
 
 def _fp32(cfg):
@@ -583,8 +710,9 @@ RUN_COUNTERS = ("steps", "decode_steps", "decode_loops", "verify_steps", "decode
                 "prefix_hit_pages")
 
 
-def _drive(server, prompts, new_tokens: int) -> dict:
-    """Serve ``prompts`` to the end, the launch counts set to 0 just before
+def _drive(server, prompts, new_tokens: int, adapters=None) -> dict:
+    """Serve ``prompts`` to the end (request ``sid`` on LoRA adapter
+    ``adapters[sid]``, default -1), the launch counts set to 0 just before
     and read just after. Every logit the server picks from must be finite:
     the non-finite ones are summed on the card and read once at the end
     (those the host-side pick sees, the prefill's, by wrapping
@@ -612,7 +740,7 @@ def _drive(server, prompts, new_tokens: int) -> dict:
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     t_start = time.perf_counter()
     for sid, prompt in prompts.items():
-        server.submit(sid, prompt, new_tokens)
+        server.submit(sid, prompt, new_tokens, adapter=(adapters or {}).get(sid, -1))
     prefill_s = decode_s = 0.0
     decode_tokens = 0
     try:
@@ -827,21 +955,25 @@ def phase_serve(smi: str) -> dict:
     return {"server": server, "prompts": prompts, "counts": counts}
 
 
-def phase_profile(server, prompts, steps: int = 4, run: str = "bf16") -> dict:
+def phase_profile(server, prompts, steps: int = 4, run: str = "bf16", split=None,
+                  adapters=None) -> dict:
     """Where a full-width decode step's time goes, from torch.profiler.
 
-    Serves the same prompts again (after the counted main-path run) and
-    traces ``steps`` server steps after the prefills (each a decode or
-    verify step, or with ``chunk`` a decode loop of ``chunk`` steps): device
-    time by kernel and host calls (graph replays, kernel launches, copies)
-    per model step, and the device's busy share of the wall time. Prints
-    the ``profile`` line and returns it.
+    Serves the same prompts again (after the counted main-path run; request
+    ``sid`` on adapter ``adapters[sid]``) and traces ``steps`` server steps
+    after the prefills (each a decode or verify step, or with ``chunk`` a
+    decode loop of ``chunk`` steps): device time by kernel and host calls
+    (graph replays, kernel launches, copies) per model step, and the
+    device's busy share of the wall time; ``split`` moves shares of named
+    kernels to a class of their own (``_profile``). Prints the ``profile``
+    line and returns it.
     """
     for sid, prompt in prompts.items():
-        server.submit(1000 + sid, prompt, steps * server.chunk + 1)
+        server.submit(1000 + sid, prompt, steps * server.chunk + 1,
+                      adapter=(adapters or {}).get(sid, -1))
     server.step()  # the prefills
     before = server.stats()
-    prof = _profile(lambda: [server.step() for _ in range(steps)], top=8)
+    prof = _profile(lambda: [server.step() for _ in range(steps)], top=8, split=split)
     after = server.stats()
     n = sum(after[k] - before[k] for k in ("decode_steps", "verify_steps"))
     while server.has_work:
@@ -1186,9 +1318,9 @@ def _teacher_forced_topk(params, cfg, prompt, generated, sid: int) -> tuple[floa
     return float((kth - got).max()), float((best - served).max())
 
 
-def _serve_run(label, server, prompts, smi, extra=None) -> dict:
+def _serve_run(label, server, prompts, smi, extra=None, adapters=None) -> dict:
     """One counted serving run (``_drive``) and its line's common fields."""
-    run = _drive(server, prompts, SERVE_NEW_TOKENS)
+    run = _drive(server, prompts, SERVE_NEW_TOKENS, adapters)
     stats = run["stats"]
     got = {sid: list(server.seqs[sid].generated) for sid in prompts}
     if any(len(g) != SERVE_NEW_TOKENS for g in got.values()):
@@ -1385,6 +1517,326 @@ def phase_serve_prefix(params, smi: str) -> dict:
     return {"counts": counts}
 
 
+LORA_ADAPTERS, LORA_RANK, LORA_SCALE = 4, 16, 0.3
+LORA_IDS = (-1, 0, 1, 2, 3, 0, 1, -1)  # the adapter of each SERVE_PROMPT_LENS request
+LORA_SLACK = 0.1  # an adapter row's bound against its merged weights (tests/test_lora.py)
+LORA_CLASS = "LoRA gathers and products"
+
+
+def _lora_stack(cfg, n: int, seed: int = 0):
+    """``n`` adapters of rank 16 on every attention projection, B drawn
+    non-zero (``zero_b=False``), both factors scaled by 0.3 as the JAX
+    package's LoRA test scales them."""
+    from flash_attention_from_scratch_tpu_torch import init_lora_adapters
+
+    lora = init_lora_adapters(cfg, n, LORA_RANK, torch.Generator(device="cuda").manual_seed(seed),
+                              zero_b=False)
+    lora["layers"] = [{k: (a * LORA_SCALE, b * LORA_SCALE) for k, (a, b) in layer.items()}
+                      for layer in lora["layers"]]
+    return lora
+
+
+def _lora_gaps(params, cfg, lora, prompts, tokens, adapters, by_std: bool) -> dict:
+    """Each request's served tokens teacher-forced through ``forward`` on
+    its adapter's merged weights (``merged_params``: W + alpha A_i B_i, one
+    adapter at a time) or, for adapter -1, on the base weights. Returns
+    {adapter: worst gap}, the gap below the row max in logits or, with
+    ``by_std``, in row standard deviations."""
+    from flash_attention_from_scratch_tpu_torch.models.lora import merged_params
+
+    worst = {}
+    for a in sorted(set(adapters.values())):
+        model = params if a < 0 else merged_params(params, lora, a)
+        for sid in (s for s, x in adapters.items() if x == a):
+            gaps, std = _teacher_forced_gaps(model, cfg, prompts[sid], tokens[sid])
+            worst[a] = max(worst.get(a, 0.0), float((gaps / std if by_std else gaps).max()))
+        del model
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _kernel_counts(fn):
+    """Launches by kernel name of one call of ``fn``, from torch.profiler."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return collections.Counter({
+        e.key: e.count for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)})
+
+
+def _lora_split(params, cfg, lora) -> dict:
+    """Which kernels of a LoRA decode step are the adapters': one eager
+    decode step of 8 rows (adapters LORA_IDS) with ``lora`` and one without,
+    on the same inputs and a small cache, each profiled. A kernel name
+    launched n_lora times with and n_base times without is the adapters'
+    for a share (n_lora - n_base) / n_lora of its time ({name: (LORA_CLASS,
+    share)}, for ``_profile``'s split): the gathers and the two skinny
+    products of every adapted projection, and whatever they share a kernel
+    with. Eager and replayed steps launch the same kernels."""
+    from flash_attention_from_scratch_tpu_torch.models.decode import decode_step, init_cache
+
+    batch = len(LORA_IDS)
+    cache = init_cache(cfg, batch + 1, SERVE_PAGE_SIZE)
+    tables = torch.arange(batch, dtype=torch.int32, device="cuda")[:, None]
+    tokens = torch.arange(batch, device="cuda")
+    lengths = torch.full((batch,), 10, dtype=torch.int32, device="cuda")
+    ids = torch.tensor(LORA_IDS, device="cuda")
+    counts = {}
+    for name, kw in (("lora", dict(lora=lora, adapter_ids=ids)), ("base", {})):
+        step = lambda: decode_step(params, tokens, cfg, cache, lengths, tables, **kw)  # noqa: E731
+        step()  # one-time set-up outside the window
+        counts[name] = _kernel_counts(step)
+    return {k: (LORA_CLASS, (n - counts["base"][k]) / n) for k, n in counts["lora"].items()
+            if n > counts["base"][k]}
+
+
+def lora_graph_case(label, server, lengths) -> dict:
+    """With the server's adapters: a greedy decode step by ``pick_step``
+    replay (t = 1) and a loop of CHUNK steps by replay, against the eager
+    ``_step`` with ``pick_keyed`` and ``decode_loop`` on two copies of the
+    server's cache, two calls each, the second of each (only a replay) on
+    other adapter ids, tokens and lengths. The tokens must be equal and
+    every page and scale bit for bit."""
+    from flash_attention_from_scratch_tpu_torch.models.decode import (
+        _step, decode_loop, pick_keyed)
+    from flash_attention_from_scratch_tpu_torch.models.step_graphs import StepGraphs
+
+    cfg, ps = server.cfg, server.page_size
+    batch = len(lengths)
+    need = [-(-(n + 2 + 2 * CHUNK) // ps) for n in lengths]
+    per = max(need)
+    if batch * per >= server.cache.num_pages or per > server.pages_per_seq:
+        raise ValueError(f"lora graph case {label}: {batch} x {per} pages do not fit")
+    tables = torch.full((batch, server.pages_per_seq), -1, dtype=torch.int32)
+    for b, n in enumerate(need):
+        tables[b, :n] = torch.arange(b * per, b * per + n)
+    eager, replayed = _clone_cache(server.cache), _clone_cache(server.cache)
+    graphs = StepGraphs(server.params, cfg, replayed, attn_int8=server.attn_int8,
+                        lora=server.lora)
+    zeros = torch.zeros(batch, dtype=torch.int64)
+    id_calls = (list(LORA_IDS[:batch]), [(i % (LORA_ADAPTERS + 1)) - 1 for i in range(batch)][::-1])
+    rng = np.random.default_rng(17)
+    equal = []
+    for call, ids in enumerate(id_calls):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 1)))
+        lens = torch.tensor(lengths, dtype=torch.int32) + call + 1
+        got, n_emit = graphs.pick_step(tokens, lens, tables, zeros, zeros, zeros,
+                                       torch.tensor(ids))
+        logits, _ = _step(server.params, tokens.cuda(), cfg, eager, lens.cuda(), tables.cuda(),
+                          server.lora, None, server.attn_int8, torch.tensor(ids).cuda())
+        want, want_n = pick_keyed(logits, tokens[:, 1:].cuda(), zeros.cuda(), zeros.cuda(),
+                                  zeros.cuda(), 0.0, 0)
+        equal.append(torch.equal(got, want) and torch.equal(n_emit, want_n))
+    for call, ids in enumerate(id_calls):
+        first = torch.from_numpy(rng.integers(0, cfg.vocab_size, batch))
+        lens = torch.tensor(lengths, dtype=torch.int32) + 2 + call * CHUNK
+        got, _ = graphs.decode_loop(first, lens, tables, CHUNK, adapter_ids=torch.tensor(ids))
+        want, _, _ = decode_loop(server.params, first.cuda(), cfg, eager, lens.cuda(),
+                                 tables.cuda(), CHUNK, lora=server.lora,
+                                 adapter_ids=torch.tensor(ids).cuda())
+        equal.append(torch.equal(got, want))
+    pools = {name: all(_same_bits(a, b) for a, b in zip(getattr(replayed, name),
+                                                         getattr(eager, name)))
+             for name in ("k_pages", "v_pages", "k_scales", "v_scales")}
+    line = {"case": label, "batch": batch, "loop_steps": CHUNK, "adapter_ids": id_calls,
+            "captures": graphs.graphs, "replays": graphs.replays,
+            "tokens_equal": {"pick_step": equal[:2], "loop": equal[2:]}, "pages_bitwise": pools}
+    print(f"graph_case: {json.dumps(line)}", flush=True)
+    del graphs, eager, replayed
+    if (line["captures"], line["replays"]) != (2, 4):
+        raise AssertionError(f"lora graph case {label}: {line['captures']} captures, "
+                             f"{line['replays']} replays, not 2 and 4")
+    if not (all(equal) and all(pools.values())):
+        raise AssertionError(f"lora graph case {label}: a replayed LoRA step differs from "
+                             "the eager one")
+    return line
+
+
+def phase_serve_lora(params, smi: str) -> dict:
+    """Multi-LoRA serving of LLAMA3_8B at full width and depth on the fused
+    weights: 4 adapters of rank 16 (``_lora_stack``, seed 0), the 8
+    prompts of SERVE_PROMPT_LENS on adapters LORA_IDS (two on the base
+    model), 32 greedy tokens each at page 64, served at chunk 1 (a LoRA
+    decode graph a step, the ids a static input) and at chunk 8 (LoRA loop
+    graphs). Checks: the launch counts of K1 and K4/K5 (and its merge) in
+    each run, no non-finite logit, equal tokens at chunk 1 and 8, every
+    adapter row teacher-forced through ``forward`` on its adapter's merged
+    weights within LORA_SLACK of the row max and every base row on the base
+    weights within SLACK, at least one adapter row serving other tokens
+    than the server without adapters, and the replayed LoRA step and loop
+    equal to the eager ones (``lora_graph_case``). Profiles 4 decode steps
+    at chunk 1 and 8 with the adapters' kernels in a class of their own
+    (``_lora_split``), and times chunk 8 with and without the adapters in
+    alternated turns (lora, base, lora, base; the first lora run is the
+    checked one)."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, GenerationServer
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = LLAMA3_8B
+    lora = _lora_stack(cfg, LORA_ADAPTERS)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(SERVE_PROMPT_LENS)}
+    adapters = dict(enumerate(LORA_IDS))
+    split = _lora_split(params, cfg, lora)
+
+    def server(chunk, with_lora=True):
+        s = GenerationServer(params, cfg, num_pages=SERVE_PAGES, page_size=SERVE_PAGE_SIZE,
+                             max_batch=8, pages_per_seq=SERVE_PAGES_PER_SEQ, chunk=chunk,
+                             lora=lora if with_lora else None)
+        return s, _warm_graphs(s, cfg.vocab_size, SERVE_NEW_TOKENS)
+
+    lines, tokens, counts = {}, {}, {}
+    for chunk in (1, CHUNK):
+        s, warm = server(chunk)
+        out = _serve_run(f"serve_lora chunk {chunk}", s, prompts, smi,
+                         {"chunk": chunk, "warm_up_s": warm}, adapters)
+        stats = out["run"]["stats"]
+        want = _with_merges({K1: cfg.n_layers * len(prompts),
+                             KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                            SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+        counts[chunk] = out["run"]["counts"]
+        print(f"serve_lora: chunk {chunk} launches {counts[chunk]}; expected {want}",
+              flush=True)
+        if counts[chunk] != want:
+            raise AssertionError(f"serve_lora chunk {chunk}: a kernel of the path ran the "
+                                 "wrong number of times")
+        if chunk == CHUNK and stats["decode_loops"] == 0:
+            raise AssertionError("serve_lora: no LoRA decode loop ran")
+        tokens[chunk] = out["tokens"]
+        prof = phase_profile(s, prompts, run=f"lora chunk {chunk}", split=split,
+                             adapters=adapters)
+        lines[chunk] = {**out["line"], **_graph_fields(s, out["run"], prof),
+                        "launches_per_step": prof["launches_per_step"],
+                        "device_ms_per_step_by_class": prof["device_ms_per_step_by_class"]}
+        if chunk == 1:
+            case = lora_graph_case("lora bf16 t1 and loop", s,
+                                   [min(n, 2000) + 1 for n in SERVE_PROMPT_LENS])
+            del s
+        else:
+            lora8 = s
+    if tokens[1] != tokens[CHUNK]:
+        diff = [sid for sid in prompts if tokens[1][sid] != tokens[CHUNK][sid]]
+        raise AssertionError(f"serve_lora: chunk 1 and chunk {CHUNK} differ for {diff}")
+    worst = _lora_gaps(params, cfg, lora, prompts, tokens[1], adapters, by_std=False)
+    print(f"serve_lora: teacher-forced on merged weights, worst gap by adapter {worst}; "
+          f"bounds {LORA_SLACK} (adapters), {SLACK} (base)", flush=True)
+    if any(g > (SLACK if a < 0 else LORA_SLACK) for a, g in worst.items()):
+        raise AssertionError(f"serve_lora: a served token lies too far below its "
+                             f"merged-weight row max: {worst}")
+    base8, warm = server(CHUNK, with_lora=False)
+    turns, base_tokens = [("lora", lines[CHUNK]["decode_tok_s"])], None
+    for name, s in (("base", base8), ("lora", lora8), ("base", base8)):
+        out = _serve_run(f"serve_lora {name} turn", s, prompts, smi,
+                         adapters=adapters if name == "lora" else None)
+        turns.append((name, out["line"]["decode_tok_s"]))
+        if name == "base" and base_tokens is None:
+            base_tokens = out["tokens"]
+    del base8, lora8
+    differ = [sid for sid, a in adapters.items() if a >= 0 and tokens[1][sid] != base_tokens[sid]]
+    same_base = all(tokens[1][sid] == base_tokens[sid] for sid, a in adapters.items() if a < 0)
+    print(f"serve_lora: {len(differ)} of {sum(a >= 0 for a in LORA_IDS)} adapter rows serve "
+          f"other tokens than the server without adapters; base rows equal its tokens: "
+          f"{same_base}", flush=True)
+    if not differ:
+        raise AssertionError("serve_lora: every adapter row served the base model's tokens")
+    rates = {name: [r for n, r in turns if n == name] for name in ("lora", "base")}
+    line = {"model": "LLAMA3_8B", "layers": cfg.n_layers, "fused": True,
+            "requests": len(prompts), "adapters": LORA_ADAPTERS, "rank": LORA_RANK,
+            "adapter_ids": list(LORA_IDS), "new_tokens_per_request": SERVE_NEW_TOKENS,
+            "page_size": SERVE_PAGE_SIZE, "tokens_equal_chunk_1_8": True,
+            "teacher_forced_worst_gap_by_adapter": {str(a): g for a, g in worst.items()},
+            "adapter_rows_differing_from_base_server": differ,
+            "base_rows_equal_base_server": same_base,
+            "runs": {str(c): l for c, l in lines.items()},
+            "chunk8_decode_tok_s_turns": turns,
+            "chunk8_lora_over_base_decode_tok_s": (min(rates["lora"]) / max(rates["base"]),
+                                                   max(rates["lora"]) / min(rates["base"])),
+            "lora_split_kernels": {k: v[1] for k, v in split.items()},
+            "graph_case": case, "launches": counts[1], "launches_chunk8": counts[CHUNK],
+            "gpu": smi}
+    print(json.dumps({"serve_lora": line}), flush=True)
+    return {"counts": counts}
+
+
+def phase_serve_lora_quant(smi: str) -> dict:
+    """LoRA over a quantized base inside the graphs: run A's recipe (int8
+    weights on K6, int8 KV pages at page 128, 16 requests of 1,024 tokens)
+    at 4 layers with 2 adapters (adapters -1, 0, 1 in turn), chunk 8.
+    Checks K6's, K1's and K4/K5's launch counts, every token and finite
+    logits, and one request of each adapter teacher-forced through
+    ``forward`` on that adapter's merged weights (the adapted projections
+    dequantized, W + alpha A_i B_i; the others quantized) or on the base
+    model, within QUANT_SLACK_STD row standard deviations of the row max,
+    as run A is held."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, GenerationServer, init_quantized_params)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import kernel_name
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    spec = dict(QUANT_RUNS["A"], layers=4)
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=spec["layers"])
+    kernel = KERNELS[(spec["wmode"], False)]
+    params = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   spec["wmode"], act=spec["act"])
+    lora = _lora_stack(cfg, 2, seed=1)
+    pages_per_seq = -(-(QUANT_PROMPT + QUANT_NEW) // QUANT_PAGE)
+    server = GenerationServer(params, cfg, num_pages=spec["requests"] * pages_per_seq + 2,
+                              page_size=QUANT_PAGE, max_batch=spec["requests"],
+                              pages_per_seq=pages_per_seq, mode=spec["kv"], chunk=CHUNK,
+                              lora=lora)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
+               for i in range(spec["requests"])}
+    adapters = {sid: sid % 3 - 1 for sid in prompts}
+    capture_s = _warm_graphs(server, cfg.vocab_size, QUANT_NEW)
+    run = _drive(server, prompts, QUANT_NEW, adapters)
+    counts, stats = run["counts"], run["stats"]
+    got = {sid: server.seqs[sid].generated for sid in prompts}
+    if any(len(g) != QUANT_NEW for g in got.values()):
+        raise AssertionError(f"serve_lora_quant: token counts {[len(g) for g in got.values()]}")
+    if run["nonfinite"] or stats["preemptions"] or not stats["decode_loops"]:
+        raise AssertionError(f"serve_lora_quant: {run['nonfinite']} non-finite logits, "
+                             f"{stats['preemptions']} preemptions, "
+                             f"{stats['decode_loops']} decode loops")
+    want = _with_merges({kernel: (7 * cfg.n_layers + 1) * (len(prompts) + stats["decode_steps"]),
+                         K1: cfg.n_layers * len(prompts),
+                         kernel_name(1, False): cfg.n_layers * stats["decode_steps"]},
+                        spec["requests"], pages_per_seq, QUANT_PAGE, spec["kv"])
+    print(f"serve_lora_quant: launches {counts}; expected {want}", flush=True)
+    if counts != want:
+        raise AssertionError("serve_lora_quant: a kernel of the path ran the wrong number "
+                             "of times")
+    checked = {sid: adapters[sid] for sid in (0, 1, 2)}
+    worst = _lora_gaps(params, cfg, lora, prompts, got, checked, by_std=True)
+    print(f"serve_lora_quant: teacher-forced, worst gap by adapter {worst} row std, limit "
+          f"{QUANT_SLACK_STD}", flush=True)
+    if max(worst.values()) > QUANT_SLACK_STD:
+        raise AssertionError(f"serve_lora_quant: a served token sits too far below its "
+                             f"merged-weight row max: {worst}")
+    prof = phase_profile(server, prompts, run="lora quant A", adapters=adapters)
+    line = {"run": "A + LoRA", **spec, "adapters": 2, "rank": LORA_RANK, "chunk": CHUNK,
+            "prompt_tokens": QUANT_PROMPT, "new_tokens_per_request": QUANT_NEW,
+            "page_size": QUANT_PAGE, "decode_tok_s": run["decode_tokens"] / run["decode_s"],
+            "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
+            "decode_steps": stats["decode_steps"], "decode_loops": stats["decode_loops"],
+            **_graph_fields(server, run, prof), "warm_up_s": capture_s,
+            "teacher_forced_worst_gap_std_by_adapter": {str(a): g for a, g in worst.items()},
+            "launches": counts, "gpu": smi}
+    print(json.dumps({"serve_lora_quant": line}), flush=True)
+    return {"kernel": kernel, "counts": counts}
+
+
 SERVING_TOOLS = (
     ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8")),
     ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8", "--scan")),
@@ -1481,10 +1933,12 @@ def _kernel_class(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def _profile(fn, top: int = 10) -> dict:
+def _profile(fn, top: int = 10, split=None) -> dict:
     """Device time by kernel and the device's busy share over one call of
     ``fn``, from torch.profiler. GPU ranges of user annotations (such as
-    the optimizer's step) span kernels and are left out of the sums."""
+    the optimizer's step) span kernels and are left out of the sums.
+    ``split`` ({kernel name: (class, share)}) puts that share of a kernel's
+    time in that class, the rest in its own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1505,8 +1959,12 @@ def _profile(fn, top: int = 10) -> dict:
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     by_class: dict = {}
     for e in kernels:
-        label = _kernel_class(e.key)
-        by_class[label] = by_class.get(label, 0.0) + e.self_device_time_total / 1e3
+        ms = e.self_device_time_total / 1e3
+        label, share = (split or {}).get(e.key, (None, 0.0))
+        if share:
+            by_class[label] = by_class.get(label, 0.0) + share * ms
+        own = _kernel_class(e.key)
+        by_class[own] = by_class.get(own, 0.0) + (1.0 - share) * ms
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "launches": sum(e.count for e in kernels), "device_ms_by_class": by_class,
@@ -2888,6 +3346,7 @@ def main(argv=None) -> int:
     ptxas = _ptxas_by_kernel(logs.get("quant_matmul.cu", ""))
     flash_err, flash_ratio = phase_flash_cases()
     fori_err, fori_ratio = phase_fori_cases()
+    banded = banded_case()
     quant_err, quant_ratio = phase_flash_quant_cases()
     paged_err = max(phase_paged_cases(), phase_quant_paged_cases())
     multi_err, multi_ratio = phase_paged_multi_cases()
@@ -2904,6 +3363,7 @@ def main(argv=None) -> int:
     sampled = phase_serve_sample(params, smi)
     prefixed = phase_serve_prefix(params, smi)
     chunk_case = prefill_chunked_case(params)
+    lora = phase_serve_lora(params, smi)
     del params  # frees the 16 GB of weights before training
     torch.cuda.empty_cache()
     trained = phase_train(smi)
@@ -2912,11 +3372,14 @@ def main(argv=None) -> int:
     for run in QUANT_RUNS:
         quant_runs[run] = phase_serve_quant(run, smi, graph_check=run in ("A", "B"))
         torch.cuda.empty_cache()
+    lora_quant = phase_serve_lora_quant(smi)
+    torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
     torch.cuda.empty_cache()
     phase_serving_tools(smi)
+    phase_entry()
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
@@ -2936,7 +3399,9 @@ def main(argv=None) -> int:
          "launches_serve_chunk": chunked["counts"].get(K1, 0),
          "launches_serve_sample": sampled["counts"][1].get(K1, 0),
          "launches_serve_prefix": prefixed["counts"].get(K1, 0),
-         "prefill_chunked_case": chunk_case,
+         "launches_serve_lora": {str(c): n.get(K1, 0) for c, n in lora["counts"].items()},
+         "launches_serve_lora_quant": lora_quant["counts"].get(K1, 0),
+         "prefill_chunked_case": chunk_case, "banded_case": banded,
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
@@ -2951,6 +3416,8 @@ def main(argv=None) -> int:
          "launches_serve_sample": {str(c): n.get(KP, 0)
                                    for c, n in sampled["counts"].items()},
          "launches_serve_prefix": prefixed["counts"].get(KP, 0),
+         "launches_serve_lora": {str(c): n.get(KP, 0) for c, n in lora["counts"].items()},
+         "launches_serve_lora_quant": lora_quant["counts"].get(KP, 0),
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
                           "multi_int8c: run F; serve_sample at chunk 1 and 8 (the "
                           "pick in the graphs), serve_prefix; every count by "
@@ -2999,6 +3466,7 @@ def main(argv=None) -> int:
         if name == KERNELS[("int8", False)]:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
                                             "quant_matmul.py:247")
+            kernels[-1]["launches_serve_lora_quant"] = lora_quant["counts"][name]
     kernels += [
         {"name": KQ, "route": "cuda", "source": pkg + "flash_quant.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",

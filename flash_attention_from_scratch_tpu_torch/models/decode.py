@@ -11,6 +11,10 @@ the same for t tokens per sequence in one pass (speculative verify), and
 delta-proposal rule (:func:`pick_keyed`: the server's pick of a decode
 or verify step); :func:`decode_loop` runs several decode steps, each
 feeding its pick (the argmax, or :func:`sample_token`) to the next.
+:func:`prefill`, :func:`decode_step` and :func:`decode_loop` take LoRA
+adapters (``models/lora.py``) with one adapter id a row (-1: the base
+model): each adapted projection's delta adds to q, k and v after the
+projection and to the output projection before the residual.
 These functions run eagerly; ``models/step_graphs.py`` captures the decode
 steps and the loop as CUDA graphs (the JAX package's ``jax.jit``).
 
@@ -49,16 +53,29 @@ from .llama import (
     LlamaConfig, _attention, _embed, _lm_logits, _q_scale_ratio, _qkv,
     _residual_tail, apply_rope, rms_norm, rope_inv_freq, rope_tables,
 )
+from .lora import lora_delta
 
 __all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
            "decode_step", "verify_step", "decode_loop", "spec_accept_sample",
            "greedy_token", "sample_token", "pick_keyed", "sample_noise", "noise_bits",
-           "row_keys"]
+           "row_keys", "lora_fn"]
 
 
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (see ROADMAP.md, Queue 1)")
+
+
+def lora_fn(lora, li: int, adapter_ids):
+    """``adapt(name, x)``: the LoRA delta of projection ``name`` of layer
+    ``li`` for x's rows (:func:`~.lora.lora_delta`); None without ``lora``.
+    ``adapter_ids`` (batch,) int, -1 for the base model, is required with
+    ``lora`` (``ValueError``)."""
+    if lora is None:
+        return None
+    if adapter_ids is None:
+        raise ValueError("serving with lora needs adapter_ids, one a row (-1: none)")
+    return lambda name, x: lora_delta(lora, li, name, x, adapter_ids)
 
 
 def check_no_sinks(cfg: LlamaConfig) -> None:
@@ -202,19 +219,18 @@ def _write_prompt_layer(cache: PagedKVCache, li: int, k, v, page_table,
 
 def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
             page_table, prompt_len: int | None = None, *, lora=None,
-            mesh=None):
+            adapter_ids=None, mesh=None):
     """Run one prompt (1, padded_len) through the model, filling its pages.
 
     ``tokens`` may be right-padded so the flash kernel's tile (64) divides
     it; ``prompt_len`` is the true length: only its K/V rows go to pages
     and the returned logits are row ``prompt_len - 1``. ``page_table``:
-    (pages_per_seq,) int, -1 padded. Writes the pages in place and returns
-    (logits (vocab,) fp32, cache). A config with attention sinks raises
-    ``ValueError`` (:func:`check_no_sinks`).
+    (pages_per_seq,) int, -1 padded. ``lora`` with ``adapter_ids`` (1,)
+    int runs the prompt through that adapter (-1: the base model). Writes
+    the pages in place and returns (logits (vocab,) fp32, cache). A config
+    with attention sinks raises ``ValueError`` (:func:`check_no_sinks`).
     """
     check_no_sinks(cfg)
-    if lora is not None:
-        raise _not_ported("LoRA serving")
     if mesh is not None:
         raise _not_ported("tensor-parallel serving")
     s = tokens.shape[1]
@@ -223,8 +239,9 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     cos, sin = rope_tables(s, cfg.d_head, cfg.rope_theta, cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        out, k, v = _attention(layer, h, cfg, cos, sin, li)
-        x = _residual_tail(cfg, layer, x, out)
+        adapt = lora_fn(lora, li, adapter_ids)
+        out, k, v = _attention(layer, h, cfg, cos, sin, li, adapt)
+        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out))
         # Causality makes rows [0, prompt_len) independent of the padding
         # rows, so scattering just those rows keeps the cache exact.
         _write_prompt_layer(cache, li, k[0, :, :prompt_len],
@@ -352,7 +369,7 @@ def prefill_chunked(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
 
 
 def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
-                lengths, page_tables, *, lora=None, mesh=None,
+                lengths, page_tables, *, lora=None, adapter_ids=None, mesh=None,
                 attn_int8: bool = False):
     """One decode step for the whole running batch.
 
@@ -360,6 +377,8 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
       tokens: (batch,) int: the most recent token of each sequence.
       lengths: (batch,) int32: sequence length *including* these tokens.
       page_tables: (batch, pages_per_seq) int32, -1 padded.
+      lora, adapter_ids: LoRA adapters (``models/lora.py``) and each row's
+        adapter id, (batch,) int (-1: the base model).
       attn_int8: int8-compute attention (``int8_compute`` in the paged
         kernel); the cache must be int8.
 
@@ -368,7 +387,7 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     (logits (batch, vocab) fp32, cache).
     """
     logits, cache = _step(params, tokens[:, None], cfg, cache, lengths,
-                          page_tables, lora, mesh, attn_int8)
+                          page_tables, lora, mesh, attn_int8, adapter_ids)
     return logits[:, 0], cache
 
 
@@ -391,8 +410,13 @@ def verify_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     row j verifies draft j + 1 and the last row gives the bonus or
     correction token. Unlike the JAX ``verify_step``, which indexes the
     embedding table directly, the embedding goes through ``_embed``, so
-    ``cfg.embed_scale`` applies as in :func:`decode_step`.
+    ``cfg.embed_scale`` applies as in :func:`decode_step`. ``lora`` raises
+    ``ValueError``: the JAX ``verify_step`` takes no adapters, and
+    multi-LoRA serving runs no speculative steps.
     """
+    if lora is not None:
+        raise ValueError("verify_step takes no LoRA adapters: multi-LoRA serving runs "
+                         "no speculative steps (as in the JAX package)")
     return _step(params, tokens, cfg, cache, lengths, page_tables, lora, mesh,
                  attn_int8)
 
@@ -414,6 +438,7 @@ def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
         port's form of the JAX ``fold_in(key, sid)``).
       pos0: (batch,) int: generated-token count of each row at the call's
         start; step i samples row r at position ``pos0[r] + i``.
+      lora, adapter_ids: as in :func:`decode_step`, for every step.
 
     Token selection stays on the device: no host round trip between steps.
     Greedy at ``temperature <= 0`` or without ``row_keys`` (as in the JAX
@@ -422,13 +447,12 @@ def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     Sampling without ``pos0`` raises ``ValueError``. Writes the pages in
     place and returns (tokens (batch, steps), cache, lengths + steps).
     """
-    del adapter_ids  # read by LoRA, not ported
     if temperature > 0.0 and row_keys is not None and pos0 is None:
         raise ValueError("sampling in decode_loop needs pos0 beside row_keys")
 
     def step(toks, lens):
-        return decode_step(params, toks, cfg, cache, lens, page_tables,
-                           lora=lora, mesh=mesh, attn_int8=attn_int8)[0]
+        return decode_step(params, toks, cfg, cache, lens, page_tables, lora=lora,
+                           adapter_ids=adapter_ids, mesh=mesh, attn_int8=attn_int8)[0]
 
     out, lengths = pick_loop(
         step, loop_pick(row_keys, pos0, temperature, top_k), tokens, lengths, steps)
@@ -462,12 +486,11 @@ def pick_loop(step, pick, tokens, lengths, steps: int):
 
 
 def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
-          page_tables, lora, mesh, attn_int8: bool):
+          page_tables, lora, mesh, attn_int8: bool, adapter_ids=None):
     """The body of :func:`decode_step` and :func:`verify_step`: tokens
-    (batch, t) at positions lengths - t + j."""
+    (batch, t) at positions lengths - t + j; ``lora`` with one adapter id a
+    row."""
     check_no_sinks(cfg)
-    if lora is not None:
-        raise _not_ported("LoRA serving")
     if mesh is not None:
         raise _not_ported("tensor-parallel serving")
     if attn_int8 and cache.mode != KVQuantMode.INT8:
@@ -490,6 +513,9 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg)
+        adapt = lora_fn(lora, li, adapter_ids)
+        if adapt is not None:
+            q, k, v = q + adapt("wq", h), k + adapt("wk", h), v + adapt("wv", h)
         q = apply_rope(q.view(batch, t, cfg.n_heads, cfg.d_head).transpose(1, 2),
                        cos, sin)  # (b, H, t, d)
         k = apply_rope(k.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
@@ -506,7 +532,7 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
             softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
         out = out.view(batch, cfg.n_heads, t, cfg.d_head).transpose(1, 2)
         out = out.reshape(batch, t, cfg.n_heads * cfg.d_head).to(x.dtype)
-        x = _residual_tail(cfg, layer, x, out)
+        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out))
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x, cfg), cache

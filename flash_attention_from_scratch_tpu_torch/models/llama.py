@@ -394,17 +394,21 @@ def _mlp(layer, x, cfg: LlamaConfig):
     return _mm(gate.to(x.dtype) * up, layer["w_down"])
 
 
-def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int):
+def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int, adapt=None):
     """Causal attention of layer ``li`` over x (b, s, dim).
 
     Returns (output before wo (b, s, n_heads * d_head), k, v), with k and v
     (b, kv_heads, s, d_head) after RoPE: prefill writes them to pages. When
     autograd needs the gradient (grad enabled and an input requires it) the
     attention is :func:`flash_attention` (forward and backward kernels);
-    otherwise the forward kernel alone.
+    otherwise the forward kernel alone. ``adapt(name, x)`` (serving with
+    LoRA adapters, ``models/decode.py::lora_fn``) adds each projection's
+    delta to q, k and v before RoPE.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(layer, x, cfg)
+    if adapt is not None:
+        q, k, v = q + adapt("wq", x), k + adapt("wk", x), v + adapt("wv", x)
     q = q.view(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
     k = k.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     v = v.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
@@ -436,9 +440,13 @@ def _lm_logits(params, h, cfg: LlamaConfig):
     return logits
 
 
-def _residual_tail(cfg: LlamaConfig, layer, x, out):
-    """Attention-output projection + MLP, with optional sandwich norms."""
+def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None):
+    """Attention-output projection + MLP, with optional sandwich norms.
+    ``o_extra`` adds to the output projection before the norm (the per-row
+    LoRA delta of wo)."""
     h = _o_proj(layer, out)
+    if o_extra is not None:
+        h = h + o_extra
     if cfg.post_norms:
         h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
     x = x + h

@@ -10,7 +10,10 @@ count, over static token, length and page-table buffers. The server's
 steps and loops also take each row's key and position as static buffers
 and pick their tokens inside the graph (``models/decode.py::pick_keyed``
 and ``loop_pick``: greedy, or sampled on the noise of ``sample_noise``);
-temperature and top-k are fixed per object.
+temperature and top-k are fixed per object. With LoRA adapters
+(``models/lora.py``, fixed per object and read by address) each row's
+adapter id is one more static buffer of the decode steps and loops; an
+object without adapters captures the graphs it captured before them.
 The graphs write the cache's pools in place (the donation) and share one
 memory pool. A call
 copies its inputs into the static buffers, replays the graph and returns
@@ -63,13 +66,17 @@ class StepGraphs:
     graphs hold the addresses of the weights and of the cache's pools.
     ``attn_int8`` selects the paged kernel's int8 compute (int8 cache
     only). ``temperature`` and ``top_k`` shape every pick the graphs make
-    (greedy at ``temperature <= 0``). ``graphs`` counts the captures made
-    and ``replays`` the replays.
+    (greedy at ``temperature <= 0``). ``lora``: the adapters every step
+    applies, each row by its id (``adapter_ids`` of the calls, (batch,)
+    int, -1 for the base model; required with ``lora``); single-token
+    steps and loops only, as in serving (a verify step of t > 1 raises
+    ``ValueError``). ``graphs`` counts the captures made and ``replays``
+    the replays.
     """
 
     def __init__(self, params, cfg: LlamaConfig, cache: PagedKVCache, *,
                  attn_int8: bool = False, temperature: float = 0.0,
-                 top_k: int = 0):
+                 top_k: int = 0, lora=None):
         check_no_sinks(cfg)
         if attn_int8 and cache.mode != KVQuantMode.INT8:
             raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
@@ -79,6 +86,7 @@ class StepGraphs:
         self.params, self.cfg, self.cache = params, cfg, cache
         self.attn_int8 = attn_int8
         self.temperature, self.top_k = temperature, top_k
+        self.lora = lora
         self._pool = torch.cuda.graph_pool_handle()
         self._graphs: dict = {}
         self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -92,9 +100,9 @@ class StepGraphs:
         """Non-finite logits the replays have computed so far (a host read)."""
         return int(self._nonfinite)
 
-    def _logits(self, tokens, lengths, page_tables):
+    def _logits(self, tokens, lengths, page_tables, adapter_ids=None):
         logits, _ = _step(self.params, tokens, self.cfg, self.cache, lengths,
-                          page_tables, None, None, self.attn_int8)
+                          page_tables, self.lora, None, self.attn_int8, adapter_ids)
         self._nonfinite.add_((~torch.isfinite(logits)).sum())
         return logits
 
@@ -127,39 +135,54 @@ class StepGraphs:
         self.replays += 1
         return g.outputs
 
-    def verify_step(self, tokens, lengths, page_tables):
+    def _adapters(self, inputs: dict, adapter_ids, t: int) -> dict:
+        """``inputs`` plus the adapter ids' static buffer when LoRA is on."""
+        if self.lora is None:
+            return inputs
+        if adapter_ids is None:
+            raise ValueError("a StepGraphs with lora needs adapter_ids, one a row")
+        if t > 1:
+            raise ValueError("LoRA serving runs single-token steps: no verify "
+                             f"step of t = {t} (as in the JAX package)")
+        return {**inputs, "adapter_ids": adapter_ids}
+
+    def verify_step(self, tokens, lengths, page_tables, adapter_ids=None):
         """:func:`~.decode.verify_step` by replay: tokens (batch, t) at
         positions lengths - t + j; returns logits (batch, t, vocab) fp32
         (a static buffer)."""
-        key = ("step",) + tuple(tokens.shape) + (page_tables.shape[1],)
-        return self._replay(key, lambda tokens, lengths, page_tables: (
-            self._logits(tokens, lengths, page_tables),),
-            {"tokens": tokens, "lengths": lengths, "page_tables": page_tables})[0]
+        key = ("step", self.lora is not None) + tuple(tokens.shape) + (page_tables.shape[1],)
+        inputs = {"tokens": tokens, "lengths": lengths, "page_tables": page_tables}
+        return self._replay(key, lambda **kw: (self._logits(**kw),),
+                            self._adapters(inputs, adapter_ids, tokens.shape[1]))[0]
 
-    def decode_step(self, tokens, lengths, page_tables):
+    def decode_step(self, tokens, lengths, page_tables, adapter_ids=None):
         """:func:`~.decode.decode_step` by replay: tokens (batch,), lengths
         including them; returns logits (batch, vocab) fp32 (a view of a
         static buffer)."""
-        return self.verify_step(tokens[:, None], lengths, page_tables)[:, 0]
+        return self.verify_step(tokens[:, None], lengths, page_tables, adapter_ids)[:, 0]
 
-    def pick_step(self, tokens, lengths, page_tables, draft_lens, row_keys, pos0):
+    def pick_step(self, tokens, lengths, page_tables, draft_lens, row_keys, pos0,
+                  adapter_ids=None):
         """A decode (t = 1) or verify step by replay with the server's pick
         inside the graph: :func:`~.decode.pick_keyed` on the step's logits,
         the drafts ``tokens[:, 1:]`` (``draft_lens`` real ones a row) and
         each row's key and position (each (batch,)); greedy at
         ``temperature <= 0``. Returns (tokens (batch, t), n_emit (batch,)),
         static buffers."""
-        def body(tokens, lengths, page_tables, draft_lens, row_keys, pos0):
-            return pick_keyed(self._logits(tokens, lengths, page_tables), tokens[:, 1:],
-                              draft_lens, row_keys, pos0, self.temperature, self.top_k)
+        def body(tokens, lengths, page_tables, draft_lens, row_keys, pos0,
+                 adapter_ids=None):
+            logits = self._logits(tokens, lengths, page_tables, adapter_ids)
+            return pick_keyed(logits, tokens[:, 1:], draft_lens, row_keys, pos0,
+                              self.temperature, self.top_k)
 
-        key = ("pick",) + tuple(tokens.shape) + (page_tables.shape[1],)
-        return self._replay(key, body, {
+        key = ("pick", self.lora is not None) + tuple(tokens.shape) + (page_tables.shape[1],)
+        return self._replay(key, body, self._adapters({
             "tokens": tokens, "lengths": lengths, "page_tables": page_tables,
-            "draft_lens": draft_lens, "row_keys": row_keys, "pos0": pos0})
+            "draft_lens": draft_lens, "row_keys": row_keys, "pos0": pos0},
+            adapter_ids, tokens.shape[1]))
 
     def decode_loop(self, tokens, lengths, page_tables, steps: int, *,
-                    row_keys=None, pos0=None):
+                    row_keys=None, pos0=None, adapter_ids=None):
         """:func:`~.decode.decode_loop` by replay: ``steps`` decode steps in
         one graph, each step's pick the next step's token on the card
         (greedy, or with ``row_keys`` and ``pos0`` sampled at positions
@@ -170,13 +193,15 @@ class StepGraphs:
         if row_keys is not None:
             inputs.update(row_keys=row_keys, pos0=pos0)
 
-        def body(tokens, lengths, page_tables, row_keys=None, pos0=None):
+        def body(tokens, lengths, page_tables, row_keys=None, pos0=None, adapter_ids=None):
             pick = loop_pick(row_keys, pos0, self.temperature, self.top_k)
             return pick_loop(lambda toks, lens: self._logits(
-                toks[:, None], lens, page_tables)[:, 0], pick, tokens, lengths, steps)
+                toks[:, None], lens, page_tables, adapter_ids)[:, 0], pick, tokens,
+                lengths, steps)
 
-        key = ("loop", steps, tokens.shape[0], page_tables.shape[1], row_keys is not None)
-        return self._replay(key, body, inputs)
+        key = ("loop", steps, tokens.shape[0], page_tables.shape[1], row_keys is not None,
+               self.lora is not None)
+        return self._replay(key, body, self._adapters(inputs, adapter_ids, 1))
 
 
 def _restore(counts: collections.Counter) -> None:

@@ -8,6 +8,10 @@ holds the sink term, so the recomputed P rows sum to 1 - sink weight and
 dS = P * (dP - D) still holds (the sink carries no value, so it adds to
 neither O nor D). The sink's own gradient is one plain pass:
 ``d(z_h) = -sum_{b, rows} exp(z_h - lse) * D``.
+
+A config with ``decompose=True`` runs the row-band forward
+(``ops/causal_decomp.py``); each band's LSE is the full problem's for its
+rows, so the backward is the standard K2/K3 on the whole problem.
 """
 
 from __future__ import annotations

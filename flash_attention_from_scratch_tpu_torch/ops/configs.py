@@ -1,4 +1,4 @@
-"""Attention configuration and the analytical FLOP model.
+"""Attention configuration, the analytical FLOP model and the config space.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/configs.py``. The
 config takes every field of the JAX one. The TPU tiling and schedule knobs
@@ -6,17 +6,33 @@ there (block sizes, softmax variants, head packing, split counts, VMEM
 limits) are hints the Hopper kernels ignore, validated as the JAX package
 validates them: the kernels' tile sizes are their own constants
 (``csrc/*.cu``), and every knob computes the same function.
+
+The config-space functions (:func:`parse_short_form`, the ``calc_*`` FLOP
+and intensity models, :func:`should_autotune_config` and the ``get_*``
+enumerations) return the JAX package's configs and numbers, so a short form
+from a JAX tool maps to the same config here. They enumerate and prune TPU
+knobs by the TPU's VMEM model (:meth:`KernelConfig.vmem_bytes`); on Hopper
+those knobs select no kernel, so every config of a list runs the same
+kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import itertools
+import os
+import re
+from typing import Sequence
 
 import torch
 
 __all__ = ["DType", "KVLoop", "KernelConfig", "MAX_KV_BUFFERS",
-           "calc_self_attn_flop", "calc_causal_attn_flop"]
+           "calc_self_attn_flop", "calc_causal_attn_flop", "calc_total_flop",
+           "calc_tile_softmax_flop", "calc_arithmetic_intensity",
+           "get_autotuning_kernel_configs", "get_kernel_progression_configs",
+           "get_kernels_to_build", "get_kernel_configs", "parse_short_form",
+           "should_autotune_config"]
 
 # The deepest K/V copy ring the FORI kernel is built for
 # (``csrc/flash_forward_fori.cu``).
@@ -35,6 +51,22 @@ class DType(enum.Enum):
         return self.value
 
     @property
+    def short(self) -> str:
+        """The dtype's name in a config's short form (the JAX package's)."""
+        return _DTYPE_SHORT[self]
+
+    @property
+    def bytes(self) -> int:
+        return self.value.itemsize
+
+    @classmethod
+    def from_short(cls, s: str) -> "DType":
+        for d in cls:
+            if d.short == s:
+                return d
+        raise ValueError(f"unknown dtype short form: {s!r}")
+
+    @property
     def min_tile(self) -> tuple[int, int]:
         """The TPU's smallest (sublane, lane) tile of this type: what the JAX
         config's ``q_splits`` check divides by."""
@@ -46,6 +78,9 @@ class DType(enum.Enum):
             return cls(dt)
         except ValueError:
             raise ValueError(f"unsupported dtype: {dt}") from None
+
+
+_DTYPE_SHORT = {DType.FP32: "f32", DType.BF16: "bf16", DType.FP16: "f16"}
 
 
 class KVLoop(enum.Enum):
@@ -81,9 +116,9 @@ class KernelConfig:
     ``scale_q`` stays a no-op: the port scales the fp32 scores, the exact
     function. ``optimized_softmax`` defaults to False here (True in JAX,
     whose first-block specialization refuses a window), so a window needs
-    no opt-out. ``decompose`` (the row-band causal dispatch) raises
-    ``NotImplementedError``: ``causal_forward_banded`` is not ported yet
-    (ROADMAP Queue 1).
+    no opt-out. ``decompose`` (causal only) routes a self-attention call
+    (``seq_kv == q_offset + seq_q``) through the row-band dispatch,
+    ``ops/causal_decomp.py::causal_forward_banded``: one K1 call a band.
     """
 
     block_q: int = 512
@@ -174,10 +209,11 @@ class KernelConfig:
                     f"{self.dtype.min_tile[0]}) sub-tiles")
         if self.head_pack < 1:
             raise ValueError("head_pack must be >= 1")
-        if self.decompose:
-            raise NotImplementedError(
-                "decompose (the row-band causal dispatch) waits on "
-                "causal_forward_banded, not ported yet (ROADMAP Queue 1)")
+
+    # The TPU's largest fp32 S tile (the JAX package's measured budget): the
+    # config space prunes by it, and the banded dispatch sizes its per-band
+    # block_kv hint by it. Nothing on Hopper reads it.
+    S_TILE_BUDGET_BYTES = 32 * 1024 * 1024
 
     @property
     def resolved_out_dtype(self) -> DType:
@@ -186,6 +222,82 @@ class KernelConfig:
     @property
     def softmax_scale(self) -> float:
         return self.scale if self.scale is not None else self.d_head ** -0.5
+
+    def vmem_bytes(self, group: int = 1) -> int:
+        """The JAX kernel's VMEM working set of one grid step (its pipeline
+        windows, accumulator, row statistics, S/P tiles and split partials),
+        the JAX package's model. ``group``: the GQA group size. A TPU
+        figure: the Hopper kernels' shared memory is their own plan
+        (``ops/flash_forward.py::grid_plan``)."""
+        b = self.dtype.bytes
+        hp = self.head_pack
+        kv_pack = max(1, hp // group) if group > 1 else hp
+        q = hp * self.block_q * self.d_head * b * 2
+        kv = kv_pack * 2 * self.block_kv * self.d_head * b * max(2, self.num_kv_buffers)
+        out = hp * self.block_q * self.d_head * self.resolved_out_dtype.bytes * 2
+        acc = hp * self.block_q * self.d_head * 4
+        stats = 2 * hp * self.block_q * 128 * 4
+        p = hp * self.block_q * self.block_kv * 4
+        partials = hp * (self.kv_splits - 1) * self.block_q * (self.d_head + 2) * 4
+        return q + kv + out + acc + stats + p + partials
+
+    def fits_vmem(self, group: int = 1) -> bool:
+        """Whether :meth:`vmem_bytes` fits ``vmem_limit_mb`` (a TPU check)."""
+        return self.vmem_bytes(group) <= self.vmem_limit_mb * 1024 * 1024
+
+    def short_form(self) -> str:
+        """The JAX package's canonical string of the config (``scale``, a
+        port-only field, is not in it), inverted by
+        :func:`parse_short_form`."""
+        flags = [f for f, on in (
+            ("x2", self.use_exp2), ("os", self.optimized_softmax),
+            ("cp", self.cast_p_to_dtype), ("fs", self.fused_scale),
+            ("ms", self.mxu_row_sum), ("sq", self.scale_q)) if on]
+        flags += [f"{f}{n}" for f, n in (("sp", self.kv_splits), ("qs", self.q_splits),
+                                         ("hp", self.head_pack)) if n > 1]
+        flags += [f for f, on in (
+            ("fb", self.fold_batch), ("me", self.mask_elide), ("dc", self.decompose),
+            ("rk", self.reverse_kv), ("ca", self.causal)) if on]
+        flags += [f"{f}{n}" for f, n in (("qo", self.q_offset), ("wi", self.window)) if n]
+        if self.attn_softcap:
+            # '.' -> 'p', trailing zeros dropped (50.0 -> sc50, 30.5 -> sc30p5).
+            flags.append("sc" + f"{self.attn_softcap:g}".replace(".", "p"))
+        return (f"fa_{self.dtype.short}_q{self.block_q}_kv{self.block_kv}"
+                f"_d{self.d_head}_{self.kv_loop.value}{self.num_kv_buffers}_"
+                + ("+".join(flags) if flags else "none"))
+
+
+_SHORT_RE = re.compile(
+    r"fa_(?P<dtype>[a-z0-9]+)_q(?P<bq>\d+)_kv(?P<bkv>\d+)_d(?P<d>\d+)"
+    r"_(?P<loop>grid|fori)(?P<nbuf>\d+)_(?P<flags>[a-z0-9+]+)")
+
+
+def parse_short_form(s: str) -> KernelConfig:
+    """Inverse of :meth:`KernelConfig.short_form`: the first short form found
+    in ``s`` (a tool's table row, a profile entry) as a config, with the
+    JAX package's parse."""
+    m = _SHORT_RE.search(s)
+    if not m:
+        raise ValueError(f"cannot parse kernel short form from {s!r}")
+    flags = set(m.group("flags").split("+")) - {"none"}
+    num = {"sp": 1, "qs": 1, "hp": 1, "qo": 0, "wi": 0}
+    softcap = 0.0
+    for f in flags:
+        if f[:2] in num and f[2:].isdigit():
+            num[f[:2]] = int(f[2:])
+        if f.startswith("sc") and f[2:].replace("p", "").isdigit():
+            softcap = float(f[2:].replace("p", "."))
+    return KernelConfig(
+        kv_splits=num["sp"], q_splits=num["qs"], head_pack=num["hp"],
+        q_offset=num["qo"], window=num["wi"], attn_softcap=softcap,
+        block_q=int(m.group("bq")), block_kv=int(m.group("bkv")),
+        d_head=int(m.group("d")), dtype=DType.from_short(m.group("dtype")),
+        use_exp2="x2" in flags, optimized_softmax="os" in flags,
+        cast_p_to_dtype="cp" in flags, fused_scale="fs" in flags,
+        mxu_row_sum="ms" in flags, scale_q="sq" in flags, fold_batch="fb" in flags,
+        mask_elide="me" in flags, decompose="dc" in flags, reverse_kv="rk" in flags,
+        causal="ca" in flags, kv_loop=KVLoop(m.group("loop")),
+        num_kv_buffers=int(m.group("nbuf")))
 
 
 def calc_self_attn_flop(seq_len: int, d_head: int, n_heads: int,
@@ -208,3 +320,127 @@ def calc_causal_attn_flop(seq_len: int, d_head: int, n_heads: int, batch: int,
     else:
         pairs = s * (s + 1) // 2
     return batch * n_heads * pairs * (4 * d_head + 6)
+
+
+def calc_tile_softmax_flop(cfg: KernelConfig) -> int:
+    """Softmax FLOPs of one (block_q, block_kv) tile, the JAX package's
+    model: the exp2 path saves a multiply a score."""
+    br, bc, d = cfg.block_q, cfg.block_kv, cfg.d_head
+    if cfg.use_exp2:
+        return br * (4 * bc + d + 4)
+    return br * (5 * bc + d + 2)
+
+
+def calc_total_flop(cfg: KernelConfig, seq_len: int, n_heads: int, batch: int) -> int:
+    """Implementation FLOPs of a call (the two tile products and each
+    tile's softmax over the config's TPU tiling), the JAX package's model."""
+    n_q = seq_len // cfg.block_q
+    n_kv = seq_len // cfg.block_kv
+    gemm = 2 * (2 * cfg.block_q * cfg.block_kv * cfg.d_head)
+    return batch * n_heads * n_q * n_kv * (gemm + calc_tile_softmax_flop(cfg))
+
+
+def calc_arithmetic_intensity(cfg: KernelConfig, seq_len: int) -> float:
+    """FLOPs per HBM byte of one (batch, head) slice under the TPU's tiling
+    (Q and O move once, K and V once per Q block), the JAX package's model."""
+    b = cfg.dtype.bytes
+    flop = 4 * seq_len * seq_len * cfg.d_head
+    n_q = seq_len // cfg.block_q
+    moved = 2 * seq_len * cfg.d_head * b + 2 * seq_len * cfg.d_head * b * n_q
+    return flop / moved
+
+
+def _tpu_config(**kw) -> KernelConfig:
+    """A config with the JAX package's defaults: ``optimized_softmax`` is
+    True there (False in the port), so the enumerations below return the
+    JAX package's configs."""
+    return KernelConfig(**{"optimized_softmax": True, **kw})
+
+
+def should_autotune_config(cfg: KernelConfig) -> bool:
+    """The JAX autotuner's pruning: the TPU's VMEM model, S tiles of at
+    least 128 x 128 (the MXU's width) and within the S-tile budget."""
+    return (cfg.fits_vmem() and cfg.block_q >= 128 and cfg.block_kv >= 128
+            and cfg.block_q * cfg.block_kv * 4 <= KernelConfig.S_TILE_BUDGET_BYTES)
+
+
+def get_autotuning_kernel_configs(dtypes: Sequence[DType] = (DType.BF16,),
+                                  d_head: int = 128) -> list[KernelConfig]:
+    """The JAX package's autotuning sweep (block shapes, reverse KV, split
+    counts, q splits and head packing), pruned by
+    :func:`should_autotune_config`. On Hopper these knobs select no kernel:
+    every config of the list runs K1."""
+    out: list[KernelConfig] = []
+    for dtype, bq, bkv, rev in itertools.product(
+            dtypes, (128, 256, 512, 1024),
+            (256, 512, 1024, 2048, 4096, 8192, 16384), (False, True)):
+        splits = {1} | {bkv // sub for sub in (1024, 2048)
+                        if bkv % sub == 0 and bkv > sub}
+        for sp in sorted(splits):
+            for qs, hp in ((1, 1), (2, 1), (1, 2), (2, 2)):
+                if hp > 1 and rev:
+                    continue
+                if qs > 1 and bq % (qs * dtype.min_tile[0]):
+                    continue
+                cfg = _tpu_config(block_q=bq, block_kv=bkv, d_head=d_head, dtype=dtype,
+                                  reverse_kv=rev, kv_splits=sp, q_splits=qs, head_pack=hp)
+                if should_autotune_config(cfg):
+                    out.append(cfg)
+    return out
+
+
+def get_kernel_progression_configs(dtype: DType = DType.BF16) -> list[tuple[str, KernelConfig]]:
+    """The JAX package's optimization ladder, (rung name, config) from
+    ``1_base`` to ``12_head_pack``. On Hopper only ``kv_loop`` (and
+    ``num_kv_buffers`` under FORI) selects a kernel: the FORI rungs run K11
+    at their ring depth, the others K1."""
+    base = dict(dtype=dtype, block_q=128, block_kv=128, scale_q=False)
+    big = dict(dtype=dtype, block_q=512)
+    return [
+        ("1_base", _tpu_config(**base, kv_loop=KVLoop.FORI, num_kv_buffers=1,
+                               use_exp2=False, optimized_softmax=False)),
+        ("2_pipelined", _tpu_config(**base, use_exp2=False, optimized_softmax=False)),
+        ("3_exp2", _tpu_config(**base, use_exp2=True, optimized_softmax=False)),
+        ("4_opt_softmax", _tpu_config(**base)),
+        ("5_reverse_kv", _tpu_config(**base, reverse_kv=True)),
+        ("6_manual_pipeline", _tpu_config(**base, kv_loop=KVLoop.FORI, num_kv_buffers=2)),
+        ("7_autotuned", _tpu_config(**big, block_kv=1024, scale_q=False)),
+        ("8_scale_q", _tpu_config(**big, block_kv=1024)),
+        ("9_split_partials", _tpu_config(**big, block_kv=2048, kv_splits=2)),
+        ("10_whole_kv", _tpu_config(**big, block_kv=4096, kv_splits=2)),
+        ("11_q_splits", _tpu_config(**big, block_kv=4096, kv_splits=2, q_splits=2)),
+        ("12_head_pack", _tpu_config(**big, block_kv=4096, kv_splits=4, head_pack=2)),
+    ]
+
+
+def get_kernels_to_build(dtypes: Sequence[DType] = (DType.BF16,)) -> list[KernelConfig]:
+    """The ladder's configs, then the autotuning sweep's, each once (the
+    JAX package's build set). On Hopper every kernel is built once
+    (``ops/_build.py``), whatever the list holds."""
+    seen: dict[KernelConfig, None] = {}
+    for dt in dtypes:
+        for _, cfg in get_kernel_progression_configs(dt):
+            seen[cfg] = None
+    for cfg in get_autotuning_kernel_configs(dtypes):
+        seen[cfg] = None
+    return list(seen)
+
+
+def get_kernel_configs(kind: str | None = None) -> list[KernelConfig]:
+    """The JAX package's config selection by ``kind`` (or ``$KERNELS``,
+    default ``prog``): ``prog`` (the ladder), ``all`` (the build set),
+    ``tune`` (the sweep), ``"<block_q>,<block_kv>"``, or short forms
+    separated by ``;``."""
+    kind = kind or os.environ.get("KERNELS", "prog")
+    if "fa_" in kind:
+        return [parse_short_form(s) for s in kind.split(";") if s.strip()]
+    if kind == "prog":
+        return [cfg for _, cfg in get_kernel_progression_configs()]
+    if kind == "all":
+        return get_kernels_to_build()
+    if kind == "tune":
+        return get_autotuning_kernel_configs()
+    m = re.fullmatch(r"(\d+),(\d+)", kind)
+    if m:
+        return [_tpu_config(block_q=int(m.group(1)), block_kv=int(m.group(2)))]
+    raise ValueError(f"unknown KERNELS selector: {kind!r}")

@@ -6,7 +6,9 @@ Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_backward.py``
 dQ, dK and dV; dQ summed by fp32 atomics), or K3, the split pair (a dK/dV
 kernel and a dQ kernel, each summing in a fixed order), all on wgmma with
 TMA copies; their launches are :func:`plan`. For CPU tensors it runs the
-plain version, :func:`flash_backward_plain`.
+plain version, :func:`flash_backward_plain`. :func:`make_flash_backward`
+and :func:`make_flash_backward_fused` bind K3 and K2 to one shape, as the
+JAX package's ``make_*`` functions bind its ``pallas_call``s.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 from . import _build
 from .configs import KernelConfig
 from .flash_forward import (
-    ALIGN_SLACK, D_HEAD, WG_ROWS, TilePlan, _default_cfg, _kernel_layout, _strides,
-    _validate, bf16_tile_bytes, check_grid,
+    ALIGN_SLACK, D_HEAD, MAX_GRID_YZ, SMEM_LIMIT, WG_ROWS, TilePlan, _default_cfg,
+    _kernel_layout, _strides, _validate, bf16_tile_bytes, check_grid,
 )
 
 __all__ = ["flash_backward", "flash_backward_plain", "fused_choice", "plan",
+           "make_flash_backward", "make_flash_backward_fused", "fused_backward_fits",
            "dkv_q_tiles", "KERNEL_FUSED", "KERNEL_DKV", "KERNEL_DQ"]
 
 KERNEL_FUSED = "flash_backward_fused"
@@ -150,13 +153,18 @@ def flash_backward_plain(q, k, v, o, lse, do, cfg: KernelConfig | None = None,
     group summed into dK/dV.
     """
     cfg = cfg or _default_cfg(q)
-    scale = cfg.softmax_scale if scale is None else scale
+    do = do.to(q.dtype)
+    return _plain_from_rows(q, k, v, lse, _row_sums(o, do), do, cfg,
+                            cfg.softmax_scale if scale is None else scale)
+
+
+def _plain_from_rows(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float):
+    """:func:`flash_backward_plain` from D = rowsum(dO * O) in place of O."""
     dt = q.dtype
-    do = do.to(dt)
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     group = h // kvh
-    dsum = _row_sums(o, do)[..., None]
+    dsum = dsum[..., None]
     k32 = k.float().repeat_interleave(group, dim=1)
     v32 = v.float().repeat_interleave(group, dim=1)
     q32, do32 = q.float(), do.float()
@@ -204,7 +212,9 @@ def _aligned(x):
 
 
 def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
-            fused: bool):
+            fused: bool, part: str | None = None):
+    """Launch K2, or K3's two kernels; ``part`` (K3 only) launches one of
+    them: ``KERNEL_DQ`` returns dq, ``KERNEL_DKV`` (dk, dv)."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernels take bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K2/K3)")
@@ -242,9 +252,11 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
              dk.data_ptr(), dv.data_ptr())
         return dq_acc.to(q.dtype), dk, dv
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    call(lib.fa_flash_backward_dkv, KERNEL_DKV, None, dk.data_ptr(), dv.data_ptr())
-    call(lib.fa_flash_backward_dq, KERNEL_DQ, dq.data_ptr(), None, None)
-    return dq, dk, dv
+    if part != KERNEL_DQ:
+        call(lib.fa_flash_backward_dkv, KERNEL_DKV, None, dk.data_ptr(), dv.data_ptr())
+    if part != KERNEL_DKV:
+        call(lib.fa_flash_backward_dq, KERNEL_DQ, dq.data_ptr(), None, None)
+    return {None: (dq, dk, dv), KERNEL_DQ: dq, KERNEL_DKV: (dk, dv)}[part]
 
 
 def fused_choice(fused: bool | None = None, causal: bool = True) -> bool:
@@ -295,3 +307,97 @@ def flash_backward(q, k, v, o, lse, do, cfg: KernelConfig | None = None, *,
     do = do.to(q.dtype)
     return _launch(q, k, v, lse, _row_sums(o, do), do, cfg, scale,
                    fused=fused_choice(fused, cfg.causal))
+
+
+def fused_backward_fits(seq_kv: int, d_head: int, vmem_limit_mb: int = 64) -> bool:
+    """Whether K2 runs a backward over ``seq_kv`` keys of width ``d_head``.
+
+    The JAX package answers for its fused kernel's whole-sequence dK/dV
+    scratch in VMEM. The port's K2 keeps dK/dV for its own 128 KV rows a
+    CTA, so the answer is its launch's (:func:`plan`): the tiles 128 wide,
+    the CTA's shared memory within the SM's limit (for any ``seq_kv``) and
+    the KV tiles within the grid's limit. ``vmem_limit_mb`` (a TPU figure)
+    is accepted and ignored.
+    """
+    del vmem_limit_mb
+    launch = _dkv_plan(True, 1, 1, seq_kv)
+    return d_head == D_HEAD and launch.smem <= SMEM_LIMIT and launch.kv_tiles <= MAX_GRID_YZ
+
+
+def _rows(lse, batch: int, heads: int, seq_q: int):
+    """An LSE or D row statistic as (batch, heads, seq_q): the JAX
+    ``make_*`` functions take it as (batch, heads, 1, seq_q)."""
+    return lse.reshape(batch, heads, seq_q)
+
+
+def _bound_checker(cfg, batch, heads, seq_q, seq_kv, kv_heads, device):
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    kv_heads = kv_heads or heads
+    q_shape = (batch, heads, seq_q, cfg.d_head)
+    kv_shape = (batch, kv_heads, seq_kv, cfg.d_head)
+
+    def check(q, k, v, do, lse, dsum):
+        got = tuple(tuple(t.shape) for t in (q, k, v, do))
+        if got != (q_shape, kv_shape, kv_shape, q_shape):
+            raise ValueError(f"bound to q/do {q_shape} and k/v {kv_shape}, got {got}")
+        if q.device.type != dev.type:
+            raise ValueError(f"bound to {dev}, got tensors on {q.device}")
+        lse, dsum = (_rows(x, batch, heads, seq_q).float() for x in (lse, dsum))
+        _validate_backward(cfg, q, k, v, q, lse, do)
+        return lse, dsum, do.to(q.dtype)
+
+    return check
+
+
+def make_flash_backward(cfg: KernelConfig, batch: int, heads: int, seq_q: int,
+                        seq_kv: int, kv_heads: int | None = None,
+                        scale: float | None = None, interpret: bool | None = None,
+                        block_q: int | None = None, block_kv: int | None = None,
+                        splits: int | None = None, *, device="cuda"):
+    """(dq_call, dkv_call) bound to K3's two kernels for one shape, shaped
+    like the JAX package's: ``dq_call(q, k, v, do, lse, dsum) -> dq``
+    and ``dkv_call(q, k, v, do, lse, dsum) -> (dk, dv)``, with ``lse`` and
+    ``dsum`` = rowsum(dO * O) fp32 (batch, heads, seq_q) or the JAX
+    functions' (batch, heads, 1, seq_q). Each call is one kernel launch on
+    ``device`` (the card by default; the plain version on the CPU).
+    ``interpret``, ``block_q``, ``block_kv`` and ``splits`` (TPU tiling)
+    are accepted and ignored: the launch is :func:`plan`'s."""
+    del interpret, block_q, block_kv, splits
+    scale = cfg.softmax_scale if scale is None else scale
+    check = _bound_checker(cfg, batch, heads, seq_q, seq_kv, kv_heads, device)
+
+    def dq_call(q, k, v, do, lse, dsum):
+        lse, dsum, do = check(q, k, v, do, lse, dsum)
+        if q.device.type == "cpu":
+            return _plain_from_rows(q, k, v, lse, dsum, do, cfg, scale)[0]
+        return _launch(q, k, v, lse, dsum, do, cfg, scale, fused=False, part=KERNEL_DQ)
+
+    def dkv_call(q, k, v, do, lse, dsum):
+        lse, dsum, do = check(q, k, v, do, lse, dsum)
+        if q.device.type == "cpu":
+            return _plain_from_rows(q, k, v, lse, dsum, do, cfg, scale)[1:]
+        return _launch(q, k, v, lse, dsum, do, cfg, scale, fused=False, part=KERNEL_DKV)
+
+    return dq_call, dkv_call
+
+
+def make_flash_backward_fused(cfg: KernelConfig, batch: int, heads: int,
+                              seq_q: int, seq_kv: int, kv_heads: int | None = None,
+                              scale: float | None = None, interpret: bool | None = None,
+                              block_q: int | None = None, block_kv: int | None = None,
+                              splits: int | None = None, *, device="cuda"):
+    """``call(q, k, v, do, lse, dsum) -> (dq, dk, dv)`` bound to K2 for one
+    shape (one launch), as :func:`make_flash_backward` binds K3."""
+    del interpret, block_q, block_kv, splits
+    scale = cfg.softmax_scale if scale is None else scale
+    check = _bound_checker(cfg, batch, heads, seq_q, seq_kv, kv_heads, device)
+
+    def call(q, k, v, do, lse, dsum):
+        lse, dsum, do = check(q, k, v, do, lse, dsum)
+        if q.device.type == "cpu":
+            return _plain_from_rows(q, k, v, lse, dsum, do, cfg, scale)
+        return _launch(q, k, v, lse, dsum, do, cfg, scale, fused=True)
+
+    return call

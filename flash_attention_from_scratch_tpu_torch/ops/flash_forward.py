@@ -25,10 +25,11 @@ import torch
 from . import _build
 from .configs import DType, KernelConfig, KVLoop
 from .reference import reference_attention
-from ..utils.device import sm_count
+from ..utils.device import resolve_device, sm_count
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
-           "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL", "KERNEL_FORI",
+           "make_flash_forward", "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL",
+           "KERNEL_FORI",
            "SEQ_QUANTUM", "D_HEAD"]
 
 KERNEL = "flash_forward"
@@ -295,6 +296,27 @@ def _resolve(q, cfg: KernelConfig | None, scale: float | None) -> KernelConfig:
 
 def _forward(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
     _validate(cfg, q, k, v, sinks)
+    if cfg.decompose and k.shape[2] == q.shape[2] + cfg.q_offset:
+        return _banded(q, k, v, cfg, sinks)
+    return _single(q, k, v, cfg, sinks, want_lse)
+
+
+def _banded(q, k, v, cfg: KernelConfig, sinks):
+    """The row-band dispatch; sinks fold in at the end, as in the JAX
+    package's ``_cached_decomposed``: the bands are sink-free, then
+    lse' = logaddexp(lse, z) and O rescales by exp(lse - lse')."""
+    from .causal_decomp import causal_forward_banded
+
+    out, lse = causal_forward_banded(q, k, v, cfg)
+    if sinks is not None:
+        lse_tot = torch.logaddexp(lse, sinks.float()[None, :, None])
+        out = (out.float() * torch.exp(lse - lse_tot)[..., None]).to(out.dtype)
+        lse = lse_tot
+    return out, lse
+
+
+def _single(q, k, v, cfg: KernelConfig, sinks, want_lse: bool):
+    """One K1 (or K11) call on validated inputs, or its plain version."""
     if q.device.type == "cpu":
         out, lse = flash_forward_plain(q, k, v, cfg, sinks)
     elif q.device.type == "cuda":
@@ -326,3 +348,41 @@ def flash_forward(q, k, v, cfg: KernelConfig | None = None, sinks=None, *,
     ``cfg.out_dtype`` (default q's dtype).
     """
     return _forward(q, k, v, _resolve(q, cfg, scale), sinks, want_lse=False)[0]
+
+
+def make_flash_forward(cfg: KernelConfig, batch: int, heads: int, seq_q: int,
+                       seq_kv: int, scale: float | None = None, *,
+                       kv_heads: int | None = None, return_lse: bool = False,
+                       has_sinks: bool = False, device="cuda",
+                       interpret: bool | None = None, debug: bool = False):
+    """A callable bound to one kernel and one shape, the counterpart of the
+    JAX package's ``make_flash_forward`` (one ``pallas_call``): ``call(q, k, v[, sinks])``
+    runs K1 (or K11 for ``kv_loop=KVLoop.FORI``) on q (batch, heads, seq_q,
+    d) and k, v (batch, kv_heads, seq_kv, d) on ``device`` (the card by
+    default; the plain version on the CPU) and returns the output, or
+    (output, lse (batch, heads, seq_q)) with ``return_lse``. The call is
+    one kernel launch: ``decompose`` does not band it. Inputs of another
+    shape or device raise ``ValueError``. ``interpret`` and ``debug`` (the
+    TPU's interpret mode and debug prints) are accepted and ignored."""
+    del interpret, debug
+    dev = resolve_device(device)
+    kv_heads = kv_heads or heads
+    cfg = cfg if scale is None else dataclasses.replace(cfg, scale=scale)
+    q_shape = (batch, heads, seq_q, cfg.d_head)
+    kv_shape = (batch, kv_heads, seq_kv, cfg.d_head)
+
+    def call(q, k, v, *sinks):
+        if len(sinks) != int(has_sinks):
+            raise ValueError(f"the call takes {'one' if has_sinks else 'no'} sinks "
+                             f"tensor, got {len(sinks)}")
+        if (tuple(q.shape), tuple(k.shape), tuple(v.shape)) != (q_shape, kv_shape, kv_shape):
+            raise ValueError(f"bound to q {q_shape} and k/v {kv_shape}, got "
+                             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        if q.device.type != dev.type:
+            raise ValueError(f"bound to {dev}, got tensors on {q.device}")
+        s = sinks[0] if sinks else None
+        _validate(cfg, q, k, v, s)
+        out, lse = _single(q, k, v, cfg, s, return_lse)
+        return (out, lse) if return_lse else out
+
+    return call

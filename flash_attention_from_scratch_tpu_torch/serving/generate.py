@@ -14,9 +14,12 @@ running sequence through the paged decode kernel: one token, ``chunk``
 tokens in one ``decode_loop`` while the batch cannot change, or with
 ``spec_k`` a prompt-lookup draft of up to ``spec_k`` tokens verified in
 one multi-token pass (``models.decode.verify_step``). ``attn_int8`` runs
-the paged kernel in int8 compute on an int8 cache. The decode batch is
-padded to ``max_batch``; padding rows write their K/V to a reserved
-scratch page.
+the paged kernel in int8 compute on an int8 cache. With ``lora``
+(``models/lora.py``) each request names its adapter (``submit(...,
+adapter=i)``; -1 the base model): its prompt's prefill and every decode
+step or loop apply each row's own adapter to the shared base weights. The
+decode batch is padded to ``max_batch``; padding rows (adapter -1) write
+their K/V to a reserved scratch page.
 
 On the card every decode step, verify step and decode loop is a CUDA-graph
 replay (``models.step_graphs.StepGraphs``, the counterpart of the JAX
@@ -46,10 +49,11 @@ import numpy as np
 import torch
 
 from ..models.decode import (
-    check_no_sinks, decode_loop, init_cache, pick_keyed, prefill,
-    prefill_chunked, row_keys, verify_step,
+    _step, check_no_sinks, decode_loop, init_cache, pick_keyed, prefill,
+    prefill_chunked, row_keys,
 )
 from ..models.llama import LlamaConfig
+from ..models.lora import n_adapters
 from ..models.step_graphs import StepGraphs
 from ..utils.device import resolve_device
 from .runtime import PagedEngine
@@ -103,6 +107,7 @@ class _SeqState:
     prefilled: bool = False
     stop: frozenset = frozenset()
     key: int = 0  # the sampling key of (seed, sequence id): decode.row_keys
+    adapter: int = -1  # LoRA adapter id (-1: the base model)
     # Wall clock: submit -> first token -> finished.
     submit_t: float = 0.0
     first_t: float = 0.0
@@ -129,7 +134,11 @@ class GenerationServer:
     prompt pages by content hash (``_page_hashes``): a prompt prefills
     only past the pages it found published, in chunks of
     ``prefill_chunk_tokens`` or lcm(128, page_size), and publishes its own
-    after. ``lora`` and ``mesh`` are not ported yet and raise
+    after. ``lora``: a stack of LoRA adapters (``models.lora``), one
+    chosen a request by ``submit(..., adapter=)``; with ``spec_k``,
+    ``prefill_chunk_tokens``, ``prefix_cache`` or ``mesh`` it raises
+    ``ValueError``, as in the JAX server (chunked prefill takes no
+    adapters). ``mesh`` is not ported yet and raises
     ``NotImplementedError``. A config with attention sinks, and the checks
     of the JAX server on ``chunk``, ``spec_k``, ``prefill_chunk_tokens``
     and ``prefix_cache`` with ``mesh``, raise ``ValueError``. On the card
@@ -170,12 +179,17 @@ class GenerationServer:
         if prefix_cache and mesh is not None:
             raise ValueError("prefix_cache + mesh not supported yet "
                              "(suffix prefill is single-chip chunked)")
-        unported = {"lora": lora is not None,
-                    "mesh (tensor-parallel serving)": mesh is not None}
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (see ROADMAP.md, Queue 1)")
+        if lora is not None and (spec_k or prefill_chunk_tokens or prefix_cache
+                                 or mesh is not None):
+            # prefix_cache and prefill_chunk_tokens prefill through
+            # prefill_chunked, which takes no adapters: the prompt's K/V
+            # would be the base model's (and the prefix cache would publish
+            # them to other requests).
+            raise ValueError("multi-LoRA serving supports stepwise and chunked decode "
+                             "only (no spec_k/chunked-prefill/prefix_cache/mesh)")
+        if mesh is not None:
+            raise NotImplementedError("mesh (tensor-parallel serving) is not ported yet "
+                                      "(see ROADMAP.md, Queue 1)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -191,8 +205,10 @@ class GenerationServer:
         self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
         self.attn_int8 = attn_int8
         self.temperature, self.top_k, self.seed = temperature, top_k, seed
+        self.lora = lora
+        self.n_adapters = n_adapters(lora)
         self.graphs = (StepGraphs(params, cfg, self.cache, attn_int8=attn_int8,
-                                  temperature=temperature, top_k=top_k)
+                                  temperature=temperature, top_k=top_k, lora=lora)
                        if self.device.type == "cuda" else None)
         self.chunk = chunk
         self.prefill_chunk_tokens = prefill_chunk_tokens
@@ -213,9 +229,16 @@ class GenerationServer:
         self._stopped: list[int] = []
 
     def submit(self, seq_id: int, prompt: list[int], max_new_tokens: int,
-               stop=()):
+               stop=(), adapter: int = -1):
         """Queue a request. ``stop``: token ids that end the sequence early
-        (kept in the generation, the EOS convention)."""
+        (kept in the generation, the EOS convention). ``adapter``: the LoRA
+        adapter that serves it (-1: the base model); an adapter on a server
+        without ``lora``, or past its last adapter, raises ``ValueError``
+        (the gather clamps ids, so a typo would serve another adapter)."""
+        if adapter >= 0 and self.lora is None:
+            raise ValueError("server built without lora adapters")
+        if self.lora is not None and adapter >= self.n_adapters:
+            raise ValueError(f"adapter {adapter} out of range (n={self.n_adapters})")
         if self.prefix_cache:
             self.engine.add_request_cached(seq_id, len(prompt), max_new_tokens,
                                            _page_hashes(prompt, self.page_size))
@@ -225,7 +248,7 @@ class GenerationServer:
                                       max_new=max_new_tokens,
                                       stop=frozenset(stop),
                                       key=int(row_keys(self.seed, seq_id)),
-                                      submit_t=time.perf_counter())
+                                      adapter=adapter, submit_t=time.perf_counter())
 
     @property
     def has_work(self) -> bool:
@@ -244,6 +267,15 @@ class GenerationServer:
         pos = torch.tensor([len(self.seqs[s].generated) for s in sids] + [0] * pad,
                            dtype=torch.int64)
         return keys, pos
+
+    def _adapter_ids(self, sids: list[int]):
+        """Each row's adapter id, int64 on the CPU, padded to ``max_batch``
+        rows with -1; None without ``lora``."""
+        if self.lora is None:
+            return None
+        pad = self.max_batch - len(sids)
+        return torch.tensor([self.seqs[s].adapter for s in sids] + [-1] * pad,
+                            dtype=torch.int64)
 
     def step(self) -> list[int]:
         """One scheduler + model step; returns sequence ids finished now."""
@@ -283,9 +315,12 @@ class GenerationServer:
                         prompt_len=len(st.prompt),
                         chunk_tokens=self.prefill_chunk_tokens)
                 else:
+                    # The id made on the device, as the key below.
+                    ids = (None if self.lora is None else torch.full(
+                        (1,), st.adapter, dtype=torch.int64, device=self.device))
                     logits, self.cache = prefill(
                         self.params, tokens, self.cfg, self.cache, table,
-                        prompt_len=len(st.prompt))
+                        prompt_len=len(st.prompt), lora=self.lora, adapter_ids=ids)
                 self.prefill_tokens += len(st.prompt)
                 # Key and position made on the device: a copy from the host
                 # would wait for this prefill before the next one launches.
@@ -407,13 +442,14 @@ class GenerationServer:
         len(generated) + j): one graph replay on the card, the pick inside;
         eager on the CPU. Returns (tokens (max_batch, t), n_emit)."""
         keys, pos0 = self._keys(sids)
+        ids = self._adapter_ids(sids)
         tokens, lengths, tables, draft_lens = (
             torch.from_numpy(a) for a in (tokens, lengths, tables, draft_lens))
         if self.graphs is not None:
-            return self.graphs.pick_step(tokens, lengths, tables, draft_lens, keys, pos0)
-        logits, self.cache = verify_step(
-            self.params, tokens, self.cfg, self.cache, lengths, tables,
-            attn_int8=self.attn_int8)
+            return self.graphs.pick_step(tokens, lengths, tables, draft_lens, keys, pos0,
+                                         ids)
+        logits, self.cache = _step(self.params, tokens, self.cfg, self.cache, lengths,
+                                   tables, self.lora, None, self.attn_int8, ids)
         return pick_keyed(logits, tokens[:, 1:], draft_lens, keys, pos0,
                           self.temperature, self.top_k)
 
@@ -483,14 +519,16 @@ class GenerationServer:
         tokens, lengths, tables = (torch.from_numpy(a) for a in (tokens, lengths, tables))
         sids = [int(batch.ids[r]) for r in decode_rows]
         keys, pos0 = self._keys(sids)
+        ids = self._adapter_ids(sids)
         if self.graphs is not None:
-            out, _ = self.graphs.decode_loop(tokens, lengths, tables, n,
-                                             row_keys=keys, pos0=pos0)
+            out, _ = self.graphs.decode_loop(tokens, lengths, tables, n, row_keys=keys,
+                                             pos0=pos0, adapter_ids=ids)
         else:
             out, self.cache, _ = decode_loop(
                 self.params, tokens, self.cfg, self.cache, lengths, tables, n,
                 row_keys=keys, pos0=pos0, temperature=self.temperature,
-                top_k=self.top_k, attn_int8=self.attn_int8)
+                top_k=self.top_k, attn_int8=self.attn_int8, lora=self.lora,
+                adapter_ids=ids)
         self.decode_loops += 1
         self.decode_steps += n
         out = out[:len(decode_rows)].tolist()  # one device-to-host copy

@@ -4,7 +4,8 @@ Counterpart of ``flash_attention_from_scratch_tpu/utils/testing.py``:
 mismatch statistics and the adaptive tolerance rule. Inputs come from numpy
 with a seed (:func:`make_qkv`), so the same arrays can be handed to both
 packages; the JAX package's ``generate_qkv`` draws from ``jax.random``,
-which torch cannot reproduce.
+which torch cannot reproduce: the port's :func:`generate_qkv` draws the
+same distribution from a ``torch.Generator``, on the card by default.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import math
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["BATCH_SIZE_FOR_SEQ_LEN", "BENCHMARK_N_HEADS", "ErrorStats",
            "error_stats", "adaptive_tolerance_check", "sliced_tolerance_check",
-           "row_bands", "make_qkv"]
+           "row_bands", "make_qkv", "generate_qkv"]
 
 # The benchmark shapes of the JAX package's bench tools: batch shrinks as seq
 # grows so the total work stays bounded.
@@ -136,3 +139,20 @@ def make_qkv(batch: int, heads: int, seq_q: int, d_head: int = 128, *,
     k = rng.standard_normal((batch, kv_heads, seq_kv, d_head), np.float32)
     v = rng.standard_normal((batch, kv_heads, seq_kv, d_head), np.float32)
     return q, k, v
+
+
+def generate_qkv(seq_len: int, d_head: int = 128, n_heads: int = BENCHMARK_N_HEADS,
+                 batch: int | None = None, dtype=torch.bfloat16, seed: int = 0,
+                 device="cuda"):
+    """Standard-normal Q, K, V (batch, heads, seq, d_head) in ``dtype`` on
+    ``device`` (the card by default; raises without one), drawn in fp32
+    from a ``torch.Generator`` seeded with ``seed``. ``batch`` defaults to
+    the benchmark table's (:data:`BATCH_SIZE_FOR_SEQ_LEN`, else 4), as in
+    the JAX package; the draws are torch's, not ``jax.random``'s."""
+    if batch is None:
+        batch = BATCH_SIZE_FOR_SEQ_LEN.get(seq_len, 4)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, n_heads, seq_len, d_head)
+    return tuple(torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).to(dtype)
+                 for _ in range(3))

@@ -1194,3 +1194,180 @@ def test_frontend_serves_on_the_card(cuda):
     server = GenerationServer(params, GRAPH_CFG, **kw)
     server.submit(sid, list(range(7, 90)), 9)
     assert server.run()[sid] == toks
+
+
+# The row-band forward at chip_smoke's banded_case shapes: b 1, 32/8 heads;
+# (seq_q, options); the bands split seq_q into 512-row bands (band_count).
+BANDED_CASES = [(4096, dict()), (8192, dict()), (4096, dict(window=1024)),
+                (2048, dict(q_offset=2048)), (4096, dict(sinks=True))]
+
+
+def _plain_by_heads(q, k, v, cfg, sinks, group_heads=8):
+    """The plain forward (out, lse), 8 query heads (and their KV heads) at a
+    time: its scores of 32 heads at s 8192 would take 8.6 GB each."""
+    ratio = q.shape[1] // k.shape[1]
+    parts = []
+    for h in range(0, q.shape[1], group_heads):
+        kv = slice(h // ratio, (h + group_heads) // ratio)
+        parts.append(flash_forward_plain(
+            q[:, h:h + group_heads], k[:, kv], v[:, kv], cfg,
+            None if sinks is None else sinks[h:h + group_heads]))
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
+@pytest.mark.parametrize("sq,kw", BANDED_CASES)
+def test_banded_forward_matches_plain(cuda, sq, kw):
+    """``KernelConfig(decompose=True)`` on the card: one K1 launch a band,
+    the output within the adaptive rule in each 64-row band against the
+    plain (monolithic) version in bf16 and fp32, the LSE within 1e-3 (the
+    sinks folded in after the bands)."""
+    from flash_attention_from_scratch_tpu_torch.ops.causal_decomp import band_count
+
+    kw = dict(kw)
+    with_sinks = kw.pop("sinks", False)
+    cfg = KernelConfig(causal=True, decompose=True, **kw)
+    skv = sq + cfg.q_offset
+    q, _, _ = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(1, 32, sq, kv_heads=8, seq_kv=skv, seed=5))
+    _, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(1, 32, skv, kv_heads=8, seed=6))
+    sinks = torch.linspace(-2, 2, 32, device=cuda) if with_sinks else None
+    before = _build.launch_counts[FLASH]
+    out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[FLASH] == before + band_count(sq)
+    plain = dataclasses.replace(cfg, decompose=False)
+    ref16, _ = _plain_by_heads(q, k, v, plain, sinks)
+    ref32, lse32 = _plain_by_heads(q.float(), k.float(), v.float(),
+                                   dataclasses.replace(plain, dtype=DType.FP32), sinks)
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(out), row_bands(ref16), row_bands(ref32), lead=3)
+    assert ok, (ratio, where)
+    assert float((lse - lse32).abs().max()) <= 1e-3
+
+
+def _graph_lora(cuda):
+    from flash_attention_from_scratch_tpu_torch.models.lora import init_lora_adapters
+
+    lora = init_lora_adapters(GRAPH_CFG, 3, 16, torch.Generator(device=cuda).manual_seed(9),
+                              zero_b=False, device=cuda)
+    lora["layers"] = [{k: (a * 0.3, b * 0.3) for k, (a, b) in layer.items()}
+                      for layer in lora["layers"]]
+    return lora
+
+
+# Adapter ids of the three graph rows, changed between replays.
+LORA_IDS = ([0, -1, 2], [2, 1, -1], [1, 1, 0])
+
+
+def test_lora_pick_step_graph_equals_eager(cuda):
+    """A LoRA decode step (``pick_step``, t = 1) by replay equals the eager
+    step bit for bit (logits' greedy pick, pages), with the adapter ids
+    changed between replays (one capture, three replays), and the ids
+    change the tokens."""
+    params, cache, tables = _graph_model(cuda, "dense")
+    lora = _graph_lora(cuda)
+    replayed, eager = _clone(cache), _clone(cache)
+    graphs = StepGraphs(params, GRAPH_CFG, replayed, lora=lora)
+    no_drafts = torch.zeros(len(GRAPH_LENGTHS), dtype=torch.int64)
+    keys, pos = _keys_at(0)
+    for call, ids in enumerate(LORA_IDS):
+        tokens, lengths = _step_inputs(1, seed=call, grown=call + 1)
+        got, _ = graphs.pick_step(tokens, lengths, tables.cpu(), no_drafts, keys, pos,
+                                  torch.tensor(ids))
+        logits, _ = decode.decode_step(params, tokens[:, 0].to(cuda), GRAPH_CFG, eager,
+                                       lengths.to(cuda), tables, lora=lora,
+                                       adapter_ids=torch.tensor(ids, device=cuda))
+        assert torch.equal(got[:, 0], logits.argmax(-1)), call
+    assert graphs.graphs == 1 and graphs.replays == len(LORA_IDS)
+    _same_pools(replayed, eager)
+    # The ids reach the step: an adapted row's logits differ from the base
+    # model's, and a row of id -1 equals it bit for bit.
+    tokens, lengths = _step_inputs(1, seed=0, grown=1)
+    adapted, base = (decode.decode_step(
+        params, tokens[:, 0].to(cuda), GRAPH_CFG, _clone(cache), lengths.to(cuda), tables,
+        **kw)[0] for kw in (dict(lora=lora, adapter_ids=torch.tensor(LORA_IDS[0], device=cuda)),
+                            {}))
+    assert not torch.equal(adapted[0], base[0]) and torch.equal(adapted[1], base[1])
+
+
+def test_lora_loop_graph_equals_eager(cuda):
+    """A LoRA decode loop of four steps by replay equals the eager
+    ``decode_loop`` (tokens and pages), twice, with other adapter ids on
+    the second call."""
+    params, cache, tables = _graph_model(cuda, "dense")
+    lora = _graph_lora(cuda)
+    loop_cache, eager_cache = _clone(cache), _clone(cache)
+    graphs = StepGraphs(params, GRAPH_CFG, loop_cache, lora=lora)
+    first, lengths = _step_inputs(1, seed=4, grown=0)
+    for call, ids in enumerate(LORA_IDS[:2]):
+        lens = lengths + 4 * call
+        out, _ = graphs.decode_loop(first[:, 0], lens, tables.cpu(), 4,
+                                    adapter_ids=torch.tensor(ids))
+        want, _, _ = decode.decode_loop(params, first[:, 0].to(cuda), GRAPH_CFG, eager_cache,
+                                        lens.to(cuda), tables, 4, lora=lora,
+                                        adapter_ids=torch.tensor(ids, device=cuda))
+        assert torch.equal(out, want), call
+    assert graphs.graphs == 1 and graphs.replays == 2
+    _same_pools(loop_cache, eager_cache)
+
+
+def test_bound_kernels_equal_the_wrappers(cuda):
+    """``make_flash_forward``'s call is one K1 launch giving
+    ``flash_forward_with_lse``'s output bit for bit; ``make_flash_backward``'s
+    two calls are one K3 launch each, together ``flash_backward(fused=False)``
+    bit for bit; ``make_flash_backward_fused``'s call is one K2 launch, dK
+    and dV bit for bit (its dQ adds in no fixed order: within 1e-2 of the
+    largest value, about one bf16 ulp)."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        make_flash_backward, make_flash_backward_fused)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import make_flash_forward
+
+    b, h, kvh, s = 2, 8, 2, 512
+    cfg = KernelConfig(causal=True)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(b, h, s, kv_heads=kvh, seed=12))
+    do = torch.randn_like(q)
+    before = collections.Counter(_build.launch_counts)
+    out, lse = make_flash_forward(cfg, b, h, s, s, kv_heads=kvh, return_lse=True)(q, k, v)
+    assert _build.launch_counts - before == collections.Counter({FLASH: 1})
+    want = flash_forward_with_lse(q, k, v, cfg)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    dsum = (do.float() * out.float()).sum(-1)
+    dq_call, dkv_call = make_flash_backward(cfg, b, h, s, s, kvh)
+    before = collections.Counter(_build.launch_counts)
+    dq = dq_call(q, k, v, do, lse, dsum)
+    assert _build.launch_counts - before == collections.Counter({KERNEL_DQ: 1})
+    dk, dv = dkv_call(q, k, v, do, lse, dsum)
+    assert _build.launch_counts - before == collections.Counter({KERNEL_DQ: 1, KERNEL_DKV: 1})
+    split = flash_backward(q, k, v, out, lse, do, cfg, fused=False)
+    assert all(torch.equal(a, w) for a, w in zip((dq, dk, dv), split))
+    before = collections.Counter(_build.launch_counts)
+    fused = make_flash_backward_fused(cfg, b, h, s, s, kvh)(q, k, v, do, lse, dsum)
+    assert _build.launch_counts - before == collections.Counter({KERNEL_FUSED: 1})
+    want = flash_backward(q, k, v, out, lse, do, cfg, fused=True)
+    assert torch.equal(fused[1], want[1]) and torch.equal(fused[2], want[2])
+    assert float((fused[0].float() - want[0].float()).abs().max()) <= 1e-2 * float(
+        want[0].float().abs().max())
+
+
+def test_timers_and_block_oracle_on_the_card(cuda):
+    """``sync_overhead``, ``chain_runtime`` and ``forward_timed`` give
+    positive times on the card; ``block_flash_attention`` on CUDA tensors
+    agrees with the plain reference in fp32 within 1e-4 of its largest
+    value."""
+    from flash_attention_from_scratch_tpu_torch import dispatch
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import flash_forward
+    from flash_attention_from_scratch_tpu_torch.ops.reference import block_flash_attention
+
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(1, 8, 1024, kv_heads=2, seed=13))
+    cfg = KernelConfig(causal=True)
+    assert dispatch.sync_overhead() > 0
+    assert dispatch.chain_runtime(lambda x, k, v: flash_forward(x, k, v, cfg), q, k, v,
+                                  steps=8, iters=3) > 0
+    assert dispatch.forward_timed(q, k, v, cfg, iters=3)[1] > 0
+    x = torch.randn(1, 2, 256, 128, device=cuda)
+    got = block_flash_attention(x, x.flip(2), x, block_q=64, block_kv=128)
+    want = reference_attention(x, x.flip(2), x)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -21,6 +21,8 @@ import flash_attention_from_scratch_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+need = {pkg.__name__ + "." + m for m in ("models.lora", "ops.causal_decomp", "entry")}
+assert need <= set(names), need - set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m, mod in sys.modules.items() if mod is not None and (

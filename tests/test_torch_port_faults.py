@@ -134,9 +134,11 @@ def test_kernel_config_refuses_what_jax_refuses(name):
 
 
 def test_kernel_config_decompose_is_not_ported():
-    JaxKernelConfig(causal=True, decompose=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KernelConfig(causal=True, decompose=True)
+    """Ported since the row-band dispatch (``ops/causal_decomp.py``): the
+    JAX package's decompose config is accepted, with the same short form."""
+    want = JaxKernelConfig(causal=True, decompose=True, optimized_softmax=False)
+    got = KernelConfig(causal=True, decompose=True)
+    assert got.decompose and got.short_form() == want.short_form()
 
 
 @pytest.mark.parametrize("with_cfg", [False, True], ids=["bare", "cfg"])

@@ -217,10 +217,16 @@ def test_attn_int8_needs_an_int8_cache(mode):
     dict(temperature=0.7), dict(prefix_cache=True), dict(lora={}),
     dict(mesh=object()), dict(top_k=5)])
 def test_server_unported_options_raise(jax_params, option):
-    """``lora`` and ``mesh`` are not ported and raise. ``temperature``,
-    ``prefix_cache`` and ``top_k`` are: each serves every request all its
-    tokens, in-vocabulary."""
-    if "lora" in option or "mesh" in option:
+    """``mesh`` is not ported and raises. ``temperature``, ``prefix_cache``,
+    ``top_k`` and ``lora`` (since the multi-LoRA slice: here two adapters
+    of zero B, every request on the base model) are: each serves every
+    request all its tokens, in-vocabulary."""
+    if "lora" in option:
+        from flash_attention_from_scratch_tpu_torch.models.lora import init_lora_adapters
+
+        option = dict(lora=init_lora_adapters(CFG, 2, 4, torch.Generator().manual_seed(0),
+                                              device="cpu"))
+    if "mesh" in option:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationServer({"embed": torch.zeros((4, 4))}, CFG, num_pages=8,
                              page_size=64, max_batch=2, device="cpu", **option)
