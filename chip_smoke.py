@@ -51,8 +51,23 @@ teacher-forced through ``forward`` on its adapter's merged weights within
 0.1 of the row max and the base rows on the base weights, an adapter row
 serving other tokens than the server without adapters, a LoRA step and
 loop replayed against the eager ones, the adapters' kernels a class of
-their own in the profile, chunk 8 with and without adapters in turns);
-(6) train
+their own in the profile, chunk 8 with and without adapters in turns),
+then serve Mixtral-8x7B's widths at 8 layers (``serve_moe``: random bf16
+weights, the 8 prompts, 32 greedy tokens, chunk 1 and 8, the routing
+inside the decode and loop graphs, launch counts checked, two requests
+teacher-forced as the JAX MoE test does it within 0.25, a MoE step
+replayed equal to the eager one, the experts a class of their own in the
+profile, and a dropless server (capacity factor 4.0) whose every request
+is teacher-forced through ``moe_forward`` within 0.05), train those
+widths at 2 layers (``train_moe``: 3 AdamW steps on ``moe_loss_fn``,
+falling losses, a router gradient, K1 and K3 counted) and round-trip its
+state through ``utils/checkpoint.py`` (the step after restore bit for bit
+the step without it), and convert HF-named state dicts (``convert``:
+Llama-3-8B's widths at 4 layers back bit for bit, int8-converted serving
+equal to ``quantize_params`` serving (K6), bf16 shards the script writes
+read back by ``load_hf_checkpoint``; Gemma-2-27B's widths at 4 layers
+served past their 4,096 window, every request teacher-forced through
+``forward`` within 0.05); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
 steps with the default backward (the split K3, the faster), checking the
 loss falls and the launch counts, profile one more step, then take one
@@ -104,7 +119,8 @@ at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version. Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
-``serve_prefix``, ``serve_lora``, ``train``, ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
+``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``, ``train``,
+``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving`` and ``kernels``
 JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
@@ -117,7 +133,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import sys
 import time
 
@@ -658,17 +676,18 @@ TEACHER_FORCED = (513, 2048)  # prompt lengths checked against forward()
 SLACK = 0.05  # a served token's logit may sit this far below the row max
 
 
-def _teacher_forced_gaps(params, cfg, prompt, generated):
-    """Teacher-force ``generated`` through the full-recompute ``forward``:
-    per served token, the row max minus the served token's logit, and each
-    row's standard deviation over the vocabulary."""
-    from flash_attention_from_scratch_tpu_torch.models.llama import forward
+def _teacher_forced_gaps(params, cfg, prompt, generated, forward=None):
+    """Teacher-force ``generated`` through the full-recompute ``forward``
+    (``models.llama.forward`` by default): per served token, the row max
+    minus the served token's logit, and each row's standard deviation over
+    the vocabulary."""
+    from flash_attention_from_scratch_tpu_torch.models.llama import forward as llama_forward
 
     toks = list(prompt) + list(generated[:-1])
     pad = len(toks) + (-len(toks)) % 64
     arr = torch.zeros((1, pad), dtype=torch.int64, device="cuda")
     arr[0, :len(toks)] = torch.tensor(toks, device="cuda")
-    logits = forward(params, arr, cfg)[0]
+    logits = (forward or llama_forward)(params, arr, cfg)[0]
     rows = logits[len(prompt) - 1:len(prompt) - 1 + len(generated)]
     if not torch.isfinite(rows).all():
         raise AssertionError("non-finite logits in the full-recompute forward")
@@ -860,11 +879,13 @@ def _graph_fields(server, run: dict, prof: dict) -> dict:
 
 
 def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
-                 mode: str = "dense", i8c: bool = False, spec_k: int = 0) -> dict:
+                 mode: str = "dense", i8c: bool = False, spec_k: int = 0,
+                 kv_heads: int = KV_HEADS, group: int = HEADS // KV_HEADS) -> dict:
     """``want`` (launches by kernel) plus the merge kernel's: one per K4/K5
     call, as every K4/K5 call of the serving runs has more than one split
-    (checked here at the largest batch; the plan's count only grows as the
-    batch shrinks)."""
+    (checked here at the server's padded batch, which every step has; the
+    plan is a function of the shapes only). ``kv_heads`` and ``group`` (Q
+    heads a KV head): the model's, Llama-3-8B's by default."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, plan)
     from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
@@ -874,7 +895,7 @@ def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
         n = want.get(kernel_name(t, i8c), 0)
         if not n:
             continue
-        p = plan(max_batch, KV_HEADS, HEADS // KV_HEADS * t, pages_per_seq, page_size,
+        p = plan(max_batch, kv_heads, group * t, pages_per_seq, page_size,
                  MODE_INT8C if i8c else MODES[mode][0], sm_count(torch.device("cuda")))
         if p.splits == 1:
             raise AssertionError(f"one split at the serving shape: {p}")
@@ -1572,6 +1593,19 @@ def _kernel_counts(fn):
         and not getattr(e, "is_user_annotation", False)})
 
 
+def _split_by_counts(with_fn, without_fn, label: str) -> dict:
+    """{kernel name: (label, share)} for ``_profile``'s split: a kernel
+    launched n times by one call of ``with_fn`` and n_base times by one of
+    ``without_fn`` (each profiled once after a call outside the window) is
+    ``label``'s for a share (n - n_base) / n of its time."""
+    counts = {}
+    for name, fn in (("with", with_fn), ("without", without_fn)):
+        fn()  # one-time set-up outside the window
+        counts[name] = _kernel_counts(fn)
+    return {k: (label, (n - counts["without"][k]) / n) for k, n in counts["with"].items()
+            if n > counts["without"][k]}
+
+
 def _lora_split(params, cfg, lora) -> dict:
     """Which kernels of a LoRA decode step are the adapters': one eager
     decode step of 8 rows (adapters LORA_IDS) with ``lora`` and one without,
@@ -1589,13 +1623,11 @@ def _lora_split(params, cfg, lora) -> dict:
     tokens = torch.arange(batch, device="cuda")
     lengths = torch.full((batch,), 10, dtype=torch.int32, device="cuda")
     ids = torch.tensor(LORA_IDS, device="cuda")
-    counts = {}
-    for name, kw in (("lora", dict(lora=lora, adapter_ids=ids)), ("base", {})):
-        step = lambda: decode_step(params, tokens, cfg, cache, lengths, tables, **kw)  # noqa: E731
-        step()  # one-time set-up outside the window
-        counts[name] = _kernel_counts(step)
-    return {k: (LORA_CLASS, (n - counts["base"][k]) / n) for k, n in counts["lora"].items()
-            if n > counts["base"][k]}
+
+    def step(**kw):
+        decode_step(params, tokens, cfg, cache, lengths, tables, **kw)
+
+    return _split_by_counts(lambda: step(lora=lora, adapter_ids=ids), step, LORA_CLASS)
 
 
 def lora_graph_case(label, server, lengths) -> dict:
@@ -1766,6 +1798,610 @@ def phase_serve_lora(params, smi: str) -> dict:
             "gpu": smi}
     print(json.dumps({"serve_lora": line}), flush=True)
     return {"counts": counts}
+
+
+# Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json);
+# the serving phase cuts the depth to 8 layers (23.7 GB of bf16 weights; 32
+# layers would be ~93 GB), training to 2.
+MOE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+MOE_CLASS = "experts (router, dispatch, FFN, combine)"
+# A route that differs between the server and the recompute must be a
+# near-tie: the recompute's gates of the experts kept apart within this
+# (probability) of each other.
+ROUTE_MARGIN = 0.02
+DROPLESS_PROMPT_LENS = (100, 200, 300, 400, 513, 700, 900, 1024)
+
+
+def _mixtral(n_layers: int, **extra):
+    from flash_attention_from_scratch_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(vocab_size=32000, dim=4096, n_layers=n_layers, n_heads=32,
+                     n_kv_heads=8, d_head=128, hidden_dim=14336, rope_theta=1e6,
+                     norm_eps=1e-5, n_experts=8, expert_top_k=2, router_aux_weight=0.02,
+                     **extra)
+
+
+def _moe_logits(params, arr, cfg):
+    from flash_attention_from_scratch_tpu_torch.models.moe import moe_forward
+
+    return moe_forward(params, arr, cfg)[0]
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Within the block, every ``models.moe._route`` call (eager only: a graph
+    replay runs no Python) appends (gates (T, E) fp32, kept routes (T, E)
+    bool: the experts that took the row in a slot) to the yielded list."""
+    from flash_attention_from_scratch_tpu_torch.models import moe
+
+    real, log = moe._route, []
+
+    def recording(cfg, gates, capacity):
+        dispatch, combine, aux = real(cfg, gates, capacity)
+        log.append((gates.detach().float(), dispatch.sum(-1) > 0))
+        return dispatch, combine, aux
+
+    moe._route = recording
+    try:
+        yield log
+    finally:
+        moe._route = real
+
+
+def _routing_check(params, cfg, prompts, tokens) -> dict:
+    """The served tokens against ``moe_forward``, route by route.
+
+    Replays the server's computation eagerly (each prompt prefilled padded
+    to 128, then decode steps of all requests in one batch of the server's
+    shapes, fed the served tokens), which gives the served tokens again
+    (checked), recording each row's routes at every layer; then
+    teacher-forces every request through ``moe_forward``, recording its
+    routes. A request's first route that differs between a decode row and
+    the recompute (in step, then layer order) has inputs that agree up to
+    bf16 rounding (8 rows against T in the products before it, K4/K5
+    against K1), so the router must have sat on a near-tie there: its
+    margin, the recompute's gate gap between the experts the two sides kept
+    apart, must be within ROUTE_MARGIN. Every later difference follows from
+    it (a row routed elsewhere has another hidden state, and later rows
+    attend to it). A served token whose upstream rows all routed alike must
+    lie within SLACK of the recompute's row max; the tokens from a
+    request's first difference on are reported. Returns the counts, worst
+    gaps and first margins."""
+    from flash_attention_from_scratch_tpu_torch.models import decode
+
+    batch, ps = len(prompts), SERVE_PAGE_SIZE
+    sids = sorted(prompts)
+    per = max(-(-(len(prompts[s]) + len(tokens[s])) // ps) for s in sids)
+    if batch * per > SERVE_PAGES:
+        raise ValueError(f"routing check: {batch} x {per} pages do not fit")
+    cache = decode.init_cache(cfg, SERVE_PAGES, ps)
+    tables = torch.full((batch, SERVE_PAGES_PER_SEQ), -1, dtype=torch.int32, device="cuda")
+    for b in range(batch):
+        tables[b, :per] = torch.arange(b * per, (b + 1) * per, device="cuda")
+    steps = len(tokens[sids[0]]) - 1
+    decode_routes = []  # [step][layer] -> (gates (batch, E), kept)
+    with torch.no_grad():
+        for b, sid in enumerate(sids):
+            p = prompts[sid]
+            arr = torch.zeros((1, len(p) + (-len(p)) % 128), dtype=torch.int64, device="cuda")
+            arr[0, :len(p)] = torch.tensor(p, device="cuda")
+            decode.prefill(params, arr, cfg, cache, tables[b], prompt_len=len(p))
+        lengths = torch.tensor([len(prompts[s]) for s in sids], dtype=torch.int32,
+                               device="cuda")
+        replayed = True
+        for i in range(steps):
+            toks = torch.tensor([tokens[s][i] for s in sids], device="cuda")
+            with _recorded_routes() as log:
+                logits, _ = decode.decode_step(params, toks, cfg, cache, lengths + i + 1, tables)
+            decode_routes.append(log)
+            replayed &= logits.argmax(-1).tolist() == [tokens[s][i + 1] for s in sids]
+    if not replayed:
+        raise AssertionError("routing check: the eager replay of the decode steps picks "
+                             "other tokens than the server")
+    agreed_gap, diverged_gap, margins, diverged_tokens, divergences = 0.0, 0.0, [], 0, 0
+    for b, sid in enumerate(sids):
+        p, g = prompts[sid], tokens[sid]
+        with _recorded_routes() as log:
+            gaps, _ = _teacher_forced_gaps(params, cfg, p, g, _moe_logits)
+        first = len(g)
+        for i in range(steps):  # decode step i: the row of g[i] at position len(p) + i
+            row = len(p) + i
+            for layer, (gates, kept) in enumerate(log):
+                if torch.equal(kept[row], decode_routes[i][layer][1][b]):
+                    continue
+                divergences += 1
+                if first == len(g):  # the request's first: its inputs agreed
+                    apart = kept[row] ^ decode_routes[i][layer][1][b]
+                    margins.append(float(gates[row][apart].max() - gates[row][apart].min()))
+                    first = i + 1
+        agreed_gap = max([agreed_gap] + gaps[:first].tolist())
+        diverged_gap = max([diverged_gap] + gaps[first:].tolist())
+        diverged_tokens += len(g) - first
+    return {"agreed_worst_gap": agreed_gap, "diverged_worst_gap": diverged_gap,
+            "tokens": sum(len(t) for t in tokens.values()), "diverged_tokens": diverged_tokens,
+            "divergences": divergences, "requests_diverging": len(margins),
+            "largest_first_margin": max(margins, default=0.0), "first_margins": margins}
+
+
+def _recompute_gaps(params, cfg, prompt, generated) -> list:
+    """The JAX MoE test's teacher forcing: each served token against
+    ``moe_forward`` on the prompt and the tokens before it, padded to 128
+    as the server pads a prompt (one recompute a token). Returns the gaps
+    below the row max."""
+    gaps, toks = [], list(prompt)
+    for g in generated:
+        arr = torch.zeros((1, len(toks) + (-len(toks)) % 128), dtype=torch.int64,
+                          device="cuda")
+        arr[0, :len(toks)] = torch.tensor(toks, device="cuda")
+        row = _moe_logits(params, arr, cfg)[0, len(toks) - 1]
+        if not torch.isfinite(row).all():
+            raise AssertionError("non-finite logits in the MoE recompute")
+        gaps.append(float(row.max() - row[g]))
+        toks.append(g)
+    return gaps
+
+
+def _expert_split(params, cfg) -> dict:
+    """Which kernels of a MoE decode step are the experts' (routing,
+    dispatch, the expert FFN and combine): one eager decode step of 8 rows
+    on a small cache with the experts and one with the MoE MLP replaced by
+    zeros (``models/decode.py::_mlp``), by their launch counts."""
+    from flash_attention_from_scratch_tpu_torch.models import decode
+
+    batch = 8
+    cache = decode.init_cache(cfg, batch + 1, SERVE_PAGE_SIZE)
+    tables = torch.arange(batch, dtype=torch.int32, device="cuda")[:, None]
+    tokens = torch.arange(batch, device="cuda")
+    lengths = torch.full((batch,), 10, dtype=torch.int32, device="cuda")
+
+    def step():
+        decode.decode_step(params, tokens, cfg, cache, lengths, tables)
+
+    def without_experts():
+        real = decode._mlp
+        decode._mlp = lambda layer, h, cfg: torch.zeros_like(h)
+        try:
+            step()
+        finally:
+            decode._mlp = real
+
+    return _split_by_counts(step, without_experts, MOE_CLASS)
+
+
+def _expert_bytes(cfg) -> int:
+    """Bytes of every layer's expert weights: what a dense-dispatch decode
+    step reads whatever the batch (every expert runs on its slots)."""
+    return cfg.n_layers * 3 * cfg.n_experts * cfg.dim * cfg.hidden_dim * 2
+
+
+def phase_serve_moe(smi: str) -> dict:
+    """Serve Mixtral-8x7B's widths at MOE_LAYERS layers (random bf16
+    weights, seed 0): the 8 prompts of SERVE_PROMPT_LENS, 32 greedy tokens
+    each at page 64, at chunk 1 and at chunk 8 (the routing inside the
+    decode and loop graphs; each decode step routes its whole padded batch
+    of 8 rows: 8 slots an expert, nothing dropped). Checks: the launch
+    counts of K1 and K4/K5 (and its merge), no non-finite logit, every
+    request's first token (the prefill's pick) within SLACK of the JAX MoE
+    test's recompute (``moe_forward`` on the prompt padded to 128: the same
+    rows under the same capacity), a MoE decode and verify step replayed
+    equal to the eager ones (``graph_case``). That recompute of every token
+    of the two TEACHER_FORCED requests is reported beside the layers at
+    which it drops a served row's route; whether chunk 1 and 8 serve equal
+    tokens is reported, not forced. Profiles 4 decode steps at each chunk
+    with the experts a class of their own (``_expert_split``). Then a second
+    server with capacity_factor = n_experts / top_k = 4.0 (C >= T: dropless,
+    as Mixtral itself routes) serves 8 prompts of at most 1,024 tokens,
+    held to ``moe_forward`` route by route (``_routing_check``)."""
+    from flash_attention_from_scratch_tpu_torch import GenerationServer, init_moe_params
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    cfg = _mixtral(MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = init_moe_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in param_leaves(params))
+    print(f"serve_moe: Mixtral-8x7B widths x {cfg.n_layers} layers, params "
+          f"{n_params / 1e9:.2f} B, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(SERVE_PROMPT_LENS)}
+    split = _expert_split(params, cfg)
+
+    def serve(label, server_cfg, chunk, prompts):
+        s = GenerationServer(params, server_cfg, num_pages=SERVE_PAGES,
+                             page_size=SERVE_PAGE_SIZE, max_batch=8,
+                             pages_per_seq=SERVE_PAGES_PER_SEQ, chunk=chunk)
+        warm = _warm_graphs(s, cfg.vocab_size, SERVE_NEW_TOKENS)
+        out = _serve_run(label, s, prompts, smi, {"chunk": chunk, "warm_up_s": warm})
+        stats = out["run"]["stats"]
+        want = _with_merges({K1: cfg.n_layers * len(prompts),
+                             KP: cfg.n_layers * stats["decode_steps"]}, 8,
+                            SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
+        print(f"{label}: launches {out['run']['counts']}; expected {want}", flush=True)
+        if out["run"]["counts"] != want:
+            raise AssertionError(f"{label}: a kernel of the path ran the wrong number "
+                                 "of times")
+        return s, out
+
+    lines, tokens, counts = {}, {}, {}
+    for chunk in (1, CHUNK):
+        s, out = serve(f"serve_moe chunk {chunk}", cfg, chunk, prompts)
+        if chunk == CHUNK and out["run"]["stats"]["decode_loops"] == 0:
+            raise AssertionError("serve_moe: no MoE decode loop ran")
+        tokens[chunk], counts[chunk] = out["tokens"], out["run"]["counts"]
+        prof = phase_profile(s, prompts, run=f"moe chunk {chunk}", split=split)
+        lines[chunk] = {**out["line"], **_graph_fields(s, out["run"], prof),
+                        "launches_per_step": prof["launches_per_step"],
+                        "device_ms_per_step": prof["device_ms_per_step"],
+                        "device_ms_per_step_by_class": prof["device_ms_per_step_by_class"]}
+        if chunk == 1:
+            cases = [graph_case(f"moe t{t}", s, [min(n, 2000) + t for n in SERVE_PROMPT_LENS],
+                                t) for t in (1, 4)]
+        del s
+    differ = [sid for sid in prompts if tokens[1][sid] != tokens[CHUNK][sid]]
+    print(f"serve_moe: chunk 1 and chunk {CHUNK} tokens equal: {not differ} "
+          f"(differing requests {differ})", flush=True)
+
+    # The default capacity: each request's first token (the prefill's pick)
+    # is the recompute's at the same padded length and capacity; later
+    # tokens, recomputed as the JAX MoE test does, route their own rows
+    # under a capacity the decode step (8 rows, 8 slots an expert) never hit.
+    first_gap = max(_recompute_gaps(params, cfg, prompts[sid], tokens[1][sid][:1])[0]
+                    for sid in prompts)
+    recomputed = {}
+    for n in TEACHER_FORCED:
+        sid = SERVE_PROMPT_LENS.index(n)
+        with _recorded_routes() as log:
+            gaps = _recompute_gaps(params, cfg, prompts[sid], tokens[1][sid])
+        # The served row of each recompute is its last real row.
+        rows = [len(prompts[sid]) + i - 1 for i in range(len(tokens[1][sid]))]
+        dropped = [sum(int((kept[row].sum() < cfg.expert_top_k)) for _, kept in
+                       log[i * cfg.n_layers:(i + 1) * cfg.n_layers])
+                   for i, row in enumerate(rows)]
+        recomputed[n] = {"gaps": gaps, "served_rows_with_a_dropped_route": sum(
+            d > 0 for d in dropped), "layers_dropping_by_token": dropped}
+    print(f"serve_moe: first tokens within {first_gap} of the recompute (bound {SLACK}); "
+          f"the JAX test's recompute of every token: {json.dumps(recomputed)}", flush=True)
+    if first_gap > SLACK:
+        raise AssertionError(f"serve_moe: a prefill's token lies {first_gap} below the "
+                             "recompute's row max")
+
+    dropless_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.expert_top_k)
+    short = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+             for i, n in enumerate(DROPLESS_PROMPT_LENS)}
+    s, out = serve("serve_moe dropless", dropless_cfg, 1, short)
+    del s
+    routing = _routing_check(params, dropless_cfg, short, out["tokens"])
+    print(f"serve_moe dropless: {json.dumps(routing)}; bounds {SLACK} where the routes "
+          f"agree, margins {ROUTE_MARGIN}", flush=True)
+    if routing["agreed_worst_gap"] > SLACK:
+        raise AssertionError(f"serve_moe dropless: a served token lies "
+                             f"{routing['agreed_worst_gap']} below the recompute's row max "
+                             "with every route alike")
+    if routing["largest_first_margin"] > ROUTE_MARGIN:
+        raise AssertionError(f"serve_moe dropless: a request's first differing route has "
+                             f"a gate margin of {routing['largest_first_margin']}, not a "
+                             "near-tie")
+    bound_ms = 1e3 * _expert_bytes(cfg) / PEAK_BYTES_PER_S
+    line = {"model": "Mixtral-8x7B widths", "layers": cfg.n_layers, "params": n_params,
+            "requests": len(prompts), "new_tokens_per_request": SERVE_NEW_TOKENS,
+            "page_size": SERVE_PAGE_SIZE, "capacity_factor": cfg.capacity_factor,
+            "tokens_equal_chunk_1_8": not differ, "requests_differing_chunk_1_8": differ,
+            "first_token_worst_gap": first_gap,
+            "jax_test_recompute": {str(k): v for k, v in recomputed.items()},
+            "dropless": {**out["line"], "capacity_factor": dropless_cfg.capacity_factor,
+                         "prompt_lens": list(DROPLESS_PROMPT_LENS), "routing": routing},
+            "runs": {str(c): l for c, l in lines.items()},
+            "expert_weight_gb": _expert_bytes(cfg) / 1e9,
+            "expert_bytes_bound_ms_per_step": bound_ms,
+            "expert_split_kernels": {k[:80]: v[1] for k, v in split.items()},
+            "graph_cases": cases, "launches": counts[1], "launches_chunk8": counts[CHUNK],
+            "launches_dropless": out["run"]["counts"], "gpu": smi}
+    print(json.dumps({"serve_moe": line}), flush=True)
+    return {"counts": {**{str(c): n for c, n in counts.items()},
+                       "dropless": out["run"]["counts"]}}
+
+
+def phase_train_moe(smi: str, ckpt_dir: str) -> dict:
+    """Train Mixtral-8x7B's widths at MOE_TRAIN_LAYERS layers: batch 2 x
+    2048 tokens, TRAIN_STEPS AdamW steps (``make_optimizer``) on
+    ``moe_loss_fn`` through autograd (the attention backward K3, the
+    default). Checks finite, falling losses, a non-zero router gradient and
+    the launch counts of K1 and K3. Then the checkpoint round trip: save
+    {"params", "opt"} under ``ckpt_dir``, take one more step, restore, take
+    that step again: the loss and every parameter must equal the first
+    time's bit for bit. Returns the launch counts of the counted steps."""
+    from flash_attention_from_scratch_tpu_torch import (
+        init_moe_params, make_optimizer, moe_loss_fn)
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    cfg = _mixtral(MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_moe_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = make_optimizer(params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = moe_loss_fn(params, tokens, cfg)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    sync()
+    n_params = sum(p.numel() for p in param_leaves(params))
+    print(f"train_moe: Mixtral-8x7B widths x {cfg.n_layers} layers, params "
+          f"{n_params / 1e9:.3f} B, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()  # counts start at 0 just before the main path
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        sync()
+        step_s.append(time.perf_counter() - t)
+    counts = dict(_build.launch_counts)  # read just after the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fused = fused_choice(causal=True)
+    bwd = (KERNEL_FUSED,) if fused else (KERNEL_DKV, KERNEL_DQ)
+    want = {n: TRAIN_STEPS * cfg.n_layers if n in (K1,) + bwd else 0
+            for n in (K1, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
+    router_grad = max(float(layer["router"].grad.abs().max()) for layer in params["layers"])
+    print(f"train_moe: losses {losses}, step s {[round(x, 4) for x in step_s]}, "
+          f"launches {counts}; expected {want}; router grad max {router_grad}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: losses {losses} are not finite and falling")
+    if any(counts.get(n, 0) != c for n, c in want.items()):
+        raise AssertionError("train_moe: a kernel of the path ran the wrong number of times")
+    if not router_grad > 0:
+        raise AssertionError("train_moe: the router got no gradient")
+
+    # The checkpoint round trip of this state.
+    t = time.perf_counter()
+    save_checkpoint(ckpt_dir, {"params": params, "opt": opt.state_dict()}, TRAIN_STEPS)
+    save_s = time.perf_counter() - t
+    loss_a = step()
+    after = [p.detach().clone() for p in param_leaves(params)]
+    opt.zero_grad(set_to_none=True)
+    t = time.perf_counter()
+    restored = restore_checkpoint(ckpt_dir, {"params": params, "opt": opt.state_dict()})
+    with torch.no_grad():
+        for p, r in zip(param_leaves(params), param_leaves(restored["params"])):
+            p.copy_(r)
+    opt.load_state_dict(restored["opt"])
+    del restored
+    sync()
+    restore_s = time.perf_counter() - t
+    loss_b = step()
+    same = all(torch.equal(a, p.detach()) for a, p in zip(after, param_leaves(params)))
+    ckpt = {"loss_without": loss_a, "loss_after_restore": loss_b, "params_bitwise": same,
+            "state_gb": (n_params * 2 * 3) / 1e9, "save_s": save_s, "restore_s": restore_s}
+    print(f"checkpoint: {json.dumps(ckpt)}", flush=True)
+    if loss_a != loss_b or not same:
+        raise AssertionError("checkpoint: the step after restore differs from the step "
+                             "without the round trip")
+    step_ms = 1e3 * float(np.median(step_s[1:]))
+    print(json.dumps({"train_moe": {
+        "model": "Mixtral-8x7B widths", "layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "backward": "fused" if fused else "split", "losses": losses,
+        "router_grad_max": router_grad, "step_ms": step_ms,
+        "step_ms_all": [1e3 * x for x in step_s],
+        "train_tok_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "peak_mem_gb": peak_gb, "launches": counts, "checkpoint": ckpt, "gpu": smi}}),
+        flush=True)
+    return {"counts": counts}
+
+
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """``tensors`` as one ``.safetensors`` file (the format that
+    ``models/convert.py::read_safetensors`` reads): an 8-byte little-endian
+    header length, the JSON header padded to 8 bytes, then the bytes."""
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+
+
+def _hf_llama_state_dict(params, cfg) -> dict:
+    """The HF names and (out, in) layouts of a Llama parameter tree."""
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T.contiguous()}
+    names = {"attn_norm": "input_layernorm", "wq": "self_attn.q_proj",
+             "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "mlp_norm": "post_attention_layernorm", "w_gate": "mlp.gate_proj",
+             "w_up": "mlp.up_proj", "w_down": "mlp.down_proj"}
+    for i, layer in enumerate(params["layers"]):
+        for k, name in names.items():
+            w = layer[k]
+            sd[f"model.layers.{i}.{name}.weight"] = w if w.dim() == 1 else w.T.contiguous()
+    return sd
+
+
+# Gemma-2-27B's widths (google/gemma-2-27b config.json), cut to 4 layers.
+GEMMA2_27B_HF = dict(vocab_size=256000, hidden_size=4608, num_hidden_layers=4,
+                     num_attention_heads=32, num_key_value_heads=16, head_dim=128,
+                     intermediate_size=36864, rope_theta=10000.0, rms_norm_eps=1e-6,
+                     query_pre_attn_scalar=144, sliding_window=4096,
+                     attn_logit_softcapping=50.0, final_logit_softcapping=30.0)
+GEMMA2_PROMPT_LENS = (5000, 300, 700, 1200)
+CONVERT_NEW_TOKENS = 16  # tokens a request in the convert phase's serving runs
+
+
+def _gemma2_state_dict(hf, gen) -> dict:
+    """A random Gemma-2 state dict with HF's names and (out, in) layouts on
+    the card, bf16: projections normal / sqrt(in), the embedding normal /
+    sqrt(hidden) (the model scales it by sqrt(hidden)), norm weights normal
+    x 0.1 (Gemma scales by 1 + weight)."""
+    d, hd = hf["hidden_size"], hf["head_dim"]
+    q, kv, h = hf["num_attention_heads"] * hd, hf["num_key_value_heads"] * hd, \
+        hf["intermediate_size"]
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": normal((hf["vocab_size"], d), d ** -0.5),
+          "model.norm.weight": normal((d,), 0.1)}
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (q, d)), ("self_attn.k_proj", (kv, d)),
+                            ("self_attn.v_proj", (kv, d)), ("self_attn.o_proj", (d, q)),
+                            ("mlp.gate_proj", (h, d)), ("mlp.up_proj", (h, d)),
+                            ("mlp.down_proj", (d, h))):
+            sd[pre + name + ".weight"] = normal(shape, shape[1] ** -0.5)
+        for name in ("input_layernorm", "post_attention_layernorm",
+                     "pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            sd[pre + name + ".weight"] = normal((d,), 0.1)
+    return sd
+
+
+def phase_convert(smi: str, ckpt_dir: str) -> dict:
+    """The HF converters on the card, no download: (1) Llama-3-8B's widths at
+    4 layers as an HF-named state dict (``model.`` prefix, (out, in)
+    layouts, an untied lm_head): ``from_hf_llama`` gives the tensors back
+    bit for bit, and ``from_hf_llama(quantize="int8")`` serves 4 requests
+    (16 tokens each) with the tokens of a server on ``quantize_params`` of
+    the original weights (K6); ``load_hf_checkpoint`` on bf16 shards the
+    script writes at 2 layers (two shards and a config.json, under
+    ``ckpt_dir``) gives the same tensors. (2) Gemma-2-27B's widths at 4
+    layers (``GEMMA2_27B_HF``; tied embedding) through ``from_hf_gemma2``
+    served with one 5,000-token prompt past its 4,096 window and 3 short
+    ones, 16 tokens each: K1 and K4/K5 with the window and the softcaps,
+    launch counts checked, every request teacher-forced through ``forward``
+    within SLACK."""
+    import types
+
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, GenerationServer, from_hf_gemma2, from_hf_llama, init_params,
+        load_hf_checkpoint, quantize_params)
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=4)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    sd = _hf_llama_state_dict(params, cfg)
+    conv, conv_cfg = from_hf_llama(sd, cfg)
+    bitwise = conv_cfg == cfg and all(
+        torch.equal(a, b) for a, b in zip(param_leaves(conv), param_leaves(params)))
+    del conv
+    rng = np.random.default_rng(3)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate((300, 700, 1000, 1500))}
+    served = {}
+    for name, weights in (("converted", from_hf_llama(sd, cfg, quantize="int8")[0]),
+                          ("quantize_params", quantize_params(params, "int8"))):
+        s = GenerationServer(weights, cfg, num_pages=4 * 32 + 2, page_size=SERVE_PAGE_SIZE,
+                             max_batch=4, pages_per_seq=32)
+        run = _drive(s, prompts, CONVERT_NEW_TOKENS)
+        served[name] = ({sid: s.seqs[sid].generated for sid in prompts}, run)
+        del s, weights
+    run = served["converted"][1]
+    q_counts, steps = run["counts"], run["stats"]["decode_steps"]
+    # Every projection and the lm_head run K6: 7 x layers + 1 calls a model call.
+    want = _with_merges({K1: cfg.n_layers * len(prompts), KP: cfg.n_layers * steps,
+                         KERNELS[("int8", False)]: (7 * cfg.n_layers + 1)
+                         * (len(prompts) + steps)}, 4, 32, SERVE_PAGE_SIZE)
+    if q_counts != want or run["nonfinite"]:
+        raise AssertionError(f"convert: int8 serving launches {q_counts}, expected {want}; "
+                             f"{run['nonfinite']} non-finite logits")
+    same_tokens = served["converted"][0] == served["quantize_params"][0]
+
+    # bf16 shards at 2 layers, read back by load_hf_checkpoint.
+    os.makedirs(ckpt_dir, exist_ok=True)
+    two = {k: v for k, v in sd.items() if not k.startswith("model.layers.")
+           or int(k.split(".")[2]) < 2}
+    names = sorted(two)
+    for i in range(2):
+        _write_safetensors(os.path.join(ckpt_dir, f"model-{i + 1:05d}-of-00002.safetensors"),
+                           {k: two[k] for k in names[i::2]})
+    hf_json = {"vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+               "num_hidden_layers": 2, "num_attention_heads": cfg.n_heads,
+               "num_key_value_heads": cfg.n_kv_heads, "intermediate_size": cfg.hidden_dim,
+               "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps}
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(hf_json, f)
+    t = time.perf_counter()
+    loaded, loaded_cfg = load_hf_checkpoint(ckpt_dir)
+    load_s = time.perf_counter() - t
+    want = dict(params, layers=params["layers"][:2])
+    shards_bitwise = loaded_cfg == dataclasses.replace(cfg, n_layers=2) and all(
+        torch.equal(a, b) for a, b in zip(param_leaves(loaded), param_leaves(want)))
+    del loaded, want, sd, two, params
+    for name in os.listdir(ckpt_dir):
+        os.remove(os.path.join(ckpt_dir, name))
+    torch.cuda.empty_cache()
+    llama_line = {"model": "Llama-3-8B widths", "layers": cfg.n_layers,
+                  "tensors_bitwise": bitwise, "int8_tokens_equal": same_tokens,
+                  "int8_launches": q_counts, "shards_bitwise": shards_bitwise,
+                  "shard_layers": 2, "load_hf_checkpoint_s": load_s}
+    print(f"convert llama: {json.dumps(llama_line)}", flush=True)
+    if not (bitwise and same_tokens and shards_bitwise):
+        raise AssertionError(f"convert llama: {llama_line}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hf = GEMMA2_27B_HF
+    sd = _gemma2_state_dict(hf, gen)
+    model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
+    gparams, gcfg = from_hf_gemma2(model, dtype=torch.bfloat16)
+    del sd, model
+    rng = np.random.default_rng(4)
+    prompts = {i: rng.integers(0, gcfg.vocab_size, n).tolist()
+               for i, n in enumerate(GEMMA2_PROMPT_LENS)}
+    per_seq = -(-(max(GEMMA2_PROMPT_LENS) + CONVERT_NEW_TOKENS) // SERVE_PAGE_SIZE)
+    s = GenerationServer(gparams, gcfg, num_pages=len(prompts) * per_seq + 2,
+                         page_size=SERVE_PAGE_SIZE, max_batch=len(prompts),
+                         pages_per_seq=per_seq)
+    run = _drive(s, prompts, CONVERT_NEW_TOKENS)
+    got = {sid: s.seqs[sid].generated for sid in prompts}
+    if run["nonfinite"] or any(len(g) != CONVERT_NEW_TOKENS for g in got.values()):
+        raise AssertionError(f"convert gemma2: {run['nonfinite']} non-finite logits, "
+                             f"token counts {[len(g) for g in got.values()]}")
+    stats = run["stats"]
+    want = _with_merges({K1: gcfg.n_layers * len(prompts),
+                         KP: gcfg.n_layers * stats["decode_steps"]}, len(prompts),
+                        per_seq, SERVE_PAGE_SIZE, kv_heads=gcfg.n_kv_heads,
+                        group=gcfg.n_heads // gcfg.n_kv_heads)
+    if run["counts"] != want:
+        raise AssertionError(f"convert gemma2: launches {run['counts']}, expected {want}")
+    worst = max(float(_teacher_forced_gaps(gparams, gcfg, prompts[sid], got[sid])[0].max())
+                for sid in prompts)
+    gemma_line = {"model": "Gemma-2-27B widths", "layers": gcfg.n_layers,
+                  "window_pattern": list(gcfg.window_pattern),
+                  "softcaps": [gcfg.attn_softcap, gcfg.final_softcap],
+                  "prompt_lens": list(GEMMA2_PROMPT_LENS),
+                  "decode_tok_s": (run["decode_tokens"] / run["decode_s"]
+                                   if run["decode_s"] else None),
+                  "decode_steps": stats["decode_steps"], "launches": run["counts"],
+                  "teacher_forced_worst_gap": worst}
+    print(f"convert gemma2: {json.dumps(gemma_line)}", flush=True)
+    if worst > SLACK:
+        raise AssertionError(f"convert gemma2: a served token lies {worst} below the "
+                             "full-recompute row max")
+    print(json.dumps({"convert": {"llama": llama_line, "gemma2": gemma_line,
+                                  "s": time.perf_counter() - t0, "gpu": smi}}), flush=True)
+    return {"int8": q_counts, "gemma2": run["counts"]}
 
 
 def phase_serve_lora_quant(smi: str) -> dict:
@@ -3364,7 +4000,17 @@ def main(argv=None) -> int:
     prefixed = phase_serve_prefix(params, smi)
     chunk_case = prefill_chunked_case(params)
     lora = phase_serve_lora(params, smi)
-    del params  # frees the 16 GB of weights before training
+    del params  # frees the 16 GB of weights before the MoE phases and training
+    torch.cuda.empty_cache()
+    moe_served = phase_serve_moe(smi)
+    torch.cuda.empty_cache()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_files")
+    try:
+        moe_trained = phase_train_moe(smi, os.path.join(scratch, "checkpoint"))
+        torch.cuda.empty_cache()
+        converted = phase_convert(smi, os.path.join(scratch, "hf_shards"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
     trained = phase_train(smi)
     torch.cuda.empty_cache()
@@ -3401,6 +4047,9 @@ def main(argv=None) -> int:
          "launches_serve_prefix": prefixed["counts"].get(K1, 0),
          "launches_serve_lora": {str(c): n.get(K1, 0) for c, n in lora["counts"].items()},
          "launches_serve_lora_quant": lora_quant["counts"].get(K1, 0),
+         "launches_serve_moe": {r: n.get(K1, 0) for r, n in moe_served["counts"].items()},
+         "launches_train_moe": moe_trained["counts"].get(K1, 0),
+         "launches_convert": {r: n.get(K1, 0) for r, n in converted.items()},
          "prefill_chunked_case": chunk_case, "banded_case": banded,
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
@@ -3418,6 +4067,8 @@ def main(argv=None) -> int:
          "launches_serve_prefix": prefixed["counts"].get(KP, 0),
          "launches_serve_lora": {str(c): n.get(KP, 0) for c, n in lora["counts"].items()},
          "launches_serve_lora_quant": lora_quant["counts"].get(KP, 0),
+         "launches_serve_moe": {r: n.get(KP, 0) for r, n in moe_served["counts"].items()},
+         "launches_convert": {r: n.get(KP, 0) for r, n in converted.items()},
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
                           "multi_int8c: run F; serve_sample at chunk 1 and 8 (the "
                           "pick in the graphs), serve_prefix; every count by "
@@ -3446,6 +4097,8 @@ def main(argv=None) -> int:
          "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:198",
          "launches": split.get(KERNEL_DKV, 0) + split.get(KERNEL_DQ, 0),
          "launches_by_entry": {n: split.get(n, 0) for n in (KERNEL_DKV, KERNEL_DQ)},
+         "launches_train_moe": {n: moe_trained["counts"].get(n, 0)
+                                for n in (KERNEL_DKV, KERNEL_DQ)},
          "launches_path": paths[fused_choice(causal=True)],
          "max_abs_err": backward_err["split"], **split_t},
     ]
@@ -3467,6 +4120,7 @@ def main(argv=None) -> int:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
                                             "quant_matmul.py:247")
             kernels[-1]["launches_serve_lora_quant"] = lora_quant["counts"][name]
+            kernels[-1]["launches_convert_int8"] = converted["int8"][name]
     kernels += [
         {"name": KQ, "route": "cuda", "source": pkg + "flash_quant.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",

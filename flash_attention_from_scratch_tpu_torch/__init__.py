@@ -21,10 +21,15 @@ from .models.llama import (
     init_params, init_quantized_params, loss_fn, params_from_jax,
     quantize_params,
 )
+from .models.convert import (
+    config_from_hf, config_from_hf_gemma2, from_hf_gemma2, from_hf_llama,
+    load_hf_checkpoint, read_safetensors,
+)
 from .models.lora import (
     LORA_KEYS, from_peft_state_dicts, init_lora_adapters, lora_delta, lora_from_jax,
     merged_params,
 )
+from .models.moe import MoEConfig, init_moe_params, moe_forward, moe_loss_fn
 from .models.step_graphs import StepGraphs
 from .models.train import make_optimizer, make_train_step
 from .ops.autodiff import flash_attention
@@ -55,6 +60,7 @@ from .ops.quant_matmul import (
 from .ops.reference import block_flash_attention, reference_attention, reference_pair
 from .serving.generate import GenerationServer
 from .serving.runtime import Batch, PagedEngine
+from .utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .utils.testing import adaptive_tolerance_check, error_stats, generate_qkv, make_qkv
 
 __all__ = [
@@ -82,6 +88,10 @@ __all__ = [
     "sample_token", "sample_noise", "row_keys", "StepGraphs",
     "LORA_KEYS", "init_lora_adapters", "lora_delta", "from_peft_state_dicts",
     "lora_from_jax", "merged_params",
+    "MoEConfig", "init_moe_params", "moe_forward", "moe_loss_fn",
+    "from_hf_llama", "from_hf_gemma2", "config_from_hf", "config_from_hf_gemma2",
+    "load_hf_checkpoint", "read_safetensors",
+    "save_checkpoint", "restore_checkpoint", "latest_step",
     "PagedEngine", "Batch", "GenerationServer",
     "adaptive_tolerance_check", "error_stats", "make_qkv", "generate_qkv",
 ]

@@ -14,7 +14,9 @@ feeding its pick (the argmax, or :func:`sample_token`) to the next.
 :func:`prefill`, :func:`decode_step` and :func:`decode_loop` take LoRA
 adapters (``models/lora.py``) with one adapter id a row (-1: the base
 model): each adapted projection's delta adds to q, k and v after the
-projection and to the output projection before the residual.
+projection and to the output projection before the residual. A MoE
+layer (``experts``, ``models/moe.py``) routes through its experts in
+every one of these functions (:func:`_mlp`).
 These functions run eagerly; ``models/step_graphs.py`` captures the decode
 steps and the loop as CUDA graphs (the JAX package's ``jax.jit``).
 
@@ -50,10 +52,11 @@ from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import QMAX, KVQuantMode, div_const, pack_int4, unpack_int4_halves
 from ..utils.device import resolve_device
 from .llama import (
-    LlamaConfig, _attention, _embed, _lm_logits, _q_scale_ratio, _qkv,
-    _residual_tail, apply_rope, rms_norm, rope_inv_freq, rope_tables,
+    LlamaConfig, _attention, _embed, _lm_logits, _mlp as _dense_mlp, _q_scale_ratio,
+    _qkv, _residual_tail, apply_rope, rms_norm, rope_inv_freq, rope_tables,
 )
 from .lora import lora_delta
+from .moe import _moe_mlp
 
 __all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
            "decode_step", "verify_step", "decode_loop", "spec_accept_sample",
@@ -76,6 +79,18 @@ def lora_fn(lora, li: int, adapter_ids):
     if adapter_ids is None:
         raise ValueError("serving with lora needs adapter_ids, one a row (-1: none)")
     return lambda name, x: lora_delta(lora, li, name, x, adapter_ids)
+
+
+def _mlp(layer, h, cfg):
+    """The serving path's MLP: dense, or routed experts when the layer
+    carries them (``models/moe.py::_moe_mlp``), as in the JAX package's
+    decode path. All rows of a call route together: a prefill's padded
+    prompt, a chunk, or a decode step's whole padded batch (batch-level
+    capacity, max(8, ~top_k * rows / E) slots an expert). The aux loss is
+    dropped. ``models.llama.forward`` stays dense, as JAX's does."""
+    if "experts" in layer:
+        return _moe_mlp(cfg, layer, h)[0]
+    return _dense_mlp(layer, h, cfg)
 
 
 def check_no_sinks(cfg: LlamaConfig) -> None:
@@ -241,9 +256,13 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         adapt = lora_fn(lora, li, adapter_ids)
         out, k, v = _attention(layer, h, cfg, cos, sin, li, adapt)
-        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out))
-        # Causality makes rows [0, prompt_len) independent of the padding
-        # rows, so scattering just those rows keeps the cache exact.
+        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out),
+                           mlp=_mlp)
+        # Only rows [0, prompt_len) go to pages. Causality keeps them
+        # independent of the padding rows in a dense model; in a MoE model
+        # the padding tokens route too and claim expert slots (a padding
+        # token's first choice can take the slot a real token's second
+        # choice would have had), as in the JAX package, which pads alike.
         _write_prompt_layer(cache, li, k[0, :, :prompt_len],
                             v[0, :, :prompt_len], page_table, prompt_len)
     x = rms_norm(x[:, prompt_len - 1], params["final_norm"], cfg.norm_eps)
@@ -317,7 +336,7 @@ def _prefill_one_chunk(params, tokens_chunk, cfg: LlamaConfig,
         attn = dataclasses.replace(cfg.attn_config(li), q_offset=start)
         out = flash_forward(q, k, v, attn)
         out = out.transpose(1, 2).reshape(1, c, cfg.n_heads * cfg.d_head)
-        x = _residual_tail(cfg, layer, x, out)
+        x = _residual_tail(cfg, layer, x, out, mlp=_mlp)
     if want_logit_row < 0:
         return torch.zeros(cfg.vocab_size, dtype=torch.float32, device=x.device), cache
     x = rms_norm(x[:, want_logit_row], params["final_norm"], cfg.norm_eps)
@@ -532,7 +551,8 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
             softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
         out = out.view(batch, cfg.n_heads, t, cfg.d_head).transpose(1, 2)
         out = out.reshape(batch, t, cfg.n_heads * cfg.d_head).to(x.dtype)
-        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out))
+        x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out),
+                           mlp=_mlp)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, x, cfg), cache

@@ -333,13 +333,18 @@ def fuse_projections(params) -> dict:
     concatenated, :func:`~..ops.quant_matmul.concat_weights`). The model
     uses the fused entries when present; unfused trees keep working.
     Biases on Q/K/V (Qwen2-style) raise ``NotImplementedError``, as in the
-    JAX package.
+    JAX package. MoE layers (``experts``) raise ``ValueError``: they have no
+    gate/up pair to fuse (the JAX function fails on them with a
+    ``KeyError``).
     """
     def cat(ws):
         if isinstance(ws[0], QuantizedWeight):
             return concat_weights(ws)
         return torch.cat(ws, dim=1)
 
+    if any("experts" in layer for layer in params["layers"]):
+        raise ValueError("fuse_projections on MoE params: routed experts have no "
+                         "w_gate/w_up pair to fuse; serve them unfused")
     if any("bq" in layer for layer in params["layers"]):
         raise NotImplementedError(
             "fuse_projections with QKV biases (Qwen2-style) would need a "
@@ -440,17 +445,19 @@ def _lm_logits(params, h, cfg: LlamaConfig):
     return logits
 
 
-def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None):
+def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None, mlp=_mlp):
     """Attention-output projection + MLP, with optional sandwich norms.
     ``o_extra`` adds to the output projection before the norm (the per-row
-    LoRA delta of wo)."""
+    LoRA delta of wo). ``mlp(layer, h, cfg)``: the dense MLP, or the
+    serving path's, which routes a layer with experts
+    (``models/decode.py::_mlp``)."""
     h = _o_proj(layer, out)
     if o_extra is not None:
         h = h + o_extra
     if cfg.post_norms:
         h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
     x = x + h
-    h = _mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
+    h = mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
     if cfg.post_norms:
         h = rms_norm(h, layer["mlp_post_norm"], cfg.norm_eps)
     return x + h

@@ -3,9 +3,11 @@
 Counterpart of ``flash_attention_from_scratch_tpu/serving/generate.py``
 ``GenerationServer`` for greedy or sampled (temperature, top-k) decoding
 over a dense or quantized (int8, fp8, int4) KV cache; the parameters may
-hold quantized weights (``models.llama.quantize_params``) and fused
-projections (``models.llama.fuse_projections``). Requests enter the native
-scheduler (``serving.runtime.PagedEngine``); each step admits what fits,
+hold quantized weights (``models.llama.quantize_params``), fused
+projections (``models.llama.fuse_projections``) or routed experts
+(``models.moe``: each decode step routes its whole padded batch
+together). Requests enter the native scheduler
+(``serving.runtime.PagedEngine``); each step admits what fits,
 prefills newly admitted prompts through the flash forward kernel (whole,
 in chunks of ``prefill_chunk_tokens`` through
 ``models.decode.prefill_chunked``, or with ``prefix_cache`` only the

@@ -21,7 +21,11 @@ activation quantization kernel bit for bit. The compiled step (CUDA-graph
 replays of ``models/step_graphs.py``) equals the eager step bit for bit,
 logits and pages, and counts the eager step's launches on every replay;
 ``prefill_chunked`` (K1 with ``q_offset`` over [prefix | chunk]) is held to
-``prefill`` by the adaptive rule against the same model in fp32. The
+``prefill`` by the adaptive rule against the same model in fp32. A MoE
+model's routed steps and loops replay bit for bit too; the routing on the
+card gives the CPU's dispatch and combine bit for bit, and the MoE layer in
+fp32 within 1e-5 of the CPU's largest output; a checkpoint and bf16
+safetensors shards restore onto the card bit for bit. The
 training step compares
 the parameter gradients of the split (the default) and the fused backward
 kernels with those of the plain backward: all three run the same bf16
@@ -39,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from flash_attention_from_scratch_tpu_torch.models import decode, llama, train
+from flash_attention_from_scratch_tpu_torch.models import decode, llama, moe, train
 from flash_attention_from_scratch_tpu_torch.models.step_graphs import StepGraphs
 from flash_attention_from_scratch_tpu_torch.ops import _build
 from flash_attention_from_scratch_tpu_torch.ops.configs import (
@@ -1371,3 +1375,143 @@ def test_timers_and_block_oracle_on_the_card(cuda):
     got = block_flash_attention(x, x.flip(2), x, block_q=64, block_kv=128)
     want = reference_attention(x, x.flip(2), x)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+MOE_GRAPH_CFG = moe.MoEConfig(vocab_size=2048, dim=1024, n_layers=2, n_heads=8, n_kv_heads=2,
+                              d_head=128, hidden_dim=1024, n_experts=4, expert_top_k=2)
+
+
+def _moe_graph_model(cuda):
+    """A MoE model with ``GRAPH_LENGTHS`` prompts prefilled (the padded
+    prompts route through the experts)."""
+    params = moe.init_moe_params(MOE_GRAPH_CFG, torch.Generator(device=cuda).manual_seed(0),
+                                 device=cuda)
+    batch = len(GRAPH_LENGTHS)
+    cache = decode.init_cache(MOE_GRAPH_CFG, batch * GRAPH_PAGES_PER_SEQ + 1, 64, "dense", cuda)
+    tables = torch.arange(batch * GRAPH_PAGES_PER_SEQ, dtype=torch.int32,
+                          device=cuda).view(batch, -1)
+    rng = np.random.default_rng(1)
+    for b, n in enumerate(GRAPH_LENGTHS):
+        toks = torch.zeros((1, 512), dtype=torch.long, device=cuda)
+        toks[0, :n] = torch.from_numpy(rng.integers(0, MOE_GRAPH_CFG.vocab_size, n))
+        decode.prefill(params, toks, MOE_GRAPH_CFG, cache, tables[b], prompt_len=n)
+    return params, cache, tables
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_moe_replayed_step_equals_eager_step(cuda, t):
+    """The routed decode (t = 1) and verify (t = 4) steps: two calls (the
+    first captures, the second only replays) against the eager ``_step``,
+    logits and pages bit for bit, and the replay counts the eager launches."""
+    params, cache, tables = _moe_graph_model(cuda)
+    replayed, eager = _clone(cache), _clone(cache)
+    graphs = StepGraphs(params, MOE_GRAPH_CFG, replayed)
+    for call in range(2):
+        tokens, lengths = _step_inputs(t, seed=call, grown=(call + 1) * t)
+        before = collections.Counter(_build.launch_counts)
+        got = graphs.verify_step(tokens, lengths, tables.cpu())
+        replay = _build.launch_counts - before
+        before = collections.Counter(_build.launch_counts)
+        want, _ = decode._step(params, tokens.to(cuda), MOE_GRAPH_CFG, eager,
+                               lengths.to(cuda), tables, None, None, False)
+        assert replay == _build.launch_counts - before
+        assert torch.equal(_bits(got), _bits(want)), (t, call)
+    _same_pools(replayed, eager)
+    assert graphs.graphs == 1 and graphs.replays == 2 and graphs.nonfinite_logits() == 0
+
+
+def test_moe_graph_decode_loop_equals_eager(cuda):
+    """A loop graph of four routed steps gives the eager ``decode_loop``'s
+    tokens and pages."""
+    params, cache, tables = _moe_graph_model(cuda)
+    first, lengths = _step_inputs(1, seed=4, grown=0)
+    loop_cache, eager_cache = _clone(cache), _clone(cache)
+    out, _ = StepGraphs(params, MOE_GRAPH_CFG, loop_cache).decode_loop(
+        first[:, 0], lengths, tables.cpu(), 4)
+    want, _, _ = decode.decode_loop(params, first[:, 0].to(cuda), MOE_GRAPH_CFG, eager_cache,
+                                    lengths.to(cuda), tables, 4)
+    assert torch.equal(out, want)
+    _same_pools(loop_cache, eager_cache)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """The routing on the card (sort, cumsum, one-hots by comparison) gives
+    the CPU's dispatch and combine bit for bit on the same gates; ``_moe_mlp``
+    in fp32 (TF32 off) within 1e-5 of the CPU's largest output; and
+    ``moe_forward`` in bf16 launches K1 once a layer and gives finite
+    logits."""
+    cfg = dataclasses.replace(MOE_GRAPH_CFG, dtype=DType.FP32)
+    params = moe.init_moe_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 128, cfg.dim, generator=torch.Generator().manual_seed(1))
+    gates = torch.softmax(x.view(-1, cfg.dim) @ params["layers"][0]["router"], dim=-1)
+    for cap in (moe._capacity(cfg, 256), 8):
+        want = moe._route(cfg, gates, cap)
+        got = moe._route(cfg, gates.to(cuda), cap)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got[:2], want[:2]))
+    want, want_aux = moe._moe_mlp(cfg, params["layers"][0], x)
+    got, aux = moe._moe_mlp(cfg, _to_device(params["layers"][0], cuda), x.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+    params, _, _ = _moe_graph_model(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, MOE_GRAPH_CFG.vocab_size, (2, 256))).to(cuda)
+    before = collections.Counter(_build.launch_counts)
+    with torch.no_grad():
+        logits, aux = moe.moe_forward(params, tokens, MOE_GRAPH_CFG)
+    assert _build.launch_counts - before == collections.Counter(
+        {FLASH: MOE_GRAPH_CFG.n_layers})
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A state saved from the card restores onto a template on the card:
+    every tensor on the card, bit for bit, a QuantizedWeight with its mode."""
+    from flash_attention_from_scratch_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    params = llama.quantize_params(llama.init_params(
+        GRAPH_CFG, torch.Generator(device=cuda).manual_seed(0), cuda), "int8")
+    save_checkpoint(str(tmp_path), params, 2)
+    got = restore_checkpoint(str(tmp_path), params)
+    assert got["embed"].device.type == "cuda" and torch.equal(got["embed"], params["embed"])
+    w = got["layers"][1]["w_down"]
+    assert w.values.device.type == "cuda" and w.mode == "int8"
+    assert torch.equal(w.values, params["layers"][1]["w_down"].values)
+
+
+def test_load_hf_checkpoint_onto_the_card(cuda, tmp_path):
+    """bf16 shards read by the port's reader and converted on the card equal
+    the CPU conversion bit for bit."""
+    import json
+
+    from flash_attention_from_scratch_tpu_torch.models import convert
+
+    cfg = dataclasses.replace(GRAPH_CFG, n_layers=1)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    names = {"attn_norm": "input_layernorm", "wq": "self_attn.q_proj",
+             "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "mlp_norm": "post_attention_layernorm", "w_gate": "mlp.gate_proj",
+             "w_up": "mlp.up_proj", "w_down": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T.contiguous()}
+    sd.update({f"model.layers.0.{n}.weight": (w if w.dim() == 1 else w.T.contiguous())
+               for k, n in names.items() for w in [params["layers"][0][k]]})
+    header, blobs, offset = {}, [], 0
+    for name, t in sd.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header).encode()
+    (tmp_path / "model.safetensors").write_bytes(len(blob).to_bytes(8, "little") + blob
+                                                 + b"".join(blobs))
+    got, _ = convert.load_hf_checkpoint(str(tmp_path), cfg, device=cuda)
+    for a, b in zip(train.param_leaves(got), train.param_leaves(params)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -1,10 +1,12 @@
-"""The port never reaches JAX or the JAX package.
+"""The port never reaches JAX or the JAX package, nor a package the card's
+machine lacks.
 
 Every module of ``flash_attention_from_scratch_tpu_torch`` and
-``chip_smoke.py`` is imported in a fresh interpreter in which ``jax`` and
-``flash_attention_from_scratch_tpu`` are blocked (``sys.modules[name] =
-None`` makes any import of them raise ``ImportError``). The test fails if
-an import raises, or if any module of either name was loaded.
+``chip_smoke.py`` is imported in a fresh interpreter in which ``jax``,
+``flash_attention_from_scratch_tpu``, ``transformers``, ``safetensors``,
+``orbax`` and ``peft`` are blocked (``sys.modules[name] = None`` makes any
+import of them raise ``ImportError``). The test fails if an import raises,
+or if any module of those names was loaded.
 """
 
 import os
@@ -15,18 +17,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "jaxlib", "flash_attention_from_scratch_tpu"):
+BLOCKED = ("jax", "jaxlib", "flash_attention_from_scratch_tpu", "transformers",
+           "safetensors", "orbax", "peft")
+for name in BLOCKED:
     sys.modules[name] = None
 import flash_attention_from_scratch_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-need = {pkg.__name__ + "." + m for m in ("models.lora", "ops.causal_decomp", "entry")}
+need = {pkg.__name__ + "." + m for m in ("models.lora", "ops.causal_decomp", "entry",
+                                         "models.moe", "models.convert",
+                                         "utils.checkpoint")}
 assert need <= set(names), need - set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = [m for m, mod in sys.modules.items() if mod is not None and (
-    m.split(".")[0] in ("jax", "jaxlib", "flash_attention_from_scratch_tpu"))]
+bad = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print(len(names))
 """
