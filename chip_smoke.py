@@ -117,11 +117,28 @@ K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
 a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
-windows, a softcap and strided Q, against its plain version. Prints
+windows, a softcap and strided Q, against its plain version. (10) the parallel layer (``parallel/``), its ranks processes on this card
+over gloo, named here (NCCL refuses two ranks on one card; every tensor
+that crosses ranks goes through pinned host memory, counted as staged
+bytes; no time of these phases is a multi-card speed): ``ring``, ring
+attention over 4 ranks at Llama-3-8B attention widths (b 1, 32/8 heads, s
+16,384, 4,096 a rank), causal, non-causal, a 4,096 window and sinks,
+forward and backward, each rank's K1/K2/K3 launches its ``launch_plan``,
+held per 64-row band against single-rank ``flash_attention`` and the plain
+fp32 version; ``train_parallel``, Llama-3-8B's width at 2 layers, 3 AdamW
+steps on one rank, an sp 2 and a tp 2 mesh, losses within 0.01 of one
+rank's and the first step's gradients within 5 % of its norm on every
+leaf; ``serve_tp``, the serve phase's model and requests at tp 2 (and
+run A's int8 weights and KV at 4 layers), every rank the same tokens, each
+first difference from the single card a near-tie; ``bench_ring``, the
+ring's compute side against one K1 call (a subprocess); then the kernels
+at the shard shapes (``time_shards``). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``, ``train``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
-``bench_attention``, ``bench_decode``, ``bench_serving`` and ``kernels``
+``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
+``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``
+(and a line per rank), ``phase_s`` (each phase's wall time) and ``kernels``
 JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
@@ -752,8 +769,9 @@ def _drive(server, prompts, new_tokens: int, adapters=None) -> dict:
 
     for name, fn in plain.items():  # the host-side pick: prefill
         setattr(generate, name, checked(fn))
-    graph_nonfinite = server.graphs.nonfinite_logits()
-    replays = server.graphs.replays
+    graphs = server.graphs  # None under a mesh: every pick is host-side
+    graph_nonfinite = graphs.nonfinite_logits() if graphs else 0
+    replays = graphs.replays if graphs else 0
     stats0 = server.stats()
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
@@ -787,8 +805,9 @@ def _drive(server, prompts, new_tokens: int, adapters=None) -> dict:
                                      if stats["spec_proposed"] else 0.0)
     return {"prefill_s": prefill_s, "decode_s": decode_s, "stats": stats,
             "decode_tokens": decode_tokens, "wall_s": wall, "counts": counts,
-            "nonfinite": int(nonfinite) + server.graphs.nonfinite_logits() - graph_nonfinite,
-            "replays": server.graphs.replays - replays,
+            "nonfinite": int(nonfinite) + (graphs.nonfinite_logits() if graphs else 0)
+            - graph_nonfinite,
+            "replays": (graphs.replays if graphs else 0) - replays,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -3949,6 +3968,665 @@ def phase_bench_tools(smi: str) -> dict:
     return {KQ: quant_counts[KQ], KERNEL_FORI: fori_counts[KERNEL_FORI]}
 
 
+# ------------------------------------------------------------------------
+# The parallel layer (parallel/): ring attention, sp and tp training, tp
+# serving. The card's machine has one card, and NCCL refuses two ranks on
+# one card, so these phases run their ranks as processes on card 0 over
+# gloo, chosen here by name: the kernels run on the card and every tensor
+# that crosses between ranks goes through pinned host memory
+# (``mesh.staged_bytes``). A time taken so is not a multi-card speed.
+PARALLEL_BACKEND, PARALLEL_DEVICE = "gloo", "cuda:0"
+RING_SEQ, RING_WORLD = 16384, 4  # Llama-3-8B attention widths, 4,096 rows a rank
+# (label, config options, with sinks)
+RING_CASES = (("causal", dict(causal=True), False), ("full", {}, False),
+              ("window 4096", dict(causal=True, window=4096), False),
+              ("sinks", dict(causal=True), True))
+TRAIN_PARALLEL_LAYERS, TRAIN_PARALLEL_SEQ, TRAIN_PARALLEL_STEPS = 2, 4096, 3
+TRAIN_PARALLEL_GAP = 0.01  # a mesh's loss within this of the single rank's
+# A mesh's first-step gradient, per leaf, within this share of the single
+# rank's norm, in its norm and in its product with a fixed random sign
+# tensor (``_grad_stats``). Both sides run bf16 products in different
+# orders; a wrong dp/sp sum or a wrong tp transpose moves one of the two by
+# a large share of the norm (AdamW's first steps, +-lr whatever the
+# gradient's scale, hide such faults from the losses).
+TRAIN_PARALLEL_GRAD_GAP = 0.05
+SERVE_TP_INT8 = dict(layers=4, requests=4, new_tokens=16)
+# A tp token that differs from the single card's may sit this far below the
+# single-card row max at the first difference: the bound of the JAX
+# package's tensor-parallel server test (tests/test_generate.py). Each rank
+# rounds its partial wo and w_down products to bf16 before the sum, and
+# logits of magnitude 8 to 16 lie on a 0.0625 grid (bf16 lm_head products),
+# so a one-ulp tie there already passes SLACK.
+TP_SLACK = 0.1
+
+
+def _spawn(fn, world, *args, timeout=900):
+    from flash_attention_from_scratch_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.empty_cache()  # the ranks share this card
+    return spawn(fn, world, backend=PARALLEL_BACKEND, device=PARALLEL_DEVICE,
+                 timeout=timeout, args=args)
+
+
+def _rank_line(phase, rank, world, staged, counts, **extra) -> None:
+    print(json.dumps({f"{phase}_rank": {
+        "rank": rank, "backend": PARALLEL_BACKEND, "world": world, "device": PARALLEL_DEVICE,
+        "staged_bytes": staged, "launches": counts, **extra}}), flush=True)
+
+
+def _ring_inputs(i):
+    """Case i's global (q, k, v, dO): b 1, 32/8 heads, RING_SEQ, d 128."""
+    gen = torch.Generator(device="cuda").manual_seed(500 + i)
+    q = torch.randn((1, HEADS, RING_SEQ, D), generator=gen, device="cuda")
+    k, v = (torch.randn((1, KV_HEADS, RING_SEQ, D), generator=gen, device="cuda")
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    return [t.bfloat16() for t in (q, k, v, do)]
+
+
+def _ring_sinks():
+    return torch.linspace(-2, 2, HEADS, device="cuda")
+
+
+def ring_rank(rank, world, out_dir):
+    """One rank of the ``ring`` phase: every RING_CASES case forward and
+    backward on its sequence shard, its launches counted per case; its
+    shards of the output and gradients saved for the parent's checks."""
+    import torch.distributed as dist
+
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_sp_mesh
+    from flash_attention_from_scratch_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention)
+
+    mesh = make_sp_mesh(world, device=PARALLEL_DEVICE, backend=PARALLEL_BACKEND)
+    n = RING_SEQ // world
+    counts, wall = {}, {}
+    for i, (label, kw, with_sinks) in enumerate(RING_CASES):
+        q, k, v, do = (t[:, :, rank * n:(rank + 1) * n].contiguous() for t in _ring_inputs(i))
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        z = _ring_sinks().requires_grad_(True) if with_sinks else None
+        dist.barrier()
+        _build.launch_counts.clear()
+        t = time.perf_counter()
+        out = ring_flash_attention(q, k, v, KernelConfig(**kw), mesh, sinks=z)
+        (out * do).sum().backward()
+        sync()
+        wall[label] = time.perf_counter() - t
+        counts[label] = dict(_build.launch_counts)
+        torch.save({"out": out.detach().cpu(), "grads": [t.grad.cpu() for t in leaves],
+                    "dsinks": None if z is None else z.grad.cpu()},
+                   os.path.join(out_dir, f"ring{i}.{rank}.pt"))
+    return {"counts": counts, "wall_s": wall, "staged_bytes": mesh.staged_bytes}
+
+
+def _plain_backward_by_heads(q, k, v, o, lse, do, cfg):
+    """The plain backward one KV head (and its Q heads) at a time: 32
+    heads' fp32 scores at s 16384 would take 34 GB at once."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        flash_backward_plain)
+
+    ratio = q.shape[1] // k.shape[1]
+    parts = [flash_backward_plain(q[:, h * ratio:(h + 1) * ratio], k[:, h:h + 1],
+                                  v[:, h:h + 1], o[:, h * ratio:(h + 1) * ratio],
+                                  lse[:, h * ratio:(h + 1) * ratio],
+                                  do[:, h * ratio:(h + 1) * ratio], cfg)
+             for h in range(k.shape[1])]
+    return [torch.cat([p[i] for p in parts], 1) for i in range(3)]
+
+
+def phase_ring(smi: str, out_dir: str) -> dict:
+    """Ring attention (``parallel/ring_attention.py``) over 4 gloo ranks on
+    this card, at Llama-3-8B attention widths: b 1, 32/8 heads, d 128,
+    global s 16,384 (4,096 a rank), causal, non-causal, a 4,096 window (2
+    hops) and sinks, forward and backward. Each rank's K1/K2/K3 launches
+    must equal its ``launch_plan``. The gathered output is held by the
+    adaptive rule in each 64-row band against single-rank
+    ``flash_attention`` on the whole sequence (bf16) and the plain fp32
+    version (head by head), its gradients by ``_check_grads``, d(sinks) by
+    the rule of ``_backward_sinks_case``. Returns per-rank launches."""
+    from flash_attention_from_scratch_tpu_torch.ops.autodiff import flash_attention
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.parallel.ring_attention import launch_plan
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        adaptive_tolerance_check, row_bands, sliced_tolerance_check)
+
+    t0 = time.perf_counter()
+    ranks = _spawn(ring_rank, RING_WORLD, out_dir)
+    spawn_s = time.perf_counter() - t0
+    n = RING_SEQ // RING_WORLD
+    for rank, r in enumerate(ranks):
+        _rank_line("ring", rank, RING_WORLD, r["staged_bytes"], r["counts"],
+                   wall_s=r["wall_s"])
+        for label, kw, _ in RING_CASES:
+            want = dict(launch_plan(KernelConfig(**kw), RING_WORLD, n, rank))
+            if r["counts"][label] != want:
+                raise AssertionError(f"ring {label} rank {rank}: launches "
+                                     f"{r['counts'][label]}, plan {want}")
+    cases = {}
+    for i, (label, kw, with_sinks) in enumerate(RING_CASES):
+        parts = [torch.load(os.path.join(out_dir, f"ring{i}.{r}.pt"))
+                 for r in range(RING_WORLD)]
+        out = torch.cat([p["out"] for p in parts], 2).cuda()
+        got = [torch.cat([p["grads"][j] for p in parts], 2).cuda() for j in range(3)]
+        del parts[1:]
+        cfg = KernelConfig(**kw)
+        q, k, v, do = _ring_inputs(i)
+        z = _ring_sinks() if with_sinks else None
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        zz = None if z is None else z.clone().requires_grad_(True)
+        whole = flash_attention(*leaves, cfg, zz)
+        (whole * do).sum().backward()
+        ref16 = [t.grad for t in leaves]
+        f32 = [t.float() for t in (q, k, v)]
+        o32, lse32 = _plain_by_heads(*f32, _fp32(cfg), z, group=4)
+        ok, ratio, where = sliced_tolerance_check(row_bands(out), row_bands(whole.detach()),
+                                                  row_bands(o32), lead=3)
+        if not ok or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"ring {label}: output err/bound {ratio:.3f} at {where}")
+        ref32 = _plain_backward_by_heads(*f32, o32, lse32, do.float(), _fp32(cfg))
+        err, grad_ratio = _check_grads(f"ring {label}", got, ref16, ref32)
+        line = {"case": label, "out_worst_err_bound": ratio, "grads_worst_err_bound": grad_ratio,
+                "max_abs_err": max(err, float((out.float() - whole.float()).abs().max()))}
+        if with_sinks:
+            d32 = -(torch.exp(z[None, :, None] - lse32) * (do.float() * o32).sum(-1)).sum((0, 2))
+            zok, kerr, berr = adaptive_tolerance_check(parts[0]["dsinks"].cuda(), zz.grad, d32)
+            if not (zok or kerr <= max(2 * berr, 0.02 * float(d32.abs().max()))):
+                raise AssertionError(f"ring sinks: d(sinks) err {kerr} baseline {berr}")
+            line["dsinks_err"] = kerr
+        print(f"ring_case: {json.dumps(line)}", flush=True)
+        cases[label] = line
+        del out, got, whole, leaves, ref16, ref32, o32, lse32, f32, q, k, v, do
+        torch.cuda.empty_cache()
+    result = {"world": RING_WORLD, "backend": PARALLEL_BACKEND, "seq": RING_SEQ,
+              "shard": n, "heads": f"{HEADS}/{KV_HEADS}", "cases": cases,
+              "staged_bytes": [r["staged_bytes"] for r in ranks],
+              "ring_wall_s": [r["wall_s"] for r in ranks], "spawn_s": spawn_s,
+              "note": "ranks are processes time-sharing one card over gloo: no time "
+                      "here is a multi-card speed", "gpu": smi}
+    print(json.dumps({"ring": result}), flush=True)
+    return {"counts": [r["counts"] for r in ranks]}
+
+
+def _train_tokens():
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128256, (1, TRAIN_PARALLEL_SEQ + 1))).to("cuda")
+
+
+def _train_run(mesh=None) -> dict:
+    """TRAIN_PARALLEL_STEPS AdamW steps of Llama-3-8B's width at
+    TRAIN_PARALLEL_LAYERS layers from seed 0, on ``mesh`` (this rank's
+    shard) or on one rank; the launches counted over the steps."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, init_params, make_optimizer, make_train_step)
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import shard_params
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_PARALLEL_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        torch.cuda.empty_cache()
+    optimizer = make_optimizer(params)
+    grads, stats_s = {}, [0.0]
+
+    def first_grads(*_):  # the first step's gradients, as the optimizer gets them
+        if not grads:
+            t = time.perf_counter()
+            grads.update(_grad_stats(params, mesh))
+            stats_s[0] = time.perf_counter() - t
+
+    optimizer.register_step_pre_hook(first_grads)
+    step = make_train_step(cfg, optimizer, mesh=mesh)
+    tokens = _train_tokens()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    losses, step_s = [], []
+    for _ in range(TRAIN_PARALLEL_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(params, tokens)))
+        sync()
+        step_s.append(time.perf_counter() - t)
+    step_s[0] -= stats_s[0]
+    return {"losses": losses, "step_s": step_s, "counts": dict(_build.launch_counts),
+            "grads": grads, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "staged_bytes": 0 if mesh is None else mesh.staged_bytes}
+
+
+def _grad_stats(params, mesh=None) -> dict:
+    """Each leaf's gradient as two numbers over the whole leaf: its sum of
+    squares, and its product with a fixed random +-1 tensor of the leaf's
+    global shape (seeded by the leaf's place in the tree). A tp rank's
+    shard gives its block's share of both (``"shard": True``; the shares
+    add up over the tp ranks), a replicated leaf the whole."""
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import (
+        MODEL_AXIS, llama_param_specs)
+
+    specs = llama_param_specs(params)
+    named = [(k, params[k], specs[k]) for k in ("embed", "final_norm", "lm_head")]
+    named += [(f"layers.{i}.{k}", v, specs["layers"][i][k])
+              for i, layer in enumerate(params["layers"]) for k, v in layer.items()]
+    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    out = {}
+    for j, (name, p, spec) in enumerate(named):
+        g = p.grad.float()
+        shape, dim = list(g.shape), None
+        if tp > 1 and MODEL_AXIS in spec:
+            dim = spec.index(MODEL_AXIS)
+            shape[dim] *= tp
+        gen = torch.Generator(device="cuda").manual_seed(1000 + j)
+        signs = torch.randint(0, 2, shape, generator=gen, device="cuda", dtype=torch.int8)
+        if dim is not None:
+            signs = signs.narrow(dim, mesh.coord(MODEL_AXIS) * g.shape[dim], g.shape[dim])
+        out[name] = {"sumsq": float(g.square().sum(dtype=torch.float64)),
+                     "proj": float((g * (2 * signs - 1)).sum(dtype=torch.float64)),
+                     "shard": dim is not None}
+        del g, signs
+    return out
+
+
+def _grad_gaps(single: dict, ranks: list) -> dict:
+    """Per leaf, how far a mesh's first-step gradient lies from the single
+    rank's, as shares of the single rank's norm: (|norm difference|,
+    |difference of the products with the random signs|); the mesh's
+    numbers are its tp shards' sums, or rank 0's for a replicated leaf."""
+    gaps = {}
+    for name, want in single.items():
+        got = [r["grads"][name] for r in ranks]
+        whole = {k: sum(x[k] for x in got) if got[0]["shard"] else got[0][k]
+                 for k in ("sumsq", "proj")}
+        norm = math.sqrt(want["sumsq"])
+        gaps[name] = (abs(math.sqrt(whole["sumsq"]) - norm) / norm,
+                      abs(whole["proj"] - want["proj"]) / norm)
+    return gaps
+
+
+def train_rank(rank, world):
+    """The train_parallel runs of one rank: on the sp mesh, then on the tp
+    mesh of the same ranks."""
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_mesh, make_sp_mesh
+
+    kw = dict(device=PARALLEL_DEVICE, backend=PARALLEL_BACKEND)
+    out = {"sp": _train_run(make_sp_mesh(world, **kw))}
+    torch.cuda.empty_cache()
+    out["tp"] = _train_run(make_mesh(1, world, **kw))
+    return out
+
+
+def phase_train_parallel(smi: str) -> dict:
+    """Llama-3-8B's width at 2 layers, batch 1, 4,096 tokens, 3 AdamW steps
+    from seed 0: on one rank, then on an sp 2 mesh (the ring) and a tp 2
+    mesh, in turns. Every loss finite and falling, each mesh's within
+    TRAIN_PARALLEL_GAP of the single rank's at every step (the gap
+    reported), the ranks' losses equal, each mesh's first-step gradient
+    within TRAIN_PARALLEL_GRAD_GAP of the single rank's on every leaf
+    (``_grad_gaps``, the worst reported), and each rank's K1/K2/K3 launches
+    those of its plan: per layer and step, the ring's ``launch_plan`` on
+    sp, one K1 and one K3 on tp."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.parallel.ring_attention import launch_plan
+
+    per_call = TRAIN_PARALLEL_LAYERS * TRAIN_PARALLEL_STEPS
+    single = _train_run()
+    torch.cuda.empty_cache()
+    runs = {"single": single}
+    line = {"model": "LLAMA3_8B", "layers": TRAIN_PARALLEL_LAYERS, "batch": 1,
+            "seq": TRAIN_PARALLEL_SEQ, "steps": TRAIN_PARALLEL_STEPS,
+            "single": {k: single[k] for k in ("losses", "step_s", "counts", "peak_gb")}}
+    both = _spawn(train_rank, 2)
+    for kind in ("sp", "tp"):
+        ranks = [r[kind] for r in both]
+        runs[kind] = ranks
+        for rank, r in enumerate(ranks):
+            _rank_line(f"train_{kind}", rank, 2, r["staged_bytes"], r["counts"],
+                       losses=r["losses"], step_s=r["step_s"], peak_gb=r["peak_gb"])
+            if kind == "sp":
+                plan = launch_plan(KernelConfig(causal=True), 2, TRAIN_PARALLEL_SEQ // 2, rank)
+                want = {name: c * per_call for name, c in plan.items()}
+            else:
+                want = {K1: per_call, KERNEL_DKV: per_call, KERNEL_DQ: per_call}
+            if r["counts"] != want:
+                raise AssertionError(f"train {kind} rank {rank}: launches {r['counts']}, "
+                                     f"plan {want}")
+        losses = ranks[0]["losses"]
+        gaps = [abs(a - b) for a, b in zip(losses, single["losses"])]
+        grad_gaps = _grad_gaps(single["grads"], ranks)
+        worst = {k: max(g[k] for g in grad_gaps.values()) for k in (0, 1)}
+        line[kind] = {"losses": losses, "gap_to_single": gaps,
+                      "grad_norm_gap": worst[0], "grad_proj_gap": worst[1],
+                      "step_s": [r["step_s"] for r in ranks],
+                      "staged_bytes": [r["staged_bytes"] for r in ranks],
+                      "peak_gb": [r["peak_gb"] for r in ranks]}
+        if (any(r["losses"] != losses for r in ranks) or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0] or max(gaps) > TRAIN_PARALLEL_GAP):
+            raise AssertionError(f"train {kind}: losses {[r['losses'] for r in ranks]}, "
+                                 f"single {single['losses']}")
+        if max(worst.values()) > TRAIN_PARALLEL_GRAD_GAP:
+            raise AssertionError(f"train {kind}: first-step gradients off the single "
+                                 f"rank's: {grad_gaps}")
+    if not single["losses"][-1] < single["losses"][0]:
+        raise AssertionError(f"train single: losses {single['losses']} not falling")
+    line.update(backend=PARALLEL_BACKEND, world=2, gpu=smi,
+                note="ranks are processes time-sharing one card over gloo: no time here "
+                     "is a multi-card speed")
+    print(json.dumps({"train_parallel": line}), flush=True)
+    return {kind: [r["counts"] for r in runs[kind]] for kind in ("sp", "tp")}
+
+
+def _tp_server(kind, mesh=None):
+    """The serve_tp phase's server of ``kind``: "bf16" (the serve phase's
+    Llama-3-8B, full depth, seed 0) or "int8" (run A's int8 weights and int8
+    KV at SERVE_TP_INT8's depth), tensor-parallel with ``mesh``."""
+    from flash_attention_from_scratch_tpu_torch import (
+        LLAMA3_8B, GenerationServer, init_params, init_quantized_params)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "bf16":
+        cfg = LLAMA3_8B
+        kw = dict(num_pages=SERVE_PAGES, page_size=SERVE_PAGE_SIZE, max_batch=8,
+                  pages_per_seq=SERVE_PAGES_PER_SEQ)
+        params = init_params(cfg, gen)
+    else:
+        cfg = dataclasses.replace(LLAMA3_8B, n_layers=SERVE_TP_INT8["layers"])
+        per_seq = -(-(QUANT_PROMPT + SERVE_TP_INT8["new_tokens"]) // QUANT_PAGE)
+        kw = dict(num_pages=SERVE_TP_INT8["requests"] * per_seq + 2, page_size=QUANT_PAGE,
+                  max_batch=SERVE_TP_INT8["requests"], pages_per_seq=per_seq, mode="int8")
+        params = init_quantized_params(cfg, gen, "int8")
+    return cfg, kw, GenerationServer(params, cfg, mesh=mesh, **kw)
+
+
+def _tp_prompts(kind, vocab):
+    rng = np.random.default_rng(0)
+    if kind == "bf16":  # the serve phase's
+        return {i: rng.integers(0, vocab, n).tolist() for i, n in enumerate(SERVE_PROMPT_LENS)}
+    return {i: rng.integers(0, vocab, QUANT_PROMPT).tolist()
+            for i in range(SERVE_TP_INT8["requests"])}
+
+
+def serve_tp_rank(rank, world):
+    """The serve_tp runs of one rank, bf16 then int8, each on a tp mesh of
+    its own (its own staged bytes)."""
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for kind in ("bf16", "int8"):
+        mesh = make_mesh(1, world, device=PARALLEL_DEVICE, backend=PARALLEL_BACKEND)
+        cfg, _, server = _tp_server(kind, mesh)
+        torch.cuda.empty_cache()  # the whole weights this rank drew are gone
+        new = SERVE_NEW_TOKENS if kind == "bf16" else SERVE_TP_INT8["new_tokens"]
+        prompts = _tp_prompts(kind, cfg.vocab_size)
+        run = _drive(server, prompts, new)
+        out[kind] = {
+            "tokens": {sid: server.seqs[sid].generated for sid in prompts},
+            "counts": run["counts"], "stats": run["stats"], "nonfinite": run["nonfinite"],
+            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "decode_tokens": run["decode_tokens"], "wall_s": run["wall_s"],
+            "peak_gb": run["peak_mem_gb"], "staged_bytes": mesh.staged_bytes}
+        del server
+        torch.cuda.empty_cache()
+    return out
+
+
+def _first_difference_gaps(kind, single_tokens, tp_tokens, slack_std):
+    """Per request whose tp tokens differ from the single card's, the gap
+    of the tp token at the first difference below the single-card
+    full-recompute row max (``_teacher_forced_gaps``) and the row's
+    standard deviation; every such gap must be a near-tie."""
+    differ = [sid for sid in tp_tokens if tp_tokens[sid] != single_tokens[sid]]
+    if not differ:
+        return {}
+    cfg, _, server = _tp_server(kind)
+    prompts = _tp_prompts(kind, cfg.vocab_size)
+    out = {}
+    for sid in differ:
+        j = next(i for i, (a, b) in enumerate(zip(tp_tokens[sid], single_tokens[sid]))
+                 if a != b)
+        gaps, std = _teacher_forced_gaps(server.params, cfg, prompts[sid],
+                                         tp_tokens[sid][:j + 1])
+        gap = float(gaps[-1])
+        bound = TP_SLACK if slack_std is None else slack_std * float(std[-1])
+        out[sid] = {"first_difference": j, "gap": gap, "bound": bound}
+        if gap > bound:
+            raise AssertionError(f"serve_tp {kind} request {sid}: token {j} differs from the "
+                                 f"single card's and sits {gap} below the row max")
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_tp(smi: str, single_tokens: dict) -> dict:
+    """Tensor-parallel serving over 2 gloo ranks on this card: the serve
+    phase's bf16 Llama-3-8B (full width and depth, 8 GB of weights a rank,
+    its 8 requests, 32 greedy tokens; ``single_tokens`` its tokens), then
+    run A's int8 weights and int8 KV at 4 layers (4 requests of 1,024
+    tokens, 16 new), which hands K6 its column and row shards. Every rank
+    serves the same tokens; where they differ from the single card's, the
+    first difference is a near-tie (TP_SLACK below the single-card row
+    max, or QUANT_SLACK_STD row deviations for int8, whose recompute reads
+    K/V unquantized). Each rank's launches are its plan's: K1 per layer and
+    prompt, K4/K5 and its merge per layer and decode step at 4 KV heads,
+    K6 (7 x layers + 1) per call. Decode tokens/s is two processes
+    time-sharing one card over gloo: not a tp speed."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    counts = {}
+    # The int8 run's single-card tokens, in this process before the ranks.
+    cfg8, kw8, server8 = _tp_server("int8")
+    prompts8 = _tp_prompts("int8", cfg8.vocab_size)
+    _warm_graphs(server8, cfg8.vocab_size, SERVE_TP_INT8["new_tokens"])
+    _drive(server8, prompts8, SERVE_TP_INT8["new_tokens"])
+    single = {"bf16": single_tokens,
+              "int8": {sid: server8.seqs[sid].generated for sid in prompts8}}
+    del server8
+    t0 = time.perf_counter()
+    both = _spawn(serve_tp_rank, 2)
+    spawn_s = time.perf_counter() - t0
+    for kind in ("bf16", "int8"):
+        ranks = [r[kind] for r in both]
+        layers = LLAMA3_8B.n_layers if kind == "bf16" else SERVE_TP_INT8["layers"]
+        kw = (dict(max_batch=8, pages_per_seq=SERVE_PAGES_PER_SEQ, page_size=SERVE_PAGE_SIZE)
+              if kind == "bf16" else dict(max_batch=kw8["max_batch"],
+                                          pages_per_seq=kw8["pages_per_seq"],
+                                          page_size=QUANT_PAGE, mode="int8"))
+        for rank, r in enumerate(ranks):
+            st = r["stats"]
+            want = {K1: layers * len(r["tokens"]), KP: layers * st["decode_steps"]}
+            if kind == "int8":
+                want[KERNELS[("int8", False)]] = (7 * layers + 1) * (
+                    len(r["tokens"]) + st["decode_steps"])
+            want = _with_merges(want, kv_heads=KV_HEADS // 2, **kw)
+            _rank_line(f"serve_tp_{kind}", rank, 2, r["staged_bytes"], r["counts"],
+                       decode_tok_s=r["decode_tokens"] / r["decode_s"], peak_gb=r["peak_gb"])
+            if r["counts"] != want or r["nonfinite"] or st["preemptions"]:
+                raise AssertionError(f"serve_tp {kind} rank {rank}: launches {r['counts']}, "
+                                     f"plan {want}; {r['nonfinite']} non-finite logits, "
+                                     f"{st['preemptions']} preemptions")
+        tokens = ranks[0]["tokens"]
+        if ranks[1]["tokens"] != tokens:
+            raise AssertionError(f"serve_tp {kind}: the ranks served different tokens")
+        gaps = _first_difference_gaps(kind, single[kind], tokens,
+                                      None if kind == "bf16" else QUANT_SLACK_STD)
+        counts[kind] = [x["counts"] for x in ranks]
+        r = ranks[0]
+        line = {
+            "model": "LLAMA3_8B", "layers": layers, "tp": 2, "requests": len(tokens),
+            "equal_to_single_card": sum(tokens[s] == single[kind][s] for s in tokens),
+            "first_differences": gaps,
+            "decode_tok_s": r["decode_tokens"] / r["decode_s"],
+            "prefill_tok_s": r["stats"]["prefill_tokens"] / r["prefill_s"],
+            "wall_s": r["wall_s"], "spawn_s_both_runs": spawn_s,
+            "staged_bytes": [x["staged_bytes"] for x in ranks],
+            "peak_gb": [x["peak_gb"] for x in ranks], "launches": r["counts"],
+            "backend": PARALLEL_BACKEND, "gpu": smi,
+            "note": "gloo on one card, two processes time-sharing it: not a tp speed"}
+        print(json.dumps({f"serve_tp_{kind}": line}), flush=True)
+    return {"counts": counts}
+
+
+def phase_bench_ring(smi: str) -> list:
+    """``tools/bench_ring.py`` as a user runs it, in its own process: the
+    ring's compute side (every Q shard's hop kernels and merges, all shards
+    on this card) against one K1 call, at s 8,192 and 16,384, 2/4/8
+    shards, 32 heads; each ring within 2^-6 of the monolithic output's
+    largest value (two bf16 ulps there: the hops' outputs are rounded to
+    bf16 before the merge)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for seq in (8192, 16384):
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "flash_attention_from_scratch_tpu_torch.tools.bench_ring",
+               "--seq", str(seq), "--shards", "2,4,8", "--heads", str(HEADS), "--iters", "3",
+               "--json"]
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench_ring --seq {seq} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
+        if any(r["max_abs_diff"] > 2.0 ** -6 * r["max_abs_ref"] or not r["ms"] > 0
+               for r in got):
+            raise AssertionError(f"bench_ring --seq {seq}: {got}")
+        rows += got
+    print(json.dumps({"bench_ring": {"rows": rows, "gpu": smi}}), flush=True)
+    return rows
+
+
+# The ring's hop configs at the ring phase's shard (4,096 rows a rank):
+# (label, config options, visible (q, kv) pairs per head).
+_L = RING_SEQ // RING_WORLD
+SHARD_HOPS = (("diagonal causal", dict(causal=True), _L * (_L + 1) // 2),
+              ("plain hop", {}, _L * _L),
+              ("window hop", dict(causal=True, q_offset=_L, window=_L), _L * (_L - 1) // 2))
+# Llama-3-8B's projections as a tp 2 rank holds them, (name, K, N).
+TP_SHAPES = (("wq", 4096, 2048), ("wk", 4096, 512), ("wv", 4096, 512), ("wo", 2048, 4096),
+             ("w_gate", 4096, 7168), ("w_up", 4096, 7168), ("w_down", 7168, 4096),
+             ("lm_head", 4096, 64128))
+
+
+def time_shards() -> dict:
+    """The kernels at the parallel phases' shard shapes, each beside its
+    bound, its plain version and a library call where there is one: K1 at
+    the ring's three hop configs (b 1, 32/8 heads, 4,096 rows a rank;
+    library: SDPA with the hop's mask), K3 on the causal ones and K2 on the
+    plain hop (the backward the ring runs there; library: SDPA's backward
+    with the hop's mask), K4/K5 at serve_tp's first
+    decode step on a rank's 4 KV heads, and K6 on a tp 2 rank's shard of
+    each Llama-3-8B projection at the decode batch (m 8; library: the bf16
+    product on the dequantized weight)."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        _visible, flash_backward, flash_backward_plain, fused_choice)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward, flash_forward_plain, flash_forward_with_lse)
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+
+    out = {"k1": {}, "backward": {}}
+    q, k, v = _cuda_qkv(_L, _L, seed=70)
+    do = _cuda_normal(q.shape, seed=71)
+    io_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    for label, kw, pairs in SHARD_HOPS:
+        cfg = KernelConfig(**kw)
+        mask = _visible(_L, _L, cfg, "cuda") if cfg.causal else None
+        ops = 4 * D * pairs * HEADS
+        out["k1"][label] = {
+            "ms": _time_ms(lambda: flash_forward(q, k, v, cfg)),
+            "plain_ms": _time_ms(lambda: _plain_by_heads(q, k, v, cfg, None), iters=3, warmup=1),
+            "library_ms": _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": 1e3 * max(ops / PEAK_BF16_FLOPS, io_bytes / PEAK_BYTES_PER_S),
+            "bound_by": "operations" if ops / PEAK_BF16_FLOPS > io_bytes / PEAK_BYTES_PER_S
+            else "bytes"}
+        o, lse = flash_forward_with_lse(q, k, v, cfg)
+        kernel = "K2" if fused_choice(None, cfg.causal) else "K3"
+        bops, bbytes = 2.5 * ops, 2 * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        # The library's backward as time_backward's: SDPA with the hop's
+        # mask (K/V repeated to 32 heads), forward + autograd.grad minus the
+        # same forward.
+        qg = q.clone().requires_grad_()
+        kg = k.repeat_interleave(HEADS // KV_HEADS, 1).requires_grad_()
+        vg = v.repeat_interleave(HEADS // KV_HEADS, 1).requires_grad_()
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                                    attn_mask=mask)
+
+        fwd_ms = _time_ms(sdpa)
+        out["backward"][label] = {
+            "kernel": kernel,
+            "ms": _time_ms(lambda: flash_backward(q, k, v, o, lse, do, cfg)),
+            "plain_ms": _time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do, cfg),
+                                 iters=1, warmup=1),
+            "library_ms": _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
+            - fwd_ms,
+            "bound_ms": 1e3 * max(bops / PEAK_BF16_FLOPS, bbytes / PEAK_BYTES_PER_S),
+            "bound_by": "operations"}
+        del o, lse, qg, kg, vg
+    out["shape"] = (f"b 1, {HEADS}/{KV_HEADS} heads, {_L} rows and keys a rank, d {D}, "
+                    "bf16: one hop of the ring phase")
+    del q, k, v, do
+    lengths = [n + 1 for n in SERVE_PROMPT_LENS]
+    kp, vp, lens, tables = make_paged_pool(lengths, SERVE_PAGE_SIZE, SERVE_PAGES, seed=72,
+                                           pages_per_seq=SERVE_PAGES_PER_SEQ)
+    kvh = KV_HEADS // 2
+    kp, vp = kp[:kvh].contiguous(), vp[:kvh].contiguous()
+    qd = _cuda_normal((len(lengths), HEADS // 2, D), seed=73)
+    nbytes = sum(lengths) * kvh * D * 2 * 2 + 2 * qd.numel() * 2
+    out["paged"] = {
+        "ms": _graph_ms(lambda: paged_decode_attention(qd, kp, vp, lens, tables)),
+        "plain_ms": _time_ms(lambda: paged_decode_attention_plain(
+            qd, kp, vp, lens, tables, scale=D ** -0.5), iters=3, warmup=1),
+        "library_ms": None, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+        "shape": f"serve_tp's first decode step on one rank: lengths {lengths}, "
+                 f"{HEADS // 2}/{kvh} heads, page {SERVE_PAGE_SIZE}"}
+    del kp, vp
+    gen = torch.Generator(device="cuda").manual_seed(74)
+    k6 = {}
+    for name, kk, n in TP_SHAPES:
+        wq = _random_qweight(kk, n, "int8", False, gen)
+        x = _cuda_normal((8, kk), seed=75)
+        w16 = wq.dequantize()
+        nb, ops = _shape_work(8, kk, n, wq)
+        k6[name] = {"ms": _graph_ms(lambda: quant_matmul(x, wq)),
+                    "plain_ms": _time_ms(lambda: quant_matmul_plain(x, wq), iters=3, warmup=1),
+                    "library_ms": _graph_ms(lambda: x @ w16),
+                    "bound_ms": 1e3 * max(ops / PEAK_BF16_FLOPS, nb / PEAK_BYTES_PER_S),
+                    "bound_by": "bytes", "k": kk, "n": n}
+        del wq, w16
+    out["k6"] = k6
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_fields(names, ring=None, train=None, serve=None) -> dict:
+    """Each rank's launches of the kernels ``names`` in the parallel phases,
+    for the kernels line: the ring phase (its four cases), train_parallel
+    (by mesh) and serve_tp (by run)."""
+    def total(c):
+        return sum(c.get(n, 0) for n in names)
+
+    out = {}
+    if ring:
+        out["launches_parallel_ring"] = [sum(total(c) for c in rank.values())
+                                         for rank in ring["counts"]]
+    if train:
+        out["launches_parallel_train"] = {k: [total(c) for c in v] for k, v in train.items()}
+    if serve:
+        out["launches_parallel_serve_tp"] = {k: [total(c) for c in v]
+                                             for k, v in serve["counts"].items()}
+    return out
+
+
 def serving_turn() -> None:
     """The serving runs alone, to time this tree against another in one
     call (parent, change, change, parent): bf16 serving (graph cases and
@@ -3977,8 +4655,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    laps, mark = {}, [t0]
+
+    def lap(name):  # the wall time since the last lap, printed as phase_s
+        now = time.perf_counter()
+        laps[name] = now - mark[0]
+        mark[0] = now
+
     smi = phase_device()
     logs = phase_build()
+    lap("device and build")
     ptxas = _ptxas_by_kernel(logs.get("quant_matmul.cu", ""))
     flash_err, flash_ratio = phase_flash_cases()
     fori_err, fori_ratio = phase_fori_cases()
@@ -3989,9 +4675,11 @@ def main(argv=None) -> int:
     qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
     sampled_pick = sampler_case()
+    lap("kernel cases")
     served = phase_serve(smi)
     counts = served["counts"]
     params = served["server"].params
+    single_tokens = {sid: served["server"].seqs[sid].generated for sid in served["prompts"]}
     spec = phase_serve_spec(params, smi)  # the same weights
     del served
     _fuse_in_place(params)
@@ -4000,9 +4688,11 @@ def main(argv=None) -> int:
     prefixed = phase_serve_prefix(params, smi)
     chunk_case = prefill_chunked_case(params)
     lora = phase_serve_lora(params, smi)
+    lap("serve phases (bf16)")
     del params  # frees the 16 GB of weights before the MoE phases and training
     torch.cuda.empty_cache()
     moe_served = phase_serve_moe(smi)
+    lap("serve_moe")
     torch.cuda.empty_cache()
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_files")
     try:
@@ -4012,13 +4702,16 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
+    lap("train_moe, checkpoint, convert")
     trained = phase_train(smi)
+    lap("train")
     torch.cuda.empty_cache()
     quant_runs = {}
     for run in QUANT_RUNS:
         quant_runs[run] = phase_serve_quant(run, smi, graph_check=run in ("A", "B"))
         torch.cuda.empty_cache()
     lora_quant = phase_serve_lora_quant(smi)
+    lap("serve_quant, serve_lora_quant")
     torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
@@ -4026,6 +4719,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_serving_tools(smi)
     phase_entry()
+    lap("tools, entry")
+    torch.cuda.empty_cache()
+    ring_dir = os.path.join(scratch, "ring")
+    os.makedirs(ring_dir, exist_ok=True)
+    try:
+        ring = phase_ring(smi, ring_dir)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap("ring")
+    train_par = phase_train_parallel(smi)
+    lap("train_parallel")
+    serve_tp = phase_serve_tp(smi, single_tokens)
+    lap("serve_tp")
+    phase_bench_ring(smi)
+    lap("bench_ring")
+    shards = time_shards()
+    lap("time_shards")
 
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
@@ -4051,6 +4762,7 @@ def main(argv=None) -> int:
          "launches_train_moe": moe_trained["counts"].get(K1, 0),
          "launches_convert": {r: n.get(K1, 0) for r, n in converted.items()},
          "prefill_chunked_case": chunk_case, "banded_case": banded,
+         **_parallel_fields((K1,), ring, train_par, serve_tp), "shards": shards["k1"],
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
@@ -4069,6 +4781,7 @@ def main(argv=None) -> int:
          "launches_serve_lora_quant": lora_quant["counts"].get(KP, 0),
          "launches_serve_moe": {r: n.get(KP, 0) for r, n in moe_served["counts"].items()},
          "launches_convert": {r: n.get(KP, 0) for r, n in converted.items()},
+         **_parallel_fields((KP,), serve=serve_tp), "shards": shards["paged"],
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
                           "multi_int8c: run F; serve_sample at chunk 1 and 8 (the "
                           "pick in the graphs), serve_prefix; every count by "
@@ -4090,6 +4803,8 @@ def main(argv=None) -> int:
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:278",
          "launches": trained["fused"].get(KERNEL_FUSED, 0),
          "launches_path": paths[not fused_choice(causal=True)],
+         **_parallel_fields((KERNEL_FUSED,), ring, train_par),
+         "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K2"},
          "max_abs_err": backward_err[KERNEL_FUSED], **fused_t},
         {"name": "flash_backward_split", "route": "cuda",
          "source": pkg + "flash_backward.cu",
@@ -4100,6 +4815,8 @@ def main(argv=None) -> int:
          "launches_train_moe": {n: moe_trained["counts"].get(n, 0)
                                 for n in (KERNEL_DKV, KERNEL_DQ)},
          "launches_path": paths[fused_choice(causal=True)],
+         **_parallel_fields((KERNEL_DKV, KERNEL_DQ), ring, train_par),
+         "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K3"},
          "max_abs_err": backward_err["split"], **split_t},
     ]
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
@@ -4121,6 +4838,7 @@ def main(argv=None) -> int:
                                             "quant_matmul.py:247")
             kernels[-1]["launches_serve_lora_quant"] = lora_quant["counts"][name]
             kernels[-1]["launches_convert_int8"] = converted["int8"][name]
+            kernels[-1].update(_parallel_fields((name,), serve=serve_tp), shards=shards["k6"])
     kernels += [
         {"name": KQ, "route": "cuda", "source": pkg + "flash_quant.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",
@@ -4139,6 +4857,8 @@ def main(argv=None) -> int:
          "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]),
          **time_fori(_ptxas_by_kernel(logs.get("flash_forward_fori.cu", "")))},
     ]
+    lap("kernel timing")
+    print(json.dumps({"phase_s": laps}), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,10 +50,12 @@ import torch.nn.functional as F
 from ..ops.flash_forward import flash_forward
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import QMAX, KVQuantMode, div_const, pack_int4, unpack_int4_halves
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import MODEL_AXIS
 from ..utils.device import resolve_device
 from .llama import (
     LlamaConfig, _attention, _embed, _lm_logits, _mlp as _dense_mlp, _q_scale_ratio,
-    _qkv, _residual_tail, apply_rope, rms_norm, rope_inv_freq, rope_tables,
+    _qkv, _residual_tail, apply_rope, local_heads, rms_norm, rope_inv_freq, rope_tables,
 )
 from .lora import lora_delta
 from .moe import _moe_mlp
@@ -61,12 +63,18 @@ from .moe import _moe_mlp
 __all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
            "decode_step", "verify_step", "decode_loop", "spec_accept_sample",
            "greedy_token", "sample_token", "pick_keyed", "sample_noise", "noise_bits",
-           "row_keys", "lora_fn"]
+           "row_keys", "lora_fn", "check_mesh"]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (see ROADMAP.md, Queue 1)")
+def check_mesh(params, mesh, lora=None) -> None:
+    """Serving under a mesh runs tensor parallelism on dense or quantized
+    Llama weights; LoRA adapters and MoE layers under a mesh raise
+    ``NotImplementedError`` (they go with expert parallelism, ROADMAP.md
+    Queue 1 item 6)."""
+    if mesh is not None and (lora is not None or any(
+            "experts" in layer for layer in params["layers"])):
+        raise NotImplementedError("LoRA adapters and MoE layers under a mesh are not "
+                                  "ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
 def lora_fn(lora, li: int, adapter_ids):
@@ -142,7 +150,9 @@ _STORE = {KVQuantMode.INT8: torch.int8, KVQuantMode.INT4: torch.int8,
 
 
 def init_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
-               mode: str = "dense", device="cuda") -> PagedKVCache:
+               mode: str = "dense", device="cuda", mesh=None) -> PagedKVCache:
+    """Zeroed pools (and unit scales); with a tp ``mesh``, this rank's KV
+    heads only (the JAX cache's shard, spec ``P("tp")`` on the head dim)."""
     if mode == "dense":
         store, rows = cfg.dtype.torch_dtype, page_size
     elif mode in _STORE:
@@ -151,7 +161,7 @@ def init_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
     else:
         raise ValueError(f"unknown cache mode {mode!r}")
     dev = resolve_device(device)
-    shape = (cfg.n_kv_heads, num_pages, rows, cfg.d_head)
+    shape = (local_heads(cfg, mesh)[1], num_pages, rows, cfg.d_head)
 
     def pools(make, want=True):
         return [make() for _ in range(cfg.n_layers)] if want else []
@@ -244,20 +254,21 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     int runs the prompt through that adapter (-1: the base model). Writes
     the pages in place and returns (logits (vocab,) fp32, cache). A config
     with attention sinks raises ``ValueError`` (:func:`check_no_sinks`).
+    With a tp ``mesh`` every rank runs the prompt on its heads and its
+    cache (``init_cache(..., mesh=)``), and gets the whole logits row.
     """
     check_no_sinks(cfg)
-    if mesh is not None:
-        raise _not_ported("tensor-parallel serving")
+    check_mesh(params, mesh, lora)
     s = tokens.shape[1]
     prompt_len = prompt_len or s
-    x = _embed(params, tokens, cfg)  # (1, s, dim)
+    x = all_gather(_embed(params, tokens, cfg), mesh, MODEL_AXIS, -1)  # (1, s, dim)
     cos, sin = rope_tables(s, cfg.d_head, cfg.rope_theta, cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         adapt = lora_fn(lora, li, adapter_ids)
-        out, k, v = _attention(layer, h, cfg, cos, sin, li, adapt)
+        out, k, v = _attention(layer, h, cfg, cos, sin, li, adapt, mesh)
         x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out),
-                           mlp=_mlp)
+                           mlp=_mlp, mesh=mesh)
         # Only rows [0, prompt_len) go to pages. Causality keeps them
         # independent of the padding rows in a dense model; in a MoE model
         # the padding tokens route too and claim expert slots (a padding
@@ -266,7 +277,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
         _write_prompt_layer(cache, li, k[0, :, :prompt_len],
                             v[0, :, :prompt_len], page_table, prompt_len)
     x = rms_norm(x[:, prompt_len - 1], params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x, cfg)[0], cache
+    return _lm_logits(params, x, cfg, mesh)[0], cache
 
 
 def _gather_prefix(cache: PagedKVCache, li: int, page_table, start: int,
@@ -400,6 +411,11 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
         adapter id, (batch,) int (-1: the base model).
       attn_int8: int8-compute attention (``int8_compute`` in the paged
         kernel); the cache must be int8.
+      mesh: tensor parallelism (``parallel.mesh.make_mesh(1, tp)``): each
+        rank holds its shard of ``params`` and of the cache's KV heads, runs
+        the paged kernel on its Q heads, sums the residual over tp after
+        ``wo`` and ``w_down`` and gathers the logits over the vocab, so
+        every rank picks the same token.
 
     Each token's K/V is written to its page before attention, so the paged
     kernel sees the current token. Writes the pages in place and returns
@@ -510,13 +526,13 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
     (batch, t) at positions lengths - t + j; ``lora`` with one adapter id a
     row."""
     check_no_sinks(cfg)
-    if mesh is not None:
-        raise _not_ported("tensor-parallel serving")
+    check_mesh(params, mesh, lora)
     if attn_int8 and cache.mode != KVQuantMode.INT8:
         raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
     batch, t = tokens.shape
     ps = cache.page_size
-    x = _embed(params, tokens, cfg)  # (batch, t, dim)
+    hq, hkv = local_heads(cfg, mesh)
+    x = all_gather(_embed(params, tokens, cfg), mesh, MODEL_AXIS, -1)  # (batch, t, dim)
     pos = (lengths.long()[:, None] - t
            + torch.arange(t, device=x.device)[None, :])  # (batch, t)
 
@@ -535,11 +551,11 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
         adapt = lora_fn(lora, li, adapter_ids)
         if adapt is not None:
             q, k, v = q + adapt("wq", h), k + adapt("wk", h), v + adapt("wv", h)
-        q = apply_rope(q.view(batch, t, cfg.n_heads, cfg.d_head).transpose(1, 2),
+        q = apply_rope(q.view(batch, t, hq, cfg.d_head).transpose(1, 2),
                        cos, sin)  # (b, H, t, d)
-        k = apply_rope(k.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
+        k = apply_rope(k.view(batch, t, hkv, cfg.d_head).transpose(1, 2),
                        cos, sin)  # (b, kv_heads, t, d)
-        v = v.view(batch, t, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+        v = v.view(batch, t, hkv, cfg.d_head).transpose(1, 2)
         # Write before attend: the new tokens must be in their pages.
         _write_rows(cache, li, k, v, page_of, slot_of, first_page)
         ks, vs = cache.layer_scales(li)
@@ -549,13 +565,13 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
             mode=cache.mode, k_scales=ks, v_scales=vs, int8_compute=attn_int8,
             window=cfg.layer_window(li),
             softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
-        out = out.view(batch, cfg.n_heads, t, cfg.d_head).transpose(1, 2)
-        out = out.reshape(batch, t, cfg.n_heads * cfg.d_head).to(x.dtype)
+        out = out.view(batch, hq, t, cfg.d_head).transpose(1, 2)
+        out = out.reshape(batch, t, hq * cfg.d_head).to(x.dtype)
         x = _residual_tail(cfg, layer, x, out, None if adapt is None else adapt("wo", out),
-                           mlp=_mlp)
+                           mlp=_mlp, mesh=mesh)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x, cfg), cache
+    return _lm_logits(params, x, cfg, mesh), cache
 
 
 def _write_rows(cache: PagedKVCache, li: int, k, v, page_of, slot_of,

@@ -28,12 +28,18 @@ from ..ops.flash_forward import flash_forward
 from ..ops.quant_matmul import (
     QuantizedWeight, concat_weights, quant_matmul, quantize_weight,
 )
+from ..parallel.collectives import (
+    all_gather, copy_to, reduce_from, vocab_parallel_cross_entropy,
+)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from ..parallel.ring_attention import ring_flash_attention
+from ..parallel.sharded_attention import shard_mapped_attention
 from ..utils.device import resolve_device
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA31_8B", "MISTRAL_7B",
            "init_params", "params_from_jax", "forward", "loss_fn", "rms_norm",
            "rope_inv_freq", "rope_tables", "apply_rope", "quantize_params",
-           "init_quantized_params", "fuse_projections"]
+           "init_quantized_params", "fuse_projections", "local_heads", "local_rows"]
 
 
 def _mm(x, w):
@@ -362,11 +368,13 @@ def fuse_projections(params) -> dict:
 
 def _qkv(layer, x, cfg: LlamaConfig):
     """x -> (q, k, v) rows, through the fused weight when present, plus the
-    Qwen2-style biases when present (unfused only)."""
+    Qwen2-style biases when present (unfused only). The fused weight's q
+    part is as wide as ``wo``'s input, which holds for a tp rank's shard
+    (``[wq_r | wk_r | wv_r]``, ``parallel.mesh.shard_params``) too."""
     if "wqkv" in layer:
         qkv = _mm(x, layer["wqkv"])
-        q_dim = cfg.n_heads * cfg.d_head
-        kv_dim = cfg.n_kv_heads * cfg.d_head
+        q_dim = layer["wo"].shape[0]
+        kv_dim = (qkv.shape[-1] - q_dim) // 2
         return (qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim],
                 qkv[..., q_dim + kv_dim:])
     q, k, v = _mm(x, layer["wq"]), _mm(x, layer["wk"]), _mm(x, layer["wv"])
@@ -380,8 +388,20 @@ def _q_scale_ratio(cfg: LlamaConfig) -> float:
     return (cfg.attn_scale * math.sqrt(cfg.d_head)) if cfg.attn_scale else 1.0
 
 
-def _o_proj(layer, out):
-    y = _mm(out, layer["wo"])
+def local_heads(cfg: LlamaConfig, mesh=None) -> tuple[int, int]:
+    """(Q heads, KV heads) of one rank: tp splits both, so each rank keeps
+    whole GQA groups (``ValueError`` where tp divides either not)."""
+    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads} and "
+                         f"n_kv_heads={cfg.n_kv_heads}")
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+
+def _o_proj(layer, out, mesh=None):
+    """The row-parallel output projection: its partial products summed over
+    tp (JAX's ``pin_residual``), then the replicated bias."""
+    y = reduce_from(_mm(out, layer["wo"]), mesh)
     return y + layer["bo"] if "bo" in layer else y
 
 
@@ -399,77 +419,107 @@ def _mlp(layer, x, cfg: LlamaConfig):
     return _mm(gate.to(x.dtype) * up, layer["w_down"])
 
 
-def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int, adapt=None):
+def _attention(layer, x, cfg: LlamaConfig, cos, sin, li: int, adapt=None, mesh=None):
     """Causal attention of layer ``li`` over x (b, s, dim).
 
-    Returns (output before wo (b, s, n_heads * d_head), k, v), with k and v
+    Returns (output before wo (b, s, heads * d_head), k, v), with k and v
     (b, kv_heads, s, d_head) after RoPE: prefill writes them to pages. When
     autograd needs the gradient (grad enabled and an input requires it) the
     attention is :func:`flash_attention` (forward and backward kernels);
     otherwise the forward kernel alone. ``adapt(name, x)`` (serving with
     LoRA adapters, ``models/decode.py::lora_fn``) adds each projection's
-    delta to q, k and v before RoPE.
+    delta to q, k and v before RoPE. With ``mesh``: the rank's heads (tp),
+    its sequence shard with the ring over ``sp`` (every row's RoPE position
+    in ``cos``/``sin``), and :func:`shard_mapped_attention` for the
+    gradient otherwise.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(layer, x, cfg)
+    hq, hkv = local_heads(cfg, mesh)
+    q, k, v = _qkv(layer, copy_to(x, mesh), cfg)
     if adapt is not None:
         q, k, v = q + adapt("wq", x), k + adapt("wk", x), v + adapt("wv", x)
-    q = q.view(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    k = k.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = v.view(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    q = q.view(b, s, hq, cfg.d_head).transpose(1, 2)
+    k = k.view(b, s, hkv, cfg.d_head).transpose(1, 2)
+    v = v.view(b, s, hkv, cfg.d_head).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cfg.attn_scale:
         q = (q.float() * _q_scale_ratio(cfg)).to(q.dtype)
     sinks = layer.get("attn_sinks")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, sinks)):
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, sinks))
+    if mesh is not None and SEQ_AXIS in mesh.axis_names:
+        out = ring_flash_attention(q, k, v, cfg.attn_config(li), mesh, sinks=sinks)
+    elif grad and mesh is not None:
+        out = shard_mapped_attention(q, k, v, cfg.attn_config(li), mesh, sinks)
+    elif grad:
         out = flash_attention(q, k, v, cfg.attn_config(li), sinks)
     else:
         out = flash_forward(q, k, v, cfg.attn_config(li), sinks=sinks)
-    return out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head), k, v
+    return out.transpose(1, 2).reshape(b, s, hq * cfg.d_head), k, v
 
 
 def _embed(params, tokens, cfg: LlamaConfig):
+    """The embedding rows (a tp rank's slice of the model dim: its callers
+    gather them, ``all_gather(..., MODEL_AXIS, -1)``)."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
     return x
 
 
-def _lm_logits(params, h, cfg: LlamaConfig):
-    """The lm_head product in the model dtype, then fp32 logits."""
-    logits = _mm(h, params["lm_head"]).float()
+def _lm_logits(params, h, cfg: LlamaConfig, mesh=None, gather: bool = True):
+    """The lm_head product in the model dtype, then fp32 logits; a tp rank
+    computes its vocab slice, and the slices are gathered unless
+    ``gather`` is False."""
+    logits = _mm(copy_to(h, mesh), params["lm_head"]).float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    return all_gather(logits, mesh, MODEL_AXIS, -1) if gather else logits
 
 
-def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None, mlp=_mlp):
+def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None, mlp=_mlp, mesh=None):
     """Attention-output projection + MLP, with optional sandwich norms.
     ``o_extra`` adds to the output projection before the norm (the per-row
     LoRA delta of wo). ``mlp(layer, h, cfg)``: the dense MLP, or the
     serving path's, which routes a layer with experts
-    (``models/decode.py::_mlp``)."""
-    h = _o_proj(layer, out)
+    (``models/decode.py::_mlp``). With a tp ``mesh`` both row-parallel
+    products are summed over tp."""
+    h = _o_proj(layer, out, mesh)
     if o_extra is not None:
         h = h + o_extra
     if cfg.post_norms:
         h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
     x = x + h
-    h = mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), cfg)
+    h = reduce_from(mlp(layer, copy_to(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), mesh),
+                        cfg), mesh)
     if cfg.post_norms:
         h = rms_norm(h, layer["mlp_post_norm"], cfg.norm_eps)
     return x + h
 
 
-def _layer(layer, x, cfg: LlamaConfig, cos, sin, li: int):
+def _layer(layer, x, cfg: LlamaConfig, cos, sin, li: int, mesh=None):
     out, _, _ = _attention(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                           cfg, cos, sin, li)
-    return _residual_tail(cfg, layer, x, out)
+                           cfg, cos, sin, li, mesh=mesh)
+    return _residual_tail(cfg, layer, x, out, mesh=mesh)
 
 
-def forward(params, tokens, cfg: LlamaConfig, remat: bool = False):
+def local_rows(x, mesh=None):
+    """This rank's block of a (batch, seq, ...) tensor: the batch split over
+    dp, the sequence over sp (the JAX specs ``P("dp", "sp")``)."""
+    if mesh is None:
+        return x
+    for dim, axis in ((0, DATA_AXIS), (1, SEQ_AXIS)):
+        n = x.shape[dim] // mesh.size(axis)
+        if n * mesh.size(axis) != x.shape[dim]:
+            raise ValueError(f"{axis}={mesh.size(axis)} must divide dim {dim} of "
+                             f"{tuple(x.shape)}")
+        x = x.narrow(dim, mesh.coord(axis) * n, n)
+    return x
+
+
+def forward(params, tokens, cfg: LlamaConfig, remat: bool = False, mesh=None,
+            gather: bool = True):
     """tokens (batch, seq) int -> logits (batch, seq, vocab) fp32.
 
     The full-recompute oracle of the serving path and the training forward.
@@ -478,26 +528,44 @@ def forward(params, tokens, cfg: LlamaConfig, remat: bool = False):
     layer (``torch.utils.checkpoint``): the backward recomputes a layer's
     activations instead of keeping them, one more forward for
     O(seq * hidden) instead of O(layers * seq * hidden) saved memory.
+
+    ``mesh`` (``parallel.mesh``): every rank passes the same global
+    ``tokens`` and its shard of the parameters (``shard_params``), and gets
+    its block of the logits, (batch / dp, seq / sp, vocab): the batch split
+    over dp, the sequence over sp (the ring, each shard's RoPE positions
+    its own), the heads and hidden columns over tp with the residual summed
+    after ``wo`` and ``w_down`` and the vocab gathered (each rank's vocab
+    slice alone with ``gather=False``).
     """
-    x = _embed(params, tokens, cfg)
-    cos, sin = rope_tables(tokens.shape[1], cfg.d_head, cfg.rope_theta, cfg,
-                           device=x.device)
+    s = tokens.shape[1]
+    tokens = local_rows(tokens, mesh)
+    x = all_gather(_embed(params, tokens, cfg), mesh, MODEL_AXIS, -1)
+    cos, sin = rope_tables(s, cfg.d_head, cfg.rope_theta, cfg, device=x.device)
+    if mesh is not None:
+        n = tokens.shape[1]
+        cos, sin = (t[mesh.coord(SEQ_AXIS) * n:][:n] for t in (cos, sin))
     for li, layer in enumerate(params["layers"]):
         if remat:
-            x = checkpoint(_layer, layer, x, cfg, cos, sin, li,
+            x = checkpoint(_layer, layer, x, cfg, cos, sin, li, mesh,
                            use_reentrant=False)
         else:
-            x = _layer(layer, x, cfg, cos, sin, li)
+            x = _layer(layer, x, cfg, cos, sin, li, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x, cfg)
+    return _lm_logits(params, x, cfg, mesh, gather)
 
 
-def loss_fn(params, tokens, cfg: LlamaConfig, remat: bool = False):
+def loss_fn(params, tokens, cfg: LlamaConfig, remat: bool = False, mesh=None):
     """Next-token cross-entropy, the mean over all positions (fp32).
 
     ``tokens`` (batch, seq + 1): the model reads the first ``seq`` and
     predicts the last ``seq``. Quantized parameters do not train (nor does
-    the JAX package train them): they raise ``NotImplementedError``.
+    the JAX package train them): they raise ``NotImplementedError``. With
+    ``mesh`` every rank returns the global mean: its rows' sum of losses,
+    summed over dp and sp, over the global count (the gradient of each
+    rank's part passes through the sum unchanged, so each rank's gradients
+    are its rows' share, which ``make_train_step`` sums). Over tp the
+    logits stay split by vocabulary
+    (``parallel.collectives.vocab_parallel_cross_entropy``).
     """
     if any(isinstance(w, QuantizedWeight)
            for w in [params["lm_head"]] + [v for layer in params["layers"]
@@ -505,7 +573,12 @@ def loss_fn(params, tokens, cfg: LlamaConfig, remat: bool = False):
         raise NotImplementedError(
             "training with quantized weights: neither package trains a "
             "QuantizedWeight")
-    logits = forward(params, tokens[:, :-1], cfg, remat=remat)
+    logits = forward(params, tokens[:, :-1], cfg, remat=remat, mesh=mesh, gather=False)
     targets = tokens[:, 1:]
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           targets.reshape(-1))
+    if mesh is None:
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+    nll = vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                       local_rows(targets, mesh).reshape(-1), mesh).sum()
+    for axis in (DATA_AXIS, SEQ_AXIS):
+        nll = reduce_from(nll, mesh, axis)
+    return nll / targets.numel()

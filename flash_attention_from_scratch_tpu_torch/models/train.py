@@ -1,18 +1,21 @@
 """Training step: AdamW over the Llama loss.
 
-Counterpart of ``flash_attention_from_scratch_tpu/models/train.py`` without
-a mesh. The JAX step is a pure function of (params, opt_state, tokens); here
-the optimizer owns its state and updates the parameter tensors in place,
-which keeps one copy of the weights on the card.
+Counterpart of ``flash_attention_from_scratch_tpu/models/train.py``. The
+JAX step is a pure function of (params, opt_state, tokens); here the
+optimizer owns its state and updates the parameter tensors in place, which
+keeps one copy of the weights on the card. Under a mesh each rank steps its
+own shard of the parameters (``parallel.mesh.shard_params``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import reduce_from
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS
 from .llama import LlamaConfig, loss_fn
 
-__all__ = ["make_optimizer", "make_train_step", "param_leaves"]
+__all__ = ["make_optimizer", "make_train_step", "param_leaves", "sum_data_gradients"]
 
 
 def param_leaves(params):
@@ -43,21 +46,48 @@ def make_optimizer(params, lr: float = 3e-4,
                              weight_decay=weight_decay)
 
 
+def sum_data_gradients(params, mesh) -> None:
+    """Sum each gradient over the data axes (dp, sp), in place.
+
+    Under a mesh every rank's gradients are its rows' share of the global
+    loss's; summed over the ranks that hold other rows of the same shard,
+    each is the whole gradient of that shard, the same on all of them, as
+    JAX's ``jax.grad`` of the sharded loss. The attention sums the sinks'
+    gradient over its own axis already (the ring over sp,
+    ``shard_mapped_attention`` over dp, as JAX's psum and ``shard_map``
+    transpose do), so they skip that axis.
+    """
+    sink_axis = SEQ_AXIS if SEQ_AXIS in mesh.axis_names else DATA_AXIS
+    named = [(k, params[k]) for k in params if k != "layers"]
+    named += [kv for layer in params["layers"] for kv in layer.items()]
+    for axis in (DATA_AXIS, SEQ_AXIS):
+        if mesh.size(axis) == 1:
+            continue
+        for key, p in named:
+            if p.grad is not None and not (key == "attn_sinks" and axis == sink_axis):
+                p.grad.copy_(reduce_from(p.grad, mesh, axis))
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
-                    remat: bool = False):
+                    remat: bool = False, mesh=None):
     """Returns ``step(params, tokens) -> loss``, the loss before the update.
 
     ``params`` must be the tree ``optimizer`` was made over; ``tokens``
     (batch, seq + 1). ``remat=True`` checkpoints each layer. The model's
     causal attention backward runs the split kernels (K3), the faster on
     the card, whose sums have a fixed order
-    (``ops/flash_backward.py::fused_choice``).
+    (``ops/flash_backward.py::fused_choice``). With ``mesh`` every rank
+    passes the same global ``tokens`` and its parameter shard: the loss is
+    the global mean, the gradients are summed over dp and sp
+    (:func:`sum_data_gradients`), and each rank's AdamW updates its shard.
     """
 
     def step(params, tokens):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg, remat=remat)
+        loss = loss_fn(params, tokens, cfg, remat=remat, mesh=mesh)
         loss.backward()
+        if mesh is not None:
+            sum_data_gradients(params, mesh)
         optimizer.step()
         return loss.detach()
 

@@ -27,6 +27,14 @@ On the card every decode step, verify step and decode loop is a CUDA-graph
 replay (``models.step_graphs.StepGraphs``, the counterpart of the JAX
 server's jitted steps); on the CPU (``device="cpu"``) they run eagerly.
 
+With ``mesh`` (a tp mesh, ``parallel.mesh.make_mesh(1, tp)``) the server
+runs SPMD, as the JAX one does: every rank builds it on the same global
+parameters (each keeps its shard) and submits the same requests, and the
+deterministic scheduler keeps the ranks in step; each rank's cache holds
+its KV heads, and every rank picks the same tokens from the gathered
+logits. Under a mesh the steps run eagerly: a CUDA graph cannot capture a
+gloo collective (NCCL collectives in the step graphs are ROADMAP work).
+
 Sampled tokens are keyed on (seed, sequence id, position = the token's
 index in the generation), as in the JAX server: a preempted sequence
 replays its draws, and a token does not depend on the path that drew it
@@ -51,12 +59,13 @@ import numpy as np
 import torch
 
 from ..models.decode import (
-    _step, check_no_sinks, decode_loop, init_cache, pick_keyed, prefill,
+    _step, check_mesh, check_no_sinks, decode_loop, init_cache, pick_keyed, prefill,
     prefill_chunked, row_keys,
 )
 from ..models.llama import LlamaConfig
 from ..models.lora import n_adapters
 from ..models.step_graphs import StepGraphs
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, shard_params
 from ..utils.device import resolve_device
 from .runtime import PagedEngine
 
@@ -140,12 +149,16 @@ class GenerationServer:
     chosen a request by ``submit(..., adapter=)``; with ``spec_k``,
     ``prefill_chunk_tokens``, ``prefix_cache`` or ``mesh`` it raises
     ``ValueError``, as in the JAX server (chunked prefill takes no
-    adapters). ``mesh`` is not ported yet and raises
-    ``NotImplementedError``. A config with attention sinks, and the checks
-    of the JAX server on ``chunk``, ``spec_k``, ``prefill_chunk_tokens``
-    and ``prefix_cache`` with ``mesh``, raise ``ValueError``. On the card
-    ``graphs`` is the server's :class:`~..models.step_graphs.StepGraphs`
-    (None on the CPU).
+    adapters). ``mesh``: tensor-parallel serving (see the module
+    docstring); ``params`` are the global tree, sharded here
+    (``parallel.mesh.shard_params``), and the server runs on the mesh's
+    device. MoE params under a mesh raise ``NotImplementedError``. A config
+    with attention sinks, and the checks of the JAX server on ``chunk``,
+    ``spec_k``, ``prefill_chunk_tokens`` and ``prefix_cache`` with
+    ``mesh``, on tp dividing ``n_kv_heads`` and on dp = 1, raise
+    ``ValueError``. On the card without a mesh ``graphs`` is the server's
+    :class:`~..models.step_graphs.StepGraphs` (None on the CPU and under a
+    mesh).
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, num_pages: int,
@@ -190,8 +203,19 @@ class GenerationServer:
             raise ValueError("multi-LoRA serving supports stepwise and chunked decode "
                              "only (no spec_k/chunked-prefill/prefix_cache/mesh)")
         if mesh is not None:
-            raise NotImplementedError("mesh (tensor-parallel serving) is not ported yet "
-                                      "(see ROADMAP.md, Queue 1)")
+            check_mesh(params, mesh)
+            tp = mesh.size(MODEL_AXIS)
+            if cfg.n_kv_heads % tp:
+                raise ValueError(
+                    f"tensor-parallel serving shards KV heads over {MODEL_AXIS}={tp}, but "
+                    f"n_kv_heads={cfg.n_kv_heads} is not divisible")
+            if mesh.size(DATA_AXIS) > 1 or SEQ_AXIS in mesh.axis_names:
+                raise ValueError(f"serving mesh must have {DATA_AXIS}=1 and no "
+                                 f"{SEQ_AXIS} axis (prefill is single-prompt); got "
+                                 f"{mesh.shape}")
+            params = shard_params(params, mesh)
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -204,14 +228,14 @@ class GenerationServer:
         self.scratch_page = num_pages - 1  # never handed out by the engine
         self.max_batch = max_batch
         self.page_size = page_size
-        self.cache = init_cache(cfg, num_pages, page_size, mode, self.device)
+        self.cache = init_cache(cfg, num_pages, page_size, mode, self.device, mesh)
         self.attn_int8 = attn_int8
         self.temperature, self.top_k, self.seed = temperature, top_k, seed
         self.lora = lora
         self.n_adapters = n_adapters(lora)
         self.graphs = (StepGraphs(params, cfg, self.cache, attn_int8=attn_int8,
                                   temperature=temperature, top_k=top_k, lora=lora)
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda" and mesh is None else None)
         self.chunk = chunk
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.spec_k = spec_k
@@ -322,7 +346,8 @@ class GenerationServer:
                         (1,), st.adapter, dtype=torch.int64, device=self.device))
                     logits, self.cache = prefill(
                         self.params, tokens, self.cfg, self.cache, table,
-                        prompt_len=len(st.prompt), lora=self.lora, adapter_ids=ids)
+                        prompt_len=len(st.prompt), lora=self.lora, adapter_ids=ids,
+                        mesh=self.mesh)
                 self.prefill_tokens += len(st.prompt)
                 # Key and position made on the device: a copy from the host
                 # would wait for this prefill before the next one launches.
@@ -450,8 +475,11 @@ class GenerationServer:
         if self.graphs is not None:
             return self.graphs.pick_step(tokens, lengths, tables, draft_lens, keys, pos0,
                                          ids)
+        # Eager: on the CPU, or on the card under a mesh.
+        tokens, lengths, tables, keys, pos0 = (
+            a.to(self.device) for a in (tokens, lengths, tables, keys, pos0))
         logits, self.cache = _step(self.params, tokens, self.cfg, self.cache, lengths,
-                                   tables, self.lora, None, self.attn_int8, ids)
+                                   tables, self.lora, self.mesh, self.attn_int8, ids)
         return pick_keyed(logits, tokens[:, 1:], draft_lens, keys, pos0,
                           self.temperature, self.top_k)
 
@@ -526,10 +554,12 @@ class GenerationServer:
             out, _ = self.graphs.decode_loop(tokens, lengths, tables, n, row_keys=keys,
                                              pos0=pos0, adapter_ids=ids)
         else:
+            tokens, lengths, tables, keys, pos0 = (
+                a.to(self.device) for a in (tokens, lengths, tables, keys, pos0))
             out, self.cache, _ = decode_loop(
                 self.params, tokens, self.cfg, self.cache, lengths, tables, n,
                 row_keys=keys, pos0=pos0, temperature=self.temperature,
-                top_k=self.top_k, attn_int8=self.attn_int8, lora=self.lora,
+                top_k=self.top_k, mesh=self.mesh, attn_int8=self.attn_int8, lora=self.lora,
                 adapter_ids=ids)
         self.decode_loops += 1
         self.decode_steps += n

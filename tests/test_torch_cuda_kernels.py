@@ -1515,3 +1515,50 @@ def test_load_hf_checkpoint_onto_the_card(cuda, tmp_path):
     got, _ = convert.load_hf_checkpoint(str(tmp_path), cfg, device=cuda)
     for a, b in zip(train.param_leaves(got), train.param_leaves(params)):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+# The ring's windowed hops (``parallel/ring_attention.py::_hop_cfg``): seq_q
+# == seq_kv == the shard length L at q_offset = t * L with the window, so the
+# kernels align rows top-left plus the offset with no prefix of keys before
+# the diagonal (before the ring only chunked prefill's seq_kv = seq_q +
+# q_offset). (L, q_offset, window); a window of L leaves the last row
+# without a key.
+RING_HOP_CASES = [(256, 256, 256), (256, 256, 300), (256, 512, 600), (512, 512, 700),
+                  (128, 128, 100)]
+
+
+@pytest.mark.parametrize("shard,offset,window", RING_HOP_CASES)
+def test_ring_hop_kernels_match_plain(cuda, shard, offset, window):
+    """K1 (with sinks and the LSE) and K3 and K2 at a ring hop's config
+    against their plain versions; the backward on the sink-inclusive LSE,
+    finite on every row, as the ring's global LSE is."""
+    cfg = KernelConfig(causal=True, q_offset=offset, window=window)
+    check_flash_kernel(cuda, shard, cfg, FLASH, seq_kv=shard)
+    q, k, v, do = _backward_inputs(cuda, shard, shard, 8, 2, cfg, seed=12)
+    o, lse = flash_forward_with_lse(q, k, v, cfg, sinks=torch.linspace(-2, 2, 8, device=cuda))
+    for fused in (False, True):
+        got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+        torch.cuda.synchronize()
+        _check_backward(got, q, k, v, o, lse, do, cfg, (shard, offset, window, fused))
+
+
+def test_ring_on_the_card_over_gloo(cuda):
+    """Two gloo ranks on card 0: ppermute moves a CUDA tensor through pinned
+    host memory (4 KiB each way counted) and returns it on the card; the
+    causal ring (1024 tokens, 8/2 heads) gives single-device
+    ``flash_attention``'s output and gradients within 2^-6 of their largest
+    value, two bf16 ulps there (the ring rounds its partials before the
+    merge and runs K2 on the plain hop), on the kernels its rank's
+    ``launch_plan`` states."""
+    import torch_parallel_ranks as ranks
+    from flash_attention_from_scratch_tpu_torch.parallel.launch import spawn
+    from flash_attention_from_scratch_tpu_torch.parallel.ring_attention import launch_plan
+
+    _build.load(FLASH_SOURCE)  # built once here, not by each rank
+    _build.load(BACKWARD_SOURCE)
+    got = spawn(ranks.cuda_ring, 2, backend="gloo", device="cuda:0", timeout=300)
+    for rank, r in enumerate(got):
+        assert torch.equal(r["moved"], torch.full((1024,), float(1 - rank)))
+        assert r["device"] == "cuda" and r["staged"] == 2 * 4096
+        assert r["launches"] == dict(launch_plan(KernelConfig(causal=True), 2, 512, rank))
+        assert all(d <= 2.0 ** -6 * scale for d, scale in r["diffs"]), r["diffs"]

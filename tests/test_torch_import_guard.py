@@ -27,7 +27,11 @@ for name in names:
     importlib.import_module(name)
 need = {pkg.__name__ + "." + m for m in ("models.lora", "ops.causal_decomp", "entry",
                                          "models.moe", "models.convert",
-                                         "utils.checkpoint")}
+                                         "utils.checkpoint", "parallel.mesh",
+                                         "parallel.collectives",
+                                         "parallel.sharded_attention",
+                                         "parallel.ring_attention", "parallel.launch",
+                                         "tools.bench_ring")}
 assert need <= set(names), need - set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -217,10 +217,12 @@ def test_attn_int8_needs_an_int8_cache(mode):
     dict(temperature=0.7), dict(prefix_cache=True), dict(lora={}),
     dict(mesh=object()), dict(top_k=5)])
 def test_server_unported_options_raise(jax_params, option):
-    """``mesh`` is not ported and raises. ``temperature``, ``prefix_cache``,
-    ``top_k`` and ``lora`` (since the multi-LoRA slice: here two adapters
-    of zero B, every request on the base model) are: each serves every
-    request all its tokens, in-vocabulary."""
+    """``mesh`` with MoE params is not ported (expert parallelism) and
+    raises; tensor-parallel serving itself is tested against the JAX
+    package in ``tests/test_torch_sharded_decode.py``. ``temperature``,
+    ``prefix_cache``, ``top_k`` and ``lora`` (here two adapters of zero B,
+    every request on the base model) are: each serves every request all its
+    tokens, in-vocabulary."""
     if "lora" in option:
         from flash_attention_from_scratch_tpu_torch.models.lora import init_lora_adapters
 
@@ -228,8 +230,9 @@ def test_server_unported_options_raise(jax_params, option):
                                               device="cpu"))
     if "mesh" in option:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GenerationServer({"embed": torch.zeros((4, 4))}, CFG, num_pages=8,
-                             page_size=64, max_batch=2, device="cpu", **option)
+            GenerationServer({"embed": torch.zeros((4, 4)), "layers": [{"experts": {}}]},
+                             CFG, num_pages=8, page_size=64, max_batch=2, device="cpu",
+                             **option)
         return
     params = params_from_jax(jax.device_get(jax_params), device="cpu")
     server = GenerationServer(params, CFG, num_pages=32, page_size=64, max_batch=4,
