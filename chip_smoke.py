@@ -128,16 +128,25 @@ held per 64-row band against single-rank ``flash_attention`` and the plain
 fp32 version; ``train_parallel``, Llama-3-8B's width at 2 layers, 3 AdamW
 steps on one rank, an sp 2 and a tp 2 mesh, losses within 0.01 of one
 rank's and the first step's gradients within 5 % of its norm on every
-leaf; ``serve_tp``, the serve phase's model and requests at tp 2 (and
-run A's int8 weights and KV at 4 layers), every rank the same tokens, each
-first difference from the single card a near-tie; ``bench_ring``, the
-ring's compute side against one K1 call (a subprocess); then the kernels
-at the shard shapes (``time_shards``). Prints
+leaf; ``serve_tp``, the serve phase's model at 8 layers and its requests
+at tp 2 (and run A's int8 weights and KV at 4 layers), every rank the same
+tokens, each first difference from the single card a near-tie;
+``bench_ring``, the ring's compute side against one K1 call (a
+subprocess); ``moe_ep``, expert parallelism over 4 ranks at Mixtral-8x7B
+widths (an fp32 ``_moe_mlp`` layer and a 2-layer bf16 ``moe_loss_fn``
+against one rank); ``pipeline``, GPipe over 4 ranks at Llama-3-8B width
+(4 layers, 4 microbatches; loss and first-step gradients against
+``loss_fn`` on one rank, launches against the plan); ``serve_tp_lora``,
+LoRA prefill, decode and verify steps under tp 2 against one rank;
+``scaling_report``, the tool as a subprocess at tp 1/2/4; ``dryrun``,
+``entry.dryrun_multichip(4)``; then the kernels at the shard shapes
+(``time_shards``). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``, ``train``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
-``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``
+``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
+``moe_ep``, ``pipeline``, ``serve_tp_lora``, ``scaling_report``, ``dryrun``
 (and a line per rank), ``phase_s`` (each phase's wall time) and ``kernels``
 JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
@@ -3991,6 +4000,8 @@ TRAIN_PARALLEL_GAP = 0.01  # a mesh's loss within this of the single rank's
 # gradient's scale, hide such faults from the losses).
 TRAIN_PARALLEL_GRAD_GAP = 0.05
 SERVE_TP_INT8 = dict(layers=4, requests=4, new_tokens=16)
+# The bf16 tp run's depth, cut from the full 32 layers to keep the smoke's time.
+SERVE_TP_BF16_LAYERS = 8
 # A tp token that differs from the single card's may sit this far below the
 # single-card row max at the first difference: the bound of the JAX
 # package's tensor-parallel server test (tests/test_generate.py). Each rank
@@ -4319,14 +4330,15 @@ def phase_train_parallel(smi: str) -> dict:
 
 def _tp_server(kind, mesh=None):
     """The serve_tp phase's server of ``kind``: "bf16" (the serve phase's
-    Llama-3-8B, full depth, seed 0) or "int8" (run A's int8 weights and int8
-    KV at SERVE_TP_INT8's depth), tensor-parallel with ``mesh``."""
+    Llama-3-8B at SERVE_TP_BF16_LAYERS layers, seed 0) or "int8" (run A's
+    int8 weights and int8 KV at SERVE_TP_INT8's depth), tensor-parallel with
+    ``mesh``."""
     from flash_attention_from_scratch_tpu_torch import (
         LLAMA3_8B, GenerationServer, init_params, init_quantized_params)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if kind == "bf16":
-        cfg = LLAMA3_8B
+        cfg = dataclasses.replace(LLAMA3_8B, n_layers=SERVE_TP_BF16_LAYERS)
         kw = dict(num_pages=SERVE_PAGES, page_size=SERVE_PAGE_SIZE, max_batch=8,
                   pages_per_seq=SERVE_PAGES_PER_SEQ)
         params = init_params(cfg, gen)
@@ -4398,12 +4410,13 @@ def _first_difference_gaps(kind, single_tokens, tp_tokens, slack_std):
     return out
 
 
-def phase_serve_tp(smi: str, single_tokens: dict) -> dict:
+def phase_serve_tp(smi: str) -> dict:
     """Tensor-parallel serving over 2 gloo ranks on this card: the serve
-    phase's bf16 Llama-3-8B (full width and depth, 8 GB of weights a rank,
-    its 8 requests, 32 greedy tokens; ``single_tokens`` its tokens), then
-    run A's int8 weights and int8 KV at 4 layers (4 requests of 1,024
-    tokens, 16 new), which hands K6 its column and row shards. Every rank
+    phase's bf16 Llama-3-8B at full width and SERVE_TP_BF16_LAYERS layers
+    (its 8 requests, 32 greedy tokens), then run A's int8 weights and int8
+    KV at 4 layers (4 requests of 1,024 tokens, 16 new), which hands K6 its
+    column and row shards; each against the same server on the single card
+    first. Every rank
     serves the same tokens; where they differ from the single card's, the
     first difference is a near-tie (TP_SLACK below the single-card row
     max, or QUANT_SLACK_STD row deviations for int8, whose recompute reads
@@ -4416,21 +4429,25 @@ def phase_serve_tp(smi: str, single_tokens: dict) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
 
-    counts = {}
-    # The int8 run's single-card tokens, in this process before the ranks.
-    cfg8, kw8, server8 = _tp_server("int8")
-    prompts8 = _tp_prompts("int8", cfg8.vocab_size)
-    _warm_graphs(server8, cfg8.vocab_size, SERVE_TP_INT8["new_tokens"])
-    _drive(server8, prompts8, SERVE_TP_INT8["new_tokens"])
-    single = {"bf16": single_tokens,
-              "int8": {sid: server8.seqs[sid].generated for sid in prompts8}}
-    del server8
+    counts, single = {}, {}
+    # Each run's single-card tokens, in this process before the ranks.
+    for kind in ("bf16", "int8"):
+        cfg1, kw1, server1 = _tp_server(kind)
+        prompts1 = _tp_prompts(kind, cfg1.vocab_size)
+        new = SERVE_NEW_TOKENS if kind == "bf16" else SERVE_TP_INT8["new_tokens"]
+        _warm_graphs(server1, cfg1.vocab_size, new)
+        _drive(server1, prompts1, new)
+        single[kind] = {sid: server1.seqs[sid].generated for sid in prompts1}
+        if kind == "int8":
+            kw8 = kw1
+        del server1
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     both = _spawn(serve_tp_rank, 2)
     spawn_s = time.perf_counter() - t0
     for kind in ("bf16", "int8"):
         ranks = [r[kind] for r in both]
-        layers = LLAMA3_8B.n_layers if kind == "bf16" else SERVE_TP_INT8["layers"]
+        layers = SERVE_TP_BF16_LAYERS if kind == "bf16" else SERVE_TP_INT8["layers"]
         kw = (dict(max_batch=8, pages_per_seq=SERVE_PAGES_PER_SEQ, page_size=SERVE_PAGE_SIZE)
               if kind == "bf16" else dict(max_batch=kw8["max_batch"],
                                           pages_per_seq=kw8["pages_per_seq"],
@@ -4473,28 +4490,24 @@ def phase_serve_tp(smi: str, single_tokens: dict) -> dict:
 def phase_bench_ring(smi: str) -> list:
     """``tools/bench_ring.py`` as a user runs it, in its own process: the
     ring's compute side (every Q shard's hop kernels and merges, all shards
-    on this card) against one K1 call, at s 8,192 and 16,384, 2/4/8
-    shards, 32 heads; each ring within 2^-6 of the monolithic output's
+    on this card) against one K1 call, at s 16,384 (the ring phase's
+    length), 2/4/8 shards, 32 heads; each ring within 2^-6 of the monolithic output's
     largest value (two bf16 ulps there: the hops' outputs are rounded to
     bf16 before the merge)."""
     import subprocess
 
     root = os.path.dirname(os.path.abspath(__file__))
-    rows = []
-    for seq in (8192, 16384):
-        torch.cuda.empty_cache()
-        cmd = [sys.executable, "-m", "flash_attention_from_scratch_tpu_torch.tools.bench_ring",
-               "--seq", str(seq), "--shards", "2,4,8", "--heads", str(HEADS), "--iters", "3",
-               "--json"]
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"bench_ring --seq {seq} exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
-        if any(r["max_abs_diff"] > 2.0 ** -6 * r["max_abs_ref"] or not r["ms"] > 0
-               for r in got):
-            raise AssertionError(f"bench_ring --seq {seq}: {got}")
-        rows += got
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "flash_attention_from_scratch_tpu_torch.tools.bench_ring",
+           "--seq", str(RING_SEQ), "--shards", "2,4,8", "--heads", str(HEADS), "--iters", "3",
+           "--json"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_ring --seq {RING_SEQ} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
+    if any(r["max_abs_diff"] > 2.0 ** -6 * r["max_abs_ref"] or not r["ms"] > 0 for r in rows):
+        raise AssertionError(f"bench_ring --seq {RING_SEQ}: {rows}")
     print(json.dumps({"bench_ring": {"rows": rows, "gpu": smi}}), flush=True)
     return rows
 
@@ -4608,14 +4621,495 @@ def time_shards() -> dict:
     return out
 
 
-def _parallel_fields(names, ring=None, train=None, serve=None) -> dict:
+# ---- the parallel layer, part 2: expert parallelism, the pipeline, LoRA
+# under tp, the scaling report and the dry run, each over gloo ranks on
+# this card as the phases above.
+MOE_EP_WORLD, MOE_EP_TOKENS, MOE_EP_LAYERS = 4, 2048, 2
+MOE_EP_GAP = 0.01  # the bf16 ep loss within this of one rank's
+PIPE_WORLD, PIPE_LAYERS, PIPE_BATCH, PIPE_MICRO = 4, 4, 4, 4
+PIPE_GRAD_LEAVES = ("embed", "lm_head", "layers.0.wq", f"layers.{PIPE_LAYERS - 1}.wq")
+TP_LORA = dict(layers=4, prompt_lens=(200, 500, 750, 1000), adapters=(-1, 0, 1, 2),
+               new_tokens=16, verify_t=4)
+DRYRUN_RANKS = 4
+
+
+def _ep_layer(cfg, experts, seed: int = 0):
+    """One fp32 MoE layer of ``cfg``'s widths on the card: the router from
+    ``seed`` and expert e of ``experts`` from ``seed + 1 + e``, so every
+    rank draws its own experts as one rank draws them all."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, h = cfg.dim, cfg.hidden_dim
+    router = torch.randn((d, cfg.n_experts), generator=gen, device="cuda") / math.sqrt(d)
+    parts = {"w_gate": [], "w_up": [], "w_down": []}
+    for e in experts:
+        g = torch.Generator(device="cuda").manual_seed(seed + 1 + e)
+        parts["w_gate"].append(torch.randn((d, h), generator=g, device="cuda") / math.sqrt(d))
+        parts["w_up"].append(torch.randn((d, h), generator=g, device="cuda") / math.sqrt(d))
+        parts["w_down"].append(torch.randn((h, d), generator=g, device="cuda") / math.sqrt(h))
+    return {"router": router, "experts": {k: torch.stack(v) for k, v in parts.items()}}
+
+
+def _ep_mlp(cfg, layer, mesh=None) -> dict:
+    """``_moe_mlp`` forward and backward of sum(out * dO) + aux on fp32
+    activations (1, MOE_EP_TOKENS, dim) and dO from seed 77, the same on
+    every rank: out, aux and the gradients of x, the router and w_down."""
+    from flash_attention_from_scratch_tpu_torch.models.moe import _moe_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    x = torch.randn((1, MOE_EP_TOKENS, cfg.dim), generator=gen, device="cuda")
+    dout = torch.randn(x.shape, generator=gen, device="cuda")
+    x.requires_grad_(True)
+    for t in (layer["router"], layer["experts"]["w_down"]):
+        t.requires_grad_(True)
+    out, aux = _moe_mlp(cfg, layer, x, mesh)
+    ((out * dout).sum() + aux).backward()
+    return {"out": out.detach(), "aux": float(aux.detach()), "x": x.grad,
+            "router": layer["router"].grad, "w_down": layer["experts"]["w_down"].grad}
+
+
+def _moe_ep_loss(cfg, mesh=None) -> dict:
+    """``moe_loss_fn`` forward and backward of the bf16 MoE model at
+    MOE_EP_LAYERS layers (seed 0), batch 1 x MOE_EP_TOKENS + 1 tokens,
+    on ``mesh`` (this rank's experts) or one rank; the launches counted."""
+    from flash_attention_from_scratch_tpu_torch import init_moe_params, moe_loss_fn
+    from flash_attention_from_scratch_tpu_torch.models.moe import shard_moe_params
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+
+    params = init_moe_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if mesh is not None:
+        params = shard_moe_params(params, mesh)
+        torch.cuda.empty_cache()
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, MOE_EP_TOKENS + 1))).to("cuda")
+    _build.launch_counts.clear()
+    t = time.perf_counter()
+    loss = moe_loss_fn(params, tokens, cfg, mesh)
+    loss.backward()
+    sync()
+    return {"loss": float(loss.detach()), "s": time.perf_counter() - t,
+            "counts": dict(_build.launch_counts),
+            "router_grad": float(params["layers"][0]["router"].grad.abs().max())}
+
+
+def moe_ep_rank(rank, world):
+    """One rank of ``moe_ep``: the fp32 layer on the shared activations
+    with all experts and no mesh (one rank's computation, made here so no
+    gradient crosses processes), then with its own experts on the ep mesh,
+    compared on the card; then the bf16 loss and gradients of its experts'
+    model. Returns the comparisons, the losses and the launches."""
+    from flash_attention_from_scratch_tpu_torch.models.moe import EXPERT_AXIS
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_axis_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_axis_mesh(EXPERT_AXIS, world, device=PARALLEL_DEVICE, backend=PARALLEL_BACKEND)
+    cfg = _mixtral(1, dtype=DType.FP32)
+    n = cfg.n_experts // world
+    want = _ep_mlp(cfg, _ep_layer(cfg, range(cfg.n_experts)))
+    want["w_down"] = want["w_down"][rank * n:(rank + 1) * n].clone()
+    torch.cuda.empty_cache()
+    got = _ep_mlp(cfg, _ep_layer(cfg, range(rank * n, (rank + 1) * n)), mesh)
+    mlp = {"out_ok": bool(torch.allclose(got["out"], want["out"], atol=1e-4, rtol=1e-4)),
+           "out_err": float((got["out"] - want["out"]).abs().max()),
+           "aux": got["aux"], "single_aux": want["aux"],
+           **{name: float((got[name] - want[name]).abs().max() / want[name].abs().max())
+              for name in ("x", "router", "w_down")}}
+    mlp_staged = mesh.staged_bytes
+    del got, want
+    torch.cuda.empty_cache()
+    loss = _moe_ep_loss(_mixtral(MOE_EP_LAYERS), mesh)
+    return {"mlp": mlp, "mlp_staged": mlp_staged, "loss": loss,
+            "staged_bytes": mesh.staged_bytes - mlp_staged}
+
+
+def phase_moe_ep(smi: str) -> dict:
+    """Expert parallelism over MOE_EP_WORLD gloo ranks on this card at
+    Mixtral-8x7B's widths (8 experts, 2 a rank). (a) ``_moe_mlp`` alone, one
+    fp32 layer (5.6 GB of experts, 1.4 GB a rank; TF32 off), b 1 x 2,048
+    tokens, the same activations on every rank, against the same layer
+    with all experts on one rank: out within atol and rtol 1e-4, aux within
+    rtol 1e-5 (``tests/test_moe.py``'s bounds), and the gradients of x, the
+    router and the rank's w_down within 1e-4 of the one rank's largest.
+    (b) ``moe_loss_fn`` in bf16 at 2 layers, batch 1 x 2,049 tokens,
+    forward and backward: finite, within MOE_EP_GAP of one rank's, a router
+    gradient, and each rank's K1/K3 launches one a layer (attention runs
+    replicated)."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+
+    single_loss = _moe_ep_loss(_mixtral(MOE_EP_LAYERS))
+    torch.cuda.empty_cache()
+    ranks = _spawn(moe_ep_rank, MOE_EP_WORLD)
+    plan = {K1: MOE_EP_LAYERS, KERNEL_DKV: MOE_EP_LAYERS, KERNEL_DQ: MOE_EP_LAYERS}
+    worst = {}
+    for rank, r in enumerate(ranks):
+        m, ls = r["mlp"], r["loss"]
+        _rank_line("moe_ep", rank, MOE_EP_WORLD, r["staged_bytes"], ls["counts"],
+                   mlp_staged_bytes=r["mlp_staged"], loss=ls["loss"], step_s=ls["s"])
+        for name in ("out_err", "x", "router", "w_down"):
+            worst[name] = max(worst.get(name, 0.0), m[name])
+        gap = abs(ls["loss"] - single_loss["loss"])
+        worst["loss_gap"] = max(worst.get("loss_gap", 0.0), gap)
+        if (not m["out_ok"] or abs(m["aux"] - m["single_aux"]) > 1e-5 * abs(m["single_aux"])
+                or max(m[k] for k in ("x", "router", "w_down")) > 1e-4
+                or not math.isfinite(ls["loss"]) or gap > MOE_EP_GAP
+                or not ls["router_grad"] > 0 or ls["counts"] != plan):
+            raise AssertionError(f"moe_ep rank {rank}: {m}, loss {ls['loss']} vs "
+                                 f"{single_loss['loss']}, launches {ls['counts']} "
+                                 f"(plan {plan})")
+    line = {"model": "Mixtral-8x7B widths", "ep": MOE_EP_WORLD,
+            "experts_a_rank": _mixtral(1).n_experts // MOE_EP_WORLD,
+            "mlp_tokens": MOE_EP_TOKENS, "loss_layers": MOE_EP_LAYERS,
+            "mlp_err_worst": worst, "single_loss": single_loss["loss"],
+            "single_step_s": single_loss["s"], "loss": [r["loss"]["loss"] for r in ranks],
+            "step_s": [r["loss"]["s"] for r in ranks],
+            "staged_bytes": [r["staged_bytes"] for r in ranks], "backend": PARALLEL_BACKEND,
+            "gpu": smi, "note": "gloo on one card: not a multi-card speed"}
+    print(json.dumps({"moe_ep": line}), flush=True)
+    return {"counts": [r["loss"]["counts"] for r in ranks]}
+
+
+def _pipe_stats(grads: dict) -> dict:
+    """Each PIPE_GRAD_LEAVES gradient present as (sum of squares,
+    product with a fixed random +-1 tensor seeded by the leaf's place)."""
+    out = {}
+    for j, name in enumerate(PIPE_GRAD_LEAVES):
+        if name not in grads:
+            continue
+        g = grads[name]
+        gen = torch.Generator(device="cuda").manual_seed(2000 + j)
+        signs = torch.randint(0, 2, g.shape, generator=gen, device="cuda", dtype=torch.int8)
+        sumsq = proj = 0.0
+        for gc, sc in zip(g.chunk(16), signs.chunk(16)):  # 1/16 of a 2 GB leaf at a time
+            gc = gc.float()
+            sumsq += float(gc.square().sum(dtype=torch.float64))
+            proj += float((gc * (2 * sc - 1)).sum(dtype=torch.float64))
+        out[name] = {"sumsq": sumsq, "proj": proj}
+        del signs
+    return out
+
+
+def _pipe_run(mesh=None) -> dict:
+    """One forward and backward of Llama-3-8B's width at PIPE_LAYERS
+    layers (seed 0), batch PIPE_BATCH x (TRAIN_PARALLEL_SEQ / 2 + 1) tokens:
+    ``pipeline_loss_fn`` over ``mesh`` (this rank's stage) in PIPE_MICRO
+    microbatches, or ``loss_fn`` on one rank; the launches counted and the
+    first-step gradient stats of PIPE_GRAD_LEAVES."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params, loss_fn
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.parallel.pipeline import (
+        PIPELINE_AXIS, pipeline_loss_fn, shard_pipeline_params, stack_pipeline_params)
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=PIPE_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if mesh is not None:
+        params = shard_pipeline_params(stack_pipeline_params(params, PIPE_WORLD), mesh)
+        torch.cuda.empty_cache()
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (PIPE_BATCH, TRAIN_PARALLEL_SEQ // 2 + 1))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    t = time.perf_counter()
+    if mesh is None:
+        loss = loss_fn(params, tokens, cfg)
+    else:
+        loss = pipeline_loss_fn(params, tokens, cfg, mesh, PIPE_MICRO)
+    loss.backward()
+    sync()
+    took = time.perf_counter() - t
+    loss, peak = float(loss.detach()), torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()  # the ranks share the card
+    grads = {"embed": params["embed"].grad, "lm_head": params["lm_head"].grad}
+    if mesh is None:
+        grads.update({f"layers.{i}.wq": layer["wq"].grad
+                      for i, layer in enumerate(params["layers"])})
+    else:
+        me = mesh.coord(PIPELINE_AXIS)
+        grads[f"layers.{me}.wq"] = params["stages"]["wq"].grad[0, 0]
+    return {"loss": loss, "s": took, "counts": dict(_build.launch_counts),
+            "grads": _pipe_stats(grads), "peak_gb": peak}
+
+
+def pipe_rank(rank, world):
+    """One rank of the ``pipeline`` phase: its stage of the pp mesh."""
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_axis_mesh
+    from flash_attention_from_scratch_tpu_torch.parallel.pipeline import PIPELINE_AXIS
+
+    mesh = make_axis_mesh(PIPELINE_AXIS, world, device=PARALLEL_DEVICE,
+                          backend=PARALLEL_BACKEND)
+    return {**_pipe_run(mesh), "staged_bytes": mesh.staged_bytes}
+
+
+def phase_pipeline(smi: str) -> dict:
+    """GPipe over PIPE_WORLD gloo ranks on this card: Llama-3-8B's width at
+    4 layers (one a stage), batch 4 x 2,049 tokens, 4 microbatches, one
+    forward and backward of ``pipeline_loss_fn`` against ``loss_fn`` on one
+    rank: every rank's loss within TRAIN_PARALLEL_GAP of the single rank's;
+    the first-step gradients of the embedding and the LM head (every rank
+    its own) and of the first and last layer's wq (their stage's rank)
+    within TRAIN_PARALLEL_GRAD_GAP of the single rank's norm, in norm and in
+    random-sign projection (``train_parallel``'s rule); each rank's K1/K3
+    launches its ``launch_plan``'s. The bubble: a rank idles PIPE_WORLD - 1
+    of the PIPE_MICRO + PIPE_WORLD - 1 steps, its launches the plan's."""
+    from flash_attention_from_scratch_tpu_torch.parallel.pipeline import launch_plan
+
+    single = _pipe_run()
+    torch.cuda.empty_cache()
+    ranks = _spawn(pipe_rank, PIPE_WORLD)
+    plan = dict(launch_plan(PIPE_LAYERS, PIPE_WORLD, PIPE_MICRO))
+    worst = {}
+    for rank, r in enumerate(ranks):
+        _rank_line("pipeline", rank, PIPE_WORLD, r["staged_bytes"], r["counts"],
+                   loss=r["loss"], step_s=r["s"], peak_gb=r["peak_gb"])
+        for name, got in r["grads"].items():
+            want = single["grads"][name]
+            norm = math.sqrt(want["sumsq"])
+            gaps = (abs(math.sqrt(got["sumsq"]) - norm) / norm,
+                    abs(got["proj"] - want["proj"]) / norm)
+            worst[f"{rank}:{name}"] = max(gaps)
+        gap = abs(r["loss"] - single["loss"])
+        if (gap > TRAIN_PARALLEL_GAP or r["counts"] != plan
+                or max(v for k, v in worst.items() if k.startswith(f"{rank}:"))
+                > TRAIN_PARALLEL_GRAD_GAP):
+            raise AssertionError(f"pipeline rank {rank}: loss {r['loss']} vs "
+                                 f"{single['loss']}, launches {r['counts']} (plan {plan}), "
+                                 f"gradient gaps {worst}")
+    held = {name for r in ranks for name in r["grads"]}
+    if held != set(PIPE_GRAD_LEAVES):
+        raise AssertionError(f"pipeline: gradients held {held}")
+    steps = PIPE_MICRO + PIPE_WORLD - 1
+    line = {"model": "LLAMA3_8B", "layers": PIPE_LAYERS, "pp": PIPE_WORLD,
+            "n_micro": PIPE_MICRO, "batch": PIPE_BATCH, "seq": TRAIN_PARALLEL_SEQ // 2,
+            "single_loss": single["loss"], "single_s": single["s"],
+            "single_peak_gb": single["peak_gb"], "loss": [r["loss"] for r in ranks],
+            "grad_gap_worst": max(worst.values()), "grad_gaps": worst,
+            "launch_plan": plan, "steps": steps, "idle_steps_a_rank": PIPE_WORLD - 1,
+            "bubble_share": (PIPE_WORLD - 1) / steps, "step_s": [r["s"] for r in ranks],
+            "staged_bytes": [r["staged_bytes"] for r in ranks],
+            "peak_gb": [r["peak_gb"] for r in ranks], "backend": PARALLEL_BACKEND, "gpu": smi,
+            "note": "gloo on one card: the stages time-share it, so the bubble shows as "
+                    "launches against the plan, not as time"}
+    print(json.dumps({"pipeline": line}), flush=True)
+    return {"counts": [r["counts"] for r in ranks]}
+
+
+def _tp_lora_run(mesh=None) -> dict:
+    """Llama-3-8B at full width and TP_LORA's depth (seed 0) with 4 LoRA
+    adapters (``_lora_stack``), on ``mesh`` (this rank's shards) or one
+    rank: each prompt's prefill on its adapter, then TP_LORA new_tokens
+    greedy decode steps of the whole batch, then one verify step of
+    verify_t tokens per row (the last token and the next prompt tokens).
+    Returns the tokens (token j of a request picked from ``rows[j]``, the
+    prefill's logits and then each decode step's), the verify logits, the
+    launches and the staged bytes (CPU values)."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params
+    from flash_attention_from_scratch_tpu_torch.models import decode
+    from flash_attention_from_scratch_tpu_torch.models.lora import shard_lora
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import shard_params
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TP_LORA["layers"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    lora = _lora_stack(cfg, LORA_ADAPTERS)
+    if mesh is not None:
+        params, lora = shard_params(params, mesh), shard_lora(lora, mesh)
+        torch.cuda.empty_cache()
+    lens = TP_LORA["prompt_lens"]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    per_seq = -(-(max(lens) + TP_LORA["new_tokens"] + TP_LORA["verify_t"]) // SERVE_PAGE_SIZE)
+    cache = decode.init_cache(cfg, len(lens) * per_seq, SERVE_PAGE_SIZE, mesh=mesh)
+    tables = torch.arange(len(lens) * per_seq, dtype=torch.int32,
+                          device="cuda").view(len(lens), per_seq)
+    ids = torch.tensor(TP_LORA["adapters"], device="cuda")
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        first = []
+        for i, p in enumerate(prompts):
+            arr = torch.zeros((1, _padded(len(p))), dtype=torch.long, device="cuda")
+            arr[0, :len(p)] = torch.tensor(p, device="cuda")
+            logits, cache = decode.prefill(params, arr, cfg, cache, tables[i],
+                                           prompt_len=len(p), lora=lora,
+                                           adapter_ids=ids[i:i + 1], mesh=mesh)
+            first.append(logits)
+        first = torch.stack(first)
+        tokens = first.argmax(-1)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out, rows = [tokens.tolist()], [first.float().cpu()]
+        for _ in range(TP_LORA["new_tokens"]):
+            lengths = lengths + 1
+            logits, cache = decode.decode_step(params, tokens, cfg, cache, lengths, tables,
+                                               lora=lora, adapter_ids=ids, mesh=mesh)
+            tokens = logits.argmax(-1)
+            rows.append(logits.float().cpu())
+            out.append(tokens.tolist())
+        t = TP_LORA["verify_t"]
+        draft = torch.tensor([p[:t - 1] for p in prompts], device="cuda")
+        vtok = torch.cat([tokens[:, None], draft], dim=1)
+        verify, cache = decode.verify_step(params, vtok, cfg, cache, lengths + t, tables,
+                                           lora=lora, adapter_ids=ids, mesh=mesh)
+    sync()
+    return {"tokens": [list(r) for r in zip(*out)], "rows": rows,
+            "verify": verify.float().cpu(), "counts": dict(_build.launch_counts),
+            "s": time.perf_counter() - t0,
+            "staged_bytes": 0 if mesh is None else mesh.staged_bytes}
+
+
+def serve_tp_lora_rank(rank, world):
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_mesh
+
+    return _tp_lora_run(make_mesh(1, world, device=PARALLEL_DEVICE, backend=PARALLEL_BACKEND))
+
+
+def phase_serve_tp_lora(smi: str) -> dict:
+    """LoRA under tp 2 on gloo ranks on this card: Llama-3-8B at full width
+    and 4 layers with ``serve_lora``'s adapters (4 of rank 16, B non-zero,
+    scaled 0.3), 4 prompts of 200-1,000 tokens on adapters -1, 0, 1, 2:
+    prefill, 16 greedy decode steps and one 4-token verify step (K4's
+    multi-token q) through the model functions (the server refuses LoRA
+    with a mesh, as JAX's). Both ranks pick the same tokens and compute the
+    same verify logits; against the same steps on one rank a request's
+    tokens may differ only where the tp token is a near-tie, within TP_SLACK
+    of the single rank's row max at the first difference; where a request's
+    tokens agree, its verify rows' argmaxes agree or are such near-ties.
+    Each rank's launches: K1 per layer and prompt, K4/K5 (and its merge) per
+    layer and step, K4's multi-token entry per layer."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        KERNEL as KP, KERNEL_MERGE, KERNEL_MULTI)
+
+    single = _tp_lora_run()
+    torch.cuda.empty_cache()
+    ranks = _spawn(serve_tp_lora_rank, 2)
+    layers, n = TP_LORA["layers"], len(TP_LORA["prompt_lens"])
+    for rank, r in enumerate(ranks):
+        _rank_line("serve_tp_lora", rank, 2, r["staged_bytes"], r["counts"], s=r["s"])
+        c = r["counts"]
+        plan_ok = (c.get(K1) == layers * n and c.get(KP) == layers * TP_LORA["new_tokens"]
+                   and c.get(KERNEL_MULTI) == layers
+                   and c.get(KERNEL_MERGE, 0) <= c[KP] + c[KERNEL_MULTI])
+        if not plan_ok:
+            raise AssertionError(f"serve_tp_lora rank {rank}: launches {c}")
+    if ranks[0]["tokens"] != ranks[1]["tokens"] or not torch.equal(ranks[0]["verify"],
+                                                                   ranks[1]["verify"]):
+        raise AssertionError("serve_tp_lora: the ranks computed different tokens or logits")
+    got, want = ranks[0]["tokens"], single["tokens"]
+    firsts = {}
+    for i in range(n):
+        j = next((k for k, (a, b) in enumerate(zip(got[i], want[i])) if a != b), None)
+        if j is None:
+            vt, vs = ranks[0]["verify"][i], single["verify"][i]
+            for row in range(vt.shape[0]):
+                a = int(vt[row].argmax())
+                gap = float(vs[row].max() - vs[row][a])
+                if gap > TP_SLACK:
+                    raise AssertionError(f"serve_tp_lora request {i}: verify row {row} "
+                                         f"picks a token {gap} below the single rank's max")
+            continue
+        row = single["rows"][j][i]
+        gap = float(row.max() - row[got[i][j]])
+        firsts[i] = {"first_difference": j, "gap": gap}
+        if gap > TP_SLACK:
+            raise AssertionError(f"serve_tp_lora request {i}: token {j} differs from the "
+                                 f"single rank's and sits {gap} below its row max")
+    line = {"model": "LLAMA3_8B", "layers": layers, "tp": 2, "adapters": TP_LORA["adapters"],
+            "lora_rank": LORA_RANK, "prompt_lens": TP_LORA["prompt_lens"],
+            "new_tokens": TP_LORA["new_tokens"], "verify_t": TP_LORA["verify_t"],
+            "equal_to_single_rank": sum(got[i] == want[i] for i in range(n)),
+            "first_differences": firsts, "s": [r["s"] for r in ranks], "single_s": single["s"],
+            "staged_bytes": [r["staged_bytes"] for r in ranks], "launches": ranks[0]["counts"],
+            "backend": PARALLEL_BACKEND, "gpu": smi,
+            "note": "eager under a mesh, gloo on one card: not a tp speed"}
+    print(json.dumps({"serve_tp_lora": line}), flush=True)
+    return {"counts": [r["counts"] for r in ranks]}
+
+
+SCALING_TPS = (1, 2, 4)
+SCALING_BAND = (0.45, 0.56)  # tp 2's byte ratio (tests/test_scaling_report.py); / 2 at tp 4
+
+
+def phase_scaling_report(smi: str, single_chip_ms: float) -> dict:
+    """``tools/scaling_report.py`` as a user runs it, in its own process:
+    Llama-3-8B, W8A8 weights (K8 on every shard), int8 KV, tp 1, 2 and 4
+    as gloo ranks on this card, the projection anchored on this run's
+    ``bench_decode`` int8 step (``single_chip_ms``). Every row executed;
+    the byte ratio at tp 2 within SCALING_BAND, at tp 4 within half of it;
+    the collectives ``collective_plan``'s; rank 0's launches K8 7 x layers
+    + 1 and K4/K5 once a layer."""
+    import subprocess
+
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+    from flash_attention_from_scratch_tpu_torch.tools.scaling_report import collective_plan
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "flash_attention_from_scratch_tpu_torch.tools.scaling_report",
+           "--model", "8b", "--weights", "int8", "--kv", "int8",
+           "--tps", ",".join(map(str, SCALING_TPS)), "--single-chip-ms", repr(single_chip_ms),
+           "--device", PARALLEL_DEVICE, "--backend", PARALLEL_BACKEND]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    took = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"scaling_report exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    rows = [json.loads(x) for x in proc.stdout.strip().splitlines()[-len(SCALING_TPS):]]
+    k8 = KERNELS[("int8", True)]
+    layers = LLAMA3_8B.n_layers
+    for row in rows:
+        tp = row["tp"]
+        lo, hi = (b * 2 / tp for b in SCALING_BAND) if tp > 1 else (1.0, 1.0)
+        c = row["launches"]
+        if (not row["executed"] or not lo <= row["byte_ratio_vs_tp1"] <= hi
+                or row["collectives"] != collective_plan(LLAMA3_8B, tp)
+                or c.get(k8) != 7 * layers + 1 or c.get(KP) != layers):
+            raise AssertionError(f"scaling_report tp {tp}: {row}")
+    print(json.dumps({"scaling_report": {
+        "rows": rows, "process_s": took, "single_chip_ms": single_chip_ms,
+        "backend": PARALLEL_BACKEND, "gpu": smi,
+        "note": "bytes and collectives counted on one card's gloo ranks; the projected "
+                "columns are a projection on NVLink 4's published 450 GB/s a direction "
+                "(a spec sheet figure), not a measurement"}}), flush=True)
+    return {"counts": [row["launches"] for row in rows], "tps": [row["tp"] for row in rows]}
+
+
+def phase_dryrun(smi: str) -> list:
+    """``entry.dryrun_multichip(4, device="cuda", backend="gloo")``, one
+    spawn: the dp x tp train step, the sink + window step, tp prefill and
+    decode, the ring, the ep MoE loss and the pp pipeline loss, every
+    assert of the JAX dry run."""
+    from flash_attention_from_scratch_tpu_torch.entry import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lines = dryrun_multichip(DRYRUN_RANKS, device="cuda", backend=PARALLEL_BACKEND)
+    if len(lines) != 6:
+        raise AssertionError(f"dryrun_multichip printed {lines}")
+    print(json.dumps({"dryrun": {"ranks": DRYRUN_RANKS, "lines": lines,
+                                 "s": time.perf_counter() - t, "backend": PARALLEL_BACKEND,
+                                 "gpu": smi}}), flush=True)
+    return lines
+
+
+def _parallel_fields(names, ring=None, train=None, serve=None, **phases) -> dict:
     """Each rank's launches of the kernels ``names`` in the parallel phases,
     for the kernels line: the ring phase (its four cases), train_parallel
-    (by mesh) and serve_tp (by run)."""
+    (by mesh) and serve_tp (by run); each of ``phases`` (a name and its
+    per-rank counts, or per-row for the scaling report) as
+    ``launches_parallel_<name>``."""
     def total(c):
         return sum(c.get(n, 0) for n in names)
 
-    out = {}
+    out = {f"launches_parallel_{k}": [total(c) for c in v] for k, v in phases.items()}
     if ring:
         out["launches_parallel_ring"] = [sum(total(c) for c in rank.values())
                                          for rank in ring["counts"]]
@@ -4679,7 +5173,6 @@ def main(argv=None) -> int:
     served = phase_serve(smi)
     counts = served["counts"]
     params = served["server"].params
-    single_tokens = {sid: served["server"].seqs[sid].generated for sid in served["prompts"]}
     spec = phase_serve_spec(params, smi)  # the same weights
     del served
     _fuse_in_place(params)
@@ -4717,7 +5210,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
     torch.cuda.empty_cache()
-    phase_serving_tools(smi)
+    decode_tool = phase_serving_tools(smi)[0]
     phase_entry()
     lap("tools, entry")
     torch.cuda.empty_cache()
@@ -4731,10 +5224,22 @@ def main(argv=None) -> int:
     lap("ring")
     train_par = phase_train_parallel(smi)
     lap("train_parallel")
-    serve_tp = phase_serve_tp(smi, single_tokens)
+    serve_tp = phase_serve_tp(smi)
     lap("serve_tp")
     phase_bench_ring(smi)
     lap("bench_ring")
+    moe_ep = phase_moe_ep(smi)
+    lap("moe_ep")
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(smi)
+    lap("pipeline")
+    torch.cuda.empty_cache()
+    tp_lora = phase_serve_tp_lora(smi)
+    lap("serve_tp_lora")
+    scaling = phase_scaling_report(smi, decode_tool["ms_per_step"])
+    lap("scaling_report")
+    phase_dryrun(smi)
+    lap("dryrun")
     shards = time_shards()
     lap("time_shards")
 
@@ -4762,7 +5267,9 @@ def main(argv=None) -> int:
          "launches_train_moe": moe_trained["counts"].get(K1, 0),
          "launches_convert": {r: n.get(K1, 0) for r, n in converted.items()},
          "prefill_chunked_case": chunk_case, "banded_case": banded,
-         **_parallel_fields((K1,), ring, train_par, serve_tp), "shards": shards["k1"],
+         **_parallel_fields((K1,), ring, train_par, serve_tp, moe_ep=moe_ep["counts"],
+                            pipeline=pipe["counts"], serve_tp_lora=tp_lora["counts"]),
+         "shards": shards["k1"],
          **time_flash(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": KP, "route": "cuda", "source": pkg + "paged_attention.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
@@ -4781,7 +5288,10 @@ def main(argv=None) -> int:
          "launches_serve_lora_quant": lora_quant["counts"].get(KP, 0),
          "launches_serve_moe": {r: n.get(KP, 0) for r, n in moe_served["counts"].items()},
          "launches_convert": {r: n.get(KP, 0) for r, n in converted.items()},
-         **_parallel_fields((KP,), serve=serve_tp), "shards": shards["paged"],
+         **_parallel_fields((KP, KERNEL_MULTI), serve=serve_tp,
+                            serve_tp_lora=tp_lora["counts"],
+                            scaling_report=scaling["counts"]),
+         "launches_parallel_scaling_report_tps": scaling["tps"], "shards": shards["paged"],
          "launches_path": "bf16 serving; multi: the speculative run; int8c: run E; "
                           "multi_int8c: run F; serve_sample at chunk 1 and 8 (the "
                           "pick in the graphs), serve_prefix; every count by "
@@ -4815,7 +5325,8 @@ def main(argv=None) -> int:
          "launches_train_moe": {n: moe_trained["counts"].get(n, 0)
                                 for n in (KERNEL_DKV, KERNEL_DQ)},
          "launches_path": paths[fused_choice(causal=True)],
-         **_parallel_fields((KERNEL_DKV, KERNEL_DQ), ring, train_par),
+         **_parallel_fields((KERNEL_DKV, KERNEL_DQ), ring, train_par, moe_ep=moe_ep["counts"],
+                            pipeline=pipe["counts"]),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K3"},
          "max_abs_err": backward_err["split"], **split_t},
     ]
@@ -4839,6 +5350,9 @@ def main(argv=None) -> int:
             kernels[-1]["launches_serve_lora_quant"] = lora_quant["counts"][name]
             kernels[-1]["launches_convert_int8"] = converted["int8"][name]
             kernels[-1].update(_parallel_fields((name,), serve=serve_tp), shards=shards["k6"])
+        if name == KERNELS[("int8", True)]:
+            kernels[-1].update(_parallel_fields((name,), scaling_report=scaling["counts"]),
+                               launches_parallel_scaling_report_tps=scaling["tps"])
     kernels += [
         {"name": KQ, "route": "cuda", "source": pkg + "flash_quant.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",

@@ -11,10 +11,12 @@ the same for t tokens per sequence in one pass (speculative verify), and
 delta-proposal rule (:func:`pick_keyed`: the server's pick of a decode
 or verify step); :func:`decode_loop` runs several decode steps, each
 feeding its pick (the argmax, or :func:`sample_token`) to the next.
-:func:`prefill`, :func:`decode_step` and :func:`decode_loop` take LoRA
-adapters (``models/lora.py``) with one adapter id a row (-1: the base
-model): each adapted projection's delta adds to q, k and v after the
-projection and to the output projection before the residual. A MoE
+:func:`prefill`, :func:`decode_step`, :func:`verify_step` and
+:func:`decode_loop` take LoRA adapters (``models/lora.py``) with one
+adapter id a row (-1: the base model), under a tp mesh too (each rank's
+adapter shard, ``models.lora.shard_lora``): each adapted projection's
+delta adds to q, k and v after the projection and to the output projection
+before the residual (under tp, to a rank's partial product before its sum). A MoE
 layer (``experts``, ``models/moe.py``) routes through its experts in
 every one of these functions (:func:`_mlp`).
 These functions run eagerly; ``models/step_graphs.py`` captures the decode
@@ -66,15 +68,14 @@ __all__ = ["PagedKVCache", "init_cache", "prefill", "prefill_chunked",
            "row_keys", "lora_fn", "check_mesh"]
 
 
-def check_mesh(params, mesh, lora=None) -> None:
+def check_mesh(params, mesh) -> None:
     """Serving under a mesh runs tensor parallelism on dense or quantized
-    Llama weights; LoRA adapters and MoE layers under a mesh raise
-    ``NotImplementedError`` (they go with expert parallelism, ROADMAP.md
-    Queue 1 item 6)."""
-    if mesh is not None and (lora is not None or any(
-            "experts" in layer for layer in params["layers"])):
-        raise NotImplementedError("LoRA adapters and MoE layers under a mesh are not "
-                                  "ported yet (ROADMAP.md, Queue 1 item 6)")
+    Llama weights, with or without LoRA adapters (``models.lora.shard_lora``);
+    MoE layers under a mesh raise ``NotImplementedError``: the JAX package
+    has no tp specs for them (ROADMAP.md watch list)."""
+    if mesh is not None and any("experts" in layer for layer in params["layers"]):
+        raise NotImplementedError("MoE layers under a tp mesh: the JAX package has no "
+                                  "specs for them (ROADMAP.md watch list)")
 
 
 def lora_fn(lora, li: int, adapter_ids):
@@ -258,7 +259,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     cache (``init_cache(..., mesh=)``), and gets the whole logits row.
     """
     check_no_sinks(cfg)
-    check_mesh(params, mesh, lora)
+    check_mesh(params, mesh)
     s = tokens.shape[1]
     prompt_len = prompt_len or s
     x = all_gather(_embed(params, tokens, cfg), mesh, MODEL_AXIS, -1)  # (1, s, dim)
@@ -428,7 +429,7 @@ def decode_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
 
 def verify_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
                 lengths, page_tables, *, attn_int8: bool = False, lora=None,
-                mesh=None):
+                adapter_ids=None, mesh=None):
     """Score t tokens per sequence in one forward pass (speculative verify).
 
     The multi-token form of :func:`decode_step`: token j of a row's t
@@ -445,15 +446,14 @@ def verify_step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
     row j verifies draft j + 1 and the last row gives the bonus or
     correction token. Unlike the JAX ``verify_step``, which indexes the
     embedding table directly, the embedding goes through ``_embed``, so
-    ``cfg.embed_scale`` applies as in :func:`decode_step`. ``lora`` raises
-    ``ValueError``: the JAX ``verify_step`` takes no adapters, and
-    multi-LoRA serving runs no speculative steps.
+    ``cfg.embed_scale`` applies as in :func:`decode_step`. ``lora`` and
+    ``adapter_ids`` as in :func:`decode_step`, each row's adapter on all of
+    its t tokens (the JAX ``verify_step`` takes no adapters; the server runs
+    no speculative steps with them, as JAX's). ``mesh`` as in
+    :func:`decode_step`.
     """
-    if lora is not None:
-        raise ValueError("verify_step takes no LoRA adapters: multi-LoRA serving runs "
-                         "no speculative steps (as in the JAX package)")
     return _step(params, tokens, cfg, cache, lengths, page_tables, lora, mesh,
-                 attn_int8)
+                 attn_int8, adapter_ids)
 
 
 def decode_loop(params, tokens, cfg: LlamaConfig, cache: PagedKVCache,
@@ -526,7 +526,7 @@ def _step(params, tokens, cfg: LlamaConfig, cache: PagedKVCache, lengths,
     (batch, t) at positions lengths - t + j; ``lora`` with one adapter id a
     row."""
     check_no_sinks(cfg)
-    check_mesh(params, mesh, lora)
+    check_mesh(params, mesh)
     if attn_int8 and cache.mode != KVQuantMode.INT8:
         raise ValueError(f"attn_int8 requires an int8 KV cache; mode={cache.mode!r}")
     batch, t = tokens.shape

@@ -398,11 +398,18 @@ def local_heads(cfg: LlamaConfig, mesh=None) -> tuple[int, int]:
     return cfg.n_heads // tp, cfg.n_kv_heads // tp
 
 
-def _o_proj(layer, out, mesh=None):
+def _o_proj(layer, out, mesh=None, extra=None):
     """The row-parallel output projection: its partial products summed over
-    tp (JAX's ``pin_residual``), then the replicated bias."""
-    y = reduce_from(_mm(out, layer["wo"]), mesh)
-    return y + layer["bo"] if "bo" in layer else y
+    tp (JAX's ``pin_residual``), then the replicated bias. ``extra`` (a
+    LoRA delta of wo) adds after the bias, as in JAX; under tp it adds to
+    the partial product before the sum, where a rank's delta is its head
+    rows' part, so the sum counts it once."""
+    y = _mm(out, layer["wo"])
+    if extra is not None and mesh is not None and mesh.size(MODEL_AXIS) > 1:
+        y, extra = y + extra, None
+    y = reduce_from(y, mesh)
+    y = y + layer["bo"] if "bo" in layer else y
+    return y if extra is None else y + extra
 
 
 def _mlp(layer, x, cfg: LlamaConfig):
@@ -484,10 +491,8 @@ def _residual_tail(cfg: LlamaConfig, layer, x, out, o_extra=None, mlp=_mlp, mesh
     LoRA delta of wo). ``mlp(layer, h, cfg)``: the dense MLP, or the
     serving path's, which routes a layer with experts
     (``models/decode.py::_mlp``). With a tp ``mesh`` both row-parallel
-    products are summed over tp."""
-    h = _o_proj(layer, out, mesh)
-    if o_extra is not None:
-        h = h + o_extra
+    products are summed over tp, a rank's ``o_extra`` with its wo part."""
+    h = _o_proj(layer, out, mesh, o_extra)
     if cfg.post_norms:
         h = rms_norm(h, layer["attn_post_norm"], cfg.norm_eps)
     x = x + h

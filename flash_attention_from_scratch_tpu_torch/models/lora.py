@@ -13,6 +13,11 @@ others and are zeroed after, so a step's shapes do not depend on the ids
 
 The JAX package computes the two products outside any Pallas kernel, so
 they stay plain PyTorch products here.
+
+Under a tp mesh each adapter is sharded like its base weight
+(:func:`shard_lora`): a rank's q, k and v deltas are its heads' columns,
+and its wo delta is its head rows' part of the product, which joins wo's
+partial product before the sum over tp (the delta is linear in the rows).
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ import numpy as np
 import torch
 
 from ..ops.quant_matmul import QuantizedWeight
+from ..parallel.mesh import MODEL_AXIS
 from ..utils.device import resolve_device
 from .llama import LlamaConfig, params_from_jax
 
 __all__ = ["LORA_KEYS", "init_lora_adapters", "lora_delta", "from_peft_state_dicts",
-           "lora_from_jax", "merged_params", "n_adapters"]
+           "lora_from_jax", "merged_params", "n_adapters", "shard_lora"]
 
 # Projections that carry adapters (the common attention-only default).
 LORA_KEYS = ("wq", "wk", "wv", "wo")
@@ -129,6 +135,35 @@ def lora_from_jax(tree, device="cuda"):
     return {"alpha": params_from_jax(np.asarray(tree["alpha"], np.float32), device),
             "layers": [{k: tuple(params_from_jax(x, device) for x in ab)
                         for k, ab in layer.items()} for layer in tree["layers"]]}
+
+
+# The dim of A (0) or B (1) a tp rank slices, as its base weight: wq, wk, wv
+# column-parallel (B's output columns), wo row-parallel (A's input rows).
+_TP_SLICE = {"wq": (1, 2), "wk": (1, 2), "wv": (1, 2), "wo": (0, 1)}
+
+
+def shard_lora(lora, mesh):
+    """This rank's adapters under a tp ``mesh`` (``parallel.mesh.make_mesh``),
+    on the mesh's device: for ``wq``/``wk``/``wv`` B's columns of the rank's
+    q or kv heads (A whole), for ``wo`` A's rows of the rank's q heads (B
+    whole), ``alpha`` whole. Each leaf is a copy."""
+    from ..parallel.mesh import MODEL_AXIS
+
+    tp, r = mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
+
+    def part(ab, key):
+        which, dim = _TP_SLICE[key]
+        out = []
+        for i, x in enumerate(ab):
+            if i == which and tp > 1:
+                n = x.shape[dim] // tp
+                x = x.narrow(dim, r * n, n)
+            out.append(x.to(mesh.device, copy=True).contiguous())
+        return tuple(out)
+
+    return {"alpha": lora["alpha"].to(mesh.device, copy=True),
+            "layers": [{k: part(ab, k) for k, ab in layer.items()}
+                       for layer in lora["layers"]]}
 
 
 def lora_delta(lora, li: int, name: str, x, adapter_ids):

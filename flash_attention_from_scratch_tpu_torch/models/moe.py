@@ -16,9 +16,16 @@ package: the same slots, drops and combine weights, and the same rounding
 The JAX package computes them with ``jnp.einsum`` outside any Pallas kernel,
 so they are plain PyTorch products here.
 
-Expert parallelism (``EXPERT_AXIS``, ``moe_param_specs``,
-``shard_moe_params``) belongs to the parallel layer, which is not ported
-yet (ROADMAP.md, Queue 1).
+Expert parallelism: on a mesh with an "ep" axis (``EXPERT_AXIS``;
+``parallel.mesh.make_axis_mesh``) each rank holds E / ep experts on the
+leading axis (:func:`shard_moe_params`, specs :func:`moe_param_specs`).
+The tokens are the same on every rank, as JAX's replicated tokens (``P()``
+in its expert-parallel test): every rank runs the router, the capacity and
+the routing identically, so the routes are bit for bit one device's; a rank
+then dispatches, runs and combines only its own experts, and the combined
+outputs are summed over "ep" (``reduce_from``). GSPMD places that sum in
+JAX; it is an all-reduce, not an all-to-all (the tokens are not sharded).
+Attention runs replicated, as JAX's ``moe_loss_fn`` does with no mesh.
 """
 
 from __future__ import annotations
@@ -29,13 +36,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import copy_to, reduce_from
 from ..utils.device import resolve_device
 from .llama import (
     LlamaConfig, _attention, _dense_init, _mm, _o_proj, init_params, rms_norm,
     rope_tables,
 )
 
-__all__ = ["MoEConfig", "init_moe_params", "moe_forward", "moe_loss_fn"]
+__all__ = ["MoEConfig", "init_moe_params", "moe_forward", "moe_loss_fn",
+           "EXPERT_AXIS", "moe_param_specs", "shard_moe_params"]
+
+EXPERT_AXIS = "ep"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,32 +133,66 @@ def _route(cfg: MoEConfig, gates, capacity: int):
     return dispatch, combine, aux
 
 
-def _moe_mlp(cfg: MoEConfig, layer, x):
+def _ep_size(mesh) -> int:
+    """The mesh's "ep" size (1 without a mesh); a mesh with any other axis
+    raises ``NotImplementedError``: the JAX package has no specs for MoE
+    under dp, tp or sp (``llama_param_specs`` fails on MoE layers), its
+    ``moe_forward(mesh=)`` hands the mesh to an attention that needs dp/tp
+    axes, and under sp its capacity would count global tokens while a rank
+    holds its shard (ROADMAP.md watch list)."""
+    if mesh is None:
+        return 1
+    if set(mesh.axis_names) - {EXPERT_AXIS}:
+        raise NotImplementedError(
+            f"MoE layers on a mesh of axes {mesh.axis_names}: only an \"ep\" mesh is "
+            "supported (JAX has no specs for MoE under dp/tp/sp; ROADMAP.md watch list)")
+    return mesh.size(EXPERT_AXIS)
+
+
+def _expert_inputs(combine, xt, mesh):
+    """combine and the dispatch's rows as a rank reads its own experts'
+    slots of them: the gradient each rank's experts give is summed over
+    "ep" here, once, before it reaches the gates and x (the aux loss, which
+    reads the gates on every rank, stays outside the sum)."""
+    return copy_to(combine, mesh, EXPERT_AXIS), copy_to(xt, mesh, EXPERT_AXIS)
+
+
+def _moe_mlp(cfg: MoEConfig, layer, x, mesh=None):
     """Routed SwiGLU experts. x (B, S, D) -> (out (B, S, D), aux loss).
 
     All B * S rows route together (one capacity). The router runs in fp32
     on an fp32 copy of x; dispatch and combine are cast to x's dtype; the
     experts apply ``silu(gate)`` in fp32, whatever ``cfg.mlp_act`` says (as
-    in the JAX package).
+    in the JAX package). With an "ep" ``mesh``, x is the same on every rank
+    and ``layer["experts"]`` holds this rank's E / ep experts
+    (:func:`shard_moe_params`): the routing runs whole on every rank, the
+    rank's experts take their slots, and the outputs are summed over "ep".
     """
     b, s, d = x.shape
     t, e = b * s, cfg.n_experts
+    ep = _ep_size(mesh)
     xt = x.reshape(t, d)
     gates = torch.softmax(xt.float() @ layer["router"].float(), dim=-1)
     capacity = _capacity(cfg, t)
     dispatch, combine, aux = _route(cfg, gates, capacity)
+    xd = xt
+    if ep > 1:
+        combine, xd = _expert_inputs(combine, xt, mesh)
+        n = e // ep
+        lo = mesh.coord(EXPERT_AXIS) * n
+        dispatch, combine, e = dispatch[:, lo:lo + n], combine[:, lo:lo + n], n
 
     w = layer["experts"]
-    xe = (dispatch.to(x.dtype).view(t, e * capacity).t() @ xt).view(e, capacity, d)
+    xe = (dispatch.to(x.dtype).reshape(t, e * capacity).t() @ xd).view(e, capacity, d)
     gate = torch.bmm(xe, w["w_gate"])
     up = torch.bmm(xe, w["w_up"])
     hidden = F.silu(gate.float()).to(x.dtype) * up
     ye = torch.bmm(hidden, w["w_down"])
-    out = combine.to(x.dtype).view(t, e * capacity) @ ye.view(e * capacity, d)
-    return out.view(b, s, d), aux
+    out = combine.to(x.dtype).reshape(t, e * capacity) @ ye.view(e * capacity, d)
+    return reduce_from(out, mesh, EXPERT_AXIS).view(b, s, d), aux
 
 
-def moe_forward(params, tokens, cfg: MoEConfig):
+def moe_forward(params, tokens, cfg: MoEConfig, mesh=None):
     """tokens (batch, seq) -> (logits (batch, seq, vocab) fp32, aux loss).
 
     The JAX ``moe_forward``'s function: the embedding row without
@@ -155,8 +200,12 @@ def moe_forward(params, tokens, cfg: MoEConfig):
     final softcap (the serving path, ``models/decode.py``, applies all
     three). ``seq`` must be a multiple of the flash kernel's tile (64).
     Attention goes through autograd's flash kernels when a gradient is
-    needed (``_attention``).
+    needed (``_attention``). ``mesh``: an "ep" mesh (expert parallelism,
+    :func:`_moe_mlp`; ``params`` this rank's :func:`shard_moe_params`,
+    ``tokens`` the same on every rank, and every rank gets the whole
+    logits); a mesh with another axis raises ``NotImplementedError``.
     """
+    _ep_size(mesh)
     x = params["embed"][tokens]
     cos, sin = rope_tables(tokens.shape[1], cfg.d_head, cfg.rope_theta, cfg,
                            device=x.device)
@@ -165,17 +214,56 @@ def moe_forward(params, tokens, cfg: MoEConfig):
         out, _, _ = _attention(layer, rms_norm(x, layer["attn_norm"], cfg.norm_eps),
                                cfg, cos, sin, li)
         x = x + _o_proj(layer, out)
-        h, aux = _moe_mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+        h, aux = _moe_mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps), mesh)
         x = x + h
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _mm(x, params["lm_head"]).float(), aux_total / cfg.n_layers
 
 
-def moe_loss_fn(params, tokens, cfg: MoEConfig):
+def moe_loss_fn(params, tokens, cfg: MoEConfig, mesh=None):
     """Next-token cross-entropy (the mean over all positions) plus
-    ``router_aux_weight`` times the aux loss; ``tokens`` (batch, seq + 1)."""
-    logits, aux = moe_forward(params, tokens[:, :-1], cfg)
+    ``router_aux_weight`` times the aux loss; ``tokens`` (batch, seq + 1).
+    ``mesh``: as in :func:`moe_forward`; every rank returns the same loss,
+    and its gradients are the whole gradients of the replicated leaves and
+    its own experts' slices."""
+    logits, aux = moe_forward(params, tokens[:, :-1], cfg, mesh)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           tokens[:, 1:].reshape(-1))
     return nll + cfg.router_aux_weight * aux
+
+
+def moe_param_specs(params) -> dict:
+    """The JAX ``moe_param_specs``: ``("ep",)`` (a ``PartitionSpec``'s
+    entries) on every leaf under ``experts``, ``()`` (replicated) on every
+    other, in the tree of ``params``."""
+    def spec(x, under_experts):
+        if isinstance(x, dict):
+            return {k: spec(v, under_experts or k == "experts") for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [spec(v, under_experts) for v in x]
+        return (EXPERT_AXIS,) if under_experts else ()
+
+    return spec(params, False)
+
+
+def shard_moe_params(params, mesh) -> dict:
+    """This rank's MoE parameters on the mesh's device: E / ep experts of
+    every ``experts`` leaf (rank r the ones from r * E / ep), every other
+    leaf whole. Each leaf is a copy. ``ValueError`` where ep does not
+    divide the experts."""
+    ep, r = mesh.size(EXPERT_AXIS), mesh.coord(EXPERT_AXIS)
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [place(v, sp) for v, sp in zip(x, spec)]
+        if spec:
+            if x.shape[0] % ep:
+                raise ValueError(f"{x.shape[0]} experts do not split over ep={ep}")
+            n = x.shape[0] // ep
+            x = x[r * n:(r + 1) * n]
+        return x.to(mesh.device, copy=True).contiguous()
+
+    return place(params, moe_param_specs(params))

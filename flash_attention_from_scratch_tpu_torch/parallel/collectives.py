@@ -19,7 +19,10 @@ and GSPMD derive from the specs:
   form), in place of gathering the logits.
 
 Each returns its input unchanged without a mesh or on an axis of size 1.
-Under gloo a CUDA tensor is copied into pinned host memory, the collective
+Every collective a rank issues (forward or backward) adds one to
+:data:`calls` under the JAX HLO op's name ("all-reduce", "all-gather",
+"collective-permute"): ``tools/scaling_report.py`` reads a step's count
+there. Under gloo a CUDA tensor is copied into pinned host memory, the collective
 runs there, and the result is copied back: explicitly, with every byte
 moved either way counted in ``mesh.staged_bytes``. Under NCCL the tensors
 stay on their cards.
@@ -27,13 +30,19 @@ stay on their cards.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.distributed as dist
 
 from .mesh import MODEL_AXIS, Mesh
 
 __all__ = ["ppermute", "copy_to", "reduce_from", "all_gather", "ring_perm",
-           "vocab_parallel_cross_entropy"]
+           "vocab_parallel_cross_entropy", "calls"]
+
+# Collectives issued by this process, by kind (a batch of sends and
+# receives is one "collective-permute"); cleared by its readers.
+calls: collections.Counter = collections.Counter()
 
 
 def ring_perm(n: int, shift: int = 1) -> list[tuple[int, int]]:
@@ -66,12 +75,14 @@ def _home(mesh: Mesh, buf, x):
 
 
 def _all_reduce(x, mesh: Mesh, axis: str, op=dist.ReduceOp.SUM):
+    calls["all-reduce"] += 1
     buf = _buffer(mesh, x)
     dist.all_reduce(buf, op=op, group=mesh.group(axis))
     return _home(mesh, buf, x)
 
 
 def _all_gather(x, mesh: Mesh, axis: str, dim: int):
+    calls["all-gather"] += 1
     buf = _buffer(mesh, x)
     outs = [_like(buf) for _ in range(mesh.size(axis))]
     dist.all_gather(outs, buf, group=mesh.group(axis))
@@ -98,6 +109,7 @@ def _permute(xs, mesh: Mesh, axis: str, perm):
                                   group=mesh.group(axis), tag=tag))
         outs.append(out)
     if ops:
+        calls["collective-permute"] += 1
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return [_home(mesh, o, x) for o, x in zip(outs, xs)]

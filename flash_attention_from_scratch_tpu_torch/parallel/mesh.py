@@ -9,12 +9,16 @@ between ranks are explicit (``parallel/collectives.py``). So there is no
 ``mesh_interpret`` (a rank's kernels run where its tensors lie), and no
 ``spmd_safe`` or ``spmd_partition_mode`` (no partitioner to steer).
 
-A :class:`Mesh` names up to three axes: ``dp`` (batch), ``tp`` (heads and
-hidden columns, Megatron's layout) and ``sp`` (sequence, the ring). Ranks
-lie on it in row-major order, and each axis has one process group per line
-of ranks along it. The mesh holds the rank's device and the backend; under
-gloo it also counts the bytes its collectives stage through host memory
-(``staged_bytes``).
+A :class:`Mesh` names its axes: ``dp`` (batch), ``tp`` (heads and hidden
+columns, Megatron's layout) and ``sp`` (sequence, the ring) from
+:func:`make_mesh` and :func:`make_sp_mesh`, or any one axis from
+:func:`make_axis_mesh` (``pp``, the pipeline's stages; ``ep``, the
+experts). Ranks lie on it in row-major order, and each axis has one process
+group per line of ranks along it. A mesh covers the whole process group,
+or, asked for with ``sub=True``, its first ranks (JAX's mesh over its first
+devices); the ranks past it then get None. The mesh holds the rank's device
+and the backend; under gloo it also counts the bytes its collectives stage
+through host memory (``staged_bytes``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ import torch.distributed as dist
 from ..ops.quant_matmul import QuantizedWeight
 from ..utils.device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "make_sp_mesh", "llama_param_specs", "shard_params",
-           "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS"]
+__all__ = ["Mesh", "make_mesh", "make_sp_mesh", "make_axis_mesh", "llama_param_specs",
+           "shard_params", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS"]
 
 DATA_AXIS = "dp"
 MODEL_AXIS = "tp"
@@ -42,14 +46,18 @@ class Mesh:
     ``shape``: {axis: size} in the given order; ``coords``: this rank's
     coordinate on each axis; ``device``: the rank's device; ``backend``:
     the process group's ("nccl" or "gloo"). Every rank must build the same
-    mesh at the same point: the process groups are made collectively.
+    mesh at the same point: the process groups are made collectively. The
+    mesh covers the whole process group, or with ``sub`` its ranks
+    [0, prod(axes)); a larger group's other ranks then take part in making
+    the groups and must not use the mesh.
     """
 
-    def __init__(self, axes: dict[str, int], device, backend: str):
-        world = math.prod(axes.values())
-        if dist.get_world_size() != world:
+    def __init__(self, axes: dict[str, int], device, backend: str, sub: bool = False):
+        world, have = math.prod(axes.values()), dist.get_world_size()
+        if have < world or (have > world and not sub):
             raise ValueError(f"a mesh of {axes} needs {world} ranks; the process group "
-                             f"has {dist.get_world_size()}")
+                             f"has {have}" + ("" if have < world else
+                                              " (sub=True covers its first ranks)"))
         self.axis_names = tuple(axes)
         self.shape = dict(axes)
         self.device = device
@@ -90,12 +98,14 @@ class Mesh:
         return self._ranks[axis][coord]
 
 
-def _build(axes: dict[str, int], device, backend: str | None) -> Mesh:
+def _build(axes: dict[str, int], device, backend: str | None, sub: bool = False
+           ) -> Mesh | None:
     """Join (or start, as ``torchrun`` launches) the default process group
-    and build the mesh. ``backend`` defaults to "nccl" on CUDA and "gloo"
-    on the CPU; NCCL needs one card a rank and raises with fewer, and a
-    process group of another backend than the one asked for raises: the
-    transport is never switched silently."""
+    and build the mesh; with ``sub``, None on a rank past the mesh's ranks.
+    ``backend`` defaults to "nccl" on CUDA and "gloo" on the CPU; NCCL needs
+    one card a rank and raises with fewer, and a process group of another
+    backend than the one asked for raises: the transport is never switched
+    silently."""
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     world = math.prod(axes.values())
@@ -113,21 +123,35 @@ def _build(axes: dict[str, int], device, backend: str | None) -> Mesh:
         dev = torch.device("cuda", local % torch.cuda.device_count())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(axes, dev, backend)
+    mesh = Mesh(axes, dev, backend, sub)
+    return mesh if dist.get_rank() < world else None
 
 
-def make_mesh(dp: int, tp: int, *, device="cuda", backend: str | None = None) -> Mesh:
+def make_mesh(dp: int, tp: int, *, device="cuda", backend: str | None = None,
+              sub: bool = False) -> Mesh | None:
     """The (dp, tp) mesh of the JAX ``make_mesh``. ``device`` "cuda" puts
     rank r on card ``LOCAL_RANK`` (or r) modulo the cards; "cuda:0" puts
-    every rank on card 0 (one card shared, with ``backend="gloo"``)."""
-    return _build({DATA_AXIS: dp, MODEL_AXIS: tp}, device, backend)
+    every rank on card 0 (one card shared, with ``backend="gloo"``). The
+    process group must have dp * tp ranks; with ``sub`` it may have more,
+    the mesh covers its first dp * tp and the others get None (JAX's
+    ``make_mesh`` over the first devices)."""
+    return _build({DATA_AXIS: dp, MODEL_AXIS: tp}, device, backend, sub)
+
+
+def make_axis_mesh(axis: str, n: int, *, device="cuda", backend: str | None = None,
+                   sub: bool = False) -> Mesh | None:
+    """A 1-D mesh of ``n`` ranks on ``axis``, the JAX tests' ``Mesh(devs,
+    (axis,))``: "sp" (:func:`make_sp_mesh`), "pp" (``parallel/pipeline.py``)
+    or "ep" (``models/moe.py``). ``device``, ``backend`` and ``sub`` as in
+    :func:`make_mesh`."""
+    return _build({axis: n}, device, backend, sub)
 
 
 def make_sp_mesh(sp: int, *, device="cuda", backend: str | None = None) -> Mesh:
-    """The 1-D ("sp",) mesh of the JAX ring tests (``Mesh(devs, ("sp",))``):
-    sequence shards for :func:`~.ring_attention.ring_flash_attention` and
-    the model's context parallelism."""
-    return _build({SEQ_AXIS: sp}, device, backend)
+    """The 1-D ("sp",) mesh of the JAX ring tests: sequence shards for
+    :func:`~.ring_attention.ring_flash_attention` and the model's context
+    parallelism."""
+    return make_axis_mesh(SEQ_AXIS, sp, device=device, backend=backend)
 
 
 _COL, _ROW = (None, MODEL_AXIS), (MODEL_AXIS, None)
@@ -202,8 +226,10 @@ def _place(x, spec: tuple, mesh: Mesh, parts=None):
 def _shard_layer(layer: dict, mesh: Mesh) -> dict:
     """This rank's slice of one layer's parameters (:func:`shard_params`)."""
     if "experts" in layer:
-        raise NotImplementedError("sharding MoE params (expert parallelism) is not "
-                                  "ported yet (ROADMAP.md, Queue 1 item 6)")
+        raise NotImplementedError(
+            "MoE params under a dp/tp mesh: the JAX package has no specs for them "
+            "(ROADMAP.md watch list); expert parallelism is models.moe.shard_moe_params "
+            "on an \"ep\" mesh")
     return {k: _place(v, _LAYER_SPECS[k], mesh, _fused_parts(k, layer, v.shape[-1]))
             for k, v in layer.items()}
 
@@ -215,6 +241,7 @@ def shard_params(params, mesh: Mesh) -> dict:
     column-parallel weight, replicated on a row-parallel one; packed int4
     on a row-parallel weight raises ``NotImplementedError`` (the shard would
     split K's nibble pairs), as in JAX. MoE layers raise
-    ``NotImplementedError``: expert parallelism is ROADMAP Queue 1 item 6."""
+    ``NotImplementedError``, as JAX's ``llama_param_specs`` fails on them
+    (experts shard over "ep": ``models.moe.shard_moe_params``)."""
     return {**{k: _place(params[k], spec, mesh) for k, spec in _TOP_SPECS.items()},
             "layers": [_shard_layer(layer, mesh) for layer in params["layers"]]}

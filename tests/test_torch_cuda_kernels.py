@@ -62,8 +62,8 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
     flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
-    KERNEL as PAGED, KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, paged_decode_attention,
-    paged_decode_attention_plain, plan,
+    KERNEL as PAGED, KERNEL_MERGE, MODE_INT8C, MODES, SOURCE as PAGED_SOURCE, kernel_name,
+    paged_decode_attention, paged_decode_attention_plain, plan,
 )
 from flash_attention_from_scratch_tpu_torch.ops.quant import (
     QTensor, dequantize, quantize_kv, quantize_kv_pages,
@@ -1562,3 +1562,45 @@ def test_ring_on_the_card_over_gloo(cuda):
         assert r["device"] == "cuda" and r["staged"] == 2 * 4096
         assert r["launches"] == dict(launch_plan(KernelConfig(causal=True), 2, 512, rank))
         assert all(d <= 2.0 ** -6 * scale for d, scale in r["diffs"]), r["diffs"]
+
+
+def test_pipeline_and_expert_axes_on_the_card_over_gloo(cuda):
+    """Four gloo ranks on card 0, on a "pp" and an "ep" mesh: ppermute
+    along the partial chain (i, i + 1) moves each CUDA tensor one rank on
+    (rank 0 gets zeros) and its gradient one rank back (the last rank gets
+    zeros); copy_to then reduce_from sums over the axis forward and
+    backward; each rank staged its sends and receives through host memory
+    and got its results on the card."""
+    import torch_parallel_ranks as ranks
+    from flash_attention_from_scratch_tpu_torch.parallel.launch import spawn
+
+    world = 4
+    got = spawn(ranks.cuda_axes, world, backend="gloo", device="cuda:0", timeout=300)
+    for rank, r in enumerate(got):
+        for axis in ("pp", "ep"):
+            a = r[axis]
+            assert a["device"] == "cuda" and a["staged"] > 0
+            assert torch.equal(a["moved"], torch.full((256,), float(rank)))
+            back = float(rank + 2) if rank < world - 1 else 0.0
+            assert torch.equal(a["moved_grad"], torch.full((256,), back))
+            assert torch.equal(a["summed"], torch.full((2,), float(sum(range(1, world + 1)))))
+            assert torch.equal(a["copy_grad"], torch.full((2,), 2.0 * world))
+
+
+def test_tp_lora_decode_on_the_card_over_gloo(cuda):
+    """Two gloo ranks on card 0: LoRA prefill and one decode step with
+    adapters 1 and -1 in one batch on tp shards (K1 per prompt, K4/K5 on
+    each rank's 2 heads) give the same logits on both ranks, within 6e-2 (the
+    JAX tp decode test's bound) of the whole model's on the CPU's plain
+    path."""
+    import torch_parallel_ranks as ranks
+    from flash_attention_from_scratch_tpu_torch.parallel.launch import spawn
+
+    _build.load(FLASH_SOURCE)  # built once here, not by each rank
+    _build.load(PAGED_SOURCE)
+    got = spawn(ranks.cuda_tp_lora, 2, backend="gloo", device="cuda:0", timeout=300)
+    assert torch.equal(got[0]["logits"], got[1]["logits"])
+    for r in got:
+        assert r["launches"][FLASH] == 2 and r["launches"][PAGED] == 1, r["launches"]
+    err = float((got[0]["logits"] - got[0]["plain"]).abs().max())
+    assert err < 6e-2, err

@@ -31,7 +31,8 @@ need = {pkg.__name__ + "." + m for m in ("models.lora", "ops.causal_decomp", "en
                                          "parallel.collectives",
                                          "parallel.sharded_attention",
                                          "parallel.ring_attention", "parallel.launch",
-                                         "tools.bench_ring")}
+                                         "tools.bench_ring", "parallel.pipeline",
+                                         "tools.scaling_report")}
 assert need <= set(names), need - set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

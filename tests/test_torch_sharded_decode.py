@@ -30,9 +30,11 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from flash_attention_from_scratch_tpu.models import decode as jax_decode
 from flash_attention_from_scratch_tpu.models import llama as jax_llama
+from flash_attention_from_scratch_tpu.models import lora as jax_lora
 from flash_attention_from_scratch_tpu.parallel import mesh as jax_mesh
 from flash_attention_from_scratch_tpu.serving.generate import GenerationServer as JaxServer
 from flash_attention_from_scratch_tpu_torch.models.llama import LlamaConfig, params_from_jax
+from flash_attention_from_scratch_tpu_torch.models.lora import lora_from_jax
 from flash_attention_from_scratch_tpu_torch.parallel.launch import spawn
 
 import torch_parallel_ranks as ranks
@@ -91,6 +93,45 @@ def jax_steps(cpu_mesh_devices):
 
 
 @pytest.fixture(scope="module")
+def jax_lora_steps(jax_steps, cpu_mesh_devices):
+    """JAX's tp 2 prefill of two prompts with adapters 1 and -1 (2 adapters
+    of rank 8, B non-zero), one decode step of both rows, then three more
+    decode steps: what the port's 3-token verify step computes at once."""
+    cfg = _jcfg(STEP_SHAPE)
+    lora = jax_lora.init_lora_adapters(cfg, 2, 8, jax.random.PRNGKey(3), zero_b=False)
+    mesh = jax_mesh.make_mesh(1, 2, devices=cpu_mesh_devices[:2])
+    sharded = jax_mesh.shard_params(jax_steps["params"], mesh)
+    prompts, tables = (jnp.asarray(x.numpy()) for x in ranks.lora_prompts())
+    ids = jnp.asarray(ranks.LORA_IDS, jnp.int32)
+    cache = _shard_cache(jax_decode.init_cache(cfg, ranks.DECODE_PAGES, ranks.DECODE_PAGE),
+                         mesh)
+    out = {"lora": lora}
+    with mesh:
+        for i in range(2):
+            logits, cache = jax_decode.prefill(
+                sharded, prompts[i:i + 1].astype(jnp.int32), cfg, cache, tables[i],
+                prompt_len=20, interpret=True, mesh=mesh, lora=lora, adapter_ids=ids[i:i + 1])
+            out[f"prefill{i}"] = np.asarray(logits)
+        first = np.asarray([np.argmax(out["prefill0"]), np.argmax(out["prefill1"])], np.int32)
+        logits, cache = jax_decode.decode_step(
+            sharded, jnp.asarray(first), cfg, cache, jnp.asarray([21, 21], jnp.int32), tables,
+            interpret=True, mesh=mesh, lora=lora, adapter_ids=ids)
+        out["decode"] = np.asarray(logits)
+        second = np.argmax(out["decode"], -1).astype(np.int32)
+        verify = np.stack([second, [5, 5], [6, 6]], axis=1)
+        rows = []
+        for j in range(3):
+            logits, cache = jax_decode.decode_step(
+                sharded, jnp.asarray(verify[:, j]), cfg, cache,
+                jnp.asarray([22 + j] * 2, jnp.int32), tables, interpret=True, mesh=mesh,
+                lora=lora, adapter_ids=ids)
+            rows.append(np.asarray(logits))
+    out.update(verify=np.stack(rows, axis=1), tokens={"decode": first, "verify": verify},
+               k_pages=np.asarray(jax.device_get(cache.k_pages[0]), np.float32))
+    return out
+
+
+@pytest.fixture(scope="module")
 def jax_serving():
     cfg = _jcfg(SERVE_SHAPE)
     params = jax_llama.init_params(cfg, jax.random.PRNGKey(1))
@@ -105,10 +146,13 @@ def jax_serving():
 
 
 @pytest.fixture(scope="module")
-def rank_dir(tmp_path_factory, jax_steps, jax_serving):
+def rank_dir(tmp_path_factory, jax_steps, jax_lora_steps, jax_serving):
     setup = {
         "steps": {"params": _port(jax_steps["params"]), "cfg": LlamaConfig(**STEP_SHAPE),
-                  "token": jax_steps["token"]},
+                  "token": jax_steps["token"],
+                  "lora": lora_from_jax(jax.device_get(jax_lora_steps["lora"]), device="cpu"),
+                  "lora_tokens": {k: torch.tensor(v).long()
+                                  for k, v in jax_lora_steps["tokens"].items()}},
         "serve": {"params": _port(jax_serving["params"]), "int8": _port(jax_serving["int8"]),
                   "cfg": LlamaConfig(**SERVE_SHAPE), "prompts": PROMPTS, "new": NEW_TOKENS},
     }
@@ -174,3 +218,33 @@ def test_tp_server_refusals_match_jax(rank_dir):
         assert "dp=1" in got["dp"]
         assert "single-chip" in got["prefill_chunk_tokens"]
         assert "prefix_cache" in got["prefix_cache"]
+
+
+@pytest.mark.parametrize("step", ["prefill0", "prefill1", "decode", "verify"])
+def test_tp_lora_step_logits_match_jax(rank_dir, jax_lora_steps, step):
+    """LoRA under tp 2, adapters 1 and -1 in one batch: each prefill, the
+    decode step and a 3-token verify step (held to JAX's three decode
+    steps: JAX's ``verify_step`` takes no adapters) within 6e-2 of JAX's
+    logits with ``mesh=`` and ``lora=``, the same on both ranks."""
+    parts = ranks.load(rank_dir, "lora_steps", WORLD)
+    assert torch.equal(parts[0][step], parts[1][step])
+    err = float(np.abs(parts[0][step].numpy() - jax_lora_steps[step]).max())
+    assert err < 6e-2, (step, err)
+
+
+def test_tp_lora_pages_match_jax(rank_dir, jax_lora_steps):
+    """The K pages both sequences' prefill, decode and verify wrote (slots
+    0-23 of pages 0 and 2) within 3e-2 of JAX's, each rank its KV heads."""
+    got = torch.cat([p["k_pages"] for p in ranks.load(rank_dir, "lora_steps", WORLD)], 0)
+    got, want = got.float().numpy(), jax_lora_steps["k_pages"]
+    assert got.shape == want.shape
+    for page in (0, 2):
+        assert np.abs(got[:, page, :24] - want[:, page, :24]).max() < 3e-2
+        assert np.abs(got[:, page + 1] - want[:, page + 1]).max() < 3e-2
+
+
+def test_tp_server_refuses_lora_as_jax(rank_dir):
+    """``GenerationServer(mesh=, lora=)`` raises ValueError naming LoRA, as
+    the JAX server does."""
+    for got in ranks.load(rank_dir, "refusals", WORLD):
+        assert got["lora"] is not None and "LoRA" in got["lora"]

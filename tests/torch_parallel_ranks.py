@@ -299,12 +299,16 @@ def _serve(params, cfg, mesh, prompts, new_tokens, **kw):
 
 
 def _refusals(params, cfg, mesh_tp, mesh_dp, rank, out_dir):
-    """JAX's four ValueErrors of a server with a mesh: n_kv_heads not
-    divisible by tp, dp > 1, chunked prefill, the prefix cache."""
+    """JAX's ValueErrors of a server with a mesh: n_kv_heads not divisible
+    by tp, dp > 1, chunked prefill, the prefix cache, LoRA adapters."""
+    from flash_attention_from_scratch_tpu_torch.models.lora import init_lora_adapters
+
     one_kv = dataclasses.replace(cfg, n_kv_heads=1)
+    lora = init_lora_adapters(cfg, 2, 4, torch.Generator().manual_seed(0), device="cpu")
     cases = {"n_kv_heads": (one_kv, mesh_tp, {}), "dp": (cfg, mesh_dp, {}),
              "prefill_chunk_tokens": (cfg, mesh_tp, dict(prefill_chunk_tokens=128)),
-             "prefix_cache": (cfg, mesh_tp, dict(prefix_cache=True))}
+             "prefix_cache": (cfg, mesh_tp, dict(prefix_cache=True)),
+             "lora": (cfg, mesh_tp, dict(lora=lora))}
     got = {}
     for name, (c, mesh, kw) in cases.items():
         try:
@@ -316,15 +320,54 @@ def _refusals(params, cfg, mesh_tp, mesh_dp, rank, out_dir):
     save(out_dir, "refusals", rank, got)
 
 
+LORA_IDS = (1, -1)  # the adapter of each of the LoRA steps' two sequences
+
+
+def lora_prompts():
+    """Two 20-token prompts padded to 128, (2, 128), and their page tables
+    (2, 4): pages 0-1 and 2-3."""
+    prompts = torch.zeros((2, 128), dtype=torch.long)
+    prompts[0, :20] = torch.arange(20) % 128
+    prompts[1, :20] = (torch.arange(20) * 7 + 3) % 128
+    tables = torch.full((2, 4), -1, dtype=torch.int32)
+    tables[:, :2] = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    return prompts, tables
+
+
+def _tp_lora_steps(params, lora, cfg, mesh, tokens, rank, out_dir):
+    """Each sequence's prefill with its adapter, then one decode step and
+    one 3-token verify step of both rows (adapters 1 and -1)."""
+    prompts, tables = lora_prompts()
+    ids = torch.tensor(LORA_IDS)
+    cache = decode.init_cache(cfg, DECODE_PAGES, DECODE_PAGE, device="cpu", mesh=mesh)
+    out = {}
+    for i in range(2):
+        out[f"prefill{i}"], cache = decode.prefill(
+            params, prompts[i:i + 1], cfg, cache, tables[i], prompt_len=20, lora=lora,
+            adapter_ids=ids[i:i + 1], mesh=mesh)
+    out["decode"], cache = decode.decode_step(
+        params, tokens["decode"], cfg, cache, torch.tensor([21, 21], dtype=torch.int32),
+        tables, lora=lora, adapter_ids=ids, mesh=mesh)
+    out["verify"], cache = decode.verify_step(
+        params, tokens["verify"], cfg, cache, torch.tensor([24, 24], dtype=torch.int32),
+        tables, lora=lora, adapter_ids=ids, mesh=mesh)
+    out["k_pages"] = cache.k_pages[0]
+    save(out_dir, "lora_steps", rank, out)
+
+
 def decode_ranks(rank, world, out_dir, setup):
     """The cases of ``tests/test_torch_sharded_decode.py`` on a tp 2 mesh
     (and a dp 2 mesh for the refusal of dp > 1)."""
+    from flash_attention_from_scratch_tpu_torch.models.lora import shard_lora
+
     torch.set_num_threads(2)
     tp = make_mesh(1, world, device="cpu")
     dp = make_mesh(world, 1, device="cpu")
     steps = setup["steps"]
     _tp_steps(shard_params(steps["params"], tp), steps["cfg"], tp, steps["token"], rank,
               out_dir)
+    _tp_lora_steps(shard_params(steps["params"], tp), shard_lora(steps["lora"], tp),
+                   steps["cfg"], tp, steps["lora_tokens"], rank, out_dir)
     serve = setup["serve"]
     for name, params, kw in (("dense", serve["params"], {}),
                              ("int8", serve["int8"], dict(mode="int8"))):
@@ -368,3 +411,237 @@ def cuda_ring(rank, world):
              [(out, whole)] + [(s.grad, t.grad) for s, t in zip(shards, (q, k, v))]]
     return {"moved": moved.cpu(), "device": moved.device.type, "staged": staged,
             "launches": launches, "diffs": diffs}
+
+
+# ------------------------------------------------------------ the pipeline
+
+PIPE_WORLD = 4
+
+
+def _pipe_faults(mesh):
+    """Faults planted in the pipeline, to show that the gradient check
+    fails them: the embedding's gradient not summed over "pp" (only stage
+    0 reads it), and the LM head's summed (every rank computes it)."""
+    from flash_attention_from_scratch_tpu_torch.parallel import pipeline
+
+    def lm_head_summed(params, x, cfg):
+        return llama._lm_logits({**params, "lm_head": collectives.copy_to(
+            params["lm_head"], mesh, pipeline.PIPELINE_AXIS)}, x, cfg)
+
+    return {"no_embed_sum": mock.patch.object(pipeline, "copy_to", lambda x, mesh, axis: x),
+            "lm_head_summed": mock.patch.object(pipeline, "_lm_logits", lm_head_summed)}
+
+
+def _grads_of(tree, prefix=""):
+    """{path: gradient} of every tensor leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _grads_of(sub, f"{prefix}{key}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _grads_of(sub, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree.grad.detach().clone()}
+
+
+def _leaves_train(tree):
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+
+    for p in param_leaves(tree):
+        p.requires_grad_(True)
+    return tree
+
+
+def _pipe_grads(params, tokens, cfg, mesh, n_micro):
+    """pipeline_loss_fn's loss and every leaf's gradient on this rank."""
+    from flash_attention_from_scratch_tpu_torch.parallel import pipeline
+
+    staged = _leaves_train(pipeline.shard_pipeline_params(
+        pipeline.stack_pipeline_params(params, mesh.size("pp")), mesh))
+    loss = pipeline.pipeline_loss_fn(staged, tokens, cfg, mesh, n_micro)
+    loss.backward()
+    return {"loss": float(loss.detach()), "grads": _grads_of(staged)}
+
+
+def pipe_ranks(rank, world, out_dir, setup):
+    """The cases of ``tests/test_torch_pipeline.py``: the refusal of a mesh
+    smaller than the group without ``sub``, the pp 4 and pp 2 forward (pp 2
+    a sub-mesh on ranks 0-1), the pp 4 loss and gradients, the same with
+    each fault of :func:`_pipe_faults` planted, the microbatch refusal, and
+    the pipeline against the port's own ``loss_fn`` on a config with
+    ``embed_scale``, a final softcap, RoPE scaling and a window cycle."""
+    from flash_attention_from_scratch_tpu_torch.parallel import pipeline
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_axis_mesh
+
+    torch.set_num_threads(1)
+    params, cfg = setup["params"], llama.LlamaConfig(**setup["cfg"])
+    refused = {}
+    for name, build in (("axis", lambda: make_axis_mesh("pp", 2, device="cpu")),
+                        ("dp_tp", lambda: make_mesh(1, 2, device="cpu"))):
+        try:
+            build()
+            refused[name] = None
+        except ValueError as e:
+            refused[name] = str(e)
+    meshes = {4: make_axis_mesh("pp", 4, device="cpu"),
+              2: make_axis_mesh("pp", 2, device="cpu", sub=True)}
+    save(out_dir, "sub_mesh", rank, {"refused": refused, "pp2_none": meshes[2] is None})
+    for n, mesh in meshes.items():
+        if mesh is None:
+            continue
+        staged = pipeline.shard_pipeline_params(pipeline.stack_pipeline_params(params, n), mesh)
+        with torch.no_grad():
+            save(out_dir, f"fwd_pp{n}", rank, pipeline.pipeline_forward(
+                staged, setup["tokens"], cfg, mesh, n))
+    mesh = meshes[4]
+    save(out_dir, "grad", rank, _pipe_grads(params, setup["tokens129"], cfg, mesh, 4))
+    for name, fault in _pipe_faults(mesh).items():
+        with fault:
+            save(out_dir, name, rank, _pipe_grads(params, setup["tokens129"], cfg, mesh, 4))
+    try:
+        pipeline.pipeline_forward(staged, setup["tokens"], cfg, mesh, 3)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    save(out_dir, "refusal", rank, refused)
+    variant = llama.LlamaConfig(**{**setup["cfg"], **setup["variant"]})
+    got = _pipe_grads(params, setup["tokens129"], variant, mesh, 2)
+    whole = _leaves_train({k: (v.clone() if k != "layers" else [
+        {n: w.clone() for n, w in layer.items()} for layer in v]) for k, v in params.items()})
+    loss = llama.loss_fn(whole, setup["tokens129"], variant)
+    loss.backward()
+    save(out_dir, "variant", rank, {"pipeline": got, "loss": float(loss.detach()),
+                                    "grads": _grads_of(whole)})
+    return mesh.staged_bytes
+
+
+# ------------------------------------------------------ expert parallelism
+
+EP_WORLD = 4
+
+
+def _ep_faults(mesh):
+    """Faults planted in expert parallelism: the experts' gradient into
+    combine (so into the gates and the router) left unsummed over "ep";
+    the gates' whole gradient summed, the aux loss's with it."""
+    from flash_attention_from_scratch_tpu_torch.models import moe
+
+    route = moe._route
+
+    def gates_summed(cfg, gates, capacity):
+        return route(cfg, collectives.copy_to(gates, mesh, moe.EXPERT_AXIS), capacity)
+
+    def x_only(combine, xt, mesh):
+        return combine, collectives.copy_to(xt, mesh, moe.EXPERT_AXIS)
+
+    return {"router_not_summed": [mock.patch.object(moe, "_expert_inputs", x_only)],
+            "aux_summed": [mock.patch.object(moe, "_expert_inputs", x_only),
+                           mock.patch.object(moe, "_route", gates_summed)]}
+
+
+def ep_ranks(rank, world, out_dir, setup):
+    """The cases of ``tests/test_torch_expert_parallel.py`` on an ep 4 mesh:
+    ``_moe_mlp`` on the same activations, ``moe_loss_fn``'s loss and
+    gradients (and with each fault of :func:`_ep_faults`), and the
+    refusals of MoE under a tp and an sp mesh."""
+    from flash_attention_from_scratch_tpu_torch.models import moe
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_axis_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_axis_mesh(moe.EXPERT_AXIS, world, device="cpu")
+    cfg = moe.MoEConfig(**setup["cfg"])
+    params = setup["params"]
+    layer = moe.shard_moe_params(params, mesh)["layers"][0]
+    with torch.no_grad():
+        out, aux = moe._moe_mlp(cfg, layer, setup["x"], mesh)
+    save(out_dir, "mlp", rank, {"out": out, "aux": float(aux)})
+    cases = {"grad": [], **_ep_faults(mesh)}
+    for name, patches in cases.items():
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            sharded = _leaves_train(moe.shard_moe_params(params, mesh))
+            loss = moe.moe_loss_fn(sharded, setup["tokens"], cfg, mesh)
+            loss.backward()
+        save(out_dir, name, rank, {"loss": float(loss.detach()), "grads": _grads_of(sharded)})
+    refusals = {}
+    for name, other in (("tp", make_mesh(1, world, device="cpu")),
+                        ("sp", make_sp_mesh(world, device="cpu"))):
+        for what, call in (("forward", lambda: moe.moe_forward(
+                params, setup["tokens"][:, :-1], cfg, other)),
+                           ("shard_params", lambda: shard_params(params, other))):
+            try:
+                call()
+                refusals[f"{name}_{what}"] = None
+            except NotImplementedError as e:
+                refusals[f"{name}_{what}"] = str(e)
+    save(out_dir, "refusals", rank, refusals)
+    return mesh.staged_bytes
+
+
+def cuda_axes(rank, world):
+    """On card 0 under gloo: on a "pp" and an "ep" mesh of ``world`` ranks,
+    ppermute of a CUDA tensor along the partial chain (i, i + 1) (no
+    wraparound: rank 0 receives zeros), with its gradient, then reduce_from
+    after copy_to with theirs. Returns CPU values only."""
+    from flash_attention_from_scratch_tpu_torch.parallel.mesh import make_axis_mesh
+
+    out = {}
+    for axis in ("pp", "ep"):
+        mesh = make_axis_mesh(axis, world, device="cuda:0", backend="gloo")
+        x = torch.full((256,), float(rank + 1), device=mesh.device, requires_grad=True)
+        y = collectives.ppermute(x, mesh, axis, [(i, i + 1) for i in range(world - 1)])
+        (y * (rank + 1)).sum().backward()
+        r = torch.full((2,), float(rank + 1), device=mesh.device, requires_grad=True)
+        summed = collectives.reduce_from(collectives.copy_to(r, mesh, axis), mesh, axis)
+        (summed * 2).sum().backward()
+        out[axis] = {"moved": y.detach().cpu(), "moved_grad": x.grad.cpu(),
+                     "summed": summed.detach().cpu(), "copy_grad": r.grad.cpu(),
+                     "device": y.device.type, "staged": mesh.staged_bytes}
+    return out
+
+
+CUDA_LORA_SHAPE = dict(vocab_size=128, dim=512, n_layers=1, n_heads=4, n_kv_heads=2,
+                       d_head=128, hidden_dim=256)
+
+
+def _lora_step(params, lora, cfg, mesh, device):
+    """Both LoRA prompts' prefill (adapters 1, -1), then one decode step."""
+    prompts, tables = (t.to(device) for t in lora_prompts())
+    ids = torch.tensor(LORA_IDS, device=device)
+    cache = decode.init_cache(cfg, DECODE_PAGES, DECODE_PAGE, device=device, mesh=mesh)
+    first = []
+    with torch.no_grad():
+        for i in range(2):
+            logits, cache = decode.prefill(params, prompts[i:i + 1], cfg, cache, tables[i],
+                                           prompt_len=20, lora=lora, adapter_ids=ids[i:i + 1],
+                                           mesh=mesh)
+            first.append(int(logits.argmax()))
+        logits, _ = decode.decode_step(
+            params, torch.tensor(first, device=device), cfg, cache,
+            torch.tensor([21, 21], dtype=torch.int32, device=device), tables, lora=lora,
+            adapter_ids=ids, mesh=mesh)
+    return logits.float().cpu()
+
+
+def cuda_tp_lora(rank, world):
+    """On card 0 under gloo, tp 2: a random bf16 model's LoRA prefill and
+    decode step (2 adapters of rank 8, B non-zero) on the rank's shards
+    (K1, K4/K5 on the card), and on rank 0 the same steps on the whole
+    model on the CPU (the plain versions). Returns CPU values only."""
+    from flash_attention_from_scratch_tpu_torch.models.lora import (
+        init_lora_adapters, shard_lora)
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+
+    cfg = llama.LlamaConfig(**CUDA_LORA_SHAPE)
+    gen = torch.Generator().manual_seed(0)
+    params = llama.init_params(cfg, gen, "cpu")
+    lora = init_lora_adapters(cfg, 2, 8, gen, zero_b=False, device="cpu")
+    mesh = make_mesh(1, world, device="cuda:0", backend="gloo")
+    _build.launch_counts.clear()
+    got = _lora_step(shard_params(params, mesh), shard_lora(lora, mesh), cfg, mesh,
+                     mesh.device)
+    torch.cuda.synchronize()
+    out = {"logits": got, "launches": dict(_build.launch_counts)}
+    if rank == 0:
+        out["plain"] = _lora_step(params, lora, cfg, None, "cpu")
+    return out
