@@ -67,7 +67,13 @@ Llama-3-8B's widths at 4 layers back bit for bit, int8-converted serving
 equal to ``quantize_params`` serving (K6), bf16 shards the script writes
 read back by ``load_hf_checkpoint``; Gemma-2-27B's widths at 4 layers
 served past their 4,096 window, every request teacher-forced through
-``forward`` within 0.05); (6) train
+``forward`` within 0.05), then serve Gemma-2-9B at full width and depth
+(``serve_gemma2_9b``: head width 256, 42 layers, random bf16 weights
+converted by ``from_hf_gemma2``, 8 requests of 200-5,000 tokens, 32 greedy
+tokens, K1 and K4/K5 at d 256 counted, every request teacher-forced, a
+replayed step bit-equal to the eager one, 4 decode steps profiled; then
+int8 weights and KV pages at 8 layers within 0.25 row standard
+deviations); (6) train
 Llama-3-8B at full width and 8 layers (AdamW, batch 2 x 2048 tokens) for 3
 steps with the default backward (the split K3, the faster), checking the
 loss falls and the launch counts, profile one more step, then take one
@@ -117,7 +123,14 @@ K4/K5's multi-token q (t = 2, 4, 8 on every page format, with a window and
 a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
-windows, a softcap and strided Q, against its plain version. (10) the parallel layer (``parallel/``), its ranks processes on this card
+windows, a softcap and strided Q, against its plain version, and head
+width 256 (``phase_d256_cases``, Gemma-2-9B's 16/8 heads): K1 on five
+cases (the 5,120-row prefill with the window or globally, a q_offset
+chunk with every option, full, ragged) and K4/K5 on every page format and
+int8 compute at t = 1 and 4 with the window and the softcap; K1 and
+K4/K5 at d 256 are timed at ``serve_gemma2_9b``'s shapes
+(``time_flash_d256``, ``time_paged_d256``; the ``*_d256`` entries of the
+``kernels`` line). (10) the parallel layer (``parallel/``), its ranks processes on this card
 over gloo, named here (NCCL refuses two ranks on one card; every tensor
 that crosses ranks goes through pinned host memory, counted as staged
 bytes; no time of these phases is a multi-card speed): ``ring``, ring
@@ -142,7 +155,8 @@ LoRA prefill, decode and verify steps under tp 2 against one rank;
 ``entry.dryrun_multichip(4)``; then the kernels at the shard shapes
 (``time_shards``). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
-``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``, ``train``,
+``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
+``serve_gemma2_9b``, ``train``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
@@ -220,7 +234,8 @@ def _graph_ms(fn, calls: int = 20, iters: int = 5) -> float:
     return sorted(times)[iters // 2]
 
 
-def _attn_ops(seq: int, heads: int, batch: int, causal: bool, window: int = 0) -> int:
+def _attn_ops(seq: int, heads: int, batch: int, causal: bool, window: int = 0,
+              d: int = D) -> int:
     """Tensor-core operations of an attention forward: the two tile
     products, S = Q K^T and P V, 2 * d each per visible (q, kv) pair. The
     softmax's elementwise work runs on the CUDA cores beside them."""
@@ -230,7 +245,7 @@ def _attn_ops(seq: int, heads: int, batch: int, causal: bool, window: int = 0) -
         pairs = window * seq - window * (window - 1) // 2
     else:
         pairs = seq * (seq + 1) // 2
-    return 4 * D * pairs * heads * batch
+    return 4 * d * pairs * heads * batch
 
 
 def phase_device() -> str:
@@ -287,10 +302,10 @@ def _as_model_rows(x, strided):
     return x.transpose(1, 2).contiguous().transpose(1, 2) if strided else x
 
 
-def _cuda_qkv(sq, skv, seed, batch=1, strided=False):
+def _cuda_qkv(sq, skv, seed, batch=1, strided=False, heads=HEADS, kv_heads=KV_HEADS, d=D):
     from flash_attention_from_scratch_tpu_torch.utils.testing import make_qkv
 
-    q, k, v = make_qkv(batch, HEADS, sq, D, kv_heads=KV_HEADS, seq_kv=skv,
+    q, k, v = make_qkv(batch, heads, sq, d, kv_heads=kv_heads, seq_kv=skv,
                        seed=seed)
     return [_as_model_rows(torch.from_numpy(x).to("cuda", torch.bfloat16), strided)
             for x in (q, k, v)]
@@ -619,8 +634,9 @@ def _backward_sinks_case() -> None:
 
 
 def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
-                    device="cuda"):
-    """A bf16 page pool holding each sequence's K/V under shuffled page ids.
+                    device="cuda", kv_heads=KV_HEADS, d=D):
+    """A bf16 page pool holding each sequence's K/V under shuffled page ids
+    (``kv_heads`` heads of width ``d``).
 
     Pages no sequence owns, and each last page's slots past the length, hold
     NaN: the kernel must never read them. Returns (k_pages, v_pages,
@@ -631,7 +647,7 @@ def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
     if sum(need) > num_pages:
         raise ValueError("pool too small")
     perm = rng.permutation(num_pages)
-    k = np.full((KV_HEADS, num_pages, page_size, D), np.nan, np.float32)
+    k = np.full((kv_heads, num_pages, page_size, d), np.nan, np.float32)
     v = np.full_like(k, np.nan)
     tables = -np.ones((len(lengths), pages_per_seq), np.int32)
     nxt = 0
@@ -641,8 +657,8 @@ def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
             nxt += 1
             tables[b, i] = page
             rows = min(page_size, n - i * page_size)
-            k[:, page, :rows] = rng.standard_normal((KV_HEADS, rows, D))
-            v[:, page, :rows] = rng.standard_normal((KV_HEADS, rows, D))
+            k[:, page, :rows] = rng.standard_normal((kv_heads, rows, d))
+            v[:, page, :rows] = rng.standard_normal((kv_heads, rows, d))
     to = dict(device=device)
     return (torch.from_numpy(k).to(dtype=torch.bfloat16, **to),
             torch.from_numpy(v).to(dtype=torch.bfloat16, **to),
@@ -908,12 +924,14 @@ def _graph_fields(server, run: dict, prof: dict) -> dict:
 
 def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
                  mode: str = "dense", i8c: bool = False, spec_k: int = 0,
-                 kv_heads: int = KV_HEADS, group: int = HEADS // KV_HEADS) -> dict:
+                 kv_heads: int = KV_HEADS, group: int = HEADS // KV_HEADS,
+                 d_head: int = D) -> dict:
     """``want`` (launches by kernel) plus the merge kernel's: one per K4/K5
     call, as every K4/K5 call of the serving runs has more than one split
     (checked here at the server's padded batch, which every step has; the
-    plan is a function of the shapes only). ``kv_heads`` and ``group`` (Q
-    heads a KV head): the model's, Llama-3-8B's by default."""
+    plan is a function of the shapes only). ``kv_heads``, ``group`` (Q
+    heads a KV head) and ``d_head``: the model's, Llama-3-8B's by
+    default."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, plan)
     from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
@@ -924,7 +942,8 @@ def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
         if not n:
             continue
         p = plan(max_batch, kv_heads, group * t, pages_per_seq, page_size,
-                 MODE_INT8C if i8c else MODES[mode][0], sm_count(torch.device("cuda")))
+                 MODE_INT8C if i8c else MODES[mode][0], sm_count(torch.device("cuda")),
+                 d_head=d_head)
         if p.splits == 1:
             raise AssertionError(f"one split at the serving shape: {p}")
         calls += n
@@ -2275,11 +2294,13 @@ GEMMA2_PROMPT_LENS = (5000, 300, 700, 1200)
 CONVERT_NEW_TOKENS = 16  # tokens a request in the convert phase's serving runs
 
 
-def _gemma2_state_dict(hf, gen) -> dict:
+def _gemma2_state_dict(hf, gen, embed_std: float | None = None,
+                       final_norm: float = 0.0) -> dict:
     """A random Gemma-2 state dict with HF's names and (out, in) layouts on
-    the card, bf16: projections normal / sqrt(in), the embedding normal /
-    sqrt(hidden) (the model scales it by sqrt(hidden)), norm weights normal
-    x 0.1 (Gemma scales by 1 + weight)."""
+    the card, bf16: projections normal / sqrt(in), the embedding normal x
+    ``embed_std`` (default 1 / sqrt(hidden); the model scales it by
+    sqrt(hidden)), norm weights normal x 0.1 (Gemma scales by 1 + weight),
+    the final norm's plus ``final_norm``."""
     d, hd = hf["hidden_size"], hf["head_dim"]
     q, kv, h = hf["num_attention_heads"] * hd, hf["num_key_value_heads"] * hd, \
         hf["intermediate_size"]
@@ -2287,8 +2308,8 @@ def _gemma2_state_dict(hf, gen) -> dict:
     def normal(shape, scale):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    sd = {"model.embed_tokens.weight": normal((hf["vocab_size"], d), d ** -0.5),
-          "model.norm.weight": normal((d,), 0.1)}
+    sd = {"model.embed_tokens.weight": normal((hf["vocab_size"], d), embed_std or d ** -0.5),
+          "model.norm.weight": (normal((d,), 0.1).float() + final_norm).to(torch.bfloat16)}
     for i in range(hf["num_hidden_layers"]):
         pre = f"model.layers.{i}."
         for name, shape in (("self_attn.q_proj", (q, d)), ("self_attn.k_proj", (kv, d)),
@@ -2430,6 +2451,157 @@ def phase_convert(smi: str, ckpt_dir: str) -> dict:
     print(json.dumps({"convert": {"llama": llama_line, "gemma2": gemma_line,
                                   "s": time.perf_counter() - t0, "gpu": smi}}), flush=True)
     return {"int8": q_counts, "gemma2": run["counts"]}
+
+
+G9_INT8_LAYERS = 8  # the int8 run's depth: int8 weights (K6) and int8 KV pages
+
+
+def _g9_server(params, cfg, mode: str = "dense"):
+    """A server for G9_PROMPT_LENS at page SERVE_PAGE_SIZE: each request's
+    pages for its prompt and SERVE_NEW_TOKENS, a few pages of admission
+    headroom and the scratch page. Returns (server, pages a sequence)."""
+    from flash_attention_from_scratch_tpu_torch import GenerationServer
+
+    per_seq = -(-(max(G9_PROMPT_LENS) + SERVE_NEW_TOKENS) // SERVE_PAGE_SIZE)
+    need = sum(-(-(n + SERVE_NEW_TOKENS) // SERVE_PAGE_SIZE) for n in G9_PROMPT_LENS)
+    server = GenerationServer(params, cfg, num_pages=need + 8, page_size=SERVE_PAGE_SIZE,
+                              max_batch=len(G9_PROMPT_LENS), pages_per_seq=per_seq,
+                              mode=mode)
+    return server, per_seq
+
+
+def phase_serve_gemma2_9b(smi: str) -> dict:
+    """Gemma-2-9B at full width and depth (``GEMMA2_9B_HF``: 42 layers, head
+    width 256; random bf16 weights from a seed, built on the card as an
+    HF-named state dict and converted by ``from_hf_gemma2``, as ``convert``
+    does): 8 requests of G9_PROMPT_LENS (one past the 4,096 window), 32
+    greedy tokens each, page 64, every decode step a graph replay (4 more
+    profiled: the ``profile`` line). K1 runs
+    at d 256 for every prompt's prefill (windowed and global layers,
+    softcap 50), K4/K5 at d 256 in the decode graphs. Gates: finite logits;
+    every request's tokens teacher-forced through ``forward`` within SLACK
+    of the row max; K1 42 x 8 launches and K4/K5 42 x decode steps, each
+    with its merge; a replayed step equal to the eager one bit for bit
+    (``graph_case``). Then the int8 run: the first G9_INT8_LAYERS layers
+    with int8 weights (K6, ``quantize_params``) and int8 KV pages on the
+    same prompts, launches checked, two requests (one past the window)
+    within QUANT_SLACK_STD row standard deviations of ``forward`` on the
+    same weights (run A's rule). Returns {"counts", "int8_counts"}."""
+    import types
+
+    from flash_attention_from_scratch_tpu_torch import from_hf_gemma2, quantize_params
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    t0 = time.perf_counter()
+    hf = GEMMA2_9B_HF
+    # The tied head's logit of the current token is sqrt(hidden) |e|^2 over
+    # the residual's RMS: at the usual embedding scale (1 / sqrt(hidden))
+    # and 42 layers it sits ~6.5 above a row of unit spread, so every served
+    # token would repeat its input whatever the attention computes. A tenth
+    # of that scale, with the final norm's weight at ~10 to keep the
+    # logits' unit spread, leaves the current token ~0.65 ahead: the served
+    # tokens then follow the attention.
+    sd = _gemma2_state_dict(hf, torch.Generator(device="cuda").manual_seed(0),
+                            embed_std=0.1 * hf["hidden_size"] ** -0.5, final_norm=9.0)
+    model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
+    params, cfg = from_hf_gemma2(model, dtype=torch.bfloat16)
+    del sd, model
+    torch.cuda.empty_cache()
+    server, per_seq = _g9_server(params, cfg)
+    sync()
+    weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
+    setup_s = time.perf_counter() - t0
+    print(f"serve_gemma2_9b: {cfg.n_layers} layers, d_head {cfg.d_head}, weights "
+          f"{weight_gb:.2f} GB (the tied lm_head a copy), KV pool {kv_gb:.2f} GB, set-up "
+          f"{setup_s:.1f} s", flush=True)
+    rng = np.random.default_rng(5)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(G9_PROMPT_LENS)}
+    capture_s = _warm_graphs(server, cfg.vocab_size, SERVE_NEW_TOKENS)
+    served = _serve_run("serve_gemma2_9b", server, prompts, smi)
+    run, tokens = served["run"], served["tokens"]
+    stats = run["stats"]
+    group = cfg.n_heads // cfg.n_kv_heads
+    want = _with_merges({K1: cfg.n_layers * len(prompts),
+                         KP: cfg.n_layers * stats["decode_steps"]}, len(prompts), per_seq,
+                        SERVE_PAGE_SIZE, kv_heads=cfg.n_kv_heads, group=group,
+                        d_head=cfg.d_head)
+    print(f"serve_gemma2_9b: launches {run['counts']}; expected {want} ({cfg.n_layers} "
+          f"layers x {len(prompts)} prompts, {stats['decode_steps']} decode steps)",
+          flush=True)
+    if run["counts"] != want:
+        raise AssertionError("serve_gemma2_9b: a kernel of the path ran the wrong number "
+                             "of times")
+    gaps = [float(_teacher_forced_gaps(params, cfg, prompts[sid], tokens[sid])[0].max())
+            for sid in prompts]
+    # A served token equal to the token it was computed from (the prompt's
+    # last, then the previous served one): a model whose logits ignore the
+    # attention repeats its input every step.
+    repeats = sum(t == ([prompts[sid][-1]] + tokens[sid])[i]
+                  for sid in prompts for i, t in enumerate(tokens[sid]))
+    distinct = [len(set(tokens[sid])) for sid in prompts]
+    print(f"serve_gemma2_9b: teacher-forced worst gap per request {gaps} (limit {SLACK}); "
+          f"{repeats} of {len(prompts) * SERVE_NEW_TOKENS} tokens repeat their input, "
+          f"distinct tokens per request {distinct}", flush=True)
+    if max(gaps) > SLACK:
+        raise AssertionError(f"serve_gemma2_9b: a served token lies {max(gaps)} below the "
+                             "full-recompute row max")
+    if repeats * 2 > len(prompts) * SERVE_NEW_TOKENS:
+        raise AssertionError(f"serve_gemma2_9b: {repeats} served tokens repeat their input: "
+                             "the random model's logits do not depend on the attention")
+    case = graph_case("gemma2-9b t1", server, [min(n, 1500) + 1 for n in G9_PROMPT_LENS], 1)
+    prof = phase_profile(server, prompts, run="gemma2_9b")
+    line = {"model": "Gemma-2-9B", "layers": cfg.n_layers, "d_head": cfg.d_head,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "window_pattern": list(cfg.window_pattern),
+            "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+            "prompt_lens": list(G9_PROMPT_LENS), "requests": len(prompts),
+            "new_tokens_per_request": SERVE_NEW_TOKENS, "page_size": SERVE_PAGE_SIZE,
+            **served["line"], "teacher_forced_worst_gap": max(gaps),
+            "repeated_input_tokens": repeats, "distinct_tokens": distinct,
+            "weight_gb": weight_gb, "kv_cache_gb": kv_gb, "peak_mem_gb": run["peak_mem_gb"],
+            "set_up_s": setup_s, "warm_up_s": capture_s, "graph_case": case,
+            **_graph_fields(server, run, prof), "launches": run["counts"]}
+    del server
+    torch.cuda.empty_cache()
+
+    qcfg = dataclasses.replace(cfg, n_layers=G9_INT8_LAYERS)
+    qparams = quantize_params(dict(params, layers=params["layers"][:G9_INT8_LAYERS]), "int8")
+    del params
+    torch.cuda.empty_cache()
+    qserver, _ = _g9_server(qparams, qcfg, mode="int8")
+    _warm_graphs(qserver, qcfg.vocab_size, SERVE_NEW_TOKENS)
+    qserved = _serve_run("serve_gemma2_9b int8", qserver, prompts, smi)
+    qrun, qtokens = qserved["run"], qserved["tokens"]
+    steps = qrun["stats"]["decode_steps"]
+    qwant = _with_merges({KERNELS[("int8", False)]: (7 * qcfg.n_layers + 1)
+                          * (len(prompts) + steps),
+                          K1: qcfg.n_layers * len(prompts), KP: qcfg.n_layers * steps},
+                         len(prompts), per_seq, SERVE_PAGE_SIZE, "int8",
+                         kv_heads=qcfg.n_kv_heads, group=group, d_head=qcfg.d_head)
+    if qrun["counts"] != qwant:
+        raise AssertionError(f"serve_gemma2_9b int8: launches {qrun['counts']}, expected "
+                             f"{qwant}")
+    rel = {}
+    for sid in (1, len(prompts) - 1):
+        g, std = _teacher_forced_gaps(qparams, qcfg, prompts[sid], qtokens[sid])
+        rel[G9_PROMPT_LENS[sid]] = float((g / std).max())
+    print(f"serve_gemma2_9b int8: teacher-forced worst gap in row std {rel} (limit "
+          f"{QUANT_SLACK_STD})", flush=True)
+    if max(rel.values()) > QUANT_SLACK_STD:
+        raise AssertionError("serve_gemma2_9b int8: a served token sits "
+                             f"{max(rel.values())} row std below the recompute's max")
+    line["int8"] = {"layers": qcfg.n_layers, "weights": "int8 (K6)", "kv": "int8",
+                    **qserved["line"], "teacher_forced_worst_gap_std": rel,
+                    "weight_gb": _param_bytes(qparams) / 1e9,
+                    "kv_cache_gb": qserver.cache.nbytes() / 1e9,
+                    "launches": qrun["counts"]}
+    del qserver, qparams
+    torch.cuda.empty_cache()
+    line["s"] = time.perf_counter() - t0
+    print(json.dumps({"serve_gemma2_9b": line}), flush=True)
+    return {"counts": run["counts"], "int8_counts": qrun["counts"]}
 
 
 def phase_serve_lora_quant(smi: str) -> dict:
@@ -2820,19 +2992,22 @@ def _time_merge(q, kp, lens, tables) -> tuple[int, float]:
     from flash_attention_from_scratch_tpu_torch.ops import paged_attention as pa
     from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
 
-    batch, heads = q.shape[:2]
-    rows = heads // KV_HEADS
-    p = pa.plan(batch, KV_HEADS, rows, tables.shape[1], kp.shape[2], 0,
-                sm_count(q.device))
+    batch, heads, d = q.shape
+    kv_heads = kp.shape[0]
+    rows = heads // kv_heads
+    p = pa.plan(batch, kv_heads, rows, tables.shape[1], kp.shape[2], 0,
+                sm_count(q.device), d_head=d)
     if p.splits == 1:
         return 1, 0.0
-    ws_o = torch.zeros((batch * KV_HEADS, p.splits, rows, D), device="cuda")
-    ws_ml = torch.zeros((batch * KV_HEADS, p.splits, rows, 2), device="cuda")
+    ws_o = torch.zeros((batch * kv_heads, p.splits, rows, d), device="cuda")
+    ws_ml = torch.zeros((batch * kv_heads, p.splits, rows, 2), device="cuda")
     out = torch.empty_like(q)
-    lib, stream = pa._lib(), torch.cuda.current_stream().cuda_stream
+    lib = pa._lib()
+    # The stream is read at each call: _graph_ms captures the calls on a
+    # stream of its own.
     merge = lambda: lib.fa_paged_decode_merge(  # noqa: E731
-        ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), batch, heads, KV_HEADS, 1,
-        p.splits, stream)
+        ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), batch, heads, kv_heads, 1,
+        p.splits, d, torch.cuda.current_stream().cuda_stream)
     return p.splits, _graph_ms(merge)
 
 
@@ -2865,6 +3040,92 @@ def time_paged() -> dict:
             "one_split_ms": one_split_ms, "eager_call_ms": call_ms,
             "shape": f"first decode step: lengths {lengths}, page {SERVE_PAGE_SIZE}, "
                      f"{HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
+
+
+def time_flash_d256(ptxas: dict | None = None) -> dict:
+    """K1 at head width 256, at ``serve_gemma2_9b``'s prefill shapes: one
+    global layer (causal, softcap 50) over the 8 padded prompts, b 1, 16/8
+    heads; beside it a sliding layer (window 4,096) and the same kernel as
+    a plain grid. Bound: the two products' operations at the bf16 rate (or
+    the bytes, the larger); the library call is SDPA (causal, GQA), which
+    has no softcap. ``ptxas``: the build's registers and spills of
+    ``flash_forward.cu``'s kernels."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+
+    cfg = KernelConfig(d_head=G9_D, causal=True, attn_softcap=G9_SOFTCAP)
+    local = dataclasses.replace(cfg, window=G9_WINDOW)
+    nocap = dataclasses.replace(cfg, attn_softcap=0.0)
+    ms = window_ms = nocap_ms = grid_ms = plain_ms = lib_ms = bound_ms = window_bound_ms = 0.0
+    for i, n in enumerate(G9_PROMPT_LENS):
+        s = _padded(n)
+        q, k, v = _cuda_qkv(s, s, seed=250 + i, heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
+        ms += _time_ms(lambda: ff.flash_forward(q, k, v, cfg))
+        window_ms += _time_ms(lambda: ff.flash_forward(q, k, v, local))
+        nocap_ms += _time_ms(lambda: ff.flash_forward(q, k, v, nocap))
+        grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
+        lib_ms += _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        plain_ms += _time_ms(lambda: ff.flash_forward_plain(q, k, v, cfg), iters=3, warmup=1)
+        nbytes = 2 * (2 * s * G9_HEADS * G9_D + 2 * s * G9_KV_HEADS * G9_D)  # q, o, k, v
+        for window in (0, G9_WINDOW):
+            ops = _attn_ops(s, G9_HEADS, 1, causal=True, window=window, d=G9_D)
+            b = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+            bound_ms += 0 if window else b
+            window_bound_ms += b if window else 0
+        del q, k, v
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "window_ms": window_ms,
+            "window_bound_ms": window_bound_ms, "no_softcap_ms": nocap_ms, "grid_ms": grid_ms,
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_kernel",)),
+            "shape": "sum over the 8 padded prompts "
+                     f"{[_padded(n) for n in G9_PROMPT_LENS]}: causal, softcap "
+                     f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}), b 1, "
+                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, bf16 (one layer); "
+                     "library: SDPA causal without a softcap"}
+
+
+def time_paged_d256(ptxas: dict | None = None) -> dict:
+    """K4/K5 at head width 256, at ``serve_gemma2_9b``'s first decode step
+    (8 sequences of G9_PROMPT_LENS + 1 tokens, 16/8 heads, page 64, dense
+    bf16): a global layer's call (softcap 50) by CUDA-graph replay, a
+    sliding layer's (window 4,096, which reads only the window's pages),
+    the call at one split, the plan's split count and the merge's time
+    alone. Bound: the K/V bytes the call needs (each token of the window
+    once) and q and out, over the HBM rate. ``ptxas``: the build's
+    registers and spills of ``paged_attention.cu``'s kernels."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    lengths = [n + 1 for n in G9_PROMPT_LENS]
+    per_seq = -(-max(lengths) // SERVE_PAGE_SIZE)
+    kp, vp, lens, tables = make_paged_pool(
+        lengths, SERVE_PAGE_SIZE, len(lengths) * per_seq, seed=260, pages_per_seq=per_seq,
+        kv_heads=G9_KV_HEADS, d=G9_D)
+    q = torch.from_numpy(np.random.default_rng(261).standard_normal(
+        (len(lengths), G9_HEADS, G9_D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    full, local = dict(softcap=G9_SOFTCAP), dict(softcap=G9_SOFTCAP, window=G9_WINDOW)
+    ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables, **full))
+    window_ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables, **local))
+    one_split_ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables,
+                                                            splits=1, **full))
+    splits, merge_ms = _time_merge(q, kp, lens, tables)
+    plain_ms = _time_ms(lambda: paged_decode_attention_plain(
+        q, kp, vp, lens, tables, scale=G9_D ** -0.5, **full), iters=3, warmup=1)
+    qo_bytes = 2 * q.numel() * 2
+    per_token = G9_KV_HEADS * G9_D * 2 * 2  # K and V, bf16
+    nbytes = sum(lengths) * per_token + qo_bytes
+    window_bytes = sum(min(n, G9_WINDOW) for n in lengths) * per_token + qo_bytes
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            "window_ms": window_ms, "window_bound_ms": 1e3 * window_bytes / PEAK_BYTES_PER_S,
+            "splits": splits, "merge_ms": merge_ms, "merge_share": merge_ms / ms,
+            "one_split_ms": one_split_ms,
+            "ptxas": _kernel_ptxas(ptxas or {}, ("paged_decode_kernel",
+                                                 "paged_decode_merge_kernel")),
+            "shape": f"first decode step: lengths {lengths}, page {SERVE_PAGE_SIZE}, "
+                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, bf16, softcap "
+                     f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}; one layer)"}
 
 
 # K2/K3's timed shapes, b 2, 32/8 heads: (label, seq, causal). The first is
@@ -3240,6 +3501,107 @@ def phase_paged_multi_cases() -> tuple[float, float]:
         del formats
     torch.cuda.empty_cache()
     return worst
+
+
+# Gemma-2-9B (google/gemma-2-9b config.json): the head-width-256 model the
+# port serves on the card at full width and depth (``serve_gemma2_9b``), and
+# the shapes of the d-256 kernel cases and timings: 16 Q heads, 8 KV heads
+# of 256, query_pre_attn_scalar 256 (scale 256^-0.5), a 4,096 window on
+# alternate layers, attention softcap 50.
+GEMMA2_9B_HF = dict(vocab_size=256000, hidden_size=3584, num_hidden_layers=42,
+                    num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+                    intermediate_size=14336, rope_theta=10000.0, rms_norm_eps=1e-6,
+                    query_pre_attn_scalar=256, sliding_window=4096,
+                    attn_logit_softcapping=50.0, final_logit_softcapping=30.0)
+G9_HEADS, G9_KV_HEADS, G9_D = 16, 8, 256
+G9_WINDOW, G9_SOFTCAP = 4096, 50.0
+# The served prompts: SERVE_PROMPT_LENS with the longest past the window.
+G9_PROMPT_LENS = (200, 513, 1024, 1500, 2048, 2500, 3000, 5000)
+
+# K1's d-256 cases (phase_d256_cases): (label, seq_q, seq_kv, KernelConfig
+# fields, extras), b 1, 16/8 heads: a sliding and a global layer's prefill
+# of the longest served prompt (5,000 tokens padded to 5,120), a chunk at
+# q_offset 4,096 with every option (window, softcap, sinks, LSE, a strided
+# view), full attention, and ragged tiles.
+D256_FLASH_CASES = [
+    ("gemma2-9b prefill s5120 window 4096 softcap 50", 5120, 5120,
+     dict(causal=True, window=G9_WINDOW, attn_softcap=G9_SOFTCAP), {}),
+    ("gemma2-9b prefill s5120 global softcap 50", 5120, 5120,
+     dict(causal=True, attn_softcap=G9_SOFTCAP), {}),
+    ("q_offset 4096 s1024/5120 window 4096 softcap 50 sinks strided", 1024, 5120,
+     dict(causal=True, q_offset=4096, window=G9_WINDOW, attn_softcap=G9_SOFTCAP),
+     dict(sinks=True, strided=True)),
+    ("full s1024", 1024, 1024, {}, {}),
+    ("ragged s192/320 q_offset 128 window 70", 192, 320,
+     dict(causal=True, q_offset=128, window=70), {}),
+]
+
+
+def phase_d256_cases() -> dict:
+    """Head width 256 at Gemma-2-9B's 16/8 heads: K1 on D256_FLASH_CASES
+    (its LSE too) by the tolerance rule in each (batch, head, 64-row band),
+    and K4/K5 on a ragged, shuffled, NaN-poisoned page-64 pool (lengths 0
+    to 5,000) on dense, int8, fp8 and int4 pages at t = 1 and 4 (each plain,
+    with the 4,096 window and with softcap 50) and int8 compute at t = 1 and
+    4, at split counts 1 and the plan's, in each (sequence, token). Each
+    call must launch its kernel once. Returns {"flash": (max |kernel -
+    plain|, worst err/bound), "paged": (the same)}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL, flash_forward_plain, flash_forward_with_lse)
+
+    flash = (0.0, 0.0)
+    for i, (name, sq, skv, kw, extra) in enumerate(D256_FLASH_CASES):
+        q, k, v = _cuda_qkv(sq, skv, seed=200 + i, strided=extra.get("strided", False),
+                            heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
+        sinks = (torch.from_numpy(np.random.default_rng(210 + i).standard_normal(
+            G9_HEADS).astype(np.float32) * 2).cuda() if extra.get("sinks") else None)
+        cfg = KernelConfig(d_head=G9_D, **kw)
+        ref16, _ = flash_forward_plain(q, k, v, cfg, sinks)
+        ref32, lse32 = flash_forward_plain(q.float(), k.float(), v.float(), _fp32(cfg),
+                                           sinks)
+        before = _build.launch_counts[KERNEL]
+        out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+        sync()
+        launched = _build.launch_counts[KERNEL] - before
+        lse_err = float((lse - lse32).abs().max())
+        flash = tuple(map(max, flash, _hold(
+            f"flash_forward d256 {name}", out, ref16, ref32, launched,
+            good=lse_err <= 1e-3, note=f", lse err {lse_err:.3e}")))
+        del q, k, v, ref16, ref32, out
+    torch.cuda.empty_cache()
+
+    lengths = [1, 17, 64, 65, 1000, 0, 2047, 3001, 5000]
+    kp, vp, lens, tables = make_paged_pool(lengths, 64, 320, seed=37, pages_per_seq=80,
+                                           kv_heads=G9_KV_HEADS, d=G9_D)
+    formats = {"dense": (kp, vp, {})}
+    for mode in ("int8", "fp8", "int4"):
+        qk, ks, qv, vs = _quantized_pool(kp, vp, mode)
+        formats[mode] = (qk, qv, dict(mode=mode, k_scales=ks, v_scales=vs))
+    options = {"plain": {}, f"window {G9_WINDOW}": dict(window=G9_WINDOW),
+               f"softcap {G9_SOFTCAP:g}": dict(softcap=G9_SOFTCAP)}
+    cases = [(mode, t, False, opt) for mode in formats for t in (1, SPEC_K + 1)
+             for opt in options]
+    cases += [("int8", t, True, opt) for t in (1, SPEC_K + 1) for opt in options]
+    rng = np.random.default_rng(39)
+    paged = (0.0, 0.0)
+    for mode, t, i8c, opt in cases:
+        k, v, kw = formats[mode]
+        shape = (len(lengths), G9_HEADS) + ((t,) if t > 1 else ()) + (G9_D,)
+        q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        kw = dict(kw, scale=G9_D ** -0.5, **options[opt])
+        native, ref32 = _paged_refs(q, k, v, lens, tables, i8c, kw)
+        for splits in PAGED_SPLITS:
+            out, launched = _paged_kernel(q, k, v, lens, tables, i8c, kw, splits)
+            label = (f"paged_decode_attention d256 {'int8c' if i8c else mode} t{t} {opt} "
+                     f"splits {splits or 'plan'}")
+            paged = tuple(map(max, paged, _hold_paged(label, out, native, ref32, lengths,
+                                                      launched)))
+    del formats, kp, vp
+    torch.cuda.empty_cache()
+    return {"flash": flash, "paged": paged}
 
 
 def _param_bytes(params) -> int:
@@ -5166,6 +5528,7 @@ def main(argv=None) -> int:
     quant_err, quant_ratio = phase_flash_quant_cases()
     paged_err = max(phase_paged_cases(), phase_quant_paged_cases())
     multi_err, multi_ratio = phase_paged_multi_cases()
+    d256 = phase_d256_cases()
     qmm_err = phase_quant_matmul_cases()
     backward_err = phase_backward_cases()
     sampled_pick = sampler_case()
@@ -5196,6 +5559,9 @@ def main(argv=None) -> int:
         shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
     lap("train_moe, checkpoint, convert")
+    gemma9 = phase_serve_gemma2_9b(smi)
+    torch.cuda.empty_cache()
+    lap("serve_gemma2_9b")
     trained = phase_train(smi)
     lap("train")
     torch.cuda.empty_cache()
@@ -5303,6 +5669,27 @@ def main(argv=None) -> int:
          "by_format": time_paged_formats(),
          "verify_t4": time_paged_verify(spec["verify_lengths"]),
          "int8c": time_paged_int8c()},
+        # Head width 256: the same wrappers and sources, their d-256
+        # instantiations; launches from serve_gemma2_9b (counted under the
+        # wrappers' names).
+        {"name": "flash_forward_d256", "route": "cuda", "source": pkg + "flash_forward.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:284",
+         "counted_as": K1, "launches": gemma9["counts"].get(K1, 0),
+         "launches_int8_run": gemma9["int8_counts"].get(K1, 0),
+         "launches_path": "serve_gemma2_9b: 42 layers x 8 prompts (int8 run: 8 layers)",
+         "max_abs_err": d256["flash"][0], "worst_err_bound": d256["flash"][1],
+         **time_flash_d256(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
+        {"name": "paged_decode_attention_d256", "route": "cuda",
+         "source": pkg + "paged_attention.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:280",
+         "also_replaces": "flash_attention_from_scratch_tpu/ops/paged_attention.py:69",
+         "counted_as": KP, "launches": gemma9["counts"].get(KP, 0),
+         "launches_int8_run": gemma9["int8_counts"].get(KP, 0),
+         "merge_launches": gemma9["counts"].get(KERNEL_MERGE, 0),
+         "launches_path": "serve_gemma2_9b: 42 layers x decode steps, by CUDA-graph replay "
+                          "(int8 run: 8 layers, int8 pages)",
+         "max_abs_err": d256["paged"][0], "worst_err_bound": d256["paged"][1],
+         **time_paged_d256(_ptxas_by_kernel(logs.get("paged_attention.cu", "")))},
     ]
     fused_t, split_t = time_backward(_ptxas_by_kernel(logs.get("flash_backward.cu", "")))
     split = trained["split"]

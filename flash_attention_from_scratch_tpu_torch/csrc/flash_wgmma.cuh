@@ -1,8 +1,10 @@
-// The attention main loop for Hopper, d_head 128, shared by K1
-// (flash_forward.cu), K11 (flash_forward_fori.cu) and K10's bf16 upcast
+// The attention main loop for Hopper, shared by K1 (flash_forward.cu, head
+// width 128 or 256), K11 (flash_forward_fori.cu) and K10's bf16 upcast
 // modes (flash_quant.cu); K10's int8-compute kernel shares its CTA, walk,
 // masks and finalisation, and the backward (flash_backward.cu) its walk,
-// masks and tile products.
+// masks and tile products. The head width HD is a template parameter of
+// the tile products, the row state, the consumer's walk and the
+// finalisation; it defaults to D = 128, the width of every kernel but K1.
 //
 // A CTA is one producer warpgroup and two consumer warpgroups of 64 Q rows
 // each, BQ = 128 Q rows of one (Q head, batch). The producer fills a ring of
@@ -18,9 +20,16 @@
 // products. A slot is released once its P V product has completed
 // (wgmma.wait_group in each warp, then one arrival per warp).
 //
-// Shared-memory layout of a bf16 (rows x 128) tile: two 128-byte-swizzled
-// boxes, columns 0-63 then 64-127, each rows x 128 bytes (the layout a TMA
-// box of 64 bf16 columns with CU_TENSOR_MAP_SWIZZLE_128B writes).
+// Shared-memory layout of a bf16 (rows x HD) tile: HD / 64 128-byte-swizzled
+// boxes of 64 columns (two at HD 128, four at 256), each rows x 128 bytes
+// (the layout a TMA box of 64 bf16 columns with CU_TENSOR_MAP_SWIZZLE_128B
+// writes).
+//
+// At HD 256 a 64 x 256 fp32 O accumulator is 128 registers a consumer
+// thread, which a CTA of more than 8 warps (at most 168 registers a thread)
+// cannot hold beside S and P: K1's d-256 CTA has one consumer warpgroup
+// (flash_forward.cu), and O += P V is two m64n128 products a k step, one
+// per 128-column half of V and O.
 
 #pragma once
 
@@ -28,7 +37,7 @@
 
 namespace {
 
-constexpr int D = 128;                       // head width
+constexpr int D = 128;                       // head width (the default HD)
 constexpr int WG_ROWS = 64;                  // Q rows of one consumer warpgroup
 constexpr int CONSUMER_WGS = 2;
 constexpr int BQ = CONSUMER_WGS * WG_ROWS;   // Q rows per CTA
@@ -40,15 +49,16 @@ constexpr int CONSUMER_ARRIVALS = CONSUMER_WGS * 4;  // one per consumer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_VALUE = -1e30f;  // finite, as in the JAX kernels
 
-// Bytes of a bf16 (rows x D) tile, and the offset of its second box.
-__host__ __device__ constexpr int bf16_tile_bytes(int rows) { return rows * D * 2; }
+// Bytes of a bf16 (rows x d) tile, and of one of its 64-column boxes.
+__host__ __device__ constexpr int bf16_tile_bytes(int rows, int d = D) { return rows * d * 2; }
 __host__ __device__ constexpr int bf16_box_bytes(int rows) { return rows * BOX_COLS * 2; }
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// Byte offset of bf16 element (r, c) in a swizzled (rows x D) tile.
+// Byte offset of bf16 element (r, c) in a swizzled (rows x d) tile, any
+// width d (box c / 64).
 __device__ __forceinline__ int bf16_tile_offset(int rows, int r, int c) {
   return (c / BOX_COLS) * bf16_box_bytes(rows) + r * 128 +
          ((((c % BOX_COLS) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
@@ -107,16 +117,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // What a consumer thread holds of its warpgroup's 64 rows: its part of the
-// m64n128 O accumulator (rows g and g + 8 of its warp's 16), their running
-// max in the log2 domain and its partial row sums.
-struct RowState {
-  float o[D / 2];
+// 64 x HD O accumulator (rows g and g + 8 of its warp's 16; at HD 256 the
+// m64n128 accumulator of columns 0-127, then that of columns 128-255), their
+// running max in the log2 domain and its partial row sums.
+template <int HD = D>
+struct RowStateT {
+  float o[HD / 2];
   float m[2];
   float l[2];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
   }
@@ -124,9 +136,10 @@ struct RowState {
   // O *= alpha per row.
   __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   }
 };
+using RowState = RowStateT<>;
 
 // exp2 on the special-function unit (ex2.approx.ftz: about 2 ulp). Results
 // below 2^-126 flush to zero: a weight that small beside the row's largest,
@@ -139,14 +152,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // Issue S = Q K^T for this warpgroup's 64 rows and the tile's BK keys
 // (committed as one wgmma group, not waited on; the first k step
-// overwrites S): q_addr its rows in the Q tile (box 0; box 1 q_box bytes
-// on), k_addr the K tile (BK rows; box 1 BK * 128 bytes on).
-template <int BK>
+// overwrites S): q_addr its rows in the Q tile (box 0; box b b * q_box
+// bytes on), k_addr the K tile (BK rows; box b b * BK * 128 bytes on), HD
+// columns each.
+template <int BK, int HD = D>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], unsigned q_addr, int q_box,
                                          unsigned k_addr) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const uint64_t da = sw128_desc(q_addr + (kk >> 2) * q_box + (kk & 3) * 32);
     const uint64_t db = sw128_desc(k_addr + (kk >> 2) * bf16_box_bytes(BK) + (kk & 3) * 32);
     if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
@@ -156,15 +170,26 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], unsigned q_addr, in
 }
 
 // Issue O += P V (one wgmma group, not waited on): pa holds P's bf16 A
-// fragments, v_addr the V tile (BK rows of 128 d, box 1 BK * 128 bytes on),
-// read MN-major.
-template <int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
+// fragments, v_addr the V tile (BK rows of HD d, box b b * BK * 128 bytes
+// on), read MN-major. At HD 256 each k step is two m64n128 products: V's
+// boxes 0-1 into o[0..63], boxes 2-3 into o[64..127].
+template <int BK, int HD = D>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&pa)[BK / 16][4],
                                          unsigned v_addr) {
+  static_assert(HD == 128 || HD == 256, "O is one or two m64n128 accumulators");
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_n128<1>(o, pa[kk], sw128_mn_desc(v_addr + kk * 2048, bf16_box_bytes(BK)));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (HD == 128) {
+      wgmma_n128<1>(o, pa[kk], sw128_mn_desc(v_addr + kk * 2048, bf16_box_bytes(BK)));
+    } else {
+#pragma unroll
+      for (int h = 0; h < HD / 128; ++h)
+        wgmma_n128<1>(*reinterpret_cast<float(*)[64]>(o + 64 * h), pa[kk],
+                      sw128_mn_desc(v_addr + 2 * h * bf16_box_bytes(BK) + kk * 2048,
+                                    bf16_box_bytes(BK)));
+    }
+  }
   wgmma_commit();
 }
 
@@ -175,15 +200,27 @@ struct TileMath {
   float score_scale, softcap;
 };
 
+// 1 / x on the special-function unit (rcp.approx.ftz: about 1 ulp; 0 for
+// inf).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The FA2 softmax of one tile in registers, on S as wgmma left it: the
 // softcap (tanh(x / cap) * cap) and the mask where a tile needs them, each
 // row's max over the quad that shares it, S <- exp2(S * scale - m) in the
 // log2 domain, the running sums. A tile with neither keeps S unscaled and
 // folds the scale into the exp's FFMA (the scale is positive, so the max
 // commutes with it). Returns each row's alpha = exp2(m_old - m_new) for the
-// caller to rescale O.
-template <int BK>
-__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowState& st, float (&alpha)[2],
+// caller to rescale O. At HD 256 (K1's d-256 CTA, which has no second
+// warpgroup to hide the softmax behind) the softcap's tanh is 1 - 2 / (e^2y
+// + 1) on the special-function unit, one ex2 and one rcp (absolute error
+// about 1e-7 of the cap, against tanhf's some 20 instructions); HD 128
+// keeps tanhf.
+template <int BK, int HD>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowStateT<HD>& st, float (&alpha)[2],
                                              const TileMath& tm, int row0, int kv0,
                                              bool masked) {
   const int q = threadIdx.x & 3;
@@ -192,9 +229,19 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowState& st, f
   const float c_log2 = tm.score_scale * LOG2E;
   float cs = c_log2;  // the factor still to apply inside the exp
   if (tm.softcap > 0.f) {
+    if constexpr (HD == D) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      s[i] = tanhf(s[i] * tm.score_scale / tm.softcap) * (tm.softcap * LOG2E);
+      for (int i = 0; i < BK / 2; ++i)
+        s[i] = tanhf(s[i] * tm.score_scale / tm.softcap) * (tm.softcap * LOG2E);
+    } else {
+      // cap * log2(e) * tanh(y), y = x * scale / cap: cap * log2(e) * (1 -
+      // 2 / (2^(2 y log2(e)) + 1)).
+      const float to_exp2 = 2.f * LOG2E * tm.score_scale / tm.softcap;
+      const float cap = tm.softcap * LOG2E;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        s[i] = fmaf(-2.f * cap, fast_rcp(fast_exp2(s[i] * to_exp2) + 1.f), cap);
+    }
     cs = 1.f;
   } else if (masked) {
 #pragma unroll
@@ -246,7 +293,8 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[
 // base, rows o_ss elements apart) at row `row` and row + 8 where they are
 // below seq_q, and where lse is not null, the natural-log LSE of each row
 // into lse[row].
-__device__ __forceinline__ void store_rows(const RowState& st, int row, int seq_q, bf16* o,
+template <int HD>
+__device__ __forceinline__ void store_rows(const RowStateT<HD>& st, int row, int seq_q, bf16* o,
                                            long long o_ss, float out_scale, float sink_log2,
                                            float* lse) {
   const int q = threadIdx.x & 3;
@@ -268,7 +316,7 @@ __device__ __forceinline__ void store_rows(const RowState& st, int row, int seq_
     if (rr >= seq_q) continue;
     bf16* o_row = o + rr * o_ss;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j + 2 * q) =
           __floats2bfloat162_rn(st.o[4 * j + 2 * r] * inv, st.o[4 * j + 2 * r + 1] * inv);
     if (lse && q == 0) lse[rr] = l > 0.f ? (m + log2f(l)) / LOG2E : -INFINITY;
@@ -296,9 +344,9 @@ __device__ __forceinline__ void walk_tiles(const RowGroup& rg, const TileMath& t
 // The consumer side of the bf16 main loop: a warpgroup's walk (slot s at
 // ring + s * slot_bytes: the K tile, then the V tile; the walk's first tile
 // at ring position pos0), each seen tile running S = Q K^T, the softmax, O
-// rescaled, then O += P V.
-template <int BK, int NB>
-__device__ __forceinline__ void consume_bf16(RowState& st, const RowGroup& rg,
+// rescaled, then O += P V; HD columns.
+template <int BK, int NB, int HD>
+__device__ __forceinline__ void consume_bf16(RowStateT<HD>& st, const RowGroup& rg,
                                              uint64_t* full, uint64_t* empty,
                                              const uint8_t* ring, int slot_bytes,
                                              unsigned q_addr, int q_box, int first, int n,
@@ -308,7 +356,7 @@ __device__ __forceinline__ void consume_bf16(RowState& st, const RowGroup& rg,
     const unsigned k_addr = smem_addr(ring + ((pos0 + i) % NB) * slot_bytes);
     const int kv0 = (first + i) * BK;
     float s[BK / 2];
-    issue_qk<BK>(s, q_addr, q_box, k_addr);
+    issue_qk<BK, HD>(s, q_addr, q_box, k_addr);
     wgmma_wait<0>();
     float alpha[2];
     softmax_tile<BK>(s, st, alpha, tm, row0, kv0,
@@ -316,7 +364,7 @@ __device__ __forceinline__ void consume_bf16(RowState& st, const RowGroup& rg,
     st.rescale(alpha);
     uint32_t pa[BK / 16][4];
     pack_p<BK>(s, pa);
-    issue_pv<BK>(st.o, pa, k_addr + bf16_tile_bytes(BK));
+    issue_pv<BK, HD>(st.o, pa, k_addr + bf16_tile_bytes(BK, HD));
     wgmma_wait<0>();
   }, pos0);
 }

@@ -1,5 +1,5 @@
 // Paged decode attention for Hopper: 1..t query tokens per sequence over a
-// paged KV cache, bf16 queries, d_head 128; pages dense bf16, int8, fp8
+// paged KV cache, bf16 queries, d_head 128 or 256; pages dense bf16, int8, fp8
 // (e4m3) or int4 packed along the tokens of a page; optionally int8
 // compute on int8 pages. A split-KV kernel over pages streamed through a
 // ring of shared-memory slots, its products on the tensor cores, and a
@@ -26,7 +26,8 @@
 // Q row is quantized in the kernel, q_i8 = rint(q / s_q) with s_q = max(max
 // |q|, 1e-12) * (1/127); S is the exact integer dot q_i8 . k_i8 (int8
 // values are exact in bf16, their products exact in the tensor cores' fp32
-// sums, and a dot of 128 of them stays below 2^24) times s_q * scale *
+// sums, and a dot of d of them stays below 2^24: at d 256, 256 * 127^2 =
+// 4,129,024 < 16,777,216) times s_q * scale *
 // log2(e) * the page's K scale; P = exp2(S - m) is rounded at the constant
 // scale 127 against the running max m of the warp that rounds it, within
 // its split (never above the row's final max, so the rounding error of a
@@ -57,8 +58,11 @@
 //     tile the products read; quantized pages by cp.async.bulk as raw
 //     bytes, which the CTA's threads convert, 64 tokens at a time, into a
 //     swizzled bf16 tile (int8, int4 and e4m3 values are exact in bf16);
-//     two CTAs fit an SM (registers: 256 threads and two CTAs an SM leave
-//     128 a thread);
+//     two CTAs fit an SM at d 128 (registers: 256 threads and two CTAs an
+//     SM leave 128 a thread). At d 256 a warp's 16 x 256 fp32 O alone is
+//     128 registers a thread, so that instantiation runs one CTA an SM (up
+//     to 255 registers a thread) with twice the ring budget, the bytes in
+//     flight an SM of d 128's two CTAs (a 64-token dense chunk is 64 KB);
 //   - all rows of a (sequence, KV head) share one CTA and one copy of each
 //     page, up to 16 rows, the M of mma.sync: a verify call's 4 heads x 4
 //     tokens, or a decode step's 4 rows and 12 zero rows, whose products
@@ -67,7 +71,7 @@
 //     the same pages. Warp w takes a tile's tokens 8w .. 8w + 7: S (16 x 8)
 //     = Q K^T on m16n8k16 (K's fragments by ldmatrix), the online softmax of
 //     its own tokens in registers (each row's max over the quad that shares
-//     it), then O (16 x 128) += P V on m16n8k8 (P's fp32 accumulator
+//     it), then O (16 x d) += P V on m16n8k8 (P's fp32 accumulator
 //     repacked as the bf16 A fragment, V's by ldmatrix.trans); the warps'
 //     partials are merged through shared memory at the end;
 //   - whole chunks arrive, slots past the length (or in a window's gap)
@@ -91,25 +95,34 @@
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MMA_ROWS = 16;          // rows a CTA: the M of mma.sync
 constexpr int TILE_TOKENS = 64;       // tokens of a product tile (8 a warp)
-constexpr int RING_BYTES = 98304;     // dense pages: the TMA ring's budget a CTA
-constexpr int RAW_RING_BYTES = 65536;  // quantized pages: the raw ring's budget
-constexpr int STAGE_BYTES = 2 * TILE_TOKENS * D * 2;  // quantized: the bf16 K, V tile
+constexpr int RING_BYTES = 98304;     // dense pages: the TMA ring's budget a CTA at d 128
+constexpr int RAW_RING_BYTES = 65536;  // quantized pages: the raw ring's budget at d 128
 constexpr int MIN_SLOTS = 2;
 constexpr int MAX_SLOTS = 8;
-constexpr int Q_TILE_BYTES = MMA_ROWS * D * 2;
 constexpr int ALIGN_SLACK = 1024;     // swizzled tiles start 1024-aligned
-// The merge's scratch (reusing the tiles): acc, m and l of every warp's 16
-// rows, rows MERGE_STRIDE floats apart so that a half-warp's 8-byte stores
-// fall in distinct banks.
-constexpr int MERGE_STRIDE = D + 8;
-constexpr int MERGE_BYTES = NWARPS * MMA_ROWS * (MERGE_STRIDE + 2) * 4;
 constexpr int SMEM_LIMIT = 232448;    // shared memory a block may use
 constexpr int STATIC_RESERVE = 1024;  // of it kept for the kernel's static arrays
+
+// The geometry of head width D (128 or 256; ops/paged_attention.py::plan
+// mirrors it).
+template <int D>
+struct Geo {
+  static_assert(D == 128 || D == 256, "K4/K5 take head widths 128 and 256");
+  static constexpr int CTAS_PER_SM = D == 128 ? 2 : 1;  // the launch bound's CTAs an SM
+  static constexpr int RING = RING_BYTES * (D / 128);   // a CTA's ring budgets
+  static constexpr int RAW_RING = RAW_RING_BYTES * (D / 128);
+  static constexpr int STAGE_BYTES = 2 * TILE_TOKENS * D * 2;  // quantized: the bf16 K, V tile
+  static constexpr int Q_TILE_BYTES = MMA_ROWS * D * 2;
+  // The merge's scratch (reusing the tiles): acc, m and l of every warp's 16
+  // rows, rows MERGE_STRIDE floats apart so that a half-warp's 8-byte stores
+  // fall in distinct banks.
+  static constexpr int MERGE_STRIDE = D + 8;
+  static constexpr int MERGE_BYTES = NWARPS * MMA_ROWS * (MERGE_STRIDE + 2) * 4;
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -120,8 +133,8 @@ constexpr int DENSE = 0, INT8 = 1, FP8 = 2, INT4 = 3, INT8C = 4;
 __host__ __device__ inline int stored_rows(int store, int page_size) {
   return store == INT4 ? page_size / 2 : page_size;
 }
-__host__ __device__ inline int page_bytes(int store, int page_size) {
-  return stored_rows(store, page_size) * D * (store == DENSE ? 2 : 1);
+__host__ __device__ inline int page_bytes(int store, int page_size, int d) {
+  return stored_rows(store, page_size) * d * (store == DENSE ? 2 : 1);
 }
 
 // Tokens of a ring slot's chunk: a page of up to TILE_TOKENS, else runs of
@@ -139,9 +152,11 @@ __host__ __device__ inline int chunk_tokens(int store, int page_size) {
 inline int ring_slots(int budget, int slot_bytes) {
   return std::max(MIN_SLOTS, std::min(MAX_SLOTS, budget / slot_bytes));
 }
+template <int D>
 inline int smem_bytes(bool raw, int slots, int slot_bytes) {
-  return ALIGN_SLACK + Q_TILE_BYTES +
-         std::max((raw ? STAGE_BYTES : 0) + slots * slot_bytes, MERGE_BYTES);
+  using G = Geo<D>;
+  return ALIGN_SLACK + G::Q_TILE_BYTES +
+         std::max((raw ? G::STAGE_BYTES : 0) + slots * slot_bytes, G::MERGE_BYTES);
 }
 
 // 8 stored values of one row -> fp32. int4: the low or high nibble of each
@@ -172,7 +187,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Byte offset of bf16 element (r, c) of a (rows x D) tile stored as two
+// Byte offset of bf16 element (r, c) of a (rows x d) tile stored as d / 64
 // 128-byte-swizzled boxes of 64 columns (as TMA writes them).
 __device__ __forceinline__ int sw_offset(int rows, int r, int c) {
   return (c >> 6) * rows * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
@@ -223,7 +238,7 @@ struct Params {
   const int* lengths;
   const int* page_tables;
   bf16* out;
-  float* ws_o;   // (batch * kv_heads, splits, rows, D) fp32, or null for one split
+  float* ws_o;   // (batch * kv_heads, splits, rows, d) fp32, or null for one split
   float* ws_ml;  // (batch * kv_heads, splits, rows, 2) fp32: m (log2 domain), l
   int kv_heads, num_pages, page_size, pages_per_seq, q_tokens, rows_total;
   int splits, pages_per_split, slots;
@@ -233,6 +248,7 @@ struct Params {
 
 // A CTA whose split sees no page ends at once: its rows [r_begin, r_end)
 // get m = -inf and l = 0 (the merge skips them) or, with one split, zeros.
+template <int D>
 __device__ __forceinline__ void empty_split(const Params& p, int pair, int split, int r_begin,
                                             int r_end) {
   const long long row_base = (long long)pair * p.rows_total;
@@ -251,7 +267,7 @@ __device__ __forceinline__ void empty_split(const Params& p, int pair, int split
 // Raw tokens [t0, t0 + ntok) of a quantized chunk (its K bytes, then its V
 // bytes `cbytes` on; int4: a whole page of `half` stored rows) as a
 // swizzled bf16 tile of TILE_TOKENS rows (K, then V STAGE_BYTES / 2 on).
-template <int STORE>
+template <int D, int STORE>
 __device__ __forceinline__ void convert_tile(const uint8_t* raw, int cbytes, int half, int t0,
                                              int ntok, uint8_t* stage) {
   for (int idx = threadIdx.x; idx < 2 * ntok * (D / 8); idx += NTHREADS) {
@@ -262,7 +278,8 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, int cbytes, int
     const int row = hi ? tk - half : tk;
     float f[8];
     unpack8q<STORE>(*reinterpret_cast<const uint2*>(raw + kv * cbytes + row * D + c), hi, f);
-    *reinterpret_cast<uint4*>(stage + kv * (STAGE_BYTES / 2) + sw_offset(TILE_TOKENS, tok, c)) =
+    *reinterpret_cast<uint4*>(stage + kv * (Geo<D>::STAGE_BYTES / 2) +
+                              sw_offset(TILE_TOKENS, tok, c)) =
         make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
                    pack_bf16x2(f[6], f[7]));
   }
@@ -271,6 +288,7 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, int cbytes, int
 // What a thread holds of its warp's partial: O (rows g, g + 8 of the 16;
 // columns 8 j + 2 qd, + 1), each row's running max (log2 domain) and its
 // partial sum over the quad's columns.
+template <int D>
 struct Partial {
   float o[D / 8][4];
   float m[2], l[2];
@@ -281,8 +299,8 @@ struct Partial {
 // the scores' scale, softcap and mask, the online softmax and O += P V.
 // k_fac multiplies the raw dot (the K scale; with int8 compute also s_q *
 // scale * log2(e) of each row, q_fac), v_fac P before PV (the V scale).
-template <bool I8C>
-__device__ __forceinline__ void tile_products(Partial& st, unsigned q_addr, const uint8_t* ks,
+template <int D, bool I8C>
+__device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, const uint8_t* ks,
                                               const uint8_t* vs, int rows, int tok0, int pos0,
                                               const int (&lim)[2], int win, int len,
                                               const float (&q_fac)[2], float k_fac, float v_fac,
@@ -373,10 +391,11 @@ __device__ __forceinline__ void tile_products(Partial& st, unsigned q_addr, cons
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(NTHREADS, 2)
+template <int D, int MODE>
+__global__ void __launch_bounds__(NTHREADS, Geo<D>::CTAS_PER_SM)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using G = Geo<D>;
   constexpr bool I8C = MODE == INT8C;
   constexpr int STORE = I8C ? INT8 : MODE;  // how the pages are stored
   constexpr bool RAW = STORE != DENSE;      // raw bytes, converted into a bf16 tile
@@ -384,8 +403,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   __shared__ __align__(8) uint64_t full[MAX_SLOTS];
   __shared__ float q_fac_s[MMA_ROWS];  // int8 compute: s_q * scale * log2(e) a row
   uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* stage = q_s + Q_TILE_BYTES;  // quantized pages' bf16 tile
-  uint8_t* ring = stage + (RAW ? STAGE_BYTES : 0);
+  uint8_t* stage = q_s + G::Q_TILE_BYTES;  // quantized pages' bf16 tile
+  uint8_t* ring = stage + (RAW ? G::STAGE_BYTES : 0);
 
   const int b = blockIdx.x, hk = blockIdx.y;
   const int split = blockIdx.z % p.splits, rblock = blockIdx.z / p.splits;
@@ -406,12 +425,12 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int ct = chunk_tokens(STORE, ps), cpp = ps / ct;
   const int n = max(min((c_end - c_begin) * cpp, (len - c_begin * ps + ct - 1) / ct), 0);
   const int* pt = p.page_tables + (long long)b * p.pages_per_seq;
-  const int pbytes = page_bytes(STORE, ps);
-  const int cbytes = page_bytes(STORE, ct);  // the K (or V) chunk
+  const int pbytes = page_bytes(STORE, ps, D);
+  const int cbytes = page_bytes(STORE, ct, D);  // the K (or V) chunk
   const int slot_bytes = 2 * cbytes;
   const int r_end = min((rblock + 1) * MMA_ROWS, p.rows_total);  // past this CTA's rows
   if (n == 0) {
-    empty_split(p, pair, split, rblock * MMA_ROWS, r_end);
+    empty_split<D>(p, pair, split, rblock * MMA_ROWS, r_end);
     return;
   }
 
@@ -428,10 +447,12 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       bulk_load(dst + cbytes, p.v_pages + off, cbytes, bar);
     } else {
       const int row0 = (i % cpp) * ct;
-      tma_load_4d(dst, &tm_k, 0, row0, page, hk, bar);
-      tma_load_4d(dst + ct * 128, &tm_k, 64, row0, page, hk, bar);
-      tma_load_4d(dst + cbytes, &tm_v, 0, row0, page, hk, bar);
-      tma_load_4d(dst + cbytes + ct * 128, &tm_v, 64, row0, page, hk, bar);
+#pragma unroll
+      for (int bx = 0; bx < D / 64; ++bx)
+        tma_load_4d(dst + bx * ct * 128, &tm_k, 64 * bx, row0, page, hk, bar);
+#pragma unroll
+      for (int bx = 0; bx < D / 64; ++bx)
+        tma_load_4d(dst + cbytes + bx * ct * 128, &tm_v, 64 * bx, row0, page, hk, bar);
     }
   };
   if (tid == 0) {
@@ -439,12 +460,15 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     mbar_init_fence();
     for (int i = 0; i < min(n, p.slots); ++i) issue(i);
   }
-  // The Q tile: rows rblock * 16 .. + 15 of this KV head (16 threads a row,
-  // 8 values each), zeros past the last row, swizzled as the K/V tiles
-  // are; with int8 compute each row quantized (its abs-max over the
-  // half-warp that holds it) and stored as its int8 values.
-  {
-    const int r = tid / (D / 8), c = (tid % (D / 8)) * 8;
+  // The Q tile: rows rblock * 16 .. + 15 of this KV head (D / 8 threads a
+  // row, 8 values each: two rows a warp at d 128, one at d 256, over
+  // MMA_ROWS * D / 8 / NTHREADS passes), zeros past the last row, swizzled
+  // as the K/V tiles are; with int8 compute each row quantized (its abs-max
+  // over the lanes that hold it) and stored as its int8 values.
+#pragma unroll
+  for (int pass = 0; pass < MMA_ROWS * (D / 8) / NTHREADS; ++pass) {
+    const int idx = tid + pass * NTHREADS;
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     const int row = rblock * MMA_ROWS + r;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row < r_end) v = *reinterpret_cast<const uint4*>(p.q + (row_base + row) * D + c);
@@ -459,7 +483,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
         amax = fmaxf(amax, fmaxf(fabsf(x.x), fabsf(x.y)));
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
+      for (int off = D / 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
       const float s_q = fmaxf(amax, 1e-12f) * (1.0f / 127.0f);
       uint32_t w[4];
 #pragma unroll
@@ -483,7 +508,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     lim[rr] = r < p.rows_total ? len - (t - 1) + r % t : 0;
     if constexpr (I8C) q_fac[rr] = q_fac_s[g + 8 * rr];
   }
-  Partial st;
+  Partial<D> st;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) st.o[j][0] = st.o[j][1] = st.o[j][2] = st.o[j][3] = 0.f;
   st.m[0] = st.m[1] = -INFINITY;
@@ -504,17 +529,17 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       // page of more than 64), the tiles past the length skipped.
       for (int t0 = 0; t0 < ct && pos0 + t0 < len; t0 += TILE_TOKENS) {
         const int ntok = min(TILE_TOKENS, ct - t0);
-        convert_tile<STORE>(slot, cbytes, ps / 2, t0, ntok, stage);
+        convert_tile<D, STORE>(slot, cbytes, ps / 2, t0, ntok, stage);
         __syncthreads();
         if (tok0 < ntok)
-          tile_products<I8C>(st, q_addr, stage, stage + STAGE_BYTES / 2, TILE_TOKENS, tok0,
-                             pos0 + t0 + tok0, lim, win, len, q_fac, k_fac, v_fac, p);
+          tile_products<D, I8C>(st, q_addr, stage, stage + G::STAGE_BYTES / 2, TILE_TOKENS,
+                                tok0, pos0 + t0 + tok0, lim, win, len, q_fac, k_fac, v_fac, p);
         __syncthreads();  // the tile is read: the next conversion may write it
       }
     } else {
       if (tok0 < ct)
-        tile_products<false>(st, q_addr, slot, slot + cbytes, ct, tok0, pos0 + tok0, lim, win,
-                             len, q_fac, 1.f, 1.f, p);
+        tile_products<D, false>(st, q_addr, slot, slot + cbytes, ct, tok0, pos0 + tok0, lim,
+                                win, len, q_fac, 1.f, 1.f, p);
       __syncthreads();  // every warp is done with the slot
     }
     if (tid == 0 && i + p.slots < n) issue(i + p.slots);
@@ -523,6 +548,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   // Each warp's partial (O, m, l) of the CTA's real rows (a padded row of
   // the tile is skipped), then the rows' merge over the warps.
+  constexpr int MERGE_STRIDE = G::MERGE_STRIDE;
   float* sm_acc = reinterpret_cast<float*>(stage);          // [NWARPS][16][MERGE_STRIDE]
   float* sm_m = sm_acc + NWARPS * MMA_ROWS * MERGE_STRIDE;  // [NWARPS][16]
   float* sm_l = sm_m + NWARPS * MMA_ROWS;                   // [NWARPS][16]
@@ -575,6 +601,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 
 // The merge: one CTA of D threads per (sequence, KV head, row); the splits
 // in order 0, 1, ...
+template <int D>
 __global__ void __launch_bounds__(D)
 paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
                           bf16* __restrict__ out, int splits, int rows_total) {
@@ -598,9 +625,9 @@ paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restric
   out[pr * D + c] = __float2bfloat16(l > 0.f ? o / l : 0.f);
 }
 
-template <int MODE>
+template <int D, int MODE>
 int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t stream) {
-  // Dense pages: the pool as (kv_heads, num_pages, page_size, 128) bf16,
+  // Dense pages: the pool as (kv_heads, num_pages, page_size, D) bf16,
   // boxes of 64 columns x one chunk of slots in one page of one KV head.
   CUtensorMap tm_k{}, tm_v{};
   if constexpr (MODE == DENSE) {
@@ -612,7 +639,7 @@ int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t st
                      p.num_pages, p.page_size, D, head, page, row, ct, 64, true))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = paged_decode_kernel<MODE>;
+  auto kernel = paged_decode_kernel<D, MODE>;
   // Once per kernel (every ring fits the limit): nothing but the launch
   // itself on the path of a call, which a CUDA graph may capture.
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -623,6 +650,31 @@ int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split kernel's launch at head width D: the ring's slots and the CTA's
+// shared memory from the page format (plan() mirrors both), then the
+// page format's kernel.
+template <int D>
+int split_launch(Params& p, int batch, int heads, int mode, cudaStream_t stream) {
+  const int store = mode == INT8C ? INT8 : mode;
+  const int rows = heads / p.kv_heads * p.q_tokens;
+  const int row_blocks = (rows + MMA_ROWS - 1) / MMA_ROWS;
+  const bool raw = store != DENSE;
+  const int slot_bytes = 2 * page_bytes(store, chunk_tokens(store, p.page_size), D);
+  const int slots = ring_slots(raw ? Geo<D>::RAW_RING : Geo<D>::RING, slot_bytes);
+  const int smem = smem_bytes<D>(raw, slots, slot_bytes);
+  if (smem > SMEM_LIMIT - STATIC_RESERVE || (long long)p.splits * row_blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.rows_total = rows;
+  p.slots = slots;
+  switch (mode) {
+    case DENSE: return launch<D, DENSE>(p, batch, row_blocks, smem, stream);
+    case INT8: return launch<D, INT8>(p, batch, row_blocks, smem, stream);
+    case FP8: return launch<D, FP8>(p, batch, row_blocks, smem, stream);
+    case INT4: return launch<D, INT4>(p, batch, row_blocks, smem, stream);
+    default: return launch<D, INT8C>(p, batch, row_blocks, smem, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -631,42 +683,34 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The split kernel. q (batch, heads, q_tokens, 128) bf16 contiguous
-// (q_tokens 1: (batch, heads, 128)); k/v pages (kv_heads, num_pages, rows,
-// 128) contiguous: bf16 (mode 0), int8 (1, and 4 = int8 compute), fp8 e4m3
-// (2), or int4 packed along tokens (3, rows = page_size / 2); k/v scales
-// (kv_heads, num_pages) fp32 (read for modes 1-4); lengths (batch,) int32,
-// the q tokens included; page_tables (batch, pages_per_seq) int32, -1
-// padded. Any heads divisible by kv_heads and any q_tokens >= 1; page_size
-// up to 64 or a multiple of 64 (int4: any even size), a multiple of 8 for
-// dense pages. `splits` splits of `pages_per_split` page-table columns
-// (splits * pages_per_split >= pages_per_seq). With one split, out (like
-// q) is written here and ws_o, ws_ml are not read; with more, each split's
-// partial goes to ws_o (batch * kv_heads, splits, rows, 128) and ws_ml
-// (..., 2) fp32, and fa_paged_decode_merge writes out. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
-// does not take.
+// The split kernel. q (batch, heads, q_tokens, d_head) bf16 contiguous
+// (q_tokens 1: (batch, heads, d_head)), d_head 128 or 256; k/v pages
+// (kv_heads, num_pages, rows, d_head) contiguous: bf16 (mode 0), int8 (1,
+// and 4 = int8 compute), fp8 e4m3 (2), or int4 packed along tokens (3, rows
+// = page_size / 2); k/v scales (kv_heads, num_pages) fp32 (read for modes
+// 1-4); lengths (batch,) int32, the q tokens included; page_tables (batch,
+// pages_per_seq) int32, -1 padded. Any heads divisible by kv_heads and any
+// q_tokens >= 1; page_size up to 64 or a multiple of 64 (int4: any even
+// size), a multiple of 8 for dense pages. `splits` splits of
+// `pages_per_split` page-table columns (splits * pages_per_split >=
+// pages_per_seq). With one split, out (like q) is written here and ws_o,
+// ws_ml are not read; with more, each split's partial goes to ws_o (batch *
+// kv_heads, splits, rows, d_head) and ws_ml (..., 2) fp32, and
+// fa_paged_decode_merge writes out. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 int fa_paged_decode_split(const void* q, const void* k_pages, const void* v_pages,
                           const void* k_scales, const void* v_scales,
                           const void* lengths, const void* page_tables, void* out,
                           int batch, int heads, int kv_heads, int num_pages,
-                          int page_size, int pages_per_seq, int q_tokens, float scale,
-                          float softcap, int window, int mode, int splits,
+                          int page_size, int pages_per_seq, int q_tokens, int d_head,
+                          float scale, float softcap, int window, int mode, int splits,
                           int pages_per_split, void* ws_o, void* ws_ml, void* stream) {
   const int store = mode == INT8C ? INT8 : mode;
   if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || page_size < 1 ||
       mode < DENSE || mode > INT8C || chunk_tokens(store, page_size) == 0 ||
       (store == INT4 && page_size % 2) || (store == DENSE && page_size % 8) || splits < 1 ||
       pages_per_split < 1 || (long long)splits * pages_per_split < pages_per_seq ||
-      (splits > 1 && !(ws_o && ws_ml)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = heads / kv_heads * q_tokens;
-  const int row_blocks = (rows + MMA_ROWS - 1) / MMA_ROWS;
-  const bool raw = store != DENSE;
-  const int slot_bytes = 2 * page_bytes(store, chunk_tokens(store, page_size));
-  const int slots = ring_slots(raw ? RAW_RING_BYTES : RING_BYTES, slot_bytes);
-  const int smem = smem_bytes(raw, slots, slot_bytes);
-  if (smem > SMEM_LIMIT - STATIC_RESERVE || (long long)splits * row_blocks > 65535)
+      (splits > 1 && !(ws_o && ws_ml)) || (d_head != 128 && d_head != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const bf16*>(q);
@@ -684,33 +728,28 @@ int fa_paged_decode_split(const void* q, const void* k_pages, const void* v_page
   p.page_size = page_size;
   p.pages_per_seq = pages_per_seq;
   p.q_tokens = q_tokens;
-  p.rows_total = rows;
   p.splits = splits;
   p.pages_per_split = pages_per_split;
-  p.slots = slots;
   p.scale = scale;
   p.softcap = softcap;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case DENSE: return launch<DENSE>(p, batch, row_blocks, smem, s);
-    case INT8: return launch<INT8>(p, batch, row_blocks, smem, s);
-    case FP8: return launch<FP8>(p, batch, row_blocks, smem, s);
-    case INT4: return launch<INT4>(p, batch, row_blocks, smem, s);
-    default: return launch<INT8C>(p, batch, row_blocks, smem, s);
-  }
+  return d_head == 128 ? split_launch<128>(p, batch, heads, mode, s)
+                       : split_launch<256>(p, batch, heads, mode, s);
 }
 
 // The merge of fa_paged_decode_split's partials into out (like q).
 int fa_paged_decode_merge(const void* ws_o, const void* ws_ml, void* out, int batch,
-                          int heads, int kv_heads, int q_tokens, int splits, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || splits < 1)
+                          int heads, int kv_heads, int q_tokens, int splits, int d_head,
+                          void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || splits < 1 ||
+      (d_head != 128 && d_head != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = heads / kv_heads * q_tokens;
   const long long blocks = (long long)batch * kv_heads * rows;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  paged_decode_merge_kernel<<<static_cast<unsigned>(blocks), D, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = d_head == 128 ? paged_decode_merge_kernel<128> : paged_decode_merge_kernel<256>;
+  kernel<<<static_cast<unsigned>(blocks), d_head, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ws_o), static_cast<const float*>(ws_ml),
       static_cast<bf16*>(out), splits, rows);
   return static_cast<int>(cudaGetLastError());
@@ -722,11 +761,11 @@ int fa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                     const void* k_scales, const void* v_scales,
                     const void* lengths, const void* page_tables, void* out,
                     int batch, int heads, int kv_heads, int num_pages,
-                    int page_size, int pages_per_seq, int q_tokens, float scale,
+                    int page_size, int pages_per_seq, int q_tokens, int d_head, float scale,
                     float softcap, int window, int mode, void* stream) {
   return fa_paged_decode_split(q, k_pages, v_pages, k_scales, v_scales, lengths, page_tables,
                                out, batch, heads, kv_heads, num_pages, page_size,
-                               pages_per_seq, q_tokens, scale, softcap, window, mode, 1,
+                               pages_per_seq, q_tokens, d_head, scale, softcap, window, mode, 1,
                                std::max(pages_per_seq, 1), nullptr, nullptr, stream);
 }
 

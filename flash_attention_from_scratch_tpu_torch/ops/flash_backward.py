@@ -220,7 +220,8 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
                          "(fp16/fp32: ROADMAP Queue 2, K2/K3)")
     if q.shape[3] != D_HEAD:
         raise ValueError(f"the CUDA kernels' tiles are {D_HEAD} wide, got d_head "
-                         f"{q.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
+                         f"{q.shape[3]} (d 256 on K2/K3, Gemma-2 training on the card: "
+                         "ROADMAP Queue 2, coverage item 1)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "

@@ -30,14 +30,15 @@ from ..utils.device import resolve_device, sm_count
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
            "make_flash_forward", "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL",
            "KERNEL_FORI",
-           "SEQ_QUANTUM", "D_HEAD"]
+           "SEQ_QUANTUM", "D_HEAD", "D_HEADS"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
 KERNEL_FORI = "flash_forward_fori"
 SOURCE_FORI = "flash_forward_fori.cu"
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
-D_HEAD = 128      # both kernels' head width
+D_HEAD = 128      # the head width of K11 (and of K2/K3, K10)
+D_HEADS = (128, 256)  # the head widths K1 takes (``GridTile<HD>``)
 
 # The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K1,
 # K11 and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q
@@ -67,9 +68,9 @@ class TilePlan:
     threads: int = TILE_THREADS
 
 
-def bf16_tile_bytes(rows: int) -> int:
+def bf16_tile_bytes(rows: int, d_head: int = D_HEAD) -> int:
     """Bytes of a bf16 (rows, d_head) tile in shared memory."""
-    return rows * D_HEAD * 2
+    return rows * d_head * 2
 
 
 def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
@@ -85,9 +86,13 @@ def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
         grid=(-(-seq_q // TILE_ROWS), heads, batch), kv_tiles=-(-seq_kv // keys))
 
 
-# K1's ring (``GridTile`` in csrc/flash_forward.cu): 2 slots of 128 keys, and
-# two Q tiles (the current work item's and the next one's).
-GRID_KEYS, GRID_SLOTS, GRID_Q_BUFS = 128, 2, 2
+# K1's CTA and ring (``GridTile<HD>`` in csrc/flash_forward.cu) per head
+# width: (consumer warpgroups of 64 Q rows, keys a slot, slots, Q tiles).
+# d 128: two consumer warpgroups, 2 slots of 128 keys, two Q tiles (the
+# current work item's and the next one's); d 256: one consumer warpgroup
+# (its 64 x 256 fp32 O is 128 registers a thread), 3 slots of 64 keys, one
+# Q tile.
+GRID_TILES = {128: (2, 128, 2, 2), 256: (1, 64, 3, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,11 +103,13 @@ class GridPlan:
     head, then batch; otherwise Q tile fastest, so that the CTAs at work
     share one head's K/V). CTA c takes, in round r, item ``r * ctas + c``
     on even rounds and ``r * ctas + ctas - 1 - c`` on odd ones (a snake).
-    ``smem`` bytes of dynamic shared memory: two Q tiles and ``slots``
-    K/V slots of ``keys`` keys."""
+    ``smem`` bytes of dynamic shared memory: ``q_bufs`` Q tiles and
+    ``slots`` K/V slots of ``keys`` keys, ``d_head`` wide; ``threads`` a
+    producer warpgroup and ``rows / 64`` consumer warpgroups."""
     rows: int
     keys: int
     slots: int
+    q_bufs: int
     smem: int
     ctas: int
     n_items: int
@@ -114,7 +121,8 @@ class GridPlan:
     causal: bool
     window: int
     q_offset: int
-    threads: int = TILE_THREADS
+    threads: int
+    d_head: int
 
     def item(self, w: int) -> tuple[int, int, int]:
         """(Q tile, head, batch) of item ``w`` (``item_at`` in the kernel)."""
@@ -152,18 +160,24 @@ class GridPlan:
 
 @functools.lru_cache(maxsize=1024)
 def grid_plan(batch: int, heads: int, seq_q: int, seq_kv: int, causal: bool,
-              window: int, q_offset: int, sm_count: int) -> GridPlan:
-    """K1's launch (``GridTile`` and ``fa_flash_forward_ctas`` in
-    ``csrc/flash_forward.cu``): min(items, sm_count) persistent CTAs."""
-    q_tiles = -(-seq_q // TILE_ROWS)
+              window: int, q_offset: int, sm_count: int, d_head: int = D_HEAD) -> GridPlan:
+    """K1's launch (``GridTile<HD>`` and ``fa_flash_forward_ctas`` in
+    ``csrc/flash_forward.cu``) at head width ``d_head`` (128 or 256):
+    min(items, sm_count) persistent CTAs."""
+    if d_head not in GRID_TILES:
+        raise ValueError(f"K1 takes head widths {D_HEADS}, got {d_head}")
+    consumers, keys, slots, q_bufs = GRID_TILES[d_head]
+    rows = consumers * WG_ROWS
+    q_tiles = -(-seq_q // rows)
     n_items = q_tiles * heads * batch
     return GridPlan(
-        rows=TILE_ROWS, keys=GRID_KEYS, slots=GRID_SLOTS,
-        smem=(GRID_Q_BUFS * bf16_tile_bytes(TILE_ROWS)
-              + GRID_SLOTS * 2 * bf16_tile_bytes(GRID_KEYS) + ALIGN_SLACK),
+        rows=rows, keys=keys, slots=slots, q_bufs=q_bufs,
+        smem=(q_bufs * bf16_tile_bytes(rows, d_head)
+              + slots * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
         ctas=min(n_items, sm_count), n_items=n_items, q_tiles=q_tiles, heads=heads,
         batch=batch, seq_q=seq_q, seq_kv=seq_kv, causal=bool(causal),
-        window=window if causal else 0, q_offset=q_offset)
+        window=window if causal else 0, q_offset=q_offset,
+        threads=(consumers + 1) * 128, d_head=d_head)
 
 
 def check_grid(plan: TilePlan) -> None:
@@ -220,7 +234,7 @@ _ARGTYPES = [_PTR] * 6 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32]
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.fa_flash_forward_ctas.restype = _I32
-    lib.fa_flash_forward_ctas.argtypes = _ARGTYPES + [_I32, _PTR]
+    lib.fa_flash_forward_ctas.argtypes = _ARGTYPES + [_I32, _I32, _PTR]
     return lib
 
 
@@ -249,9 +263,14 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K1)")
-    if q.shape[3] != D_HEAD:
-        raise ValueError(f"the CUDA kernels' tiles are {D_HEAD} wide, got d_head "
-                         f"{q.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
+    d_head = q.shape[3]
+    fori = cfg.kv_loop == KVLoop.FORI
+    if fori and d_head != D_HEAD:
+        raise ValueError(f"K11's tiles are {D_HEAD} wide, got d_head {d_head} (d 256 "
+                         "on K11: ROADMAP Queue 2, coverage item 1)")
+    if d_head not in D_HEADS:
+        raise ValueError(f"K1's tiles are {' or '.join(map(str, D_HEADS))} wide, got d_head "
+                         f"{d_head} (other widths: ROADMAP Queue 2, coverage item 1)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
@@ -269,16 +288,16 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
             b, h, kvh, sq, skv, int(cfg.causal), cfg.q_offset, cfg.window,
             float(cfg.softmax_scale), float(cfg.attn_softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if cfg.kv_loop == KVLoop.FORI:
+    if fori:
         check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv))
         lib, name = _fori_lib(), KERNEL_FORI
         rc = lib.fa_flash_forward_fori(*args, cfg.num_kv_buffers, stream)
     else:
         if ctas is None:
             ctas = grid_plan(b, h, sq, skv, cfg.causal, cfg.window, cfg.q_offset,
-                             sm_count(q.device)).ctas
+                             sm_count(q.device), d_head).ctas
         lib, name = _lib(), KERNEL
-        rc = lib.fa_flash_forward_ctas(*args, ctas, stream)
+        rc = lib.fa_flash_forward_ctas(*args, d_head, ctas, stream)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
     return out, lse

@@ -171,7 +171,8 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
                          f"{q_vals.dtype} (ROADMAP Queue 2, K10)")
     if q_vals.shape[3] != D_HEAD:
         raise ValueError(f"the CUDA kernel's tiles are {D_HEAD} wide, got d_head "
-                         f"{q_vals.shape[3]} (256-wide tiles: ROADMAP Queue 2)")
+                         f"{q_vals.shape[3]} (d 256 on K10: ROADMAP Queue 2, coverage "
+                         "item 1)")
     for name, t in (("q", q_vals), ("k", k.values), ("v", v.values)):
         if (t.stride(3) != 1 or t.data_ptr() % 16
                 or any(s * t.element_size() % 16 for s in t.stride()[:3])):

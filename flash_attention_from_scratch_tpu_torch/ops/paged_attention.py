@@ -50,7 +50,8 @@ from ..utils.device import sm_count
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_split_plain", "plan", "PagedPlan",
            "quantize_q_rows", "kernel_name", "KERNEL", "KERNEL_MULTI",
-           "KERNEL_INT8C", "KERNEL_MULTI_INT8C", "KERNEL_MERGE"]
+           "KERNEL_INT8C", "KERNEL_MULTI_INT8C", "KERNEL_MERGE", "geometry", "Geometry",
+           "D_HEADS"]
 
 # Launch counts, one name per path of the split kernel: single-token or
 # multi-token q, with or without int8_compute; and the merge kernel's.
@@ -60,7 +61,8 @@ KERNEL_INT8C = "paged_decode_attention_int8c"
 KERNEL_MULTI_INT8C = "paged_decode_attention_multi_int8c"
 KERNEL_MERGE = "paged_decode_merge"
 SOURCE = "paged_attention.cu"
-D_HEAD = 128
+D_HEAD = 128               # the narrowest head width (the ring budgets' own)
+D_HEADS = (128, 256)       # the head widths the kernels take
 LOG2E = math.log2(math.e)
 # Page format -> (the kernel's mode number, the pages' dtype; None: q's).
 MODES = {"dense": (0, None), "int8": (1, torch.int8),
@@ -75,26 +77,56 @@ _I32, _F32, _PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # K chunk, then the V chunk): dense ones by TMA straight into the tiles the
 # products read (RING_BYTES), quantized ones as raw bytes (RAW_RING_BYTES)
 # converted into a bf16 tile (STAGE_BYTES); the Q tile and the tiles
-# 1024-aligned; the warps' merge scratch reuses the tiles.
+# 1024-aligned; the warps' merge scratch reuses the tiles. The ring budgets
+# are d 128's; :func:`geometry` gives the rest at each width (``Geo<D>`` in
+# the kernel).
 MMA_ROWS = 16
 TILE_TOKENS = 64
+NWARPS = 8
 RING_BYTES = 98304
 RAW_RING_BYTES = 65536
-STAGE_BYTES = 2 * TILE_TOKENS * D_HEAD * 2
 MIN_SLOTS, MAX_SLOTS = 2, 8
-Q_TILE_BYTES = MMA_ROWS * D_HEAD * 2
 ALIGN_SLACK = 1024
-MERGE_STRIDE = D_HEAD + 8  # floats between the merge scratch's rows
-MERGE_BYTES = 8 * MMA_ROWS * (MERGE_STRIDE + 2) * 4  # 8 warps
 SMEM_LIMIT = 232448      # shared memory an H100 block may use
 STATIC_RESERVE = 1024    # of it kept for the kernel's static arrays
 SM_SMEM = 233472         # shared memory of one H100 SM
 CTA_RESERVED = 1024      # of it reserved for each resident CTA
-CTAS_PER_SM = 2          # the kernel's launch bound (128 registers a thread)
 WAVES = 2                # CTA slots the split count aims to fill, in waves
 # Table tokens a split covers, at least: a CTA's fixed cost (its Q rows, its
 # merge, its partial's writes) against its walk.
 MIN_SPLIT_TOKENS = {"dense": 1024, "quantized": 512}
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """The kernel's constants at one head width (``Geo<D>``): its launch
+    bound's CTAs an SM, the dense and raw rings' budgets, the quantized
+    pages' bf16 K and V tile, the Q tile, and the merge scratch (rows
+    ``merge_stride`` floats apart)."""
+    d_head: int
+    ctas_per_sm: int
+    ring_bytes: int
+    raw_ring_bytes: int
+    stage_bytes: int
+    q_tile_bytes: int
+    merge_stride: int
+    merge_bytes: int
+
+
+def geometry(d_head: int) -> Geometry:
+    """``Geo<D>`` of ``csrc/paged_attention.cu`` at head width ``d_head``:
+    at d 128 two CTAs an SM (128 registers a thread); at d 256, where a
+    warp's 16 x 256 fp32 O alone is 128 registers, one CTA an SM with twice
+    the ring budgets."""
+    if d_head not in D_HEADS:
+        raise ValueError(f"the CUDA kernels take head widths {D_HEADS}, got {d_head}")
+    wide = d_head // D_HEAD
+    stride = d_head + 8
+    return Geometry(d_head=d_head, ctas_per_sm=2 if wide == 1 else 1,
+                    ring_bytes=RING_BYTES * wide, raw_ring_bytes=RAW_RING_BYTES * wide,
+                    stage_bytes=2 * TILE_TOKENS * d_head * 2,
+                    q_tile_bytes=MMA_ROWS * d_head * 2, merge_stride=stride,
+                    merge_bytes=NWARPS * MMA_ROWS * (stride + 2) * 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +136,8 @@ class PagedPlan:
     through a ring of ``slots`` slots of ``slot_bytes`` (a chunk's K and V),
     ``smem`` bytes of dynamic shared memory, ``ctas_per_sm`` resident CTAs
     an SM, and ``splits`` splits of ``pages_per_split`` page-table columns;
-    ``grid`` (batch, kv_heads, splits x row_blocks)."""
+    ``grid`` (batch, kv_heads, splits x row_blocks); ``d_head`` its head
+    width."""
     row_blocks: int
     chunk_tokens: int
     slot_bytes: int
@@ -114,12 +147,22 @@ class PagedPlan:
     splits: int
     pages_per_split: int
     grid: tuple
+    d_head: int = D_HEAD
 
     def columns(self, split: int, pages_per_seq: int) -> range:
         """The page-table columns split ``split`` owns (before the kernel
         clips them to the pages its sequence's rows can see)."""
         return range(split * self.pages_per_split,
                      min((split + 1) * self.pages_per_split, pages_per_seq))
+
+    def workspace_floats(self, batch: int, kv_heads: int, rows: int) -> tuple[int, int]:
+        """fp32 values of the splits' partials: O (batch * kv_heads, splits,
+        rows, d_head), then m and l (..., 2); (0, 0) with one split (the
+        split kernel writes the output itself)."""
+        if self.splits == 1:
+            return 0, 0
+        pairs = batch * kv_heads * self.splits * rows
+        return pairs * self.d_head, pairs * 2
 
 
 def chunk_tokens(mode: int, page_size: int) -> int:
@@ -133,26 +176,29 @@ def chunk_tokens(mode: int, page_size: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan(batch: int, kv_heads: int, rows: int, pages_per_seq: int, page_size: int,
-         mode: int, sm_count: int, splits: int = 0) -> PagedPlan:
-    """The split kernel's launch for ``rows`` rows a KV head (group x t) and
+         mode: int, sm_count: int, splits: int = 0, d_head: int = D_HEAD) -> PagedPlan:
+    """The split kernel's launch for ``rows`` rows a KV head (group x t),
     the kernel's ``mode`` number (0 dense, 1 int8, 2 fp8, 3 int4, 4 int8
-    compute): a function of shapes only, never of lengths or page ids.
+    compute) and head width ``d_head`` (128 or 256): a function of shapes
+    only, never of lengths or page ids.
     ``splits`` > 0 forces the split count (capped at the columns); 0 takes
     enough splits to fill ``WAVES`` waves of the card's CTA slots (the
     (sequence, KV head, row block) CTAs alone are far fewer at decode, and
     the splits of short sequences see no page and end at once), but no
     fewer than ``MIN_SPLIT_TOKENS`` table tokens a split."""
+    geo = geometry(d_head)
     store = MODES["int8"][0] if mode == MODE_INT8C else mode
     dense = store == MODES["dense"][0]
     row_blocks = -(-rows // MMA_ROWS)
     tokens = chunk_tokens(store, page_size)
     stored = tokens // 2 if store == MODES["int4"][0] else tokens
-    slot_bytes = 2 * stored * D_HEAD * (2 if dense else 1)
-    budget = RING_BYTES if dense else RAW_RING_BYTES
+    slot_bytes = 2 * stored * d_head * (2 if dense else 1)
+    budget = geo.ring_bytes if dense else geo.raw_ring_bytes
     slots = max(MIN_SLOTS, min(MAX_SLOTS, budget // max(slot_bytes, 1)))
-    smem = ALIGN_SLACK + Q_TILE_BYTES + max((0 if dense else STAGE_BYTES)
-                                            + slots * slot_bytes, MERGE_BYTES)
-    ctas_per_sm = max(1, min(CTAS_PER_SM, SM_SMEM // (smem + STATIC_RESERVE + CTA_RESERVED)))
+    smem = ALIGN_SLACK + geo.q_tile_bytes + max((0 if dense else geo.stage_bytes)
+                                                + slots * slot_bytes, geo.merge_bytes)
+    ctas_per_sm = max(1, min(geo.ctas_per_sm,
+                             SM_SMEM // (smem + STATIC_RESERVE + CTA_RESERVED)))
     cols = max(pages_per_seq, 1)
     if splits <= 0:
         splits = min(-(-WAVES * ctas_per_sm * sm_count // (batch * kv_heads * row_blocks)),
@@ -162,7 +208,8 @@ def plan(batch: int, kv_heads: int, rows: int, pages_per_seq: int, page_size: in
     splits = -(-cols // per)
     return PagedPlan(row_blocks=row_blocks, chunk_tokens=tokens, slot_bytes=slot_bytes,
                      slots=slots, smem=smem, ctas_per_sm=ctas_per_sm, splits=splits,
-                     pages_per_split=per, grid=(batch, kv_heads, splits * row_blocks))
+                     pages_per_split=per, grid=(batch, kv_heads, splits * row_blocks),
+                     d_head=d_head)
 
 
 def kernel_name(q_tokens: int, int8_compute: bool) -> str:
@@ -176,10 +223,10 @@ def kernel_name(q_tokens: int, int8_compute: bool) -> str:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.fa_paged_decode_split.restype = _I32
-    lib.fa_paged_decode_split.argtypes = ([_PTR] * 8 + [_I32] * 7 + [_F32, _F32]
+    lib.fa_paged_decode_split.argtypes = ([_PTR] * 8 + [_I32] * 8 + [_F32, _F32]
                                           + [_I32] * 4 + [_PTR] * 3)
     lib.fa_paged_decode_merge.restype = _I32
-    lib.fa_paged_decode_merge.argtypes = [_PTR] * 3 + [_I32] * 5 + [_PTR]
+    lib.fa_paged_decode_merge.argtypes = [_PTR] * 3 + [_I32] * 6 + [_PTR]
     return lib
 
 
@@ -409,9 +456,10 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
         raise ValueError(f"the CUDA kernel takes bf16 q and {page_dtype} pages for "
                          f"mode {mode!r}, got {q.dtype}/{k_pages.dtype}/"
                          f"{v_pages.dtype} (other types: ROADMAP Queue 2, K4/K5)")
-    if q.shape[-1] != D_HEAD:
-        raise ValueError(f"the CUDA kernel's tiles are {D_HEAD} wide, got d_head "
-                         f"{q.shape[-1]} (256-wide tiles: ROADMAP Queue 2)")
+    d_head = q.shape[-1]
+    if d_head not in D_HEADS:
+        raise ValueError(f"the CUDA kernel's tiles are {' or '.join(map(str, D_HEADS))} "
+                         f"wide, got d_head {d_head} (other widths: ROADMAP Queue 2)")
     batch, heads = q.shape[:2]
     q_tokens = q.shape[2] if q.ndim == 4 else 1
     kv_heads, num_pages, rows, _ = k_pages.shape
@@ -434,13 +482,12 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
     mode_num = MODE_INT8C if int8_compute else mode_id
     rows = heads // kv_heads * q_tokens
     pl = plan(batch, kv_heads, rows, page_tables.shape[1], page_size, mode_num,
-              sm_count(q.device), splits)
+              sm_count(q.device), splits, d_head)
     ws_o = ws_ml = None
     if pl.splits > 1:
-        # Each split's partial: O (pairs, splits, rows, d), then m and l
-        # (pairs, splits, rows, 2), fp32, in one allocation.
-        n_o = batch * kv_heads * pl.splits * rows * D_HEAD
-        ws = torch.empty(n_o + 2 * n_o // D_HEAD, dtype=torch.float32, device=q.device)
+        # Each split's partial: O, then m and l, fp32, in one allocation.
+        n_o, n_ml = pl.workspace_floats(batch, kv_heads, rows)
+        ws = torch.empty(n_o + n_ml, dtype=torch.float32, device=q.device)
         ws_o, ws_ml = ws.data_ptr(), ws.data_ptr() + 4 * n_o
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -449,13 +496,13 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
             k_scales.data_ptr(), v_scales.data_ptr(),
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
             batch, heads, kv_heads, num_pages, page_size,
-            page_tables.shape[1], q_tokens, float(scale), float(softcap),
+            page_tables.shape[1], q_tokens, d_head, float(scale), float(softcap),
             int(window), mode_num, pl.splits, pl.pages_per_split, ws_o, ws_ml, stream)
     _build.check(lib, rc, "paged_decode_attention")
     _build.launch_counts[kernel_name(q_tokens, int8_compute)] += 1
     if pl.splits > 1:
         rc = lib.fa_paged_decode_merge(ws_o, ws_ml, out.data_ptr(), batch, heads, kv_heads,
-                                       q_tokens, pl.splits, stream)
+                                       q_tokens, pl.splits, d_head, stream)
         _build.check(lib, rc, KERNEL_MERGE)
         _build.launch_counts[KERNEL_MERGE] += 1
     return out

@@ -122,6 +122,29 @@ def test_flash_kernel_matches_plain(cuda, sq, kw):
     check_flash_kernel(cuda, sq, KernelConfig(**kw), FLASH, seq_kv=skv, strided=strided)
 
 
+@pytest.mark.parametrize("sq,kw", K1_CASES)
+def test_flash_kernel_d256_matches_plain(cuda, sq, kw):
+    """K1 at head width 256 (its one-consumer-warpgroup CTA, 64-row items
+    and 64-key slots) on K1's cases, with sinks and the LSE."""
+    kw = dict(kw)
+    skv, strided = kw.pop("seq_kv", 256), kw.pop("strided", False)
+    check_flash_kernel(cuda, sq, KernelConfig(d_head=256, **kw), FLASH, seq_kv=skv,
+                       strided=strided)
+
+
+def test_flash_kernel_d256_plain_grid_matches_persistent(cuda):
+    """At d 256 too, one CTA per work item gives the persistent output bit
+    for bit, causal and not."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
+
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 1024, 256, kv_heads=2, seed=4))
+    for cfg in (KernelConfig(d_head=256, causal=True), KernelConfig(d_head=256)):
+        out, lse = ff._launch(q, k, v, cfg, None, True)
+        grid_out, grid_lse = ff._launch(q, k, v, cfg, None, True, ctas=0)
+        assert torch.equal(out, grid_out) and torch.equal(lse, grid_lse)
+
+
 def test_flash_kernel_plain_grid_matches_persistent(cuda):
     """One CTA per work item (``ctas=0``) gives K1's persistent output bit
     for bit: the schedule moves work, not arithmetic."""
@@ -151,7 +174,7 @@ def test_fori_kernel_matches_plain(cuda, sq, kw, nbuf):
 
 def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256, strided=False):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
-               make_qkv(2, 8, sq, kv_heads=2, seq_kv=seq_kv, seed=1))
+               make_qkv(2, 8, sq, cfg.d_head, kv_heads=2, seq_kv=seq_kv, seed=1))
     if strided:  # (b, h, s, d) views of contiguous (b, s, h, d) rows
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
     sinks = torch.linspace(-2, 2, 8, device=cuda)
@@ -584,13 +607,13 @@ def test_quantized_paged_kernel_matches_plain(cuda, mode):
         assert ok, (mode, kw, ratio, where)
 
 
-def _paged_pool(cuda, kv_heads, lengths, mode, seed, ps=16, num_pages=96):
-    """A pool with shuffled pages and tables; slots no sequence owns hold
-    NaN (dense) or the e4m3 NaN byte (fp8). Returns (k, v, keyword
-    arguments for the page format)."""
+def _paged_pool(cuda, kv_heads, lengths, mode, seed, ps=16, num_pages=96, d=128):
+    """A pool with shuffled pages and tables, heads ``d`` wide; slots no
+    sequence owns hold NaN (dense) or the e4m3 NaN byte (fp8). Returns (k,
+    v, keyword arguments for the page format)."""
     rng = np.random.default_rng(seed)
     tables = torch.full((len(lengths), 40), -1, dtype=torch.int32, device=cuda)
-    owned = torch.zeros(kv_heads, num_pages, ps, 128, dtype=torch.bool, device=cuda)
+    owned = torch.zeros(kv_heads, num_pages, ps, d, dtype=torch.bool, device=cuda)
     perm, nxt = rng.permutation(num_pages), 0
     for b, n in enumerate(lengths):
         for i in range(-(-n // ps)):
@@ -599,7 +622,7 @@ def _paged_pool(cuda, kv_heads, lengths, mode, seed, ps=16, num_pages=96):
             tables[b, i] = page
             owned[:, page, :min(ps, n - i * ps)] = True
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    k, v = (torch.randn(kv_heads, num_pages, ps, 128, device=cuda, generator=gen)
+    k, v = (torch.randn(kv_heads, num_pages, ps, d, device=cuda, generator=gen)
             for _ in range(2))
     if mode == "dense":
         k, v = (torch.where(owned, x, float("nan")).bfloat16() for x in (k, v))
@@ -674,6 +697,61 @@ def test_paged_kernel_is_deterministic(cuda, mode, t):
                 q, kp, vp, lens, tables, int8_compute=i8c, splits=splits, **kw0))
 
 
+@pytest.mark.parametrize("splits", [1, 2, 0], ids=["splits1", "splits2", "plan"])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("mode", ["dense", "int8", "fp8", "int4", "int8c"])
+def test_paged_kernel_d256_matches_plain(cuda, mode, t, splits):
+    """K4/K5 at head width 256 (Gemma-2-9B's 16 Q over 8 KV heads: its
+    one-CTA-an-SM instantiation) on every page format and int8 compute,
+    t = 1 and 4, plain, with a window and with a softcap, by the rule of
+    the test above; the merge is launched whenever the plan splits."""
+    i8c = mode == "int8c"
+    lengths = [0, 1, t, 37, 300, 611]
+    kp, vp, tables, kw0 = _paged_pool(cuda, 8, lengths, "int8" if i8c else mode,
+                                      seed=50 + t, d=256)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), 16) + ((t,) if t > 1 else ()) + (256,),
+                    device=cuda).bfloat16()
+    kw0 = dict(kw0, scale=256 ** -0.5)
+    name = kernel_name(t, i8c)
+    merged = plan(len(lengths), 8, 2 * t, tables.shape[1], 16,
+                  MODE_INT8C if i8c else MODES[mode][0], sm_count(q.device), splits,
+                  256).splits > 1
+    for kw in (dict(), dict(window=100), dict(softcap=50.0)):
+        before, merges = _build.launch_counts[name], _build.launch_counts[KERNEL_MERGE]
+        out = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                     splits=splits, **kw0, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1
+        assert _build.launch_counts[KERNEL_MERGE] == merges + merged
+        native = paged_decode_attention_plain(q, kp, vp, lens, tables, int8_compute=i8c,
+                                              **kw0, **kw)
+        pages32 = (kp.float(), vp.float()) if mode == "dense" else (kp, vp)
+        ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw0, **kw)
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        assert float(out[0].abs().max()) == 0.0
+        by_token = (lambda x: x.transpose(1, 2)) if t > 1 else (lambda x: x[:, None])
+        ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(native),
+                                                  by_token(ref32), lead=2)
+        assert ok, (mode, t, kw, ratio, where)
+
+
+@pytest.mark.parametrize("mode", ["dense", "int8c"])
+def test_paged_kernel_d256_is_deterministic(cuda, mode):
+    i8c = mode == "int8c"
+    lengths = [0, 5, 300, 611]
+    kp, vp, tables, kw0 = _paged_pool(cuda, 8, lengths, "int8" if i8c else mode, seed=41,
+                                      d=256)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), 16, 256), device=cuda).bfloat16()
+    for splits in (0, 2):
+        first = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                       splits=splits, **kw0)
+        for _ in range(3):
+            assert torch.equal(first, paged_decode_attention(
+                q, kp, vp, lens, tables, int8_compute=i8c, splits=splits, **kw0))
+
+
 def test_kernels_refuse_other_dtypes(cuda):
     q = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -686,20 +764,32 @@ def test_kernels_refuse_other_dtypes(cuda):
 
 
 def test_kernels_refuse_other_head_widths(cuda):
-    """d 256 runs on the CPU (the plain versions); the kernels' tiles are
-    128 wide, so their wrappers raise on the card."""
+    """K1 and K4/K5 take d 128 and 256 on the card; K2/K3, K10 and K11 are
+    128 wide and raise at d 256 (the plain versions run it on the CPU), and
+    every wrapper raises at d 384: nothing falls back to a plain version on
+    a CUDA tensor."""
     q = torch.zeros((1, 2, 128, 256), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="128 wide"):
-        flash_forward_with_lse(q, q, q, KernelConfig(d_head=256))
     with pytest.raises(ValueError, match="128 wide"):
         flash_backward(q, q, q, q, torch.zeros((1, 2, 128), device=cuda), q,
                        KernelConfig(d_head=256))
     kq = quantize_kv(q, "int8")
     with pytest.raises(ValueError, match="128 wide"):
         flash_forward_quantized(q, kq, kq, KernelConfig(d_head=256))
-    pages = torch.zeros((2, 2, 16, 256), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="128 wide"):
-        paged_decode_attention(q[:, :, 0], pages, pages,
+        flash_forward_with_lse(q, q, q, KernelConfig(d_head=256, kv_loop=KVLoop.FORI))
+    q384 = torch.zeros((1, 2, 128, 384), device=cuda, dtype=torch.bfloat16)
+    for cfg in (KernelConfig(d_head=384), KernelConfig(d_head=384, kv_loop=KVLoop.FORI)):
+        with pytest.raises(ValueError, match="wide"):
+            flash_forward_with_lse(q384, q384, q384, cfg)
+    with pytest.raises(ValueError, match="wide"):
+        flash_backward(q384, q384, q384, q384, torch.zeros((1, 2, 128), device=cuda), q384,
+                       KernelConfig(d_head=384))
+    kq384 = quantize_kv(q384, "int8")
+    with pytest.raises(ValueError, match="wide"):
+        flash_forward_quantized(q384, kq384, kq384, KernelConfig(d_head=384))
+    pages = torch.zeros((2, 2, 16, 384), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wide"):
+        paged_decode_attention(q384[:, :, 0], pages, pages,
                                torch.ones(1, dtype=torch.int32, device=cuda),
                                torch.zeros((1, 2), dtype=torch.int32, device=cuda))
 
@@ -884,25 +974,35 @@ GRAPH_RECIPES = {"dense": (None, "dense"), "int8": (("int8", "bf16"), "int8"),
                  "int4": (("int4", "bf16"), "int4"), "a8": (("int8", "int8"), "fp8")}
 GRAPH_LENGTHS = (100, 300, 37)
 GRAPH_PAGES_PER_SEQ = 8
+# Head width 256: a Gemma-2-shaped model (4 Q heads over 2 KV heads of 256,
+# a 64-token window on layer 0, softcaps 50 / 30, the sandwich norms, the
+# GeLU MLP) with GRAPH_CFG's vocabulary.
+D256_CFG = llama.LlamaConfig(vocab_size=2048, dim=1024, n_layers=2, n_heads=4, n_kv_heads=2,
+                             d_head=256, hidden_dim=2048, window_pattern=(64, 0),
+                             mlp_act="gelu", post_norms=True, embed_scale=True,
+                             attn_softcap=50.0, final_softcap=30.0, attn_scale=256 ** -0.5)
 
 
-def _graph_model(cuda, recipe):
+def _graph_model(cuda, recipe, cfg=GRAPH_CFG):
     gen = torch.Generator(device=cuda).manual_seed(0)
     weights, mode = GRAPH_RECIPES[recipe]
     if weights is None:
-        params = llama.init_params(GRAPH_CFG, gen, cuda)
+        params = llama.init_params(cfg, gen, cuda)
+    elif cfg.post_norms:  # init_quantized_params makes no sandwich norms (as in JAX)
+        params = llama.quantize_params(llama.init_params(cfg, gen, cuda), weights[0],
+                                       act=weights[1])
     else:
-        params = llama.init_quantized_params(GRAPH_CFG, gen, weights[0], act=weights[1],
+        params = llama.init_quantized_params(cfg, gen, weights[0], act=weights[1],
                                              device=cuda)
     batch = len(GRAPH_LENGTHS)
-    cache = decode.init_cache(GRAPH_CFG, batch * GRAPH_PAGES_PER_SEQ + 1, 64, mode, cuda)
+    cache = decode.init_cache(cfg, batch * GRAPH_PAGES_PER_SEQ + 1, 64, mode, cuda)
     tables = torch.arange(batch * GRAPH_PAGES_PER_SEQ, dtype=torch.int32,
                           device=cuda).view(batch, -1)
     rng = np.random.default_rng(1)
     for b, n in enumerate(GRAPH_LENGTHS):
         toks = torch.zeros((1, 512), dtype=torch.long, device=cuda)
-        toks[0, :n] = torch.from_numpy(rng.integers(0, GRAPH_CFG.vocab_size, n))
-        decode.prefill(params, toks, GRAPH_CFG, cache, tables[b], prompt_len=n)
+        toks[0, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+        decode.prefill(params, toks, cfg, cache, tables[b], prompt_len=n)
     return params, cache, tables
 
 
@@ -934,14 +1034,25 @@ def test_replayed_step_equals_eager_step(cuda, recipe, t):
     """Two steps of t tokens (the first call captures, the second only
     replays) against the eager ``_step`` on a copy of the cache: logits and
     every page and scale bit for bit, int8 compute too on an int8 cache."""
-    params, cache, tables = _graph_model(cuda, recipe)
+    _check_replayed_steps(cuda, recipe, t, GRAPH_CFG)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("recipe", ["dense", "int8"])
+def test_d256_replayed_step_equals_eager_step(cuda, recipe, t):
+    """The same at head width 256 (K4/K5's d-256 kernels in the graphs)."""
+    _check_replayed_steps(cuda, recipe, t, D256_CFG)
+
+
+def _check_replayed_steps(cuda, recipe, t, cfg):
+    params, cache, tables = _graph_model(cuda, recipe, cfg)
     for attn_int8 in {False, cache.mode == "int8"}:
         replayed, eager = _clone(cache), _clone(cache)
-        graphs = StepGraphs(params, GRAPH_CFG, replayed, attn_int8=attn_int8)
+        graphs = StepGraphs(params, cfg, replayed, attn_int8=attn_int8)
         for call in range(2):
             tokens, lengths = _step_inputs(t, seed=call, grown=(call + 1) * t)
             got = graphs.verify_step(tokens, lengths, tables.cpu())
-            want, _ = decode._step(params, tokens.to(cuda), GRAPH_CFG, eager,
+            want, _ = decode._step(params, tokens.to(cuda), cfg, eager,
                                    lengths.to(cuda), tables, None, None, attn_int8)
             assert torch.equal(_bits(got), _bits(want)), (recipe, t, attn_int8, call)
         _same_pools(replayed, eager)
@@ -972,13 +1083,23 @@ def test_graph_decode_loop_equals_replayed_steps(cuda, recipe):
     """``StepGraphs.decode_loop(steps=4)`` (one graph of four steps) gives the
     tokens and pages of four replayed decode steps fed their own argmax,
     and of the eager ``decode_loop``."""
-    params, cache, tables = _graph_model(cuda, recipe)
+    _check_decode_loop(cuda, recipe, GRAPH_CFG)
+
+
+@pytest.mark.parametrize("recipe", ["dense", "int8"])
+def test_d256_graph_decode_loop_equals_replayed_steps(cuda, recipe):
+    """The same at head width 256."""
+    _check_decode_loop(cuda, recipe, D256_CFG)
+
+
+def _check_decode_loop(cuda, recipe, cfg):
+    params, cache, tables = _graph_model(cuda, recipe, cfg)
     first, lengths = _step_inputs(1, seed=4, grown=0)
     first = first[:, 0]
     loop_cache, step_cache, eager_cache = _clone(cache), _clone(cache), _clone(cache)
-    out, lens = StepGraphs(params, GRAPH_CFG, loop_cache).decode_loop(
+    out, lens = StepGraphs(params, cfg, loop_cache).decode_loop(
         first, lengths, tables.cpu(), 4)
-    stepper = StepGraphs(params, GRAPH_CFG, step_cache)
+    stepper = StepGraphs(params, cfg, step_cache)
     toks, lens_s = first, lengths
     for i in range(4):
         lens_s = lens_s + 1
@@ -986,7 +1107,7 @@ def test_graph_decode_loop_equals_replayed_steps(cuda, recipe):
         assert torch.equal(toks, out[:, i].cpu()), (recipe, i)
     assert torch.equal(lens.cpu(), lens_s)
     _same_pools(loop_cache, step_cache)
-    eager_out, _, _ = decode.decode_loop(params, first.to(cuda), GRAPH_CFG, eager_cache,
+    eager_out, _, _ = decode.decode_loop(params, first.to(cuda), cfg, eager_cache,
                                          lengths.to(cuda), tables, 4)
     assert torch.equal(eager_out, out)
     _same_pools(loop_cache, eager_cache)
@@ -1176,6 +1297,73 @@ def test_prefix_server_on_the_card(cuda):
     got = server.run()
     assert server.stats()["prefix_hit_pages"] == 9
     assert all(len(got[sid]) == 6 for sid in (1, 2, 3))
+
+
+def test_d256_servers_on_the_card(cuda):
+    """Head width 256 on the card: the server replays a graph for every
+    decode step (and, with ``chunk=4`` and ``prefill_chunk_tokens=128``,
+    every loop, serving the plain server's tokens); a prefix-cached server
+    runs K1 on the suffix chunks at q_offset > 0 and serves every token;
+    nothing raises for want of a d-256 kernel."""
+    params, _, _ = _graph_model(cuda, "dense", D256_CFG)
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+
+    prompts = {i: list(range(3 * i, 3 * i + n)) for i, n in enumerate((20, 300, 131))}
+    runs = []
+    for kw in ({}, dict(chunk=4, prefill_chunk_tokens=128)):
+        server = GenerationServer(params, D256_CFG, num_pages=32, page_size=64,
+                                  max_batch=4, pages_per_seq=8, **kw)
+        for sid, prompt in prompts.items():
+            server.submit(sid, prompt, 11)
+        before = _build.launch_counts[FLASH]
+        runs.append(server.run())
+        assert _build.launch_counts[FLASH] > before
+        assert server.graphs.replays > 0
+    assert runs[0] == runs[1]
+    shared = list(range(5, 197))
+    server = GenerationServer(params, D256_CFG, num_pages=40, page_size=64, max_batch=3,
+                              pages_per_seq=8, prefix_cache=True)
+    server.submit(0, shared + [1, 2], 3)
+    server.run()
+    for sid, n in ((1, 20), (2, 70)):
+        server.submit(sid, shared + list(range(300, 300 + n)), 6)
+    got = server.run()
+    assert server.stats()["prefix_hit_pages"] == 6
+    assert all(len(got[sid]) == 6 for sid in (1, 2))
+
+
+def test_d256_prefill_chunked_on_k1_matches_prefill(cuda, monkeypatch):
+    """``prefill_chunked`` at head width 256 (K1 with q_offset over [prefix |
+    chunk], past the 64-token window) against one ``prefill``, by the
+    adaptive rule against the same model in fp32, as the d-128 test holds
+    Llama-3-8B."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import flash_forward_plain
+    from flash_attention_from_scratch_tpu_torch.utils.testing import adaptive_tolerance_check
+
+    cfg = D256_CFG
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(2), cuda)
+    n = 300
+    toks = torch.zeros((1, 384), dtype=torch.long, device=cuda)
+    toks[0, :n] = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, n))
+    table = torch.arange(8, dtype=torch.int32, device=cuda)
+
+    def run(fn, c, **kw):
+        cache = decode.init_cache(c, 8, 64, device=cuda)
+        logits, cache = fn(params, toks, c, cache, table, prompt_len=n, **kw)
+        return logits, torch.stack([torch.stack(p) for p in (cache.k_pages, cache.v_pages)])
+
+    before = _build.launch_counts[FLASH]
+    chunked = run(decode.prefill_chunked, cfg, chunk_tokens=128)
+    assert _build.launch_counts[FLASH] == before + 3 * cfg.n_layers
+    one_shot = run(decode.prefill, cfg)
+    monkeypatch.setattr(llama, "_mm", lambda x, w: x.float() @ w.float())
+    monkeypatch.setattr(llama, "flash_forward", lambda q, k, v, c, sinks=None:
+                        flash_forward_plain(q, k, v, c, sinks)[0])
+    monkeypatch.setattr(decode, "_embed",  # with Gemma's sqrt(dim) scale
+                        lambda p, tokens, c: p["embed"][tokens].float() * c.dim ** 0.5)
+    fp32 = run(decode.prefill, dataclasses.replace(cfg, dtype=DType.FP32))
+    ok, err, base = adaptive_tolerance_check(chunked[0], one_shot[0], fp32[0])
+    assert ok, (err, base)
 
 
 def test_frontend_serves_on_the_card(cuda):

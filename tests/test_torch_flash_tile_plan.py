@@ -1,6 +1,7 @@
 """The launch plans of the wgmma attention main loop, pure functions:
-K11's (``ops/flash_forward.py::fori_plan``) and K10's
-(``ops/flash_quant.py::plan``).
+K11's (``ops/flash_forward.py::fori_plan``), K10's
+(``ops/flash_quant.py::plan``) and K1's (``ops/flash_forward.py::grid_plan``,
+at head widths 128 and 256).
 
 Every ring depth and every K10 mode fits the H100's 232,448 bytes of shared
 memory a block (with the kernels' static barriers), the grid covers every
@@ -142,27 +143,54 @@ GRID_SHAPES = [(1, 32, s, s, True, 0, 0) for s in (256, 640, 1024, 1536, 2048, 2
     (1, 2, 64, 64, True, 0, 0), (2, 16, 512, 1024, True, 0, 512)]
 
 
-def test_grid_plan_mirrors_the_kernel():
-    """``GridTile``: 2 slots of 128 keys and 2 Q tiles, sized from the same
-    constants; at most one CTA an SM."""
-    tile = re.search(r"struct GridTile \{(.*?)\};", GRID, re.S).group(1)
-    assert _int(tile, r"\bNB = (\d+);") == ff.GRID_SLOTS
-    assert _int(tile, r"\bBK = (\d+);") == ff.GRID_KEYS
-    assert _int(tile, r"\bQ_BUFS = (\d+);") == ff.GRID_Q_BUFS
+WIDTHS = [128, 256]
+
+
+def _tile_field(tile, name, d_head):
+    """``NAME = HD == 128 ? a : b;`` of ``GridTile<HD>``: a at d 128, b at 256."""
+    a, b = re.findall(rf"\b{name} = HD == 128 \? (\d+) : (\d+);", tile)[0]
+    return int(a) if d_head == 128 else int(b)
+
+
+@pytest.mark.parametrize("d_head", WIDTHS)
+def test_grid_plan_mirrors_the_kernel(d_head):
+    """``GridTile<HD>``: at d 128 two consumer warpgroups, 2 slots of 128
+    keys and 2 Q tiles; at d 256 one consumer warpgroup, 3 slots of 64 keys
+    and one Q tile; sized from the same constants, within a block's shared
+    memory; at most one CTA an SM."""
+    tile = re.search(r"struct GridTile \{(.*?)\n\};", GRID, re.S).group(1)
+    consumers, keys, slots, q_bufs = ff.GRID_TILES[d_head]
+    assert _tile_field(tile, "CONSUMERS", d_head) == consumers
+    assert _tile_field(tile, "NB", d_head) == slots
+    assert _tile_field(tile, "BK", d_head) == keys
+    assert _tile_field(tile, "Q_BUFS", d_head) == q_bufs
+    assert re.search(r"BQ = CONSUMERS \* WG_ROWS;", tile)
+    assert re.search(r"THREADS = \(CONSUMERS \+ 1\) \* 128;", tile)
     assert re.search(r"SMEM = Q_BUFS \* Q_BYTES \+ NB \* SLOT \+ ALIGN_SLACK;", tile)
-    assert re.search(r"SLOT = 2 \* bf16_tile_bytes\(BK\);", tile)
+    assert re.search(r"SLOT = 2 \* bf16_tile_bytes\(BK, HD\);", tile)
+    assert re.search(r"Q_BYTES = bf16_tile_bytes\(BQ, HD\);", tile)
     assert '#include "flash_wgmma.cuh"' in GRID
-    assert "__launch_bounds__(THREADS, 1)" in GRID
+    assert "__launch_bounds__(GridTile<HD>::THREADS, 1)" in GRID
+    assert f"return launch<{d_head}>(" in GRID
     assert re.search(r"ctas > 0 \? std::min\(ctas, p\.items\) : p\.items", GRID)
     # The item order (item_at): causal by Q tile, heaviest first; else Q
     # tile fastest.
     assert "return Item{w - hb * p.q_tiles, hb % p.heads, hb / p.heads};" in GRID
     assert "return Item{p.q_tiles - 1 - r, hb % p.heads, hb / p.heads};" in GRID
+    rows = consumers * ff.WG_ROWS
     for shape in GRID_SHAPES:
-        p = ff.grid_plan(*shape, H100_SMS)
-        assert p.smem == 2 * ff.TILE_ROWS * 128 * 2 + 2 * 2 * 128 * 128 * 2 + ff.ALIGN_SLACK
+        p = ff.grid_plan(*shape, H100_SMS, d_head)
+        assert (p.rows, p.keys, p.slots, p.q_bufs, p.d_head) == (rows, keys, slots, q_bufs,
+                                                                 d_head)
+        assert p.smem == (q_bufs * rows * d_head * 2 + slots * 2 * keys * d_head * 2
+                          + ff.ALIGN_SLACK)
         assert p.smem + STATIC_BARRIERS <= ff.SMEM_LIMIT
-        assert p.ctas == min(p.n_items, H100_SMS) and p.threads == ff.TILE_THREADS
+        assert p.ctas == min(p.n_items, H100_SMS) and p.threads == (consumers + 1) * 128
+        if d_head == 128:  # d 128's plan is the one its kernel was measured with
+            assert p.smem == 2 * ff.TILE_ROWS * 128 * 2 + 2 * 2 * 128 * 128 * 2 + ff.ALIGN_SLACK
+            assert p.threads == ff.TILE_THREADS and p == ff.grid_plan(*shape, H100_SMS)
+    with pytest.raises(ValueError, match="head widths"):
+        ff.grid_plan(*GRID_SHAPES[0], H100_SMS, 384)
 
 
 def test_k1_has_no_warp_level_body():
@@ -173,11 +201,12 @@ def test_k1_has_no_warp_level_body():
     assert "consume_bf16<" in GRID and "store_rows(" in GRID
 
 
+@pytest.mark.parametrize("d_head", WIDTHS)
 @pytest.mark.parametrize("shape", GRID_SHAPES)
-def test_grid_plan_takes_every_item_once(shape):
+def test_grid_plan_takes_every_item_once(shape, d_head):
     """Every (Q tile, head, batch) item is taken by exactly one CTA, and
     every CTA takes one."""
-    p = ff.grid_plan(*shape, H100_SMS)
+    p = ff.grid_plan(*shape, H100_SMS, d_head)
     batch, heads = shape[:2]
     taken = [w for c in range(p.ctas) for w in p.cta_items(c)]
     assert sorted(taken) == list(range(p.n_items))
@@ -187,12 +216,13 @@ def test_grid_plan_takes_every_item_once(shape):
     assert all(p.cta_items(c) for c in range(p.ctas))
 
 
+@pytest.mark.parametrize("d_head", WIDTHS)
 @pytest.mark.parametrize("shape", GRID_SHAPES)
-def test_grid_plan_is_heaviest_first_and_balanced(shape):
+def test_grid_plan_is_heaviest_first_and_balanced(shape, d_head):
     """Items come heaviest first (non-increasing KV tiles; a window's tiles
     differ by at most one beyond its start), and no CTA's load (KV tiles)
     exceeds the largest item plus the mean over the CTAs."""
-    p = ff.grid_plan(*shape, H100_SMS)
+    p = ff.grid_plan(*shape, H100_SMS, d_head)
     if not p.causal:  # equal items, Q tile fastest: neighbours share K/V
         assert [p.item(w) for w in range(p.q_tiles)] == [(qt, 0, 0)
                                                         for qt in range(p.q_tiles)]
@@ -215,3 +245,15 @@ def test_grid_plan_walks_the_kernels_tiles():
     offset = ff.grid_plan(1, 1, 192, 320, True, 70, 128, H100_SMS)
     assert [offset.tiles(qt) for qt in range(2)] == [2, 2]
     assert ff.grid_plan(1, 1, 512, 512, False, 130, 0, H100_SMS).window == 0
+
+
+def test_grid_plan_walks_the_kernels_tiles_d256():
+    """The same walks at d 256, on 64-row items and 64-key tiles."""
+    def tiles(*shape):
+        p = ff.grid_plan(*shape, H100_SMS, 256)
+        return [p.tiles(qt) for qt in range(p.q_tiles)]
+
+    assert tiles(1, 1, 512, 512, False, 0, 0) == [8] * 8
+    assert tiles(1, 1, 512, 512, True, 0, 0) == list(range(1, 9))
+    assert tiles(1, 1, 512, 512, True, 130, 0) == [1, 2, 3, 4, 4, 4, 4, 4]
+    assert tiles(1, 1, 192, 320, True, 70, 128) == [3, 3, 3]
