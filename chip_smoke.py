@@ -79,7 +79,12 @@ steps with the default backward (the split K3, the faster), checking the
 loss falls and the launch counts, profile one more step, then take one
 step on the fused backward (K2), with its counts checked, the loss after
 it falling, and K2 and K3 held against the plain backward on every
-layer's recorded attention inputs; (7) serve quantized
+layer's recorded attention inputs; then train Gemma-2-9B at full width
+and head width 256 (``train_gemma2_9b``: 8 of its 42 layers, random bf16
+weights converted by ``from_hf_gemma2``, batch 1 x 8,192 tokens, 3 AdamW
+steps with checkpointed layers on K3 at d 256, one on K2, the same
+checks, K2/K3 held to the plain backward on a sliding and a global
+layer's recorded inputs); (7) serve quantized
 Llama-3-8B at full width (``init_quantized_params`` from a seed), runs A-D
 of ``QUANT_RUNS``: A int8 weights (K6) and int8 KV, B W4A8 (K9) and int8
 KV, both at full depth with 16 requests of 1024 tokens; C W8A8 (K8) and
@@ -96,8 +101,9 @@ bench tools, the path of quantized prefill attention (K10) and of the
 K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
 and ``tools/bench_attention.py --fori``, each with its kernel's launches
-counted, then hold K10 (every variant) and K11 (depth 2) against their
-plain versions on the tools' own inputs at those shapes, and run the
+counted, then hold K10 (every variant; s 2048 and 4096) and K11 (depth 2)
+against their plain versions on the tools' own inputs at those shapes, and
+run the
 serving bench tools each in its own process (``tools/bench_decode.py`` at
 Llama-3-8B, int8 weights and KV, per step and ``--scan``;
 ``tools/bench_serving.py`` at its defaults and with the prefix cache),
@@ -127,10 +133,13 @@ windows, a softcap and strided Q, against its plain version, and head
 width 256 (``phase_d256_cases``, Gemma-2-9B's 16/8 heads): K1 on five
 cases (the 5,120-row prefill with the window or globally, a q_offset
 chunk with every option, full, ragged) and K4/K5 on every page format and
-int8 compute at t = 1 and 4 with the window and the softcap; K1 and
+int8 compute at t = 1 and 4 with the window and the softcap, and K2 and
+K3 on seven backward cases (causal, full, q_offset, a window starting
+mid-tile, softcap 50, ragged, strided) with their rerun equalities; K1 and
 K4/K5 at d 256 are timed at ``serve_gemma2_9b``'s shapes
-(``time_flash_d256``, ``time_paged_d256``; the ``*_d256`` entries of the
-``kernels`` line). (10) the parallel layer (``parallel/``), its ranks processes on this card
+(``time_flash_d256``, ``time_paged_d256``), K2 and K3 at
+``train_gemma2_9b``'s (``time_backward_d256``; the ``*_d256`` entries of
+the ``kernels`` line). (10) the parallel layer (``parallel/``), its ranks processes on this card
 over gloo, named here (NCCL refuses two ranks on one card; every tensor
 that crosses ranks goes through pinned host memory, counted as staged
 bytes; no time of these phases is a multi-card speed): ``ring``, ring
@@ -156,7 +165,7 @@ LoRA prefill, decode and verify steps under tp 2 against one rank;
 (``time_shards``). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
-``serve_gemma2_9b``, ``train``,
+``serve_gemma2_9b``, ``train``, ``train_gemma2_9b``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
@@ -280,7 +289,7 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
-                         "flash_backward.cu", "quant_matmul.cu",
+                         "flash_backward.cu", "flash_backward_d256.cu", "quant_matmul.cu",
                          "flash_quant.cu", "flash_forward_fori.cu",
                          "paged_runtime.cpp"])
     secs = time.perf_counter() - t0
@@ -551,45 +560,65 @@ def _check_grads(what, got, ref16, ref32):
     return err, ratio_max
 
 
-def phase_backward_cases() -> dict:
-    """K2 and K3 vs their plain version, on K1's O and LSE; then autograd
-    through ``flash_attention`` with sinks vs autograd of the reference.
-    Returns {kernel: max |kernel - plain|}."""
+def _hold_backward_cases(cases, label: str = "", heads: int = HEADS,
+                         kv_heads: int = KV_HEADS, d: int = D) -> dict:
+    """K2 and K3 vs their plain version on ``cases`` (``BACKWARD_CASES``'
+    form, at ``heads``/``kv_heads`` heads of width ``d``), on K1's O and
+    LSE, each called twice: the sliced rule on each gradient
+    (``_check_grads``), dK and dV bit for bit equal on the rerun in both
+    modes and dQ too in K3's, each kernel launched once a call. Returns
+    {mode: (max |kernel - plain|, worst err/bound)}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-        KERNEL_FUSED, flash_backward, flash_backward_plain)
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward_with_lse)
 
-    worst = {"fused": 0.0, "split": 0.0}
-    for i, (name, sq, skv, kw, extra) in enumerate(BACKWARD_CASES):
+    names = {"fused": (KERNEL_FUSED,), "split": (KERNEL_DKV, KERNEL_DQ)}
+    worst = {"fused": (0.0, 0.0), "split": (0.0, 0.0)}
+    for i, (name, sq, skv, kw, extra) in enumerate(cases):
         layout = dict(strided=extra.get("strided", False))
         q, k, v = _cuda_qkv(sq, skv, seed=200 + i, batch=extra.get("batch", 1),
-                            **layout)
+                            heads=heads, kv_heads=kv_heads, d=d, **layout)
         do = _cuda_normal(q.shape, seed=300 + i, **layout)
-        cfg = KernelConfig(**kw)
+        cfg = KernelConfig(d_head=d, **kw)
         o, lse = flash_forward_with_lse(q, k, v, cfg)
         ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
         ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(),
                                      lse, do.float(), _fp32(cfg))
         for mode in ("fused", "split"):
+            before = {n: _build.launch_counts[n] for n in names[mode]}
             got = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
             again = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
             sync()
-            err, ratio = _check_grads(f"flash_backward {mode} {name}", got,
-                                      ref16, ref32)
+            launched = {n: _build.launch_counts[n] - before[n] for n in names[mode]}
+            what = f"flash_backward {label}{mode} {name}"
+            err, ratio = _check_grads(what, got, ref16, ref32)
             # dK/dV sum in a fixed order in both; dQ only in the split pair.
             same = [torch.equal(a, b) for a, b in zip(got, again)]
             if not all(same[1:]) or (mode == "split" and not same[0]):
-                raise AssertionError(f"flash_backward {mode} {name}: a rerun "
-                                     f"differs (dq, dk, dv equal: {same})")
-            worst[mode] = max(worst[mode], err)
-            print(f"flash_backward {mode} {name}: max|kernel-plain| {err:.3e}, "
-                  f"worst err/bound {ratio:.3f}, rerun dq equal {same[0]} ok",
-                  flush=True)
+                raise AssertionError(f"{what}: a rerun differs (dq, dk, dv equal: {same})")
+            if set(launched.values()) != {2}:
+                raise AssertionError(f"{what}: two calls launched {launched}")
+            worst[mode] = tuple(map(max, worst[mode], (err, ratio)))
+            print(f"{what}: max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f}, "
+                  f"rerun dq equal {same[0]} ok", flush=True)
         del q, k, v, do, o, lse, ref16, ref32, got, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_backward_cases() -> dict:
+    """K2 and K3 vs their plain version on BACKWARD_CASES
+    (``_hold_backward_cases``); then autograd through ``flash_attention``
+    with sinks vs autograd of the reference. Returns {kernel: max |kernel -
+    plain|}."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import KERNEL_FUSED
+
+    worst = _hold_backward_cases(BACKWARD_CASES)
     _backward_sinks_case()
-    return {KERNEL_FUSED: worst["fused"], "split": worst["split"]}
+    return {KERNEL_FUSED: worst["fused"][0], "split": worst["split"][0]}
 
 
 def _backward_sinks_case() -> None:
@@ -2808,86 +2837,91 @@ def _profile(fn, top: int = 10, split=None) -> dict:
             "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                for e in ranked}}
 
-def _check_model_backward(seen) -> dict:
+def _check_model_backward(seen, what: str = "train", layers=None,
+                          by_heads: bool = False) -> dict:
     """K2 and K3 against the plain backward on each layer's attention
     inputs as a training step handed them over (strided q/k/v/dO, the
-    model's activations). dO is first scaled by a power of two to a max
-    of about 1: the gradients scale exactly with it, and the rule's 1e-6
-    floor would otherwise pass gradients this small (a mean loss over
-    4096 tokens) whatever they were. Returns {mode: worst err/bound}."""
+    model's activations; ``seen`` in the backward's order, the last layer
+    first; ``layers``: the layers to check, all by default; ``by_heads``:
+    the plain version one KV head at a time). dO is first scaled by a power
+    of two to a max of about 1: the gradients scale exactly with it, and
+    the rule's 1e-6 floor would otherwise pass gradients this small (a
+    mean loss over 4096 tokens) whatever they were. Returns {mode: worst
+    err/bound}."""
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         flash_backward, flash_backward_plain)
 
+    plain = _plain_backward_by_heads if by_heads else flash_backward_plain
     worst = {"fused": 0.0, "split": 0.0}
+    checked = []
     for i, (*tensors, cfg) in enumerate(seen):
         layer = len(seen) - 1 - i  # the backward runs the last layer first
+        if layers is not None and layer not in layers:
+            continue
         q, k, v, o, lse, do = (t.detach() for t in tensors)
         do = do * 2.0 ** -math.floor(math.log2(float(do.abs().max())))
-        ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
-        ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(),
-                                     lse, do.float(), _fp32(cfg))
+        ref16 = plain(q, k, v, o, lse, do, cfg)
+        ref32 = plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(), _fp32(cfg))
         for mode in ("fused", "split"):
             got = flash_backward(q, k, v, o, lse, do, cfg, fused=mode == "fused")
-            _, ratio = _check_grads(f"train layer {layer} {mode}", got, ref16, ref32)
+            _, ratio = _check_grads(f"{what} layer {layer} {mode}", got, ref16, ref32)
             worst[mode] = max(worst[mode], ratio)
+        checked.append(f"{layer} (window {cfg.window})")
         del ref16, ref32, got
-    print(f"train: K2 and K3 vs plain on the {len(seen)} layers' recorded "
-          f"attention inputs, worst err/bound {worst} ok", flush=True)
+    print(f"{what}: K2 and K3 vs plain on layers {checked}' recorded attention inputs, "
+          f"worst err/bound {worst} ok", flush=True)
     return worst
 
 
-def phase_train(smi: str) -> dict:
-    """Train LLAMA3_8B at full width, 8 layers: 3 AdamW steps on one batch
-    with the default backward (``fused_choice``: K3), launch counts and a
-    falling loss checked; one more step profiled; then one step on the
-    other backward (K2: autograd's ``flash_backward`` called with
+def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = False,
+                     layers=None, by_heads: bool = False, lr: float = 3e-4,
+                     ) -> tuple[dict, dict]:
+    """Train ``params`` on one batch of ``tokens``: ``steps`` AdamW steps
+    (learning rate ``lr``) with the default backward (``fused_choice``:
+    K3), launch counts (K1 and the backward's kernels once a layer a step;
+    K1 twice with ``remat``) and a falling loss checked; one more step profiled; then one step on
+    the other backward (K2: autograd's ``flash_backward`` called with
     ``fused=True``), with its counts and the loss after it checked and
-    K2/K3 held against the plain backward on its recorded attention
-    inputs. Returns the launch counts of both runs, by backward."""
-    from flash_attention_from_scratch_tpu_torch import (
-        LLAMA3_8B, init_params, loss_fn, make_optimizer, make_train_step)
+    K2/K3 held against the plain backward on its recorded attention inputs
+    (``_check_model_backward`` on ``layers``). Returns (the line's fields,
+    {backward: launch counts})."""
+    from flash_attention_from_scratch_tpu_torch import loss_fn, make_optimizer, make_train_step
     from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
     from flash_attention_from_scratch_tpu_torch.ops import _build, autodiff
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, fused_choice)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
 
-    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
     kernels = {True: (KERNEL_FUSED,), False: (KERNEL_DKV, KERNEL_DQ)}
     default = fused_choice(causal=True)  # the model's attention is causal
 
-    def expected(fused, steps):
-        return {n: steps * cfg.n_layers if n in (K1,) + kernels[fused] else 0
-                for n in (K1, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
+    def expected(fused, n):
+        return {K1: n * cfg.n_layers * (2 if remat else 1),
+                **{k: n * cfg.n_layers if k in kernels[fused] else 0
+                   for k in (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}}
 
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    opt = make_optimizer(params)
-    step = make_train_step(cfg, opt)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
-    sync()
+    opt = make_optimizer(params, lr=lr)
+    step = make_train_step(cfg, opt, remat=remat)
+    batch, seq = tokens.shape[0], tokens.shape[1] - 1
     n_params = sum(p.numel() for p in param_leaves(params))
-    print(f"train: LLAMA3_8B x {TRAIN_LAYERS} layers, params {n_params / 1e9:.3f} B, "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
-
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t = time.perf_counter()
         losses.append(float(step(params, tokens)))
         sync()
         step_s.append(time.perf_counter() - t)
     counts = dict(_build.launch_counts)  # read just after the main path
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = expected(default, TRAIN_STEPS)
-    print(f"train: losses {losses}, step s {[round(x, 4) for x in step_s]}, "
-          f"launches {counts}; expected {want}", flush=True)
+    want = expected(default, steps)
+    print(f"{label}: losses {losses}, step s {[round(x, 4) for x in step_s]}, "
+          f"launches {counts}; expected {want}, peak {peak_gb:.1f} GB", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training losses {losses} are not finite and falling")
+        raise AssertionError(f"{label}: training losses {losses} are not finite and falling")
     if any(counts.get(n, 0) != c for n, c in want.items()):
-        raise AssertionError("a kernel of the training path ran the wrong number of times")
+        raise AssertionError(f"{label}: a kernel of the training path ran the wrong number "
+                             "of times")
 
     prof = _profile(lambda: step(params, tokens))
 
@@ -2914,35 +2948,114 @@ def phase_train(smi: str) -> dict:
         after_loss = float(loss_fn(params, tokens, cfg))
     other = "fused" if not default else "split"
     want = expected(not default, 1)
-    print(f"train {other}: loss {other_loss}, then {after_loss}; step s {other_s:.4f}, "
+    print(f"{label} {other}: loss {other_loss}, then {after_loss}; step s {other_s:.4f}, "
           f"launches {other_counts}; expected {want}", flush=True)
     if not np.isfinite(after_loss) or not after_loss < other_loss < losses[0]:
-        raise AssertionError(f"{other}-backward losses {losses[0]}, {other_loss}, "
+        raise AssertionError(f"{label}: {other}-backward losses {losses[0]}, {other_loss}, "
                              f"{after_loss} are not finite and falling")
     if any(other_counts.get(n, 0) != c for n, c in want.items()):
-        raise AssertionError(f"a kernel of the {other} training step ran the wrong "
+        raise AssertionError(f"{label}: a kernel of the {other} training step ran the wrong "
                              "number of times")
-    model_err = _check_model_backward(seen)
+    del opt, step
+    for p in param_leaves(params):
+        p.grad = None
+    torch.cuda.empty_cache()
+    model_err = _check_model_backward(seen, label, layers, by_heads)
     del seen
 
     step_ms = 1e3 * float(np.median(step_s[1:]))
-    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    print(json.dumps({"train": {
-        "model": "LLAMA3_8B", "layers": cfg.n_layers, "params": n_params,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "backward": "fused" if default else "split",
+    flops = train_flops(cfg, batch, seq)
+    fields = {
+        "layers": cfg.n_layers, "params": n_params, "batch": batch, "seq": seq,
+        "steps": steps, "lr": lr, "remat": remat, "backward": "fused" if default else "split",
         "losses": losses, "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
-        "train_tok_s": tokens_per_step / (step_ms / 1e3),
+        "train_tok_s": batch * seq / (step_ms / 1e3),
         "model_tflop_s": flops / (step_ms / 1e3) / 1e12,
         "model_tflop_per_step": flops / 1e12,
         "peak_mem_gb": peak_gb, "launches": counts,
         f"{other}_step_ms": 1e3 * other_s, f"{other}_launches": other_counts,
         f"{other}_loss": other_loss, f"loss_after_{other}": after_loss,
-        "layers_backward_worst_err_bound": model_err,
-        "profile": prof, "gpu": smi,
-    }}), flush=True)
-    return {"fused" if default else "split": counts, other: other_counts}
+        "layers_backward_worst_err_bound": model_err, "profile": prof}
+    return fields, {"fused" if default else "split": counts, other: other_counts}
+
+
+def phase_train(smi: str) -> dict:
+    """Train LLAMA3_8B at full width, 8 layers, batch 2 x 2048
+    (``_train_and_check``: 3 AdamW steps on K3, one profiled, one on K2,
+    K2/K3 held to the plain backward on every layer's recorded inputs).
+    Returns the launch counts of both runs, by backward."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
+    sync()
+    print(f"train: LLAMA3_8B x {TRAIN_LAYERS} layers, set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fields, counts = _train_and_check("train", cfg, params, tokens, TRAIN_STEPS)
+    print(json.dumps({"train": {"model": "LLAMA3_8B", **fields, "gpu": smi}}), flush=True)
+    return counts
+
+
+# Gemma-2-9B trained at full width (train_gemma2_9b): 8 of its 42 layers
+# (4 sliding, 4 global, as in the model), batch 1 x 8,192 tokens (its
+# context: the sliding layers' backward masks keys 4,096 back), 3 AdamW
+# steps. The 8 layers' weights, gradients and AdamW moments in bf16 take
+# ~27 GB (3.4 B parameters: the tied head is a copy), the fp32 logits of
+# 8,192 x 256,000 8.4 GB a tensor; all 42 layers would be ~74 GB before
+# activations. Without remat a step peaked at 74.5 GB on the H100, so each
+# layer is checkpointed (K1 then runs twice a layer a step). The learning
+# rate is a fine-tuning one: at 3e-4 the random model's loss on its one
+# batch rose on alternate steps.
+G9_TRAIN_LAYERS, G9_TRAIN_SEQ, G9_TRAIN_STEPS = 8, 8192, 3
+G9_TRAIN_REMAT, G9_TRAIN_LR = True, 1e-4
+
+
+def phase_train_gemma2_9b(smi: str) -> dict:
+    """Train Gemma-2-9B at full width (``GEMMA2_9B_HF`` cut to
+    G9_TRAIN_LAYERS layers; random bf16 weights from a seed, built as an
+    HF-named state dict and converted by ``from_hf_gemma2``, as
+    ``serve_gemma2_9b`` builds them) on one batch of G9_TRAIN_SEQ tokens:
+    ``_train_and_check`` at d 256 (K1, K3, then K2), K2 and K3 held to the
+    plain backward (one KV head at a time) on the last two layers' recorded
+    inputs, one sliding and one global. Returns the launch counts of both
+    runs, by backward."""
+    import types
+
+    from flash_attention_from_scratch_tpu_torch import from_hf_gemma2
+
+    t0 = time.perf_counter()
+    hf = dict(GEMMA2_9B_HF, num_hidden_layers=G9_TRAIN_LAYERS)
+    sd = _gemma2_state_dict(hf, torch.Generator(device="cuda").manual_seed(1))
+    model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
+    params, cfg = from_hf_gemma2(model, dtype=torch.bfloat16)
+    del sd, model
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, G9_TRAIN_SEQ + 1))).to("cuda")
+    layers = (cfg.n_layers - 2, cfg.n_layers - 1)
+    if sorted(cfg.layer_window(i) > 0 for i in layers) != [False, True]:
+        raise AssertionError(f"train_gemma2_9b: layers {layers} are not one sliding and one "
+                             "global")
+    sync()
+    setup_s = time.perf_counter() - t0
+    print(f"train_gemma2_9b: {cfg.n_layers} layers, d_head {cfg.d_head}, windows "
+          f"{[cfg.layer_window(i) for i in range(cfg.n_layers)]}, set-up {setup_s:.1f} s",
+          flush=True)
+    fields, counts = _train_and_check("train_gemma2_9b", cfg, params, tokens, G9_TRAIN_STEPS,
+                                      remat=G9_TRAIN_REMAT, layers=layers, by_heads=True,
+                                      lr=G9_TRAIN_LR)
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_gemma2_9b": {
+        "model": "Gemma-2-9B", "d_head": cfg.d_head, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "window_pattern": list(cfg.window_pattern),
+        "softcaps": [cfg.attn_softcap, cfg.final_softcap], **fields,
+        "layers_checked": list(layers), "set_up_s": setup_s,
+        "s": time.perf_counter() - t0, "gpu": smi}}), flush=True)
+    return counts
 
 
 def _padded(n: int) -> int:
@@ -3190,16 +3303,84 @@ def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
                       "shape": (f"causal, b {b}, {HEADS}/{KV_HEADS} heads, s {s}, d {D}, "
                                 "bf16 (one layer of the training run)")}
         del q, k, v, do, o, lse, qg, kg, vg, dsum
+    return _backward_lines(by_shape, "train", common, ptxas, D)
+
+
+def _backward_lines(by_shape, top: str, common: dict, ptxas, d: int) -> tuple[dict, dict]:
+    """K2's and K3's timing dicts (fused, split): the ``top`` shape's numbers
+    at the top level, every shape's under ``by_shape``, and the build's
+    registers and spills of their kernels at head width ``d``."""
     ptx = _kernel_ptxas(ptxas or {}, ("flash_backward_dkv_kernel", "flash_backward_dq_kernel"))
     out = []
     for mode in ("fused", "split"):
-        train = by_shape[mode]["train"]
-        out.append({"ms": train["ms"], **common, "kernel_ms": train["kernel_ms"],
-                    "bound_share": train["bound_share"], "tflops": train["tflops"],
+        first = by_shape[mode][top]
+        out.append({"ms": first["ms"], **common, "kernel_ms": first["kernel_ms"],
+                    "bound_share": first["bound_share"], "tflops": first["tflops"],
                     "by_shape": by_shape[mode],
                     "ptxas": {n: v for n, v in ptx.items()
-                              if ("Lb1E" in n) == (mode == "fused")}})
+                              if ("Lb1E" in n) == (mode == "fused") and f"Li{d}EE" in n}})
     return out[0], out[1]
+
+
+def time_backward_d256(ptxas: dict | None = None) -> tuple[dict, dict]:
+    """K2 and K3 at head width 256 on ``D256_BACKWARD_TIMED``: each as the
+    whole ``flash_backward`` call and as its kernels' launch alone, by CUDA
+    events, beside the bound (five tile products, 2 * 256 operations each
+    per visible (q, kv) pair, over 989 TFLOP/s; or the bytes, the larger),
+    SDPA's backward (causal, no softcap, K/V repeated to 16 heads: forward
+    + ``torch.autograd.grad`` minus the same forward) and, on the first
+    shape, the plain version (one KV head at a time). ``ptxas``: the build's
+    registers and spills of ``flash_backward.cu``'s kernels."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_backward as fb
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    s, heads, kvh, d = G9_TRAIN_SEQ, G9_HEADS, G9_KV_HEADS, G9_D
+    q, k, v = _cuda_qkv(s, s, seed=90, heads=heads, kv_heads=kvh, d=d)
+    do = _cuda_normal(q.shape, seed=91)
+    qg = q.clone().requires_grad_()
+    kg = k.repeat_interleave(heads // kvh, 1).requires_grad_()
+    vg = v.repeat_interleave(heads // kvh, 1).requires_grad_()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    fwd_ms = _time_ms(sdpa)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
+    del qg, kg, vg
+    # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
+    nbytes = 2 * (4 * heads * s * d + 4 * kvh * s * d) + 4 * heads * s
+    by_shape = {"fused": {}, "split": {}}
+    common = {}
+    for label, window, cap in D256_BACKWARD_TIMED:
+        cfg = KernelConfig(d_head=d, causal=True, window=window, attn_softcap=cap)
+        o, lse = flash_forward_with_lse(q, k, v, cfg)
+        dsum = fb._row_sums(o, do)
+        flops = 5 * _attn_ops(s, heads, 1, True, window, d) // 2
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        for mode in ("fused", "split"):
+            fused = mode == "fused"
+            ms = _time_ms(lambda: fb.flash_backward(q, k, v, o, lse, do, cfg, fused=fused))
+            kernel_ms = _time_ms(lambda: fb._launch(q, k, v, lse, dsum, do, cfg,
+                                                    cfg.softmax_scale, fused))
+            by_shape[mode][label] = {
+                "ms": ms, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+                "kernel_tflops": flops / kernel_ms / 1e9}
+        if not common:
+            common = {"plain_ms": _time_ms(lambda: _plain_backward_by_heads(
+                          q, k, v, o, lse, do, cfg), iters=2, warmup=1),
+                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "operations",
+                      "shape": (f"causal, b 1, {heads}/{kvh} heads, s {s}, d {d}, softcap "
+                                f"{G9_SOFTCAP:g}, bf16 (one global layer of "
+                                "train_gemma2_9b; by_shape: without the softcap and a "
+                                f"{G9_WINDOW} window); library: SDPA's backward, causal, "
+                                "no softcap; plain: one KV head at a time")}
+        del o, lse, dsum
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return _backward_lines(by_shape, D256_BACKWARD_TIMED[0][0], common, ptxas, d)
 
 
 # ---------------------------------------------------------------------------
@@ -3537,15 +3718,42 @@ D256_FLASH_CASES = [
 ]
 
 
+# K2/K3's d-256 cases (phase_d256_cases), BACKWARD_CASES' kinds at 16/8
+# heads: causal, full, q_offset, a window of 1,000 (its first key falls
+# mid-tile), softcap 50, ragged tiles, and the strided layout the model
+# hands over with Gemma-2's window and softcap.
+D256_BACKWARD_CASES = (
+    ("causal s2048", 2048, 2048, dict(causal=True), {}),
+    ("full s1024", 1024, 1024, dict(), {}),
+    ("q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
+    ("window 1000 s2048", 2048, 2048, dict(causal=True, window=1000), {}),
+    ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=G9_SOFTCAP), {}),
+    ("ragged s192/320 q_offset 128 window 70", 192, 320,
+     dict(causal=True, q_offset=128, window=70), {}),
+    ("strided s2048 window 1000 softcap 50", 2048, 2048,
+     dict(causal=True, window=1000, attn_softcap=G9_SOFTCAP), dict(strided=True)),
+)
+
+
+# K2/K3's d-256 timed shapes: train_gemma2_9b's attention (b 1, 16/8 heads,
+# s 8,192, causal) on a global and a sliding layer, with softcap 50 and
+# without: (label, window, softcap). The first is the model's global layer.
+D256_BACKWARD_TIMED = (("global softcap 50", 0, G9_SOFTCAP), ("global", 0, 0.0),
+                       (f"window {G9_WINDOW} softcap 50", G9_WINDOW, G9_SOFTCAP),
+                       (f"window {G9_WINDOW}", G9_WINDOW, 0.0))
+
+
 def phase_d256_cases() -> dict:
     """Head width 256 at Gemma-2-9B's 16/8 heads: K1 on D256_FLASH_CASES
     (its LSE too) by the tolerance rule in each (batch, head, 64-row band),
-    and K4/K5 on a ragged, shuffled, NaN-poisoned page-64 pool (lengths 0
+    K4/K5 on a ragged, shuffled, NaN-poisoned page-64 pool (lengths 0
     to 5,000) on dense, int8, fp8 and int4 pages at t = 1 and 4 (each plain,
     with the 4,096 window and with softcap 50) and int8 compute at t = 1 and
-    4, at split counts 1 and the plan's, in each (sequence, token). Each
-    call must launch its kernel once. Returns {"flash": (max |kernel -
-    plain|, worst err/bound), "paged": (the same)}."""
+    4, at split counts 1 and the plan's, in each (sequence, token), and K2
+    and K3 on D256_BACKWARD_CASES (``_hold_backward_cases``: the rule on
+    each gradient, the rerun equalities). Each call must launch its kernel
+    once. Returns {"flash": (max |kernel - plain|, worst err/bound),
+    "paged": (the same), "backward": {mode: (the same)}}."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
@@ -3601,7 +3809,8 @@ def phase_d256_cases() -> dict:
                                                       launched)))
     del formats, kp, vp
     torch.cuda.empty_cache()
-    return {"flash": flash, "paged": paged}
+    backward = _hold_backward_cases(D256_BACKWARD_CASES, "d256 ", G9_HEADS, G9_KV_HEADS, G9_D)
+    return {"flash": flash, "paged": paged, "backward": backward}
 
 
 def _param_bytes(params) -> int:
@@ -4158,9 +4367,10 @@ def phase_flash_quant_cases() -> tuple[float, float]:
 
 def phase_bench_tool_cases() -> dict:
     """Each kernel of the tools' path vs its plain version on the tools' own
-    inputs (``bench_inputs``) at their default lengths, as the tools call
-    them: K10 for every variant of ``bench_quant`` (non-causal; 16/16
-    heads, b 16 at s 2048 and 4096, b 8 at s 8192), K11 at ring depth 2
+    inputs (``bench_inputs``), as the tools call them: K10 for every variant
+    of ``bench_quant`` (non-causal; 16/16 heads, b 16 at its first two
+    lengths, s 2048 and 4096; its s 8192 at b 8, whose plain versions cost
+    the most, was cut to keep the smoke's time), K11 at ring depth 2
     (``bench_attention --fori``: non-causal, 16/16 heads, b 16, s 512-4096),
     its plain versions run one batch element at a time. Returns {kernel:
     (max |kernel - plain|, worst err/bound)}."""
@@ -4171,7 +4381,7 @@ def phase_bench_tool_cases() -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
 
     worst = {KQ: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0)}
-    for seq in bench_quant.DEFAULT_SEQ_LENS:
+    for seq in bench_quant.DEFAULT_SEQ_LENS[:2]:
         q, k, v = bench_quant.bench_inputs(seq)
         for variant, (_, _, i8c) in bench_quant.VARIANTS.items():
             qq, kq, vq = bench_quant.quantize_inputs(q, k, v, variant)
@@ -5565,6 +5775,9 @@ def main(argv=None) -> int:
     trained = phase_train(smi)
     lap("train")
     torch.cuda.empty_cache()
+    trained9 = phase_train_gemma2_9b(smi)
+    lap("train_gemma2_9b")
+    torch.cuda.empty_cache()
     quant_runs = {}
     for run in QUANT_RUNS:
         quant_runs[run] = phase_serve_quant(run, smi, graph_check=run in ("A", "B"))
@@ -5676,7 +5889,9 @@ def main(argv=None) -> int:
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:284",
          "counted_as": K1, "launches": gemma9["counts"].get(K1, 0),
          "launches_int8_run": gemma9["int8_counts"].get(K1, 0),
-         "launches_path": "serve_gemma2_9b: 42 layers x 8 prompts (int8 run: 8 layers)",
+         "launches_path": "serve_gemma2_9b: 42 layers x 8 prompts (int8 run: 8 layers); "
+                          "train_gemma2_9b: its default steps, 8 layers each",
+         "launches_train_gemma2_9b": trained9["split"].get(K1, 0),
          "max_abs_err": d256["flash"][0], "worst_err_bound": d256["flash"][1],
          **time_flash_d256(_ptxas_by_kernel(logs.get("flash_forward.cu", "")))},
         {"name": "paged_decode_attention_d256", "route": "cuda",
@@ -5691,7 +5906,10 @@ def main(argv=None) -> int:
          "max_abs_err": d256["paged"][0], "worst_err_bound": d256["paged"][1],
          **time_paged_d256(_ptxas_by_kernel(logs.get("paged_attention.cu", "")))},
     ]
-    fused_t, split_t = time_backward(_ptxas_by_kernel(logs.get("flash_backward.cu", "")))
+    backward_ptxas = _ptxas_by_kernel(logs.get("flash_backward.cu", "")
+                                      + logs.get("flash_backward_d256.cu", ""))
+    fused_t, split_t = time_backward(backward_ptxas)
+    fused9_t, split9_t = time_backward_d256(backward_ptxas)
     split = trained["split"]
     paths = {True: "one training step with fused=True",
              False: f"{TRAIN_STEPS} training steps (the default backward)"}
@@ -5716,6 +5934,28 @@ def main(argv=None) -> int:
                             pipeline=pipe["counts"]),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K3"},
          "max_abs_err": backward_err["split"], **split_t},
+        # Head width 256: the same wrappers and kernels, their d-256
+        # instantiations (flash_backward.cu built again at 256 by
+        # flash_backward_d256.cu); launches from train_gemma2_9b (counted
+        # under the wrappers' names).
+        {"name": "flash_backward_fused_d256", "route": "cuda",
+         "source": pkg + "flash_backward_d256.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:278",
+         "counted_as": KERNEL_FUSED, "launches": trained9["fused"].get(KERNEL_FUSED, 0),
+         "launches_path": f"train_gemma2_9b: one step with fused=True, {G9_TRAIN_LAYERS} layers",
+         "max_abs_err": d256["backward"]["fused"][0],
+         "worst_err_bound": d256["backward"]["fused"][1], **fused9_t},
+        {"name": "flash_backward_split_d256", "route": "cuda",
+         "source": pkg + "flash_backward_d256.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:118",
+         "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_backward.py:198",
+         "counted_as": [KERNEL_DKV, KERNEL_DQ],
+         "launches": trained9["split"].get(KERNEL_DKV, 0) + trained9["split"].get(KERNEL_DQ, 0),
+         "launches_by_entry": {n: trained9["split"].get(n, 0) for n in (KERNEL_DKV, KERNEL_DQ)},
+         "launches_path": f"train_gemma2_9b: {G9_TRAIN_STEPS} steps x {G9_TRAIN_LAYERS} layers "
+                          "(the default backward)",
+         "max_abs_err": d256["backward"]["split"][0],
+         "worst_err_bound": d256["backward"]["split"][1], **split9_t},
     ]
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
                  ("int4", True): 206}

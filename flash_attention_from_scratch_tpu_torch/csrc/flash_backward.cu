@@ -1,4 +1,5 @@
-// Flash-attention backward (FA2) for Hopper, bf16, d_head 128, on wgmma + TMA.
+// Flash-attention backward (FA2) for Hopper, bf16, d_head 128 or 256, on wgmma
+// + TMA.
 //
 // Replaces the TPU kernels of flash_attention_from_scratch_tpu/ops/
 // flash_backward.py: _fused_kernel (K2, entry fa_flash_backward_fused) and
@@ -68,6 +69,30 @@
 // Each product starts with scale-d 0 rather than zeroed registers, and no
 // register of a product in flight is written (ptxas would serialize the
 // wgmmas, C7512).
+//
+// Head width 256 (Gemma-2-2B/9B) is its own instantiation of each kernel
+// (the HD template argument; every tile has four 64-column boxes; d 128's
+// shapes are those above), built from this file as a library of its own by
+// flash_backward_d256.cu (BACKWARD_HD below). A warpgroup's dK and dV over 64 KV rows at d
+// 256 would be 256 accumulator registers, more than a thread has, so:
+//   - dK/dV kernel: two consumer warpgroups own the SAME 64 KV rows and
+//     split dK's and dV's columns, 128 each (SPLIT = 2: the d-128
+//     thread's 128 accumulator registers). Each computes S^T and dP^T over
+//     the full width itself (the score products twice a CTA: twelve
+//     products of 64 x 64 x 128 a pair where eight are needed, 1.5x the
+//     dK/dV work), then its halves of dV += P^T dO and dK += dS^T Q. A
+//     64-row Q + dO slot is 64 KB and the K and V tiles 32 KB each, so
+//     K3's ring has 2 slots, refilled once both warpgroups have released a
+//     step (LAG 0: the next step's copy lands while the step in between
+//     runs). K2 adds its two dS^T buffers (8 KB each; each warpgroup
+//     stores half of the identical fragments) and a dQ stage a warp (32
+//     KB), which leave room for one slot: its copy starts when both
+//     warpgroups have released the last step. Its dQ partial is dS K over
+//     the CTA's 64 keys, each warpgroup 128 of dQ's columns.
+//   - dQ kernel: one warpgroup of 64 Q rows keeps 64 x 256 fp32 dQ (128
+//     registers), so its key slot is 64 keys (S and dP 32 registers each)
+//     and dQ += dS K is two m64n128 products a k step (issue_pv at HD
+//     256); 2 slots of 64 KB (K, then V), one CTA an SM.
 
 #include "flash_wgmma.cuh"
 
@@ -85,9 +110,9 @@ __host__ __device__ constexpr int per_sm(int nc, int smem) {
 struct Params {
   const float* lse;   // (batch, heads, seq_q), natural log
   const float* dsum;  // (batch, heads, seq_q), D = rowsum(dO * O)
-  float* dq_acc;      // fused: (batch, heads, seq_q, D) fp32, zeroed
-  bf16* dq;           // split dQ kernel: (batch, heads, seq_q, D)
-  bf16* dk;           // (batch, kv_heads, seq_kv, D)
+  float* dq_acc;      // fused: (batch, heads, seq_q, HD) fp32, zeroed
+  bf16* dq;           // split dQ kernel: (batch, heads, seq_q, HD)
+  bf16* dk;           // (batch, kv_heads, seq_kv, HD)
   bf16* dv;
   int heads, kv_heads, group, seq_q, seq_kv;
   int causal, q_offset, window;
@@ -98,51 +123,63 @@ struct Params {
 // swizzled 16 x 32 boxes that a TMA reduce-add reads.
 constexpr int WARP_STAGE = 16 * 64 * 4;
 
-// The dK/dV kernel's geometry: NC consumer warpgroups of 64 KV rows, a ring
-// of NS slots of 64 Q rows (Q, then dO, then their LSE and D rows; 64 is
-// wgmma's M, which K2's dQ product takes in Q rows), with kDQ NC dS^T
+// The dK/dV kernel's geometry at head width HD: NC consumer warpgroups, a
+// ring of NS slots of 64 Q rows (Q, then dO, then their LSE and D rows; 64
+// is wgmma's M, which K2's dQ product takes in Q rows), with kDQ NC dS^T
 // buffers (BKV x 64 bf16; two warpgroups alternate two) and a dQ stage
-// for each warp.
+// for each warp. SPLIT warpgroups share 64 KV rows, each holding 128 of
+// dK's and dV's columns (1 at d 128: a warpgroup a 64-row group; 2 at d
+// 256). The ring's slot of step i - LAG is refilled after step i.
 // ops/flash_backward.py::plan mirrors it.
-template <int NC, int NS, bool kDQ>
+template <int NC, int NS, bool kDQ, int HD>
 struct DkvTile {
-  static constexpr int BKV = NC * WG_ROWS;                 // KV rows per CTA
+  static_assert(HD == 128 || (HD == 256 && NC == 2), "d 128, or d 256 on two warpgroups");
+  static constexpr int SPLIT = HD / 128;                   // warpgroups a 64-row group
+  static constexpr int BKV = NC / SPLIT * WG_ROWS;         // KV rows per CTA
   static constexpr int BQ = WG_ROWS;                       // Q rows per slot
   static constexpr int THREADS = NC * 128;
-  static constexpr int KV_BYTES = bf16_tile_bytes(BKV);    // the K tile; the V tile
-  static constexpr int SLOT = 2 * bf16_tile_bytes(BQ);     // Q, then dO
+  static constexpr int BOXES = HD / BOX_COLS;              // 64-column boxes of a tile
+  static constexpr int KV_BYTES = bf16_tile_bytes(BKV, HD);  // the K tile; the V tile
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BQ, HD);   // Q, then dO
   static constexpr int STATS = 2 * BQ * 4;                 // LSE, then D (fp32)
   static constexpr int DS_BYTES = kDQ ? BKV * BQ * 2 : 0;  // one dS^T buffer
   static constexpr int DS_BUFS = NC;
   static constexpr int STAGE = kDQ ? NC * 4 * WARP_STAGE : 0;  // dQ partials, a stage a warp
+  static constexpr int LAG = SPLIT == 1 ? NC - 1 : 0;
   static constexpr int SMEM =
       2 * KV_BYTES + NS * (SLOT + STATS) + DS_BUFS * DS_BYTES + STAGE + ALIGN_SLACK;
   static constexpr int PER_SM = per_sm(NC, SMEM);
   static_assert(SMEM <= SMEM_LIMIT, "the dK/dV tiles do not fit a CTA's shared memory");
 };
 
-// The dQ kernel's geometry: one consumer warpgroup of 64 Q rows (the Q and
-// dO tiles) and a ring of NS slots of 128 keys (K, then V; the last tile
-// of an odd multiple of 64 keys is half zeros, masked). On the H100 two
-// warpgroups of 64 rows a CTA, or 64-key slots, measured slower.
-template <int NS>
+// The dQ kernel's geometry at head width HD: one consumer warpgroup of 64 Q
+// rows (the Q and dO tiles) and a ring of NS slots of BK keys (K, then V;
+// at d 128 the last tile of an odd multiple of 64 keys is half zeros,
+// masked). On the H100 at d 128 two warpgroups of 64 rows a CTA, or 64-key
+// slots, measured slower.
+template <int NS, int BK_, int HD>
 struct DqTile {
   static constexpr int BQ = WG_ROWS;  // Q rows per CTA
-  static constexpr int BK = 128;      // keys per slot
+  static constexpr int BK = BK_;      // keys per slot
   static constexpr int THREADS = 128;
-  static constexpr int Q_BYTES = bf16_tile_bytes(BQ);    // the Q tile; the dO tile
-  static constexpr int SLOT = 2 * bf16_tile_bytes(BK);   // K, then V
+  static constexpr int BOXES = HD / BOX_COLS;
+  static constexpr int Q_BYTES = bf16_tile_bytes(BQ, HD);    // the Q tile; the dO tile
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BK, HD);   // K, then V
   static constexpr int SMEM = 2 * Q_BYTES + NS * SLOT + ALIGN_SLACK;
   static constexpr int PER_SM = per_sm(1, SMEM);
   static_assert(SMEM <= SMEM_LIMIT, "the dQ ring does not fit a CTA's shared memory");
 };
 
-// The launches (ops/flash_backward.py::plan mirrors them): the dK/dV
-// kernel's (consumer warpgroups, ring slots, with dQ) for K2 and for K3's
-// first half, and the dQ kernel's ring slots.
-#define FUSED_TILE 2, 3, true
-#define DKV_TILE 1, 2, false
-#define DQ_SLOTS 1
+// The launches per head width (ops/flash_backward.py::plan mirrors them):
+// the dK/dV kernel's (consumer warpgroups, ring slots, with dQ, HD) for K2
+// and for K3's first half, and the dQ kernel's (ring slots, keys a slot,
+// HD).
+#define FUSED_TILE_128 2, 3, true, 128
+#define DKV_TILE_128 1, 2, false, 128
+#define DQ_TILE_128 1, 128, 128
+#define FUSED_TILE_256 2, 1, true, 256
+#define DKV_TILE_256 2, 2, false, 256
+#define DQ_TILE_256 2, 64, 256
 
 // ---------------------------------------------------------------------------
 // The dK/dV walk. Its CTA owns keys kv0 .. kv_end - 1 and visits the Q tiles
@@ -259,17 +296,21 @@ __device__ __forceinline__ void grad_tile(float (&s)[N], float (&dp)[N], const G
 // and its 16-byte atomic adds.
 
 // This thread's dS^T fragments (da: A fragments of its warp's 16 KV rows,
-// rows krow and krow + 8 of the buffer) into the buffer.
+// rows krow and krow + 8 of the buffer) into the buffer. SPLIT warpgroups
+// hold the same fragments: warpgroup `part` of them stores its share of
+// the 16-column groups.
+template <int SPLIT>
 __device__ __forceinline__ void store_ds_t(uint8_t* buf, int bkv, const uint32_t (&da)[4][4],
-                                           int krow) {
+                                           int krow, int part) {
   const int q = threadIdx.x & 3;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      *reinterpret_cast<uint32_t*>(
-          buf + bf16_tile_offset(bkv, krow + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * q)) =
-          da[kk][r];
+      if (kk / (4 / SPLIT) == part)
+        *reinterpret_cast<uint32_t*>(
+            buf + bf16_tile_offset(bkv, krow + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * q)) =
+            da[kk][r];
 }
 
 // This warp's 16 rows of an m64n64 accumulator into its stage: columns
@@ -308,13 +349,15 @@ __device__ __forceinline__ void issue_dq(float (&acc)[BOX_COLS / 2], unsigned ds
 // warpgroups only (NC * 128 threads): a ninth warp would put three warps
 // on one of the SM's four register files, and ptxas then sizes the CTA
 // for 168 registers a thread. After step i of the walk it refills the slot
-// of step i - (NC - 1) with step i - (NC - 1) + NS once every consumer warp
-// has released it: with one warpgroup that is its own slot (it waits only
-// for its other warps); with two, the slot the other warpgroup released
-// one step earlier, so that the two need not finish a step together.
-template <int NC, int NS, typename Load>
+// of step i - LAG with step i - LAG + NS once every consumer warp has
+// released it: with one warpgroup (LAG 0) that is its own slot (it waits
+// only for its other warps); with two that own different KV rows (LAG 1),
+// the slot the other warpgroup released one step earlier, so that the two
+// need not finish a step together; with two that share them (d 256, LAG
+// 0), the slot both have just released.
+template <int LAG, int NS, typename Load>
 __device__ __forceinline__ void refill(int tid, int i, int n, uint64_t* empty, Load&& load) {
-  const int j = i - (NC - 1);
+  const int j = i - LAG;
   if (tid == 0 && j >= 0 && j + NS < n) {
     mbar_wait(&empty[j % NS], (j / NS) & 1);
     load(j + NS);
@@ -322,18 +365,20 @@ __device__ __forceinline__ void refill(int tid, int i, int n, uint64_t* empty, L
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV for one (NC * 64 KV rows, KV head, batch); with kDQ also dQ's
+// dK/dV for one (BKV KV rows, KV head, batch); with kDQ also dQ's
 // partials.
-template <int NC, int NS, bool kDQ>
-__global__ void __launch_bounds__(DkvTile<NC, NS, kDQ>::THREADS, DkvTile<NC, NS, kDQ>::PER_SM)
+template <int NC, int NS, bool kDQ, int HD>
+__global__ void __launch_bounds__(DkvTile<NC, NS, kDQ, HD>::THREADS,
+                                  DkvTile<NC, NS, kDQ, HD>::PER_SM)
 flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_dq, const Params p) {
-  using T = DkvTile<NC, NS, kDQ>;
+  using T = DkvTile<NC, NS, kDQ, HD>;
   constexpr int BKV = T::BKV, BQ = T::BQ;
-  constexpr int N_DQ = D / NC;  // dQ columns of one warpgroup's partial
+  constexpr int N_DQ = HD / NC;  // dQ columns of one warpgroup's partial
+  constexpr int COLS = HD / T::SPLIT;  // dK and dV columns of one warpgroup (128)
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[NS], empty[NS];
   uint8_t* k_s = align_1024(smem_raw);
@@ -368,12 +413,15 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int s = i % NS;
     const int h = hk * p.group + i / nq, q0 = (qf + i % nq) * BQ;
     uint8_t* slot = ring + s * T::SLOT;
-    uint8_t* do_slot = slot + bf16_tile_bytes(BQ);
+    uint8_t* do_slot = slot + bf16_tile_bytes(BQ, HD);
     mbar_arrive_expect_tx(&full[s], T::SLOT + T::STATS);
-    tma_load_4d(slot, &tm_q, 0, q0, h, b, &full[s]);
-    tma_load_4d(slot + bf16_box_bytes(BQ), &tm_q, BOX_COLS, q0, h, b, &full[s]);
-    tma_load_4d(do_slot, &tm_do, 0, q0, h, b, &full[s]);
-    tma_load_4d(do_slot + bf16_box_bytes(BQ), &tm_do, BOX_COLS, q0, h, b, &full[s]);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(slot + bx * bf16_box_bytes(BQ), &tm_q, bx * BOX_COLS, q0, h, b, &full[s]);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(do_slot + bx * bf16_box_bytes(BQ), &tm_do, bx * BOX_COLS, q0, h, b,
+                  &full[s]);
     const long long row = ((long long)b * p.heads + h) * p.seq_q + q0;
     float* st = stats + s * 2 * BQ;
     bulk_load(st, p.lse + row, BQ * 4, &full[s]);
@@ -381,24 +429,30 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   if (tid == 0 && n > 0) {  // thread 0 issues every copy: K, V, the first slots
     mbar_arrive_expect_tx(&kv_full, 2 * T::KV_BYTES);
-    tma_load_4d(k_s, &tm_k, 0, kv0, hk, b, &kv_full);
-    tma_load_4d(k_s + bf16_box_bytes(BKV), &tm_k, BOX_COLS, kv0, hk, b, &kv_full);
-    tma_load_4d(v_s, &tm_v, 0, kv0, hk, b, &kv_full);
-    tma_load_4d(v_s + bf16_box_bytes(BKV), &tm_v, BOX_COLS, kv0, hk, b, &kv_full);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(k_s + bx * bf16_box_bytes(BKV), &tm_k, bx * BOX_COLS, kv0, hk, b, &kv_full);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(v_s + bx * bf16_box_bytes(BKV), &tm_v, bx * BOX_COLS, kv0, hk, b, &kv_full);
     for (int i = 0; i < min(NS, n); ++i) load_pair(i);
   }
 
   const int cw = tid / 128, warp = (tid >> 5) & 3, lane = tid & 31;
-  const KeyGroup kg{kv0 + cw * WG_ROWS};
+  const int rg = cw / T::SPLIT;    // the warpgroup's 64 KV rows: group rg of the CTA
+  const int half = cw % T::SPLIT;  // its columns of dK and dV: half * 128 on
+  const KeyGroup kg{kv0 + rg * WG_ROWS};
   const bool active = kg.k_lo < p.seq_kv;  // the ragged last tile's second half is not
-  const int krow = cw * WG_ROWS + warp * 16 + (lane >> 2);  // this thread's first row in the CTA
+  const int krow = rg * WG_ROWS + warp * 16 + (lane >> 2);  // this thread's first row in the CTA
   const GradMath gm{p.causal, p.window, p.seq_kv, p.scale, p.softcap};
   const unsigned k_addr = smem_addr(k_s), v_addr = smem_addr(v_s);
-  const unsigned kw_addr = k_addr + cw * WG_ROWS * 128, vw_addr = v_addr + cw * WG_ROWS * 128;
+  const unsigned kw_addr = k_addr + rg * WG_ROWS * 128, vw_addr = v_addr + rg * WG_ROWS * 128;
+  // Byte offset of this warpgroup's columns in a Q or dO tile (two boxes).
+  const unsigned half_off = half * 2 * bf16_box_bytes(BQ);
 
-  float dk[D / 2], dv[D / 2];
+  float dk[COLS / 2], dv[COLS / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < COLS / 2; ++i) dk[i] = dv[i] = 0.f;
 
   if (n > 0) mbar_wait(&kv_full, 0);
   for (int i = 0; i < n; ++i) {
@@ -407,28 +461,30 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int h = hk * p.group + i / nq, q0 = (qf + i % nq) * BQ;
     const int p_lo = p.q_offset + q0;  // position of the tile's first Q row
     const unsigned q_addr = smem_addr(ring + s * T::SLOT);
-    const unsigned do_addr = q_addr + bf16_tile_bytes(BQ);
+    const unsigned do_addr = q_addr + bf16_tile_bytes(BQ, HD);
     uint8_t* ds = ds_s + (i % T::DS_BUFS) * T::DS_BYTES;
     if (active && kg.sees(p.causal, p.window, p_lo, BQ)) {
       float st[BQ / 2], dpt[BQ / 2];
-      issue_qk<BQ>(st, kw_addr, bf16_box_bytes(BKV), q_addr);    // S^T = K Q^T
-      issue_qk<BQ>(dpt, vw_addr, bf16_box_bytes(BKV), do_addr);  // dP^T = V dO^T
+      issue_qk<BQ, HD>(st, kw_addr, bf16_box_bytes(BKV), q_addr);    // S^T = K Q^T
+      issue_qk<BQ, HD>(dpt, vw_addr, bf16_box_bytes(BKV), do_addr);  // dP^T = V dO^T
       wgmma_wait<0>();
       grad_tile<BQ / 2, true>(st, dpt, gm, kg.needs_mask(p.causal, p.window, p_lo, BQ),
                               BlockStats{stats + s * 2 * BQ, BQ, {0.f, 0.f}, {0.f, 0.f}},
                               kv0 + krow, p_lo);
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
       pack_p<BQ>(st, pa);
-      issue_pv<BQ>(dv, pa, do_addr);  // dV += P^T dO
+      issue_pv<BQ>(dv, pa, do_addr + half_off);  // dV += P^T dO
       pack_p<BQ>(dpt, da);
-      if constexpr (kDQ) store_ds_t(ds, BKV, da, krow);
-      issue_pv<BQ>(dk, da, q_addr);  // dK += dS^T Q
+      if constexpr (kDQ) store_ds_t<T::SPLIT>(ds, BKV, da, krow, half);
+      issue_pv<BQ>(dk, da, q_addr + half_off);  // dK += dS^T Q
     } else if constexpr (kDQ) {
-      // Keys this pair cannot see (or past seq_kv) add nothing to dQ.
-      uint4* rows = reinterpret_cast<uint4*>(ds + cw * WG_ROWS * 128);
+      // Keys this pair cannot see (or past seq_kv) add nothing to dQ: the
+      // SPLIT warpgroups of the row group zero its rows of the buffer.
+      constexpr int RG_THREADS = T::SPLIT * 128;
+      uint4* rows = reinterpret_cast<uint4*>(ds + rg * WG_ROWS * 128);
 #pragma unroll
-      for (int c = 0; c < WG_ROWS * 128 / 16 / 128; ++c)
-        rows[(tid & 127) + c * 128] = make_uint4(0, 0, 0, 0);
+      for (int c = 0; c < WG_ROWS * 128 / 16 / RG_THREADS; ++c)
+        rows[(tid & (RG_THREADS - 1)) + c * RG_THREADS] = make_uint4(0, 0, 0, 0);
     }
     if constexpr (kDQ) {
       fence_proxy_async();  // dS^T's stores, before wgmma reads them
@@ -457,7 +513,7 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
     }
     if (lane == 0) mbar_arrive(&empty[s]);
-    refill<NC, NS>(tid, i, n, empty, load_pair);
+    refill<T::LAG, NS>(tid, i, n, empty, load_pair);
   }
 
   if (kDQ && lane == 0) bulk_wait<0, true>();  // the adds have completed
@@ -467,10 +523,10 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const long long out_row = ((long long)b * p.kv_heads + hk) * p.seq_kv + kv0 + krow;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dk_row = p.dk + (out_row + 8 * r) * D;
-    bf16* dv_row = p.dv + (out_row + 8 * r) * D;
+    bf16* dk_row = p.dk + (out_row + 8 * r) * HD + half * COLS;
+    bf16* dv_row = p.dv + (out_row + 8 * r) * HD + half * COLS;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < COLS / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j + 2 * q) =
           __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j + 2 * q) =
@@ -481,13 +537,13 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // dQ for one (64 Q rows, Q head, batch), summed in registers over the
 // visible KV tiles.
-template <int NS>
-__global__ void __launch_bounds__(DqTile<NS>::THREADS, DqTile<NS>::PER_SM)
+template <int NS, int BK_, int HD>
+__global__ void __launch_bounds__(DqTile<NS, BK_, HD>::THREADS, DqTile<NS, BK_, HD>::PER_SM)
 flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using T = DqTile<NS>;
+  using T = DqTile<NS, BK_, HD>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[NS], empty[NS];
   uint8_t* q_s = align_1024(smem_raw);
@@ -520,18 +576,24 @@ flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint8_t* slot = ring + s * T::SLOT;
     const int kv0 = (first + i) * T::BK;
     mbar_arrive_expect_tx(&full[s], T::SLOT);
-    tma_load_4d(slot, &tm_k, 0, kv0, hk, b, &full[s]);
-    tma_load_4d(slot + bf16_box_bytes(T::BK), &tm_k, BOX_COLS, kv0, hk, b, &full[s]);
-    uint8_t* vs = slot + bf16_tile_bytes(T::BK);
-    tma_load_4d(vs, &tm_v, 0, kv0, hk, b, &full[s]);
-    tma_load_4d(vs + bf16_box_bytes(T::BK), &tm_v, BOX_COLS, kv0, hk, b, &full[s]);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(slot + bx * bf16_box_bytes(T::BK), &tm_k, bx * BOX_COLS, kv0, hk, b,
+                  &full[s]);
+    uint8_t* vs = slot + bf16_tile_bytes(T::BK, HD);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(vs + bx * bf16_box_bytes(T::BK), &tm_v, bx * BOX_COLS, kv0, hk, b, &full[s]);
   };
   if (tid == 0) {  // thread 0 issues every copy: Q, dO, the first slots
     mbar_arrive_expect_tx(&q_full, 2 * T::Q_BYTES);
-    tma_load_4d(q_s, &tm_q, 0, q0, h, b, &q_full);
-    tma_load_4d(q_s + bf16_box_bytes(T::BQ), &tm_q, BOX_COLS, q0, h, b, &q_full);
-    tma_load_4d(do_s, &tm_do, 0, q0, h, b, &q_full);
-    tma_load_4d(do_s + bf16_box_bytes(T::BQ), &tm_do, BOX_COLS, q0, h, b, &q_full);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(q_s + bx * bf16_box_bytes(T::BQ), &tm_q, bx * BOX_COLS, q0, h, b, &q_full);
+#pragma unroll
+    for (int bx = 0; bx < T::BOXES; ++bx)
+      tma_load_4d(do_s + bx * bf16_box_bytes(T::BQ), &tm_do, bx * BOX_COLS, q0, h, b,
+                  &q_full);
     for (int i = 0; i < min(NS, n); ++i) load_kv(i);
   }
 
@@ -545,9 +607,9 @@ flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const GradMath gm{p.causal, p.window, p.seq_kv, p.scale, p.softcap};
   const unsigned q_addr = smem_addr(q_s), do_addr = smem_addr(do_s);
 
-  float dq[D / 2];
+  float dq[HD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
   mbar_wait(&q_full, 0);
   for (int i = 0; i < n; ++i) {
     const int s = i % NS;
@@ -555,29 +617,29 @@ flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int kv0 = (first + i) * T::BK;
     if (rg.sees(p.causal, p.window, kv0, T::BK)) {
       const unsigned k_addr = smem_addr(ring + s * T::SLOT);
-      const unsigned v_addr = k_addr + bf16_tile_bytes(T::BK);
+      const unsigned v_addr = k_addr + bf16_tile_bytes(T::BK, HD);
       float sc[T::BK / 2], dp[T::BK / 2];
-      issue_qk<T::BK>(sc, q_addr, bf16_box_bytes(T::BQ), k_addr);  // S = Q K^T
-      issue_qk<T::BK>(dp, do_addr, bf16_box_bytes(T::BQ), v_addr);  // dP = dO V^T
+      issue_qk<T::BK, HD>(sc, q_addr, bf16_box_bytes(T::BQ), k_addr);  // S = Q K^T
+      issue_qk<T::BK, HD>(dp, do_addr, bf16_box_bytes(T::BQ), v_addr);  // dP = dO V^T
       wgmma_wait<0>();
       grad_tile<T::BK / 2, false>(sc, dp, gm,
                                   rg.needs_mask(p.causal, p.window, kv0, T::BK, p.seq_kv), bs,
                                   p.q_offset + row, kv0);
       uint32_t da[T::BK / 16][4];
       pack_p<T::BK>(dp, da);
-      issue_pv<T::BK>(dq, da, k_addr);  // dQ += dS K
+      issue_pv<T::BK, HD>(dq, da, k_addr);  // dQ += dS K
       wgmma_wait<0>();
     }
     if (lane == 0) mbar_arrive(&empty[s]);
-    refill<1, NS>(tid, i, n, empty, load_kv);
+    refill<0, NS>(tid, i, n, empty, load_kv);
   }
 
   const int q = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dq_row = p.dq + (bh_row + row + 8 * r) * D;
+    bf16* dq_row = p.dq + (bh_row + row + 8 * r) * HD;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j + 2 * q) =
           __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
@@ -591,33 +653,33 @@ struct Maps {
 };
 
 // Tensor maps of q, dO (boxes of q_rows) and k, v (boxes of kv_rows) over
-// their (b, h, s, d) views; s: their element strides (q, k, v, dO).
+// their (b, h, s, hd) views; s: their element strides (q, k, v, dO).
 bool encode_maps(Maps& m, const void* q, const void* k, const void* v, const void* dout,
-                 const long long (&s)[12], int batch, const Params& p, int q_rows,
+                 const long long (&s)[12], int batch, const Params& p, int hd, int q_rows,
                  int kv_rows) {
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode_bhsd(&m.q, bf, q, batch, p.heads, p.seq_q, D, s[0] * 2, s[1] * 2, s[2] * 2,
+  return encode_bhsd(&m.q, bf, q, batch, p.heads, p.seq_q, hd, s[0] * 2, s[1] * 2, s[2] * 2,
                      q_rows, BOX_COLS, true) &&
-         encode_bhsd(&m.k, bf, k, batch, p.kv_heads, p.seq_kv, D, s[3] * 2, s[4] * 2,
+         encode_bhsd(&m.k, bf, k, batch, p.kv_heads, p.seq_kv, hd, s[3] * 2, s[4] * 2,
                      s[5] * 2, kv_rows, BOX_COLS, true) &&
-         encode_bhsd(&m.v, bf, v, batch, p.kv_heads, p.seq_kv, D, s[6] * 2, s[7] * 2,
+         encode_bhsd(&m.v, bf, v, batch, p.kv_heads, p.seq_kv, hd, s[6] * 2, s[7] * 2,
                      s[8] * 2, kv_rows, BOX_COLS, true) &&
-         encode_bhsd(&m.dout, bf, dout, batch, p.heads, p.seq_q, D, s[9] * 2, s[10] * 2,
+         encode_bhsd(&m.dout, bf, dout, batch, p.heads, p.seq_q, hd, s[9] * 2, s[10] * 2,
                      s[11] * 2, q_rows, BOX_COLS, true);
 }
 
-template <int NC, int NS, bool kDQ>
+template <int NC, int NS, bool kDQ, int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const long long (&s)[12], int batch, const Params& p, cudaStream_t stream) {
-  using T = DkvTile<NC, NS, kDQ>;
+  using T = DkvTile<NC, NS, kDQ, HD>;
   Maps m = {};
-  // K2's dQ workspace as (batch * heads * seq_q, D) fp32 rows, boxes of a
+  // K2's dQ workspace as (batch * heads * seq_q, HD) fp32 rows, boxes of a
   // warp's 16 rows x 32 columns.
-  if (!encode_maps(m, q, k, v, dout, s, batch, p, T::BQ, T::BKV) ||
+  if (!encode_maps(m, q, k, v, dout, s, batch, p, HD, T::BQ, T::BKV) ||
       (kDQ && !encode_2d(&m.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.dq_acc,
-                         (long long)batch * p.heads * p.seq_q, D, 16, BOX_COLS / 2)))
+                         (long long)batch * p.heads * p.seq_q, HD, 16, BOX_COLS / 2)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_backward_dkv_kernel<NC, NS, kDQ>;
+  auto kernel = flash_backward_dkv_kernel<NC, NS, kDQ, HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -626,14 +688,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NS>
+template <int NS, int BK, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const long long (&s)[12], int batch, const Params& p, cudaStream_t stream) {
-  using T = DqTile<NS>;
+  using T = DqTile<NS, BK, HD>;
   Maps m = {};
-  if (!encode_maps(m, q, k, v, dout, s, batch, p, T::BQ, T::BK))
+  if (!encode_maps(m, q, k, v, dout, s, batch, p, HD, T::BQ, T::BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_backward_dq_kernel<NS>;
+  auto kernel = flash_backward_dq_kernel<NS, BK, HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -667,19 +729,31 @@ Params make_params(const void* lse, const void* dsum, void* dq, void* dk, void* 
 
 }  // namespace
 
+// The head width of this library's entry points: 128, or 256 where
+// flash_backward_d256.cu builds this file. In one file with the d-256
+// kernels, nvcc compiled K2's d-128 kernel to 253 registers in place of
+// 248 (the helper functions the two K2 kernels share were optimized for
+// both), so each width is a library of its own.
+#ifndef BACKWARD_HD
+#define BACKWARD_HD 128
+#endif
+#define TILE_OF(name, hd) TILE_OF_(name, hd)
+#define TILE_OF_(name, hd) name##_##hd
+
 extern "C" {
 
 const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Common arguments of the three entry points. q, dout (b, heads, seq_q, 128)
-// and k, v (b, kv_heads, seq_kv, 128) are bf16 with the given element strides
-// (d contiguous, strides multiples of 8 elements, base 16-byte aligned); lse
-// and dsum are (b, heads, seq_q) fp32 contiguous, 16-byte aligned. Outputs
-// are contiguous. seq_q and seq_kv are multiples of 64. Each returns
-// cudaGetLastError() after its launch, or cudaErrorInvalidValue when a
-// tensor map cannot be encoded.
+// Common arguments of the three entry points. q, dout (b, heads, seq_q,
+// d_head) and k, v (b, kv_heads, seq_kv, d_head), d_head BACKWARD_HD, are
+// bf16 with the given element strides (d contiguous, strides multiples of 8
+// elements, base 16-byte aligned); lse and dsum are (b, heads, seq_q) fp32
+// contiguous, 16-byte aligned. Outputs are contiguous. seq_q and seq_kv are
+// multiples of 64. Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for another head width or when a tensor map cannot
+// be encoded.
 #define FA_BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *dout,                 \
       const void *lse, const void *dsum, void *dq, void *dk, void *dv,          \
@@ -687,7 +761,7 @@ const char* fa_error_string(int code) {
       long long k_sh, long long k_ss, long long v_sb, long long v_sh,            \
       long long v_ss, long long o_sb, long long o_sh, long long o_ss, int batch, \
       int heads, int kv_heads, int seq_q, int seq_kv, int causal, int q_offset,  \
-      int window, float scale, float softcap, void *stream
+      int window, float scale, float softcap, int d_head, void *stream
 
 #define FA_BWD_PARAMS                                                            \
   const long long s[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,                   \
@@ -699,19 +773,22 @@ const char* fa_error_string(int code) {
 // K2: dK, dV (bf16) and dQ added into dq, a zeroed fp32 workspace.
 int fa_flash_backward_fused(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  return launch_dkv<FUSED_TILE>(q, k, v, dout, s, batch, p, st);
+  if (d_head != BACKWARD_HD) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv<TILE_OF(FUSED_TILE, BACKWARD_HD)>(q, k, v, dout, s, batch, p, st);
 }
 
 // K3, first half: dK and dV only (dq is unused).
 int fa_flash_backward_dkv(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  return launch_dkv<DKV_TILE>(q, k, v, dout, s, batch, p, st);
+  if (d_head != BACKWARD_HD) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv<TILE_OF(DKV_TILE, BACKWARD_HD)>(q, k, v, dout, s, batch, p, st);
 }
 
 // K3, second half: dQ (bf16) into dq (dk and dv are unused).
 int fa_flash_backward_dq(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
-  return launch_dq<DQ_SLOTS>(q, k, v, dout, s, batch, p, st);
+  if (d_head != BACKWARD_HD) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq<TILE_OF(DQ_TILE, BACKWARD_HD)>(q, k, v, dout, s, batch, p, st);
 }
 
 }  // extern "C"

@@ -5,8 +5,8 @@ Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_backward.py``
 ``csrc/flash_backward.cu``: K2, the fused kernel (one shared recompute for
 dQ, dK and dV; dQ summed by fp32 atomics), or K3, the split pair (a dK/dV
 kernel and a dQ kernel, each summing in a fixed order), all on wgmma with
-TMA copies; their launches are :func:`plan`. For CPU tensors it runs the
-plain version, :func:`flash_backward_plain`. :func:`make_flash_backward`
+TMA copies, at head width 128 or 256; their launches are :func:`plan`. For
+CPU tensors it runs the plain version, :func:`flash_backward_plain`. :func:`make_flash_backward`
 and :func:`make_flash_backward_fused` bind K3 and K2 to one shape, as the
 JAX package's ``make_*`` functions bind its ``pallas_call``s.
 """
@@ -22,7 +22,7 @@ import torch
 from . import _build
 from .configs import KernelConfig
 from .flash_forward import (
-    ALIGN_SLACK, D_HEAD, MAX_GRID_YZ, SMEM_LIMIT, WG_ROWS, TilePlan, _default_cfg,
+    ALIGN_SLACK, D_HEAD, D_HEADS, MAX_GRID_YZ, SMEM_LIMIT, WG_ROWS, TilePlan, _default_cfg,
     _kernel_layout, _strides, _validate, bf16_tile_bytes, check_grid,
 )
 
@@ -33,21 +33,26 @@ __all__ = ["flash_backward", "flash_backward_plain", "fused_choice", "plan",
 KERNEL_FUSED = "flash_backward_fused"
 KERNEL_DKV = "flash_backward_dkv"
 KERNEL_DQ = "flash_backward_dq"
-SOURCE = "flash_backward.cu"
+# One library a head width: csrc/flash_backward_d256.cu builds
+# flash_backward.cu's kernels at d 256 (BACKWARD_HD there).
+SOURCES = {128: "flash_backward.cu", 256: "flash_backward_d256.cu"}
+SOURCE = SOURCES[128]
 LOG2E = math.log2(math.e)
 
 _I64, _I32, _F32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
-# The launches of csrc/flash_backward.cu (its FUSED_TILE, DKV_TILE and
-# DQ_SLOTS): a CTA is consumer warpgroups of 64 rows only (its thread 0
+# The launches of csrc/flash_backward.cu per head width (its FUSED_TILE_*,
+# DKV_TILE_* and DQ_TILE_*): a CTA is consumer warpgroups only (its thread 0
 # issues the copies). (consumer warpgroups, ring slots) of the dK/dV
-# kernel, for K2 and for K3's first half, over slots of 64 Q rows; the
-# ring slots of the dQ kernel (one warpgroup of 64 Q rows) of 128 keys.
-FUSED_TILE = (2, 3)
-DKV_TILE = (1, 2)
-DQ_SLOTS = 1
+# kernel, for K2 and for K3's first half, over slots of 64 Q rows: at d 128
+# a warpgroup owns 64 KV rows; at d 256 two warpgroups share 64 KV rows,
+# each 128 of dK's and dV's columns. The dQ kernel (one warpgroup of 64 Q
+# rows): its ring slots and keys a slot.
+FUSED_TILE = {128: (2, 3), 256: (2, 1)}
+DKV_TILE = {128: (1, 2), 256: (2, 2)}
+DQ_SLOTS = {128: 1, 256: 2}
+DQ_KEYS = {128: 128, 256: 64}
 DKV_Q_ROWS = 64
-DQ_KEYS = 128
 SM_SMEM = 233472  # an SM's shared memory, 1 KB of it reserved per CTA
 
 
@@ -57,30 +62,44 @@ def per_sm(warpgroups: int, smem: int) -> int:
     return 2 if warpgroups == 1 and 2 * (smem + 1024) <= SM_SMEM else 1
 
 
-def _dkv_plan(fused: bool, batch: int, kv_heads: int, seq_kv: int) -> TilePlan:
-    nc, slots = FUSED_TILE if fused else DKV_TILE
-    bkv, bq = nc * WG_ROWS, DKV_Q_ROWS
+def _check_width(d_head: int) -> None:
+    if d_head not in D_HEADS:
+        raise ValueError(f"K2/K3's tiles are {' or '.join(map(str, D_HEADS))} wide, got "
+                         f"d_head {d_head} (other widths: ROADMAP Queue 2, coverage item 1)")
+
+
+def _dkv_plan(fused: bool, batch: int, kv_heads: int, seq_kv: int,
+              d_head: int = D_HEAD) -> TilePlan:
+    _check_width(d_head)
+    nc, slots = (FUSED_TILE if fused else DKV_TILE)[d_head]
+    split = d_head // D_HEAD  # warpgroups that share 64 KV rows
+    bkv, bq = nc // split * WG_ROWS, DKV_Q_ROWS
     stats = 2 * bq * 4  # a slot's LSE and D rows, fp32
     # K2: dS^T buffers, one a warpgroup; a stage of 16 x 64 fp32 dQ a warp.
     ds = nc * (bkv * bq * 2 + 4 * 16 * 64 * 4) if fused else 0
     tiles = -(-seq_kv // bkv)
     return TilePlan(rows=bq, keys=bkv, slots=slots,
-                    smem=(2 * bf16_tile_bytes(bkv) + slots * (2 * bf16_tile_bytes(bq) + stats)
+                    smem=(2 * bf16_tile_bytes(bkv, d_head)
+                          + slots * (2 * bf16_tile_bytes(bq, d_head) + stats)
                           + ds + ALIGN_SLACK),
                     grid=(kv_heads, batch, tiles), kv_tiles=tiles, threads=nc * 128)
 
 
-def _dq_plan(batch: int, heads: int, seq_q: int, seq_kv: int) -> TilePlan:
-    return TilePlan(rows=WG_ROWS, keys=DQ_KEYS, slots=DQ_SLOTS,
-                    smem=(2 * bf16_tile_bytes(WG_ROWS)
-                          + DQ_SLOTS * 2 * bf16_tile_bytes(DQ_KEYS) + ALIGN_SLACK),
-                    grid=(seq_q // WG_ROWS, heads, batch), kv_tiles=-(-seq_kv // DQ_KEYS),
+def _dq_plan(batch: int, heads: int, seq_q: int, seq_kv: int,
+             d_head: int = D_HEAD) -> TilePlan:
+    _check_width(d_head)
+    slots, keys = DQ_SLOTS[d_head], DQ_KEYS[d_head]
+    return TilePlan(rows=WG_ROWS, keys=keys, slots=slots,
+                    smem=(2 * bf16_tile_bytes(WG_ROWS, d_head)
+                          + slots * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
+                    grid=(seq_q // WG_ROWS, heads, batch), kv_tiles=-(-seq_kv // keys),
                     threads=128)
 
 
 def plan(fused: bool, batch: int, heads: int, kv_heads: int, seq_q: int,
-         seq_kv: int) -> tuple:
-    """The launches of one backward call: K2's, or K3's dK/dV then dQ.
+         seq_kv: int, d_head: int = D_HEAD) -> tuple:
+    """The launches of one backward call at head width ``d_head`` (128 or
+    256): K2's, or K3's dK/dV then dQ.
 
     A dK/dV launch (``DkvTile`` in the source) has a CTA per (``keys`` KV
     rows, KV head, batch), grid (kv_heads, batch, KV tiles), walking Q tiles
@@ -89,11 +108,11 @@ def plan(fused: bool, batch: int, heads: int, kv_heads: int, seq_q: int,
     warp). The dQ launch
     (``DqTile``) has a CTA per (``rows`` Q rows, head, batch), grid (Q
     tiles, heads, batch), walking ``keys``-key K/V slots, as the forward's
-    main loop."""
+    main loop. Other widths raise ValueError."""
     if fused:
-        return (_dkv_plan(True, batch, kv_heads, seq_kv),)
-    return (_dkv_plan(False, batch, kv_heads, seq_kv),
-            _dq_plan(batch, heads, seq_q, seq_kv))
+        return (_dkv_plan(True, batch, kv_heads, seq_kv, d_head),)
+    return (_dkv_plan(False, batch, kv_heads, seq_kv, d_head),
+            _dq_plan(batch, heads, seq_q, seq_kv, d_head))
 
 
 def dkv_q_tiles(cfg: KernelConfig, kv0: int, kv_end: int, bq: int,
@@ -194,9 +213,9 @@ def _plain_from_rows(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    argtypes = [_PTR] * 9 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32, _PTR]
+def _lib(d_head: int) -> ctypes.CDLL:
+    lib = _build.load(SOURCES[d_head])
+    argtypes = [_PTR] * 9 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32, _I32, _PTR]
     for fn in (lib.fa_flash_backward_fused, lib.fa_flash_backward_dkv,
                lib.fa_flash_backward_dq):
         fn.restype = _I32
@@ -218,10 +237,7 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernels take bf16, got {q.dtype} "
                          "(fp16/fp32: ROADMAP Queue 2, K2/K3)")
-    if q.shape[3] != D_HEAD:
-        raise ValueError(f"the CUDA kernels' tiles are {D_HEAD} wide, got d_head "
-                         f"{q.shape[3]} (d 256 on K2/K3, Gemma-2 training on the card: "
-                         "ROADMAP Queue 2, coverage item 1)")
+    _check_width(q.shape[3])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
@@ -230,12 +246,12 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
         do = do.contiguous()
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    for launch in plan(fused, b, h, kvh, sq, skv):
+    for launch in plan(fused, b, h, kvh, sq, skv, d):
         check_grid(launch)
     lse, dsum = _aligned(lse), _aligned(dsum)
     dk = torch.empty((b, kvh, skv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lib = _lib()
+    lib = _lib(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def call(fn, name, dq_buf, dk_buf, dv_buf):
@@ -243,7 +259,7 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
                 lse.data_ptr(), dsum.data_ptr(), dq_buf, dk_buf, dv_buf,
                 *_strides(q), *_strides(k), *_strides(v), *_strides(do),
                 b, h, kvh, sq, skv, int(cfg.causal), cfg.q_offset, cfg.window,
-                float(scale), float(cfg.attn_softcap), stream)
+                float(scale), float(cfg.attn_softcap), d, stream)
         _build.check(lib, rc, name)
         _build.launch_counts[name] += 1
 
@@ -267,7 +283,10 @@ def fused_choice(fused: bool | None = None, causal: bool = True) -> bool:
     K2 adds dQ in no fixed order), and otherwise the faster of the two: on
     an H100 (``chip_smoke.py::time_backward``: b 2, 32/8 heads, d 128,
     bf16) K3 with the causal mask (s 1024, 2048, the training run's, and
-    4096), K2 without it (s 2048).
+    4096), K2 without it (s 2048). At d 256 (``time_backward_d256``: b 1,
+    16/8 heads, s 8192, causal) the two are within 5-12% of each other, K2
+    ahead with softcap 50 and K3 without one, so the rule is the same at
+    both widths.
     """
     if fused is not None:
         return fused
@@ -314,15 +333,18 @@ def fused_backward_fits(seq_kv: int, d_head: int, vmem_limit_mb: int = 64) -> bo
     """Whether K2 runs a backward over ``seq_kv`` keys of width ``d_head``.
 
     The JAX package answers for its fused kernel's whole-sequence dK/dV
-    scratch in VMEM. The port's K2 keeps dK/dV for its own 128 KV rows a
-    CTA, so the answer is its launch's (:func:`plan`): the tiles 128 wide,
-    the CTA's shared memory within the SM's limit (for any ``seq_kv``) and
-    the KV tiles within the grid's limit. ``vmem_limit_mb`` (a TPU figure)
-    is accepted and ignored.
+    scratch in VMEM. The port's K2 keeps dK/dV for its own 128 (d 128) or
+    64 (d 256) KV rows a CTA, so the answer is its launch's (:func:`plan`
+    at ``d_head``): a width it has tiles for (128 or 256), the CTA's shared
+    memory within the SM's limit (for any ``seq_kv``) and the KV tiles
+    within the grid's limit. ``vmem_limit_mb`` (a TPU figure) is accepted
+    and ignored.
     """
     del vmem_limit_mb
-    launch = _dkv_plan(True, 1, 1, seq_kv)
-    return d_head == D_HEAD and launch.smem <= SMEM_LIMIT and launch.kv_tiles <= MAX_GRID_YZ
+    if d_head not in FUSED_TILE:
+        return False
+    launch = _dkv_plan(True, 1, 1, seq_kv, d_head)
+    return launch.smem <= SMEM_LIMIT and launch.kv_tiles <= MAX_GRID_YZ
 
 
 def _rows(lse, batch: int, heads: int, seq_q: int):

@@ -37,8 +37,8 @@ SOURCE = "flash_forward.cu"
 KERNEL_FORI = "flash_forward_fori"
 SOURCE_FORI = "flash_forward_fori.cu"
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
-D_HEAD = 128      # the head width of K11 (and of K2/K3, K10)
-D_HEADS = (128, 256)  # the head widths K1 takes (``GridTile<HD>``)
+D_HEAD = 128      # the head width of K11 (and of K10)
+D_HEADS = (128, 256)  # the head widths K1, K2 and K3 take (their HD template argument)
 
 # The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K1,
 # K11 and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q

@@ -267,9 +267,11 @@ def test_make_flash_backward_calls_equal_jax():
 
 def test_fused_backward_fits_answers_for_the_port_kernel():
     """The port's K2 keeps dK/dV a CTA, so any length fits (JAX's VMEM
-    answer stops at seq_kv 32,768 for d 128); its tiles are 128 wide."""
+    answer stops at seq_kv 32,768 for d 128); its tiles are 128 or 256
+    wide."""
     from flash_attention_from_scratch_tpu.ops.flash_backward import fused_backward_fits as jax_fits
 
     assert jax_fits(32768, 128) and not jax_fits(65536, 128)
     assert fused_backward_fits(32768, 128) and fused_backward_fits(65536, 128)
-    assert not fused_backward_fits(1024, 256)
+    assert fused_backward_fits(1024, 256) and fused_backward_fits(65536, 256)
+    assert not fused_backward_fits(1024, 384)

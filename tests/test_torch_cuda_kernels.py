@@ -50,7 +50,7 @@ from flash_attention_from_scratch_tpu_torch.ops.configs import (
     MAX_KV_BUFFERS, DType, KernelConfig, KVLoop,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
-    KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, SOURCE as BACKWARD_SOURCE, flash_backward,
+    KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, SOURCES as BACKWARD_SOURCES, flash_backward,
     flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
@@ -377,17 +377,18 @@ def _resource_usage(source):
 
 def test_backward_kernels_run_on_wgmma_without_spills(cuda):
     """K2's and K3's kernels (the dK/dV kernel with and without dQ, the dQ
-    kernel) issue bf16 wgmma (HGMMA) and no mma.sync (HMMA), and spill
-    nothing: no local memory, no stack."""
-    sass = _sass_by_function(BACKWARD_SOURCE)
-    usage = _resource_usage(BACKWARD_SOURCE)
-    names = [n for n in sass if "flash_backward_" in n]
-    assert len(names) == 3, list(sass)
-    assert len([n for n in names if "flash_backward_dkv_kernel" in n]) == 2
-    for name in names:
-        assert "HGMMA" in sass[name], name
-        assert "HMMA" not in sass[name], name
-        assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
+    kernel; each head width's library its own) issue bf16 wgmma (HGMMA)
+    and no mma.sync (HMMA), and spill nothing: no local memory, no stack."""
+    for d, source in BACKWARD_SOURCES.items():
+        sass = _sass_by_function(source)
+        usage = _resource_usage(source)
+        names = [n for n in sass if "flash_backward_" in n]
+        assert len(names) == 3 and all(f"Li{d}EE" in n for n in names), list(sass)
+        assert len([n for n in names if "flash_backward_dkv_kernel" in n]) == 2
+        for name in names:
+            assert "HGMMA" in sass[name], name
+            assert "HMMA" not in sass[name], name
+            assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
 
 
 def _bf16_ulp(x):
@@ -764,14 +765,11 @@ def test_kernels_refuse_other_dtypes(cuda):
 
 
 def test_kernels_refuse_other_head_widths(cuda):
-    """K1 and K4/K5 take d 128 and 256 on the card; K2/K3, K10 and K11 are
+    """K1, K2/K3 and K4/K5 take d 128 and 256 on the card; K10 and K11 are
     128 wide and raise at d 256 (the plain versions run it on the CPU), and
     every wrapper raises at d 384: nothing falls back to a plain version on
     a CUDA tensor."""
     q = torch.zeros((1, 2, 128, 256), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="128 wide"):
-        flash_backward(q, q, q, q, torch.zeros((1, 2, 128), device=cuda), q,
-                       KernelConfig(d_head=256))
     kq = quantize_kv(q, "int8")
     with pytest.raises(ValueError, match="128 wide"):
         flash_forward_quantized(q, kq, kq, KernelConfig(d_head=256))
@@ -920,13 +918,63 @@ def test_flash_backward_takes_strided_inputs(cuda):
             assert ok, (fused, name, ratio, where)
 
 
-def test_train_step_on_the_kernels(cuda, monkeypatch):
-    from flash_attention_from_scratch_tpu_torch.ops import autodiff
+# Head width 256 (K2/K3's d-256 instantiations: the dK/dV kernel's two
+# warpgroups that split dK's and dV's columns, the dQ kernel's 64-key
+# slots): Gemma-2-9B's group of 2 Q heads a KV head at 4/2 heads, every
+# option, ragged tiles and a window that starts mid-tile.
+D256_BACKWARD_CASES = [
+    (256, 256, dict()), (256, 256, dict(causal=True)),
+    (128, 256, dict(causal=True, q_offset=128)), (256, 256, dict(causal=True, window=100)),
+    (192, 320, dict(causal=True, q_offset=128, window=70)),
+    (256, 256, dict(causal=True, attn_softcap=50.0)),
+    (320, 320, dict(causal=True, window=64, attn_softcap=50.0)),
+]
 
-    cfg = llama.LlamaConfig(vocab_size=256, dim=512, n_layers=2, n_heads=4,
-                            n_kv_heads=2, d_head=128, hidden_dim=512)
-    tokens = torch.from_numpy(np.random.default_rng(6).integers(
-        0, cfg.vocab_size, (2, 257))).to(cuda)
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("sq,skv,kw", D256_BACKWARD_CASES)
+def test_flash_backward_d256_kernels_match_plain(cuda, fused, sq, skv, kw):
+    """K2 and K3 at d 256 against the plain version by the sliced rule, one
+    launch of each kernel a call; a second call gives the same dK and dV
+    bit for bit (and dQ on K3)."""
+    cfg = KernelConfig(d_head=256, **kw)
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 4, sq, d_head=256, kv_heads=2, seq_kv=skv, seed=11))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    names = [KERNEL_FUSED] if fused else [KERNEL_DKV, KERNEL_DQ]
+    before = {n: _build.launch_counts[n] for n in names}
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    again = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[n] == before[n] + 2 for n in names)
+    _check_backward(got, q, k, v, o, lse, do, cfg, (fused, sq, skv, kw))
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    if not fused:
+        assert torch.equal(got[0], again[0])
+
+
+def test_flash_backward_d256_takes_strided_inputs(cuda):
+    """The model's q/k/v/dO at d 256: transposed views of (b, s, h, d) rows."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    rows = [torch.randn(2, 192, h, 256, device=cuda, generator=gen).bfloat16()
+            for h in (4, 2, 2, 4)]
+    q, k, v, do = (x.transpose(1, 2) for x in rows)
+    cfg = KernelConfig(d_head=256, causal=True, window=100, attn_softcap=50.0)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    for fused in (True, False):
+        _check_backward(flash_backward(q, k, v, o, lse, do, cfg, fused=fused),
+                        q, k, v, o, lse, do, cfg, fused)
+
+
+def _train_grads_on_each_backward(cuda, monkeypatch, cfg, tokens):
+    """Every parameter gradient of ``loss_fn`` on the split backward (the
+    default), the fused one and the plain one, with the kernels' launches;
+    the split and fused gradients within 1e-2 of each leaf's largest plain
+    one."""
+    from flash_attention_from_scratch_tpu_torch.ops import autodiff
 
     def grads():
         params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
@@ -956,6 +1004,32 @@ def test_train_step_on_the_kernels(cuda, monkeypatch):
             assert float((got.float() - w.float()).abs().max()) <= 1e-2 * float(
                 w.float().abs().max())
     monkeypatch.undo()
+
+
+def test_train_step_d256_on_the_kernels(cuda, monkeypatch):
+    """A Gemma-2-shaped model at d 256 (``D256_CFG``: a 64-token window on
+    layer 0, softcaps, sandwich norms) trains on K2/K3: its gradients on
+    either backward within 1e-2 of the plain backward's, three AdamW steps
+    with a falling loss and K1 and K3 once a layer a step."""
+    cfg = D256_CFG
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 193))).to(cuda)
+    _train_grads_on_each_backward(cuda, monkeypatch, cfg, tokens)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    step = train.make_train_step(cfg, train.make_optimizer(params, lr=1e-3))
+    before = {n: _build.launch_counts[n] for n in (FLASH, KERNEL_DKV, KERNEL_DQ)}
+    losses = [float(step(params, tokens)) for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+    for n in (FLASH, KERNEL_DKV, KERNEL_DQ):
+        assert _build.launch_counts[n] == before[n] + 3 * cfg.n_layers
+
+
+def test_train_step_on_the_kernels(cuda, monkeypatch):
+    cfg = llama.LlamaConfig(vocab_size=256, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_head=128, hidden_dim=512)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 257))).to(cuda)
+    _train_grads_on_each_backward(cuda, monkeypatch, cfg, tokens)
 
     params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
     step = train.make_train_step(cfg, train.make_optimizer(params, lr=1e-3))
@@ -1743,7 +1817,7 @@ def test_ring_on_the_card_over_gloo(cuda):
     from flash_attention_from_scratch_tpu_torch.parallel.ring_attention import launch_plan
 
     _build.load(FLASH_SOURCE)  # built once here, not by each rank
-    _build.load(BACKWARD_SOURCE)
+    _build.load(BACKWARD_SOURCES[128])
     got = spawn(ranks.cuda_ring, 2, backend="gloo", device="cuda:0", timeout=300)
     for rank, r in enumerate(got):
         assert torch.equal(r["moved"], torch.full((1024,), float(1 - rank)))
