@@ -100,10 +100,14 @@ adapter's merged weights as run A is held); (8) drive the attention
 bench tools, the path of quantized prefill attention (K10) and of the
 K/V-ring forward (K11):
 ``tools/bench_quant.py`` at its default shapes with its numerics check,
-and ``tools/bench_attention.py --fori``, each with its kernel's launches
-counted, then hold K10 (every variant; s 2048 and 4096) and K11 (depth 2)
-against their plain versions on the tools' own inputs at those shapes, and
-run the
+its launches counted, then ``tools/bench_attention.py``'s ``main`` with the
+JAX tool's options (``phase_bench_attention_options``: ``--kernels`` with
+d-256 short forms of K11 and K1 at 16/8 heads and the SDPA baseline, the
+same with ``--grad``, ``--fori --causal --host-timing``, ``--kernels
+prog`` (K1, and K11 at depths 1 and 2); each run's rows and launches
+checked), then hold K10 (every variant; s 2048 and 4096) and K11
+(depth 2, and at d 256 as ``--kernels`` runs it) against their plain
+versions on the tools' own inputs at those shapes, and run the
 serving bench tools each in its own process (``tools/bench_decode.py`` at
 Llama-3-8B, int8 weights and KV, per step and ``--scan``;
 ``tools/bench_serving.py`` at its defaults and with the prefix cache),
@@ -130,17 +134,21 @@ a softcap) and int8 compute (t = 1 and 4) per (sequence, token), K11
 at ring depths 1-4 on every K1 case, and K10 for every variant (int8
 compute, int8/fp8/int4 K/V, bf16/int8/fp8 Q), non-causal and causal, with
 windows, a softcap and strided Q, against its plain version, and head
-width 256 (``phase_d256_cases``, Gemma-2-9B's 16/8 heads): K1 on five
-cases (the 5,120-row prefill with the window or globally, a q_offset
-chunk with every option, full, ragged) and K4/K5 on every page format and
+width 256 (``phase_d256_cases``, Gemma-2-9B's 16/8 heads): K1 and K11
+at ring depths 1-4 on five cases (the 5,120-row prefill with the window or
+globally, a q_offset chunk with every option, full, ragged), K10 on every
+variant (full and causal at s 2048, Gemma-2's 5,120-token prefill with its
+window and softcap, strided Q) and K4/K5 on every page format and
 int8 compute at t = 1 and 4 with the window and the softcap, and K2 and
 K3 on seven backward cases (causal, full, q_offset, a window starting
 mid-tile, softcap 50, ragged, strided) with their rerun equalities; K1 and
 K4/K5 at d 256 are timed at ``serve_gemma2_9b``'s shapes
 (``time_flash_d256``, ``time_paged_d256``), K2 and K3 at
-``train_gemma2_9b``'s (``time_backward_d256``; the ``*_d256`` entries of
-the ``kernels`` line). (10) the parallel layer (``parallel/``), its ranks processes on this card
-over gloo, named here (NCCL refuses two ranks on one card; every tensor
+``train_gemma2_9b``'s (``time_backward_d256``), K10 per variant and K11
+per depth at b 4, s 4096, 16/8 heads (``time_quant_fori_d256``; the
+``*_d256`` entries of the ``kernels`` line). (10) the parallel layer
+(``parallel/``), its ranks processes on this card over gloo, named here
+(NCCL refuses two ranks on one card; every tensor
 that crosses ranks goes through pinned host memory, counted as staged
 bytes; no time of these phases is a multi-card speed): ``ring``, ring
 attention over 4 ranks at Llama-3-8B attention widths (b 1, 32/8 heads, s
@@ -290,8 +298,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
                          "flash_backward.cu", "flash_backward_d256.cu", "quant_matmul.cu",
-                         "flash_quant.cu", "flash_forward_fori.cu",
-                         "paged_runtime.cpp"])
+                         "flash_quant.cu", "flash_quant_d256.cu", "flash_forward_fori.cu",
+                         "flash_forward_fori_d256.cu", "paged_runtime.cpp"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3744,22 +3752,28 @@ D256_BACKWARD_TIMED = (("global softcap 50", 0, G9_SOFTCAP), ("global", 0, 0.0),
 
 
 def phase_d256_cases() -> dict:
-    """Head width 256 at Gemma-2-9B's 16/8 heads: K1 on D256_FLASH_CASES
-    (its LSE too) by the tolerance rule in each (batch, head, 64-row band),
+    """Head width 256 at Gemma-2-9B's 16/8 heads: K1 and K11 at ring depths
+    1-4 on D256_FLASH_CASES (the LSE too; each case's plain references
+    computed once for all five) by the tolerance rule in each (batch, head,
+    64-row band), K10 on D256_QUANT_CASES (every variant; the attention
+    API a Gemma-2 user calls for prefill over a quantized cache),
     K4/K5 on a ragged, shuffled, NaN-poisoned page-64 pool (lengths 0
     to 5,000) on dense, int8, fp8 and int4 pages at t = 1 and 4 (each plain,
     with the 4,096 window and with softcap 50) and int8 compute at t = 1 and
     4, at split counts 1 and the plan's, in each (sequence, token), and K2
     and K3 on D256_BACKWARD_CASES (``_hold_backward_cases``: the rule on
     each gradient, the rerun equalities). Each call must launch its kernel
-    once. Returns {"flash": (max |kernel - plain|, worst err/bound),
-    "paged": (the same), "backward": {mode: (the same)}}."""
+    once. Returns {"flash", "fori", "quant", "paged": (max |kernel - plain|,
+    worst err/bound), "backward": {mode: (the same)}, "fori_launches",
+    "quant_launches": the K11 and K10 calls made}."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-        KERNEL, flash_forward_plain, flash_forward_with_lse)
+        KERNEL, KERNEL_FORI, flash_forward_plain, flash_forward_with_lse)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
 
-    flash = (0.0, 0.0)
+    flash = fori = (0.0, 0.0)
+    fori_before = _build.launch_counts[KERNEL_FORI]
     for i, (name, sq, skv, kw, extra) in enumerate(D256_FLASH_CASES):
         q, k, v = _cuda_qkv(sq, skv, seed=200 + i, strided=extra.get("strided", False),
                             heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
@@ -3769,15 +3783,36 @@ def phase_d256_cases() -> dict:
         ref16, _ = flash_forward_plain(q, k, v, cfg, sinks)
         ref32, lse32 = flash_forward_plain(q.float(), k.float(), v.float(), _fp32(cfg),
                                            sinks)
-        before = _build.launch_counts[KERNEL]
-        out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
-        sync()
-        launched = _build.launch_counts[KERNEL] - before
-        lse_err = float((lse - lse32).abs().max())
-        flash = tuple(map(max, flash, _hold(
-            f"flash_forward d256 {name}", out, ref16, ref32, launched,
-            good=lse_err <= 1e-3, note=f", lse err {lse_err:.3e}")))
-        del q, k, v, ref16, ref32, out
+        for n in (0,) + FORI_DEPTHS:  # K1, then K11 at each depth
+            run = cfg if n == 0 else dataclasses.replace(cfg, kv_loop=KVLoop.FORI,
+                                                         num_kv_buffers=n)
+            kernel = KERNEL if n == 0 else KERNEL_FORI
+            before = _build.launch_counts[kernel]
+            out, lse = flash_forward_with_lse(q, k, v, run, sinks=sinks)
+            sync()
+            launched = _build.launch_counts[kernel] - before
+            lse_err = float((lse - lse32).abs().max())
+            got = _hold(f"{kernel}{f' nb{n}' if n else ''} d256 {name}", out, ref16, ref32,
+                        launched, good=lse_err <= 1e-3, note=f", lse err {lse_err:.3e}")
+            if n == 0:
+                flash = tuple(map(max, flash, got))
+            else:
+                fori = tuple(map(max, fori, got))
+            del out, lse
+        del q, k, v, ref16, ref32
+    fori_launches = _build.launch_counts[KERNEL_FORI] - fori_before
+    torch.cuda.empty_cache()
+
+    quant = (0.0, 0.0)
+    quant_before = _build.launch_counts[KQ]
+    for i, (name, variant, seq, batch, kw, strided) in enumerate(D256_QUANT_CASES):
+        qq, kq, vq = _quant_qkv(variant, seq, seed=230 + i, batch=batch, strided=strided,
+                                heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
+        quant = tuple(map(max, quant, _flash_quant_case(
+            f"d256 {name}", qq, kq, vq, KernelConfig(d_head=G9_D, **kw),
+            QUANT_VARIANTS[variant][2])))
+        del qq, kq, vq
+    quant_launches = _build.launch_counts[KQ] - quant_before
     torch.cuda.empty_cache()
 
     lengths = [1, 17, 64, 65, 1000, 0, 2047, 3001, 5000]
@@ -3810,7 +3845,9 @@ def phase_d256_cases() -> dict:
     del formats, kp, vp
     torch.cuda.empty_cache()
     backward = _hold_backward_cases(D256_BACKWARD_CASES, "d256 ", G9_HEADS, G9_KV_HEADS, G9_D)
-    return {"flash": flash, "paged": paged, "backward": backward}
+    return {"flash": flash, "fori": fori, "quant": quant, "paged": paged,
+            "backward": backward, "fori_launches": fori_launches,
+            "quant_launches": quant_launches}
 
 
 def _param_bytes(params) -> int:
@@ -4260,15 +4297,33 @@ def time_paged_int8c() -> dict:
 # bf16 Q over int4 K/V.
 QUANT_VARIANTS = bench_quant.CHECK_VARIANTS
 QUANT_CASE_SEQS, QUANT_CASE_BATCH = (1024, 2048), 2
+# K10's d-256 cases (phase_d256_cases), Gemma-2-9B's 16/8 heads: (label,
+# variant, seq, batch, KernelConfig fields, strided Q). Every variant full
+# and causal at s 2048 (b 2); Gemma-2's prefill of the longest served
+# prompt, 5,000 tokens padded to 5,120, with its 4,096 window and softcap 50
+# (int8c, which refuses a softcap, without it); strided Q for int8kv and
+# int8c.
+D256_QUANT_CASES = [
+    (f"{variant} {'causal' if causal else 'full'} s2048", variant, 2048, 2,
+     dict(causal=causal), False)
+    for variant in QUANT_VARIANTS for causal in (False, True)] + [
+    (f"{variant} gemma2-9b prefill s5120 window {G9_WINDOW}"
+     + ("" if i8c else f" softcap {G9_SOFTCAP:g}"), variant, 5120, 1,
+     dict(causal=True, window=G9_WINDOW, **({} if i8c else dict(attn_softcap=G9_SOFTCAP))),
+     False)
+    for variant, (_, _, i8c) in QUANT_VARIANTS.items()] + [
+    ("int8kv strided q causal s2048", "int8kv", 2048, 2, dict(causal=True), True),
+    ("int8c strided q s2048", "int8c", 2048, 2, {}, True)]
 PERF_BATCH, PERF_SEQ = 4, 4096  # the K10 and K11 timing shape
 
 
-def _quant_qkv(variant, seq, seed, batch, strided=False):
-    """Seeded bf16 Q, K, V (32/8 heads) quantized as ``variant`` gives them;
-    with ``strided``, Q (its values, when quantized) as a transposed view
-    of (b, s, h, d) rows."""
-    qq, kq, vq = bench_quant.quantize_inputs(*_cuda_qkv(seq, seq, seed, batch=batch),
-                                             variant)
+def _quant_qkv(variant, seq, seed, batch, strided=False, heads=HEADS, kv_heads=KV_HEADS,
+               d=D):
+    """Seeded bf16 Q, K, V (32/8 heads of 128 unless given) quantized as
+    ``variant`` gives them; with ``strided``, Q (its values, when quantized)
+    as a transposed view of (b, s, h, d) rows."""
+    qq, kq, vq = bench_quant.quantize_inputs(
+        *_cuda_qkv(seq, seq, seed, batch=batch, heads=heads, kv_heads=kv_heads, d=d), variant)
     if strided:
         if QUANT_VARIANTS[variant][1] == "bf16":
             qq = _as_model_rows(qq, True)
@@ -4329,7 +4384,7 @@ def _flash_quant_case(label, qq, kq, vq, cfg, i8c) -> tuple[float, float]:
     out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
     sync()
     launched = _build.launch_counts[KERNEL] - before
-    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=D ** -0.5,
+    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=cfg.softmax_scale,
                                            int8_compute=i8c)
     ref32 = _per_batch(lambda *x: reference_attention(
         *x, causal=cfg.causal, q_offset=0 if cfg.causal else None, window=cfg.window,
@@ -4371,16 +4426,21 @@ def phase_bench_tool_cases() -> dict:
     of ``bench_quant`` (non-causal; 16/16 heads, b 16 at its first two
     lengths, s 2048 and 4096; its s 8192 at b 8, whose plain versions cost
     the most, was cut to keep the smoke's time), K11 at ring depth 2
-    (``bench_attention --fori``: non-causal, 16/16 heads, b 16, s 512-4096),
-    its plain versions run one batch element at a time. Returns {kernel:
-    (max |kernel - plain|, worst err/bound)}."""
+    (``bench_attention --kernels prog``'s FORI rungs: non-causal, 16/16
+    heads, b 16, s 512-4096)
+    and K11 at d 256 as ``bench_attention --kernels`` runs its d-256 FORI
+    short form (causal, depth 2, 16/8 heads of 256, b 16, s 2048 and 4096;
+    under ``"flash_forward_fori_d256"``), its plain versions run one batch
+    element at a time. Returns {kernel: (max |kernel - plain|, worst
+    err/bound)}."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.configs import (
+        KernelConfig, KVLoop, parse_short_form)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL_FORI, flash_forward, flash_forward_plain)
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
 
-    worst = {KQ: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0)}
+    worst = {KQ: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0), "flash_forward_fori_d256": (0.0, 0.0)}
     for seq in bench_quant.DEFAULT_SEQ_LENS[:2]:
         q, k, v = bench_quant.bench_inputs(seq)
         for variant, (_, _, i8c) in bench_quant.VARIANTS.items():
@@ -4392,9 +4452,13 @@ def phase_bench_tool_cases() -> dict:
             del qq, kq, vq
         del q, k, v
         torch.cuda.empty_cache()
-    cfg = KernelConfig(kv_loop=KVLoop.FORI)  # the tool's default depth, 2
-    for seq in bench_attention.DEFAULT_SEQ_LENS:
-        q, k, v = bench_attention.bench_inputs(seq)
+    runs = [(KERNEL_FORI, "--fori nb2", KernelConfig(kv_loop=KVLoop.FORI), seq, {})
+            for seq in bench_attention.DEFAULT_SEQ_LENS]
+    form = BENCH_D256_FORMS.split(";")[0]
+    runs += [("flash_forward_fori_d256", form, parse_short_form(form), seq,
+              dict(heads=G9_HEADS, kv_heads=G9_KV_HEADS, d_head=G9_D)) for seq in (2048, 4096)]
+    for label, what, cfg, seq, widths in runs:
+        q, k, v = bench_attention.bench_inputs(seq, **widths)
         before = _build.launch_counts[KERNEL_FORI]
         out = flash_forward(q, k, v, cfg)
         sync()
@@ -4402,9 +4466,9 @@ def phase_bench_tool_cases() -> dict:
         native = _per_batch(lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v)
         ref32 = _per_batch(lambda *x: flash_forward_plain(*x, _fp32(cfg))[0],
                            q.float(), k.float(), v.float())
-        got = _hold(f"bench_attention --fori nb{cfg.num_kv_buffers} b{q.shape[0]} "
-                    f"h{q.shape[1]} s{seq}", out, native, ref32, launched)
-        worst[KERNEL_FORI] = tuple(map(max, worst[KERNEL_FORI], got))
+        got = _hold(f"bench_attention {what} b{q.shape[0]} h{q.shape[1]} s{seq}", out,
+                    native, ref32, launched)
+        worst[label] = tuple(map(max, worst[label], got))
         del q, k, v, out, native, ref32
     torch.cuda.empty_cache()
     return worst
@@ -4518,15 +4582,165 @@ def time_fori(ptxas: dict | None = None) -> dict:
                      f"{HEADS}/{KV_HEADS} heads, s {PERF_SEQ}, d {D}, bf16"}
 
 
-def phase_bench_tools(smi: str) -> dict:
-    """The slice's main path: ``tools/bench_quant.py`` (every variant at its
-    default shapes, then its numerics check) and ``tools/bench_attention.py
-    --fori`` at its defaults, each with the launch counts set to 0 just
-    before and read just after. K10 must have run, and K11 without K1.
-    Returns {kernel: launches}."""
+def time_quant_fori_d256(quant_ptxas: dict | None = None,
+                         fori_ptxas: dict | None = None) -> tuple[dict, dict]:
+    """K10 per variant (non-causal) and K11 at ring depths 1-4 (non-causal
+    and causal) at head width 256: b 4, s 4096, Gemma-2-9B's 16/8 heads, the
+    same products as the d-128 rows' 32/8 heads of 128 (``time_flash_quant``,
+    ``time_fori``), so the same bound. Beside each: the bound, its share
+    (bound / time), the products' TFLOP/s (TOP/s for int8c), the plain
+    version (one batch element at a time for K11) and the library call: SDPA
+    on the dequantized bf16 tensors for K10, SDPA for K11 (beside K1 at d
+    256). ``quant_ptxas`` / ``fori_ptxas``: the build's registers and spills
+    of the d-256 libraries. Returns (K10's row, K11's row): top-level
+    numbers are sums over the variants, and over the two masks at the
+    default depth (2)."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward, flash_forward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+        flash_forward_quantized, flash_forward_quantized_plain)
+
+    widths = dict(heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cfg = KernelConfig(d_head=G9_D)
+    ops = _attn_ops(PERF_SEQ, G9_HEADS, PERF_BATCH, causal=False, d=G9_D)
+    by_variant = {}
+    for i, (variant, (_, _, i8c)) in enumerate(QUANT_VARIANTS.items()):
+        qq, kq, vq = _quant_qkv(variant, PERF_SEQ, seed=280 + i, batch=PERF_BATCH, **widths)
+        out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+        ms = _time_ms(lambda: flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
+        plain_ms = _time_ms(lambda: flash_forward_quantized_plain(
+            qq, kq, vq, cfg, scale=cfg.softmax_scale, int8_compute=i8c), iters=1, warmup=1)
+        dq, dk, dv = (_dequantized(x, torch.bfloat16) for x in (qq, kq, vq))
+        lib_ms = _time_ms(lambda: sdpa(dq, dk, dv, enable_gqa=True))
+        bound_o = ops / (PEAK_INT8_OPS if i8c else PEAK_BF16_FLOPS)
+        bound_b = _attn_bytes(qq, kq, vq, out) / PEAK_BYTES_PER_S
+        bound_ms = 1e3 * max(bound_o, bound_b)
+        by_variant[variant] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if bound_o >= bound_b else "bytes",
+            "bound_share": bound_ms / ms, "library_factor": ms / lib_ms,
+            "product_tflops": ops / ms / 1e9}
+        del qq, kq, vq, out, dq, dk, dv
+    quant = {key: sum(r[key] for r in by_variant.values())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    quant.update(bound_by="operations", by_variant=by_variant,
+                 ptxas=_kernel_ptxas(quant_ptxas or {}, ("flash_quant_kernel",
+                                                         "flash_quant_i8_kernel")),
+                 shape=f"sum over the variants {list(QUANT_VARIANTS)}: non-causal, "
+                       f"b {PERF_BATCH}, {G9_HEADS}/{G9_KV_HEADS} heads, s {PERF_SEQ}, "
+                       f"d {G9_D}; library: SDPA on the dequantized bf16 tensors")
+    torch.cuda.empty_cache()
+
+    q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, **widths)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v in bf16
+    by_mask = {}
+    for causal in (False, True):
+        base = KernelConfig(d_head=G9_D, causal=causal)
+        ops = _attn_ops(PERF_SEQ, G9_HEADS, PERF_BATCH, causal, d=G9_D)
+        row = {f"nb{n}_ms": _time_ms(lambda: flash_forward(q, k, v, dataclasses.replace(
+            base, kv_loop=KVLoop.FORI, num_kv_buffers=n))) for n in FORI_DEPTHS}
+        row["flash_forward_k1_ms"] = _time_ms(lambda: flash_forward(q, k, v, base))
+        row["library_ms"] = _time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        row["plain_ms"] = _time_ms(lambda: _per_batch(
+            lambda *x: flash_forward_plain(*x, base)[0], q, k, v), iters=1, warmup=1)
+        row["bound_ms"] = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        for n in FORI_DEPTHS:
+            row[f"nb{n}_bound_share"] = row["bound_ms"] / row[f"nb{n}_ms"]
+            row[f"nb{n}_library_factor"] = row[f"nb{n}_ms"] / row["library_ms"]
+            row[f"nb{n}_tflops"] = ops / row[f"nb{n}_ms"] / 1e9
+        by_mask["causal" if causal else "full"] = row
+    fori = {key: sum(r[src] for r in by_mask.values()) for key, src in (
+        ("ms", "nb2_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
+        ("bound_ms", "bound_ms"))}
+    fori.update(bound_by="operations", by_mask=by_mask,
+                ptxas=_kernel_ptxas(fori_ptxas or {}, ("flash_forward_fori_kernel",)),
+                shape=f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
+                      f"{G9_HEADS}/{G9_KV_HEADS} heads, s {PERF_SEQ}, d {G9_D}, bf16")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return quant, fori
+
+
+# bench_attention's d-256 configs: K11 at depth 2 and K1, causal, by the
+# JAX package's short forms (the head width is in the form).
+BENCH_D256_FORMS = "fa_bf16_q128_kv128_d256_fori2_ca;fa_bf16_q128_kv128_d256_grid2_ca"
+_D256_TOOL_ARGS = ("--kernels", BENCH_D256_FORMS, "--heads", str(G9_HEADS), "--kv-heads",
+                   str(G9_KV_HEADS), "--seq-lens", "2048,4096", "--baseline", "--json")
+# The tool's options as a user runs them: (label, arguments).
+BENCH_ATTENTION_RUNS = (
+    ("d256", _D256_TOOL_ARGS),
+    ("d256_grad", _D256_TOOL_ARGS + ("--grad",)),
+    ("host_timing", ("--fori", "--causal", "--seq-lens", "1024,2048", "--host-timing",
+                     "--json")),
+    ("prog", ("--kernels", "prog", "--json")),
+)
+
+
+def phase_bench_attention_options(smi: str) -> dict:
+    """``tools/bench_attention.py``'s ``main`` with the JAX tool's options
+    (BENCH_ATTENTION_RUNS): d-256 short forms with the SDPA baseline, the
+    same with ``--grad`` (forward and backward), ``--host-timing``, and
+    ``--kernels prog`` at its default seqs; each with the launch counts set
+    to 0 just before and read just after. Each run must print a row of
+    positive TFLOP/s for every config, name the kernels it launched and
+    launch them: K11 and K1 (and, with ``--grad``, K2 or K3) at d 256, K11
+    alone under ``--fori``, K1 and K11 for ``prog``. Returns {label:
+    launches}."""
+    import contextlib
+    import io
+
     from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL as K1, KERNEL_FORI)
+
+    backward = (KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+    out = {}
+    for label, args in BENCH_ATTENTION_RUNS:
+        torch.cuda.empty_cache()
+        text = io.StringIO()
+        t = time.perf_counter()
+        _build.launch_counts.clear()  # counts start at 0 just before the run
+        with contextlib.redirect_stdout(text):
+            rc = bench_attention.main(list(args))
+        counts = dict(_build.launch_counts)  # read just after
+        took = time.perf_counter() - t
+        rows = [json.loads(line) for line in text.getvalue().splitlines()
+                if line.startswith("{")]
+        print(json.dumps({"bench_attention": {"args": " ".join(args), "rows": rows,
+                                              "launches": counts, "s": took, "gpu": smi}}),
+              flush=True)
+        kernels = {r["kernel"] for r in rows}
+        want = {"d256": {K1, KERNEL_FORI}, "d256_grad": {K1, KERNEL_FORI},
+                "host_timing": {KERNEL_FORI}, "prog": {K1, KERNEL_FORI}}[label]
+        good = (rc == 0 and rows and all(r["harmonic_mean"] > 0 and r["n_seqs"] > 0
+                                         for r in rows)
+                and all(counts.get(name, 0) > 0 for name in want)
+                and ("--fori" not in args or not counts.get(K1))
+                and ("--grad" not in args or sum(counts.get(n, 0) for n in backward) > 0)
+                and ("--baseline" not in args or "sdpa" in kernels)
+                and all(r["timing"] == ("host" if "--host-timing" in args else "cuda_events")
+                        and r["grad"] == ("--grad" in args) for r in rows))
+        if label.startswith("d256"):
+            good = good and {r["config"] for r in rows} == set(BENCH_D256_FORMS.split(";")) | {
+                "sdpa"}
+        if not good:
+            raise AssertionError(f"bench_attention {' '.join(args)}: rc {rc}, "
+                                 f"launches {counts}, rows {rows}")
+        out[label] = counts
+    return out
+
+
+def phase_bench_tools(smi: str) -> dict:
+    """K10's main path: ``tools/bench_quant.py`` (every variant at its
+    default shapes, then its numerics check) with the launch counts set to
+    0 just before and read just after; K10 must have run. (K11's,
+    ``tools/bench_attention.py``, is ``phase_bench_attention_options``.)
+    Returns {kernel: launches}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
 
     _build.launch_counts.clear()  # counts start at 0 just before the path
@@ -4537,16 +4751,7 @@ def phase_bench_tools(smi: str) -> dict:
                                       "launches": quant_counts, "gpu": smi}}), flush=True)
     if quant_counts.get(KQ, 0) == 0 or not all(r["adaptive_ok"] for r in numerics):
         raise AssertionError(f"bench_quant: launches {quant_counts}, numerics {numerics}")
-
-    _build.launch_counts.clear()
-    results = bench_attention.bench(bench_attention.DEFAULT_SEQ_LENS, fori=True)
-    fori_counts = dict(_build.launch_counts)
-    print(json.dumps({"bench_attention": {"args": "--fori", "results": {
-        name: {str(s): r for s, r in per_seq.items()} for name, per_seq in results.items()},
-        "launches": fori_counts, "gpu": smi}}), flush=True)
-    if fori_counts.get(KERNEL_FORI, 0) == 0 or fori_counts.get(K1, 0):
-        raise AssertionError(f"bench_attention --fori: launches {fori_counts}")
-    return {KQ: quant_counts[KQ], KERNEL_FORI: fori_counts[KERNEL_FORI]}
+    return {KQ: quant_counts[KQ]}
 
 
 # ------------------------------------------------------------------------
@@ -5787,6 +5992,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
+    attn_options = phase_bench_attention_options(smi)
+    torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
     torch.cuda.empty_cache()
     decode_tool = phase_serving_tools(smi)[0]
@@ -5992,11 +6199,38 @@ def main(argv=None) -> int:
          **time_flash_quant(_ptxas_by_kernel(logs.get("flash_quant.cu", "")))},
         {"name": KERNEL_FORI, "route": "cuda", "source": pkg + "flash_forward_fori.cu",
          "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:578",
-         "launches": tools[KERNEL_FORI],
-         "launches_path": "tools/bench_attention.py --fori at its defaults",
+         "launches": attn_options["prog"][KERNEL_FORI],
+         "launches_path": "tools/bench_attention.py --kernels prog --json at its default seqs "
+                          "(its FORI rungs: depths 1 and 2)",
+         "launches_fori_host_timing": attn_options["host_timing"][KERNEL_FORI],
          "max_abs_err": max(fori_err, tool_cases[KERNEL_FORI][0]),
          "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]),
          **time_fori(_ptxas_by_kernel(logs.get("flash_forward_fori.cu", "")))},
+    ]
+    quant9_t, fori9_t = time_quant_fori_d256(
+        _ptxas_by_kernel(logs.get("flash_quant_d256.cu", "")),
+        _ptxas_by_kernel(logs.get("flash_forward_fori_d256.cu", "")))
+    kernels += [
+        # Head width 256: the same wrappers and kernels, their d-256
+        # instantiations, each width a library of its own (counted under
+        # the wrappers' names).
+        {"name": "flash_quant_d256", "route": "cuda", "source": pkg + "flash_quant_d256.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:129",
+         "also_replaces": "flash_attention_from_scratch_tpu/ops/flash_quant.py:46",
+         "counted_as": KQ, "launches": d256["quant_launches"],
+         "launches_path": "phase_d256_cases: flash_forward_quantized at d 256, Gemma-2-9B's "
+                          f"16/8 heads, every variant ({len(D256_QUANT_CASES)} calls)",
+         "max_abs_err": d256["quant"][0], "worst_err_bound": d256["quant"][1], **quant9_t},
+        {"name": "flash_forward_fori_d256", "route": "cuda",
+         "source": pkg + "flash_forward_fori_d256.cu",
+         "replaces": "flash_attention_from_scratch_tpu/ops/flash_forward.py:578",
+         "counted_as": KERNEL_FORI, "launches": attn_options["d256"][KERNEL_FORI],
+         "launches_path": "tools/bench_attention.py " + " ".join(_D256_TOOL_ARGS),
+         "launches_grad": attn_options["d256_grad"].get(KERNEL_FORI, 0),
+         "launches_d256_cases": d256["fori_launches"],
+         "max_abs_err": max(d256["fori"][0], tool_cases["flash_forward_fori_d256"][0]),
+         "worst_err_bound": max(d256["fori"][1], tool_cases["flash_forward_fori_d256"][1]),
+         **fori9_t},
     ]
     lap("kernel timing")
     print(json.dumps({"phase_s": laps}), flush=True)

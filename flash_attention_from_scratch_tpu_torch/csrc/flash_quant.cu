@@ -1,6 +1,6 @@
-// Prefill attention over quantized K/V for Hopper, d_head 128: int8, fp8
-// (e4m3) or int4 K/V with one fp32 scale per (batch, KV head); Q in bf16 or
-// quantized (int8 or fp8, one scale per (batch, Q head)); bf16 output.
+// Prefill attention over quantized K/V for Hopper, d_head 128 or 256: int8,
+// fp8 (e4m3) or int4 K/V with one fp32 scale per (batch, KV head); Q in bf16
+// or quantized (int8 or fp8, one scale per (batch, Q head)); bf16 output.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_quant.py
 // _quant_kernel, with its int8-compute update _attend_i8. Two kernels on the
@@ -19,9 +19,10 @@
 //     (as K6's dequantization in quant_matmul.cu), fp8-e4m3 through
 //     cvt.rn.f16x2.e4m3x2 (every e4m3 value is exact in fp16 and in bf16),
 //     int4 (half-split along d: byte j holds column j in its low nibble and
-//     column j + 64 in its high) by the bf16 bits 0x4300 | (n ^ 8) minus
-//     136, the low nibbles into the box of columns 0-63 and the high ones
-//     into the box of columns 64-127. An int8 or fp8 Q is upcast the same
+//     column j + d/2 in its high) by the bf16 bits 0x4300 | (n ^ 8) minus
+//     136, the low nibbles into the boxes of columns 0 .. d/2 - 1 (box 0 at
+//     d 128, boxes 0-1 at d 256) and the high ones into the boxes of the
+//     columns after (box 1, boxes 2-3). An int8 or fp8 Q is upcast the same
 //     way once per CTA. The consumers run flash_wgmma.cuh's bf16 tile math
 //     (consume_bf16). The K scale (and Q's) folds into the softmax scale,
 //     the V scale into the final normalisation, as at flash_quant.py:155-159
@@ -29,7 +30,8 @@
 //   flash_quant_i8_kernel (int8_compute: int8 Q, K and V): both products on
 //     wgmma m64n128k32 s8 with exact int32 sums. Each 128-key tile is one P
 //     quantization group, as the JAX kernel at block_kv=128 quantizes P:
-//     s = Q_i8 K_i8^T (int32; 127 * 127 * 128 < 2^31), m = max(s) * c over
+//     s = Q_i8 K_i8^T (int32; 127 * 127 * 256 < 2^22 at d 256, exact also
+//     through the fp32 magic-number conversion below), m = max(s) * c over
 //     the group, P = exp2(s * c - m) rounded to int8 at the constant 127,
 //     l = the integer row sum of that P, acc = P_i8 V_i8 (int32); groups
 //     merge online in fp32 and O = acc / l * v_scale. Q and K arrive by TMA
@@ -45,6 +47,31 @@
 // above the ~295 operations-per-byte balance point, so tensor-core
 // operations bound it: 989 TFLOP/s for the bf16 products of the upcast
 // modes, 1979 TOP/s for int8_compute.
+//
+// Head width 256 (Gemma-2) is the same two kernels at HD = 256, built as a
+// library of their own (flash_quant_d256.cu; QUANT_HD below), so that the
+// d-128 kernels compile as they did alone. The 64 x 256 fp32 O is 128
+// registers a consumer thread, which no CTA of more than 8 warps can hold
+// beside S and P, so both kernels' CTA is CtaShape<256>: one producer
+// warpgroup (which also converts or transposes the raw bytes) and ONE
+// consumer warpgroup of 64 Q rows, 256 threads. Every bf16 tile has four
+// 64-column boxes.
+//   Upcast modes at d 256: tiles of 64 keys (UpcastTile::BK). The bf16 Q
+//     tile is 32 KB, two bf16 K/V slots 128 KB, two raw slots 64 KB (int8,
+//     fp8) or 32 KB (int4): 225 KB with the slack. A quantized Q's raw 16
+//     KB passes through a raw slot, as at d 128. O += P V is two m64n128
+//     products a k step over V's column halves (flash_wgmma.cuh).
+//   int8_compute at d 256: the P group stays 128 keys (the JAX kernel's
+//     block_kv group). A consumer thread cannot hold S (int32 m64n128: 64
+//     registers), an int32 P V accumulator over 256 columns (128) and the
+//     fp32 O (128) at once, so P V runs over V's two column halves, one
+//     m64n128 s8 product each into one 64-register accumulator, each folded
+//     into its half of O before the next is issued: the peak is O, one
+//     half's accumulator and P's 16 fragment registers. The int8 Q tile is
+//     16 KB; a slot holds K (128 keys, 32 KB) and V^T (32 KB), so two slots
+//     and two raw V slots (32 KB each) fit: 209 KB. Q, K and the raw V
+//     arrive as two 128-byte-swizzled boxes of 128 d bytes each (a
+//     128-byte swizzle spans 128 bytes).
 
 #include <cuda_fp16.h>
 
@@ -55,36 +82,42 @@ namespace {
 enum { Q_BF16 = 0, Q_INT8 = 1, Q_FP8 = 2 };
 enum { KV_INT8 = 1, KV_FP8 = 2, KV_INT4 = 3 };
 
-constexpr int BKQ = 128;  // keys per tile, both kernels; the P group of int8_compute
+constexpr int BKQ = 128;  // the P group of int8_compute: its keys per tile
+constexpr int SW_BYTES = 128;  // bytes of a row of a 128-byte-swizzled int8 box
 constexpr int PRODUCER_BAR = 1;  // named barrier of the producer warpgroup
 
-// Stored bytes of one K/V row: 128 (int8, fp8) or 64 (int4).
-__host__ __device__ constexpr int row_bytes(int kv) { return kv == KV_INT4 ? D / 2 : D; }
+// Stored bytes of one K/V row: hd (int8, fp8) or hd / 2 (int4).
+__host__ __device__ constexpr int row_bytes(int kv, int hd) {
+  return kv == KV_INT4 ? hd / 2 : hd;
+}
 
-// The launch geometry of the upcast kernel (ops/flash_quant.py::plan
-// mirrors it): the bf16 Q tile, two bf16 K/V slots and two raw K/V slots;
-// a quantized Q's raw bytes pass through raw slot 1 before its first tile.
-template <int QT, int KV>
-struct UpcastTile {
+// The launch geometry of the upcast kernel at head width HD
+// (ops/flash_quant.py::plan mirrors it): the bf16 Q tile, two bf16 K/V
+// slots and two raw K/V slots of BK keys; a quantized Q's raw bytes pass
+// through raw slot 1 before its first tile.
+template <int QT, int KV, int HD>
+struct UpcastTile : CtaShape<HD> {
+  static constexpr int BK = HD == 128 ? 128 : 64;  // keys per tile
   static constexpr int SLOTS = 2;
   static constexpr int RAW_SLOTS = 2;
-  static constexpr int Q_BYTES = bf16_tile_bytes(BQ);
-  static constexpr int Q_RAW = QT == Q_BF16 ? 0 : BQ * D;
-  static constexpr int SLOT = 2 * bf16_tile_bytes(BKQ);
-  static constexpr int RAW = 2 * BKQ * row_bytes(KV);  // raw K, then raw V
+  static constexpr int Q_BYTES = bf16_tile_bytes(CtaShape<HD>::BQ, HD);
+  static constexpr int Q_RAW = QT == Q_BF16 ? 0 : CtaShape<HD>::BQ * HD;
+  static constexpr int SLOT = 2 * bf16_tile_bytes(BK, HD);
+  static constexpr int RAW = 2 * BK * row_bytes(KV, HD);  // raw K, then raw V
   static constexpr int SMEM = Q_BYTES + SLOTS * SLOT + RAW_SLOTS * RAW + ALIGN_SLACK;
   static_assert(Q_RAW <= RAW, "a raw slot holds the raw Q tile");
   static_assert(SMEM <= SMEM_LIMIT, "the ring does not fit a CTA's shared memory");
 };
 
-// The int8-compute kernel's: the int8 Q tile, four slots of the int8 K
-// tile and the transposed V tile, two raw V slots.
-struct I8Tile {
-  static constexpr int SLOTS = 4;
+// The int8-compute kernel's: the int8 Q tile, SLOTS slots of the int8 K
+// tile and the transposed V tile, two raw V slots; tiles of BKQ keys.
+template <int HD>
+struct I8Tile : CtaShape<HD> {
+  static constexpr int SLOTS = HD == 128 ? 4 : 2;
   static constexpr int RAW_SLOTS = 2;
-  static constexpr int Q_BYTES = BQ * D;
-  static constexpr int SLOT = 2 * BKQ * D;  // K (kv, d), then V^T (d, kv')
-  static constexpr int RAW = BKQ * D;
+  static constexpr int Q_BYTES = CtaShape<HD>::BQ * HD;
+  static constexpr int SLOT = 2 * BKQ * HD;  // K (kv, d), then V^T (d, kv')
+  static constexpr int RAW = BKQ * HD;
   static constexpr int SMEM = Q_BYTES + SLOTS * SLOT + RAW_SLOTS * RAW + ALIGN_SLACK;
   static_assert(SMEM <= SMEM_LIMIT, "the ring does not fit a CTA's shared memory");
 };
@@ -144,15 +177,18 @@ __device__ __forceinline__ void bytes16_to_bf16(const uint4& raw, uint32_t (&o)[
   }
 }
 
-// One 16-byte unit u of a raw tile (rows of row_bytes(KV) bytes, unit u at
-// byte 16 u) -> its bf16 values in the swizzled (ROWS x D) tile at dst.
+// One 16-byte unit u of a raw tile (rows of row_bytes(KV, HD) bytes, unit u
+// at byte 16 u) -> its bf16 values in the swizzled (ROWS x HD) tile at dst.
 // int8 and fp8: 16 columns of a row; int4: 16 bytes of a row, whose low
-// nibbles are 16 columns of the first box and high nibbles the same 16
-// columns of the second.
-template <int KV, int ROWS>
-__device__ __forceinline__ void convert_unit(uint8_t* dst, int u, const uint4& raw16) {
+// nibbles are 16 columns of the first half and high nibbles the same 16
+// columns of the second (HD / 2 columns on).
+template <int KV, int ROWS, int HD>
+__device__ __forceinline__ void convert_unit(uint8_t* dst, unsigned u, const uint4& raw16) {
+  // 16-byte units of a raw row, a power of two: u's row and column are a
+  // shift and a mask of the unsigned u.
+  constexpr unsigned UNITS_ROW = row_bytes(KV, HD) / 16;
   if constexpr (KV == KV_INT4) {
-    const int r = u >> 2, c = (u & 3) * 16;
+    const int r = u / UNITS_ROW, c = (u % UNITS_ROW) * 16;
     const uint32_t w[4] = {raw16.x, raw16.y, raw16.z, raw16.w};
     uint32_t lo[8], hi[8];
 #pragma unroll
@@ -163,23 +199,29 @@ __device__ __forceinline__ void convert_unit(uint8_t* dst, int u, const uint4& r
       hi[2 * i] = nibbles_to_bf16(t01 >> 4);
       hi[2 * i + 1] = nibbles_to_bf16(t23 >> 4);
     }
-    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c)) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 8)) =
-        make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 64)) =
-        make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + 72)) =
-        make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    // At d 256 a row's 8 units span boxes 0 and 1: the units in box 1 store
+    // their second chunk first, as the int8 path below does.
+    const bool flip = HD > 128 && (c & BOX_COLS);
+    const int a = flip ? 8 : 0, b = flip ? 0 : 8;
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + a)) =
+        flip ? make_uint4(lo[4], lo[5], lo[6], lo[7]) : make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + b)) =
+        flip ? make_uint4(lo[0], lo[1], lo[2], lo[3]) : make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + HD / 2 + a)) =
+        flip ? make_uint4(hi[4], hi[5], hi[6], hi[7]) : make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + HD / 2 + b)) =
+        flip ? make_uint4(hi[0], hi[1], hi[2], hi[3]) : make_uint4(hi[4], hi[5], hi[6], hi[7]);
   } else {
-    const int r = u >> 3, c = (u & 7) * 16;
+    const int r = u / UNITS_ROW, c = (u % UNITS_ROW) * 16;
     uint32_t o[8];
     bytes16_to_bf16<KV == KV_FP8>(raw16, o);
-    // The row's threads for columns 64-127 store their second chunk first,
-    // so that each store of 8 threads covers the 8 chunk positions (the
-    // boxes are a multiple of 128 bytes apart).
+    // The row's threads for the columns of odd boxes (64-127, 192-255)
+    // store their second chunk first, so that each store of 8 threads covers
+    // the 8 chunk positions (the boxes are a multiple of 128 bytes apart).
+    // At d 128 the test stays c >= BOX_COLS: with c & BOX_COLS there, ptxas
+    // spilled 16-20 bytes in six of the nine upcast kernels.
     const uint4 lo = make_uint4(o[0], o[1], o[2], o[3]), hi = make_uint4(o[4], o[5], o[6], o[7]);
-    const bool flip = c >= BOX_COLS;
+    const bool flip = HD == 128 ? c >= BOX_COLS : (c & BOX_COLS) != 0;
     *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + (flip ? 8 : 0))) =
         flip ? hi : lo;
     *reinterpret_cast<uint4*>(dst + bf16_tile_offset(ROWS, r, c + (flip ? 0 : 8))) =
@@ -187,14 +229,14 @@ __device__ __forceinline__ void convert_unit(uint8_t* dst, int u, const uint4& r
   }
 }
 
-// TILES raw (ROWS x row_bytes(KV)) tiles, raw_stride bytes apart, -> as
-// many swizzled bf16 (ROWS x D) tiles, bf16_tile_bytes(ROWS) apart; the 128
-// threads of the producer warpgroup, thread pt. Every load is issued
+// TILES raw (ROWS x row_bytes(KV, HD)) tiles, raw_stride bytes apart, -> as
+// many swizzled bf16 (ROWS x HD) tiles, bf16_tile_bytes(ROWS, HD) apart; the
+// 128 threads of the producer warpgroup, thread pt. Every load is issued
 // before the first store, so that the loads' latency overlaps.
-template <int KV, int ROWS, int TILES>
+template <int KV, int ROWS, int TILES, int HD>
 __device__ __forceinline__ void convert_tiles(uint8_t* dst, const uint8_t* raw, int raw_stride,
                                               int pt) {
-  constexpr int UNITS = ROWS * row_bytes(KV) / 16 / 128;  // a thread's units a tile
+  constexpr int UNITS = ROWS * row_bytes(KV, HD) / 16 / 128;  // a thread's units a tile
   uint4 in[TILES][UNITS];
 #pragma unroll
   for (int t = 0; t < TILES; ++t)
@@ -205,10 +247,13 @@ __device__ __forceinline__ void convert_tiles(uint8_t* dst, const uint8_t* raw, 
   for (int t = 0; t < TILES; ++t)
 #pragma unroll
     for (int it = 0; it < UNITS; ++it)
-      convert_unit<KV, ROWS>(dst + t * bf16_tile_bytes(ROWS), it * 128 + pt, in[t][it]);
+      convert_unit<KV, ROWS, HD>(dst + t * bf16_tile_bytes(ROWS, HD), it * 128 + pt,
+                                 in[t][it]);
 }
 
-// The position geometry every kernel here shares.
+// The position geometry every kernel here shares: CTAs of BQ Q rows over
+// tiles of BK keys.
+template <int BQ, int BK>
 struct Cta {
   int h, b, hk, q0, first, n;
 
@@ -219,7 +264,7 @@ struct Cta {
     hk = h / p.group;
     q0 = q_tile * BQ;
     int last;
-    cta_tiles(p.causal, p.window, q0, min(BQ, p.seq_q - q0), p.seq_kv, BKQ, first, last);
+    cta_tiles(p.causal, p.window, q0, min(BQ, p.seq_q - q0), p.seq_kv, BK, first, last);
     n = max(last - first + 1, 0);
   }
 
@@ -233,12 +278,13 @@ struct Cta {
 // ---------------------------------------------------------------------------
 // The upcast modes.
 
-template <int QT, int KV>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int QT, int KV, int HD>
+__global__ void __launch_bounds__(UpcastTile<QT, KV, HD>::THREADS, 1)
 flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using T = UpcastTile<QT, KV>;
+  using T = UpcastTile<QT, KV, HD>;
+  constexpr int BQ = T::BQ, BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, q_raw_full, raw_full[T::RAW_SLOTS], full[T::SLOTS],
       empty[T::SLOTS];
@@ -248,7 +294,7 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* q_raw = raw + T::RAW;             // raw slot 1, before its first tile
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const Cta cta(p);
+  const Cta<BQ, BK> cta(p);
 
   if (tid == 0) {
     mbar_init(&q_full, 1);
@@ -256,7 +302,7 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < T::RAW_SLOTS; ++r) mbar_init(&raw_full[r], 1);
     for (int s = 0; s < T::SLOTS; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_ARRIVALS);
+      mbar_init(&empty[s], T::ARRIVALS);
     }
     mbar_init_fence();
   }
@@ -265,7 +311,7 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {  // producer: thread 0 copies, the warpgroup converts
     const int pt = tid;
     auto issue_raw = [&](int i) {
-      const int kv0 = (cta.first + i) * BKQ, r = i % T::RAW_SLOTS;
+      const int kv0 = (cta.first + i) * BK, r = i % T::RAW_SLOTS;
       uint8_t* dst = raw + r * T::RAW;
       mbar_arrive_expect_tx(&raw_full[r], T::RAW);
       tma_load_4d(dst, &tm_k, 0, kv0, cta.hk, cta.b, &raw_full[r]);
@@ -274,8 +320,10 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (pt == 0) {
       if constexpr (QT == Q_BF16) {
         mbar_arrive_expect_tx(&q_full, T::Q_BYTES);
-        tma_load_4d(q_s, &tm_q, 0, cta.q0, cta.h, cta.b, &q_full);
-        tma_load_4d(q_s + bf16_box_bytes(BQ), &tm_q, BOX_COLS, cta.q0, cta.h, cta.b, &q_full);
+#pragma unroll
+        for (int bx = 0; bx < T::BOXES; ++bx)
+          tma_load_4d(q_s + bx * bf16_box_bytes(BQ), &tm_q, bx * BOX_COLS, cta.q0, cta.h, cta.b,
+                      &q_full);
       } else {
         mbar_arrive_expect_tx(&q_raw_full, T::Q_RAW);
         tma_load_4d(q_raw, &tm_q, 0, cta.q0, cta.h, cta.b, &q_raw_full);
@@ -284,7 +332,7 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     if constexpr (QT != Q_BF16) {  // upcast Q once
       mbar_wait(&q_raw_full, 0);
-      convert_tiles<QT == Q_FP8 ? KV_FP8 : KV_INT8, BQ, 1>(q_s, q_raw, 0, pt);
+      convert_tiles<QT == Q_FP8 ? KV_FP8 : KV_INT8, BQ, 1, HD>(q_s, q_raw, 0, pt);
       fence_proxy_async();
       named_bar_sync(PRODUCER_BAR, 128);  // raw slot 1 is free again
       if (pt == 0) mbar_arrive(&q_full);
@@ -296,7 +344,7 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (i >= T::SLOTS) mbar_wait(&empty[s], (i / T::SLOTS - 1) & 1);
       uint8_t* slot = ring + s * T::SLOT;
       const uint8_t* src = raw + r * T::RAW;
-      convert_tiles<KV, BKQ, 2>(slot, src, T::RAW / 2, pt);  // K, then V
+      convert_tiles<KV, BK, 2, HD>(slot, src, T::RAW / 2, pt);  // K, then V
       fence_proxy_async();
       named_bar_sync(PRODUCER_BAR, 128);  // the raw slot is read, the bf16 slot written
       if (pt == 0) {
@@ -312,10 +360,10 @@ flash_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
   float eff = p.scale * p.ks[cta.b * p.kv_heads + cta.hk];
   if (QT != Q_BF16) eff *= p.qs[cta.b * p.heads + cta.h];
   const float v_scale = p.vs[cta.b * p.kv_heads + cta.hk];
-  RowState st;
+  RowStateT<HD> st;
   st.init();
   mbar_wait(&q_full, 0);
-  consume_bf16<BKQ, T::SLOTS>(st, cta.rows(p, cw), full, empty, ring, T::SLOT,
+  consume_bf16<BK, T::SLOTS>(st, cta.rows(p, cw), full, empty, ring, T::SLOT,
                               smem_addr(q_s) + cw * WG_ROWS * 128, bf16_box_bytes(BQ),
                               cta.first, cta.n,
                               TileMath{p.causal, p.window, p.seq_kv, eff, p.softcap});
@@ -333,10 +381,11 @@ __device__ __forceinline__ int sw128_offset(int r, int c) {
   return r * 128 + ((((c >> 4) ^ (r & 7))) << 4) + (c & 15);
 }
 
-// The raw V tile (kv rows of 128 d bytes, swizzled by TMA) -> V^T (d rows
-// of 128 kv' bytes, swizzled): kv' = 16 c + 4 t + i holds kv row
-// 16 c + {2t, 2t+1, 8+2t, 9+2t}[i]. Thread pt: d columns 4 dg .. 4 dg + 3
-// and one t.
+// The raw V tile (kv rows of HD d bytes, swizzled by TMA as HD / 128 boxes
+// of 128 d bytes, BKQ * 128 bytes apart) -> V^T (HD d rows of 128 kv' bytes,
+// swizzled): kv' = 16 c + 4 t + i holds kv row 16 c + {2t, 2t+1, 8+2t,
+// 9+2t}[i]. Thread pt: d columns 4 dg .. 4 dg + 3 of each box and one t.
+template <int HD>
 __device__ __forceinline__ void transpose_v(uint8_t* vt, const uint8_t* vr, int pt) {
   const int t = pt & 3, dg = pt >> 2;
   // A thread writes its 4 d rows starting at row `rot`, so that the rows
@@ -344,52 +393,61 @@ __device__ __forceinline__ void transpose_v(uint8_t* vt, const uint8_t* vr, int 
   // fall in 8 different swizzle phases: 32 stores on 32 banks.
   const int rot = (dg >> 1) & 3;
 #pragma unroll
-  for (int ch = 0; ch < BKQ / 16; ++ch) {
-    const int r0 = ch * 16 + 2 * t;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0, 4 * dg));
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 1, 4 * dg));
-    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 8, 4 * dg));
-    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vr + sw128_offset(r0 + 9, 4 * dg));
-    const uint32_t t01l = __byte_perm(w0, w1, 0x5140);
-    const uint32_t t23l = __byte_perm(w2, w3, 0x5140);
-    const uint32_t t01h = __byte_perm(w0, w1, 0x7362);
-    const uint32_t t23h = __byte_perm(w2, w3, 0x7362);
-    uint32_t o[4] = {__byte_perm(t01l, t23l, 0x5410), __byte_perm(t01l, t23l, 0x7632),
-                     __byte_perm(t01h, t23h, 0x5410), __byte_perm(t01h, t23h, 0x7632)};
-    if (rot & 1) {
-      const uint32_t x = o[0];
-      o[0] = o[1], o[1] = o[2], o[2] = o[3], o[3] = x;
-    }
-    if (rot & 2) {
-      uint32_t x = o[0];
-      o[0] = o[2], o[2] = x;
-      x = o[1];
-      o[1] = o[3], o[3] = x;
-    }
+  for (int bx = 0; bx < HD / SW_BYTES; ++bx) {
+    const uint8_t* vb = vr + bx * BKQ * SW_BYTES;
+    uint8_t* tb = vt + bx * SW_BYTES * SW_BYTES;  // V^T rows 128 bx ..
 #pragma unroll
-    for (int k = 0; k < 4; ++k)  // o[k] is d row 4 dg + (k + rot) % 4
-      *reinterpret_cast<uint32_t*>(vt + sw128_offset(4 * dg + ((k + rot) & 3), ch * 16 + 4 * t)) =
-          o[k];
+    for (int ch = 0; ch < BKQ / 16; ++ch) {
+      const int r0 = ch * 16 + 2 * t;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vb + sw128_offset(r0, 4 * dg));
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vb + sw128_offset(r0 + 1, 4 * dg));
+      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vb + sw128_offset(r0 + 8, 4 * dg));
+      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vb + sw128_offset(r0 + 9, 4 * dg));
+      const uint32_t t01l = __byte_perm(w0, w1, 0x5140);
+      const uint32_t t23l = __byte_perm(w2, w3, 0x5140);
+      const uint32_t t01h = __byte_perm(w0, w1, 0x7362);
+      const uint32_t t23h = __byte_perm(w2, w3, 0x7362);
+      uint32_t o[4] = {__byte_perm(t01l, t23l, 0x5410), __byte_perm(t01l, t23l, 0x7632),
+                       __byte_perm(t01h, t23h, 0x5410), __byte_perm(t01h, t23h, 0x7632)};
+      if (rot & 1) {
+        const uint32_t x = o[0];
+        o[0] = o[1], o[1] = o[2], o[2] = o[3], o[3] = x;
+      }
+      if (rot & 2) {
+        uint32_t x = o[0];
+        o[0] = o[2], o[2] = x;
+        x = o[1];
+        o[1] = o[3], o[3] = x;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // o[k] is d row 4 dg + (k + rot) % 4
+        *reinterpret_cast<uint32_t*>(tb + sw128_offset(4 * dg + ((k + rot) & 3),
+                                                       ch * 16 + 4 * t)) = o[k];
+    }
   }
 }
 
 // One 128-key group of int8_compute for this warpgroup's 64 rows: S =
 // Q K^T, the P quantization, the online merge and O = O alpha +
-// (P_i8 V_i8) w.
-__device__ __forceinline__ void attend_i8(RowState& st, unsigned q_addr, unsigned k_addr,
-                                          unsigned vt_addr, int row0, int kv0, bool masked,
-                                          const TileMath& tm, float c) {
+// (P_i8 V_i8) w. q_addr: its rows in the Q tile (box b b * q_box bytes on);
+// k_addr the K tile and vt_addr V^T, each HD / 128 boxes of 128 bytes a row.
+template <int HD>
+__device__ __forceinline__ void attend_i8(RowStateT<HD>& st, unsigned q_addr, int q_box,
+                                          unsigned k_addr, unsigned vt_addr, int row0, int kv0,
+                                          bool masked, const TileMath& tm, float c) {
   // The words 0x4B400000 + v are the fp32 values 1.5 * 2^23 + v for the
-  // integers |v| < 2^22 (|s| <= 127 * 127 * 128, 0 <= P <= 127): the exact
-  // conversions without the quarter-rate I2F and F2I.
+  // integers |v| < 2^22 (|s| <= 127 * 127 * 256 < 2^22 at d 256, 0 <= P <=
+  // 127, |P V| <= 127 * 127 * 128): the exact conversions without the
+  // quarter-rate I2F and F2I.
   constexpr int MAGIC_BITS = 0x4B400000;
   constexpr float MAGIC = 12582912.0f;
   const int q = threadIdx.x & 3;
   int si[BKQ / 2];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk)
-    wgmma_ss_s8_n128(si, sw128_desc(q_addr + kk * 32), sw128_desc(k_addr + kk * 32), kk > 0);
+  for (int kk = 0; kk < HD / 32; ++kk)
+    wgmma_ss_s8_n128(si, sw128_desc(q_addr + (kk >> 2) * q_box + (kk & 3) * 32),
+                     sw128_desc(k_addr + (kk >> 2) * BKQ * SW_BYTES + (kk & 3) * 32), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
 
@@ -454,29 +512,37 @@ __device__ __forceinline__ void attend_i8(RowState& st, unsigned q_addr, unsigne
     st.l[r] = st.l[r] * alpha[r] + static_cast<float>(lsum[r]) * w[r];
   }
 
-  // O = O alpha + (P_i8 V_i8) w.
-  int acc[D / 2];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BKQ / 32; ++kk)
-    wgmma_s8_n128(acc, pa[kk], sw128_desc(vt_addr + kk * 32), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  // acc w as (MAGIC + acc) w - MAGIC w: the rounding of MAGIC w moves each
-  // term by at most half a unit of acc, far below the bf16 output's.
+  // O = O alpha + (P_i8 V_i8) w, one 128-column half of O at a time (V^T's
+  // rows 128 h ..): each half's int32 accumulator is folded into O before
+  // the next is issued. acc w as (MAGIC + acc) w - MAGIC w: the rounding of
+  // MAGIC w moves each term by at most half a unit of acc, far below the
+  // bf16 output's.
   const float off[2] = {-MAGIC * w[0], -MAGIC * w[1]};
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) {
-    const int r = (j >> 1) & 1;
-    st.o[j] = fmaf(st.o[j], alpha[r], fmaf(__int_as_float(acc[j] + MAGIC_BITS), w[r], off[r]));
+  for (int h = 0; h < HD / 128; ++h) {
+    int acc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKQ / 32; ++kk)
+      wgmma_s8_n128(acc, pa[kk], sw128_desc(vt_addr + h * 128 * SW_BYTES + kk * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int r = (j >> 1) & 1;
+      st.o[64 * h + j] =
+          fmaf(st.o[64 * h + j], alpha[r], fmaf(__int_as_float(acc[j] + MAGIC_BITS), w[r], off[r]));
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+template <int HD>
+__global__ void __launch_bounds__(I8Tile<HD>::THREADS, 1)
 flash_quant_i8_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using T = I8Tile;
+  using T = I8Tile<HD>;
+  constexpr int BQ = T::BQ, BOXES = HD / SW_BYTES;  // 128-byte boxes of a row
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[T::SLOTS], empty[T::SLOTS],
       raw_full[T::RAW_SLOTS];
@@ -485,13 +551,13 @@ flash_quant_i8_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* raw = ring + T::SLOTS * T::SLOT;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const Cta cta(p);
+  const Cta<BQ, BKQ> cta(p);
 
   if (tid == 0) {
     mbar_init(&q_full, 1);
     for (int s = 0; s < T::SLOTS; ++s) {
       mbar_init(&full[s], 2);  // the K copy's arrival, then the transpose's
-      mbar_init(&empty[s], CONSUMER_ARRIVALS);
+      mbar_init(&empty[s], T::ARRIVALS);
     }
     for (int r = 0; r < T::RAW_SLOTS; ++r) mbar_init(&raw_full[r], 1);
     mbar_init_fence();
@@ -505,21 +571,30 @@ flash_quant_i8_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = j % T::SLOTS, r = j % T::RAW_SLOTS;
       const int kv0 = (cta.first + j) * BKQ;
       if (j >= T::SLOTS) mbar_wait(&empty[s], (j / T::SLOTS - 1) & 1);
-      mbar_arrive_expect_tx(&full[s], BKQ * D);
-      tma_load_4d(ring + s * T::SLOT, &tm_k, 0, kv0, cta.hk, cta.b, &full[s]);
+      mbar_arrive_expect_tx(&full[s], BKQ * HD);
+#pragma unroll
+      for (int bx = 0; bx < BOXES; ++bx)
+        tma_load_4d(ring + s * T::SLOT + bx * BKQ * SW_BYTES, &tm_k, bx * SW_BYTES, kv0, cta.hk,
+                    cta.b, &full[s]);
       mbar_arrive_expect_tx(&raw_full[r], T::RAW);
-      tma_load_4d(raw + r * T::RAW, &tm_v, 0, kv0, cta.hk, cta.b, &raw_full[r]);
+#pragma unroll
+      for (int bx = 0; bx < BOXES; ++bx)
+        tma_load_4d(raw + r * T::RAW + bx * BKQ * SW_BYTES, &tm_v, bx * SW_BYTES, kv0, cta.hk,
+                    cta.b, &raw_full[r]);
     };
     if (pt == 0) {
       mbar_arrive_expect_tx(&q_full, T::Q_BYTES);
-      tma_load_4d(q_s, &tm_q, 0, cta.q0, cta.h, cta.b, &q_full);
+#pragma unroll
+      for (int bx = 0; bx < BOXES; ++bx)
+        tma_load_4d(q_s + bx * BQ * SW_BYTES, &tm_q, bx * SW_BYTES, cta.q0, cta.h, cta.b,
+                    &q_full);
       for (int j = 0; j < T::RAW_SLOTS && j < cta.n; ++j) issue(j);
     }
     for (int i = 0; i < cta.n; ++i) {
       const int s = i % T::SLOTS, r = i % T::RAW_SLOTS;
       mbar_wait(&raw_full[r], (i / T::RAW_SLOTS) & 1);
       if (i >= T::SLOTS) mbar_wait(&empty[s], (i / T::SLOTS - 1) & 1);
-      transpose_v(ring + s * T::SLOT + BKQ * D, raw + r * T::RAW, pt);
+      transpose_v<HD>(ring + s * T::SLOT + BKQ * HD, raw + r * T::RAW, pt);
       fence_proxy_async();
       named_bar_sync(PRODUCER_BAR, 128);  // the raw slot is read, V^T written
       if (pt == 0) {
@@ -538,16 +613,16 @@ flash_quant_i8_kernel(const __grid_constant__ CUtensorMap tm_q,
   const RowGroup rg = cta.rows(p, cw);
   const int lane = tid & 31, wq = (tid >> 5) & 3;
   const int row0 = rg.q_min + wq * 16 + (lane >> 2);
-  const unsigned q_addr = smem_addr(q_s) + cw * WG_ROWS * 128;
+  const unsigned q_addr = smem_addr(q_s) + cw * WG_ROWS * SW_BYTES;
   const TileMath tm{p.causal, p.window, p.seq_kv, 0.f, 0.f};
-  RowState st;
+  RowStateT<HD> st;
   st.init();
   mbar_wait(&q_full, 0);
   walk_tiles<T::SLOTS>(rg, tm, BKQ, cta.first, cta.n, full, empty, [&](int i) {
     const unsigned k_addr = smem_addr(ring + (i % T::SLOTS) * T::SLOT);
     const int kv0 = (cta.first + i) * BKQ;
-    attend_i8(st, q_addr, k_addr, k_addr + BKQ * D, row0, kv0,
-              rg.needs_mask(p.causal, p.window, kv0, BKQ, p.seq_kv), tm, c);
+    attend_i8<HD>(st, q_addr, BQ * SW_BYTES, k_addr, k_addr + BKQ * HD, row0, kv0,
+                  rg.needs_mask(p.causal, p.window, kv0, BKQ, p.seq_kv), tm, c);
   });
   store_rows(st, cta.q0 + cw * WG_ROWS + wq * 16 + (lane >> 2), p.seq_q,
              p.o + cta.b * p.o_sb + cta.h * p.o_sh, p.o_ss, v_scale, -INFINITY, nullptr);
@@ -560,34 +635,43 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, const Maps& m, const Params& p, int batch,
-           cudaStream_t stream) {
+template <typename Tile, typename Kernel>
+int launch(Kernel kernel, const Maps& m, const Params& p, int batch, cudaStream_t stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.seq_q + BQ - 1) / BQ, p.heads, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(m.q, m.k, m.v, p);
+  dim3 grid((p.seq_q + Tile::BQ - 1) / Tile::BQ, p.heads, batch);
+  kernel<<<grid, Tile::THREADS, Tile::SMEM, stream>>>(m.q, m.k, m.v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QT>
+template <int QT, int HD>
 int launch_kv(int kv_mode, const Maps& m, const Params& p, int batch, cudaStream_t stream) {
   switch (kv_mode) {
     case KV_INT8:
-      return launch(flash_quant_kernel<QT, KV_INT8>, UpcastTile<QT, KV_INT8>::SMEM, m, p, batch,
-                    stream);
+      return launch<UpcastTile<QT, KV_INT8, HD>>(flash_quant_kernel<QT, KV_INT8, HD>, m, p,
+                                                 batch, stream);
     case KV_FP8:
-      return launch(flash_quant_kernel<QT, KV_FP8>, UpcastTile<QT, KV_FP8>::SMEM, m, p, batch,
-                    stream);
+      return launch<UpcastTile<QT, KV_FP8, HD>>(flash_quant_kernel<QT, KV_FP8, HD>, m, p,
+                                                batch, stream);
     case KV_INT4:
-      return launch(flash_quant_kernel<QT, KV_INT4>, UpcastTile<QT, KV_INT4>::SMEM, m, p, batch,
-                    stream);
+      return launch<UpcastTile<QT, KV_INT4, HD>>(flash_quant_kernel<QT, KV_INT4, HD>, m, p,
+                                                 batch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
+
+// The head width this library is built for: 128 here, 256 in
+// flash_quant_d256.cu, which defines it and includes this file. Each width
+// is a library of its own, so that nvcc optimizes the helpers the two share
+// for one width at a time (the d-128 kernels compile as they did alone; the
+// backward's d-128 kernel gained registers when both widths shared a file:
+// flash_backward.cu).
+#ifndef QUANT_HD
+#define QUANT_HD 128
+#endif
 
 extern "C" {
 
@@ -595,12 +679,12 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (b, heads, seq_q, 128): bf16 (q_type 0), int8 (1) or fp8 e4m3 (2);
-// k/v (b, kv_heads, seq_kv, 128) int8 (kv_mode 1) or fp8 (2), or
-// (b, kv_heads, seq_kv, 64) packed int4 (3); q/k/v strides in bytes
-// (multiples of 16, d contiguous, bases 16-byte aligned). qs (b, heads)
-// fp32 (read for q_type 1, 2), ks/vs (b, kv_heads) fp32. o (b, heads,
-// seq_q, 128) bf16, element strides. int8c (q_type 1, kv_mode 1 only): both
+// q (b, heads, seq_q, d): bf16 (q_type 0), int8 (1) or fp8 e4m3 (2); k/v
+// (b, kv_heads, seq_kv, d) int8 (kv_mode 1) or fp8 (2), or (b, kv_heads,
+// seq_kv, d / 2) packed int4 (3); d = d_head = QUANT_HD; q/k/v strides in
+// bytes (multiples of 16, d contiguous, bases 16-byte aligned). qs (b,
+// heads) fp32 (read for q_type 1, 2), ks/vs (b, kv_heads) fp32. o (b, heads,
+// seq_q, d) bf16, element strides. int8c (q_type 1, kv_mode 1 only): both
 // products in int8. seq_q and seq_kv are multiples of 128. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels
 // do not take or a tensor map that cannot be encoded.
@@ -612,8 +696,9 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
                    long long o_sb, long long o_sh, long long o_ss,
                    int batch, int heads, int kv_heads, int seq_q, int seq_kv,
                    int q_type, int kv_mode, int int8c, int causal, int window,
-                   float scale, float softcap, void* stream) {
-  if (seq_q % BKQ || seq_kv % BKQ || q_type < Q_BF16 || q_type > Q_FP8 ||
+                   float scale, float softcap, int d_head, void* stream) {
+  constexpr int HD = QUANT_HD;
+  if (d_head != HD || seq_q % BKQ || seq_kv % BKQ || q_type < Q_BF16 || q_type > Q_FP8 ||
       kv_mode < KV_INT8 || kv_mode > KV_INT4 || (int8c && (q_type != Q_INT8 || kv_mode != KV_INT8)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -631,30 +716,34 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
   p.window = window;
   p.scale = scale;
   p.softcap = softcap;
-  // Q: bf16 as two swizzled 64-column boxes, or its raw bytes (swizzled
-  // as int8c's wgmma reads them, plain for the upcast). K/V: raw rows,
-  // swizzled for int8c (K feeds wgmma, V the transpose), plain for the
-  // upcast.
+  // Q: bf16 as swizzled 64-column boxes, or its raw bytes (swizzled boxes
+  // of 128 bytes as int8c's wgmma reads them, one plain box a row for the
+  // upcast). K/V: raw rows, swizzled 128-byte boxes for int8c (K feeds
+  // wgmma, V the transpose), one plain box a row for the upcast. Box rows:
+  // the CTA's Q rows and the kernel's keys a tile.
   const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const int kv_row = row_bytes(kv_mode);
+  const int kv_row = row_bytes(kv_mode, HD);
+  const int q_rows = CtaShape<HD>::BQ;
+  const int kv_rows = int8c ? BKQ : UpcastTile<Q_BF16, KV_INT8, HD>::BK;
   Maps m;
   const bool q_ok =
       q_type == Q_BF16
-          ? encode_bhsd(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, heads, seq_q, D, q_sb,
-                        q_sh, q_ss, BQ, BOX_COLS, true)
-          : encode_bhsd(&m.q, u8, q, batch, heads, seq_q, D, q_sb, q_sh, q_ss, BQ, D, int8c);
+          ? encode_bhsd(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, heads, seq_q, HD, q_sb,
+                        q_sh, q_ss, q_rows, BOX_COLS, true)
+          : encode_bhsd(&m.q, u8, q, batch, heads, seq_q, HD, q_sb, q_sh, q_ss, q_rows,
+                        int8c ? SW_BYTES : HD, int8c);
   if (!q_ok ||
-      !encode_bhsd(&m.k, u8, k, batch, kv_heads, seq_kv, kv_row, k_sb, k_sh, k_ss, BKQ, kv_row,
-                   int8c) ||
-      !encode_bhsd(&m.v, u8, v, batch, kv_heads, seq_kv, kv_row, v_sb, v_sh, v_ss, BKQ, kv_row,
-                   int8c))
+      !encode_bhsd(&m.k, u8, k, batch, kv_heads, seq_kv, kv_row, k_sb, k_sh, k_ss, kv_rows,
+                   int8c ? SW_BYTES : kv_row, int8c) ||
+      !encode_bhsd(&m.v, u8, v, batch, kv_heads, seq_kv, kv_row, v_sb, v_sh, v_ss, kv_rows,
+                   int8c ? SW_BYTES : kv_row, int8c))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8c) return launch(flash_quant_i8_kernel, I8Tile::SMEM, m, p, batch, s);
+  if (int8c) return launch<I8Tile<HD>>(flash_quant_i8_kernel<HD>, m, p, batch, s);
   switch (q_type) {
-    case Q_BF16: return launch_kv<Q_BF16>(kv_mode, m, p, batch, s);
-    case Q_INT8: return launch_kv<Q_INT8>(kv_mode, m, p, batch, s);
-    default: return launch_kv<Q_FP8>(kv_mode, m, p, batch, s);
+    case Q_BF16: return launch_kv<Q_BF16, HD>(kv_mode, m, p, batch, s);
+    case Q_INT8: return launch_kv<Q_INT8, HD>(kv_mode, m, p, batch, s);
+    default: return launch_kv<Q_FP8, HD>(kv_mode, m, p, batch, s);
   }
 }
 

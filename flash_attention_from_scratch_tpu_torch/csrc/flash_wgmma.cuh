@@ -1,10 +1,10 @@
-// The attention main loop for Hopper, shared by K1 (flash_forward.cu, head
-// width 128 or 256), K11 (flash_forward_fori.cu) and K10's bf16 upcast
-// modes (flash_quant.cu); K10's int8-compute kernel shares its CTA, walk,
+// The attention main loop for Hopper, shared by K1 (flash_forward.cu), K11
+// (flash_forward_fori.cu) and K10's bf16 upcast modes (flash_quant.cu), each
+// at head width 128 or 256; K10's int8-compute kernel shares its CTA, walk,
 // masks and finalisation, and the backward (flash_backward.cu) its walk,
 // masks and tile products. The head width HD is a template parameter of
 // the tile products, the row state, the consumer's walk and the
-// finalisation; it defaults to D = 128, the width of every kernel but K1.
+// finalisation; it defaults to D = 128.
 //
 // A CTA is one producer warpgroup and two consumer warpgroups of 64 Q rows
 // each, BQ = 128 Q rows of one (Q head, batch). The producer fills a ring of
@@ -27,9 +27,9 @@
 //
 // At HD 256 a 64 x 256 fp32 O accumulator is 128 registers a consumer
 // thread, which a CTA of more than 8 warps (at most 168 registers a thread)
-// cannot hold beside S and P: K1's d-256 CTA has one consumer warpgroup
-// (flash_forward.cu), and O += P V is two m64n128 products a k step, one
-// per 128-column half of V and O.
+// cannot hold beside S and P: the d-256 CTAs of K1, K10 and K11 have one
+// consumer warpgroup (CtaShape<256>), and O += P V is two m64n128 products
+// a k step, one per 128-column half of V and O.
 
 #pragma once
 
@@ -48,6 +48,19 @@ constexpr int ALIGN_SLACK = 1024;            // swizzled tiles start 1024-aligne
 constexpr int CONSUMER_ARRIVALS = CONSUMER_WGS * 4;  // one per consumer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_VALUE = -1e30f;  // finite, as in the JAX kernels
+
+// The CTA of K10 and K11 at head width HD: a producer warpgroup and
+// CONSUMERS consumer warpgroups of 64 Q rows, two at HD 128 (the CTA
+// above), one at 256.
+template <int HD>
+struct CtaShape {
+  static_assert(HD == 128 || HD == 256, "head widths 128 and 256");
+  static constexpr int CONSUMERS = HD == 128 ? CONSUMER_WGS : 1;
+  static constexpr int BQ = CONSUMERS * WG_ROWS;         // Q rows per CTA
+  static constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+  static constexpr int ARRIVALS = CONSUMERS * 4;         // one per consumer warp
+  static constexpr int BOXES = HD / BOX_COLS;            // 64-column boxes of a bf16 tile
+};
 
 // Bytes of a bf16 (rows x d) tile, and of one of its 64-column boxes.
 __host__ __device__ constexpr int bf16_tile_bytes(int rows, int d = D) { return rows * d * 2; }
@@ -150,8 +163,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Issue S = Q K^T for this warpgroup's 64 rows and the tile's BK keys
-// (committed as one wgmma group, not waited on; the first k step
+// Issue S = Q K^T for this warpgroup's 64 rows and the tile's BK keys (128,
+// 64 or 32; committed as one wgmma group, not waited on; the first k step
 // overwrites S): q_addr its rows in the Q tile (box 0; box b b * q_box
 // bytes on), k_addr the K tile (BK rows; box b b * BK * 128 bytes on), HD
 // columns each.
@@ -164,7 +177,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], unsigned q_addr, in
     const uint64_t da = sw128_desc(q_addr + (kk >> 2) * q_box + (kk & 3) * 32);
     const uint64_t db = sw128_desc(k_addr + (kk >> 2) * bf16_box_bytes(BK) + (kk & 3) * 32);
     if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
-    else wgmma_ss_n64(s, da, db, kk > 0);
+    else if constexpr (BK == 64) wgmma_ss_n64(s, da, db, kk > 0);
+    else wgmma_ss_n32(s, da, db, kk > 0);
   }
   wgmma_commit();
 }

@@ -24,7 +24,7 @@ import torch
 
 from .configs import KernelConfig
 
-__all__ = ["causal_forward_banded", "band_count"]
+__all__ = ["causal_forward_banded", "band_count", "band_slices"]
 
 
 def band_count(seq: int, band_rows: int = 512) -> int:
@@ -39,6 +39,23 @@ def band_count(seq: int, band_rows: int = 512) -> int:
     while seq % n:
         n -= 1
     return n
+
+
+def band_slices(seq: int, q_offset: int, window: int, n: int) -> list[tuple[int, int]]:
+    """(first row, KV slice start) of each of ``n`` bands of ``seq // n``
+    rows: band i sees the keys [start, q_offset + (i + 1) * rows), the start
+    moved down from the window's lower edge for its first row so that the
+    slice's width is a multiple of 128, as in JAX (0 without a window)."""
+    rows = seq // n
+    out = []
+    for i in range(n):
+        width_end = q_offset + (i + 1) * rows
+        kv_start = 0
+        if window:
+            lo = max(0, q_offset + i * rows - window + 1)
+            kv_start = max(0, width_end - -(-(width_end - lo) // 128) * 128)
+        out.append((i * rows, kv_start))
+    return out
 
 
 def _band_hints(cfg: KernelConfig, rows: int, width: int, band_rules):
@@ -109,17 +126,13 @@ def causal_forward_banded(q, k, v, cfg: KernelConfig, *, scale: float | None = N
             f"{SEQ_QUANTUM} (the K1 tile)")
     rows = seq // n
     outs, lses = [], []
-    for i in range(n):
-        width_end = base + (i + 1) * rows
-        kv_start = 0
-        if cfg.window:
-            lo = max(0, base + i * rows - cfg.window + 1)
-            kv_start = max(0, width_end - -(-(width_end - lo) // 128) * 128)
+    for row0, kv_start in band_slices(seq, base, cfg.window, n):
+        width_end = base + row0 + rows
         band_cfg = dataclasses.replace(
-            cfg, q_offset=base + i * rows - kv_start, decompose=False,
+            cfg, q_offset=base + row0 - kv_start, decompose=False,
             **_band_hints(cfg, rows, width_end - kv_start, band_rules))
         o, lse = flash_forward_with_lse(
-            q[:, :, i * rows:(i + 1) * rows], k[:, :, kv_start:width_end],
+            q[:, :, row0:row0 + rows], k[:, :, kv_start:width_end],
             v[:, :, kv_start:width_end], band_cfg, scale=scale)
         outs.append(o)
         lses.append(lse)

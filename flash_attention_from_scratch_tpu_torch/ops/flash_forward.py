@@ -6,12 +6,14 @@ Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_forward.py``
 launches ``csrc/flash_forward.cu`` (K1: persistent CTAs over a work list of
 (Q tile, head, batch) items, heaviest first; its launch is
 :func:`grid_plan`), or ``csrc/flash_forward_fori.cu`` (K11, the K/V copy
-ring of ``num_kv_buffers`` slots; its launch is :func:`fori_plan`) when
-``cfg.kv_loop`` is ``KVLoop.FORI``; for a CPU tensor it runs the plain
-version, :func:`flash_forward_plain`, the same function for both. The JAX
-package's row-band causal dispatch (``ops/causal_decomp.py``) has no
-counterpart: its output is that of a causal kernel that skips the tiles
-above the diagonal, which both kernels do.
+ring of ``num_kv_buffers`` slots; its launch is :func:`fori_plan`; at d 256
+the library ``csrc/flash_forward_fori_d256.cu`` builds) when
+``cfg.kv_loop`` is ``KVLoop.FORI``; both take d 128 and 256. For a CPU
+tensor it runs the plain version, :func:`flash_forward_plain`, the same
+function for both. The JAX package's row-band causal dispatch
+(``ops/causal_decomp.py``) has no counterpart: its output is that of a
+causal kernel that skips the tiles above the diagonal, which both kernels
+do.
 """
 
 from __future__ import annotations
@@ -29,20 +31,22 @@ from ..utils.device import resolve_device, sm_count
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
            "make_flash_forward", "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL",
-           "KERNEL_FORI",
-           "SEQ_QUANTUM", "D_HEAD", "D_HEADS"]
+           "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD", "D_HEADS", "FORI_TILES"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
 KERNEL_FORI = "flash_forward_fori"
-SOURCE_FORI = "flash_forward_fori.cu"
+# K11: one library a head width; csrc/flash_forward_fori_d256.cu builds
+# flash_forward_fori.cu's kernels at d 256 (FORI_HD there).
+SOURCES_FORI = {128: "flash_forward_fori.cu", 256: "flash_forward_fori_d256.cu"}
+SOURCE_FORI = SOURCES_FORI[128]
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
-D_HEAD = 128      # the head width of K11 (and of K10)
-D_HEADS = (128, 256)  # the head widths K1, K2 and K3 take (their HD template argument)
+D_HEAD = 128      # the narrowest head width; the plain versions take its multiples
+D_HEADS = (128, 256)  # the head widths every attention kernel takes (its HD template argument)
 
-# The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh), which K1,
-# K11 and K10 share: a producer warpgroup and two consumer warpgroups of 64 Q
-# rows each.
+# The CTA of the wgmma attention main loop (csrc/flash_wgmma.cuh) at d 128,
+# which K1, K11 and K10 share: a producer warpgroup and two consumer
+# warpgroups of 64 Q rows each (one at d 256: ``CtaShape<HD>``).
 WG_ROWS = 64
 CONSUMER_WGS = 2
 TILE_ROWS = CONSUMER_WGS * WG_ROWS   # Q rows per CTA
@@ -73,17 +77,32 @@ def bf16_tile_bytes(rows: int, d_head: int = D_HEAD) -> int:
     return rows * d_head * 2
 
 
+# K11's CTA and slots (``ForiTile<NB, HD>`` in csrc/flash_forward_fori.cu)
+# per head width: (consumer warpgroups of 64 Q rows, keys a slot at depths
+# 1-3; depth 4 halves the slot). d 128: two consumer warpgroups, 128-key
+# slots; d 256: one consumer warpgroup (its 64 x 256 fp32 O is 128
+# registers a thread), 64-key slots (32 at depth 4, whose four 64-key slots
+# do not fit).
+FORI_TILES = {128: (2, 128), 256: (1, 64)}
+
+
 def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
-              seq_kv: int) -> TilePlan:
-    """K11's launch (``ForiTile<NB>`` in ``csrc/flash_forward_fori.cu``): a
-    ring of ``num_kv_buffers`` slots of BK keys (the K tile, then the V tile,
-    bf16), BK 128 at depths 1-3 and 64 at depth 4, beside the bf16 Q tile."""
-    keys = 64 if num_kv_buffers == 4 else 128
+              seq_kv: int, d_head: int = D_HEAD) -> TilePlan:
+    """K11's launch (``ForiTile<NB, HD>`` in ``csrc/flash_forward_fori.cu``)
+    at head width ``d_head`` (128 or 256): a ring of ``num_kv_buffers``
+    slots of BK keys (the K tile, then the V tile, bf16) beside the bf16 Q
+    tile, BK from :data:`FORI_TILES`, halved at depth 4."""
+    if d_head not in FORI_TILES:
+        raise ValueError(f"K11 takes head widths {D_HEADS}, got {d_head}")
+    consumers, keys = FORI_TILES[d_head]
+    keys //= 2 if num_kv_buffers == 4 else 1
+    rows = consumers * WG_ROWS
     return TilePlan(
-        rows=TILE_ROWS, keys=keys, slots=num_kv_buffers,
-        smem=(bf16_tile_bytes(TILE_ROWS) + num_kv_buffers * 2 * bf16_tile_bytes(keys)
-              + ALIGN_SLACK),
-        grid=(-(-seq_q // TILE_ROWS), heads, batch), kv_tiles=-(-seq_kv // keys))
+        rows=rows, keys=keys, slots=num_kv_buffers,
+        smem=(bf16_tile_bytes(rows, d_head)
+              + num_kv_buffers * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
+        grid=(-(-seq_q // rows), heads, batch), kv_tiles=-(-seq_kv // keys),
+        threads=(consumers + 1) * 128)
 
 
 # K1's CTA and ring (``GridTile<HD>`` in csrc/flash_forward.cu) per head
@@ -239,10 +258,10 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _fori_lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE_FORI)
+def _fori_lib(d_head: int) -> ctypes.CDLL:
+    lib = _build.load(SOURCES_FORI[d_head])
     lib.fa_flash_forward_fori.restype = _I32
-    lib.fa_flash_forward_fori.argtypes = _ARGTYPES + [_I32, _PTR]
+    lib.fa_flash_forward_fori.argtypes = _ARGTYPES + [_I32, _I32, _PTR]
     return lib
 
 
@@ -265,12 +284,10 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
                          "(fp16/fp32: ROADMAP Queue 2, K1)")
     d_head = q.shape[3]
     fori = cfg.kv_loop == KVLoop.FORI
-    if fori and d_head != D_HEAD:
-        raise ValueError(f"K11's tiles are {D_HEAD} wide, got d_head {d_head} (d 256 "
-                         "on K11: ROADMAP Queue 2, coverage item 1)")
     if d_head not in D_HEADS:
-        raise ValueError(f"K1's tiles are {' or '.join(map(str, D_HEADS))} wide, got d_head "
-                         f"{d_head} (other widths: ROADMAP Queue 2, coverage item 1)")
+        raise ValueError(f"{'K11' if fori else 'K1'}'s tiles are "
+                         f"{' or '.join(map(str, D_HEADS))} wide, got d_head {d_head} "
+                         "(other widths: ROADMAP Queue 2, coverage item 1)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
@@ -289,9 +306,9 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
             float(cfg.softmax_scale), float(cfg.attn_softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if fori:
-        check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv))
-        lib, name = _fori_lib(), KERNEL_FORI
-        rc = lib.fa_flash_forward_fori(*args, cfg.num_kv_buffers, stream)
+        check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv, d_head))
+        lib, name = _fori_lib(d_head), KERNEL_FORI
+        rc = lib.fa_flash_forward_fori(*args, d_head, cfg.num_kv_buffers, stream)
     else:
         if ctas is None:
             ctas = grid_plan(b, h, sq, skv, cfg.causal, cfg.window, cfg.q_offset,

@@ -7,10 +7,12 @@ tensor in ``cfg.dtype`` or an int8 / fp8 :class:`QTensor`. The K scale (and
 Q's) folds into the softmax scale and the V scale into the output
 normalization, so no dequantized K/V is written. ``int8_compute`` runs both
 products in int8 with P quantized at the constant 127 per group of
-``I8_P_GROUP`` KV columns. For a CUDA tensor the wrapper launches
-``csrc/flash_quant.cu`` (on the wgmma + TMA main loop of
-``csrc/flash_wgmma.cuh``; its launch is :func:`plan`); for a CPU tensor it
-runs the plain version, :func:`flash_forward_quantized_plain`.
+``I8_P_GROUP`` KV columns. For a CUDA tensor at head width 128 or 256 the
+wrapper launches ``csrc/flash_quant.cu`` (on the wgmma + TMA main loop of
+``csrc/flash_wgmma.cuh``; at d 256 the library
+``csrc/flash_quant_d256.cu`` builds; its launch is :func:`plan`); for a CPU
+tensor it runs the plain version, :func:`flash_forward_quantized_plain`,
+which takes any head width that is a multiple of 128.
 
 Two behaviours of the JAX kernel are refused instead of copied: it ignores
 ``cfg.q_offset`` (its causal mask is top-left aligned whatever the offset)
@@ -27,18 +29,29 @@ import torch
 
 from . import _build
 from .configs import DType, KernelConfig
-from .flash_forward import ALIGN_SLACK, TILE_ROWS, TilePlan, bf16_tile_bytes, check_grid
+from .flash_forward import (
+    ALIGN_SLACK, D_HEAD, D_HEADS, WG_ROWS, TilePlan, bf16_tile_bytes, check_grid,
+)
 from .quant import QTensor, unpack_int4
 from .reference import MASK_VALUE, reference_attention
 
 __all__ = ["flash_forward_quantized", "flash_forward_quantized_plain", "plan", "KERNEL",
-           "SEQ_QUANTUM", "I8_P_GROUP"]
+           "SEQ_QUANTUM", "I8_P_GROUP", "D_HEADS", "QUANT_TILES"]
 
 KERNEL = "flash_quant"
-SOURCE = "flash_quant.cu"
-SEQ_QUANTUM = 128  # seq_q and seq_kv must be multiples (the KV tile)
+# One library a head width: csrc/flash_quant_d256.cu builds flash_quant.cu's
+# kernels at d 256 (QUANT_HD there).
+SOURCES = {128: "flash_quant.cu", 256: "flash_quant_d256.cu"}
+SOURCE = SOURCES[128]
+SEQ_QUANTUM = 128  # seq_q and seq_kv must be multiples (d 128's KV tile; the P group)
 I8_P_GROUP = 128   # KV columns that share one P quantization max (int8_compute)
-D_HEAD = 128
+# The kernels' CTA and tiles per head width (``UpcastTile<QT, KV, HD>`` and
+# ``I8Tile<HD>`` in csrc/flash_quant.cu): (consumer warpgroups of 64 Q rows,
+# keys a tile of the upcast modes, int8_compute's K + V^T slots). d 128: two
+# consumer warpgroups, 128-key tiles, 4 slots; d 256: one consumer
+# warpgroup (its 64 x 256 fp32 O is 128 registers a thread), 64-key tiles,
+# 2 slots. int8_compute's tiles are I8_P_GROUP keys at both widths.
+QUANT_TILES = {128: (2, 128, 4), 256: (1, 64, 2)}
 LOG2E = math.log2(math.e)
 
 # The kernel's codes for Q's type and the K/V mode; the stored dtype of each.
@@ -68,7 +81,8 @@ def _attend_i8(q, k, v, c, v_scale, cfg: KernelConfig):
     (h, skv, d) integer-valued fp32; c and v_scale (h,) fp32.
 
     Integer products of int8 values sum exactly in fp32 here (|sum| <=
-    127 * 127 * 128 < 2^24), as in the kernel's int32 accumulators.
+    127 * 127 * 256 < 2^24 at d 256; P V's 127 * 127 * 128 a group), as in
+    the kernel's int32 accumulators.
     """
     s = torch.matmul(q, k.transpose(-1, -2))
     if cfg.causal:
@@ -127,11 +141,11 @@ def flash_forward_quantized_plain(q, k: QTensor, v: QTensor, cfg: KernelConfig, 
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib(d_head: int) -> ctypes.CDLL:
+    lib = _build.load(SOURCES[d_head])
     lib.fa_flash_quant.restype = _I32
     lib.fa_flash_quant.argtypes = ([_PTR] * 7 + [_I64] * 12 + [_I32] * 10
-                                   + [_F32, _F32, _PTR])
+                                   + [_F32, _F32, _I32, _PTR])
     return lib
 
 
@@ -140,26 +154,30 @@ def _byte_strides(x):
 
 
 def plan(kv_mode: str, int8_compute: bool, batch: int, heads: int, seq_q: int,
-         seq_kv: int) -> TilePlan:
+         seq_kv: int, d_head: int = D_HEAD) -> TilePlan:
     """K10's launch on the wgmma main loop (``UpcastTile`` and ``I8Tile`` in
-    ``csrc/flash_quant.cu``), tiles of SEQ_QUANTUM keys. Upcast modes: the
-    bf16 Q tile, two bf16 K/V slots and two raw K/V slots (a quantized Q's
-    raw bytes pass through the second before its first tile).
-    ``int8_compute``: the int8 Q tile, four slots of the int8 K tile and the
-    transposed V tile, and two raw V slots."""
-    keys = SEQ_QUANTUM
+    ``csrc/flash_quant.cu``) at head width ``d_head`` (128 or 256), from
+    :data:`QUANT_TILES`. Upcast modes: the bf16 Q tile, two bf16 K/V slots
+    and two raw K/V slots (a quantized Q's raw bytes pass through the second
+    before its first tile). ``int8_compute``: the int8 Q tile, slots of the
+    int8 K tile and the transposed V tile (I8_P_GROUP keys), and two raw V
+    slots."""
+    if d_head not in QUANT_TILES:
+        raise ValueError(f"K10 takes head widths {D_HEADS}, got {d_head}")
+    consumers, keys, i8_slots = QUANT_TILES[d_head]
+    rows = consumers * WG_ROWS
     if int8_compute:
-        slots = 4
-        smem = (TILE_ROWS * D_HEAD + slots * 2 * keys * D_HEAD + 2 * keys * D_HEAD
+        keys, slots = I8_P_GROUP, i8_slots
+        smem = (rows * d_head + slots * 2 * keys * d_head + 2 * keys * d_head
                 + ALIGN_SLACK)
     else:
         slots = 2
-        row = D_HEAD // 2 if kv_mode == "int4" else D_HEAD
-        smem = (bf16_tile_bytes(TILE_ROWS) + slots * 2 * bf16_tile_bytes(keys)
+        row = d_head // 2 if kv_mode == "int4" else d_head
+        smem = (bf16_tile_bytes(rows, d_head) + slots * 2 * bf16_tile_bytes(keys, d_head)
                 + 2 * (2 * keys * row) + ALIGN_SLACK)
-    return TilePlan(rows=TILE_ROWS, keys=keys, slots=slots, smem=smem,
-                    grid=(-(-seq_q // TILE_ROWS), heads, batch),
-                    kv_tiles=-(-seq_kv // keys))
+    return TilePlan(rows=rows, keys=keys, slots=slots, smem=smem,
+                    grid=(-(-seq_q // rows), heads, batch),
+                    kv_tiles=-(-seq_kv // keys), threads=(consumers + 1) * 128)
 
 
 def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
@@ -169,10 +187,11 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
     if not q_quant and q_vals.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes a bf16 or quantized Q, got "
                          f"{q_vals.dtype} (ROADMAP Queue 2, K10)")
-    if q_vals.shape[3] != D_HEAD:
-        raise ValueError(f"the CUDA kernel's tiles are {D_HEAD} wide, got d_head "
-                         f"{q_vals.shape[3]} (d 256 on K10: ROADMAP Queue 2, coverage "
-                         "item 1)")
+    d_head = q_vals.shape[3]
+    if d_head not in D_HEADS:
+        raise ValueError(f"the CUDA kernel's tiles are {' or '.join(map(str, D_HEADS))} "
+                         f"wide, got d_head {d_head} (other widths: ROADMAP Queue 2, "
+                         "coverage item 1)")
     for name, t in (("q", q_vals), ("k", k.values), ("v", v.values)):
         if (t.stride(3) != 1 or t.data_ptr() % 16
                 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
@@ -180,12 +199,12 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
                              f"rows; strides {t.stride()}")
     b, h, sq, _ = q_vals.shape
     kvh, skv = k.values.shape[1], k.seq_len
-    check_grid(plan(k.mode, int8_compute, b, h, sq, skv))
+    check_grid(plan(k.mode, int8_compute, b, h, sq, skv, d_head))
     out = torch.empty_like(q_vals, dtype=torch.bfloat16)  # keeps q's strides
     f32 = dict(device=q_vals.device, dtype=torch.float32)
     ks, vs = k.scales.to(**f32).contiguous(), v.scales.to(**f32).contiguous()
     qs = q.scales.to(**f32).contiguous() if q_quant else None
-    lib = _lib()
+    lib = _lib(d_head)
     rc = lib.fa_flash_quant(
         q_vals.data_ptr(), k.values.data_ptr(), v.values.data_ptr(), out.data_ptr(),
         qs.data_ptr() if qs is not None else None, ks.data_ptr(), vs.data_ptr(),
@@ -193,7 +212,8 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
         *[_I64(s) for s in out.stride()[:3]],
         b, h, kvh, sq, skv, _Q_TYPES[q.mode if q_quant else "bf16"], _KV_MODES[k.mode],
         int(int8_compute), int(cfg.causal), cfg.window, float(scale),
-        float(cfg.attn_softcap), torch.cuda.current_stream(q_vals.device).cuda_stream)
+        float(cfg.attn_softcap), d_head,
+        torch.cuda.current_stream(q_vals.device).cuda_stream)
     _build.check(lib, rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
     return out

@@ -37,7 +37,8 @@ from ..ops.reference import reference_attention
 from ..utils.chip import device_kind, measured_matmul_tflops
 from ..utils.device import resolve_device
 from ..utils.testing import (
-    BATCH_SIZE_FOR_SEQ_LEN, BENCHMARK_N_HEADS, adaptive_tolerance_check, make_qkv,
+    BATCH_SIZE_FOR_SEQ_LEN, BENCHMARK_N_HEADS, adaptive_tolerance_check, generate_qkv,
+    make_qkv,
 )
 
 __all__ = ["VARIANTS", "CHECK_VARIANTS", "DEFAULT_SEQ_LENS", "bench_inputs",
@@ -84,11 +85,10 @@ def quantize_inputs(q, k, v, variant: str):
 
 def bench_inputs(seq: int, heads: int = BENCHMARK_N_HEADS, device="cuda"):
     """The bf16 Q, K, V (b, heads, seq, 128) that :func:`bench_quant` times
-    at ``seq``: batch from ``BATCH_SIZE_FOR_SEQ_LEN``, ``make_qkv``'s seed."""
-    dev = resolve_device(device)
-    batch = BATCH_SIZE_FOR_SEQ_LEN.get(seq, 4)
-    return tuple(torch.from_numpy(x).to(dev, torch.bfloat16)
-                 for x in make_qkv(batch, heads, seq))
+    at ``seq``, as the JAX tool makes them: ``generate_qkv`` (batch from
+    ``BATCH_SIZE_FOR_SEQ_LEN``; drawn on ``device``)."""
+    return generate_qkv(seq, n_heads=heads, batch=BATCH_SIZE_FOR_SEQ_LEN.get(seq, 4),
+                        device=device)
 
 
 def bench_quant(seq_lens, heads: int = BENCHMARK_N_HEADS, variants=None,

@@ -3,8 +3,11 @@
 ``tools/bench_quant.py``'s numerics check runs the plain version of K10 on
 the CPU and must pass the adaptive 2x rule for every variant (the same rule
 the tool applies on the card). The timing paths measure the card only:
-without one they raise. Every tool's ``--help`` exits 0, and the JAX
-tool's options that drive the TPU alone exit with a pointer to ROADMAP.
+without one they raise. Every tool's ``--help`` exits 0.
+``bench_attention`` resolves ``--kernels``, ``--dtype``, ``--causal``,
+``--window`` and ``--fori`` to the configs the JAX tool's ``main`` builds
+from the same arguments, times ``--grad`` on JAX's FLOP model, and counts
+the bytes of the tiles the launched kernel copies.
 The serving tools: ``bench_decode``'s parameter counts equal the JAX
 tool's on the same parameters, and ``bench_serving``'s run function drains
 a tiny CPU run and prints every key of the JAX tool's JSON line.
@@ -19,9 +22,15 @@ import pytest
 import torch
 
 from flash_attention_from_scratch_tpu.models import llama as jax_llama
+from flash_attention_from_scratch_tpu.ops.configs import parse_short_form as jax_parse_short_form
+from flash_attention_from_scratch_tpu.tools import bench_attention as jax_bench_attention
 from flash_attention_from_scratch_tpu.tools import bench_decode as jax_bench_decode
 from flash_attention_from_scratch_tpu_torch import dispatch
 from flash_attention_from_scratch_tpu_torch.models import llama
+from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
+from flash_attention_from_scratch_tpu_torch.ops.configs import (
+    KernelConfig, KVLoop, parse_short_form,
+)
 from flash_attention_from_scratch_tpu_torch.tools import (
     bench_attention, bench_decode, bench_quant, bench_serving,
 )
@@ -59,14 +68,112 @@ def test_help_exits_zero(tool, capsys):
     assert "usage" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--kernels", "prog"], ["--host-timing"], ["--grad"]])
-def test_bench_attention_tpu_options_point_to_roadmap(flag):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bench_attention.main(flag)
+D256_FORMS = "fa_bf16_q128_kv128_d256_fori2_ca;fa_bf16_q128_kv128_d256_grid2_ca"
+
+
+def _jax_main_configs(monkeypatch, argv):
+    """The configs the JAX tool's ``main`` hands its ``bench`` for ``argv``
+    (its chip queries, timing and compile-cache settings stubbed out)."""
+    seen = []
+    monkeypatch.setattr(jax_bench_attention, "bench",
+                        lambda configs, *a, **kw: seen.extend(configs) or {})
+    for name, value in (("chip_sol_tflops", 1.0), ("measured_matmul_tflops", 1.0),
+                        ("device_kind", "cpu"), ("_git_commit", "none")):
+        monkeypatch.setattr(jax_bench_attention, name, lambda value=value: value)
+    no_cache = type("Config", (), {"update": staticmethod(lambda *a: None)})
+    monkeypatch.setattr(jax_bench_attention, "jax", type("Jax", (), {"config": no_cache}))
+    assert jax_bench_attention.main(argv) == 0
+    return [c.short_form() for c in seen]
+
+
+def _port_main_configs(monkeypatch, argv):
+    """The configs the port's ``main`` resolves for ``argv`` (``bench``
+    resolves them; its card queries stubbed out)."""
+    seen = []
+
+    def bench(seq_lens, **kw):
+        seen.extend(bench_attention.resolve_configs(
+            kw["kernels"], kw["dtype"], kw["causal"], kw["window"], kw["fori"],
+            kw["num_kv_buffers"]))
+        return {}
+
+    monkeypatch.setattr(bench_attention, "bench", bench)
+    for name, value in (("measured_matmul_tflops", 1.0), ("device_kind", "cpu"),
+                        ("_git_commit", "none"), ("resolve_device", None)):
+        monkeypatch.setattr(bench_attention, name, lambda *a, value=value: value)
+    assert bench_attention.main(argv) == 0
+    return [c.short_form() for c in seen]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kernels", "prog"], ["--kernels", D256_FORMS], ["--causal", "--fori"],
+    ["--kernels", "all", "--window", "300"], ["--kernels", "256,512", "--dtype", "f16"]],
+    ids=["prog", "d256-short-forms", "causal-fori", "all-window", "blocks-f16"])
+def test_bench_attention_resolves_configs_as_jax(monkeypatch, argv):
+    """``--kernels`` (with ``--dtype``), patched by ``--causal``,
+    ``--window`` and ``--fori``, gives the JAX tool's configs in its order,
+    by short form; the configs share few launches (``prog``'s 12 are 3)."""
+    want = _jax_main_configs(monkeypatch, argv)
+    got = _port_main_configs(monkeypatch, argv)
+    assert got == want
+    launches = {bench_attention.launch_key(parse_short_form(s)) for s in got}
+    if argv == ["--kernels", "prog"]:
+        assert len(got) == 12 and {k[0] for k in launches} == {
+            "flash_forward", "flash_forward_fori_nb1", "flash_forward_fori_nb2"}
+    if argv[-1] == D256_FORMS:
+        assert {k[:2] for k in launches} == {("flash_forward_fori_nb2", 256),
+                                             ("flash_forward", 256)}
+    if "--fori" in argv:
+        assert got and all(k[0].startswith("flash_forward_fori") for k in launches)
+    if "all" in argv:
+        assert len(got) > 100 and len(launches) <= 3
+
+
+@pytest.mark.parametrize("form", [
+    "fa_bf16_q128_kv128_d256_fori2_ca", "fa_bf16_q512_kv1024_d128_grid2_x2+os+cp",
+    "fa_bf16_q128_kv128_d128_grid2_x2+cp+ca+wi300"])
+def test_bench_attention_grad_flop_model_is_jax(form):
+    """``--grad``'s FLOP model is the JAX tool's: its forward model x3.5."""
+    cfg, jcfg = parse_short_form(form), jax_parse_short_form(form)
+    for seq, heads, batch in ((512, 16, 16), (4096, 16, 2)):
+        want = int(jax_bench_attention._flops(jcfg, seq, heads, batch) * 3.5)
+        assert int(bench_attention.flops(cfg, seq, heads, batch, grad=True)) == want
+        assert bench_attention.flops(cfg, seq, heads, batch) == jax_bench_attention._flops(
+            jcfg, seq, heads, batch)
+
+
+def test_bench_attention_bytes_count_the_launched_tiles():
+    """GB/s counts K and V once per tile the launched kernel copies: every
+    (Q tile, KV tile) pair without a mask (d 256's 64-row Q tiles copy K
+    and V twice as often as d 128's 128-row ones), the plan's causal walk
+    with one, K11's own slots (halved at depth 4)."""
+    b, h, s = 2, 4, 1024
+    for d, rows in ((128, 128), (256, 64)):
+        qo = 2 * b * h * s * d * 2
+        full = bench_attention._bytes(KernelConfig(d_head=d), b, h, s, 132)
+        assert full == qo + 2 * b * h * (s // rows) * s * d * 2
+        p = ff.grid_plan(b, h, s, s, True, 0, 0, 132, d)
+        tiles = sum(p.tiles(qt) for qt in range(p.q_tiles))
+        causal = bench_attention._bytes(KernelConfig(d_head=d, causal=True), b, h, s, 132)
+        assert causal == qo + 2 * b * h * tiles * p.keys * d * 2
+    for nbuf, keys in ((2, 128), (4, 64)):
+        cfg = KernelConfig(causal=True, kv_loop=KVLoop.FORI, num_kv_buffers=nbuf)
+        diag = sum(q0 // keys + 1 for q0 in range(127, s, 128))
+        assert bench_attention._bytes(cfg, b, h, s, 132) == (
+            2 * b * h * s * 128 * 2 + 2 * b * h * diag * keys * 128 * 2)
 
 
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("flag", [["--kernels", "prog"], ["--host-timing"], ["--grad"]])
+def test_bench_attention_options_need_a_card(monkeypatch, flag):
+    """The JAX tool's options run on the card: without one each raises the
+    missing-card error."""
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_attention.main(flag)
 
 
 def test_timing_raises_without_a_card(monkeypatch):

@@ -54,12 +54,12 @@ from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
     flash_backward_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
-    KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE as FLASH_SOURCE, SOURCE_FORI,
+    KERNEL as FLASH, KERNEL_FORI as FORI, SOURCE as FLASH_SOURCE, SOURCE_FORI, SOURCES_FORI,
     flash_forward_plain, flash_forward_with_lse,
 )
 from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
-    KERNEL as FLASH_QUANT, SOURCE as SOURCE_QUANT, flash_forward_quantized,
-    flash_forward_quantized_plain,
+    KERNEL as FLASH_QUANT, SOURCE as SOURCE_QUANT, SOURCES as SOURCES_QUANT,
+    flash_forward_quantized, flash_forward_quantized_plain,
 )
 from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
     KERNEL as PAGED, KERNEL_MERGE, MODE_INT8C, MODES, SOURCE as PAGED_SOURCE, kernel_name,
@@ -172,6 +172,18 @@ def test_fori_kernel_matches_plain(cuda, sq, kw, nbuf):
     check_flash_kernel(cuda, sq, cfg, FORI, seq_kv=skv)
 
 
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+@pytest.mark.parametrize("sq,kw", FORI_CASES + [(256, dict(causal=True, strided=True))])
+def test_fori_kernel_d256_matches_plain(cuda, sq, kw, nbuf):
+    """K11 at head width 256 (its one-consumer-warpgroup CTA, 64-key slots,
+    32-key slots at depth 4) at every ring depth, on K11's cases and a
+    strided one, with sinks and the LSE."""
+    kw = dict(kw)
+    skv, strided = kw.pop("seq_kv", 256), kw.pop("strided", False)
+    cfg = KernelConfig(d_head=256, kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
+    check_flash_kernel(cuda, sq, cfg, FORI, seq_kv=skv, strided=strided)
+
+
 def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256, strided=False):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
                make_qkv(2, 8, sq, cfg.d_head, kv_heads=2, seq_kv=seq_kv, seed=1))
@@ -234,7 +246,7 @@ def test_paged_kernel_matches_plain(cuda, heads, kv_heads):
 QUANT_VARIANTS = {**bench_quant.CHECK_VARIANTS, "fp8q_int4kv": ("int4", "fp8", False)}
 
 
-@pytest.mark.parametrize("variant,kw,strided", [
+QUANT_CASES = [
     *[(variant, dict(causal=causal), False) for variant in QUANT_VARIANTS
       for causal in (False, True)],
     ("int8c", dict(causal=True, window=200), False),
@@ -244,24 +256,42 @@ QUANT_VARIANTS = {**bench_quant.CHECK_VARIANTS, "fp8q_int4kv": ("int4", "fp8", F
     # s 640 (five 128-key groups, an odd count of 128-row Q tiles), causal,
     # 32 Q / 8 KV heads (``seq`` and ``heads`` are popped from the options).
     *[(variant, dict(causal=True, seq=640, heads=(32, 8)), False)
-      for variant in QUANT_VARIANTS]])
+      for variant in QUANT_VARIANTS]]
+
+
+@pytest.mark.parametrize("variant,kw,strided", QUANT_CASES)
 def test_flash_quant_kernel_matches_plain(cuda, variant, kw, strided):
     """K10 vs its plain version (b 2, 8 Q / 2 KV heads, s 384: three
     int8-compute groups, unless the case says otherwise): the adaptive rule
     per (batch, head, 64-row band) against the plain version and reference
     attention in fp32 on the inputs dequantized in fp32; ``strided`` hands
     Q over as a transposed view, whose strides the output keeps."""
+    check_quant_variant(cuda, variant, kw, strided, 128)
+
+
+@pytest.mark.parametrize("variant,kw,strided", QUANT_CASES + [
+    # Gemma-2's softcap on every upcast variant, with a window.
+    (variant, dict(causal=True, window=200, attn_softcap=50.0), False)
+    for variant in QUANT_VARIANTS if not QUANT_VARIANTS[variant][2]])
+def test_flash_quant_kernel_d256_matches_plain(cuda, variant, kw, strided):
+    """K10 at head width 256 (one consumer warpgroup of 64 Q rows, 64-key
+    upcast tiles, int8 compute's P V over V's two column halves) on the
+    cases of the test above and Gemma-2's softcap, by its rule."""
+    check_quant_variant(cuda, variant, kw, strided, 256)
+
+
+def check_quant_variant(cuda, variant, kw, strided, d_head):
     kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
     kw = dict(kw)
     seq, (heads, kv_heads) = kw.pop("seq", 384), kw.pop("heads", (8, 2))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
-               make_qkv(2, heads, seq, kv_heads=kv_heads, seed=8))
+               make_qkv(2, heads, seq, d_head, kv_heads=kv_heads, seed=8))
     qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
     if strided:
         rows = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
         qq = rows(qq) if q_kind == "bf16" else QTensor(rows(qq.values), qq.scales, q_kind)
     kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
-    check_flash_quant(qq, kq, vq, KernelConfig(**kw), i8c, (variant, kw))
+    check_flash_quant(qq, kq, vq, KernelConfig(d_head=d_head, **kw), i8c, (variant, kw))
 
 
 def check_flash_quant(qq, kq, vq, cfg, i8c, what):
@@ -272,7 +302,7 @@ def check_flash_quant(qq, kq, vq, cfg, i8c, what):
     assert _build.launch_counts[FLASH_QUANT] == before + 1
     q_vals = qq.values if isinstance(qq, QTensor) else qq
     assert out.dtype == torch.bfloat16 and out.stride() == q_vals.stride()
-    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=128 ** -0.5,
+    native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=cfg.softmax_scale,
                                            int8_compute=i8c)
 
     def fp32(x):
@@ -309,6 +339,24 @@ def test_int8c_kernel_pairs_p_with_its_v_rows(cuda, causal):
     assert float((out.float().sum(-1) - 1).abs().max()) < 2e-2
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_int8c_kernel_d256_pairs_p_with_its_v_rows(cuda, causal):
+    """The one-hot test above at d 256: key i holds 127 at column i mod 256
+    (keys 0-127 in V's first column half, 128-255 in its second), so a P
+    register paired with the wrong V row, or a column half folded into the
+    wrong half of O, moves weight between columns."""
+    q, k, _ = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 384, 256, kv_heads=2, seed=12))
+    onehot = torch.zeros((2, 2, 384, 256), dtype=torch.int8, device=cuda)
+    keys = torch.arange(384, device=cuda)
+    onehot[:, :, keys, keys % 256] = 127
+    vq = QTensor(onehot, torch.full((2, 2), 1 / 127, device=cuda), "int8")
+    qq, kq = quantize_kv(q, "int8"), quantize_kv(k, "int8")
+    out = check_flash_quant(qq, kq, vq, KernelConfig(d_head=256, causal=causal), True,
+                            "one-hot V d256")
+    assert float((out.float().sum(-1) - 1).abs().max()) < 2e-2
+
+
 @pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
 def test_fori_kernel_is_deterministic(cuda, nbuf):
     """K11 has no atomics and a fixed order: two calls agree bit for bit
@@ -322,14 +370,26 @@ def test_fori_kernel_is_deterministic(cuda, nbuf):
         assert torch.equal(first, second) and torch.equal(lse, lse2), kw
 
 
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+def test_fori_kernel_d256_is_deterministic(cuda, nbuf):
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+               make_qkv(2, 8, 1024, 256, kv_heads=2, seq_kv=1088, seed=13))
+    for kw in (dict(), dict(causal=True, q_offset=64)):
+        cfg = KernelConfig(d_head=256, kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
+        first, lse = flash_forward_with_lse(q, k, v, cfg)
+        second, lse2 = flash_forward_with_lse(q, k, v, cfg)
+        assert torch.equal(first, second) and torch.equal(lse, lse2), kw
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
 @pytest.mark.parametrize("variant", list(QUANT_VARIANTS))
-def test_flash_quant_kernel_is_deterministic(cuda, variant):
+def test_flash_quant_kernel_is_deterministic(cuda, variant, d_head):
     kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
-               make_qkv(2, 8, 1024, kv_heads=2, seed=14))
+               make_qkv(2, 8, 1024, d_head, kv_heads=2, seed=14))
     qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
     kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
-    for cfg in (KernelConfig(), KernelConfig(causal=True)):
+    for cfg in (KernelConfig(d_head=d_head), KernelConfig(d_head=d_head, causal=True)):
         first = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
         assert torch.equal(first, flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
 
@@ -361,6 +421,24 @@ def test_attention_kernels_run_on_wgmma(cuda):
     assert any("flash_quant_i8_kernel" in n for n in quant)
     for name, use in _resource_usage(FLASH_SOURCE).items():
         assert use["local"] == 0 and use["stack"] == 0, (name, use)
+
+
+def test_d256_attention_kernels_run_on_wgmma(cuda):
+    """K11's and K10's d-256 libraries hold their kernels at d 256 alone
+    (four ring depths; nine upcast kernels and the int8-compute one), each
+    on wgmma (HGMMA; IGMMA for int8 compute) with no mma.sync."""
+    fori = _sass_by_function(SOURCES_FORI[256])
+    names = [n for n in fori if "flash_forward_fori_kernel" in n]
+    assert len(names) == MAX_KV_BUFFERS and all("Li256EE" in n for n in names), list(fori)
+    quant = _sass_by_function(SOURCES_QUANT[256])
+    upcast = [n for n in quant if "flash_quant_kernel" in n]
+    i8 = [n for n in quant if "flash_quant_i8_kernel" in n]
+    assert len(upcast) == 9 and len(i8) == 1, list(quant)
+    assert all("Li256EE" in n for n in upcast + i8), list(quant)
+    for name in names + upcast + i8:
+        sass = {**fori, **quant}[name]
+        assert ("IGMMA" if name in i8 else "HGMMA") in sass, name
+        assert "HMMA" not in sass and "IMMA" not in sass, name
 
 
 def _resource_usage(source):
@@ -765,16 +843,10 @@ def test_kernels_refuse_other_dtypes(cuda):
 
 
 def test_kernels_refuse_other_head_widths(cuda):
-    """K1, K2/K3 and K4/K5 take d 128 and 256 on the card; K10 and K11 are
-    128 wide and raise at d 256 (the plain versions run it on the CPU), and
-    every wrapper raises at d 384: nothing falls back to a plain version on
-    a CUDA tensor."""
-    q = torch.zeros((1, 2, 128, 256), device=cuda, dtype=torch.bfloat16)
-    kq = quantize_kv(q, "int8")
-    with pytest.raises(ValueError, match="128 wide"):
-        flash_forward_quantized(q, kq, kq, KernelConfig(d_head=256))
-    with pytest.raises(ValueError, match="128 wide"):
-        flash_forward_with_lse(q, q, q, KernelConfig(d_head=256, kv_loop=KVLoop.FORI))
+    """Every attention kernel (K1, K2/K3, K4/K5, K10, K11) takes d 128 and
+    256 on the card, and every wrapper raises at d 384 (the plain versions
+    run it on the CPU): nothing falls back to a plain version on a CUDA
+    tensor."""
     q384 = torch.zeros((1, 2, 128, 384), device=cuda, dtype=torch.bfloat16)
     for cfg in (KernelConfig(d_head=384), KernelConfig(d_head=384, kv_loop=KVLoop.FORI)):
         with pytest.raises(ValueError, match="wide"):

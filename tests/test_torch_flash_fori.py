@@ -7,7 +7,9 @@ through ``num_kv_buffers`` slots) in interpret mode at block 128 with
 ``scale_q=False``. Tolerance as in ``test_torch_flash_forward.py``: the
 adaptive rule in each (batch, head, 64-row band), the JAX kernel the
 native reference and the JAX ``reference_attention`` in fp32 on the same
-bf16-rounded inputs the fp32 one; the LSE within 1e-3.
+bf16-rounded inputs the fp32 one; the LSE within 1e-3. At head width 256
+(Gemma-2's, which the card's K11 takes too) at depths 1, 2 and 4 on the
+causal, windowed and q_offset-with-sinks cases.
 """
 
 import jax.numpy as jnp
@@ -46,23 +48,30 @@ CASES = {
     # 128-row Q tile lies past the end (the JAX kernel runs 64-row blocks).
     "ragged": (4, 2, 192, 256, {}, False),
     "ragged-q_offset": (4, 2, 192, 256, dict(causal=True, q_offset=64), False),
+    "q_offset-sinks": (4, 2, 128, 256, dict(causal=True, q_offset=128), True),
 }
+# (case, depth, head width): every d-128 case but q_offset-sinks at depths
+# 1-3; the d-256 cases at depths 1, 2 and 4 (4 takes the 32-key slots).
+D256_CASES = ("causal", "window", "q_offset-sinks")
+RUNS = [pytest.param(name, nbuf, 128, id=f"{name}-{nbuf}")
+        for name in sorted(CASES) if name != "q_offset-sinks" for nbuf in (1, 2, 3)] + [
+    pytest.param(name, nbuf, 256, id=f"d256-{name}-{nbuf}")
+    for name in D256_CASES for nbuf in (1, 2, 4)]
 
 
-def _inputs(name):
+def _inputs(name, d_head=128):
     h, kvh, sq, skv, kw, with_sinks = CASES[name]
-    q, k, v = make_qkv(1, h, sq, kv_heads=kvh, seq_kv=skv, seed=31)
+    q, k, v = make_qkv(1, h, sq, d_head, kv_heads=kvh, seq_kv=skv, seed=31)
     sinks = (np.random.default_rng(32).standard_normal(h).astype(np.float32)
              if with_sinks else None)
     return (q, k, v), kw, sinks
 
 
-@pytest.mark.parametrize("nbuf", [1, 2, 3])
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_fori_matches_jax_fori_kernel(name, nbuf):
-    (q, k, v), kw, sinks = _inputs(name)
+@pytest.mark.parametrize("name,nbuf,d_head", RUNS)
+def test_fori_matches_jax_fori_kernel(name, nbuf, d_head):
+    (q, k, v), kw, sinks = _inputs(name, d_head)
     jcfg = JaxKernelConfig(block_q=64 if q.shape[2] % 128 else 128, block_kv=128,
-                           dtype=JaxDType.BF16,
+                           dtype=JaxDType.BF16, d_head=d_head,
                            scale_q=False, kv_loop=JaxKVLoop.FORI, num_kv_buffers=nbuf,
                            optimized_softmax=not kw.get("window"), **kw)
     js = None if sinks is None else jnp.asarray(sinks)
@@ -74,7 +83,7 @@ def test_fori_matches_jax_fori_kernel(name, nbuf):
         causal=causal, q_offset=kw.get("q_offset", 0) if causal else None,
         window=kw.get("window", 0), sinks=js)
 
-    cfg = KernelConfig(kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, **kw)
+    cfg = KernelConfig(kv_loop=KVLoop.FORI, num_kv_buffers=nbuf, d_head=d_head, **kw)
     args = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
     s = None if sinks is None else torch.from_numpy(sinks)
     out, lse = flash_forward_with_lse(*args, cfg, sinks=s)
@@ -82,7 +91,7 @@ def test_fori_matches_jax_fori_kernel(name, nbuf):
     ok, ratio, where = sliced_tolerance_check(
         row_bands(out), row_bands(torch.from_numpy(np.asarray(jout, np.float32)).bfloat16()),
         row_bands(torch.from_numpy(np.array(ref32))), lead=3)
-    assert ok, (name, nbuf, ratio, where)
+    assert ok, (name, nbuf, d_head, ratio, where)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-3, rtol=0)
 
 

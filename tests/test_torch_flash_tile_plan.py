@@ -1,7 +1,7 @@
 """The launch plans of the wgmma attention main loop, pure functions:
 K11's (``ops/flash_forward.py::fori_plan``), K10's
-(``ops/flash_quant.py::plan``) and K1's (``ops/flash_forward.py::grid_plan``,
-at head widths 128 and 256).
+(``ops/flash_quant.py::plan``) and K1's (``ops/flash_forward.py::grid_plan``),
+each at head widths 128 and 256.
 
 Every ring depth and every K10 mode fits the H100's 232,448 bytes of shared
 memory a block (with the kernels' static barriers), the grid covers every
@@ -25,6 +25,7 @@ CSRC = pathlib.Path(ff.__file__).parent.parent / "csrc"
 MAIN_LOOP = (CSRC / "flash_wgmma.cuh").read_text()
 FORI = (CSRC / ff.SOURCE_FORI).read_text()
 QUANT = (CSRC / fq.SOURCE).read_text()
+WIDTHS = [128, 256]
 STATIC_BARRIERS = 16 * 8  # the kernels' __shared__ mbarriers, at most
 K10_MODES = [("int8", False), ("fp8", False), ("int4", False), ("int8", True)]
 
@@ -40,48 +41,112 @@ def test_main_loop_constants_are_the_plans():
     assert _int(MAIN_LOOP, r"constexpr int CONSUMER_WGS = (\d+);") == ff.CONSUMER_WGS
     assert _int(MAIN_LOOP, r"constexpr int SMEM_LIMIT = (\d+);") == ff.SMEM_LIMIT
     assert _int(MAIN_LOOP, r"constexpr int ALIGN_SLACK = (\d+);") == ff.ALIGN_SLACK
-    assert _int(MAIN_LOOP, r"constexpr int D = (\d+);") == ff.D_HEAD == fq.D_HEAD
+    assert _int(MAIN_LOOP, r"constexpr int D = (\d+);") == ff.D_HEAD
+    assert ff.D_HEADS == fq.D_HEADS == (128, 256)
     assert re.search(r"THREADS = \(CONSUMER_WGS \+ 1\) \* 128;", MAIN_LOOP)
     assert ff.TILE_THREADS == (ff.CONSUMER_WGS + 1) * 128
+    # CtaShape<HD>, the CTA of K10 and K11: two consumer warpgroups at d 128,
+    # one at d 256.
+    shape = re.search(r"struct CtaShape \{(.*?)\n\};", MAIN_LOOP, re.S).group(1)
+    assert "CONSUMERS = HD == 128 ? CONSUMER_WGS : 1;" in shape
+    assert "BQ = CONSUMERS * WG_ROWS;" in shape
+    assert "THREADS = (CONSUMERS + 1) * 128;" in shape
+    assert "ARRIVALS = CONSUMERS * 4;" in shape
+    assert ff.FORI_TILES[128][0] == fq.QUANT_TILES[128][0] == ff.CONSUMER_WGS
+    assert ff.FORI_TILES[256][0] == fq.QUANT_TILES[256][0] == 1
 
 
-@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
-def test_fori_plan_mirrors_the_kernel(nbuf):
-    """``ForiTile<NB>``: BK keys a slot, a bf16 Q tile and NB K+V slots."""
-    keys = _int(FORI, r"BK = NB == 4 \? 64 : (\d+);") if nbuf < 4 else _int(
-        FORI, r"BK = NB == 4 \? (\d+) : 128;")
-    assert f"case {nbuf}: return launch<{nbuf}>" in FORI
-    assert re.search(r"SMEM = Q_BYTES \+ NB \* SLOT \+ ALIGN_SLACK;", FORI)
-    assert re.search(r"SLOT = 2 \* bf16_tile_bytes\(BK\);", FORI)
-    p = ff.fori_plan(nbuf, 4, 32, 4096, 4096)
-    assert (p.rows, p.keys, p.slots) == (ff.TILE_ROWS, keys, nbuf)
-    assert p.smem == 2 * ff.TILE_ROWS * 128 + nbuf * 2 * (2 * keys * 128) + ff.ALIGN_SLACK
-    assert p.smem + STATIC_BARRIERS <= ff.SMEM_LIMIT, p
-    assert p.threads == ff.TILE_THREADS
-
-
-@pytest.mark.parametrize("kv_mode,i8c", K10_MODES)
-def test_quant_plan_mirrors_the_kernel(kv_mode, i8c):
-    """``UpcastTile<QT, KV>`` and ``I8Tile``: their slots and raw slots
-    (a quantized Q's raw tile passes through an upcast raw slot)."""
-    assert _int(QUANT, r"constexpr int BKQ = (\d+);") == fq.SEQ_QUANTUM == fq.I8_P_GROUP
-    upcast = re.search(r"struct UpcastTile \{(.*?)\};", QUANT, re.S).group(1)
-    i8 = re.search(r"struct I8Tile \{(.*?)\};", QUANT, re.S).group(1)
-    p = fq.plan(kv_mode, i8c, 4, 32, 4096, 4096)
-    keys, d = fq.SEQ_QUANTUM, fq.D_HEAD
-    if i8c:
-        assert p.slots == _int(i8, r"\bSLOTS = (\d+);")
-        raw_slots = _int(i8, r"RAW_SLOTS = (\d+);")
-        assert p.smem == ff.TILE_ROWS * d + p.slots * 2 * keys * d + raw_slots * keys * d + 1024
+def _library(src_name, macro, d_head):
+    """The source of the library built at ``d_head``: the width's own file
+    defines ``macro`` and includes the shared source."""
+    text = (CSRC / src_name).read_text()
+    if d_head == 128:
+        assert f"#ifndef {macro}\n#define {macro} 128\n#endif" in text
     else:
+        assert f"#define {macro} {d_head}" in text and '#include "' in text
+    return text
+
+
+@pytest.mark.parametrize("d_head", WIDTHS)
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+def test_fori_plan_mirrors_the_kernel(nbuf, d_head):
+    """``ForiTile<NB, HD>``: BK keys a slot (128, halved at depth 4 and
+    again at d 256), a bf16 Q tile of CtaShape<HD>'s rows and NB K+V slots;
+    d 128's plan is the one its kernel was measured with."""
+    deep, shallow = map(int, re.findall(
+        r"BK = \(NB == 4 \? (\d+) : (\d+)\) / \(HD / 128\);", FORI)[0])
+    keys = (deep if nbuf == 4 else shallow) // (d_head // 128)
+    assert f"case {nbuf}: return launch<{nbuf}, FORI_HD>" in FORI
+    _library(ff.SOURCES_FORI[d_head], "FORI_HD", d_head)
+    assert re.search(r"SMEM = Q_BYTES \+ NB \* SLOT \+ ALIGN_SLACK;", FORI)
+    assert re.search(r"SLOT = 2 \* bf16_tile_bytes\(BK, HD\);", FORI)
+    assert re.search(r"Q_BYTES = bf16_tile_bytes\(CtaShape<HD>::BQ, HD\);", FORI)
+    assert "__launch_bounds__(ForiTile<NB, HD>::THREADS, 1)" in FORI
+    p = ff.fori_plan(nbuf, 4, 32, 4096, 4096, d_head)
+    rows = ff.FORI_TILES[d_head][0] * ff.WG_ROWS
+    assert (p.rows, p.keys, p.slots) == (rows, keys, nbuf)
+    assert p.smem == rows * d_head * 2 + nbuf * 2 * (keys * d_head * 2) + ff.ALIGN_SLACK
+    assert p.smem + STATIC_BARRIERS <= ff.SMEM_LIMIT, p
+    if d_head == 128:
+        assert (p.threads, p.rows) == (ff.TILE_THREADS, ff.TILE_ROWS)
+        assert p.keys == (64 if nbuf == 4 else 128)
+        assert p == ff.fori_plan(nbuf, 4, 32, 4096, 4096)
+    else:
+        assert (p.threads, p.rows, p.keys) == (256, 64, 32 if nbuf == 4 else 64)
+
+
+def _by_width(tile, name, d_head):
+    """``NAME = HD == 128 ? a : b;``: a at d 128, b at 256."""
+    a, b = re.findall(rf"\b{name} = HD == 128 \? (\d+) : (\d+);", tile)[0]
+    return int(a) if d_head == 128 else int(b)
+
+
+@pytest.mark.parametrize("d_head", WIDTHS)
+@pytest.mark.parametrize("kv_mode,i8c", K10_MODES)
+def test_quant_plan_mirrors_the_kernel(kv_mode, i8c, d_head):
+    """``UpcastTile<QT, KV, HD>`` and ``I8Tile<HD>``: their keys, slots and
+    raw slots (a quantized Q's raw tile passes through an upcast raw slot),
+    on CtaShape<HD>'s rows; d 128's plan is the one its kernel was measured
+    with."""
+    assert _int(QUANT, r"constexpr int BKQ = (\d+);") == fq.SEQ_QUANTUM == fq.I8_P_GROUP
+    upcast = re.search(r"struct UpcastTile : CtaShape<HD> \{(.*?)\};", QUANT, re.S).group(1)
+    i8 = re.search(r"struct I8Tile : CtaShape<HD> \{(.*?)\};", QUANT, re.S).group(1)
+    _library(fq.SOURCES[d_head], "QUANT_HD", d_head)
+    p = fq.plan(kv_mode, i8c, 4, 32, 4096, 4096, d_head)
+    d, rows = d_head, fq.QUANT_TILES[d_head][0] * ff.WG_ROWS
+    if i8c:
+        keys = fq.I8_P_GROUP
+        assert "SLOT = 2 * BKQ * HD;" in i8 and "RAW = BKQ * HD;" in i8
+        assert p.slots == _by_width(i8, "SLOTS", d_head)
+        raw_slots = _int(i8, r"RAW_SLOTS = (\d+);")
+        assert p.smem == rows * d + p.slots * 2 * keys * d + raw_slots * keys * d + 1024
+    else:
+        keys = _by_width(upcast, "BK", d_head)
         assert p.slots == _int(upcast, r"\bSLOTS = (\d+);")
         raw_slots = _int(upcast, r"RAW_SLOTS = (\d+);")
         row = d // 2 if kv_mode == "int4" else d
-        assert p.smem == (2 * ff.TILE_ROWS * d + p.slots * 2 * (2 * keys * d)
+        assert p.smem == (2 * rows * d + p.slots * 2 * (2 * keys * d)
                           + raw_slots * 2 * keys * row + 1024)
-        assert ff.TILE_ROWS * d <= 2 * keys * row  # a raw slot holds a raw Q tile
+        assert rows * d <= 2 * keys * row  # a raw slot holds a raw Q tile
     assert p.smem + STATIC_BARRIERS <= ff.SMEM_LIMIT, p
-    assert p.keys == keys and p.rows == ff.TILE_ROWS
+    assert p.keys == keys and p.rows == rows and p.threads == (rows // 64 + 1) * 128
+    assert p.kv_tiles * p.keys == 4096
+    if d_head == 128:
+        assert p == fq.plan(kv_mode, i8c, 4, 32, 4096, 4096)
+        assert (p.rows, p.keys, p.threads) == (ff.TILE_ROWS, 128, ff.TILE_THREADS)
+    else:
+        assert p.threads == 256 and p.keys == (128 if i8c else 64)
+
+
+@pytest.mark.parametrize("d_head", [64, 192, 384, 512])
+def test_plans_refuse_other_head_widths(d_head):
+    """K10's and K11's plans (and K1's) take d 128 and 256 only."""
+    with pytest.raises(ValueError, match="head widths"):
+        ff.fori_plan(2, 1, 8, 256, 256, d_head)
+    with pytest.raises(ValueError, match="head widths"):
+        fq.plan("int8", False, 1, 8, 256, 256, d_head)
+    with pytest.raises(ValueError, match="head widths"):
+        fq.plan("int8", True, 1, 8, 256, 256, d_head)
 
 
 def _covers(p, seq_q, seq_kv):
@@ -90,22 +155,25 @@ def _covers(p, seq_q, seq_kv):
     assert p.kv_tiles * p.keys >= seq_kv > (p.kv_tiles - 1) * p.keys, (p, seq_kv)
 
 
+@pytest.mark.parametrize("d_head", WIDTHS)
 @pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
-def test_fori_grid_covers_every_seq(nbuf):
+def test_fori_grid_covers_every_seq(nbuf, d_head):
     for seq_q in range(ff.SEQ_QUANTUM, 8192 + 1, ff.SEQ_QUANTUM):
         seq_kv = seq_q + 128
-        p = ff.fori_plan(nbuf, 2, 8, seq_q, seq_kv)
+        p = ff.fori_plan(nbuf, 2, 8, seq_q, seq_kv, d_head)
         assert p.grid[1:] == (8, 2)
         _covers(p, seq_q, seq_kv)
         # The last tile holds 64 zero-filled keys exactly when seq_kv is an
-        # odd multiple of 64 and the slot is 128 keys.
+        # odd multiple of 64 and the slot is 128 keys (d 128; d 256's slots
+        # are 64 or 32 keys, which divide every seq_kv).
         assert p.kv_tiles * p.keys - seq_kv in ((0, 64) if p.keys == 128 else (0,))
 
 
+@pytest.mark.parametrize("d_head", WIDTHS)
 @pytest.mark.parametrize("kv_mode,i8c", K10_MODES)
-def test_quant_grid_covers_every_seq(kv_mode, i8c):
+def test_quant_grid_covers_every_seq(kv_mode, i8c, d_head):
     for seq in range(fq.SEQ_QUANTUM, 8192 + 1, fq.SEQ_QUANTUM):
-        p = fq.plan(kv_mode, i8c, 3, 16, seq, seq)
+        p = fq.plan(kv_mode, i8c, 3, 16, seq, seq, d_head)
         assert p.grid[1:] == (16, 3) and p.kv_tiles * p.keys == seq
         _covers(p, seq, seq)
 
@@ -141,9 +209,6 @@ GRID_SHAPES = [(1, 32, s, s, True, 0, 0) for s in (256, 640, 1024, 1536, 2048, 2
     (2, 32, 2048, 2048, True, 0, 0), (4, 32, 4096, 4096, False, 0, 0),
     (2, 8, 192, 320, True, 70, 128), (3, 4, 1088, 1088, True, 300, 0),
     (1, 2, 64, 64, True, 0, 0), (2, 16, 512, 1024, True, 0, 512)]
-
-
-WIDTHS = [128, 256]
 
 
 def _tile_field(tile, name, d_head):

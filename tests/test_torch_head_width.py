@@ -7,9 +7,12 @@ inputs at d 256 go to the port and to the JAX Pallas kernels in interpret
 mode. Tolerance: the adaptive tolerance rule with both references from the
 JAX side (the JAX kernel in bf16, the JAX ``reference_attention`` in fp32 on
 the same bf16-rounded or dequantized inputs), in each (batch, head, 64-row
-band) of a flash output and each sequence of a paged one. The CUDA kernels'
-tiles stay 128 wide; ``tests/test_torch_cuda_kernels.py`` checks that their
-wrappers refuse 256.
+band) of a flash output and each sequence of a paged one; ``int8_compute``
+by the rule of ``tests/test_torch_flash_quant.py::test_int8_compute_matches_jax``
+(within 2e-2 of the JAX int8 kernel, within 4e-2 of the fp32 reference
+causal). The CUDA kernels take d 128 and 256 (``tests/test_torch_cuda_kernels.py``
+holds them to these plain versions on the card and checks that their
+wrappers refuse other widths).
 """
 
 import dataclasses
@@ -101,6 +104,53 @@ def test_flash_forward_quantized_d256_matches_jax(mode, q_kind, causal):
                                   KernelConfig(d_head=D, causal=causal), int8_compute=False)
     assert got.shape == (1, 4, 128, D)
     _bands_ok(got, want, ref32)
+
+
+# K10 at d 256 on every path of its kernel: (K/V mode, Q kind, config
+# fields). int8_compute causal and with a window; fp8 K/V with Gemma-2's
+# softcap; int8 K/V with an fp8 Q (the upcast of a quantized Q).
+QUANT_D256_CASES = {
+    "int8c-causal": ("int8", "int8", dict(causal=True)),
+    "int8c-window": ("int8", "int8", dict(causal=True, window=100)),
+    "fp8-softcap": ("fp8", "bf16", dict(causal=True, attn_softcap=50.0)),
+    "int8kv-fp8q": ("int8", "fp8", dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(QUANT_D256_CASES))
+def test_flash_forward_quantized_d256_variants_match_jax(name):
+    mode, q_kind, kw = QUANT_D256_CASES[name]
+    i8c = q_kind == "int8" and mode == "int8"
+    q, k, v = make_qkv(1, 4, 256, D, kv_heads=2, seed=34)
+
+    def quantized(x, kind, side):
+        if side == "jax":
+            xb = jnp.asarray(x, jnp.bfloat16)
+            return xb if kind == "bf16" else jax_quant.quantize_kv(xb, kind)
+        xb = torch.from_numpy(x).bfloat16()
+        return xb if kind == "bf16" else quantize_kv(xb, kind)
+
+    def fp32(x):
+        if isinstance(x, jax_quant.QTensor):
+            return jax_quant.dequantize(dataclasses.replace(x, orig_dtype=jnp.float32))
+        return x.astype(jnp.float32)
+
+    jq, jk, jv = quantized(q, q_kind, "jax"), quantized(k, mode, "jax"), quantized(v, mode, "jax")
+    jcfg = JaxKernelConfig(block_q=128, block_kv=128, d_head=D, scale_q=False,
+                           optimized_softmax=not kw.get("window"), **kw)
+    want = jax_flash_quant(jq, jk, jv, jcfg, int8_compute=i8c)
+    ref32 = jax_reference(*(fp32(x) for x in (jq, jk, jv)), causal=True, q_offset=0,
+                          window=kw.get("window", 0), softcap=kw.get("attn_softcap", 0.0))
+    got = flash_forward_quantized(quantized(q, q_kind, "port"), quantized(k, mode, "port"),
+                                  quantized(v, mode, "port"), KernelConfig(d_head=D, **kw),
+                                  int8_compute=i8c)
+    assert got.shape == (1, 4, 256, D) and bool(torch.isfinite(got).all())
+    if i8c:
+        got = got.float().numpy()
+        assert np.abs(got - np.asarray(want, np.float32)).max() <= 2e-2
+        assert np.abs(got - np.asarray(ref32, np.float32)).max() <= 4e-2
+    else:
+        _bands_ok(got, want, ref32)
 
 
 def test_paged_decode_d256_matches_jax():
