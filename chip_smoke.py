@@ -170,7 +170,18 @@ against one rank); ``pipeline``, GPipe over 4 ranks at Llama-3-8B width
 LoRA prefill, decode and verify steps under tp 2 against one rank;
 ``scaling_report``, the tool as a subprocess at tp 1/2/4; ``dryrun``,
 ``entry.dryrun_multichip(4)``; then the kernels at the shard shapes
-(``time_shards``). Prints
+(``time_shards``). (11) Before the parallel layer, the banded backward
+(``phase_banded_backward_cases``: K2 at its prefix shapes, 1,024 rows
+against 1,024-3,072 keys without the mask, and ``flash_backward(...,
+bands=4)`` at b 2, 32/8 heads, s 4,096, causal, each held to the plain
+version per 64-row band, the banded call also to the monolithic K3 call,
+with its 7 K2 launches counted; timed against the monolithic K2 and K3
+calls at s 4,096, 8,192 and 16,384 by ``time_banded_backward``) and the
+kernel tools (``phase_kernel_tools``: ``bench_ladder``, ``bench_sweep``,
+``bench_backward`` with and without ``--causal``, ``bench_train`` at
+Llama-3-8B's widths and 8 layers, ``autotune``, ``sanity_check``,
+``debug_steps``, ``profile_trace`` and ``quant_trace``, each through its
+``main`` with its launches counted, its rows checked). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
 ``serve_gemma2_9b``, ``train``, ``train_gemma2_9b``,
@@ -178,8 +189,8 @@ LoRA prefill, decode and verify steps under tp 2 against one rank;
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
 ``moe_ep``, ``pipeline``, ``serve_tp_lora``, ``scaling_report``, ``dryrun``
-(and a line per rank), ``phase_s`` (each phase's wall time) and ``kernels``
-JSON lines and, last, one JSON object
+(and a line per rank), ``banded_backward``, ``kernel_tools``, ``phase_s``
+(each phase's wall time) and ``kernels`` JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
 """
@@ -202,6 +213,7 @@ import torch
 # Without the package beside this script, fail here, before printing anything.
 from flash_attention_from_scratch_tpu_torch.dispatch import median_runtime, sync
 from flash_attention_from_scratch_tpu_torch.tools import bench_attention, bench_quant
+from flash_attention_from_scratch_tpu_torch.tools.bench_train import train_flops
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3 bandwidth. The bound of a kernel is the larger of its
@@ -2765,19 +2777,6 @@ def phase_serving_tools(smi: str) -> list:
     return results
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step (forward and backward): 6 * matmul
-    params * tokens, plus causal attention at 3.5x its forward (the forward
-    and a backward of 2.5x). The formula of the JAX package's
-    ``tools/bench_train.py::train_flops``."""
-    n_params = cfg.vocab_size * cfg.dim + cfg.n_layers * (
-        cfg.dim * cfg.n_heads * cfg.d_head * 2
-        + cfg.dim * cfg.n_kv_heads * cfg.d_head * 2
-        + 3 * cfg.dim * cfg.hidden_dim)
-    attn_fwd = 2 * 2 * seq * seq * cfg.d_head * cfg.n_heads * batch / 2
-    return 6 * n_params * batch * seq + attn_fwd * 3.5 * cfg.n_layers
-
-
 # Kernel classes of a profile, by substrings of the kernel's name; the rest
 # is elementwise work, reductions and copies.
 KERNEL_CLASSES = (
@@ -2991,7 +2990,8 @@ def phase_train(smi: str) -> dict:
     """Train LLAMA3_8B at full width, 8 layers, batch 2 x 2048
     (``_train_and_check``: 3 AdamW steps on K3, one profiled, one on K2,
     K2/K3 held to the plain backward on every layer's recorded inputs).
-    Returns the launch counts of both runs, by backward."""
+    Returns the launch counts of both runs, by backward, and under "rate"
+    the run's train tokens/s, model TFLOP/s and ms a step."""
     from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
@@ -3004,7 +3004,8 @@ def phase_train(smi: str) -> dict:
           flush=True)
     fields, counts = _train_and_check("train", cfg, params, tokens, TRAIN_STEPS)
     print(json.dumps({"train": {"model": "LLAMA3_8B", **fields, "gpu": smi}}), flush=True)
-    return counts
+    return {**counts, "rate": {k: fields[k] for k in ("train_tok_s", "model_tflop_s",
+                                                      "step_ms")}}
 
 
 # Gemma-2-9B trained at full width (train_gemma2_9b): 8 of its 42 layers
@@ -3249,6 +3250,21 @@ def time_paged_d256(ptxas: dict | None = None) -> dict:
                      f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}; one layer)"}
 
 
+def _sdpa_backward_ms(q, k, v, do, causal: bool = True) -> float:
+    """SDPA's backward on (q, k, v) with K/V repeated to q's heads: forward
+    plus ``torch.autograd.grad`` minus the same forward, in ms."""
+    group = q.shape[1] // k.shape[1]
+    qg = q.clone().requires_grad_()
+    kg = k.repeat_interleave(group, 1).requires_grad_()
+    vg = v.repeat_interleave(group, 1).requires_grad_()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+    fwd_ms = _time_ms(sdpa)
+    return _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
+
+
 # K2/K3's timed shapes, b 2, 32/8 heads: (label, seq, causal). The first is
 # the training run's (one layer); the plain version is timed there only.
 BACKWARD_TIMED = (("train", TRAIN_SEQ, True), ("causal s1024", 1024, True),
@@ -3272,7 +3288,7 @@ def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward_with_lse)
 
-    b, group = TRAIN_BATCH, HEADS // KV_HEADS
+    b = TRAIN_BATCH
     by_shape = {"fused": {}, "split": {}}
     common = {}
     for i, (label, s, causal) in enumerate(BACKWARD_TIMED):
@@ -3280,16 +3296,7 @@ def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
         q, k, v = _cuda_qkv(s, s, seed=70 + i, batch=b)
         do = _cuda_normal(q.shape, seed=80 + i)
         o, lse = flash_forward_with_lse(q, k, v, cfg)
-        qg = q.clone().requires_grad_()
-        kg = k.repeat_interleave(group, 1).requires_grad_()
-        vg = v.repeat_interleave(group, 1).requires_grad_()
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=causal)
-
-        fwd_ms = _time_ms(sdpa)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
+        lib_ms = _sdpa_backward_ms(q, k, v, do, causal)
         flops = 5 * 2 * D * _attn_ops(s, HEADS, b, causal) // (4 * D)
         # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
         nbytes = 2 * (4 * b * HEADS * s * D + 4 * b * KV_HEADS * s * D) + 4 * b * HEADS * s
@@ -3310,7 +3317,7 @@ def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
                       "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "operations",
                       "shape": (f"causal, b {b}, {HEADS}/{KV_HEADS} heads, s {s}, d {D}, "
                                 "bf16 (one layer of the training run)")}
-        del q, k, v, do, o, lse, qg, kg, vg, dsum
+        del q, k, v, do, o, lse, dsum
     return _backward_lines(by_shape, "train", common, ptxas, D)
 
 
@@ -3347,16 +3354,7 @@ def time_backward_d256(ptxas: dict | None = None) -> tuple[dict, dict]:
     s, heads, kvh, d = G9_TRAIN_SEQ, G9_HEADS, G9_KV_HEADS, G9_D
     q, k, v = _cuda_qkv(s, s, seed=90, heads=heads, kv_heads=kvh, d=d)
     do = _cuda_normal(q.shape, seed=91)
-    qg = q.clone().requires_grad_()
-    kg = k.repeat_interleave(heads // kvh, 1).requires_grad_()
-    vg = v.repeat_interleave(heads // kvh, 1).requires_grad_()
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-
-    fwd_ms = _time_ms(sdpa)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do)) - fwd_ms
-    del qg, kg, vg
+    lib_ms = _sdpa_backward_ms(q, k, v, do)
     # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
     nbytes = 2 * (4 * heads * s * d + 4 * kvh * s * d) + 4 * heads * s
     by_shape = {"fused": {}, "split": {}}
@@ -4754,6 +4752,252 @@ def phase_bench_tools(smi: str) -> dict:
     return {KQ: quant_counts[KQ]}
 
 
+# ---------------------------------------------------------------------------
+# The banded backward (ops/flash_backward.py::banded_backward) and the kernel
+# tools (tools/bench_ladder.py to tools/quant_trace.py).
+
+BANDED_BATCH, BANDED_SEQ, BANDED_BANDS = 2, 4096, 4  # at Llama-3-8B's 32/8 heads
+BANDED_PREFIX_KEYS = (1024, 2048, 3072)  # band 1-3's past keys at s 4,096
+BANDED_TIMED = (4096, 8192, 16384)  # causal, b 1, the JAX package's band count
+
+
+def phase_banded_backward_cases() -> dict:
+    """K2 at the banded backward's prefix shapes (1,024 Q rows against
+    ``BANDED_PREFIX_KEYS`` keys, no mask, b 2, 32/8 heads: the past-key
+    calls of bands 1-3 at s 4,096) against its plain version by the
+    per-64-row-band rule (``_check_grads``); then ``flash_backward(...,
+    bands=4)`` at b 2, 32/8 heads, d 128, s 4,096, causal, against the
+    plain backward (one KV head at a time) by the same rule, and within
+    that rule of the monolithic K3 call (K3's gradients in place of the
+    bf16 reference), launching K2 exactly 2 * 4 - 1 = 7 times and no other
+    kernel. Returns {"prefix", "banded", "banded_vs_k3": (max |kernel -
+    reference|, worst err/bound), "launches": the banded call's counts}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_FUSED, flash_backward, flash_backward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    out = {"prefix": (0.0, 0.0)}
+    rows, b = BANDED_SEQ // BANDED_BANDS, BANDED_BATCH
+    full = KernelConfig()
+    for i, keys in enumerate(BANDED_PREFIX_KEYS):
+        q, k, v = _cuda_qkv(rows, keys, seed=400 + i, batch=b)
+        do = _cuda_normal(q.shape, seed=410 + i)
+        o, lse = flash_forward_with_lse(q, k, v, full)
+        before = _build.launch_counts[KERNEL_FUSED]
+        got = flash_backward(q, k, v, o, lse, do, full, fused=True)
+        sync()
+        if _build.launch_counts[KERNEL_FUSED] - before != 1:
+            raise AssertionError(f"K2 prefix {rows}x{keys}: not one launch")
+        ref16 = flash_backward_plain(q, k, v, o, lse, do, full)
+        ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), _fp32(full))
+        got = _check_grads(f"K2 prefix {rows} rows x {keys} keys", got, ref16, ref32)
+        out["prefix"] = tuple(map(max, out["prefix"], got))
+        print(f"K2 prefix b{b} {HEADS}/{KV_HEADS} heads {rows} rows x {keys} keys: "
+              f"max|kernel-plain| {got[0]:.3e}, worst err/bound {got[1]:.3f}", flush=True)
+        del q, k, v, do, o, lse, ref16, ref32
+    cfg = KernelConfig(causal=True)
+    q, k, v = _cuda_qkv(BANDED_SEQ, BANDED_SEQ, seed=420, batch=b)
+    do = _cuda_normal(q.shape, seed=421)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    _build.launch_counts.clear()
+    got = flash_backward(q, k, v, o, lse, do, cfg, bands=BANDED_BANDS)
+    sync()
+    launches = dict(_build.launch_counts)
+    if launches != {KERNEL_FUSED: 2 * BANDED_BANDS - 1}:
+        raise AssertionError(f"banded backward: launches {launches}")
+    ref16 = _plain_backward_by_heads(q, k, v, o, lse, do, cfg)
+    ref32 = _plain_backward_by_heads(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), _fp32(cfg))
+    what = f"banded backward b{b} {HEADS}/{KV_HEADS} heads s{BANDED_SEQ} bands {BANDED_BANDS}"
+    out["banded"] = _check_grads(what, got, ref16, ref32)
+    mono = flash_backward(q, k, v, o, lse, do, cfg, fused=False)
+    out["banded_vs_k3"] = _check_grads(what + " vs K3", got, mono, ref32)
+    out["launches"] = launches
+    line = {"prefix_keys": BANDED_PREFIX_KEYS, "rows": rows, **out}
+    print(json.dumps({"banded_backward": line}), flush=True)
+    del q, k, v, do, o, lse, got, ref16, ref32, mono
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_banded_backward() -> dict:
+    """The banded backward against the monolithic K2 and K3 calls at
+    ``BANDED_TIMED`` (causal, b 1, 32/8 heads, d 128; the JAX package's
+    band count, 1,024-row bands: 4, 8, 16), each the whole
+    ``flash_backward`` call by CUDA events, beside the bound of the
+    backward (five tile products over the visible pairs, or the bytes: the
+    larger) and SDPA's causal backward (``_sdpa_backward_ms``). Returns
+    {seq: fields}."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_backward as fb
+    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    cfg = KernelConfig(causal=True)
+    out = {}
+    for i, s in enumerate(BANDED_TIMED):
+        bands = fb._bwd_band_count(s)
+        q, k, v = _cuda_qkv(s, s, seed=430 + i)
+        do = _cuda_normal(q.shape, seed=440 + i)
+        o, lse = flash_forward_with_lse(q, k, v, cfg)
+        flops = 5 * 2 * D * _attn_ops(s, HEADS, 1, True) // (4 * D)
+        nbytes = 2 * (4 * HEADS * s * D + 4 * KV_HEADS * s * D) + 4 * HEADS * s
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        lib_ms = _sdpa_backward_ms(q, k, v, do)
+        times = {}
+        for _ in range(2):  # in turns: banded, K2, K3, banded, K2, K3
+            for name, kw in (("banded", dict(bands=bands)), ("fused", dict(fused=True)),
+                             ("split", dict(fused=False))):
+                ms = _time_ms(lambda kw=kw: fb.flash_backward(q, k, v, o, lse, do, cfg, **kw))
+                times.setdefault(name, []).append(ms)
+        out[s] = {"bands": bands, "k2_launches_per_call": 2 * bands - 1,
+                  **{f"{name}_ms": min(t) for name, t in times.items()},
+                  "ms_all": times, "bound_ms": bound_ms, "library_ms": lib_ms,
+                  "banded_over_fused": min(times["banded"]) / min(times["fused"]),
+                  "banded_over_split": min(times["banded"]) / min(times["split"])}
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+# Prog's configs that debug_steps steps through (ops/configs.py::
+# get_kernel_progression_configs): 4_opt_softmax runs K1, 6_manual_pipeline
+# K11 at depth 2.
+DEBUG_GRID, DEBUG_FORI = 3, 5
+_TRAIN_TOOL_ARGS = ("--dim", "4096", "--layers", str(TRAIN_LAYERS), "--heads", str(HEADS),
+                    "--kv-heads", str(KV_HEADS), "--hidden", "14336", "--vocab", "128256",
+                    "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--steps", "3",
+                    "--warmup", "1")
+# (label, tool, arguments; "{out}" is the run's output directory)
+KERNEL_TOOL_RUNS = (
+    ("bench_ladder", "bench_ladder", ("--seq-lens", "1024,4096", "--json")),
+    ("bench_sweep", "bench_sweep", ("--seq-lens", "1024,4096", "--json")),
+    ("bench_backward", "bench_backward", ("--seq-lens", "4096", "--json")),
+    ("bench_backward_causal", "bench_backward", ("--causal", "--seq-lens", "4096", "--json")),
+    ("bench_train", "bench_train", _TRAIN_TOOL_ARGS),
+    ("autotune", "autotune", ("--kernels", "tune", "--seq", "4096", "--json")),
+    ("sanity_check", "sanity_check", ("--kernels", "prog")),
+    ("sanity_check_small", "sanity_check", ("--small",)),
+    ("debug_steps_grid", "debug_steps", ("--small", "--kernel", str(DEBUG_GRID))),
+    ("debug_steps_fori", "debug_steps", ("--small", "--kernel", str(DEBUG_FORI))),
+    ("profile_trace", "profile_trace", ("--kernels", "prog", "--seq", "4096", "--out",
+                                        "{out}")),
+    ("quant_trace", "quant_trace", ("--seq", "4096", "--out", "{out}")),
+)
+DEBUG_SLACK = 0.05  # a debug_steps map entry: bf16 outputs against the fp32 mirror
+
+
+def _tool_rates(label: str, rows: list) -> list:
+    """The TFLOP/s figures of the port's kernels a tool's JSON rows report
+    (not SDPA's, a library's), as (name, value, ceiling factor): 2 for the
+    int8 products of quant_trace's int8c."""
+    keys = ("tflops", "fwdbwd_tflops", "bwd_tflops", "harmonic_mean", "model_tflops_per_s")
+    out = [(f"{label} {k}", r[k], 1.0) for r in rows for k in keys if k in r]
+    out += [(f"{label} seq{k[3:]}", v, 1.0) for r in rows for k, v in r.items()
+            if re.fullmatch(r"seq\d+", k)]
+    for r in rows:
+        for name, t in r.get("chain_timing", {}).items():
+            out.append((f"{label} {name}", t["eff_bf16_tflops"], 2.0 if name == "int8c" else 1.0))
+    return out
+
+
+def _tool_launches(runs: dict, *names) -> dict:
+    """{tool run: launches of the kernels ``names``} of the runs that
+    launched them."""
+    counts = {label: sum(n.get(k, 0) for k in names) for label, n in runs.items()}
+    return {label: c for label, c in counts.items() if c}
+
+
+def phase_kernel_tools(smi: str, train_rate: dict, out_dir: str) -> dict:
+    """The kernel tools as a user runs them (``KERNEL_TOOL_RUNS``), each
+    through its ``main`` in this process, the launch counts set to 0 just
+    before and read just after (``profile_trace`` and ``quant_trace`` also
+    spawn their own capture processes, whose launches are their own). Each
+    must exit 0 and launch its kernels (K1 and K11 the ladder, K1 the
+    sweep, K2 and K3 the backward bench and K2 banded with ``--causal``,
+    K1 and K3 the trainer, K1 the autotuner, K1 and K11 the checks and
+    traces, K10 and K1 ``quant_trace``); every config of ``sanity_check``
+    passes; no TFLOP/s is non-finite or above 1.05x the card's measured
+    matmul rate (2x for int8c); ``debug_steps``' maps are finite and within
+    ``DEBUG_SLACK``; ``bench_train`` prints the JAX tool's keys. Reported,
+    not gated: ``bench_train``'s tokens/s and MFU beside the train phase's
+    (``train_rate``), and which traces the profiler captured. Returns
+    {label: launches}."""
+    import contextlib
+    import importlib
+    import io
+
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
+    from flash_attention_from_scratch_tpu_torch.utils.chip import measured_matmul_tflops
+
+    want = {"bench_ladder": {K1, KERNEL_FORI}, "bench_sweep": {K1},
+            "bench_backward": {K1, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ},
+            "bench_backward_causal": {K1, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ},
+            "bench_train": {K1, KERNEL_DKV, KERNEL_DQ}, "autotune": {K1},
+            "sanity_check": {K1, KERNEL_FORI}, "sanity_check_small": {K1, KERNEL_FORI},
+            "debug_steps_grid": {K1}, "debug_steps_fori": {KERNEL_FORI},
+            "profile_trace": {K1, KERNEL_FORI}, "quant_trace": {KQ, K1}}
+    ceiling = 1.05 * measured_matmul_tflops()
+    out, lines = {}, {}
+    for label, tool, args in KERNEL_TOOL_RUNS:
+        args = [a.format(out=out_dir) for a in args]
+        module = importlib.import_module(f"flash_attention_from_scratch_tpu_torch.tools.{tool}")
+        torch.cuda.empty_cache()
+        text = io.StringIO()
+        t = time.perf_counter()
+        _build.launch_counts.clear()  # counts start at 0 just before the run
+        with contextlib.redirect_stdout(text):
+            rc = module.main(args)
+        counts = dict(_build.launch_counts)  # read just after
+        took = time.perf_counter() - t
+        printed = text.getvalue()
+        rows = [json.loads(line) for line in printed.splitlines() if line.startswith("{")]
+        missing = [n for n in want[label] if not counts.get(n)]
+        bad_rates = [(n, x) for n, x, f in _tool_rates(label, rows)
+                     if not (math.isfinite(x) and x <= f * ceiling)]
+        fault = []
+        if rc != 0 or missing or bad_rates or not rows and tool != "sanity_check":
+            fault.append(f"rc {rc}, kernels not launched {missing}, rates {bad_rates}")
+        if label == "bench_backward_causal" and not any(r["bands"] for r in rows):
+            fault.append("no banded row")
+        if tool == "autotune" and any(r["error"] for r in rows):
+            fault.append("a config failed or timed impossibly")
+        if tool == "sanity_check" and not re.search(r"^(\d+) of \1 configs passed$", printed,
+                                                    re.M):
+            fault.append("a config failed")
+        if tool == "debug_steps":
+            maps = rows[-1]["per_q_block_max_diff"] + rows[-1]["per_kv_step_max_diff"]
+            if not all(math.isfinite(x) and x <= DEBUG_SLACK for x in maps):
+                fault.append(f"diff maps {maps}")
+        if tool == "bench_train":
+            keys = ("metric", "value", "unit", "model_tflops_per_s", "tokens_per_s",
+                    "ms_per_step", "loss", "dim", "layers", "seq", "batch", "device")
+            if any(k not in rows[-1] for k in keys) or not math.isfinite(rows[-1]["loss"]):
+                fault.append(f"line {rows[-1]}")
+            rows[-1]["train_phase"] = train_rate
+        if fault:
+            raise AssertionError(f"{tool} {' '.join(args)}: {'; '.join(fault)}\n"
+                                 f"{printed[-3000:]}")
+        if tool == "profile_trace":
+            rows = [{k: r[k] for k in ("config", "kernel", "trace_captured",
+                                       "device_ms_per_call", "tflops", "hbm_gbps_model",
+                                       "error", "device_event_totals_ns") if k in r}
+                    for r in rows if r["config"] == r["traced_as"]]
+        lines[label] = {"args": " ".join(args), "rows": rows, "launches": counts, "s": took}
+        print(json.dumps({"kernel_tools": {label: lines[label], "gpu": smi}}), flush=True)
+        out[label] = counts
+    return out
+
+
 # ------------------------------------------------------------------------
 # The parallel layer (parallel/): ring attention, sp and tp training, tp
 # serving. The card's machine has one card, and NCCL refuses two ranks on
@@ -6000,6 +6244,15 @@ def main(argv=None) -> int:
     phase_entry()
     lap("tools, entry")
     torch.cuda.empty_cache()
+    banded_bwd = phase_banded_backward_cases()
+    os.makedirs(scratch, exist_ok=True)
+    try:
+        kernel_tools = phase_kernel_tools(smi, trained["rate"],
+                                          os.path.join(scratch, "kernel_tools"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    lap("banded backward, kernel tools")
+    torch.cuda.empty_cache()
     ring_dir = os.path.join(scratch, "ring")
     os.makedirs(ring_dir, exist_ok=True)
     try:
@@ -6053,6 +6306,7 @@ def main(argv=None) -> int:
          "launches_train_moe": moe_trained["counts"].get(K1, 0),
          "launches_convert": {r: n.get(K1, 0) for r, n in converted.items()},
          "prefill_chunked_case": chunk_case, "banded_case": banded,
+         "launches_kernel_tools": _tool_launches(kernel_tools, K1),
          **_parallel_fields((K1,), ring, train_par, serve_tp, moe_ep=moe_ep["counts"],
                             pipeline=pipe["counts"], serve_tp_lora=tp_lora["counts"]),
          "shards": shards["k1"],
@@ -6127,6 +6381,18 @@ def main(argv=None) -> int:
          "launches_path": paths[not fused_choice(causal=True)],
          **_parallel_fields((KERNEL_FUSED,), ring, train_par),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K2"},
+         "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_FUSED),
+         "banded_backward": {
+             "launches": banded_bwd["launches"][KERNEL_FUSED],
+             "launches_path": f"flash_backward(bands={BANDED_BANDS}): b {BANDED_BATCH}, "
+                              f"{HEADS}/{KV_HEADS} heads, s {BANDED_SEQ}, causal",
+             "max_abs_err": banded_bwd["banded"][0],
+             "worst_err_bound": banded_bwd["banded"][1],
+             "worst_err_bound_vs_k3": banded_bwd["banded_vs_k3"][1],
+             "prefix_shapes": {"rows": BANDED_SEQ // BANDED_BANDS, "keys": BANDED_PREFIX_KEYS,
+                               "max_abs_err": banded_bwd["prefix"][0],
+                               "worst_err_bound": banded_bwd["prefix"][1]},
+             "by_seq": time_banded_backward()},
          "max_abs_err": backward_err[KERNEL_FUSED], **fused_t},
         {"name": "flash_backward_split", "route": "cuda",
          "source": pkg + "flash_backward.cu",
@@ -6140,6 +6406,7 @@ def main(argv=None) -> int:
          **_parallel_fields((KERNEL_DKV, KERNEL_DQ), ring, train_par, moe_ep=moe_ep["counts"],
                             pipeline=pipe["counts"]),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K3"},
+         "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_DKV, KERNEL_DQ),
          "max_abs_err": backward_err["split"], **split_t},
         # Head width 256: the same wrappers and kernels, their d-256
         # instantiations (flash_backward.cu built again at 256 by
@@ -6194,6 +6461,7 @@ def main(argv=None) -> int:
          "launches": tools[KQ],
          "launches_path": "tools/bench_quant.py: bench_quant and numerics_check "
                           "at their defaults",
+         "launches_kernel_tools": _tool_launches(kernel_tools, KQ),
          "max_abs_err": max(quant_err, tool_cases[KQ][0]),
          "worst_err_bound": max(quant_ratio, tool_cases[KQ][1]),
          **time_flash_quant(_ptxas_by_kernel(logs.get("flash_quant.cu", "")))},
@@ -6203,6 +6471,7 @@ def main(argv=None) -> int:
          "launches_path": "tools/bench_attention.py --kernels prog --json at its default seqs "
                           "(its FORI rungs: depths 1 and 2)",
          "launches_fori_host_timing": attn_options["host_timing"][KERNEL_FORI],
+         "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_FORI),
          "max_abs_err": max(fori_err, tool_cases[KERNEL_FORI][0]),
          "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]),
          **time_fori(_ptxas_by_kernel(logs.get("flash_forward_fori.cu", "")))},

@@ -215,6 +215,78 @@ class KernelConfig:
     # block_kv hint by it. Nothing on Hopper reads it.
     S_TILE_BUDGET_BYTES = 32 * 1024 * 1024
 
+    # The JAX package's best-known TPU knobs per whole-sequence KV bucket:
+    # upper seq_kv bound -> (preferred block_q, kv_splits, q_splits,
+    # head_pack). TPU measurements; on Hopper they select no kernel.
+    _SWEEP_TABLE = (
+        (512, (512, 1, 2, 16)),
+        (1024, (512, 1, 1, 8)),
+        (2048, (1024, 1, 2, 4)),
+        (4096, (512, 2, 2, 2)),
+        (8192, (512, 4, 2, 2)),
+        (None, (512, 8, 2, 1)),
+    )
+
+    @classmethod
+    def for_shape(cls, seq_q: int, seq_kv: int, *, preferred_q: int | None = None,
+                  preferred_kv: int | None = None, heads: int | None = None,
+                  kv_heads: int | None = None, batch: int | None = None,
+                  **kwargs) -> "KernelConfig":
+        """The JAX package's best-known config for (seq_q, seq_kv): blocks
+        clamped to the largest legal divisor of each length (whole-sequence
+        KV while the fp32 S tile fits ``S_TILE_BUDGET_BYTES``), the overlap
+        knobs from ``_SWEEP_TABLE`` (head packing only with ``heads`` and no
+        GQA, else q_splits and kv_splits 2), the pack halved until the VMEM
+        model fits. JAX's defaults (``optimized_softmax`` True) apply, so
+        the config equals JAX's. On Hopper it runs K1 (K11 with
+        ``kv_loop=KVLoop.FORI``); the knobs are hints. ``ValueError`` for a
+        length no block tiles."""
+
+        def clamp(pref: int, seq: int, quantum: int) -> int:
+            b = min(pref, seq)
+            b -= b % quantum
+            while b > quantum and seq % b:
+                b -= quantum
+            if b < quantum or seq % b:
+                raise ValueError(f"seq {seq} not tileable (quantum {quantum})")
+            return b
+
+        for bound, row in cls._SWEEP_TABLE:
+            if bound is None or seq_kv <= bound:
+                tbl_q, tbl_sp, tbl_qs, tbl_hp = row
+                break
+        dtype = kwargs.get("dtype", DType.BF16)
+        bq = clamp(tbl_q if preferred_q is None else preferred_q, seq_q, dtype.min_tile[0])
+        if preferred_kv is None:
+            preferred_kv = max(cls.S_TILE_BUDGET_BYTES // (4 * bq), 128)
+        bkv = clamp(preferred_kv, seq_kv, 128)
+        grid = kwargs.get("kv_loop", KVLoop.GRID) == KVLoop.GRID
+        hp = 1
+        if "head_pack" not in kwargs and grid and heads and heads == (kv_heads or heads):
+            pool = heads * (batch or 1)
+            hp = next((c for c in (tbl_hp, tbl_hp // 2, tbl_hp // 4, 2)
+                       if 1 < c <= tbl_hp and pool % c == 0), 1)
+            if hp > 1:
+                kwargs["head_pack"] = hp
+                if batch and batch > 1 and (heads % hp or hp > heads):
+                    kwargs.setdefault("fold_batch", True)
+        if hp == 1 and tbl_hp > 1:
+            tbl_qs = max(tbl_qs, 2)
+            if bkv >= 2048:
+                tbl_sp = max(tbl_sp, 2)
+        if "kv_splits" not in kwargs and tbl_sp > 1 and bkv % (tbl_sp * 128) == 0:
+            kwargs["kv_splits"] = tbl_sp
+        if ("q_splits" not in kwargs and grid and tbl_qs > 1
+                and bq % (tbl_qs * dtype.min_tile[0]) == 0):
+            kwargs["q_splits"] = tbl_qs
+        cfg = cls(**{"optimized_softmax": True, **kwargs, "block_q": bq, "block_kv": bkv})
+        grp = heads // kv_heads if (heads and kv_heads) else 1
+        if (cfg.head_pack > 1 and not cfg.fits_vmem(grp)
+                and dataclasses.replace(cfg, head_pack=1).fits_vmem(grp)):
+            while cfg.head_pack > 1 and not cfg.fits_vmem(grp):
+                cfg = dataclasses.replace(cfg, head_pack=cfg.head_pack // 2)
+        return cfg
+
     @property
     def resolved_out_dtype(self) -> DType:
         return self.out_dtype if self.out_dtype is not None else self.dtype

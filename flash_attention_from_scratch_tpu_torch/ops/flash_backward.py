@@ -9,11 +9,15 @@ TMA copies, at head width 128 or 256; their launches are :func:`plan`. For
 CPU tensors it runs the plain version, :func:`flash_backward_plain`. :func:`make_flash_backward`
 and :func:`make_flash_backward_fused` bind K3 and K2 to one shape, as the
 JAX package's ``make_*`` functions bind its ``pallas_call``s.
+``flash_backward(..., bands=n)`` runs the row-band causal backward
+(:func:`banded_backward`): K2 on each band's diagonal square and on its
+past keys.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -28,7 +32,8 @@ from .flash_forward import (
 
 __all__ = ["flash_backward", "flash_backward_plain", "fused_choice", "plan",
            "make_flash_backward", "make_flash_backward_fused", "fused_backward_fits",
-           "dkv_q_tiles", "KERNEL_FUSED", "KERNEL_DKV", "KERNEL_DQ"]
+           "dkv_q_tiles", "banded_backward", "banded_calls", "KERNEL_FUSED",
+           "KERNEL_DKV", "KERNEL_DQ"]
 
 KERNEL_FUSED = "flash_backward_fused"
 KERNEL_DKV = "flash_backward_dkv"
@@ -311,22 +316,107 @@ def flash_backward(q, k, v, o, lse, do, cfg: KernelConfig | None = None, *,
     (:func:`fused_choice`). The TPU's rule for choosing
     (``fused_backward_fits``: whole-sequence dK/dV scratch in VMEM) does
     not apply on Hopper, where each CTA keeps dK/dV for its own 64 or 128
-    KV rows only. ``bands`` (the TPU's banded backward, a measured loss
-    there) is not ported.
+    KV rows only.
+
+    ``bands=n`` (explicit only) runs the row-band causal backward,
+    :func:`banded_backward`, where the JAX package's guard holds: n > 1, a
+    causal config without a window or ``q_offset``, seq_q == seq_kv,
+    ``fused`` not False and K2's launch fitting past keys of seq - seq / n
+    rows (:func:`fused_backward_fits`). Every other call runs K2 or K3 as
+    without ``bands``. ``ValueError`` unless n >= 1 divides seq_q (the JAX
+    package does not check, and drops the last rows' gradients).
+    ``flash_attention`` and the ``decompose`` configs never band the
+    backward, as in the JAX package.
     """
-    if bands is not None:
-        raise NotImplementedError(
-            "the banded backward is not ported (ROADMAP Queue 2, K2)")
+    if bands is not None and (bands < 1 or q.shape[2] % bands):
+        raise ValueError(f"bands {bands} must be at least 1 and divide seq_q "
+                         f"{q.shape[2]}")
     cfg = cfg or _default_cfg(q)
     _validate_backward(cfg, q, k, v, o, lse, do)
     scale = cfg.softmax_scale if scale is None else scale
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    seq = q.shape[2]
+    if (bands is not None and bands > 1 and cfg.causal and not cfg.window
+            and not cfg.q_offset and seq == k.shape[2] and fused is not False
+            and fused_backward_fits(seq - seq // bands, q.shape[3])):
+        return banded_backward(q, k, v, o, lse, do, cfg, scale, bands)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, do, cfg, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     do = do.to(q.dtype)
     return _launch(q, k, v, lse, _row_sums(o, do), do, cfg, scale,
                    fused=fused_choice(fused, cfg.causal))
+
+
+def _bwd_band_count(seq: int, band_rows: int = 1024) -> int:
+    """Row bands for the banded backward, as the JAX package's
+    ``_bwd_band_count``: seq // band_rows, within 1 and 16, lowered until
+    it divides ``seq``."""
+    n = max(1, min(16, seq // band_rows))
+    while seq % n:
+        n -= 1
+    return n
+
+
+def banded_calls(seq: int, bands: int) -> list[tuple[int, int, int, bool]]:
+    """The K2 calls of :func:`banded_backward` over ``seq`` rows in
+    ``bands`` bands of r = seq / bands rows, in order: (first Q row, first
+    key, key end, causal) each. Band i runs its diagonal square (keys i r
+    to (i + 1) r, causal) and, for i > 0, its past keys (0 to i r, not
+    causal): 2 bands - 1 calls."""
+    rows = seq // bands
+    calls = []
+    for i in range(bands):
+        calls.append((i * rows, i * rows, (i + 1) * rows, True))
+        if i:
+            calls.append((i * rows, 0, i * rows, False))
+    return calls
+
+
+def _fused_call(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float):
+    """One K2 launch (its plain version for CPU tensors) from D = rowsum(dO
+    * O): (dq, dk, dv) in the inputs' dtype."""
+    if q.device.type == "cpu":
+        return _plain_from_rows(q, k, v, lse, dsum, do, cfg, scale)
+    return _launch(q, k, v, lse, dsum, do, cfg, scale, fused=True)
+
+
+def banded_backward(q, k, v, o, lse, do, cfg: KernelConfig, scale: float, bands: int):
+    """The row-band causal backward (counterpart of the JAX package's
+    ``_cached_banded_backward``): :func:`banded_calls`' K2 calls.
+
+    Each call takes its rows' global LSE and D = rowsum(dO * O), computed
+    once for the whole call, so its recomputed P is the true softmax weight
+    of its (rows, keys) rectangle, and the parts add up to the monolithic
+    backward. dK and dV add up in fp32 over the bands; a band's two dQ
+    parts are summed in fp32, then cast. The TPU measured it slower than
+    the monolithic kernel and kept it for measuring on other chips
+    (``chip_smoke.py::time_banded_backward`` times it on the card). On
+    validated inputs (:func:`flash_backward`)."""
+    b, h, seq, d = q.shape
+    rows = seq // bands
+    diag = dataclasses.replace(cfg, q_offset=0, decompose=False)
+    rect = dataclasses.replace(cfg, causal=False, q_offset=0, window=0, decompose=False)
+    do = do.to(q.dtype)
+    dsum = _row_sums(o, do)
+    dq = torch.empty((b, h, seq, d), dtype=q.dtype, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq_band = None
+    for row0, kv0, kv_end, causal in banded_calls(seq, bands):
+        sl, keys = slice(row0, row0 + rows), slice(kv0, kv_end)
+        dq_p, dk_p, dv_p = _fused_call(q[:, :, sl], k[:, :, keys], v[:, :, keys],
+                                       lse[:, :, sl], dsum[:, :, sl], do[:, :, sl],
+                                       diag if causal else rect, scale)
+        dk[:, :, keys] += dk_p
+        dv[:, :, keys] += dv_p
+        if causal:  # a band's first call
+            dq_band = dq_p.float()
+        else:
+            dq_band += dq_p
+        if kv0 == 0:  # a band's last call: its prefix, or band 0's square
+            dq[:, :, sl] = dq_band.to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fused_backward_fits(seq_kv: int, d_head: int, vmem_limit_mb: int = 64) -> bool:

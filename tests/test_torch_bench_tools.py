@@ -3,7 +3,8 @@
 ``tools/bench_quant.py``'s numerics check runs the plain version of K10 on
 the CPU and must pass the adaptive 2x rule for every variant (the same rule
 the tool applies on the card). The timing paths measure the card only:
-without one they raise. Every tool's ``--help`` exits 0.
+without one they raise. Every tool's ``--help`` exits 0 (the kernel tools'
+too: their other tests are in tests/test_torch_kernel_tools.py).
 ``bench_attention`` resolves ``--kernels``, ``--dtype``, ``--causal``,
 ``--window`` and ``--fori`` to the configs the JAX tool's ``main`` builds
 from the same arguments, times ``--grad`` on JAX's FLOP model, and counts
@@ -32,7 +33,9 @@ from flash_attention_from_scratch_tpu_torch.ops.configs import (
     KernelConfig, KVLoop, parse_short_form,
 )
 from flash_attention_from_scratch_tpu_torch.tools import (
-    bench_attention, bench_decode, bench_quant, bench_serving,
+    autotune, bench_attention, bench_backward, bench_decode, bench_ladder, bench_quant,
+    bench_serving, bench_sweep, bench_train, debug_steps, profile_trace, quant_trace,
+    sanity_check,
 )
 
 
@@ -59,8 +62,11 @@ def test_tool_inputs_on_the_cpu():
         assert (qq is q) if q_kind == "bf16" else qq.mode == q_kind, name
 
 
-@pytest.mark.parametrize("tool", [bench_quant, bench_attention],
-                         ids=["bench_quant", "bench_attention"])
+HELP_TOOLS = (bench_quant, bench_attention, autotune, bench_backward, bench_ladder, bench_sweep,
+              bench_train, debug_steps, profile_trace, quant_trace, sanity_check)
+
+
+@pytest.mark.parametrize("tool", HELP_TOOLS, ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_help_exits_zero(tool, capsys):
     with pytest.raises(SystemExit) as exc:
         tool.main(["--help"])

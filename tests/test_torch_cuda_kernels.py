@@ -943,6 +943,35 @@ def test_flash_backward_ragged_and_mha(cuda, fused, sq, skv, heads, kv_heads, kw
         assert torch.equal(got[0], again[0])
 
 
+@pytest.mark.parametrize("sq,skv", [(256, 256), (256, 512), (256, 768)])
+def test_fused_backward_on_past_keys(cuda, sq, skv):
+    """K2 with fewer Q rows than keys and no mask: the banded backward's
+    past-key calls (band i's rows against the i bands before them)."""
+    cfg = KernelConfig()
+    q, k, v, do = _backward_inputs(cuda, sq, skv, 8, 2, cfg, seed=12)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=True)
+    torch.cuda.synchronize()
+    _check_backward(got, q, k, v, o, lse, do, cfg, ("past keys", sq, skv))
+
+
+@pytest.mark.parametrize("bands", [2, 4])
+def test_banded_backward_matches_plain(cuda, bands):
+    """``flash_backward(..., bands=n)``: 2 n - 1 K2 launches (each band's
+    diagonal square, and its past keys after band 0) and no other kernel,
+    held to the plain backward by the sliced rule."""
+    cfg = KernelConfig(causal=True)
+    q, k, v, do = _backward_inputs(cuda, 512, 512, 8, 2, cfg, seed=13)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    names = (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)
+    before = {n: _build.launch_counts[n] for n in names}
+    got = flash_backward(q, k, v, o, lse, do, cfg, bands=bands)
+    torch.cuda.synchronize()
+    launched = {n: _build.launch_counts[n] - before[n] for n in names}
+    assert launched == {KERNEL_FUSED: 2 * bands - 1, KERNEL_DKV: 0, KERNEL_DQ: 0}
+    _check_backward(got, q, k, v, o, lse, do, cfg, ("banded", bands))
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
 def test_flash_backward_reads_each_box_in_place(cuda, fused):
     """One-hot rows make each MN-major operand's columns land in known

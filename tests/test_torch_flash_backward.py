@@ -237,6 +237,13 @@ def test_fused_choice_follows_deterministic_mode():
 
 
 def test_flash_backward_bands_not_ported():
+    """``bands`` is ported since the banded backward
+    (tests/test_torch_banded_backward.py): off the JAX guard (here without
+    the causal mask) it changes nothing, and a count that does not divide
+    the rows raises."""
     x = _t(1, 2, 64, 128)
-    with pytest.raises(NotImplementedError):
-        flash_backward(x, x, x, x, _LSE, x, bands=2)
+    want = flash_backward(x, x, x, x, _LSE, x)
+    got = flash_backward(x, x, x, x, _LSE, x, bands=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="bands"):
+        flash_backward(x, x, x, x, _LSE, x, bands=3)
