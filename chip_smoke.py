@@ -181,7 +181,14 @@ kernel tools (``phase_kernel_tools``: ``bench_ladder``, ``bench_sweep``,
 ``bench_backward`` with and without ``--causal``, ``bench_train`` at
 Llama-3-8B's widths and 8 layers, ``autotune``, ``sanity_check``,
 ``debug_steps``, ``profile_trace`` and ``quant_trace``, each through its
-``main`` with its launches counted, its rows checked). Prints
+``main`` with its launches counted, its rows checked). (12) Then the
+counterparts of the JAX package's last five tools and its ``bench`` line
+(``phase_port_tools``): ``mosaic_dump --check`` against the committed SASS
+baselines, ``check_races`` eager and under ``compute-sanitizer`` (a
+sanitizer that refuses the card at the tool's probe is reported as refused,
+never as a pass; any error or hazard it reports fails), the ``bench`` line,
+``onchip_checklist``, ``tune_bands`` at s 8,192 and ``tune_short_seq`` at s
+512 and 1,024. Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
 ``serve_gemma2_9b``, ``train``, ``train_gemma2_9b``,
@@ -189,7 +196,7 @@ Llama-3-8B's widths and 8 layers, ``autotune``, ``sanity_check``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
 ``moe_ep``, ``pipeline``, ``serve_tp_lora``, ``scaling_report``, ``dryrun``
-(and a line per rank), ``banded_backward``, ``kernel_tools``, ``phase_s``
+(and a line per rank), ``banded_backward``, ``kernel_tools``, ``port_tools``, ``phase_s``
 (each phase's wall time) and ``kernels`` JSON lines and, last, one JSON object
 with ``"ok": true``. Any failure raises, so the exit code is not 0.
 Without a CUDA device it exits with code 2 before it does anything.
@@ -4868,6 +4875,7 @@ def time_banded_backward() -> dict:
 # get_kernel_progression_configs): 4_opt_softmax runs K1, 6_manual_pipeline
 # K11 at depth 2.
 DEBUG_GRID, DEBUG_FORI = 3, 5
+PROFILED_CONFIG = "fa_bf16_q128_kv128_d128_fori2_x2+os+cp"  # prog's K11 at depth 2
 _TRAIN_TOOL_ARGS = ("--dim", "4096", "--layers", str(TRAIN_LAYERS), "--heads", str(HEADS),
                     "--kv-heads", str(KV_HEADS), "--hidden", "14336", "--vocab", "128256",
                     "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--steps", "3",
@@ -4884,7 +4892,9 @@ KERNEL_TOOL_RUNS = (
     ("sanity_check_small", "sanity_check", ("--small",)),
     ("debug_steps_grid", "debug_steps", ("--small", "--kernel", str(DEBUG_GRID))),
     ("debug_steps_fori", "debug_steps", ("--small", "--kernel", str(DEBUG_FORI))),
-    ("profile_trace", "profile_trace", ("--kernels", "prog", "--seq", "4096", "--out",
+    # K11 at depth 2 alone: quant_trace traces K1 below, and each trace is a
+    # process of its own (about 20 s).
+    ("profile_trace", "profile_trace", ("--kernels", PROFILED_CONFIG, "--seq", "4096", "--out",
                                         "{out}")),
     ("quant_trace", "quant_trace", ("--seq", "4096", "--out", "{out}")),
 )
@@ -4919,8 +4929,8 @@ def phase_kernel_tools(smi: str, train_rate: dict, out_dir: str) -> dict:
     spawn their own capture processes, whose launches are their own). Each
     must exit 0 and launch its kernels (K1 and K11 the ladder, K1 the
     sweep, K2 and K3 the backward bench and K2 banded with ``--causal``,
-    K1 and K3 the trainer, K1 the autotuner, K1 and K11 the checks and
-    traces, K10 and K1 ``quant_trace``); every config of ``sanity_check``
+    K1 and K3 the trainer, K1 the autotuner, K1 and K11 the checks, K11
+    at depth 2 ``profile_trace``, K10 and K1 ``quant_trace``); every config of ``sanity_check``
     passes; no TFLOP/s is non-finite or above 1.05x the card's measured
     matmul rate (2x for int8c); ``debug_steps``' maps are finite and within
     ``DEBUG_SLACK``; ``bench_train`` prints the JAX tool's keys. Reported,
@@ -4945,7 +4955,7 @@ def phase_kernel_tools(smi: str, train_rate: dict, out_dir: str) -> dict:
             "bench_train": {K1, KERNEL_DKV, KERNEL_DQ}, "autotune": {K1},
             "sanity_check": {K1, KERNEL_FORI}, "sanity_check_small": {K1, KERNEL_FORI},
             "debug_steps_grid": {K1}, "debug_steps_fori": {KERNEL_FORI},
-            "profile_trace": {K1, KERNEL_FORI}, "quant_trace": {KQ, K1}}
+            "profile_trace": {KERNEL_FORI}, "quant_trace": {KQ, K1}}
     ceiling = 1.05 * measured_matmul_tflops()
     out, lines = {}, {}
     for label, tool, args in KERNEL_TOOL_RUNS:
@@ -4994,6 +5004,114 @@ def phase_kernel_tools(smi: str, train_rate: dict, out_dir: str) -> dict:
                     for r in rows if r["config"] == r["traced_as"]]
         lines[label] = {"args": " ".join(args), "rows": rows, "launches": counts, "s": took}
         print(json.dumps({"kernel_tools": {label: lines[label], "gpu": smi}}), flush=True)
+        out[label] = counts
+    return out
+
+
+# The port's last five JAX tools and its bench line (label, module under the
+# package, arguments). The sanitizer modes run every kernel group.
+PORT_TOOL_RUNS = (
+    ("mosaic_dump_check", "tools.mosaic_dump", ("--check",)),
+    ("check_races_eager", "tools.check_races", ()),
+    ("check_races_vector_clocks", "tools.check_races", ("--mode", "vector-clocks",
+                                                        "--timeout", "240")),
+    ("check_races_on_wait", "tools.check_races", ("--mode", "on-wait", "--timeout", "240")),
+    ("bench", "bench", ()),
+    ("onchip_checklist", "tools.onchip_checklist", ()),
+    ("tune_bands", "tools.tune_bands", ("--seq-lens", "8192", "--json")),
+    ("tune_short_seq", "tools.tune_short_seq", ("--seq-lens", "512,1024", "--json")),
+)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_sdpa_tflops", "pct_of_sol",
+              "sol_tflops", "config", "ms_per_call", "device")
+
+
+def phase_port_tools(smi: str) -> dict:
+    """The port's counterparts of the JAX package's last five tools and its
+    ``bench`` line, as a user runs them (``PORT_TOOL_RUNS``), each through
+    its ``main`` in this process, launch counts set to 0 just before and
+    read just after (the sanitizer modes run their cases in child processes
+    under ``compute-sanitizer``, whose launches are the children's own).
+    Gates: ``mosaic_dump --check`` passes the committed SASS baselines;
+    ``check_races --mode eager`` holds every case and launches K11, K4/K5,
+    K1, K2, K3, K10 and K6-K9; a sanitizer mode exits 0, or
+    ``check_races.REFUSED_RC`` where the sanitizer refused this card at the
+    tool's context-only probe and nothing else went wrong (each such
+    (kernel group, tool) printed as refused, never as a pass; a reported
+    error or hazard, or a run left unchecked otherwise, fails the phase);
+    the ``bench`` line has its keys, the card's name and power limit, and a
+    rate below 1.05x the card's measured matmul rate; every
+    ``onchip_checklist`` item passes; ``tune_bands`` and ``tune_short_seq``
+    rows are finite and below that ceiling, with the monolithic K1 and SDPA
+    control rows. Returns {label: launches}."""
+    import importlib
+    import io
+
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+    from flash_attention_from_scratch_tpu_torch.tools.check_races import REFUSED_RC
+    from flash_attention_from_scratch_tpu_torch.utils.chip import measured_matmul_tflops
+
+    want = {"check_races_eager": {K1, KERNEL_FORI, KP, KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ,
+                                  KQ, *KERNELS.values()},
+            "bench": {K1}, "onchip_checklist": {K1, KP},
+            "tune_bands": {K1}, "tune_short_seq": {K1, KERNEL_FORI}}
+    ceiling = 1.05 * measured_matmul_tflops()
+    out = {}
+    for label, module_name, args in PORT_TOOL_RUNS:
+        module = importlib.import_module(f"flash_attention_from_scratch_tpu_torch.{module_name}")
+        torch.cuda.empty_cache()
+        text, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        _build.launch_counts.clear()  # counts start at 0 just before the run
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(err):
+            rc = module.main(list(args))
+        counts = dict(_build.launch_counts)  # read just after
+        took = time.perf_counter() - t
+        printed = text.getvalue()
+        rows = [json.loads(line) for line in printed.splitlines() if line.startswith("{")]
+        missing = [n for n in want.get(label, ()) if not counts.get(n)]
+        fault = [f"kernels not launched {missing}"] if missing else []
+        line = {"args": " ".join(args), "rc": rc, "launches": counts, "s": took}
+        if label.startswith("check_races_") and label != "check_races_eager":
+            if rc not in (0, REFUSED_RC):
+                fault.append(f"rc {rc}")
+            line["checked"] = rc == 0
+        elif rc != 0:
+            fault.append(f"rc {rc}")
+        if label == "bench":
+            if len(rows) != 1 or tuple(rows[0]) != BENCH_KEYS:
+                fault.append(f"line {rows}")
+            elif not (math.isfinite(rows[0]["value"]) and rows[0]["value"] <= ceiling
+                      and rows[0]["device"] == smi):
+                fault.append(f"value {rows[0]['value']} (ceiling {ceiling:.1f}), device "
+                             f"{rows[0]['device']!r}")
+        if label == "onchip_checklist":
+            summary = json.loads(printed.strip().splitlines()[-1])
+            line["items"] = summary
+            line["stderr"] = [x.strip() for x in err.getvalue().splitlines()
+                              if x.startswith("  ") and (": PASS" in x or ": FAIL" in x)]
+            if any(v != "PASS" for v in summary.values()):
+                fault.append(f"items {summary}")
+        if label in ("tune_bands", "tune_short_seq"):
+            control = "monolithic" if label == "tune_bands" else "sdpa"
+            bad = [(r["config"] if "config" in r else r["rule"], r["tflops"]) for r in rows
+                   if not (math.isfinite(r["tflops"]) and 0 < r["tflops"] <= ceiling)]
+            if bad or not any(r.get("rule", r.get("config")) == control for r in rows):
+                fault.append(f"rows {bad}, control {control}")
+        if fault:
+            raise AssertionError(f"{module_name} {' '.join(args)}: {'; '.join(fault)}\n"
+                                 f"{printed[-3000:]}\n{err.getvalue()[-2000:]}")
+        if label in ("bench", "tune_bands", "tune_short_seq"):
+            line["rows"] = rows
+        else:
+            line["printed"] = printed[-4000:]
+        print(json.dumps({"port_tools": {label: line, "gpu": smi}}), flush=True)
         out[label] = counts
     return out
 
@@ -6253,6 +6371,9 @@ def main(argv=None) -> int:
         shutil.rmtree(scratch, ignore_errors=True)
     lap("banded backward, kernel tools")
     torch.cuda.empty_cache()
+    port_tools = phase_port_tools(smi)
+    lap("port_tools")
+    torch.cuda.empty_cache()
     ring_dir = os.path.join(scratch, "ring")
     os.makedirs(ring_dir, exist_ok=True)
     try:
@@ -6307,6 +6428,7 @@ def main(argv=None) -> int:
          "launches_convert": {r: n.get(K1, 0) for r, n in converted.items()},
          "prefill_chunked_case": chunk_case, "banded_case": banded,
          "launches_kernel_tools": _tool_launches(kernel_tools, K1),
+         "launches_port_tools": _tool_launches(port_tools, K1),
          **_parallel_fields((K1,), ring, train_par, serve_tp, moe_ep=moe_ep["counts"],
                             pipeline=pipe["counts"], serve_tp_lora=tp_lora["counts"]),
          "shards": shards["k1"],
@@ -6321,6 +6443,7 @@ def main(argv=None) -> int:
              KERNEL_INT8C: quant_runs["E"]["counts"].get(KERNEL_INT8C, 0),
              KERNEL_MULTI_INT8C: quant_runs["F"]["counts"].get(KERNEL_MULTI_INT8C, 0)},
          "launches_serve_chunk": chunked["counts"].get(KP, 0),
+         "launches_port_tools": _tool_launches(port_tools, KP),
          "launches_serve_sample": {str(c): n.get(KP, 0)
                                    for c, n in sampled["counts"].items()},
          "launches_serve_prefix": prefixed["counts"].get(KP, 0),
@@ -6382,6 +6505,7 @@ def main(argv=None) -> int:
          **_parallel_fields((KERNEL_FUSED,), ring, train_par),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K2"},
          "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_FUSED),
+         "launches_port_tools": _tool_launches(port_tools, KERNEL_FUSED),
          "banded_backward": {
              "launches": banded_bwd["launches"][KERNEL_FUSED],
              "launches_path": f"flash_backward(bands={BANDED_BANDS}): b {BANDED_BATCH}, "
@@ -6407,6 +6531,7 @@ def main(argv=None) -> int:
                             pipeline=pipe["counts"]),
          "shards": {k: v for k, v in shards["backward"].items() if v["kernel"] == "K3"},
          "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_DKV, KERNEL_DQ),
+         "launches_port_tools": _tool_launches(port_tools, KERNEL_DKV, KERNEL_DQ),
          "max_abs_err": backward_err["split"], **split_t},
         # Head width 256: the same wrappers and kernels, their d-256
         # instantiations (flash_backward.cu built again at 256 by
@@ -6444,6 +6569,7 @@ def main(argv=None) -> int:
             "replaces": "flash_attention_from_scratch_tpu/ops/quant_matmul.py:"
                         f"{tpu_lines[(mode, act_quant)]}",
             "launches": launches, "launches_path": f"serve run {run}",
+            "launches_port_tools": _tool_launches(port_tools, name),
             "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant, ptxas)})
         if name == KERNELS[("int8", False)]:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
@@ -6462,6 +6588,7 @@ def main(argv=None) -> int:
          "launches_path": "tools/bench_quant.py: bench_quant and numerics_check "
                           "at their defaults",
          "launches_kernel_tools": _tool_launches(kernel_tools, KQ),
+         "launches_port_tools": _tool_launches(port_tools, KQ),
          "max_abs_err": max(quant_err, tool_cases[KQ][0]),
          "worst_err_bound": max(quant_ratio, tool_cases[KQ][1]),
          **time_flash_quant(_ptxas_by_kernel(logs.get("flash_quant.cu", "")))},
@@ -6472,6 +6599,7 @@ def main(argv=None) -> int:
                           "(its FORI rungs: depths 1 and 2)",
          "launches_fori_host_timing": attn_options["host_timing"][KERNEL_FORI],
          "launches_kernel_tools": _tool_launches(kernel_tools, KERNEL_FORI),
+         "launches_port_tools": _tool_launches(port_tools, KERNEL_FORI),
          "max_abs_err": max(fori_err, tool_cases[KERNEL_FORI][0]),
          "worst_err_bound": max(fori_ratio, tool_cases[KERNEL_FORI][1]),
          **time_fori(_ptxas_by_kernel(logs.get("flash_forward_fori.cu", "")))},

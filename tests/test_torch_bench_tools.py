@@ -4,7 +4,8 @@
 the CPU and must pass the adaptive 2x rule for every variant (the same rule
 the tool applies on the card). The timing paths measure the card only:
 without one they raise. Every tool's ``--help`` exits 0 (the kernel tools'
-too: their other tests are in tests/test_torch_kernel_tools.py).
+and the port's ``bench`` too: their other tests are in
+tests/test_torch_kernel_tools.py and tests/test_torch_port_tools.py).
 ``bench_attention`` resolves ``--kernels``, ``--dtype``, ``--causal``,
 ``--window`` and ``--fori`` to the configs the JAX tool's ``main`` builds
 from the same arguments, times ``--grad`` on JAX's FLOP model, and counts
@@ -26,6 +27,7 @@ from flash_attention_from_scratch_tpu.models import llama as jax_llama
 from flash_attention_from_scratch_tpu.ops.configs import parse_short_form as jax_parse_short_form
 from flash_attention_from_scratch_tpu.tools import bench_attention as jax_bench_attention
 from flash_attention_from_scratch_tpu.tools import bench_decode as jax_bench_decode
+from flash_attention_from_scratch_tpu_torch import bench as port_bench
 from flash_attention_from_scratch_tpu_torch import dispatch
 from flash_attention_from_scratch_tpu_torch.models import llama
 from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
@@ -34,8 +36,8 @@ from flash_attention_from_scratch_tpu_torch.ops.configs import (
 )
 from flash_attention_from_scratch_tpu_torch.tools import (
     autotune, bench_attention, bench_backward, bench_decode, bench_ladder, bench_quant,
-    bench_serving, bench_sweep, bench_train, debug_steps, profile_trace, quant_trace,
-    sanity_check,
+    bench_serving, bench_sweep, bench_train, check_races, debug_steps, mosaic_dump,
+    onchip_checklist, profile_trace, quant_trace, sanity_check, tune_bands, tune_short_seq,
 )
 
 
@@ -63,7 +65,8 @@ def test_tool_inputs_on_the_cpu():
 
 
 HELP_TOOLS = (bench_quant, bench_attention, autotune, bench_backward, bench_ladder, bench_sweep,
-              bench_train, debug_steps, profile_trace, quant_trace, sanity_check)
+              bench_train, debug_steps, profile_trace, quant_trace, sanity_check, check_races,
+              mosaic_dump, onchip_checklist, tune_bands, tune_short_seq, port_bench)
 
 
 @pytest.mark.parametrize("tool", HELP_TOOLS, ids=lambda m: m.__name__.rsplit(".", 1)[-1])

@@ -35,9 +35,7 @@ of each leaf's largest gradient (about one bf16 ulp).
 
 import collections
 import dataclasses
-import os
 import re
-import subprocess
 
 import numpy as np
 import pytest
@@ -74,6 +72,9 @@ from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
     quantize_activations, quantize_rows,
 )
 from flash_attention_from_scratch_tpu_torch.tools import bench_quant
+from flash_attention_from_scratch_tpu_torch.tools.mosaic_dump import (
+    KERNEL_SASS_DIR, check_regression, resource_usage, sass_by_function,
+)
 from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     make_qkv, row_bands, sliced_tolerance_check,
@@ -394,32 +395,22 @@ def test_flash_quant_kernel_is_deterministic(cuda, variant, d_head):
         assert torch.equal(first, flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
 
 
-def _sass_by_function(source):
-    """{kernel symbol: its SASS} of the built library of ``source``."""
-    path = _build.load(source)._name
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
-    parts = re.split(r"\n\s*Function : (\S+)", sass)
-    return dict(zip(parts[1::2], parts[2::2]))
-
-
 def test_attention_kernels_run_on_wgmma(cuda):
     """K1, K11 and K10's upcast kernels issue bf16 wgmma (HGMMA), K10's int8
     compute kernel int8 wgmma (IGMMA); none keeps an mma.sync (HMMA/IMMA).
     K1 spills nothing (no local memory, no stack)."""
-    k1 = _sass_by_function(FLASH_SOURCE)
+    k1 = sass_by_function(FLASH_SOURCE)
     assert [n for n in k1 if "flash_forward_kernel" in n], list(k1)
-    fori = _sass_by_function(SOURCE_FORI)
+    fori = sass_by_function(SOURCE_FORI)
     assert len([n for n in fori if "flash_forward_fori_kernel" in n]) == MAX_KV_BUFFERS
-    quant = _sass_by_function(SOURCE_QUANT)
+    quant = sass_by_function(SOURCE_QUANT)
     assert len([n for n in quant if "flash_quant_kernel" in n]) == 9
     for name, sass in {**k1, **fori, **quant}.items():
         want = "IGMMA" if "flash_quant_i8_kernel" in name else "HGMMA"
         assert want in sass, name
         assert "HMMA" not in sass and "IMMA" not in sass, name
     assert any("flash_quant_i8_kernel" in n for n in quant)
-    for name, use in _resource_usage(FLASH_SOURCE).items():
+    for name, use in resource_usage(FLASH_SOURCE).items():
         assert use["local"] == 0 and use["stack"] == 0, (name, use)
 
 
@@ -427,10 +418,10 @@ def test_d256_attention_kernels_run_on_wgmma(cuda):
     """K11's and K10's d-256 libraries hold their kernels at d 256 alone
     (four ring depths; nine upcast kernels and the int8-compute one), each
     on wgmma (HGMMA; IGMMA for int8 compute) with no mma.sync."""
-    fori = _sass_by_function(SOURCES_FORI[256])
+    fori = sass_by_function(SOURCES_FORI[256])
     names = [n for n in fori if "flash_forward_fori_kernel" in n]
     assert len(names) == MAX_KV_BUFFERS and all("Li256EE" in n for n in names), list(fori)
-    quant = _sass_by_function(SOURCES_QUANT[256])
+    quant = sass_by_function(SOURCES_QUANT[256])
     upcast = [n for n in quant if "flash_quant_kernel" in n]
     i8 = [n for n in quant if "flash_quant_i8_kernel" in n]
     assert len(upcast) == 9 and len(i8) == 1, list(quant)
@@ -441,16 +432,13 @@ def test_d256_attention_kernels_run_on_wgmma(cuda):
         assert "HMMA" not in sass and "IMMA" not in sass, name
 
 
-def _resource_usage(source):
-    """{kernel symbol: its registers, stack and local bytes} of the built
-    library of ``source`` (``cuobjdump -res-usage``): local memory is where
-    ptxas spills."""
-    path = _build.load(source)._name
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([cuobjdump, "-res-usage", path], capture_output=True, text=True,
-                         check=True).stdout
-    return {m[0]: dict(reg=int(m[1]), stack=int(m[2]), local=int(m[3])) for m in re.findall(
-        r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", out)}
+def test_kernel_sass_within_committed_budget(cuda):
+    """Every kernel symbol of every library, rebuilt from the sources, within
+    the committed baselines under the package's ``kernel_sass/``
+    (``tools/mosaic_dump.py::check_regression``: total opcodes +5%, one
+    opcode max(8, +25%), no register more, no new stack or local bytes)."""
+    failures = check_regression(KERNEL_SASS_DIR, log=lambda *a: None)
+    assert not failures, "\n".join(failures)
 
 
 def test_backward_kernels_run_on_wgmma_without_spills(cuda):
@@ -458,8 +446,8 @@ def test_backward_kernels_run_on_wgmma_without_spills(cuda):
     kernel; each head width's library its own) issue bf16 wgmma (HGMMA)
     and no mma.sync (HMMA), and spill nothing: no local memory, no stack."""
     for d, source in BACKWARD_SOURCES.items():
-        sass = _sass_by_function(source)
-        usage = _resource_usage(source)
+        sass = sass_by_function(source)
+        usage = resource_usage(source)
         names = [n for n in sass if "flash_backward_" in n]
         assert len(names) == 3 and all(f"Li{d}EE" in n for n in names), list(sass)
         assert len([n for n in names if "flash_backward_dkv_kernel" in n]) == 2
@@ -618,8 +606,8 @@ def test_quant_matmul_kernels_run_on_wgmma_without_spills(cuda):
     """K6-K9 are one template, quant_matmul_kernel<W4, A8, BT>: the
     weight-only instances issue bf16 wgmma (HGMMA), the a8 ones int8 wgmma
     (IGMMA), none an mma.sync (HMMA/IMMA); the a8 ones spill nothing."""
-    sass = _sass_by_function(QMM_SOURCE)
-    usage = _resource_usage(QMM_SOURCE)
+    sass = sass_by_function(QMM_SOURCE)
+    usage = resource_usage(QMM_SOURCE)
     names = [n for n in sass if "quant_matmul_kernel" in n]
     assert len(names) == 16, list(sass)  # W4 x A8 x 4 token tiles
     a8 = [n for n in names if re.search(r"quant_matmul_kernelILb[01]ELb1E", n)]
