@@ -188,7 +188,18 @@ baselines, ``check_races`` eager and under ``compute-sanitizer`` (a
 sanitizer that refuses the card at the tool's probe is reported as refused,
 never as a pass; any error or hazard it reports fails), the ``bench`` line,
 ``onchip_checklist``, ``tune_bands`` at s 8,192 and ``tune_short_seq`` at s
-512 and 1,024. Prints
+512 and 1,024. (13) Every shape the JAX kernels take (after the kernel
+cases): K6-K9 at (K, N) of (4,096, 32,002), (4,000, 4,100), (4,004,
+4,100) and (4,096, 40) and m 1 to 1,024 (``phase_qmm_any_shape_cases``;
+K8/K9 and ``quantize_rows`` bit for bit, no call copying the weight), K4/K5
+at pages of 1-200 tokens in every store and int8 compute, d 128 and 256, t
+1 and 4 (``phase_paged_any_size_cases``), each call on NaN-poisoned
+memory; after the quantized runs, OpenHermes-2.5-Mistral-7B's widths
+(32,002-word head) served quantized (``phase_serve_openhermes``: R1 int8
+weights at 32 layers with dense pages of 1 token, R2 W4A8 at 4 layers with
+int8 pages of 96 and decode loops), each held as the quantized runs are;
+timed in the ``kernels`` line (``time_lm_head_32002``,
+``time_paged_page_sizes``). Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
 ``serve_gemma2_9b``, ``train``, ``train_gemma2_9b``,
@@ -983,11 +994,11 @@ def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
                  kv_heads: int = KV_HEADS, group: int = HEADS // KV_HEADS,
                  d_head: int = D) -> dict:
     """``want`` (launches by kernel) plus the merge kernel's: one per K4/K5
-    call, as every K4/K5 call of the serving runs has more than one split
-    (checked here at the server's padded batch, which every step has; the
-    plan is a function of the shapes only). ``kv_heads``, ``group`` (Q
-    heads a KV head) and ``d_head``: the model's, Llama-3-8B's by
-    default."""
+    call where the plan at the server's padded batch (which every step
+    has; the plan is a function of the shapes only) splits the walk, none
+    where it takes one split (R1's 1-token pages: 2,032 table tokens).
+    ``kv_heads``, ``group`` (Q heads a KV head) and ``d_head``: the
+    model's, Llama-3-8B's by default."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         KERNEL_MERGE, MODE_INT8C, MODES, kernel_name, plan)
     from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
@@ -1000,9 +1011,7 @@ def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
         p = plan(max_batch, kv_heads, group * t, pages_per_seq, page_size,
                  MODE_INT8C if i8c else MODES[mode][0], sm_count(torch.device("cuda")),
                  d_head=d_head)
-        if p.splits == 1:
-            raise AssertionError(f"one split at the serving shape: {p}")
-        calls += n
+        calls += n if p.splits > 1 else 0
     return {**want, KERNEL_MERGE: calls} if calls else want
 
 
@@ -1203,6 +1212,14 @@ def phase_serve_spec(params, smi: str) -> dict:
 
 
 CHUNK, PREFILL_CHUNK = 8, 1024  # serve_chunk: decode loop length, prefill chunk
+# serve_sample, serve_prefix and serve_lora run the bf16 model's first
+# SERVE_CUT_LAYERS layers (the same weights): the smoke's time limit.
+SERVE_CUT_LAYERS = 8
+
+
+def _first_layers(params, cfg, n: int):
+    """The model cut to its first ``n`` layers: the same tensors, no copy."""
+    return {**params, "layers": params["layers"][:n]}, dataclasses.replace(cfg, n_layers=n)
 
 
 def _fuse_in_place(params) -> None:
@@ -1465,7 +1482,7 @@ def _serve_run(label, server, prompts, smi, extra=None, adapters=None) -> dict:
 
 
 def phase_serve_sample(params, smi: str) -> dict:
-    """Sampled serving of LLAMA3_8B at full width and depth on the fused
+    """Sampled serving of LLAMA3_8B at full width (SERVE_CUT_LAYERS layers) on the fused
     weights of ``serve_chunk``: the 8 prompts of SERVE_PROMPT_LENS, 32
     tokens each at temperature 0.8, top-k 50, seed 0, whole-prompt prefill,
     served at chunk 1 (a sampled decode graph a step, the pick inside) and
@@ -1481,7 +1498,7 @@ def phase_serve_sample(params, smi: str) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
-    cfg = LLAMA3_8B
+    params, cfg = _first_layers(params, LLAMA3_8B, SERVE_CUT_LAYERS)
     rng = np.random.default_rng(0)
     prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
                for i, n in enumerate(SERVE_PROMPT_LENS)}
@@ -1564,12 +1581,12 @@ PREFIX_SHARED, PREFIX_TAILS = 2048, (256, 1024, 384, 896, 512, 768, 640, 300)
 
 
 def phase_serve_prefix(params, smi: str) -> dict:
-    """The prefix cache at full width and depth (bf16, the fused weights):
-    one request publishes a 2,048-token prefix (32 pages of 64), then 8
-    requests share it with distinct 256-1,024-token tails, 32 greedy
-    tokens each. Checks 8 x 32 = 256 pages claimed (the pool evicts
-    nothing), K1's launches (32 a suffix chunk of 128 tokens actually
-    computed; K4/K5 and its merge a decode step) and two requests
+    """The prefix cache at full width (SERVE_CUT_LAYERS layers; bf16, the
+    fused weights): one request publishes a 2,048-token prefix (32 pages of
+    64), then 8 requests share it with distinct 256-1,024-token tails, 32
+    greedy tokens each. Checks 8 x 32 = 256 pages claimed (the pool evicts
+    nothing), K1's launches (one a layer and suffix chunk of 128 tokens
+    actually computed; K4/K5 and its merge a layer and decode step) and two requests
     teacher-forced through ``forward``. Then times prefill tokens/s and
     TTFT without the cache, with it, and with it at
     ``prefill_chunk_tokens=1024`` (one suffix chunk a request), on new
@@ -1580,7 +1597,7 @@ def phase_serve_prefix(params, smi: str) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
-    cfg = LLAMA3_8B
+    params, cfg = _first_layers(params, LLAMA3_8B, SERVE_CUT_LAYERS)
     rng = np.random.default_rng(3)
     shared = rng.integers(0, cfg.vocab_size, PREFIX_SHARED).tolist()
     publisher = shared + rng.integers(0, cfg.vocab_size, 100).tolist()
@@ -1796,7 +1813,7 @@ def lora_graph_case(label, server, lengths) -> dict:
 
 
 def phase_serve_lora(params, smi: str) -> dict:
-    """Multi-LoRA serving of LLAMA3_8B at full width and depth on the fused
+    """Multi-LoRA serving of LLAMA3_8B at full width (SERVE_CUT_LAYERS layers) on the fused
     weights: 4 adapters of rank 16 (``_lora_stack``, seed 0), the 8
     prompts of SERVE_PROMPT_LENS on adapters LORA_IDS (two on the base
     model), 32 greedy tokens each at page 64, served at chunk 1 (a LoRA
@@ -1816,7 +1833,7 @@ def phase_serve_lora(params, smi: str) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
-    cfg = LLAMA3_8B
+    params, cfg = _first_layers(params, LLAMA3_8B, SERVE_CUT_LAYERS)
     lora = _lora_stack(cfg, LORA_ADAPTERS)
     rng = np.random.default_rng(0)
     prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
@@ -1905,8 +1922,9 @@ def phase_serve_lora(params, smi: str) -> dict:
 
 # Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json);
 # the serving phase cuts the depth to 8 layers (23.7 GB of bf16 weights; 32
-# layers would be ~93 GB), training to 2.
-MOE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+# layers would be ~93 GB), training to 1 (the smoke's time limit: its
+# checkpoint round trip writes and reads the whole state).
+MOE_LAYERS, MOE_TRAIN_LAYERS = 8, 1
 MOE_CLASS = "experts (router, dispatch, FFN, combine)"
 # A route that differs between the server and the recompute must be a
 # near-tie: the recompute's gates of the experts kept apart within this
@@ -3871,43 +3889,63 @@ def _param_bytes(params) -> int:
 
 
 def phase_serve_quant(run: str, smi: str, graph_check: bool = False) -> dict:
-    """One quantized serve run of LLAMA3_8B at full width (QUANT_RUNS): the
-    launch counts of its quantized kernel, K1 and K4/K5 (the int8-compute
-    and multi-token entries for runs E and F), every token and finite
-    logits, and two requests teacher-forced through ``forward``. A
-    speculative run's prompts repeat a phrase, and it must have verified
-    drafts."""
-    from flash_attention_from_scratch_tpu_torch import (
-        LLAMA3_8B, GenerationServer, init_quantized_params)
-    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
-    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import kernel_name
-    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+    """One quantized serve run of LLAMA3_8B at full width (QUANT_RUNS); see
+    ``_serve_quant``. A speculative run's prompts repeat a phrase."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B
 
     spec = QUANT_RUNS[run]
-    i8c, spec_k = spec.get("attn_int8", False), spec.get("spec_k", 0)
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=spec["layers"])
-    kernel = KERNELS[(spec["wmode"], spec["act"] == "int8")]
-    t0 = time.perf_counter()
-    params = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                   spec["wmode"], act=spec["act"])
-    pages_per_seq = -(-(QUANT_PROMPT + QUANT_NEW) // QUANT_PAGE)
-    # Each request's pages, one page of admission headroom (the scheduler
-    # admits a prompt only with a page to spare) and the scratch page.
-    server = GenerationServer(params, cfg, num_pages=spec["requests"] * pages_per_seq + 2,
-                              page_size=QUANT_PAGE, max_batch=spec["requests"],
-                              pages_per_seq=pages_per_seq, mode=spec["kv"],
-                              attn_int8=i8c, spec_k=spec_k)
-    sync()
-    weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
-    print(f"serve {run}: {spec}, weights {weight_gb:.2f} GB, KV pool {kv_gb:.3f} GB, "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
-
-    if spec_k:
+    if spec.get("spec_k"):
         prompts = _phrase_prompts([QUANT_PROMPT] * spec["requests"], cfg.vocab_size, 2)
     else:
         rng = np.random.default_rng(0)
         prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
                    for i in range(spec["requests"])}
+    graph_lengths = [QUANT_PROMPT + 17] * spec["requests"] if graph_check else None
+    return _serve_quant(run, "LLAMA3_8B", cfg, spec, prompts, QUANT_PAGE, smi, graph_lengths)
+
+
+def _serve_quant(run: str, model: str, cfg, spec: dict, prompts: dict, page: int, smi: str,
+                 graph_lengths=None) -> dict:
+    """One quantized serve run: ``spec``'s weights (``wmode``, ``act``; by
+    ``init_quantized_params``, the lm_head included), KV pages (``kv``, of
+    ``page`` tokens), ``chunk`` (greedy decode loops), ``attn_int8`` and
+    ``spec_k``; ``prompts`` ({sid: tokens}) served QUANT_NEW greedy tokens
+    each after the graphs are warmed. Checks the launch counts of its
+    quantized kernel, K1 and K4/K5 (and its merge; the int8-compute and
+    multi-token entries where the run has them), every token and finite
+    logits, and two requests teacher-forced through ``forward``; with
+    ``graph_lengths`` a ``graph_case`` at those lengths (the replayed step
+    equal to the eager one bit for bit). A speculative run must have
+    verified drafts. Prints the ``serve_quant`` line (decode and prefill
+    tokens/s, peak memory, the card) and returns the run's counts."""
+    from flash_attention_from_scratch_tpu_torch import GenerationServer, init_quantized_params
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import kernel_name
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    i8c, spec_k = spec.get("attn_int8", False), spec.get("spec_k", 0)
+    chunk = spec.get("chunk", 1)
+    kernel = KERNELS[(spec["wmode"], spec["act"] == "int8")]
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   spec["wmode"], act=spec["act"])
+    requests = len(prompts)
+    # The table holds a prompt and the larger of the run's budget and
+    # phase_profile's (4 server steps of ``chunk`` tokens, and one).
+    new_tokens = max(QUANT_NEW, 4 * chunk + 1)
+    pages_per_seq = -(-(max(map(len, prompts.values())) + new_tokens) // page)
+    # Each request's pages, one page of admission headroom (the scheduler
+    # admits a prompt only with a page to spare) and the scratch page.
+    server = GenerationServer(params, cfg, num_pages=requests * pages_per_seq + 2,
+                              page_size=page, max_batch=requests,
+                              pages_per_seq=pages_per_seq, mode=spec["kv"],
+                              attn_int8=i8c, spec_k=spec_k, chunk=chunk)
+    sync()
+    weight_gb, kv_gb = _param_bytes(params) / 1e9, server.cache.nbytes() / 1e9
+    print(f"serve {run}: {model}, {spec}, weights {weight_gb:.2f} GB, KV pool "
+          f"{kv_gb:.3f} GB, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
     capture_s = _warm_graphs(server, cfg.vocab_size, QUANT_NEW)
     result = _drive(server, prompts, QUANT_NEW)
     counts, stats = result["counts"], result["stats"]
@@ -3919,22 +3957,26 @@ def phase_serve_quant(run: str, smi: str, graph_check: bool = False) -> dict:
                              f"{stats['preemptions']} preemptions")
     if spec_k and (stats["verify_steps"] == 0 or stats["spec_proposed"] == 0):
         raise AssertionError(f"serve {run}: nothing was speculated: {stats}")
+    if chunk > 1 and stats["decode_loops"] == 0:
+        raise AssertionError(f"serve {run}: no decode loop ran: {stats}")
     steps = stats["decode_steps"] + stats["verify_steps"]
     calls = len(prompts) + steps  # prefills + decode and verify steps
     want = {kernel: (7 * cfg.n_layers + 1) * calls, K1: cfg.n_layers * len(prompts)}
     for t, n in ((1, stats["decode_steps"]), (spec_k + 1, stats["verify_steps"])):
         if n:
             want[kernel_name(t, i8c)] = cfg.n_layers * n
-    want = _with_merges(want, spec["requests"], pages_per_seq, QUANT_PAGE, spec["kv"], i8c,
-                        spec_k)
+    want = _with_merges(want, requests, pages_per_seq, page, spec["kv"], i8c, spec_k,
+                        kv_heads=cfg.n_kv_heads, group=cfg.n_heads // cfg.n_kv_heads,
+                        d_head=cfg.d_head)
     print(f"serve {run}: launches {counts}; expected {want} ((7 x {cfg.n_layers} + 1) "
           f"x ({len(prompts)} prefills + {stats['decode_steps']} decode + "
-          f"{stats['verify_steps']} verify steps))", flush=True)
+          f"{stats['verify_steps']} verify steps), the lm_head {cfg.dim} x "
+          f"{cfg.vocab_size} once a call)", flush=True)
     if counts != want:
         raise AssertionError(f"serve {run}: a kernel of the path ran the wrong number of times")
 
     worst = 0.0
-    for sid in (0, 1):
+    for sid in list(prompts)[:2]:
         gaps, std = _teacher_forced_gaps(params, cfg, prompts[sid], got[sid])
         rel = float((gaps / std).max())
         worst = max(worst, rel)
@@ -3944,17 +3986,19 @@ def phase_serve_quant(run: str, smi: str, graph_check: bool = False) -> dict:
         if rel > QUANT_SLACK_STD:
             raise AssertionError(f"serve {run}: a served token sits {rel} row std "
                                  "below the full-recompute max")
-    cases = ([graph_case(f"run {run} t1", server, [QUANT_PROMPT + 17] * spec["requests"], 1)]
-             if graph_check else [])
+    cases = [graph_case(f"run {run} t1", server, graph_lengths, 1)] if graph_lengths else []
     prof = phase_profile(server, prompts, run=run)
     ttft = sorted(server.seqs[sid].first_t - server.seqs[sid].submit_t for sid in prompts)
+    lens = [len(p) for p in prompts.values()]
     line = {
-        "run": run, "model": "LLAMA3_8B", **spec, "prompt_tokens": QUANT_PROMPT,
-        "new_tokens_per_request": QUANT_NEW, "page_size": QUANT_PAGE,
+        "run": run, "model": model, "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+        **spec, "prompt_tokens": (lens[0] if len(set(lens)) == 1 else lens),
+        "new_tokens_per_request": QUANT_NEW, "page_size": page,
         "prefill_tok_s": stats["prefill_tokens"] / result["prefill_s"],
         "decode_tok_s": result["decode_tokens"] / result["decode_s"],
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
         "wall_s": result["wall_s"], "decode_steps": stats["decode_steps"],
+        "decode_loops": stats["decode_loops"],
         **(_spec_line(stats, result) if spec_k else {}),
         "weight_gb": weight_gb, "kv_cache_gb": kv_gb,
         "peak_mem_gb": result["peak_mem_gb"], **_graph_fields(server, result, prof),
@@ -3963,6 +4007,283 @@ def phase_serve_quant(run: str, smi: str, graph_check: bool = False) -> dict:
     }
     print(json.dumps({"serve_quant": line}), flush=True)
     return {"kernel": kernel, "launches": counts[kernel], "counts": counts}
+
+
+# Every shape the JAX kernels take: K6-K9 at ragged K and N, K4/K5
+# at any page size, and OpenHermes-2.5-Mistral-7B served quantized.
+# teknium/OpenHermes-2.5-Mistral-7B's config.json: Mistral-7B's widths
+# (dim 4096, 32 layers, 32/8 heads, d 128, hidden 14336, window 4096,
+# rope_theta 10000) with two ChatML tokens added, vocab_size 32002.
+OPENHERMES_VOCAB = 32002
+# R1: full width and depth, int8 weights (K6, the 32,002-wide lm_head
+# included), a dense cache in pages of 1 token (SGLang's default page
+# size), chunk 1. R2: 4 layers, W4A8 (K9), int8 pages of 96 tokens, chunk 8.
+OPENHERMES_RUNS = {
+    "R1": dict(wmode="int8", act="bf16", kv="dense", layers=32, page=1, chunk=1),
+    "R2": dict(wmode="int4", act="int8", kv="int8", layers=4, page=96, chunk=8),
+}
+OPENHERMES_PROMPTS = {"R1": (200, 457, 714, 971, 1228, 1485, 1742, 2000),
+                      "R2": (1024,) * 4}
+# (K, N) the kernels refused before: the 32,002-wide head, N % 16 = 4 with
+# K % 32 != 0 (4,000) and K % 16 = 4 (4,004), and an N below one tile.
+ANY_QMM_SHAPES = ((4096, OPENHERMES_VOCAB), (4000, 4100), (4004, 4100), (4096, 40))
+ANY_QMM_ROWS = (1, 16, 32, 1000, 1024)
+# Page sizes of the K4/K5 cases: 40 on the chunk walk (int4: also 96 and
+# 200, whole), the rest on the gather walk; int4 pages are even.
+ANY_PAGE_SIZES = {"dense": (1, 4, 12, 40, 72, 96, 100, 200),
+                  "int4": (2, 12, 40, 96, 100, 200)}
+ANY_PAGE_LENGTHS = [0, 1, 4, 37, 300, 611, 2000]
+
+
+def _poison_free_memory(mb: int = 512) -> None:
+    """Fill the memory the caching allocator hands out next with 0xFF bytes
+    (NaN in bf16 and fp32, -1 in int32): one large block (the large pool)
+    and 1 MB blocks (the small pool), freed at once, so that an output or a
+    workspace a kernel leaves unwritten reads as NaN."""
+    blocks = [torch.full((mb << 20,), 0xFF, dtype=torch.uint8, device="cuda")]
+    blocks += [torch.full((1 << 20,), 0xFF, dtype=torch.uint8, device="cuda")
+               for _ in range(8)]
+    del blocks
+
+
+def phase_qmm_any_shape_cases() -> dict:
+    """K6-K9 at ANY_QMM_SHAPES and m in ANY_QMM_ROWS, each call on NaN-
+    poisoned memory: K6/K7 by ``_check_qmm``'s rule in each 64-row band;
+    K8/K9 equal to their plain versions bit for bit, and ``quantize_rows``
+    to the plain quantization on every K8/K9 input; one launch a call; no
+    call copies the weight (its address, and a call's peak allocation below
+    the weight's bytes at m <= 32 and N >= 4,096). Returns {kernel:
+    {"max_abs_err", "worst_err_bound", "cases"}}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        KERNELS, quant_matmul, quant_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    result = {}
+    for mode, act_quant in QMM_RECIPES:
+        name = KERNELS[(mode, act_quant)]
+        err_max = ratio_max = 0.0
+        line = []
+        for k, n in ANY_QMM_SHAPES:
+            wq = _random_qweight(k, n, mode, act_quant, gen)
+            ptr = wq.values.data_ptr()
+            for m in ANY_QMM_ROWS:
+                x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+                if act_quant:
+                    _check_quantize_rows(x)
+                sync()
+                _poison_free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                base, before = torch.cuda.memory_allocated(), _build.launch_counts[name]
+                got = quant_matmul(x, wq, act_quant=act_quant)
+                sync()
+                call_bytes = torch.cuda.max_memory_allocated() - base
+                launched = _build.launch_counts[name] - before
+                ok, ratio, _, err = _check_qmm(got, x, wq, act_quant)
+                if act_quant:
+                    ok = ok and torch.equal(got, quant_matmul_plain(x, wq, True))
+                copied = (m <= 32 and n >= 4096 and call_bytes >= wq.values.numel())
+                ok = (ok and launched == 1 and got.shape == (m, n) and not copied
+                      and wq.values.data_ptr() == ptr)
+                err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+                line.append(f"m{m} {k}x{n} {ratio:.3f}")
+                if not ok:
+                    raise AssertionError(
+                        f"{name} m {m} K {k} N {n}: err/bound {ratio}, launches {launched}, "
+                        f"call bytes {call_bytes} (weight {wq.values.numel()}): disagrees "
+                        "with its plain version or copied the weight")
+                del x, got
+            del wq
+        result[name] = {"max_abs_err": err_max, "worst_err_bound": ratio_max,
+                        "cases": len(line)}
+        print(f"{name} at any shape: {', '.join(line)}; max|kernel-plain| {err_max:.3e}"
+              f"{' (bit-equal)' if act_quant else ''} ok", flush=True)
+        torch.cuda.empty_cache()
+    return result
+
+
+def _any_page_pool(lengths, ps, store, d, seed):
+    """A shuffled pool of ``ps``-token pages (8 KV heads of width ``d``),
+    NaN where no sequence owns a slot, as ``store`` pages (the quantized
+    ones with each page's K scale also multiplied by its own factor in
+    [0.5, 2], so a tile across pages must take each token's). Returns (k,
+    v, lengths, tables, keyword arguments of the format)."""
+    need = sum(-(-n // ps) for n in lengths)
+    kp, vp, lens, tables = make_paged_pool(lengths, ps, need + 3, seed=seed,
+                                           pages_per_seq=max(-(-n // ps) for n in lengths),
+                                           d=d)
+    if store == "dense":
+        return kp, vp, lens, tables, {}
+    qk, ks, qv, vs = _quantized_pool(kp, vp, store)
+    ks = ks * torch.linspace(0.5, 2.0, ks.numel(), device="cuda").view_as(ks)
+    return qk, qv, lens, tables, dict(mode=store, k_scales=ks, v_scales=vs)
+
+
+def phase_paged_any_size_cases() -> dict:
+    """K4/K5 at ANY_PAGE_SIZES in every store and int8 compute, d 128 (32/8
+    heads) and d 256 (16/8), t 1 and 4, on pools of ANY_PAGE_LENGTHS with
+    NaN in every slot no sequence owns, each call on NaN-poisoned memory:
+    plain at split counts 1 and the plan's, a window of 100 and a softcap
+    of 20 at the plan's, by the rule of ``_hold_paged`` against the plain
+    version (without its line a call). Returns {"max_abs_err",
+    "worst_err_bound", "calls", "gather_calls"}."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        MODE_INT8C, MODES, plan)
+    from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
+    from flash_attention_from_scratch_tpu_torch.utils.testing import sliced_tolerance_check
+
+    def by_token(x):
+        return x.transpose(1, 2) if x.ndim == 4 else x[:, None]
+
+    err_max = ratio_max = 0.0
+    calls = gather_calls = 0
+    lengths = ANY_PAGE_LENGTHS
+    for d, heads in ((D, HEADS), (256, 16)):
+        for store in ("dense", "int8", "fp8", "int4", "int8c"):
+            i8c = store == "int8c"
+            pages = "int8" if i8c else store
+            for ps in ANY_PAGE_SIZES.get(pages, ANY_PAGE_SIZES["dense"]):
+                k, v, lens, tables, kw0 = _any_page_pool(lengths, ps, pages, d,
+                                                         seed=ps + d)
+                p = plan(len(lengths), KV_HEADS, heads // KV_HEADS, tables.shape[1], ps,
+                         MODE_INT8C if i8c else MODES[pages][0], sm_count(k.device),
+                         d_head=d)
+                worst = 0.0
+                for t in (1, 4):
+                    q = torch.randn((len(lengths), heads) + ((t,) if t > 1 else ()) + (d,),
+                                    device="cuda").bfloat16()
+                    for kw_name, kw in (("plain", {}), ("window 100", dict(window=100)),
+                                        ("softcap 20", dict(softcap=20.0))):
+                        kw = dict(kw0, scale=d ** -0.5, **kw)
+                        native, ref32 = _paged_refs(q, k, v, lens, tables, i8c, kw)
+                        for splits in ((1, 0) if kw_name == "plain" else (0,)):
+                            sync()
+                            _poison_free_memory(64)
+                            out, launched = _paged_kernel(q, k, v, lens, tables, i8c, kw,
+                                                          splits)
+                            ok, ratio, where = sliced_tolerance_check(
+                                by_token(out), by_token(native), by_token(ref32), lead=2)
+                            err = float((out.float() - native.float()).abs().max())
+                            good = (ok and launched == 1 and bool(torch.isfinite(out).all())
+                                    and float(out[lengths.index(0)].abs().max()) == 0.0)
+                            if not good:
+                                raise AssertionError(
+                                    f"paged_decode_attention {store} page {ps} d {d} t {t} "
+                                    f"{kw_name} splits {splits or 'plan'}: err/bound "
+                                    f"{ratio} at (length, token) ({lengths[where[0]]}, "
+                                    f"{where[1]}), {launched} launches: disagrees with "
+                                    "its plain version")
+                            err_max, worst = max(err_max, err), max(worst, ratio)
+                            calls += 1
+                            gather_calls += p.gather
+                ratio_max = max(ratio_max, worst)
+                print(f"paged_decode_attention {store} page {ps} d {d}: "
+                      f"{'gather' if p.gather else 'chunk'} walk, t 1 and 4, plain / "
+                      f"window / softcap, splits 1 and {p.splits}: worst err/bound "
+                      f"{worst:.3f} ok", flush=True)
+                del k, v, lens, tables, kw0
+    print(f"paged_decode_attention at any page size: {calls} calls ({gather_calls} on the "
+          f"gather walk), max|kernel-plain| {err_max:.3e}, worst err/bound "
+          f"{ratio_max:.3f} ok", flush=True)
+    return {"max_abs_err": err_max, "worst_err_bound": ratio_max, "calls": calls,
+            "gather_calls": gather_calls}
+
+
+def phase_serve_openhermes(run: str, smi: str) -> dict:
+    """OpenHermes-2.5-Mistral-7B's widths (``MISTRAL_7B`` with its 32,002-
+    word vocabulary) served quantized, OPENHERMES_RUNS[run] with random
+    weights from a seed: the checks of ``_serve_quant``, R1's replayed step
+    held to the eager one at its prompts' lengths + 17."""
+    from flash_attention_from_scratch_tpu_torch import MISTRAL_7B
+
+    spec = OPENHERMES_RUNS[run]
+    cfg = dataclasses.replace(MISTRAL_7B, vocab_size=OPENHERMES_VOCAB,
+                              n_layers=spec["layers"])
+    rng = np.random.default_rng(5)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(OPENHERMES_PROMPTS[run])}
+    graph_lengths = [n + 17 for n in OPENHERMES_PROMPTS[run]] if run == "R1" else None
+    return _serve_quant(run, "OpenHermes-2.5-Mistral-7B", cfg, spec, prompts, spec["page"],
+                        smi, graph_lengths)
+
+
+def time_lm_head_32002() -> dict:
+    """The 4,096 x 32,002 lm_head at R1's decode batch (m 8), each recipe:
+    the call's time by CUDA-graph replay (``_graph_ms``: torch.profiler
+    dropped records of these launches, reading some calls below their
+    bound), the plain version's, the bound (the weight's bytes once, plus
+    x, scales and out, over 3.35 TB/s) and the library's, timed alike:
+    cuBLAS ``x @ w`` on the dequantized bf16 weight; for a8
+    ``torch._int_mm``, which takes no N % 8 != 0 (``library_note``)."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        KERNELS, quant_matmul, quant_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    k, n, m = 4096, OPENHERMES_VOCAB, 8
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    out = {}
+    for mode, act_quant in QMM_RECIPES:
+        wq = _random_qweight(k, n, mode, act_quant, gen)
+        ms = _graph_ms(lambda: quant_matmul(x, wq, act_quant=act_quant))
+        plain_ms = _time_ms(lambda: quant_matmul_plain(x, wq, act_quant), iters=3, warmup=1)
+        nbytes, ops = _shape_work(m, k, n, wq)
+        bound_b = nbytes / PEAK_BYTES_PER_S
+        bound_o = ops / (PEAK_INT8_OPS if act_quant else PEAK_BF16_FLOPS)
+        lib_ms, note = None, "cuBLAS x @ w on the dequantized bf16 weight"
+        if act_quant:
+            note = "torch._int_mm takes no N % 8 != 0: not timed"
+        else:
+            w_lib = wq.dequantize()
+            lib_ms = _graph_ms(lambda: x @ w_lib)
+            del w_lib
+        out[KERNELS[(mode, act_quant)]] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_note": note,
+            "bound_ms": 1e3 * max(bound_b, bound_o),
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "shape": f"m {m} x K {k} x N {n}, {nbytes / 1e6:.1f} MB"}
+        del wq
+    return out
+
+
+def time_paged_page_sizes() -> dict:
+    """K4/K5 at R1's first decode step (8 sequences of R1's prompt lengths
+    + 1, 32/8 heads, d 128, dense bf16 pages) at page 1 (the gather walk)
+    and page 64 (the chunk walk): the same lengths and bytes, the whole call
+    by CUDA-graph replay (``_graph_ms``), the plain version, the bound (the
+    K/V bytes once over 3.35 TB/s). And R2's step (4 x 1,025 tokens, int8
+    pages) at page 96 (gather) and 128 (chunk)."""
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain, plan)
+    from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
+
+    out = {}
+    for run, pages, store in (("R1", (1, 64), "dense"), ("R2", (96, 128), "int8")):
+        lengths = [n + 1 for n in OPENHERMES_PROMPTS[run]]
+        q = torch.from_numpy(np.random.default_rng(71).standard_normal(
+            (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        per_token = KV_HEADS * D * (2 if store == "dense" else 1) * 2  # K and V
+        nbytes = sum(lengths) * per_token + 2 * q.numel() * 2
+        for ps in pages:
+            k, v, lens, tables, kw = _any_page_pool(lengths, ps, store, D, seed=72)
+            p = plan(len(lengths), KV_HEADS, HEADS // KV_HEADS, tables.shape[1], ps,
+                     0 if store == "dense" else 1, sm_count(q.device))
+            ms = _graph_ms(lambda: paged_decode_attention(q, k, v, lens, tables, **kw))
+            plain_ms = _time_ms(lambda: paged_decode_attention_plain(
+                q, k, v, lens, tables, scale=D ** -0.5, **kw), iters=3, warmup=1)
+            # The plan's split count against forced ones (more CTAs on the walk).
+            forced = {s: _graph_ms(lambda: paged_decode_attention(q, k, v, lens, tables,
+                                                                  splits=s, **kw))
+                      for s in (2, 4, 8, 16) if s != p.splits}
+            out[f"{run}_page{ps}"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+                "walk": "gather" if p.gather else "chunk", "splits": p.splits,
+                "forced_splits_ms": forced,
+                "shape": f"lengths {lengths}, page {ps}, {store} pages, {HEADS}/{KV_HEADS} "
+                         f"heads, d {D} (one layer)"}
+            del k, v, lens, tables, kw
+    return out
 
 
 def _device_ms(fn, calls: int) -> dict:
@@ -6310,6 +6631,9 @@ def main(argv=None) -> int:
     backward_err = phase_backward_cases()
     sampled_pick = sampler_case()
     lap("kernel cases")
+    qmm_any = phase_qmm_any_shape_cases()
+    paged_any = phase_paged_any_size_cases()
+    lap("kernel cases at any shape and page size")
     served = phase_serve(smi)
     counts = served["counts"]
     params = served["server"].params
@@ -6351,6 +6675,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     lora_quant = phase_serve_lora_quant(smi)
     lap("serve_quant, serve_lora_quant")
+    openhermes = {}
+    for run in OPENHERMES_RUNS:
+        openhermes[run] = phase_serve_openhermes(run, smi)
+        torch.cuda.empty_cache()
+    lap("serve_openhermes")
     torch.cuda.empty_cache()
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
@@ -6465,7 +6794,14 @@ def main(argv=None) -> int:
                    "launches_path": "bf16 serving (one a K4/K5 call)"},
          "by_format": time_paged_formats(),
          "verify_t4": time_paged_verify(spec["verify_lengths"]),
-         "int8c": time_paged_int8c()},
+         "int8c": time_paged_int8c(),
+         "any_page_size": {**paged_any, "page_sizes": ANY_PAGE_SIZES,
+                           "lengths": ANY_PAGE_LENGTHS},
+         "launches_openhermes": {run: {n: r["counts"].get(n, 0) for n in (KP, KERNEL_MERGE)}
+                                 for run, r in openhermes.items()},
+         "launches_openhermes_path": "R1: 32 layers x decode steps, dense pages of 1 "
+                                     "token; R2: 4 layers, int8 pages of 96 (decode loops)",
+         "page_sizes": time_paged_page_sizes()},
         # Head width 256: the same wrappers and sources, their d-256
         # instantiations; launches from serve_gemma2_9b (counted under the
         # wrappers' names).
@@ -6558,6 +6894,7 @@ def main(argv=None) -> int:
     ]
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
                  ("int4", True): 206}
+    lm_head = time_lm_head_32002()
     by_kernel = {}  # each kernel's launches from the first run that takes it
     for name, r in quant_runs.items():
         by_kernel.setdefault(r["kernel"], (name, r["launches"]))
@@ -6570,7 +6907,11 @@ def main(argv=None) -> int:
                         f"{tpu_lines[(mode, act_quant)]}",
             "launches": launches, "launches_path": f"serve run {run}",
             "launches_port_tools": _tool_launches(port_tools, name),
-            "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant, ptxas)})
+            "max_abs_err": qmm_err[name], **time_quant_matmul(mode, act_quant, ptxas),
+            "any_shape": {**qmm_any[name], "shapes": ANY_QMM_SHAPES, "rows": ANY_QMM_ROWS},
+            "lm_head_32002": lm_head[name],
+            **{f"launches_openhermes_{run}": r["counts"].get(name, 0)
+               for run, r in openhermes.items() if name in r["counts"]}})
         if name == KERNELS[("int8", False)]:
             kernels[-1]["also_replaces"] = ("flash_attention_from_scratch_tpu/ops/"
                                             "quant_matmul.py:247")

@@ -507,14 +507,16 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A row-major (rows, cols) tensor as 2-D boxes of (box_rows, box_cols),
-// 128-byte swizzled, zero-filled outside.
+// 128-byte swizzled, zero-filled outside; rows `row_bytes` apart (a
+// multiple of 16), 0 for contiguous rows.
 inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                       const void* ptr, long long rows, long long cols, int box_rows,
-                      int box_cols) {
+                      int box_cols, long long row_bytes = 0) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * elem_bytes)};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(row_bytes ? row_bytes : cols * elem_bytes)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};

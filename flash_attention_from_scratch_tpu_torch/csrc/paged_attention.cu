@@ -63,6 +63,15 @@
 //     128 registers a thread, so that instantiation runs one CTA an SM (up
 //     to 255 registers a thread) with twice the ring budget, the bytes in
 //     flight an SM of d 128's two CTAs (a 64-token dense chunk is 64 KB);
+//   - that chunk walk takes pages whose chunks are a multiple of 8 tokens
+//     (a warp's share of a product tile, and the swizzle atom a TMA box
+//     starts on): 8-64 tokens, multiples of 64, int4 pages of up to 256.
+//     Every other page size (1 token, as SGLang's default; 12; 72; 100;
+//     int4 pages past 256) takes the gather walk, paged_decode_gather_kernel:
+//     tiles of 64 consecutive positions copied page run by page run
+//     (cp.async.bulk, dense pages too) into a raw slot, converted into the
+//     bf16 tile, with K and V factors per token. At page 1 a tile is 64
+//     copies of one row each: right, and slower than the chunk walk (PERF.md);
 //   - all rows of a (sequence, KV head) share one CTA and one copy of each
 //     page, up to 16 rows, the M of mma.sync: a verify call's 4 heads x 4
 //     tokens, or a decode step's 4 rows and 12 zero rows, whose products
@@ -106,6 +115,8 @@ constexpr int MAX_SLOTS = 8;
 constexpr int ALIGN_SLACK = 1024;     // swizzled tiles start 1024-aligned
 constexpr int SMEM_LIMIT = 232448;    // shared memory a block may use
 constexpr int STATIC_RESERVE = 1024;  // of it kept for the kernel's static arrays
+constexpr int INT4_WHOLE_PAGE = 256;  // int4 pages up to this many tokens go whole
+constexpr int FAC_BYTES = 512;        // the gather walk's K and V factors of a tile's tokens
 
 // The geometry of head width D (128 or 256; ops/paged_attention.py::plan
 // mirrors it).
@@ -137,13 +148,31 @@ __host__ __device__ inline int page_bytes(int store, int page_size, int d) {
   return stored_rows(store, page_size) * d * (store == DENSE ? 2 : 1);
 }
 
-// Tokens of a ring slot's chunk: a page of up to TILE_TOKENS, else runs of
-// TILE_TOKENS consecutive tokens (contiguous within the page; the page
-// size a multiple of it); an int4 page, whose stored rows hold two tokens
-// half a page apart, stays whole. 0: a page size the kernel does not take.
+// Tokens of a ring slot's chunk on the chunk walk: a page of up to
+// TILE_TOKENS, else runs of TILE_TOKENS consecutive tokens (contiguous
+// within the page; the page size a multiple of it); an int4 page, whose
+// stored rows hold two tokens half a page apart, stays whole.
 __host__ __device__ inline int chunk_tokens(int store, int page_size) {
   if (store == INT4 || page_size <= TILE_TOKENS) return page_size;
   return page_size % TILE_TOKENS == 0 ? TILE_TOKENS : 0;
+}
+
+// The host's choice of walk: the chunk walk's chunk where it takes the page
+// size, a multiple of 8 tokens (a warp's tokens of a product tile, and the
+// 8-row swizzle atom a TMA box starts on; an int4 page whole up to
+// INT4_WHOLE_PAGE tokens, so that two slots fit); 0 for the gather walk
+// (paged_decode_gather_kernel). The kernel keeps chunk_tokens as it was:
+// folding this rule into it moved the int8 and fp8 kernels' registers.
+inline int walk_chunk_tokens(int store, int page_size) {
+  const int ct = chunk_tokens(store, page_size);
+  if (ct % 8 || (store == INT4 && page_size > INT4_WHOLE_PAGE)) return 0;
+  return ct;
+}
+
+// Bytes of a token's row in a gather slot of K (or V): a dense row, or one
+// stored row of D bytes (an int4 row holds the token in one of its nibbles).
+__host__ __device__ constexpr int gather_row_bytes(int store, int d) {
+  return store == DENSE ? 2 * d : d;
 }
 
 // Slots of a ring of `budget` bytes for chunks of `slot_bytes` (K and V)
@@ -157,6 +186,13 @@ inline int smem_bytes(bool raw, int slots, int slot_bytes) {
   using G = Geo<D>;
   return ALIGN_SLACK + G::Q_TILE_BYTES +
          std::max((raw ? G::STAGE_BYTES : 0) + slots * slot_bytes, G::MERGE_BYTES);
+}
+// The gather walk's: the bf16 tile, the tokens' factors, then the raw ring.
+template <int D>
+inline int gather_smem_bytes(int slots, int slot_bytes) {
+  using G = Geo<D>;
+  return ALIGN_SLACK + G::Q_TILE_BYTES +
+         std::max(G::STAGE_BYTES + FAC_BYTES + slots * slot_bytes, G::MERGE_BYTES);
 }
 
 // 8 stored values of one row -> fp32. int4: the low or high nibble of each
@@ -299,12 +335,16 @@ struct Partial {
 // the scores' scale, softcap and mask, the online softmax and O += P V.
 // k_fac multiplies the raw dot (the K scale; with int8 compute also s_q *
 // scale * log2(e) of each row, q_fac), v_fac P before PV (the V scale).
-template <int D, bool I8C>
+// G (the gather walk): a tile's tokens come from several pages, so the
+// factors are per token, fac[token] and fac[TILE_TOKENS + token] (0 past
+// the tile's last token), and positions at or past `len` (the walk's end,
+// which may lie below the length) are masked in S as well as in V.
+template <int D, bool I8C, bool G = false>
 __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, const uint8_t* ks,
                                               const uint8_t* vs, int rows, int tok0, int pos0,
                                               const int (&lim)[2], int win, int len,
                                               const float (&q_fac)[2], float k_fac, float v_fac,
-                                              const Params& p) {
+                                              const float* fac, const Params& p) {
   const int lane = threadIdx.x & 31, qd = lane & 3;
   // S = Q K^T: rows g, g + 8; tokens 2 qd, 2 qd + 1 of the warp's 8.
   float s[4] = {0.f, 0.f, 0.f, 0.f};
@@ -324,15 +364,19 @@ __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, c
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int tok = pos0 + 2 * qd + (e & 1), lm = lim[e >> 1];
+    const float kf = G ? fac[tok0 + 2 * qd + (e & 1)] : k_fac;
     float x;
     if constexpr (I8C) {
-      x = s[e] * q_fac[e >> 1] * k_fac;  // the exact integer dot, scaled
+      x = s[e] * q_fac[e >> 1] * kf;  // the exact integer dot, scaled
       if (p.softcap > 0.f) x = tanhf(x / cap_log2) * cap_log2;
     } else {
-      x = s[e] * k_fac;
+      x = s[e] * kf;
       x = p.softcap > 0.f ? tanhf(x * p.scale / p.softcap) * cap_log2 : x * p.scale * LOG2E;
     }
-    s[e] = tok < lm && tok >= lm - win ? x : -INFINITY;
+    if constexpr (G)
+      s[e] = tok < lm && tok >= lm - win && tok < len ? x : -INFINITY;
+    else
+      s[e] = tok < lm && tok >= lm - win ? x : -INFINITY;
   }
   // The online softmax of each row over the warp's tokens.
 #pragma unroll
@@ -358,10 +402,19 @@ __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, c
   // P as the bf16 A fragment: with int8 compute the rounded integers
   // (exact), O divided by the V factor around the product so that it adds
   // the exact integer products times that factor; else P times the factor.
-  // A zero V factor (an all-zero page) adds nothing.
-  if (v_fac == 0.f) return;
+  // A zero V factor (an all-zero page) adds nothing. G: P (int8 compute:
+  // its rounded integers) times each token's V factor, rounded to bf16 as
+  // the other formats' P is.
   uint32_t a0, a1;
-  if constexpr (I8C) {
+  if constexpr (G) {
+    const float v0 = fac[TILE_TOKENS + tok0 + 2 * qd], v1 = fac[TILE_TOKENS + tok0 + 2 * qd + 1];
+    const float p0 = I8C ? rintf(s[0] * 127.f) : s[0], p1 = I8C ? rintf(s[1] * 127.f) : s[1];
+    const float p2 = I8C ? rintf(s[2] * 127.f) : s[2], p3 = I8C ? rintf(s[3] * 127.f) : s[3];
+    a0 = pack_bf16x2(p0 * v0, p1 * v1);
+    a1 = pack_bf16x2(p2 * v0, p3 * v1);
+  } else if (v_fac == 0.f) {
+    return;
+  } else if constexpr (I8C) {
     a0 = pack_bf16x2(rintf(s[0] * 127.f), rintf(s[1] * 127.f));
     a1 = pack_bf16x2(rintf(s[2] * 127.f), rintf(s[3] * 127.f));
     const float inv = 1.f / v_fac;
@@ -383,7 +436,7 @@ __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, c
 #pragma unroll
     for (int m4 = 0; m4 < 4; ++m4) mma_1688(st.o[4 * jj + m4], a0, a1, vf[m4] & keep);
   }
-  if constexpr (I8C) {
+  if constexpr (I8C && !G) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -391,6 +444,131 @@ __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, c
   }
 }
 
+// The Q tile: rows rblock * 16 .. + 15 of this KV head (D / 8 threads a
+// row, 8 values each: two rows a warp at d 128, one at d 256, over
+// MMA_ROWS * D / 8 / NTHREADS passes), zeros past the last row, swizzled
+// as the K/V tiles are; with int8 compute each row quantized (its abs-max
+// over the lanes that hold it) and stored as its int8 values.
+template <int D, bool I8C>
+__device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* q_s, float* q_fac_s,
+                                            long long row_base, int rblock, int r_end) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int pass = 0; pass < MMA_ROWS * (D / 8) / NTHREADS; ++pass) {
+    const int idx = tid + pass * NTHREADS;
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int row = rblock * MMA_ROWS + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row < r_end) v = *reinterpret_cast<const uint4*>(p.q + (row_base + row) * D + c);
+    if constexpr (I8C) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      float f[8], amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(h[i]);
+        f[2 * i] = x.x;
+        f[2 * i + 1] = x.y;
+        amax = fmaxf(amax, fmaxf(fabsf(x.x), fabsf(x.y)));
+      }
+#pragma unroll
+      for (int off = D / 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, off));
+      const float s_q = fmaxf(amax, 1e-12f) * (1.0f / 127.0f);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = pack_bf16x2(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+      if (c == 0) q_fac_s[r] = s_q * p.scale * LOG2E;
+    }
+    *reinterpret_cast<uint4*>(q_s + sw_offset(MMA_ROWS, r, c)) = v;
+  }
+}
+
+// This lane's fragment rows g and g + 8 (rows past the last see nothing):
+// row r sees tokens [lim - win, lim); with int8 compute, each row's factor.
+template <int D, bool I8C>
+__device__ __forceinline__ void lane_rows(const Params& p, const float* q_fac_s, int rblock,
+                                          int len, int (&lim)[2], float (&q_fac)[2],
+                                          Partial<D>& st) {
+  const int g = (threadIdx.x & 31) >> 2, t = p.q_tokens;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = rblock * MMA_ROWS + g + 8 * rr;
+    lim[rr] = r < p.rows_total ? len - (t - 1) + r % t : 0;
+    q_fac[rr] = 1.f;
+    if constexpr (I8C) q_fac[rr] = q_fac_s[g + 8 * rr];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) st.o[j][0] = st.o[j][1] = st.o[j][2] = st.o[j][3] = 0.f;
+  st.m[0] = st.m[1] = -INFINITY;
+  st.l[0] = st.l[1] = 0.f;
+}
+
+// Each warp's partial (O, m, l) of the CTA's real rows (a padded row of
+// the tile is skipped), then the rows' merge over the warps, into out (one
+// split) or this split's partial; `scratch` is the tiles' memory, free now.
+template <int D>
+__device__ __forceinline__ void merge_warps(const Partial<D>& st, const Params& p,
+                                            uint8_t* scratch, int pair, int split,
+                                            long long row_base, int rblock, int r_end) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  constexpr int MERGE_STRIDE = Geo<D>::MERGE_STRIDE;
+  float* sm_acc = reinterpret_cast<float*>(scratch);          // [NWARPS][16][MERGE_STRIDE]
+  float* sm_m = sm_acc + NWARPS * MMA_ROWS * MERGE_STRIDE;  // [NWARPS][16]
+  float* sm_l = sm_m + NWARPS * MMA_ROWS;                   // [NWARPS][16]
+  const int rows_here = r_end - rblock * MMA_ROWS;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lq = st.l[rr];
+    lq += __shfl_xor_sync(FULL, lq, 1);
+    lq += __shfl_xor_sync(FULL, lq, 2);
+    const int r = g + 8 * rr;
+    if (r >= rows_here) continue;
+    float* row = sm_acc + (warp * MMA_ROWS + r) * MERGE_STRIDE + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(st.o[j][2 * rr], st.o[j][2 * rr + 1]);
+    if (qd == 0) {
+      sm_m[warp * MMA_ROWS + r] = st.m[rr];
+      sm_l[warp * MMA_ROWS + r] = lq;
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < rows_here * D; idx += NTHREADS) {
+    const int rl = idx / D, c = idx % D;
+    const int r = rblock * MMA_ROWS + rl;
+    float m_tot = -INFINITY;
+    for (int w = 0; w < NWARPS; ++w) m_tot = fmaxf(m_tot, sm_m[w * MMA_ROWS + rl]);
+    float lt = 0.f, ot = 0.f;
+    if (m_tot != -INFINITY) {
+      for (int w = 0; w < NWARPS; ++w) {
+        const float mw = sm_m[w * MMA_ROWS + rl];
+        if (mw == -INFINITY) continue;
+        const float wt = fast_exp2(mw - m_tot);
+        lt += sm_l[w * MMA_ROWS + rl] * wt;
+        ot += sm_acc[(w * MMA_ROWS + rl) * MERGE_STRIDE + c] * wt;
+      }
+    }
+    if (!p.ws_o) {
+      p.out[(row_base + r) * D + c] = __float2bfloat16(lt > 0.f ? ot / lt : 0.f);
+    } else {
+      const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
+      p.ws_o[pr * D + c] = ot;
+      if (c == 0) {
+        p.ws_ml[2 * pr] = m_tot;
+        p.ws_ml[2 * pr + 1] = lt;
+      }
+    }
+  }
+}
+
+// The chunk walk's kernel. It keeps the Q tile, the rows' setup and the
+// merge written out here, not through the gather kernel's helpers above:
+// built through them, its int8-compute instantiation at d 128 took one
+// register more (127 against its baseline's 126, kernel_sass/).
 template <int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS, Geo<D>::CTAS_PER_SM)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -533,13 +711,14 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
         __syncthreads();
         if (tok0 < ntok)
           tile_products<D, I8C>(st, q_addr, stage, stage + G::STAGE_BYTES / 2, TILE_TOKENS,
-                                tok0, pos0 + t0 + tok0, lim, win, len, q_fac, k_fac, v_fac, p);
+                                tok0, pos0 + t0 + tok0, lim, win, len, q_fac, k_fac, v_fac,
+                                nullptr, p);
         __syncthreads();  // the tile is read: the next conversion may write it
       }
     } else {
       if (tok0 < ct)
         tile_products<D, false>(st, q_addr, slot, slot + cbytes, ct, tok0, pos0 + tok0, lim,
-                                win, len, q_fac, 1.f, 1.f, p);
+                                win, len, q_fac, 1.f, 1.f, nullptr, p);
       __syncthreads();  // every warp is done with the slot
     }
     if (tid == 0 && i + p.slots < n) issue(i + p.slots);
@@ -599,6 +778,147 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
+// The gather walk: page sizes the chunk walk does not take (chunk_tokens
+// 0: not a multiple of 8, or above 64 and not a multiple of 64, or an int4
+// page above INT4_WHOLE_PAGE). The split's positions [pos_begin, pos_end)
+// go in tiles of TILE_TOKENS consecutive positions, whatever pages hold
+// them: warp 0's lanes copy each page's run of a tile (cp.async.bulk, a
+// page a lane; an int4 page's run as its low-nibble rows, then its
+// high-nibble rows) into a raw slot of TILE_TOKENS token rows, so slot row
+// j holds the stored row of position pos + j (int4: the byte row whose low
+// or high nibble it is). The CTA converts the slot into the bf16 tile (a
+// copy for dense pages) and each token's K and V factors (its page's
+// scales; 1 for dense pages) into `fac`, frees the slot for the tile
+// `slots` on, and runs the products with the factors per token and the
+// positions past pos_end masked: a tile may end below the length where the
+// split ends.
+template <int D, int MODE>
+__global__ void __launch_bounds__(NTHREADS, Geo<D>::CTAS_PER_SM)
+paged_decode_gather_kernel(const Params p) {
+  using G = Geo<D>;
+  constexpr bool I8C = MODE == INT8C;
+  constexpr int STORE = I8C ? INT8 : MODE;
+  constexpr int RB = gather_row_bytes(STORE, D);  // a token's row of one K (or V) slot
+  constexpr int SLOT = 2 * TILE_TOKENS * RB;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_SLOTS];
+  __shared__ float q_fac_s[MMA_ROWS];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* stage = q_s + G::Q_TILE_BYTES;
+  float* fac = reinterpret_cast<float*>(stage + G::STAGE_BYTES);  // [K, V][TILE_TOKENS]
+  uint8_t* ring = stage + G::STAGE_BYTES + FAC_BYTES;
+
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int split = blockIdx.z % p.splits, rblock = blockIdx.z / p.splits;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ps = p.page_size, len = p.lengths[b];
+  const int t = p.q_tokens;
+  const int start = p.window ? max(len - (t - 1) - p.window, 0) : 0;
+  const int pair = b * p.kv_heads + hk;
+  const long long row_base = (long long)pair * p.rows_total;
+  const int c_begin = max(split * p.pages_per_split, start / ps);
+  const int c_end = min(min((split + 1) * p.pages_per_split, p.pages_per_seq),
+                        (len + ps - 1) / ps);
+  const int pos_begin = c_begin * ps, pos_end = min(c_end * ps, len);
+  const int n = pos_end > pos_begin ? (pos_end - pos_begin + TILE_TOKENS - 1) / TILE_TOKENS : 0;
+  const int* pt = p.page_tables + (long long)b * p.pages_per_seq;
+  const int pbytes = page_bytes(STORE, ps, D);
+  const int r_end = min((rblock + 1) * MMA_ROWS, p.rows_total);
+  if (n == 0) {
+    empty_split<D>(p, pair, split, rblock * MMA_ROWS, r_end);
+    return;
+  }
+
+  // Warp 0 issues tile i's copies into slot i % slots, a page a lane.
+  auto issue = [&](int i) {
+    const int pos = pos_begin + i * TILE_TOKENS, valid = min(TILE_TOKENS, pos_end - pos);
+    uint8_t* dst = ring + (i % p.slots) * SLOT;
+    uint64_t* bar = &full[i % p.slots];
+    if (lane == 0) mbar_arrive_expect_tx(bar, 2 * valid * RB);
+    __syncwarp();
+    auto copy = [&](long long page_off, int row, int first, int count) {
+      bulk_load(dst + (first - pos) * RB, p.k_pages + page_off + (long long)row * RB,
+                count * RB, bar);
+      bulk_load(dst + (TILE_TOKENS + first - pos) * RB,
+                p.v_pages + page_off + (long long)row * RB, count * RB, bar);
+    };
+    for (int c = pos / ps + lane; c <= (pos + valid - 1) / ps; c += 32) {
+      const long long off = ((long long)hk * p.num_pages + pt[c]) * pbytes;
+      const int a = max(pos, c * ps) - c * ps, e = min(pos + valid, (c + 1) * ps) - c * ps;
+      if constexpr (STORE == INT4) {  // tokens [a, e) of the page, by half
+        const int half = ps / 2, lo_end = min(e, half), hi_begin = max(a, half);
+        if (a < lo_end) copy(off, a, c * ps + a, lo_end - a);
+        if (hi_begin < e) copy(off, hi_begin - half, c * ps + hi_begin, e - hi_begin);
+      } else {
+        copy(off, a, c * ps + a, e - a);
+      }
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < p.slots; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  if (warp == 0) {
+    __syncwarp();
+    for (int i = 0; i < min(n, p.slots); ++i) issue(i);
+  }
+  load_q_tile<D, I8C>(p, q_s, q_fac_s, row_base, rblock, r_end);
+  __syncthreads();
+
+  const int win = p.window > 0 ? p.window : (1 << 30);
+  int lim[2];
+  float q_fac[2];
+  Partial<D> st;
+  lane_rows<D, I8C>(p, q_fac_s, rblock, len, lim, q_fac, st);
+  const unsigned q_addr = smem_addr(q_s);
+  const int tok0 = warp * 8;
+
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(&full[i % p.slots], (i / p.slots) & 1);
+    const int pos = pos_begin + i * TILE_TOKENS, valid = min(TILE_TOKENS, pos_end - pos);
+    const uint8_t* slot = ring + (i % p.slots) * SLOT;
+    for (int idx = tid; idx < 2 * valid * (D / 8); idx += NTHREADS) {
+      const int kv = idx / (valid * (D / 8)), rem = idx % (valid * (D / 8));
+      const int tok = rem / (D / 8), c = (rem % (D / 8)) * 8;
+      const uint8_t* src = slot + (kv * TILE_TOKENS + tok) * RB;
+      uint4 v;
+      if constexpr (STORE == DENSE) {
+        v = *reinterpret_cast<const uint4*>(src + 2 * c);
+      } else {
+        float f[8];
+        unpack8q<STORE>(*reinterpret_cast<const uint2*>(src + c),
+                        STORE == INT4 && (pos + tok) % ps >= ps / 2, f);
+        v = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                       pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+      }
+      *reinterpret_cast<uint4*>(stage + kv * (G::STAGE_BYTES / 2) +
+                                sw_offset(TILE_TOKENS, tok, c)) = v;
+    }
+    if (tid < TILE_TOKENS) {
+      float kf = 0.f, vf = 0.f;
+      if (tid < valid) {
+        if constexpr (STORE == DENSE) {
+          kf = vf = 1.f;
+        } else {
+          const long long at = (long long)hk * p.num_pages + pt[(pos + tid) / ps];
+          kf = p.k_scales[at];
+          vf = p.v_scales[at] * (I8C ? 1.0f / 127.0f : 1.0f);
+        }
+      }
+      fac[tid] = kf;
+      fac[TILE_TOKENS + tid] = vf;
+    }
+    __syncthreads();  // the tile and its factors are written; the slot is free
+    if (warp == 0 && i + p.slots < n) issue(i + p.slots);
+    if (tok0 < valid)
+      tile_products<D, I8C, true>(st, q_addr, stage, stage + G::STAGE_BYTES / 2, TILE_TOKENS,
+                                  tok0, pos + tok0, lim, win, pos_end, q_fac, 1.f, 1.f, fac, p);
+    __syncthreads();  // the tile is read: the next conversion may write it
+  }
+
+  merge_warps<D>(st, p, stage, pair, split, row_base, rblock, r_end);
+}
+
 // The merge: one CTA of D threads per (sequence, KV head, row); the splits
 // in order 0, 1, ...
 template <int D>
@@ -626,6 +946,17 @@ paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restric
 }
 
 template <int D, int MODE>
+int launch_gather(const Params& p, int batch, int row_blocks, int smem, cudaStream_t stream) {
+  auto kernel = paged_decode_gather_kernel<D, MODE>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT - STATIC_RESERVE);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  dim3 grid(batch, p.kv_heads, p.splits * row_blocks);
+  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int MODE>
 int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t stream) {
   // Dense pages: the pool as (kv_heads, num_pages, page_size, D) bf16,
   // boxes of 64 columns x one chunk of slots in one page of one KV head.
@@ -650,22 +981,35 @@ int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split kernel's launch at head width D: the ring's slots and the CTA's
-// shared memory from the page format (plan() mirrors both), then the
-// page format's kernel.
+// The split kernel's launch at head width D: the walk, the ring's slots and
+// the CTA's shared memory from the page format and size (plan() mirrors
+// them), then the page format's kernel.
 template <int D>
 int split_launch(Params& p, int batch, int heads, int mode, cudaStream_t stream) {
   const int store = mode == INT8C ? INT8 : mode;
   const int rows = heads / p.kv_heads * p.q_tokens;
   const int row_blocks = (rows + MMA_ROWS - 1) / MMA_ROWS;
   const bool raw = store != DENSE;
-  const int slot_bytes = 2 * page_bytes(store, chunk_tokens(store, p.page_size), D);
-  const int slots = ring_slots(raw ? Geo<D>::RAW_RING : Geo<D>::RING, slot_bytes);
-  const int smem = smem_bytes<D>(raw, slots, slot_bytes);
+  const int ct = walk_chunk_tokens(store, p.page_size);
+  const bool gather = ct == 0;
+  const int slot_bytes = gather ? 2 * TILE_TOKENS * gather_row_bytes(store, D)
+                                : 2 * page_bytes(store, ct, D);
+  const int slots = ring_slots(raw || gather ? Geo<D>::RAW_RING : Geo<D>::RING, slot_bytes);
+  const int smem = gather ? gather_smem_bytes<D>(slots, slot_bytes)
+                          : smem_bytes<D>(raw, slots, slot_bytes);
   if (smem > SMEM_LIMIT - STATIC_RESERVE || (long long)p.splits * row_blocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   p.rows_total = rows;
   p.slots = slots;
+  if (gather) {
+    switch (mode) {
+      case DENSE: return launch_gather<D, DENSE>(p, batch, row_blocks, smem, stream);
+      case INT8: return launch_gather<D, INT8>(p, batch, row_blocks, smem, stream);
+      case FP8: return launch_gather<D, FP8>(p, batch, row_blocks, smem, stream);
+      case INT4: return launch_gather<D, INT4>(p, batch, row_blocks, smem, stream);
+      default: return launch_gather<D, INT8C>(p, batch, row_blocks, smem, stream);
+    }
+  }
   switch (mode) {
     case DENSE: return launch<D, DENSE>(p, batch, row_blocks, smem, stream);
     case INT8: return launch<D, INT8>(p, batch, row_blocks, smem, stream);
@@ -690,8 +1034,7 @@ const char* fa_error_string(int code) {
 // = page_size / 2); k/v scales (kv_heads, num_pages) fp32 (read for modes
 // 1-4); lengths (batch,) int32, the q tokens included; page_tables (batch,
 // pages_per_seq) int32, -1 padded. Any heads divisible by kv_heads and any
-// q_tokens >= 1; page_size up to 64 or a multiple of 64 (int4: any even
-// size), a multiple of 8 for dense pages. `splits` splits of
+// q_tokens >= 1; any page_size >= 1 (int4: even). `splits` splits of
 // `pages_per_split` page-table columns (splits * pages_per_split >=
 // pages_per_seq). With one split, out (like q) is written here and ws_o,
 // ws_ml are not read; with more, each split's partial goes to ws_o (batch *
@@ -707,8 +1050,7 @@ int fa_paged_decode_split(const void* q, const void* k_pages, const void* v_page
                           int pages_per_split, void* ws_o, void* ws_ml, void* stream) {
   const int store = mode == INT8C ? INT8 : mode;
   if (kv_heads <= 0 || heads % kv_heads || q_tokens < 1 || batch < 1 || page_size < 1 ||
-      mode < DENSE || mode > INT8C || chunk_tokens(store, page_size) == 0 ||
-      (store == INT4 && page_size % 2) || (store == DENSE && page_size % 8) || splits < 1 ||
+      mode < DENSE || mode > INT8C || (store == INT4 && page_size % 2) || splits < 1 ||
       pages_per_split < 1 || (long long)splits * pages_per_split < pages_per_seq ||
       (splits > 1 && !(ws_o && ws_ml)) || (d_head != 128 && d_head != 256))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -65,6 +65,20 @@
 // quant_matmul_finalize adds them in a fixed order, so results are
 // reproducible run to run (K8/K9's are exact, the plain version's bits).
 //
+// Ragged shapes: every (K, N) that the JAX package's quantize_weight makes
+// (int4: K even). TMA takes only row strides that are multiples of 16
+// bytes, so a weight of N % 16 != 0 is stored once with its rows padded to
+// such a stride (ops/quant_matmul.py::QuantizedWeight; the map's width stays
+// N, so the pad is never read and no call copies the weight), and an x of K
+// % 8 != 0 (int8 x: K % 16) is copied by the wrapper into rows of a padded
+// stride (m x K elements a call); so is an x whose int4 high half would
+// start off TMA's 16-byte quantum (K/2 % 8, int8 x: % 16), its high half
+// moved to the next aligned column. Past K the boxes read zeros; an int4
+// weight's low-half box may reach into x's high half (or the pad), against
+// weight rows past K/2, which read as zeros. Output rows of N % 8 != 0 are not 16-byte
+// aligned: those shapes run quant_matmul_edge_kernel, the same body storing
+// column by column.
+//
 // quantize_rows_kernel: one CTA a row, read once into registers (rows up
 // to 16384 values; a longer row's rest twice): the row's absmax in fp32,
 // the scale absmax * fp32(1/127) floored at 1e-12, then rint(x / scale) (a
@@ -326,12 +340,31 @@ struct WTile {
   static_assert(ROWS % WROWS == 0, "a stage is whole weight boxes");
 };
 
-template <bool W4, bool A8, int BT>
-__global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
-quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
-                    const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
-                    const float* __restrict__ scales, bf16* __restrict__ out,
-                    void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
+// The scales of a thread's columns col..col+3 (0 past N). EDGE: N % 8 != 0,
+// so the four may straddle N and the vector may leave the array.
+template <bool EDGE>
+__device__ __forceinline__ float4 column_scales(const float* __restrict__ scales, int col, int N) {
+  if constexpr (EDGE) {
+    float s[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u] = col + u < N ? scales[col + u] : 0.f;
+    return make_float4(s[0], s[1], s[2], s[3]);
+  } else {
+    return col < N ? *reinterpret_cast<const float4*>(scales + col)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The kernel's body. EDGE (N % 8 != 0: output rows off 16-byte alignment, a
+// thread's 4 columns possibly straddling N) stores column by column, and is
+// an instantiation of its own, quant_matmul_edge_kernel, so that the
+// aligned kernels are compiled as they were.
+template <bool W4, bool A8, int BT, bool EDGE>
+__device__ __forceinline__ void quant_matmul_body(const CUtensorMap& tm_w, const CUtensorMap& tm_x,
+                                                  const float* __restrict__ xs,
+                                                  const float* __restrict__ scales,
+                                                  bf16* __restrict__ out, void* __restrict__ ws,
+                                                  int M, int N, int K, int k_tiles_per_split) {
   using T = WTile<W4, A8, BT>;
   using Acc = std::conditional_t<A8, int, float>;
   constexpr int stages = T::STAGES;
@@ -456,7 +489,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  const int col = col0 + c;  // N % 16 == 0: c..c+3 are all in or all out
+  const int col = col0 + c;  // N % 8 == 0 (not EDGE): c..c+3 are all in or all out
   const bool col_ok = col < N;
   if (gridDim.z > 1) {  // partial sums, unscaled
     Acc* p = static_cast<Acc*>(ws) + (long long)blockIdx.z * M * N;
@@ -467,7 +500,13 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
         const int tok = tok0 + 8 * j + 2 * q + e;
         if (col_ok && tok < M) {
           Acc* dst = p + (long long)tok * N + col;
-          if constexpr (A8)
+          if constexpr (EDGE) {
+            const Acc v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
+                              acc[1][4 * j + 2 + e]};
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (col + u < N) dst[u] = v[u];
+          } else if constexpr (A8)
             *reinterpret_cast<int4*>(dst) = make_int4(acc[0][4 * j + e], acc[0][4 * j + 2 + e],
                                                       acc[1][4 * j + e], acc[1][4 * j + 2 + e]);
           else
@@ -478,8 +517,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
       }
     return;
   }
-  const float4 sc = col_ok ? *reinterpret_cast<const float4*>(scales + col)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 sc = column_scales<EDGE>(scales, col, N);
   // Every consumer warp is past its last wgmma: the ring becomes the
   // staging tile (BT tokens x 128 columns of bf16).
   asm volatile("bar.sync 1, %0;\n" ::"n"(T::NWG * 128) : "memory");
@@ -509,20 +547,50 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
   for (int id = tid; id < BT * (T::COLS / 8); id += T::NWG * 128) {
     const int tl = id / (T::COLS / 8), cc = (id % (T::COLS / 8)) * 8;
     const int tok = tok0 + tl, gc = col0 + cc;
-    if (tok < M && gc < N)
-      *reinterpret_cast<uint4*>(out + (long long)tok * N + gc) =
-          *reinterpret_cast<const uint4*>(stage_out + tl * T::OROW + cc);
+    if (tok < M && gc < N) {
+      if constexpr (EDGE) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (gc + u < N) out[(long long)tok * N + gc + u] = stage_out[tl * T::OROW + cc + u];
+      } else {
+        *reinterpret_cast<uint4*>(out + (long long)tok * N + gc) =
+            *reinterpret_cast<const uint4*>(stage_out + tl * T::OROW + cc);
+      }
+    }
   }
+}
+
+template <bool W4, bool A8, int BT>
+__global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
+quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
+                    const float* __restrict__ scales, bf16* __restrict__ out,
+                    void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
+  quant_matmul_body<W4, A8, BT, false>(tm_w, tm_x, xs, scales, out, ws, M, N, K,
+                                       k_tiles_per_split);
+}
+
+template <bool W4, bool A8, int BT>
+__global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
+quant_matmul_edge_kernel(const __grid_constant__ CUtensorMap tm_w,
+                         const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
+                         const float* __restrict__ scales, bf16* __restrict__ out,
+                         void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
+  quant_matmul_body<W4, A8, BT, true>(tm_w, tm_x, xs, scales, out, ws, M, N, K,
+                                      k_tiles_per_split);
 }
 
 // A weight's tensor map, encoded once per weight: the weights are the
 // same tensors every call, and the encode is host work on the decode path,
 // where the host sets the pace. The key is everything the map depends on,
-// so a hit is always the right map.
-bool weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
+// so a hit is always the right map. `ld`: the bytes from one stored row to
+// the next (N, or N rounded up to 16 for a weight stored with padded rows:
+// TMA takes only strides that are multiples of 16 bytes); columns past N
+// read as zeros either way.
+bool weight_map(CUtensorMap* map, const void* w, int rows, int cols, int ld) {
   struct Entry {
     const void* ptr;
-    int rows, cols;
+    int rows, cols, ld;
     CUtensorMap map;
   };
   constexpr int SLOTS = 1024;  // direct-mapped; a miss re-encodes
@@ -531,23 +599,26 @@ bool weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
   const size_t slot = (reinterpret_cast<uintptr_t>(w) >> 9) % SLOTS;
   std::lock_guard<std::mutex> held(lock);
   Entry& e = cache[slot];
-  if (e.ptr != w || e.rows != rows || e.cols != cols) {
+  if (e.ptr != w || e.rows != rows || e.cols != cols || e.ld != ld) {
     e.ptr = nullptr;
-    if (!encode_2d(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, rows, cols, WROWS, WBN))
+    if (!encode_2d(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, rows, cols, WROWS, WBN, ld))
       return false;
     e.ptr = w;
     e.rows = rows;
     e.cols = cols;
+    e.ld = ld;
   }
   *map = e.map;
   return true;
 }
 
-template <bool W4, bool A8, int BT>
+// One launch (and, with splits, the finalize) of one instantiation: EDGE
+// picks quant_matmul_edge_kernel, for N % 8 != 0.
+template <bool W4, bool A8, int BT, bool EDGE>
 int launch(const void* x, const void* xs, const void* w, const void* scales, void* out, void* ws,
-           int M, int N, int K, int splits, cudaStream_t stream) {
+           int M, int N, int K, int ldx, int ldw, int xhi, int splits, cudaStream_t stream) {
   using T = WTile<W4, A8, BT>;
-  auto kernel = quant_matmul_kernel<W4, A8, BT>;
+  auto kernel = EDGE ? quant_matmul_edge_kernel<W4, A8, BT> : quant_matmul_kernel<W4, A8, BT>;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
     const cudaError_t err =
@@ -556,33 +627,53 @@ int launch(const void* x, const void* xs, const void* w, const void* scales, voi
     attr_set = true;
   }
   const int k_rows = W4 ? K / 2 : K;
+  // x's columns: int4, its low half then its high half from column xhi
+  // (K/2, or past a pad where K/2 * the element size is no multiple of 16
+  // bytes, TMA's quantum for a box's start). The kernel takes the high half
+  // at K/2 of the K it is given, so it gets 2 * xhi; its K tiles are the
+  // same, as a tile is a multiple of the quantum. Box columns past the
+  // map's width read as zeros, whatever the row stride holds there.
+  const int x_cols = W4 ? xhi + K / 2 : K;
   CUtensorMap tm_w, tm_x;
   const bool x_ok =
-      A8 ? encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, M, K, BT, XROW)
-         : encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BT, XROW / 2);
-  if (!weight_map(&tm_w, w, k_rows, N) || !x_ok)
+      A8 ? encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, M, x_cols, BT, XROW, ldx)
+         : encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, x_cols, BT, XROW / 2,
+                     2LL * ldx);
+  if (!weight_map(&tm_w, w, k_rows, N, ldw) || !x_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   const int k_tiles = (k_rows + T::ROWS - 1) / T::ROWS;
   const int per = (k_tiles + splits - 1) / splits;
   dim3 grid((M + BT - 1) / BT, (N + T::COLS - 1) / T::COLS, splits);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
       tm_w, tm_x, static_cast<const float*>(xs), static_cast<const float*>(scales),
-      static_cast<bf16*>(out), ws, M, N, K, per);
+      static_cast<bf16*>(out), ws, M, N, W4 ? 2 * xhi : K, per);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return finalize(A8, ws, xs, scales, out, M, N, splits, stream);
 }
 
-template <bool W4, bool A8>
+template <bool W4, bool A8, bool EDGE>
 int launch_bt(int bt, const void* x, const void* xs, const void* w, const void* scales,
-              void* out, void* ws, int M, int N, int K, int splits, cudaStream_t s) {
+              void* out, void* ws, int M, int N, int K, int ldx, int ldw, int xhi, int splits,
+              cudaStream_t s) {
   switch (bt) {
-    case 16: return launch<W4, A8, 16>(x, xs, w, scales, out, ws, M, N, K, splits, s);
-    case 32: return launch<W4, A8, 32>(x, xs, w, scales, out, ws, M, N, K, splits, s);
-    case 64: return launch<W4, A8, 64>(x, xs, w, scales, out, ws, M, N, K, splits, s);
-    case 128: return launch<W4, A8, 128>(x, xs, w, scales, out, ws, M, N, K, splits, s);
+    case 16: return launch<W4, A8, 16, EDGE>(x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi, splits, s);
+    case 32: return launch<W4, A8, 32, EDGE>(x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi, splits, s);
+    case 64: return launch<W4, A8, 64, EDGE>(x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi, splits, s);
+    case 128: return launch<W4, A8, 128, EDGE>(x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool W4, bool A8>
+int launch_edge(int bt, const void* x, const void* xs, const void* w, const void* scales,
+                void* out, void* ws, int M, int N, int K, int ldx, int ldw, int xhi,
+                int splits, cudaStream_t s) {
+  if (N % 8)
+    return launch_bt<W4, A8, true>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                   splits, s);
+  return launch_bt<W4, A8, false>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                  splits, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -595,26 +686,41 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K6-K9: x (M, K) contiguous, bf16 (a8 = 0) or int8 (a8 = 1, with xs (M,)
-// fp32 per-row activation scales; else xs is unused); w (K, N) int8, or
-// (K/2, N) packed int4 (w4 = 1); scales (N,) fp32; out (M, N) bf16; ws
-// (splits, M, N) fp32 (a8: int32) when splits > 1. bt: tokens per CTA (16,
-// 32, 64, 128); splits: ranges of the K walk. x, w, scales, out and ws
-// 16-byte aligned, N % 16 == 0, K % 32 == 0. Returns cudaGetLastError().
+// K6-K9: x (M, K), rows ldx elements apart, bf16 (a8 = 0) or int8 (a8 = 1,
+// with xs (M,) fp32 per-row activation scales; else xs is unused); w (K, N)
+// int8, or (K/2, N) packed int4 (w4 = 1), rows ldw bytes apart; scales (N,)
+// fp32; out (M, N) bf16 contiguous; ws (splits, M, N) fp32 (a8: int32) when
+// splits > 1. int4: x's high half (its K/2 columns from K/2) starts at
+// column xhi >= K/2, xhi times the element size a multiple of 16 (the
+// columns between hold zeros); xhi is not read otherwise. bt: tokens per CTA
+// (16, 32, 64, 128); splits: ranges of the K walk. Any M, N and K (int4: K
+// even); x, w, scales, out and ws 16-byte aligned, ldx * (a8 ? 1 : 2) and
+// ldw multiples of 16 (TMA's strides), ldx at least x's columns, ldw >= N.
+// Returns cudaGetLastError().
 int fa_quant_matmul(const void* x, const void* xs, const void* w, const void* scales, void* out,
-                    void* ws, int M, int N, int K, int w4, int a8, int bt, int splits,
-                    void* stream) {
+                    void* ws, int M, int N, int K, int ldx, int ldw, int xhi, int w4, int a8,
+                    int bt, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elem = a8 ? 1 : 2;
   const bool aligned =
       aligned16(x) && aligned16(w) && aligned16(scales) && aligned16(out) && aligned16(ws);
-  if (N % 16 || K % 32 || splits < 1 || !aligned || (a8 && !xs))
+  const bool halves = !w4 || (xhi >= K / 2 && (xhi * elem) % 16 == 0 && ldx >= xhi + K / 2);
+  const bool strides = ldx >= K && ldw >= N && (ldx * elem) % 16 == 0 && ldw % 16 == 0;
+  if (M < 1 || N < 1 || K < 1 || (w4 && K % 2) || splits < 1 || !aligned || !strides ||
+      !halves || (a8 && !xs))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a8) {
-    if (w4) return launch_bt<true, true>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
-    return launch_bt<false, true>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
+    if (w4)
+      return launch_edge<true, true>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                     splits, s);
+    return launch_edge<false, true>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                    splits, s);
   }
-  if (w4) return launch_bt<true, false>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
-  return launch_bt<false, false>(bt, x, xs, w, scales, out, ws, M, N, K, splits, s);
+  if (w4)
+    return launch_edge<true, false>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                    splits, s);
+  return launch_edge<false, false>(bt, x, xs, w, scales, out, ws, M, N, K, ldx, ldw, xhi,
+                                   splits, s);
 }
 
 // The activation quantization of K8/K9: x (M, K) bf16 contiguous -> xq (M,

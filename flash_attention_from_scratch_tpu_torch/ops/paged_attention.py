@@ -16,7 +16,10 @@ Page formats: dense (the query's dtype), int8, fp8 (``torch.float8_e4m3fn``)
 and int4 packed along the tokens of a page (``(kv_heads, num_pages,
 page_size // 2, d)`` int8: byte (t, c) holds token t in the low nibble and
 token t + page_size/2 in the high nibble), the quantized ones with fp32
-scales per (kv_head, page).
+scales per (kv_head, page). Any page size (int4: even), as the JAX wrapper
+takes: the kernel walks pages in chunks where their sizes allow
+(:func:`chunk_tokens`), and gathers tiles of 64 positions across pages
+otherwise (1 token a page, 12, 100, ...; :attr:`PagedPlan.gather`).
 
 Queries: one token per sequence, ``(batch, heads, d)``, or t tokens,
 ``(batch, heads, t, d)`` (speculative verify): token j sits at position
@@ -72,20 +75,24 @@ MODE_INT8C = 4  # int8 pages, int8_compute
 _I32, _F32, _PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 # The split kernel's geometry (csrc/paged_attention.cu; plan() mirrors it):
-# a CTA holds a tile of 16 rows (the M of mma.sync); pages arrive in chunks
-# of up to 64 tokens (an int4 page whole) through a ring of 2-8 slots (the
-# K chunk, then the V chunk): dense ones by TMA straight into the tiles the
-# products read (RING_BYTES), quantized ones as raw bytes (RAW_RING_BYTES)
-# converted into a bf16 tile (STAGE_BYTES); the Q tile and the tiles
-# 1024-aligned; the warps' merge scratch reuses the tiles. The ring budgets
-# are d 128's; :func:`geometry` gives the rest at each width (``Geo<D>`` in
-# the kernel).
+# a CTA holds a tile of 16 rows (the M of mma.sync); on the chunk walk pages
+# arrive in chunks of up to 64 tokens (an int4 page whole, up to 256)
+# through a ring of 2-8 slots (the K chunk, then the V chunk): dense ones by
+# TMA straight into the tiles the products read (RING_BYTES), quantized ones
+# as raw bytes (RAW_RING_BYTES) converted into a bf16 tile (STAGE_BYTES); on
+# the gather walk every format arrives as raw token rows, 64 positions a
+# slot (RAW_RING_BYTES), converted into the bf16 tile with each token's
+# factors (FAC_BYTES); the Q tile and the tiles 1024-aligned; the warps'
+# merge scratch reuses the tiles. The ring budgets are d 128's;
+# :func:`geometry` gives the rest at each width (``Geo<D>`` in the kernel).
 MMA_ROWS = 16
 TILE_TOKENS = 64
 NWARPS = 8
 RING_BYTES = 98304
 RAW_RING_BYTES = 65536
 MIN_SLOTS, MAX_SLOTS = 2, 8
+INT4_WHOLE_PAGE = 256    # int4 pages up to this many tokens go whole on the chunk walk
+FAC_BYTES = 512          # the gather walk's K and V factors of a tile's tokens
 ALIGN_SLACK = 1024
 SMEM_LIMIT = 232448      # shared memory an H100 block may use
 STATIC_RESERVE = 1024    # of it kept for the kernel's static arrays
@@ -93,8 +100,12 @@ SM_SMEM = 233472         # shared memory of one H100 SM
 CTA_RESERVED = 1024      # of it reserved for each resident CTA
 WAVES = 2                # CTA slots the split count aims to fill, in waves
 # Table tokens a split covers, at least: a CTA's fixed cost (its Q rows, its
-# merge, its partial's writes) against its walk.
-MIN_SPLIT_TOKENS = {"dense": 1024, "quantized": 512}
+# merge, its partial's writes) against its walk. The gather walk's tile
+# costs a copy a page (64 at page 1), so it splits finer: at the decode
+# step of chip_smoke.py's OpenHermes run R1 (1-token pages, 8 x 201-2,001
+# tokens, one layer) one split took 0.194 ms, 16 forced ones 0.053 (PERF.md;
+# NVIDIA H100 80GB HBM3, 700 W).
+MIN_SPLIT_TOKENS = {"dense": 1024, "quantized": 512, "gather": 128}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +160,12 @@ class PagedPlan:
     grid: tuple
     d_head: int = D_HEAD
 
+    @property
+    def gather(self) -> bool:
+        """The gather walk (``paged_decode_gather_kernel``): tiles of 64
+        consecutive positions copied across pages; ``chunk_tokens`` 0."""
+        return self.chunk_tokens == 0
+
     def columns(self, split: int, pages_per_seq: int) -> range:
         """The page-table columns split ``split`` owns (before the kernel
         clips them to the pages its sequence's rows can see)."""
@@ -166,12 +183,25 @@ class PagedPlan:
 
 
 def chunk_tokens(mode: int, page_size: int) -> int:
-    """Tokens of a ring slot's chunk (``chunk_tokens`` in the kernel): a page
-    of up to 64 tokens, else runs of 64 (the page size a multiple of 64); an
-    int4 page whole; 0 for a page size the kernel does not take."""
-    if mode == MODES["int4"][0] or page_size <= TILE_TOKENS:
+    """Tokens of a ring slot's chunk on the chunk walk (``walk_chunk_tokens``
+    in the kernel), always a multiple of 8: a page of up to 64 tokens, else
+    runs of 64 (the page size a multiple of 64); an int4 page whole, up to
+    ``INT4_WHOLE_PAGE`` tokens; 0 where the page size takes the gather walk
+    (a page size not a multiple of 8, above 64 and not a multiple of 64, or
+    an int4 page above ``INT4_WHOLE_PAGE``)."""
+    if page_size % 8:
+        return 0
+    if mode == MODES["int4"][0]:
+        return page_size if page_size <= INT4_WHOLE_PAGE else 0
+    if page_size <= TILE_TOKENS:
         return page_size
     return TILE_TOKENS if page_size % TILE_TOKENS == 0 else 0
+
+
+def gather_row_bytes(store: int, d_head: int) -> int:
+    """Bytes of a token's row in a gather slot of K (or V): a dense row, or
+    one stored row (an int4 row holds the token in one of its nibbles)."""
+    return 2 * d_head if store == MODES["dense"][0] else d_head
 
 
 @functools.lru_cache(maxsize=4096)
@@ -185,25 +215,30 @@ def plan(batch: int, kv_heads: int, rows: int, pages_per_seq: int, page_size: in
     enough splits to fill ``WAVES`` waves of the card's CTA slots (the
     (sequence, KV head, row block) CTAs alone are far fewer at decode, and
     the splits of short sequences see no page and end at once), but no
-    fewer than ``MIN_SPLIT_TOKENS`` table tokens a split."""
+    fewer than ``MIN_SPLIT_TOKENS`` table tokens a split (by walk)."""
     geo = geometry(d_head)
     store = MODES["int8"][0] if mode == MODE_INT8C else mode
     dense = store == MODES["dense"][0]
     row_blocks = -(-rows // MMA_ROWS)
     tokens = chunk_tokens(store, page_size)
-    stored = tokens // 2 if store == MODES["int4"][0] else tokens
-    slot_bytes = 2 * stored * d_head * (2 if dense else 1)
-    budget = geo.ring_bytes if dense else geo.raw_ring_bytes
-    slots = max(MIN_SLOTS, min(MAX_SLOTS, budget // max(slot_bytes, 1)))
-    smem = ALIGN_SLACK + geo.q_tile_bytes + max((0 if dense else geo.stage_bytes)
-                                                + slots * slot_bytes, geo.merge_bytes)
+    if tokens:  # the chunk walk
+        stored = tokens // 2 if store == MODES["int4"][0] else tokens
+        slot_bytes = 2 * stored * d_head * (2 if dense else 1)
+        budget = geo.ring_bytes if dense else geo.raw_ring_bytes
+        tiles = 0 if dense else geo.stage_bytes
+    else:  # the gather walk: raw slots of 64 token rows, the bf16 tile, the factors
+        slot_bytes = 2 * TILE_TOKENS * gather_row_bytes(store, d_head)
+        budget = geo.raw_ring_bytes
+        tiles = geo.stage_bytes + FAC_BYTES
+    slots = max(MIN_SLOTS, min(MAX_SLOTS, budget // slot_bytes))
+    smem = ALIGN_SLACK + geo.q_tile_bytes + max(tiles + slots * slot_bytes, geo.merge_bytes)
     ctas_per_sm = max(1, min(geo.ctas_per_sm,
                              SM_SMEM // (smem + STATIC_RESERVE + CTA_RESERVED)))
     cols = max(pages_per_seq, 1)
     if splits <= 0:
+        walk = "gather" if not tokens else "dense" if dense else "quantized"
         splits = min(-(-WAVES * ctas_per_sm * sm_count // (batch * kv_heads * row_blocks)),
-                     max(1, cols * page_size
-                         // MIN_SPLIT_TOKENS["dense" if dense else "quantized"]))
+                     max(1, cols * page_size // MIN_SPLIT_TOKENS[walk]))
     per = -(-cols // max(1, min(splits, cols)))
     splits = -(-cols // per)
     return PagedPlan(row_blocks=row_blocks, chunk_tokens=tokens, slot_bytes=slot_bytes,
@@ -465,12 +500,8 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
     kv_heads, num_pages, rows, _ = k_pages.shape
     page_size = rows * 2 if mode == "int4" else rows
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if (not chunk_tokens(mode_id, page_size) or (mode == "dense" and page_size % 8)
-            or (mode == "int4" and page_size % 2)):
-        raise ValueError(f"the CUDA kernel takes pages of up to 64 tokens or a multiple of "
-                         f"64 (dense: a multiple of 8; int4: even), got {page_size}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if mode == "dense":
         k_scales = v_scales = q  # not read by the kernel
     else:

@@ -21,8 +21,16 @@ the weight built in registers (dequantized to bf16 for K6/K7, byte-
 transposed int8 for K8/K9), launched as :func:`plan` says; a K8/K9 call
 first quantizes x with one kernel of its own (:func:`quantize_rows`). For a
 CPU tensor the wrapper runs :func:`quant_matmul_plain`; for a CUDA tensor it
-launches the kernels or raises, whatever the shape (the kernel masks its own
-ragged edges; there is no plain fallback on the card).
+launches the kernels or raises (there is no plain fallback on the card).
+
+The kernels take every (K, N) that :func:`quantize_weight` makes (int4: K
+even, as the JAX package's halves need). TMA reads rows only at strides of
+16-byte multiples, so :class:`QuantizedWeight` stores ``values`` of N % 16
+!= 0 once as the (K, N) view of a buffer whose rows are padded to such a
+stride (:func:`tma_rows`); ``shape`` and every function keep the logical
+(K, N), and no call copies or pads a weight. An x of K % 8 != 0 (int8 x of
+the a8 recipe: K % 16) is copied into padded rows on the call, and so is
+one whose int4 high half would start off that quantum (K/2 % 8, or % 16).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from ..utils.device import sm_count
@@ -39,7 +48,7 @@ from .quant import div_const, pack_int4, unpack_int4_halves
 
 __all__ = ["QuantizedWeight", "quantize_weight", "concat_weights",
            "quantize_activations", "quantize_rows", "quant_matmul",
-           "quant_matmul_plain", "KERNELS"]
+           "quant_matmul_plain", "tma_rows", "KERNELS"]
 
 _QMAX = {"int8": 127.0, "int4": 7.0}
 SOURCE = "quant_matmul.cu"
@@ -50,6 +59,30 @@ KERNELS = {("int8", False): "quant_matmul_int8",       # K6
            ("int4", True): "quant_matmul_int4_a8"}     # K9
 
 _I32, _PTR = ctypes.c_int, ctypes.c_void_p
+ROW_BYTES = 16  # TMA's quantum of a row stride, and of a row's alignment
+
+
+def _tma_readable(t) -> bool:
+    """``t`` (rows, cols) is read by TMA as it lies: elements contiguous
+    within a row, rows a multiple of 16 bytes apart, the first 16-byte
+    aligned."""
+    row = t.stride(0) * t.element_size()
+    return ((t.stride(1) == 1 or t.shape[1] <= 1) and t.stride(0) >= t.shape[1]
+            and row % ROW_BYTES == 0 and t.data_ptr() % ROW_BYTES == 0)
+
+
+def tma_rows(values):
+    """A (rows, N) int8 weight as the kernels read it: ``values`` itself when
+    TMA can read it as it lies, else its (rows, N) view of a zero-padded
+    (rows, N rounded up to 16) buffer, written here once. The view's values
+    are ``values``'; only its row stride differs."""
+    if (not isinstance(values, torch.Tensor) or values.ndim != 2
+            or values.dtype != torch.int8 or _tma_readable(values)):
+        return values
+    rows, n = values.shape
+    buf = values.new_zeros((rows, -(-n // ROW_BYTES) * ROW_BYTES))
+    buf[:, :n] = values
+    return buf[:, :n]
 
 
 @dataclasses.dataclass
@@ -58,6 +91,9 @@ class QuantizedWeight:
 
     ``act`` records the matmul recipe: "bf16" = weight-only, "int8" = also
     quantize activations per row and multiply int8 x int8 (W8A8 / W4A8).
+    ``values`` is laid out for the kernels when the weight is made
+    (:func:`tma_rows`): a weight of N % 16 != 0 is the (K, N) view of rows
+    padded to 16 bytes.
     """
 
     values: torch.Tensor
@@ -65,6 +101,9 @@ class QuantizedWeight:
     mode: str
     orig_dtype: torch.dtype = torch.bfloat16
     act: str = "bf16"
+
+    def __post_init__(self):
+        self.values = tma_rows(self.values)
 
     @property
     def k_dim(self) -> int:
@@ -150,7 +189,7 @@ def quant_matmul_plain(x2, wq: QuantizedWeight, act_quant: bool = False,
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.fa_quant_matmul.restype = _I32
-    lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 7 + [_PTR]
+    lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 10 + [_PTR]
     lib.fa_quantize_rows.restype = _I32
     lib.fa_quantize_rows.argtypes = [_PTR] * 3 + [_I32] * 2 + [_PTR]
     return lib
@@ -218,28 +257,55 @@ def _aligned(t):
 
 
 def quantize_rows(x2):
-    """:func:`quantize_activations` of a 2-D bf16 ``x2`` (m, K): on a CUDA
-    tensor one launch of the kernel (the first of a K8/K9 call, whose launch
-    count covers it), the same bytes and scales bit for bit; on a CPU tensor
-    the plain version."""
+    """:func:`quantize_activations` of a 2-D bf16 ``x2`` (m, K), any K: on a
+    CUDA tensor one launch of the kernel (the first of a K8/K9 call, whose
+    launch count covers it), the same bytes and scales bit for bit; on a CPU
+    tensor the plain version."""
     if x2.device.type == "cpu":
         return quantize_activations(x2)
-    if x2.dtype != torch.bfloat16 or x2.shape[1] % 8:
-        raise ValueError(f"quantize_rows takes bf16 rows of K % 8 == 0, got "
-                         f"{x2.dtype}, K {x2.shape[1]}")
-    return _quantize_rows(x2, _lib(), torch.cuda.current_stream(x2.device).cuda_stream)
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"quantize_rows takes bf16 rows, got {x2.dtype}")
+    x_q, xs = _quantize_rows(x2, _lib(), torch.cuda.current_stream(x2.device).cuda_stream)
+    return x_q[:, :x2.shape[1]], xs
 
 
-def _quantize_rows(x2, lib, stream):
+def _quantize_rows(x2, lib, stream, quantum: int = 8):
+    """The kernel on x2's rows, padded with zeros to a multiple of
+    ``quantum`` values where K is not one (a copy of x: zeros change neither
+    a row's abs-max nor any quantized value). Returns (x_q (m, K padded),
+    xs (m, 1))."""
     m, k = x2.shape
-    x_op = _aligned(x2)
-    x_q = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    kp = -(-k // quantum) * quantum
+    x_op = _aligned(x2) if kp == k else F.pad(x2, (0, kp - k))
+    x_q = torch.empty((m, kp), dtype=torch.int8, device=x2.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
     if m:
-        rc = lib.fa_quantize_rows(x_op.data_ptr(), x_q.data_ptr(), xs.data_ptr(), m, k,
+        rc = lib.fa_quantize_rows(x_op.data_ptr(), x_q.data_ptr(), xs.data_ptr(), m, kp,
                                   stream)
         _build.check(lib, rc, "quantize_rows")
     return x_q, xs
+
+
+def _tma_x(x2, w4: bool, quantum: int):
+    """x (m, K) as the kernels' x map reads it, rows a multiple of
+    ``quantum`` values apart: (x, its row stride, the column where an int4
+    weight's high half starts). x itself where TMA reads it as it lies;
+    else a copy, in rows padded to the quantum where K is not a multiple of
+    it; and where an int4 weight's K/2 is not, each half of x in columns of
+    its own, padded (zeros), so that the high half's boxes start on the
+    quantum too."""
+    m, k = x2.shape
+    half = k // 2
+    if w4 and half % quantum:
+        hq = -(-half // quantum) * quantum
+        out = x2.new_zeros((m, 2 * hq))
+        out[:, :half] = x2[:, :half]
+        out[:, hq:hq + half] = x2[:, half:]
+        return out, 2 * hq, hq
+    if _tma_readable(x2) and x2.stride(0) % quantum == 0:
+        return x2, x2.stride(0), half
+    kp = -(-k // quantum) * quantum
+    return (_aligned(x2), k, half) if kp == k else (F.pad(x2, (0, kp - k)), kp, half)
 
 
 def _launch(x2, wq: QuantizedWeight, act_quant: bool):
@@ -247,29 +313,31 @@ def _launch(x2, wq: QuantizedWeight, act_quant: bool):
     n = wq.values.shape[1]
     if x2.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernels take bf16 activations, got {x2.dtype}")
-    if wq.values.dtype != torch.int8 or not wq.values.is_cuda \
-            or not wq.scales.is_cuda:
+    values = wq.values
+    if values.dtype != torch.int8 or not values.is_cuda or not wq.scales.is_cuda:
         raise ValueError("quantized values must be int8 tensors on the card")
-    if n % 16 or k % 32:
-        raise ValueError(f"the CUDA kernels take N % 16 == 0 and K % 32 == 0, "
-                         f"got K {k}, N {n}")
+    if not _tma_readable(values):
+        raise ValueError("the weight's rows must lie 16-byte aligned, a multiple of 16 bytes "
+                         "apart (QuantizedWeight lays them out so when it is made; the "
+                         "kernels never copy a weight)")
     w4 = wq.mode == "int4"
-    values = _aligned(wq.values)
     scales = _aligned(wq.scales.float())
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     p = plan(m, n, k, w4, sm_count(x2.device), act_quant)
     lib = _lib()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    if act_quant:
-        x_op, xs = _quantize_rows(x2, lib, stream)
+    if act_quant:  # int8 x: rows and the high half on 16 values, quantized in that layout
+        x_l, ldx, xhi = _tma_x(x2.contiguous(), w4, ROW_BYTES)
+        x_op, xs = _quantize_rows(x_l, lib, stream, ROW_BYTES)
         xs_ptr, ws_dtype = xs.data_ptr(), torch.int32
     else:
-        x_op, xs_ptr, ws_dtype = _aligned(x2), None, torch.float32
+        (x_op, ldx, xhi), xs_ptr, ws_dtype = _tma_x(x2, w4, 8), None, torch.float32
     ws = (torch.empty((p.splits, m, n), device=x2.device, dtype=ws_dtype)
           if p.splits > 1 else out)
     rc = lib.fa_quant_matmul(
         x_op.data_ptr(), xs_ptr, values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, n, k, int(w4), int(act_quant), p.bt, p.splits, stream)
+        ws.data_ptr(), m, n, k, ldx, values.stride(0), xhi, int(w4), int(act_quant), p.bt,
+        p.splits, stream)
     _build.check(lib, rc, "quant_matmul")
     _build.launch_counts[KERNELS[(wq.mode, act_quant)]] += 1
     return out
@@ -295,7 +363,7 @@ def quant_matmul(x, wq: QuantizedWeight, *, act_quant: bool = False,
     m = 1
     for dim in lead:
         m *= dim
-    if m == 0:
+    if m == 0 or n == 0:
         return x.new_zeros((*lead, n))
     x2 = x.reshape(m, k)
     if x.device.type == "cpu":

@@ -608,15 +608,16 @@ def test_quant_matmul_kernels_run_on_wgmma_without_spills(cuda):
     (IGMMA), none an mma.sync (HMMA/IMMA); the a8 ones spill nothing."""
     sass = sass_by_function(QMM_SOURCE)
     usage = resource_usage(QMM_SOURCE)
-    names = [n for n in sass if "quant_matmul_kernel" in n]
-    assert len(names) == 16, list(sass)  # W4 x A8 x 4 token tiles
-    a8 = [n for n in names if re.search(r"quant_matmul_kernelILb[01]ELb1E", n)]
-    assert len(a8) == 8, names
-    for name in names:
-        assert ("IGMMA" if name in a8 else "HGMMA") in sass[name], name
-        assert "HMMA" not in sass[name] and "IMMA" not in sass[name], name
-    for name in a8:
-        assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
+    for kernel in ("quant_matmul_kernel", "quant_matmul_edge_kernel"):  # N % 8: the edge
+        names = [n for n in sass if kernel in n]
+        assert len(names) == 16, list(sass)  # W4 x A8 x 4 token tiles
+        a8 = [n for n in names if re.search(kernel + r"ILb[01]ELb1E", n)]
+        assert len(a8) == 8, names
+        for name in names:
+            assert ("IGMMA" if name in a8 else "HGMMA") in sass[name], name
+            assert "HMMA" not in sass[name] and "IMMA" not in sass[name], name
+        for name in a8:
+            assert usage[name]["local"] == 0 and usage[name]["stack"] == 0, (name, usage[name])
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"], ids=["K6", "K7"])
@@ -637,6 +638,96 @@ def test_weight_only_kernels_key_weight_maps_by_shape(cuda, mode):
         ok, ratio = check_quant_matmul(quant_matmul(x, wq), x, wq, False)
         assert ok, (n, ratio)
         buf.neg_()  # the same address and shape now hold other bytes
+
+
+# The shapes the JAX package's quantize_weight makes and the old kernels
+# refused: OpenHermes-2.5-Mistral-7B's 32,002-wide lm_head, N 4,100 and
+# 40 (N % 8 != 0 and N % 16 != 0: the edge kernels), K 4,000 (K % 32 != 0)
+# and 4,004 (K % 8 = 4, K % 16 = 4: x copied into padded rows).
+QMM_ANY = [(4096, 32002), (4000, 4100), (4004, 4100), (4096, 40)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 32, 1000, 1024])
+@pytest.mark.parametrize("k,n", QMM_ANY, ids=[f"{k}x{n}" for k, n in QMM_ANY])
+@pytest.mark.parametrize("mode,act_quant", [("int8", False), ("int4", False), ("int8", True),
+                                            ("int4", True)], ids=["K6", "K7", "K8", "K9"])
+def test_quant_matmul_kernels_take_any_shape(cuda, mode, act_quant, k, n, m):
+    """K6-K9 at ragged K and N, by the rule of the module docstring: one
+    launch count a call, reproducible bits, the weight's stored rows padded
+    to 16 bytes once (its logical (K, N) kept) and no copy of it on a call
+    (the call's peak allocation stays below the weight's bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    rows = k // 2 if mode == "int4" else k
+    wq = QuantizedWeight(
+        torch.randint(-128, 128, (rows, n), generator=gen, device=cuda, dtype=torch.int8),
+        torch.rand(n, generator=gen, device=cuda) / k, mode, torch.bfloat16,
+        "int8" if act_quant else "bf16")
+    assert wq.shape == (k, n) and wq.values.stride(0) % 16 == 0
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    name = QMM[(mode, act_quant)]
+    before, ptr = _build.launch_counts[name], wq.values.data_ptr()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = quant_matmul(x, wq, act_quant=act_quant)
+    torch.cuda.synchronize()
+    call_bytes = torch.cuda.max_memory_allocated() - base
+    assert _build.launch_counts[name] == before + 1 and wq.values.data_ptr() == ptr
+    if m <= 32 and n >= 4096:  # the output and split partials are small beside the weight
+        assert call_bytes < wq.values.numel(), call_bytes
+    assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+    ok, ratio = check_quant_matmul(got, x, wq, act_quant)
+    assert ok, ratio
+    assert torch.equal(got, quant_matmul(x, wq, act_quant=act_quant))
+
+
+@pytest.mark.parametrize("m", [1, 100])
+@pytest.mark.parametrize("k,n", [(260, 330), (1028, 4100)])
+@pytest.mark.parametrize("mode,act_quant", [("int8", False), ("int4", False), ("int8", True),
+                                            ("int4", True)], ids=["K6", "K7", "K8", "K9"])
+def test_ragged_kernels_are_exact_on_one_hot_rows(cuda, mode, act_quant, k, n, m):
+    """One-hot rows at ragged K and N (K 260 and 1,028: K % 8 = 4; N 330:
+    the edge kernel): every stored byte, its nibble half, its column and
+    that column's scale come out bit for bit (weight-only: exact in bf16
+    with power-of-two scales; a8: the plain version's bits)."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    rows = k // 2 if mode == "int4" else k
+    values = torch.randint(-128, 128, (rows, n), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    scales = torch.exp2(torch.randint(-6, 3, (n,), generator=gen, device=cuda).float())
+    wq = QuantizedWeight(values, scales, mode, torch.bfloat16, "int8" if act_quant else "bf16")
+    pick = torch.randperm(k, generator=gen, device=cuda)[:m]
+    x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda), pick] = 1
+    got = quant_matmul(x, wq, act_quant=act_quant)
+    if act_quant:
+        assert torch.equal(got, quant_matmul_plain(x, wq, act_quant=True))
+    else:
+        assert torch.equal(got, (wq.stored_columns() * scales)[pick].bfloat16())
+
+
+@pytest.mark.parametrize("k", [4000, 4004, 4100, 13])
+@pytest.mark.parametrize("m", [1, 16, 1024])
+def test_quantize_rows_kernel_takes_any_k(cuda, m, k):
+    """The activation quantization at K % 8 != 0 (x copied into rows padded
+    with zeros, which change no abs-max) gives the plain bytes and scales
+    bit for bit, in the logical (m, K)."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = _activation_rows(m, k, gen, cuda)
+    got_q, got_s = quantize_rows(x)
+    want_q, want_s = quantize_activations(x)
+    assert got_q.shape == (m, k) and got_s.shape == (m, 1)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
+def test_quant_matmul_refuses_a_weight_laid_out_past_tma(cuda):
+    """A weight whose rows were re-pointed after it was made at a stride TMA
+    cannot read raises: the wrapper never copies a weight to fix it."""
+    wq = QuantizedWeight(torch.zeros((64, 40), device=cuda, dtype=torch.int8),
+                         torch.ones(40, device=cuda), "int8")
+    wq.values = torch.zeros((64, 41), device=cuda, dtype=torch.int8)[:, :40]
+    with pytest.raises(ValueError, match="16 bytes"):
+        quant_matmul(torch.zeros((1, 64), device=cuda, dtype=torch.bfloat16), wq)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
@@ -811,6 +902,108 @@ def test_paged_kernel_d256_is_deterministic(cuda, mode):
                                       d=256)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     q = torch.randn((len(lengths), 16, 256), device=cuda).bfloat16()
+    for splits in (0, 2):
+        first = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                       splits=splits, **kw0)
+        for _ in range(3):
+            assert torch.equal(first, paged_decode_attention(
+                q, kp, vp, lens, tables, int8_compute=i8c, splits=splits, **kw0))
+
+
+# Page sizes the chunk walk takes (40) and the gather walk takes (1: SGLang's
+# default, 4, 12, 72, 96, 100, 200); int4 pages are even.
+ANY_PAGE_SIZES = {"dense": (1, 4, 12, 40, 72, 96, 100, 200),
+                  "int4": (2, 12, 40, 96, 100, 200)}
+ANY_PAGE_CASES = [(mode, ps, d, t) for mode in ("dense", "int8", "fp8", "int4", "int8c")
+                  for ps in ANY_PAGE_SIZES.get(mode, ANY_PAGE_SIZES["dense"])
+                  for d in (128, 256) for t in (1, 4)]
+
+
+def _any_page_pool(cuda, kv_heads, lengths, mode, seed, ps, d):
+    """A pool of ``ps``-token pages, shuffled, as many as the lengths need
+    and three more; slots no sequence owns hold NaN (dense) or the e4m3 NaN
+    byte (fp8). Returns (k, v, tables, keyword arguments of the format)."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n // ps) for n in lengths]
+    num_pages = sum(need) + 3
+    tables = torch.full((len(lengths), max(need)), -1, dtype=torch.int32, device=cuda)
+    owned = torch.zeros(kv_heads, num_pages, ps, d, dtype=torch.bool, device=cuda)
+    perm, nxt = rng.permutation(num_pages), 0
+    for b, n in enumerate(lengths):
+        for i in range(need[b]):
+            page = int(perm[nxt])
+            nxt += 1
+            tables[b, i] = page
+            owned[:, page, :min(ps, n - i * ps)] = True
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    k, v = (torch.randn(kv_heads, num_pages, ps, d, device=cuda, generator=gen)
+            for _ in range(2))
+    if mode == "dense":
+        k, v = (torch.where(owned, x, float("nan")).bfloat16() for x in (k, v))
+        return k, v, tables, {}
+    kp, ks = quantize_kv_pages(k, mode)
+    vp, vs = quantize_kv_pages(v * 2, mode)
+    if mode == "fp8":
+        for p in (kp, vp):
+            p.view(torch.uint8)[~owned] = 0x7F
+    # Every page its own scale, so a tile across pages must take each token's.
+    ks = ks * torch.linspace(0.5, 2.0, ks.numel(), device=cuda).view_as(ks)
+    return kp, vp, tables, dict(mode=mode, k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.parametrize("mode,ps,d,t", ANY_PAGE_CASES,
+                         ids=[f"{m}-ps{ps}-d{d}-t{t}" for m, ps, d, t in ANY_PAGE_CASES])
+def test_paged_kernel_takes_every_page_size(cuda, mode, ps, d, t):
+    """K4/K5 at page sizes the chunk walk does not take (and 40, which it
+    does), every page format and int8 compute, d 128 and 256, t 1 and 4,
+    split counts 1 (no merge) and the plan's, plain, with a window and
+    with a softcap, by the rule of the multi-token test; each page its own
+    K scale; unowned slots NaN."""
+    i8c = mode == "int8c"
+    lengths = [0, 1, t, 37, 300, 611]
+    heads, kv_heads = (32, 8) if d == 128 else (16, 8)
+    kp, vp, tables, kw0 = _any_page_pool(cuda, kv_heads, lengths, "int8" if i8c else mode,
+                                         seed=60 + ps + t, ps=ps, d=d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), heads) + ((t,) if t > 1 else ()) + (d,),
+                    device=cuda).bfloat16()
+    kw0 = dict(kw0, scale=d ** -0.5)
+    name = kernel_name(t, i8c)
+    mode_num = MODE_INT8C if i8c else MODES[mode][0]
+    for splits in (1, 0):
+        merged = plan(len(lengths), kv_heads, heads // kv_heads * t, tables.shape[1], ps,
+                      mode_num, sm_count(q.device), splits, d).splits > 1
+        for kw in (dict(), dict(window=100), dict(softcap=20.0)):
+            before, merges = _build.launch_counts[name], _build.launch_counts[KERNEL_MERGE]
+            out = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
+                                         splits=splits, **kw0, **kw)
+            torch.cuda.synchronize()
+            assert _build.launch_counts[name] == before + 1
+            assert _build.launch_counts[KERNEL_MERGE] == merges + merged
+            native = paged_decode_attention_plain(q, kp, vp, lens, tables, int8_compute=i8c,
+                                                  **kw0, **kw)
+            pages32 = (kp.float(), vp.float()) if mode == "dense" else (kp, vp)
+            ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw0,
+                                                 **kw)
+            assert out.shape == q.shape and torch.isfinite(out).all()
+            assert float(out[0].abs().max()) == 0.0
+            by_token = (lambda x: x.transpose(1, 2)) if t > 1 else (lambda x: x[:, None])
+            ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(native),
+                                                      by_token(ref32), lead=2)
+            assert ok, (mode, ps, d, t, splits, kw, ratio, where)
+
+
+@pytest.mark.parametrize("mode", ["dense", "int4", "int8c"])
+def test_paged_gather_walk_is_deterministic(cuda, mode):
+    """The gather walk (pages of 12 tokens, int4 of 100) and its merge give
+    the same bits on every call, at the plan's split count and at 2."""
+    i8c = mode == "int8c"
+    lengths = [0, 5, 300, 611]
+    ps = 100 if mode == "int4" else 12
+    kp, vp, tables, kw0 = _any_page_pool(cuda, 8, lengths, "int8" if i8c else mode, seed=42,
+                                         ps=ps, d=128)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), 32, 128), device=cuda).bfloat16()
     for splits in (0, 2):
         first = paged_decode_attention(q, kp, vp, lens, tables, int8_compute=i8c,
                                        splits=splits, **kw0)

@@ -6,10 +6,11 @@ reads no device value and a decode step can be captured in a CUDA graph);
 its splits cover every page-table column exactly once; its ring, tiles and
 merge scratch fit an H100 block's shared memory for every page format at
 page sizes 64 and 128 (and the tests' 16), two CTAs an SM at head width 128
-and one at 256; at the serving run's shapes it picks the split counts
-measured fastest; its workspace holds every split's partial; and the
-geometry it counts with is the kernel's own: the constants are read from
-``csrc/paged_attention.cu``.
+and one at 256, and at every page size from 1 to 1,024 on either walk (the
+chunk walk, or the gather walk of 64-position tiles across pages); at the
+serving run's shapes it picks the split counts measured fastest; its
+workspace holds every split's partial; and the geometry it counts with is
+the kernel's own: the constants are read from ``csrc/paged_attention.cu``.
 """
 
 import inspect
@@ -48,7 +49,8 @@ def test_plan_constants_are_the_kernels(d_head):
     assert _int(r"constexpr int NWARPS = (\d+);") == pa.NWARPS
     assert pa.NWARPS * pa.MMA_ROWS * (geo.merge_stride + 2) * 4 == geo.merge_bytes
     for name in ("MMA_ROWS", "TILE_TOKENS", "RING_BYTES", "RAW_RING_BYTES", "MIN_SLOTS",
-                 "MAX_SLOTS", "ALIGN_SLACK", "SMEM_LIMIT", "STATIC_RESERVE"):
+                 "MAX_SLOTS", "ALIGN_SLACK", "SMEM_LIMIT", "STATIC_RESERVE",
+                 "INT4_WHOLE_PAGE", "FAC_BYTES"):
         assert _int(rf"constexpr int {name} = (\d+);") == getattr(pa, name), name
     assert "template <int D>\nstruct Geo {" in SRC
     assert f"static_assert(D == 128 || D == 256" in SRC and pa.D_HEADS == (128, 256)
@@ -76,9 +78,19 @@ def test_plan_constants_are_the_kernels(d_head):
     # The host side sizes the ring, the tiles and the rows as plan() does.
     assert "if (store == INT4 || page_size <= TILE_TOKENS) return page_size;" in SRC
     assert "return page_size % TILE_TOKENS == 0 ? TILE_TOKENS : 0;" in SRC
+    assert "if (ct % 8 || (store == INT4 && page_size > INT4_WHOLE_PAGE)) return 0;" in SRC
+    assert "const int ct = walk_chunk_tokens(store, p.page_size);" in SRC
+    assert "return store == DENSE ? 2 * d : d;" in SRC  # gather_row_bytes
     assert "return std::max(MIN_SLOTS, std::min(MAX_SLOTS, budget / slot_bytes));" in SRC
     assert "std::max((raw ? G::STAGE_BYTES : 0) + slots * slot_bytes, G::MERGE_BYTES);" in SRC
-    assert "ring_slots(raw ? Geo<D>::RAW_RING : Geo<D>::RING, slot_bytes)" in SRC
+    assert ("std::max(G::STAGE_BYTES + FAC_BYTES + slots * slot_bytes, G::MERGE_BYTES);"
+            in SRC)
+    assert "const bool gather = ct == 0;" in SRC
+    assert "2 * TILE_TOKENS * gather_row_bytes(store, D)" in SRC
+    assert "ring_slots(raw || gather ? Geo<D>::RAW_RING : Geo<D>::RING, slot_bytes)" in SRC
+    assert "float* fac = reinterpret_cast<float*>(stage + G::STAGE_BYTES);" in SRC
+    assert "uint8_t* ring = stage + G::STAGE_BYTES + FAC_BYTES;" in SRC
+    assert pa.FAC_BYTES == 2 * pa.TILE_TOKENS * 4  # a K and a V factor a token
     assert "const int row_blocks = (rows + MMA_ROWS - 1) / MMA_ROWS;" in SRC
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT - STATIC_RESERVE" in SRC
     assert "if (smem > SMEM_LIMIT - STATIC_RESERVE" in SRC
@@ -138,11 +150,18 @@ def test_plan_workspace_holds_every_partial(d_head, splits):
 
 
 def test_plan_chunks():
-    """64-token chunks of larger pages (a multiple of 64), whole int4 pages,
-    and 0 for a page size the kernel does not take."""
+    """The chunk walk: whole pages of 8-64 tokens (a multiple of 8), 64-token
+    chunks of larger pages (a multiple of 64), whole int4 pages up to 256
+    tokens; 0 (the gather walk) for every other page size: 1-7, 12, 96,
+    100, 200, an int4 page of 12 or 512."""
     assert [pa.chunk_tokens(0, ps) for ps in (8, 16, 64, 128, 256, 96)] == [8, 16, 64, 64,
                                                                            64, 0]
     assert [pa.chunk_tokens(3, ps) for ps in (16, 128, 256)] == [16, 128, 256]
+    for mode in (0, 1, 2, 4):
+        assert [pa.chunk_tokens(mode, ps) for ps in (1, 4, 7, 12, 40, 72, 100, 200, 1024)] == [
+            0, 0, 0, 0, 40, 0, 0, 0, 64]
+    assert [pa.chunk_tokens(3, ps) for ps in (2, 12, 40, 72, 96, 200, 264, 512)] == [
+        0, 0, 40, 72, 96, 200, 0, 0]
 
 
 @pytest.mark.parametrize("pages_per_seq", [1, 2, 3, 9, 17, 64, 257])

@@ -80,7 +80,7 @@ def test_plan_mirrors_the_kernels_tile_geometry(bt):
     XROW int8), each whole weight boxes of WROWS rows; the plan counts CTAs
     and K tiles with the same numbers."""
     src = SOURCE.read_text()
-    assert f"case {bt}: return launch<W4, A8, {bt}>" in src
+    assert f"case {bt}: return launch<W4, A8, {bt}, EDGE>" in src
     two_groups = bt >= _source_int(src, r"NWG = BT >= (\d+) \? 2 : 1;")
     per_sm = _source_int(src, r"PER_SM = NWG == 2 \? (\d+) : 2;" if two_groups
                          else r"PER_SM = NWG == 2 \? 1 : (\d+);")
