@@ -329,7 +329,11 @@ def phase_build() -> dict:
     logs = _build.build(["flash_forward.cu", "paged_attention.cu",
                          "flash_backward.cu", "flash_backward_d256.cu", "quant_matmul.cu",
                          "flash_quant.cu", "flash_quant_d256.cu", "flash_forward_fori.cu",
-                         "flash_forward_fori_d256.cu", "paged_runtime.cpp"])
+                         "flash_forward_fori_d256.cu", "paged_runtime.cpp",
+                         # the fp16 libraries
+                         "flash_forward_f16.cu", "flash_forward_fori_f16.cu",
+                         "flash_forward_fori_d256_f16.cu", "paged_attention_f16.cu",
+                         "quant_matmul_f16.cu"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -349,12 +353,13 @@ def _as_model_rows(x, strided):
     return x.transpose(1, 2).contiguous().transpose(1, 2) if strided else x
 
 
-def _cuda_qkv(sq, skv, seed, batch=1, strided=False, heads=HEADS, kv_heads=KV_HEADS, d=D):
+def _cuda_qkv(sq, skv, seed, batch=1, strided=False, heads=HEADS, kv_heads=KV_HEADS, d=D,
+              dtype=torch.bfloat16):
     from flash_attention_from_scratch_tpu_torch.utils.testing import make_qkv
 
     q, k, v = make_qkv(batch, heads, sq, d, kv_heads=kv_heads, seq_kv=skv,
                        seed=seed)
-    return [_as_model_rows(torch.from_numpy(x).to("cuda", torch.bfloat16), strided)
+    return [_as_model_rows(torch.from_numpy(x).to("cuda", dtype), strided)
             for x in (q, k, v)]
 
 
@@ -701,9 +706,9 @@ def _backward_sinks_case() -> None:
 
 
 def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
-                    device="cuda", kv_heads=KV_HEADS, d=D):
-    """A bf16 page pool holding each sequence's K/V under shuffled page ids
-    (``kv_heads`` heads of width ``d``).
+                    device="cuda", kv_heads=KV_HEADS, d=D, dtype=torch.bfloat16):
+    """A page pool in ``dtype`` (bf16 by default) holding each sequence's K/V
+    under shuffled page ids (``kv_heads`` heads of width ``d``).
 
     Pages no sequence owns, and each last page's slots past the length, hold
     NaN: the kernel must never read them. Returns (k_pages, v_pages,
@@ -727,8 +732,8 @@ def make_paged_pool(lengths, page_size, num_pages, seed, pages_per_seq,
             k[:, page, :rows] = rng.standard_normal((kv_heads, rows, d))
             v[:, page, :rows] = rng.standard_normal((kv_heads, rows, d))
     to = dict(device=device)
-    return (torch.from_numpy(k).to(dtype=torch.bfloat16, **to),
-            torch.from_numpy(v).to(dtype=torch.bfloat16, **to),
+    return (torch.from_numpy(k).to(dtype=dtype, **to),
+            torch.from_numpy(v).to(dtype=dtype, **to),
             torch.tensor(lengths, dtype=torch.int32, **to),
             torch.from_numpy(tables).to(**to))
 
@@ -1015,24 +1020,31 @@ def _with_merges(want: dict, max_batch: int, pages_per_seq: int, page_size: int,
     return {**want, KERNEL_MERGE: calls} if calls else want
 
 
-def phase_serve(smi: str) -> dict:
-    """Serve LLAMA3_8B at full width and depth; check counts and tokens."""
+def phase_serve(smi: str, dtype=torch.bfloat16) -> dict:
+    """Serve LLAMA3_8B at full width and depth in ``dtype`` (bf16; fp16:
+    ``serve_fp16``, ``LlamaConfig.dtype`` FP16, so K1, K4/K5 and the
+    cache run in fp16); check counts and tokens."""
     from flash_attention_from_scratch_tpu_torch import (
         LLAMA3_8B, GenerationServer, init_params)
     from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
-    cfg = LLAMA3_8B
+    cfg = dataclasses.replace(LLAMA3_8B, dtype=DType.from_torch(dtype))
+    name = "serve" if dtype == torch.bfloat16 else f"serve_{_dname(dtype)}"
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ)
     sync()
-    print(f"serve: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} B, "
-          f"KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dtypes = {p.dtype for p in param_leaves(params)} | {server.cache.k_pages[0].dtype}
+    print(f"{name}: LLAMA3_8B params {sum(p.numel() for p in param_leaves(params)) / 1e9:.2f} "
+          f"B, KV pool {server.cache.nbytes() / 1e9:.2f} GB, set-up "
+          f"{time.perf_counter() - t0:.1f} s, types {sorted(map(str, dtypes))}", flush=True)
+    if dtypes != {dtype}:
+        raise AssertionError(f"{name}: weights and pages in {dtypes}, not {dtype}")
 
     rng = np.random.default_rng(0)
     prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
@@ -1055,7 +1067,7 @@ def phase_serve(smi: str) -> dict:
     want = _with_merges({K1: cfg.n_layers * len(prompts),
                          KP: cfg.n_layers * stats["decode_steps"]}, 8,
                         SERVE_PAGES_PER_SEQ, SERVE_PAGE_SIZE)
-    print(f"serve: launches {counts}; expected {want} ({cfg.n_layers} layers x "
+    print(f"{name}: launches {counts}; expected {want} ({cfg.n_layers} layers x "
           f"{len(prompts)} prompts, {stats['decode_steps']} decode steps)", flush=True)
     if counts != want:
         raise AssertionError("a kernel of the main path ran the wrong number of times")
@@ -1063,16 +1075,17 @@ def phase_serve(smi: str) -> dict:
     for n in TEACHER_FORCED:
         sid = SERVE_PROMPT_LENS.index(n)
         gap = _teacher_forced_check(params, cfg, prompts[sid], got[sid])
-        print(f"serve: teacher-forced prompt {n}: {len(got[sid])} tokens, worst gap {gap:.4f} "
-              f"<= {SLACK} ok", flush=True)
+        print(f"{name}: teacher-forced prompt {n}: {len(got[sid])} tokens, worst gap "
+              f"{gap:.4f} <= {SLACK} ok", flush=True)
 
-    cases = [graph_case(f"bf16 t{t}", server,
+    cases = [graph_case(f"{_dname(dtype)} t{t}", server,
                         [min(n, 2000) + t for n in SERVE_PROMPT_LENS], t) for t in (1, 4)]
-    prof = phase_profile(server, prompts)
+    prof = phase_profile(server, prompts, run=_dname(dtype))
     ttft = sorted(st.first_t - st.submit_t for sid, st in server.seqs.items()
                   if sid in prompts)
     serve = {
-        "model": "LLAMA3_8B", "layers": cfg.n_layers, "requests": len(prompts),
+        "model": "LLAMA3_8B", "dtype": _dname(dtype), "layers": cfg.n_layers,
+        "requests": len(prompts),
         "prompt_tokens": stats["prefill_tokens"],
         "new_tokens_per_request": SERVE_NEW_TOKENS,
         "prefill_tok_s": stats["prefill_tokens"] / prefill_s,
@@ -1084,8 +1097,8 @@ def phase_serve(smi: str) -> dict:
         "warm_up_s": capture_s, "graph_cases": cases,
         "launches": counts, "gpu": smi,
     }
-    print(json.dumps({"serve": serve}), flush=True)
-    return {"server": server, "prompts": prompts, "counts": counts}
+    print(json.dumps({name: serve}), flush=True)
+    return {"server": server, "prompts": prompts, "counts": counts, "line": serve}
 
 
 def phase_profile(server, prompts, steps: int = 4, run: str = "bf16", split=None,
@@ -1152,8 +1165,8 @@ def _spec_line(stats, run) -> dict:
 
 
 def phase_serve_spec(params, smi: str) -> dict:
-    """Speculative serving of LLAMA3_8B at full width and depth on phase
-    (4)'s bf16 parameters: spec_k = 3, 8 requests of phrase-repeating
+    """Speculative serving of LLAMA3_8B at full width (SERVE_CUT_LAYERS
+    layers) on phase (4)'s bf16 parameters: spec_k = 3, 8 requests of phrase-repeating
     prompts at SERVE_PROMPT_LENS, 32 greedy tokens each. Checks the token
     counts, finite logits, that drafts were proposed, the launch counts
     (K1 per prefill, the multi-token K4/K5 per verify step and layer, the
@@ -1165,7 +1178,7 @@ def phase_serve_spec(params, smi: str) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         KERNEL as KP, KERNEL_MULTI)
 
-    cfg = LLAMA3_8B
+    params, cfg = _first_layers(params, LLAMA3_8B, SERVE_CUT_LAYERS)
     server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ, spec_k=SPEC_K)
@@ -1212,8 +1225,9 @@ def phase_serve_spec(params, smi: str) -> dict:
 
 
 CHUNK, PREFILL_CHUNK = 8, 1024  # serve_chunk: decode loop length, prefill chunk
-# serve_sample, serve_prefix and serve_lora run the bf16 model's first
-# SERVE_CUT_LAYERS layers (the same weights): the smoke's time limit.
+# serve_spec, serve_chunk (since PR 24), serve_sample, serve_prefix and
+# serve_lora run the bf16 model's first SERVE_CUT_LAYERS layers (the same
+# weights): the smoke's time limit. The bf16 and fp16 serve runs keep all 32.
 SERVE_CUT_LAYERS = 8
 
 
@@ -1235,7 +1249,7 @@ def _fuse_in_place(params) -> None:
 
 
 def phase_serve_chunk(params, smi: str) -> dict:
-    """LLAMA3_8B at full width and depth on fused projections
+    """LLAMA3_8B at full width (SERVE_CUT_LAYERS layers) on fused projections
     (``fuse_projections`` of phase (4)'s weights), served as the JAX
     package's serving bench runs it: ``chunk=8`` (greedy decode loops,
     each one CUDA graph) and ``prefill_chunk_tokens=1024`` at page 64, the
@@ -1247,7 +1261,7 @@ def phase_serve_chunk(params, smi: str) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
 
-    cfg = LLAMA3_8B
+    params, cfg = _first_layers(params, LLAMA3_8B, SERVE_CUT_LAYERS)
     server = GenerationServer(params, cfg, num_pages=SERVE_PAGES,
                               page_size=SERVE_PAGE_SIZE, max_batch=8,
                               pages_per_seq=SERVE_PAGES_PER_SEQ, chunk=CHUNK,
@@ -2751,7 +2765,8 @@ SERVING_TOOLS = (
     ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8")),
     ("bench_decode", ("--model", "8b", "--weights", "int8", "--kv", "int8", "--scan")),
     ("bench_serving", ("--model", "8b")),
-    ("bench_serving", ("--model", "8b", "--prefix-cache", "--shared-prefix", "128")),
+    ("bench_serving", ("--model", "8b", "--prefix-cache", "--shared-prefix", "128",
+                       "--requests", "16")),
 )
 # The keys of the JAX tools' result lines, which the port's tools print.
 TOOL_KEYS = {
@@ -3092,6 +3107,11 @@ def phase_train_gemma2_9b(smi: str) -> dict:
     return counts
 
 
+def _dname(dtype) -> str:
+    """A 16-bit type's name in a line: bf16 or fp16."""
+    return {torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+
+
 def _padded(n: int) -> int:
     from flash_attention_from_scratch_tpu_torch.serving.generate import (
         PROMPT_QUANTUM)
@@ -3099,21 +3119,22 @@ def _padded(n: int) -> int:
     return n + (-n) % PROMPT_QUANTUM
 
 
-def time_flash(ptxas: dict | None = None) -> dict:
-    """K1 at the serving run's prefill shapes: one layer, all 8 prompts;
-    beside it (``grid_ms``) the same kernel launched as a plain grid, one
-    CTA per work item, in place of its persistent CTAs. ``ptxas``: the
-    build's registers and spills of ``flash_forward.cu``'s kernel."""
+def time_flash(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
+    """K1 at the serving run's prefill shapes: one layer, all 8 prompts, in
+    ``dtype`` (bf16 or fp16: the same bytes and peak, so the same bound;
+    SDPA in that type); beside it (``grid_ms``) the same kernel launched as
+    a plain grid, one CTA per work item, in place of its persistent CTAs.
+    ``ptxas``: the build's registers and spills of the library's kernel."""
     from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
 
-    cfg = KernelConfig(causal=True)
+    cfg = KernelConfig(causal=True, dtype=DType.from_torch(dtype))
     ms = grid_ms = plain_ms = lib_ms = bound_ms = 0.0
     for i, n in enumerate(SERVE_PROMPT_LENS):
         s = _padded(n)
-        q, k, v = _cuda_qkv(s, s, seed=50 + i)
+        q, k, v = _cuda_qkv(s, s, seed=50 + i, dtype=dtype)
         ms += _time_ms(lambda: flash_forward(q, k, v, cfg))
         grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
         lib_ms += _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -3129,7 +3150,7 @@ def time_flash(ptxas: dict | None = None) -> dict:
             "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_kernel",)),
             "shape": "sum over the 8 padded prompts "
                      f"{[_padded(n) for n in SERVE_PROMPT_LENS]}: causal, "
-                     f"b 1, {HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
+                     f"b 1, {HEADS}/{KV_HEADS} heads, d {D}, {_dname(dtype)} (one layer)"}
 
 
 def _time_merge(q, kp, lens, tables) -> tuple[int, float]:
@@ -3158,8 +3179,9 @@ def _time_merge(q, kp, lens, tables) -> tuple[int, float]:
     return p.splits, _graph_ms(merge)
 
 
-def time_paged() -> dict:
-    """K4/K5 at the serving run's first decode step: 8 sequences; the
+def time_paged(dtype=torch.bfloat16) -> dict:
+    """K4/K5 at the serving run's first decode step: 8 sequences (q and the
+    dense pages in ``dtype``, bf16 or fp16); the
     whole call (split kernel and merge; ``_graph_ms``, as the card runs it
     faster than the host enqueues it: ``eager_call_ms`` is the back-to-back
     eager call), the plan's split count, the merge kernel's time alone and
@@ -3170,9 +3192,9 @@ def time_paged() -> dict:
     lengths = [n + 1 for n in SERVE_PROMPT_LENS]
     kp, vp, lens, tables = make_paged_pool(
         lengths, SERVE_PAGE_SIZE, SERVE_PAGES, seed=60,
-        pages_per_seq=SERVE_PAGES_PER_SEQ)
+        pages_per_seq=SERVE_PAGES_PER_SEQ, dtype=dtype)
     q = torch.from_numpy(np.random.default_rng(61).standard_normal(
-        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", dtype)
     ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
     call_ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables))
     one_split_ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables,
@@ -3186,11 +3208,11 @@ def time_paged() -> dict:
             "splits": splits, "merge_ms": merge_ms, "merge_share": merge_ms / ms,
             "one_split_ms": one_split_ms, "eager_call_ms": call_ms,
             "shape": f"first decode step: lengths {lengths}, page {SERVE_PAGE_SIZE}, "
-                     f"{HEADS}/{KV_HEADS} heads, d {D}, bf16 (one layer)"}
+                     f"{HEADS}/{KV_HEADS} heads, d {D}, {_dname(dtype)} (one layer)"}
 
 
-def time_flash_d256(ptxas: dict | None = None) -> dict:
-    """K1 at head width 256, at ``serve_gemma2_9b``'s prefill shapes: one
+def time_flash_d256(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
+    """K1 at head width 256 in ``dtype``, at ``serve_gemma2_9b``'s prefill shapes: one
     global layer (causal, softcap 50) over the 8 padded prompts, b 1, 16/8
     heads; beside it a sliding layer (window 4,096) and the same kernel as
     a plain grid. Bound: the two products' operations at the bf16 rate (or
@@ -3198,15 +3220,17 @@ def time_flash_d256(ptxas: dict | None = None) -> dict:
     has no softcap. ``ptxas``: the build's registers and spills of
     ``flash_forward.cu``'s kernels."""
     from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
 
-    cfg = KernelConfig(d_head=G9_D, causal=True, attn_softcap=G9_SOFTCAP)
+    cfg = KernelConfig(d_head=G9_D, causal=True, attn_softcap=G9_SOFTCAP,
+                       dtype=DType.from_torch(dtype))
     local = dataclasses.replace(cfg, window=G9_WINDOW)
     nocap = dataclasses.replace(cfg, attn_softcap=0.0)
     ms = window_ms = nocap_ms = grid_ms = plain_ms = lib_ms = bound_ms = window_bound_ms = 0.0
     for i, n in enumerate(G9_PROMPT_LENS):
         s = _padded(n)
-        q, k, v = _cuda_qkv(s, s, seed=250 + i, heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)
+        q, k, v = _cuda_qkv(s, s, seed=250 + i, heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D,
+                            dtype=dtype)
         ms += _time_ms(lambda: ff.flash_forward(q, k, v, cfg))
         window_ms += _time_ms(lambda: ff.flash_forward(q, k, v, local))
         nocap_ms += _time_ms(lambda: ff.flash_forward(q, k, v, nocap))
@@ -3228,12 +3252,12 @@ def time_flash_d256(ptxas: dict | None = None) -> dict:
             "shape": "sum over the 8 padded prompts "
                      f"{[_padded(n) for n in G9_PROMPT_LENS]}: causal, softcap "
                      f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}), b 1, "
-                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, bf16 (one layer); "
+                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, {_dname(dtype)} (one layer); "
                      "library: SDPA causal without a softcap"}
 
 
-def time_paged_d256(ptxas: dict | None = None) -> dict:
-    """K4/K5 at head width 256, at ``serve_gemma2_9b``'s first decode step
+def time_paged_d256(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
+    """K4/K5 at head width 256 (q and pages in ``dtype``), at ``serve_gemma2_9b``'s first decode step
     (8 sequences of G9_PROMPT_LENS + 1 tokens, 16/8 heads, page 64, dense
     bf16): a global layer's call (softcap 50) by CUDA-graph replay, a
     sliding layer's (window 4,096, which reads only the window's pages),
@@ -3248,9 +3272,9 @@ def time_paged_d256(ptxas: dict | None = None) -> dict:
     per_seq = -(-max(lengths) // SERVE_PAGE_SIZE)
     kp, vp, lens, tables = make_paged_pool(
         lengths, SERVE_PAGE_SIZE, len(lengths) * per_seq, seed=260, pages_per_seq=per_seq,
-        kv_heads=G9_KV_HEADS, d=G9_D)
+        kv_heads=G9_KV_HEADS, d=G9_D, dtype=dtype)
     q = torch.from_numpy(np.random.default_rng(261).standard_normal(
-        (len(lengths), G9_HEADS, G9_D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        (len(lengths), G9_HEADS, G9_D)).astype(np.float32)).to("cuda", dtype)
     full, local = dict(softcap=G9_SOFTCAP), dict(softcap=G9_SOFTCAP, window=G9_WINDOW)
     ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables, **full))
     window_ms = _graph_ms(lambda: paged_decode_attention(q, kp, vp, lens, tables, **local))
@@ -3271,7 +3295,7 @@ def time_paged_d256(ptxas: dict | None = None) -> dict:
             "ptxas": _kernel_ptxas(ptxas or {}, ("paged_decode_kernel",
                                                  "paged_decode_merge_kernel")),
             "shape": f"first decode step: lengths {lengths}, page {SERVE_PAGE_SIZE}, "
-                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, bf16, softcap "
+                     f"{G9_HEADS}/{G9_KV_HEADS} heads, d {G9_D}, {_dname(dtype)}, softcap "
                      f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}; one layer)"}
 
 
@@ -3426,13 +3450,14 @@ LM_HEAD_SHAPE = (4096, 128256)
 # (weight mode, activation-quantized) of K6, K7, K8, K9.
 QMM_RECIPES = (("int8", False), ("int4", False), ("int8", True), ("int4", True))
 # Serve runs: weights, activations, KV pages, layers, requests; E and F
-# also int8-compute attention, F speculative decoding too.
+# also int8-compute attention, F speculative decoding too. E runs 8 of the
+# 32 layers since PR 24 (the smoke's time limit).
 QUANT_RUNS = {
     "A": dict(wmode="int8", act="bf16", kv="int8", layers=32, requests=16),
     "B": dict(wmode="int4", act="int8", kv="int8", layers=32, requests=16),
     "C": dict(wmode="int8", act="int8", kv="fp8", layers=4, requests=4),
     "D": dict(wmode="int4", act="bf16", kv="int4", layers=4, requests=4),
-    "E": dict(wmode="int8", act="bf16", kv="int8", layers=32, requests=16,
+    "E": dict(wmode="int8", act="bf16", kv="int8", layers=8, requests=16,
               attn_int8=True),
     "F": dict(wmode="int8", act="bf16", kv="int8", layers=4, requests=4,
               attn_int8=True, spec_k=SPEC_K),
@@ -3447,24 +3472,25 @@ QUANT_PROMPT, QUANT_PAGE, QUANT_NEW = 1024, 128, 32
 QUANT_SLACK_STD = 0.25
 
 
-def _random_qweight(k, n, mode, act_quant, gen):
-    """init_quantized_params' recipe for one (K, N) weight, with every
-    column's scale multiplied by its own draw from [0.5, 1.5): a kernel that
-    applies a scale to the wrong column then disagrees with its plain
-    version."""
+def _random_qweight(k, n, mode, act_quant, gen, dtype=torch.bfloat16):
+    """init_quantized_params' recipe for one (K, N) weight of a ``dtype``
+    model, with every column's scale multiplied by its own draw from [0.5,
+    1.5): a kernel that applies a scale to the wrong column then disagrees
+    with its plain version."""
     from flash_attention_from_scratch_tpu_torch.models.llama import (
         random_quantized_weight)
 
     wq = random_quantized_weight((k, n), mode, "int8" if act_quant else "bf16",
-                                 gen, device="cuda")
+                                 gen, dtype, device="cuda")
     wq.scales.mul_(0.5 + torch.rand(n, generator=gen, device="cuda"))
     return wq
 
 
 def _check_qmm(got, x, wq, act_quant):
     """The adaptive rule in each 64-row band against the plain version (cast
-    to bf16, and in fp32); for a8 also the plain int32 path within one bf16
-    ulp of each value. Returns (ok, worst err/bound, worst ulps, max err)."""
+    to x's type, and in fp32); for a8 also the plain int32 path within one
+    ulp of x's type of each value. Returns (ok, worst err/bound, worst ulps,
+    max err)."""
     from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
         quant_matmul_plain)
     from flash_attention_from_scratch_tpu_torch.utils.testing import (
@@ -3477,12 +3503,13 @@ def _check_qmm(got, x, wq, act_quant):
     def bands(t):
         return row_bands(torch.nn.functional.pad(t.float(), (0, 0, 0, pad))[None], 64)
 
-    ok, ratio, _ = sliced_tolerance_check(bands(got), bands(plain).bfloat16(),
+    ok, ratio, _ = sliced_tolerance_check(bands(got), bands(plain).to(x.dtype),
                                           bands(ref32), lead=2)
     err = (got.float() - plain.float()).abs()
     ulps = 0.0
     if act_quant:
-        ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(1e-30))) - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(1e-30)))
+                         + math.log2(torch.finfo(x.dtype).eps))
         ulps = float((err / ulp).max())
         ok = ok and ulps <= 1.0
     return ok and bool(torch.isfinite(got).all()), ratio, ulps, float(err.max())
@@ -3562,16 +3589,16 @@ def _quantized_pool(kp, vp, mode):
     return out
 
 
-def _run_a_pool():
+def _run_a_pool(dtype=torch.bfloat16):
     """One layer of run A's first decode step: 16 sequences of 1025 tokens,
-    page 128, 32/8 heads. Returns (lengths, k_pages, v_pages, lengths
-    tensor, page tables, q)."""
+    page 128, 32/8 heads; q and the dense pages in ``dtype``. Returns
+    (lengths, k_pages, v_pages, lengths tensor, page tables, q)."""
     lengths = [QUANT_PROMPT + 1] * 16
     pages_per_seq = -(-(QUANT_PROMPT + QUANT_NEW) // QUANT_PAGE)
     kp, vp, lens, tables = make_paged_pool(lengths, QUANT_PAGE, 16 * pages_per_seq + 1,
-                                           seed=62, pages_per_seq=pages_per_seq)
+                                           seed=62, pages_per_seq=pages_per_seq, dtype=dtype)
     q = torch.from_numpy(np.random.default_rng(63).standard_normal(
-        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        (len(lengths), HEADS, D)).astype(np.float32)).to("cuda", dtype)
     return lengths, kp, vp, lens, tables, q
 
 
@@ -3655,7 +3682,7 @@ def _paged_refs(q, k, v, lens, tables, i8c, kw):
         paged_decode_attention_plain)
 
     native = paged_decode_attention_plain(q, k, v, lens, tables, int8_compute=i8c, **kw)
-    pages32 = (k.float(), v.float()) if k.dtype == torch.bfloat16 else (k, v)
+    pages32 = (k.float(), v.float()) if k.dtype in (torch.bfloat16, torch.float16) else (k, v)
     ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **kw)
     return native, ref32
 
@@ -4335,14 +4362,16 @@ def _shape_work(m, k, n, wq, out_bytes=2):
     return (wq.values.numel() + 4 * n + x_bytes + out_bytes * m * n, 2 * m * k * n)
 
 
-def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
+def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict,
+                      dtype=torch.bfloat16) -> dict:
     """One recipe at a decode step's matmuls (m = 16: 7 x 32 projections,
     timed over 4 distinct layers so each weight streams from memory, plus
     the lm_head) and at one 1024-row prefill layer, as device time summed
     over the kernels each call launches (for a8 the activation quantization
     included; ``kernel_only_ms`` counts K6-K9's own kernels, the product and
     its split-K finalize; ``quantize_ms`` K8/K9's ``quantize_rows``).
-    Library: cuBLAS ``x @ w`` on the dequantized bf16 weight (the same
+    x and the output in ``dtype`` (bf16 or fp16).
+    Library: cuBLAS ``x @ w`` on the weight dequantized to x's type (the same
     function up to rounding) for weight-only; for a8 ``torch._int_mm`` after
     the plain quantization, plus the scale epilogue, with x zero-padded to 32
     rows at decode (``_int_mm`` takes m > 16 only), timed in the same call,
@@ -4355,14 +4384,14 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
         KERNELS, quant_matmul, quant_matmul_plain, quantize_activations)
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    layers = [[(name, _random_qweight(k, n, mode, act_quant, gen)) for name, k, n in LAYER_SHAPES]
-              for _ in range(4)]
-    lm = _random_qweight(*LM_HEAD_SHAPE, mode, act_quant, gen)
+    layers = [[(name, _random_qweight(k, n, mode, act_quant, gen, dtype))
+               for name, k, n in LAYER_SHAPES] for _ in range(4)]
+    lm = _random_qweight(*LM_HEAD_SHAPE, mode, act_quant, gen, dtype)
     peak = PEAK_INT8_OPS if act_quant else PEAK_BF16_FLOPS
 
     def inputs(m):
         ks = {k for _, k, _ in LAYER_SHAPES} | {LM_HEAD_SHAPE[0]}
-        return {k: torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        return {k: torch.randn(m, k, generator=gen, device="cuda").to(dtype)
                 for k in ks}
 
     def run_layer(fn, xs, ws):
@@ -4423,7 +4452,7 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
         lib_note = ("quantize_activations + torch._int_mm + the scale epilogue"
                     + (" (x zero-padded to 32 rows: _int_mm refuses m <= 16)"
                        if m <= 16 else "")
-                    if act_quant else "cuBLAS x @ w on the dequantized bf16 weight")
+                    if act_quant else f"cuBLAS x @ w on the dequantized {_dname(dtype)} weight")
         try:
             lib_ms = reps * _device_ms(lambda: lib_layer(xs), calls=5)["all"]
             if phase == "decode":
@@ -4466,13 +4495,14 @@ def time_quant_matmul(mode: str, act_quant: bool, ptxas: dict) -> dict:
     return {**out["decode"], "prefill": out["prefill"], "ptxas": regs}
 
 
-def time_paged_formats() -> dict:
+def time_paged_formats(dtype=torch.bfloat16) -> dict:
     """K4/K5 per page format at run A's first decode step: 16 sequences of
-    1025 tokens, page 128, 32/8 heads (``_graph_ms``)."""
+    1025 tokens, page 128, 32/8 heads, q (and dense pages) in ``dtype``
+    (``_graph_ms``)."""
     from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
 
-    lengths, kp, vp, lens, tables, q = _run_a_pool()
+    lengths, kp, vp, lens, tables, q = _run_a_pool(dtype)
     used_pages = sum(-(-n // QUANT_PAGE) for n in lengths)
     out = {}
     for mode, elem in (("dense", 2.0), ("int8", 1.0), ("fp8", 1.0), ("int4", 0.5)):
@@ -4489,7 +4519,7 @@ def time_paged_formats() -> dict:
         out[mode] = {"ms": ms, "plain_ms": plain_ms,
                      "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes"}
     return {"shape": f"lengths 16 x {QUANT_PROMPT + 1}, page {QUANT_PAGE}, "
-                     f"{HEADS}/{KV_HEADS} heads, d {D} (one layer)", **out}
+                     f"{HEADS}/{KV_HEADS} heads, d {D}, {_dname(dtype)} q (one layer)", **out}
 
 
 def _time_paged_pair(q, k, v, lens, tables, kw, i8c, lengths, nbytes, shape) -> dict:
@@ -4601,18 +4631,18 @@ def time_paged_verify(lengths) -> dict:
                             f"page {SERVE_PAGE_SIZE}, {HEADS}/{KV_HEADS} heads, bf16")
 
 
-def time_paged_int8c() -> dict:
+def time_paged_int8c(dtype=torch.bfloat16) -> dict:
     """K4/K5 with int8_compute at run E's first decode step (run A's pool:
-    16 x 1025 tokens, int8 pages, page 128) beside the int8-page call
-    without it."""
-    lengths, kp, vp, lens, tables, q = _run_a_pool()
+    16 x 1025 tokens, int8 pages, page 128; q in ``dtype``) beside the
+    int8-page call without it."""
+    lengths, kp, vp, lens, tables, q = _run_a_pool(dtype)
     qk, ks, qv, vs = _quantized_pool(kp, vp, "int8")
     used_pages = sum(-(-n // QUANT_PAGE) for n in lengths)
     nbytes = sum(lengths) * KV_HEADS * D * 2 + 2 * 4 * KV_HEADS * used_pages + 2 * q.numel() * 2
     kw = dict(mode="int8", k_scales=ks, v_scales=vs, scale=D ** -0.5)
     return _time_paged_pair(q, qk, qv, lens, tables, kw, True, lengths, nbytes,
                             f"int8c: lengths 16 x {QUANT_PROMPT + 1}, page {QUANT_PAGE}, "
-                            f"{HEADS}/{KV_HEADS} heads, int8 pages")
+                            f"{HEADS}/{KV_HEADS} heads, int8 pages, {_dname(dtype)} q")
 
 
 # ---------------------------------------------------------------------------
@@ -5460,8 +5490,9 @@ TRAIN_PARALLEL_GAP = 0.01  # a mesh's loss within this of the single rank's
 # gradient's scale, hide such faults from the losses).
 TRAIN_PARALLEL_GRAD_GAP = 0.05
 SERVE_TP_INT8 = dict(layers=4, requests=4, new_tokens=16)
-# The bf16 tp run's depth, cut from the full 32 layers to keep the smoke's time.
-SERVE_TP_BF16_LAYERS = 8
+# The bf16 tp run's depth, cut from the full 32 layers to keep the smoke's time
+# (8 until PR 24).
+SERVE_TP_BF16_LAYERS = 4
 # A tp token that differs from the single card's may sit this far below the
 # single-card row max at the first difference: the bound of the JAX
 # package's tensor-parallel server test (tests/test_generate.py). Each rank
@@ -6581,6 +6612,481 @@ def _parallel_fields(names, ring=None, train=None, serve=None, **phases) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# fp16 on the card: K1, K11, K4/K5 and K6-K9 from their fp16 libraries (the
+# same sources built with FA_F16: csrc/*_f16.cu), and the serving path in
+# fp16 (LlamaConfig.dtype FP16). K2/K3 and K10 still refuse fp16, and every
+# kernel fp32 (ROADMAP Queue 1, items 4b and 4c).
+
+FP16 = torch.float16
+# K1's and K11's fp16 cases: (label, d, heads, kv_heads, seq_q, seq_kv,
+# KernelConfig fields, sinks), b 1; every case with its LSE.
+FP16_FLASH_CASES = (
+    ("d128 causal q_offset 512 s512/1024", D, HEADS, KV_HEADS, 512, 1024,
+     dict(causal=True, q_offset=512), False),
+    ("d128 window 512 s2048", D, HEADS, KV_HEADS, 2048, 2048,
+     dict(causal=True, window=512), False),
+    ("d128 softcap 50 s1024", D, HEADS, KV_HEADS, 1024, 1024,
+     dict(causal=True, attn_softcap=50.0), False),
+    ("d128 sinks s1024", D, HEADS, KV_HEADS, 1024, 1024, dict(causal=True), True),
+    ("d128 full s2048", D, HEADS, KV_HEADS, 2048, 2048, {}, False),
+    ("d256 causal q_offset 512 s512/1024", G9_D, G9_HEADS, G9_KV_HEADS, 512, 1024,
+     dict(causal=True, q_offset=512), False),
+    ("d256 window 512 softcap 50 s2048", G9_D, G9_HEADS, G9_KV_HEADS, 2048, 2048,
+     dict(causal=True, window=512, attn_softcap=G9_SOFTCAP), False),
+    ("d256 sinks s1024", G9_D, G9_HEADS, G9_KV_HEADS, 1024, 1024, dict(causal=True), True),
+    ("d256 full s1024", G9_D, G9_HEADS, G9_KV_HEADS, 1024, 1024, {}, False),
+)
+# K4/K5's fp16 cases: page sizes per store (64: the chunk walk; 1 and 12,
+# int4 2 and 12: the gather walk) on pools of ANY_PAGE_LENGTHS.
+FP16_PAGE_SIZES = {"dense": (64, 1, 12), "int8": (64, 1, 12), "fp8": (64, 1, 12),
+                   "int4": (64, 2, 12)}
+# K6-K9's fp16 cases: aligned (K, N) of Llama-3-8B and the ragged ones of
+# the any-shape phase (N % 16 = 2; K % 8 = 4), at m 1, 16 and 1,024.
+FP16_QMM_SHAPES = ((4096, 4096), (14336, 4096), (4096, 14336), (4096, OPENHERMES_VOCAB),
+                   (4004, 4100))
+FP16_QMM_ROWS = (1, 16, 1024)
+
+
+def _fp16_flash_cases() -> dict:
+    """K1 and K11 at depths 1-4 on FP16_FLASH_CASES in fp16 vs the plain
+    version in fp16 and in fp32, by the rule in each (batch, head, 64-row
+    band) with fp16's eps; the LSE within 1e-3 of the fp32 one; fp16 out;
+    one launch of the kernel a call. Returns {kernel name: (max |kernel -
+    plain|, worst err/bound)}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL, KERNEL_FORI, flash_forward_plain, flash_forward_with_lse)
+
+    loops = {KERNEL: {}, **{f"{KERNEL_FORI} nb{n}": dict(kv_loop=KVLoop.FORI,
+                                                         num_kv_buffers=n)
+                            for n in FORI_DEPTHS}}
+    worst = {KERNEL: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0)}
+    for i, (name, d, heads, kvh, sq, skv, kw, with_sinks) in enumerate(FP16_FLASH_CASES):
+        q, k, v = _cuda_qkv(sq, skv, seed=700 + i, heads=heads, kv_heads=kvh, d=d, dtype=FP16)
+        sinks = (torch.from_numpy(np.random.default_rng(710 + i).standard_normal(
+            heads).astype(np.float32) * 2).cuda() if with_sinks else None)
+        base = KernelConfig(d_head=d, dtype=DType.FP16, **kw)
+        ref16, _ = flash_forward_plain(q, k, v, base, sinks)
+        ref32, lse32 = flash_forward_plain(q.float(), k.float(), v.float(), _fp32(base), sinks)
+        for label, loop in loops.items():
+            cfg = dataclasses.replace(base, **loop)
+            kernel = KERNEL_FORI if cfg.kv_loop == KVLoop.FORI else KERNEL
+            before = _build.launch_counts[kernel]
+            out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+            sync()
+            launched = _build.launch_counts[kernel] - before
+            lse_err = float((lse - lse32).abs().max())
+            got = _hold(f"fp16 {label} {name}", out, ref16, ref32, launched,
+                        good=lse_err <= 1e-3 and out.dtype == FP16,
+                        note=f", lse err {lse_err:.3e}")
+            worst[kernel] = tuple(map(max, worst[kernel], got))
+        del q, k, v, ref16, ref32
+    return worst
+
+
+def _fp16_paged_cases() -> tuple[float, float, int]:
+    """K4/K5 with fp16 q on every store (dense fp16 pages, int8, fp8, int4
+    and int8 compute), t 1 and 4, d 128 (32/8 heads) and 256 (16/8), at
+    FP16_PAGE_SIZES (the chunk walk and the gather walk), plain and with a
+    window of 100 and a softcap of 20, on NaN-poisoned memory: the rule of
+    ``_hold_paged`` per (sequence, token) against the plain version with
+    fp16 q; fp16 out; one launch. Returns (max |kernel - plain|, worst
+    err/bound, calls)."""
+    from flash_attention_from_scratch_tpu_torch.utils.testing import sliced_tolerance_check
+
+    def by_token(x):
+        return x.transpose(1, 2) if x.ndim == 4 else x[:, None]
+
+    err_max = ratio_max = 0.0
+    calls = 0
+    lengths = ANY_PAGE_LENGTHS
+    for d, heads in ((D, HEADS), (G9_D, G9_HEADS)):
+        for store in ("dense", "int8", "fp8", "int4", "int8c"):
+            i8c = store == "int8c"
+            pages = "int8" if i8c else store
+            for ps in FP16_PAGE_SIZES[pages]:
+                k, v, lens, tables, kw0 = _any_page_pool(lengths, ps, pages, d, seed=ps + d + 7)
+                if pages == "dense":
+                    k, v = k.to(FP16), v.to(FP16)
+                worst = 0.0
+                for t in (1, 4):
+                    q = torch.randn((len(lengths), heads) + ((t,) if t > 1 else ()) + (d,),
+                                    device="cuda").to(FP16)
+                    for kw_name, kw in (("plain", {}),
+                                        ("window 100 softcap 20", dict(window=100,
+                                                                       softcap=20.0))):
+                        kw = dict(kw0, scale=d ** -0.5, **kw)
+                        native, ref32 = _paged_refs(q, k, v, lens, tables, i8c, kw)
+                        sync()
+                        _poison_free_memory(64)
+                        out, launched = _paged_kernel(q, k, v, lens, tables, i8c, kw)
+                        ok, ratio, where = sliced_tolerance_check(
+                            by_token(out), by_token(native), by_token(ref32), lead=2)
+                        err = float((out.float() - native.float()).abs().max())
+                        good = (ok and launched == 1 and out.dtype == FP16
+                                and bool(torch.isfinite(out).all())
+                                and float(out[lengths.index(0)].abs().max()) == 0.0)
+                        if not good:
+                            raise AssertionError(
+                                f"fp16 paged_decode_attention {store} page {ps} d {d} t {t} "
+                                f"{kw_name}: err/bound {ratio} at (length, token) "
+                                f"({lengths[where[0]]}, {where[1]}), {launched} launches, "
+                                f"out {out.dtype}: disagrees with its plain version")
+                        err_max, worst = max(err_max, err), max(worst, ratio)
+                        calls += 1
+                ratio_max = max(ratio_max, worst)
+                print(f"fp16 paged_decode_attention {store} page {ps} d {d}: t 1 and 4, "
+                      f"plain / window and softcap: worst err/bound {worst:.3f} ok", flush=True)
+                del k, v, lens, tables, kw0
+    return err_max, ratio_max, calls
+
+
+def _fp16_qmm_cases() -> dict:
+    """K6-K9 with fp16 x at FP16_QMM_SHAPES and FP16_QMM_ROWS, on NaN-
+    poisoned memory: K6/K7 by ``_check_qmm``'s rule (fp16's eps) in each
+    64-row band, K8/K9 equal to their plain versions bit for bit and
+    ``quantize_rows`` on fp16 rows to the plain quantization; fp16 out, one
+    launch a call. Returns {kernel: {"max_abs_err", "worst_err_bound",
+    "cases"}}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
+        KERNELS, quant_matmul, quant_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    result = {}
+    for mode, act_quant in QMM_RECIPES:
+        name = KERNELS[(mode, act_quant)]
+        err_max = ratio_max = 0.0
+        cases = 0
+        for k, n in FP16_QMM_SHAPES:
+            wq = _random_qweight(k, n, mode, act_quant, gen, FP16)
+            for m in FP16_QMM_ROWS:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(FP16)
+                if act_quant:
+                    _check_quantize_rows(x)
+                sync()
+                _poison_free_memory()
+                before = _build.launch_counts[name]
+                got = quant_matmul(x, wq, act_quant=act_quant)
+                sync()
+                launched = _build.launch_counts[name] - before
+                ok, ratio, _, err = _check_qmm(got, x, wq, act_quant)
+                if act_quant:
+                    ok = ok and torch.equal(got, quant_matmul_plain(x, wq, True))
+                ok = ok and launched == 1 and got.dtype == FP16 and got.shape == (m, n)
+                if not ok:
+                    raise AssertionError(f"fp16 {name} m {m} K {k} N {n}: err/bound {ratio}, "
+                                         f"launches {launched}, out {got.dtype}: disagrees "
+                                         "with its plain version")
+                err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+                cases += 1
+                del x, got
+            del wq
+        result[name] = {"max_abs_err": err_max, "worst_err_bound": ratio_max, "cases": cases}
+        print(f"fp16 {name}: {cases} cases, max|kernel-plain| {err_max:.3e}, worst err/bound "
+              f"{ratio_max:.3f}{' (bit-equal)' if act_quant else ''} ok", flush=True)
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_fp16_cases() -> dict:
+    """Each fp16 kernel against its plain version (``_fp16_flash_cases``,
+    ``_fp16_paged_cases``, ``_fp16_qmm_cases``; the types still refused are
+    the ``cuda`` tests' ``test_types_without_a_kernel_raise``). Returns the
+    worst errors per kernel."""
+    t0 = time.perf_counter()
+    line = {"flash": _fp16_flash_cases(), "paged": _fp16_paged_cases(),
+            "qmm": _fp16_qmm_cases()}
+    line["s"] = time.perf_counter() - t0
+    print(json.dumps({"fp16_cases": line}), flush=True)
+    return line
+
+
+FP16_QUANT_LAYERS = 4
+# The fp16 quantized runs: run A's recipe, run B's weights over fp8 KV, and
+# (4 requests each) K8 over int4 KV and K7 over int8 KV with int8 compute,
+# so that every fp16 kernel and page store serves.
+FP16_QUANT_RUNS = {
+    "A_fp16": dict(wmode="int8", act="bf16", kv="int8", requests=16),
+    "B_fp16": dict(wmode="int4", act="int8", kv="fp8", requests=16),
+    "C_fp16": dict(wmode="int8", act="int8", kv="int4", requests=4),
+    "D_fp16": dict(wmode="int4", act="bf16", kv="int8", requests=4, attn_int8=True),
+}
+
+
+def phase_serve_fp16_quant(smi: str) -> dict:
+    """fp16 activations over quantized weights and KV pages at full width,
+    FP16_QUANT_LAYERS layers (FP16_QUANT_RUNS): run A's recipe (int8
+    weights on K6, int8 KV) and run B's weights (W4A8 on K9,
+    ``quantize_rows`` on fp16 rows) over fp8 KV, 16 requests of 1,024
+    tokens, page 128; then W8A8 (K8) over int4 KV and int4 weights (K7)
+    over int8 KV with int8 compute, 4 requests each; by ``_serve_quant``
+    (run A's gates: launches, tokens, finite logits, two requests within
+    QUANT_SLACK_STD row standard deviations of ``forward``, a replayed step
+    equal to the eager one). Returns {run: ``_serve_quant``'s result}."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=FP16_QUANT_LAYERS, dtype=DType.FP16)
+    rng = np.random.default_rng(0)
+    out = {}
+    for run, spec in FP16_QUANT_RUNS.items():
+        prompts = {i: rng.integers(0, cfg.vocab_size, QUANT_PROMPT).tolist()
+                   for i in range(spec["requests"])}
+        out[run] = _serve_quant(run, "LLAMA3_8B fp16", cfg, dict(spec, layers=cfg.n_layers),
+                                prompts, QUANT_PAGE, smi, [QUANT_PROMPT + 17] * spec["requests"])
+        torch.cuda.empty_cache()
+    return out
+
+
+G9_FP16_LAYERS = 8
+G9_FP16_PROMPT_LENS = (513, 2048, 3000, 5000)  # the last past the 4,096 window
+
+
+def phase_serve_gemma2_9b_fp16(smi: str) -> dict:
+    """Gemma-2-9B in fp16 at full width, its first G9_FP16_LAYERS layers
+    (``serve_gemma2_9b``'s random weights, converted by ``from_hf_gemma2(...,
+    dtype=torch.float16)``): 4 requests of G9_FP16_PROMPT_LENS (one past
+    the window), 32 greedy tokens, page 64, every decode step a graph
+    replay: K1 at d 256 (window and global layers, softcap 50) and K4/K5 at
+    d 256, in fp16. Gates as ``serve_gemma2_9b``'s: weights and pages fp16,
+    the launches, finite logits, every request teacher-forced within SLACK
+    of the row max, fewer than half the tokens repeating their input.
+    Returns {"counts"}."""
+    import types
+
+    from flash_attention_from_scratch_tpu_torch import GenerationServer, from_hf_gemma2
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import KERNEL as K1
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import KERNEL as KP
+
+    t0 = time.perf_counter()
+    hf = dict(GEMMA2_9B_HF, num_hidden_layers=G9_FP16_LAYERS)
+    # serve_gemma2_9b's embedding scale (a tenth) and final norm (~10) keep
+    # the current token's own logit ~0.65 row std ahead at 42 layers, whose
+    # 84 normed sublayer outputs set the residual's RMS (~sqrt(84)); at 8
+    # layers (~sqrt(16)) the same weights put it ~1.5 ahead and most tokens
+    # repeat their input. The embedding scaled by sqrt(16 / 84), and the
+    # final norm by its inverse (the logits' unit spread), keep it ~0.65.
+    depth = math.sqrt(G9_FP16_LAYERS / GEMMA2_9B_HF["num_hidden_layers"])
+    sd = _gemma2_state_dict(hf, torch.Generator(device="cuda").manual_seed(0),
+                            embed_std=0.1 * depth * hf["hidden_size"] ** -0.5,
+                            final_norm=10.0 / depth - 1.0)
+    model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
+    params, cfg = from_hf_gemma2(model, dtype=FP16)
+    del sd, model
+    torch.cuda.empty_cache()
+    per_seq = -(-(max(G9_FP16_PROMPT_LENS) + SERVE_NEW_TOKENS) // SERVE_PAGE_SIZE)
+    need = sum(-(-(n + SERVE_NEW_TOKENS) // SERVE_PAGE_SIZE) for n in G9_FP16_PROMPT_LENS)
+    server = GenerationServer(params, cfg, num_pages=need + 8, page_size=SERVE_PAGE_SIZE,
+                              max_batch=len(G9_FP16_PROMPT_LENS), pages_per_seq=per_seq)
+    dtypes = {p.dtype for p in param_leaves(params)} | {server.cache.k_pages[0].dtype}
+    if dtypes != {FP16}:
+        raise AssertionError(f"serve_gemma2_9b_fp16: weights and pages in {dtypes}")
+    rng = np.random.default_rng(5)
+    prompts = {i: rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(G9_FP16_PROMPT_LENS)}
+    _warm_graphs(server, cfg.vocab_size, SERVE_NEW_TOKENS)
+    served = _serve_run("serve_gemma2_9b_fp16", server, prompts, smi)
+    run, tokens = served["run"], served["tokens"]
+    want = _with_merges({K1: cfg.n_layers * len(prompts),
+                         KP: cfg.n_layers * run["stats"]["decode_steps"]}, len(prompts),
+                        per_seq, SERVE_PAGE_SIZE, kv_heads=cfg.n_kv_heads,
+                        group=cfg.n_heads // cfg.n_kv_heads, d_head=cfg.d_head)
+    if run["counts"] != want:
+        raise AssertionError(f"serve_gemma2_9b_fp16: launches {run['counts']}, expected {want}")
+    gaps = [float(_teacher_forced_gaps(params, cfg, prompts[sid], tokens[sid])[0].max())
+            for sid in prompts]
+    repeats = sum(t == ([prompts[sid][-1]] + tokens[sid])[i]
+                  for sid in prompts for i, t in enumerate(tokens[sid]))
+    print(f"serve_gemma2_9b_fp16: launches {run['counts']} ok; teacher-forced worst gap per "
+          f"request {gaps} (limit {SLACK}); {repeats} of {len(prompts) * SERVE_NEW_TOKENS} "
+          "tokens repeat their input", flush=True)
+    if max(gaps) > SLACK or repeats * 2 > len(prompts) * SERVE_NEW_TOKENS:
+        raise AssertionError("serve_gemma2_9b_fp16: served tokens off the full recompute, or "
+                             "repeating their input")
+    line = {"model": "Gemma-2-9B", "dtype": "fp16", "layers": cfg.n_layers,
+            "d_head": cfg.d_head, "window_pattern": list(cfg.window_pattern),
+            "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+            "prompt_lens": list(G9_FP16_PROMPT_LENS), **served["line"],
+            "teacher_forced_worst_gap": max(gaps), "repeated_input_tokens": repeats,
+            "peak_mem_gb": run["peak_mem_gb"], "launches": run["counts"],
+            "s": time.perf_counter() - t0}
+    print(json.dumps({"serve_gemma2_9b_fp16": line}), flush=True)
+    del server, params
+    torch.cuda.empty_cache()
+    return {"counts": run["counts"]}
+
+
+# bench_attention --dtype f16 on K1's and K11's d-128 forms (the grid and
+# FORI rungs of the prog ladder, in fp16), causal, with the SDPA baseline;
+# then --grad in fp16, which K2/K3 refuse.
+BENCH_F16_FORMS = "fa_f16_q128_kv128_d128_grid2_x2+os+cp;fa_f16_q128_kv128_d128_fori2_x2+os+cp"
+BENCH_F16_ARGS = ("--dtype", "f16", "--kernels", BENCH_F16_FORMS, "--causal", "--seq-lens",
+                  "2048,4096", "--baseline", "--json")
+
+
+def phase_bench_attention_fp16(smi: str) -> dict:
+    """``tools/bench_attention.py``'s ``main`` with ``--dtype f16``
+    (BENCH_F16_ARGS), the launch counts set to 0 just before and read just
+    after: a row of positive TFLOP/s for each form and SDPA's, K1 and K11
+    launched; then ``--grad`` in fp16 must raise ValueError (K2/K3: ROADMAP
+    Queue 1, item 4b). Returns the launches."""
+    import contextlib
+    import io
+
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+
+    torch.cuda.empty_cache()
+    text = io.StringIO()
+    t = time.perf_counter()
+    _build.launch_counts.clear()  # counts start at 0 just before the run
+    with contextlib.redirect_stdout(text):
+        rc = bench_attention.main(list(BENCH_F16_ARGS))
+    counts = dict(_build.launch_counts)  # read just after
+    rows = [json.loads(line) for line in text.getvalue().splitlines() if line.startswith("{")]
+    print(json.dumps({"bench_attention": {"args": " ".join(BENCH_F16_ARGS), "rows": rows,
+                                          "launches": counts, "s": time.perf_counter() - t,
+                                          "gpu": smi}}), flush=True)
+    want = {f + "+ca" for f in BENCH_F16_FORMS.split(";")} | {"sdpa"}
+    good = (rc == 0 and {r["config"] for r in rows} == want
+            and all(r["harmonic_mean"] > 0 for r in rows)
+            and counts.get(K1, 0) > 0 and counts.get(KERNEL_FORI, 0) > 0)
+    if not good:
+        raise AssertionError(f"bench_attention --dtype f16: rc {rc}, launches {counts}, "
+                             f"rows {rows}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench_attention.main(list(BENCH_F16_ARGS) + ["--grad"])
+    except ValueError as e:
+        if "item 4b" not in str(e):
+            raise
+        print(f"bench_attention --dtype f16 --grad: refused ({e}) ok", flush=True)
+    else:
+        raise AssertionError("bench_attention --dtype f16 --grad ran K2/K3 in fp16")
+    return counts
+
+
+def time_fp16_fori(d: int) -> dict:
+    """K11 at depth 2 and head width ``d`` in fp16 at the bf16 rows' shape
+    (b 4, s 4096, 32/8 heads at d 128, 16/8 at d 256; full plus causal)
+    beside the same calls in bf16 (``bf16_ms``), SDPA in fp16 and the plain
+    version one batch element at a time."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig, KVLoop
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward, flash_forward_plain)
+
+    heads, kv_heads = (HEADS, KV_HEADS) if d == D else (G9_HEADS, G9_KV_HEADS)
+    out = {"ms": 0.0, "bf16_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for dtype in (FP16, torch.bfloat16):
+        q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, dtype=dtype,
+                            heads=heads, kv_heads=kv_heads, d=d)
+        for causal in (False, True):
+            cfg = KernelConfig(d_head=d, causal=causal, dtype=DType.from_torch(dtype),
+                               kv_loop=KVLoop.FORI, num_kv_buffers=2)
+            ms = _time_ms(lambda: flash_forward(q, k, v, cfg))
+            if dtype != FP16:
+                out["bf16_ms"] += ms
+                continue
+            out["ms"] += ms
+            out["library_ms"] += _time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True))
+            out["plain_ms"] += _time_ms(lambda: _per_batch(
+                lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v), iters=1, warmup=1)
+            ops = _attn_ops(PERF_SEQ, heads, PERF_BATCH, causal, d=d)
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+            out["bound_ms"] += 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        del q, k, v
+    return {**out, "bound_by": "operations",
+            "shape": f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
+                     f"{heads}/{kv_heads} heads, s {PERF_SEQ}, d {d}, fp16 "
+                     "(bf16_ms: the same calls in bf16)"}
+
+
+def fp16_kernel_entries(bf16: dict, cases: dict, served: dict, quant: dict, gemma: dict,
+                        bench: dict, logs: dict) -> list:
+    """The fp16 entries of the ``kernels`` line: each fp16 form's launches on
+    its fp16 path, its worst error against the plain version, and its times
+    beside its bound, the plain version's and the library call's, from the
+    bf16 entries' timing functions at their shapes (fp16 has bf16's bytes
+    and 989 TFLOP/s peak, so the bounds are the bf16 rows'), with the bf16
+    entry's ms from the same run in ``bf16_ms`` (``bf16``: the bf16
+    entries by name)."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.ops.paged_attention import (
+        KERNEL as KP, KERNEL_MERGE)
+    from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import KERNELS
+
+    pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
+    tpu = "flash_attention_from_scratch_tpu/ops/"
+
+    def beside(f16: dict, name: str) -> dict:
+        return {**f16, "bf16_ms": bf16[name]["ms"]}
+
+    flash_ptx = _ptxas_by_kernel(logs.get("flash_forward_f16.cu", ""))
+    fori_ptx = _ptxas_by_kernel(logs.get("flash_forward_fori_f16.cu", ""))
+    paged_ptx = _ptxas_by_kernel(logs.get("paged_attention_f16.cu", ""))
+    qmm_ptx = _ptxas_by_kernel(logs.get("quant_matmul_f16.cu", ""))
+    g9 = gemma["counts"]
+    entries = [
+        {"name": "flash_forward_f16", "route": "cuda", "source": pkg + "flash_forward_f16.cu",
+         "replaces": tpu + "flash_forward.py:284", "counted_as": K1,
+         "launches": served["counts"].get(K1, 0),
+         "launches_path": "serve_fp16: 32 layers x 8 prompts (Llama-3-8B in fp16)",
+         "launches_quant": {r: c["counts"].get(K1, 0) for r, c in quant.items()},
+         "launches_gemma2_9b_fp16": g9.get(K1, 0),
+         "launches_bench_attention_f16": bench.get(K1, 0),
+         "max_abs_err": cases["flash"][K1][0], "worst_err_bound": cases["flash"][K1][1],
+         **beside(time_flash(flash_ptx, FP16), K1),
+         "d256": beside(time_flash_d256(flash_ptx, FP16), "flash_forward_d256")},
+        {"name": "flash_forward_fori_f16", "route": "cuda",
+         "source": pkg + "flash_forward_fori_f16.cu", "replaces": tpu + "flash_forward.py:578",
+         "also_source": pkg + "flash_forward_fori_d256_f16.cu", "counted_as": KERNEL_FORI,
+         "launches": bench.get(KERNEL_FORI, 0),
+         "launches_path": "tools/bench_attention.py " + " ".join(BENCH_F16_ARGS),
+         "max_abs_err": cases["flash"][KERNEL_FORI][0],
+         "worst_err_bound": cases["flash"][KERNEL_FORI][1],
+         **time_fp16_fori(D), "d256": time_fp16_fori(G9_D),
+         "ptxas": _kernel_ptxas(fori_ptx, ("flash_forward_fori_kernel",))},
+        {"name": "paged_decode_attention_f16", "route": "cuda",
+         "source": pkg + "paged_attention_f16.cu", "replaces": tpu + "paged_attention.py:280",
+         "also_replaces": tpu + "paged_attention.py:69", "counted_as": KP,
+         "launches": served["counts"].get(KP, 0),
+         "merge_launches": served["counts"].get(KERNEL_MERGE, 0),
+         "launches_path": "serve_fp16: 32 layers x decode steps, by CUDA-graph replay",
+         "launches_quant": {r: c["counts"].get(KP, 0) for r, c in quant.items()},
+         "launches_gemma2_9b_fp16": g9.get(KP, 0),
+         "max_abs_err": cases["paged"][0], "worst_err_bound": cases["paged"][1],
+         "cases": cases["paged"][2], **beside(time_paged(FP16), KP),
+         "by_format": time_paged_formats(FP16), "int8c": time_paged_int8c(FP16),
+         "d256": beside(time_paged_d256(paged_ptx, FP16), "paged_decode_attention_d256")},
+    ]
+    tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
+                 ("int4", True): 206}
+    for mode, act_quant in QMM_RECIPES:
+        name = KERNELS[(mode, act_quant)]
+        run = next((r for r, c in quant.items() if c["counts"].get(name)), None)
+        timed = time_quant_matmul(mode, act_quant, qmm_ptx, FP16)
+        entries.append({
+            "name": name + "_f16", "route": "cuda", "source": pkg + "quant_matmul_f16.cu",
+            "replaces": f"{tpu}quant_matmul.py:{tpu_lines[(mode, act_quant)]}",
+            "counted_as": name, "launches": quant[run]["counts"][name] if run else 0,
+            "launches_path": (f"serve_fp16_quant run {run}" if run else
+                              "no fp16 serving run takes this recipe: fp16_cases only"),
+            "case_launches": cases["qmm"][name]["cases"],
+            "max_abs_err": cases["qmm"][name]["max_abs_err"],
+            "worst_err_bound": cases["qmm"][name]["worst_err_bound"],
+            **timed, "bf16_ms": bf16[name]["ms"],
+            "prefill": {**timed["prefill"], "bf16_ms": bf16[name]["prefill"]["ms"]}})
+    return entries
+
+
 def serving_turn() -> None:
     """The serving runs alone, to time this tree against another in one
     call (parent, change, change, parent): bf16 serving (graph cases and
@@ -6634,8 +7140,10 @@ def main(argv=None) -> int:
     qmm_any = phase_qmm_any_shape_cases()
     paged_any = phase_paged_any_size_cases()
     lap("kernel cases at any shape and page size")
+    fp16_cases = phase_fp16_cases()
+    lap("fp16 kernel cases")
     served = phase_serve(smi)
-    counts = served["counts"]
+    counts, serve_line = served["counts"], served["line"]
     params = served["server"].params
     spec = phase_serve_spec(params, smi)  # the same weights
     del served
@@ -6648,6 +7156,16 @@ def main(argv=None) -> int:
     lap("serve phases (bf16)")
     del params  # frees the 16 GB of weights before the MoE phases and training
     torch.cuda.empty_cache()
+    served16 = phase_serve(smi, FP16)
+    del served16["server"]
+    torch.cuda.empty_cache()
+    print(json.dumps({"serve_fp16_beside_bf16": {
+        key: {"fp16": served16["line"][key], "bf16": serve_line[key]}
+        for key in ("decode_tok_s", "prefill_tok_s", "ttft_p50_s", "device_busy_share",
+                    "decode_wall_ms_per_step", "launches", "peak_mem_gb")}}), flush=True)
+    quant16 = phase_serve_fp16_quant(smi)
+    gemma16 = phase_serve_gemma2_9b_fp16(smi)
+    lap("serve phases (fp16)")
     moe_served = phase_serve_moe(smi)
     lap("serve_moe")
     torch.cuda.empty_cache()
@@ -6684,6 +7202,8 @@ def main(argv=None) -> int:
     tools = phase_bench_tools(smi)
     torch.cuda.empty_cache()
     attn_options = phase_bench_attention_options(smi)
+    torch.cuda.empty_cache()
+    bench16 = phase_bench_attention_fp16(smi)
     torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
     torch.cuda.empty_cache()
@@ -6970,6 +7490,8 @@ def main(argv=None) -> int:
          "worst_err_bound": max(d256["fori"][1], tool_cases["flash_forward_fori_d256"][1]),
          **fori9_t},
     ]
+    kernels += fp16_kernel_entries({k["name"]: k for k in kernels}, fp16_cases, served16,
+                                   quant16, gemma16, bench16, logs)
     lap("kernel timing")
     print(json.dumps({"phase_s": laps}), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,13 +1,17 @@
-// Flash-attention forward for Hopper, bf16, d_head 128 or 256: K1,
-// persistent, on the wgmma + TMA main loop of flash_wgmma.cuh.
+// Flash-attention forward for Hopper, bf16 (fp16: the library
+// flash_forward_f16.cu, this source built with FA_F16), d_head 128 or 256:
+// K1, persistent, on the wgmma + TMA main loop of flash_wgmma.cuh.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_forward.py
 // _grid_kernel (and, through the causal early exit below, the row-band
 // dispatch ops/causal_decomp.py causal_forward_banded, which only calls that
 // kernel once per band). Same function: softmax(scale * Q K^T) V with an fp32
-// online softmax in the exp2 domain, P cast to bf16 before PV, causal masks
-// with a q_offset, a sliding window, a Gemma-2 softcap, per-head attention
-// sinks merged at finalisation, GQA, and an optional natural-log LSE.
+// online softmax in the exp2 domain, P cast to the inputs' type before PV
+// (act_t, hopper.cuh: bf16 or fp16, as the JAX kernel's cast_p_to_dtype),
+// causal masks with a q_offset, a sliding window, a Gemma-2 softcap,
+// per-head attention sinks merged at finalisation, GQA, and an optional
+// natural-log LSE. fp16 has bf16's bytes and wgmma shapes and the same
+// 989 TFLOP/s peak, so everything below holds for both types.
 //
 // What bounds it on the H100: at the prompt lengths it serves (256..4096 rows,
 // 32 heads) attention is far above the card's ~295 FLOP/byte balance point, so
@@ -73,7 +77,7 @@ struct GridTile {
 };
 
 struct Params {
-  bf16* o;
+  act_t* o;
   float* lse;          // (batch, heads, seq_q) or null
   const float* sinks;  // (heads,) or null
   long long o_sb, o_sh, o_ss;  // element strides; d is contiguous
@@ -243,11 +247,11 @@ int launch(Params& p, const void* q, const void* k, const void* v, long long q_s
   if (items <= 0 || items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   p.items = static_cast<int>(items);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_bhsd(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, p.batch, p.heads, p.seq_q, HD,
+  if (!encode_bhsd(&tm_q, ACT_TMAP, q, p.batch, p.heads, p.seq_q, HD,
                    q_sb * 2, q_sh * 2, q_ss * 2, T::BQ, BOX_COLS, true) ||
-      !encode_bhsd(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, p.batch, kv_heads, p.seq_kv, HD,
+      !encode_bhsd(&tm_k, ACT_TMAP, k, p.batch, kv_heads, p.seq_kv, HD,
                    k_sb * 2, k_sh * 2, k_ss * 2, T::BK, BOX_COLS, true) ||
-      !encode_bhsd(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, p.batch, kv_heads, p.seq_kv, HD,
+      !encode_bhsd(&tm_v, ACT_TMAP, v, p.batch, kv_heads, p.seq_kv, HD,
                    v_sb * 2, v_sh * 2, v_ss * 2, T::BK, BOX_COLS, true))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_forward_kernel<HD>,
@@ -279,7 +283,7 @@ int fa_flash_forward_ctas(const void* q, const void* k, const void* v, void* o,
                           int causal, int q_offset, int window, float scale,
                           float softcap, int d_head, int ctas, void* stream) {
   Params p;
-  p.o = static_cast<bf16*>(o);
+  p.o = static_cast<act_t*>(o);
   p.lse = static_cast<float*>(lse);
   p.sinks = static_cast<const float*>(sinks);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
@@ -304,7 +308,7 @@ int fa_flash_forward_ctas(const void* q, const void* k, const void* v, void* o,
 }
 
 // q (b, heads, seq_q, d_head), k/v (b, kv_heads, seq_kv, d_head), o like q,
-// d_head 128 or 256: bf16 with the given element strides (d contiguous,
+// d_head 128 or 256: act_t with the given element strides (d contiguous,
 // strides multiples of 8 elements, base 16-byte aligned). lse is (b, heads,
 // seq_q) fp32 contiguous or null; sinks (heads,) fp32 or null. seq_q and
 // seq_kv are multiples of 64. One persistent CTA per SM (fewer when there

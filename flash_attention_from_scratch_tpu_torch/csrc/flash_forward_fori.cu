@@ -1,12 +1,14 @@
-// Flash-attention forward with a K/V copy ring, for Hopper, bf16, d_head 128
-// or 256.
+// Flash-attention forward with a K/V copy ring, for Hopper, bf16 (fp16: the
+// libraries flash_forward_fori_f16.cu and flash_forward_fori_d256_f16.cu,
+// this source built with FA_F16), d_head 128 or 256.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_forward.py
 // _fori_kernel (KernelConfig(kv_loop=KVLoop.FORI)): the function of K1
 // (csrc/flash_forward.cu) -- softmax(scale * Q K^T) V with an fp32 online
-// softmax in the exp2 domain, P cast to bf16 before PV, causal masks with a
-// q_offset, a sliding window, a Gemma-2 softcap, per-head attention sinks
-// merged at finalisation, GQA and an optional natural-log LSE -- with the
+// softmax in the exp2 domain, P cast to the inputs' type (act_t) before PV,
+// causal masks with a q_offset, a sliding window, a Gemma-2 softcap,
+// per-head attention sinks merged at finalisation, GQA and an optional
+// natural-log LSE -- with the
 // K/V copies driven by the kernel through a ring of num_kv_buffers slots, as
 // the TPU kernel drives its make_async_copy DMAs and their semaphores.
 //
@@ -61,7 +63,7 @@ struct ForiTile : CtaShape<HD> {
 };
 
 struct Params {
-  bf16* o;
+  act_t* o;
   float* lse;          // (batch, heads, seq_q) or null
   const float* sinks;  // (heads,) or null
   long long o_sb, o_sh, o_ss;  // element strides; d is contiguous
@@ -150,11 +152,11 @@ int launch(const void* q, const void* k, const void* v, const Params& p, int bat
            const long long (&vs)[3], cudaStream_t stream) {
   using T = ForiTile<NB, HD>;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_bhsd(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, p.heads, p.seq_q, HD,
+  if (!encode_bhsd(&tm_q, ACT_TMAP, q, batch, p.heads, p.seq_q, HD,
                    qs[0] * 2, qs[1] * 2, qs[2] * 2, T::BQ, BOX_COLS, true) ||
-      !encode_bhsd(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, batch, kv_heads, p.seq_kv, HD,
+      !encode_bhsd(&tm_k, ACT_TMAP, k, batch, kv_heads, p.seq_kv, HD,
                    ks[0] * 2, ks[1] * 2, ks[2] * 2, T::BK, BOX_COLS, true) ||
-      !encode_bhsd(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, batch, kv_heads, p.seq_kv, HD,
+      !encode_bhsd(&tm_v, ACT_TMAP, v, batch, kv_heads, p.seq_kv, HD,
                    vs[0] * 2, vs[1] * 2, vs[2] * 2, T::BK, BOX_COLS, true))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_forward_fori_kernel<NB, HD>;
@@ -186,7 +188,7 @@ const char* fa_error_string(int code) {
 
 // K1's interface (fa_flash_forward in flash_forward.cu) plus the ring depth:
 // q (b, heads, seq_q, d_head), k/v (b, kv_heads, seq_kv, d_head), o like q,
-// d_head FORI_HD: bf16 with the given element strides (d contiguous, strides
+// d_head FORI_HD: act_t with the given element strides (d contiguous, strides
 // multiples of 8 elements, base 16-byte aligned). lse is (b, heads, seq_q)
 // fp32 contiguous or null; sinks (heads,) fp32 or null. seq_q and seq_kv
 // are multiples of 64; num_kv_buffers 1..4. Returns cudaGetLastError(), or
@@ -203,7 +205,7 @@ int fa_flash_forward_fori(const void* q, const void* k, const void* v, void* o,
                           float softcap, int d_head, int num_kv_buffers, void* stream) {
   if (d_head != FORI_HD) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.o = static_cast<bf16*>(o);
+  p.o = static_cast<act_t*>(o);
   p.lse = static_cast<float*>(lse);
   p.sinks = static_cast<const float*>(sinks);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;

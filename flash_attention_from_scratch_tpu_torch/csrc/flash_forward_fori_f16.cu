@@ -1,0 +1,9 @@
+// K11 for fp16 q, k, v at head width 128: flash_forward_fori.cu's kernels
+// with act_t = fp16 (FA_F16, hopper.cuh), as a library of its own, so that
+// the bf16 library is compiled as it was. Replaces, for fp16, the TPU
+// kernel flash_forward_fori.cu replaces
+// (flash_attention_from_scratch_tpu/ops/flash_forward.py _fori_kernel); the
+// design is described in that file's header.
+
+#define FA_F16 1
+#include "flash_forward_fori.cu"

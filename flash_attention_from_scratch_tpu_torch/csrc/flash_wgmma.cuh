@@ -14,8 +14,8 @@
 // shared memory, K-major as stored), the fp32 online softmax in the exp2
 // domain in registers (each row's max and sum over the four threads of a
 // quad, as the accumulator layout spreads a row), then O += P V on wgmma
-// m64n128k16 with P's accumulator repacked as bf16 A fragments in registers
-// and V read MN-major (the transpose bit); the two consumer warpgroups
+// m64n128k16 with P's accumulator repacked as 16-bit A fragments in
+// registers and V read MN-major (the transpose bit); the two consumer warpgroups
 // interleave on the tensor cores, one's softmax beside the other's
 // products. A slot is released once its P V product has completed
 // (wgmma.wait_group in each warp, then one arrival per warp).
@@ -24,6 +24,11 @@
 // boxes of 64 columns (two at HD 128, four at 256), each rows x 128 bytes
 // (the layout a TMA box of 64 bf16 columns with CU_TENSOR_MAP_SWIZZLE_128B
 // writes).
+//
+// The 16-bit type of Q, K, V, P and O is the library's act_t (hopper.cuh):
+// bf16, or fp16 in the fp16 libraries of K1 and K11 (flash_forward_f16.cu,
+// flash_forward_fori*_f16.cu), which have bf16's tile bytes; a "bf16" tile
+// below is an act_t tile there.
 //
 // At HD 256 a 64 x 256 fp32 O accumulator is 128 registers a consumer
 // thread, which a CTA of more than 8 warps (at most 168 registers a thread)
@@ -183,7 +188,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], unsigned q_addr, in
   wgmma_commit();
 }
 
-// Issue O += P V (one wgmma group, not waited on): pa holds P's bf16 A
+// Issue O += P V (one wgmma group, not waited on): pa holds P's act_t A
 // fragments, v_addr the V tile (BK rows of HD d, box b b * BK * 128 bytes
 // on), read MN-major. At HD 256 each k step is two m64n128 products: V's
 // boxes 0-1 into o[0..63], boxes 2-3 into o[64..127].
@@ -291,24 +296,25 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowStateT<HD>& 
   for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rs[r];
 }
 
-// P as bf16 A fragments: the accumulator of key columns 16 kk .. 16 kk + 15
-// is P's A fragment for that k step.
+// P as act_t A fragments (P rounded to the inputs' type, as the JAX
+// kernels' cast_p_to_dtype): the accumulator of key columns 16 kk .. 16 kk
+// + 15 is P's A fragment for that k step.
 template <int BK>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_act(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // Finalise this thread's two rows: full row sums over the quad, an optional
 // sink (its logit in the log2 domain, -INFINITY for none) merged into the
-// softmax, then O = acc / l * out_scale as bf16 into o (the (batch, head)
+// softmax, then O = acc / l * out_scale as act_t into o (the (batch, head)
 // base, rows o_ss elements apart) at row `row` and row + 8 where they are
 // below seq_q, and where lse is not null, the natural-log LSE of each row
 // into lse[row].
 template <int HD>
-__device__ __forceinline__ void store_rows(const RowStateT<HD>& st, int row, int seq_q, bf16* o,
+__device__ __forceinline__ void store_rows(const RowStateT<HD>& st, int row, int seq_q, act_t* o,
                                            long long o_ss, float out_scale, float sink_log2,
                                            float* lse) {
   const int q = threadIdx.x & 3;
@@ -328,11 +334,11 @@ __device__ __forceinline__ void store_rows(const RowStateT<HD>& st, int row, int
     const float inv = l > 0.f ? scale_o * out_scale / l : 0.f;
     const int rr = row + r * 8;
     if (rr >= seq_q) continue;
-    bf16* o_row = o + rr * o_ss;
+    act_t* o_row = o + rr * o_ss;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j + 2 * q) =
-          __floats2bfloat162_rn(st.o[4 * j + 2 * r] * inv, st.o[4 * j + 2 * r + 1] * inv);
+      store_act2(o_row + 8 * j + 2 * q, st.o[4 * j + 2 * r] * inv,
+                 st.o[4 * j + 2 * r + 1] * inv);
     if (lse && q == 0) lse[rr] = l > 0.f ? (m + log2f(l)) / LOG2E : -INFINITY;
   }
 }

@@ -3,9 +3,18 @@
 // K11, flash_quant.cu's K10, flash_backward.cu's K2/K3) and the paged
 // decode kernels' rings (paged_attention.cu): mbarriers, TMA and bulk
 // loads and tensor-map encoding, wgmma operand descriptors and
-// instructions, and exact small-integer conversions to bf16.
+// instructions, the library's 16-bit activation type, and exact
+// small-integer conversions to bf16.
 //
 // Everything here is for sm_90a: wgmma exists only there.
+//
+// The activation type (act_t): bf16, or fp16 in a library built with FA_F16
+// defined (the *_f16.cu files, each a library of its own, as each head
+// width is: a shared expression in one library can move another's
+// registers). It is the type of q, k, v, x and out, of the 16-bit wgmma and
+// mma.sync operands (FA_AB: the instructions' A and B types) and of their
+// tensor maps (ACT_TMAP). fp16 has bf16's width, so tiles, boxes and
+// swizzles are the same bytes.
 
 #pragma once
 
@@ -13,10 +22,64 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef FA_F16
+#include <cuda_fp16.h>
+#endif
+
+#ifdef FA_F16
+#define FA_AB ".f16.f16"
+#else
+#define FA_AB ".bf16.bf16"
+#endif
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+#ifdef FA_F16
+typedef __half act_t;
+constexpr CUtensorMapDataType ACT_TMAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+#else
+typedef __nv_bfloat16 act_t;
+constexpr CUtensorMapDataType ACT_TMAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+#endif
+
+// Two fp32 values as an act_t pair (lo in the low half), rounded to nearest.
+__device__ __forceinline__ uint32_t pack_act(float lo, float hi) {
+#ifdef FA_F16
+  __half2 v = __floats2half2_rn(lo, hi);
+#else
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+#endif
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values stored as an act_t pair at dst (4-byte aligned).
+__device__ __forceinline__ void store_act2(act_t* dst, float lo, float hi) {
+#ifdef FA_F16
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(lo, hi);
+#else
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+#endif
+}
+
+// One fp32 value as act_t, rounded to nearest.
+__device__ __forceinline__ act_t to_act(float x) {
+#ifdef FA_F16
+  return __float2half_rn(x);
+#else
+  return __float2bfloat16(x);
+#endif
+}
+
+// An act_t pair (lo in the low half) as two fp32 values (exact).
+__device__ __forceinline__ float2 act_pair(uint32_t w) {
+#ifdef FA_F16
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+#else
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+#endif
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -143,13 +206,13 @@ __device__ __forceinline__ void bulk_wait() {
 
 // K-major: rows along M or N, the K dimension contiguous within 128-byte
 // rows; 8-row groups 1024 bytes apart. A K step inside the atom (32 bytes:
-// 16 bf16 or 32 int8 values) advances the start address by 32 bytes.
+// 16 bf16 or fp16, or 32 int8 values) advances the start address by 32 bytes.
 __device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-// MN-major (bf16 only, with the transpose bit): rows along K, each 128
+// MN-major (16-bit types only, with the transpose bit): rows along K, each 128
 // bytes of 64 consecutive M or N values; 8-row groups 1024 bytes apart
 // (the stride offset), the next 64 M or N values `mn_stride` bytes on (the
 // leading offset). A 16-wide K step advances the start by 2048 bytes.
@@ -175,14 +238,14 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // d (64 x N fp32, the accumulator layout: d[4j + e] is row 16 w + g +
 // 8 (e >> 1), column 8 j + 2 q + (e & 1) of warp w, lane 4 g + q) +=
-// A (64 x 16 bf16) B (16 x N bf16); the SS and s8 forms take `accumulate`
+// A (64 x 16 act_t) B (16 x N act_t); the SS and s8 forms take `accumulate`
 // (0: d = A B, overwriting d, so that a product starts without zeroing its
 // registers: instructions that write an accumulator while wgmma groups are
 // in flight make ptxas serialize them).
 //   wgmma_nN: A from registers (a[0..3]: the m16n8k16 A fragment of the
 //     warp's 16 rows), B by descriptor; TRANS_B 1 for an MN-major B.
 //   wgmma_ss_nN: A and B by descriptors, K-major unless TRANS_A / TRANS_B
-//     is 1 (an MN-major A or B, bf16 only).
+//     is 1 (an MN-major A or B, 16-bit types only).
 //   wgmma_ss_s8_n128 / wgmma_s8_nN (N 16, 32, 64, 128): int8 (K 32), exact
 //     int32 sums; A's register fragment holds 4 consecutive k per register
 //     (a[0]: row g, k 4q..4q+3; a[1]: row g + 8; a[2], a[3]: k + 16).
@@ -191,7 +254,7 @@ template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
@@ -204,7 +267,7 @@ template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
@@ -220,7 +283,7 @@ template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -242,7 +305,7 @@ template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -277,7 +340,7 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, ui
                                              int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
@@ -294,7 +357,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
                                              int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -317,7 +380,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
                                               int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" FA_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -467,7 +530,7 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[
 }
 
 // ---------------------------------------------------------------------------
-// Exact conversions of small integers to bf16.
+// Exact conversions of small integers to bf16 and fp16.
 
 // Byte `j` of u (an unsigned byte u_j = v_j + bias) as the fp32 value v_j:
 // the word 0x4B0000uu is 2^23 + u_j exactly, minus 2^23 + bias.
@@ -482,6 +545,20 @@ __device__ __forceinline__ float byte_value(uint32_t u, float magic) {
 __device__ __forceinline__ uint32_t bf16x2_upper(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
+
+#ifdef FA_F16
+// Byte J of u0 and of u1 (unsigned bytes u = v + 128) as the fp16 pair of
+// the values v (u0's in the low half): the fp16 word 0x64uu is 1024 + u
+// exactly (10 mantissa bits), minus 1152 (0x6480), also exact. The upper
+// half of an fp32 word (bf16x2_upper) is a bf16 value, not an fp16 one.
+template <int J>
+__device__ __forceinline__ uint32_t f16x2_bytes(uint32_t u0, uint32_t u1) {
+  const uint32_t w = (__byte_perm(u0, u1, J | ((4 + J) << 8)) & 0x00FF00FFu) | 0x64006400u;
+  const __half2 bias = __halves2half2(__ushort_as_half(0x6480), __ushort_as_half(0x6480));
+  const __half2 v = __hsub2(*reinterpret_cast<const __half2*>(&w), bias);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // Tensor maps (host side): cuTensorMapEncodeTiled, looked up through the

@@ -1,9 +1,13 @@
 // Paged decode attention for Hopper: 1..t query tokens per sequence over a
-// paged KV cache, bf16 queries, d_head 128 or 256; pages dense bf16, int8, fp8
-// (e4m3) or int4 packed along the tokens of a page; optionally int8
-// compute on int8 pages. A split-KV kernel over pages streamed through a
-// ring of shared-memory slots, its products on the tensor cores, and a
-// merge kernel.
+// paged KV cache, bf16 (or, in the fp16 library paged_attention_f16.cu,
+// fp16) queries, d_head 128 or 256; pages dense in the queries' type, int8,
+// fp8 (e4m3) or int4 packed along the tokens of a page; optionally int8
+// compute on int8 pages. The 16-bit type is act_t (hopper.cuh): the
+// pages are converted to it, P is rounded to it and out is stored in it, as
+// the JAX kernels compute in q's dtype; "bf16" below reads as act_t (int8,
+// int4 and e4m3 values, and int8 P, are exact in fp16 too). A split-KV
+// kernel over pages streamed through a ring of shared-memory slots, its
+// products on the tensor cores, and a merge kernel.
 //
 // Replaces the TPU kernels flash_attention_from_scratch_tpu/ops/
 // paged_attention.py _full_kernel (whole window per sequence) and _loop_kernel
@@ -241,39 +245,34 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
                : "r"(addr));
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32.
+// c += a (16x16 act_t, row) * b (16x8 act_t, col), fp32.
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k16.row.col.f32" FA_AB ".f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a (16x8 bf16, row) * b (8x8 bf16, col), fp32.
+// c += a (16x8 act_t, row) * b (8x8 act_t, col), fp32.
 __device__ __forceinline__ void mma_1688(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k8.row.col.f32" FA_AB ".f32 "
       "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 struct Params {
-  const bf16* q;
+  const act_t* q;
   const uint8_t* k_pages;
   const uint8_t* v_pages;
   const float* k_scales;
   const float* v_scales;
   const int* lengths;
   const int* page_tables;
-  bf16* out;
+  act_t* out;
   float* ws_o;   // (batch * kv_heads, splits, rows, d) fp32, or null for one split
   float* ws_ml;  // (batch * kv_heads, splits, rows, 2) fp32: m (log2 domain), l
   int kv_heads, num_pages, page_size, pages_per_seq, q_tokens, rows_total;
@@ -291,7 +290,7 @@ __device__ __forceinline__ void empty_split(const Params& p, int pair, int split
   for (int idx = threadIdx.x; idx < (r_end - r_begin) * D; idx += blockDim.x) {
     const int r = r_begin + idx / D, c = idx % D;
     if (!p.ws_o) {
-      p.out[(row_base + r) * D + c] = __float2bfloat16(0.f);
+      p.out[(row_base + r) * D + c] = to_act(0.f);
     } else if (c == 0) {
       const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
       p.ws_ml[2 * pr] = -INFINITY;
@@ -316,8 +315,8 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, int cbytes, int
     unpack8q<STORE>(*reinterpret_cast<const uint2*>(raw + kv * cbytes + row * D + c), hi, f);
     *reinterpret_cast<uint4*>(stage + kv * (Geo<D>::STAGE_BYTES / 2) +
                               sw_offset(TILE_TOKENS, tok, c)) =
-        make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]),
-                   pack_bf16x2(f[6], f[7]));
+        make_uint4(pack_act(f[0], f[1]), pack_act(f[2], f[3]), pack_act(f[4], f[5]),
+                   pack_act(f[6], f[7]));
   }
 }
 
@@ -410,21 +409,21 @@ __device__ __forceinline__ void tile_products(Partial<D>& st, unsigned q_addr, c
     const float v0 = fac[TILE_TOKENS + tok0 + 2 * qd], v1 = fac[TILE_TOKENS + tok0 + 2 * qd + 1];
     const float p0 = I8C ? rintf(s[0] * 127.f) : s[0], p1 = I8C ? rintf(s[1] * 127.f) : s[1];
     const float p2 = I8C ? rintf(s[2] * 127.f) : s[2], p3 = I8C ? rintf(s[3] * 127.f) : s[3];
-    a0 = pack_bf16x2(p0 * v0, p1 * v1);
-    a1 = pack_bf16x2(p2 * v0, p3 * v1);
+    a0 = pack_act(p0 * v0, p1 * v1);
+    a1 = pack_act(p2 * v0, p3 * v1);
   } else if (v_fac == 0.f) {
     return;
   } else if constexpr (I8C) {
-    a0 = pack_bf16x2(rintf(s[0] * 127.f), rintf(s[1] * 127.f));
-    a1 = pack_bf16x2(rintf(s[2] * 127.f), rintf(s[3] * 127.f));
+    a0 = pack_act(rintf(s[0] * 127.f), rintf(s[1] * 127.f));
+    a1 = pack_act(rintf(s[2] * 127.f), rintf(s[3] * 127.f));
     const float inv = 1.f / v_fac;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st.o[j][e] *= inv;
   } else {
-    a0 = pack_bf16x2(s[0] * v_fac, s[1] * v_fac);
-    a1 = pack_bf16x2(s[2] * v_fac, s[3] * v_fac);
+    a0 = pack_act(s[0] * v_fac, s[1] * v_fac);
+    a1 = pack_act(s[2] * v_fac, s[3] * v_fac);
   }
   // O += P V over the warp's 8 tokens; V's halves past the length zeroed.
   const uint32_t keep = (pos0 + 2 * qd < len ? 0x0000FFFFu : 0u) |
@@ -461,11 +460,11 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* q_s, float
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row < r_end) v = *reinterpret_cast<const uint4*>(p.q + (row_base + row) * D + c);
     if constexpr (I8C) {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const uint32_t* h = reinterpret_cast<const uint32_t*>(&v);
       float f[8], amax = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(h[i]);
+        const float2 x = act_pair(h[i]);
         f[2 * i] = x.x;
         f[2 * i + 1] = x.y;
         amax = fmaxf(amax, fmaxf(fabsf(x.x), fabsf(x.y)));
@@ -477,7 +476,7 @@ __device__ __forceinline__ void load_q_tile(const Params& p, uint8_t* q_s, float
       uint32_t w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = pack_bf16x2(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
+        w[i] = pack_act(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
       v = make_uint4(w[0], w[1], w[2], w[3]);
       if (c == 0) q_fac_s[r] = s_q * p.scale * LOG2E;
     }
@@ -553,7 +552,7 @@ __device__ __forceinline__ void merge_warps(const Partial<D>& st, const Params& 
       }
     }
     if (!p.ws_o) {
-      p.out[(row_base + r) * D + c] = __float2bfloat16(lt > 0.f ? ot / lt : 0.f);
+      p.out[(row_base + r) * D + c] = to_act(lt > 0.f ? ot / lt : 0.f);
     } else {
       const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
       p.ws_o[pr * D + c] = ot;
@@ -651,11 +650,11 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row < r_end) v = *reinterpret_cast<const uint4*>(p.q + (row_base + row) * D + c);
     if constexpr (I8C) {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const uint32_t* h = reinterpret_cast<const uint32_t*>(&v);
       float f[8], amax = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(h[i]);
+        const float2 x = act_pair(h[i]);
         f[2 * i] = x.x;
         f[2 * i + 1] = x.y;
         amax = fmaxf(amax, fmaxf(fabsf(x.x), fabsf(x.y)));
@@ -667,7 +666,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       uint32_t w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = pack_bf16x2(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
+        w[i] = pack_act(rintf(__fdiv_rn(f[2 * i], s_q)), rintf(__fdiv_rn(f[2 * i + 1], s_q)));
       v = make_uint4(w[0], w[1], w[2], w[3]);
       if (c == 0) q_fac_s[r] = s_q * p.scale * LOG2E;
     }
@@ -766,7 +765,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       }
     }
     if (!p.ws_o) {
-      p.out[(row_base + r) * D + c] = __float2bfloat16(lt > 0.f ? ot / lt : 0.f);
+      p.out[(row_base + r) * D + c] = to_act(lt > 0.f ? ot / lt : 0.f);
     } else {
       const long long pr = ((long long)pair * p.splits + split) * p.rows_total + r;
       p.ws_o[pr * D + c] = ot;
@@ -888,8 +887,8 @@ paged_decode_gather_kernel(const Params p) {
         float f[8];
         unpack8q<STORE>(*reinterpret_cast<const uint2*>(src + c),
                         STORE == INT4 && (pos + tok) % ps >= ps / 2, f);
-        v = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                       pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+        v = make_uint4(pack_act(f[0], f[1]), pack_act(f[2], f[3]),
+                       pack_act(f[4], f[5]), pack_act(f[6], f[7]));
       }
       *reinterpret_cast<uint4*>(stage + kv * (G::STAGE_BYTES / 2) +
                                 sw_offset(TILE_TOKENS, tok, c)) = v;
@@ -924,7 +923,7 @@ paged_decode_gather_kernel(const Params p) {
 template <int D>
 __global__ void __launch_bounds__(D)
 paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
-                          bf16* __restrict__ out, int splits, int rows_total) {
+                          act_t* __restrict__ out, int splits, int rows_total) {
   const long long pr = blockIdx.x;  // pair * rows_total + r
   const long long pair = pr / rows_total, r = pr % rows_total;
   const int c = threadIdx.x;
@@ -942,7 +941,7 @@ paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restric
       o += ws_o[at * D + c] * wt;
     }
   }
-  out[pr * D + c] = __float2bfloat16(l > 0.f ? o / l : 0.f);
+  out[pr * D + c] = to_act(l > 0.f ? o / l : 0.f);
 }
 
 template <int D, int MODE>
@@ -964,9 +963,9 @@ int launch(const Params& p, int batch, int row_blocks, int smem, cudaStream_t st
   if constexpr (MODE == DENSE) {
     const int ct = chunk_tokens(DENSE, p.page_size);
     const long long row = D * 2, page = row * p.page_size, head = page * p.num_pages;
-    if (!encode_bhsd(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.k_pages, p.kv_heads,
+    if (!encode_bhsd(&tm_k, ACT_TMAP, p.k_pages, p.kv_heads,
                      p.num_pages, p.page_size, D, head, page, row, ct, 64, true) ||
-        !encode_bhsd(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.v_pages, p.kv_heads,
+        !encode_bhsd(&tm_v, ACT_TMAP, p.v_pages, p.kv_heads,
                      p.num_pages, p.page_size, D, head, page, row, ct, 64, true))
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1027,9 +1026,9 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The split kernel. q (batch, heads, q_tokens, d_head) bf16 contiguous
+// The split kernel. q (batch, heads, q_tokens, d_head) act_t contiguous
 // (q_tokens 1: (batch, heads, d_head)), d_head 128 or 256; k/v pages
-// (kv_heads, num_pages, rows, d_head) contiguous: bf16 (mode 0), int8 (1,
+// (kv_heads, num_pages, rows, d_head) contiguous: act_t (mode 0), int8 (1,
 // and 4 = int8 compute), fp8 e4m3 (2), or int4 packed along tokens (3, rows
 // = page_size / 2); k/v scales (kv_heads, num_pages) fp32 (read for modes
 // 1-4); lengths (batch,) int32, the q tokens included; page_tables (batch,
@@ -1055,14 +1054,14 @@ int fa_paged_decode_split(const void* q, const void* k_pages, const void* v_page
       (splits > 1 && !(ws_o && ws_ml)) || (d_head != 128 && d_head != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const bf16*>(q);
+  p.q = static_cast<const act_t*>(q);
   p.k_pages = static_cast<const uint8_t*>(k_pages);
   p.v_pages = static_cast<const uint8_t*>(v_pages);
   p.k_scales = static_cast<const float*>(k_scales);
   p.v_scales = static_cast<const float*>(v_scales);
   p.lengths = static_cast<const int*>(lengths);
   p.page_tables = static_cast<const int*>(page_tables);
-  p.out = static_cast<bf16*>(out);
+  p.out = static_cast<act_t*>(out);
   p.ws_o = splits > 1 ? static_cast<float*>(ws_o) : nullptr;
   p.ws_ml = splits > 1 ? static_cast<float*>(ws_ml) : nullptr;
   p.kv_heads = kv_heads;
@@ -1093,7 +1092,7 @@ int fa_paged_decode_merge(const void* ws_o, const void* ws_ml, void* out, int ba
   auto kernel = d_head == 128 ? paged_decode_merge_kernel<128> : paged_decode_merge_kernel<256>;
   kernel<<<static_cast<unsigned>(blocks), d_head, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ws_o), static_cast<const float*>(ws_ml),
-      static_cast<bf16*>(out), splits, rows);
+      static_cast<act_t*>(out), splits, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

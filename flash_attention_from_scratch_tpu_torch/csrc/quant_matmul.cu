@@ -1,5 +1,8 @@
 // Quantized matmuls for Hopper: out (M, N) = x (M, K) @ W (K, N), W stored
-// int8 or packed int4 with one fp32 scale per output column.
+// int8 or packed int4 with one fp32 scale per output column; x and out bf16
+// or, in the library quant_matmul_f16.cu (this source built with FA_F16),
+// fp16: act_t (hopper.cuh). K6/K7 convert the weight to x's type before the
+// product (the JAX kernels' w.astype(x.dtype)); "bf16" below reads as act_t.
 //
 // Replaces four TPU kernels of flash_attention_from_scratch_tpu/ops/
 // quant_matmul.py:
@@ -45,7 +48,9 @@
 // K6/K7: each consumer thread reads the 4 bytes of its 4 columns at 4 K
 // rows, converts them to bf16 in registers (the fp32 magic number 2^23 + u,
 // exact for the whole int8 range and every nibble, then the upper half of
-// each fp32 word, which is the bf16 value), and feeds them to bf16 wgmma
+// each fp32 word, which is the bf16 value; for fp16 the fp16 word 0x6400 |
+// u, 1024 + u, minus the bias: f16x2_bytes in hopper.cuh, since the upper
+// half of an fp32 word is no fp16 value), and feeds them to 16-bit wgmma
 // (m64nBTk16) as its A fragments, with fp32 sums.
 // K8/K9: the s8 A fragment holds 4 consecutive K of one row in a register,
 // so a thread reads its 4 columns at 8 K rows (4 consecutive, twice) and
@@ -110,36 +115,48 @@ constexpr int QR_HELD = 8;  // 16-byte chunks a thread keeps from the first read
 // under jit and ops/quant.py::div_const copies.
 constexpr float INV_QMAX = 1.0f / 127.0f;
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+// The low and the high act_t of a word as fp32, exactly: a bf16 value is
+// the upper half of its fp32 word; an fp16 value converts (its bits are
+// not an fp32 word's half).
+#ifdef FA_F16
+__device__ __forceinline__ float act_lo(uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xFFFFu)));
+}
+__device__ __forceinline__ float act_hi(uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+}
+#else
+__device__ __forceinline__ float act_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float act_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+#endif
 
 __device__ __forceinline__ float absmax8(uint4 v) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   float m = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m = fmaxf(m, fmaxf(fabsf(bf16_lo(w[i])), fabsf(bf16_hi(w[i]))));
+  for (int i = 0; i < 4; ++i) m = fmaxf(m, fmaxf(fabsf(act_lo(w[i])), fabsf(act_hi(w[i]))));
   return m;
 }
 
-// rint(v / scale) clamped to +-127, as int8 bytes: 8 bf16 in, 8 bytes out.
+// rint(v / scale) clamped to +-127, as int8 bytes: 8 act_t in, 8 bytes out.
 __device__ __forceinline__ uint2 quantize8(uint4 v, float scale) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   uint32_t out[2] = {0u, 0u};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float f = (i & 1) ? bf16_hi(w[i >> 1]) : bf16_lo(w[i >> 1]);
+    const float f = (i & 1) ? act_hi(w[i >> 1]) : act_lo(w[i >> 1]);
     const float r = fminf(fmaxf(rintf(__fdiv_rn(f, scale)), -127.f), 127.f);
     out[i >> 2] |= (static_cast<uint32_t>(__float2int_rn(r)) & 0xFFu) << (8 * (i & 3));
   }
   return make_uint2(out[0], out[1]);
 }
 
-// x (M, K) bf16 -> xq (M, K) int8 and xs (M,) fp32, one CTA a row. A row of
+// x (M, K) act_t -> xq (M, K) int8 and xs (M,) fp32, one CTA a row. A row of
 // up to QR_THREADS * QR_HELD * 8 values (16384) is read once and kept in
 // registers; the rest of a longer row is read again. Finite inputs; K % 8
 // == 0, rows 16-byte aligned.
 __global__ void __launch_bounds__(QR_THREADS)
-quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+quantize_rows_kernel(const act_t* __restrict__ x, int8_t* __restrict__ xq,
                      float* __restrict__ xs, int K) {
   const long long base = static_cast<long long>(blockIdx.x) * K;
   const uint4* src = reinterpret_cast<const uint4*>(x + base);
@@ -179,7 +196,7 @@ quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
 
 template <bool A8>
 __global__ void quant_matmul_finalize(const void* __restrict__ ws, const float* __restrict__ xs,
-                                      const float* __restrict__ scales, bf16* __restrict__ out,
+                                      const float* __restrict__ scales, act_t* __restrict__ out,
                                       int M, int N, int splits) {
   const long long mn = (long long)M * N;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -197,7 +214,7 @@ __global__ void quant_matmul_finalize(const void* __restrict__ ws, const float* 
     for (int z = 0; z < splits; ++z) acc += p[z * mn + idx];
     v = acc * scales[col];
   }
-  out[idx] = __float2bfloat16(v);
+  out[idx] = to_act(v);
 }
 
 int finalize(bool a8, const void* ws, const void* xs, const void* scales, void* out, int M,
@@ -207,10 +224,10 @@ int finalize(bool a8, const void* ws, const void* xs, const void* scales, void* 
   if (a8)
     quant_matmul_finalize<true><<<blocks, 256, 0, stream>>>(
         ws, static_cast<const float*>(xs), static_cast<const float*>(scales),
-        static_cast<bf16*>(out), M, N, splits);
+        static_cast<act_t*>(out), M, N, splits);
   else
     quant_matmul_finalize<false><<<blocks, 256, 0, stream>>>(
-        ws, nullptr, static_cast<const float*>(scales), static_cast<bf16*>(out), M, N, splits);
+        ws, nullptr, static_cast<const float*>(scales), static_cast<act_t*>(out), M, N, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,7 +264,7 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[BT / 2], const uint32_t (&a)
   else wgmma_s8_n128(d, a, desc, 1);
 }
 
-// bf16 A fragments of both row tiles for one 16-wide K step. wv: the 4
+// act_t A fragments of both row tiles for one 16-wide K step. wv: the 4
 // bytes of this thread's columns c..c+3 at K rows 2q, 2q+1, 2q+8, 2q+9 of
 // the step (int4: the low nibbles for half 0, the high ones for half 1).
 // Row tile t takes columns c+2t (fragment row g) and c+2t+1 (row g+8).
@@ -259,15 +276,25 @@ __device__ __forceinline__ void dequant_fragments(const uint32_t (&wv)[4], int h
     const uint32_t r0 = wv[2 * p], r1 = wv[2 * p + 1];
     if constexpr (W4) {
       // Nibble n of column j from both rows into one word's halves, as the
-      // bf16 bits 0x4300 | (n ^ 8) = 128 + (v + 8), then minus 136: exact.
+      // bf16 bits 0x4300 | (n ^ 8) = 128 + (v + 8), then minus 136 (fp16:
+      // 0x6400 | (n ^ 8) = 1024 + (v + 8), minus 1032): exact.
       const uint32_t s0 = half ? r0 >> 4 : r0, s1 = half ? r1 >> 4 : r1;
+#ifdef FA_F16
+      const __half2 bias = __halves2half2(__ushort_as_half(0x6408), __ushort_as_half(0x6408));
+#else
       const __nv_bfloat162 bias = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
                                                      __ushort_as_bfloat16(0x4308));
+#endif
       uint32_t v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+#ifdef FA_F16
+        const uint32_t t = (__byte_perm(s0, s1, j | ((4 + j) << 8)) & 0x000F000Fu) ^ 0x64086408u;
+        const __half2 b = __hsub2(*reinterpret_cast<const __half2*>(&t), bias);
+#else
         const uint32_t t = (__byte_perm(s0, s1, j | ((4 + j) << 8)) & 0x000F000Fu) ^ 0x43084308u;
         const __nv_bfloat162 b = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t), bias);
+#endif
         v[j] = *reinterpret_cast<const uint32_t*>(&b);
       }
       a[0][2 * p] = v[0];
@@ -275,13 +302,21 @@ __device__ __forceinline__ void dequant_fragments(const uint32_t (&wv)[4], int h
       a[1][2 * p] = v[2];
       a[1][2 * p + 1] = v[3];
     } else {
-      // u = v + 128 per byte; the fp32 word 0x4B0000uu is 2^23 + u.
+      // u = v + 128 per byte; the fp32 word 0x4B0000uu is 2^23 + u (fp16:
+      // the word 0x64uu is 1024 + u, f16x2_bytes).
       const uint32_t u0 = r0 ^ 0x80808080u, u1 = r1 ^ 0x80808080u;
+#ifdef FA_F16
+      a[0][2 * p] = f16x2_bytes<0>(u0, u1);
+      a[0][2 * p + 1] = f16x2_bytes<1>(u0, u1);
+      a[1][2 * p] = f16x2_bytes<2>(u0, u1);
+      a[1][2 * p + 1] = f16x2_bytes<3>(u0, u1);
+#else
       const float magic = 8388736.0f;  // 2^23 + 128
       a[0][2 * p] = bf16x2_upper(byte_value<0>(u0, magic), byte_value<0>(u1, magic));
       a[0][2 * p + 1] = bf16x2_upper(byte_value<1>(u0, magic), byte_value<1>(u1, magic));
       a[1][2 * p] = bf16x2_upper(byte_value<2>(u0, magic), byte_value<2>(u1, magic));
       a[1][2 * p + 1] = bf16x2_upper(byte_value<3>(u0, magic), byte_value<3>(u1, magic));
+#endif
     }
   }
 }
@@ -327,7 +362,7 @@ struct WTile {
   static constexpr int NX = W4 ? 2 : 1;       // x boxes per stage
   static constexpr int XBOX = BT * XROW;      // bytes of one x box
   static constexpr int STAGE = NWG * WBOX + NX * XBOX;
-  static constexpr int OROW = COLS + 8;       // staging row, bf16 elements
+  static constexpr int OROW = COLS + 8;       // staging row, act_t elements
   // The ring is as deep as PER_SM CTAs on one SM allow (each less its
   // reserved 1 KB, its barriers and the 1 KB alignment slack), at most
   // MAX_STAGES; the epilogue reuses it as the staging tile.
@@ -363,7 +398,7 @@ template <bool W4, bool A8, int BT, bool EDGE>
 __device__ __forceinline__ void quant_matmul_body(const CUtensorMap& tm_w, const CUtensorMap& tm_x,
                                                   const float* __restrict__ xs,
                                                   const float* __restrict__ scales,
-                                                  bf16* __restrict__ out, void* __restrict__ ws,
+                                                  act_t* __restrict__ out, void* __restrict__ ws,
                                                   int M, int N, int K, int k_tiles_per_split) {
   using T = WTile<W4, A8, BT>;
   using Acc = std::conditional_t<A8, int, float>;
@@ -519,9 +554,9 @@ __device__ __forceinline__ void quant_matmul_body(const CUtensorMap& tm_w, const
   }
   const float4 sc = column_scales<EDGE>(scales, col, N);
   // Every consumer warp is past its last wgmma: the ring becomes the
-  // staging tile (BT tokens x 128 columns of bf16).
+  // staging tile (BT tokens x 128 columns of act_t).
   asm volatile("bar.sync 1, %0;\n" ::"n"(T::NWG * 128) : "memory");
-  bf16* stage_out = reinterpret_cast<bf16*>(ring);
+  act_t* stage_out = reinterpret_cast<act_t*>(ring);
 #pragma unroll
   for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
@@ -536,11 +571,9 @@ __device__ __forceinline__ void quant_matmul_body(const CUtensorMap& tm_w, const
 #pragma unroll
         for (int u = 0; u < 4; ++u) v[u] *= xv;
       }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0] * sc.x, v[1] * sc.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2] * sc.z, v[3] * sc.w);
       uint2 pk;
-      pk.x = *reinterpret_cast<const uint32_t*>(&lo);
-      pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+      pk.x = pack_act(v[0] * sc.x, v[1] * sc.y);
+      pk.y = pack_act(v[2] * sc.z, v[3] * sc.w);
       *reinterpret_cast<uint2*>(stage_out + tl * T::OROW + c) = pk;
     }
   asm volatile("bar.sync 1, %0;\n" ::"n"(T::NWG * 128) : "memory");
@@ -564,7 +597,7 @@ template <bool W4, bool A8, int BT>
 __global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
 quant_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
-                    const float* __restrict__ scales, bf16* __restrict__ out,
+                    const float* __restrict__ scales, act_t* __restrict__ out,
                     void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
   quant_matmul_body<W4, A8, BT, false>(tm_w, tm_x, xs, scales, out, ws, M, N, K,
                                        k_tiles_per_split);
@@ -574,7 +607,7 @@ template <bool W4, bool A8, int BT>
 __global__ void __launch_bounds__(WTile<W4, A8, BT>::THREADS, WTile<W4, A8, BT>::PER_SM)
 quant_matmul_edge_kernel(const __grid_constant__ CUtensorMap tm_w,
                          const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ xs,
-                         const float* __restrict__ scales, bf16* __restrict__ out,
+                         const float* __restrict__ scales, act_t* __restrict__ out,
                          void* __restrict__ ws, int M, int N, int K, int k_tiles_per_split) {
   quant_matmul_body<W4, A8, BT, true>(tm_w, tm_x, xs, scales, out, ws, M, N, K,
                                       k_tiles_per_split);
@@ -637,7 +670,7 @@ int launch(const void* x, const void* xs, const void* w, const void* scales, voi
   CUtensorMap tm_w, tm_x;
   const bool x_ok =
       A8 ? encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, M, x_cols, BT, XROW, ldx)
-         : encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, x_cols, BT, XROW / 2,
+         : encode_2d(&tm_x, ACT_TMAP, 2, x, M, x_cols, BT, XROW / 2,
                      2LL * ldx);
   if (!weight_map(&tm_w, w, k_rows, N, ldw) || !x_ok)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -646,7 +679,7 @@ int launch(const void* x, const void* xs, const void* w, const void* scales, voi
   dim3 grid((M + BT - 1) / BT, (N + T::COLS - 1) / T::COLS, splits);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
       tm_w, tm_x, static_cast<const float*>(xs), static_cast<const float*>(scales),
-      static_cast<bf16*>(out), ws, M, N, W4 ? 2 * xhi : K, per);
+      static_cast<act_t*>(out), ws, M, N, W4 ? 2 * xhi : K, per);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return finalize(A8, ws, xs, scales, out, M, N, splits, stream);
@@ -686,10 +719,10 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K6-K9: x (M, K), rows ldx elements apart, bf16 (a8 = 0) or int8 (a8 = 1,
+// K6-K9: x (M, K), rows ldx elements apart, act_t (a8 = 0) or int8 (a8 = 1,
 // with xs (M,) fp32 per-row activation scales; else xs is unused); w (K, N)
 // int8, or (K/2, N) packed int4 (w4 = 1), rows ldw bytes apart; scales (N,)
-// fp32; out (M, N) bf16 contiguous; ws (splits, M, N) fp32 (a8: int32) when
+// fp32; out (M, N) act_t contiguous; ws (splits, M, N) fp32 (a8: int32) when
 // splits > 1. int4: x's high half (its K/2 columns from K/2) starts at
 // column xhi >= K/2, xhi times the element size a multiple of 16 (the
 // columns between hold zeros); xhi is not read otherwise. bt: tokens per CTA
@@ -723,14 +756,14 @@ int fa_quant_matmul(const void* x, const void* xs, const void* w, const void* sc
                                    splits, s);
 }
 
-// The activation quantization of K8/K9: x (M, K) bf16 contiguous -> xq (M,
+// The activation quantization of K8/K9: x (M, K) act_t contiguous -> xq (M,
 // K) int8, xs (M,) fp32. x 16-byte aligned, xq 8-byte aligned, K % 8 == 0.
 // Returns cudaGetLastError().
 int fa_quantize_rows(const void* x, void* xq, void* xs, int M, int K, void* stream) {
   if (K % 8 || M < 1 || !aligned16(x) || reinterpret_cast<uintptr_t>(xq) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   quantize_rows_kernel<<<M, QR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), K);
+      static_cast<const act_t*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -239,9 +239,7 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
             fused: bool, part: str | None = None):
     """Launch K2, or K3's two kernels; ``part`` (K3 only) launches one of
     them: ``KERNEL_DQ`` returns dq, ``KERNEL_DKV`` (dk, dv)."""
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernels take bf16, got {q.dtype} "
-                         "(fp16/fp32: ROADMAP Queue 2, K2/K3)")
+    _build.typed_source(SOURCE, q.dtype, "K2/K3", fp16=False)  # bf16 only
     _check_width(q.shape[3])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):

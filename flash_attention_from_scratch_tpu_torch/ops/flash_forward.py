@@ -8,7 +8,11 @@ launches ``csrc/flash_forward.cu`` (K1: persistent CTAs over a work list of
 :func:`grid_plan`), or ``csrc/flash_forward_fori.cu`` (K11, the K/V copy
 ring of ``num_kv_buffers`` slots; its launch is :func:`fori_plan`; at d 256
 the library ``csrc/flash_forward_fori_d256.cu`` builds) when
-``cfg.kv_loop`` is ``KVLoop.FORI``; both take d 128 and 256. For a CPU
+``cfg.kv_loop`` is ``KVLoop.FORI``; both take d 128 and 256, bf16 and (from
+the fp16 libraries ``csrc/flash_forward_f16.cu``,
+``csrc/flash_forward_fori_f16.cu`` and ``csrc/flash_forward_fori_d256_f16.cu``,
+the same sources built for fp16) fp16, P rounded to the inputs' type as the
+JAX kernel's ``cast_p_to_dtype``; fp32 raises ``ValueError``. For a CPU
 tensor it runs the plain version, :func:`flash_forward_plain`, the same
 function for both. The JAX package's row-band causal dispatch
 (``ops/causal_decomp.py``) has no counterpart: its output is that of a
@@ -40,6 +44,10 @@ KERNEL_FORI = "flash_forward_fori"
 # flash_forward_fori.cu's kernels at d 256 (FORI_HD there).
 SOURCES_FORI = {128: "flash_forward_fori.cu", 256: "flash_forward_fori_d256.cu"}
 SOURCE_FORI = SOURCES_FORI[128]
+# The fp16 libraries: each bf16 source's kernels built for fp16 (FA_F16).
+SOURCE_F16 = _build.typed_source(SOURCE, torch.float16, KERNEL)
+SOURCES_FORI_F16 = {d: _build.typed_source(s, torch.float16, KERNEL_FORI)
+                    for d, s in SOURCES_FORI.items()}
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
 D_HEAD = 128      # the narrowest head width; the plain versions take its multiples
 D_HEADS = (128, 256)  # the head widths every attention kernel takes (its HD template argument)
@@ -250,16 +258,16 @@ _ARGTYPES = [_PTR] * 6 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32]
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCE, dtype, KERNEL))
     lib.fa_flash_forward_ctas.restype = _I32
     lib.fa_flash_forward_ctas.argtypes = _ARGTYPES + [_I32, _I32, _PTR]
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _fori_lib(d_head: int) -> ctypes.CDLL:
-    lib = _build.load(SOURCES_FORI[d_head])
+def _fori_lib(d_head: int, dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCES_FORI[d_head], dtype, KERNEL_FORI))
     lib.fa_flash_forward_fori.restype = _I32
     lib.fa_flash_forward_fori.argtypes = _ARGTYPES + [_I32, _I32, _PTR]
     return lib
@@ -277,11 +285,9 @@ def _kernel_layout(t) -> bool:
 
 
 def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None = None):
-    """Launch K1 or K11. ``ctas`` (K1 only): 0 launches one CTA per work
-    item (a plain grid) in place of :func:`grid_plan`'s persistent CTAs."""
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16, got {q.dtype} "
-                         "(fp16/fp32: ROADMAP Queue 2, K1)")
+    """Launch K1 or K11 from the library of q's type (bf16 or fp16). ``ctas``
+    (K1 only): 0 launches one CTA per work item (a plain grid) in place of
+    :func:`grid_plan`'s persistent CTAs."""
     d_head = q.shape[3]
     fori = cfg.kv_loop == KVLoop.FORI
     if d_head not in D_HEADS:
@@ -307,13 +313,13 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if fori:
         check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv, d_head))
-        lib, name = _fori_lib(d_head), KERNEL_FORI
+        lib, name = _fori_lib(d_head, q.dtype), KERNEL_FORI
         rc = lib.fa_flash_forward_fori(*args, d_head, cfg.num_kv_buffers, stream)
     else:
         if ctas is None:
             ctas = grid_plan(b, h, sq, skv, cfg.causal, cfg.window, cfg.q_offset,
                              sm_count(q.device), d_head).ctas
-        lib, name = _lib(), KERNEL
+        lib, name = _lib(q.dtype), KERNEL
         rc = lib.fa_flash_forward_ctas(*args, d_head, ctas, stream)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1

@@ -184,9 +184,8 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
             int8_compute: bool):
     q_quant = isinstance(q, QTensor)
     q_vals = q.values if q_quant else q
-    if not q_quant and q_vals.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes a bf16 or quantized Q, got "
-                         f"{q_vals.dtype} (ROADMAP Queue 2, K10)")
+    if not q_quant:  # a 16-bit Q: bf16 only
+        _build.typed_source(SOURCE, q_vals.dtype, "K10", fp16=False)
     d_head = q_vals.shape[3]
     if d_head not in D_HEADS:
         raise ValueError(f"the CUDA kernel's tiles are {' or '.join(map(str, D_HEADS))} "

@@ -12,6 +12,10 @@ a CPU tensor the wrapper runs the plain version,
 :func:`paged_decode_attention_plain` (or, with ``splits`` given, the plain
 split-and-merge version, :func:`paged_decode_attention_split_plain`).
 
+Queries bf16 or fp16 on the card: fp16 runs the same kernels built for fp16
+(``csrc/paged_attention_f16.cu``), the pages converted to fp16 and P rounded
+to it, as the JAX kernels compute in q's dtype; fp32 raises ``ValueError``.
+
 Page formats: dense (the query's dtype), int8, fp8 (``torch.float8_e4m3fn``)
 and int4 packed along the tokens of a page (``(kv_heads, num_pages,
 page_size // 2, d)`` int8: byte (t, c) holds token t in the low nibble and
@@ -64,6 +68,7 @@ KERNEL_INT8C = "paged_decode_attention_int8c"
 KERNEL_MULTI_INT8C = "paged_decode_attention_multi_int8c"
 KERNEL_MERGE = "paged_decode_merge"
 SOURCE = "paged_attention.cu"
+SOURCE_F16 = _build.typed_source(SOURCE, torch.float16, "K4/K5")  # the fp16 library
 D_HEAD = 128               # the narrowest head width (the ring budgets' own)
 D_HEADS = (128, 256)       # the head widths the kernels take
 LOG2E = math.log2(math.e)
@@ -255,8 +260,8 @@ def kernel_name(q_tokens: int, int8_compute: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCE, dtype, "K4/K5"))
     lib.fa_paged_decode_split.restype = _I32
     lib.fa_paged_decode_split.argtypes = ([_PTR] * 8 + [_I32] * 8 + [_F32, _F32]
                                           + [_I32] * 4 + [_PTR] * 3)
@@ -485,12 +490,10 @@ def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, page_tables
 def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
             mode, k_scales, v_scales, int8_compute, splits):
     mode_id, page_dtype = MODES[mode]
-    page_dtype = page_dtype or torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_pages.dtype != page_dtype \
-            or v_pages.dtype != page_dtype:
-        raise ValueError(f"the CUDA kernel takes bf16 q and {page_dtype} pages for "
-                         f"mode {mode!r}, got {q.dtype}/{k_pages.dtype}/"
-                         f"{v_pages.dtype} (other types: ROADMAP Queue 2, K4/K5)")
+    page_dtype = page_dtype or q.dtype
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
+        raise ValueError(f"the CUDA kernel takes {page_dtype} pages for mode {mode!r} "
+                         f"and {q.dtype} q, got {k_pages.dtype}/{v_pages.dtype}")
     d_head = q.shape[-1]
     if d_head not in D_HEADS:
         raise ValueError(f"the CUDA kernel's tiles are {' or '.join(map(str, D_HEADS))} "
@@ -520,7 +523,7 @@ def _launch(q, k_pages, v_pages, lengths, page_tables, scale, window, softcap,
         n_o, n_ml = pl.workspace_floats(batch, kv_heads, rows)
         ws = torch.empty(n_o + n_ml, dtype=torch.float32, device=q.device)
         ws_o, ws_ml = ws.data_ptr(), ws.data_ptr() + 4 * n_o
-    lib = _lib()
+    lib = _lib(q.dtype)  # q's type (bf16, fp16) or ValueError
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.fa_paged_decode_split(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -17,8 +17,10 @@ The weight-only kernels accumulate ``x @ W`` in fp32 and scale each column
 at the end; the a8 recipe quantizes activations per row
 (:func:`quantize_activations`, plain jnp in the JAX package) and sums int8
 products exactly in int32. On the card all four are one wgmma kernel with
-the weight built in registers (dequantized to bf16 for K6/K7, byte-
-transposed int8 for K8/K9), launched as :func:`plan` says; a K8/K9 call
+the weight built in registers (dequantized to x's type for K6/K7, byte-
+transposed int8 for K8/K9), launched as :func:`plan` says; x and the
+output are bf16, or fp16 from the same kernels built for fp16
+(``csrc/quant_matmul_f16.cu``; fp32 raises ``ValueError``); a K8/K9 call
 first quantizes x with one kernel of its own (:func:`quantize_rows`). For a
 CPU tensor the wrapper runs :func:`quant_matmul_plain`; for a CUDA tensor it
 launches the kernels or raises (there is no plain fallback on the card).
@@ -52,6 +54,7 @@ __all__ = ["QuantizedWeight", "quantize_weight", "concat_weights",
 
 _QMAX = {"int8": 127.0, "int4": 7.0}
 SOURCE = "quant_matmul.cu"
+SOURCE_F16 = _build.typed_source(SOURCE, torch.float16, "K6-K9")  # the fp16 library
 # Kernel name per (weight mode, activation-quantized): the launch counters.
 KERNELS = {("int8", False): "quant_matmul_int8",       # K6
            ("int4", False): "quant_matmul_int4",       # K7
@@ -186,8 +189,8 @@ def quant_matmul_plain(x2, wq: QuantizedWeight, act_quant: bool = False,
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCE, dtype, "K6-K9"))
     lib.fa_quant_matmul.restype = _I32
     lib.fa_quant_matmul.argtypes = [_PTR] * 6 + [_I32] * 10 + [_PTR]
     lib.fa_quantize_rows.restype = _I32
@@ -257,15 +260,14 @@ def _aligned(t):
 
 
 def quantize_rows(x2):
-    """:func:`quantize_activations` of a 2-D bf16 ``x2`` (m, K), any K: on a
-    CUDA tensor one launch of the kernel (the first of a K8/K9 call, whose
-    launch count covers it), the same bytes and scales bit for bit; on a CPU
-    tensor the plain version."""
+    """:func:`quantize_activations` of a 2-D bf16 or fp16 ``x2`` (m, K), any
+    K: on a CUDA tensor one launch of the kernel of x2's type (the first of
+    a K8/K9 call, whose launch count covers it), the same bytes and scales
+    bit for bit; on a CPU tensor the plain version."""
     if x2.device.type == "cpu":
         return quantize_activations(x2)
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"quantize_rows takes bf16 rows, got {x2.dtype}")
-    x_q, xs = _quantize_rows(x2, _lib(), torch.cuda.current_stream(x2.device).cuda_stream)
+    lib = _lib(x2.dtype)  # raises for fp32
+    x_q, xs = _quantize_rows(x2, lib, torch.cuda.current_stream(x2.device).cuda_stream)
     return x_q[:, :x2.shape[1]], xs
 
 
@@ -311,8 +313,7 @@ def _tma_x(x2, w4: bool, quantum: int):
 def _launch(x2, wq: QuantizedWeight, act_quant: bool):
     m, k = x2.shape
     n = wq.values.shape[1]
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernels take bf16 activations, got {x2.dtype}")
+    lib = _lib(x2.dtype)  # x2's type (bf16, fp16) or ValueError
     values = wq.values
     if values.dtype != torch.int8 or not values.is_cuda or not wq.scales.is_cuda:
         raise ValueError("quantized values must be int8 tensors on the card")
@@ -324,7 +325,6 @@ def _launch(x2, wq: QuantizedWeight, act_quant: bool):
     scales = _aligned(wq.scales.float())
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     p = plan(m, n, k, w4, sm_count(x2.device), act_quant)
-    lib = _lib()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     if act_quant:  # int8 x: rows and the high half on 16 values, quantized in that layout
         x_l, ldx, xhi = _tma_x(x2.contiguous(), w4, ROW_BYTES)

@@ -50,6 +50,7 @@ import time
 import torch
 
 from ..dispatch import median_runtime
+from ..ops import _build
 from ..ops.causal_decomp import band_count, band_slices
 from ..ops.configs import (
     DType, KernelConfig, KVLoop, calc_causal_attn_flop, calc_self_attn_flop,
@@ -218,15 +219,15 @@ def _host_seconds(fn, *, warmup: int = 2, iters: int = 5) -> float:
 
 
 def bench_inputs(seq: int, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
-                 device="cuda", d_head: int = 128):
-    """The bf16 Q (b, heads, seq, d_head) and K, V (b, kv_heads, seq,
-    d_head) that :func:`bench` times at ``seq``, as the JAX tool makes them:
+                 device="cuda", d_head: int = 128, dtype=torch.bfloat16):
+    """The Q (b, heads, seq, d_head) and K, V (b, kv_heads, seq, d_head) in
+    ``dtype`` that :func:`bench` times at ``seq``, as the JAX tool makes them:
     Q from one ``generate_qkv`` call, K and V from another at the KV heads
     (batch from ``BATCH_SIZE_FOR_SEQ_LEN``, 4 for other lengths; drawn on
     ``device``)."""
     batch = BATCH_SIZE_FOR_SEQ_LEN.get(seq, 4)
-    q, _, _ = generate_qkv(seq, d_head, heads, batch, device=device)
-    _, k, v = generate_qkv(seq, d_head, kv_heads or heads, batch, device=device)
+    q, _, _ = generate_qkv(seq, d_head, heads, batch, dtype=dtype, device=device)
+    _, k, v = generate_qkv(seq, d_head, kv_heads or heads, batch, dtype=dtype, device=device)
     return q, k, v
 
 
@@ -238,11 +239,14 @@ def bench(seq_lens, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
     """Returns {config short form: {seq: {"ms", "tflops", "gbps",
     "kernel"}}} over :func:`resolve_configs`'s configs (and, with
     ``baseline``, ``"sdpa"``), each launch timed once a seq. On the card
-    only: raises without one, and for a dtype other than bf16."""
+    only: raises without one, for fp32 (every kernel) and for fp16 with
+    ``grad`` (K2/K3 take bf16 only)."""
     dev = resolve_device("cuda")
-    if DType.from_short(dtype) != DType.BF16:
-        raise ValueError(f"--dtype {dtype}: the card's attention kernels take bf16 "
-                         "(fp16 and fp32 on the card: ROADMAP Queue 2, coverage item 4)")
+    dt = DType.from_short(dtype)
+    if dt == DType.FP32 or (grad and dt != DType.BF16):
+        _build.typed_source("flash_backward.cu" if grad else "flash_forward.cu",
+                            dt.torch_dtype, "--grad's K2/K3" if grad else "K1/K11",
+                            fp16=not grad)
     configs = resolve_configs(kernels, dtype, causal, window, fori, num_kv_buffers)
     kvh = kv_heads or heads
     sms = sm_count(dev)
@@ -261,7 +265,8 @@ def bench(seq_lens, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
         for key, group in groups.items():
             cfg = group[0]
             if cfg.d_head not in inputs:
-                inputs[cfg.d_head] = bench_inputs(seq, heads, kvh, dev, cfg.d_head)
+                inputs[cfg.d_head] = bench_inputs(seq, heads, kvh, dev, cfg.d_head,
+                                                  dt.torch_dtype)
             q, k, v = inputs[cfg.d_head]
             batch = q.shape[0]
             if grad:
@@ -311,7 +316,8 @@ def main(argv=None):
     ap.add_argument("--kv-heads", type=int, default=None,
                     help="GQA KV heads (default = --heads)")
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--dtype", default="bf16", help="bf16 (the card's kernels take no other)")
+    ap.add_argument("--dtype", default="bf16",
+                    help="bf16 or f16 (f16 with --grad, and f32, are refused on the card)")
     ap.add_argument("--causal", action="store_true",
                     help="causal masks, causal FLOP accounting")
     ap.add_argument("--window", type=int, default=0,

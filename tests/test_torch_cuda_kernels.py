@@ -69,7 +69,7 @@ from flash_attention_from_scratch_tpu_torch.ops.quant import (
 from flash_attention_from_scratch_tpu_torch.ops.reference import reference_attention
 from flash_attention_from_scratch_tpu_torch.ops.quant_matmul import (
     KERNELS as QMM, SOURCE as QMM_SOURCE, QuantizedWeight, quant_matmul, quant_matmul_plain,
-    quantize_activations, quantize_rows,
+    quantize_activations, quantize_rows, quantize_weight,
 )
 from flash_attention_from_scratch_tpu_torch.tools import bench_quant
 from flash_attention_from_scratch_tpu_torch.tools.mosaic_dump import (
@@ -186,7 +186,7 @@ def test_fori_kernel_d256_matches_plain(cuda, sq, kw, nbuf):
 
 
 def check_flash_kernel(cuda, sq, cfg, kernel, seq_kv=256, strided=False):
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+    q, k, v = (torch.from_numpy(x).to(cuda, cfg.dtype.torch_dtype) for x in
                make_qkv(2, 8, sq, cfg.d_head, kv_heads=2, seq_kv=seq_kv, seed=1))
     if strided:  # (b, h, s, d) views of contiguous (b, s, h, d) rows
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
@@ -1013,9 +1013,11 @@ def test_paged_gather_walk_is_deterministic(cuda, mode):
 
 
 def test_kernels_refuse_other_dtypes(cuda):
-    q = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.float16)
+    """fp32 has no kernel (K1, K4/K5): ValueError, no plain fallback on the
+    card. fp16 runs (the fp16 tests below)."""
+    q = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError):
-        flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.FP16))
+        flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.FP32))
     pages = torch.zeros((1, 2, 16, 128), device=cuda)
     with pytest.raises(ValueError):
         paged_decode_attention(torch.zeros((1, 2, 128), device=cuda), pages,
@@ -2148,3 +2150,188 @@ def test_tp_lora_decode_on_the_card_over_gloo(cuda):
         assert r["launches"][FLASH] == 2 and r["launches"][PAGED] == 1, r["launches"]
     err = float((got[0]["logits"] - got[0]["plain"]).abs().max())
     assert err < 6e-2, err
+
+
+# ---------------------------------------------------------------------------
+# fp16: K1, K11, K4/K5 and K6-K9 from their fp16 libraries (the bf16
+# sources built with FA_F16), by the rules above with fp16's eps; the types
+# still refused.
+
+FP16_LIBRARIES = {FLASH_SOURCE: "flash_forward_f16.cu", SOURCE_FORI: "flash_forward_fori_f16.cu",
+                  SOURCES_FORI[256]: "flash_forward_fori_d256_f16.cu",
+                  PAGED_SOURCE: "paged_attention_f16.cu", QMM_SOURCE: "quant_matmul_f16.cu"}
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("sq,kw", FLASH_CASES + RAGGED_CASES)
+def test_flash_kernel_fp16_matches_plain(cuda, sq, kw, d_head):
+    """K1 in fp16 at d 128 and 256 (with sinks, the LSE; GQA)."""
+    kw = dict(kw)
+    skv = kw.pop("seq_kv", 256)
+    check_flash_kernel(cuda, sq, KernelConfig(d_head=d_head, dtype=DType.FP16, **kw), FLASH,
+                       seq_kv=skv)
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+@pytest.mark.parametrize("sq,kw", [(256, dict(causal=True)), (192, dict(
+    causal=True, q_offset=128, window=70, seq_kv=320)), (256, dict(attn_softcap=30.0))])
+def test_fori_kernel_fp16_matches_plain(cuda, sq, kw, nbuf, d_head):
+    """K11 in fp16 at every ring depth, d 128 and 256."""
+    kw = dict(kw)
+    skv = kw.pop("seq_kv", 256)
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP16, kv_loop=KVLoop.FORI,
+                       num_kv_buffers=nbuf, **kw)
+    check_flash_kernel(cuda, sq, cfg, FORI, seq_kv=skv)
+
+
+def _fp16_pool(cuda, ps, d, kv_heads, lengths, seed):
+    """A NaN-poisoned fp16 pool of ``ps``-token pages under shuffled ids."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n // ps) for n in lengths]
+    num_pages = sum(need) + 2
+    k = torch.full((kv_heads, num_pages, ps, d), float("nan"), device=cuda)
+    v = torch.full_like(k, float("nan"))
+    perm = rng.permutation(num_pages)
+    tables = torch.full((len(lengths), max(need)), -1, dtype=torch.int32, device=cuda)
+    nxt = 0
+    for b, n in enumerate(lengths):
+        for i in range(need[b]):
+            page, rows = int(perm[nxt]), min(ps, n - i * ps)
+            nxt += 1
+            tables[b, i] = page
+            k[:, page, :rows] = torch.randn(kv_heads, rows, d, device=cuda)
+            v[:, page, :rows] = torch.randn(kv_heads, rows, d, device=cuda)
+    return k.half(), v.half(), tables
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("ps", [64, 1, 12])
+@pytest.mark.parametrize("store", ["dense", "int8", "fp8", "int4", "int8c"])
+def test_paged_kernel_fp16_matches_plain(cuda, store, ps, t, d_head):
+    """K4/K5 with fp16 q on every store, on the chunk walk (page 64) and the
+    gather walk (pages 1 and 12; int4 2 and 12), with a window and a
+    softcap: the rule in each (sequence, token) against the plain version
+    with fp16 q (int8 compute: the plain int8-compute version), and the
+    fp32 plain version without int8 compute; fp16 out, one launch."""
+    if store == "int4" and ps == 1:
+        ps = 2
+    i8c, mode = store == "int8c", "int8" if store == "int8c" else store
+    lengths = [0, 1, 4, 37, 300]
+    k, v, tables = _fp16_pool(cuda, ps, d_head, 2, lengths, seed=ps + t)
+    kw = {}
+    if mode != "dense":
+        qk, ks = quantize_kv_pages(torch.nan_to_num(k), mode)
+        qv, vs = quantize_kv_pages(torch.nan_to_num(v), mode)
+        k, v, kw = qk, qv, dict(mode=mode, k_scales=ks, v_scales=vs)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lengths), 8) + ((t,) if t > 1 else ()) + (d_head,),
+                    device=cuda).half()
+    for extra in ({}, dict(window=100, softcap=20.0)):
+        args = dict(kw, scale=d_head ** -0.5, **extra)
+        name = kernel_name(t, i8c)
+        before = _build.launch_counts[name]
+        out = paged_decode_attention(q, k, v, lens, tables, int8_compute=i8c, **args)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1 and out.dtype == torch.float16
+        ref16 = paged_decode_attention_plain(q, k, v, lens, tables, int8_compute=i8c, **args)
+        pages32 = (k.float(), v.float()) if mode == "dense" else (k, v)
+        ref32 = paged_decode_attention_plain(q.float(), *pages32, lens, tables, **args)
+        by_token = (lambda x: x.transpose(1, 2)) if t > 1 else (lambda x: x[:, None])
+        assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
+        ok, ratio, where = sliced_tolerance_check(by_token(out), by_token(ref16),
+                                                  by_token(ref32), lead=2)
+        assert ok, (extra, ratio, where)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 4096, 4096), (1024, 4096, 1024), (3, 4004, 4100),
+                                   (5, 512, 32002)])
+@pytest.mark.parametrize("mode,act_quant", [("int8", False), ("int4", False),
+                                            ("int8", True), ("int4", True)])
+def test_quant_matmul_fp16_matches_plain(cuda, mode, act_quant, m, k, n):
+    """K6-K9 with fp16 x (aligned and ragged shapes): K6/K7 by the rule in
+    each 16-row band against the plain version in fp16 and in fp32; K8/K9
+    and their activation quantization equal to the plain versions bit for
+    bit; fp16 out, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    w = torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5
+    wq = quantize_weight(w.half(), mode, "int8" if act_quant else "bf16")
+    x = torch.randn(m, k, generator=gen, device=cuda).half()
+    name = QMM[(mode, act_quant)]
+    before = _build.launch_counts[name]
+    got = quant_matmul(x, wq, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert got.dtype == torch.float16 and got.shape == (m, n)
+    plain = quant_matmul_plain(x, wq, act_quant)
+    if act_quant:
+        got_q, got_s = quantize_rows(x)
+        want_q, want_s = quantize_activations(x)
+        assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+        assert torch.equal(got, plain)
+        return
+    ref32 = quant_matmul_plain(x, wq, act_quant, out_dtype=torch.float32)
+    pad = -m % 16
+
+    def bands(t):
+        return row_bands(torch.nn.functional.pad(t.float(), (0, 0, 0, pad))[None], 16)
+
+    ok, ratio, where = sliced_tolerance_check(bands(got), bands(plain).half(), bands(ref32),
+                                              lead=2)
+    assert ok, (ratio, where)
+
+
+@pytest.mark.parametrize("bf16_source", sorted(FP16_LIBRARIES))
+def test_fp16_libraries_multiply_fp16(cuda, bf16_source):
+    """Each fp16 library's 16-bit tensor-core products are fp16 (no HGMMA or
+    HMMA of its kernels names BF16), and its bf16 library's are bf16."""
+    def products(source):
+        return [line for text in sass_by_function(source).values()
+                for line in text.splitlines() if "HGMMA" in line or "HMMA" in line]
+
+    f16, bf16 = products(FP16_LIBRARIES[bf16_source]), products(bf16_source)
+    assert f16 and not any(".BF16" in line for line in f16), f16[:4]
+    assert any(".BF16" in line for line in bf16), bf16[:4]
+
+
+def _refused_backward(cuda, dtype):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
+    lse = torch.zeros(1, 2, 128, device=cuda)
+    flash_backward(q, q, q, q, lse, q, KernelConfig(dtype=DType.from_torch(dtype)))
+
+
+def _refused_quant(cuda, dtype):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
+    kq = quantize_kv(q.float(), "int8")
+    flash_forward_quantized(q, kq, kq, KernelConfig(dtype=DType.from_torch(dtype)))
+
+
+def _refused_forward(cuda, dtype):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
+    flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.from_torch(dtype)))
+
+
+def _refused_paged(cuda, dtype):
+    q = torch.zeros(1, 2, 128, device=cuda, dtype=dtype)
+    pages = torch.zeros(2, 2, 64, 128, device=cuda, dtype=dtype)
+    paged_decode_attention(q, pages, pages, torch.ones(1, dtype=torch.int32, device=cuda),
+                           torch.zeros(1, 1, dtype=torch.int32, device=cuda))
+
+
+def _refused_qmm(cuda, dtype):
+    wq = quantize_weight(torch.randn(256, 256, device=cuda), "int8")
+    quant_matmul(torch.zeros(16, 256, device=cuda, dtype=dtype), wq)
+
+
+@pytest.mark.parametrize("call,dtype,item", [
+    (_refused_forward, torch.float32, "4c"), (_refused_paged, torch.float32, "4c"),
+    (_refused_qmm, torch.float32, "4c"), (_refused_backward, torch.float32, "4c"),
+    (_refused_quant, torch.float32, "4c"), (_refused_backward, torch.float16, "4b"),
+    (_refused_quant, torch.float16, "4b")],
+    ids=["K1-fp32", "K4K5-fp32", "K6-fp32", "K2K3-fp32", "K10-fp32", "K2K3-fp16", "K10-fp16"])
+def test_types_without_a_kernel_raise(cuda, call, dtype, item):
+    """fp32 on every kernel, and fp16 on K2/K3 and K10, raise ValueError on
+    a CUDA tensor, naming the ROADMAP item that will bring them."""
+    with pytest.raises(ValueError, match=f"ROADMAP Queue 1, item {item}"):
+        call(cuda, dtype)
