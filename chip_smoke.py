@@ -199,10 +199,23 @@ memory; after the quantized runs, OpenHermes-2.5-Mistral-7B's widths
 weights at 32 layers with dense pages of 1 token, R2 W4A8 at 4 layers with
 int8 pages of 96 and decode loops), each held as the quantized runs are;
 timed in the ``kernels`` line (``time_lm_head_32002``,
-``time_paged_page_sizes``). Prints
+``time_paged_page_sizes``). (14) fp16, every kernel from its fp16 library
+(``csrc/*_f16.cu``): after the kernel cases each fp16 kernel against its
+plain version in fp16 (``phase_fp16_cases``: K1, K11, K4/K5, K6-K9;
+``phase_fp16_backward_cases``: K2 and K3 at d 128 and 256 on every mask,
+non-square past keys, the training shape and ``bands=2``;
+``phase_fp16_quant_cases``: K10 in every variant at d 128 and 256, and a
+quantized Q of fp32 ``orig_dtype`` refused); Llama-3-8B served in fp16
+(``serve_fp16``, ``serve_fp16_quant``), Gemma-2-9B served in fp16; after
+``train``, ``train_fp16`` (the same run with the model in fp16, SGD) and,
+after ``train_gemma2_9b``, ``train_gemma2_9b_fp16``; ``bench_attention
+--dtype f16`` with and without ``--grad``; the ``*_f16`` entries of the
+``kernels`` line with the bf16 entries' ms beside theirs. Prints
 ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
-``serve_gemma2_9b``, ``train``, ``train_gemma2_9b``,
+``serve_gemma2_9b``, ``train``, ``train_fp16``, ``train_gemma2_9b``,
+``train_gemma2_9b_fp16``, ``fp16_cases``, ``fp16_backward_cases``,
+``fp16_quant_cases``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
@@ -333,7 +346,9 @@ def phase_build() -> dict:
                          # the fp16 libraries
                          "flash_forward_f16.cu", "flash_forward_fori_f16.cu",
                          "flash_forward_fori_d256_f16.cu", "paged_attention_f16.cu",
-                         "quant_matmul_f16.cu"])
+                         "quant_matmul_f16.cu", "flash_backward_f16.cu",
+                         "flash_backward_d256_f16.cu", "flash_quant_f16.cu",
+                         "flash_quant_d256_f16.cu"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -363,10 +378,24 @@ def _cuda_qkv(sq, skv, seed, batch=1, strided=False, heads=HEADS, kv_heads=KV_HE
             for x in (q, k, v)]
 
 
-def _cuda_normal(shape, seed, strided=False):
+def _cuda_normal(shape, seed, strided=False, dtype=torch.bfloat16):
     return _as_model_rows(torch.from_numpy(np.random.default_rng(
-        seed).standard_normal(shape).astype(np.float32)).to(
-            "cuda", torch.bfloat16), strided)
+        seed).standard_normal(shape).astype(np.float32)).to("cuda", dtype), strided)
+
+
+def _timing_normal(shape, seed, dtype=torch.bfloat16):
+    """Standard-normal values drawn on the card from ``seed``: the timing
+    functions' inputs (numpy's draw of a b 4, 32-head, s 4,096 Q, K and V
+    takes about 2 s on the host; the card's, milliseconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _timing_qkv(sq, skv, seed, batch=1, heads=HEADS, kv_heads=KV_HEADS, d=D,
+                dtype=torch.bfloat16):
+    """``_cuda_qkv``'s shapes, drawn on the card (``_timing_normal``)."""
+    return [_timing_normal((batch, h, s, d), seed + i, dtype)
+            for i, (h, s) in enumerate(((heads, sq), (kv_heads, skv), (kv_heads, skv)))]
 
 
 # The training run's attention: causal, b 2, 32/8 heads, s 2048, with q,
@@ -604,15 +633,17 @@ def _check_grads(what, got, ref16, ref32):
 
 
 def _hold_backward_cases(cases, label: str = "", heads: int = HEADS,
-                         kv_heads: int = KV_HEADS, d: int = D) -> dict:
+                         kv_heads: int = KV_HEADS, d: int = D,
+                         dtype=torch.bfloat16) -> dict:
     """K2 and K3 vs their plain version on ``cases`` (``BACKWARD_CASES``'
-    form, at ``heads``/``kv_heads`` heads of width ``d``), on K1's O and
+    form, at ``heads``/``kv_heads`` heads of width ``d``, in ``dtype``:
+    the kernels of that type's library, gradients in it), on K1's O and
     LSE, each called twice: the sliced rule on each gradient
     (``_check_grads``), dK and dV bit for bit equal on the rerun in both
     modes and dQ too in K3's, each kernel launched once a call. Returns
     {mode: (max |kernel - plain|, worst err/bound)}."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
-    from flash_attention_from_scratch_tpu_torch.ops.configs import KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
     from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
         KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED, flash_backward, flash_backward_plain)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
@@ -621,11 +652,11 @@ def _hold_backward_cases(cases, label: str = "", heads: int = HEADS,
     names = {"fused": (KERNEL_FUSED,), "split": (KERNEL_DKV, KERNEL_DQ)}
     worst = {"fused": (0.0, 0.0), "split": (0.0, 0.0)}
     for i, (name, sq, skv, kw, extra) in enumerate(cases):
-        layout = dict(strided=extra.get("strided", False))
+        layout = dict(strided=extra.get("strided", False), dtype=dtype)
         q, k, v = _cuda_qkv(sq, skv, seed=200 + i, batch=extra.get("batch", 1),
                             heads=heads, kv_heads=kv_heads, d=d, **layout)
         do = _cuda_normal(q.shape, seed=300 + i, **layout)
-        cfg = KernelConfig(d_head=d, **kw)
+        cfg = KernelConfig(d_head=d, dtype=DType.from_torch(dtype), **kw)
         o, lse = flash_forward_with_lse(q, k, v, cfg)
         ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
         ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(),
@@ -642,8 +673,9 @@ def _hold_backward_cases(cases, label: str = "", heads: int = HEADS,
             same = [torch.equal(a, b) for a, b in zip(got, again)]
             if not all(same[1:]) or (mode == "split" and not same[0]):
                 raise AssertionError(f"{what}: a rerun differs (dq, dk, dv equal: {same})")
-            if set(launched.values()) != {2}:
-                raise AssertionError(f"{what}: two calls launched {launched}")
+            if set(launched.values()) != {2} or {g.dtype for g in got} != {dtype}:
+                raise AssertionError(f"{what}: two calls launched {launched}, gradients in "
+                                     f"{[g.dtype for g in got]}")
             worst[mode] = tuple(map(max, worst[mode], (err, ratio)))
             print(f"{what}: max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f}, "
                   f"rerun dq equal {same[0]} ok", flush=True)
@@ -2826,7 +2858,7 @@ KERNEL_CLASSES = (
     ("flash forward (K1)", ("flash_forward_kernel",)),
     ("flash backward (K2/K3)", ("flash_backward_",)),
     ("paged decode (K4/K5)", ("paged_decode_kernel", "paged_decode_merge_kernel")),
-    ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
+    ("optimizer (foreach: AdamW, SGD)", ("multi_tensor_apply",)),
 )
 
 
@@ -2922,14 +2954,16 @@ def _check_model_backward(seen, what: str = "train", layers=None,
 
 def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = False,
                      layers=None, by_heads: bool = False, lr: float = 3e-4,
-                     ) -> tuple[dict, dict]:
-    """Train ``params`` on one batch of ``tokens``: ``steps`` AdamW steps
-    (learning rate ``lr``) with the default backward (``fused_choice``:
-    K3), launch counts (K1 and the backward's kernels once a layer a step;
-    K1 twice with ``remat``) and a falling loss checked; one more step profiled; then one step on
-    the other backward (K2: autograd's ``flash_backward`` called with
-    ``fused=True``), with its counts and the loss after it checked and
-    K2/K3 held against the plain backward on its recorded attention inputs
+                     optimizer=None) -> tuple[dict, dict]:
+    """Train ``params`` on one batch of ``tokens``: ``steps`` optimizer
+    steps (``optimizer(params)``, by default ``make_optimizer(params,
+    lr=lr)``: AdamW) with the default backward (``fused_choice``: K3),
+    launch counts (K1 and the backward's kernels once a layer a step; K1
+    twice with ``remat``), a falling loss and finite gradients checked; one
+    more step profiled; then one step on the other backward (K2: autograd's
+    ``flash_backward`` called with ``fused=True``), with its counts, its
+    gradients and the loss after it checked and K2/K3 held against the
+    plain backward on its recorded attention inputs
     (``_check_model_backward`` on ``layers``). Returns (the line's fields,
     {backward: launch counts})."""
     from flash_attention_from_scratch_tpu_torch import loss_fn, make_optimizer, make_train_step
@@ -2947,18 +2981,27 @@ def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = 
                 **{k: n * cfg.n_layers if k in kernels[fused] else 0
                    for k in (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}}
 
-    opt = make_optimizer(params, lr=lr)
+    def nonfinite_grads(what):
+        bad = sum(int(p.grad is not None and not bool(torch.isfinite(p.grad).all()))
+                  for p in param_leaves(params))
+        if bad:
+            raise AssertionError(f"{label}: {bad} gradients with non-finite values ({what})")
+
+    opt = (optimizer or (lambda p: make_optimizer(p, lr=lr)))(params)
+    opt_name = type(opt).__name__
     step = make_train_step(cfg, opt, remat=remat)
     batch, seq = tokens.shape[0], tokens.shape[1] - 1
     n_params = sum(p.numel() for p in param_leaves(params))
     torch.cuda.reset_peak_memory_stats()
     _build.launch_counts.clear()  # counts start at 0 just before the main path
     losses, step_s = [], []
-    for _ in range(steps):
+    for i in range(steps):
         t = time.perf_counter()
         losses.append(float(step(params, tokens)))
         sync()
         step_s.append(time.perf_counter() - t)
+        with torch.no_grad():
+            nonfinite_grads(f"step {i}")
     counts = dict(_build.launch_counts)  # read just after the main path
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = expected(default, steps)
@@ -2992,6 +3035,7 @@ def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = 
     other_s = time.perf_counter() - t
     other_counts = dict(_build.launch_counts)
     with torch.no_grad():
+        nonfinite_grads("the other backward's step")
         after_loss = float(loss_fn(params, tokens, cfg))
     other = "fused" if not default else "split"
     want = expected(not default, 1)
@@ -3014,7 +3058,8 @@ def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = 
     flops = train_flops(cfg, batch, seq)
     fields = {
         "layers": cfg.n_layers, "params": n_params, "batch": batch, "seq": seq,
-        "steps": steps, "lr": lr, "remat": remat, "backward": "fused" if default else "split",
+        "steps": steps, "optimizer": opt_name, "lr": lr, "remat": remat,
+        "dtype": _dname(cfg.dtype.torch_dtype), "backward": "fused" if default else "split",
         "losses": losses, "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
         "train_tok_s": batch * seq / (step_ms / 1e3),
         "model_tflop_s": flops / (step_ms / 1e3) / 1e12,
@@ -3026,26 +3071,65 @@ def _train_and_check(label: str, cfg, params, tokens, steps: int, remat: bool = 
     return fields, {"fused" if default else "split": counts, other: other_counts}
 
 
-def phase_train(smi: str) -> dict:
-    """Train LLAMA3_8B at full width, 8 layers, batch 2 x 2048
-    (``_train_and_check``: 3 AdamW steps on K3, one profiled, one on K2,
-    K2/K3 held to the plain backward on every layer's recorded inputs).
-    Returns the launch counts of both runs, by backward, and under "rate"
-    the run's train tokens/s, model TFLOP/s and ms a step."""
-    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params
+def _sgd(lr: float):
+    """An optimizer factory for ``_train_and_check``: plain SGD (no momentum,
+    no second moment: the counterpart of ``optax.sgd``) over every leaf,
+    marked as requiring grad; fp16 trains with it (``make_optimizer``'s
+    AdamW raises on fp16 leaves: its eps and second moment underflow)."""
+    def make(params):
+        from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
 
-    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
+        leaves = list(param_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        return torch.optim.SGD(leaves, lr=lr)
+
+    return make
+
+
+# fp16 training (train_fp16, train_gemma2_9b_fp16): SGD, the trainer's
+# optimizer for fp16 (see _sgd), at these learning rates. No loss scaling,
+# as in the JAX package's step: a gradient below fp16's smallest subnormal
+# (6e-8; most of the softmax terms of a mean over 4,096 tokens) flushes to
+# 0, and the targets' terms (-1 / tokens) carry the step. Picked on the
+# H100 from 5 steps at each of 0.1, 0.3, 1, 3 and 10: Llama-3-8B's loss on
+# its one batch fell at every step up to lr 1 (at 3 it rose on the fifth,
+# at 10 on the third); Gemma-2-9B's fell at every step at 0.1 and 0.3 and
+# rose on the third step at 1 and 3.
+FP16_TRAIN_LR = 1.0
+FP16_G9_TRAIN_LR = 0.3
+
+
+def phase_train(smi: str, dtype=torch.bfloat16) -> dict:
+    """Train LLAMA3_8B at full width, 8 layers, batch 2 x 2048, in ``dtype``
+    (``_train_and_check``: 3 steps on K3, one profiled, one on K2, K2/K3
+    held to the plain backward on every layer's recorded inputs): bf16
+    (``train``) with AdamW at lr 3e-4; fp16 (``train_fp16``: the model, its
+    activations and K1, K2 and K3 in fp16, from their fp16 libraries) with
+    SGD at FP16_TRAIN_LR. Returns the launch counts of both runs, by
+    backward, under "rate" the run's train tokens/s, model TFLOP/s and ms a
+    step, and under "line" its line's fields."""
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, init_params
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType
+
+    label = "train" if dtype == torch.bfloat16 else f"train_{_dname(dtype)}"
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS, dtype=DType.from_torch(dtype))
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to("cuda")
     sync()
-    print(f"train: LLAMA3_8B x {TRAIN_LAYERS} layers, set-up {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    fields, counts = _train_and_check("train", cfg, params, tokens, TRAIN_STEPS)
-    print(json.dumps({"train": {"model": "LLAMA3_8B", **fields, "gpu": smi}}), flush=True)
-    return {**counts, "rate": {k: fields[k] for k in ("train_tok_s", "model_tflop_s",
-                                                      "step_ms")}}
+    print(f"{label}: LLAMA3_8B x {TRAIN_LAYERS} layers in {_dname(dtype)}, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    fp16 = dtype == FP16
+    fields, counts = _train_and_check(
+        label, cfg, params, tokens, TRAIN_STEPS, lr=FP16_TRAIN_LR if fp16 else 3e-4,
+        optimizer=_sgd(FP16_TRAIN_LR) if fp16 else None)
+    print(json.dumps({label: {"model": "LLAMA3_8B", **fields, "gpu": smi}}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {**counts, "line": fields,
+            "rate": {k: fields[k] for k in ("train_tok_s", "model_tflop_s", "step_ms")}}
 
 
 # Gemma-2-9B trained at full width (train_gemma2_9b): 8 of its 42 layers
@@ -3062,49 +3146,55 @@ G9_TRAIN_LAYERS, G9_TRAIN_SEQ, G9_TRAIN_STEPS = 8, 8192, 3
 G9_TRAIN_REMAT, G9_TRAIN_LR = True, 1e-4
 
 
-def phase_train_gemma2_9b(smi: str) -> dict:
+def phase_train_gemma2_9b(smi: str, dtype=torch.bfloat16) -> dict:
     """Train Gemma-2-9B at full width (``GEMMA2_9B_HF`` cut to
-    G9_TRAIN_LAYERS layers; random bf16 weights from a seed, built as an
-    HF-named state dict and converted by ``from_hf_gemma2``, as
-    ``serve_gemma2_9b`` builds them) on one batch of G9_TRAIN_SEQ tokens:
+    G9_TRAIN_LAYERS layers; random weights from a seed, built as an
+    HF-named state dict and converted by ``from_hf_gemma2`` to ``dtype``,
+    as ``serve_gemma2_9b`` builds them) on one batch of G9_TRAIN_SEQ tokens:
     ``_train_and_check`` at d 256 (K1, K3, then K2), K2 and K3 held to the
     plain backward (one KV head at a time) on the last two layers' recorded
-    inputs, one sliding and one global. Returns the launch counts of both
-    runs, by backward."""
+    inputs, one sliding and one global. bf16 (``train_gemma2_9b``) with
+    AdamW at G9_TRAIN_LR; fp16 (``train_gemma2_9b_fp16``) with SGD at
+    FP16_G9_TRAIN_LR. Returns the launch counts of both runs, by backward,
+    and under "line" the line's fields."""
     import types
 
     from flash_attention_from_scratch_tpu_torch import from_hf_gemma2
 
+    label = "train_gemma2_9b" + ("" if dtype == torch.bfloat16 else f"_{_dname(dtype)}")
     t0 = time.perf_counter()
     hf = dict(GEMMA2_9B_HF, num_hidden_layers=G9_TRAIN_LAYERS)
     sd = _gemma2_state_dict(hf, torch.Generator(device="cuda").manual_seed(1))
     model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
-    params, cfg = from_hf_gemma2(model, dtype=torch.bfloat16)
+    params, cfg = from_hf_gemma2(model, dtype=dtype)
     del sd, model
     torch.cuda.empty_cache()
     tokens = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab_size, (1, G9_TRAIN_SEQ + 1))).to("cuda")
     layers = (cfg.n_layers - 2, cfg.n_layers - 1)
     if sorted(cfg.layer_window(i) > 0 for i in layers) != [False, True]:
-        raise AssertionError(f"train_gemma2_9b: layers {layers} are not one sliding and one "
-                             "global")
+        raise AssertionError(f"{label}: layers {layers} are not one sliding and one global")
+    if cfg.dtype.torch_dtype != dtype:
+        raise AssertionError(f"{label}: the converted model is {cfg.dtype}")
     sync()
     setup_s = time.perf_counter() - t0
-    print(f"train_gemma2_9b: {cfg.n_layers} layers, d_head {cfg.d_head}, windows "
+    print(f"{label}: {cfg.n_layers} layers, d_head {cfg.d_head}, windows "
           f"{[cfg.layer_window(i) for i in range(cfg.n_layers)]}, set-up {setup_s:.1f} s",
           flush=True)
-    fields, counts = _train_and_check("train_gemma2_9b", cfg, params, tokens, G9_TRAIN_STEPS,
-                                      remat=G9_TRAIN_REMAT, layers=layers, by_heads=True,
-                                      lr=G9_TRAIN_LR)
+    fp16 = dtype == FP16
+    fields, counts = _train_and_check(
+        label, cfg, params, tokens, G9_TRAIN_STEPS, remat=G9_TRAIN_REMAT, layers=layers,
+        by_heads=True, lr=FP16_G9_TRAIN_LR if fp16 else G9_TRAIN_LR,
+        optimizer=_sgd(FP16_G9_TRAIN_LR) if fp16 else None)
     del params
     torch.cuda.empty_cache()
-    print(json.dumps({"train_gemma2_9b": {
+    print(json.dumps({label: {
         "model": "Gemma-2-9B", "d_head": cfg.d_head, "heads": [cfg.n_heads, cfg.n_kv_heads],
         "window_pattern": list(cfg.window_pattern),
         "softcaps": [cfg.attn_softcap, cfg.final_softcap], **fields,
         "layers_checked": list(layers), "set_up_s": setup_s,
         "s": time.perf_counter() - t0, "gpu": smi}}), flush=True)
-    return counts
+    return {**counts, "line": fields}
 
 
 def _dname(dtype) -> str:
@@ -3342,8 +3432,8 @@ def time_backward(ptxas: dict | None = None) -> tuple[dict, dict]:
     common = {}
     for i, (label, s, causal) in enumerate(BACKWARD_TIMED):
         cfg = KernelConfig(causal=causal)
-        q, k, v = _cuda_qkv(s, s, seed=70 + i, batch=b)
-        do = _cuda_normal(q.shape, seed=80 + i)
+        q, k, v = _timing_qkv(s, s, seed=70 + 3 * i, batch=b)
+        do = _timing_normal(q.shape, seed=100 + i)
         o, lse = flash_forward_with_lse(q, k, v, cfg)
         lib_ms = _sdpa_backward_ms(q, k, v, do, causal)
         flops = 5 * 2 * D * _attn_ops(s, HEADS, b, causal) // (4 * D)
@@ -3401,8 +3491,8 @@ def time_backward_d256(ptxas: dict | None = None) -> tuple[dict, dict]:
         flash_forward_with_lse)
 
     s, heads, kvh, d = G9_TRAIN_SEQ, G9_HEADS, G9_KV_HEADS, G9_D
-    q, k, v = _cuda_qkv(s, s, seed=90, heads=heads, kv_heads=kvh, d=d)
-    do = _cuda_normal(q.shape, seed=91)
+    q, k, v = _timing_qkv(s, s, seed=90, heads=heads, kv_heads=kvh, d=d)
+    do = _timing_normal(q.shape, seed=93)
     lib_ms = _sdpa_backward_ms(q, k, v, do)
     # q, o, do, dq and k, v, dk, dv in bf16, lse in fp32: each once.
     nbytes = 2 * (4 * heads * s * d + 4 * kvh * s * d) + 4 * heads * s
@@ -4729,7 +4819,8 @@ def _hold(label, out, native, ref32, launched, good=True, note="") -> tuple[floa
 def _flash_quant_case(label, qq, kq, vq, cfg, i8c) -> tuple[float, float]:
     """K10 on (qq, kq, vq) vs its plain version (for int8c its int8-compute
     path, which rounds P as the kernel does) and reference attention in fp32
-    on the inputs dequantized in fp32; the output keeps Q's strides."""
+    on the inputs dequantized in fp32; the output keeps Q's strides and is
+    in the config's type."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
         KERNEL, flash_forward_quantized, flash_forward_quantized_plain)
@@ -4747,7 +4838,7 @@ def _flash_quant_case(label, qq, kq, vq, cfg, i8c) -> tuple[float, float]:
         softcap=cfg.attn_softcap), *(_dequantized(x, torch.float32) for x in (qq, kq, vq)))
     q_vals = qq.values if isinstance(qq, QTensor) else qq
     return _hold(f"flash_quant {label}", out, native, ref32, launched,
-                 good=out.stride() == q_vals.stride())
+                 good=out.stride() == q_vals.stride() and out.dtype == cfg.dtype.torch_dtype)
 
 
 def phase_flash_quant_cases() -> tuple[float, float]:
@@ -4872,7 +4963,8 @@ def time_flash_quant(ptxas: dict | None = None) -> dict:
     flops = calc_self_attn_flop(PERF_SEQ, D, HEADS, PERF_BATCH)  # the tools' model
     by_variant = {}
     for i, (variant, (_, _, i8c)) in enumerate(QUANT_VARIANTS.items()):
-        qq, kq, vq = _quant_qkv(variant, PERF_SEQ, seed=80 + i, batch=PERF_BATCH)
+        qq, kq, vq = bench_quant.quantize_inputs(
+            *_timing_qkv(PERF_SEQ, PERF_SEQ, seed=80 + 3 * i, batch=PERF_BATCH), variant)
         out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
         ms = _time_ms(lambda: flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
         plain_ms = _time_ms(lambda: flash_forward_quantized_plain(
@@ -4910,7 +5002,7 @@ def time_fori(ptxas: dict | None = None) -> dict:
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
 
-    q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=90, batch=PERF_BATCH)
+    q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=90, batch=PERF_BATCH)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v in bf16
     by_mask = {}
     for causal in (False, True):
@@ -4963,7 +5055,9 @@ def time_quant_fori_d256(quant_ptxas: dict | None = None,
     ops = _attn_ops(PERF_SEQ, G9_HEADS, PERF_BATCH, causal=False, d=G9_D)
     by_variant = {}
     for i, (variant, (_, _, i8c)) in enumerate(QUANT_VARIANTS.items()):
-        qq, kq, vq = _quant_qkv(variant, PERF_SEQ, seed=280 + i, batch=PERF_BATCH, **widths)
+        qq, kq, vq = bench_quant.quantize_inputs(
+            *_timing_qkv(PERF_SEQ, PERF_SEQ, seed=280 + 3 * i, batch=PERF_BATCH, **widths),
+            variant)
         out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
         ms = _time_ms(lambda: flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
         plain_ms = _time_ms(lambda: flash_forward_quantized_plain(
@@ -4989,7 +5083,7 @@ def time_quant_fori_d256(quant_ptxas: dict | None = None,
                        f"d {G9_D}; library: SDPA on the dequantized bf16 tensors")
     torch.cuda.empty_cache()
 
-    q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, **widths)
+    q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=300, batch=PERF_BATCH, **widths)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v in bf16
     by_mask = {}
     for causal in (False, True):
@@ -5199,8 +5293,8 @@ def time_banded_backward() -> dict:
     out = {}
     for i, s in enumerate(BANDED_TIMED):
         bands = fb._bwd_band_count(s)
-        q, k, v = _cuda_qkv(s, s, seed=430 + i)
-        do = _cuda_normal(q.shape, seed=440 + i)
+        q, k, v = _timing_qkv(s, s, seed=430 + 3 * i)
+        do = _timing_normal(q.shape, seed=450 + i)
         o, lse = flash_forward_with_lse(q, k, v, cfg)
         flops = 5 * 2 * D * _attn_ops(s, HEADS, 1, True) // (4 * D)
         nbytes = 2 * (4 * HEADS * s * D + 4 * KV_HEADS * s * D) + 4 * HEADS * s
@@ -6613,10 +6707,10 @@ def _parallel_fields(names, ring=None, train=None, serve=None, **phases) -> dict
 
 
 # ---------------------------------------------------------------------------
-# fp16 on the card: K1, K11, K4/K5 and K6-K9 from their fp16 libraries (the
-# same sources built with FA_F16: csrc/*_f16.cu), and the serving path in
-# fp16 (LlamaConfig.dtype FP16). K2/K3 and K10 still refuse fp16, and every
-# kernel fp32 (ROADMAP Queue 1, items 4b and 4c).
+# fp16 on the card: every kernel from its fp16 library (the same sources
+# built with FA_F16: csrc/*_f16.cu), and the serving and training paths in
+# fp16 (LlamaConfig.dtype FP16). Every kernel still refuses fp32 (ROADMAP
+# Queue 1, item 4c).
 
 FP16 = torch.float16
 # K1's and K11's fp16 cases: (label, d, heads, kv_heads, seq_q, seq_kv,
@@ -6922,7 +7016,8 @@ def phase_serve_gemma2_9b_fp16(smi: str) -> dict:
 
 # bench_attention --dtype f16 on K1's and K11's d-128 forms (the grid and
 # FORI rungs of the prog ladder, in fp16), causal, with the SDPA baseline;
-# then --grad in fp16, which K2/K3 refuse.
+# then the same with --grad (forward and backward through flash_attention:
+# K3, the causal backward, from its fp16 library).
 BENCH_F16_FORMS = "fa_f16_q128_kv128_d128_grid2_x2+os+cp;fa_f16_q128_kv128_d128_fori2_x2+os+cp"
 BENCH_F16_ARGS = ("--dtype", "f16", "--kernels", BENCH_F16_FORMS, "--causal", "--seq-lens",
                   "2048,4096", "--baseline", "--json")
@@ -6930,45 +7025,184 @@ BENCH_F16_ARGS = ("--dtype", "f16", "--kernels", BENCH_F16_FORMS, "--causal", "-
 
 def phase_bench_attention_fp16(smi: str) -> dict:
     """``tools/bench_attention.py``'s ``main`` with ``--dtype f16``
-    (BENCH_F16_ARGS), the launch counts set to 0 just before and read just
-    after: a row of positive TFLOP/s for each form and SDPA's, K1 and K11
-    launched; then ``--grad`` in fp16 must raise ValueError (K2/K3: ROADMAP
-    Queue 1, item 4b). Returns the launches."""
+    (BENCH_F16_ARGS), then with ``--grad`` too, the launch counts of each
+    run set to 0 just before and read just after: a row of positive TFLOP/s
+    for each form and SDPA's in each run; K1 and K11 launched in both, and
+    K3's two kernels (the causal backward) in the ``--grad`` run. Returns
+    {"forward", "grad": the launches}."""
     import contextlib
     import io
 
     from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ)
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL as K1, KERNEL_FORI)
 
+    out = {}
+    for run, extra, kernels in (("forward", [], (K1, KERNEL_FORI)),
+                                ("grad", ["--grad"], (K1, KERNEL_FORI, KERNEL_DKV, KERNEL_DQ))):
+        torch.cuda.empty_cache()
+        args = list(BENCH_F16_ARGS) + extra
+        text = io.StringIO()
+        t = time.perf_counter()
+        _build.launch_counts.clear()  # counts start at 0 just before the run
+        with contextlib.redirect_stdout(text):
+            rc = bench_attention.main(args)
+        counts = dict(_build.launch_counts)  # read just after
+        rows = [json.loads(line) for line in text.getvalue().splitlines()
+                if line.startswith("{")]
+        print(json.dumps({"bench_attention": {"args": " ".join(args), "rows": rows,
+                                              "launches": counts, "s": time.perf_counter() - t,
+                                              "gpu": smi}}), flush=True)
+        want = {f + "+ca" for f in BENCH_F16_FORMS.split(";")} | {"sdpa"}
+        good = (rc == 0 and {r["config"] for r in rows} == want
+                and all(r["harmonic_mean"] > 0 for r in rows)
+                and all(counts.get(k, 0) > 0 for k in kernels))
+        if not good:
+            raise AssertionError(f"bench_attention {' '.join(args)}: rc {rc}, launches "
+                                 f"{counts}, rows {rows}")
+        out[run] = counts
+    return out
+
+
+# K2/K3 in fp16 against their plain version (phase_fp16_backward_cases), in
+# BACKWARD_CASES' form: every mask (causal with a q_offset, a window, softcap
+# 50, none), the banded backward's non-square past keys (1,024 rows over
+# 2,048 keys, no mask), and at d 128 the training run's strided shape.
+FP16_BACKWARD_CASES = (
+    ("causal q_offset 512 s512/1024", 512, 1024, dict(causal=True, q_offset=512), {}),
+    ("window 512 s2048", 2048, 2048, dict(causal=True, window=512), {}),
+    ("softcap 50 s1024", 1024, 1024, dict(causal=True, attn_softcap=50.0), {}),
+    ("full s1024", 1024, 1024, {}, {}),
+    ("past keys s1024/2048", 1024, 2048, {}, {}),
+)
+FP16_BANDS = 2  # flash_backward(bands=) at b 1, 32/8 heads, s 2,048, causal
+
+
+def phase_fp16_backward_cases() -> dict:
+    """K2 and K3 in fp16 against their plain version in fp16 and in fp32
+    (``_hold_backward_cases``: the rule per 64-row band with fp16's eps,
+    reruns equal, one launch a call, fp16 gradients): FP16_BACKWARD_CASES
+    and the training shape at d 128 (32/8 heads), FP16_BACKWARD_CASES at d
+    256 (16/8 heads); then ``flash_backward(bands=FP16_BANDS)`` in fp16
+    (2 * bands - 1 K2 calls) by the same rule against the plain backward.
+    Returns {"d128", "d256": {mode: (max |kernel - plain|, worst
+    err/bound)}, "banded": (max, worst), "launches": the banded call's}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_FUSED, flash_backward, flash_backward_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    t0 = time.perf_counter()
+    out = {"d128": _hold_backward_cases(FP16_BACKWARD_CASES + (TRAIN_CASE,), "fp16 ",
+                                        dtype=FP16),
+           "d256": _hold_backward_cases(FP16_BACKWARD_CASES, "fp16 d256 ", heads=G9_HEADS,
+                                        kv_heads=G9_KV_HEADS, d=G9_D, dtype=FP16)}
+    cfg = KernelConfig(causal=True, dtype=DType.FP16)
+    q, k, v = _cuda_qkv(2048, 2048, seed=430, dtype=FP16)
+    do = _cuda_normal(q.shape, seed=431, dtype=FP16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    _build.launch_counts.clear()
+    got = flash_backward(q, k, v, o, lse, do, cfg, bands=FP16_BANDS)
+    sync()
+    launches = dict(_build.launch_counts)
+    if launches != {KERNEL_FUSED: 2 * FP16_BANDS - 1} or {g.dtype for g in got} != {FP16}:
+        raise AssertionError(f"fp16 banded backward: launches {launches}, "
+                             f"{[g.dtype for g in got]}")
+    ref16 = flash_backward_plain(q, k, v, o, lse, do, cfg)
+    ref32 = flash_backward_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                 do.float(), _fp32(cfg))
+    out["banded"] = _check_grads(f"fp16 banded backward s2048 bands {FP16_BANDS}", got,
+                                 ref16, ref32)
+    out["launches"] = launches
+    del q, k, v, do, o, lse, got, ref16, ref32
     torch.cuda.empty_cache()
-    text = io.StringIO()
-    t = time.perf_counter()
-    _build.launch_counts.clear()  # counts start at 0 just before the run
-    with contextlib.redirect_stdout(text):
-        rc = bench_attention.main(list(BENCH_F16_ARGS))
-    counts = dict(_build.launch_counts)  # read just after
-    rows = [json.loads(line) for line in text.getvalue().splitlines() if line.startswith("{")]
-    print(json.dumps({"bench_attention": {"args": " ".join(BENCH_F16_ARGS), "rows": rows,
-                                          "launches": counts, "s": time.perf_counter() - t,
-                                          "gpu": smi}}), flush=True)
-    want = {f + "+ca" for f in BENCH_F16_FORMS.split(";")} | {"sdpa"}
-    good = (rc == 0 and {r["config"] for r in rows} == want
-            and all(r["harmonic_mean"] > 0 for r in rows)
-            and counts.get(K1, 0) > 0 and counts.get(KERNEL_FORI, 0) > 0)
-    if not good:
-        raise AssertionError(f"bench_attention --dtype f16: rc {rc}, launches {counts}, "
-                             f"rows {rows}")
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"fp16_backward_cases": out}), flush=True)
+    return out
+
+
+# K10 in fp16 (phase_fp16_quant_cases): (K/V mode, Q kind, int8_compute) of
+# every variant: a dense fp16 Q over int8, fp8 and int4 K/V, an int8 and an
+# fp8 Q (upcast), and int8 compute; every QTensor from fp16 tensors (its
+# orig_dtype fp16, which the wrapper takes as the compute type).
+FP16_QUANT_VARIANTS = {
+    "int8kv": ("int8", "dense", False), "fp8kv": ("fp8", "dense", False),
+    "int4kv": ("int4", "dense", False), "int8u": ("int8", "int8", False),
+    "fp8": ("fp8", "fp8", False), "int8c": ("int8", "int8", True),
+}
+
+
+def _fp16_quant_inputs(variant, seq, seed, batch, heads=HEADS, kv_heads=KV_HEADS, d=D):
+    """Seeded fp16 Q, K, V as ``variant`` of FP16_QUANT_VARIANTS gives them."""
+    from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv
+
+    kv_mode, q_kind, _ = FP16_QUANT_VARIANTS[variant]
+    q, k, v = _cuda_qkv(seq, seq, seed, batch=batch, heads=heads, kv_heads=kv_heads, d=d,
+                        dtype=FP16)
+    qq = q if q_kind == "dense" else quantize_kv(q, q_kind)
+    return qq, quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
+
+
+def phase_fp16_quant_cases() -> dict:
+    """K10 in fp16, every variant of FP16_QUANT_VARIANTS, against its plain
+    version in fp16 and reference attention in fp32 (``_flash_quant_case``:
+    the rule per 64-row band with fp16's eps, one launch, fp16 out with Q's
+    strides): at d 128 (b 2, 32/8 heads, s 1,024) full and causal, with a
+    window of 300 and, but for int8c, softcap 50; at d 256 (b 1, 16/8 heads,
+    s 2,048) causal, with the 4,096 window over s 5,120 and, but for int8c,
+    softcap 50. The launch counts are set to 0 before the cases and read
+    after them. Then a quantized Q of fp32 ``orig_dtype`` must raise
+    ValueError naming item 4c. Returns {"d128", "d256": (max |kernel -
+    plain|, worst err/bound), "launches", "calls"}."""
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+        KERNEL, flash_forward_quantized)
+    from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv
+
+    t0 = time.perf_counter()
+    cases = []
+    for variant, (_, _, i8c) in FP16_QUANT_VARIANTS.items():
+        cap = {} if i8c else dict(attn_softcap=50.0)
+        cases += [("d128", variant, 1024, 2, dict(causal=False), {}),
+                  ("d128", variant, 1024, 2, dict(causal=True), {}),
+                  ("d128", variant, 1024, 2, dict(causal=True, window=300, **cap), {}),
+                  ("d256", variant, 2048, 1, dict(causal=True),
+                   dict(heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D)),
+                  ("d256", variant, 5120, 1, dict(causal=True, window=G9_WINDOW, **cap),
+                   dict(heads=G9_HEADS, kv_heads=G9_KV_HEADS, d=G9_D))]
+    out = {"d128": (0.0, 0.0), "d256": (0.0, 0.0)}
+    _build.launch_counts.clear()  # counts start at 0 just before the cases
+    for i, (width, variant, seq, batch, kw, widths) in enumerate(cases):
+        qq, kq, vq = _fp16_quant_inputs(variant, seq, seed=600 + i, batch=batch, **widths)
+        cfg = KernelConfig(d_head=widths.get("d", D), dtype=DType.FP16, **kw)
+        got = _flash_quant_case(f"fp16 {width} {variant} s{seq} {kw}", qq, kq, vq, cfg,
+                                FP16_QUANT_VARIANTS[variant][2])
+        out[width] = tuple(map(max, out[width], got))
+        del qq, kq, vq
+    out["launches"] = dict(_build.launch_counts)  # read just after
+    out["calls"] = len(cases)
+    if out["launches"] != {KERNEL: len(cases)}:
+        raise AssertionError(f"fp16 K10 cases: launches {out['launches']} for {len(cases)} "
+                             "calls")
+    x = torch.zeros(1, 2, 128, D, device="cuda")
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            bench_attention.main(list(BENCH_F16_ARGS) + ["--grad"])
+        flash_forward_quantized(quantize_kv(x, "int8"), quantize_kv(x.half(), "int8"),
+                                quantize_kv(x.half(), "int8"))
     except ValueError as e:
-        if "item 4b" not in str(e):
+        if "item 4c" not in str(e):
             raise
-        print(f"bench_attention --dtype f16 --grad: refused ({e}) ok", flush=True)
+        print(f"flash_forward_quantized, Q of fp32 orig_dtype: refused ({e}) ok", flush=True)
     else:
-        raise AssertionError("bench_attention --dtype f16 --grad ran K2/K3 in fp16")
-    return counts
+        raise AssertionError("a quantized Q of fp32 orig_dtype ran on the card")
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"fp16_quant_cases": out}), flush=True)
+    return out
 
 
 def time_fp16_fori(d: int) -> dict:
@@ -6983,7 +7217,7 @@ def time_fp16_fori(d: int) -> dict:
     heads, kv_heads = (HEADS, KV_HEADS) if d == D else (G9_HEADS, G9_KV_HEADS)
     out = {"ms": 0.0, "bf16_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for dtype in (FP16, torch.bfloat16):
-        q, k, v = _cuda_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, dtype=dtype,
+        q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, dtype=dtype,
                             heads=heads, kv_heads=kv_heads, d=d)
         for causal in (False, True):
             cfg = KernelConfig(d_head=d, causal=causal, dtype=DType.from_torch(dtype),
@@ -7006,6 +7240,184 @@ def time_fp16_fori(d: int) -> dict:
             "shape": f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
                      f"{heads}/{kv_heads} heads, s {PERF_SEQ}, d {d}, fp16 "
                      "(bf16_ms: the same calls in bf16)"}
+
+
+def time_fp16_backward(d: int) -> tuple[dict, dict]:
+    """K2 and K3 in fp16 at the bf16 top rows' shape: d 128, the training
+    layer (causal, b 2, 32/8 heads, s 2,048); d 256, Gemma-2-9B's global
+    layer (causal, b 1, 16/8 heads, s 8,192, softcap 50): the whole
+    ``flash_backward`` call and its kernels' launch alone (D computed
+    beforehand), by CUDA events, beside the bound (the bf16 rows': same
+    products, same bytes), SDPA's backward in fp16 (causal, no softcap, K/V
+    repeated) and the plain version in fp16 (one KV head at a time at d
+    256). Returns (K2's, K3's)."""
+    from flash_attention_from_scratch_tpu_torch.ops import flash_backward as fb
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        flash_forward_with_lse)
+
+    if d == D:
+        b, s, heads, kvh, extra = TRAIN_BATCH, TRAIN_SEQ, HEADS, KV_HEADS, {}
+        plain, what = fb.flash_backward_plain, "one layer of train_fp16"
+    else:
+        b, s, heads, kvh, extra = 1, G9_TRAIN_SEQ, G9_HEADS, G9_KV_HEADS, dict(
+            attn_softcap=G9_SOFTCAP)
+        plain, what = _plain_backward_by_heads, ("one global layer of train_gemma2_9b_fp16; "
+                                                 "plain: one KV head at a time")
+    cfg = KernelConfig(d_head=d, causal=True, dtype=DType.FP16, **extra)
+    q, k, v = _timing_qkv(s, s, seed=95, batch=b, heads=heads, kv_heads=kvh, d=d, dtype=FP16)
+    do = _timing_normal(q.shape, seed=98, dtype=FP16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    dsum = fb._row_sums(o, do)
+    flops = 5 * _attn_ops(s, heads, b, True, 0, d) // 2
+    nbytes = 2 * (4 * b * heads * s * d + 4 * b * kvh * s * d) + 4 * b * heads * s
+    common = {"plain_ms": _time_ms(lambda: plain(q, k, v, o, lse, do, cfg), iters=2, warmup=1),
+              "library_ms": _sdpa_backward_ms(q, k, v, do),
+              "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S),
+              "bound_by": "operations",
+              "shape": f"causal, b {b}, {heads}/{kvh} heads, s {s}, d {d}"
+                       + (f", softcap {G9_SOFTCAP:g}" if extra else "")
+                       + f", fp16 ({what}); library: SDPA's fp16 backward, causal, no softcap"}
+    out = []
+    for fused in (True, False):
+        ms = _time_ms(lambda: fb.flash_backward(q, k, v, o, lse, do, cfg, fused=fused))
+        kernel_ms = _time_ms(lambda: fb._launch(q, k, v, lse, dsum, do, cfg,
+                                                cfg.softmax_scale, fused))
+        out.append({"ms": ms, **common, "kernel_ms": kernel_ms,
+                    "bound_share": common["bound_ms"] / ms, "tflops": flops / ms / 1e9})
+    del q, k, v, do, o, lse, dsum
+    torch.cuda.empty_cache()
+    return out[0], out[1]
+
+
+def time_fp16_quant(d: int) -> dict:
+    """K10 in fp16 per variant of FP16_QUANT_VARIANTS, non-causal, at the
+    bf16 rows' shape (b 4, s 4,096; 32/8 heads at d 128, 16/8 at d 256):
+    time, bound (the bf16 rows': the products at 989 TFLOP/s, int8c's at
+    1979 TOP/s, or the bytes), the plain version and SDPA in fp16 on the
+    dequantized tensors. Top-level numbers are sums over the variants."""
+    from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import (
+        flash_forward_quantized, flash_forward_quantized_plain)
+    from flash_attention_from_scratch_tpu_torch.ops.quant import quantize_kv
+
+    heads, kvh = (HEADS, KV_HEADS) if d == D else (G9_HEADS, G9_KV_HEADS)
+    cfg = KernelConfig(d_head=d, dtype=DType.FP16)
+    ops = _attn_ops(PERF_SEQ, heads, PERF_BATCH, causal=False, d=d)
+    q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=380, batch=PERF_BATCH, heads=heads,
+                          kv_heads=kvh, d=d, dtype=FP16)
+    by_variant = {}
+    for variant, (kv_mode, q_kind, i8c) in FP16_QUANT_VARIANTS.items():
+        qq = q if q_kind == "dense" else quantize_kv(q, q_kind)
+        kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
+        out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
+        ms = _time_ms(lambda: flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c))
+        plain_ms = _time_ms(lambda: flash_forward_quantized_plain(
+            qq, kq, vq, cfg, scale=cfg.softmax_scale, int8_compute=i8c), iters=1, warmup=1)
+        dq, dk, dv = (_dequantized(x, FP16) for x in (qq, kq, vq))
+        lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            dq, dk, dv, enable_gqa=True))
+        bound_o = ops / (PEAK_INT8_OPS if i8c else PEAK_BF16_FLOPS)
+        bound_b = _attn_bytes(qq, kq, vq, out) / PEAK_BYTES_PER_S
+        by_variant[variant] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": 1e3 * max(bound_o, bound_b),
+            "bound_by": "operations" if bound_o >= bound_b else "bytes",
+            "product_tflops": ops / ms / 1e9}
+        del qq, kq, vq, out, dq, dk, dv
+    del q, k, v
+    torch.cuda.empty_cache()
+    total = {key: sum(r[key] for r in by_variant.values())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {**total, "bound_by": "operations", "by_variant": by_variant,
+            "shape": f"sum over the variants {list(FP16_QUANT_VARIANTS)}: non-causal, "
+                     f"b {PERF_BATCH}, {heads}/{kvh} heads, s {PERF_SEQ}, d {d}, fp16; "
+                     "library: SDPA in fp16 on the dequantized tensors"}
+
+
+def fp16_training_entries(bf16: dict, bwd: dict, quant: dict, trained: dict,
+                          trained9: dict, bench_grad: dict, logs: dict) -> list:
+    """The fp16 entries of K2, K3 and K10 in the ``kernels`` line: launches
+    on their fp16 paths (``train_fp16``'s and ``train_gemma2_9b_fp16``'s
+    steps, ``bench_attention --dtype f16 --grad``, ``fp16_quant_cases``),
+    the worst errors against the plain versions, and the times of
+    ``time_fp16_backward`` / ``time_fp16_quant`` beside the bf16 entries'
+    at the same shapes from this run (``bf16_ms``; ``bf16``: the entries by
+    name)."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_backward import (
+        KERNEL_DKV, KERNEL_DQ, KERNEL_FUSED)
+    from flash_attention_from_scratch_tpu_torch.ops.flash_quant import KERNEL as KQ
+
+    pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
+    tpu = "flash_attention_from_scratch_tpu/ops/"
+    ptx = {d: _ptxas_by_kernel(logs.get(f"flash_backward{w}_f16.cu", ""))
+           for d, w in ((D, ""), (G9_D, "_d256"))}
+    (fused, split), (fused9, split9) = time_fp16_backward(D), time_fp16_backward(G9_D)
+
+    def both(counts):
+        return counts.get(KERNEL_DKV, 0) + counts.get(KERNEL_DQ, 0)
+
+    def ptxas(d, mode):
+        found = _kernel_ptxas(ptx[d], ("flash_backward_dkv_kernel", "flash_backward_dq_kernel"))
+        return {n: v for n, v in found.items() if ("Lb1E" in n) == (mode == "fused")}
+
+    def beside_variants(f16: dict, bf16_row: dict) -> dict:
+        """Each fp16 variant's bf16 ms where the bf16 row times it, and both
+        types' sums over those variants (the bf16 row has no fp8kv)."""
+        same = [v for v in f16["by_variant"] if v in bf16_row["by_variant"]]
+        for v in same:
+            f16["by_variant"][v]["bf16_ms"] = bf16_row["by_variant"][v]["ms"]
+        return {**f16, "bf16_ms": sum(bf16_row["by_variant"][v]["ms"] for v in same),
+                "ms_same_variants": sum(f16["by_variant"][v]["ms"] for v in same)}
+
+    q_err = tuple(map(max, quant["d128"], quant["d256"]))
+    entries = [
+        {"name": KERNEL_FUSED + "_f16", "route": "cuda", "source": pkg + "flash_backward_f16.cu",
+         "replaces": tpu + "flash_backward.py:278", "counted_as": KERNEL_FUSED,
+         "launches": trained["fused"].get(KERNEL_FUSED, 0),
+         "launches_path": "train_fp16: one step with fused=True, 8 layers (Llama-3-8B in fp16)",
+         "launches_fp16_backward_cases_banded": bwd["launches"].get(KERNEL_FUSED, 0),
+         "max_abs_err": max(bwd["d128"]["fused"][0], bwd["banded"][0]),
+         "worst_err_bound": max(bwd["d128"]["fused"][1], bwd["banded"][1]),
+         **fused, "bf16_ms": bf16[KERNEL_FUSED]["ms"], "ptxas": ptxas(D, "fused"),
+         "d256": {"source": pkg + "flash_backward_d256_f16.cu",
+                  "launches": trained9["fused"].get(KERNEL_FUSED, 0),
+                  "launches_path": "train_gemma2_9b_fp16: one step with fused=True",
+                  "max_abs_err": bwd["d256"]["fused"][0],
+                  "worst_err_bound": bwd["d256"]["fused"][1], **fused9,
+                  "bf16_ms": bf16["flash_backward_fused_d256"]["ms"],
+                  "ptxas": ptxas(G9_D, "fused")}},
+        {"name": "flash_backward_split_f16", "route": "cuda",
+         "source": pkg + "flash_backward_f16.cu", "replaces": tpu + "flash_backward.py:118",
+         "also_replaces": tpu + "flash_backward.py:198", "counted_as": [KERNEL_DKV, KERNEL_DQ],
+         "launches": both(trained["split"]),
+         "launches_by_entry": {n: trained["split"].get(n, 0) for n in (KERNEL_DKV, KERNEL_DQ)},
+         "launches_path": f"train_fp16: {TRAIN_STEPS} steps x {TRAIN_LAYERS} layers "
+                          "(the default backward)",
+         "launches_bench_attention_f16_grad": both(bench_grad),
+         "max_abs_err": bwd["d128"]["split"][0], "worst_err_bound": bwd["d128"]["split"][1],
+         **split, "bf16_ms": bf16["flash_backward_split"]["ms"], "ptxas": ptxas(D, "split"),
+         "d256": {"source": pkg + "flash_backward_d256_f16.cu",
+                  "launches": both(trained9["split"]),
+                  "launches_path": f"train_gemma2_9b_fp16: {G9_TRAIN_STEPS} steps x "
+                                   f"{G9_TRAIN_LAYERS} layers",
+                  "max_abs_err": bwd["d256"]["split"][0],
+                  "worst_err_bound": bwd["d256"]["split"][1], **split9,
+                  "bf16_ms": bf16["flash_backward_split_d256"]["ms"],
+                  "ptxas": ptxas(G9_D, "split")}},
+        {"name": KQ + "_f16", "route": "cuda", "source": pkg + "flash_quant_f16.cu",
+         "replaces": tpu + "flash_quant.py:129", "also_replaces": tpu + "flash_quant.py:46",
+         "also_source": pkg + "flash_quant_d256_f16.cu", "counted_as": KQ,
+         "launches": quant["launches"].get(KQ, 0),
+         "launches_path": f"fp16_quant_cases: flash_forward_quantized in fp16, every variant "
+                          f"at d 128 and 256 ({quant['calls']} calls)",
+         "max_abs_err": q_err[0], "worst_err_bound": q_err[1],
+         **beside_variants(time_fp16_quant(D), bf16[KQ]),
+         "ptxas": _kernel_ptxas(_ptxas_by_kernel(logs.get("flash_quant_f16.cu", "")),
+                                ("flash_quant_kernel", "flash_quant_i8_kernel")),
+         "d256": beside_variants(time_fp16_quant(G9_D), bf16["flash_quant_d256"])},
+    ]
+    return entries
 
 
 def fp16_kernel_entries(bf16: dict, cases: dict, served: dict, quant: dict, gemma: dict,
@@ -7141,6 +7553,8 @@ def main(argv=None) -> int:
     paged_any = phase_paged_any_size_cases()
     lap("kernel cases at any shape and page size")
     fp16_cases = phase_fp16_cases()
+    fp16_bwd = phase_fp16_backward_cases()
+    fp16_quant = phase_fp16_quant_cases()
     lap("fp16 kernel cases")
     served = phase_serve(smi)
     counts, serve_line = served["counts"], served["line"]
@@ -7183,9 +7597,16 @@ def main(argv=None) -> int:
     lap("serve_gemma2_9b")
     trained = phase_train(smi)
     lap("train")
-    torch.cuda.empty_cache()
+    trained16 = phase_train(smi, FP16)
+    print(json.dumps({"train_fp16_beside_bf16": {
+        key: {"fp16": trained16["line"][key], "bf16": trained["line"][key]}
+        for key in ("launches", "fused_launches", "train_tok_s", "step_ms", "peak_mem_gb",
+                    "losses", "optimizer", "lr")}}), flush=True)
+    lap("train_fp16")
     trained9 = phase_train_gemma2_9b(smi)
     lap("train_gemma2_9b")
+    trained9_16 = phase_train_gemma2_9b(smi, FP16)
+    lap("train_gemma2_9b_fp16")
     torch.cuda.empty_cache()
     quant_runs = {}
     for run in QUANT_RUNS:
@@ -7346,6 +7767,7 @@ def main(argv=None) -> int:
          "max_abs_err": d256["paged"][0], "worst_err_bound": d256["paged"][1],
          **time_paged_d256(_ptxas_by_kernel(logs.get("paged_attention.cu", "")))},
     ]
+    lap("kernel timing: K1, K4/K5")
     backward_ptxas = _ptxas_by_kernel(logs.get("flash_backward.cu", "")
                                       + logs.get("flash_backward_d256.cu", ""))
     fused_t, split_t = time_backward(backward_ptxas)
@@ -7412,6 +7834,7 @@ def main(argv=None) -> int:
          "max_abs_err": d256["backward"]["split"][0],
          "worst_err_bound": d256["backward"]["split"][1], **split9_t},
     ]
+    lap("kernel timing: K2/K3")
     tpu_lines = {("int8", False): 159, ("int4", False): 135, ("int8", True): 178,
                  ("int4", True): 206}
     lm_head = time_lm_head_32002()
@@ -7490,9 +7913,14 @@ def main(argv=None) -> int:
          "worst_err_bound": max(d256["fori"][1], tool_cases["flash_forward_fori_d256"][1]),
          **fori9_t},
     ]
-    kernels += fp16_kernel_entries({k["name"]: k for k in kernels}, fp16_cases, served16,
-                                   quant16, gemma16, bench16, logs)
-    lap("kernel timing")
+    lap("kernel timing: K6-K9, K10, K11")
+    by_name = {k["name"]: k for k in kernels}
+    kernels += fp16_kernel_entries(by_name, fp16_cases, served16, quant16, gemma16,
+                                   bench16["forward"], logs)
+    lap("kernel timing: fp16 K1, K11, K4/K5, K6-K9")
+    kernels += fp16_training_entries(by_name, fp16_bwd, fp16_quant, trained16, trained9_16,
+                                     bench16["grad"], logs)
+    lap("kernel timing: fp16 K2/K3, K10")
     print(json.dumps({"phase_s": laps}), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-// Flash-attention backward (FA2) for Hopper, bf16, d_head 128 or 256, on wgmma
-// + TMA.
+// Flash-attention backward (FA2) for Hopper, bf16 (fp16: the libraries
+// flash_backward_f16.cu and flash_backward_d256_f16.cu, this source built
+// with FA_F16), d_head 128 or 256, on wgmma + TMA.
 //
 // Replaces the TPU kernels of flash_attention_from_scratch_tpu/ops/
 // flash_backward.py: _fused_kernel (K2, entry fa_flash_backward_fused) and
@@ -11,7 +12,9 @@
 //   dP^T = V dO^T
 //   dS^T = P^T * (dP^T - D) * [1 - tanh^2] * scale    (softcap slope)
 // and accumulates dV += P^T dO, dK += dS^T Q, dQ += dS K, with P and dS*scale
-// rounded to bf16 before their products, as the TPU kernels do. Causal masks
+// rounded to the inputs' type before their products (act_t, hopper.cuh: bf16
+// or fp16; pack_p), as the TPU kernels do, and dQ, dK and dV stored in that
+// type. In fp16 a P below 2^-24 rounds to 0 where bf16 keeps it. Causal masks
 // with a q_offset and a sliding window zero P; tiles no row can see are
 // skipped. GQA is summed in-kernel: a KV tile's CTA walks every Q head of its
 // group, so dK and dV need no atomics. Sinks need nothing here: the
@@ -20,11 +23,12 @@
 // What bounds it on the H100: five tile products per (Q, KV) pair, 2.5x the
 // forward's operations, at the training shapes far above the card's ~295
 // FLOP/byte balance point, so the bound is tensor-core operations (989
-// TFLOP/s bf16). Every product runs on wgmma with bf16 operands and fp32
-// sums, every tile arrives by TMA (128-byte-swizzled boxes of 64 bf16
-// columns from 4-D tensor maps over the (b, h, s, d) views, encoded per
-// call, so strided views go through as they are) into mbarrier rings. The
-// tile walk and masks are those of flash_wgmma.cuh.
+// TFLOP/s bf16, and fp16 alike). Every product runs on wgmma with 16-bit
+// operands and fp32 sums, every tile arrives by TMA (128-byte-swizzled boxes
+// of 64 16-bit columns from 4-D tensor maps over the (b, h, s, d) views,
+// encoded per call, so strided views go through as they are) into mbarrier
+// rings. The tile walk and masks are those of flash_wgmma.cuh. fp16 has
+// bf16's bytes and wgmma shapes, so everything below holds for both.
 //
 // Registers set the shapes. A consumer that keeps dK and dV (two m64n128
 // fp32 accumulators, 128 registers) and the scores S^T and dP^T of a Q tile
@@ -111,9 +115,9 @@ struct Params {
   const float* lse;   // (batch, heads, seq_q), natural log
   const float* dsum;  // (batch, heads, seq_q), D = rowsum(dO * O)
   float* dq_acc;      // fused: (batch, heads, seq_q, HD) fp32, zeroed
-  bf16* dq;           // split dQ kernel: (batch, heads, seq_q, HD)
-  bf16* dk;           // (batch, kv_heads, seq_kv, HD)
-  bf16* dv;
+  act_t* dq;          // split dQ kernel: (batch, heads, seq_q, HD)
+  act_t* dk;          // (batch, kv_heads, seq_kv, HD)
+  act_t* dv;
   int heads, kv_heads, group, seq_q, seq_kv;
   int causal, q_offset, window;
   float scale, softcap;
@@ -126,7 +130,7 @@ constexpr int WARP_STAGE = 16 * 64 * 4;
 // The dK/dV kernel's geometry at head width HD: NC consumer warpgroups, a
 // ring of NS slots of 64 Q rows (Q, then dO, then their LSE and D rows; 64
 // is wgmma's M, which K2's dQ product takes in Q rows), with kDQ NC dS^T
-// buffers (BKV x 64 bf16; two warpgroups alternate two) and a dQ stage
+// buffers (BKV x 64 act_t; two warpgroups alternate two) and a dQ stage
 // for each warp. SPLIT warpgroups share 64 KV rows, each holding 128 of
 // dK's and dV's columns (1 at d 128: a warpgroup a 64-row group; 2 at d
 // 256). The ring's slot of step i - LAG is refilled after step i.
@@ -292,7 +296,7 @@ __device__ __forceinline__ void grad_tile(float (&s)[N], float (&dp)[N], const G
 }
 
 // ---------------------------------------------------------------------------
-// K2's dQ: dS^T into a swizzled (BKV x 64) bf16 buffer, the partial dS K,
+// K2's dQ: dS^T into a swizzled (BKV x 64) act_t buffer, the partial dS K,
 // and its 16-byte atomic adds.
 
 // This thread's dS^T fragments (da: A fragments of its warp's 16 KV rows,
@@ -517,20 +521,18 @@ flash_backward_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   if (kDQ && lane == 0) bulk_wait<0, true>();  // the adds have completed
-  // dK and dV of this thread's rows, cast to bf16.
+  // dK and dV of this thread's rows, cast to act_t.
   if (!active) return;
   const int q = lane & 3;
   const long long out_row = ((long long)b * p.kv_heads + hk) * p.seq_kv + kv0 + krow;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dk_row = p.dk + (out_row + 8 * r) * HD + half * COLS;
-    bf16* dv_row = p.dv + (out_row + 8 * r) * HD + half * COLS;
+    act_t* dk_row = p.dk + (out_row + 8 * r) * HD + half * COLS;
+    act_t* dv_row = p.dv + (out_row + 8 * r) * HD + half * COLS;
 #pragma unroll
     for (int j = 0; j < COLS / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j + 2 * q) =
-          __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j + 2 * q) =
-          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      store_act2(dk_row + 8 * j + 2 * q, dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      store_act2(dv_row + 8 * j + 2 * q, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -637,11 +639,10 @@ flash_backward_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dq_row = p.dq + (bh_row + row + 8 * r) * HD;
+    act_t* dq_row = p.dq + (bh_row + row + 8 * r) * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j + 2 * q) =
-          __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+      store_act2(dq_row + 8 * j + 2 * q, dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
 }
 
@@ -657,7 +658,7 @@ struct Maps {
 bool encode_maps(Maps& m, const void* q, const void* k, const void* v, const void* dout,
                  const long long (&s)[12], int batch, const Params& p, int hd, int q_rows,
                  int kv_rows) {
-  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto bf = ACT_TMAP;
   return encode_bhsd(&m.q, bf, q, batch, p.heads, p.seq_q, hd, s[0] * 2, s[1] * 2, s[2] * 2,
                      q_rows, BOX_COLS, true) &&
          encode_bhsd(&m.k, bf, k, batch, p.kv_heads, p.seq_kv, hd, s[3] * 2, s[4] * 2,
@@ -711,9 +712,9 @@ Params make_params(const void* lse, const void* dsum, void* dq, void* dk, void* 
   p.lse = static_cast<const float*>(lse);
   p.dsum = static_cast<const float*>(dsum);
   p.dq_acc = static_cast<float*>(dq);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
+  p.dq = static_cast<act_t*>(dq);
+  p.dk = static_cast<act_t*>(dk);
+  p.dv = static_cast<act_t*>(dv);
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.group = heads / kv_heads;
@@ -748,9 +749,10 @@ const char* fa_error_string(int code) {
 
 // Common arguments of the three entry points. q, dout (b, heads, seq_q,
 // d_head) and k, v (b, kv_heads, seq_kv, d_head), d_head BACKWARD_HD, are
-// bf16 with the given element strides (d contiguous, strides multiples of 8
-// elements, base 16-byte aligned); lse and dsum are (b, heads, seq_q) fp32
-// contiguous, 16-byte aligned. Outputs are contiguous. seq_q and seq_kv are
+// act_t (bf16, or fp16 in an FA_F16 library) with the given element
+// strides (d contiguous, strides multiples of 8 elements, base 16-byte
+// aligned); lse and dsum are (b, heads, seq_q) fp32 contiguous, 16-byte
+// aligned. Outputs are contiguous. seq_q and seq_kv are
 // multiples of 64. Each returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for another head width or when a tensor map cannot
 // be encoded.
@@ -770,7 +772,7 @@ const char* fa_error_string(int code) {
                                seq_kv, causal, q_offset, window, scale, softcap); \
   cudaStream_t st = static_cast<cudaStream_t>(stream)
 
-// K2: dK, dV (bf16) and dQ added into dq, a zeroed fp32 workspace.
+// K2: dK, dV (act_t) and dQ added into dq, a zeroed fp32 workspace.
 int fa_flash_backward_fused(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
   if (d_head != BACKWARD_HD) return static_cast<int>(cudaErrorInvalidValue);
@@ -784,7 +786,7 @@ int fa_flash_backward_dkv(FA_BWD_ARGS) {
   return launch_dkv<TILE_OF(DKV_TILE, BACKWARD_HD)>(q, k, v, dout, s, batch, p, st);
 }
 
-// K3, second half: dQ (bf16) into dq (dk and dv are unused).
+// K3, second half: dQ (act_t) into dq (dk and dv are unused).
 int fa_flash_backward_dq(FA_BWD_ARGS) {
   FA_BWD_PARAMS;
   if (d_head != BACKWARD_HD) return static_cast<int>(cudaErrorInvalidValue);

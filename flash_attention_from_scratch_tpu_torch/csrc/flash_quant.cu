@@ -1,6 +1,12 @@
 // Prefill attention over quantized K/V for Hopper, d_head 128 or 256: int8,
-// fp8 (e4m3) or int4 K/V with one fp32 scale per (batch, KV head); Q in bf16
-// or quantized (int8 or fp8, one scale per (batch, Q head)); bf16 output.
+// fp8 (e4m3) or int4 K/V with one fp32 scale per (batch, KV head); Q in the
+// compute type or quantized (int8 or fp8, one scale per (batch, Q head));
+// output in the compute type. The compute type is the library's act_t
+// (hopper.cuh): bf16, or fp16 in flash_quant_f16.cu and
+// flash_quant_d256_f16.cu (this source built with FA_F16), the type the
+// JAX kernel computes in (its cfg.dtype: a dense Q's type, or a quantized
+// Q's orig_dtype). Below, "bf16" tiles and products are act_t ones: fp16
+// has bf16's bytes and wgmma shapes and the same 989 TFLOP/s.
 //
 // Replaces the TPU kernel flash_attention_from_scratch_tpu/ops/flash_quant.py
 // _quant_kernel, with its int8-compute update _attend_i8. Two kernels on the
@@ -16,14 +22,15 @@
 //     reads) while the consumers run the previous tile and the next raw
 //     tile is in flight, then arrives on the slot's full barrier. The
 //     conversions are exact: int8 through the fp32 magic number 2^23 + u
-//     (as K6's dequantization in quant_matmul.cu), fp8-e4m3 through
+//     (as K6's dequantization in quant_matmul.cu; fp16: the fp16 word
+//     0x6400 | u = 1024 + u, minus 1152), fp8-e4m3 through
 //     cvt.rn.f16x2.e4m3x2 (every e4m3 value is exact in fp16 and in bf16),
 //     int4 (half-split along d: byte j holds column j in its low nibble and
 //     column j + d/2 in its high) by the bf16 bits 0x4300 | (n ^ 8) minus
-//     136, the low nibbles into the boxes of columns 0 .. d/2 - 1 (box 0 at
-//     d 128, boxes 0-1 at d 256) and the high ones into the boxes of the
-//     columns after (box 1, boxes 2-3). An int8 or fp8 Q is upcast the same
-//     way once per CTA. The consumers run flash_wgmma.cuh's bf16 tile math
+//     136 (fp16: 0x6400 | (n ^ 8) minus 1032), the low nibbles into the
+//     boxes of columns 0 .. d/2 - 1 (box 0 at d 128, boxes 0-1 at d 256) and
+//     the high ones into the boxes of the columns after (box 1, boxes 2-3).
+//     An int8 or fp8 Q is upcast the same way once per CTA. The consumers run flash_wgmma.cuh's bf16 tile math
 //     (consume_bf16). The K scale (and Q's) folds into the softmax scale,
 //     the V scale into the final normalisation, as at flash_quant.py:155-159
 //     and :273.
@@ -123,7 +130,7 @@ struct I8Tile : CtaShape<HD> {
 };
 
 struct Params {
-  bf16* o;
+  act_t* o;
   const float* qs;  // (batch, heads), or null for bf16 Q
   const float* ks;  // (batch, kv_heads)
   const float* vs;  // (batch, kv_heads)
@@ -134,45 +141,72 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// Exact conversions to bf16x2 words.
+// Exact conversions to act_t pairs (bf16x2 or fp16x2 words).
+
+#ifdef FA_F16
+// The fp16 pair w minus the fp16 value with bits `bias` from each half
+// (exact here: integers below 2^11 on both sides).
+__device__ __forceinline__ uint32_t half2_minus(uint32_t w, unsigned short bias) {
+  const __half2 b = __halves2half2(__ushort_as_half(bias), __ushort_as_half(bias));
+  const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&w), b);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+#endif
 
 // int8 bytes 0, 1 (lo) and 2, 3 (hi) of w.
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+__device__ __forceinline__ void int8x4_to_act(uint32_t w, uint32_t& lo, uint32_t& hi) {
   const uint32_t u = w ^ 0x80808080u;  // u = v + 128 per byte
+#ifdef FA_F16
+  // Bytes 0, 1 (2, 3) of u under the byte 0x64 (selector 4: the second
+  // operand's): the fp16 words 0x64uu = 1024 + u, minus 1152 (0x6480).
+  lo = half2_minus(__byte_perm(u, 0x64646464u, 0x4140), 0x6480);
+  hi = half2_minus(__byte_perm(u, 0x64646464u, 0x4342), 0x6480);
+#else
   const float magic = 8388736.0f;      // 2^23 + 128
   lo = bf16x2_upper(byte_value<0>(u, magic), byte_value<1>(u, magic));
   hi = bf16x2_upper(byte_value<2>(u, magic), byte_value<3>(u, magic));
+#endif
 }
 
-// Two e4m3 bytes (the low 16 bits of w) -> bf16x2, through fp16 (exact).
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16(uint32_t w) {
+// Two e4m3 bytes (the low 16 bits of w) -> an act_t pair: fp16 directly,
+// bf16 through fp16 (exact).
+__device__ __forceinline__ uint32_t e4m3x2_to_act(uint32_t w) {
   uint32_t h2;
   asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h2) : "h"(static_cast<unsigned short>(w)));
+#ifdef FA_F16
+  return h2;
+#else
   const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
   return pack_bf16(f.x, f.y);
+#endif
 }
 
-// Two signed nibbles (bits 0-3 and 16-19 of t) -> bf16x2: the bf16 bits
-// 0x4300 | (n ^ 8) are 128 + (v + 8), minus 136.
-__device__ __forceinline__ uint32_t nibbles_to_bf16(uint32_t t) {
+// Two signed nibbles (bits 0-3 and 16-19 of t) -> an act_t pair: the bf16
+// bits 0x4300 | (n ^ 8) are 128 + (v + 8), minus 136; the fp16 bits
+// 0x6400 | (n ^ 8) are 1024 + (v + 8), minus 1032.
+__device__ __forceinline__ uint32_t nibbles_to_act(uint32_t t) {
+#ifdef FA_F16
+  return half2_minus((t & 0x000F000Fu) ^ 0x64086408u, 0x6408);
+#else
   const uint32_t x = (t & 0x000F000Fu) ^ 0x43084308u;
   const __nv_bfloat162 bias = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
                                                  __ushort_as_bfloat16(0x4308));
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x), bias);
   return *reinterpret_cast<const uint32_t*>(&r);
+#endif
 }
 
-// 16 raw int8 or fp8 bytes -> 16 bf16 values (8 words).
+// 16 raw int8 or fp8 bytes -> 16 act_t values (8 words).
 template <bool FP8>
-__device__ __forceinline__ void bytes16_to_bf16(const uint4& raw, uint32_t (&o)[8]) {
+__device__ __forceinline__ void bytes16_to_act(const uint4& raw, uint32_t (&o)[8]) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if constexpr (FP8) {
-      o[2 * i] = e4m3x2_to_bf16(w[i]);
-      o[2 * i + 1] = e4m3x2_to_bf16(w[i] >> 16);
+      o[2 * i] = e4m3x2_to_act(w[i]);
+      o[2 * i + 1] = e4m3x2_to_act(w[i] >> 16);
     } else {
-      int8x4_to_bf16(w[i], o[2 * i], o[2 * i + 1]);
+      int8x4_to_act(w[i], o[2 * i], o[2 * i + 1]);
     }
   }
 }
@@ -194,10 +228,10 @@ __device__ __forceinline__ void convert_unit(uint8_t* dst, unsigned u, const uin
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t t01 = __byte_perm(w[i], 0, 0x4140), t23 = __byte_perm(w[i], 0, 0x4342);
-      lo[2 * i] = nibbles_to_bf16(t01);
-      lo[2 * i + 1] = nibbles_to_bf16(t23);
-      hi[2 * i] = nibbles_to_bf16(t01 >> 4);
-      hi[2 * i + 1] = nibbles_to_bf16(t23 >> 4);
+      lo[2 * i] = nibbles_to_act(t01);
+      lo[2 * i + 1] = nibbles_to_act(t23);
+      hi[2 * i] = nibbles_to_act(t01 >> 4);
+      hi[2 * i + 1] = nibbles_to_act(t23 >> 4);
     }
     // At d 256 a row's 8 units span boxes 0 and 1: the units in box 1 store
     // their second chunk first, as the int8 path below does.
@@ -214,7 +248,7 @@ __device__ __forceinline__ void convert_unit(uint8_t* dst, unsigned u, const uin
   } else {
     const int r = u / UNITS_ROW, c = (u % UNITS_ROW) * 16;
     uint32_t o[8];
-    bytes16_to_bf16<KV == KV_FP8>(raw16, o);
+    bytes16_to_act<KV == KV_FP8>(raw16, o);
     // The row's threads for the columns of odd boxes (64-127, 192-255)
     // store their second chunk first, so that each store of 8 threads covers
     // the 8 chunk positions (the boxes are a multiple of 128 bytes apart).
@@ -515,8 +549,12 @@ __device__ __forceinline__ void attend_i8(RowStateT<HD>& st, unsigned q_addr, in
   // O = O alpha + (P_i8 V_i8) w, one 128-column half of O at a time (V^T's
   // rows 128 h ..): each half's int32 accumulator is folded into O before
   // the next is issued. acc w as (MAGIC + acc) w - MAGIC w: the rounding of
-  // MAGIC w moves each term by at most half a unit of acc, far below the
-  // bf16 output's.
+  // MAGIC w moves each term by at most half a unit of acc (times w <= 1).
+  // Each group's row sum is at least 127 (its max key gives P = 127), so
+  // O = sum(acc w) / sum(l w) moves by at most 1 / 254 of a V unit, 2^-15 of
+  // the largest |V| (127 units): below the bf16 output's half-unit and
+  // fp16's (2^-9 and 2^-12 of a value of that size). The fp16 library
+  // stores the same sums in fp16; its checks hold it to fp16's rule.
   const float off[2] = {-MAGIC * w[0], -MAGIC * w[1]};
 #pragma unroll
   for (int h = 0; h < HD / 128; ++h) {
@@ -679,12 +717,12 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (b, heads, seq_q, d): bf16 (q_type 0), int8 (1) or fp8 e4m3 (2); k/v
+// q (b, heads, seq_q, d): act_t (q_type 0), int8 (1) or fp8 e4m3 (2); k/v
 // (b, kv_heads, seq_kv, d) int8 (kv_mode 1) or fp8 (2), or (b, kv_heads,
 // seq_kv, d / 2) packed int4 (3); d = d_head = QUANT_HD; q/k/v strides in
 // bytes (multiples of 16, d contiguous, bases 16-byte aligned). qs (b,
 // heads) fp32 (read for q_type 1, 2), ks/vs (b, kv_heads) fp32. o (b, heads,
-// seq_q, d) bf16, element strides. int8c (q_type 1, kv_mode 1 only): both
+// seq_q, d) act_t, element strides. int8c (q_type 1, kv_mode 1 only): both
 // products in int8. seq_q and seq_kv are multiples of 128. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels
 // do not take or a tensor map that cannot be encoded.
@@ -702,7 +740,7 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
       kv_mode < KV_INT8 || kv_mode > KV_INT4 || (int8c && (q_type != Q_INT8 || kv_mode != KV_INT8)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.o = static_cast<bf16*>(o);
+  p.o = static_cast<act_t*>(o);
   p.qs = static_cast<const float*>(qs);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
@@ -716,7 +754,7 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
   p.window = window;
   p.scale = scale;
   p.softcap = softcap;
-  // Q: bf16 as swizzled 64-column boxes, or its raw bytes (swizzled boxes
+  // Q: act_t as swizzled 64-column boxes, or its raw bytes (swizzled boxes
   // of 128 bytes as int8c's wgmma reads them, one plain box a row for the
   // upcast). K/V: raw rows, swizzled 128-byte boxes for int8c (K feeds
   // wgmma, V the transpose), one plain box a row for the upcast. Box rows:
@@ -728,8 +766,8 @@ int fa_flash_quant(const void* q, const void* k, const void* v, void* o, const v
   Maps m;
   const bool q_ok =
       q_type == Q_BF16
-          ? encode_bhsd(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, batch, heads, seq_q, HD, q_sb,
-                        q_sh, q_ss, q_rows, BOX_COLS, true)
+          ? encode_bhsd(&m.q, ACT_TMAP, q, batch, heads, seq_q, HD, q_sb, q_sh, q_ss, q_rows,
+                        BOX_COLS, true)
           : encode_bhsd(&m.q, u8, q, batch, heads, seq_q, HD, q_sb, q_sh, q_ss, q_rows,
                         int8c ? SW_BYTES : HD, int8c);
   if (!q_ok ||

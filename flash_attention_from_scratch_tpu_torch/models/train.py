@@ -5,6 +5,11 @@ JAX step is a pure function of (params, opt_state, tokens); here the
 optimizer owns its state and updates the parameter tensors in place, which
 keeps one copy of the weights on the card. Under a mesh each rank steps its
 own shard of the parameters (``parallel.mesh.shard_params``).
+
+An fp16 model trains through ``make_train_step(cfg, optimizer)`` with an
+optimizer that keeps no second moment, such as ``torch.optim.SGD`` (the
+counterpart of ``optax.sgd``): :func:`make_optimizer` raises on fp16 leaves
+(see there).
 """
 
 from __future__ import annotations
@@ -38,8 +43,21 @@ def make_optimizer(params, lr: float = 3e-4,
 
     Marks every leaf as requiring grad. ``step`` updates the leaves in
     place: the tree the caller holds is the trained one.
+
+    Raises ``ValueError`` on fp16 leaves, where the JAX package's
+    ``optax.adamw`` (and this AdamW, which copies it) gives non-finite
+    parameters on the first step: eps = 1e-8 rounds to 0 in fp16, and
+    (1 - b2) g^2 underflows to 0 for |g| below about 8e-4, so the update
+    m / (sqrt(v) + eps) divides by 0. Train fp16 with
+    ``make_train_step(cfg, torch.optim.SGD(leaves, lr))``.
     """
     leaves = list(param_leaves(params))
+    if any(p.dtype == torch.float16 for p in leaves):
+        raise ValueError(
+            "make_optimizer: AdamW over fp16 parameters gives non-finite parameters on "
+            "the first step (eps 1e-8 and the second moment (1 - b2) g^2 underflow to 0 "
+            "in fp16, as in optax.adamw); train fp16 with make_train_step(cfg, "
+            "torch.optim.SGD(...)) or keep the parameters in bf16 or fp32")
     for p in leaves:
         p.requires_grad_(True)
     return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.95), eps=1e-8,

@@ -31,7 +31,7 @@ import subprocess
 import torch
 
 __all__ = ["build", "load", "check", "typed_source", "launch_counts", "BUILD_DIR",
-           "ROADMAP_FP16", "ROADMAP_FP32"]
+           "ROADMAP_FP32"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -45,26 +45,23 @@ GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 # launches, and nowhere else).
 launch_counts: collections.Counter = collections.Counter()
 
-# Where the kernels that refuse a type on the card will get it.
-ROADMAP_FP16 = "fp16 on K2/K3 and K10: ROADMAP Queue 1, item 4b"
+# Where the kernels get the type they refuse on the card.
 ROADMAP_FP32 = "fp32 with exact products: ROADMAP Queue 1, item 4c"
 
 
-def typed_source(source: str, dtype: torch.dtype, kernel: str, fp16: bool = True) -> str:
+def typed_source(source: str, dtype: torch.dtype, kernel: str) -> str:
     """The ``csrc/`` source whose library holds ``kernel``'s kernels for
     activations of ``dtype`` on the card: ``source`` itself for bf16, its
-    fp16 library ``<stem>_f16.cu`` for fp16 where the kernel takes fp16
-    (``fp16``). Any other type raises ``ValueError`` naming the ROADMAP
-    item that will bring it; no wrapper converts a type for its kernel."""
+    fp16 library ``<stem>_f16.cu`` for fp16. Any other type raises
+    ``ValueError`` (fp32 naming the ROADMAP item that will bring it); no
+    wrapper converts a type for its kernel."""
     if dtype == torch.bfloat16:
         return source
-    if dtype == torch.float16 and fp16:
+    if dtype == torch.float16:
         stem, ext = os.path.splitext(source)
         return f"{stem}_f16{ext}"
-    takes = "bf16 and fp16" if fp16 else "bf16"
-    why = {torch.float32: ROADMAP_FP32, torch.float16: ROADMAP_FP16}.get(
-        dtype, "not a type the JAX package's kernels take")
-    raise ValueError(f"{kernel} takes {takes} on the card, got {dtype} ({why})")
+    why = ROADMAP_FP32 if dtype == torch.float32 else "not a type the JAX package's kernels take"
+    raise ValueError(f"{kernel} takes bf16 and fp16 on the card, got {dtype} ({why})")
 
 
 def _nvcc() -> str:

@@ -42,6 +42,8 @@ KERNEL_DQ = "flash_backward_dq"
 # flash_backward.cu's kernels at d 256 (BACKWARD_HD there).
 SOURCES = {128: "flash_backward.cu", 256: "flash_backward_d256.cu"}
 SOURCE = SOURCES[128]
+# The fp16 libraries: each width's kernels built for fp16 (FA_F16).
+SOURCES_F16 = {d: _build.typed_source(s, torch.float16, "K2/K3") for d, s in SOURCES.items()}
 LOG2E = math.log2(math.e)
 
 _I64, _I32, _F32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
@@ -218,8 +220,8 @@ def _plain_from_rows(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(d_head: int) -> ctypes.CDLL:
-    lib = _build.load(SOURCES[d_head])
+def _lib(d_head: int, dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCES[d_head], dtype, "K2/K3"))
     argtypes = [_PTR] * 9 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32, _I32, _PTR]
     for fn in (lib.fa_flash_backward_fused, lib.fa_flash_backward_dkv,
                lib.fa_flash_backward_dq):
@@ -238,9 +240,10 @@ def _aligned(x):
 def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
             fused: bool, part: str | None = None):
     """Launch K2, or K3's two kernels; ``part`` (K3 only) launches one of
-    them: ``KERNEL_DQ`` returns dq, ``KERNEL_DKV`` (dk, dv)."""
-    _build.typed_source(SOURCE, q.dtype, "K2/K3", fp16=False)  # bf16 only
+    them: ``KERNEL_DQ`` returns dq, ``KERNEL_DKV`` (dk, dv). The library
+    is q's type's (bf16, fp16; ValueError for any other)."""
     _check_width(q.shape[3])
+    lib = _lib(q.shape[3], q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
@@ -254,7 +257,6 @@ def _launch(q, k, v, lse, dsum, do, cfg: KernelConfig, scale: float,
     lse, dsum = _aligned(lse), _aligned(dsum)
     dk = torch.empty((b, kvh, skv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lib = _lib(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def call(fn, name, dq_buf, dk_buf, dv_buf):

@@ -43,6 +43,8 @@ KERNEL = "flash_quant"
 # kernels at d 256 (QUANT_HD there).
 SOURCES = {128: "flash_quant.cu", 256: "flash_quant_d256.cu"}
 SOURCE = SOURCES[128]
+# The fp16 libraries: each width's kernels built for fp16 (FA_F16).
+SOURCES_F16 = {d: _build.typed_source(s, torch.float16, "K10") for d, s in SOURCES.items()}
 SEQ_QUANTUM = 128  # seq_q and seq_kv must be multiples (d 128's KV tile; the P group)
 I8_P_GROUP = 128   # KV columns that share one P quantization max (int8_compute)
 # The kernels' CTA and tiles per head width (``UpcastTile<QT, KV, HD>`` and
@@ -109,8 +111,8 @@ def flash_forward_quantized_plain(q, k: QTensor, v: QTensor, cfg: KernelConfig, 
     """The plain PyTorch version of K10, one batch element at a time.
 
     Upcast modes: the stored values go to ``cfg.dtype`` (exact for int8,
-    fp8 and int4 in bf16), the K scale (and Q's) fold into the softmax
-    scale, the V scale into V in fp32, and :func:`reference_attention`
+    fp8 and int4 in bf16 and fp16), the K scale (and Q's) fold into the
+    softmax scale, the V scale into V in fp32, and :func:`reference_attention`
     computes the rest (P cast to ``cfg.dtype`` before PV). ``int8_compute``:
     the JAX kernel's ``_attend_i8``. Returns (b, h, sq, d) in ``cfg.dtype``
     with q's strides.
@@ -141,8 +143,8 @@ def flash_forward_quantized_plain(q, k: QTensor, v: QTensor, cfg: KernelConfig, 
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(d_head: int) -> ctypes.CDLL:
-    lib = _build.load(SOURCES[d_head])
+def _lib(d_head: int, dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    lib = _build.load(_build.typed_source(SOURCES[d_head], dtype, "K10"))
     lib.fa_flash_quant.restype = _I32
     lib.fa_flash_quant.argtypes = ([_PTR] * 7 + [_I64] * 12 + [_I32] * 10
                                    + [_F32, _F32, _I32, _PTR])
@@ -182,15 +184,19 @@ def plan(kv_mode: str, int8_compute: bool, batch: int, heads: int, seq_q: int,
 
 def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
             int8_compute: bool):
+    """Launch K10 from the library of the compute type ``cfg.dtype`` (a
+    dense Q's type, or a quantized Q's ``orig_dtype``, as the JAX kernel
+    computes in; bf16 or fp16, ValueError for any other); the output is in
+    that type."""
     q_quant = isinstance(q, QTensor)
     q_vals = q.values if q_quant else q
-    if not q_quant:  # a 16-bit Q: bf16 only
-        _build.typed_source(SOURCE, q_vals.dtype, "K10", fp16=False)
     d_head = q_vals.shape[3]
     if d_head not in D_HEADS:
         raise ValueError(f"the CUDA kernel's tiles are {' or '.join(map(str, D_HEADS))} "
                          f"wide, got d_head {d_head} (other widths: ROADMAP Queue 2, "
                          "coverage item 1)")
+    dt = cfg.dtype.torch_dtype
+    lib = _lib(d_head, dt)
     for name, t in (("q", q_vals), ("k", k.values), ("v", v.values)):
         if (t.stride(3) != 1 or t.data_ptr() % 16
                 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
@@ -199,11 +205,10 @@ def _launch(q, k: QTensor, v: QTensor, cfg: KernelConfig, scale: float,
     b, h, sq, _ = q_vals.shape
     kvh, skv = k.values.shape[1], k.seq_len
     check_grid(plan(k.mode, int8_compute, b, h, sq, skv, d_head))
-    out = torch.empty_like(q_vals, dtype=torch.bfloat16)  # keeps q's strides
+    out = torch.empty_like(q_vals, dtype=dt)  # keeps q's strides
     f32 = dict(device=q_vals.device, dtype=torch.float32)
     ks, vs = k.scales.to(**f32).contiguous(), v.scales.to(**f32).contiguous()
     qs = q.scales.to(**f32).contiguous() if q_quant else None
-    lib = _lib(d_head)
     rc = lib.fa_flash_quant(
         q_vals.data_ptr(), k.values.data_ptr(), v.values.data_ptr(), out.data_ptr(),
         qs.data_ptr() if qs is not None else None, ks.data_ptr(), vs.data_ptr(),
@@ -282,8 +287,10 @@ def flash_forward_quantized(q, k: QTensor, v: QTensor, cfg: KernelConfig | None 
     ``q_offset`` must be 0. ``scale``: None means ``cfg.softmax_scale``.
     ``int8_compute`` (default: on exactly when Q, K and V are int8
     QTensors): both products in int8, P quantized at the constant 127 per
-    group of ``I8_P_GROUP`` KV columns. Returns (b, heads, seq, d) in
-    ``cfg.dtype`` (bf16 on the card) with q's strides.
+    group of ``I8_P_GROUP`` KV columns. ``cfg`` defaults to one in the
+    dense Q's type, or the quantized Q's ``orig_dtype``. Returns (b, heads,
+    seq, d) in ``cfg.dtype`` with q's strides (on the card bf16 or fp16;
+    fp32 raises ``ValueError``).
     """
     if k.mode != v.mode:
         raise ValueError(f"K/V quant modes differ: {k.mode} vs {v.mode}")

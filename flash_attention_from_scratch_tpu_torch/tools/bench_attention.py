@@ -239,14 +239,12 @@ def bench(seq_lens, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
     """Returns {config short form: {seq: {"ms", "tflops", "gbps",
     "kernel"}}} over :func:`resolve_configs`'s configs (and, with
     ``baseline``, ``"sdpa"``), each launch timed once a seq. On the card
-    only: raises without one, for fp32 (every kernel) and for fp16 with
-    ``grad`` (K2/K3 take bf16 only)."""
+    only: raises without one, and for fp32 (every kernel: ROADMAP Queue 1,
+    item 4c); bf16 and fp16 run, ``grad`` too (K2/K3 in the inputs' type)."""
     dev = resolve_device("cuda")
     dt = DType.from_short(dtype)
-    if dt == DType.FP32 or (grad and dt != DType.BF16):
-        _build.typed_source("flash_backward.cu" if grad else "flash_forward.cu",
-                            dt.torch_dtype, "--grad's K2/K3" if grad else "K1/K11",
-                            fp16=not grad)
+    _build.typed_source("flash_backward.cu" if grad else "flash_forward.cu", dt.torch_dtype,
+                        "--grad's K2/K3" if grad else "K1/K11")
     configs = resolve_configs(kernels, dtype, causal, window, fori, num_kv_buffers)
     kvh = kv_heads or heads
     sms = sm_count(dev)
@@ -317,7 +315,7 @@ def main(argv=None):
                     help="GQA KV heads (default = --heads)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--dtype", default="bf16",
-                    help="bf16 or f16 (f16 with --grad, and f32, are refused on the card)")
+                    help="bf16 or f16 (f32 is refused on the card)")
     ap.add_argument("--causal", action="store_true",
                     help="causal masks, causal FLOP accounting")
     ap.add_argument("--window", type=int, default=0,

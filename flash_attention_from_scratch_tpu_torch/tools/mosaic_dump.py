@@ -76,12 +76,13 @@ __all__ = ["lower_kernel", "op_histogram", "diff_histograms", "slice_ir",
 # Every CUDA library of the port: K1; K11 at d 128 and 256; K2/K3 at d 128
 # and 256; K10 at d 128 and 256; K4/K5 and their merge; K6-K9 with their
 # finalize and quantize_rows_kernel; and the fp16 libraries of K1, K11,
-# K4/K5 and K6-K9 (each bf16 source built with FA_F16).
+# K2/K3, K10, K4/K5 and K6-K9 (each bf16 source built with FA_F16).
 LIBRARIES = tuple(dict.fromkeys((
     flash_forward.SOURCE, *flash_forward.SOURCES_FORI.values(),
     *flash_backward.SOURCES.values(), *flash_quant.SOURCES.values(),
     paged_attention.SOURCE, quant_matmul.SOURCE,
     flash_forward.SOURCE_F16, *flash_forward.SOURCES_FORI_F16.values(),
+    *flash_backward.SOURCES_F16.values(), *flash_quant.SOURCES_F16.values(),
     paged_attention.SOURCE_F16, quant_matmul.SOURCE_F16)))
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

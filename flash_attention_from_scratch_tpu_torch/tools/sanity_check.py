@@ -9,8 +9,8 @@ each selected config (``--kernels``, ``--kernel N`` an index into them,
 by ``utils/testing.py::adaptive_tolerance_check``; mismatch counts and the
 largest difference are printed a config. ``--small`` is batch 1, one head,
 seq 512. A config whose blocks do not tile the seq is skipped (JAX's
-rule). A config the card refuses (``--dtype f16``: the kernels take bf16,
-ROADMAP Queue 2 coverage item 4) counts as a failure, never a pass.
+rule). A config the card refuses (``--dtype f32``: the kernels take bf16
+and fp16, ROADMAP Queue 1 item 4c) counts as a failure, never a pass.
 
 Exit codes, the JAX tool's: 0 when every config passed, 1 when any failed,
 2 when no config matched or every one was skipped.

@@ -281,28 +281,32 @@ def test_flash_quant_kernel_d256_matches_plain(cuda, variant, kw, strided):
     check_quant_variant(cuda, variant, kw, strided, 256)
 
 
-def check_quant_variant(cuda, variant, kw, strided, d_head):
+def check_quant_variant(cuda, variant, kw, strided, d_head, dtype=torch.bfloat16):
+    """``variant`` on inputs of ``dtype`` (a quantized Q's ``orig_dtype``),
+    the config in that type."""
     kv_mode, q_kind, i8c = QUANT_VARIANTS[variant]
     kw = dict(kw)
     seq, (heads, kv_heads) = kw.pop("seq", 384), kw.pop("heads", (8, 2))
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in
                make_qkv(2, heads, seq, d_head, kv_heads=kv_heads, seed=8))
     qq = q if q_kind == "bf16" else quantize_kv(q, q_kind)
     if strided:
         rows = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
         qq = rows(qq) if q_kind == "bf16" else QTensor(rows(qq.values), qq.scales, q_kind)
     kq, vq = quantize_kv(k, kv_mode), quantize_kv(v, kv_mode)
-    check_flash_quant(qq, kq, vq, KernelConfig(d_head=d_head, **kw), i8c, (variant, kw))
+    cfg = KernelConfig(d_head=d_head, dtype=DType.from_torch(dtype), **kw)
+    check_flash_quant(qq, kq, vq, cfg, i8c, (variant, kw))
 
 
 def check_flash_quant(qq, kq, vq, cfg, i8c, what):
-    """K10 once on (qq, kq, vq) by the rule of the test above."""
+    """K10 once on (qq, kq, vq) by the rule of the test above; the output
+    in the config's type with Q's strides."""
     before = _build.launch_counts[FLASH_QUANT]
     out = flash_forward_quantized(qq, kq, vq, cfg, int8_compute=i8c)
     torch.cuda.synchronize()
     assert _build.launch_counts[FLASH_QUANT] == before + 1
     q_vals = qq.values if isinstance(qq, QTensor) else qq
-    assert out.dtype == torch.bfloat16 and out.stride() == q_vals.stride()
+    assert out.dtype == cfg.dtype.torch_dtype and out.stride() == q_vals.stride()
     native = flash_forward_quantized_plain(qq, kq, vq, cfg, scale=cfg.softmax_scale,
                                            int8_compute=i8c)
 
@@ -2153,13 +2157,16 @@ def test_tp_lora_decode_on_the_card_over_gloo(cuda):
 
 
 # ---------------------------------------------------------------------------
-# fp16: K1, K11, K4/K5 and K6-K9 from their fp16 libraries (the bf16
-# sources built with FA_F16), by the rules above with fp16's eps; the types
-# still refused.
+# fp16: every kernel from its fp16 library (the bf16 sources built with
+# FA_F16), by the rules above with fp16's eps; the type still refused.
 
 FP16_LIBRARIES = {FLASH_SOURCE: "flash_forward_f16.cu", SOURCE_FORI: "flash_forward_fori_f16.cu",
                   SOURCES_FORI[256]: "flash_forward_fori_d256_f16.cu",
-                  PAGED_SOURCE: "paged_attention_f16.cu", QMM_SOURCE: "quant_matmul_f16.cu"}
+                  PAGED_SOURCE: "paged_attention_f16.cu", QMM_SOURCE: "quant_matmul_f16.cu",
+                  BACKWARD_SOURCES[128]: "flash_backward_f16.cu",
+                  BACKWARD_SOURCES[256]: "flash_backward_d256_f16.cu",
+                  SOURCES_QUANT[128]: "flash_quant_f16.cu",
+                  SOURCES_QUANT[256]: "flash_quant_d256_f16.cu"}
 
 
 @pytest.mark.parametrize("d_head", [128, 256])
@@ -2295,6 +2302,99 @@ def test_fp16_libraries_multiply_fp16(cuda, bf16_source):
     assert any(".BF16" in line for line in bf16), bf16[:4]
 
 
+# K2/K3 in fp16: (seq_q, seq_kv, Q heads, KV heads, options) at d 128 and
+# 256: every mask (causal with a q_offset, a window starting mid-tile,
+# softcap 50, none), ragged tiles, one Q head a KV head, and non-square
+# shapes (the banded backward's past keys: K2 with fewer rows than keys).
+FP16_BACKWARD_CASES = [
+    (256, 256, 8, 2, dict()), (256, 256, 8, 2, dict(causal=True)),
+    (128, 256, 8, 2, dict(causal=True, q_offset=128)),
+    (192, 320, 8, 2, dict(causal=True, q_offset=128, window=70)),
+    (256, 256, 4, 4, dict(causal=True, attn_softcap=50.0)),
+    (256, 768, 8, 2, dict()),
+]
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("sq,skv,heads,kv_heads,kw", FP16_BACKWARD_CASES)
+def test_flash_backward_fp16_matches_plain(cuda, sq, skv, heads, kv_heads, kw, fused, d_head):
+    """K2 and K3 in fp16 from their fp16 libraries against the plain
+    backward in fp16 and in fp32 by the sliced rule (fp16's eps): one
+    launch of each kernel a call, dQ, dK and dV in fp16, a second call's
+    dK and dV (and K3's dQ) equal bit for bit."""
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP16, **kw)
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.float16) for x in
+               make_qkv(2, heads, sq, d_head, kv_heads=kv_heads, seq_kv=skv, seed=13))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(
+        cuda, torch.float16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    names = [KERNEL_FUSED] if fused else [KERNEL_DKV, KERNEL_DQ]
+    before = {n: _build.launch_counts[n] for n in names}
+    got = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    again = flash_backward(q, k, v, o, lse, do, cfg, fused=fused)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[n] == before[n] + 2 for n in names)
+    assert all(g.dtype == torch.float16 for g in got)
+    _check_backward(got, q, k, v, o, lse, do, cfg, (fused, d_head, sq, skv, kw))
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    if not fused:
+        assert torch.equal(got[0], again[0])
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+def test_banded_backward_fp16_matches_plain(cuda, d_head):
+    """``flash_backward(bands=2)`` in fp16: K2 on each band's diagonal
+    square and past keys, by the sliced rule against the plain backward."""
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP16, causal=True)
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.float16) for x in
+               make_qkv(1, 4, 512, d_head, kv_heads=2, seed=14))
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(
+        cuda, torch.float16)
+    o, lse = flash_forward_with_lse(q, k, v, cfg)
+    before = _build.launch_counts[KERNEL_FUSED]
+    got = flash_backward(q, k, v, o, lse, do, cfg, bands=2)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[KERNEL_FUSED] == before + 3
+    assert all(g.dtype == torch.float16 for g in got)
+    _check_backward(got, q, k, v, o, lse, do, cfg, ("bands 2", d_head))
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("variant,kw,strided", QUANT_CASES)
+def test_flash_quant_kernel_fp16_matches_plain(cuda, variant, kw, strided, d_head):
+    """K10 in fp16 (dense fp16 Q, or Q, K and V quantized from fp16: every
+    QTensor's ``orig_dtype`` fp16) on the cases above by their rule with
+    fp16's eps; int8c's integer sums stored in fp16."""
+    check_quant_variant(cuda, variant, kw, strided, d_head, torch.float16)
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("q_kind", ["int8", "fp8"])
+def test_quantized_fp16_q_keeps_its_type(cuda, q_kind, d_head):
+    """A quantized Q of fp16 ``orig_dtype`` and no config: the compute type
+    is fp16 (the JAX kernel's ``DType.from_jnp(q.orig_dtype)``), so K10's
+    fp16 library runs and the output is fp16, equal in bits to the same
+    call with an explicit fp16 config, and within the rule of the plain
+    version; the same Q from bf16 runs in bf16."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.float16) for x in
+               make_qkv(1, 4, 256, d_head, kv_heads=2, seed=15))
+    kq, vq = quantize_kv(k, "int8"), quantize_kv(v, "int8")
+    qq = quantize_kv(q, q_kind)
+    assert qq.orig_dtype == torch.float16
+    before = _build.launch_counts[FLASH_QUANT]
+    out = flash_forward_quantized(qq, kq, vq)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[FLASH_QUANT] == before + 1 and out.dtype == torch.float16
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP16)
+    i8c = q_kind == "int8"
+    assert torch.equal(out, check_flash_quant(qq, kq, vq, cfg, i8c, (q_kind, d_head)))
+    q16 = quantize_kv(q.bfloat16(), q_kind)
+    assert flash_forward_quantized(q16, kq, vq).dtype == torch.bfloat16
+
+
 def _refused_backward(cuda, dtype):
     q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
     lse = torch.zeros(1, 2, 128, device=cuda)
@@ -2319,6 +2419,12 @@ def _refused_paged(cuda, dtype):
                            torch.zeros(1, 1, dtype=torch.int32, device=cuda))
 
 
+def _refused_quantized_q(cuda, dtype):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
+    qq, kq = quantize_kv(q, "int8"), quantize_kv(q.bfloat16(), "int8")
+    flash_forward_quantized(qq, kq, kq)
+
+
 def _refused_qmm(cuda, dtype):
     wq = quantize_weight(torch.randn(256, 256, device=cuda), "int8")
     quant_matmul(torch.zeros(16, 256, device=cuda, dtype=dtype), wq)
@@ -2327,11 +2433,11 @@ def _refused_qmm(cuda, dtype):
 @pytest.mark.parametrize("call,dtype,item", [
     (_refused_forward, torch.float32, "4c"), (_refused_paged, torch.float32, "4c"),
     (_refused_qmm, torch.float32, "4c"), (_refused_backward, torch.float32, "4c"),
-    (_refused_quant, torch.float32, "4c"), (_refused_backward, torch.float16, "4b"),
-    (_refused_quant, torch.float16, "4b")],
-    ids=["K1-fp32", "K4K5-fp32", "K6-fp32", "K2K3-fp32", "K10-fp32", "K2K3-fp16", "K10-fp16"])
+    (_refused_quant, torch.float32, "4c"), (_refused_quantized_q, torch.float32, "4c")],
+    ids=["K1-fp32", "K4K5-fp32", "K6-fp32", "K2K3-fp32", "K10-fp32", "K10-fp32-quantized-q"])
 def test_types_without_a_kernel_raise(cuda, call, dtype, item):
-    """fp32 on every kernel, and fp16 on K2/K3 and K10, raise ValueError on
-    a CUDA tensor, naming the ROADMAP item that will bring them."""
+    """fp32 on every kernel raises ValueError on a CUDA tensor, naming the
+    ROADMAP item that will bring it; for K10 also a quantized Q of fp32
+    ``orig_dtype`` (the compute type), which no kernel runs as bf16."""
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1, item {item}"):
         call(cuda, dtype)

@@ -29,7 +29,25 @@ to the JAX kernels, are the ones the card's kernels are held to.
   fp16 at an aligned and a ragged (N % 16 = 2, K % 8 = 4) shape: K6/K7 by
   the rule in 16-row bands against the exact product; K8/K9 and the
   activation quantization bit for bit.
+- K2/K3 (``flash_backward``, fp16 q, k, v, dO) against the JAX backward
+  kernels in fp16 in interpret mode, fused (K2) and split (K3), at d 128
+  and 256 (causal with GQA, a window, a softcap, a q_offset): O and the LSE
+  from the JAX forward in fp16, the rule in each 64-row band with fp16's eps
+  against the JAX kernel's fp16 gradients and ``jax.grad`` of its
+  ``reference_attention`` in fp32 on the fp16-rounded inputs. A planted
+  fault, dS * scale rounded through bf16 before its products, fails it.
+- K10 (``flash_forward_quantized``, compute type fp16) against the JAX
+  kernel in fp16 (``scale_q=False``) on every variant: dense fp16 Q over
+  int8, fp8 and int4 K/V, int8 and fp8 Q (upcast), and int8 compute; the
+  QTensors are the JAX side's own (fp16 ``orig_dtype``) carried across bit
+  for bit; the rule per band against the JAX kernel's fp16 output and the
+  fp32 reference on the dequantized inputs. On the card the wrapper picks
+  the fp16 library from the compute type, a quantized Q's ``orig_dtype``
+  included, and refuses fp32 naming ROADMAP item 4c.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,12 +56,19 @@ import pytest
 import torch
 
 import flash_attention_from_scratch_tpu.ops.paged_attention as jax_pa
+from flash_attention_from_scratch_tpu.ops import quant as jax_quant
 from flash_attention_from_scratch_tpu.ops import quant_matmul as jax_qm
 from flash_attention_from_scratch_tpu.ops.configs import (
     DType as JaxDType, KernelConfig as JaxKernelConfig, KVLoop as JaxKVLoop,
 )
+from flash_attention_from_scratch_tpu.ops.flash_backward import (
+    flash_backward as jax_flash_backward,
+)
 from flash_attention_from_scratch_tpu.ops.flash_forward import (
     flash_forward_with_lse as jax_flash_forward_with_lse,
+)
+from flash_attention_from_scratch_tpu.ops.flash_quant import (
+    flash_forward_quantized as jax_flash_quant,
 )
 from flash_attention_from_scratch_tpu.ops.quant import (
     quantize_kv_pages as jax_quantize_kv_pages,
@@ -52,12 +77,16 @@ from flash_attention_from_scratch_tpu.ops.quant import (
 from flash_attention_from_scratch_tpu.ops.reference import (
     reference_attention as jax_reference,
 )
+from flash_attention_from_scratch_tpu_torch.ops import _build
+from flash_attention_from_scratch_tpu_torch.ops import flash_backward as fb
+from flash_attention_from_scratch_tpu_torch.ops import flash_quant as fq
 from flash_attention_from_scratch_tpu_torch.ops import paged_attention as pa
 from flash_attention_from_scratch_tpu_torch.ops import quant_matmul as qm
 from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
 from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
     flash_forward, flash_forward_plain, flash_forward_with_lse,
 )
+from flash_attention_from_scratch_tpu_torch.ops.quant import QTensor, quantize_kv
 from flash_attention_from_scratch_tpu_torch.ops.reference import _scores, _sink_column
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
     make_qkv, row_bands, sliced_tolerance_check,
@@ -339,3 +368,213 @@ def test_quant_matmul_fp16_matches_jax(mode, act_quant, shape):
         bands(got.float()), bands(torch.from_numpy(want)).half(),
         bands(torch.from_numpy(exact).float()), lead=2)
     assert ok, (ratio, where)
+
+
+# K2/K3. name: (d, heads, kv_heads, seq_q, seq_kv, options), b 1.
+BACKWARD_CASES = {
+    "d128-causal-gqa": (128, 4, 2, 256, 256, dict(causal=True)),
+    "d128-window": (128, 4, 2, 256, 256, dict(causal=True, window=64)),
+    "d128-softcap": (128, 2, 2, 128, 128, dict(causal=True, attn_softcap=5.0)),
+    "d256-causal-q_offset": (256, 2, 1, 128, 256, dict(causal=True, q_offset=128)),
+    "d256-window-softcap": (256, 2, 1, 256, 256,
+                            dict(causal=True, window=64, attn_softcap=50.0)),
+}
+
+
+def _backward_inputs(name):
+    d, h, kvh, sq, skv, kw = BACKWARD_CASES[name]
+    q, k, v = make_qkv(1, h, sq, d, kv_heads=kvh, seq_kv=skv, seed=51)
+    do = np.random.default_rng(52).standard_normal(q.shape).astype(np.float32)
+    cfg = JaxKernelConfig(block_q=128, block_kv=128, d_head=d, dtype=JaxDType.FP16,
+                          scale_q=False, optimized_softmax=not kw.get("window"), **kw)
+    return [jnp.asarray(x, jnp.float16) for x in (q, k, v, do)], cfg, d, kw
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_backward_forward(name):
+    (q, k, v, _), cfg, _, _ = _backward_inputs(name)
+    return jax_flash_forward_with_lse(q, k, v, cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_backward_fp32(name):
+    """jax.grad of the JAX reference in fp32 on the fp16-rounded inputs."""
+    args, _, _, kw = _backward_inputs(name)
+    q, k, v, do = (x.astype(jnp.float32) for x in args)
+    causal = kw.get("causal", False)
+    ref_kw = dict(causal=causal, q_offset=kw.get("q_offset", 0) if causal else None,
+                  window=kw.get("window", 0), softcap=kw.get("attn_softcap", 0.0))
+    grads = jax.grad(lambda q, k, v: jnp.sum(jax_reference(q, k, v, **ref_kw) * do),
+                     argnums=(0, 1, 2))(q, k, v)
+    return [torch.from_numpy(np.array(g)) for g in grads]
+
+
+def _port_backward_args(name):
+    """The port's (q, k, v, o, lse, do) in fp16 from the JAX forward, and its
+    config."""
+    (q, k, v, do), _, d, kw = _backward_inputs(name)
+    out, lse = _jax_backward_forward(name)
+    half = [torch.from_numpy(np.asarray(x, np.float32)).half() for x in (q, k, v, out)]
+    return (*half, torch.from_numpy(np.array(lse)),
+            torch.from_numpy(np.asarray(do, np.float32)).half()), KernelConfig(
+        d_head=d, dtype=DType.FP16, **kw)
+
+
+def _backward_rule(name, got, want16):
+    """(ok, worst err/bound) over dq, dk and dv by the rule per 64-row band."""
+    worst, good = 0.0, True
+    for g, w16, w32 in zip(got, want16, _jax_backward_fp32(name)):
+        assert g.shape == w32.shape and g.dtype == torch.float16
+        ok, ratio, _ = sliced_tolerance_check(
+            row_bands(g), row_bands(torch.from_numpy(np.asarray(w16, np.float32)).half()),
+            row_bands(w32), lead=3)
+        good, worst = good and ok, max(worst, ratio)
+    return good, worst
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+@pytest.mark.parametrize("name", sorted(BACKWARD_CASES))
+def test_flash_backward_fp16_matches_jax(name, fused):
+    """The port's backward in fp16 (its plain version here, K2/K3's fp16
+    libraries on the card) against the JAX kernel of the same mode."""
+    (q, k, v, do), cfg, _, _ = _backward_inputs(name)
+    out, lse = _jax_backward_forward(name)
+    want16 = jax_flash_backward(q, k, v, out, lse, do, cfg, fused=fused)
+    args, port_cfg = _port_backward_args(name)
+    ok, ratio = _backward_rule(name, fb.flash_backward(*args, port_cfg, fused=fused), want16)
+    assert ok, (name, ratio)
+
+
+def _plain_ds_through_bf16(q, k, v, o, lse, do, cfg):
+    """K2/K3's plain version (no softcap) with the planted fault: dS * scale
+    rounded to bf16, then to the inputs' fp16, before its products, as a
+    kernel that kept a bf16 pack for dS in its fp16 form would."""
+    group, scale = q.shape[1] // k.shape[1], cfg.softmax_scale
+    q32, do32 = q.float(), do.float()
+    k32, v32 = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
+    p = torch.exp2((q32 @ k32.transpose(-1, -2)) * (scale * fb.LOG2E) - lse[..., None] * fb.LOG2E)
+    p = torch.where(fb._visible(q.shape[2], k.shape[2], cfg, q.device), p, 0.0)
+    dsum = (do32 * o.float()).sum(-1, keepdim=True)
+    ds = (p * (do32 @ v32.transpose(-1, -2) - dsum) * scale).bfloat16().half().float()
+    dv = p.half().float().transpose(-1, -2) @ do32
+    dk, dq = ds.transpose(-1, -2) @ q32, ds @ k32
+
+    def group_sum(x):
+        return x.unflatten(1, (k.shape[1], group)).sum(2).half()
+
+    return dq.half(), group_sum(dk), group_sum(dv)
+
+
+def test_rule_fails_ds_rounded_through_bf16():
+    """The planted fault fails the rule where the plain version passes: the
+    rule at fp16's eps tells fp16 rounding of dS from bf16's."""
+    name = "d128-causal-gqa"
+    (q, k, v, do), cfg, _, _ = _backward_inputs(name)
+    out, lse = _jax_backward_forward(name)
+    want16 = jax_flash_backward(q, k, v, out, lse, do, cfg, fused=False)
+    args, port_cfg = _port_backward_args(name)
+    ok, _ = _backward_rule(name, fb.flash_backward_plain(*args, port_cfg), want16)
+    assert ok
+    ok, ratio = _backward_rule(name, _plain_ds_through_bf16(*args, port_cfg), want16)
+    assert not ok, f"the bf16-rounded dS passed the fp16 rule (worst err/bound {ratio})"
+
+
+# K10. name: (d, K/V mode, Q kind, options), b 1, 4/2 heads, s 256: every
+# variant at d 128, and d 256 with a window and softcap 50 and int8c.
+QUANT_CASES = {
+    "int8kv": (128, "int8", "dense", dict(causal=True)),
+    "fp8kv": (128, "fp8", "dense", dict(causal=True, window=100)),
+    "int4kv": (128, "int4", "dense", {}),
+    "int8q-upcast": (128, "int8", "int8", dict(causal=True)),
+    "fp8q": (128, "fp8", "fp8", dict(causal=True, attn_softcap=5.0)),
+    "int8c": (128, "int8", "int8", dict(causal=True)),
+    "d256-int4kv-window-softcap": (256, "int4", "dense",
+                                   dict(causal=True, window=100, attn_softcap=50.0)),
+    "d256-int8c": (256, "int8", "int8", {}),
+}
+
+
+def _to_port(x):
+    """A JAX QTensor as the port's, bit for bit (fp8 values through their
+    byte patterns), or a dense JAX array as fp16."""
+    if not isinstance(x, jax_quant.QTensor):
+        return torch.from_numpy(np.asarray(x, np.float32)).half()
+    vals = np.asarray(x.values)
+    vals = (torch.from_numpy(vals.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+            if x.mode == "fp8" else torch.from_numpy(vals.copy()))
+    return QTensor(vals, torch.from_numpy(np.array(x.scales)), x.mode, torch.float16)
+
+
+@pytest.mark.parametrize("name", sorted(QUANT_CASES))
+def test_flash_forward_quantized_fp16_matches_jax(name):
+    d, mode, q_kind, kw = QUANT_CASES[name]
+    i8c = name.endswith("int8c")
+    q, k, v = (jnp.asarray(x, jnp.float16)
+               for x in make_qkv(1, 4, 256, d, kv_heads=2, seed=53))
+    jq = q if q_kind == "dense" else jax_quant.quantize_kv(q, q_kind)
+    jk, jv = jax_quant.quantize_kv(k, mode), jax_quant.quantize_kv(v, mode)
+    assert jk.orig_dtype == jnp.float16
+    jcfg = JaxKernelConfig(block_q=128, block_kv=128, d_head=d, dtype=JaxDType.FP16,
+                           scale_q=False, optimized_softmax=not kw.get("window"), **kw)
+    want = jax_flash_quant(jq, jk, jv, jcfg, int8_compute=i8c)
+
+    def fp32(x):
+        if isinstance(x, jax_quant.QTensor):
+            return jax_quant.dequantize(dataclasses.replace(x, orig_dtype=jnp.float32))
+        return x.astype(jnp.float32)
+
+    causal = kw.get("causal", False)
+    ref32 = jax_reference(*(fp32(x) for x in (jq, jk, jv)), causal=causal,
+                          q_offset=0 if causal else None, window=kw.get("window", 0),
+                          softcap=kw.get("attn_softcap", 0.0))
+    pq = _to_port(jq)
+    assert (pq.orig_dtype if isinstance(pq, QTensor) else pq.dtype) == torch.float16
+    got = fq.flash_forward_quantized(pq, _to_port(jk), _to_port(jv),
+                                     KernelConfig(d_head=d, dtype=DType.FP16, **kw),
+                                     int8_compute=i8c)
+    assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+    ok, ratio, where = sliced_tolerance_check(
+        row_bands(got), row_bands(torch.from_numpy(np.asarray(want, np.float32)).half()),
+        row_bands(torch.from_numpy(np.array(ref32, np.float32))), lead=3)
+    assert ok, (name, ratio, where)
+
+
+class _Picked(Exception):
+    pass
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("orig", [torch.float16, torch.bfloat16, torch.float32])
+def test_k10_library_follows_the_compute_type(orig, d, monkeypatch):
+    """The card's path (``_launch``) loads the library of the compute type, a
+    quantized Q's ``orig_dtype`` when no config is given: fp16 the fp16
+    library, bf16 the bf16 one, fp32 ``ValueError`` naming item 4c (the
+    fault this replaces ran every quantized Q as bf16). K2/K3 pick theirs by
+    q's type alike. The load is intercepted before any build."""
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        raise _Picked
+
+    monkeypatch.setattr(_build, "load", load)
+    q = torch.zeros(1, 2, 128, d, dtype=orig)
+    qq, kq = quantize_kv(q, "int8"), quantize_kv(q.bfloat16(), "int8")
+    cfg = KernelConfig(d_head=d, dtype=DType.from_torch(orig))
+    for launch in (lambda: fq._launch(qq, kq, kq, cfg, cfg.softmax_scale, True),
+                   lambda: fb._launch(q, q, q, torch.zeros(1, 2, 128), torch.zeros(1, 2, 128),
+                                      q, cfg, cfg.softmax_scale, fused=True)):
+        fq._lib.cache_clear()
+        fb._lib.cache_clear()
+        if orig == torch.float32:
+            with pytest.raises(ValueError, match="ROADMAP Queue 1, item 4c"):
+                launch()
+        else:
+            with pytest.raises(_Picked):
+                launch()
+    fq._lib.cache_clear()
+    fb._lib.cache_clear()
+    if orig != torch.float32:
+        stem = {128: "", 256: "_d256"}[d] + ("_f16" if orig == torch.float16 else "")
+        assert loaded == [f"flash_quant{stem}.cu", f"flash_backward{stem}.cu"]
+    assert qq.orig_dtype == orig
