@@ -210,12 +210,29 @@ quantized Q of fp32 ``orig_dtype`` refused); Llama-3-8B served in fp16
 ``train``, ``train_fp16`` (the same run with the model in fp16, SGD) and,
 after ``train_gemma2_9b``, ``train_gemma2_9b_fp16``; ``bench_attention
 --dtype f16`` with and without ``--grad``; the ``*_f16`` entries of the
-``kernels`` line with the bf16 entries' ms beside theirs. Prints
-``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
+``kernels`` line with the bf16 entries' ms beside theirs. (15) fp32, K1
+and K11 from their fp32 libraries (``csrc/flash_forward_f32.cu``,
+``flash_forward_fori_f32.cu``, ``flash_forward_fori_d256_f32.cu``: the fp32
+main loop of ``csrc/flash_f32.cuh``, 3xTF32 products, P in fp32): after the
+fp16 kernel cases K1 and K11 at depths 1-4 on FP32_FLASH_CASES
+(``phase_fp32_cases``: d 128 and 256, every mask, sinks, GQA, a q_offset, s
+64 and 2,048, NaN-poisoned memory), each held by
+``utils/testing.py::fp32_tolerance_check`` (its error from the exact
+answer, the plain version in fp64, at most twice the plain fp32 version's,
+fp32's floors; the floors alone reported beside it, the exact answer's
+too); after the fp16 serve phases ``prefill_fp32``: Llama-3-8B in fp32 at
+full width and depth, then Gemma-2-9B in fp32 at full width and 8 layers,
+over the serve phases' prompts (finite logits, K1 one launch a layer and
+prompt, the longest prompt's first and last layers' recorded inputs held by
+that rule, ``prefill_chunked`` within 1e-3 of ``prefill``'s row max);
+``bench_attention --dtype f32`` on K1's and K11's d-128 and d-256 forms
+with SDPA's fp32 baseline (its memory-efficient backend) and
+``sanity_check --dtype f32``; the ``*_f32`` entries of the ``kernels``
+line. Prints ``serve``, ``profile``, ``serve_spec``, ``serve_chunk``, ``serve_sample``,
 ``serve_prefix``, ``serve_lora``, ``serve_moe``, ``train_moe``, ``convert``,
 ``serve_gemma2_9b``, ``train``, ``train_fp16``, ``train_gemma2_9b``,
 ``train_gemma2_9b_fp16``, ``fp16_cases``, ``fp16_backward_cases``,
-``fp16_quant_cases``,
+``fp16_quant_cases``, ``fp32_cases``, ``prefill_fp32``,
 ``serve_quant``, ``serve_lora_quant``, ``bench_quant``,
 ``bench_attention``, ``bench_decode``, ``bench_serving``, ``ring``,
 ``train_parallel``, ``serve_tp_bf16``, ``serve_tp_int8``, ``bench_ring``,
@@ -348,7 +365,10 @@ def phase_build() -> dict:
                          "flash_forward_fori_d256_f16.cu", "paged_attention_f16.cu",
                          "quant_matmul_f16.cu", "flash_backward_f16.cu",
                          "flash_backward_d256_f16.cu", "flash_quant_f16.cu",
-                         "flash_quant_d256_f16.cu"])
+                         "flash_quant_d256_f16.cu",
+                         # the fp32 libraries (K1, K11)
+                         "flash_forward_f32.cu", "flash_forward_fori_f32.cu",
+                         "flash_forward_fori_d256_f32.cu"])
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -2855,7 +2875,7 @@ KERNEL_CLASSES = (
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("quantized matmul (K6-K9)", ("quant_matmul_",)),
     ("activation quantization (K8/K9)", ("quantize_rows",)),
-    ("flash forward (K1)", ("flash_forward_kernel",)),
+    ("flash forward (K1)", ("flash_forward_kernel", "flash_f32_kernel")),
     ("flash backward (K2/K3)", ("flash_backward_",)),
     ("paged decode (K4/K5)", ("paged_decode_kernel", "paged_decode_merge_kernel")),
     ("optimizer (foreach: AdamW, SGD)", ("multi_tensor_apply",)),
@@ -3198,8 +3218,32 @@ def phase_train_gemma2_9b(smi: str, dtype=torch.bfloat16) -> dict:
 
 
 def _dname(dtype) -> str:
-    """A 16-bit type's name in a line: bf16 or fp16."""
-    return {torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+    """A type's name in a line: bf16, fp16 or fp32."""
+    return {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
+
+
+def _peak_ops(dtype) -> float:
+    """The tensor cores' peak for the attention products in ``dtype``: 989
+    TFLOP/s for bf16 and fp16, three TF32 products' worth (165) for fp32."""
+    return PEAK_FP32_PRODUCTS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def _library_attention(q, k, v, causal: bool):
+    """PyTorch's one fused call for the same attention, as a function to
+    time: SDPA with GQA; in fp32 on its memory-efficient backend, K and V
+    repeated to Q's heads first (flash attention takes no fp32)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if q.dtype != torch.float32:
+        return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    k, v = (x.repeat_interleave(q.shape[1] // x.shape[1], 1) for x in (k, v))
+
+    def efficient():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return sdpa(q, k, v, is_causal=causal)
+
+    return efficient
 
 
 def _padded(n: int) -> int:
@@ -3212,8 +3256,10 @@ def _padded(n: int) -> int:
 def time_flash(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
     """K1 at the serving run's prefill shapes: one layer, all 8 prompts, in
     ``dtype`` (bf16 or fp16: the same bytes and peak, so the same bound;
-    SDPA in that type); beside it (``grid_ms``) the same kernel launched as
-    a plain grid, one CTA per work item, in place of its persistent CTAs.
+    fp32: 4-byte elements and the 3xTF32 peak, ``_peak_ops``; the library
+    call ``_library_attention`` in that type); beside it (``grid_ms``, 16-bit
+    only: fp32's K1 is a plain grid) the same kernel launched as a plain
+    grid, one CTA per work item, in place of its persistent CTAs.
     ``ptxas``: the build's registers and spills of the library's kernel."""
     from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
     from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
@@ -3221,23 +3267,26 @@ def time_flash(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
         flash_forward, flash_forward_plain)
 
     cfg = KernelConfig(causal=True, dtype=DType.from_torch(dtype))
+    fp32 = dtype == torch.float32
     ms = grid_ms = plain_ms = lib_ms = bound_ms = 0.0
     for i, n in enumerate(SERVE_PROMPT_LENS):
         s = _padded(n)
         q, k, v = _cuda_qkv(s, s, seed=50 + i, dtype=dtype)
         ms += _time_ms(lambda: flash_forward(q, k, v, cfg))
-        grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
-        lib_ms += _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+        if not fp32:
+            grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
+        lib_ms += _time_ms(_library_attention(q, k, v, True))
         plain_ms += _time_ms(lambda: flash_forward_plain(q, k, v, cfg), iters=3,
                              warmup=1)
         ops = _attn_ops(s, HEADS, 1, causal=True)
-        nbytes = 2 * (2 * s * HEADS * D + 2 * s * KV_HEADS * D)  # q, o, k, v
-        bound_ms += 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        nbytes = q.element_size() * (2 * s * HEADS * D + 2 * s * KV_HEADS * D)  # q, o, k, v
+        bound_ms += 1e3 * max(ops / _peak_ops(dtype), nbytes / PEAK_BYTES_PER_S)
         del q, k, v
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": "operations", "grid_ms": grid_ms,
-            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_kernel",)),
+            "bound_ms": bound_ms, "bound_by": "operations",
+            **({} if fp32 else {"grid_ms": grid_ms}),
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_f32_kernel" if fp32
+                                                 else "flash_forward_kernel",)),
             "shape": "sum over the 8 padded prompts "
                      f"{[_padded(n) for n in SERVE_PROMPT_LENS]}: causal, "
                      f"b 1, {HEADS}/{KV_HEADS} heads, d {D}, {_dname(dtype)} (one layer)"}
@@ -3305,10 +3354,10 @@ def time_flash_d256(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
     """K1 at head width 256 in ``dtype``, at ``serve_gemma2_9b``'s prefill shapes: one
     global layer (causal, softcap 50) over the 8 padded prompts, b 1, 16/8
     heads; beside it a sliding layer (window 4,096) and the same kernel as
-    a plain grid. Bound: the two products' operations at the bf16 rate (or
-    the bytes, the larger); the library call is SDPA (causal, GQA), which
-    has no softcap. ``ptxas``: the build's registers and spills of
-    ``flash_forward.cu``'s kernels."""
+    a plain grid (16-bit only). Bound: the two products' operations at the
+    type's rate (``_peak_ops``; or the bytes, the larger); the library call
+    is SDPA (causal, GQA; ``_library_attention``), which has no softcap.
+    ``ptxas``: the build's registers and spills of the library's kernels."""
     from flash_attention_from_scratch_tpu_torch.ops import flash_forward as ff
     from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig
 
@@ -3316,6 +3365,7 @@ def time_flash_d256(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
                        dtype=DType.from_torch(dtype))
     local = dataclasses.replace(cfg, window=G9_WINDOW)
     nocap = dataclasses.replace(cfg, attn_softcap=0.0)
+    fp32 = dtype == torch.float32
     ms = window_ms = nocap_ms = grid_ms = plain_ms = lib_ms = bound_ms = window_bound_ms = 0.0
     for i, n in enumerate(G9_PROMPT_LENS):
         s = _padded(n)
@@ -3324,21 +3374,23 @@ def time_flash_d256(ptxas: dict | None = None, dtype=torch.bfloat16) -> dict:
         ms += _time_ms(lambda: ff.flash_forward(q, k, v, cfg))
         window_ms += _time_ms(lambda: ff.flash_forward(q, k, v, local))
         nocap_ms += _time_ms(lambda: ff.flash_forward(q, k, v, nocap))
-        grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
-        lib_ms += _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+        if not fp32:
+            grid_ms += _time_ms(lambda: ff._launch(q, k, v, cfg, None, False, ctas=0))
+        lib_ms += _time_ms(_library_attention(q, k, v, True))
         plain_ms += _time_ms(lambda: ff.flash_forward_plain(q, k, v, cfg), iters=3, warmup=1)
-        nbytes = 2 * (2 * s * G9_HEADS * G9_D + 2 * s * G9_KV_HEADS * G9_D)  # q, o, k, v
+        nbytes = q.element_size() * (2 * s * G9_HEADS * G9_D + 2 * s * G9_KV_HEADS * G9_D)
         for window in (0, G9_WINDOW):
             ops = _attn_ops(s, G9_HEADS, 1, causal=True, window=window, d=G9_D)
-            b = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+            b = 1e3 * max(ops / _peak_ops(dtype), nbytes / PEAK_BYTES_PER_S)
             bound_ms += 0 if window else b
             window_bound_ms += b if window else 0
         del q, k, v
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "window_ms": window_ms,
-            "window_bound_ms": window_bound_ms, "no_softcap_ms": nocap_ms, "grid_ms": grid_ms,
-            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_forward_kernel",)),
+            "window_bound_ms": window_bound_ms, "no_softcap_ms": nocap_ms,
+            **({} if fp32 else {"grid_ms": grid_ms}),
+            "ptxas": _kernel_ptxas(ptxas or {}, ("flash_f32_kernel" if fp32
+                                                 else "flash_forward_kernel",)),
             "shape": "sum over the 8 padded prompts "
                      f"{[_padded(n) for n in G9_PROMPT_LENS]}: causal, softcap "
                      f"{G9_SOFTCAP:g} (window_ms: window {G9_WINDOW}), b 1, "
@@ -4795,17 +4847,19 @@ def _per_batch(fn, *xs):
     return torch.cat([fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])])
 
 
-def _hold(label, out, native, ref32, launched, good=True, note="") -> tuple[float, float]:
+def _hold(label, out, native, ref32, launched, good=True, note="",
+          plain=None) -> tuple[float, float]:
     """The tolerance rule in each (batch, head, 64-row band) on its own; the
     call must have launched its kernel once and given finite values, and
     ``good`` must hold (``note`` says what it checked). Returns (max
-    |kernel - plain|, worst err/bound); raises on a failure."""
+    |kernel - plain|, worst err/bound; ``plain``, where given, is the plain
+    version when ``native`` is another reference); raises on a failure."""
     from flash_attention_from_scratch_tpu_torch.utils.testing import (
         row_bands, sliced_tolerance_check)
 
     ok, ratio, where = sliced_tolerance_check(
         row_bands(out), row_bands(native), row_bands(ref32), lead=3)
-    err = float((out.float() - native.float()).abs().max())
+    err = float((out.float() - (native if plain is None else plain).float()).abs().max())
     good = good and ok and launched == 1 and bool(torch.isfinite(out).all())
     print(f"{label}: max|kernel-plain| {err:.3e}, worst err/bound {ratio:.3f} in "
           f"(batch, head, band) {where}{note}, {launched} launch "
@@ -6709,8 +6763,7 @@ def _parallel_fields(names, ring=None, train=None, serve=None, **phases) -> dict
 # ---------------------------------------------------------------------------
 # fp16 on the card: every kernel from its fp16 library (the same sources
 # built with FA_F16: csrc/*_f16.cu), and the serving and training paths in
-# fp16 (LlamaConfig.dtype FP16). Every kernel still refuses fp32 (ROADMAP
-# Queue 1, item 4c).
+# fp16 (LlamaConfig.dtype FP16). fp32: the section after this one.
 
 FP16 = torch.float16
 # K1's and K11's fp16 cases: (label, d, heads, kv_heads, seq_q, seq_kv,
@@ -6742,41 +6795,66 @@ FP16_QMM_SHAPES = ((4096, 4096), (14336, 4096), (4096, 14336), (4096, OPENHERMES
 FP16_QMM_ROWS = (1, 16, 1024)
 
 
-def _fp16_flash_cases() -> dict:
-    """K1 and K11 at depths 1-4 on FP16_FLASH_CASES in fp16 vs the plain
-    version in fp16 and in fp32, by the rule in each (batch, head, 64-row
-    band) with fp16's eps; the LSE within 1e-3 of the fp32 one; fp16 out;
-    one launch of the kernel a call. Returns {kernel name: (max |kernel -
-    plain|, worst err/bound)}."""
+def _typed_flash_cases(dtype) -> dict:
+    """K1 and K11 at depths 1-4 in ``dtype`` against the plain version, by
+    the rule in each (batch, head, 64-row band), every call on NaN-poisoned
+    memory, its output in ``dtype``, one launch of the kernel a call. fp16
+    (FP16_FLASH_CASES): against the plain version in fp16 and in fp32 with
+    fp16's eps, the LSE within 1e-3 of the fp32 one. fp32
+    (FP32_FLASH_CASES): ``utils/testing.py::fp32_tolerance_check``, the
+    kernel's error from the exact answer (the plain version in fp64) at most
+    twice the plain fp32 version's, fp32's floors, the LSE within 1e-4 of
+    the plain fp32 one; each call's err/bound by the floors alone against
+    the plain fp32 version beside it, and the exact answer's. Returns
+    {kernel name: (max |kernel - plain|, worst err/bound)} (fp32: and
+    "floors", {"kernel", "exact"}: the worst of those)."""
     from flash_attention_from_scratch_tpu_torch.ops import _build
     from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig, KVLoop
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         KERNEL, KERNEL_FORI, flash_forward_plain, flash_forward_with_lse)
 
+    fp32 = dtype == FP32
+    cases, lse_tol = (FP32_FLASH_CASES, 1e-4) if fp32 else (FP16_FLASH_CASES, 1e-3)
     loops = {KERNEL: {}, **{f"{KERNEL_FORI} nb{n}": dict(kv_loop=KVLoop.FORI,
                                                          num_kv_buffers=n)
                             for n in FORI_DEPTHS}}
     worst = {KERNEL: (0.0, 0.0), KERNEL_FORI: (0.0, 0.0)}
-    for i, (name, d, heads, kvh, sq, skv, kw, with_sinks) in enumerate(FP16_FLASH_CASES):
-        q, k, v = _cuda_qkv(sq, skv, seed=700 + i, heads=heads, kv_heads=kvh, d=d, dtype=FP16)
+    floors = {"kernel": 0.0, "exact": 0.0}
+    for i, (name, d, heads, kvh, sq, skv, kw, with_sinks) in enumerate(cases):
+        q, k, v = _cuda_qkv(sq, skv, seed=700 + i, heads=heads, kv_heads=kvh, d=d, dtype=dtype)
         sinks = (torch.from_numpy(np.random.default_rng(710 + i).standard_normal(
             heads).astype(np.float32) * 2).cuda() if with_sinks else None)
-        base = KernelConfig(d_head=d, dtype=DType.FP16, **kw)
-        ref16, _ = flash_forward_plain(q, k, v, base, sinks)
+        base = KernelConfig(d_head=d, dtype=DType.from_torch(dtype), **kw)
         ref32, lse32 = flash_forward_plain(q.float(), k.float(), v.float(), _fp32(base), sinks)
+        if fp32:  # the exact answer, and the plain fp32 version's error from it
+            native = _exact_by_heads(q, k, v, base, sinks).float()
+            floors["exact"] = max(floors["exact"], _floors_ratio(native, ref32))
+        else:
+            native = flash_forward_plain(q, k, v, base, sinks)[0]
         for label, loop in loops.items():
             cfg = dataclasses.replace(base, **loop)
             kernel = KERNEL_FORI if cfg.kv_loop == KVLoop.FORI else KERNEL
+            _poison_free_memory()
             before = _build.launch_counts[kernel]
             out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
             sync()
             launched = _build.launch_counts[kernel] - before
             lse_err = float((lse - lse32).abs().max())
-            got = _hold(f"fp16 {label} {name}", out, ref16, ref32, launched,
-                        good=lse_err <= 1e-3 and out.dtype == FP16,
-                        note=f", lse err {lse_err:.3e}")
+            note = f", lse err {lse_err:.3e}"
+            if fp32:
+                floor = _floors_ratio(out, ref32)
+                floors["kernel"] = max(floors["kernel"], floor)
+                note += f", against the plain fp32 version by the floors alone {floor:.3f}"
+            got = _hold(f"{_dname(dtype)} {label} {name}", out, native, ref32, launched,
+                        good=lse_err <= lse_tol and out.dtype == dtype, note=note,
+                        plain=ref32 if fp32 else None)
             worst[kernel] = tuple(map(max, worst[kernel], got))
-        del q, k, v, ref16, ref32
+        del q, k, v, native, ref32
+    if fp32:
+        print(f"fp32 cases: by the floors alone against the plain fp32 version, the kernels' "
+              f"worst err/bound {floors['kernel']:.3f}, the exact answer's "
+              f"{floors['exact']:.3f}", flush=True)
+        worst["floors"] = floors
     return worst
 
 
@@ -6886,12 +6964,12 @@ def _fp16_qmm_cases() -> dict:
 
 
 def phase_fp16_cases() -> dict:
-    """Each fp16 kernel against its plain version (``_fp16_flash_cases``,
+    """Each fp16 kernel against its plain version (``_typed_flash_cases``,
     ``_fp16_paged_cases``, ``_fp16_qmm_cases``; the types still refused are
     the ``cuda`` tests' ``test_types_without_a_kernel_raise``). Returns the
     worst errors per kernel."""
     t0 = time.perf_counter()
-    line = {"flash": _fp16_flash_cases(), "paged": _fp16_paged_cases(),
+    line = {"flash": _typed_flash_cases(FP16), "paged": _fp16_paged_cases(),
             "qmm": _fp16_qmm_cases()}
     line["s"] = time.perf_counter() - t0
     print(json.dumps({"fp16_cases": line}), flush=True)
@@ -7205,40 +7283,40 @@ def phase_fp16_quant_cases() -> dict:
     return out
 
 
-def time_fp16_fori(d: int) -> dict:
-    """K11 at depth 2 and head width ``d`` in fp16 at the bf16 rows' shape
-    (b 4, s 4096, 32/8 heads at d 128, 16/8 at d 256; full plus causal)
-    beside the same calls in bf16 (``bf16_ms``), SDPA in fp16 and the plain
-    version one batch element at a time."""
+def time_typed_fori(d: int, dtype=torch.float16) -> dict:
+    """K11 at depth 2 and head width ``d`` in ``dtype`` (fp16 or fp32) at
+    the bf16 rows' shape (b 4, s 4096, 32/8 heads at d 128, 16/8 at d 256;
+    full plus causal) beside the same calls in bf16 (``bf16_ms``), the
+    library call in ``dtype`` (``_library_attention``) and the plain version
+    one batch element at a time; the bound at the type's rate
+    (``_peak_ops``)."""
     from flash_attention_from_scratch_tpu_torch.ops.configs import DType, KernelConfig, KVLoop
     from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
         flash_forward, flash_forward_plain)
 
     heads, kv_heads = (HEADS, KV_HEADS) if d == D else (G9_HEADS, G9_KV_HEADS)
     out = {"ms": 0.0, "bf16_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for dtype in (FP16, torch.bfloat16):
-        q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, dtype=dtype,
-                            heads=heads, kv_heads=kv_heads, d=d)
+    for typ in (dtype, torch.bfloat16):
+        q, k, v = _timing_qkv(PERF_SEQ, PERF_SEQ, seed=290, batch=PERF_BATCH, dtype=typ,
+                              heads=heads, kv_heads=kv_heads, d=d)
         for causal in (False, True):
-            cfg = KernelConfig(d_head=d, causal=causal, dtype=DType.from_torch(dtype),
+            cfg = KernelConfig(d_head=d, causal=causal, dtype=DType.from_torch(typ),
                                kv_loop=KVLoop.FORI, num_kv_buffers=2)
             ms = _time_ms(lambda: flash_forward(q, k, v, cfg))
-            if dtype != FP16:
+            if typ != dtype:
                 out["bf16_ms"] += ms
                 continue
             out["ms"] += ms
-            out["library_ms"] += _time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True))
+            out["library_ms"] += _time_ms(_library_attention(q, k, v, causal))
             out["plain_ms"] += _time_ms(lambda: _per_batch(
                 lambda *x: flash_forward_plain(*x, cfg)[0], q, k, v), iters=1, warmup=1)
             ops = _attn_ops(PERF_SEQ, heads, PERF_BATCH, causal, d=d)
-            nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-            out["bound_ms"] += 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            out["bound_ms"] += 1e3 * max(ops / _peak_ops(typ), nbytes / PEAK_BYTES_PER_S)
         del q, k, v
     return {**out, "bound_by": "operations",
             "shape": f"num_kv_buffers 2, non-causal + causal: b {PERF_BATCH}, "
-                     f"{heads}/{kv_heads} heads, s {PERF_SEQ}, d {d}, fp16 "
+                     f"{heads}/{kv_heads} heads, s {PERF_SEQ}, d {d}, {_dname(dtype)} "
                      "(bf16_ms: the same calls in bf16)"}
 
 
@@ -7464,7 +7542,7 @@ def fp16_kernel_entries(bf16: dict, cases: dict, served: dict, quant: dict, gemm
          "launches_path": "tools/bench_attention.py " + " ".join(BENCH_F16_ARGS),
          "max_abs_err": cases["flash"][KERNEL_FORI][0],
          "worst_err_bound": cases["flash"][KERNEL_FORI][1],
-         **time_fp16_fori(D), "d256": time_fp16_fori(G9_D),
+         **time_typed_fori(D), "d256": time_typed_fori(G9_D),
          "ptxas": _kernel_ptxas(fori_ptx, ("flash_forward_fori_kernel",))},
         {"name": "paged_decode_attention_f16", "route": "cuda",
          "source": pkg + "paged_attention_f16.cu", "replaces": tpu + "paged_attention.py:280",
@@ -7497,6 +7575,342 @@ def fp16_kernel_entries(bf16: dict, cases: dict, served: dict, quant: dict, gemm
             **timed, "bf16_ms": bf16[name]["ms"],
             "prefill": {**timed["prefill"], "bf16_ms": bf16[name]["prefill"]["ms"]}})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# fp32 on the card: K1 and K11 from their fp32 libraries
+# (csrc/flash_forward_f32.cu, flash_forward_fori_f32.cu and its d-256 build,
+# on the fp32 main loop csrc/flash_f32.cuh: 3xTF32 products, P in fp32), and
+# the model's prefill in fp32 (LlamaConfig.dtype FP32). The other kernels
+# refuse fp32 on the card (ROADMAP Queue 1, items 4c-2 and 4c-3), and so does
+# an fp32 GenerationServer.
+
+FP32 = torch.float32
+# The bound of the fp32 attention products: 3xTF32 takes three TF32 products
+# of the H100's 495 TFLOP/s (dense tensor cores, NVIDIA data sheet) for one.
+PEAK_FP32_PRODUCTS = 495e12 / 3
+# K1's and K11's fp32 cases: FP16_FLASH_CASES' masks, sinks, GQA and
+# q_offset, with s 64 beside s 2,048 at both widths.
+FP32_FLASH_CASES = FP16_FLASH_CASES + (
+    ("d128 causal s64", D, HEADS, KV_HEADS, 64, 64, dict(causal=True), False),
+    ("d128 full sinks s64", D, HEADS, KV_HEADS, 64, 64, {}, True),
+    ("d128 causal s2048", D, HEADS, KV_HEADS, 2048, 2048, dict(causal=True), False),
+    ("d256 causal softcap 50 s64", G9_D, G9_HEADS, G9_KV_HEADS, 64, 64,
+     dict(causal=True, attn_softcap=G9_SOFTCAP), False),
+    ("d256 causal s2048", G9_D, G9_HEADS, G9_KV_HEADS, 2048, 2048, dict(causal=True), False),
+)
+
+
+def _exact_by_heads(q, k, v, cfg, sinks, group: int = 8):
+    """The exact answer: the plain version in fp64 (``reference_attention``
+    on fp64 inputs), ``group`` Q heads at a time (their KV heads with them),
+    so that an s 4,096 prompt's fp64 scores stay a few GB."""
+    from flash_attention_from_scratch_tpu_torch.ops.reference import reference_attention
+
+    per = q.shape[1] // k.shape[1]
+    group = max(group // per, 1) * per
+    outs = []
+    for h0 in range(0, q.shape[1], group):
+        kv = slice(h0 // per, (h0 + group) // per)
+        outs.append(reference_attention(
+            q[:, h0:h0 + group].double(), k[:, kv].double(), v[:, kv].double(),
+            causal=cfg.causal, scale_override=cfg.softmax_scale,
+            q_offset=cfg.q_offset if cfg.causal else None, window=cfg.window,
+            softcap=cfg.attn_softcap,
+            sinks=None if sinks is None else sinks[h0:h0 + group]))
+    return torch.cat(outs, 1)
+
+
+def _floors_ratio(out, ref32) -> float:
+    """The worst err/bound of ``out`` against the plain fp32 version by the
+    rule's floors alone (its native and fp32 references one computation)."""
+    from flash_attention_from_scratch_tpu_torch.utils.testing import (
+        row_bands, sliced_tolerance_check)
+
+    return sliced_tolerance_check(row_bands(out), row_bands(ref32), row_bands(ref32),
+                                  lead=3)[1]
+
+
+def phase_fp32_cases() -> dict:
+    """K1 and K11 in fp32 against their plain version (``_typed_flash_cases``
+    on FP32_FLASH_CASES); the other kernels' refusals are the ``cuda``
+    tests' ``test_types_without_a_kernel_raise``."""
+    t0 = time.perf_counter()
+    line = {"flash": _typed_flash_cases(FP32)}
+    line["s"] = time.perf_counter() - t0
+    print(json.dumps({"fp32_cases": line}), flush=True)
+    return line
+
+
+G9_FP32_LAYERS = 8
+FP32_CHUNK_SLACK = 1e-3  # prefill_chunked's last-row logits: of prefill's row max |logit|
+
+
+def _prefill_fp32_run(label, params, cfg, prompt_lens) -> dict:
+    """One model's prefill in fp32 at page SERVE_PAGE_SIZE: each prompt of
+    ``prompt_lens`` (random tokens, padded to the prompt quantum) through
+    ``prefill`` into a dense fp32 cache, the launch counts set to 0 just
+    before and read just after (K1: one a layer and prompt, nothing else).
+    Gates: fp32 pages, finite fp32 logits; the longest prompt's first and
+    last layers' recorded q, k and v run again through K1 and held by the
+    rule (``_hold``: the error from the exact answer at most twice the plain
+    fp32 version's, fp32's floors); ``prefill_chunked`` of the longest
+    prompt in PREFILL_CHUNK-token chunks (K1 at q_offset > 0 over the pages
+    read back) within FP32_CHUNK_SLACK of ``prefill``'s row max. Reports
+    prefill tokens/s, peak memory, K1's ms on the recorded layers and the
+    profiled device time of the longest prompt's prefill by class."""
+    from flash_attention_from_scratch_tpu_torch.models import llama
+    from flash_attention_from_scratch_tpu_torch.models.decode import (
+        init_cache, prefill, prefill_chunked)
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, flash_forward, flash_forward_plain)
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
+    pages = [-(-_padded(n) // SERVE_PAGE_SIZE) for n in prompt_lens]
+    longest = int(np.argmax(prompt_lens))
+
+    def tokens(i):
+        toks = torch.zeros((1, _padded(prompt_lens[i])), dtype=torch.long)
+        toks[0, :prompt_lens[i]] = torch.from_numpy(prompts[i])
+        return toks.cuda()
+
+    cache = init_cache(cfg, sum(pages), SERVE_PAGE_SIZE)
+    if cache.k_pages[0].dtype != FP32:
+        raise AssertionError(f"{label}: pages in {cache.k_pages[0].dtype}")
+    keep, recorded, calls = (0, cfg.n_layers - 1), {}, [0]
+    attention = llama.flash_forward
+
+    def record(q, k, v, acfg, sinks=None):  # the longest prompt's kept layers' inputs
+        layer = calls[0] % cfg.n_layers
+        calls[0] += 1
+        if record.on and layer in keep:
+            recorded[layer] = (q.clone(), k.clone(), v.clone(), acfg)
+        return attention(q, k, v, acfg, sinks)
+
+    logits, first = [], 0
+    torch.cuda.reset_peak_memory_stats()
+    llama.flash_forward = record
+    try:
+        sync()
+        _build.launch_counts.clear()  # counts start at 0 just before the run
+        t = time.perf_counter()
+        for i in range(len(prompt_lens)):
+            record.on = i == longest
+            table = torch.arange(first, first + pages[i], dtype=torch.int32, device="cuda")
+            first += pages[i]
+            row, cache = prefill(params, tokens(i), cfg, cache, table,
+                                 prompt_len=prompt_lens[i])
+            logits.append(row)
+        sync()
+        wall = time.perf_counter() - t
+        counts = dict(_build.launch_counts)  # read just after
+    finally:
+        llama.flash_forward = attention
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    want = {K1: cfg.n_layers * len(prompt_lens)}
+    finite = all(bool(torch.isfinite(r).all()) and r.dtype == FP32 for r in logits)
+    if counts != want or not finite:
+        raise AssertionError(f"{label}: launches {counts} (expected {want}), finite fp32 "
+                             f"logits {finite}")
+    held = {}
+    for layer, (q, k, v, acfg) in sorted(recorded.items()):
+        _build.launch_counts.clear()
+        out = flash_forward(q, k, v, acfg)
+        sync()
+        plain = flash_forward_plain(q, k, v, acfg)[0]
+        exact = _exact_by_heads(q, k, v, acfg, None).float()
+        err, ratio = _hold(f"{label} layer {layer}", out, exact, plain,
+                           _build.launch_counts[K1], note=", the recorded prompt's inputs",
+                           plain=plain)
+        held[layer] = {"max_abs_err": err, "worst_err_bound": ratio,
+                       "floors_ratio": _floors_ratio(out, plain),
+                       "k1_ms": _time_ms(lambda: flash_forward(q, k, v, acfg)),
+                       "window": acfg.window, "softcap": acfg.attn_softcap,
+                       "shape": list(q.shape)}
+        del out, plain, exact
+    del recorded
+    n = prompt_lens[longest]
+    table = torch.arange(pages[longest], dtype=torch.int32, device="cuda")
+    _build.launch_counts.clear()
+    chunked, _ = prefill_chunked(params, tokens(longest), cfg,
+                                 init_cache(cfg, pages[longest], SERVE_PAGE_SIZE), table,
+                                 prompt_len=n, chunk_tokens=PREFILL_CHUNK)
+    sync()
+    chunk_counts = dict(_build.launch_counts)
+    gap = float((chunked - logits[longest]).abs().max() / logits[longest].abs().max())
+    chunk_want = {K1: cfg.n_layers * -(-n // PREFILL_CHUNK)}
+    print(f"{label}: prefill_chunked of {n} tokens in {PREFILL_CHUNK}-token chunks: launches "
+          f"{chunk_counts}, last-row logits within {gap:.3e} of prefill's row max (limit "
+          f"{FP32_CHUNK_SLACK})", flush=True)
+    if gap > FP32_CHUNK_SLACK or chunk_counts != chunk_want:
+        raise AssertionError(f"{label}: prefill_chunked off prefill, or launches "
+                             f"{chunk_counts} (expected {chunk_want})")
+    cache = init_cache(cfg, pages[longest], SERVE_PAGE_SIZE)
+    prof = _profile(lambda: prefill(params, tokens(longest), cfg, cache, table,
+                                    prompt_len=n))
+    del cache
+    line = {"model": label, "dtype": "fp32", "layers": cfg.n_layers, "d_head": cfg.d_head,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "window_pattern": list(cfg.window_pattern),
+            "softcap": cfg.attn_softcap, "prompt_lens": list(prompt_lens),
+            "prefill_tok_s": sum(prompt_lens) / wall, "prefill_wall_s": wall,
+            "launches": counts, "peak_mem_gb": peak, "recorded_layers": held,
+            "chunked": {"prompt": n, "chunk_tokens": PREFILL_CHUNK, "launches": chunk_counts,
+                        "last_row_gap_of_row_max": gap},
+            "longest_prompt_profile": {
+                "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                "k1_device_ms": prof["device_ms_by_class"].get("flash forward (K1)", 0.0),
+                "device_ms_by_class": prof["device_ms_by_class"]}}
+    return line
+
+
+def phase_prefill_fp32(smi: str) -> dict:
+    """Llama-3-8B in fp32 at full width and depth (``init_params`` from seed
+    0: ~32 GB of weights) over SERVE_PROMPT_LENS, then Gemma-2-9B in fp32 at
+    full width and its first G9_FP32_LAYERS layers (``serve_gemma2_9b``'s
+    random weights converted by ``from_hf_gemma2(..., dtype=torch.float32)``:
+    d 256, a 4,096 window on alternate layers, softcap 50) over
+    G9_PROMPT_LENS (the longest past the window), each by
+    ``_prefill_fp32_run``. Prints a ``prefill_fp32`` line a model; returns
+    {"llama", "gemma2"}: those lines."""
+    import types
+
+    from flash_attention_from_scratch_tpu_torch import LLAMA3_8B, DType, from_hf_gemma2
+    from flash_attention_from_scratch_tpu_torch.models.llama import init_params
+    from flash_attention_from_scratch_tpu_torch.models.train import param_leaves
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA3_8B, dtype=DType.FP32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if {p.dtype for p in param_leaves(params)} != {FP32}:
+        raise AssertionError("prefill_fp32: Llama-3-8B's weights are not all fp32")
+    out["llama"] = _prefill_fp32_run("Llama-3-8B", params, cfg, SERVE_PROMPT_LENS)
+    out["llama"].update(s=time.perf_counter() - t0, gpu=smi)
+    print(json.dumps({"prefill_fp32": out["llama"]}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hf = dict(GEMMA2_9B_HF, num_hidden_layers=G9_FP32_LAYERS)
+    sd = _gemma2_state_dict(hf, torch.Generator(device="cuda").manual_seed(0))
+    model = types.SimpleNamespace(config=types.SimpleNamespace(**hf), state_dict=lambda: sd)
+    params, cfg = from_hf_gemma2(model, dtype=FP32)
+    del sd, model
+    torch.cuda.empty_cache()
+    if {p.dtype for p in param_leaves(params)} != {FP32}:
+        raise AssertionError("prefill_fp32: Gemma-2-9B's weights are not all fp32")
+    out["gemma2"] = _prefill_fp32_run("Gemma-2-9B", params, cfg, G9_PROMPT_LENS)
+    out["gemma2"].update(s=time.perf_counter() - t0, gpu=smi)
+    print(json.dumps({"prefill_fp32": out["gemma2"]}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# bench_attention --dtype f32 on K1's and K11's d-128 and d-256 forms (JAX's
+# progression has no fp32 config), causal, with SDPA's fp32 baseline (its
+# memory-efficient backend); sanity_check --dtype f32 on the d-128 forms (its
+# inputs are d 128).
+SANITY_F32_FORMS = "fa_f32_q128_kv128_d128_grid2_x2+os+cp;fa_f32_q128_kv128_d128_fori2_x2+os+cp"
+BENCH_F32_FORMS = (SANITY_F32_FORMS + ";fa_f32_q128_kv128_d256_grid2_x2+os+cp;"
+                   "fa_f32_q128_kv128_d256_fori2_x2+os+cp")
+BENCH_F32_ARGS = ("--dtype", "f32", "--kernels", BENCH_F32_FORMS, "--causal", "--seq-lens",
+                  "2048,4096", "--baseline", "--json")
+SANITY_F32_ARGS = ("--dtype", "f32", "--kernels", SANITY_F32_FORMS, "--batch", "2")
+
+
+def phase_bench_attention_fp32(smi: str) -> dict:
+    """``tools/bench_attention.py``'s ``main`` with BENCH_F32_ARGS, the launch
+    counts set to 0 just before and read just after: a row of positive
+    TFLOP/s for each form and SDPA's (named as its memory-efficient
+    backend), K1 and K11 launched; then ``tools/sanity_check.py``'s
+    ``main`` with SANITY_F32_ARGS, which must exit 0. Returns the bench
+    run's launches."""
+    import contextlib
+    import io
+
+    from flash_attention_from_scratch_tpu_torch.ops import _build
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+    from flash_attention_from_scratch_tpu_torch.tools import sanity_check
+
+    torch.cuda.empty_cache()
+    text = io.StringIO()
+    t = time.perf_counter()
+    _build.launch_counts.clear()  # counts start at 0 just before the run
+    with contextlib.redirect_stdout(text):
+        rc = bench_attention.main(list(BENCH_F32_ARGS))
+    counts = dict(_build.launch_counts)  # read just after
+    rows = [json.loads(line) for line in text.getvalue().splitlines() if line.startswith("{")]
+    print(json.dumps({"bench_attention": {"args": " ".join(BENCH_F32_ARGS), "rows": rows,
+                                          "launches": counts, "s": time.perf_counter() - t,
+                                          "gpu": smi}}), flush=True)
+    want = {f + "+ca" for f in BENCH_F32_FORMS.split(";")} | {"sdpa"}
+    good = (rc == 0 and {r["config"] for r in rows} == want
+            and all(r["harmonic_mean"] > 0 for r in rows)
+            and {r["kernel"] for r in rows if r["config"] == "sdpa"}
+            == {"sdpa:" + bench_attention.SDPA_FP32_BACKEND}
+            and all(counts.get(k, 0) > 0 for k in (K1, KERNEL_FORI)))
+    if not good:
+        raise AssertionError(f"bench_attention {' '.join(BENCH_F32_ARGS)}: rc {rc}, launches "
+                             f"{counts}, rows {rows}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = sanity_check.main(list(SANITY_F32_ARGS))
+    print(f"sanity_check {' '.join(SANITY_F32_ARGS)}: exit {rc}\n{text.getvalue()}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"sanity_check {' '.join(SANITY_F32_ARGS)} exited {rc}")
+    return counts
+
+
+def fp32_kernel_entries(cases: dict, prefilled: dict, bench: dict, bf16: dict,
+                        logs: dict) -> list:
+    """The fp32 entries of the ``kernels`` line: K1 and K11 from their fp32
+    libraries, each with its launches on the fp32 path (K1: ``prefill_fp32``'s
+    Llama-3-8B run; K11: ``bench_attention --dtype f32``), its worst error
+    against the plain version (``fp32_cases``), its registers and spills and
+    its times beside the bound (the products at PEAK_FP32_PRODUCTS, or the
+    bytes), the plain version's and SDPA's in fp32, at the bf16 entries'
+    shapes, with the bf16 entry's ms from the same run in ``bf16_ms``
+    (``bf16``: the bf16 entries by name)."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import (
+        KERNEL as K1, KERNEL_FORI)
+
+    pkg = "flash_attention_from_scratch_tpu_torch/csrc/"
+    tpu = "flash_attention_from_scratch_tpu/ops/"
+    flash_ptx = _ptxas_by_kernel(logs.get("flash_forward_f32.cu", ""))
+    fori_ptx = _ptxas_by_kernel(logs.get("flash_forward_fori_f32.cu", "")
+                                + logs.get("flash_forward_fori_d256_f32.cu", ""))
+    llama, gemma = prefilled["llama"], prefilled["gemma2"]
+    floors = cases["flash"]["floors"]
+    return [
+        {"name": "flash_forward_f32", "route": "cuda", "source": pkg + "flash_forward_f32.cu",
+         "replaces": tpu + "flash_forward.py:284", "counted_as": K1,
+         "launches": llama["launches"].get(K1, 0),
+         "launches_path": f"prefill_fp32: Llama-3-8B in fp32, {llama['layers']} layers x "
+                          f"{len(llama['prompt_lens'])} prompts",
+         "launches_gemma2_9b_fp32": gemma["launches"].get(K1, 0),
+         "launches_chunked": {"llama": llama["chunked"]["launches"].get(K1, 0),
+                              "gemma2": gemma["chunked"]["launches"].get(K1, 0)},
+         "launches_bench_attention_f32": bench.get(K1, 0),
+         "max_abs_err": cases["flash"][K1][0], "worst_err_bound": cases["flash"][K1][1],
+         "worst_err_bound_by_floors": floors["kernel"],
+         "exact_answer_err_bound_by_floors": floors["exact"],
+         **time_flash(flash_ptx, FP32), "bf16_ms": bf16[K1]["ms"],
+         "d256": {**time_flash_d256(flash_ptx, FP32),
+                  "bf16_ms": bf16["flash_forward_d256"]["ms"]}},
+        {"name": "flash_forward_fori_f32", "route": "cuda",
+         "source": pkg + "flash_forward_fori_f32.cu", "replaces": tpu + "flash_forward.py:578",
+         "also_source": pkg + "flash_forward_fori_d256_f32.cu", "counted_as": KERNEL_FORI,
+         "launches": bench.get(KERNEL_FORI, 0),
+         "launches_path": "tools/bench_attention.py " + " ".join(BENCH_F32_ARGS),
+         "max_abs_err": cases["flash"][KERNEL_FORI][0],
+         "worst_err_bound": cases["flash"][KERNEL_FORI][1],
+         **time_typed_fori(D, FP32), "d256": time_typed_fori(G9_D, FP32),
+         "ptxas": _kernel_ptxas(fori_ptx, ("flash_f32_kernel",))},
+    ]
 
 
 def serving_turn() -> None:
@@ -7556,6 +7970,8 @@ def main(argv=None) -> int:
     fp16_bwd = phase_fp16_backward_cases()
     fp16_quant = phase_fp16_quant_cases()
     lap("fp16 kernel cases")
+    fp32_cases = phase_fp32_cases()
+    lap("fp32 kernel cases")
     served = phase_serve(smi)
     counts, serve_line = served["counts"], served["line"]
     params = served["server"].params
@@ -7580,6 +7996,8 @@ def main(argv=None) -> int:
     quant16 = phase_serve_fp16_quant(smi)
     gemma16 = phase_serve_gemma2_9b_fp16(smi)
     lap("serve phases (fp16)")
+    prefilled32 = phase_prefill_fp32(smi)
+    lap("prefill_fp32")
     moe_served = phase_serve_moe(smi)
     lap("serve_moe")
     torch.cuda.empty_cache()
@@ -7625,6 +8043,8 @@ def main(argv=None) -> int:
     attn_options = phase_bench_attention_options(smi)
     torch.cuda.empty_cache()
     bench16 = phase_bench_attention_fp16(smi)
+    torch.cuda.empty_cache()
+    bench32 = phase_bench_attention_fp32(smi)
     torch.cuda.empty_cache()
     tool_cases = phase_bench_tool_cases()
     torch.cuda.empty_cache()
@@ -7921,6 +8341,8 @@ def main(argv=None) -> int:
     kernels += fp16_training_entries(by_name, fp16_bwd, fp16_quant, trained16, trained9_16,
                                      bench16["grad"], logs)
     lap("kernel timing: fp16 K2/K3, K10")
+    kernels += fp32_kernel_entries(fp32_cases, prefilled32, bench32, by_name, logs)
+    lap("kernel timing: fp32 K1, K11")
     print(json.dumps({"phase_s": laps}), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)

@@ -12,9 +12,11 @@ Every kernel entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception. ``launch_counts``
 holds, per kernel, the launches its wrapper has made.
 
-A kernel's 16-bit activation type is fixed when its library is built: a
-source builds its bf16 kernels, and ``<stem>_f16.cu`` (the source built
-with ``FA_F16``) the fp16 ones, a library of its own (:func:`typed_source`).
+A kernel's activation type is fixed when its library is built: a source
+builds its bf16 kernels, ``<stem>_f16.cu`` (the source built with
+``FA_F16``) the fp16 ones, a library of its own, and for K1 and K11
+``<stem>_f32.cu`` their fp32 kernels, on a main loop of their own
+(``csrc/flash_f32.cuh``; :func:`typed_source`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import subprocess
 import torch
 
 __all__ = ["build", "load", "check", "typed_source", "launch_counts", "BUILD_DIR",
-           "ROADMAP_FP32"]
+           "ROADMAP_FP32", "FP32_SOURCES"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -45,23 +47,35 @@ GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 # launches, and nowhere else).
 launch_counts: collections.Counter = collections.Counter()
 
-# Where the kernels get the type they refuse on the card.
-ROADMAP_FP32 = "fp32 with exact products: ROADMAP Queue 1, item 4c"
+# Where the kernels get the type they refuse on the card: the ROADMAP
+# sub-item that brings each source's fp32 library.
+ROADMAP_FP32 = "fp32 with exact products: ROADMAP Queue 1, item {}"
+_FP32_ITEMS = {"paged_attention.cu": "4c-2", "quant_matmul.cu": "4c-2",
+               "flash_backward.cu": "4c-3", "flash_backward_d256.cu": "4c-3",
+               "flash_quant.cu": "4c-3", "flash_quant_d256.cu": "4c-3"}
+# The sources with an fp32 library ``<stem>_f32.cu`` (K1 and K11).
+FP32_SOURCES = ("flash_forward.cu", "flash_forward_fori.cu", "flash_forward_fori_d256.cu")
 
 
 def typed_source(source: str, dtype: torch.dtype, kernel: str) -> str:
     """The ``csrc/`` source whose library holds ``kernel``'s kernels for
     activations of ``dtype`` on the card: ``source`` itself for bf16, its
-    fp16 library ``<stem>_f16.cu`` for fp16. Any other type raises
-    ``ValueError`` (fp32 naming the ROADMAP item that will bring it); no
-    wrapper converts a type for its kernel."""
+    fp16 library ``<stem>_f16.cu`` for fp16, and for K1's and K11's sources
+    (:data:`FP32_SOURCES`) their fp32 library ``<stem>_f32.cu``. Any other
+    type raises ``ValueError`` (fp32 naming the ROADMAP sub-item that will
+    bring it); no wrapper converts a type for its kernel."""
+    stem, ext = os.path.splitext(source)
     if dtype == torch.bfloat16:
         return source
     if dtype == torch.float16:
-        stem, ext = os.path.splitext(source)
         return f"{stem}_f16{ext}"
-    why = ROADMAP_FP32 if dtype == torch.float32 else "not a type the JAX package's kernels take"
-    raise ValueError(f"{kernel} takes bf16 and fp16 on the card, got {dtype} ({why})")
+    if dtype == torch.float32 and source in FP32_SOURCES:
+        return f"{stem}_f32{ext}"
+    if dtype == torch.float32:
+        raise ValueError(f"{kernel} takes bf16 and fp16 on the card, got {dtype} "
+                         f"({ROADMAP_FP32.format(_FP32_ITEMS[source])})")
+    raise ValueError(f"{kernel} takes bf16, fp16 and (K1, K11) fp32 on the card, got "
+                     f"{dtype} (not a type the JAX package's kernels take)")
 
 
 def _nvcc() -> str:

@@ -12,12 +12,17 @@ neither O nor D). The sink's own gradient is one plain pass:
 A config with ``decompose=True`` runs the row-band forward
 (``ops/causal_decomp.py``); each band's LSE is the full problem's for its
 rows, so the backward is the standard K2/K3 on the whole problem.
+
+On the card fp32 runs the forward (K1's or K11's fp32 library); its
+backward raises ``ValueError`` before any work, naming the ROADMAP item that
+brings fp32 to K2/K3.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from .configs import KernelConfig
 from .flash_backward import flash_backward
 from .flash_forward import flash_forward_with_lse
@@ -36,6 +41,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, sinks = ctx.saved_tensors
+        if q.device.type == "cuda":  # a type K2/K3 has no library for raises here
+            _build.typed_source("flash_backward.cu", q.dtype, "flash_attention's backward (K2/K3)")
         dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.cfg)
         dsinks = None
         if sinks is not None and ctx.needs_input_grad[3]:

@@ -27,7 +27,7 @@ from . import _build
 from .configs import KernelConfig
 from .flash_forward import (
     ALIGN_SLACK, D_HEAD, D_HEADS, MAX_GRID_YZ, SMEM_LIMIT, WG_ROWS, TilePlan, _default_cfg,
-    _kernel_layout, _strides, _validate, bf16_tile_bytes, check_grid,
+    _kernel_layout, _strides, _validate, tile_bytes, check_grid,
 )
 
 __all__ = ["flash_backward", "flash_backward_plain", "fused_choice", "plan",
@@ -86,8 +86,8 @@ def _dkv_plan(fused: bool, batch: int, kv_heads: int, seq_kv: int,
     ds = nc * (bkv * bq * 2 + 4 * 16 * 64 * 4) if fused else 0
     tiles = -(-seq_kv // bkv)
     return TilePlan(rows=bq, keys=bkv, slots=slots,
-                    smem=(2 * bf16_tile_bytes(bkv, d_head)
-                          + slots * (2 * bf16_tile_bytes(bq, d_head) + stats)
+                    smem=(2 * tile_bytes(bkv, d_head)
+                          + slots * (2 * tile_bytes(bq, d_head) + stats)
                           + ds + ALIGN_SLACK),
                     grid=(kv_heads, batch, tiles), kv_tiles=tiles, threads=nc * 128)
 
@@ -97,8 +97,8 @@ def _dq_plan(batch: int, heads: int, seq_q: int, seq_kv: int,
     _check_width(d_head)
     slots, keys = DQ_SLOTS[d_head], DQ_KEYS[d_head]
     return TilePlan(rows=WG_ROWS, keys=keys, slots=slots,
-                    smem=(2 * bf16_tile_bytes(WG_ROWS, d_head)
-                          + slots * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
+                    smem=(2 * tile_bytes(WG_ROWS, d_head)
+                          + slots * 2 * tile_bytes(keys, d_head) + ALIGN_SLACK),
                     grid=(seq_q // WG_ROWS, heads, batch), kv_tiles=-(-seq_kv // keys),
                     threads=128)
 

@@ -1,23 +1,26 @@
 """Flash-attention forward: the wrapper of the Hopper kernels K1 and K11.
 
 Counterpart of ``flash_attention_from_scratch_tpu/ops/flash_forward.py``
-``flash_forward`` / ``flash_forward_with_lse``. Both kernels run the wgmma
-+ TMA main loop of ``csrc/flash_wgmma.cuh``. For a CUDA tensor the wrapper
-launches ``csrc/flash_forward.cu`` (K1: persistent CTAs over a work list of
-(Q tile, head, batch) items, heaviest first; its launch is
-:func:`grid_plan`), or ``csrc/flash_forward_fori.cu`` (K11, the K/V copy
+``flash_forward`` / ``flash_forward_with_lse``. For a CUDA tensor the
+wrapper launches K1 (``csrc/flash_forward.cu``: persistent CTAs over a work
+list of (Q tile, head, batch) items, heaviest first; its launch is
+:func:`grid_plan`), or K11 (``csrc/flash_forward_fori.cu``, the K/V copy
 ring of ``num_kv_buffers`` slots; its launch is :func:`fori_plan`; at d 256
-the library ``csrc/flash_forward_fori_d256.cu`` builds) when
-``cfg.kv_loop`` is ``KVLoop.FORI``; both take d 128 and 256, bf16 and (from
-the fp16 libraries ``csrc/flash_forward_f16.cu``,
-``csrc/flash_forward_fori_f16.cu`` and ``csrc/flash_forward_fori_d256_f16.cu``,
-the same sources built for fp16) fp16, P rounded to the inputs' type as the
-JAX kernel's ``cast_p_to_dtype``; fp32 raises ``ValueError``. For a CPU
-tensor it runs the plain version, :func:`flash_forward_plain`, the same
-function for both. The JAX package's row-band causal dispatch
-(``ops/causal_decomp.py``) has no counterpart: its output is that of a
-causal kernel that skips the tiles above the diagonal, which both kernels
-do.
+the library ``csrc/flash_forward_fori_d256.cu`` builds) when ``cfg.kv_loop``
+is ``KVLoop.FORI``; both take d 128 and 256. bf16 and fp16 (the fp16
+libraries ``csrc/flash_forward_f16.cu``, ``csrc/flash_forward_fori_f16.cu``
+and ``csrc/flash_forward_fori_d256_f16.cu``: the same sources built for
+fp16) run the wgmma + TMA main loop of ``csrc/flash_wgmma.cuh``, P rounded
+to the inputs' type as the JAX kernel's ``cast_p_to_dtype``. fp32 runs the
+libraries ``csrc/flash_forward_f32.cu``, ``csrc/flash_forward_fori_f32.cu``
+and ``csrc/flash_forward_fori_d256_f32.cu`` on the fp32 main loop of
+``csrc/flash_f32.cuh``: exact products (3xTF32 on ``mma.sync``, as the JAX
+kernel's ``Precision.HIGHEST``), P kept in fp32, one CTA a (Q tile, head,
+batch) item for K1 too. For a CPU tensor it runs the plain version,
+:func:`flash_forward_plain`, the same function for every kernel. The JAX
+package's row-band causal dispatch (``ops/causal_decomp.py``) has no
+counterpart: its output is that of a causal kernel that skips the tiles
+above the diagonal, which every kernel does.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from ..utils.device import resolve_device, sm_count
 
 __all__ = ["flash_forward", "flash_forward_with_lse", "flash_forward_plain",
            "make_flash_forward", "fori_plan", "grid_plan", "GridPlan", "TilePlan", "KERNEL",
-           "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD", "D_HEADS", "FORI_TILES"]
+           "KERNEL_FORI", "SEQ_QUANTUM", "D_HEAD", "D_HEADS", "FORI_TILES", "FORI_TILES_F32",
+           "GRID_TILES_F32", "tile_bytes"]
 
 KERNEL = "flash_forward"
 SOURCE = "flash_forward.cu"
@@ -47,6 +51,11 @@ SOURCE_FORI = SOURCES_FORI[128]
 # The fp16 libraries: each bf16 source's kernels built for fp16 (FA_F16).
 SOURCE_F16 = _build.typed_source(SOURCE, torch.float16, KERNEL)
 SOURCES_FORI_F16 = {d: _build.typed_source(s, torch.float16, KERNEL_FORI)
+                    for d, s in SOURCES_FORI.items()}
+# The fp32 libraries: K1's and K11's kernels on the fp32 main loop
+# (csrc/flash_f32.cuh).
+SOURCE_F32 = _build.typed_source(SOURCE, torch.float32, KERNEL)
+SOURCES_FORI_F32 = {d: _build.typed_source(s, torch.float32, KERNEL_FORI)
                     for d, s in SOURCES_FORI.items()}
 SEQ_QUANTUM = 64  # both kernels take seq_q and seq_kv in multiples of this
 D_HEAD = 128      # the narrowest head width; the plain versions take its multiples
@@ -80,9 +89,15 @@ class TilePlan:
     threads: int = TILE_THREADS
 
 
-def bf16_tile_bytes(rows: int, d_head: int = D_HEAD) -> int:
-    """Bytes of a bf16 (rows, d_head) tile in shared memory."""
-    return rows * d_head * 2
+def tile_bytes(rows: int, d_head: int = D_HEAD, elem_bytes: int = 2) -> int:
+    """Bytes of a (rows, d_head) tile of ``elem_bytes``-byte elements (2:
+    bf16 or fp16; 4: fp32) in shared memory."""
+    return rows * d_head * elem_bytes
+
+
+# The fp32 main loop (``F32Tile`` in csrc/flash_f32.cuh): consumer warps of
+# 16 Q rows and one producer warp.
+F32_WARP_ROWS = 16
 
 
 # K11's CTA and slots (``ForiTile<NB, HD>`` in csrc/flash_forward_fori.cu)
@@ -92,25 +107,36 @@ def bf16_tile_bytes(rows: int, d_head: int = D_HEAD) -> int:
 # registers a thread), 64-key slots (32 at depth 4, whose four 64-key slots
 # do not fit).
 FORI_TILES = {128: (2, 128), 256: (1, 64)}
+# K11 in fp32 (csrc/flash_forward_fori_f32.cu, ``F32Tile<NB, HD, 4, BK>``):
+# (consumer warps of 16 Q rows, keys a slot) per head width, every depth.
+FORI_TILES_F32 = {128: (4, 32), 256: (4, 16)}
 
 
 def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
-              seq_kv: int, d_head: int = D_HEAD) -> TilePlan:
-    """K11's launch (``ForiTile<NB, HD>`` in ``csrc/flash_forward_fori.cu``)
-    at head width ``d_head`` (128 or 256): a ring of ``num_kv_buffers``
-    slots of BK keys (the K tile, then the V tile, bf16) beside the bf16 Q
-    tile, BK from :data:`FORI_TILES`, halved at depth 4."""
+              seq_kv: int, d_head: int = D_HEAD, elem_bytes: int = 2) -> TilePlan:
+    """K11's launch at head width ``d_head`` (128 or 256) for elements of
+    ``elem_bytes`` bytes. 2 (bf16, fp16): ``ForiTile<NB, HD>`` in
+    ``csrc/flash_forward_fori.cu``, a ring of ``num_kv_buffers`` slots of
+    BK keys (the K tile, then the V tile) beside the Q tile, BK from
+    :data:`FORI_TILES`, halved at depth 4. 4 (fp32): ``F32Tile`` in
+    ``csrc/flash_f32.cuh``, 4 consumer warps of 16 rows and a producer warp,
+    BK from :data:`FORI_TILES_F32` at every depth."""
     if d_head not in FORI_TILES:
         raise ValueError(f"K11 takes head widths {D_HEADS}, got {d_head}")
-    consumers, keys = FORI_TILES[d_head]
-    keys //= 2 if num_kv_buffers == 4 else 1
-    rows = consumers * WG_ROWS
+    if elem_bytes == 4:
+        warps, keys = FORI_TILES_F32[d_head]
+        rows, threads = warps * F32_WARP_ROWS, (warps + 1) * 32
+    else:
+        consumers, keys = FORI_TILES[d_head]
+        keys //= 2 if num_kv_buffers == 4 else 1
+        rows = consumers * WG_ROWS
+        threads = (consumers + 1) * 128
     return TilePlan(
         rows=rows, keys=keys, slots=num_kv_buffers,
-        smem=(bf16_tile_bytes(rows, d_head)
-              + num_kv_buffers * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
+        smem=(tile_bytes(rows, d_head, elem_bytes)
+              + num_kv_buffers * 2 * tile_bytes(keys, d_head, elem_bytes) + ALIGN_SLACK),
         grid=(-(-seq_q // rows), heads, batch), kv_tiles=-(-seq_kv // keys),
-        threads=(consumers + 1) * 128)
+        threads=threads)
 
 
 # K1's CTA and ring (``GridTile<HD>`` in csrc/flash_forward.cu) per head
@@ -120,6 +146,10 @@ def fori_plan(num_kv_buffers: int, batch: int, heads: int, seq_q: int,
 # (its 64 x 256 fp32 O is 128 registers a thread), 3 slots of 64 keys, one
 # Q tile.
 GRID_TILES = {128: (2, 128, 2, 2), 256: (1, 64, 3, 1)}
+# K1 in fp32 (``GridTileF32<HD>`` in csrc/flash_forward_f32.cu): (consumer
+# warps of 16 Q rows, keys a slot, slots, Q tiles) per head width; one CTA
+# a work item, not persistent.
+GRID_TILES_F32 = {128: (7, 32, 2, 1), 256: (4, 16, 2, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +162,10 @@ class GridPlan:
     on even rounds and ``r * ctas + ctas - 1 - c`` on odd ones (a snake).
     ``smem`` bytes of dynamic shared memory: ``q_bufs`` Q tiles and
     ``slots`` K/V slots of ``keys`` keys, ``d_head`` wide; ``threads`` a
-    producer warpgroup and ``rows / 64`` consumer warpgroups."""
+    producer warpgroup and ``rows / 64`` consumer warpgroups. fp32
+    (``elem_bytes`` 4): one CTA an item (``ctas == n_items``; the grid runs
+    each head's Q tiles heaviest first), ``threads`` a producer warp and
+    ``rows / 16`` consumer warps."""
     rows: int
     keys: int
     slots: int
@@ -187,24 +220,31 @@ class GridPlan:
 
 @functools.lru_cache(maxsize=1024)
 def grid_plan(batch: int, heads: int, seq_q: int, seq_kv: int, causal: bool,
-              window: int, q_offset: int, sm_count: int, d_head: int = D_HEAD) -> GridPlan:
-    """K1's launch (``GridTile<HD>`` and ``fa_flash_forward_ctas`` in
-    ``csrc/flash_forward.cu``) at head width ``d_head`` (128 or 256):
-    min(items, sm_count) persistent CTAs."""
+              window: int, q_offset: int, sm_count: int, d_head: int = D_HEAD,
+              elem_bytes: int = 2) -> GridPlan:
+    """K1's launch at head width ``d_head`` (128 or 256) for elements of
+    ``elem_bytes`` bytes: 2 (bf16, fp16), ``GridTile<HD>`` and
+    ``fa_flash_forward_ctas`` in ``csrc/flash_forward.cu``, min(items,
+    sm_count) persistent CTAs; 4 (fp32), ``GridTileF32<HD>`` in
+    ``csrc/flash_forward_f32.cu``, one CTA an item."""
     if d_head not in GRID_TILES:
         raise ValueError(f"K1 takes head widths {D_HEADS}, got {d_head}")
-    consumers, keys, slots, q_bufs = GRID_TILES[d_head]
-    rows = consumers * WG_ROWS
+    if elem_bytes == 4:
+        warps, keys, slots, q_bufs = GRID_TILES_F32[d_head]
+        rows, threads = warps * F32_WARP_ROWS, (warps + 1) * 32
+    else:
+        consumers, keys, slots, q_bufs = GRID_TILES[d_head]
+        rows, threads = consumers * WG_ROWS, (consumers + 1) * 128
     q_tiles = -(-seq_q // rows)
     n_items = q_tiles * heads * batch
     return GridPlan(
         rows=rows, keys=keys, slots=slots, q_bufs=q_bufs,
-        smem=(q_bufs * bf16_tile_bytes(rows, d_head)
-              + slots * 2 * bf16_tile_bytes(keys, d_head) + ALIGN_SLACK),
-        ctas=min(n_items, sm_count), n_items=n_items, q_tiles=q_tiles, heads=heads,
-        batch=batch, seq_q=seq_q, seq_kv=seq_kv, causal=bool(causal),
-        window=window if causal else 0, q_offset=q_offset,
-        threads=(consumers + 1) * 128, d_head=d_head)
+        smem=(q_bufs * tile_bytes(rows, d_head, elem_bytes)
+              + slots * 2 * tile_bytes(keys, d_head, elem_bytes) + ALIGN_SLACK),
+        ctas=n_items if elem_bytes == 4 else min(n_items, sm_count), n_items=n_items,
+        q_tiles=q_tiles, heads=heads, batch=batch, seq_q=seq_q, seq_kv=seq_kv,
+        causal=bool(causal), window=window if causal else 0, q_offset=q_offset,
+        threads=threads, d_head=d_head)
 
 
 def check_grid(plan: TilePlan) -> None:
@@ -254,6 +294,7 @@ def flash_forward_plain(q, k, v, cfg: KernelConfig, sinks=None):
         softcap=cfg.attn_softcap, sinks=sinks, return_lse=True)
 
 
+# The C entries' arguments, one list for every library of K1 and K11.
 _ARGTYPES = [_PTR] * 6 + [_I64] * 12 + [_I32] * 8 + [_F32, _F32]
 
 
@@ -285,9 +326,10 @@ def _kernel_layout(t) -> bool:
 
 
 def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None = None):
-    """Launch K1 or K11 from the library of q's type (bf16 or fp16). ``ctas``
-    (K1 only): 0 launches one CTA per work item (a plain grid) in place of
-    :func:`grid_plan`'s persistent CTAs."""
+    """Launch K1 or K11 from the library of q's type (bf16, fp16 or fp32;
+    the output in that type). ``ctas`` (K1 only): 0 launches one CTA per
+    work item (a plain grid) in place of :func:`grid_plan`'s persistent
+    CTAs; fp32's K1 always runs one CTA an item."""
     d_head = q.shape[3]
     fori = cfg.kv_loop == KVLoop.FORI
     if d_head not in D_HEADS:
@@ -312,13 +354,13 @@ def _launch(q, k, v, cfg: KernelConfig, sinks, want_lse: bool, ctas: int | None 
             float(cfg.softmax_scale), float(cfg.attn_softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if fori:
-        check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv, d_head))
+        check_grid(fori_plan(cfg.num_kv_buffers, b, h, sq, skv, d_head, q.element_size()))
         lib, name = _fori_lib(d_head, q.dtype), KERNEL_FORI
         rc = lib.fa_flash_forward_fori(*args, d_head, cfg.num_kv_buffers, stream)
     else:
         if ctas is None:
             ctas = grid_plan(b, h, sq, skv, cfg.causal, cfg.window, cfg.q_offset,
-                             sm_count(q.device), d_head).ctas
+                             sm_count(q.device), d_head, q.element_size()).ctas
         lib, name = _lib(q.dtype), KERNEL
         rc = lib.fa_flash_forward_ctas(*args, d_head, ctas, stream)
     _build.check(lib, rc, name)

@@ -30,7 +30,7 @@ import torch
 from . import _build
 from .configs import DType, KernelConfig
 from .flash_forward import (
-    ALIGN_SLACK, D_HEAD, D_HEADS, WG_ROWS, TilePlan, bf16_tile_bytes, check_grid,
+    ALIGN_SLACK, D_HEAD, D_HEADS, WG_ROWS, TilePlan, tile_bytes, check_grid,
 )
 from .quant import QTensor, unpack_int4
 from .reference import MASK_VALUE, reference_attention
@@ -175,7 +175,7 @@ def plan(kv_mode: str, int8_compute: bool, batch: int, heads: int, seq_q: int,
     else:
         slots = 2
         row = d_head // 2 if kv_mode == "int4" else d_head
-        smem = (bf16_tile_bytes(rows, d_head) + slots * 2 * bf16_tile_bytes(keys, d_head)
+        smem = (tile_bytes(rows, d_head) + slots * 2 * tile_bytes(keys, d_head)
                 + 2 * (2 * keys * row) + ALIGN_SLACK)
     return TilePlan(rows=rows, keys=keys, slots=slots, smem=smem,
                     grid=(-(-seq_q // rows), heads, batch),

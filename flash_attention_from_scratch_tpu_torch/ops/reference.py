@@ -27,8 +27,10 @@ def _scores(q, k, *, causal, scale, q_offset, window, softcap):
     if k.shape[1] != q.shape[1]:  # GQA: broadcast KV heads to Q heads
         k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     # Products of 16-bit values are exact in fp32, so upcasting first is the
-    # torch form of the JAX oracle's preferred_element_type=float32.
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    # torch form of the JAX oracle's preferred_element_type=float32; fp64
+    # inputs stay fp64 (the exact answer that fp32 kernels are held to).
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     if causal:
@@ -46,13 +48,14 @@ def _scores(q, k, *, causal, scale, q_offset, window, softcap):
 
 
 def _sink_column(s, sinks):
-    return sinks.float().reshape(1, -1, 1, 1).expand(*s.shape[:-1], 1)
+    return sinks.to(s.dtype).reshape(1, -1, 1, 1).expand(*s.shape[:-1], 1)
 
 
 def reference_attention(q, k, v, *, causal: bool = False, scale_override=None,
                         q_offset: int | None = None, window: int = 0,
                         softcap: float = 0.0, sinks=None, return_lse=False):
-    """softmax(QK^T * scale) V with the softmax in fp32.
+    """softmax(QK^T * scale) V with the softmax in fp32 (fp64 for fp64
+    inputs).
 
     Shapes: q (batch, heads, sq, d), k/v (batch, kv_heads, skv, d). P is cast
     to the input dtype before PV, like the kernels. ``sinks`` ((heads,)
@@ -69,7 +72,7 @@ def reference_attention(q, k, v, *, causal: bool = False, scale_override=None,
     p = torch.softmax(full, dim=-1)[..., :s.shape[-1]].to(q.dtype)
     if v.shape[1] != q.shape[1]:
         v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
-    out = torch.matmul(p.float(), v.float()).to(q.dtype)
+    out = torch.matmul(p.to(s.dtype), v.to(s.dtype)).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(full, dim=-1)
     return out

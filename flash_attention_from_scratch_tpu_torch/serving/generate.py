@@ -65,6 +65,7 @@ from ..models.decode import (
 from ..models.llama import LlamaConfig
 from ..models.lora import n_adapters
 from ..models.step_graphs import StepGraphs
+from ..ops import _build
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, shard_params
 from ..utils.device import resolve_device
 from .runtime import PagedEngine
@@ -156,7 +157,9 @@ class GenerationServer:
     with attention sinks, and the checks of the JAX server on ``chunk``,
     ``spec_k``, ``prefill_chunk_tokens`` and ``prefix_cache`` with
     ``mesh``, on tp dividing ``n_kv_heads`` and on dp = 1, raise
-    ``ValueError``. On the card without a mesh ``graphs`` is the server's
+    ``ValueError``, and so does a config whose type the decode kernels
+    (K4/K5) take on no library of the card (fp32: ROADMAP item 4c-2), at
+    construction. On the card without a mesh ``graphs`` is the server's
     :class:`~..models.step_graphs.StepGraphs` (None on the CPU and under a
     mesh).
     """
@@ -217,6 +220,9 @@ class GenerationServer:
             device = mesh.device
         self.mesh = mesh
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # decode's K4/K5 library, before any work
+            _build.typed_source("paged_attention.cu", cfg.dtype.torch_dtype,
+                                "GenerationServer's decode (K4/K5)")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"server on {self.device}")

@@ -6,10 +6,10 @@ autotuning sweep, by default; ``prog`` | ``all`` | ``'<bq>,<bkv>'`` | short
 forms separated by ``;``), filtered by ``--dtype``. On Hopper the TPU's
 knobs select no kernel, so the configs that share a launch
 (``bench_attention.launch_key``) are timed once and share its figures, and
-every row names its kernel: ``tune``'s configs are all K1. A dtype the card's
-kernels refuse (fp32, ROADMAP Queue 1 item 4c: the wrapper's ``ValueError``)
-gives rows with the refusal as their ``error``, as the JAX tool records a
-failed compile; a kernel fault raises. Timing is CUDA events
+every row names its kernel: ``tune``'s configs are all K1 (bf16; fp16 and
+fp32 run from their libraries). A config the wrapper refuses (its
+``ValueError``) gives a row with the refusal as its ``error``, as the JAX
+tool records a failed compile; a kernel fault raises. Timing is CUDA events
 (``dispatch.median_runtime``); a row's ``first_call_s`` is its launch's first
 call (the kernel's build, the first time, and one run).
 

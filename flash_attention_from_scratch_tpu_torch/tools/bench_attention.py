@@ -23,8 +23,13 @@ x3.5 the forward's. TFLOP/s uses the JAX tool's FLOP model
 pairs); GB/s the forward's bytes: Q and O once, K and V once per KV tile
 the launched kernel copies (its plan's keys a tile) and Q head.
 ``--baseline`` also times PyTorch's ``scaled_dot_product_attention`` (its
-backward too under ``--grad``) as the library yardstick. On the card only:
-every timing path raises without one.
+backward too under ``--grad``) as the library yardstick; in fp32 on its
+memory-efficient backend (``SDPBackend.EFFICIENT_ATTENTION``, named in the
+row's ``kernel``; flash attention takes no fp32), K and V repeated to Q's
+heads beforehand. ``--dtype f32`` runs K1's and K11's fp32 libraries; JAX's
+progression has no fp32 config, so name its short forms in ``--kernels``
+(``fa_f32_...``); ``--grad`` in fp32 raises (no fp32 K2/K3 yet). On the
+card only: every timing path raises without one.
 
 Usage (on the card):
     python -m flash_attention_from_scratch_tpu_torch.tools.bench_attention \\
@@ -34,6 +39,9 @@ Usage (on the card):
         --heads 16 --kv-heads 8 --seq-lens 2048,4096 --grad --baseline --json
     python -m flash_attention_from_scratch_tpu_torch.tools.bench_attention \\
         --fori --causal --num-kv-buffers 3 --host-timing
+    python -m flash_attention_from_scratch_tpu_torch.tools.bench_attention --dtype f32 \\
+        --kernels 'fa_f32_q128_kv128_d128_grid2_x2+os+cp;fa_f32_q128_kv128_d128_fori2_x2+os+cp' \\
+        --causal --seq-lens 2048,4096 --baseline --json
 """
 
 from __future__ import annotations
@@ -159,7 +167,7 @@ def _bytes(cfg: KernelConfig, batch: int, heads: int, seq: int, sms: int) -> int
     d, elem = cfg.d_head, cfg.dtype.bytes
     qo = batch * heads * seq * d * (elem + cfg.resolved_out_dtype.bytes)
     if cfg.kv_loop == KVLoop.FORI:
-        p = fori_plan(cfg.num_kv_buffers, batch, heads, seq, seq, d)
+        p = fori_plan(cfg.num_kv_buffers, batch, heads, seq, seq, d, elem)
         calls = [(p.rows, p.keys, seq, seq, cfg.q_offset)]
     elif _banded(cfg):
         n = band_count(seq)
@@ -167,27 +175,45 @@ def _bytes(cfg: KernelConfig, batch: int, heads: int, seq: int, sms: int) -> int
         calls = []
         for row0, kv_start in band_slices(seq, 0, cfg.window, n):
             skv = row0 + rows - kv_start
-            p = grid_plan(batch, heads, rows, skv, True, cfg.window, row0 - kv_start, sms, d)
+            p = grid_plan(batch, heads, rows, skv, True, cfg.window, row0 - kv_start, sms, d,
+                          elem)
             calls.append((p.rows, p.keys, rows, skv, row0 - kv_start))
     else:
-        p = grid_plan(batch, heads, seq, seq, cfg.causal, cfg.window, cfg.q_offset, sms, d)
+        p = grid_plan(batch, heads, seq, seq, cfg.causal, cfg.window, cfg.q_offset, sms, d,
+                      elem)
         calls = [(p.rows, p.keys, seq, seq, cfg.q_offset)]
     kv = sum(_visible_tiles(cfg, rows, keys, sq, skv, off) * keys
              for rows, keys, sq, skv, off in calls)
     return qo + 2 * batch * heads * kv * d * elem
 
 
+# The SDPA backend timed for fp32 (flash attention takes 16-bit inputs only).
+SDPA_FP32_BACKEND = "efficient_attention"
+
+
 def _sdpa(cfg: KernelConfig, seq: int, device):
     """PyTorch's fused attention as a function of (q, k, v) with ``cfg``'s
-    mask and scale at ``seq``: the library yardstick."""
+    mask and scale at ``seq``: the library yardstick. fp32 runs on the
+    memory-efficient backend only (:data:`SDPA_FP32_BACKEND`), so that the
+    row names the backend that ran; the caller repeats K and V to Q's
+    heads."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     scale = cfg.softmax_scale
-    if not cfg.window:
-        return lambda q, k, v: sdpa(q, k, v, is_causal=cfg.causal, scale=scale,
-                                    enable_gqa=True)
-    pos = torch.arange(seq, device=device)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < cfg.window)
-    return lambda q, k, v: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+    if cfg.window:
+        pos = torch.arange(seq, device=device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < cfg.window)
+        kw = dict(attn_mask=mask)
+    else:
+        kw = dict(is_causal=cfg.causal)
+    if cfg.dtype != DType.FP32:
+        return lambda q, k, v: sdpa(q, k, v, scale=scale, enable_gqa=True, **kw)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def efficient(q, k, v):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return sdpa(q, k, v, scale=scale, **kw)
+
+    return efficient
 
 
 def _with_grad(forward, q, k, v):
@@ -239,8 +265,8 @@ def bench(seq_lens, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
     """Returns {config short form: {seq: {"ms", "tflops", "gbps",
     "kernel"}}} over :func:`resolve_configs`'s configs (and, with
     ``baseline``, ``"sdpa"``), each launch timed once a seq. On the card
-    only: raises without one, and for fp32 (every kernel: ROADMAP Queue 1,
-    item 4c); bf16 and fp16 run, ``grad`` too (K2/K3 in the inputs' type)."""
+    only: raises without one. bf16, fp16 and fp32 run; ``grad`` raises for
+    fp32 (K2/K3 have no fp32 library yet: ROADMAP Queue 1, item 4c-3)."""
     dev = resolve_device("cuda")
     dt = DType.from_short(dtype)
     _build.typed_source("flash_backward.cu" if grad else "flash_forward.cu", dt.torch_dtype,
@@ -287,13 +313,16 @@ def bench(seq_lens, heads: int = BENCHMARK_N_HEADS, kv_heads: int | None = None,
             # One baseline row a seq, at the first config's inputs and mask.
             cfg = next(iter(groups.values()))[0]
             q, k, v = inputs[cfg.d_head]
+            if dt == DType.FP32:  # the efficient backend, on Q's heads
+                k, v = (x.repeat_interleave(q.shape[1] // x.shape[1], 1) for x in (k, v))
             sdpa = _sdpa(cfg, seq, dev)
             fn = (_with_grad(sdpa, q, k, v) if grad
                   else lambda q=q, k=k, v=v: sdpa(q, k, v))  # noqa: E731
             secs = timer(fn)
             row = {"ms": secs * 1e3,
                    "tflops": flops(cfg, seq, heads, q.shape[0], grad) / secs / 1e12,
-                   "gbps": 0.0, "kernel": "sdpa"}
+                   "gbps": 0.0, "kernel": ("sdpa:" + SDPA_FP32_BACKEND if dt == DType.FP32
+                                           else "sdpa")}
             results.setdefault("sdpa", {})[seq] = row
             log(f"  seq {seq:>6} {'sdpa':<28} {row['ms']:9.3f} ms {row['tflops']:7.2f} TFLOP/s")
         del inputs
@@ -315,7 +344,8 @@ def main(argv=None):
                     help="GQA KV heads (default = --heads)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--dtype", default="bf16",
-                    help="bf16 or f16 (f32 is refused on the card)")
+                    help="bf16, f16 or f32 (f32: K1 and K11, by their fa_f32_ short forms; "
+                         "not with --grad)")
     ap.add_argument("--causal", action="store_true",
                     help="causal masks, causal FLOP accounting")
     ap.add_argument("--window", type=int, default=0,

@@ -75,15 +75,17 @@ __all__ = ["lower_kernel", "op_histogram", "diff_histograms", "slice_ir",
 
 # Every CUDA library of the port: K1; K11 at d 128 and 256; K2/K3 at d 128
 # and 256; K10 at d 128 and 256; K4/K5 and their merge; K6-K9 with their
-# finalize and quantize_rows_kernel; and the fp16 libraries of K1, K11,
-# K2/K3, K10, K4/K5 and K6-K9 (each bf16 source built with FA_F16).
+# finalize and quantize_rows_kernel; the fp16 libraries of K1, K11,
+# K2/K3, K10, K4/K5 and K6-K9 (each bf16 source built with FA_F16); and the
+# fp32 libraries of K1 and K11 (the fp32 main loop, csrc/flash_f32.cuh).
 LIBRARIES = tuple(dict.fromkeys((
     flash_forward.SOURCE, *flash_forward.SOURCES_FORI.values(),
     *flash_backward.SOURCES.values(), *flash_quant.SOURCES.values(),
     paged_attention.SOURCE, quant_matmul.SOURCE,
     flash_forward.SOURCE_F16, *flash_forward.SOURCES_FORI_F16.values(),
     *flash_backward.SOURCES_F16.values(), *flash_quant.SOURCES_F16.values(),
-    paged_attention.SOURCE_F16, quant_matmul.SOURCE_F16)))
+    paged_attention.SOURCE_F16, quant_matmul.SOURCE_F16,
+    flash_forward.SOURCE_F32, *flash_forward.SOURCES_FORI_F32.values())))
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SASS_DIR = os.path.join(_PKG, "kernel_sass")
@@ -154,14 +156,20 @@ def stable_name(symbol: str) -> str:
 
 def kernel_symbol(cfg) -> tuple[str, str]:
     """(library source, pattern of the mangled symbol) of the kernel
-    ``flash_forward`` launches for ``cfg`` at its head width: K11 at its
-    ring depth for a FORI config, else K1 (a banded config runs K1 a
-    band)."""
+    ``flash_forward`` launches for ``cfg`` at its head width and type: K11
+    at its ring depth for a FORI config, else K1 (a banded config runs K1 a
+    band); fp16 from its library, fp32 the fp32 main loop's kernel at the
+    ring depth (K1's: ``GRID_TILES_F32``)."""
     d = cfg.d_head
-    if cfg.kv_loop == KVLoop.FORI:
-        return (flash_forward.SOURCES_FORI[d],
-                f"flash_forward_fori_kernelILi{cfg.num_kv_buffers}ELi{d}E")
-    return flash_forward.SOURCE, f"flash_forward_kernelILi{d}E"
+    fori = cfg.kv_loop == KVLoop.FORI
+    source = _build.typed_source(flash_forward.SOURCES_FORI[d] if fori else flash_forward.SOURCE,
+                                 cfg.dtype.torch_dtype, "K11" if fori else "K1")
+    if cfg.dtype == DType.FP32:
+        nb = cfg.num_kv_buffers if fori else flash_forward.GRID_TILES_F32[d][2]
+        return source, f"flash_f32_kernelILi{nb}ELi{d}E"
+    if fori:
+        return source, f"flash_forward_fori_kernelILi{cfg.num_kv_buffers}ELi{d}E"
+    return source, f"flash_forward_kernelILi{d}E"
 
 
 def lower_kernel(cfg, seq: int = 2048, heads: int = 4, batch: int = 1) -> dict:

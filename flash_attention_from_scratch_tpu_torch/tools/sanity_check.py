@@ -9,8 +9,11 @@ each selected config (``--kernels``, ``--kernel N`` an index into them,
 by ``utils/testing.py::adaptive_tolerance_check``; mismatch counts and the
 largest difference are printed a config. ``--small`` is batch 1, one head,
 seq 512. A config whose blocks do not tile the seq is skipped (JAX's
-rule). A config the card refuses (``--dtype f32``: the kernels take bf16
-and fp16, ROADMAP Queue 1 item 4c) counts as a failure, never a pass.
+rule). ``--dtype f32`` runs K1's and K11's fp32 libraries (JAX's ``prog``
+has no fp32 config: name their ``fa_f32_`` short forms in ``--kernels``);
+there the reference pair is one fp32 computation and the rule's fp32
+floors bound the kernel. A config the wrapper refuses counts as a
+failure, never a pass.
 
 Exit codes, the JAX tool's: 0 when every config passed, 1 when any failed,
 2 when no config matched or every one was skipped.
@@ -18,6 +21,8 @@ Exit codes, the JAX tool's: 0 when every config passed, 1 when any failed,
 Usage:
     python -m flash_attention_from_scratch_tpu_torch.tools.sanity_check --kernels prog
     python -m flash_attention_from_scratch_tpu_torch.tools.sanity_check --small --kernel 3
+    python -m flash_attention_from_scratch_tpu_torch.tools.sanity_check --dtype f32 \\
+        --kernels 'fa_f32_q128_kv128_d128_grid2_x2+os+cp;fa_f32_q128_kv128_d128_fori2_x2+os+cp'
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ from .device import resolve_device
 
 __all__ = ["BATCH_SIZE_FOR_SEQ_LEN", "BENCHMARK_N_HEADS", "ErrorStats",
            "error_stats", "adaptive_tolerance_check", "sliced_tolerance_check",
+           "fp32_tolerance_check",
            "row_bands", "make_qkv", "generate_qkv"]
 
 # The benchmark shapes of the JAX package's bench tools: batch shrinks as seq
@@ -116,6 +117,25 @@ def sliced_tolerance_check(out, ref_native, ref_fp32, lead: int,
     worst = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()),
                                                      tuple(ratio.shape)))
     return bool((ratio <= 1).all()), float(ratio.max()), worst
+
+
+def fp32_tolerance_check(out, plain, exact, lead: int, factor: float = 2.0):
+    """:func:`sliced_tolerance_check` for an fp32 kernel: its error from the
+    exact answer (``exact``, fp64, rounded to fp32) at most ``factor`` x
+    the fp32 plain version's own error from it, floored at fp32's ulp and
+    summation-order floors, in each slice of the ``lead`` leading axes.
+
+    In fp32 the native and fp32 references are one computation, so the
+    rule's baseline error is 0 and only its floors are left; in 64-row
+    bands their ``sqrt(64)`` counts the band's rows, not the keys each row
+    sums, and the exact answer itself comes near them, or past them at d
+    256, against the plain version (``chip_smoke.py`` prints it). The
+    higher-precision reference of an fp32 computation is fp64, as fp32 is
+    of a 16-bit one.
+
+    Returns (ok, worst ratio of error to bound, index of the worst slice).
+    """
+    return sliced_tolerance_check(out, exact.float(), plain, lead, factor)
 
 
 def row_bands(x, band: int = 64):

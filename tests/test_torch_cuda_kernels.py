@@ -10,7 +10,10 @@ Tolerance: the adaptive tolerance rule against the plain version in bf16
 (native) and in fp32 on the same bf16-rounded inputs, held in each
 (batch, head, 64-row band) of a flash output or gradient and each sequence
 of a paged one on its own (each (sequence, token) with multi-token
-queries); the LSE within 1e-3. With ``int8_compute`` the native reference
+queries); the LSE within 1e-3. fp32 kernels (K1, K11) by
+``utils/testing.py::fp32_tolerance_check``: the error from the exact answer
+(the plain version in fp64) at most twice the plain fp32 version's, fp32's
+floors, the LSE within 1e-4. With ``int8_compute`` the native reference
 is the plain int8-compute version and the fp32 one the plain version
 without it on the same pages, q in fp32. The quantized matmuls: the
 weight-only kernels (K6, K7) by the same rule in each 16-row band against
@@ -77,7 +80,7 @@ from flash_attention_from_scratch_tpu_torch.tools.mosaic_dump import (
 )
 from flash_attention_from_scratch_tpu_torch.utils.device import sm_count
 from flash_attention_from_scratch_tpu_torch.utils.testing import (
-    make_qkv, row_bands, sliced_tolerance_check,
+    fp32_tolerance_check, make_qkv, row_bands, sliced_tolerance_check,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1017,11 +1020,12 @@ def test_paged_gather_walk_is_deterministic(cuda, mode):
 
 
 def test_kernels_refuse_other_dtypes(cuda):
-    """fp32 has no kernel (K1, K4/K5): ValueError, no plain fallback on the
-    card. fp16 runs (the fp16 tests below)."""
-    q = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.float32)
+    """A type with no kernel (K1: fp64, which the JAX package's kernels do
+    not take; K4/K5: fp32): ValueError, no plain fallback on the card. fp16
+    runs, and fp32 on K1 and K11 (the tests above and below)."""
+    q = torch.zeros((1, 2, 64, 128), device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError):
-        flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.FP32))
+        flash_forward_with_lse(q, q, q, KernelConfig())
     pages = torch.zeros((1, 2, 16, 128), device=cuda)
     with pytest.raises(ValueError):
         paged_decode_attention(torch.zeros((1, 2, 128), device=cuda), pages,
@@ -2395,6 +2399,169 @@ def test_quantized_fp16_q_keeps_its_type(cuda, q_kind, d_head):
     assert flash_forward_quantized(q16, kq, vq).dtype == torch.bfloat16
 
 
+# ---------------------------------------------------------------------------
+# fp32: K1 and K11 from their fp32 libraries (csrc/flash_f32.cuh: 3xTF32
+# products, P in fp32), held by utils/testing.py::fp32_tolerance_check (the
+# kernel's error from the exact answer, the plain version in fp64, at most
+# twice the plain fp32 version's, fp32's floors) on NaN-poisoned memory, the
+# LSE within 1e-4 of the plain fp32 one; the model's prefill in fp32; the
+# kernels still without fp32 (below: ``test_types_without_a_kernel_raise``).
+
+FP32_LIBRARIES = {FLASH_SOURCE: "flash_forward_f32.cu", SOURCE_FORI: "flash_forward_fori_f32.cu",
+                  SOURCES_FORI[256]: "flash_forward_fori_d256_f32.cu"}
+
+
+def _poison_cuda_memory(mb: int = 256) -> None:
+    """The next allocations of the caching allocator read as NaN (0xFF
+    bytes), so that an output a kernel leaves unwritten shows."""
+    block = torch.full((mb << 20,), 0xFF, dtype=torch.uint8, device="cuda")
+    del block
+
+
+def check_flash_kernel_fp32(cuda, sq, cfg, kernel, seq_kv=256, strided=False):
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in
+               make_qkv(2, 8, sq, cfg.d_head, kv_heads=2, seq_kv=seq_kv, seed=1))
+    if strided:  # (b, h, s, d) views of contiguous (b, s, h, d) rows
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    sinks = torch.linspace(-2, 2, 8, device=cuda)
+    _poison_cuda_memory()
+    before = _build.launch_counts[kernel]
+    out, lse = flash_forward_with_lse(q, k, v, cfg, sinks=sinks)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[kernel] == before + 1 and out.dtype == torch.float32
+    plain, lse32 = flash_forward_plain(q, k, v, cfg, sinks)
+    exact = reference_attention(q.double(), k.double(), v.double(), causal=cfg.causal,
+                                scale_override=cfg.softmax_scale,
+                                q_offset=cfg.q_offset if cfg.causal else None,
+                                window=cfg.window, softcap=cfg.attn_softcap, sinks=sinks)
+    ok, ratio, where = fp32_tolerance_check(row_bands(out), row_bands(plain), row_bands(exact),
+                                            lead=3)
+    assert ok, (ratio, where)
+    assert float((lse - lse32).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("sq,kw", K1_CASES)
+def test_flash_kernel_fp32_matches_plain(cuda, sq, kw, d_head):
+    """K1 in fp32 at d 128 and 256 on K1's cases (sinks, the LSE, GQA,
+    strided views, rows that see no key)."""
+    kw = dict(kw)
+    skv, strided = kw.pop("seq_kv", 256), kw.pop("strided", False)
+    check_flash_kernel_fp32(cuda, sq, KernelConfig(d_head=d_head, dtype=DType.FP32, **kw),
+                            FLASH, seq_kv=skv, strided=strided)
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("nbuf", range(1, MAX_KV_BUFFERS + 1))
+@pytest.mark.parametrize("sq,kw", [(256, dict(causal=True)), (192, dict(
+    causal=True, q_offset=128, window=70, seq_kv=320)), (256, dict(attn_softcap=30.0)),
+    (64, dict(causal=True))])
+def test_fori_kernel_fp32_matches_plain(cuda, sq, kw, nbuf, d_head):
+    """K11 in fp32 at every ring depth, d 128 and 256."""
+    kw = dict(kw)
+    skv = kw.pop("seq_kv", 256)
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP32, kv_loop=KVLoop.FORI,
+                       num_kv_buffers=nbuf, **kw)
+    check_flash_kernel_fp32(cuda, sq, cfg, FORI, seq_kv=skv)
+
+
+@pytest.mark.parametrize("d_head", [128, 256])
+@pytest.mark.parametrize("loop", [{}, dict(kv_loop=KVLoop.FORI, num_kv_buffers=3)])
+def test_make_flash_forward_fp32_is_one_launch(cuda, loop, d_head):
+    """``make_flash_forward`` bound to fp32: one launch a call (K1, or K11),
+    fp32 out, the bits of ``flash_forward_with_lse``."""
+    from flash_attention_from_scratch_tpu_torch.ops.flash_forward import make_flash_forward
+
+    cfg = KernelConfig(d_head=d_head, dtype=DType.FP32, causal=True, **loop)
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in
+               make_qkv(1, 4, 320, d_head, kv_heads=2, seed=3))
+    kernel = FORI if loop else FLASH
+    call = make_flash_forward(cfg, 1, 4, 320, 320, kv_heads=2, return_lse=True)
+    before = _build.launch_counts[kernel]
+    out, lse = call(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[kernel] == before + 1
+    assert out.dtype == lse.dtype == torch.float32
+    want, want_lse = flash_forward_with_lse(q, k, v, cfg)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("bf16_source", sorted(FP32_LIBRARIES))
+def test_fp32_libraries_multiply_in_tf32(cuda, bf16_source):
+    """Each fp32 library's products are TF32 mma.sync (HMMA ... TF32; no
+    HGMMA), and its bf16 library's are bf16."""
+    def products(source):
+        return [line for text in sass_by_function(source).values()
+                for line in text.splitlines() if "HGMMA" in line or "HMMA" in line]
+
+    f32 = products(FP32_LIBRARIES[bf16_source])
+    assert f32 and all(".TF32" in line and "HGMMA" not in line for line in f32), f32[:4]
+    assert not any(".TF32" in line for line in products(bf16_source))
+
+
+def test_fp32_flash_attention_backward_raises(cuda):
+    """``flash_attention`` in fp32: the forward runs K1's fp32 library, the
+    backward raises naming item 4c-3 before any kernel of it launches."""
+    from flash_attention_from_scratch_tpu_torch.ops.autodiff import flash_attention
+
+    q, k, v = (torch.from_numpy(x).to(cuda).requires_grad_() for x in
+               make_qkv(1, 4, 256, 128, kv_heads=2, seed=4))
+    cfg = KernelConfig(dtype=DType.FP32, causal=True)
+    out = flash_attention(q, k, v, cfg)
+    assert out.dtype == torch.float32
+    before = {n: _build.launch_counts[n] for n in (KERNEL_FUSED, KERNEL_DKV, KERNEL_DQ)}
+    with pytest.raises(ValueError, match="ROADMAP Queue 1, item 4c-3"):
+        out.sum().backward()
+    assert {n: _build.launch_counts[n] for n in before} == before
+
+
+@pytest.mark.parametrize("cfg", [dataclasses.replace(GRAPH_CFG, dtype=DType.FP32),
+                                 dataclasses.replace(D256_CFG, dtype=DType.FP32)],
+                         ids=["d128", "d256"])
+def test_fp32_prefill_on_the_card_matches_the_cpu(cuda, cfg):
+    """A small fp32 model's ``prefill`` on the card (K1's fp32 library, one
+    launch a layer) and ``forward`` give the CPU's plain path's logits within
+    1e-4 of the row's largest; its pages are fp32."""
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {n: to(x, dev) for n, x in tree.items()}
+        if isinstance(tree, list):
+            return [to(x, dev) for x in tree]
+        return tree.to(dev) if torch.is_tensor(tree) else tree
+
+    params = llama.init_params(cfg, torch.Generator(device="cpu").manual_seed(2), "cpu")
+    on_card = to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 256)))
+    table = torch.arange(4, dtype=torch.int32)
+    got = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        cache = decode.init_cache(cfg, 4, 64, device=dev)
+        before = _build.launch_counts[FLASH]
+        logits, cache = decode.prefill(p, toks.to(dev), cfg, cache, table.to(dev),
+                                       prompt_len=200)
+        forward = llama.forward(p, toks.to(dev), cfg)[0]
+        got[dev] = (logits.cpu(), forward.cpu(), _build.launch_counts[FLASH] - before)
+        assert cache.k_pages[0].dtype == torch.float32
+    assert got["cuda"][2] == 2 * cfg.n_layers and got["cpu"][2] == 0
+    for a, b in zip(got["cuda"][:2], got["cpu"][:2]):
+        assert a.dtype == torch.float32
+        gap = (a - b).abs().amax(-1) / b.abs().amax(-1)
+        assert float(gap.max()) <= 1e-4, float(gap.max())
+
+
+def _fp32_server(cuda, dtype):
+    from flash_attention_from_scratch_tpu_torch.serving.generate import GenerationServer
+
+    cfg = dataclasses.replace(GRAPH_CFG, n_layers=1, dtype=DType.from_torch(dtype))
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    GenerationServer(params, cfg, num_pages=8, page_size=64, max_batch=2)
+
+
+def _typed_forward(cuda, dtype):
+    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
+    return flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.from_torch(dtype)))
+
+
 def _refused_backward(cuda, dtype):
     q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
     lse = torch.zeros(1, 2, 128, device=cuda)
@@ -2405,11 +2572,6 @@ def _refused_quant(cuda, dtype):
     q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
     kq = quantize_kv(q.float(), "int8")
     flash_forward_quantized(q, kq, kq, KernelConfig(dtype=DType.from_torch(dtype)))
-
-
-def _refused_forward(cuda, dtype):
-    q = torch.zeros(1, 2, 128, 128, device=cuda, dtype=dtype)
-    flash_forward_with_lse(q, q, q, KernelConfig(dtype=DType.from_torch(dtype)))
 
 
 def _refused_paged(cuda, dtype):
@@ -2431,13 +2593,23 @@ def _refused_qmm(cuda, dtype):
 
 
 @pytest.mark.parametrize("call,dtype,item", [
-    (_refused_forward, torch.float32, "4c"), (_refused_paged, torch.float32, "4c"),
-    (_refused_qmm, torch.float32, "4c"), (_refused_backward, torch.float32, "4c"),
-    (_refused_quant, torch.float32, "4c"), (_refused_quantized_q, torch.float32, "4c")],
-    ids=["K1-fp32", "K4K5-fp32", "K6-fp32", "K2K3-fp32", "K10-fp32", "K10-fp32-quantized-q"])
+    (_typed_forward, torch.float32, None), (_refused_paged, torch.float32, "4c-2"),
+    (_refused_qmm, torch.float32, "4c-2"), (_refused_backward, torch.float32, "4c-3"),
+    (_refused_quant, torch.float32, "4c-3"), (_refused_quantized_q, torch.float32, "4c-3"),
+    (_fp32_server, torch.float32, "4c-2")],
+    ids=["K1-fp32", "K4K5-fp32", "K6-fp32", "K2K3-fp32", "K10-fp32", "K10-fp32-quantized-q",
+         "server-fp32"])
 def test_types_without_a_kernel_raise(cuda, call, dtype, item):
-    """fp32 on every kernel raises ValueError on a CUDA tensor, naming the
-    ROADMAP item that will bring it; for K10 also a quantized Q of fp32
-    ``orig_dtype`` (the compute type), which no kernel runs as bf16."""
+    """fp32 on every kernel but K1 and K11 raises ValueError on a CUDA
+    tensor, naming the ROADMAP sub-item that will bring it (4c-2: K4/K5,
+    K6-K9; 4c-3: K2/K3, K10, for K10 also a quantized Q of fp32
+    ``orig_dtype``, the compute type, which no kernel runs as bf16); so does
+    an fp32 ``GenerationServer`` at construction (its decode is K4/K5).
+    K1 runs fp32 from its own library (item None), fp32 out."""
+    if item is None:
+        out, lse = call(cuda, dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == lse.dtype == torch.float32 and bool(torch.isfinite(out).all())
+        return
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1, item {item}"):
         call(cuda, dtype)
